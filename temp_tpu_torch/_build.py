@@ -31,14 +31,37 @@ _F = ctypes.c_float
 # launcher name -> argtypes (pointers and the stream as c_void_p, so ctypes
 # never cuts a 64-bit address to 32 bits)
 SIGNATURES = {
-    # spmm_fwd(rowptr, src, rel, em, h, w, out, n_rows, d, stream)
-    "spmm_fwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # spmm_fwd(rowptr, src, rel, em, h, w, out, n2_out, n_rows, d, stream)
+    "spmm_fwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # spmm_bwd(s_ptr, s_dst, s_rel, s_em, r_ptr, r_src, r_dst, r_em, g, n2,
+    #          h, w, dh, dw, n_rows, n_rels, d, stream)
+    "spmm_bwd_launch": [_P] * 14 + [_I, _I, _I, _P],
     # window_layer(x, conv_given, rowptr, src, rel, em, wrel, wstride, wcol,
-    #              loop, wih_t, whh_t, bih, bhh, gidx, live, dt, lam, buf,
-    #              B, L1, A, d, k, stream)
+    #              loop, mask, wih_t, whh_t, bih, bhh, gidx, live, dt, lam,
+    #              buf, B, L1, A, d, k, stream)
     "window_layer_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I,
-                            _P, _P, _P, _P, _P, _P, _P, _P, _F, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P,
                             _I, _I, _I, _I, _I, _P],
+    # window_bwd_gru(x, rowptr, src, rel, em, wrel, wstride, wcol, loop,
+    #                mask, wih_t, whh_t, bih, bhh, wih, whh, gidx, live, dt,
+    #                lam, prev, db, n2_out, conv_s, h0g_s, dgi_s, dgh_s,
+    #                dconv_s, dlp_s, B, L1, A, d, k, stream)
+    "window_bwd_gru_launch": [_P, _P, _P, _P, _P, _P, _I, _I,
+                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _P],
+    # window_bwd_input(s_ptr, s_dst, s_rel, s_em, s_eid, n2, dconv_s, dlp_s,
+    #                  wrel, wstride, wcol, loop_t, x, ewg, out, accumulate,
+    #                  B, L1, A, d, k, stream)
+    "window_bwd_input_launch": [_P] * 9 + [_I, _I, _P, _P, _P, _P,
+                                           _I, _I, _I, _I, _I, _I, _P],
+    # window_wgrad(conv2, h0g2, buf1, dgi2, dgh2, dlp2, conv1, h0g1, h0x,
+    #              dgi1, dgh1, dlp1, part, n_split, B, L1, A, d, k, stream)
+    "window_wgrad_launch": [_P] * 13 + [_I, _I, _I, _I, _I, _I, _P],
+    # window_wgrad_reduce(part, n_split, total, out, stream)
+    "window_wgrad_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],
+    # window_rel_grad(r_ptr, r_eid, ewg1, ewg2, dwrel, n_rels, d, stream)
+    "window_rel_grad_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -5,7 +5,8 @@ and model defaults, and the same loader for the ``grid/*/config_*.json``
 files, so one config file drives both packages. Differences:
 
 - ``"auto"`` flags resolve on the device the port runs on (on for CUDA, off
-  for the CPU) instead of on the JAX backend;
+  for the CPU) instead of on the JAX backend, except ``fused_final``, which
+  stays off until its kernels are ported;
 - ``eval_conv1`` replaces the ``TEMP_TPU_EVAL_CONV1`` environment switch of
   the JAX trainer;
 - ``kernels`` selects between each hand-written kernel and its plain PyTorch
@@ -125,6 +126,20 @@ class TKGConfig:
 
     def fused_window_on(self, device) -> bool:
         return self._auto_flag(self.fused_window, device)
+
+    def fused_final_on(self, device) -> bool:
+        """The fused dense final step (kernels K3-K5 of the JAX package) is
+        not ported yet: "auto" resolves to off on every device, and an
+        explicit on raises rather than quietly running the unfused step."""
+        if isinstance(self.fused_final, str) and \
+                self.fused_final.lower() == "auto":
+            return False
+        if self._auto_flag(self.fused_final, device):
+            raise NotImplementedError(
+                "fused_final=True needs kernels K3-K5 (the fused final step "
+                "and its backward, temp_tpu/ops/fused_final.py), which are "
+                "not ported yet; see ROADMAP.md")
+        return False
 
     # -- run control --------------------------------------------------------
     debug: bool = False

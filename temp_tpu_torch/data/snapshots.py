@@ -10,17 +10,22 @@ Every snapshot is a fixed-width padded edge list in global entity ids:
   compact coordinates, which the history window runs on.
 
 ``TKGData`` holds numpy arrays; ``to_device`` gives the same structure with
-torch tensors on a device.
+torch tensors on a device. ``build_tkg_data`` loads a dataset directory,
+with an npz cache at the root of the checkout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 from dataclasses import dataclass
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
+
+from temp_tpu_torch.data.quadruples import load_quadruples, load_stat
 
 INT_PAD = np.iinfo(np.int32).max
 
@@ -317,3 +322,83 @@ def make_synthetic(
     return build_tkg_data_from_quads(
         train_q, valid_q, test_q, num_ents, num_rels, edge_pad_multiple
     )
+
+
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".data_cache")
+_CACHE_VERSION = "torch-v1"
+
+
+def build_tkg_data(cfg, cache: bool = True,
+                   cache_dir: str = CACHE_DIR) -> TKGData:
+    """Load ``cfg.dataset_path`` (stat.txt and train/valid/test.txt) into
+    TKGData, through an npz cache of the packed arrays in `cache_dir`
+    (keyed by path, dataset_dir, edge_pad_multiple and this package's
+    version key). Extrapolation datasets carry both edge directions, the
+    reverse with relation id rel + num_rels, and icews14's dev split there
+    is its test split, as in the reference."""
+    path = cfg.dataset_path
+    num_ents, num_rels, _ = load_stat(path)
+    key = hashlib.md5(
+        f"{path}:{cfg.dataset_dir}:{cfg.edge_pad_multiple}:{_CACHE_VERSION}"
+        .encode()).hexdigest()[:16]
+    cache_file = os.path.join(
+        cache_dir, f"tkg_torch_{os.path.basename(path)}_{key}.npz")
+    if cache and os.path.exists(cache_file):
+        with np.load(cache_file) as z:
+            return _from_npz(z, num_ents, num_rels)
+
+    train_q, _ = load_quadruples(path, "train.txt")
+    valid_q, _ = load_quadruples(path, "valid.txt")
+    test_q, _ = load_quadruples(path, "test.txt")
+    if cfg.dataset_dir == "extrapolation":
+        if cfg.dataset == "icews14":
+            valid_q = test_q.copy()
+        train_q = add_reverse_edges(train_q, num_rels)
+        valid_q = add_reverse_edges(valid_q, num_rels)
+        test_q = add_reverse_edges(test_q, num_rels)
+    data = build_tkg_data_from_quads(train_q, valid_q, test_q, num_ents,
+                                     num_rels, cfg.edge_pad_multiple)
+    if cache:
+        # concurrent processes each write a private file and rename it in,
+        # so a reader never sees a half-written cache
+        os.makedirs(cache_dir, exist_ok=True)
+        tmp = f"{cache_file}.{os.getpid()}.tmp.npz"
+        try:
+            np.savez_compressed(tmp, **_to_npz(data))
+            os.replace(tmp, cache_file)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return data
+
+
+_SPLITS = ("train", "valid", "test")
+_TABLES = ("train_tail", "train_head", "total_tail", "total_head")
+_EDGE_FIELDS = ("src", "rel", "dst", "emask", "n_edges")
+_PLAIN = ("times", "active", "act_idx", "act_mask", "train_src_loc",
+          "train_dst_loc")
+
+
+def _to_npz(d: TKGData) -> Dict[str, np.ndarray]:
+    out = {k: np.asarray(getattr(d, k)) for k in _PLAIN}
+    out["num_times"] = np.int64(d.num_times)
+    for name in _SPLITS:
+        for f in _EDGE_FIELDS:
+            out[f"{name}_{f}"] = np.asarray(getattr(getattr(d, name), f))
+    for name in _TABLES:
+        t = getattr(d, name)
+        out[f"{name}_grp"] = np.asarray(t.grp)
+        out[f"{name}_val"] = np.asarray(t.val)
+    return out
+
+
+def _from_npz(z, num_ents: int, num_rels: int) -> TKGData:
+    return TKGData(
+        **{name: SplitEdges(**{f: z[f"{name}_{f}"] for f in _EDGE_FIELDS})
+           for name in _SPLITS},
+        **{name: FilterTable(grp=z[f"{name}_grp"], val=z[f"{name}_val"])
+           for name in _TABLES},
+        **{k: z[k] for k in _PLAIN},
+        num_ents=num_ents, num_rels=num_rels, num_times=int(z["num_times"]))

@@ -1,0 +1,97 @@
+"""Training CLI of the port.
+
+    python -m temp_tpu_torch.main -c grid/icews14/config_grrgcn.json \
+        [--device cuda|cpu] [--field value | --flag | --no-flag ...]
+
+Every TKGConfig field is a flag (``--field value``, or ``--flag`` /
+``--no-flag`` for booleans). The run trains with ``Trainer.fit`` (early stop
+on val MRR, best checkpoint, metrics.jsonl under
+<experiments_dir>/<model name>/), then evaluates the best checkpoint on the
+test split and writes test_metrics.json beside it. ``--resume`` continues
+from the run's last-state checkpoint, else from its best one. ``--device``
+defaults to cuda; ``--device cpu`` runs every kernel's plain version.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+
+
+def parse_args(argv=None):
+    from temp_tpu_torch.config import TKGConfig
+
+    parser = argparse.ArgumentParser(description="temp_tpu_torch trainer")
+    parser.add_argument("--config", "-c", type=str, default=None)
+    parser.add_argument("--device", type=str, default="cuda")
+    for f in dataclasses.fields(TKGConfig):
+        name = "--" + f.name.replace("_", "-")
+        if isinstance(f.default, bool):
+            parser.add_argument(name, action=argparse.BooleanOptionalAction,
+                                default=None)
+        else:
+            parser.add_argument(name, type=str, default=None)
+    args = parser.parse_args(argv)
+
+    raw = {}
+    if args.config:
+        with open(args.config) as fh:
+            raw.update(json.load(fh))
+    for f in dataclasses.fields(TKGConfig):
+        v = getattr(args, f.name, None)
+        if v is None:
+            continue
+        if not isinstance(v, bool) and f.default is not None:
+            v = {int: int, float: float}.get(type(f.default), str)(v)
+        raw[f.name] = v
+    return TKGConfig.from_dict(raw), args.device
+
+
+def main(argv=None):
+    cfg, device = parse_args(argv)
+    from temp_tpu_torch.data.snapshots import build_tkg_data
+    from temp_tpu_torch.models.registry import get_model
+    from temp_tpu_torch.train.loop import Trainer
+
+    print(f"config: module={cfg.module} dataset={cfg.dataset} "
+          f"seq_len={cfg.train_seq_len} device={device}")
+    data = build_tkg_data(cfg)
+    print(f"data: {data.num_ents} entities, {data.num_rels} relations, "
+          f"{data.num_times} timestamps, train edge pad "
+          f"{data.train.src.shape[1]}")
+    model = get_model(cfg, data, device=device)
+    trainer = Trainer(cfg, model, data)
+    kw = {}
+    if cfg.resume:
+        last = trainer.load_last()
+        if last is not None:
+            params, optimizer, start_epoch, best = last
+            kw = dict(params=params, optimizer=optimizer,
+                      start_epoch=start_epoch, best=best)
+            print(f"resumed at epoch {start_epoch} (best mrr {best[0]:.4f} "
+                  f"@ epoch {best[1]})")
+        elif os.path.exists(trainer.ckpt_path()):
+            params, optimizer, extra = trainer.load_checkpoint()
+            kw = dict(params=params, optimizer=optimizer,
+                      start_epoch=extra["epoch"] + 1,
+                      best=(extra["metrics"].get("mrr", -1.0),
+                            extra["epoch"]))
+            print(f"resumed from the best checkpoint, epoch {extra['epoch']}")
+    result = trainer.fit(**kw)
+    params = result["params"]
+    if os.path.exists(trainer.ckpt_path()):
+        params, _, _ = trainer.load_checkpoint()
+    test = trainer.run_eval(params, "test")
+    print(f"test: mrr={test['mrr']:.4f} h1={test['hit_1']:.4f} "
+          f"h3={test['hit_3']:.4f} h10={test['hit_10']:.4f} n={test['n']}")
+    with open(os.path.join(trainer.run_dir, "test_metrics.json"), "w") as f:
+        json.dump({"best_epoch": result["best_epoch"],
+                   "best_val_mrr": result["best_mrr"], "test": test}, f,
+                  indent=2)
+    return test
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""DynamicRGCN: the unidirectional recurrent pipeline (GRRGCN), eval paths.
+"""DynamicRGCN: the unidirectional recurrent pipeline (GRRGCN).
 
 For a batch of target times the history window (the L-1 snapshots before
 each target) runs in compact form: every step computes only the active rows
@@ -8,6 +8,12 @@ all N entities against the densified history and gives the [N, d] table
 that the decoder scores.
 
 Tensors carry an explicit batch dimension where the JAX package vmaps.
+
+Training draws every random choice of a step up front (``draw_train``):
+the self-loop dropout masks of the window and of the final step, the 50%
+edge subsample of the final snapshot and the positive subset of the loss.
+``loss`` takes them as the optional `draws`, so a test can hand the model
+the JAX package's own draws.
 """
 
 from __future__ import annotations
@@ -25,12 +31,15 @@ from temp_tpu_torch.models.encoders import (
     _base_module, encoder_forward, init_encoder, make_layer_cfgs,
 )
 from temp_tpu_torch.models.layers import (
-    RELU_GAIN, Snapshot, rgcn_conv, xavier_uniform,
+    RELU_GAIN, Snapshot, dropout_mask, rgcn_conv, xavier_uniform,
 )
-from temp_tpu_torch.models.objectives import eval_ranks_single
+from temp_tpu_torch.models.objectives import (
+    eval_ranks_single, train_loss_single,
+)
 from temp_tpu_torch.ops.fused_window import (
     fused_window_scan, fused_window_supported,
 )
+from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 from temp_tpu_torch.ops.scores import get_score_fn
 
 
@@ -87,7 +96,7 @@ def _flat_graph(src, dst, n_rows: int):
 
 
 class DynamicRGCNModel:
-    """GRRGCN, the eval half (reference models/DynamicRGCN.py)."""
+    """GRRGCN (reference models/DynamicRGCN.py)."""
 
     def __init__(self, cfg: TKGConfig, data: TKGData, device="cuda"):
         self.cfg = cfg
@@ -128,11 +137,11 @@ class DynamicRGCNModel:
         last row, as a clamped gather does in the JAX package."""
         return params["ent_embeds"][idx.long().clamp(max=self.num_ents - 1)]
 
-    def fused_window_on(self) -> bool:
+    def fused_window_on(self, train: bool = False) -> bool:
         return (self.cfg.fused_window_on(self.device)
                 and fused_window_supported(
                     self.cfg, _base_module(self.cfg.module),
-                    self.lc2.activation))
+                    self.lc2.activation, train=train))
 
     def precompute_eval_conv1(self, params, data: TKGData):
         """Layer-1 conv outputs for ALL train snapshots, compact [T, A, d].
@@ -161,13 +170,15 @@ class DynamicRGCNModel:
         return conv1_all[safe[..., :length - 1]]
 
     def pre_forward(self, params, win: WindowSlice, length: int, t_pos,
-                    conv1_xs=None):
+                    conv1_xs=None, train: bool = False, masks=None):
         """Run the first length-1 snapshots of B windows (win and t_pos with
         a leading batch dim). Returns (hist1, hist2, last_pos): [B, N, d] x2
         and [B, N], the history each entity carries into the final step.
 
         `conv1_xs` [B, L1, A, d]: precomputed layer-1 convs of the window
-        steps; layer 1's SpMM is then skipped.
+        steps (eval); layer 1's SpMM is then skipped. `masks` (train): the
+        self-loop keep masks of layer 1 and layer 2, each bool
+        [B, L1, A, d], or None without dropout.
         """
         cfg = self.cfg
         d = cfg.embed_size
@@ -187,14 +198,19 @@ class DynamicRGCNModel:
                                                      win.act_idx[:, :L1])
         bidx = torch.arange(B, device=self.device)[:, None]
 
-        if self.fused_window_on():
+        if masks is not None and masks[0] is None:
+            masks = None
+        if self.fused_window_on(train):
             pos = torch.arange(L1, device=self.device)[None, :, None]
             dt = (pos - prev_step.clamp(min=0)).to(torch.float32)
+            keep = 1.0 - self.lc1.dropout
+            scaled = None if masks is None else tuple(
+                m.to(torch.float32) / keep for m in masks)
             bufs = fused_window_scan(
                 params["encoder"], cfg, h0_xs, win.src_loc[:, :L1],
                 win.dst_loc[:, :L1], win.rel[:, :L1], win.emask[:, :L1],
                 prev_step, prev_row, dt, prev_step >= 0, conv1_in=conv1_in,
-                kernels=cfg.kernels)
+                kernels=cfg.kernels, masks=scaled)
         else:
             bufs = (torch.zeros(B, L1, A, d, device=self.device),
                     torch.zeros(B, L1, A, d, device=self.device))
@@ -209,11 +225,14 @@ class DynamicRGCNModel:
                 snap = Snapshot(src=src, dst=dst,
                                 rel=win.rel[:, k].reshape(-1),
                                 emask=win.emask[:, k].reshape(-1), t_idx=0)
+                step_masks = (None, None) if masks is None else tuple(
+                    m[:, k].reshape(B * A, d) for m in masks)
                 out1, out2, _ = encoder_forward(
                     params["encoder"], cfg, self.lc1, self.lc2,
                     h0_xs[:, k].reshape(B * A, d), snap,
                     h1.reshape(B * A, d), h2.reshape(B * A, d),
-                    dt.reshape(-1), conv1_in=conv1_in)
+                    dt.reshape(-1), conv1_in=conv1_in,
+                    train=masks is not None, masks=step_masks)
                 bufs[0][:, k] = out1.reshape(B, A, d)
                 bufs[1][:, k] = out2.reshape(B, A, d)
 
@@ -225,11 +244,18 @@ class DynamicRGCNModel:
         hist2 = bufs[1].reshape(B, L1 * A, d)[bidx, fidx] * has
         return hist1, hist2, fin_step.clamp(min=0).to(torch.float32)
 
-    def forward_element(self, params, data: TKGData, t_pos: int, hists=None):
+    def forward_element(self, params, data: TKGData, t_pos: int, hists=None,
+                        train: bool = False, emask=None, masks=(None, None)):
         """Full forward for one target time -> dense [N, d] entity table.
         `hists`: this element's (hist1, hist2, last_pos) from a batched
-        pre_forward; computed here when not given."""
-        length = self.eval_len
+        pre_forward; computed here (eval) when not given.
+
+        Training (`train`, with `hists` given) runs the final snapshot on
+        `emask` [E] bool, the 50% subsample of its edges, and self-loop
+        dropout with the keep masks `masks` (layer 1, layer 2; [N, d] bool,
+        None without dropout); ``draw_train`` draws them.
+        """
+        length = self.train_len if train else self.eval_len
         tp = torch.tensor(int(t_pos), device=self.device)
         win = gather_window(data, tp, length)
         if hists is None:
@@ -239,16 +265,87 @@ class DynamicRGCNModel:
         hist1, hist2, last_pos = hists
         last = length - 1
         snap = Snapshot(src=win.src[last], dst=win.dst[last],
-                        rel=win.rel[last], emask=win.emask[last],
+                        rel=win.rel[last],
+                        emask=win.emask[last] if emask is None else emask,
                         t_idx=win.t_idx[last], valid=win.valid[last],
                         active=win.active[last])
         dt = last - last_pos
         emb = params["ent_embeds"]
         _, out2, _ = encoder_forward(params["encoder"], self.cfg, self.lc1,
-                                     self.lc2, emb, snap, hist1, hist2, dt)
+                                     self.lc2, emb, snap, hist1, hist2, dt,
+                                     train=train, masks=masks)
         if self.cfg.use_embed_for_non_active:
             out2 = torch.where(snap.active[:, None], out2, emb)
         return out2
+
+    # -- training -----------------------------------------------------------
+
+    def draw_train(self, gen: torch.Generator, data: TKGData, t_pos):
+        """Every random draw of one training step for the targets t_pos [B]
+        (a tensor on the model's device), from `gen` (on that device):
+
+        - "win1"/"win2": the window's self-loop keep masks, [B, L1, A, d]
+          bool (None without dropout);
+        - "fin1"/"fin2": the final step's, [B, N, d] bool (None without);
+        - "edges": the final snapshot's 50% edge subsample, [B, E] bool;
+        - "pos": the loss's positive subset, [B, E] bool.
+        """
+        cfg = self.cfg
+        tp = t_pos.long()
+        B, L1, d = tp.shape[0], self.train_len - 1, cfg.embed_size
+        A = data.act_idx.shape[-1]
+        rate = self.lc1.dropout
+        out = {"win1": None, "win2": None, "fin1": None, "fin2": None}
+        if rate > 0.0:
+            if L1 > 0:
+                for key in ("win1", "win2"):
+                    out[key] = dropout_mask(gen, (B, L1, A, d), rate,
+                                            self.device)
+            for key in ("fin1", "fin2"):
+                out[key] = dropout_mask(gen, (B, self.num_ents, d), rate,
+                                        self.device)
+        out["edges"] = subsample_edges(gen, data.train.emask[tp], 0.5)
+        out["pos"] = subsample_positives(gen, data.train.emask[tp],
+                                         cfg.num_pos_facts)
+        return out
+
+    def loss(self, params, data: TKGData, t_pos, t_valid,
+             gen: torch.Generator = None, draws=None):
+        """Summed tail+head CE over the batch: the sum over b of the
+        per-element loss times t_valid[b] (reference DynamicRGCN.py:176-194).
+
+        `draws` (see ``draw_train``) fixes every random choice; drawn from
+        `gen` when None. The history window of all B targets runs as one
+        batch (K2 with its backward on the card); each target's final step
+        (K1) and loss follow, elements whose t_valid is False skipped (their
+        term is zero).
+        """
+        cfg = self.cfg
+        cfg.fused_final_on(self.device)  # raises for an explicit True
+        t_host = [int(t) for t in np.asarray(t_pos)]
+        tv = [bool(v) for v in np.asarray(t_valid)]
+        tp = torch.tensor(t_host, device=self.device)
+        if draws is None:
+            draws = self.draw_train(gen, data, tp)
+        length = self.train_len
+        win = gather_window(data, tp, length)
+        hist1, hist2, last_pos = self.pre_forward(
+            params, win, length, tp, train=True,
+            masks=(draws["win1"], draws["win2"]))
+        tr = data.train
+        total = torch.zeros((), device=self.device)
+        for b, t in enumerate(t_host):
+            if not tv[b]:
+                continue
+            fin = (None, None) if draws["fin1"] is None else (
+                draws["fin1"][b], draws["fin2"][b])
+            table = self.forward_element(
+                params, data, t, hists=(hist1[b], hist2[b], last_pos[b]),
+                train=True, emask=draws["edges"][b], masks=fin)
+            total = total + train_loss_single(
+                cfg, data, self.score_all, params["rel_embeds"], table, t,
+                tr.src[t], tr.rel[t], tr.dst[t], draws["pos"][b])
+        return total
 
     # -- objectives ---------------------------------------------------------
 

@@ -67,16 +67,19 @@ def init_encoder(gen: torch.Generator, cfg: TKGConfig, num_rels: int,
 
 def encoder_forward(p, cfg: TKGConfig, lc1: LayerCfg, lc2: LayerCfg, h0,
                     snap: Snapshot, prev1, prev2, dt,
-                    conv1_in: bool = False):
+                    conv1_in: bool = False, train: bool = False,
+                    masks=(None, None)):
     """One snapshot through the recurrent container. Returns
     (out1, out2, local2); local2 is layer 2's pre-GRU output.
 
     ``conv1_in=True``: ``h0`` already holds this snapshot's precomputed
-    layer-1 conv output; layer 1 runs only its GRU.
+    layer-1 conv output; layer 1 runs only its GRU. In training each
+    layer's self-loop takes dropout with the keep masks `masks` (layer 1,
+    layer 2).
     """
     _, out1, _ = grrgcn_layer(p["layer1"], cfg, lc1, h0, snap, prev1, dt,
-                              conv_in=conv1_in)
-    conv2 = rgcn_conv(p["layer2"], cfg, lc2, out1, snap)
+                              conv_in=conv1_in, train=train, mask=masks[0])
+    conv2 = rgcn_conv(p["layer2"], cfg, lc2, out1, snap, train, masks[1])
     out2 = gru_stack(p["layer2"]["gru"], conv2,
                      prev2 * decay_factor(p["layer2"], cfg, dt))
     return out1, out2, conv2

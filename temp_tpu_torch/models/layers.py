@@ -89,15 +89,32 @@ def _activation(name: Optional[str], x):
     raise ValueError(name)
 
 
-def rgcn_conv(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot):
-    """Aggregation + bias + self-loop + activation, as in eval (the
-    self-loop dropout of training is not ported yet)."""
+def dropout_mask(gen: torch.Generator, shape, rate: float, device):
+    """Bernoulli keep mask (True with probability 1 - rate)."""
+    return torch.rand(tuple(shape), generator=gen, device=device) < 1.0 - rate
+
+
+def _dropout(x, rate: float, train: bool, mask=None):
+    """Training dropout: kept entries scaled by 1/keep; `mask` (bool, the
+    shape of x) is the keep mask (``dropout_mask``)."""
+    if not train or rate == 0.0:
+        return x
+    if mask is None:
+        raise ValueError("training dropout needs its keep mask")
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def rgcn_conv(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
+              train: bool = False, mask=None):
+    """Aggregation + bias + self-loop + activation. In training the
+    self-loop message takes dropout at rate ``lc.dropout`` with the keep
+    mask `mask`."""
     out = rel_spmm(h, snap.src, snap.dst, snap.rel, snap.emask, p["weight"],
                    lc.n_bases, lc.out_feat, h.shape[0], kernels=cfg.kernels)
     if lc.bias:
         out = out + p["h_bias"]
     if lc.self_loop:
-        out = out + h @ p["loop_weight"]
+        out = out + _dropout(h @ p["loop_weight"], lc.dropout, train, mask)
     return _activation(lc.activation, out)
 
 
@@ -114,13 +131,14 @@ def decay_factor(p, cfg: TKGConfig, dt):
 
 
 def grrgcn_layer(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot, prev,
-                 dt, conv_in: bool = False):
+                 dt, conv_in: bool = False, train: bool = False, mask=None):
     """GRU-recurrent RGCN layer. Returns (conv_out, rec_out, time_emb).
 
     ``conv_in=True``: ``h`` already is this layer's conv output (the eval
-    reuse of precomputed layer-1 convs); only the GRU runs.
+    reuse of precomputed layer-1 convs); only the GRU runs. `train` and
+    `mask` are the conv's self-loop dropout (``rgcn_conv``).
     """
-    conv = h if conv_in else rgcn_conv(p, cfg, lc, h, snap)
+    conv = h if conv_in else rgcn_conv(p, cfg, lc, h, snap, train, mask)
     h0 = prev * decay_factor(p, cfg, dt)
     rec = gru_stack(p["gru"], conv, h0)
     return conv, rec, layer_time_embedding(p, snap)

@@ -1,4 +1,5 @@
-"""Filtered-evaluation objectives over a dense [N, d] entity table."""
+"""Training loss and filtered-evaluation objectives over a dense [N, d]
+entity table."""
 
 from __future__ import annotations
 
@@ -7,12 +8,48 @@ import torch
 
 from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.data.snapshots import TKGData
+from temp_tpu_torch.ops.membership import true_answer_mask
 from temp_tpu_torch.ops.ranking import filtered_ranks
+from temp_tpu_torch.ops.scores import score_against_rows, score_positive_rows
 
 
 def _masked_mean(x, mask):
     m = mask.to(x.dtype)
     return torch.sum(x * m) / torch.sum(m).clamp(min=1.0)
+
+
+def train_loss_single(cfg: TKGConfig, data: TKGData, score_all_fn,
+                      rel_embeds, table, t_pos: int, src, rel, dst,
+                      pos_mask):
+    """Tail+head cross-entropy for one target snapshot, negative pool
+    "all": an exact softmax over every entity, the other true answers of
+    each query (train facts at t) masked out, the positive in column 0.
+    The mean over the positives `pos_mask` [E] (the edge slots the loss
+    takes) of each direction, summed. `data` holds tensors."""
+    if cfg.negative_pool != "all":
+        raise NotImplementedError(
+            f"negative_pool={cfg.negative_pool!r} (and its samplers "
+            f"draw_negatives/draw_shared_negatives) is not ported yet; see "
+            f"ROADMAP.md")
+    r2 = 2 * data.num_rels
+    src, rel, dst = src.long(), rel.long(), dst.long()
+    r_emb = rel_embeds[rel]
+
+    def ce_all(tbl, q_grp, q_rows, pos_rows, mode):
+        bad = true_answer_mask(tbl.grp[t_pos], tbl.val[t_pos], q_grp,
+                               data.num_ents)
+        sc = score_against_rows(score_all_fn, q_rows, r_emb, table, mode)
+        sc = sc.masked_fill(bad, -1e9)
+        sc_pos = score_positive_rows(score_all_fn, q_rows, r_emb, pos_rows,
+                                     mode)
+        logits = torch.cat([sc_pos[:, None], sc], dim=1)
+        return -torch.log_softmax(logits, dim=-1)[:, 0]
+
+    ce_tail = ce_all(data.train_tail, src * r2 + rel, table[src], table[dst],
+                     "tail")
+    ce_head = ce_all(data.train_head, dst * r2 + rel, table[dst], table[src],
+                     "head")
+    return _masked_mean(ce_tail, pos_mask) + _masked_mean(ce_head, pos_mask)
 
 
 def eval_ranks_single(cfg: TKGConfig, data: TKGData, score_all_fn,

@@ -1,14 +1,23 @@
-"""Whole-window GRRGCN history recurrence, forward: kernel K2.
+"""Whole-window GRRGCN history recurrence: kernels K2f and K2b.
 
 ``fused_window_fwd`` computes what the JAX package's
-``fused_window_scan(..., train=False, n_buf=2)`` returns, for a batch of B
-windows at once: for every step k the prev-state gather with exp(-λ·dt)
-decay, layer 1 (the given conv input, or SpMM plus self-loop), a GRU, layer
-2 over layer 1's output, a GRU, and both outputs into [B, L1, A, d] buffers.
+``fused_window_scan(..., n_buf=2)`` returns, for a batch of B windows at
+once: for every step k the prev-state gather with exp(-λ·dt) decay, layer 1
+(the given conv input, or SpMM plus self-loop), a GRU, layer 2 over layer
+1's output, a GRU, and both outputs into [B, L1, A, d] buffers. In training
+the self-loop term of each layer is multiplied by a streamed dropout mask
+(m1, m2 [B, L1, A, d], already scaled by 1/keep).
 
-On a CPU tensor it runs ``fused_window_fwd_plain``; on a CUDA tensor it
-launches the hand-written kernel in ``csrc/fused_window.cu`` (two launches a
-step: layer 1, then layer 2, each over (row tile, element)) or raises.
+``fused_window_bwd`` gives the 12 cotangents of the JAX package's
+``_bwd_kernel`` (inputs, relation weights, both self-loop weights, the GRU
+weights and biases of both layers) from the cotangents of the two buffers,
+recomputing every step from the saved buffers and masks in reverse order.
+``FusedWindow`` is the autograd function made of the two.
+
+On a CPU tensor each wrapper runs its plain version (the backward's is
+autograd through ``fused_window_fwd_plain``); on a CUDA tensor it launches
+the hand-written kernels in ``csrc/fused_window.cu`` or raises: forward two
+launches a step (layer 1, then layer 2), backward five a step and two more.
 """
 
 from __future__ import annotations
@@ -19,6 +28,13 @@ from temp_tpu_torch import _build
 from temp_tpu_torch.ops.spmm import build_csr, spmm_fwd_plain
 
 _MAX_D = 256
+_MAX_D_BWD = 128  # K2b's GRU launch keeps 2d threads x ~100 registers
+# K2b's weight launch cuts each step's B*A rows into this many ranges, each
+# summed by its own blocks into its own copy of the weight cotangents
+_WGRAD_SPLIT = 8
+# the weight cotangents as the weight launch lays them out in one buffer
+_WGRAD_LAYOUT = ("dwih2", "dbih2", "dwhh2", "dbhh2", "dloop2",
+                 "dwih1", "dbih1", "dwhh1", "dbhh1", "dloop1")
 
 
 def _gru_t(x, h, g):
@@ -33,8 +49,10 @@ def _gru_t(x, h, g):
 
 
 def fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
-                           loop1, loop2, g1, g2, lam: float, conv1_in: bool):
-    """Plain PyTorch version of K2; arguments as in ``fused_window_fwd``."""
+                           loop1, loop2, g1, g2, lam: float, conv1_in: bool,
+                           m1=None, m2=None):
+    """Plain PyTorch version of K2f; arguments as in ``fused_window_fwd``.
+    Differentiable by autograd (that is K2b's plain version)."""
     B, L1, A, d = h0x.shape
     buf1 = torch.zeros_like(h0x)
     buf2 = torch.zeros_like(h0x)
@@ -44,61 +62,91 @@ def fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
     scale = (live * torch.exp(-lam * dt))[..., None]
     w1, w2 = wrel[:, :d], wrel[:, d:]
 
-    def conv(x, k, w, loop):
+    def conv(x, k, w, loop, m):
         # batch elements as one block-diagonal graph of B*A rows
         s = (src[:, k] + offs).reshape(-1)
         t = (dst[:, k] + offs).reshape(-1)
         agg = spmm_fwd_plain(x.reshape(B * A, d), s, t,
                              rel[:, k].reshape(-1), em[:, k].reshape(-1), w)
-        return agg.reshape(B, A, d) + x @ loop
+        lp = x @ loop
+        if m is not None:
+            lp = lp * m[:, k]
+        return agg.reshape(B, A, d) + lp
 
     for k in range(L1):
         rows = gidx[:, k].long()
         h1 = buf1.reshape(B, L1 * A, d)[bidx, rows] * scale[:, k]
         h2 = buf2.reshape(B, L1 * A, d)[bidx, rows] * scale[:, k]
-        c1 = h0x[:, k] if conv1_in else conv(h0x[:, k], k, w1, loop1)
+        c1 = h0x[:, k] if conv1_in else conv(h0x[:, k], k, w1, loop1, m1)
         out1 = _gru_t(c1, h1, g1)
         buf1[:, k] = out1
-        buf2[:, k] = _gru_t(conv(out1, k, w2, loop2), h2, g2)
+        buf2[:, k] = _gru_t(conv(out1, k, w2, loop2, m2), h2, g2)
     return buf1, buf2
 
 
-def _check_cuda(tensors: dict, B, L1, A, E, d):
+def _check_cuda(name, tensors: dict, B, L1, A, E, d):
     dev = tensors["h0x"].device
-    shapes = {"h0x": (B, L1, A, d), "src": (B, L1, E), "dst": (B, L1, E),
+    act = (B, L1, A, d)
+    shapes = {"h0x": act, "src": (B, L1, E), "dst": (B, L1, E),
               "rel": (B, L1, E), "em": (B, L1, E), "gidx": (B, L1, A),
               "live": (B, L1, A), "dt": (B, L1, A), "loop1": (d, d),
-              "loop2": (d, d)}
+              "loop2": (d, d), "m1": act, "m2": act, "buf1": act,
+              "buf2": act, "gb1": act, "gb2": act}
     ints = ("src", "dst", "rel", "gidx")
-    for name, t in tensors.items():
+    for key, t in tensors.items():
+        if t is None:
+            continue
         if t.device != dev:
-            raise ValueError(f"fused_window_fwd: {name} on {t.device}, "
-                             f"h0x on {dev}")
-        want = torch.int32 if name in ints else torch.float32
+            raise ValueError(f"{name}: {key} on {t.device}, h0x on {dev}")
+        want = torch.int32 if key in ints else torch.float32
         if t.dtype != want:
-            raise TypeError(f"fused_window_fwd: {name} is {t.dtype}, the "
-                            f"kernel takes {want}")
-        if name in shapes and tuple(t.shape) != shapes[name]:
-            raise ValueError(f"fused_window_fwd: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shapes[name]}")
+            raise TypeError(f"{name}: {key} is {t.dtype}, the kernel takes "
+                            f"{want}")
+        if key in shapes and tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[key]}")
         if not t.is_contiguous():
-            raise ValueError(f"fused_window_fwd: {name} is not contiguous")
+            raise ValueError(f"{name}: {key} is not contiguous")
     if tensors["wrel"].dim() != 2 or tensors["wrel"].shape[1] != 2 * d:
-        raise ValueError("fused_window_fwd: wrel must be [R, 2d]")
-    for name in ("wih1", "whh1", "wih2", "whh2"):
-        if tuple(tensors[name].shape) != (d, 3 * d):
-            raise ValueError(f"fused_window_fwd: {name} must be [d, 3d]")
-    for name in ("bih1", "bhh1", "bih2", "bhh2"):
-        if tuple(tensors[name].shape) != (3 * d,):
-            raise ValueError(f"fused_window_fwd: {name} must be [3d]")
+        raise ValueError(f"{name}: wrel must be [R, 2d]")
+    for key in ("wih1", "whh1", "wih2", "whh2"):
+        if tuple(tensors[key].shape) != (d, 3 * d):
+            raise ValueError(f"{name}: {key} must be [d, 3d]")
+    for key in ("bih1", "bhh1", "bih2", "bhh2"):
+        if tuple(tensors[key].shape) != (3 * d,):
+            raise ValueError(f"{name}: {key} must be [3d]")
     if d > _MAX_D or d % 16:
-        raise ValueError(f"fused_window_fwd: d = {d}; the kernel takes "
-                         f"multiples of 16 up to {_MAX_D}")
+        raise ValueError(f"{name}: d = {d}; the kernel takes multiples of "
+                         f"16 up to {_MAX_D}")
+
+
+def _named(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1, loop2, g1,
+           g2, m1, m2, **more):
+    return {"h0x": h0x, "src": src, "dst": dst, "rel": rel, "em": em,
+            "gidx": gidx, "live": live, "dt": dt, "wrel": wrel,
+            "loop1": loop1, "loop2": loop2, "m1": m1, "m2": m2,
+            "wih1": g1["wih_t"], "whh1": g1["whh_t"], "bih1": g1["bih"],
+            "bhh1": g1["bhh"], "wih2": g2["wih_t"], "whh2": g2["whh_t"],
+            "bih2": g2["bih"], "bhh2": g2["bhh"], **more}
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _step_csr(key_ids, em, B, L1, A, *edge_arrays):
+    """CSR over (element, step, row) of [B, L1, E] step-local row ids; the
+    masked edges (em = 0) in no row."""
+    step = torch.arange(B * L1, device=key_ids.device, dtype=torch.int32)
+    key = (step.reshape(B, L1, 1) * A + key_ids).reshape(-1)
+    return build_csr(key, B * L1 * A, *(a.reshape(-1) for a in edge_arrays),
+                     keep=em.reshape(-1) > 0)
 
 
 def fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
-                     loop2, g1, g2, lam: float, conv1_in: bool):
-    """K2 forward for B windows.
+                     loop2, g1, g2, lam: float, conv1_in: bool, m1=None,
+                     m2=None):
+    """K2f for B windows.
 
     h0x [B, L1, A, d] input rows (the layer-1 conv outputs when
     ``conv1_in``); src/dst/rel [B, L1, E] step-local edge lists with em
@@ -106,44 +154,37 @@ def fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     a row of the element's flat [L1*A] buffer, live/dt [B, L1, A]; wrel
     [R, 2d] both layers' diagonal relation weights side by side; loop1/loop2
     [d, d]; g1/g2 GRU weights as dicts of wih_t/whh_t [d, 3d] and bih/bhh
-    [3d]. Returns (buf1, buf2), each [B, L1, A, d].
+    [3d]; m1/m2 [B, L1, A, d] the self-loop dropout masks over keep, or None
+    (eval). Returns (buf1, buf2), each [B, L1, A, d].
     """
     if h0x.device.type == "cpu":
         return fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt,
                                       wrel, loop1, loop2, g1, g2, lam,
-                                      conv1_in)
+                                      conv1_in, m1, m2)
     if h0x.device.type != "cuda":
         raise ValueError(f"fused_window_fwd: no kernel for device {h0x.device}")
     B, L1, A, d = h0x.shape
     E = src.shape[-1]
-    ts = {"h0x": h0x, "src": src, "dst": dst, "rel": rel, "em": em,
-          "gidx": gidx, "live": live, "dt": dt, "wrel": wrel,
-          "loop1": loop1, "loop2": loop2,
-          "wih1": g1["wih_t"], "whh1": g1["whh_t"], "bih1": g1["bih"],
-          "bhh1": g1["bhh"], "wih2": g2["wih_t"], "whh2": g2["whh_t"],
-          "bih2": g2["bih"], "bhh2": g2["bhh"]}
-    _check_cuda(ts, B, L1, A, E, d)
-
+    _check_cuda("fused_window_fwd", _named(h0x, src, dst, rel, em, gidx,
+                                           live, dt, wrel, loop1, loop2, g1,
+                                           g2, m1, m2), B, L1, A, E, d)
     # CSR over (element, step, destination row) for both layers' SpMMs
-    step = torch.arange(B * L1, device=h0x.device, dtype=torch.int32)
-    key = (step.reshape(B, L1, 1) * A + dst).reshape(-1)
-    rowptr, s_src, s_rel, s_em = build_csr(
-        key, B * L1 * A, src.reshape(-1), rel.reshape(-1), em.reshape(-1))
+    rowptr, s_src, s_rel, s_em = _step_csr(dst, em, B, L1, A, src, rel, em)
 
     buf1 = torch.zeros_like(h0x)
     buf2 = torch.zeros_like(h0x)
     lib = _build.lib()
     stream = torch.cuda.current_stream(h0x.device).cuda_stream
-    p = lambda t: t.data_ptr()  # noqa: E731
+    p = _ptr
     for k in range(L1):
-        for x, given, col, loop, g, buf in (
-                (h0x, conv1_in, 0, loop1, g1, buf1),
-                (buf1, False, d, loop2, g2, buf2)):
+        for x, given, col, loop, m, g, buf in (
+                (h0x, conv1_in, 0, loop1, m1, g1, buf1),
+                (buf1, False, d, loop2, m2, g2, buf2)):
             err = lib.window_layer_launch(
                 p(x), int(given), p(rowptr), p(s_src), p(s_rel), p(s_em),
-                p(wrel), 2 * d, col, p(loop), p(g["wih_t"]), p(g["whh_t"]),
-                p(g["bih"]), p(g["bhh"]), p(gidx), p(live), p(dt),
-                float(lam), p(buf), B, L1, A, d, k, stream)
+                p(wrel), 2 * d, col, p(loop), p(m), p(g["wih_t"]),
+                p(g["whh_t"]), p(g["bih"]), p(g["bhh"]), p(gidx), p(live),
+                p(dt), float(lam), p(buf), B, L1, A, d, k, stream)
             _build.check(err, "fused_window_fwd")
             fused_window_fwd.launches += 1
     return buf1, buf2
@@ -152,12 +193,185 @@ def fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
 fused_window_fwd.launches = 0
 
 
-def fused_window_supported(cfg, base: str, activation2=None) -> bool:
-    """Config-only envelope of K2 (and of its plain version) for eval: the
-    GRRGCN family with diagonal relation weights, the standard one-layer
-    GRU, fixed decay, no time embedding, no ReLU on layer 2, and a width the
-    kernel takes. Eval has no dropout and needs two output streams, the
-    only ones K2 writes."""
+def fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
+                           loop1, loop2, g1, g2, lam: float, m1, m2, gb1,
+                           gb2):
+    """Plain version of K2b: autograd through ``fused_window_fwd_plain``.
+    Returns the 12 cotangents in the order of ``fused_window_bwd``."""
+    leaves = [t.detach().requires_grad_(True) for t in (
+        h0x, wrel, loop1, loop2, g1["wih_t"], g1["whh_t"], g2["wih_t"],
+        g2["whh_t"], g1["bih"], g1["bhh"], g2["bih"], g2["bhh"])]
+    (x, w, l1, l2, wih1, whh1, wih2, whh2, bih1, bhh1, bih2, bhh2) = leaves
+    with torch.enable_grad():
+        b1, b2 = fused_window_fwd_plain(
+            x, src, dst, rel, em, gidx, live, dt, w, l1, l2,
+            {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1},
+            {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2},
+            lam, False, m1, m2)
+        grads = torch.autograd.grad((b1, b2), leaves, (gb1, gb2),
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, leaves))
+
+
+def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
+                     loop2, g1, g2, lam: float, m1, m2, buf1, buf2, gb1, gb2):
+    """K2b: the cotangents of K2f's inputs from gb1/gb2, the cotangents of
+    its outputs buf1/buf2 (saved by the forward). Arguments as in
+    ``fused_window_fwd`` (conv1_in is not differentiable). Returns (dh0x,
+    dwrel, dloop1, dloop2, dwih1, dwhh1, dwih2, dwhh2, dbih1, dbhh1, dbih2,
+    dbhh2), the GRU weights' in the wih_t/whh_t layout."""
+    if h0x.device.type == "cpu":
+        return fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt,
+                                      wrel, loop1, loop2, g1, g2, lam, m1,
+                                      m2, gb1, gb2)
+    if h0x.device.type != "cuda":
+        raise ValueError(f"fused_window_bwd: no kernel for device {h0x.device}")
+    B, L1, A, d = h0x.shape
+    E = src.shape[-1]
+    R = wrel.shape[0]
+    _check_cuda("fused_window_bwd", _named(
+        h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1, loop2, g1, g2,
+        m1, m2, buf1=buf1, buf2=buf2, gb1=gb1, gb2=gb2), B, L1, A, E, d)
+    if d > _MAX_D_BWD:
+        raise ValueError(f"fused_window_bwd: d = {d} > {_MAX_D_BWD}")
+    dev = h0x.device
+    eid = torch.arange(B * L1 * E, device=dev, dtype=torch.int32)
+    # masked edges are in no CSR: their per-edge relation cotangent in ewg
+    # is neither written nor read
+    d_ptr, d_src, d_rel, d_em = _step_csr(dst, em, B, L1, A, src, rel, em)
+    s_ptr, s_dst, s_rel, s_em, s_eid = _step_csr(
+        src, em, B, L1, A, dst, rel, em, eid.reshape(B, L1, E))
+    r_ptr, r_eid = build_csr(rel.reshape(-1), R, eid,
+                             keep=em.reshape(-1) > 0)
+
+    def tr(t):
+        return t.t().contiguous()
+
+    db1, db2 = gb1.clone(), gb2.clone()
+    dh0x = torch.empty_like(h0x)
+    n2 = torch.empty(B * L1 * A, device=dev)
+    ewg1 = torch.empty(B * L1 * E * d, device=dev)
+    ewg2 = torch.empty(B * L1 * E * d, device=dev)
+    rows = B * A
+    f32 = dict(device=dev, dtype=torch.float32)
+    # per-step scratch of each layer: conv, h0g, d_gi, d_gh, d_conv, d_lp
+    scr = [{"conv": torch.empty(rows * d, **f32),
+            "h0g": torch.empty(rows * d, **f32),
+            "dgi": torch.empty(rows * 3 * d, **f32),
+            "dgh": torch.empty(rows * 3 * d, **f32),
+            "dconv": torch.empty(rows * d, **f32),
+            "dlp": torch.empty(rows * d, **f32)} for _ in range(2)]
+    dwrel = torch.empty(R, 2 * d, **f32)
+    shapes = {n: ((d, d) if "loop" in n else (3 * d,) if n.startswith("db")
+                  else (d, 3 * d)) for n in _WGRAD_LAYOUT}
+    sizes = [torch.Size(shapes[n]).numel() for n in _WGRAD_LAYOUT]
+    wpart = torch.zeros(_WGRAD_SPLIT, sum(sizes), **f32)
+    wsum = torch.empty(sum(sizes), **f32)
+
+    lib = _build.lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = _ptr
+    lam = float(lam)
+    # per layer, layer 2 first: its input, mask, self-loop and its
+    # transpose, GRU (and its weights in torch's [3d, d] layout), wrel
+    # column, own buffer and cotangent buffer, the norm^2 output, scratch,
+    # per-edge relation cotangents, and where the input cotangent goes
+    # (added into db1, or written to dh0x)
+    layers = (
+        (buf1, m2, loop2, tr(loop2), g2, tr(g2["wih_t"]), tr(g2["whh_t"]),
+         d, buf2, db2, n2, scr[1], ewg2, db1, 1),
+        (h0x, m1, loop1, tr(loop1), g1, tr(g1["wih_t"]), tr(g1["whh_t"]),
+         0, buf1, db1, None, scr[0], ewg1, dh0x, 0))
+
+    def launched(err, what):
+        _build.check(err, f"fused_window_bwd ({what})")
+        fused_window_bwd.launches += 1
+
+    for k in reversed(range(L1)):
+        for (x, m, loop, loop_t, g, wih, whh, col, own, dbuf, n2_out, s, ewg,
+             target, acc) in layers:
+            launched(lib.window_bwd_gru_launch(
+                p(x), p(d_ptr), p(d_src), p(d_rel), p(d_em), p(wrel), 2 * d,
+                col, p(loop), p(m), p(g["wih_t"]), p(g["whh_t"]),
+                p(g["bih"]), p(g["bhh"]), p(wih), p(whh), p(gidx), p(live),
+                p(dt), lam, p(own), p(dbuf), p(n2_out), p(s["conv"]),
+                p(s["h0g"]), p(s["dgi"]), p(s["dgh"]), p(s["dconv"]),
+                p(s["dlp"]), B, L1, A, d, k, stream), "gru")
+            launched(lib.window_bwd_input_launch(
+                p(s_ptr), p(s_dst), p(s_rel), p(s_em), p(s_eid), p(n2),
+                p(s["dconv"]), p(s["dlp"]), p(wrel), 2 * d, col, p(loop_t),
+                p(x), p(ewg), p(target), acc, B, L1, A, d, k, stream),
+                "input")
+        s1, s2 = scr
+        launched(lib.window_wgrad_launch(
+            p(s2["conv"]), p(s2["h0g"]), p(buf1), p(s2["dgi"]),
+            p(s2["dgh"]), p(s2["dlp"]), p(s1["conv"]), p(s1["h0g"]),
+            p(h0x), p(s1["dgi"]), p(s1["dgh"]), p(s1["dlp"]), p(wpart),
+            _WGRAD_SPLIT, B, L1, A, d, k, stream), "wgrad")
+    launched(lib.window_wgrad_reduce_launch(p(wpart), _WGRAD_SPLIT,
+                                            wsum.numel(), p(wsum), stream),
+             "wgrad_reduce")
+    launched(lib.window_rel_grad_launch(p(r_ptr), p(r_eid), p(ewg1),
+                                        p(ewg2), p(dwrel), R, d, stream),
+             "rel_grad")
+    w = {n: t.view(shapes[n]) for n, t in
+         zip(_WGRAD_LAYOUT, torch.split(wsum, sizes))}
+    return (dh0x, dwrel, w["dloop1"], w["dloop2"], w["dwih1"], w["dwhh1"],
+            w["dwih2"], w["dwhh2"], w["dbih1"], w["dbhh1"], w["dbih2"],
+            w["dbhh2"])
+
+
+fused_window_bwd.launches = 0
+
+
+class FusedWindow(torch.autograd.Function):
+    """Differentiable K2: ``fused_window_fwd`` forward, ``fused_window_bwd``
+    backward. `graph` holds the tensors that take no gradient (src, dst,
+    rel, em, gidx, live, dt, m1, m2)."""
+
+    @staticmethod
+    def forward(ctx, lam, conv1_in, graph, h0x, wrel, loop1, loop2, wih1,
+                whh1, bih1, bhh1, wih2, whh2, bih2, bhh2):
+        src, dst, rel, em, gidx, live, dt, m1, m2 = graph
+        g1 = {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1}
+        g2 = {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2}
+        buf1, buf2 = fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt,
+                                      wrel, loop1, loop2, g1, g2, lam,
+                                      conv1_in, m1, m2)
+        ctx.lam, ctx.conv1_in, ctx.graph = lam, conv1_in, graph
+        ctx.save_for_backward(h0x, wrel, loop1, loop2, wih1, whh1, bih1,
+                              bhh1, wih2, whh2, bih2, bhh2, buf1, buf2)
+        return buf1, buf2
+
+    @staticmethod
+    def backward(ctx, gb1, gb2):
+        if ctx.conv1_in:
+            raise RuntimeError("fused_window: conv1_in (precomputed layer-1 "
+                               "convs) is an eval-only mode")
+        (h0x, wrel, loop1, loop2, wih1, whh1, bih1, bhh1, wih2, whh2, bih2,
+         bhh2, buf1, buf2) = ctx.saved_tensors
+        src, dst, rel, em, gidx, live, dt, m1, m2 = ctx.graph
+        gb1 = torch.zeros_like(buf1) if gb1 is None else gb1.contiguous()
+        gb2 = torch.zeros_like(buf2) if gb2 is None else gb2.contiguous()
+        (dh0x, dwrel, dloop1, dloop2, dwih1, dwhh1, dwih2, dwhh2, dbih1,
+         dbhh1, dbih2, dbhh2) = fused_window_bwd(
+            h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1, loop2,
+            {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1},
+            {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2},
+            ctx.lam, m1, m2, buf1, buf2, gb1, gb2)
+        return (None, None, None, dh0x, dwrel, dloop1, dloop2, dwih1, dwhh1,
+                dbih1, dbhh1, dwih2, dwhh2, dbih2, dbhh2)
+
+
+def fused_window_supported(cfg, base: str, activation2=None,
+                           train: bool = False) -> bool:
+    """Config-only envelope of K2 (and of its plain version): the GRRGCN
+    family with diagonal relation weights, the standard one-layer GRU,
+    fixed decay, no time embedding, no ReLU on layer 2, and a width the
+    kernels take (training: the backward's). Dropout on the self-loop is
+    inside the envelope; the per-step random edge subsample
+    (``random_dropout``) and DropEdge are not."""
     d = cfg.embed_size
     return (base == "GRRGCN"
             and not cfg.rec_only_last_layer
@@ -165,17 +379,19 @@ def fused_window_supported(cfg, base: str, activation2=None) -> bool:
             and cfg.num_layers == 1
             and not cfg.learnable_lambda
             and not cfg.use_time_embedding
+            and not (train and (cfg.random_dropout or cfg.edge_dropout))
             and cfg.n_bases == d == cfg.hidden_size
-            and d <= _MAX_D and d % 16 == 0
+            and d <= (_MAX_D_BWD if train else _MAX_D) and d % 16 == 0
             and activation2 is None)
 
 
-def fused_window_scan(enc_params, cfg, h0_xs, src, dst, rel, emask,
-                      prev_step, prev_row, dt, live, conv1_in: bool = False,
-                      kernels: bool = True):
-    """Run B history windows through K2 (``kernels=False``: its plain
-    version). h0_xs [B, L1, A, d]; src/dst/rel/emask [B, L1, E] compact-local
-    edges; prev_step/prev_row/dt/live [B, L1, A]. Returns (buf1, buf2)."""
+def window_args(enc_params, cfg, h0_xs, src, dst, rel, emask, prev_step,
+                prev_row, dt, live, masks=None) -> dict:
+    """The keyword arguments of ``fused_window_fwd`` (less conv1_in) for B
+    history windows: h0_xs [B, L1, A, d]; src/dst/rel/emask [B, L1, E]
+    compact-local edges; prev_step/prev_row/dt/live [B, L1, A]; masks None
+    (eval) or the training self-loop dropout masks (m1, m2), each
+    [B, L1, A, d] over keep."""
     A = prev_step.shape[-1]
     p1, p2 = enc_params["layer1"], enc_params["layer2"]
 
@@ -185,14 +401,36 @@ def fused_window_scan(enc_params, cfg, h0_xs, src, dst, rel, emask,
                 "whh_t": g["w_hh"].T.contiguous(),
                 "bih": g["b_ih"].contiguous(), "bhh": g["b_hh"].contiguous()}
 
-    wrel = torch.cat([p1["weight"], p2["weight"]], dim=1).contiguous()
     gidx = (prev_step.long().clamp(min=0) * A + prev_row.long()).to(torch.int32)
-    fn = fused_window_fwd if kernels else fused_window_fwd_plain
-    return fn(h0_xs.contiguous(), src.to(torch.int32).contiguous(),
-              dst.to(torch.int32).contiguous(),
-              rel.to(torch.int32).contiguous(),
-              emask.to(torch.float32).contiguous(), gidx.contiguous(),
-              live.to(torch.float32).contiguous(),
-              dt.to(torch.float32).contiguous(), wrel,
-              p1["loop_weight"].contiguous(), p2["loop_weight"].contiguous(),
-              gru(p1), gru(p2), float(cfg.inv_temperature), bool(conv1_in))
+    m1, m2 = (None, None) if masks is None else (
+        masks[0].contiguous(), masks[1].contiguous())
+    return dict(
+        h0x=h0_xs.contiguous(), src=src.to(torch.int32).contiguous(),
+        dst=dst.to(torch.int32).contiguous(),
+        rel=rel.to(torch.int32).contiguous(),
+        em=emask.to(torch.float32).contiguous(), gidx=gidx.contiguous(),
+        live=live.to(torch.float32).contiguous(),
+        dt=dt.to(torch.float32).contiguous(),
+        wrel=torch.cat([p1["weight"], p2["weight"]], dim=1).contiguous(),
+        loop1=p1["loop_weight"].contiguous(),
+        loop2=p2["loop_weight"].contiguous(), g1=gru(p1), g2=gru(p2),
+        lam=float(cfg.inv_temperature), m1=m1, m2=m2)
+
+
+def fused_window_scan(enc_params, cfg, h0_xs, src, dst, rel, emask,
+                      prev_step, prev_row, dt, live, conv1_in: bool = False,
+                      kernels: bool = True, masks=None):
+    """Run B history windows through K2 (``kernels=False``: its plain
+    version, differentiated by autograd); arguments as in ``window_args``.
+    Returns (buf1, buf2)."""
+    a = window_args(enc_params, cfg, h0_xs, src, dst, rel, emask, prev_step,
+                    prev_row, dt, live, masks)
+    if not kernels:
+        return fused_window_fwd_plain(conv1_in=bool(conv1_in), **a)
+    g1, g2 = a["g1"], a["g2"]
+    graph = tuple(a[k] for k in ("src", "dst", "rel", "em", "gidx", "live",
+                                 "dt", "m1", "m2"))
+    return FusedWindow.apply(
+        a["lam"], bool(conv1_in), graph, a["h0x"], a["wrel"], a["loop1"],
+        a["loop2"], g1["wih_t"], g1["whh_t"], g1["bih"], g1["bhh"],
+        g2["wih_t"], g2["whh_t"], g2["bih"], g2["bhh"])

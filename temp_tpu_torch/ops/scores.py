@@ -47,6 +47,26 @@ def complex_all(s, r, o_table, mode):
     return complex_qhat(s, r, mode) @ o_table.transpose(-1, -2)
 
 
+_QHAT_FNS = {complex_all: complex_qhat}
+
+
+def _qhat(score_all_fn, q_ent, q_rel, mode):
+    if score_all_fn not in _QHAT_FNS:
+        raise NotImplementedError("only ComplEx is ported as a table scorer")
+    return _QHAT_FNS[score_all_fn](q_ent, q_rel, mode)
+
+
+def score_against_rows(score_all_fn, q_ent, q_rel, rows, mode):
+    """[P, C] scores of every query (q_ent, q_rel [P, d]) against one shared
+    row set `rows` [C, d]: one [P, d] x [d, C] product."""
+    return _qhat(score_all_fn, q_ent, q_rel, mode) @ rows.transpose(-1, -2)
+
+
+def score_positive_rows(score_all_fn, q_ent, q_rel, pos_rows, mode):
+    """[P] score of each query against its own positive row [P, d]."""
+    return torch.sum(_qhat(score_all_fn, q_ent, q_rel, mode) * pos_rows, -1)
+
+
 _ALL_FNS = {"complex": complex_all}
 _SINGLE_FNS = {"complex": complex_single}
 

@@ -4,14 +4,15 @@ Gather -> per-relation block-diagonal transform -> scatter-add by
 destination, with the reference's double degree normalization. The
 canonical configuration has n_bases == d (1x1 blocks: a per-relation
 diagonal scale); there ``rel_spmm`` goes through kernel K1
-(``ops/spmm.py``). Block-diagonal weights stay a torch einsum.
+(``ops/spmm.py``: K1f forward, K1b backward). Block-diagonal weights stay a
+torch einsum, differentiated by autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
-from temp_tpu_torch.ops.spmm import spmm_fwd, spmm_fwd_plain
+from temp_tpu_torch.ops.spmm import spmm, spmm_fwd_plain
 
 
 def segment_sum(data, segment_ids, num_segments: int):
@@ -49,12 +50,13 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
         agg_v = (sum_{e: dst_e = v} msg_e) * norm[v]
 
     Returns [num_ents, d_out]; rows without in-edges are exactly 0. With
-    diagonal weights this is kernel K1 (``kernels=False`` runs its plain
-    version on any device).
+    diagonal weights this is kernel K1, differentiable in h and weight
+    (``kernels=False`` runs its plain version on any device, differentiated
+    by autograd).
     """
     d_in = h.shape[-1]
     if n_bases == d_in == d_out:
-        fn = spmm_fwd if kernels else spmm_fwd_plain
+        fn = spmm if kernels else spmm_fwd_plain
         return fn(h, src, dst, rel, emask, weight)
     norm = in_degree_norm(dst, emask, num_ents)
     msg = rel_message(h[src.long()], rel, weight, n_bases, d_in, d_out)

@@ -50,13 +50,29 @@ def main(argv=None) -> int:
     trainer.eval_sweep(params, "valid")  # warm-up: build, caches, allocator
     torch.cuda.synchronize()
 
+    report = profile(lambda: trainer.eval_sweep(params, "valid"),
+                     "valid sweep", args.top)
+    print(f"path: {'plain' if args.plain else 'kernels'}; {report}")
+    if args.out:
+        export(args.out, f"eval_{'plain' if args.plain else 'kernels'}")
+    return 0
+
+
+_last = {}
+
+
+def profile(fn, label: str, top: int = 15) -> str:
+    """Trace one call of `fn` with torch.profiler; print the card, then the
+    device time of each kernel name, largest first. Returns the summary
+    line: wall time, device busy time and its share of the wall."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        trainer.eval_sweep(params, "valid")
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    _last["prof"] = prof
 
     per_kernel = {}
     for ev in prof.events():
@@ -71,20 +87,20 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=30).stdout.strip()
     print(f"card: {smi}")
-    print(f"path: {'plain' if args.plain else 'kernels'}; valid sweep wall "
-          f"{wall * 1e3:.3f} ms (traced); device busy {busy:.3f} ms "
-          f"({100 * busy / (wall * 1e3):.1f}% of wall)")
     if not per_kernel:
         print("the profiler recorded no device time: not measured")
     for name, (t, n) in sorted(per_kernel.items(),
-                               key=lambda kv: -kv[1][0])[:args.top]:
+                               key=lambda kv: -kv[1][0])[:top]:
         print(f"{t:10.3f} ms {n:7d} calls  {100 * t / max(busy, 1e-9):5.1f}%"
               f"  {name[:100]}")
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(
-            args.out, f"eval_{'plain' if args.plain else 'kernels'}.json"))
-    return 0
+    return (f"{label} wall {wall * 1e3:.3f} ms (traced); device busy "
+            f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}% of wall)")
+
+
+def export(out_dir: str, name: str) -> None:
+    """Write the last trace as Chrome JSON to <out_dir>/<name>.json."""
+    os.makedirs(out_dir, exist_ok=True)
+    _last["prof"].export_chrome_trace(os.path.join(out_dir, f"{name}.json"))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,70 @@
+"""Where the time of a few training steps goes, on the card.
+
+    python -m temp_tpu_torch.profile_train [--plain] [--steps N] [--out DIR]
+
+Builds the chip smoke's workload (synthetic data at icews14's sizes, the
+grid/icews14/config_grrgcn.json model with fused_final off, seeded random
+weights and draws), takes two warm-up optimizer steps, then traces the next
+N (default 4) with torch.profiler. Prints the wall time, the device time
+summed over all kernels and its share of the wall time, and the device time
+of each kernel name, largest first. With --out it also writes the Chrome
+trace there. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+from temp_tpu_torch.config import TKGConfig
+from temp_tpu_torch.data.snapshots import make_synthetic
+from temp_tpu_torch.models.registry import get_model
+from temp_tpu_torch.profile_eval import export, profile
+from temp_tpu_torch.train.loop import Trainer
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--plain", action="store_true",
+                    help="profile the plain PyTorch versions of the kernels")
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--out", default=None, help="directory for the trace")
+    ap.add_argument("--top", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: needs a CUDA device", file=sys.stderr)
+        return 1
+    cfg = TKGConfig.from_json_file(
+        os.path.join(_ROOT, "grid", "icews14", "config_grrgcn.json"),
+        kernels=not args.plain)
+    data = make_synthetic(num_ents=7128, num_rels=230, num_times=365,
+                          edges_per_time=200, seed=0,
+                          edge_pad_multiple=cfg.edge_pad_multiple)
+    model = get_model(cfg, data, device="cuda")
+    trainer = Trainer(cfg, model, data)
+    params, opt = trainer.init_state()
+    batches = trainer.epoch_batches(0)[:2 + args.steps]
+
+    def steps(idx):
+        for i in idx:
+            t_pos, t_valid = batches[i]
+            trainer.train_step(params, opt, t_pos, t_valid,
+                               gen=trainer.step_generator(0, i))
+
+    steps(range(2))  # warm-up: build, caches, allocator
+    torch.cuda.synchronize()
+    report = profile(lambda: steps(range(2, 2 + args.steps)),
+                     f"{args.steps} training steps", args.top)
+    print(f"path: {'plain' if args.plain else 'kernels'}; {report}")
+    if args.out:
+        export(args.out, f"train_{'plain' if args.plain else 'kernels'}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

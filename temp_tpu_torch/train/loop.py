@@ -1,10 +1,17 @@
-"""The eval half of the Trainer: time-aware filtered evaluation sweeps.
+"""The Trainer: training steps and epochs, early stopping on val MRR, the
+best and last checkpoints, metric logging, and filtered evaluation sweeps.
 
-Training (``fit``), the optimizer and checkpoints are not ported yet.
+Every random choice of an epoch comes from (cfg.seed, epoch) alone: the
+shuffle of the target times from a numpy RandomState, and each step's draws
+from a torch.Generator seeded with (seed, epoch, step). So a run resumed at
+epoch k replays the epochs an uninterrupted run would have run.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -13,6 +20,10 @@ import torch
 from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.data.snapshots import TKGData, to_device
 from temp_tpu_torch.models.objectives import metrics_from_ranks
+from temp_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from temp_tpu_torch.train.optim import (
+    clip_and_step, make_optimizer, param_leaves,
+)
 
 
 def batched_time_positions(num_times: int, batch_size: int,
@@ -32,14 +43,170 @@ def batched_time_positions(num_times: int, batch_size: int,
         yield chunk.astype(np.int32), valid
 
 
+def run_name(cfg: TKGConfig) -> str:
+    """Experiment directory name from the key hyperparameters."""
+    return "_".join([cfg.module, cfg.dataset.replace("/", "-"),
+                     cfg.score_function, f"seq{cfg.train_seq_len}",
+                     f"d{cfg.embed_size}", f"b{cfg.n_bases}",
+                     f"lr{cfg.lr}", f"seed{cfg.seed}"])
+
+
 class Trainer:
-    def __init__(self, cfg: TKGConfig, model, data: TKGData):
+    def __init__(self, cfg: TKGConfig, model, data: TKGData,
+                 run_dir: Optional[str] = None):
         """`data` is the host (numpy) dataset; it is moved to the model's
-        device once here."""
+        device once here. Runs write under `run_dir` (default
+        <experiments_dir>/<model_name or run_name(cfg)>)."""
         self.cfg = cfg
         self.model = model
         self.device = model.device
         self.data = to_device(data, self.device)
+        self.run_dir = run_dir or os.path.join(
+            cfg.experiments_dir, cfg.model_name or run_name(cfg))
+        self.history: list = []
+
+    # -- training -----------------------------------------------------------
+
+    def init_state(self, seed: Optional[int] = None):
+        """Seeded parameters (requiring grad) and their Adam optimizer."""
+        params = self.model.init_params(
+            self.cfg.seed if seed is None else seed)
+        for p in param_leaves(params):
+            p.requires_grad_(True)
+        return params, make_optimizer(self.cfg, params)
+
+    def step_generator(self, epoch: int, step: int) -> torch.Generator:
+        """The generator of one step's draws, seeded from (seed, epoch,
+        step) alone."""
+        seed = np.random.SeedSequence(
+            [int(self.cfg.seed), int(epoch), int(step)]).generate_state(1)[0]
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def train_step(self, params, optimizer, t_pos, t_valid, gen=None,
+                   draws=None):
+        """One optimizer step on the batch of targets t_pos (t_valid marks
+        the real ones). Returns the loss as a 0-d tensor on the device."""
+        optimizer.zero_grad(set_to_none=True)
+        loss = self.model.loss(params, self.data, t_pos, t_valid, gen=gen,
+                               draws=draws)
+        if loss.requires_grad:
+            loss.backward()
+        clip_and_step(optimizer, self.cfg)
+        return loss.detach()
+
+    def epoch_batches(self, epoch: int):
+        """The epoch's [n, B] schedule of target times and validity."""
+        cfg = self.cfg
+        np_rng = np.random.RandomState(
+            (cfg.seed * 1000003 + 7919 * epoch) % (2 ** 32))
+        batches = list(batched_time_positions(self.data.num_times,
+                                              cfg.batch_size, np_rng))
+        if cfg.fast_dev_run:
+            batches = batches[:1]
+        elif cfg.debug:  # about 10% of the batches
+            batches = batches[:max(1, len(batches) // 10)]
+        return batches
+
+    def train_epoch(self, params, optimizer, epoch: int):
+        """All batches of one epoch. Returns the per-step losses (host
+        floats)."""
+        losses = [self.train_step(params, optimizer, t_pos, t_valid,
+                                  gen=self.step_generator(epoch, i))
+                  for i, (t_pos, t_valid) in enumerate(
+                      self.epoch_batches(epoch))]
+        return torch.stack(losses).cpu().tolist()
+
+    def fit(self, params=None, optimizer=None,
+            max_epochs: Optional[int] = None, log_fn=print,
+            start_epoch: int = 0, best: Optional[tuple] = None):
+        """Train to early stop on val MRR (patience epochs without a new
+        best). Writes config.json, one metrics.jsonl line an epoch, the best
+        checkpoint at every new best, and the last state after every epoch
+        (removed when the run ends normally; ``load_last`` resumes from
+        it)."""
+        cfg = self.cfg
+        if params is None:
+            params, optimizer = self.init_state()
+        best_mrr, best_epoch = best if best is not None else (-1.0, -1)
+        max_epochs = max_epochs or cfg.max_nb_epochs
+        os.makedirs(self.run_dir, exist_ok=True)
+        with open(os.path.join(self.run_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+        epoch = start_epoch - 1
+        for epoch in range(start_epoch, max_epochs):
+            t0 = time.time()
+            losses = self.train_epoch(params, optimizer, epoch)
+            train_s = time.time() - t0
+            t1 = time.time()
+            val = self.run_eval(params, "valid")
+            rec = {"epoch": epoch, "train_loss": float(np.mean(losses)),
+                   "val": val, "train_s": round(train_s, 3),
+                   "eval_s": round(time.time() - t1, 3)}
+            self.history.append(rec)
+            with open(os.path.join(self.run_dir, "metrics.jsonl"), "a") as f:
+                f.write(json.dumps(rec) + "\n")
+            log_fn(f"epoch {epoch}: loss={rec['train_loss']:.4f} "
+                   f"val_mrr={val['mrr']:.4f} h1={val['hit_1']:.4f} "
+                   f"h3={val['hit_3']:.4f} h10={val['hit_10']:.4f} "
+                   f"({train_s:.1f}s train, {rec['eval_s']:.1f}s eval)")
+            if val["mrr"] > best_mrr:
+                best_mrr, best_epoch = val["mrr"], epoch
+                self.save_checkpoint(params, optimizer, epoch, val)
+            self.save_last(params, optimizer, epoch, best_mrr, best_epoch)
+            if epoch - best_epoch >= cfg.patience:
+                log_fn(f"early stop at epoch {epoch} (best mrr "
+                       f"{best_mrr:.4f} @ epoch {best_epoch})")
+                break
+            if cfg.fast_dev_run:
+                break
+        if os.path.exists(self.last_ckpt_path()):
+            os.unlink(self.last_ckpt_path())
+        return {"best_mrr": best_mrr, "best_epoch": best_epoch,
+                "params": params, "optimizer": optimizer,
+                "history": self.history, "last_epoch": epoch}
+
+    # -- checkpoints --------------------------------------------------------
+
+    def ckpt_path(self) -> str:
+        return os.path.join(self.run_dir, "checkpoints", "best.pt")
+
+    def last_ckpt_path(self) -> str:
+        return os.path.join(self.run_dir, "checkpoints", "last.pt")
+
+    def save_checkpoint(self, params, optimizer, epoch: int, metrics: Dict):
+        save_checkpoint(self.ckpt_path(), params, optimizer, epoch, metrics)
+        with open(os.path.join(self.run_dir, "checkpoints", "meta.json"),
+                  "w") as f:
+            json.dump({"epoch": epoch, "metrics": metrics}, f, indent=2)
+
+    def load_checkpoint(self, path: Optional[str] = None):
+        """(params requiring grad, their optimizer with its state restored,
+        {"epoch", "metrics"}) from a checkpoint (default: the best)."""
+        params, opt_state, extra = load_checkpoint(
+            path or self.ckpt_path(), self.device)
+        for p in param_leaves(params):
+            p.requires_grad_(True)
+        optimizer = make_optimizer(self.cfg, params)
+        if opt_state is not None:
+            optimizer.load_state_dict(opt_state)
+        return params, optimizer, extra
+
+    def save_last(self, params, optimizer, epoch: int, best_mrr: float,
+                  best_epoch: int):
+        save_checkpoint(self.last_ckpt_path(), params, optimizer, epoch,
+                        {"best_mrr": best_mrr, "best_epoch": best_epoch})
+
+    def load_last(self):
+        """(params, optimizer, start_epoch, (best_mrr, best_epoch)) from the
+        last-state checkpoint, or None when there is none."""
+        if not os.path.exists(self.last_ckpt_path()):
+            return None
+        params, optimizer, extra = self.load_checkpoint(self.last_ckpt_path())
+        m = extra["metrics"]
+        return (params, optimizer, int(extra["epoch"]) + 1,
+                (float(m["best_mrr"]), int(m["best_epoch"])))
+
+    # -- evaluation ---------------------------------------------------------
 
     @torch.no_grad()
     def eval_sweep(self, params, split: str = "valid"):

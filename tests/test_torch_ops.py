@@ -115,6 +115,16 @@ def test_build_csr_groups_edges_by_destination():
     assert s_src.tolist() == [11, 14, 13, 10, 12]  # stable within a row
 
 
+def test_build_csr_leaves_dropped_edges_out_of_every_row():
+    dst = torch.tensor([2, 0, 2, 1, 0], dtype=torch.int32)
+    src = torch.tensor([10, 11, 12, 13, 14], dtype=torch.int32)
+    keep = torch.tensor([True, False, True, True, True])
+    rowptr, s_src = build_csr(dst, 4, src, keep=keep)
+    assert rowptr.tolist() == [0, 1, 2, 4, 4]
+    assert s_src.tolist()[:4] == [14, 13, 10, 12]
+    assert s_src.tolist()[4:] == [11]  # after the last row
+
+
 @pytest.mark.parametrize("num_layers", [1, 2])
 def test_gru_matches_reference(num_layers):
     rng = np.random.RandomState(num_layers)

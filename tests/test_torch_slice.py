@@ -153,22 +153,32 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     ctx = chip_smoke.phase_setup("cpu", num_ents=40, num_rels=5,
                                  num_times=12, edges_per_time=30,
                                  embed_size=16, hidden_size=16, n_bases=16,
-                                 train_seq_len=4, batch_size=3)
+                                 train_seq_len=4, batch_size=3,
+                                 num_pos_facts=20)
+    ctx["train_steps"] = 2
     k1 = chip_smoke.phase_k1(ctx)
     k2 = chip_smoke.phase_k2(ctx)
     path = chip_smoke.phase_path(ctx)
-    line = chip_smoke.kernels_line(k1, k2, path)
+    k1b = chip_smoke.phase_k1b(ctx)
+    k2b = chip_smoke.phase_k2b(ctx)
+    train = chip_smoke.phase_train(ctx)
+    line = chip_smoke.kernels_line(k1, k2, path, k1b, k2b, train)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    assert [k["name"] for k in line["kernels"]] == ["spmm_fwd",
-                                                     "fused_window_fwd"]
+    assert [k["name"] for k in line["kernels"]] == [
+        "spmm_fwd", "spmm_bwd", "fused_window_fwd", "fused_window_bwd"]
     for rec in line["kernels"]:
         assert keys <= set(rec)
         assert rec["max_abs_err"] == 0.0  # the CPU runs the plain version
+        assert rec["launches"] == 0
         assert os.path.exists(os.path.join(ROOT, rec["source"]))
         assert rec["bound_ms"] > 0
+    assert set(k2b["bwd"]["errors"]) == set(chip_smoke._COTANGENTS)
     assert path["kernels"]["mrr"] == path["plain"]["mrr"]
     assert path["same_rank_share"] == 1.0
+    assert train["kernels"]["losses"] == train["plain"]["losses"]
+    assert len(train["kernels"]["losses"]) == 2
+    assert 0.0 < train["eval"]["mrr"] <= 1.0
 
 
 @pytest.mark.parametrize("alone", [False, True])
