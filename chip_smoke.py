@@ -23,11 +23,23 @@ Phases, each printing one line with its elapsed seconds as it ends:
 8. k2b     - kernel K2f in train mode (dropout masks) and K2b
              (fused_window_bwd) against autograd through the plain forward
              on one training batch of windows: all 12 cotangents;
-9. train   - Trainer.train_step at the full config (fused_final off) for a
-             few optimizer steps from seeded weights and draws, with the
-             kernels and then with their plain versions; both loss
-             trajectories, the launch counts of the kernel run (K1f, K1b,
-             K2f, K2b), then one run_eval of the trained weights.
+9. k3      - kernel K3 (fused_final_fwd: the dense final step and the
+             exact-softmax loss of all B elements) against its plain version
+             on the first training batch, as the main path prepares it (the
+             window's history from K2f, the batch's draws); beside it the
+             unfused final step (K1, one element at a time) on that batch;
+10. k4     - kernel K4 (fused_final_bwd_loss) against its plain version on
+             the same saved table and upstream cotangent;
+11. k5     - kernel K5 (fused_final_bwd_layer) against its plain version for
+             layer 2 and layer 1, each given the same cotangent on both
+             sides: all 8 cotangents; and the whole final step and loss,
+             forward and backward, fused (K3-K5) and unfused (K1, K1b);
+12. train  - Trainer.train_step at the full config for a few optimizer steps
+             from seeded weights and draws on three paths: the kernels with
+             fused_final on (the main path), the kernels with fused_final
+             off (K1f/K1b for the final step), and the plain versions; the
+             three loss trajectories, the launch counts of each path, then
+             one run_eval of the trained weights.
 
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and the
 result line {"ok": true, "device": {...}}. Any failed check raises and exits
@@ -49,9 +61,11 @@ from contextlib import contextmanager
 
 WATCHDOG_S = 300
 TOL = 1e-4           # kernel vs plain, max abs error, f32 at full width
+LOSS_TOL = 1e-4      # the final step's per-element losses, relative
 MRR_TOL = 1e-4       # whole valid sweep, kernels vs plain path
 # gradients summed over many rows (weight cotangents over B*L1*A = 71,680
-# rows): max abs error relative to max(1, the largest entry)
+# rows, or B*N = 57,024 in the final step): max abs error relative to
+# max(1, the largest entry)
 GRAD_TOL = 1e-4
 # loss trajectories over a few Adam steps, kernels vs plain path, relative:
 # f32 sums in another order, carried through the steps
@@ -481,14 +495,262 @@ def phase_k2b(ctx) -> dict:
     return out
 
 
+def final_batch(ctx) -> dict:
+    """The inputs of K3-K5 for the first training batch of epoch 0, as the
+    main path prepares them: the batch's draws, the window's history (K2f),
+    the FinalGraph and the weights in the kernels' layout."""
+    if "final" in ctx:
+        return ctx["final"]
+    import torch
+
+    from temp_tpu_torch.models.dynamic import gather_window
+    from temp_tpu_torch.ops.fused_final import final_graph, final_weights
+
+    dev, p, cfg, model = ctx["device"], ctx["params"], ctx["cfg"], ctx["model"]
+    tr = ctx["trainer"]
+    t_pos, t_valid = tr.epoch_batches(0)[0]
+    tp = torch.as_tensor(t_pos, device=dev).long()
+    draws = model.draw_train(tr.step_generator(0, 0), tr.data, tp)
+    L = cfg.train_seq_len
+    with torch.no_grad():
+        win = gather_window(tr.data, tp, L)
+        hist1, hist2, last_pos = model.pre_forward(
+            p, win, L, tp, train=True, masks=(draws["win1"], draws["win2"]))
+    gr = final_graph(tr.data, model.answers, tp, draws, last_pos,
+                     cfg.inv_temperature, model.lc2.dropout, L,
+                     cfg.use_embed_for_non_active)
+    h0, wrel, loop1, loop2, g1, g2, rtab = final_weights(p)
+    ctx["final"] = {
+        "t_pos": [int(t) for t in t_pos],
+        "tv_host": [bool(v) for v in t_valid], "tv": torch.as_tensor(
+            t_valid, device=dev, dtype=torch.float32),
+        "draws": draws, "gr": gr, "hist1": hist1.contiguous(),
+        "hist2": hist2.contiguous(), "last_pos": last_pos,
+        "fwd": (h0, hist1.contiguous(), hist2.contiguous(), gr, wrel, loop1,
+                loop2, g1, g2, rtab)}
+    return ctx["final"]
+
+
+def _bound(flops: float, nbytes: float):
+    t_b, t_f = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def _final_counts(ctx, fb):
+    """(B, N, d, queries): the positive queries of both directions, the
+    rows the score products run over."""
+    B, N, d = fb["hist1"].shape
+    return B, N, d, 2 * float(fb["gr"].posm.sum())
+
+
+def _k3_bound(ctx, fb):
+    """Least time for one K3 call: per element and layer two GRU gate
+    products and a self-loop product over all N rows (14 N d^2 flops), the
+    SpMM over the kept edges (3 d an edge), and per positive query its
+    scores against all N rows (2 N d); against the history, masks, input
+    rows and weights read once and the table and out1 written once."""
+    B, N, d, q = _final_counts(ctx, fb)
+    gr = fb["gr"]
+    kept = float(gr.emf.sum())
+    flops = 2 * B * 14 * N * d * d + 2 * kept * 3 * d + q * N * 2 * d
+    n_masks = 0 if gr.m1 is None else 2
+    nbytes = 4 * (B * N * d * (2 + n_masks + 2) + N * d + B * N
+                  + 2 * (2 * 3 * d * d + d * d) + fb["fwd"][4].numel()
+                  + fb["fwd"][-1].numel())
+    return _bound(flops, nbytes)
+
+
+def phase_k3(ctx) -> dict:
+    """K3 against its plain version on the first training batch; beside it
+    the unfused forward (K1, one element at a time) on the same batch."""
+    import torch
+
+    from temp_tpu_torch.ops.fused_final import (
+        fused_final_fwd, fused_final_fwd_plain,
+    )
+
+    dev, fb = ctx["device"], final_batch(ctx)
+    args = fb["fwd"]
+    loss, saved = fused_final_fwd(*args)
+    ref, table, out1 = fused_final_fwd_plain(*args)
+    err_loss = float(((loss - ref) / ref.abs().clamp(min=1.0)).abs().max())
+    err_rows = max(max_err(saved["table"], table), max_err(saved["out1"],
+                                                            out1))
+    if not (err_loss <= LOSS_TOL and err_rows <= TOL
+            and bool(torch.isfinite(loss).all())):
+        raise AssertionError(f"K3: loss err {err_loss} > {LOSS_TOL} or rows "
+                             f"err {err_rows} > {TOL}")
+    model, data, p = ctx["model"], ctx["trainer"].data, ctx["params"]
+    gr, d = fb["gr"], args[0].shape[1]
+    hists = (fb["hist1"], fb["hist2"], fb["last_pos"])
+
+    def unfused():
+        return model.unfused_final_loss(p, data, fb["t_pos"], fb["tv_host"],
+                                        hists, fb["draws"])
+
+    with torch.no_grad():
+        un = float(unfused())
+    fused_sum = float(ref.sum())
+    if not abs(un - fused_sum) <= LOSS_TOL * max(1.0, abs(fused_sum)):
+        raise AssertionError(f"K3: unfused loss {un} vs plain {fused_sum}")
+    bound_ms, bound_by = _k3_bound(ctx, fb)
+    B, N, _, q = _final_counts(ctx, fb)
+    with torch.no_grad():
+        out = {"shape": f"B={B} N={N} E={gr.src.shape[1]} d={d} "
+                        f"positive queries={int(q)}",
+               "max_abs_err": max(err_loss, err_rows), "err_loss": err_loss,
+               "err_rows": err_rows,
+               "ms": time_ms(lambda: fused_final_fwd(*args), dev, reps=10),
+               "plain_ms": time_ms(lambda: fused_final_fwd_plain(*args), dev,
+                                   reps=5),
+               "unfused_ms": time_ms(unfused, dev, reps=3),
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+    ctx["k3_saved"] = saved
+    print(f"  K3: {out}", flush=True)
+    return out
+
+
+def phase_k4(ctx) -> dict:
+    """K4 against its plain version: the same saved table and the same
+    upstream cotangent (the batch's t_valid) on both sides."""
+    from temp_tpu_torch.ops.fused_final import (
+        fused_final_bwd_loss, fused_final_bwd_loss_plain,
+    )
+
+    dev, fb = ctx["device"], final_batch(ctx)
+    saved, gr, rtab, g = ctx["k3_saved"], fb["gr"], fb["fwd"][-1], fb["tv"]
+    got = fused_final_bwd_loss(saved, rtab, gr, g)
+    ref = fused_final_bwd_loss_plain(saved["table"], rtab, gr, g)
+    errs = {n: rel_err(x, y) for n, x, y in zip(("d_table", "d_rtab"), got,
+                                                ref)}
+    if not all(e <= GRAD_TOL for e in errs.values()):
+        raise AssertionError(f"K4: cotangents beyond {GRAD_TOL}: {errs}")
+    ctx["k4_ref"] = ref
+    B, N, d, q = _final_counts(ctx, fb)
+    # recompute the scores, then p . table and p^T . qhat: 3 products of
+    # 2 N d flops per positive query; the table read and d_table written
+    bound_ms, bound_by = _bound(q * N * 2 * d * 3, 4 * 2 * B * N * d)
+    out = {"shape": f"B={B} N={N} E={gr.src.shape[1]} d={d} "
+                    f"positive queries={int(q)}",
+           "max_abs_err": max(errs.values()), "errors": errs,
+           "ms": time_ms(lambda: fused_final_bwd_loss(saved, rtab, gr, g),
+                         dev, reps=10),
+           "plain_ms": time_ms(lambda: fused_final_bwd_loss_plain(
+               saved["table"], rtab, gr, g), dev, reps=5),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"  K4: {out}", flush=True)
+    return out
+
+
+_LAYER_COTANGENTS = ("d_h", "d_prev", "d_wrel", "d_loop", "d_wih_t",
+                     "d_whh_t", "d_bih", "d_bhh")
+
+
+def phase_k5(ctx) -> dict:
+    """K5 against its plain version for layer 2, then layer 1, each given
+    the same output cotangent on both sides (the plain chain's); then the
+    final step and loss forward and backward, fused and unfused."""
+    import torch
+
+    from temp_tpu_torch.ops.fused_final import (
+        fused_final_bwd_layer, fused_final_bwd_layer_plain, select_bwd,
+    )
+
+    dev, fb = ctx["device"], final_batch(ctx)
+    saved, gr = ctx["k3_saved"], fb["gr"]
+    h0, hist1, hist2, _, wrel, loop1, loop2, g1, g2, _ = fb["fwd"]
+    d = h0.shape[1]
+    d_out2, _ = select_bwd(ctx["k4_ref"][0], gr.active)
+    layer2 = (saved["out1"], hist2, gr, gr.m2, wrel, d, loop2, g2, d_out2)
+    ref2 = fused_final_bwd_layer_plain(*layer2)
+    layer1 = (h0, hist1, gr, gr.m1, wrel, 0, loop1, g1, ref2[0])
+    errs = {}
+    for tag, args, ref in (("layer2", layer2, ref2),
+                           ("layer1", layer1, None)):
+        got = fused_final_bwd_layer(*args)
+        ref = ref if ref is not None else fused_final_bwd_layer_plain(*args)
+        for n, x, y in zip(_LAYER_COTANGENTS, got, ref):
+            errs[f"{tag} {n}"] = rel_err(x, y)
+    bad = {n: e for n, e in errs.items() if not e <= GRAD_TOL}
+    if bad:
+        raise AssertionError(f"K5: cotangents beyond {GRAD_TOL}: {bad}")
+    B, N, _, _ = _final_counts(ctx, fb)
+    # per layer and row: the layer forward recomputed (14 d^2) and the
+    # input, history and weight cotangent products (28 d^2); the inputs,
+    # history, mask and output cotangent read, d_h and d_prev written
+    n_masks = 0 if gr.m1 is None else 1
+    bound_ms, bound_by = _bound(2 * B * N * 42 * d * d,
+                                2 * 4 * B * N * d * (5 + n_masks))
+
+    def both_layers(fn):
+        return lambda: (fn(*layer2), fn(*layer1))
+
+    out = {"shape": f"B={B} N={N} E={gr.src.shape[1]} d={d}, both layers",
+           "max_abs_err": max(errs.values()), "errors": errs,
+           "ms": time_ms(both_layers(fused_final_bwd_layer), dev, reps=10),
+           "plain_ms": time_ms(both_layers(fused_final_bwd_layer_plain), dev,
+                               reps=5),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    out.update(final_step_ms(ctx, fb))
+    print(f"  K5: {out}", flush=True)
+    return out
+
+
+def final_step_ms(ctx, fb) -> dict:
+    """The final step and loss of the batch, forward and backward, as the
+    fused path (K3-K5) and as the unfused path (K1f/K1b, one element at a
+    time) run them, from the same history and draws."""
+    import torch
+
+    from temp_tpu_torch.ops.fused_final import fused_final_loss
+    from temp_tpu_torch.train.optim import param_leaves
+
+    dev, model, data = ctx["device"], ctx["model"], ctx["trainer"].data
+    params = {k: v for k, v in ctx["params"].items()}
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    h1 = fb["hist1"].clone().requires_grad_(True)
+    h2 = fb["hist2"].clone().requires_grad_(True)
+    tv = fb["tv"]
+
+    def fused():
+        loss = (fused_final_loss(params, fb["gr"], h1, h2) * tv).sum()
+        torch.autograd.grad(loss, leaves + [h1, h2], allow_unused=True)
+
+    def unfused():
+        loss = model.unfused_final_loss(params, data, fb["t_pos"],
+                                        fb["tv_host"],
+                                        (h1, h2, fb["last_pos"]),
+                                        fb["draws"])
+        torch.autograd.grad(loss, leaves + [h1, h2], allow_unused=True)
+
+    try:
+        return {"final_step_fused_ms": time_ms(fused, dev, reps=5),
+                "final_step_unfused_ms": time_ms(unfused, dev, reps=3)}
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+
+
+_PATHS = (("fused", {}), ("unfused", {"fused_final": False}),
+          ("plain", {"kernels": False}))
+
+
 def phase_train(ctx) -> dict:
-    """A few optimizer steps at the full config with the kernels, then the
-    same steps (same seeded weights and draws) with their plain versions;
-    then one valid sweep of the trained weights."""
+    """A few optimizer steps at the full config on three paths from the
+    same seeded weights and draws: the kernels with fused_final on (the
+    main path), the kernels with fused_final off, and the plain versions;
+    each path's launches counted from 0; then one valid sweep of the
+    weights the main path trained."""
     import numpy as np
     import torch
 
     from temp_tpu_torch.models.registry import get_model
+    from temp_tpu_torch.ops.fused_final import (
+        fused_final_bwd_layer, fused_final_bwd_loss, fused_final_fwd,
+    )
     from temp_tpu_torch.ops.fused_window import (
         fused_window_bwd, fused_window_fwd,
     )
@@ -496,13 +758,16 @@ def phase_train(ctx) -> dict:
     from temp_tpu_torch.train.loop import Trainer
 
     dev, cfg = ctx["device"], ctx["cfg"]
-    counters = (spmm_fwd, spmm_bwd, fused_window_fwd, fused_window_bwd)
+    counters = (spmm_fwd, spmm_bwd, fused_window_fwd, fused_window_bwd,
+                fused_final_fwd, fused_final_bwd_loss, fused_final_bwd_layer)
     res, trained = {}, None
-    for name, kernels in (("kernels", True), ("plain", False)):
-        c = cfg.replace(kernels=kernels)
-        tr = Trainer(c, get_model(c, ctx["data"], device=dev), ctx["data"])
-        if c.fused_final_on(dev):
-            raise AssertionError("fused_final resolved on")
+    for name, over in _PATHS:
+        c = cfg.replace(**over)
+        model = get_model(c, ctx["data"], device=dev)
+        if model.fused_final_on() != (name != "unfused"):
+            raise AssertionError(f"train {name}: fused_final resolved "
+                                 f"{model.fused_final_on()}")
+        tr = Trainer(c, model, ctx["data"])
         params, opt = tr.init_state()
         batches = tr.epoch_batches(0)[:ctx.get("train_steps", TRAIN_STEPS)]
         for fn in counters:
@@ -520,19 +785,34 @@ def phase_train(ctx) -> dict:
                      "launches": {fn.__name__: fn.launches
                                   for fn in counters}}
         print(f"  train {name}: {res[name]}", flush=True)
-        if kernels:
+        if name == "fused":
             trained = (tr, params)
-    k, pl = np.array(res["kernels"]["losses"]), np.array(res["plain"]["losses"])
-    gap = float(np.max(np.abs(k - pl) / np.maximum(1.0, np.abs(pl))))
-    res["max_rel_gap"] = gap
-    if not (np.isfinite(k).all() and gap <= TRAIN_TOL):
-        raise AssertionError(f"train: loss trajectories differ: {gap} > "
+    gaps = {}
+    for a, b in (("fused", "plain"), ("fused", "unfused"),
+                 ("unfused", "plain")):
+        x, y = np.array(res[a]["losses"]), np.array(res[b]["losses"])
+        if not np.isfinite(x).all():
+            raise AssertionError(f"train {a}: losses not finite: {x}")
+        gaps[f"{a}/{b}"] = float(np.max(np.abs(x - y)
+                                        / np.maximum(1.0, np.abs(y))))
+    res["max_rel_gaps"] = gaps
+    if not all(g <= TRAIN_TOL for g in gaps.values()):
+        raise AssertionError(f"train: loss trajectories differ: {gaps} > "
                              f"{TRAIN_TOL}")
-    launches = res["kernels"]["launches"]
-    if dev.type == "cuda" and not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"train path missed a kernel: {launches}")
-    if dev.type == "cpu" and any(launches.values()):
-        raise AssertionError(f"kernels launched on the CPU: {launches}")
+    want = {"fused": ("fused_window_fwd", "fused_window_bwd",
+                      "fused_final_fwd", "fused_final_bwd_loss",
+                      "fused_final_bwd_layer"),
+            "unfused": ("spmm_fwd", "spmm_bwd", "fused_window_fwd",
+                        "fused_window_bwd")}
+    for name, kernels in want.items():
+        n = res[name]["launches"]
+        if dev.type == "cuda" and not all(n[k] > 0 for k in kernels):
+            raise AssertionError(f"train {name} missed a kernel: {n}")
+    for name in ("plain",) + (tuple(want) if dev.type == "cpu" else ()):
+        if any(res[name]["launches"].values()):
+            raise AssertionError(f"train {name}: kernels launched on the "
+                                 f"plain versions' path: "
+                                 f"{res[name]['launches']}")
     tr, params = trained
     m = tr.run_eval(params, "valid")
     if not (np.isfinite(m["mrr"]) and 0.0 < m["mrr"] <= 1.0
@@ -552,26 +832,38 @@ _KERNELS = (
      "temp_tpu/ops/fused_window.py:223"),
     ("fused_window_bwd", "temp_tpu_torch/csrc/fused_window.cu",
      "temp_tpu/ops/fused_window.py:246"),
+    ("fused_final_fwd", "temp_tpu_torch/csrc/fused_final.cu",
+     "temp_tpu/ops/fused_final.py:227"),
+    ("fused_final_bwd_loss", "temp_tpu_torch/csrc/fused_final.cu",
+     "temp_tpu/ops/fused_final.py:250"),
+    ("fused_final_bwd_layer", "temp_tpu_torch/csrc/fused_final.cu",
+     "temp_tpu/ops/fused_final.py:343"),
 )
 
 
 def kernels_line(k1: dict, k2: dict, path: dict, k1b: dict, k2b: dict,
-                 train: dict) -> dict:
-    """One record per kernel: its numbers at the main paths' shapes and its
-    launches on the training path (``launches``) and on each path."""
-    eval_launches = {"spmm_fwd": path["kernels"]["k1_launches"],
-                     "fused_window_fwd": path["kernels"]["k2_launches"]}
+                 k3: dict, k4: dict, k5: dict, train: dict) -> dict:
+    """One record per kernel: its numbers at the main paths' shapes, its
+    launches on each path (``launches_by_path``: the eval sweep and each
+    training path), and as ``launches`` those of the path that runs it (the
+    fused training path; the eval sweep for K1f, the unfused training path
+    for K1b)."""
     measured = {"spmm_fwd": k1["final"], "spmm_bwd": k1b,
                 "fused_window_fwd": k2["conv1_in"],
-                "fused_window_bwd": k2b["bwd"]}
+                "fused_window_bwd": k2b["bwd"], "fused_final_fwd": k3,
+                "fused_final_bwd_loss": k4, "fused_final_bwd_layer": k5}
+    home = {"spmm_fwd": "eval", "spmm_bwd": "train_unfused"}
     rec = []
     for name, src, replaces in _KERNELS:
         m = measured[name]
-        by_path = {"train": train["kernels"]["launches"][name]}
-        if name in eval_launches:
-            by_path["eval"] = eval_launches[name]
+        by_path = {f"train_{p}": train[p]["launches"][name]
+                   for p in ("fused", "unfused")}
+        if name in ("spmm_fwd", "fused_window_fwd"):
+            by_path["eval"] = path["kernels"][
+                "k1_launches" if name == "spmm_fwd" else "k2_launches"]
         r = {"name": name, "route": "cuda", "source": src,
-             "replaces": replaces, "launches": by_path["train"],
+             "replaces": replaces,
+             "launches": by_path[home.get(name, "train_fused")],
              "launches_by_path": by_path,
              "max_abs_err": m["max_abs_err"], "ms": m["ms"],
              "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
@@ -622,11 +914,19 @@ def main() -> int:
         k1b.update(phase_k1b(ctx))
     with phase("k2b", {}) as k2b:
         k2b.update(phase_k2b(ctx))
+    with phase("k3", {}) as k3:
+        k3.update(phase_k3(ctx))
+    with phase("k4", {}) as k4:
+        k4.update(phase_k4(ctx))
+    with phase("k5", {}) as k5:
+        k5.update(phase_k5(ctx))
     with phase("train", {}) as tra:
         tra.update(phase_train(ctx))
-        tra["loss_kernels_last"] = tra["kernels"]["losses"][-1]
+        for name, _ in _PATHS:
+            tra[f"ms_per_step_{name}"] = tra[name]["ms_per_step"]
     _state["phase"] = "report"
-    print(json.dumps(kernels_line(k1, k2, pa, k1b, k2b, tra)), flush=True)
+    print(json.dumps(kernels_line(k1, k2, pa, k1b, k2b, k3, k4, k5, tra)),
+          flush=True)
     print(f"total_s={time.perf_counter() - t_start:.3f}", flush=True)
     print(smi_line(), flush=True)
     signal.alarm(0)

@@ -1,11 +1,12 @@
 """Builds and loads the package's CUDA kernels: the one place that does.
 
-All ``csrc/*.cu`` sources compile in ONE ``nvcc`` call into a shared library
-with a plain C interface (``.kernel_build/libtemp_kernels.so`` at the root of
-the checkout), loaded with ``ctypes``. No PyTorch headers are compiled, so
-the build takes seconds. It happens at first use and again whenever a
-source is newer than the library. Each exported launcher takes raw device
-pointers, sizes and the CUDA stream, and returns ``cudaGetLastError()``.
+All ``csrc/*.cu`` sources (and the headers they include, ``csrc/*.cuh``)
+compile in ONE ``nvcc`` call into a shared library with a plain C interface
+(``.kernel_build/libtemp_kernels.so`` at the root of the checkout), loaded
+with ``ctypes``. No PyTorch headers are compiled, so the build takes
+seconds. It happens at first use and again whenever a source or header is
+newer than the library. Each exported launcher takes raw device pointers,
+sizes and the CUDA stream, and returns ``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _ROOT = os.path.dirname(_PKG)
 SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
+HEADERS = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
 BUILD_DIR = os.path.join(_ROOT, ".kernel_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libtemp_kernels.so")
 NVCC_TIMEOUT_S = 120
@@ -62,6 +64,46 @@ SIGNATURES = {
     "window_wgrad_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],
     # window_rel_grad(r_ptr, r_eid, ewg1, ewg2, dwrel, n_rels, d, stream)
     "window_rel_grad_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # final_layer(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask,
+    #             wih_t, whh_t, bih, bhh, dt, lam, prev, sel_x, active, out,
+    #             B, N, d, stream)
+    "final_layer_launch": [_P] * 6 + [_I, _I] + [_P] * 7 + [_F]
+                          + [_P] * 4 + [_I, _I, _I, _P],
+    # final_scores(table, rtab, src, dst, rel, posm, t_ptr, t_ans, h_ptr,
+    #              h_ans, part_m, part_s, qhat, scpos, B, N, E, d, n_split,
+    #              stream)
+    "final_scores_launch": [_P] * 14 + [_I] * 5 + [_P],
+    # final_loss_reduce(part_m, part_s, scpos, posm, lse, cnt, loss, B, E,
+    #                   n_split, stream)
+    "final_loss_reduce_launch": [_P] * 7 + [_I] * 3 + [_P],
+    # final_dq(table, qhat, lse, posm, t_ptr, t_ans, h_ptr, h_ans, part_dq,
+    #          B, N, E, d, n_split, stream)
+    "final_dq_launch": [_P] * 9 + [_I] * 5 + [_P],
+    # final_dq_finish(table, rtab, src, dst, rel, posm, qhat, scpos, lse,
+    #                 cnt, g, part_dq, d_s, d_o, d_remb, B, N, E, d,
+    #                 n_split, stream)
+    "final_dq_finish_launch": [_P] * 15 + [_I] * 5 + [_P],
+    # final_dtable(table, qhat, lse, posm, cnt, g, src, dst, t_ptr, t_ans,
+    #              h_ptr, h_ans, d_s, d_o, d_table, B, N, E, d, stream)
+    "final_dtable_launch": [_P] * 15 + [_I] * 4 + [_P],
+    # final_rel_grad(rel, keep, vals, out, n_edges, n_rels, d, stream)
+    "final_rel_grad_launch": [_P] * 4 + [_I] * 3 + [_P],
+    # final_bwd_gru(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask,
+    #               wih_t, whh_t, bih, bhh, wih, whh, dt, lam, prev, dout,
+    #               dprev, n2_out, conv_s, h0g_s, dgi_s, dgh_s, dconv_s,
+    #               dlp_s, B, N, d, stream)
+    "final_bwd_gru_launch": [_P] * 6 + [_I, _I] + [_P] * 9 + [_F]
+                            + [_P] * 10 + [_I] * 3 + [_P],
+    # final_bwd_input(s_ptr, s_dst, s_rel, s_em, s_eid, n2, dconv_s, dlp_s,
+    #                 wrel, wstride, wcol, loop_t, x, ewg, out, B, N, d,
+    #                 stream)
+    "final_bwd_input_launch": [_P] * 9 + [_I, _I] + [_P] * 4
+                              + [_I] * 3 + [_P],
+    # final_wgrad(conv_s, dgi_s, h0g_s, dgh_s, x, dlp_s, part, n_split, B, N,
+    #             d, stream)
+    "final_wgrad_launch": [_P] * 7 + [_I] * 4 + [_P],
+    # final_wgrad_reduce(part, n_split, total, out, stream)
+    "final_wgrad_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],
 }
 
 _lib = None
@@ -84,7 +126,7 @@ def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     lib_mtime = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > lib_mtime for s in SOURCES)
+    return any(os.path.getmtime(s) > lib_mtime for s in SOURCES + HEADERS)
 
 
 def build() -> str:

@@ -5,15 +5,17 @@ and model defaults, and the same loader for the ``grid/*/config_*.json``
 files, so one config file drives both packages. Differences:
 
 - ``"auto"`` flags resolve on the device the port runs on (on for CUDA, off
-  for the CPU) instead of on the JAX backend, except ``fused_final``, which
-  stays off until its kernels are ported;
+  for the CPU) instead of on the JAX backend;
 - ``eval_conv1`` replaces the ``TEMP_TPU_EVAL_CONV1`` environment switch of
   the JAX trainer;
 - ``kernels`` selects between each hand-written kernel and its plain PyTorch
   version on the card (the plain run is the reference the kernels are held
   against end to end);
-- this package computes in float32 throughout; ``compute_dtype`` is kept for
-  config compatibility and not read.
+- this package computes in float32 throughout;
+- a field whose non-default value selects a path the port has not ported
+  (``_UNPORTED``; ``compute_dtype`` other than float32) raises
+  ``NotImplementedError`` when the config is made, naming what is missing,
+  rather than quietly running another path.
 """
 
 from __future__ import annotations
@@ -25,6 +27,21 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+
+# fields whose non-default values select paths the port has not ported:
+# (name, default, what that value needs)
+_UNPORTED = (
+    ("fused_window_mb", False, "kernel K12, the batched window kernel "
+     "(temp_tpu/ops/fused_window_mb.py:_fwd_kernel_mb)"),
+    ("fused_eval", False, "kernel K11, the fused eval kernel "
+     "(temp_tpu/ops/fused_final.py:_eval_kernel)"),
+    ("dp_size", 1, "data parallelism (temp_tpu/parallel/)"),
+    ("mp_size", 1, "model parallelism (temp_tpu/parallel/)"),
+    ("distributed", False, "multi-process training (temp_tpu/parallel/)"),
+    ("edge_partition", False, "kernel K13, the sharded SpMM ring "
+     "(temp_tpu/parallel/ring_pallas.py:_ring_kernel)"),
+)
 
 
 @dataclass
@@ -128,18 +145,24 @@ class TKGConfig:
         return self._auto_flag(self.fused_window, device)
 
     def fused_final_on(self, device) -> bool:
-        """The fused dense final step (kernels K3-K5 of the JAX package) is
-        not ported yet: "auto" resolves to off on every device, and an
-        explicit on raises rather than quietly running the unfused step."""
-        if isinstance(self.fused_final, str) and \
-                self.fused_final.lower() == "auto":
-            return False
-        if self._auto_flag(self.fused_final, device):
+        """The fused dense final step and loss (kernels K3-K5); an explicit
+        on runs their plain versions on the CPU."""
+        return self._auto_flag(self.fused_final, device)
+
+    def __post_init__(self):
+        for name, default, what in _UNPORTED:
+            value = getattr(self, name)
+            off = (value.lower() in ("0", "false", "no", "off")
+                   if isinstance(value, str) else value == default)
+            if not off:
+                raise NotImplementedError(
+                    f"{name}={value!r} needs {what}, which is not ported "
+                    f"yet; see ROADMAP.md")
+        if self.compute_dtype not in ("auto", "float32", "f32", None):
             raise NotImplementedError(
-                "fused_final=True needs kernels K3-K5 (the fused final step "
-                "and its backward, temp_tpu/ops/fused_final.py), which are "
-                "not ported yet; see ROADMAP.md")
-        return False
+                f"compute_dtype={self.compute_dtype!r}: the port computes in "
+                f"float32 only (the JAX package's bfloat16 hot path is not "
+                f"ported yet; see ROADMAP.md)")
 
     # -- run control --------------------------------------------------------
     debug: bool = False
@@ -196,3 +219,34 @@ class TKGConfig:
                 kw[k] = v
         kw.update(overrides)
         return cls(**kw)
+
+
+def encode_run_name(cfg: TKGConfig) -> str:
+    """Experiment name from the key hyperparameters: the JAX package's
+    ``encode_run_name`` (after the reference's TestTube naming), so both
+    packages name a run's directory alike."""
+    parts = [
+        cfg.module,
+        cfg.dataset.replace("/", "-"),
+        cfg.score_function,
+        f"seq{cfg.train_seq_len}",
+        f"d{cfg.embed_size}",
+        f"b{cfg.n_bases}",
+        f"neg{cfg.negative_rate}",
+        f"lr{cfg.lr}",
+    ]
+    for flag, tag in [
+        (cfg.rec_only_last_layer, "reclast"),
+        (cfg.use_time_embedding, "temb"),
+        (cfg.post_ensemble, "postens"),
+        (cfg.post_aggregation, "postagg"),
+        (cfg.impute, "impute"),
+        (cfg.learnable_lambda, "learnlam"),
+        (cfg.edge_dropout, "dropedge"),
+        (cfg.random_dropout, "rnddrop"),
+        (cfg.type1, "type1"),
+        (cfg.ema, "ema"),
+    ]:
+        if flag:
+            parts.append(tag)
+    return "-".join(parts)

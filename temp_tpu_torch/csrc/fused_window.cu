@@ -51,179 +51,13 @@
 // a live row names a row no other live row names (each earlier row is read
 // only by its entity's next active step), so a plain read-add-store is
 // exact, and dead rows (live = 0) store nothing. Products use plain FMA;
-// wgmma and TMA are left for later work.
+// wgmma and TMA are left for later work. The tile forward, the GRU and
+// input backward and the weight sums are device code shared with the
+// final step's kernels (rgcn_gru_layer.cuh).
 
-#include <cuda_runtime.h>
+#include "rgcn_gru_layer.cuh"
 
 namespace {
-
-constexpr int kWarp = 32;
-constexpr int kTileRows = 16;
-constexpr int kRowGroups = 2;                         // threads = 2 * d
-constexpr int kRowsPerThread = kTileRows / kRowGroups;
-constexpr int kMaxChunks = 8;                         // d <= 256
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.f / (1.f + expf(-v));
-}
-
-// One RGCN+GRU layer of window step k.
-struct Layer {
-  const float* x;       // [B, L1, A, d] layer input
-  int conv_given;       // x already holds the conv output (eval only)
-  const int* rowptr;    // [B*L1*A + 1] CSR by (b, k, dst)
-  const int* src;       // [B*L1*E] in CSR order, step-local rows
-  const int* rel;
-  const float* em;
-  const float* wrel;    // [R, wstride]; this layer at column wcol
-  int wstride, wcol;
-  const float* loopw;   // [d, d]
-  const float* mask;    // [B, L1, A, d] self-loop dropout mask / keep, or null
-  const float* wih_t;   // [d, 3d]
-  const float* whh_t;   // [d, 3d]
-  const float* bih;     // [3d]
-  const float* bhh;     // [3d]
-  const int* gidx;      // [B, L1, A] row in the element's [L1*A] buffer
-  const float* live;    // [B, L1, A]
-  const float* dt;      // [B, L1, A]
-  float lam;
-  const float* prev;    // [B, L1, A, d] this layer's output buffer
-  int L1, A, d, k;
-};
-
-// The gates of the rows r0..r0+7 a thread owns, at its column.
-struct Gates {
-  float r[kRowsPerThread], z[kRowsPerThread], n[kRowsPerThread];
-  float ghn[kRowsPerThread];  // W_hn h + b_hn, before the reset gate
-};
-
-// The forward of one layer for rows a0..a0+15 of element b, up to the GRU
-// gates: xs = the input rows, hs = the decayed previous states, cs = the
-// conv output. Writes norm^2 of each row to n2_out when it is not null.
-__device__ __forceinline__ void layer_tile(const Layer& p, int b, int a0,
-                                           float* xs, float* cs, float* hs,
-                                           float* n2_out, Gates& gt) {
-  const int d = p.d, A = p.A;
-  const long long elem_row = (long long)b * p.L1 * A;
-  const long long step_row = elem_row + (long long)p.k * A;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-
-  // 1. tile of the input rows and of the decayed previous state
-  for (int i = tid; i < kTileRows * d; i += nthreads) {
-    const int r = i / d, c = i - r * d;
-    const int a = a0 + r;
-    float xv = 0.f, hv = 0.f;
-    if (a < A) {
-      const long long row = step_row + a;
-      xv = p.x[row * d + c];
-      const float dec = expf(-p.lam * p.dt[row]);
-      hv = p.prev[(elem_row + p.gidx[row]) * d + c] * p.live[row] * dec;
-    }
-    xs[i] = xv;
-    hs[i] = hv;
-    if (p.conv_given) cs[i] = xv;
-  }
-
-  if (!p.conv_given) {
-    // 2. relational SpMM with double degree normalization: one warp a row
-    const int warp = tid / kWarp, lane = tid % kWarp;
-    const int nwarps = (nthreads + kWarp - 1) / kWarp;
-    for (int r = warp; r < kTileRows; r += nwarps) {
-      const int a = a0 + r;
-      float acc[kMaxChunks];
-#pragma unroll
-      for (int j = 0; j < kMaxChunks; ++j) acc[j] = 0.f;
-      float deg = 0.f;
-      if (a < A) {
-        const long long row = step_row + a;
-        const int e1 = p.rowptr[row + 1];
-        for (int e = p.rowptr[row]; e < e1; ++e) {
-          const float m = p.em[e];
-          deg += m;
-          const float* hsrc = p.x + (step_row + p.src[e]) * d;
-          const float* wr = p.wrel + (long long)p.rel[e] * p.wstride + p.wcol;
-#pragma unroll
-          for (int j = 0; j < kMaxChunks; ++j) {
-            const int c = lane + j * kWarp;
-            if (c < d) acc[j] += hsrc[c] * wr[c] * m;
-          }
-        }
-      }
-      const float norm = deg > 0.f ? 1.f / deg : 0.f;
-      const float n2 = norm * norm;
-#pragma unroll
-      for (int j = 0; j < kMaxChunks; ++j) {
-        const int c = lane + j * kWarp;
-        if (c < d) cs[r * d + c] = acc[j] * n2;
-      }
-      if (n2_out != nullptr && lane == 0 && a < A) n2_out[step_row + a] = n2;
-    }
-  }
-  __syncthreads();
-
-  const int col = tid % d;
-  const int r0 = (tid / d) * kRowsPerThread;
-
-  if (!p.conv_given) {
-    // 3. self-loop product: conv += (x_tile @ loop) * mask
-    float acc[kRowsPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float w = p.loopw[kk * d + col];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        acc[i] += xs[(r0 + i) * d + kk] * w;
-    }
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int a = a0 + r0 + i;
-      if (p.mask != nullptr && a < A)
-        acc[i] *= p.mask[(step_row + a) * d + col];
-      cs[(r0 + i) * d + col] += acc[i];
-    }
-    __syncthreads();
-  }
-
-  // 4. GRU gate products for column `col` of rows r0..r0+7
-  float gir[kRowsPerThread], giz[kRowsPerThread], gin[kRowsPerThread];
-  float ghr[kRowsPerThread], ghz[kRowsPerThread], ghn[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    gir[i] = giz[i] = gin[i] = 0.f;
-    ghr[i] = ghz[i] = ghn[i] = 0.f;
-  }
-  const int d3 = 3 * d;
-  for (int kk = 0; kk < d; ++kk) {
-    const float* wi = p.wih_t + (long long)kk * d3;
-    const float* wh = p.whh_t + (long long)kk * d3;
-    const float wir = wi[col], wiz = wi[d + col], win = wi[2 * d + col];
-    const float whr = wh[col], whz = wh[d + col], whn = wh[2 * d + col];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const float cv = cs[(r0 + i) * d + kk];
-      const float hv = hs[(r0 + i) * d + kk];
-      gir[i] += cv * wir;
-      giz[i] += cv * wiz;
-      gin[i] += cv * win;
-      ghr[i] += hv * whr;
-      ghz[i] += hv * whz;
-      ghn[i] += hv * whn;
-    }
-  }
-
-  // 5. the gates
-  const float bir = p.bih[col], biz = p.bih[d + col], bin = p.bih[2 * d + col];
-  const float bhr = p.bhh[col], bhz = p.bhh[d + col], bhn = p.bhh[2 * d + col];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    gt.r[i] = sigmoid((gir[i] + bir) + (ghr[i] + bhr));
-    gt.z[i] = sigmoid((giz[i] + biz) + (ghz[i] + bhz));
-    gt.ghn[i] = ghn[i] + bhn;
-    gt.n[i] = tanhf((gin[i] + bin) + gt.r[i] * gt.ghn[i]);
-  }
-}
 
 __global__ void window_layer_kernel(Layer p, float* buf) {
   extern __shared__ float smem[];
@@ -249,309 +83,39 @@ __global__ void window_layer_kernel(Layer p, float* buf) {
   }
 }
 
-// Backward of one layer's GRU at step k for a tile of rows: recomputes the
-// conv output and the gates, takes d_out from db (this layer's cotangent
-// buffer), and gives d_conv (and d_conv * mask, the self-loop cotangent)
-// into the step scratch, the gate cotangents and their product operands
-// into the step scratch for the weight launch, and adds the cotangent of
-// each live row's previous state into db at the row gidx names.
 __global__ void window_bwd_gru_kernel(
-    Layer p,
-    const float* __restrict__ wih,     // [3d, d] (torch layout)
-    const float* __restrict__ whh,     // [3d, d]
-    float* db,                         // [B, L1, A, d]
-    float* n2_out,                     // [B, L1, A] or null
-    float* __restrict__ conv_s,        // [B*A, d]   step scratch
-    float* __restrict__ h0g_s,         // [B*A, d]
-    float* __restrict__ dgi_s,         // [B*A, 3d]
-    float* __restrict__ dgh_s,         // [B*A, 3d]
-    float* __restrict__ dconv_s,       // [B*A, d]
-    float* __restrict__ dlp_s) {       // [B*A, d]
-  extern __shared__ float smem[];
-  const int d = p.d, A = p.A, d3 = 3 * d, d4 = 4 * d;
-  float* xs = smem;
-  float* cs = xs + kTileRows * d;
-  float* hs = cs + kTileRows * d;
-  float* dg = hs + kTileRows * d;      // [kTileRows, 4d]: d_r, d_z, d_n, d_ghn
-  const int b = blockIdx.y;
-  const int a0 = blockIdx.x * kTileRows;
-  Gates gt;
-  layer_tile(p, b, a0, xs, cs, hs, n2_out, gt);
-
-  const int col = threadIdx.x % d;
-  const int r0 = (threadIdx.x / d) * kRowsPerThread;
-  const long long elem_row = (long long)b * p.L1 * A;
-  const long long step_row = elem_row + (long long)p.k * A;
-  float dh_direct[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = r0 + i, a = a0 + r;
-    float pr = 0.f, pz = 0.f, pn = 0.f, phn = 0.f;
-    dh_direct[i] = 0.f;
-    if (a < A) {
-      const long long row = step_row + a;
-      const long long m = (long long)b * A + a;
-      const float dout = db[row * d + col];
-      const float h = hs[r * d + col];
-      const float z = gt.z[i], n = gt.n[i], rg = gt.r[i];
-      const float dz = dout * (h - n);
-      const float dn = dout * (1.f - z);
-      dh_direct[i] = dout * z;
-      pn = dn * (1.f - n * n);
-      phn = pn * rg;
-      const float dr = pn * gt.ghn[i];
-      pr = dr * rg * (1.f - rg);
-      pz = dz * z * (1.f - z);
-      conv_s[m * d + col] = cs[r * d + col];
-      h0g_s[m * d + col] = h;
-      dgi_s[m * d3 + col] = pr;
-      dgi_s[m * d3 + d + col] = pz;
-      dgi_s[m * d3 + 2 * d + col] = pn;
-      dgh_s[m * d3 + col] = pr;
-      dgh_s[m * d3 + d + col] = pz;
-      dgh_s[m * d3 + 2 * d + col] = phn;
-    }
-    dg[r * d4 + col] = pr;
-    dg[r * d4 + d + col] = pz;
-    dg[r * d4 + 2 * d + col] = pn;
-    dg[r * d4 + 3 * d + col] = phn;
-  }
-  __syncthreads();
-
-  // d_conv = d_gi @ W_ih and d_h0g += d_gh @ W_hh, column `col`
-  float dx[kRowsPerThread], dh[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) dx[i] = dh[i] = 0.f;
-  for (int j = 0; j < d; ++j) {
-    const float wr = wih[(long long)j * d + col];
-    const float wz = wih[(long long)(d + j) * d + col];
-    const float wn = wih[(long long)(2 * d + j) * d + col];
-    const float ur = whh[(long long)j * d + col];
-    const float uz = whh[(long long)(d + j) * d + col];
-    const float un = whh[(long long)(2 * d + j) * d + col];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const float* g = dg + (r0 + i) * d4;
-      dx[i] += g[j] * wr + g[d + j] * wz + g[2 * d + j] * wn;
-      dh[i] += g[j] * ur + g[d + j] * uz + g[3 * d + j] * un;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int a = a0 + r0 + i;
-    if (a >= A) continue;
-    const long long row = step_row + a;
-    const long long m = (long long)b * A + a;
-    dconv_s[m * d + col] = dx[i];
-    dlp_s[m * d + col] = p.mask != nullptr ? dx[i] * p.mask[row * d + col]
-                                           : dx[i];
-    const float lv = p.live[row];
-    if (lv != 0.f) {
-      const float dec = expf(-p.lam * p.dt[row]);
-      const long long t = (elem_row + p.gidx[row]) * d + col;
-      db[t] += (dh_direct[i] + dh[i]) * dec * lv;
-    }
-  }
+    Layer p, const float* __restrict__ wih, const float* __restrict__ whh,
+    float* db, float* n2_out, float* __restrict__ conv_s,
+    float* __restrict__ h0g_s, float* __restrict__ dgi_s,
+    float* __restrict__ dgh_s, float* __restrict__ dconv_s,
+    float* __restrict__ dlp_s) {
+  bwd_gru_tile(p, wih, whh, db, nullptr, n2_out, conv_s, h0g_s, dgi_s, dgh_s,
+               dconv_s, dlp_s);
 }
 
-// Cotangent of one layer's input rows at step k: out = (base + SpMM^T of
-// d_conv) + d_lp @ loop^T, with base the current out (accumulate) or 0.
-// Also writes each edge's relation-weight cotangent (over a CSR by source,
-// so every unmasked edge of the step is written once; masked edges are in
-// no CSR and their slots are never read).
 __global__ void window_bwd_input_kernel(
-    const int* __restrict__ s_ptr,     // [B*L1*A + 1] CSR by (b, k, src)
-    const int* __restrict__ s_dst,     // step-local destination rows
-    const int* __restrict__ s_rel,
-    const float* __restrict__ s_em,
-    const int* __restrict__ s_eid,     // the edge's index in [B*L1*E]
-    const float* __restrict__ n2,      // [B, L1, A]
-    const float* __restrict__ dconv_s, // [B*A, d]
-    const float* __restrict__ dlp_s,   // [B*A, d]
+    const int* __restrict__ s_ptr, const int* __restrict__ s_dst,
+    const int* __restrict__ s_rel, const float* __restrict__ s_em,
+    const int* __restrict__ s_eid, const float* __restrict__ n2,
+    const float* __restrict__ dconv_s, const float* __restrict__ dlp_s,
     const float* __restrict__ wrel, int wstride, int wcol,
-    const float* __restrict__ loop_t,  // [d, d], the self-loop transposed
-    const float* __restrict__ x,       // [B, L1, A, d] the layer's input
-    float* __restrict__ ewg,           // [B*L1*E, d]
-    float* out,                        // [B, L1, A, d]
-    int accumulate, int L1, int A, int d, int k) {
-  extern __shared__ float smem[];
-  float* ls = smem;                    // [kTileRows, d] d_lp rows
-  float* cs = ls + kTileRows * d;      // [kTileRows, d] SpMM^T rows
-  const int b = blockIdx.y;
-  const int a0 = blockIdx.x * kTileRows;
-  const long long step_row = ((long long)b * L1 + k) * A;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  for (int i = tid; i < kTileRows * d; i += nthreads) {
-    const int r = i / d, c = i - r * d;
-    const int a = a0 + r;
-    ls[i] = a < A ? dlp_s[((long long)b * A + a) * d + c] : 0.f;
-  }
-  const int warp = tid / kWarp, lane = tid % kWarp;
-  const int nwarps = (nthreads + kWarp - 1) / kWarp;
-  for (int r = warp; r < kTileRows; r += nwarps) {
-    const int a = a0 + r;
-    float acc[kMaxChunks];
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) acc[j] = 0.f;
-    if (a < A) {
-      const long long row = step_row + a;
-      const float* xr = x + row * d;
-      const int e1 = s_ptr[row + 1];
-      for (int e = s_ptr[row]; e < e1; ++e) {
-        const int t = s_dst[e];
-        const float s = n2[step_row + t] * s_em[e];
-        const float* gt = dconv_s + ((long long)b * A + t) * d;
-        const float* wr = wrel + (long long)s_rel[e] * wstride + wcol;
-        float* er = ewg + (long long)s_eid[e] * d;
-#pragma unroll
-        for (int j = 0; j < kMaxChunks; ++j) {
-          const int c = lane + j * kWarp;
-          if (c < d) {
-            const float gv = gt[c] * s;
-            acc[j] += gv * wr[c];
-            er[c] = gv * xr[c];
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      const int c = lane + j * kWarp;
-      if (c < d) cs[r * d + c] = acc[j];
-    }
-  }
-  __syncthreads();
-
-  const int col = tid % d;
-  const int r0 = (tid / d) * kRowsPerThread;
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.f;
-  for (int j = 0; j < d; ++j) {
-    const float w = loop_t[j * d + col];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) acc[i] += ls[(r0 + i) * d + j] * w;
-  }
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int a = a0 + r0 + i;
-    if (a >= A) continue;
-    float* o = out + (step_row + a) * d + col;
-    const float base = accumulate ? *o : 0.f;
-    *o = (base + cs[(r0 + i) * d + col]) + acc[i];
-  }
+    const float* __restrict__ loop_t, const float* __restrict__ x,
+    float* __restrict__ ewg, float* out, int accumulate, int L1, int A,
+    int d, int k) {
+  bwd_input_tile(s_ptr, s_dst, s_rel, s_em, s_eid, n2, dconv_s, dlp_s, wrel,
+                 wstride, wcol, loop_t, x, ewg, out, accumulate, L1, A, d, k);
 }
-
-// Weight cotangents of one step: out[x_col, g_col] += sum over the step's
-// B*A rows of X[row, x_col] * G[row, g_col], and bias[g_col] += sum of G.
-// The rows are cut into n_split ranges (blockIdx.y); each range adds into
-// its own copy of the outputs (part + range * part_stride), so no two
-// blocks write one address, and window_wgrad_reduce_kernel sums the copies
-// in range order after the last step: deterministic sums.
-constexpr int kWgX = 32;      // x columns per tile (16 threads x 2)
-constexpr int kWgG = 64;      // g columns per tile (16 threads x 4)
-constexpr int kWgRows = 32;   // rows per shared-memory chunk
-constexpr int kWgThreads = 256;
-constexpr int kWgJobs = 6;
-
-struct WJob {
-  const float* x;      // row (b, a) at x + b * x_es + a * nx
-  long long x_es;
-  const float* g;      // row (b, a) at g + b * g_es + a * ng
-  long long g_es;
-  float* out;          // [nx, ng] in range 0's copy
-  float* bias;         // [ng] or null; then X has a column of ones at nx
-  int nx, ng, tiles_g, first;
-};
-
-struct WJobs {
-  WJob job[kWgJobs];
-};
 
 __global__ void window_wgrad_kernel(WJobs jobs, int B, int A,
                                     int rows_per_split,
                                     long long part_stride) {
-  __shared__ float xsm[kWgRows][kWgX];
-  __shared__ float gsm[kWgRows][kWgG];
-  int j = 0;
-  while (j + 1 < kWgJobs && (int)blockIdx.x >= jobs.job[j + 1].first) ++j;
-  const WJob jb = jobs.job[j];
-  const int t = blockIdx.x - jb.first;
-  const int tx0 = (t / jb.tiles_g) * kWgX;
-  const int tg0 = (t % jb.tiles_g) * kWgG;
-  const int tid = threadIdx.x;
-  const int tx = tid / 16, tg = tid % 16;
-  const int m_begin = blockIdx.y * rows_per_split;
-  const int m_end = min(B * A, m_begin + rows_per_split);
-  float acc[2][4];
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
-
-  for (int m0 = m_begin; m0 < m_end; m0 += kWgRows) {
-    for (int i = tid; i < kWgRows * kWgX; i += kWgThreads) {
-      const int r = i / kWgX, c = i % kWgX;
-      const int m = m0 + r, xc = tx0 + c;
-      float v = 0.f;
-      if (m < m_end) {
-        if (xc < jb.nx) {
-          const int b = m / A, a = m - b * A;
-          v = jb.x[b * jb.x_es + (long long)a * jb.nx + xc];
-        } else if (xc == jb.nx && jb.bias != nullptr) {
-          v = 1.f;
-        }
-      }
-      xsm[r][c] = v;
-    }
-    for (int i = tid; i < kWgRows * kWgG; i += kWgThreads) {
-      const int r = i / kWgG, c = i % kWgG;
-      const int m = m0 + r, gc = tg0 + c;
-      float v = 0.f;
-      if (m < m_end && gc < jb.ng) {
-        const int b = m / A, a = m - b * A;
-        v = jb.g[b * jb.g_es + (long long)a * jb.ng + gc];
-      }
-      gsm[r][c] = v;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kWgRows; ++r) {
-      const float xa = xsm[r][tx], xb = xsm[r][tx + 16];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float gv = gsm[r][tg + 16 * q];
-        acc[0][q] += xa * gv;
-        acc[1][q] += xb * gv;
-      }
-    }
-    __syncthreads();
-  }
-  const long long off = (long long)blockIdx.y * part_stride;
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const int xc = tx0 + tx + 16 * p;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int gc = tg0 + tg + 16 * q;
-      if (gc >= jb.ng) continue;
-      if (xc < jb.nx)
-        jb.out[off + (long long)xc * jb.ng + gc] += acc[p][q];
-      else if (xc == jb.nx && jb.bias != nullptr)
-        jb.bias[off + gc] += acc[p][q];
-    }
-  }
+  wgrad_tile(jobs, B, A, rows_per_split, part_stride);
 }
 
-// out[i] = sum over the ranges s = 0..n_split-1 of part[s][i], in order.
 __global__ void window_wgrad_reduce_kernel(const float* __restrict__ part,
                                            int n_split, long long total,
                                            float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float acc = 0.f;
-  for (int s = 0; s < n_split; ++s) acc += part[s * total + i];
-  out[i] = acc;
+  wgrad_reduce_one(part, n_split, total, out);
 }
 
 // dwrel[r, :d] and dwrel[r, d:] = the per-edge cotangents of layer 1 and
@@ -590,59 +154,6 @@ __global__ void window_rel_grad_kernel(const int* __restrict__ r_ptr,
       o[d + c] = a2[j];
     }
   }
-}
-
-Layer make_layer(const void* x, int conv_given, const void* rowptr,
-                 const void* src, const void* rel, const void* em,
-                 const void* wrel, int wstride, int wcol, const void* loopw,
-                 const void* mask, const void* wih_t, const void* whh_t,
-                 const void* bih, const void* bhh, const void* gidx,
-                 const void* live, const void* dt, float lam,
-                 const void* prev, int L1, int A, int d, int k) {
-  Layer p;
-  p.x = static_cast<const float*>(x);
-  p.conv_given = conv_given;
-  p.rowptr = static_cast<const int*>(rowptr);
-  p.src = static_cast<const int*>(src);
-  p.rel = static_cast<const int*>(rel);
-  p.em = static_cast<const float*>(em);
-  p.wrel = static_cast<const float*>(wrel);
-  p.wstride = wstride;
-  p.wcol = wcol;
-  p.loopw = static_cast<const float*>(loopw);
-  p.mask = static_cast<const float*>(mask);
-  p.wih_t = static_cast<const float*>(wih_t);
-  p.whh_t = static_cast<const float*>(whh_t);
-  p.bih = static_cast<const float*>(bih);
-  p.bhh = static_cast<const float*>(bhh);
-  p.gidx = static_cast<const int*>(gidx);
-  p.live = static_cast<const float*>(live);
-  p.dt = static_cast<const float*>(dt);
-  p.lam = lam;
-  p.prev = static_cast<const float*>(prev);
-  p.L1 = L1;
-  p.A = A;
-  p.d = d;
-  p.k = k;
-  return p;
-}
-
-WJob make_job(const void* x, long long x_es, const void* g, long long g_es,
-              float* out, float* bias, int nx, int ng, int* first) {
-  WJob jb;
-  jb.x = static_cast<const float*>(x);
-  jb.x_es = x_es;
-  jb.g = static_cast<const float*>(g);
-  jb.g_es = g_es;
-  jb.out = out;
-  jb.bias = bias;
-  jb.nx = nx;
-  jb.ng = ng;
-  jb.tiles_g = (ng + kWgG - 1) / kWgG;
-  jb.first = *first;
-  const int tiles_x = (nx + (bias != nullptr ? 1 : 0) + kWgX - 1) / kWgX;
-  *first += tiles_x * jb.tiles_g;
-  return jb;
 }
 
 }  // namespace
@@ -757,12 +268,9 @@ extern "C" int window_wgrad_launch(
     jobs.job[3] = make_job(conv1, sd, dgi1, sg, wih1, bih1, d, 3 * d, &first);
     jobs.job[4] = make_job(h0g1, sd, dgh1, sg, whh1, bhh1, d, 3 * d, &first);
     jobs.job[5] = make_job(h0, win, dlp1, sd, loop1, nullptr, d, d, &first);
-    const int M = B * A;
-    const int per = (M + n_split - 1) / n_split;
-    const int rows_per_split = (per + kWgRows - 1) / kWgRows * kWgRows;
     window_wgrad_kernel<<<dim3(first, n_split), kWgThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        jobs, B, A, rows_per_split, total);
+        jobs, B, A, wgrad_rows_per_split(B * A, n_split), total);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -114,6 +114,25 @@ class HistoryTables:
     fin_row: Any    # [T, N] int16
 
 
+@dataclass
+class AnswerLists:
+    """The true answers of each train edge slot's query, as one list a slot
+    (the fused final step's loss masks them).
+
+    For slot e of time position t, ``tail_val[tail_ptr[t, e]:tail_ptr[t,
+    e + 1]]`` (sorted ascending) are the entities c with (group, c) in the
+    train filter table at t, group = head * 2R + rel: the train filter
+    table's lookup for the slot's tail query, the slot's own tail among
+    them. ``head_*`` the same for the head query (group = tail * 2R + rel).
+    Padded slots have empty lists.
+    """
+
+    tail_ptr: Any  # [T, E_pad + 1] int32 offsets into tail_val
+    tail_val: Any  # [n] int32
+    head_ptr: Any
+    head_val: Any
+
+
 def to_device(obj, device):
     """The same dataclass with every numpy array as a tensor on `device`."""
     return _map_fields(obj, lambda a: torch.as_tensor(np.asarray(a)).to(device))
@@ -213,6 +232,42 @@ def _filter_tables(quads: np.ndarray, times: np.ndarray, num_rels: int,
         return FilterTable(grp=grp, val=val)
 
     return pack(per_time_tail), pack(per_time_head)
+
+
+def build_answer_lists(data: TKGData) -> AnswerLists:
+    """Host-side construction (numpy) from the train edge slots; see
+    AnswerLists."""
+    train = data.train
+    r2 = 2 * data.num_rels
+    rel, n_edges = np.asarray(train.rel), np.asarray(train.n_edges)
+    T, e_pad = rel.shape
+    out = {}
+    for name, grp_ids, val_ids in (("tail", train.src, train.dst),
+                                   ("head", train.dst, train.src)):
+        grp_ids, val_ids = np.asarray(grp_ids), np.asarray(val_ids)
+        ptr = np.zeros((T, e_pad + 1), np.int64)
+        vals = []
+        off = 0
+        for t in range(T):
+            k = int(n_edges[t])
+            ptr[t] = off
+            if k == 0:
+                continue
+            grp = grp_ids[t, :k].astype(np.int64) * r2 + rel[t, :k]
+            pairs = np.unique(np.stack([grp, val_ids[t, :k]], 1), axis=0)
+            lo = np.searchsorted(pairs[:, 0], grp, "left")
+            lens = np.searchsorted(pairs[:, 0], grp, "right") - lo
+            ends = np.cumsum(lens)
+            idx = (np.repeat(lo, lens) + np.arange(ends[-1])
+                   - np.repeat(ends - lens, lens))
+            vals.append(pairs[idx, 1])
+            ptr[t, 1:k + 1] = off + ends
+            ptr[t, k + 1:] = off + ends[-1]
+            off += int(ends[-1])
+        out[f"{name}_ptr"] = ptr.astype(np.int32)
+        out[f"{name}_val"] = (np.concatenate(vals) if vals
+                              else np.zeros(0, np.int64)).astype(np.int32)
+    return AnswerLists(**out)
 
 
 def add_reverse_edges(quads: np.ndarray, num_rels: int) -> np.ndarray:
@@ -376,6 +431,7 @@ def build_tkg_data(cfg, cache: bool = True,
 
 _SPLITS = ("train", "valid", "test")
 _TABLES = ("train_tail", "train_head", "total_tail", "total_head")
+
 _EDGE_FIELDS = ("src", "rel", "dst", "emask", "n_edges")
 _PLAIN = ("times", "active", "act_idx", "act_mask", "train_src_loc",
           "train_dst_loc")

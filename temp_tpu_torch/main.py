@@ -7,9 +7,12 @@ Every TKGConfig field is a flag (``--field value``, or ``--flag`` /
 ``--no-flag`` for booleans). The run trains with ``Trainer.fit`` (early stop
 on val MRR, best checkpoint, metrics.jsonl under
 <experiments_dir>/<model name>/), then evaluates the best checkpoint on the
-test split and writes test_metrics.json beside it. ``--resume`` continues
-from the run's last-state checkpoint, else from its best one. ``--device``
-defaults to cuda; ``--device cpu`` runs every kernel's plain version.
+test split and writes its metrics to test_metrics.json beside it.
+``--resume`` continues from the run's last-state checkpoint at the epoch
+after it; without one it restores the best checkpoint's parameters and
+optimizer state and trains from epoch 0 with no best yet, as the JAX
+package's main.py does. ``--device`` defaults to cuda; ``--device cpu`` runs
+every kernel's plain version.
 """
 
 from __future__ import annotations
@@ -74,11 +77,9 @@ def main(argv=None):
                   f"@ epoch {best[1]})")
         elif os.path.exists(trainer.ckpt_path()):
             params, optimizer, extra = trainer.load_checkpoint()
-            kw = dict(params=params, optimizer=optimizer,
-                      start_epoch=extra["epoch"] + 1,
-                      best=(extra["metrics"].get("mrr", -1.0),
-                            extra["epoch"]))
-            print(f"resumed from the best checkpoint, epoch {extra['epoch']}")
+            kw = dict(params=params, optimizer=optimizer)
+            print(f"resumed from epoch {extra['epoch']} (val mrr "
+                  f"{extra['metrics'].get('mrr', 0):.4f})")
     result = trainer.fit(**kw)
     params = result["params"]
     if os.path.exists(trainer.ckpt_path()):
@@ -87,9 +88,7 @@ def main(argv=None):
     print(f"test: mrr={test['mrr']:.4f} h1={test['hit_1']:.4f} "
           f"h3={test['hit_3']:.4f} h10={test['hit_10']:.4f} n={test['n']}")
     with open(os.path.join(trainer.run_dir, "test_metrics.json"), "w") as f:
-        json.dump({"best_epoch": result["best_epoch"],
-                   "best_val_mrr": result["best_mrr"], "test": test}, f,
-                  indent=2)
+        json.dump(test, f, indent=2)
     return test
 
 

@@ -9,6 +9,11 @@ that the decoder scores.
 
 Tensors carry an explicit batch dimension where the JAX package vmaps.
 
+Training runs the final step and loss of the whole batch as one call of
+kernels K3-K5 (``ops/fused_final.py``) when ``fused_final`` is on and the
+config lies inside their envelope, else one element at a time
+(``forward_element`` and ``train_loss_single``), as the JAX package does.
+
 Training draws every random choice of a step up front (``draw_train``):
 the self-loop dropout masks of the window and of the final step, the 50%
 edge subsample of the final snapshot and the positive subset of the loss.
@@ -25,7 +30,8 @@ import torch
 
 from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.data.snapshots import (
-    HistoryTables, TKGData, build_history_tables, to_device,
+    AnswerLists, HistoryTables, TKGData, build_answer_lists,
+    build_history_tables, to_device,
 )
 from temp_tpu_torch.models.encoders import (
     _base_module, encoder_forward, init_encoder, make_layer_cfgs,
@@ -35,6 +41,9 @@ from temp_tpu_torch.models.layers import (
 )
 from temp_tpu_torch.models.objectives import (
     eval_ranks_single, train_loss_single,
+)
+from temp_tpu_torch.ops.fused_final import (
+    final_graph, fused_final_loss, fused_final_supported,
 )
 from temp_tpu_torch.ops.fused_window import (
     fused_window_scan, fused_window_supported,
@@ -113,6 +122,9 @@ class DynamicRGCNModel:
         self.score_all, self.score_single = get_score_fn(cfg.score_function)
         self.tbl_fwd: HistoryTables = to_device(
             build_history_tables(data, self.train_len), self.device)
+        # the train edge slots' true answers, the fused loss's mask
+        self.answers: AnswerLists = to_device(build_answer_lists(data),
+                                              self.device)
 
     # -- parameters ---------------------------------------------------------
 
@@ -142,6 +154,15 @@ class DynamicRGCNModel:
                 and fused_window_supported(
                     self.cfg, _base_module(self.cfg.module),
                     self.lc2.activation, train=train))
+
+    def fused_final_on(self) -> bool:
+        """Whether training runs the final step and loss through K3-K5 (the
+        dispatch of the JAX package's ``DynamicRGCNModel.loss``)."""
+        return (self.cfg.fused_final_on(self.device)
+                and type(self) is DynamicRGCNModel
+                and fused_final_supported(
+                    self.cfg, _base_module(self.cfg.module),
+                    self.lc2.activation))
 
     def precompute_eval_conv1(self, params, data: TKGData):
         """Layer-1 conv outputs for ALL train snapshots, compact [T, A, d].
@@ -316,12 +337,12 @@ class DynamicRGCNModel:
 
         `draws` (see ``draw_train``) fixes every random choice; drawn from
         `gen` when None. The history window of all B targets runs as one
-        batch (K2 with its backward on the card); each target's final step
-        (K1) and loss follow, elements whose t_valid is False skipped (their
-        term is zero).
+        batch (K2 with its backward on the card). The final steps and losses
+        of all B follow as one call of K3-K5 (``fused_final_on``), each
+        element's loss times t_valid[b]; or else one target at a time (K1),
+        elements whose t_valid is False skipped (their term is zero).
         """
         cfg = self.cfg
-        cfg.fused_final_on(self.device)  # raises for an explicit True
         t_host = [int(t) for t in np.asarray(t_pos)]
         tv = [bool(v) for v in np.asarray(t_valid)]
         tp = torch.tensor(t_host, device=self.device)
@@ -332,6 +353,24 @@ class DynamicRGCNModel:
         hist1, hist2, last_pos = self.pre_forward(
             params, win, length, tp, train=True,
             masks=(draws["win1"], draws["win2"]))
+        if self.fused_final_on():
+            gr = final_graph(data, self.answers, tp, draws, last_pos,
+                             cfg.inv_temperature, self.lc2.dropout, length,
+                             cfg.use_embed_for_non_active)
+            losses = fused_final_loss(params, gr, hist1, hist2,
+                                      kernels=cfg.kernels)
+            tvt = torch.tensor(tv, device=self.device, dtype=losses.dtype)
+            return (losses * tvt).sum()
+        return self.unfused_final_loss(params, data, t_host, tv,
+                                       (hist1, hist2, last_pos), draws)
+
+    def unfused_final_loss(self, params, data: TKGData, t_host, tv, hists,
+                           draws):
+        """The final steps and losses of the targets t_host one at a time
+        (``forward_element`` and ``train_loss_single``; K1 on the card),
+        summed over the elements whose tv is True. `hists`: pre_forward's
+        (hist1, hist2, last_pos) of the batch; `draws` as in ``loss``."""
+        hist1, hist2, last_pos = hists
         tr = data.train
         total = torch.zeros((), device=self.device)
         for b, t in enumerate(t_host):
@@ -343,8 +382,8 @@ class DynamicRGCNModel:
                 params, data, t, hists=(hist1[b], hist2[b], last_pos[b]),
                 train=True, emask=draws["edges"][b], masks=fin)
             total = total + train_loss_single(
-                cfg, data, self.score_all, params["rel_embeds"], table, t,
-                tr.src[t], tr.rel[t], tr.dst[t], draws["pos"][b])
+                self.cfg, data, self.score_all, params["rel_embeds"], table,
+                t, tr.src[t], tr.rel[t], tr.dst[t], draws["pos"][b])
         return total
 
     # -- objectives ---------------------------------------------------------

@@ -1,13 +1,16 @@
 """Where the time of a few training steps goes, on the card.
 
-    python -m temp_tpu_torch.profile_train [--plain] [--steps N] [--out DIR]
+    python -m temp_tpu_torch.profile_train [--plain | --unfused] [--steps N]
+        [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
-grid/icews14/config_grrgcn.json model with fused_final off, seeded random
-weights and draws), takes two warm-up optimizer steps, then traces the next
-N (default 4) with torch.profiler. Prints the wall time, the device time
-summed over all kernels and its share of the wall time, and the device time
-of each kernel name, largest first. With --out it also writes the Chrome
+grid/icews14/config_grrgcn.json model, seeded random weights and draws),
+takes two warm-up optimizer steps, then traces the next N (default 4) with
+torch.profiler. The path: the kernels with the fused final step (K3-K5;
+the default), ``--unfused`` the kernels with fused_final off (the final step
+one element at a time through K1), ``--plain`` the plain versions. Prints
+the wall time, the device time summed over all kernels and its share of the
+wall time, and the device time of each kernel name, largest first. With --out it also writes the Chrome
 trace there. Needs a CUDA device.
 """
 
@@ -30,8 +33,11 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--plain", action="store_true",
-                    help="profile the plain PyTorch versions of the kernels")
+    path = ap.add_mutually_exclusive_group()
+    path.add_argument("--plain", action="store_true",
+                      help="profile the plain PyTorch versions of the kernels")
+    path.add_argument("--unfused", action="store_true",
+                      help="profile the kernels with fused_final off")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=20)
@@ -41,7 +47,7 @@ def main(argv=None) -> int:
         return 1
     cfg = TKGConfig.from_json_file(
         os.path.join(_ROOT, "grid", "icews14", "config_grrgcn.json"),
-        kernels=not args.plain)
+        kernels=not args.plain, fused_final=not args.unfused)
     data = make_synthetic(num_ents=7128, num_rels=230, num_times=365,
                           edges_per_time=200, seed=0,
                           edge_pad_multiple=cfg.edge_pad_multiple)
@@ -60,9 +66,10 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     report = profile(lambda: steps(range(2, 2 + args.steps)),
                      f"{args.steps} training steps", args.top)
-    print(f"path: {'plain' if args.plain else 'kernels'}; {report}")
+    name = "plain" if args.plain else "unfused" if args.unfused else "fused"
+    print(f"path: {name}; {report}")
     if args.out:
-        export(args.out, f"train_{'plain' if args.plain else 'kernels'}")
+        export(args.out, f"train_{name}")
     return 0
 
 

@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from temp_tpu_torch.config import TKGConfig
+from temp_tpu_torch.config import TKGConfig, encode_run_name
 from temp_tpu_torch.data.snapshots import TKGData, to_device
 from temp_tpu_torch.models.objectives import metrics_from_ranks
 from temp_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
@@ -43,26 +43,18 @@ def batched_time_positions(num_times: int, batch_size: int,
         yield chunk.astype(np.int32), valid
 
 
-def run_name(cfg: TKGConfig) -> str:
-    """Experiment directory name from the key hyperparameters."""
-    return "_".join([cfg.module, cfg.dataset.replace("/", "-"),
-                     cfg.score_function, f"seq{cfg.train_seq_len}",
-                     f"d{cfg.embed_size}", f"b{cfg.n_bases}",
-                     f"lr{cfg.lr}", f"seed{cfg.seed}"])
-
-
 class Trainer:
     def __init__(self, cfg: TKGConfig, model, data: TKGData,
                  run_dir: Optional[str] = None):
         """`data` is the host (numpy) dataset; it is moved to the model's
         device once here. Runs write under `run_dir` (default
-        <experiments_dir>/<model_name or run_name(cfg)>)."""
+        <experiments_dir>/<model_name or encode_run_name(cfg)>)."""
         self.cfg = cfg
         self.model = model
         self.device = model.device
         self.data = to_device(data, self.device)
         self.run_dir = run_dir or os.path.join(
-            cfg.experiments_dir, cfg.model_name or run_name(cfg))
+            cfg.experiments_dir, cfg.model_name or encode_run_name(cfg))
         self.history: list = []
 
     # -- training -----------------------------------------------------------

@@ -7,9 +7,10 @@ with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 Tolerance 1e-4 absolute: the kernels sum in another order than the plain
 versions (f32, values of order one, up to 14 recurrent steps), and TF32 is
 off for the plain versions' matrix products. Gradients that sum over many
-rows (weight cotangents: up to B*L1*A = 71,680 rows) are held to 1e-4
-relative to max(1, the largest entry): f32 sums of that many terms in
-another order differ by about sqrt(n) * 6e-8 of the terms' size.
+rows (weight cotangents: up to B*L1*A = 71,680 rows, or B*N = 57,024 in the
+final step) are held to 1e-4 relative to max(1, the largest entry): f32
+sums of that many terms in another order differ by about sqrt(n) * 6e-8 of
+the terms' size. The final step's losses are held to 1e-4 relative.
 """
 
 import numpy as np
@@ -17,11 +18,20 @@ import pytest
 import torch
 
 from temp_tpu_torch.config import TKGConfig
-from temp_tpu_torch.data.snapshots import make_synthetic
+from temp_tpu_torch.data.snapshots import (
+    build_answer_lists, make_synthetic, to_device,
+)
+from temp_tpu_torch.models.layers import dropout_mask
 from temp_tpu_torch.models.registry import get_model
+from temp_tpu_torch.ops.fused_final import (
+    final_graph, fused_final_bwd_layer, fused_final_bwd_layer_plain,
+    fused_final_bwd_loss, fused_final_bwd_loss_plain, fused_final_fwd,
+    fused_final_fwd_plain, fused_final_loss,
+)
 from temp_tpu_torch.ops.fused_window import (
     fused_window_bwd, fused_window_fwd, fused_window_scan,
 )
+from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 from temp_tpu_torch.ops.spmm import (
     spmm, spmm_bwd, spmm_bwd_plain, spmm_fwd, spmm_fwd_plain,
 )
@@ -290,13 +300,15 @@ def test_window_bwd_refuses_what_it_does_not_take(cuda):
 
 
 def test_training_steps_kernels_match_plain_path(cuda):
+    """The unfused final step (fused_final off): K1 and K2 with their
+    backward kernels against the plain path."""
     data = make_synthetic(num_ents=300, num_rels=12, num_times=20,
                           edges_per_time=60, seed=1, edge_pad_multiple=128)
     losses, finals = {}, {}
     for kernels in (True, False):
         cfg = TKGConfig(embed_size=128, hidden_size=128, n_bases=128,
                         train_seq_len=6, batch_size=4, kernels=kernels,
-                        num_pos_facts=40)
+                        num_pos_facts=40, fused_final=False)
         model = get_model(cfg, data, device=cuda)
         tr = Trainer(cfg, model, data)
         params, opt = tr.init_state(0)
@@ -344,3 +356,258 @@ def test_backward_kernels_are_deterministic(cuda):
         runs.append(grads)
     for x, y in zip(*runs):
         assert (x is None and y is None) or torch.equal(x, y)
+
+
+# -- K3, K4, K5: the fused final step and loss ------------------------------
+
+def _final_case(N, d, dev, B=4, seed=0, noact=False, rate=0.1, num_rels=12,
+                edges_per_time=60, pad=16, L=6):
+    """A batch of B final steps on synthetic data: the snapshots' edges
+    (padded slots included) and true-answer lists, seeded draws, random
+    history, dt and weights."""
+    host = make_synthetic(
+        num_ents=N, num_rels=num_rels, num_times=B + 4,
+        edges_per_time=edges_per_time, seed=seed, edge_pad_multiple=pad)
+    data = to_device(host, dev)
+    answers = to_device(build_answer_lists(host), dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tp = torch.arange(B, device=dev) + 2
+    em = data.train.emask[tp]
+    draws = {"edges": subsample_edges(gen, em, 0.5),
+             "pos": subsample_positives(gen, em, 40),
+             "fin1": None, "fin2": None}
+    if rate > 0:
+        draws["fin1"], draws["fin2"] = (dropout_mask(gen, (B, N, d), rate,
+                                                     dev) for _ in range(2))
+    last_pos = torch.randint(0, L - 1, (B, N), generator=gen,
+                             device=dev).float()
+    gr = final_graph(data, answers, tp, draws, last_pos, 0.1, rate, L,
+                     noact)
+
+    def lin(*s, scale=0.5):
+        return (torch.rand(*s, generator=gen, device=dev) - 0.5) * scale
+
+    R = 2 * num_rels
+    w = dict(h0=lin(N, d, scale=1.0), hist1=lin(B, N, d, scale=1.0),
+             hist2=lin(B, N, d, scale=1.0), wrel=lin(R, 2 * d),
+             loop1=lin(d, d), loop2=lin(d, d), rtab=lin(R, d, scale=1.0),
+             g1={k: lin(*s) for k, s in (("wih_t", (d, 3 * d)),
+                                         ("whh_t", (d, 3 * d)),
+                                         ("bih", (3 * d,)),
+                                         ("bhh", (3 * d,)))},
+             g2={k: lin(*s) for k, s in (("wih_t", (d, 3 * d)),
+                                         ("whh_t", (d, 3 * d)),
+                                         ("bih", (3 * d,)),
+                                         ("bhh", (3 * d,)))})
+    return gr, w
+
+
+def _fwd_args(w):
+    return (w["h0"], w["hist1"], w["hist2"])
+
+
+_FINAL_SHAPES = [(7128, 128, 8, 230, 200, 128), (300, 32, 4, 12, 60, 16),
+                 (77, 16, 3, 5, 20, 16)]
+
+
+@pytest.mark.parametrize("noact", [False, True])
+@pytest.mark.parametrize("N,d,B,R,per,pad", _FINAL_SHAPES)
+def test_fused_final_fwd_kernel_matches_plain(cuda, noact, N, d, B, R, per,
+                                              pad):
+    gr, w = _final_case(N, d, cuda, B=B, noact=noact, num_rels=R,
+                        edges_per_time=per, pad=pad)
+    args = (*_fwd_args(w), gr, w["wrel"], w["loop1"], w["loop2"], w["g1"],
+            w["g2"], w["rtab"])
+    before = fused_final_fwd.launches
+    loss, saved = fused_final_fwd(*args)
+    torch.cuda.synchronize()
+    assert fused_final_fwd.launches == before + 4
+    ref, table, out1 = fused_final_fwd_plain(*args)
+    assert float((saved["out1"] - out1).abs().max()) <= TOL
+    assert float((saved["table"] - table).abs().max()) <= TOL
+    assert float(((loss - ref) / ref.abs().clamp(min=1.0)).abs().max()) <= TOL
+    assert torch.isfinite(loss).all() and (loss > 0).all()
+
+
+@pytest.mark.parametrize("N,d,B,R,per,pad", _FINAL_SHAPES)
+def test_fused_final_bwd_loss_kernel_matches_plain(cuda, N, d, B, R, per,
+                                                   pad):
+    gr, w = _final_case(N, d, cuda, B=B, num_rels=R, edges_per_time=per,
+                        pad=pad)
+    _, saved = fused_final_fwd(*_fwd_args(w), gr, w["wrel"], w["loop1"],
+                               w["loop2"], w["g1"], w["g2"], w["rtab"])
+    g = torch.rand(B, device=cuda) + 0.5
+    g[-1] = 0.0  # an element whose t_valid is False
+    before = fused_final_bwd_loss.launches
+    d_table, d_rtab = fused_final_bwd_loss(saved, w["rtab"], gr, g)
+    torch.cuda.synchronize()
+    assert fused_final_bwd_loss.launches == before + 4
+    r_table, r_rtab = fused_final_bwd_loss_plain(saved["table"], w["rtab"],
+                                                 gr, g)
+    assert _close(d_table, r_table) and _close(d_rtab, r_rtab)
+    assert float(d_table[-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("col_layer", [1, 2])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("N,d,B,R,per,pad", _FINAL_SHAPES)
+def test_fused_final_bwd_layer_kernel_matches_plain(cuda, col_layer, rate, N,
+                                                    d, B, R, per, pad):
+    gr, w = _final_case(N, d, cuda, B=B, rate=rate, num_rels=R,
+                        edges_per_time=per, pad=pad)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    d_out = torch.randn(B, N, d, generator=gen, device=cuda)
+    if col_layer == 1:
+        args = (w["h0"], w["hist1"], gr, gr.m1, w["wrel"], 0, w["loop1"],
+                w["g1"], d_out)
+    else:
+        h_in = torch.randn(B, N, d, generator=gen, device=cuda) * 0.5
+        args = (h_in, w["hist2"], gr, gr.m2, w["wrel"], d, w["loop2"],
+                w["g2"], d_out)
+    before = fused_final_bwd_layer.launches
+    got = fused_final_bwd_layer(*args)
+    torch.cuda.synchronize()
+    assert fused_final_bwd_layer.launches == before + 5
+    ref = fused_final_bwd_layer_plain(*args)
+    assert len(got) == len(ref) == 8
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and _close(a, b)
+
+
+@pytest.mark.parametrize("noact", [False, True])
+def test_fused_final_autograd_matches_plain_autograd(cuda, noact):
+    gr, w = _final_case(300, 32, cuda, B=4, noact=noact)
+    tv = torch.tensor([1.0, 1.0, 0.0, 1.0], device=cuda)
+    grads = []
+    for kernels in (True, False):
+        leaves = {k: v.clone().requires_grad_() for k, v in w.items()
+                  if not k.startswith("g")}
+        gru = {k: {n: t.clone().requires_grad_() for n, t in w[k].items()}
+               for k in ("g1", "g2")}
+        params = {"ent_embeds": leaves["h0"], "rel_embeds": leaves["rtab"],
+                  "encoder": {
+                      f"layer{i}": {
+                          "weight": leaves["wrel"][:, (i - 1) * 32:i * 32],
+                          "loop_weight": leaves[f"loop{i}"],
+                          "gru": [{"w_ih": gru[f"g{i}"]["wih_t"].t(),
+                                   "w_hh": gru[f"g{i}"]["whh_t"].t(),
+                                   "b_ih": gru[f"g{i}"]["bih"],
+                                   "b_hh": gru[f"g{i}"]["bhh"]}]}
+                      for i in (1, 2)}}
+        loss = fused_final_loss(params, gr, leaves["hist1"],
+                                leaves["hist2"], kernels=kernels)
+        (loss * tv).sum().backward()
+        grads.append([leaves[k].grad for k in sorted(leaves)]
+                     + [gru[g][n].grad for g in ("g1", "g2")
+                        for n in sorted(gru[g])])
+    for a, b in zip(*grads):
+        assert _close(a, b)
+
+
+def test_fused_final_kernels_refuse_what_they_do_not_take(cuda):
+    gr, w = _final_case(77, 16, cuda, B=3)
+    args = dict(h0=w["h0"], hist1=w["hist1"], hist2=w["hist2"], gr=gr,
+                wrel=w["wrel"], loop1=w["loop1"], loop2=w["loop2"],
+                g1=w["g1"], g2=w["g2"], rtab=w["rtab"])
+    with pytest.raises(TypeError):
+        fused_final_fwd(**{**args, "hist1": w["hist1"].double()})
+    with pytest.raises(ValueError):  # history of another batch size
+        fused_final_fwd(**{**args, "hist2": w["hist2"][:2]})
+    with pytest.raises(ValueError):  # a mask of the wrong shape
+        fused_final_fwd(**{**args, "gr": gr._replace(
+            m1=torch.ones(3, 77, 8, device=cuda))})
+    with pytest.raises(ValueError):
+        fused_final_fwd(**{**args, "hist1": w["hist1"].transpose(1, 2)
+                           .contiguous().transpose(1, 2)})
+    gr2, w2 = _final_case(40, 256, cuda, B=2, num_rels=3, edges_per_time=10)
+    with pytest.raises(ValueError):  # d = 256: K5 takes d <= 128
+        fused_final_fwd(w2["h0"], w2["hist1"], w2["hist2"], gr2, w2["wrel"],
+                        w2["loop1"], w2["loop2"], w2["g1"], w2["g2"],
+                        w2["rtab"])
+    _, saved = fused_final_fwd(**args)
+    with pytest.raises(ValueError):  # g of the wrong shape
+        fused_final_bwd_loss(saved, w["rtab"], gr, torch.ones(2, device=cuda))
+    with pytest.raises(ValueError):
+        fused_final_bwd_layer(w["h0"], w["hist1"], gr, gr.m1, w["wrel"], 5,
+                              w["loop1"], w["g1"], w["hist1"])
+
+
+def test_fused_final_training_steps_match_plain_and_unfused(cuda):
+    """Training steps on the fused path (K3-K5) against the plain path and
+    the unfused path (K1, fused_final off), from the same weights and
+    draws."""
+    data = make_synthetic(num_ents=300, num_rels=12, num_times=20,
+                          edges_per_time=60, seed=1, edge_pad_multiple=128)
+    losses, finals = {}, {}
+    counters = (fused_final_fwd, fused_final_bwd_loss, fused_final_bwd_layer,
+                spmm_fwd, spmm_bwd)
+    for name, kw in (("fused", {}), ("plain", {"kernels": False}),
+                     ("unfused", {"fused_final": False})):
+        cfg = TKGConfig(embed_size=128, hidden_size=128, n_bases=128,
+                        train_seq_len=6, batch_size=4, num_pos_facts=40,
+                        **kw)
+        model = get_model(cfg, data, device=cuda)
+        assert model.fused_final_on() == (name != "unfused")
+        tr = Trainer(cfg, model, data)
+        params, opt = tr.init_state(0)
+        for fn in counters:
+            fn.launches = 0
+        losses[name] = [float(tr.train_step(params, opt, t_pos, t_valid,
+                                            gen=tr.step_generator(0, step)))
+                        for step, (t_pos, t_valid)
+                        in enumerate(tr.epoch_batches(0)[:3])]
+        n = {fn.__name__: fn.launches for fn in counters}
+        if name == "fused":
+            assert n["fused_final_fwd"] == 12 and n["spmm_fwd"] == 0
+            assert n["fused_final_bwd_loss"] == 12
+            assert n["fused_final_bwd_layer"] == 30
+        elif name == "plain":
+            assert not any(n.values())
+        else:
+            assert n["spmm_bwd"] > 0 and n["fused_final_fwd"] == 0
+        finals[name] = [p.detach() for p in param_leaves(params)]
+    for other in ("plain", "unfused"):
+        for a, b in zip(losses["fused"], losses[other]):
+            assert abs(a - b) <= 1e-4 * max(1.0, abs(b))
+        for a, b in zip(finals["fused"], finals[other]):
+            assert _close(a, b)
+
+
+def test_final_backward_kernels_are_deterministic(cuda):
+    """K4 and K5 use no atomics: two runs on the same inputs agree bit for
+    bit."""
+    gr, w = _final_case(7128, 128, cuda, B=8, num_rels=230,
+                        edges_per_time=200, pad=128)
+    _, saved = fused_final_fwd(*_fwd_args(w), gr, w["wrel"], w["loop1"],
+                               w["loop2"], w["g1"], w["g2"], w["rtab"])
+    g = torch.ones(8, device=cuda)
+    a = fused_final_bwd_loss(saved, w["rtab"], gr, g)
+    b = fused_final_bwd_loss(saved, w["rtab"], gr, g)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    args = (saved["out1"], w["hist2"], gr, gr.m2, w["wrel"], 128, w["loop2"],
+            w["g2"], a[0])
+    x = fused_final_bwd_layer(*args)
+    y = fused_final_bwd_layer(*args)
+    assert all(torch.equal(u, v) for u, v in zip(x, y))
+
+
+def test_fused_final_element_without_positives(cuda):
+    """An element with no positive edge slot (a snapshot without train
+    facts) has loss 0 and adds nothing to any cotangent, on the kernels as
+    on the plain versions."""
+    gr, w = _final_case(300, 32, cuda, B=3)
+    posm = gr.posm.clone()
+    posm[1] = 0.0
+    gr = gr._replace(posm=posm)
+    args = (*_fwd_args(w), gr, w["wrel"], w["loop1"], w["loop2"], w["g1"],
+            w["g2"], w["rtab"])
+    loss, saved = fused_final_fwd(*args)
+    ref, _, _ = fused_final_fwd_plain(*args)
+    assert float(loss[1]) == 0.0 and float(ref[1]) == 0.0
+    assert float(((loss - ref) / ref.abs().clamp(min=1.0)).abs().max()) <= TOL
+    g = torch.ones(3, device=cuda)
+    d_table, d_rtab = fused_final_bwd_loss(saved, w["rtab"], gr, g)
+    r_table, r_rtab = fused_final_bwd_loss_plain(saved["table"], w["rtab"],
+                                                 gr, g)
+    assert float(d_table[1].abs().max()) == 0.0
+    assert _close(d_table, r_table) and _close(d_rtab, r_rtab)

@@ -150,23 +150,30 @@ def test_chip_smoke_phases_rehearse_on_cpu():
         import chip_smoke
     finally:
         sys.path.remove(ROOT)
+    # fused_final on: "auto" resolves to off on the CPU, and the smoke's
+    # main training path is the fused one
     ctx = chip_smoke.phase_setup("cpu", num_ents=40, num_rels=5,
                                  num_times=12, edges_per_time=30,
                                  embed_size=16, hidden_size=16, n_bases=16,
                                  train_seq_len=4, batch_size=3,
-                                 num_pos_facts=20)
+                                 num_pos_facts=20, fused_final=True)
     ctx["train_steps"] = 2
     k1 = chip_smoke.phase_k1(ctx)
     k2 = chip_smoke.phase_k2(ctx)
     path = chip_smoke.phase_path(ctx)
     k1b = chip_smoke.phase_k1b(ctx)
     k2b = chip_smoke.phase_k2b(ctx)
+    k3 = chip_smoke.phase_k3(ctx)
+    k4 = chip_smoke.phase_k4(ctx)
+    k5 = chip_smoke.phase_k5(ctx)
     train = chip_smoke.phase_train(ctx)
-    line = chip_smoke.kernels_line(k1, k2, path, k1b, k2b, train)
+    line = chip_smoke.kernels_line(k1, k2, path, k1b, k2b, k3, k4, k5,
+                                   train)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [k["name"] for k in line["kernels"]] == [
-        "spmm_fwd", "spmm_bwd", "fused_window_fwd", "fused_window_bwd"]
+        "spmm_fwd", "spmm_bwd", "fused_window_fwd", "fused_window_bwd",
+        "fused_final_fwd", "fused_final_bwd_loss", "fused_final_bwd_layer"]
     for rec in line["kernels"]:
         assert keys <= set(rec)
         assert rec["max_abs_err"] == 0.0  # the CPU runs the plain version
@@ -174,10 +181,15 @@ def test_chip_smoke_phases_rehearse_on_cpu():
         assert os.path.exists(os.path.join(ROOT, rec["source"]))
         assert rec["bound_ms"] > 0
     assert set(k2b["bwd"]["errors"]) == set(chip_smoke._COTANGENTS)
+    assert len(k5["errors"]) == 2 * len(chip_smoke._LAYER_COTANGENTS)
+    assert k5["final_step_fused_ms"] > 0 and k5["final_step_unfused_ms"] > 0
     assert path["kernels"]["mrr"] == path["plain"]["mrr"]
     assert path["same_rank_share"] == 1.0
-    assert train["kernels"]["losses"] == train["plain"]["losses"]
-    assert len(train["kernels"]["losses"]) == 2
+    # the same plain forward on both paths; the updates then differ by the
+    # rounding of the hand-written backward against autograd's
+    assert train["fused"]["losses"][0] == train["plain"]["losses"][0]
+    assert max(train["max_rel_gaps"].values()) <= chip_smoke.TRAIN_TOL
+    assert len(train["fused"]["losses"]) == 2
     assert 0.0 < train["eval"]["mrr"] <= 1.0
 
 
