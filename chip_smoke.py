@@ -67,9 +67,21 @@ MRR_TOL = 1e-4       # whole valid sweep, kernels vs plain path
 # rows, or B*N = 57,024 in the final step): max abs error relative to
 # max(1, the largest entry)
 GRAD_TOL = 1e-4
+# the final step's cotangents (K4, K5): max abs error relative to the
+# largest entry of the plain version's, with no floor, since at full width
+# they lie far below 1 (each positive weighs 1/count, each softmax weight
+# is about 1/N)
+SCALED_TOL = 1e-5
 # loss trajectories over a few Adam steps, kernels vs plain path, relative:
 # f32 sums in another order, carried through the steps
 TRAIN_TOL = 1e-4
+# the parameters after those steps, each leaf: the norm of the gap between
+# two paths relative to the norm of the change the plain path made to it.
+# Adam moves each entry by about lr * sign(gradient) a step, so a gradient
+# of the wrong direction shows at the scale of that change. A norm, not a
+# max: where weight decay all but cancels an entry's gradient (|g + wd * p|
+# near Adam's eps), f32 rounding moves that entry's step by a few percent
+PARAM_TOL = 1e-2
 TRAIN_STEPS = 8
 H100_F32_FLOPS = 67e12   # f32 outside the tensor cores, SXM data sheet
 H100_BYTES_S = 3.35e12   # HBM3
@@ -361,6 +373,23 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
+def scaled_errs(pairs, tol: float = SCALED_TOL) -> dict:
+    """{name: {"abs": max |got - ref|, "max_ref": max |ref|}} over
+    (name, got, ref) triples; raises unless every abs is at most tol times
+    its max_ref (no floor: exact zeros must agree exactly)."""
+    errs, bad = {}, []
+    for n, got, ref in pairs:
+        e = {"abs": float((got - ref).abs().max()),
+             "max_ref": float(ref.abs().max())}
+        errs[n] = e
+        if not e["abs"] <= tol * e["max_ref"]:
+            bad.append(n)
+    if bad:
+        raise AssertionError(f"beyond {tol} of the largest entry: "
+                             f"{ {n: errs[n] for n in bad} }")
+    return errs
+
+
 def phase_k1b(ctx) -> dict:
     """K1b against its plain version at the training final-step shape: all
     N rows, one snapshot's padded train edges with the 50% subsample."""
@@ -622,10 +651,10 @@ def phase_k4(ctx) -> dict:
     saved, gr, rtab, g = ctx["k3_saved"], fb["gr"], fb["fwd"][-1], fb["tv"]
     got = fused_final_bwd_loss(saved, rtab, gr, g)
     ref = fused_final_bwd_loss_plain(saved["table"], rtab, gr, g)
-    errs = {n: rel_err(x, y) for n, x, y in zip(("d_table", "d_rtab"), got,
-                                                ref)}
-    if not all(e <= GRAD_TOL for e in errs.values()):
-        raise AssertionError(f"K4: cotangents beyond {GRAD_TOL}: {errs}")
+    try:
+        errs = scaled_errs(zip(("d_table", "d_rtab"), got, ref))
+    except AssertionError as e:
+        raise AssertionError(f"K4: {e}") from None
     ctx["k4_ref"] = ref
     B, N, d, q = _final_counts(ctx, fb)
     # recompute the scores, then p . table and p^T . qhat: 3 products of
@@ -633,7 +662,8 @@ def phase_k4(ctx) -> dict:
     bound_ms, bound_by = _bound(q * N * 2 * d * 3, 4 * 2 * B * N * d)
     out = {"shape": f"B={B} N={N} E={gr.src.shape[1]} d={d} "
                     f"positive queries={int(q)}",
-           "max_abs_err": max(errs.values()), "errors": errs,
+           "max_abs_err": max(e["abs"] for e in errs.values()),
+           "errors": errs,
            "ms": time_ms(lambda: fused_final_bwd_loss(saved, rtab, gr, g),
                          dev, reps=10),
            "plain_ms": time_ms(lambda: fused_final_bwd_loss_plain(
@@ -649,7 +679,8 @@ _LAYER_COTANGENTS = ("d_h", "d_prev", "d_wrel", "d_loop", "d_wih_t",
 
 def phase_k5(ctx) -> dict:
     """K5 against its plain version for layer 2, then layer 1, each given
-    the same output cotangent on both sides (the plain chain's); then the
+    the same output cotangent on both sides (the plain chain's): once from
+    the loss's d_table, once from a unit-scale random cotangent; then the
     final step and loss forward and backward, fused and unfused."""
     import torch
 
@@ -662,19 +693,27 @@ def phase_k5(ctx) -> dict:
     h0, hist1, hist2, _, wrel, loop1, loop2, g1, g2, _ = fb["fwd"]
     d = h0.shape[1]
     d_out2, _ = select_bwd(ctx["k4_ref"][0], gr.active)
-    layer2 = (saved["out1"], hist2, gr, gr.m2, wrel, d, loop2, g2, d_out2)
-    ref2 = fused_final_bwd_layer_plain(*layer2)
-    layer1 = (h0, hist1, gr, gr.m1, wrel, 0, loop1, g1, ref2[0])
-    errs = {}
-    for tag, args, ref in (("layer2", layer2, ref2),
-                           ("layer1", layer1, None)):
-        got = fused_final_bwd_layer(*args)
-        ref = ref if ref is not None else fused_final_bwd_layer_plain(*args)
-        for n, x, y in zip(_LAYER_COTANGENTS, got, ref):
-            errs[f"{tag} {n}"] = rel_err(x, y)
-    bad = {n: e for n, e in errs.items() if not e <= GRAD_TOL}
-    if bad:
-        raise AssertionError(f"K5: cotangents beyond {GRAD_TOL}: {bad}")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d_unit = torch.randn(d_out2.shape, generator=gen, device=dev)
+
+    pairs, layers = [], {}
+    for up, d_out in (("loss", d_out2), ("unit", d_unit)):
+        layer2 = (saved["out1"], hist2, gr, gr.m2, wrel, d, loop2, g2, d_out)
+        ref2 = fused_final_bwd_layer_plain(*layer2)
+        layer1 = (h0, hist1, gr, gr.m1, wrel, 0, loop1, g1, ref2[0])
+        layers[up] = layer2, layer1
+        for tag, args, ref in (("layer2", layer2, ref2),
+                               ("layer1", layer1, None)):
+            got = fused_final_bwd_layer(*args)
+            if ref is None:
+                ref = fused_final_bwd_layer_plain(*args)
+            pairs += [(f"{up} {tag} {n}", x, y)
+                      for n, x, y in zip(_LAYER_COTANGENTS, got, ref)]
+    try:
+        errs = scaled_errs(pairs)
+    except AssertionError as e:
+        raise AssertionError(f"K5: {e}") from None
+    layer2, layer1 = layers["loss"]
     B, N, _, _ = _final_counts(ctx, fb)
     # per layer and row: the layer forward recomputed (14 d^2) and the
     # input, history and weight cotangent products (28 d^2); the inputs,
@@ -683,12 +722,15 @@ def phase_k5(ctx) -> dict:
     bound_ms, bound_by = _bound(2 * B * N * 42 * d * d,
                                 2 * 4 * B * N * d * (5 + n_masks))
 
-    def both_layers(fn):
-        return lambda: (fn(*layer2), fn(*layer1))
+    def both_layers(fn, **kw):
+        return lambda: (fn(*layer2, **kw), fn(*layer1, **kw))
 
+    # timed as the training backward calls it, with the forward's CSRs
     out = {"shape": f"B={B} N={N} E={gr.src.shape[1]} d={d}, both layers",
-           "max_abs_err": max(errs.values()), "errors": errs,
-           "ms": time_ms(both_layers(fused_final_bwd_layer), dev, reps=10),
+           "max_abs_err": max(e["abs"] for e in errs.values()),
+           "errors": errs,
+           "ms": time_ms(both_layers(fused_final_bwd_layer,
+                                     csr=saved.get("csr")), dev, reps=10),
            "plain_ms": time_ms(both_layers(fused_final_bwd_layer_plain), dev,
                                reps=5),
            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
@@ -756,11 +798,12 @@ def phase_train(ctx) -> dict:
     )
     from temp_tpu_torch.ops.spmm import spmm_bwd, spmm_fwd
     from temp_tpu_torch.train.loop import Trainer
+    from temp_tpu_torch.train.optim import param_leaves
 
     dev, cfg = ctx["device"], ctx["cfg"]
     counters = (spmm_fwd, spmm_bwd, fused_window_fwd, fused_window_bwd,
                 fused_final_fwd, fused_final_bwd_loss, fused_final_bwd_layer)
-    res, trained = {}, None
+    res, trained, init, finals = {}, None, None, {}
     for name, over in _PATHS:
         c = cfg.replace(**over)
         model = get_model(c, ctx["data"], device=dev)
@@ -769,6 +812,11 @@ def phase_train(ctx) -> dict:
                                  f"{model.fused_final_on()}")
         tr = Trainer(c, model, ctx["data"])
         params, opt = tr.init_state()
+        leaves = [t.detach().clone() for t in param_leaves(params)]
+        if init is None:
+            init = leaves
+        elif not all(torch.equal(a, b) for a, b in zip(leaves, init)):
+            raise AssertionError(f"train {name}: other initial weights")
         batches = tr.epoch_batches(0)[:ctx.get("train_steps", TRAIN_STEPS)]
         for fn in counters:
             fn.launches = 0
@@ -784,6 +832,7 @@ def phase_train(ctx) -> dict:
                      "ms_per_step": wall * 1e3 / len(batches),
                      "launches": {fn.__name__: fn.launches
                                   for fn in counters}}
+        finals[name] = [t.detach().clone() for t in param_leaves(params)]
         print(f"  train {name}: {res[name]}", flush=True)
         if name == "fused":
             trained = (tr, params)
@@ -799,6 +848,8 @@ def phase_train(ctx) -> dict:
     if not all(g <= TRAIN_TOL for g in gaps.values()):
         raise AssertionError(f"train: loss trajectories differ: {gaps} > "
                              f"{TRAIN_TOL}")
+    res["params"] = param_gaps(init, finals)
+    print(f"  train params: {res['params']}", flush=True)
     want = {"fused": ("fused_window_fwd", "fused_window_bwd",
                       "fused_final_fwd", "fused_final_bwd_loss",
                       "fused_final_bwd_layer"),
@@ -821,6 +872,36 @@ def phase_train(ctx) -> dict:
     res["eval"] = m
     print(f"  train eval: {m}", flush=True)
     return res
+
+
+def param_gaps(init, finals) -> dict:
+    """For each pair of training paths and each leaf, |a - b| / |plain -
+    init| (norms; the plain path's change to that leaf); raises where a
+    leaf's gap exceeds PARAM_TOL of its change (a leaf the plain path left
+    as it was must agree exactly). Beside it, for reading only, the same
+    ratio of the largest entries."""
+    change = [(f - i) for f, i in zip(finals["plain"], init)]
+    norms = [float(c.norm()) for c in change]
+    gaps, maxes, bad = {}, {}, {}
+    for a, b in (("fused", "plain"), ("fused", "unfused"),
+                 ("unfused", "plain")):
+        worst = worst_max = 0.0
+        for k, (x, y, c, n) in enumerate(zip(finals[a], finals[b], change,
+                                             norms)):
+            gap = float((x - y).norm())
+            if not gap <= PARAM_TOL * n:
+                bad[f"{a}/{b} leaf {k}"] = {"gap": gap, "change": n}
+            if n > 0:
+                worst = max(worst, gap / n)
+                worst_max = max(worst_max, float((x - y).abs().max())
+                                / float(c.abs().max()))
+        gaps[f"{a}/{b}"] = worst
+        maxes[f"{a}/{b}"] = worst_max
+    if bad:
+        raise AssertionError(f"train: parameters differ beyond {PARAM_TOL} "
+                             f"of the plain path's change: {bad}")
+    return {"max_rel_gaps": gaps, "max_entry_gaps": maxes,
+            "largest_change": max(norms), "smallest_change": min(norms)}
 
 
 _KERNELS = (

@@ -86,8 +86,8 @@ SIGNATURES = {
     # final_dtable(table, qhat, lse, posm, cnt, g, src, dst, t_ptr, t_ans,
     #              h_ptr, h_ans, d_s, d_o, d_table, B, N, E, d, stream)
     "final_dtable_launch": [_P] * 15 + [_I] * 4 + [_P],
-    # final_rel_grad(rel, keep, vals, out, n_edges, n_rels, d, stream)
-    "final_rel_grad_launch": [_P] * 4 + [_I] * 3 + [_P],
+    # final_rel_grad(r_ptr, r_eid, vals, out, n_rels, d, stream)
+    "final_rel_grad_launch": [_P] * 4 + [_I] * 2 + [_P],
     # final_bwd_gru(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask,
     #               wih_t, whh_t, bih, bhh, wih, whh, dt, lam, prev, dout,
     #               dprev, n2_out, conv_s, h0g_s, dgi_s, dgh_s, dconv_s,

@@ -25,9 +25,10 @@
 // ranges and takes each edge's query cotangent back to its subject, object
 // and relation rows, final_dtable_kernel gives each table row the sum over
 // all queries of w * p * qhat plus the rows of the edges whose subject or
-// object it is, and final_rel_grad_kernel sums the relation rows per
-// relation. The scores are recomputed (twice) rather than stored: [B, 2, E,
-// N] would be 117 MB at icews14 width.
+// object it is, and the window's relation sum (rgcn_gru_layer.cuh) sums
+// the relation rows per relation over a CSR by relation. The scores are
+// recomputed (twice) rather than stored: [B, 2, E, N] would be 117 MB at
+// icews14 width.
 //
 // K5 replaces _bwd_layer_kernel, the backward of one encoder layer: the
 // window backward's launches for one step (rgcn_gru_layer.cuh) with L1 = 1,
@@ -652,50 +653,6 @@ __global__ void final_dtable_kernel(
   }
 }
 
-// out[r] = sum over the edges e (in order) with rel[e] == r and keep[e] > 0
-// of vals[e]: one warp a relation, the edge ids staged through shared
-// memory a chunk at a time.
-constexpr int kRelWarps = 8;
-constexpr int kRelChunk = 1024;
-
-__global__ void final_rel_grad_kernel(const int* __restrict__ rel,
-                                      const float* __restrict__ keep,
-                                      const float* __restrict__ vals,
-                                      float* __restrict__ out, int n_edges,
-                                      int n_rels, int d) {
-  __shared__ int rs[kRelChunk];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int r = blockIdx.x * kRelWarps + warp;
-  float acc[kMaxChunks];
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j) acc[j] = 0.f;
-  for (int e0 = 0; e0 < n_edges; e0 += kRelChunk) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRelChunk; i += blockDim.x) {
-      const int e = e0 + i;
-      rs[i] = e < n_edges && keep[e] > 0.f ? rel[e] : -1;
-    }
-    __syncthreads();
-    if (r >= n_rels) continue;
-    const int n = min(kRelChunk, n_edges - e0);
-    for (int i = 0; i < n; ++i) {
-      if (rs[i] != r) continue;
-      const float* v = vals + (long long)(e0 + i) * d;
-#pragma unroll
-      for (int j = 0; j < kMaxChunks; ++j) {
-        const int c = lane + j * kWarp;
-        if (c < d) acc[j] += v[c];
-      }
-    }
-  }
-  if (r >= n_rels) return;
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j) {
-    const int c = lane + j * kWarp;
-    if (c < d) out[(long long)r * d + c] = acc[j];
-  }
-}
-
 // -- K5 ----------------------------------------------------------------------
 
 __global__ void final_bwd_gru_kernel(
@@ -877,19 +834,11 @@ extern "C" int final_dtable_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int final_rel_grad_launch(const void* rel, const void* keep,
-                                     const void* vals, void* out,
-                                     int n_edges, int n_rels, int d,
-                                     void* stream) {
-  if (n_rels > 0) {
-    const int blocks = (n_rels + kRelWarps - 1) / kRelWarps;
-    final_rel_grad_kernel<<<blocks, kRelWarps * kWarp, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(rel), static_cast<const float*>(keep),
-        static_cast<const float*>(vals), static_cast<float*>(out), n_edges,
-        n_rels, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+extern "C" int final_rel_grad_launch(const void* r_ptr, const void* r_eid,
+                                     const void* vals, void* out, int n_rels,
+                                     int d, void* stream) {
+  return static_cast<int>(
+      rel_sum(r_ptr, r_eid, vals, nullptr, out, n_rels, d, stream));
 }
 
 extern "C" int final_bwd_gru_launch(

@@ -118,44 +118,6 @@ __global__ void window_wgrad_reduce_kernel(const float* __restrict__ part,
   wgrad_reduce_one(part, n_split, total, out);
 }
 
-// dwrel[r, :d] and dwrel[r, d:] = the per-edge cotangents of layer 1 and
-// layer 2 summed over the edges of relation r: one warp a relation.
-__global__ void window_rel_grad_kernel(const int* __restrict__ r_ptr,
-                                       const int* __restrict__ r_eid,
-                                       const float* __restrict__ ewg1,
-                                       const float* __restrict__ ewg2,
-                                       float* __restrict__ dwrel,
-                                       int n_rels, int d) {
-  constexpr int kWarpsPerBlock = 8;
-  const int lane = threadIdx.x % kWarp;
-  const int r = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (r >= n_rels) return;
-  float a1[kMaxChunks], a2[kMaxChunks];
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j) a1[j] = a2[j] = 0.f;
-  const int e1 = r_ptr[r + 1];
-  for (int e = r_ptr[r]; e < e1; ++e) {
-    const long long base = (long long)r_eid[e] * d;
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      const int c = lane + j * kWarp;
-      if (c < d) {
-        a1[j] += ewg1[base + c];
-        a2[j] += ewg2[base + c];
-      }
-    }
-  }
-  float* o = dwrel + (long long)r * 2 * d;
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j) {
-    const int c = lane + j * kWarp;
-    if (c < d) {
-      o[c] = a1[j];
-      o[d + c] = a2[j];
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" int window_layer_launch(
@@ -293,13 +255,6 @@ extern "C" int window_rel_grad_launch(const void* r_ptr, const void* r_eid,
                                       const void* ewg1, const void* ewg2,
                                       void* dwrel, int n_rels, int d,
                                       void* stream) {
-  if (n_rels > 0) {
-    const int blocks = (n_rels + 7) / 8;
-    window_rel_grad_kernel<<<blocks, 8 * kWarp, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(r_ptr), static_cast<const int*>(r_eid),
-        static_cast<const float*>(ewg1), static_cast<const float*>(ewg2),
-        static_cast<float*>(dwrel), n_rels, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      rel_sum(r_ptr, r_eid, ewg1, ewg2, dwrel, n_rels, d, stream));
 }

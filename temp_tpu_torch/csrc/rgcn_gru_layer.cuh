@@ -1,7 +1,8 @@
 // One RGCN+GRU layer over a tile of rows, forward and backward: the device
 // code that the window kernels (fused_window.cu, K2f/K2b) and the final-step
 // kernels (fused_final.cu, K3/K5) share. Each .cu file includes it and
-// wraps the bodies in kernels of its own names.
+// wraps the bodies in kernels of its own names; the relation sum at the end
+// is one kernel that both launch.
 //
 // A layer's rows are laid out [B, L1, A, d]: batch element b, window step k,
 // row a. The window runs L1 steps of A active rows; the final step is one
@@ -571,6 +572,61 @@ WJob make_job(const void* x, long long x_es, const void* g, long long g_es,
   const int tiles_x = (nx + (bias != nullptr ? 1 : 0) + kWgX - 1) / kWgX;
   *first += tiles_x * jb.tiles_g;
   return jb;
+}
+
+// The relation-weight cotangent, summed per relation without atomics:
+// out[r, :d] = the rows of v1 of relation r's edges, in the order of a CSR
+// by relation (r_ptr, and r_eid each edge's row of v1), and, when v2 is
+// given, out[r, d:2d] the same of v2 (out then has rows of 2d). One warp a
+// relation. The window backward (both layers at once) and the final step's
+// loss and layer backwards launch it.
+constexpr int kRelWarps = 8;
+
+__global__ void rel_sum_kernel(const int* __restrict__ r_ptr,
+                               const int* __restrict__ r_eid,
+                               const float* __restrict__ v1,
+                               const float* __restrict__ v2,
+                               float* __restrict__ out, int n_rels, int d) {
+  const int lane = threadIdx.x % kWarp;
+  const int r = blockIdx.x * kRelWarps + threadIdx.x / kWarp;
+  if (r >= n_rels) return;
+  const bool two = v2 != nullptr;
+  float a1[kMaxChunks], a2[kMaxChunks];
+#pragma unroll
+  for (int j = 0; j < kMaxChunks; ++j) a1[j] = a2[j] = 0.f;
+  const int e1 = r_ptr[r + 1];
+  for (int e = r_ptr[r]; e < e1; ++e) {
+    const long long base = (long long)r_eid[e] * d;
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j) {
+      const int c = lane + j * kWarp;
+      if (c < d) {
+        a1[j] += v1[base + c];
+        if (two) a2[j] += v2[base + c];
+      }
+    }
+  }
+  float* o = out + (long long)r * (two ? 2 : 1) * d;
+#pragma unroll
+  for (int j = 0; j < kMaxChunks; ++j) {
+    const int c = lane + j * kWarp;
+    if (c < d) {
+      o[c] = a1[j];
+      if (two) o[d + c] = a2[j];
+    }
+  }
+}
+
+cudaError_t rel_sum(const void* r_ptr, const void* r_eid, const void* v1,
+                    const void* v2, void* out, int n_rels, int d,
+                    void* stream) {
+  if (n_rels > 0)
+    rel_sum_kernel<<<(n_rels + kRelWarps - 1) / kRelWarps, kRelWarps * kWarp,
+                     0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(r_ptr), static_cast<const int*>(r_eid),
+        static_cast<const float*>(v1), static_cast<const float*>(v2),
+        static_cast<float*>(out), n_rels, d);
+  return cudaGetLastError();
 }
 
 }  // namespace

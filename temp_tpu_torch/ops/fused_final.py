@@ -375,20 +375,29 @@ def _p(t):
     return None if t is None else t.data_ptr()
 
 
-def final_csr(gr: FinalGraph, N: int):
-    """CSRs of the B final graphs (encoder subsample only; masked edges in
-    no row): by (element, destination) for the forward SpMM, and by
-    (element, source) with the edge's flat index for its transpose."""
+def final_csr(gr: FinalGraph, N: int, n_rels: int):
+    """CSRs of the B final graphs, masked edges in no row. Over the
+    encoder's subsample: by (element, destination) for the forward SpMM, by
+    (element, source) with the edge's flat index for its transpose, and by
+    relation (row pointer, flat edge index) for the layer's relation
+    cotangent. Over the loss's positives: by relation, for the relation
+    embeddings' cotangent. n_rels covers both relation ranges."""
     B, E = gr.src.shape
     b = (torch.arange(B, device=gr.src.device, dtype=torch.int32) * N)[:, None]
     keep = gr.emf.reshape(-1) > 0
     eid = torch.arange(B * E, device=gr.src.device, dtype=torch.int32)
+    rel = gr.rel.reshape(-1)
     by_dst = build_csr((gr.dst + b).reshape(-1), B * N, gr.src.reshape(-1),
-                       gr.rel.reshape(-1), gr.emf.reshape(-1), keep=keep)
+                       rel, gr.emf.reshape(-1), keep=keep)
     by_src = build_csr((gr.src + b).reshape(-1), B * N, gr.dst.reshape(-1),
-                       gr.rel.reshape(-1), gr.emf.reshape(-1), eid,
-                       keep=keep)
-    return by_dst, by_src
+                       rel, gr.emf.reshape(-1), eid, keep=keep)
+    # both CSRs by relation from one sort: the subsample's edges under keys
+    # [0, n_rels), the positives' under [n_rels, 2 n_rels); the second
+    # row pointer is the tail of the first, into the same edge list
+    r_ptr, r_eid = build_csr(
+        torch.cat([rel, rel + n_rels]), 2 * n_rels, torch.cat([eid, eid]),
+        keep=torch.cat([keep, gr.posm.reshape(-1) > 0]))
+    return by_dst, by_src, (r_ptr[:n_rels + 1], r_eid), (r_ptr[n_rels:], r_eid)
 
 
 def fused_final_fwd(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
@@ -414,7 +423,7 @@ def fused_final_fwd(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
     _check_graph("fused_final_fwd", gr, B, N, E, d)
     dev = hist1.device
     f32 = dict(device=dev, dtype=torch.float32)
-    csr = final_csr(gr, N)
+    csr = final_csr(gr, N, max(wrel.shape[0], rtab.shape[0]))
     rowptr, s_src, s_rel, s_em = csr[0]
     h0x = h0.expand(B, N, d).contiguous()
     out1 = torch.empty(B, N, d, **f32)
@@ -503,8 +512,12 @@ def fused_final_bwd_loss(saved: dict, rtab, gr: FinalGraph, g):
         p(table), p(qhat), p(lse), p(gr.posm), p(cnt), p(g), p(gr.src),
         p(gr.dst), *answers, p(d_s), p(d_o), p(d_table), B, N, E, d, stream),
         "table")
+    r_ptr, r_eid = saved["csr"][3]
+    if r_ptr.numel() < R2 + 1:
+        raise ValueError(f"fused_final_bwd_loss: the saved CSR by relation "
+                         f"has {r_ptr.numel() - 1} rows, rtab {R2}")
     launched(lib.final_rel_grad_launch(
-        p(gr.rel), p(gr.posm), p(d_remb), p(d_rtab), B * E, R2, d, stream),
+        p(r_ptr), p(r_eid), p(d_remb), p(d_rtab), R2, d, stream),
         "relations")
     return d_table, d_rtab
 
@@ -520,7 +533,7 @@ def fused_final_bwd_layer(h_in, prev, gr: FinalGraph, mask, wrel, col: int,
     self-loop dropout mask over keep, or None; wrel [R, 2d] with this
     layer's weights at column `col`; loop [d, d]; g the GRU weights (dict
     of wih_t/whh_t [d, 3d], bih/bhh [3d]); d_out [B, N, d] the cotangent of
-    the layer's output; csr ``final_csr(gr, N)`` when known.
+    the layer's output; csr ``final_csr(gr, N, R)`` when known.
 
     Returns (d_h [B, N, d], d_prev [B, N, d], d_wrel [R, d], d_loop [d, d],
     d_wih_t, d_whh_t [d, 3d], d_bih, d_bhh [3d]): cotangents of the inputs,
@@ -543,8 +556,11 @@ def fused_final_bwd_layer(h_in, prev, gr: FinalGraph, mask, wrel, col: int,
         raise ValueError(f"fused_final_bwd_layer: col = {col}, not 0 or d")
     dev = prev.device
     f32 = dict(device=dev, dtype=torch.float32)
-    (rowptr, s_src, s_rel, s_em), (sp, sp_dst, sp_rel, sp_em, sp_eid) = (
-        final_csr(gr, N) if csr is None else csr)
+    ((rowptr, s_src, s_rel, s_em), (sp, sp_dst, sp_rel, sp_em, sp_eid),
+     (r_ptr, r_eid), _) = final_csr(gr, N, R) if csr is None else csr
+    if r_ptr.numel() < R + 1:
+        raise ValueError(f"fused_final_bwd_layer: the CSR by relation has "
+                         f"{r_ptr.numel() - 1} rows, wrel {R}")
     rows = B * N
     n2 = torch.empty(rows, **f32)
     scr = {k: torch.empty(rows * (3 * d if k.startswith("dg") else d), **f32)
@@ -587,8 +603,7 @@ def fused_final_bwd_layer(h_in, prev, gr: FinalGraph, mask, wrel, col: int,
                                            wsum.numel(), p(wsum), stream),
              "weight sum")
     launched(lib.final_rel_grad_launch(
-        p(gr.rel), p(gr.emf), p(ewg), p(d_wrel), B * E, R, d, stream),
-        "relations")
+        p(r_ptr), p(r_eid), p(ewg), p(d_wrel), R, d, stream), "relations")
     w = {n: t.view(shapes[n]) for n, t in
          zip(_WGRAD_LAYOUT, torch.split(wsum, sizes))}
     return (d_h, d_prev, d_wrel, w["dloop"], w["dwih"], w["dwhh"], w["dbih"],

@@ -261,6 +261,29 @@ def test_answer_lists_match_filter_tables():
                 np.testing.assert_array_equal(lst, want)
 
 
+def test_final_csr_relation_rows():
+    """``final_csr``'s CSRs by relation, which K4 and K5 sum over: row r
+    lists, in edge order, the flat index of every edge slot of relation r
+    that the encoder's subsample keeps (K5) or that is a positive of the
+    loss (K4), and no other."""
+    g = np.random.default_rng(3)
+    B, E, N, R = 3, 20, 30, 7
+    src, dst, rel = (torch.from_numpy(g.integers(0, n, (B, E), dtype=np.int32))
+                     for n in (N, N, R))
+    emf, posm = (torch.from_numpy((g.random((B, E)) < 0.5).astype(np.float32))
+                 for _ in range(2))
+    gr = ff.FinalGraph(src, dst, rel, emf, posm, *([None] * 12), lam=0.1,
+                       r2=R)
+    csr = ff.final_csr(gr, N, R)
+    for (r_ptr, r_eid), keep in ((csr[2], emf), (csr[3], posm)):
+        assert r_ptr.dtype == torch.int32 and r_ptr.numel() == R + 1
+        flat_rel, flat_keep = rel.reshape(-1), keep.reshape(-1) > 0
+        for r in range(R):
+            got = r_eid[int(r_ptr[r]):int(r_ptr[r + 1])].tolist()
+            want = torch.nonzero(flat_keep & (flat_rel == r))[:, 0].tolist()
+            assert got == want, r
+
+
 def test_kernel_launches_match_the_library_signatures(monkeypatch):
     """The CUDA path's plumbing, rehearsed on the CPU: with the device check
     and the library replaced by a recorder, one training loss and its

@@ -181,7 +181,14 @@ def test_chip_smoke_phases_rehearse_on_cpu():
         assert os.path.exists(os.path.join(ROOT, rec["source"]))
         assert rec["bound_ms"] > 0
     assert set(k2b["bwd"]["errors"]) == set(chip_smoke._COTANGENTS)
-    assert len(k5["errors"]) == 2 * len(chip_smoke._LAYER_COTANGENTS)
+    # both layers, from the loss's cotangent and from a unit-scale one, each
+    # error beside the largest entry it is held against
+    assert len(k5["errors"]) == 4 * len(chip_smoke._LAYER_COTANGENTS)
+    for e in list(k4["errors"].values()) + list(k5["errors"].values()):
+        assert e["abs"] == 0.0 and e["max_ref"] > 0
+    assert set(train["params"]["max_rel_gaps"]) == {
+        "fused/plain", "fused/unfused", "unfused/plain"}
+    assert train["params"]["largest_change"] > 0
     assert k5["final_step_fused_ms"] > 0 and k5["final_step_unfused_ms"] > 0
     assert path["kernels"]["mrr"] == path["plain"]["mrr"]
     assert path["same_rank_share"] == 1.0
