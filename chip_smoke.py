@@ -41,6 +41,26 @@ Phases, each printing one line with its elapsed seconds as it ends:
              three loss trajectories, the launch counts of each path, then
              one run_eval of the trained weights.
 
+Then the flagship, BiGRRGCN --impute (grid/icews14/config_bigrrgcn.json with
+impute on, PostBiDynamicRGCNModel), on the same data:
+
+13. flagship_setup - its model with seeded random weights;
+14. k2_flagship    - K2f and K2b in the flagship's modes (a ReLU on layer
+                     2, the third "local" buffer) for the forward and the
+                     backward window of its first training batch, against
+                     the plain version: three buffers, 12 cotangents;
+15. k6k7      - the bi layer forward (K6+K7) of both layers of that batch's
+                final step against its plain version;
+16. k8        - the loss from the table (K8) against its plain version;
+17. k9k10     - the bi layer backward (K9+K10) of both layers against its
+                plain version, from the loss's cotangent and from a unit one;
+                and the final step and loss forward and backward, fused
+                (K6-K10, K4) and unfused (K1 one element at a time);
+18. flagship_path  - the flagship's valid sweep with the kernels and with
+                     their plain versions (MRR within 1e-4);
+19. flagship_train - 8 optimizer steps of the flagship on the three paths,
+                     as `train`, with the launch counts of the new kernels.
+
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and the
 result line {"ok": true, "device": {...}}. Any failed check raises and exits
 non-zero; there is no result line then. Without CUDA it exits 1 at once. A
@@ -160,7 +180,8 @@ def phase_build() -> dict:
 
 
 def phase_setup(device, num_ents=7128, num_rels=230, num_times=365,
-                edges_per_time=200, seed=0, **cfg_over) -> dict:
+                edges_per_time=200, seed=0, config="config_grrgcn.json",
+                **cfg_over) -> dict:
     import torch
 
     from temp_tpu_torch.config import TKGConfig
@@ -170,16 +191,20 @@ def phase_setup(device, num_ents=7128, num_rels=230, num_times=365,
 
     root = os.path.dirname(os.path.abspath(__file__))
     cfg = TKGConfig.from_json_file(
-        os.path.join(root, "grid", "icews14", "config_grrgcn.json"),
-        fused_window=True, **cfg_over)
+        os.path.join(root, "grid", "icews14", config), fused_window=True,
+        **cfg_over)
     data = make_synthetic(num_ents=num_ents, num_rels=num_rels,
                           num_times=num_times, edges_per_time=edges_per_time,
                           seed=seed, edge_pad_multiple=cfg.edge_pad_multiple)
     model = get_model(cfg, data, device=device)
     params = model.init_params(cfg.seed)
     trainer = Trainer(cfg, model, data)
+    setup_kw = dict(num_ents=num_ents, num_rels=num_rels,
+                    num_times=num_times, edges_per_time=edges_per_time,
+                    seed=seed, **cfg_over)
     return {"cfg": cfg, "data": data, "model": model, "params": params,
             "trainer": trainer, "device": torch.device(device),
+            "setup_kw": setup_kw,
             "N": num_ents, "T": data.num_times,
             "A": int(data.act_idx.shape[1]),
             "E": int(data.train.src.shape[1]),
@@ -780,16 +805,11 @@ _PATHS = (("fused", {}), ("unfused", {"fused_final": False}),
           ("plain", {"kernels": False}))
 
 
-def phase_train(ctx) -> dict:
-    """A few optimizer steps at the full config on three paths from the
-    same seeded weights and draws: the kernels with fused_final on (the
-    main path), the kernels with fused_final off, and the plain versions;
-    each path's launches counted from 0; then one valid sweep of the
-    weights the main path trained."""
-    import numpy as np
-    import torch
-
-    from temp_tpu_torch.models.registry import get_model
+def _train_counters(flagship: bool):
+    """The launch counters a training path reads, and the kernels each
+    kernel path must launch: GRRGCN's (K1, K2, K3-K5) or the flagship's
+    (K1, K2, K6-K10 with K4)."""
+    from temp_tpu_torch.ops import fused_final_bi as fb
     from temp_tpu_torch.ops.fused_final import (
         fused_final_bwd_layer, fused_final_bwd_loss, fused_final_fwd,
     )
@@ -797,12 +817,35 @@ def phase_train(ctx) -> dict:
         fused_window_bwd, fused_window_fwd,
     )
     from temp_tpu_torch.ops.spmm import spmm_bwd, spmm_fwd
+
+    common = (spmm_fwd, spmm_bwd, fused_window_fwd, fused_window_bwd)
+    unfused = ("spmm_fwd", "spmm_bwd", "fused_window_fwd", "fused_window_bwd")
+    if flagship:
+        final = (fb.bi_layer_fwd, fb.bi_loss_fwd, fused_final_bwd_loss,
+                 fb.bi_layer_bwd)
+    else:
+        final = (fused_final_fwd, fused_final_bwd_loss, fused_final_bwd_layer)
+    fused = ("fused_window_fwd", "fused_window_bwd") + tuple(
+        fn.__name__ for fn in final)
+    return common + final, {"fused": fused, "unfused": unfused}
+
+
+def phase_train(ctx, flagship: bool = False) -> dict:
+    """A few optimizer steps at the full config on three paths from the
+    same seeded weights and draws: the kernels with fused_final on (the
+    main path), the kernels with fused_final off, and the plain versions;
+    each path's launches counted from 0; then one valid sweep of the
+    weights the main path trained. `flagship`: the flagship's context and
+    kernels."""
+    import numpy as np
+    import torch
+
+    from temp_tpu_torch.models.registry import get_model
     from temp_tpu_torch.train.loop import Trainer
     from temp_tpu_torch.train.optim import param_leaves
 
     dev, cfg = ctx["device"], ctx["cfg"]
-    counters = (spmm_fwd, spmm_bwd, fused_window_fwd, fused_window_bwd,
-                fused_final_fwd, fused_final_bwd_loss, fused_final_bwd_layer)
+    counters, want = _train_counters(flagship)
     res, trained, init, finals = {}, None, None, {}
     for name, over in _PATHS:
         c = cfg.replace(**over)
@@ -850,11 +893,6 @@ def phase_train(ctx) -> dict:
                              f"{TRAIN_TOL}")
     res["params"] = param_gaps(init, finals)
     print(f"  train params: {res['params']}", flush=True)
-    want = {"fused": ("fused_window_fwd", "fused_window_bwd",
-                      "fused_final_fwd", "fused_final_bwd_loss",
-                      "fused_final_bwd_layer"),
-            "unfused": ("spmm_fwd", "spmm_bwd", "fused_window_fwd",
-                        "fused_window_bwd")}
     for name, kernels in want.items():
         n = res[name]["launches"]
         if dev.type == "cuda" and not all(n[k] > 0 for k in kernels):
@@ -904,6 +942,356 @@ def param_gaps(init, finals) -> dict:
             "largest_change": max(norms), "smallest_change": min(norms)}
 
 
+def phase_setup_flagship(ctx) -> dict:
+    """The flagship on the same data and sizes as `ctx`:
+    grid/icews14/config_bigrrgcn.json with impute on."""
+    return phase_setup(ctx["device"].type, config="config_bigrrgcn.json",
+                       **{**ctx["setup_kw"], "impute": True})
+
+
+def flagship_window_batch(fctx, direction: str):
+    """The K2 arguments of one direction's windows of the flagship's first
+    training batch, as its path prepares them, with seeded dropout masks."""
+    import torch
+
+    from temp_tpu_torch.models.dynamic import gather_window
+
+    model, data, p, cfg = (fctx["model"], fctx["trainer"].data,
+                           fctx["params"], fctx["cfg"])
+    dev, L1 = fctx["device"], fctx["L1"]
+    t_pos, _ = fctx["trainer"].epoch_batches(0)[0]
+    tp = torch.as_tensor(t_pos, device=dev).long()
+    win = gather_window(data, tp, L1 + 1, backward=direction == "bwd")
+    tbl = model._tables_for(direction)
+    prev_step = tbl.prev_step[tp].long()
+    pos = torch.arange(L1, device=dev)[None, :, None]
+    B, A, d = tp.shape[0], fctx["A"], fctx["d"]
+    keep = 1.0 - cfg.dropout
+    gen = torch.Generator(device=dev).manual_seed(7)
+    masks = tuple((torch.rand(B, L1, A, d, generator=gen, device=dev) < keep)
+                  .to(torch.float32) / keep for _ in range(2))
+    return win, dict(h0_xs=model._rows(p, win.act_idx[:, :L1]),
+                     src=win.src_loc[:, :L1], dst=win.dst_loc[:, :L1],
+                     rel=win.rel[:, :L1], emask=win.emask[:, :L1],
+                     prev_step=prev_step, prev_row=tbl.prev_row[tp].long(),
+                     dt=(pos - prev_step.clamp(min=0)).to(torch.float32),
+                     live=prev_step >= 0, masks=masks, direction=direction,
+                     activation2="relu")
+
+
+def phase_k2_flagship(fctx) -> dict:
+    """K2f and K2b in the flagship's modes (ReLU on layer 2, n_buf=3, either
+    direction's GRUs) against their plain versions on both windows of the
+    first training batch: the three buffers, and the 12 cotangents from
+    random cotangents on all three."""
+    import torch
+
+    from temp_tpu_torch.ops.fused_window import (
+        fused_window_bwd, fused_window_bwd_plain, fused_window_fwd,
+        fused_window_fwd_plain, window_args,
+    )
+
+    dev, p, cfg = fctx["device"], fctx["params"], fctx["cfg"]
+    out = {}
+    for direction in ("fwd", "bwd"):
+        win, kw = flagship_window_batch(fctx, direction)
+        B, L1, A, d = kw["h0_xs"].shape
+        gen = torch.Generator(device=dev).manual_seed(8)
+        gb1, gb2, gb3 = (torch.randn(B, L1, A, d, generator=gen, device=dev)
+                         for _ in range(3))
+        a = window_args(p["encoder"], cfg, **kw)
+        fwd_args = dict(a, conv1_in=False, n_buf=3)
+        got = fused_window_fwd(**fwd_args)
+        ref = fused_window_fwd_plain(**fwd_args)
+        err_fwd = max(max_err(x, y) for x, y in zip(got, ref))
+        if not (err_fwd <= TOL and len(got) == 3):
+            raise AssertionError(f"K2f {direction} flagship: max abs err "
+                                 f"{err_fwd} > {TOL}")
+        bwd_args = dict(a, buf1=got[0], buf2=got[1], gb1=gb1, gb2=gb2,
+                        gb3=gb3)
+        cot = fused_window_bwd(**bwd_args)
+        cot_ref = fused_window_bwd_plain(**a, gb1=gb1, gb2=gb2, gb3=gb3)
+        errs = {n: rel_err(x, y) for n, x, y in zip(_COTANGENTS, cot,
+                                                     cot_ref)}
+        bad = {n: e for n, e in errs.items() if not e <= GRAD_TOL}
+        if bad:
+            raise AssertionError(f"K2b {direction} flagship: cotangents "
+                                 f"beyond {GRAD_TOL}: {bad}")
+        fwd_bound, fwd_by = _window_bound(fctx, win, False, masks=True)
+        bwd_bound, bwd_by = _window_bwd_bound(fctx, win)
+        out[direction] = {
+            "shape": f"B={B} L1={L1} A={A} E={fctx['E']} d={d} n_buf=3 relu",
+            "fwd_max_abs_err": err_fwd, "bwd_max_rel_err": max(errs.values()),
+            "fwd_ms": time_ms(lambda: fused_window_fwd(**fwd_args), dev,
+                              reps=5),
+            "fwd_plain_ms": time_ms(lambda: fused_window_fwd_plain(
+                **fwd_args), dev, reps=2),
+            "bwd_ms": time_ms(lambda: fused_window_bwd(**bwd_args), dev,
+                              reps=5),
+            "bwd_plain_ms": time_ms(lambda: fused_window_bwd_plain(
+                **a, gb1=gb1, gb2=gb2, gb3=gb3), dev, reps=2),
+            # the third buffer written (forward) and read (backward) once more
+            "fwd_bound_ms": fwd_bound + _bound(0, B * L1 * A * d * 4)[0],
+            "fwd_bound_by": fwd_by,
+            "bwd_bound_ms": bwd_bound + _bound(0, B * L1 * A * d * 4)[0],
+            "bwd_bound_by": bwd_by}
+        print(f"  K2 flagship {direction}: {out[direction]}", flush=True)
+    return out
+
+
+# impute scalars whose clamp max(w dt + b, 0) is open for some of the
+# window's dt (1..7) and closed for others, so the kernel checks reach both
+# branches (the seeded init may close it everywhere)
+_OPEN_IMPUTE = (0.3, 0.2, -0.1, 0.5)
+
+
+def final_batch_flagship(fctx) -> dict:
+    """The inputs of K6-K10 for the flagship's first training batch, as its
+    path prepares them: the draws, both windows' history (K2f), the BiGraph
+    and the weights in the kernels' layout."""
+    if "final" in fctx:
+        return fctx["final"]
+    import torch
+
+    from temp_tpu_torch.ops.fused_final import final_csr
+    from temp_tpu_torch.ops.fused_final_bi import bi_weights, final_graph_bi
+
+    dev, p, cfg, model = (fctx["device"], fctx["params"], fctx["cfg"],
+                          fctx["model"])
+    tr = fctx["trainer"]
+    t_pos, t_valid = tr.epoch_batches(0)[0]
+    tp = torch.as_tensor(t_pos, device=dev).long()
+    draws = model.draw_train(tr.step_generator(0, 0), tr.data, tp)
+    L = cfg.train_seq_len
+    with torch.no_grad():
+        h1f, h2f, hlf, lpf, h1b, h2b, hlb, lpb = model.batch_hists(
+            p, tr.data, tp, L, draws)
+    bg = final_graph_bi(tr.data, model.answers, tp, draws, lpf, lpb,
+                        cfg.inv_temperature, model.lc2.dropout, L, True,
+                        cfg.use_embed_for_non_active)
+    h0, wrel, loop1, loop2, grus, rtab, _ = bi_weights(p)
+    imp = torch.tensor(_OPEN_IMPUTE, device=dev)
+    N, d = h0.shape
+    fctx["final"] = {
+        "t_pos": [int(t) for t in t_pos],
+        "tv_host": [bool(v) for v in t_valid], "tv": torch.as_tensor(
+            t_valid, device=dev, dtype=torch.float32),
+        "draws": draws, "bg": bg, "lp": (lpf, lpb),
+        "hists": tuple(h.contiguous() for h in (h1f, h2f, hlf, h1b, h2b,
+                                                hlb)),
+        "h0x": h0.expand(len(t_pos), N, d).contiguous(), "h0": h0,
+        "wrel": wrel, "loops": (loop1, loop2), "grus": grus, "rtab": rtab,
+        "imp": imp,
+        "csr": final_csr(bg.gr, N, max(wrel.shape[0], rtab.shape[0]))}
+    return fctx["final"]
+
+
+def _bi_layer_args(fb_, layer: int, h_in=None):
+    """(positional, keyword) arguments of bi_layer_fwd/_bwd (less d_out) for
+    one layer of the flagship's final step."""
+    h1f, h2f, hlf, h1b, h2b, hlb = fb_["hists"]
+    bg, d = fb_["bg"], fb_["h0"].shape[1]
+    loop1, loop2 = fb_["loops"]
+    if layer == 1:
+        return ((fb_["h0x"], h1f, h1b, bg, bg.gr.m1, fb_["wrel"], 0, loop1,
+                 fb_["grus"]["1f"], fb_["grus"]["1b"]), {"csr": fb_["csr"]})
+    return ((h_in, h2f, h2b, bg, bg.gr.m2, fb_["wrel"], d, loop2,
+             fb_["grus"]["2f"], fb_["grus"]["2b"]),
+            {"relu": True, "hl": (hlf, hlb), "imp": fb_["imp"],
+             "csr": fb_["csr"]})
+
+
+def _bi_bytes(fb_, layer: int, extra_rows: int = 0) -> int:
+    """Bytes one bi layer moves at least: its [B, N, d] operands (input,
+    both histories, the dropout mask, layer 2's two local tables, and
+    `extra_rows` more) read or written once, and the weights."""
+    B, N, d = fb_["hists"][0].shape
+    rows = 3 + 1 + (1 if fb_["bg"].gr.m1 is not None else 0) + extra_rows
+    if layer == 2:
+        rows += 2
+    weights = 4 * d * 3 * d + 4 * 3 * d + d * d + fb_["wrel"].shape[0] * d
+    return 4 * (rows * B * N * d + weights + 2 * B * N)
+
+
+def phase_k6k7(fctx) -> dict:
+    """The bi layer forward (K6+K7) of both layers against its plain
+    version (layer 2 fed the plain layer 1's output)."""
+    from temp_tpu_torch.ops.fused_final_bi import (
+        bi_layer_fwd, bi_layer_fwd_plain,
+    )
+
+    dev, fb_ = fctx["device"], final_batch_flagship(fctx)
+    sel = fb_["h0x"] if fb_["bg"].noact else None
+    a1, k1 = _bi_layer_args(fb_, 1)
+    out1 = bi_layer_fwd(*a1, **k1)
+    k1p = {k: v for k, v in k1.items() if k != "csr"}
+    ref1 = bi_layer_fwd_plain(*a1, **k1p)
+    a2, k2 = _bi_layer_args(fb_, 2, ref1)
+    k2p = {k: v for k, v in k2.items() if k != "csr"}
+    table = bi_layer_fwd(*a2, **k2, sel=sel)
+    ref2 = bi_layer_fwd_plain(*a2, **k2p, sel=sel)
+    try:
+        errs = scaled_errs([("layer1", out1, ref1), ("layer2", table, ref2)])
+    except AssertionError as e:
+        raise AssertionError(f"K6+K7: {e}") from None
+    fb_["table"], fb_["out1"] = ref2, ref1
+    B, N, d = ref1.shape
+    kept = float(fb_["bg"].gr.emf.sum())
+    # per element and layer: the self-loop (2 N d^2) and four gate
+    # products (24 N d^2); the SpMM 3 d a kept edge
+    flops = 2 * B * 26 * N * d * d + 2 * kept * 3 * d
+    bound_ms, bound_by = _bound(flops, _bi_bytes(fb_, 1) + _bi_bytes(fb_, 2))
+    out = {"shape": f"B={B} N={N} E={fb_['bg'].gr.src.shape[1]} d={d}, both "
+                    f"layers",
+           "max_abs_err": max(e["abs"] for e in errs.values()),
+           "errors": errs,
+           "ms": time_ms(lambda: (bi_layer_fwd(*a1, **k1),
+                                  bi_layer_fwd(*a2, **k2, sel=sel)), dev,
+                         reps=10),
+           "plain_ms": time_ms(lambda: (
+               bi_layer_fwd_plain(*a1, **k1p),
+               bi_layer_fwd_plain(*a2, **k2p, sel=sel)), dev, reps=5),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"  K6+K7: {out}", flush=True)
+    return out
+
+
+def phase_k8(fctx) -> dict:
+    """The loss from the flagship's table (K8) against its plain version;
+    keeps K8's saved residuals for K4."""
+    from temp_tpu_torch.ops.fused_final import _loss_plain
+    from temp_tpu_torch.ops.fused_final_bi import bi_loss_fwd
+
+    dev, fb_ = fctx["device"], final_batch_flagship(fctx)
+    table, gr, rtab = fb_["table"], fb_["bg"].gr, fb_["rtab"]
+    loss, saved = bi_loss_fwd(table, rtab, gr, fb_["csr"])
+    ref = _loss_plain(table, rtab, gr)
+    try:
+        errs = scaled_errs([("loss", loss, ref)])
+    except AssertionError as e:
+        raise AssertionError(f"K8: {e}") from None
+    fb_["saved"] = dict(saved, out1=fb_["out1"], h0x=fb_["h0x"])
+    B, N, d = table.shape
+    q = 2 * float(gr.posm.sum())
+    bound_ms, bound_by = _bound(q * N * 2 * d, 4 * (B * N * d + rtab.numel()))
+    out = {"shape": f"B={B} N={N} E={gr.src.shape[1]} d={d} "
+                    f"positive queries={int(q)}",
+           "max_abs_err": errs["loss"]["abs"], "errors": errs,
+           "ms": time_ms(lambda: bi_loss_fwd(table, rtab, gr, fb_["csr"]),
+                         dev, reps=10),
+           "plain_ms": time_ms(lambda: _loss_plain(table, rtab, gr), dev,
+                               reps=5),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"  K8: {out}", flush=True)
+    return out
+
+
+_BI_COTANGENTS = ("d_h", "d_prev_f", "d_prev_b", "d_hl_f", "d_hl_b", "d_imp",
+                  "d_wrel", "d_loop", "d_wih_f", "d_whh_f", "d_bih_f",
+                  "d_bhh_f", "d_wih_b", "d_whh_b", "d_bih_b", "d_bhh_b")
+
+
+def phase_k9k10(fctx) -> dict:
+    """The bi layer backward (K9+K10) against its plain version for layer 2,
+    then layer 1, each given the same output cotangent on both sides: once
+    the loss's (K4's plain d_table through the select), once a unit-scale
+    random one; then the final step and loss forward and backward, fused
+    and unfused."""
+    import torch
+
+    from temp_tpu_torch.ops.fused_final import (
+        fused_final_bwd_loss_plain, select_bwd,
+    )
+    from temp_tpu_torch.ops.fused_final_bi import (
+        bi_layer_bwd, bi_layer_bwd_plain,
+    )
+
+    dev, fb_ = fctx["device"], final_batch_flagship(fctx)
+    bg = fb_["bg"]
+    d_table, _ = fused_final_bwd_loss_plain(fb_["table"], fb_["rtab"], bg.gr,
+                                            fb_["tv"])
+    d_out2, _ = select_bwd(d_table, bg.gr.active if bg.noact else None)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    d_unit = torch.randn(d_out2.shape, generator=gen, device=dev)
+    pairs, calls = [], {}
+    for up, d_out in (("loss", d_out2.contiguous()), ("unit", d_unit)):
+        a2, k2 = _bi_layer_args(fb_, 2, fb_["out1"])
+        k2p = {k: v for k, v in k2.items() if k != "csr"}
+        ref2 = bi_layer_bwd_plain(*a2, d_out, **k2p)
+        a1, k1 = _bi_layer_args(fb_, 1)
+        k1p = {k: v for k, v in k1.items() if k != "csr"}
+        calls[up] = ((a2, d_out, k2, k2p), (a1, ref2[0], k1, k1p))
+        for tag, (a, g, k, kp) in (("layer2", calls[up][0]),
+                                   ("layer1", calls[up][1])):
+            got = bi_layer_bwd(*a, g, **k)
+            ref = ref2 if tag == "layer2" else bi_layer_bwd_plain(*a, g, **kp)
+            pairs += [(f"{up} {tag} {n}", x, y) for n, x, y in
+                      zip(_BI_COTANGENTS, got, ref) if y is not None]
+    try:
+        errs = scaled_errs(pairs)
+    except AssertionError as e:
+        raise AssertionError(f"K9+K10: {e}") from None
+    B, N, d = fb_["hists"][0].shape
+    kept = float(bg.gr.emf.sum())
+    # per layer and element: the forward recomputed (26 N d^2), the input,
+    # history and weight cotangent products of both GRUs (48 N d^2) and of
+    # the self-loop (4 N d^2); the SpMM's transpose 6 d a kept edge
+    flops = 2 * B * 78 * N * d * d + 2 * kept * 6 * d
+    nbytes = _bi_bytes(fb_, 1, extra_rows=4) + _bi_bytes(fb_, 2, extra_rows=6)
+    bound_ms, bound_by = _bound(flops, nbytes)
+    (a2, g2, k2, k2p), (a1, g1, k1, k1p) = calls["loss"]
+    out = {"shape": f"B={B} N={N} E={bg.gr.src.shape[1]} d={d}, both layers",
+           "max_abs_err": max(e["abs"] for e in errs.values()),
+           "errors": errs,
+           "ms": time_ms(lambda: (bi_layer_bwd(*a2, g2, **k2),
+                                  bi_layer_bwd(*a1, g1, **k1)), dev,
+                         reps=10),
+           "plain_ms": time_ms(lambda: (bi_layer_bwd_plain(*a2, g2, **k2p),
+                                        bi_layer_bwd_plain(*a1, g1, **k1p)),
+                               dev, reps=3),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    out.update(flagship_step_ms(fctx, fb_))
+    print(f"  K9+K10: {out}", flush=True)
+    return out
+
+
+def flagship_step_ms(fctx, fb_) -> dict:
+    """The flagship's final step and loss of the batch, forward and
+    backward, fused (K6-K10 with K4) and unfused (K1f/K1b, one element at a
+    time), from the same history and draws."""
+    import torch
+
+    from temp_tpu_torch.ops.fused_final_bi import fused_final_bi_loss
+    from temp_tpu_torch.train.optim import param_leaves
+
+    dev, model, data = fctx["device"], fctx["model"], fctx["trainer"].data
+    params = dict(fctx["params"])
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    hs = [h.clone().requires_grad_(True) for h in fb_["hists"]]
+    lpf, lpb = fb_["lp"]
+    tv = fb_["tv"]
+
+    def fused():
+        loss = (fused_final_bi_loss(params, fb_["bg"], hs) * tv).sum()
+        torch.autograd.grad(loss, leaves + hs, allow_unused=True)
+
+    def unfused():
+        h1f, h2f, hlf, h1b, h2b, hlb = hs
+        loss = model.unfused_final_loss(
+            params, data, fb_["t_pos"], fb_["tv_host"],
+            (h1f, h2f, hlf, lpf, h1b, h2b, hlb, lpb), fb_["draws"])
+        torch.autograd.grad(loss, leaves + hs, allow_unused=True)
+
+    try:
+        return {"final_step_fused_ms": time_ms(fused, dev, reps=5),
+                "final_step_unfused_ms": time_ms(unfused, dev, reps=2)}
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+
+
 _KERNELS = (
     ("spmm_fwd", "temp_tpu_torch/csrc/spmm.cu",
      "temp_tpu/ops/pallas_spmm.py:110"),
@@ -919,40 +1307,69 @@ _KERNELS = (
      "temp_tpu/ops/fused_final.py:250"),
     ("fused_final_bwd_layer", "temp_tpu_torch/csrc/fused_final.cu",
      "temp_tpu/ops/fused_final.py:343"),
+    ("bi_layer_fwd", "temp_tpu_torch/csrc/fused_final_bi.cu",
+     "temp_tpu/ops/fused_final_bi.py:167,237"),
+    ("bi_loss_fwd", "temp_tpu_torch/csrc/fused_final.cu",
+     "temp_tpu/ops/fused_final_bi.py:252"),
+    ("bi_layer_bwd", "temp_tpu_torch/csrc/fused_final_bi.cu",
+     "temp_tpu/ops/fused_final_bi.py:305,388"),
 )
 
+# the path whose run gives each kernel's "launches"
+_HOME = {"spmm_fwd": "eval", "spmm_bwd": "train_unfused",
+         "bi_layer_fwd": "flagship_train_fused",
+         "bi_loss_fwd": "flagship_train_fused",
+         "bi_layer_bwd": "flagship_train_fused"}
 
-def kernels_line(k1: dict, k2: dict, path: dict, k1b: dict, k2b: dict,
-                 k3: dict, k4: dict, k5: dict, train: dict) -> dict:
-    """One record per kernel: its numbers at the main paths' shapes, its
-    launches on each path (``launches_by_path``: the eval sweep and each
-    training path), and as ``launches`` those of the path that runs it (the
-    fused training path; the eval sweep for K1f, the unfused training path
-    for K1b)."""
-    measured = {"spmm_fwd": k1["final"], "spmm_bwd": k1b,
-                "fused_window_fwd": k2["conv1_in"],
-                "fused_window_bwd": k2b["bwd"], "fused_final_fwd": k3,
-                "fused_final_bwd_loss": k4, "fused_final_bwd_layer": k5}
-    home = {"spmm_fwd": "eval", "spmm_bwd": "train_unfused"}
+
+def kernels_line(res: dict) -> dict:
+    """One record per kernel from the phases' results `res` (keyed by phase
+    name): its numbers at the main paths' shapes, its launches on each path
+    (``launches_by_path``: the eval sweeps and each training path of GRRGCN
+    and of the flagship), and as ``launches`` those of the path that runs it
+    (GRRGCN's fused training path; the eval sweep for K1f, the unfused
+    training path for K1b, the flagship's fused training path for K6-K10)."""
+    measured = {"spmm_fwd": res["k1"]["final"], "spmm_bwd": res["k1b"],
+                "fused_window_fwd": res["k2"]["conv1_in"],
+                "fused_window_bwd": res["k2b"]["bwd"],
+                "fused_final_fwd": res["k3"],
+                "fused_final_bwd_loss": res["k4"],
+                "fused_final_bwd_layer": res["k5"],
+                "bi_layer_fwd": res["k6k7"], "bi_loss_fwd": res["k8"],
+                "bi_layer_bwd": res["k9k10"]}
     rec = []
     for name, src, replaces in _KERNELS:
         m = measured[name]
-        by_path = {f"train_{p}": train[p]["launches"][name]
-                   for p in ("fused", "unfused")}
-        if name in ("spmm_fwd", "fused_window_fwd"):
-            by_path["eval"] = path["kernels"][
-                "k1_launches" if name == "spmm_fwd" else "k2_launches"]
+        by_path = {}
+        for prefix, train in (("", res["train"]),
+                              ("flagship_", res["flagship_train"])):
+            for p in ("fused", "unfused"):
+                n = train[p]["launches"].get(name)
+                if n is not None:
+                    by_path[f"{prefix}train_{p}"] = n
+        for prefix, path in (("", res["path"]),
+                             ("flagship_", res["flagship_path"])):
+            key = {"spmm_fwd": "k1_launches",
+                   "fused_window_fwd": "k2_launches"}.get(name)
+            if key:
+                by_path[f"{prefix}eval"] = path["kernels"][key]
         r = {"name": name, "route": "cuda", "source": src,
              "replaces": replaces,
-             "launches": by_path[home.get(name, "train_fused")],
+             "launches": by_path[_HOME.get(name, "train_fused")],
              "launches_by_path": by_path,
              "max_abs_err": m["max_abs_err"], "ms": m["ms"],
              "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
              "bound_by": m["bound_by"], "library_ms": m["library_ms"],
              "shape": m["shape"]}
         if name == "fused_window_fwd":
-            r["train_mode"] = {k: k2b["fwd"][k] for k in (
+            r["train_mode"] = {k: res["k2b"]["fwd"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "max_abs_err")}
+        if name in ("fused_window_fwd", "fused_window_bwd"):
+            part = "fwd" if name == "fused_window_fwd" else "bwd"
+            r["flagship_mode"] = {
+                d: {k: res["k2_flagship"][d][f"{part}_{k}"] for k in (
+                    "ms", "plain_ms", "bound_ms")}
+                for d in ("fwd", "bwd")}
         rec.append(r)
     return {"kernels": rec}
 
@@ -1005,9 +1422,28 @@ def main() -> int:
         tra.update(phase_train(ctx))
         for name, _ in _PATHS:
             tra[f"ms_per_step_{name}"] = tra[name]["ms_per_step"]
+    res = {"k1": k1, "k2": k2, "path": pa, "k1b": k1b, "k2b": k2b, "k3": k3,
+           "k4": k4, "k5": k5, "train": tra}
+    with phase("flagship_setup", {}) as fs:
+        fctx = phase_setup_flagship(ctx)
+        fs.update({k: fctx[k] for k in ("N", "A", "E", "L1", "B", "d")})
+    for name, fn in (("k2_flagship", phase_k2_flagship), ("k6k7", phase_k6k7),
+                     ("k8", phase_k8), ("k9k10", phase_k9k10)):
+        with phase(name, {}) as out:
+            out.update(fn(fctx))
+        res[name] = out
+    with phase("flagship_path", {}) as fp:
+        fp.update(phase_path(fctx))
+        fp["mrr_kernels"] = fp["kernels"]["mrr"]
+        fp["mrr_plain"] = fp["plain"]["mrr"]
+    res["flagship_path"] = fp
+    with phase("flagship_train", {}) as ft:
+        ft.update(phase_train(fctx, flagship=True))
+        for name, _ in _PATHS:
+            ft[f"ms_per_step_{name}"] = ft[name]["ms_per_step"]
+    res["flagship_train"] = ft
     _state["phase"] = "report"
-    print(json.dumps(kernels_line(k1, k2, pa, k1b, k2b, k3, k4, k5, tra)),
-          flush=True)
+    print(json.dumps(kernels_line(res)), flush=True)
     print(f"total_s={time.perf_counter() - t_start:.3f}", flush=True)
     print(smi_line(), flush=True)
     signal.alarm(0)

@@ -39,18 +39,18 @@ SIGNATURES = {
     #          h, w, dh, dw, n_rows, n_rels, d, stream)
     "spmm_bwd_launch": [_P] * 14 + [_I, _I, _I, _P],
     # window_layer(x, conv_given, rowptr, src, rel, em, wrel, wstride, wcol,
-    #              loop, mask, wih_t, whh_t, bih, bhh, gidx, live, dt, lam,
-    #              buf, B, L1, A, d, k, stream)
+    #              loop, mask, relu, wih_t, whh_t, bih, bhh, gidx, live, dt,
+    #              lam, buf, loc, B, L1, A, d, k, stream)
     "window_layer_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I,
-                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P,
-                            _I, _I, _I, _I, _I, _P],
+                            _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P,
+                            _P, _I, _I, _I, _I, _I, _P],
     # window_bwd_gru(x, rowptr, src, rel, em, wrel, wstride, wcol, loop,
-    #                mask, wih_t, whh_t, bih, bhh, wih, whh, gidx, live, dt,
-    #                lam, prev, db, n2_out, conv_s, h0g_s, dgi_s, dgh_s,
-    #                dconv_s, dlp_s, B, L1, A, d, k, stream)
+    #                mask, relu, wih_t, whh_t, bih, bhh, wih, whh, gidx, live,
+    #                dt, lam, prev, db, g_loc, n2_out, conv_s, h0g_s, dgi_s,
+    #                dgh_s, dconv_s, dlp_s, B, L1, A, d, k, stream)
     "window_bwd_gru_launch": [_P, _P, _P, _P, _P, _P, _I, _I,
-                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
     # window_bwd_input(s_ptr, s_dst, s_rel, s_em, s_eid, n2, dconv_s, dlp_s,
     #                  wrel, wstride, wcol, loop_t, x, ewg, out, accumulate,
@@ -104,6 +104,24 @@ SIGNATURES = {
     "final_wgrad_launch": [_P] * 7 + [_I] * 4 + [_P],
     # final_wgrad_reduce(part, n_split, total, out, stream)
     "final_wgrad_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],
+    # bi_layer(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask, relu,
+    #          wih_f, whh_f, bih_f, bhh_f, wih_b, whh_b, bih_b, bhh_b, dt_f,
+    #          dt_b, lam, prev_f, prev_b, active, hl_f, hl_b, imp, sel_x, out,
+    #          B, N, d, stream)
+    "bi_layer_launch": [_P] * 6 + [_I, _I, _P, _P, _I] + [_P] * 10 + [_F]
+                       + [_P] * 8 + [_I] * 3 + [_P],
+    # bi_bwd_gru(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask,
+    #            relu, wih_f_t, whh_f_t, bih_f, bhh_f, wih_b_t, whh_b_t,
+    #            bih_b, bhh_b, wih_f, whh_f, wih_b, whh_b, dt_f, dt_b, lam,
+    #            prev_f, prev_b, active, hl_f, hl_b, imp, dout, dprev_f,
+    #            dprev_b, dhl_f, dhl_b, dimp_rows, n2_out, gin_s, h0f_s,
+    #            h0b_s, dgi_f, dgh_f, dgi_b, dgh_b, dconv_s, dlp_s, B, N, d,
+    #            stream)
+    "bi_bwd_gru_launch": [_P] * 6 + [_I, _I, _P, _P, _I] + [_P] * 14 + [_F]
+                         + [_P] * 22 + [_I] * 3 + [_P],
+    # bi_wgrad(gin_s, h0f_s, h0b_s, dgi_f, dgh_f, dgi_b, dgh_b, x, dlp_s,
+    #          dimp_rows, part, n_split, B, N, d, stream)
+    "bi_wgrad_launch": [_P] * 11 + [_I] * 4 + [_P],
 }
 
 _lib = None

@@ -4,8 +4,9 @@
 ``np.asarray`` on every leaf (nested dicts and lists of numpy arrays) and
 returns the same structure of float32 torch tensors on `device`. The
 layouts already agree: relation weights [R2, d], self-loop weights
-[d_in, d_out] applied as ``h @ W``, and GRU weights in torch's own
-[3H, in] layout with gate order r, z, n.
+[d_in, d_out] applied as ``h @ W``, GRU weights in torch's own [3H, in]
+layout with gate order r, z, n (one list under "gru", or under "gru_fwd"
+and "gru_bwd" in the Bi models), and the impute scalars as 0-d tensors.
 """
 
 from __future__ import annotations
@@ -22,4 +23,6 @@ def params_from_numpy(tree, device="cuda"):
     arr = np.asarray(tree)
     if arr.dtype.kind == "f":
         arr = arr.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    # np.array keeps a 0-d leaf (the impute scalars) 0-d, where
+    # np.ascontiguousarray would make it [1]
+    return torch.from_numpy(np.array(arr, order="C")).to(device)

@@ -197,7 +197,7 @@ __global__ void final_layer_kernel(Layer p, const float* __restrict__ sel_x,
   const int b = blockIdx.y;
   const int a0 = blockIdx.x * kTileRows;
   Gates gt;
-  layer_tile(p, b, a0, xs, cs, hs, nullptr, gt);
+  layer_tile<kUnrolled>(p, b, a0, xs, cs, hs, nullptr, gt);
   const int col = threadIdx.x % d;
   const int r0 = (threadIdx.x / d) * kRowsPerThread;
 #pragma unroll
@@ -661,8 +661,8 @@ __global__ void final_bwd_gru_kernel(
     float* __restrict__ conv_s, float* __restrict__ h0g_s,
     float* __restrict__ dgi_s, float* __restrict__ dgh_s,
     float* __restrict__ dconv_s, float* __restrict__ dlp_s) {
-  bwd_gru_tile(p, wih, whh, dout, dprev, n2_out, conv_s, h0g_s, dgi_s, dgh_s,
-               dconv_s, dlp_s);
+  bwd_gru_tile(p, wih, whh, dout, nullptr, dprev, n2_out, conv_s, h0g_s, dgi_s,
+               dgh_s, dconv_s, dlp_s);
 }
 
 __global__ void final_bwd_input_kernel(
@@ -712,7 +712,7 @@ extern "C" int final_layer_launch(
     void* out, int B, int N, int d, void* stream) {
   if (B > 0 && N > 0) {
     const Layer p = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
-                               wcol, loopw, mask, wih_t, whh_t, bih, bhh,
+                               wcol, loopw, mask, 0, wih_t, whh_t, bih, bhh,
                                nullptr, nullptr, dt, lam, prev, 1, N, d, 0);
     const dim3 grid((N + kTileRows - 1) / kTileRows, B);
     const size_t smem = 3 * kTileRows * d * sizeof(float);
@@ -852,7 +852,7 @@ extern "C" int final_bwd_gru_launch(
     int d, void* stream) {
   if (B > 0 && N > 0) {
     const Layer p = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
-                               wcol, loopw, mask, wih_t, whh_t, bih, bhh,
+                               wcol, loopw, mask, 0, wih_t, whh_t, bih, bhh,
                                nullptr, nullptr, dt, lam, prev, 1, N, d, 0);
     const size_t smem = 7 * kTileRows * d * sizeof(float);
     cudaError_t err = allow_smem(final_bwd_gru_kernel, smem);

@@ -1,0 +1,464 @@
+// The flagship's final step (BiGRRGCN with imputation) for a batch of B
+// target snapshots: the bidirectional layer forward (K6+K7) and its backward
+// (K9+K10). The loss from the table (K8) and its backward (K4) run the
+// launches of fused_final.cu on the bidirectional table.
+//
+// K6+K7 replace the TPU kernels temp_tpu/ops/fused_final_bi.py:
+// _conv_fwd_bi_kernel (the edge part of one layer: the relational SpMM with
+// the double degree norm over the encoder's 50% edge subsample plus the
+// self-loop product times its dropout mask) and _gru_fwd_bi_kernel (the row
+// part: layer 2's ReLU; on layer 2's inactive rows the impute blend
+// w_dir = exp(-max(w_dir * dt_dir + b_dir, 0)) / 2,
+// gin = w_f * hloc_f + w_b * hloc_b + (1 - w_f - w_b) * conv; then
+// GRU_f(gin, h_f * exp(-lambda dt_f)) + GRU_b(gin, h_b * exp(-lambda dt_b))).
+// The TPU split the two into programs because one program's [N, d]
+// intermediates did not fit its VMEM (fused_final_bi.py:22-42); here both
+// are one launch a layer over (row tile, element), built on the window's
+// tile code (rgcn_gru_layer.cuh): the tile's conv output never leaves shared
+// memory. Layer 2 may also apply use_embed_for_non_active's select.
+//
+// K9+K10 replace _gru_bwd_bi_kernel and _conv_bwd_bi_kernel: bi_bwd_gru
+// recomputes the layer's conv output, blend and both GRUs' gates for a tile,
+// takes the output cotangent (one for both GRUs: rec = rec_f + rec_b), and
+// gives both previous states' cotangents, both local rows' cotangents, each
+// row's four impute-scalar terms, and the conv cotangent (through the
+// ReLU's mask) with the gate cotangents and their product operands for the
+// weight launch. Then K5's launches: the input cotangent with per-edge
+// relation cotangents (final_bwd_input), the weight cotangents of both GRUs,
+// the self-loop and the four impute scalars as sums over the B*N rows in 32
+// ranges (bi_wgrad, the window's weight tiles with six jobs), their ordered
+// sum, and the relation sum. Layer 1 runs without the ReLU and the blend.
+//
+// What bounds them on an H100: f32 arithmetic. Per layer and element the
+// forward does the self-loop product (2 N d^2 flops) and four [N, d] x
+// [d, 3d] gate products (24 N d^2); the backward recomputes them and adds
+// the input and weight cotangent products of both GRUs and the self-loop
+// (52 N d^2). The history, local and mask rows are a few hundred MB a step,
+// below that at 67 TFLOP/s.
+//
+// What the design does about that: one launch covers the batch (b in the
+// grid), each thread owns one column and eight rows, and every weight
+// element is read once per block, as in the window's kernels; plain FMA,
+// wgmma/TF32 left for later work. No atomics: every sum over rows goes
+// through per-range partials and an ordered reduction, so runs repeat bit
+// for bit.
+
+#include <math.h>
+
+#include "rgcn_gru_layer.cuh"
+
+namespace {
+
+// What a bidirectional layer needs besides its two directions' Layer
+// structs (the forward GRU with prev_f/dt_f, the backward one with
+// prev_b/dt_b; both with the same conv fields).
+struct BiRows {
+  const float* active;  // [B, N] > 0 where the entity is active
+  const float* hl_f;    // [B, N, d] local rows of the forward window, or null
+                        // (no impute blend)
+  const float* hl_b;    // [B, N, d]
+  const float* imp;     // [4]: w_f, b_f, w_b, b_b
+  const float* sel_x;   // [B, N, d] rows kept where inactive, or null
+};
+
+__device__ __forceinline__ float impute_weight(float w, float bias, float dt) {
+  return expf(-fmaxf(w * dt + bias, 0.f)) * 0.5f;
+}
+
+// gin = the blend on the inactive rows of a tile whose conv output is cs
+// (in place). Ends with a barrier.
+__device__ __forceinline__ void blend_tile(const Layer& pf, const Layer& pb,
+                                           const BiRows& q, int b, int a0,
+                                           float* cs) {
+  const int d = pf.d, N = pf.A;
+  const float wf_w = q.imp[0], wf_b = q.imp[1];
+  const float wb_w = q.imp[2], wb_b = q.imp[3];
+  for (int i = threadIdx.x; i < kTileRows * d; i += blockDim.x) {
+    const int r = i / d, c = i - r * d;
+    const int a = a0 + r;
+    if (a >= N) continue;
+    const long long row = (long long)b * N + a;
+    if (q.active[row] > 0.f) continue;
+    const float wf = impute_weight(wf_w, wf_b, pf.dt[row]);
+    const float wb = impute_weight(wb_w, wb_b, pb.dt[row]);
+    cs[i] = wf * q.hl_f[row * d + c] + wb * q.hl_b[row * d + c]
+            + (1.f - wf - wb) * cs[i];
+  }
+  __syncthreads();
+}
+
+__global__ void bi_layer_kernel(Layer pf, Layer pb, BiRows q,
+                                float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int d = pf.d;
+  float* xs = smem;
+  float* cs = xs + kTileRows * d;
+  float* hf = cs + kTileRows * d;
+  float* hb = hf + kTileRows * d;
+  const int b = blockIdx.y;
+  const int a0 = blockIdx.x * kTileRows;
+  load_tile(pf, b, a0, xs, cs, hf);
+  load_prev(pb, b, a0, hb);
+  conv_tile(pf, b, a0, xs, cs, nullptr);
+  if (q.hl_f != nullptr) blend_tile(pf, pb, q, b, a0, cs);
+
+  const int col = threadIdx.x % d;
+  const int r0 = (threadIdx.x / d) * kRowsPerThread;
+  float o[kRowsPerThread];
+  Gates gt;
+  gru_gates<kRolled>(cs, hf, pf.wih_t, pf.whh_t, pf.bih, pf.bhh, d, gt);
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i)
+    o[i] = (1.f - gt.z[i]) * gt.n[i] + gt.z[i] * hf[(r0 + i) * d + col];
+  gru_gates<kRolled>(cs, hb, pb.wih_t, pb.whh_t, pb.bih, pb.bhh, d, gt);
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    const int a = a0 + r0 + i;
+    if (a >= pf.A) continue;
+    const long long row = (long long)b * pf.A + a;
+    float v = o[i] + ((1.f - gt.z[i]) * gt.n[i]
+                      + gt.z[i] * hb[(r0 + i) * d + col]);
+    if (q.sel_x != nullptr && !(q.active[row] > 0.f))
+      v = q.sel_x[row * d + col];
+    out[row * d + col] = v;
+  }
+}
+
+// One direction's GRU backward for the rows a thread owns: the gate
+// cotangents into dg ([kTileRows, 4d]: d_r, d_z, d_n, d_ghn) and the scratch
+// of the weight launch, and d_out * z (the direct part of the previous
+// state's cotangent) into dh_direct.
+__device__ __forceinline__ void gate_bwd(const Gates& gt, const float* dout,
+                                         const float* hs, const float* cs,
+                                         int b, int a0, int N, int d,
+                                         float* dg, float* __restrict__ h0g_s,
+                                         float* __restrict__ dgi_s,
+                                         float* __restrict__ dgh_s,
+                                         float* __restrict__ gin_s,
+                                         float dh_direct[kRowsPerThread]) {
+  const int col = threadIdx.x % d;
+  const int r0 = (threadIdx.x / d) * kRowsPerThread;
+  const int d3 = 3 * d, d4 = 4 * d;
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    const int r = r0 + i, a = a0 + r;
+    float pr = 0.f, pz = 0.f, pn = 0.f, phn = 0.f;
+    dh_direct[i] = 0.f;
+    if (a < N) {
+      const long long m = (long long)b * N + a;
+      const float dv = dout[m * d + col];
+      const float h = hs[r * d + col];
+      const float z = gt.z[i], n = gt.n[i], rg = gt.r[i];
+      const float dz = dv * (h - n);
+      const float dn = dv * (1.f - z);
+      dh_direct[i] = dv * z;
+      pn = dn * (1.f - n * n);
+      phn = pn * rg;
+      const float dr = pn * gt.ghn[i];
+      pr = dr * rg * (1.f - rg);
+      pz = dz * z * (1.f - z);
+      h0g_s[m * d + col] = h;
+      if (gin_s != nullptr) gin_s[m * d + col] = cs[r * d + col];
+      dgi_s[m * d3 + col] = pr;
+      dgi_s[m * d3 + d + col] = pz;
+      dgi_s[m * d3 + 2 * d + col] = pn;
+      dgh_s[m * d3 + col] = pr;
+      dgh_s[m * d3 + d + col] = pz;
+      dgh_s[m * d3 + 2 * d + col] = phn;
+    }
+    dg[r * d4 + col] = pr;
+    dg[r * d4 + d + col] = pz;
+    dg[r * d4 + 2 * d + col] = pn;
+    dg[r * d4 + 3 * d + col] = phn;
+  }
+}
+
+// Backward of one bidirectional layer's row part for a tile of rows
+// (blockIdx.x) of element blockIdx.y. Shared memory: 13 * kTileRows * d.
+__global__ void bi_bwd_gru_kernel(
+    Layer pf, Layer pb, BiRows q,
+    const float* __restrict__ wih_f,   // [3d, d] (torch layout)
+    const float* __restrict__ whh_f, const float* __restrict__ wih_b,
+    const float* __restrict__ whh_b,
+    const float* __restrict__ dout,    // [B, N, d]
+    float* __restrict__ dprev_f, float* __restrict__ dprev_b,
+    float* __restrict__ dhl_f,         // [B, N, d], or null without impute
+    float* __restrict__ dhl_b,
+    float* __restrict__ dimp_rows,     // [B*N, 4], or null without impute
+    float* __restrict__ n2_out,        // [B*N]
+    float* __restrict__ gin_s,         // [B*N, d]
+    float* __restrict__ h0f_s, float* __restrict__ h0b_s,
+    float* __restrict__ dgi_f, float* __restrict__ dgh_f,  // [B*N, 3d]
+    float* __restrict__ dgi_b, float* __restrict__ dgh_b,
+    float* __restrict__ dconv_s,       // [B*N, d]
+    float* __restrict__ dlp_s) {
+  extern __shared__ float smem[];
+  const int d = pf.d, N = pf.A, d4 = 4 * d;
+  float* xs = smem;
+  float* cv = xs + kTileRows * d;      // conv output (after the ReLU)
+  float* cs = cv + kTileRows * d;      // GRU input (after the blend)
+  float* hf = cs + kTileRows * d;
+  float* hb = hf + kTileRows * d;
+  float* dgf = hb + kTileRows * d;     // [kTileRows, 4d]
+  float* dgb = dgf + kTileRows * d4;
+  const int b = blockIdx.y;
+  const int a0 = blockIdx.x * kTileRows;
+  const bool impute = q.hl_f != nullptr;
+  load_tile(pf, b, a0, xs, cs, hf);
+  load_prev(pb, b, a0, hb);
+  conv_tile(pf, b, a0, xs, cs, n2_out);
+  for (int i = threadIdx.x; i < kTileRows * d; i += blockDim.x) cv[i] = cs[i];
+  __syncthreads();
+  if (impute) blend_tile(pf, pb, q, b, a0, cs);
+
+  const int col = threadIdx.x % d;
+  const int r0 = (threadIdx.x / d) * kRowsPerThread;
+  float dhd_f[kRowsPerThread], dhd_b[kRowsPerThread];
+  {
+    Gates gt;
+    gru_gates<kRolled>(cs, hf, pf.wih_t, pf.whh_t, pf.bih, pf.bhh, d,
+                          gt);
+    gate_bwd(gt, dout, hf, cs, b, a0, N, d, dgf, h0f_s, dgi_f, dgh_f, gin_s,
+             dhd_f);
+    gru_gates<kRolled>(cs, hb, pb.wih_t, pb.whh_t, pb.bih, pb.bhh, d,
+                          gt);
+    gate_bwd(gt, dout, hb, cs, b, a0, N, d, dgb, h0b_s, dgi_b, dgh_b,
+             nullptr, dhd_b);
+  }
+  __syncthreads();
+
+  // d_gin = d_gi_f @ W_ih_f + d_gi_b @ W_ih_b, d_h0g_dir = d_gh_dir @ W_hh_dir
+  float dx[kRowsPerThread], dhf[kRowsPerThread], dhb[kRowsPerThread];
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) dx[i] = dhf[i] = dhb[i] = 0.f;
+  for (int j = 0; j < d; ++j) {
+    const long long jr = (long long)j * d + col;
+    const long long jz = (long long)(d + j) * d + col;
+    const long long jn = (long long)(2 * d + j) * d + col;
+    const float fr = wih_f[jr], fz = wih_f[jz], fn = wih_f[jn];
+    const float br = wih_b[jr], bz = wih_b[jz], bn = wih_b[jn];
+    const float ufr = whh_f[jr], ufz = whh_f[jz], ufn = whh_f[jn];
+    const float ubr = whh_b[jr], ubz = whh_b[jz], ubn = whh_b[jn];
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const float* gf = dgf + (r0 + i) * d4;
+      const float* gb = dgb + (r0 + i) * d4;
+      dx[i] += (gf[j] * fr + gf[d + j] * fz + gf[2 * d + j] * fn)
+               + (gb[j] * br + gb[d + j] * bz + gb[2 * d + j] * bn);
+      dhf[i] += gf[j] * ufr + gf[d + j] * ufz + gf[3 * d + j] * ufn;
+      dhb[i] += gb[j] * ubr + gb[d + j] * ubz + gb[3 * d + j] * ubn;
+    }
+  }
+  __syncthreads();  // xs and hf become the impute sums' scratch below
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    const int r = r0 + i, a = a0 + r;
+    float pfv = 0.f, pbv = 0.f;
+    if (a < N) {
+      const long long row = (long long)b * N + a;
+      const long long e = row * d + col;
+      dprev_f[e] = (dhd_f[i] + dhf[i]) * expf(-pf.lam * pf.dt[row]);
+      dprev_b[e] = (dhd_b[i] + dhb[i]) * expf(-pb.lam * pb.dt[row]);
+      float dc = dx[i];
+      if (impute) {
+        float hlf = 0.f, hlb = 0.f;
+        if (!(q.active[row] > 0.f)) {
+          const float wf = impute_weight(q.imp[0], q.imp[1], pf.dt[row]);
+          const float wb = impute_weight(q.imp[2], q.imp[3], pb.dt[row]);
+          const float c = cv[r * d + col];
+          hlf = wf * dx[i];
+          hlb = wb * dx[i];
+          pfv = dx[i] * (q.hl_f[e] - c);
+          pbv = dx[i] * (q.hl_b[e] - c);
+          dc = (1.f - wf - wb) * dx[i];
+        }
+        dhl_f[e] = hlf;
+        dhl_b[e] = hlb;
+      }
+      if (pf.relu && !(cv[r * d + col] > 0.f)) dc = 0.f;
+      dconv_s[e] = dc;
+      dlp_s[e] = pf.mask != nullptr ? dc * pf.mask[e] : dc;
+    }
+    xs[r * d + col] = pfv;
+    hf[r * d + col] = pbv;
+  }
+  if (!impute) return;
+  __syncthreads();
+
+  // each row's impute terms: d w_dir / d a_dir = -w_dir where a_dir > 0
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int nwarps = blockDim.x / kWarp;
+  for (int r = warp; r < kTileRows; r += nwarps) {
+    float sf = 0.f, sb = 0.f;
+    for (int c = lane; c < d; c += kWarp) {
+      sf += xs[r * d + c];
+      sb += hf[r * d + c];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sf += __shfl_xor_sync(0xffffffffu, sf, off);
+      sb += __shfl_xor_sync(0xffffffffu, sb, off);
+    }
+    const int a = a0 + r;
+    if (lane == 0 && a < N) {
+      const long long row = (long long)b * N + a;
+      const float dtf = pf.dt[row], dtb = pb.dt[row];
+      const float af = q.imp[0] * dtf + q.imp[1];
+      const float ab = q.imp[2] * dtb + q.imp[3];
+      const float daf = af > 0.f ? -impute_weight(q.imp[0], q.imp[1], dtf) * sf
+                                 : 0.f;
+      const float dab = ab > 0.f ? -impute_weight(q.imp[2], q.imp[3], dtb) * sb
+                                 : 0.f;
+      float* o = dimp_rows + row * 4;
+      o[0] = daf * dtf;
+      o[1] = daf;
+      o[2] = dab * dtb;
+      o[3] = dab;
+    }
+  }
+}
+
+__global__ void bi_wgrad_kernel(WJobs jobs, int B, int N, int rows_per_split,
+                                long long part_stride) {
+  wgrad_tile(jobs, B, N, rows_per_split, part_stride);
+}
+
+BiRows make_rows(const void* active, const void* hl_f, const void* hl_b,
+                 const void* imp, const void* sel_x) {
+  BiRows q;
+  q.active = static_cast<const float*>(active);
+  q.hl_f = static_cast<const float*>(hl_f);
+  q.hl_b = static_cast<const float*>(hl_b);
+  q.imp = static_cast<const float*>(imp);
+  q.sel_x = static_cast<const float*>(sel_x);
+  return q;
+}
+
+}  // namespace
+
+extern "C" int bi_layer_launch(
+    const void* x, const void* rowptr, const void* src, const void* rel,
+    const void* em, const void* wrel, int wstride, int wcol,
+    const void* loopw, const void* mask, int relu, const void* wih_f,
+    const void* whh_f, const void* bih_f, const void* bhh_f,
+    const void* wih_b, const void* whh_b, const void* bih_b,
+    const void* bhh_b, const void* dt_f, const void* dt_b, float lam,
+    const void* prev_f, const void* prev_b, const void* active,
+    const void* hl_f, const void* hl_b, const void* imp, const void* sel_x,
+    void* out, int B, int N, int d, void* stream) {
+  if (B > 0 && N > 0) {
+    const Layer pf = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
+                                wcol, loopw, mask, relu, wih_f, whh_f, bih_f,
+                                bhh_f, nullptr, nullptr, dt_f, lam, prev_f, 1,
+                                N, d, 0);
+    const Layer pb = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
+                                wcol, loopw, mask, relu, wih_b, whh_b, bih_b,
+                                bhh_b, nullptr, nullptr, dt_b, lam, prev_b, 1,
+                                N, d, 0);
+    const size_t smem = 4 * kTileRows * d * sizeof(float);
+    const dim3 grid((N + kTileRows - 1) / kTileRows, B);
+    bi_layer_kernel<<<grid, kRowGroups * d, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+        pf, pb, make_rows(active, hl_f, hl_b, imp, sel_x),
+        static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bi_bwd_gru_launch(
+    const void* x, const void* rowptr, const void* src, const void* rel,
+    const void* em, const void* wrel, int wstride, int wcol,
+    const void* loopw, const void* mask, int relu, const void* wih_f_t,
+    const void* whh_f_t, const void* bih_f, const void* bhh_f,
+    const void* wih_b_t, const void* whh_b_t, const void* bih_b,
+    const void* bhh_b, const void* wih_f, const void* whh_f,
+    const void* wih_b, const void* whh_b, const void* dt_f,
+    const void* dt_b, float lam, const void* prev_f, const void* prev_b,
+    const void* active, const void* hl_f, const void* hl_b, const void* imp,
+    const void* dout, void* dprev_f, void* dprev_b, void* dhl_f, void* dhl_b,
+    void* dimp_rows, void* n2_out, void* gin_s, void* h0f_s, void* h0b_s,
+    void* dgi_f, void* dgh_f, void* dgi_b, void* dgh_b, void* dconv_s,
+    void* dlp_s, int B, int N, int d, void* stream) {
+  if (B > 0 && N > 0) {
+    const Layer pf = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
+                                wcol, loopw, mask, relu, wih_f_t, whh_f_t,
+                                bih_f, bhh_f, nullptr, nullptr, dt_f, lam,
+                                prev_f, 1, N, d, 0);
+    const Layer pb = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
+                                wcol, loopw, mask, relu, wih_b_t, whh_b_t,
+                                bih_b, bhh_b, nullptr, nullptr, dt_b, lam,
+                                prev_b, 1, N, d, 0);
+    const size_t smem = 13 * kTileRows * d * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        bi_bwd_gru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((N + kTileRows - 1) / kTileRows, B);
+    bi_bwd_gru_kernel<<<grid, kRowGroups * d, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+        pf, pb, make_rows(active, hl_f, hl_b, imp, nullptr),
+        static_cast<const float*>(wih_f), static_cast<const float*>(whh_f),
+        static_cast<const float*>(wih_b), static_cast<const float*>(whh_b),
+        static_cast<const float*>(dout), static_cast<float*>(dprev_f),
+        static_cast<float*>(dprev_b), static_cast<float*>(dhl_f),
+        static_cast<float*>(dhl_b), static_cast<float*>(dimp_rows),
+        static_cast<float*>(n2_out), static_cast<float*>(gin_s),
+        static_cast<float*>(h0f_s), static_cast<float*>(h0b_s),
+        static_cast<float*>(dgi_f), static_cast<float*>(dgh_f),
+        static_cast<float*>(dgi_b), static_cast<float*>(dgh_b),
+        static_cast<float*>(dconv_s), static_cast<float*>(dlp_s));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weight jobs of one bidirectional layer over its B*N rows: (gin, d_gi_f)
+// -> dwih_f + dbih_f, (h0g_f, d_gh_f) -> dwhh_f + dbhh_f, the same for the
+// backward GRU, (x, d_lp) -> dloop, and with impute (dimp_rows not null) the
+// column sums of the rows' four impute terms -> dimp. `part` holds n_split
+// copies of the flat outputs, each laid out dwih_f [d, 3d], dbih_f [3d],
+// dwhh_f [d, 3d], dbhh_f [3d], the same four for the backward GRU, dloop
+// [d, d], dimp [4]; it must start at zero.
+extern "C" int bi_wgrad_launch(const void* gin_s, const void* h0f_s,
+                               const void* h0b_s, const void* dgi_f,
+                               const void* dgh_f, const void* dgi_b,
+                               const void* dgh_b, const void* x,
+                               const void* dlp_s, const void* dimp_rows,
+                               void* part, int n_split, int B, int N, int d,
+                               void* stream) {
+  if (B > 0 && N > 0 && n_split > 0) {
+    const long long sd = (long long)N * d, sg = 3LL * N * d;
+    const long long dd = (long long)d * d;
+    float* wih_f = static_cast<float*>(part);
+    float* bih_f = wih_f + 3 * dd;
+    float* whh_f = bih_f + 3 * d;
+    float* bhh_f = whh_f + 3 * dd;
+    float* wih_b = bhh_f + 3 * d;
+    float* bih_b = wih_b + 3 * dd;
+    float* whh_b = bih_b + 3 * d;
+    float* bhh_b = whh_b + 3 * dd;
+    float* loop = bhh_b + 3 * d;
+    float* imp = loop + dd;
+    const long long total = (imp + 4) - wih_f;
+    int first = 0;
+    WJobs jobs = {};
+    jobs.job[0] = make_job(gin_s, sd, dgi_f, sg, wih_f, bih_f, d, 3 * d,
+                           &first);
+    jobs.job[1] = make_job(h0f_s, sd, dgh_f, sg, whh_f, bhh_f, d, 3 * d,
+                           &first);
+    jobs.job[2] = make_job(gin_s, sd, dgi_b, sg, wih_b, bih_b, d, 3 * d,
+                           &first);
+    jobs.job[3] = make_job(h0b_s, sd, dgh_b, sg, whh_b, bhh_b, d, 3 * d,
+                           &first);
+    jobs.job[4] = make_job(x, sd, dlp_s, sd, loop, nullptr, d, d, &first);
+    if (dimp_rows != nullptr)
+      jobs.job[5] = make_job(nullptr, 0, dimp_rows, 4LL * N, imp, imp, 0, 4,
+                             &first);
+    else
+      jobs.job[5].first = kNoJob;
+    bi_wgrad_kernel<<<dim3(first, n_split), kWgThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        jobs, B, N, wgrad_rows_per_split(B * N, n_split), total);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -2,7 +2,7 @@
 // layer per launch, and backward (K2b), a few launches per layer and step.
 //
 // K2f replaces the TPU kernel temp_tpu/ops/fused_window.py:_fwd_kernel
-// (reached through fused_window_scan, n_buf=2). For every window step
+// (reached through fused_window_scan, n_buf 2 or 3). For every window step
 // k = 0..L1-1 and batch element b, that kernel
 //   1. gathers each active row's state from its last active step
 //      (gidx/live) and scales it by exp(-lambda * dt);
@@ -11,14 +11,20 @@
 //      times the training dropout mask when one is given (no bias, no
 //      activation);
 //   3. runs a GRU (torch gate order r, z, n) from the decayed state;
-//   4. does the same for layer 2 over layer 1's output of step k;
-//   5. writes both outputs into the [L1, A, d] buffers.
+//   4. does the same for layer 2 over layer 1's output of step k, with a
+//      ReLU on its conv output for the Bi models (act2);
+//   5. writes both outputs into the [L1, A, d] buffers and, with n_buf=3,
+//      layer 2's conv output after the ReLU (its "local" output, which the
+//      flagship's impute blend reads) into a third.
+// The backward-direction window of the Bi models is the same kernel given
+// the gru_bwd weights and the backward history tables.
 //
 // K2b replaces temp_tpu/ops/fused_window.py:_bwd_kernel. Like it, it keeps
 // only the two forward buffers and recomputes every step from them and the
 // streamed masks, in reverse step order, giving the cotangents of the
 // inputs, the relation weights [R, 2d], both self-loop weights and the GRU
-// weights and biases of both layers.
+// weights and biases of both layers. With n_buf=3 the third buffer's
+// cotangent joins layer 2's conv cotangent before the ReLU's mask.
 //
 // What bounds both on an H100: arithmetic. Per step and element the
 // forward does four [A, d] x [d, 3d] GRU gate products and one or two
@@ -59,7 +65,7 @@
 
 namespace {
 
-__global__ void window_layer_kernel(Layer p, float* buf) {
+__global__ void window_layer_kernel(Layer p, float* buf, float* loc) {
   extern __shared__ float smem[];
   const int d = p.d;
   float* xs = smem;                    // [kTileRows, d] input rows
@@ -68,7 +74,7 @@ __global__ void window_layer_kernel(Layer p, float* buf) {
   const int b = blockIdx.y;
   const int a0 = blockIdx.x * kTileRows;
   Gates gt;
-  layer_tile(p, b, a0, xs, cs, hs, nullptr, gt);
+  layer_tile<kUnrolled>(p, b, a0, xs, cs, hs, nullptr, gt);
 
   const int col = threadIdx.x % d;
   const int r0 = (threadIdx.x / d) * kRowsPerThread;
@@ -79,18 +85,20 @@ __global__ void window_layer_kernel(Layer p, float* buf) {
     if (a < p.A) {
       const float h = hs[(r0 + i) * d + col];
       buf[(step_row + a) * d + col] = (1.f - gt.z[i]) * gt.n[i] + gt.z[i] * h;
+      if (loc != nullptr) loc[(step_row + a) * d + col] = cs[(r0 + i) * d + col];
     }
   }
 }
 
 __global__ void window_bwd_gru_kernel(
     Layer p, const float* __restrict__ wih, const float* __restrict__ whh,
-    float* db, float* n2_out, float* __restrict__ conv_s,
+    float* db, const float* __restrict__ g_loc, float* n2_out,
+    float* __restrict__ conv_s,
     float* __restrict__ h0g_s, float* __restrict__ dgi_s,
     float* __restrict__ dgh_s, float* __restrict__ dconv_s,
     float* __restrict__ dlp_s) {
-  bwd_gru_tile(p, wih, whh, db, nullptr, n2_out, conv_s, h0g_s, dgi_s, dgh_s,
-               dconv_s, dlp_s);
+  bwd_gru_tile(p, wih, whh, db, g_loc, nullptr, n2_out, conv_s, h0g_s, dgi_s,
+               dgh_s, dconv_s, dlp_s);
 }
 
 __global__ void window_bwd_input_kernel(
@@ -123,19 +131,20 @@ __global__ void window_wgrad_reduce_kernel(const float* __restrict__ part,
 extern "C" int window_layer_launch(
     const void* x, int conv_given, const void* rowptr, const void* src,
     const void* rel, const void* em, const void* wrel, int wstride, int wcol,
-    const void* loopw, const void* mask, const void* wih_t,
+    const void* loopw, const void* mask, int relu, const void* wih_t,
     const void* whh_t, const void* bih, const void* bhh, const void* gidx,
-    const void* live, const void* dt, float lam, void* buf, int B, int L1,
-    int A, int d, int k, void* stream) {
+    const void* live, const void* dt, float lam, void* buf, void* loc, int B,
+    int L1, int A, int d, int k, void* stream) {
   if (B > 0 && A > 0) {
     const Layer p = make_layer(x, conv_given, rowptr, src, rel, em, wrel,
-                               wstride, wcol, loopw, mask, wih_t, whh_t, bih,
-                               bhh, gidx, live, dt, lam, buf, L1, A, d, k);
+                               wstride, wcol, loopw, mask, relu, wih_t, whh_t,
+                               bih, bhh, gidx, live, dt, lam, buf, L1, A, d,
+                               k);
     const dim3 grid((A + kTileRows - 1) / kTileRows, B);
     const size_t smem = 3 * kTileRows * d * sizeof(float);
     window_layer_kernel<<<grid, kRowGroups * d, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-        p, static_cast<float*>(buf));
+        p, static_cast<float*>(buf), static_cast<float*>(loc));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -143,16 +152,16 @@ extern "C" int window_layer_launch(
 extern "C" int window_bwd_gru_launch(
     const void* x, const void* rowptr, const void* src, const void* rel,
     const void* em, const void* wrel, int wstride, int wcol,
-    const void* loopw, const void* mask, const void* wih_t,
+    const void* loopw, const void* mask, int relu, const void* wih_t,
     const void* whh_t, const void* bih, const void* bhh, const void* wih,
     const void* whh, const void* gidx, const void* live, const void* dt,
-    float lam, const void* prev, void* db, void* n2_out, void* conv_s,
-    void* h0g_s, void* dgi_s, void* dgh_s, void* dconv_s, void* dlp_s,
-    int B, int L1, int A, int d, int k, void* stream) {
+    float lam, const void* prev, void* db, const void* g_loc, void* n2_out,
+    void* conv_s, void* h0g_s, void* dgi_s, void* dgh_s, void* dconv_s,
+    void* dlp_s, int B, int L1, int A, int d, int k, void* stream) {
   if (B > 0 && A > 0) {
     const Layer p = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
-                               wcol, loopw, mask, wih_t, whh_t, bih, bhh,
-                               gidx, live, dt, lam, prev, L1, A, d, k);
+                               wcol, loopw, mask, relu, wih_t, whh_t, bih,
+                               bhh, gidx, live, dt, lam, prev, L1, A, d, k);
     const size_t smem = 7 * kTileRows * d * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         window_bwd_gru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -162,7 +171,8 @@ extern "C" int window_bwd_gru_launch(
     window_bwd_gru_kernel<<<grid, kRowGroups * d, smem,
                             static_cast<cudaStream_t>(stream)>>>(
         p, static_cast<const float*>(wih), static_cast<const float*>(whh),
-        static_cast<float*>(db), static_cast<float*>(n2_out),
+        static_cast<float*>(db), static_cast<const float*>(g_loc),
+        static_cast<float*>(n2_out),
         static_cast<float*>(conv_s), static_cast<float*>(h0g_s),
         static_cast<float*>(dgi_s), static_cast<float*>(dgh_s),
         static_cast<float*>(dconv_s), static_cast<float*>(dlp_s));

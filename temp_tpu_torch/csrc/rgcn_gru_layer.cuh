@@ -1,8 +1,9 @@
 // One RGCN+GRU layer over a tile of rows, forward and backward: the device
-// code that the window kernels (fused_window.cu, K2f/K2b) and the final-step
-// kernels (fused_final.cu, K3/K5) share. Each .cu file includes it and
-// wraps the bodies in kernels of its own names; the relation sum at the end
-// is one kernel that both launch.
+// code that the window kernels (fused_window.cu, K2f/K2b), the final-step
+// kernels (fused_final.cu, K3/K5) and the flagship's bidirectional
+// final-step kernels (fused_final_bi.cu, K6-K10) share. Each .cu file
+// includes it and wraps the bodies in kernels of its own names; the relation
+// sum at the end is one kernel that all launch.
 //
 // A layer's rows are laid out [B, L1, A, d]: batch element b, window step k,
 // row a. The window runs L1 steps of A active rows; the final step is one
@@ -27,6 +28,16 @@ constexpr int kTileRows = 16;
 constexpr int kRowGroups = 2;                         // threads = 2 * d
 constexpr int kRowsPerThread = kTileRows / kRowGroups;
 constexpr int kMaxChunks = 8;                         // d <= 256
+// Unroll of the GRU gate-product loop: 4 in the one-GRU forward kernels,
+// none in the backward ones, which recompute the gates beside their own
+// products, nor in the bidirectional forward (two GRUs a tile). Measured on
+// an H100 (PERF.md): unrolled, the window forward takes 2.7 ms where it took
+// 3.5 (86 -> 126 registers); the window backward 17 ms where it took 14.4
+// (80 -> 130 registers) and the bidirectional forward 4.7 where it took 3.0
+// (96 -> 130): above 128 registers a 256-thread block leaves no room for a
+// second one on an SM.
+constexpr int kUnrolled = 4;  // window_layer_kernel, final_layer_kernel
+constexpr int kRolled = 1;    // the backward tiles, bi_layer_kernel
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -44,6 +55,7 @@ struct Layer {
   int wstride, wcol;
   const float* loopw;   // [d, d]
   const float* mask;    // [B, L1, A, d] self-loop dropout mask / keep, or null
+  int relu;             // ReLU on the conv output (layer 2 of the Bi models)
   const float* wih_t;   // [d, 3d]
   const float* whh_t;   // [d, 3d]
   const float* bih;     // [3d]
@@ -75,20 +87,15 @@ struct Gates {
   float ghn[kRowsPerThread];  // W_hn h + b_hn, before the reset gate
 };
 
-// The forward of one layer for rows a0..a0+15 of element b, up to the GRU
-// gates: xs = the input rows, hs = the decayed previous states, cs = the
-// conv output. Writes norm^2 of each row to n2_out when it is not null.
-__device__ __forceinline__ void layer_tile(const Layer& p, int b, int a0,
-                                           float* xs, float* cs, float* hs,
-                                           float* n2_out, Gates& gt) {
+// Rows a0..a0+15 of element b into shared memory: xs = the input rows, hs =
+// the previous states times live * exp(-lambda * dt) (cs = xs when the conv
+// output is given). No barrier at the end.
+__device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
+                                          float* xs, float* cs, float* hs) {
   const int d = p.d, A = p.A;
   const long long elem_row = (long long)b * p.L1 * A;
   const long long step_row = elem_row + (long long)p.k * A;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-
-  // 1. tile of the input rows and of the decayed previous state
-  for (int i = tid; i < kTileRows * d; i += nthreads) {
+  for (int i = threadIdx.x; i < kTileRows * d; i += blockDim.x) {
     const int r = i / d, c = i - r * d;
     const int a = a0 + r;
     float xv = 0.f, hv = 0.f;
@@ -99,72 +106,112 @@ __device__ __forceinline__ void layer_tile(const Layer& p, int b, int a0,
       hv = p.prev[prev_row(p, elem_row, row) * d + c] * live_of(p, row) * dec;
     }
     xs[i] = xv;
-    hs[i] = hv;
+    if (hs != nullptr) hs[i] = hv;
     if (p.conv_given) cs[i] = xv;
   }
+}
 
-  if (!p.conv_given) {
-    // 2. relational SpMM with double degree normalization: one warp a row
-    const int warp = tid / kWarp, lane = tid % kWarp;
-    const int nwarps = (nthreads + kWarp - 1) / kWarp;
-    for (int r = warp; r < kTileRows; r += nwarps) {
-      const int a = a0 + r;
-      float acc[kMaxChunks];
+// The decayed previous states of a tile only (the second direction of a
+// bidirectional layer, whose input rows are already loaded).
+__device__ __forceinline__ void load_prev(const Layer& p, int b, int a0,
+                                          float* hs) {
+  const int d = p.d, A = p.A;
+  const long long elem_row = (long long)b * p.L1 * A;
+  const long long step_row = elem_row + (long long)p.k * A;
+  for (int i = threadIdx.x; i < kTileRows * d; i += blockDim.x) {
+    const int r = i / d, c = i - r * d;
+    const int a = a0 + r;
+    float hv = 0.f;
+    if (a < A) {
+      const long long row = step_row + a;
+      const float dec = expf(-p.lam * p.dt[row]);
+      hv = p.prev[prev_row(p, elem_row, row) * d + c] * live_of(p, row) * dec;
+    }
+    hs[i] = hv;
+  }
+}
+
+// The conv output of a loaded tile into cs: the relational SpMM with double
+// degree normalization (one warp a row) plus the self-loop product times its
+// dropout mask, then the ReLU when p.relu. Writes norm^2 of each row to
+// n2_out when it is not null. Starts and ends with a barrier.
+__device__ __forceinline__ void conv_tile(const Layer& p, int b, int a0,
+                                          const float* xs, float* cs,
+                                          float* n2_out) {
+  const int d = p.d, A = p.A;
+  const long long step_row = ((long long)b * p.L1 + p.k) * A;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  __syncthreads();
+  if (p.conv_given) return;
+  const int warp = tid / kWarp, lane = tid % kWarp;
+  const int nwarps = (nthreads + kWarp - 1) / kWarp;
+  for (int r = warp; r < kTileRows; r += nwarps) {
+    const int a = a0 + r;
+    float acc[kMaxChunks];
 #pragma unroll
-      for (int j = 0; j < kMaxChunks; ++j) acc[j] = 0.f;
-      float deg = 0.f;
-      if (a < A) {
-        const long long row = step_row + a;
-        const int e1 = p.rowptr[row + 1];
-        for (int e = p.rowptr[row]; e < e1; ++e) {
-          const float m = p.em[e];
-          deg += m;
-          const float* hsrc = p.x + (step_row + p.src[e]) * d;
-          const float* wr = p.wrel + (long long)p.rel[e] * p.wstride + p.wcol;
+    for (int j = 0; j < kMaxChunks; ++j) acc[j] = 0.f;
+    float deg = 0.f;
+    if (a < A) {
+      const long long row = step_row + a;
+      const int e1 = p.rowptr[row + 1];
+      for (int e = p.rowptr[row]; e < e1; ++e) {
+        const float m = p.em[e];
+        deg += m;
+        const float* hsrc = p.x + (step_row + p.src[e]) * d;
+        const float* wr = p.wrel + (long long)p.rel[e] * p.wstride + p.wcol;
 #pragma unroll
-          for (int j = 0; j < kMaxChunks; ++j) {
-            const int c = lane + j * kWarp;
-            if (c < d) acc[j] += hsrc[c] * wr[c] * m;
-          }
+        for (int j = 0; j < kMaxChunks; ++j) {
+          const int c = lane + j * kWarp;
+          if (c < d) acc[j] += hsrc[c] * wr[c] * m;
         }
       }
-      const float norm = deg > 0.f ? 1.f / deg : 0.f;
-      const float n2 = norm * norm;
-#pragma unroll
-      for (int j = 0; j < kMaxChunks; ++j) {
-        const int c = lane + j * kWarp;
-        if (c < d) cs[r * d + c] = acc[j] * n2;
-      }
-      if (n2_out != nullptr && lane == 0 && a < A) n2_out[step_row + a] = n2;
     }
+    const float norm = deg > 0.f ? 1.f / deg : 0.f;
+    const float n2 = norm * norm;
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j) {
+      const int c = lane + j * kWarp;
+      if (c < d) cs[r * d + c] = acc[j] * n2;
+    }
+    if (n2_out != nullptr && lane == 0 && a < A) n2_out[step_row + a] = n2;
   }
   __syncthreads();
 
   const int col = tid % d;
   const int r0 = (tid / d) * kRowsPerThread;
-
-  if (!p.conv_given) {
-    // 3. self-loop product: conv += (x_tile @ loop) * mask
-    float acc[kRowsPerThread];
+  float acc[kRowsPerThread];
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float w = p.loopw[kk * d + col];
+  for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.f;
+  for (int kk = 0; kk < d; ++kk) {
+    const float w = p.loopw[kk * d + col];
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        acc[i] += xs[(r0 + i) * d + kk] * w;
-    }
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int a = a0 + r0 + i;
-      if (p.mask != nullptr && a < A)
-        acc[i] *= p.mask[(step_row + a) * d + col];
-      cs[(r0 + i) * d + col] += acc[i];
-    }
-    __syncthreads();
+    for (int i = 0; i < kRowsPerThread; ++i)
+      acc[i] += xs[(r0 + i) * d + kk] * w;
   }
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    const int a = a0 + r0 + i;
+    if (p.mask != nullptr && a < A)
+      acc[i] *= p.mask[(step_row + a) * d + col];
+    const float v = cs[(r0 + i) * d + col] + acc[i];
+    cs[(r0 + i) * d + col] = p.relu ? fmaxf(v, 0.f) : v;
+  }
+  __syncthreads();
+}
 
-  // 4. GRU gate products for column `col` of rows r0..r0+7
+// The GRU gates at column `col` of the rows r0..r0+7 a thread owns, from the
+// input rows cs and the decayed states hs (both in shared memory); the loop
+// over the input columns unrolled kUnroll times.
+template <int kUnroll>
+__device__ __forceinline__ void gru_gates(const float* cs, const float* hs,
+                                          const float* __restrict__ wih_t,
+                                          const float* __restrict__ whh_t,
+                                          const float* __restrict__ bih,
+                                          const float* __restrict__ bhh,
+                                          int d, Gates& gt) {
+  const int col = threadIdx.x % d;
+  const int r0 = (threadIdx.x / d) * kRowsPerThread;
   float gir[kRowsPerThread], giz[kRowsPerThread], gin[kRowsPerThread];
   float ghr[kRowsPerThread], ghz[kRowsPerThread], ghn[kRowsPerThread];
 #pragma unroll
@@ -173,9 +220,10 @@ __device__ __forceinline__ void layer_tile(const Layer& p, int b, int a0,
     ghr[i] = ghz[i] = ghn[i] = 0.f;
   }
   const int d3 = 3 * d;
+#pragma unroll (kUnroll)
   for (int kk = 0; kk < d; ++kk) {
-    const float* wi = p.wih_t + (long long)kk * d3;
-    const float* wh = p.whh_t + (long long)kk * d3;
+    const float* wi = wih_t + (long long)kk * d3;
+    const float* wh = whh_t + (long long)kk * d3;
     const float wir = wi[col], wiz = wi[d + col], win = wi[2 * d + col];
     const float whr = wh[col], whz = wh[d + col], whn = wh[2 * d + col];
 #pragma unroll
@@ -190,10 +238,8 @@ __device__ __forceinline__ void layer_tile(const Layer& p, int b, int a0,
       ghn[i] += hv * whn;
     }
   }
-
-  // 5. the gates
-  const float bir = p.bih[col], biz = p.bih[d + col], bin = p.bih[2 * d + col];
-  const float bhr = p.bhh[col], bhz = p.bhh[d + col], bhn = p.bhh[2 * d + col];
+  const float bir = bih[col], biz = bih[d + col], bin = bih[2 * d + col];
+  const float bhr = bhh[col], bhz = bhh[d + col], bhn = bhh[2 * d + col];
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
     gt.r[i] = sigmoid((gir[i] + bir) + (ghr[i] + bhr));
@@ -203,11 +249,25 @@ __device__ __forceinline__ void layer_tile(const Layer& p, int b, int a0,
   }
 }
 
+// The forward of one layer for rows a0..a0+15 of element b, up to the GRU
+// gates: xs = the input rows, hs = the decayed previous states, cs = the
+// conv output. Writes norm^2 of each row to n2_out when it is not null.
+template <int kUnroll>
+__device__ __forceinline__ void layer_tile(const Layer& p, int b, int a0,
+                                           float* xs, float* cs, float* hs,
+                                           float* n2_out, Gates& gt) {
+  load_tile(p, b, a0, xs, cs, hs);
+  conv_tile(p, b, a0, xs, cs, n2_out);
+  gru_gates<kUnroll>(cs, hs, p.wih_t, p.whh_t, p.bih, p.bhh, p.d, gt);
+}
+
 // Backward of one layer's GRU at step k for a tile of rows (blockIdx.x) of
 // element blockIdx.y: recomputes the conv output and the gates, takes d_out
-// from db, and gives d_conv (and d_conv * mask, the self-loop cotangent)
-// into the step scratch, the gate cotangents and their product operands
-// into the step scratch for the weight launch. The cotangent of each row's
+// from db, and gives d_conv (plus the cotangent g_loc of the conv output
+// itself when it is not null, both through the ReLU's mask when p.relu; and
+// d_conv * mask, the self-loop cotangent) into the step scratch, the gate
+// cotangents and their product operands into the step scratch for the
+// weight launch. The cotangent of each row's
 // previous state goes to dprev at the row itself when dprev is not null
 // (the final step: d_hist), else it is added into db at the row gidx names
 // (the window; dead rows add nothing). Shared memory: 7 * kTileRows * d.
@@ -216,6 +276,7 @@ __device__ __forceinline__ void bwd_gru_tile(
     const float* __restrict__ wih,     // [3d, d] (torch layout)
     const float* __restrict__ whh,     // [3d, d]
     float* db,                         // [B, L1, A, d]
+    const float* __restrict__ g_loc,   // [B, L1, A, d] or null
     float* __restrict__ dprev,         // [B, L1, A, d] or null
     float* n2_out,                     // [B, L1, A] or null
     float* __restrict__ conv_s,        // [B*A, d]   step scratch
@@ -233,7 +294,7 @@ __device__ __forceinline__ void bwd_gru_tile(
   const int b = blockIdx.y;
   const int a0 = blockIdx.x * kTileRows;
   Gates gt;
-  layer_tile(p, b, a0, xs, cs, hs, n2_out, gt);
+  layer_tile<kRolled>(p, b, a0, xs, cs, hs, n2_out, gt);
 
   const int col = threadIdx.x % d;
   const int r0 = (threadIdx.x / d) * kRowsPerThread;
@@ -299,9 +360,11 @@ __device__ __forceinline__ void bwd_gru_tile(
     if (a >= A) continue;
     const long long row = step_row + a;
     const long long m = (long long)b * A + a;
-    dconv_s[m * d + col] = dx[i];
-    dlp_s[m * d + col] = p.mask != nullptr ? dx[i] * p.mask[row * d + col]
-                                           : dx[i];
+    float dc = dx[i];
+    if (g_loc != nullptr) dc += g_loc[row * d + col];
+    if (p.relu && !(cs[(r0 + i) * d + col] > 0.f)) dc = 0.f;
+    dconv_s[m * d + col] = dc;
+    dlp_s[m * d + col] = p.mask != nullptr ? dc * p.mask[row * d + col] : dc;
     const float lv = live_of(p, row);
     const float dec = expf(-p.lam * p.dt[row]);
     if (dprev != nullptr) {
@@ -524,7 +587,8 @@ inline int wgrad_rows_per_split(int M, int n_split) {
 Layer make_layer(const void* x, int conv_given, const void* rowptr,
                  const void* src, const void* rel, const void* em,
                  const void* wrel, int wstride, int wcol, const void* loopw,
-                 const void* mask, const void* wih_t, const void* whh_t,
+                 const void* mask, int relu, const void* wih_t,
+                 const void* whh_t,
                  const void* bih, const void* bhh, const void* gidx,
                  const void* live, const void* dt, float lam,
                  const void* prev, int L1, int A, int d, int k) {
@@ -540,6 +604,7 @@ Layer make_layer(const void* x, int conv_given, const void* rowptr,
   p.wcol = wcol;
   p.loopw = static_cast<const float*>(loopw);
   p.mask = static_cast<const float*>(mask);
+  p.relu = relu;
   p.wih_t = static_cast<const float*>(wih_t);
   p.whh_t = static_cast<const float*>(whh_t);
   p.bih = static_cast<const float*>(bih);

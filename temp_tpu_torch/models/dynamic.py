@@ -122,6 +122,11 @@ class DynamicRGCNModel:
         self.score_all, self.score_single = get_score_fn(cfg.score_function)
         self.tbl_fwd: HistoryTables = to_device(
             build_history_tables(data, self.train_len), self.device)
+        # the Bi models' backward-direction windows run over their own
+        # tables
+        self.tbl_bwd = (to_device(build_history_tables(
+            data, self.train_len, backward=True), self.device)
+            if cfg.module.startswith("Bi") else None)
         # the train edge slots' true answers, the fused loss's mask
         self.answers: AnswerLists = to_device(build_answer_lists(data),
                                               self.device)
@@ -171,12 +176,13 @@ class DynamicRGCNModel:
         deterministic graphs each snapshot's conv1 is the same in every
         window that holds it: computed once per eval sweep, as one SpMM over
         the T snapshots laid side by side. None when the table would take
-        more than 256 MB.
+        more than 256 MB, and for the subclasses (the Post models), whose
+        eval threads its own windows, as in the JAX package.
         """
         cfg = self.cfg
         T, A = data.act_idx.shape
         d = cfg.embed_size
-        if T * A * d * 4 > 256 * 2**20:
+        if type(self) is not DynamicRGCNModel or T * A * d * 4 > 256 * 2**20:
             return None
         src, dst = _flat_graph(data.train_src_loc, data.train_dst_loc, A)
         snap = Snapshot(src=src, dst=dst, rel=data.train.rel.reshape(-1),
@@ -190,16 +196,27 @@ class DynamicRGCNModel:
         safe, _ = _window_positions(t_pos, length, self.num_times, False)
         return conv1_all[safe[..., :length - 1]]
 
+    def _tables_for(self, direction) -> HistoryTables:
+        """The history tables of a window direction ("bwd": the Bi models'
+        backward windows; "fwd" or None: the forward ones)."""
+        return self.tbl_bwd if direction == "bwd" else self.tbl_fwd
+
     def pre_forward(self, params, win: WindowSlice, length: int, t_pos,
-                    conv1_xs=None, train: bool = False, masks=None):
+                    conv1_xs=None, train: bool = False, masks=None,
+                    direction=None, with_loc: bool = False):
         """Run the first length-1 snapshots of B windows (win and t_pos with
-        a leading batch dim). Returns (hist1, hist2, last_pos): [B, N, d] x2
-        and [B, N], the history each entity carries into the final step.
+        a leading batch dim). Returns (hist1, hist2[, hist_loc], last_pos):
+        [B, N, d] each and [B, N], the history each entity carries into the
+        final step; hist_loc (``with_loc``) is layer 2's local output at the
+        entity's last active step.
 
         `conv1_xs` [B, L1, A, d]: precomputed layer-1 convs of the window
         steps (eval); layer 1's SpMM is then skipped. `masks` (train): the
         self-loop keep masks of layer 1 and layer 2, each bool
-        [B, L1, A, d], or None without dropout.
+        [B, L1, A, d], or None without dropout. `direction` "bwd" runs a
+        backward window (``gather_window(backward=True)``) on the gru_bwd
+        weights and the backward history tables; "fwd" the forward one on
+        gru_fwd (the Bi models); None the unidirectional model's.
         """
         cfg = self.cfg
         d = cfg.embed_size
@@ -207,10 +224,12 @@ class DynamicRGCNModel:
         B = t_pos.shape[0]
         N = self.num_ents
         A = win.act_idx.shape[-1]
+        n_buf = 3 if with_loc else 2
         if L1 == 0:
-            zero = torch.zeros(B, N, d, device=self.device)
-            return zero, zero.clone(), torch.zeros(B, N, device=self.device)
-        tbl = self.tbl_fwd
+            zeros = tuple(torch.zeros(B, N, d, device=self.device)
+                          for _ in range(n_buf))
+            return zeros + (torch.zeros(B, N, device=self.device),)
+        tbl = self._tables_for(direction)
         tp = t_pos.long()
         prev_step = tbl.prev_step[tp].long()          # [B, L1, A]
         prev_row = tbl.prev_row[tp].long()
@@ -231,10 +250,11 @@ class DynamicRGCNModel:
                 params["encoder"], cfg, h0_xs, win.src_loc[:, :L1],
                 win.dst_loc[:, :L1], win.rel[:, :L1], win.emask[:, :L1],
                 prev_step, prev_row, dt, prev_step >= 0, conv1_in=conv1_in,
-                kernels=cfg.kernels, masks=scaled)
+                kernels=cfg.kernels, masks=scaled, direction=direction,
+                activation2=self.lc2.activation, n_buf=n_buf)
         else:
-            bufs = (torch.zeros(B, L1, A, d, device=self.device),
-                    torch.zeros(B, L1, A, d, device=self.device))
+            bufs = tuple(torch.zeros(B, L1, A, d, device=self.device)
+                         for _ in range(n_buf))
             for k in range(L1):
                 pstep = prev_step[:, k]
                 gidx = pstep.clamp(min=0) * A + prev_row[:, k]
@@ -248,22 +268,23 @@ class DynamicRGCNModel:
                                 emask=win.emask[:, k].reshape(-1), t_idx=0)
                 step_masks = (None, None) if masks is None else tuple(
                     m[:, k].reshape(B * A, d) for m in masks)
-                out1, out2, _ = encoder_forward(
+                outs = encoder_forward(
                     params["encoder"], cfg, self.lc1, self.lc2,
                     h0_xs[:, k].reshape(B * A, d), snap,
                     h1.reshape(B * A, d), h2.reshape(B * A, d),
                     dt.reshape(-1), conv1_in=conv1_in,
-                    train=masks is not None, masks=step_masks)
-                bufs[0][:, k] = out1.reshape(B, A, d)
-                bufs[1][:, k] = out2.reshape(B, A, d)
+                    train=masks is not None, masks=step_masks,
+                    direction=direction)
+                for buf, out in zip(bufs, outs):
+                    buf[:, k] = out.reshape(B, A, d)
 
         # densify once: hist[e] = output at e's last active step, else 0
         fin_step = tbl.fin_step[tp].long()            # [B, N]
         fidx = fin_step.clamp(min=0) * A + tbl.fin_row[tp].long()
         has = (fin_step >= 0).to(torch.float32)[..., None]
-        hist1 = bufs[0].reshape(B, L1 * A, d)[bidx, fidx] * has
-        hist2 = bufs[1].reshape(B, L1 * A, d)[bidx, fidx] * has
-        return hist1, hist2, fin_step.clamp(min=0).to(torch.float32)
+        hists = tuple(buf.reshape(B, L1 * A, d)[bidx, fidx] * has
+                      for buf in bufs)
+        return hists + (fin_step.clamp(min=0).to(torch.float32),)
 
     def forward_element(self, params, data: TKGData, t_pos: int, hists=None,
                         train: bool = False, emask=None, masks=(None, None)):
@@ -280,9 +301,8 @@ class DynamicRGCNModel:
         tp = torch.tensor(int(t_pos), device=self.device)
         win = gather_window(data, tp, length)
         if hists is None:
-            h1, h2, lp = self.pre_forward(params, _unsqueeze(win), length,
-                                          tp[None])
-            hists = (h1[0], h2[0], lp[0])
+            hists = tuple(h[0] for h in self.batch_hists(
+                params, data, tp[None], length))
         hist1, hist2, last_pos = hists
         last = length - 1
         snap = Snapshot(src=win.src[last], dst=win.dst[last],
@@ -330,47 +350,62 @@ class DynamicRGCNModel:
                                          cfg.num_pos_facts)
         return out
 
+    def batch_hists(self, params, data: TKGData, tp, length: int,
+                    draws=None, conv1_all=None):
+        """The history of B targets tp [B] (a tensor on the model's device)
+        as ``pre_forward`` gives it: (hist1, hist2, last_pos). Training
+        (`draws` given) takes its window masks; eval may gather layer 1's
+        convs from `conv1_all` (``precompute_eval_conv1``)."""
+        c1 = (None if conv1_all is None
+              else self._window_conv1(conv1_all, tp, length))
+        masks = None if draws is None else (draws["win1"], draws["win2"])
+        return self.pre_forward(params, gather_window(data, tp, length),
+                                length, tp, conv1_xs=c1,
+                                train=draws is not None, masks=masks)
+
+    def fused_final_losses(self, params, data: TKGData, tp, draws, hists):
+        """The final steps and losses of the B targets tp as one call of
+        K3-K5 (``fused_final_loss``): the loss of each element, [B]."""
+        cfg = self.cfg
+        hist1, hist2, last_pos = hists
+        gr = final_graph(data, self.answers, tp, draws, last_pos,
+                         cfg.inv_temperature, self.lc2.dropout,
+                         self.train_len, cfg.use_embed_for_non_active)
+        return fused_final_loss(params, gr, hist1, hist2,
+                                kernels=cfg.kernels)
+
     def loss(self, params, data: TKGData, t_pos, t_valid,
              gen: torch.Generator = None, draws=None):
         """Summed tail+head CE over the batch: the sum over b of the
         per-element loss times t_valid[b] (reference DynamicRGCN.py:176-194).
 
         `draws` (see ``draw_train``) fixes every random choice; drawn from
-        `gen` when None. The history window of all B targets runs as one
-        batch (K2 with its backward on the card). The final steps and losses
-        of all B follow as one call of K3-K5 (``fused_final_on``), each
-        element's loss times t_valid[b]; or else one target at a time (K1),
-        elements whose t_valid is False skipped (their term is zero).
+        `gen` when None. The history windows of all B targets run as one
+        batch (``batch_hists``; K2 with its backward on the card). The final
+        steps and losses of all B follow as one call of the fused final-step
+        kernels (``fused_final_on``, ``fused_final_losses``), each element's
+        loss times t_valid[b]; or else one target at a time (K1), elements
+        whose t_valid is False skipped (their term is zero).
         """
-        cfg = self.cfg
         t_host = [int(t) for t in np.asarray(t_pos)]
         tv = [bool(v) for v in np.asarray(t_valid)]
         tp = torch.tensor(t_host, device=self.device)
         if draws is None:
             draws = self.draw_train(gen, data, tp)
-        length = self.train_len
-        win = gather_window(data, tp, length)
-        hist1, hist2, last_pos = self.pre_forward(
-            params, win, length, tp, train=True,
-            masks=(draws["win1"], draws["win2"]))
+        hists = self.batch_hists(params, data, tp, self.train_len, draws)
         if self.fused_final_on():
-            gr = final_graph(data, self.answers, tp, draws, last_pos,
-                             cfg.inv_temperature, self.lc2.dropout, length,
-                             cfg.use_embed_for_non_active)
-            losses = fused_final_loss(params, gr, hist1, hist2,
-                                      kernels=cfg.kernels)
+            losses = self.fused_final_losses(params, data, tp, draws, hists)
             tvt = torch.tensor(tv, device=self.device, dtype=losses.dtype)
             return (losses * tvt).sum()
-        return self.unfused_final_loss(params, data, t_host, tv,
-                                       (hist1, hist2, last_pos), draws)
+        return self.unfused_final_loss(params, data, t_host, tv, hists,
+                                       draws)
 
     def unfused_final_loss(self, params, data: TKGData, t_host, tv, hists,
                            draws):
         """The final steps and losses of the targets t_host one at a time
         (``forward_element`` and ``train_loss_single``; K1 on the card),
-        summed over the elements whose tv is True. `hists`: pre_forward's
-        (hist1, hist2, last_pos) of the batch; `draws` as in ``loss``."""
-        hist1, hist2, last_pos = hists
+        summed over the elements whose tv is True. `hists`: the batch's
+        ``batch_hists``; `draws` as in ``loss``."""
         tr = data.train
         total = torch.zeros((), device=self.device)
         for b, t in enumerate(t_host):
@@ -379,7 +414,7 @@ class DynamicRGCNModel:
             fin = (None, None) if draws["fin1"] is None else (
                 draws["fin1"][b], draws["fin2"][b])
             table = self.forward_element(
-                params, data, t, hists=(hist1[b], hist2[b], last_pos[b]),
+                params, data, t, hists=tuple(h[b] for h in hists),
                 train=True, emask=draws["edges"][b], masks=fin)
             total = total + train_loss_single(
                 self.cfg, data, self.score_all, params["rel_embeds"], table,
@@ -399,16 +434,12 @@ class DynamicRGCNModel:
         t_host = [int(t) for t in np.asarray(t_pos)]
         tp = torch.tensor(t_host, device=self.device)
         tv = torch.as_tensor(np.asarray(t_valid, bool), device=self.device)
-        length = self.eval_len
-        c1 = (None if conv1_all is None
-              else self._window_conv1(conv1_all, tp, length))
-        win = gather_window(data, tp, length)
-        hist1, hist2, last_pos = self.pre_forward(params, win, length, tp,
-                                                  conv1_xs=c1)
+        hists = self.batch_hists(params, data, tp, self.eval_len,
+                                 conv1_all=conv1_all)
         out = []
         for b, t in enumerate(t_host):
             table = self.forward_element(
-                params, data, t, hists=(hist1[b], hist2[b], last_pos[b]))
+                params, data, t, hists=tuple(h[b] for h in hists))
             out.append(eval_ranks_single(
                 self.cfg, data, self.score_all, self.score_single,
                 params["rel_embeds"], table, t, edges.src[t], edges.rel[t],
@@ -419,10 +450,6 @@ class DynamicRGCNModel:
         has_q = (mask.sum(1) > 0).to(torch.float32)
         mean_bce = (bces * has_q).sum() / has_q.sum().clamp(min=1.0)
         return ranks, mask, mean_bce
-
-
-def _unsqueeze(win: WindowSlice) -> WindowSlice:
-    return WindowSlice(*(t[None] for t in win))
 
 
 def _tree_to(tree, device):

@@ -1,9 +1,11 @@
-"""Two-layer temporal encoder container (the GRRGCN part).
+"""Two-layer temporal encoder container (the GRRGCN and BiGRRGCN part).
 
-Layer 1 maps embed -> hidden and layer 2 hidden -> hidden, both without bias
-and, for the unidirectional recurrent models, without activation. Both
-layers' outputs are history state. Only GRRGCN without time embeddings,
-imputation or gating is ported so far; other configurations raise.
+Layer 1 maps embed -> hidden and layer 2 hidden -> hidden, both without bias;
+layer 2 has no activation in the unidirectional recurrent models and a ReLU
+in the Bi models, whose layers own a GRU for each direction. Both layers'
+outputs are history state. Ported so far: GRRGCN without time embeddings,
+imputation or gating, and BiGRRGCN with imputation (the flagship,
+``models/post.py``); other configurations raise.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from temp_tpu_torch.models.layers import (
     LayerCfg, Snapshot, decay_factor, grrgcn_layer, init_grrgcn_layer,
     rgcn_conv,
 )
-from temp_tpu_torch.ops.gru import gru_stack
+from temp_tpu_torch.ops.gru import GRU_KEY, gru_stack
 
 
 def _base_module(module: str) -> str:
@@ -48,38 +50,66 @@ def make_layer_cfgs(cfg: TKGConfig, num_rels: int,
 
 
 def _check_ported(cfg: TKGConfig) -> None:
-    if cfg.module != "GRRGCN":
+    """GRRGCN without imputation, and BiGRRGCN with it, pass; everything
+    else raises."""
+    if cfg.module not in ("GRRGCN", "BiGRRGCN"):
         raise NotImplementedError(f"module {cfg.module} is not ported yet")
-    for flag in ("rec_only_last_layer", "type1", "impute",
-                 "learnable_lambda", "use_time_embedding", "post_ensemble",
-                 "post_aggregation", "edge_dropout", "random_dropout"):
+    if cfg.impute != cfg.module.startswith("Bi"):
+        raise NotImplementedError(
+            f"module {cfg.module} with impute={cfg.impute} is not ported yet")
+    for flag in ("rec_only_last_layer", "type1", "learnable_lambda",
+                 "use_time_embedding", "post_ensemble", "post_aggregation",
+                 "edge_dropout", "random_dropout"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag} is not ported yet")
 
 
 def init_encoder(gen: torch.Generator, cfg: TKGConfig, num_rels: int,
                  num_times: int) -> Dict[str, Any]:
+    """Both layers' parameters; with ``impute`` also the imputation
+    weights, one (weight, bias) pair a direction in the Bi models, each
+    U(-1, 1) as torch's nn.Linear(1, 1) starts."""
     _check_ported(cfg)
     lc1, lc2 = make_layer_cfgs(cfg, num_rels, num_times)
-    return {"layer1": init_grrgcn_layer(gen, cfg, lc1),
-            "layer2": init_grrgcn_layer(gen, cfg, lc2)}
+    bidir = cfg.module.startswith("Bi")
+    p: Dict[str, Any] = {
+        "layer1": init_grrgcn_layer(gen, cfg, lc1, bidirectional=bidir),
+        "layer2": init_grrgcn_layer(gen, cfg, lc2, bidirectional=bidir)}
+    if cfg.impute:
+        names = (("impute_w_fwd", "impute_b_fwd", "impute_w_bwd",
+                  "impute_b_bwd") if bidir else ("impute_w", "impute_b"))
+        for name in names:
+            p[name] = torch.rand((), generator=gen) * 2.0 - 1.0
+    return p
 
 
 def encoder_forward(p, cfg: TKGConfig, lc1: LayerCfg, lc2: LayerCfg, h0,
                     snap: Snapshot, prev1, prev2, dt,
                     conv1_in: bool = False, train: bool = False,
-                    masks=(None, None)):
+                    masks=(None, None), direction=None):
     """One snapshot through the recurrent container. Returns
-    (out1, out2, local2); local2 is layer 2's pre-GRU output.
+    (out1, out2, local2); local2 is layer 2's pre-GRU output (after its
+    activation).
 
     ``conv1_in=True``: ``h0`` already holds this snapshot's precomputed
     layer-1 conv output; layer 1 runs only its GRU. In training each
     layer's self-loop takes dropout with the keep masks `masks` (layer 1,
-    layer 2).
+    layer 2). `direction` ("fwd", "bwd" or None) picks the GRUs.
     """
     _, out1, _ = grrgcn_layer(p["layer1"], cfg, lc1, h0, snap, prev1, dt,
-                              conv_in=conv1_in, train=train, mask=masks[0])
+                              conv_in=conv1_in, train=train, mask=masks[0],
+                              direction=direction)
     conv2 = rgcn_conv(p["layer2"], cfg, lc2, out1, snap, train, masks[1])
-    out2 = gru_stack(p["layer2"]["gru"], conv2,
+    out2 = gru_stack(p["layer2"][GRU_KEY[direction]], conv2,
                      prev2 * decay_factor(p["layer2"], cfg, dt))
     return out1, out2, conv2
+
+
+def calc_impute_weight(p, dt, direction=None):
+    """exp(-max(w * dt + b, 0)) [M, 1] for dt [M], with the encoder's
+    imputation weights; each direction's halved in the Bi models."""
+    dt = dt[:, None]
+    if direction is None:
+        return torch.exp(-torch.relu(p["impute_w"] * dt + p["impute_b"]))
+    return torch.exp(-torch.relu(p[f"impute_w_{direction}"] * dt
+                                 + p[f"impute_b_{direction}"])) / 2.0

@@ -1,4 +1,5 @@
-"""RGCN layer with GRU recurrence (the GRRGCN layer).
+"""RGCN layer with GRU recurrence (the GRRGCN layer, and the BiGRRGCN layer,
+which owns a GRU for each direction).
 
 Dense unified formulation: a layer maps the entity rows it is given [M, d_in]
 -> [M, d_out] for one snapshot's padded edge list; rows without in-edges get
@@ -17,7 +18,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from temp_tpu_torch.config import TKGConfig
-from temp_tpu_torch.ops.gru import gru_stack, init_gru_params
+from temp_tpu_torch.ops.gru import GRU_KEY, gru_stack, init_gru_params
 from temp_tpu_torch.ops.segment import rel_spmm
 
 
@@ -75,9 +76,15 @@ def init_rgcn_layer(gen: torch.Generator, cfg: TKGConfig,
     return p
 
 
-def init_grrgcn_layer(gen: torch.Generator, cfg: TKGConfig, lc: LayerCfg):
+def init_grrgcn_layer(gen: torch.Generator, cfg: TKGConfig, lc: LayerCfg,
+                      bidirectional: bool = False):
+    """The conv's parameters and one GRU ("gru"), or one for each direction
+    ("gru_fwd", "gru_bwd") when `bidirectional`."""
     p = init_rgcn_layer(gen, cfg, lc)
-    p["gru"] = init_gru_params(gen, lc.in_feat, lc.out_feat, cfg.num_layers)
+    names = ("gru_fwd", "gru_bwd") if bidirectional else ("gru",)
+    for name in names:
+        p[name] = init_gru_params(gen, lc.in_feat, lc.out_feat,
+                                  cfg.num_layers)
     return p
 
 
@@ -131,14 +138,16 @@ def decay_factor(p, cfg: TKGConfig, dt):
 
 
 def grrgcn_layer(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot, prev,
-                 dt, conv_in: bool = False, train: bool = False, mask=None):
+                 dt, conv_in: bool = False, train: bool = False, mask=None,
+                 direction=None):
     """GRU-recurrent RGCN layer. Returns (conv_out, rec_out, time_emb).
 
     ``conv_in=True``: ``h`` already is this layer's conv output (the eval
     reuse of precomputed layer-1 convs); only the GRU runs. `train` and
-    `mask` are the conv's self-loop dropout (``rgcn_conv``).
+    `mask` are the conv's self-loop dropout (``rgcn_conv``). `direction`
+    ("fwd", "bwd" or None) picks the GRU (``GRU_KEY``).
     """
     conv = h if conv_in else rgcn_conv(p, cfg, lc, h, snap, train, mask)
     h0 = prev * decay_factor(p, cfg, dt)
-    rec = gru_stack(p["gru"], conv, h0)
+    rec = gru_stack(p[GRU_KEY[direction]], conv, h0)
     return conv, rec, layer_time_embedding(p, snap)

@@ -1,5 +1,8 @@
-"""Model selection: --module string + behavior flags -> model class. Only the
-GRRGCN entry is ported so far; every other module raises."""
+"""Model selection: --module string + behavior flags -> model class, after
+the JAX package's ``models/registry.py``. Ported: GRRGCN
+(``DynamicRGCNModel``) and BiGRRGCN with ``--impute``
+(``PostBiDynamicRGCNModel``, the flagship); every other combination
+raises."""
 
 from __future__ import annotations
 
@@ -7,10 +10,45 @@ from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.data.snapshots import TKGData
 
 
+def normalize_remap_flags(cfg: TKGConfig) -> TKGConfig:
+    """Resolve the post/impute flag combinations to the variant the
+    reference's remap table selects (its main.py:57-79), as the JAX
+    package's ``normalize_remap_flags`` does:
+
+    - GRRGCN/RRGCN (an `if` then an `if/elif`): post_ensemble overrides
+      post_aggregation, and impute overrides post_aggregation when
+      post_ensemble is unset;
+    - BiGRRGCN/BiRRGCN (an elif chain): post_aggregation over
+      post_ensemble; impute stays meaningful under post_aggregation;
+    - SARGCN/BiSARGCN: only post_aggregation remaps; post_ensemble and
+      impute are ignored.
+    """
+    m = cfg.module
+    if m in ("GRRGCN", "RRGCN"):
+        if cfg.post_ensemble and cfg.post_aggregation:
+            return cfg.replace(post_aggregation=False)
+        if cfg.impute and cfg.post_aggregation and not cfg.post_ensemble:
+            return cfg.replace(post_aggregation=False)
+        return cfg
+    if m in ("BiGRRGCN", "BiRRGCN"):
+        if cfg.post_aggregation and cfg.post_ensemble:
+            return cfg.replace(post_ensemble=False)
+        return cfg
+    if m in ("SARGCN", "BiSARGCN"):
+        if cfg.post_ensemble or cfg.impute:
+            return cfg.replace(post_ensemble=False, impute=False)
+        return cfg
+    return cfg
+
+
 def get_model(cfg: TKGConfig, data: TKGData, device="cuda"):
-    if cfg.module == "GRRGCN" and not (cfg.post_ensemble
-                                       or cfg.post_aggregation or cfg.impute):
+    cfg = normalize_remap_flags(cfg)
+    gated = cfg.post_ensemble or cfg.post_aggregation
+    if cfg.module == "GRRGCN" and not (gated or cfg.impute):
         from temp_tpu_torch.models.dynamic import DynamicRGCNModel
         return DynamicRGCNModel(cfg, data, device=device)
+    if cfg.module == "BiGRRGCN" and cfg.impute and not gated:
+        from temp_tpu_torch.models.post import PostBiDynamicRGCNModel
+        return PostBiDynamicRGCNModel(cfg, data, device=device)
     raise NotImplementedError(f"module {cfg.module} with these flags is not "
                               f"ported yet")

@@ -1,18 +1,23 @@
 """Whole-window GRRGCN history recurrence: kernels K2f and K2b.
 
 ``fused_window_fwd`` computes what the JAX package's
-``fused_window_scan(..., n_buf=2)`` returns, for a batch of B windows at
+``fused_window_scan(..., n_buf)`` returns, for a batch of B windows at
 once: for every step k the prev-state gather with exp(-λ·dt) decay, layer 1
 (the given conv input, or SpMM plus self-loop), a GRU, layer 2 over layer
-1's output, a GRU, and both outputs into [B, L1, A, d] buffers. In training
-the self-loop term of each layer is multiplied by a streamed dropout mask
-(m1, m2 [B, L1, A, d], already scaled by 1/keep).
+1's output (with a ReLU on its conv output when ``act2``, as the Bi models
+have), a GRU, and both outputs into [B, L1, A, d] buffers; with ``n_buf=3``
+also layer 2's conv output after the ReLU (the "local" stream that the
+flagship's impute blend reads) into a third. In training the self-loop term
+of each layer is multiplied by a streamed dropout mask (m1, m2
+[B, L1, A, d], already scaled by 1/keep). The backward-direction window of
+the Bi models is the same computation on the ``gru_bwd`` weights
+(``window_args(direction="bwd")``) and the backward history tables.
 
 ``fused_window_bwd`` gives the 12 cotangents of the JAX package's
 ``_bwd_kernel`` (inputs, relation weights, both self-loop weights, the GRU
-weights and biases of both layers) from the cotangents of the two buffers,
-recomputing every step from the saved buffers and masks in reverse order.
-``FusedWindow`` is the autograd function made of the two.
+weights and biases of both layers) from the cotangents of the two or three
+buffers, recomputing every step from the saved buffers and masks in reverse
+order. ``FusedWindow`` is the autograd function made of the two.
 
 On a CPU tensor each wrapper runs its plain version (the backward's is
 autograd through ``fused_window_fwd_plain``); on a CUDA tensor it launches
@@ -25,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from temp_tpu_torch import _build
+from temp_tpu_torch.ops.gru import GRU_KEY
 from temp_tpu_torch.ops.spmm import build_csr, spmm_fwd_plain
 
 _MAX_D = 256
@@ -50,12 +56,14 @@ def _gru_t(x, h, g):
 
 def fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
                            loop1, loop2, g1, g2, lam: float, conv1_in: bool,
-                           m1=None, m2=None):
+                           m1=None, m2=None, act2: bool = False,
+                           n_buf: int = 2):
     """Plain PyTorch version of K2f; arguments as in ``fused_window_fwd``.
     Differentiable by autograd (that is K2b's plain version)."""
     B, L1, A, d = h0x.shape
     buf1 = torch.zeros_like(h0x)
     buf2 = torch.zeros_like(h0x)
+    buf3 = torch.zeros_like(h0x) if n_buf == 3 else None
     bidx = torch.arange(B, device=h0x.device)[:, None]
     offs = (torch.arange(B, device=h0x.device) * A)[:, None]
     # live is 0 or 1, so scaling by live * decay equals (gather * live) * decay
@@ -80,8 +88,13 @@ def fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
         c1 = h0x[:, k] if conv1_in else conv(h0x[:, k], k, w1, loop1, m1)
         out1 = _gru_t(c1, h1, g1)
         buf1[:, k] = out1
-        buf2[:, k] = _gru_t(conv(out1, k, w2, loop2, m2), h2, g2)
-    return buf1, buf2
+        c2 = conv(out1, k, w2, loop2, m2)
+        if act2:
+            c2 = torch.relu(c2)
+        if buf3 is not None:
+            buf3[:, k] = c2
+        buf2[:, k] = _gru_t(c2, h2, g2)
+    return (buf1, buf2) if buf3 is None else (buf1, buf2, buf3)
 
 
 def _check_cuda(name, tensors: dict, B, L1, A, E, d):
@@ -91,7 +104,7 @@ def _check_cuda(name, tensors: dict, B, L1, A, E, d):
               "rel": (B, L1, E), "em": (B, L1, E), "gidx": (B, L1, A),
               "live": (B, L1, A), "dt": (B, L1, A), "loop1": (d, d),
               "loop2": (d, d), "m1": act, "m2": act, "buf1": act,
-              "buf2": act, "gb1": act, "gb2": act}
+              "buf2": act, "buf3": act, "gb1": act, "gb2": act, "gb3": act}
     ints = ("src", "dst", "rel", "gidx")
     for key, t in tensors.items():
         if t is None:
@@ -145,7 +158,7 @@ def _step_csr(key_ids, em, B, L1, A, *edge_arrays):
 
 def fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
                      loop2, g1, g2, lam: float, conv1_in: bool, m1=None,
-                     m2=None):
+                     m2=None, act2: bool = False, n_buf: int = 2):
     """K2f for B windows.
 
     h0x [B, L1, A, d] input rows (the layer-1 conv outputs when
@@ -155,12 +168,15 @@ def fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     [R, 2d] both layers' diagonal relation weights side by side; loop1/loop2
     [d, d]; g1/g2 GRU weights as dicts of wih_t/whh_t [d, 3d] and bih/bhh
     [3d]; m1/m2 [B, L1, A, d] the self-loop dropout masks over keep, or None
-    (eval). Returns (buf1, buf2), each [B, L1, A, d].
+    (eval); act2 a ReLU on layer 2's conv output; n_buf 2 or 3. Returns
+    (buf1, buf2[, buf3]), each [B, L1, A, d].
     """
+    if n_buf not in (2, 3):
+        raise ValueError(f"fused_window_fwd: n_buf = {n_buf}, not 2 or 3")
     if h0x.device.type == "cpu":
         return fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt,
                                       wrel, loop1, loop2, g1, g2, lam,
-                                      conv1_in, m1, m2)
+                                      conv1_in, m1, m2, act2, n_buf)
     if h0x.device.type != "cuda":
         raise ValueError(f"fused_window_fwd: no kernel for device {h0x.device}")
     B, L1, A, d = h0x.shape
@@ -173,21 +189,23 @@ def fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
 
     buf1 = torch.zeros_like(h0x)
     buf2 = torch.zeros_like(h0x)
+    buf3 = torch.zeros_like(h0x) if n_buf == 3 else None
     lib = _build.lib()
     stream = torch.cuda.current_stream(h0x.device).cuda_stream
     p = _ptr
     for k in range(L1):
-        for x, given, col, loop, m, g, buf in (
-                (h0x, conv1_in, 0, loop1, m1, g1, buf1),
-                (buf1, False, d, loop2, m2, g2, buf2)):
+        for x, given, col, loop, m, relu, g, buf, loc in (
+                (h0x, conv1_in, 0, loop1, m1, False, g1, buf1, None),
+                (buf1, False, d, loop2, m2, act2, g2, buf2, buf3)):
             err = lib.window_layer_launch(
                 p(x), int(given), p(rowptr), p(s_src), p(s_rel), p(s_em),
-                p(wrel), 2 * d, col, p(loop), p(m), p(g["wih_t"]),
-                p(g["whh_t"]), p(g["bih"]), p(g["bhh"]), p(gidx), p(live),
-                p(dt), float(lam), p(buf), B, L1, A, d, k, stream)
+                p(wrel), 2 * d, col, p(loop), p(m), int(relu),
+                p(g["wih_t"]), p(g["whh_t"]), p(g["bih"]), p(g["bhh"]),
+                p(gidx), p(live), p(dt), float(lam), p(buf), p(loc), B, L1,
+                A, d, k, stream)
             _build.check(err, "fused_window_fwd")
             fused_window_fwd.launches += 1
-    return buf1, buf2
+    return (buf1, buf2) if buf3 is None else (buf1, buf2, buf3)
 
 
 fused_window_fwd.launches = 0
@@ -195,36 +213,38 @@ fused_window_fwd.launches = 0
 
 def fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
                            loop1, loop2, g1, g2, lam: float, m1, m2, gb1,
-                           gb2):
+                           gb2, gb3=None, act2: bool = False):
     """Plain version of K2b: autograd through ``fused_window_fwd_plain``.
     Returns the 12 cotangents in the order of ``fused_window_bwd``."""
     leaves = [t.detach().requires_grad_(True) for t in (
         h0x, wrel, loop1, loop2, g1["wih_t"], g1["whh_t"], g2["wih_t"],
         g2["whh_t"], g1["bih"], g1["bhh"], g2["bih"], g2["bhh"])]
     (x, w, l1, l2, wih1, whh1, wih2, whh2, bih1, bhh1, bih2, bhh2) = leaves
+    gbs = (gb1, gb2) if gb3 is None else (gb1, gb2, gb3)
     with torch.enable_grad():
-        b1, b2 = fused_window_fwd_plain(
+        bufs = fused_window_fwd_plain(
             x, src, dst, rel, em, gidx, live, dt, w, l1, l2,
             {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1},
             {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2},
-            lam, False, m1, m2)
-        grads = torch.autograd.grad((b1, b2), leaves, (gb1, gb2),
-                                    allow_unused=True)
+            lam, False, m1, m2, act2, len(gbs))
+        grads = torch.autograd.grad(bufs, leaves, gbs, allow_unused=True)
     return tuple(torch.zeros_like(t) if g is None else g
                  for g, t in zip(grads, leaves))
 
 
 def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
-                     loop2, g1, g2, lam: float, m1, m2, buf1, buf2, gb1, gb2):
-    """K2b: the cotangents of K2f's inputs from gb1/gb2, the cotangents of
-    its outputs buf1/buf2 (saved by the forward). Arguments as in
+                     loop2, g1, g2, lam: float, m1, m2, buf1, buf2, gb1, gb2,
+                     gb3=None, act2: bool = False):
+    """K2b: the cotangents of K2f's inputs from gb1/gb2 (and gb3 with
+    n_buf=3), the cotangents of its outputs buf1/buf2 (saved by the
+    forward; the third buffer need not be). Arguments as in
     ``fused_window_fwd`` (conv1_in is not differentiable). Returns (dh0x,
     dwrel, dloop1, dloop2, dwih1, dwhh1, dwih2, dwhh2, dbih1, dbhh1, dbih2,
     dbhh2), the GRU weights' in the wih_t/whh_t layout."""
     if h0x.device.type == "cpu":
         return fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt,
                                       wrel, loop1, loop2, g1, g2, lam, m1,
-                                      m2, gb1, gb2)
+                                      m2, gb1, gb2, gb3, act2)
     if h0x.device.type != "cuda":
         raise ValueError(f"fused_window_bwd: no kernel for device {h0x.device}")
     B, L1, A, d = h0x.shape
@@ -232,7 +252,8 @@ def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     R = wrel.shape[0]
     _check_cuda("fused_window_bwd", _named(
         h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1, loop2, g1, g2,
-        m1, m2, buf1=buf1, buf2=buf2, gb1=gb1, gb2=gb2), B, L1, A, E, d)
+        m1, m2, buf1=buf1, buf2=buf2, gb1=gb1, gb2=gb2, gb3=gb3), B, L1, A,
+        E, d)
     if d > _MAX_D_BWD:
         raise ValueError(f"fused_window_bwd: d = {d} > {_MAX_D_BWD}")
     dev = h0x.device
@@ -273,31 +294,32 @@ def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _ptr
     lam = float(lam)
-    # per layer, layer 2 first: its input, mask, self-loop and its
+    # per layer, layer 2 first: its input, mask, ReLU, self-loop and its
     # transpose, GRU (and its weights in torch's [3d, d] layout), wrel
-    # column, own buffer and cotangent buffer, the norm^2 output, scratch,
-    # per-edge relation cotangents, and where the input cotangent goes
-    # (added into db1, or written to dh0x)
+    # column, own buffer, cotangent buffer and the cotangent of its conv
+    # output (the third buffer's), the norm^2 output, scratch, per-edge
+    # relation cotangents, and where the input cotangent goes (added into
+    # db1, or written to dh0x)
     layers = (
-        (buf1, m2, loop2, tr(loop2), g2, tr(g2["wih_t"]), tr(g2["whh_t"]),
-         d, buf2, db2, n2, scr[1], ewg2, db1, 1),
-        (h0x, m1, loop1, tr(loop1), g1, tr(g1["wih_t"]), tr(g1["whh_t"]),
-         0, buf1, db1, None, scr[0], ewg1, dh0x, 0))
+        (buf1, m2, act2, loop2, tr(loop2), g2, tr(g2["wih_t"]),
+         tr(g2["whh_t"]), d, buf2, db2, gb3, n2, scr[1], ewg2, db1, 1),
+        (h0x, m1, False, loop1, tr(loop1), g1, tr(g1["wih_t"]),
+         tr(g1["whh_t"]), 0, buf1, db1, None, None, scr[0], ewg1, dh0x, 0))
 
     def launched(err, what):
         _build.check(err, f"fused_window_bwd ({what})")
         fused_window_bwd.launches += 1
 
     for k in reversed(range(L1)):
-        for (x, m, loop, loop_t, g, wih, whh, col, own, dbuf, n2_out, s, ewg,
-             target, acc) in layers:
+        for (x, m, relu, loop, loop_t, g, wih, whh, col, own, dbuf, gloc,
+             n2_out, s, ewg, target, acc) in layers:
             launched(lib.window_bwd_gru_launch(
                 p(x), p(d_ptr), p(d_src), p(d_rel), p(d_em), p(wrel), 2 * d,
-                col, p(loop), p(m), p(g["wih_t"]), p(g["whh_t"]),
+                col, p(loop), p(m), int(relu), p(g["wih_t"]), p(g["whh_t"]),
                 p(g["bih"]), p(g["bhh"]), p(wih), p(whh), p(gidx), p(live),
-                p(dt), lam, p(own), p(dbuf), p(n2_out), p(s["conv"]),
-                p(s["h0g"]), p(s["dgi"]), p(s["dgh"]), p(s["dconv"]),
-                p(s["dlp"]), B, L1, A, d, k, stream), "gru")
+                p(dt), lam, p(own), p(dbuf), p(gloc), p(n2_out),
+                p(s["conv"]), p(s["h0g"]), p(s["dgi"]), p(s["dgh"]),
+                p(s["dconv"]), p(s["dlp"]), B, L1, A, d, k, stream), "gru")
             launched(lib.window_bwd_input_launch(
                 p(s_ptr), p(s_dst), p(s_rel), p(s_em), p(s_eid), p(n2),
                 p(s["dconv"]), p(s["dlp"]), p(wrel), 2 * d, col, p(loop_t),
@@ -328,50 +350,51 @@ fused_window_bwd.launches = 0
 class FusedWindow(torch.autograd.Function):
     """Differentiable K2: ``fused_window_fwd`` forward, ``fused_window_bwd``
     backward. `graph` holds the tensors that take no gradient (src, dst,
-    rel, em, gidx, live, dt, m1, m2)."""
+    rel, em, gidx, live, dt, m1, m2). Returns n_buf buffers."""
 
     @staticmethod
-    def forward(ctx, lam, conv1_in, graph, h0x, wrel, loop1, loop2, wih1,
-                whh1, bih1, bhh1, wih2, whh2, bih2, bhh2):
+    def forward(ctx, lam, conv1_in, act2, n_buf, graph, h0x, wrel, loop1,
+                loop2, wih1, whh1, bih1, bhh1, wih2, whh2, bih2, bhh2):
         src, dst, rel, em, gidx, live, dt, m1, m2 = graph
         g1 = {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1}
         g2 = {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2}
-        buf1, buf2 = fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt,
-                                      wrel, loop1, loop2, g1, g2, lam,
-                                      conv1_in, m1, m2)
-        ctx.lam, ctx.conv1_in, ctx.graph = lam, conv1_in, graph
+        bufs = fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel,
+                                loop1, loop2, g1, g2, lam, conv1_in, m1, m2,
+                                act2, n_buf)
+        ctx.lam, ctx.conv1_in, ctx.act2, ctx.graph = lam, conv1_in, act2, graph
         ctx.save_for_backward(h0x, wrel, loop1, loop2, wih1, whh1, bih1,
-                              bhh1, wih2, whh2, bih2, bhh2, buf1, buf2)
-        return buf1, buf2
+                              bhh1, wih2, whh2, bih2, bhh2, bufs[0], bufs[1])
+        return bufs
 
     @staticmethod
-    def backward(ctx, gb1, gb2):
+    def backward(ctx, *gbs):
         if ctx.conv1_in:
             raise RuntimeError("fused_window: conv1_in (precomputed layer-1 "
                                "convs) is an eval-only mode")
         (h0x, wrel, loop1, loop2, wih1, whh1, bih1, bhh1, wih2, whh2, bih2,
          bhh2, buf1, buf2) = ctx.saved_tensors
         src, dst, rel, em, gidx, live, dt, m1, m2 = ctx.graph
-        gb1 = torch.zeros_like(buf1) if gb1 is None else gb1.contiguous()
-        gb2 = torch.zeros_like(buf2) if gb2 is None else gb2.contiguous()
+        gbs = [torch.zeros_like(buf1) if g is None else g.contiguous()
+               for g in gbs]
+        gb3 = gbs[2] if len(gbs) == 3 else None
         (dh0x, dwrel, dloop1, dloop2, dwih1, dwhh1, dwih2, dwhh2, dbih1,
          dbhh1, dbih2, dbhh2) = fused_window_bwd(
             h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1, loop2,
             {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1},
             {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2},
-            ctx.lam, m1, m2, buf1, buf2, gb1, gb2)
-        return (None, None, None, dh0x, dwrel, dloop1, dloop2, dwih1, dwhh1,
-                dbih1, dbhh1, dwih2, dwhh2, dbih2, dbhh2)
+            ctx.lam, m1, m2, buf1, buf2, gbs[0], gbs[1], gb3, ctx.act2)
+        return (None, None, None, None, None, dh0x, dwrel, dloop1, dloop2,
+                dwih1, dwhh1, dbih1, dbhh1, dwih2, dwhh2, dbih2, dbhh2)
 
 
 def fused_window_supported(cfg, base: str, activation2=None,
                            train: bool = False) -> bool:
     """Config-only envelope of K2 (and of its plain version): the GRRGCN
-    family with diagonal relation weights, the standard one-layer GRU,
-    fixed decay, no time embedding, no ReLU on layer 2, and a width the
-    kernels take (training: the backward's). Dropout on the self-loop is
-    inside the envelope; the per-step random edge subsample
-    (``random_dropout``) and DropEdge are not."""
+    family (either direction) with diagonal relation weights, the standard
+    one-layer GRU, fixed decay, no time embedding, no activation or a ReLU
+    on layer 2, and a width the kernels take (training: the backward's).
+    Dropout on the self-loop is inside the envelope; the per-step random
+    edge subsample (``random_dropout``) and DropEdge are not."""
     d = cfg.embed_size
     return (base == "GRRGCN"
             and not cfg.rec_only_last_layer
@@ -382,21 +405,25 @@ def fused_window_supported(cfg, base: str, activation2=None,
             and not (train and (cfg.random_dropout or cfg.edge_dropout))
             and cfg.n_bases == d == cfg.hidden_size
             and d <= (_MAX_D_BWD if train else _MAX_D) and d % 16 == 0
-            and activation2 is None)
+            and activation2 in (None, "relu"))
 
 
 def window_args(enc_params, cfg, h0_xs, src, dst, rel, emask, prev_step,
-                prev_row, dt, live, masks=None) -> dict:
-    """The keyword arguments of ``fused_window_fwd`` (less conv1_in) for B
-    history windows: h0_xs [B, L1, A, d]; src/dst/rel/emask [B, L1, E]
-    compact-local edges; prev_step/prev_row/dt/live [B, L1, A]; masks None
-    (eval) or the training self-loop dropout masks (m1, m2), each
-    [B, L1, A, d] over keep."""
+                prev_row, dt, live, masks=None, direction=None,
+                activation2=None) -> dict:
+    """The keyword arguments of ``fused_window_fwd`` (less conv1_in and
+    n_buf) for B history windows: h0_xs [B, L1, A, d]; src/dst/rel/emask
+    [B, L1, E] compact-local edges; prev_step/prev_row/dt/live [B, L1, A];
+    masks None (eval) or the training self-loop dropout masks (m1, m2), each
+    [B, L1, A, d] over keep; direction None, "fwd" or "bwd" picks the GRU
+    weights ("gru", "gru_fwd", "gru_bwd"); activation2 None or "relu",
+    layer 2's."""
     A = prev_step.shape[-1]
     p1, p2 = enc_params["layer1"], enc_params["layer2"]
+    key = GRU_KEY[direction]
 
     def gru(p):
-        g = p["gru"][0]
+        g = p[key][0]
         return {"wih_t": g["w_ih"].T.contiguous(),
                 "whh_t": g["w_hh"].T.contiguous(),
                 "bih": g["b_ih"].contiguous(), "bhh": g["b_hh"].contiguous()}
@@ -414,23 +441,27 @@ def window_args(enc_params, cfg, h0_xs, src, dst, rel, emask, prev_step,
         wrel=torch.cat([p1["weight"], p2["weight"]], dim=1).contiguous(),
         loop1=p1["loop_weight"].contiguous(),
         loop2=p2["loop_weight"].contiguous(), g1=gru(p1), g2=gru(p2),
-        lam=float(cfg.inv_temperature), m1=m1, m2=m2)
+        lam=float(cfg.inv_temperature), m1=m1, m2=m2,
+        act2=activation2 == "relu")
 
 
 def fused_window_scan(enc_params, cfg, h0_xs, src, dst, rel, emask,
                       prev_step, prev_row, dt, live, conv1_in: bool = False,
-                      kernels: bool = True, masks=None):
+                      kernels: bool = True, masks=None, direction=None,
+                      activation2=None, n_buf: int = 2):
     """Run B history windows through K2 (``kernels=False``: its plain
     version, differentiated by autograd); arguments as in ``window_args``.
-    Returns (buf1, buf2)."""
+    Returns (buf1, buf2[, buf3]): n_buf buffers."""
     a = window_args(enc_params, cfg, h0_xs, src, dst, rel, emask, prev_step,
-                    prev_row, dt, live, masks)
+                    prev_row, dt, live, masks, direction, activation2)
     if not kernels:
-        return fused_window_fwd_plain(conv1_in=bool(conv1_in), **a)
+        return fused_window_fwd_plain(conv1_in=bool(conv1_in), n_buf=n_buf,
+                                      **a)
     g1, g2 = a["g1"], a["g2"]
     graph = tuple(a[k] for k in ("src", "dst", "rel", "em", "gidx", "live",
                                  "dt", "m1", "m2"))
     return FusedWindow.apply(
-        a["lam"], bool(conv1_in), graph, a["h0x"], a["wrel"], a["loop1"],
-        a["loop2"], g1["wih_t"], g1["whh_t"], g1["bih"], g1["bhh"],
-        g2["wih_t"], g2["whh_t"], g2["bih"], g2["bhh"])
+        a["lam"], bool(conv1_in), a["act2"], n_buf, graph, a["h0x"],
+        a["wrel"], a["loop1"], a["loop2"], g1["wih_t"], g1["whh_t"],
+        g1["bih"], g1["bhh"], g2["wih_t"], g2["whh_t"], g2["bih"],
+        g2["bhh"])

@@ -8,6 +8,10 @@ import math
 
 import torch
 
+# the GRU parameters of a layer by window direction: the unidirectional
+# models' one GRU, or the Bi models' forward and backward ones
+GRU_KEY = {"fwd": "gru_fwd", "bwd": "gru_bwd", None: "gru"}
+
 
 def init_gru_params(gen: torch.Generator, input_size: int, hidden_size: int,
                     num_layers: int = 1):

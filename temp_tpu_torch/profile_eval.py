@@ -1,9 +1,12 @@
 """Where the time of one eval sweep goes, on the card.
 
-    python -m temp_tpu_torch.profile_eval [--plain] [--out DIR]
+    python -m temp_tpu_torch.profile_eval [--plain] [--config FILE]
+        [--impute] [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
-grid/icews14/config_grrgcn.json model, seeded random weights), runs one
+grid/icews14/config_grrgcn.json model or the one of --config, with
+imputation on for --impute: ``--config grid/icews14/config_bigrrgcn.json
+--impute`` is the flagship; seeded random weights), runs one
 warm-up valid sweep, then traces a second one with torch.profiler. Prints
 the wall time, the device time summed over all kernels and its share of the
 wall time, and the device time of each kernel name, largest first. With
@@ -26,12 +29,18 @@ from temp_tpu_torch.models.registry import get_model
 from temp_tpu_torch.train.loop import Trainer
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CONFIG = os.path.join("grid", "icews14", "config_grrgcn.json")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plain", action="store_true",
                     help="profile the plain PyTorch versions of the kernels")
+    ap.add_argument("--config", default=_CONFIG,
+                    help="the model's config file, relative to the checkout "
+                         "(default: %(default)s)")
+    ap.add_argument("--impute", action="store_true",
+                    help="with imputation (BiGRRGCN --impute: the flagship)")
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
@@ -39,7 +48,8 @@ def main(argv=None) -> int:
         print("profile_eval: needs a CUDA device", file=sys.stderr)
         return 1
     cfg = TKGConfig.from_json_file(
-        os.path.join(_ROOT, "grid", "icews14", "config_grrgcn.json"),
+        os.path.join(_ROOT, args.config),
+        **({"impute": True} if args.impute else {}),
         kernels=not args.plain)
     data = make_synthetic(num_ents=7128, num_rels=230, num_times=365,
                           edges_per_time=200, seed=0,

@@ -1,17 +1,20 @@
 """Where the time of a few training steps goes, on the card.
 
     python -m temp_tpu_torch.profile_train [--plain | --unfused] [--steps N]
-        [--out DIR]
+        [--config FILE] [--impute] [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
-grid/icews14/config_grrgcn.json model, seeded random weights and draws),
-takes two warm-up optimizer steps, then traces the next N (default 4) with
-torch.profiler. The path: the kernels with the fused final step (K3-K5;
-the default), ``--unfused`` the kernels with fused_final off (the final step
-one element at a time through K1), ``--plain`` the plain versions. Prints
-the wall time, the device time summed over all kernels and its share of the
-wall time, and the device time of each kernel name, largest first. With --out it also writes the Chrome
-trace there. Needs a CUDA device.
+grid/icews14/config_grrgcn.json model or the one of --config, with
+imputation on for --impute: ``--config grid/icews14/config_bigrrgcn.json
+--impute`` is the flagship; seeded random weights and draws), takes two
+warm-up optimizer steps, then traces the next N (default 4) with
+torch.profiler. The path: the kernels with the fused final step (K3-K5, or
+K6-K10 for the flagship; the default), ``--unfused`` the kernels with
+fused_final off (the final step one element at a time through K1),
+``--plain`` the plain versions. Prints the wall time, the device time summed
+over all kernels and its share of the wall time, and the device time of
+each kernel name, largest first. With --out it also writes the Chrome trace
+there. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from temp_tpu_torch.profile_eval import export, profile
 from temp_tpu_torch.train.loop import Trainer
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CONFIG = os.path.join("grid", "icews14", "config_grrgcn.json")
 
 
 def main(argv=None) -> int:
@@ -39,6 +43,11 @@ def main(argv=None) -> int:
     path.add_argument("--unfused", action="store_true",
                       help="profile the kernels with fused_final off")
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--config", default=_CONFIG,
+                    help="the model's config file, relative to the checkout "
+                         "(default: %(default)s)")
+    ap.add_argument("--impute", action="store_true",
+                    help="with imputation (BiGRRGCN --impute: the flagship)")
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args(argv)
@@ -46,7 +55,8 @@ def main(argv=None) -> int:
         print("profile_train: needs a CUDA device", file=sys.stderr)
         return 1
     cfg = TKGConfig.from_json_file(
-        os.path.join(_ROOT, "grid", "icews14", "config_grrgcn.json"),
+        os.path.join(_ROOT, args.config),
+        **({"impute": True} if args.impute else {}),
         kernels=not args.plain, fused_final=not args.unfused)
     data = make_synthetic(num_ents=7128, num_rels=230, num_times=365,
                           edges_per_time=200, seed=0,

@@ -10,7 +10,9 @@ off for the plain versions' matrix products. Gradients that sum over many
 rows (weight cotangents: up to B*L1*A = 71,680 rows, or B*N = 57,024 in the
 final step) are held to 1e-4 relative to max(1, the largest entry): f32
 sums of that many terms in another order differ by about sqrt(n) * 6e-8 of
-the terms' size. The final step's losses are held to 1e-4 relative.
+the terms' size. The final step's losses are held to 1e-4 relative. The flagship's
+final-step kernels (K6-K10) are held to 1e-5 of the largest entry of their
+plain version's output, with no floor: their cotangents lie far below 1.
 """
 
 import numpy as np
@@ -24,10 +26,11 @@ from temp_tpu_torch.data.snapshots import (
 from temp_tpu_torch.models.layers import dropout_mask
 from temp_tpu_torch.models.registry import get_model
 from temp_tpu_torch.ops.fused_final import (
-    final_graph, fused_final_bwd_layer, fused_final_bwd_layer_plain,
+    _loss_plain, final_graph, fused_final_bwd_layer, fused_final_bwd_layer_plain,
     fused_final_bwd_loss, fused_final_bwd_loss_plain, fused_final_fwd,
     fused_final_fwd_plain, fused_final_loss,
 )
+from temp_tpu_torch.ops import fused_final_bi as fb
 from temp_tpu_torch.ops.fused_window import (
     fused_window_bwd, fused_window_fwd, fused_window_scan,
 )
@@ -611,3 +614,313 @@ def test_fused_final_element_without_positives(cuda):
                                                  gr, g)
     assert float(d_table[1].abs().max()) == 0.0
     assert _close(d_table, r_table) and _close(d_rtab, r_rtab)
+
+
+# -- the flagship: K2's new modes and K6-K10 ---------------------------------
+
+def _bi_enc(enc, dev, seed=1):
+    """The window tests' encoder with a GRU a direction: gru_fwd the given
+    one, gru_bwd other random weights."""
+    g = torch.Generator().manual_seed(seed)
+    return {k: {"weight": v["weight"], "loop_weight": v["loop_weight"],
+                "gru_fwd": v["gru"],
+                "gru_bwd": [{n: ((torch.rand(t.shape, generator=g) - 0.5)
+                                 * 0.5).to(dev)
+                             for n, t in v["gru"][0].items()}]}
+            for k, v in enc.items()}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("B,L1,A,E,d", [(8, 7, 640, 256, 128),
+                                        (3, 4, 37, 20, 16)])
+def test_window_flagship_modes_match_plain_autograd(cuda, direction, rate, B,
+                                                    L1, A, E, d):
+    """K2f/K2b in the flagship's modes (the ReLU on layer 2, the third
+    buffer, either direction's GRUs) against autograd through the plain
+    forward, with a cotangent on all three buffers."""
+    enc, kw, masks = _train_window_args(B, L1, A, E, d, cuda)
+    enc = _bi_enc(enc, cuda)
+    masks = masks if rate > 0 else None
+    cfg = TKGConfig(embed_size=d, hidden_size=d, n_bases=d)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cot = [torch.randn(B, L1, A, d, generator=gen, device=cuda)
+           for _ in range(3)]
+    used = "gru_fwd" if direction == "fwd" else "gru_bwd"
+    res = {}
+    for kernels in (True, False):
+        e = {k: {n: ([{m: t.clone().requires_grad_() for m, t in v[0].items()}]
+                     if n.startswith("gru") else v.clone().requires_grad_())
+                 for n, v in layer.items()} for k, layer in enc.items()}
+        h0 = kw["h0_xs"].clone().requires_grad_()
+        fb_, bb = fused_window_fwd.launches, fused_window_bwd.launches
+        bufs = fused_window_scan(e, cfg, kernels=kernels, masks=masks,
+                                 direction=direction, activation2="relu",
+                                 n_buf=3, **{**kw, "h0_xs": h0})
+        assert len(bufs) == 3
+        sum((b * c).sum() for b, c in zip(bufs, cot)).backward()
+        torch.cuda.synchronize()
+        if kernels:
+            assert fused_window_fwd.launches == fb_ + 2 * L1
+            assert fused_window_bwd.launches == bb + 5 * L1 + 2
+        for layer in e.values():
+            other = "gru_bwd" if used == "gru_fwd" else "gru_fwd"
+            assert all(t.grad is None for t in layer[other][0].values())
+        grads = [h0.grad] + [t.grad for layer in e.values()
+                             for t in (layer["weight"], layer["loop_weight"],
+                                       *layer[used][0].values())]
+        res[kernels] = ([b.detach() for b in bufs], grads)
+    (kb, kg), (pb, pg) = res[True], res[False]
+    for a, b in zip(kb, pb):
+        assert float((a - b).abs().max()) <= TOL
+    assert float(pb[2].min()) >= 0.0  # the local buffer is after the ReLU
+    for a, b in zip(kg, pg):
+        assert _close(a, b)
+
+
+def _bi_case(N, d, dev, B=4, seed=0, noact=False, rate=0.1, num_rels=12,
+             edges_per_time=60, pad=16, L=8):
+    """A batch of B flagship final steps on synthetic data: the BiGraph
+    (edges, true answers, seeded draws, both windows' dt), random histories
+    and weights, and impute scalars whose clamp is open for some dt and
+    closed for others."""
+    host = make_synthetic(
+        num_ents=N, num_rels=num_rels, num_times=B + 4,
+        edges_per_time=edges_per_time, seed=seed, edge_pad_multiple=pad)
+    data = to_device(host, dev)
+    answers = to_device(build_answer_lists(host), dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tp = torch.arange(B, device=dev) + 2
+    em = data.train.emask[tp]
+    draws = {"edges": subsample_edges(gen, em, 0.5),
+             "pos": subsample_positives(gen, em, 40),
+             "fin1": None, "fin2": None}
+    if rate > 0:
+        draws["fin1"], draws["fin2"] = (dropout_mask(gen, (B, N, d), rate,
+                                                     dev) for _ in range(2))
+    lp = [torch.randint(0, L - 1, (B, N), generator=gen, device=dev).float()
+          for _ in range(2)]
+    bg = fb.final_graph_bi(data, answers, tp, draws, lp[0], lp[1], 0.1, rate,
+                           L, True, noact)
+
+    def lin(*s, scale=0.5):
+        return (torch.rand(*s, generator=gen, device=dev) - 0.5) * scale
+
+    R = 2 * num_rels
+    w = dict(h0=lin(N, d, scale=1.0),
+             hists=tuple(lin(B, N, d, scale=1.0) for _ in range(6)),
+             wrel=lin(R, 2 * d), loop1=lin(d, d), loop2=lin(d, d),
+             rtab=lin(R, d, scale=1.0),
+             grus={k: {n: lin(*s) for n, s in (("wih_t", (d, 3 * d)),
+                                               ("whh_t", (d, 3 * d)),
+                                               ("bih", (3 * d,)),
+                                               ("bhh", (3 * d,)))}
+                   for k in fb._GRUS},
+             imp=torch.tensor([0.3, 0.2, -0.1, 0.5], device=dev))
+    return bg, w
+
+
+def _scaled_ok(got, ref, tol=1e-5):
+    """max |got - ref| <= tol * max |ref|, no floor; (ok, abs, max ref)."""
+    err, top = float((got - ref).abs().max()), float(ref.abs().max())
+    return err <= tol * top, err, top
+
+
+def _bi_layer_args(bg, w, layer, h_in=None):
+    """Positional arguments of bi_layer_fwd/_bwd (up to gb) and the keyword
+    arguments of one layer."""
+    h1f, h2f, hlf, h1b, h2b, hlb = w["hists"]
+    d = w["h0"].shape[1]
+    if layer == 1:
+        return ((w["h0"], h1f, h1b, bg, bg.gr.m1, w["wrel"], 0, w["loop1"],
+                 w["grus"]["1f"], w["grus"]["1b"]), {})
+    return ((h_in, h2f, h2b, bg, bg.gr.m2, w["wrel"], d, w["loop2"],
+             w["grus"]["2f"], w["grus"]["2b"]),
+            dict(relu=True, hl=(hlf, hlb), imp=w["imp"]))
+
+
+_BI_SHAPES = [(7128, 128, 8, 230, 200, 128), (300, 32, 4, 12, 60, 16),
+              (77, 16, 3, 5, 20, 16)]
+
+
+@pytest.mark.parametrize("noact", [False, True])
+@pytest.mark.parametrize("N,d,B,R,per,pad", _BI_SHAPES)
+def test_bi_layer_fwd_and_loss_kernels_match_plain(cuda, noact, N, d, B, R,
+                                                   per, pad):
+    """K6+K7 for both layers (layer 2 with the ReLU, the impute blend and,
+    with noact, the select) and K8, each against its plain version on the
+    same inputs."""
+    bg, w = _bi_case(N, d, cuda, B=B, noact=noact, num_rels=R,
+                     edges_per_time=per, pad=pad)
+    args1, kw1 = _bi_layer_args(bg, w, 1)
+    before = (fb.bi_layer_fwd.launches, fb.bi_loss_fwd.launches)
+    out1 = fb.bi_layer_fwd(*args1, **kw1)
+    ref1 = fb.bi_layer_fwd_plain(*args1, **kw1)
+    args2, kw2 = _bi_layer_args(bg, w, 2, ref1)
+    sel = w["h0"] if noact else None
+    table = fb.bi_layer_fwd(*args2, **kw2, sel=sel)
+    ref2 = fb.bi_layer_fwd_plain(*args2, **kw2, sel=sel)
+    loss, saved = fb.bi_loss_fwd(ref2, w["rtab"], bg.gr)
+    torch.cuda.synchronize()
+    assert (fb.bi_layer_fwd.launches, fb.bi_loss_fwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    ref_loss = _loss_plain(ref2, w["rtab"], bg.gr)
+    for name, a, b in (("layer1", out1, ref1), ("layer2", table, ref2),
+                       ("loss", loss, ref_loss)):
+        ok, err, top = _scaled_ok(a, b)
+        assert ok, (name, err, top)
+    assert torch.isfinite(loss).all() and (loss > 0).all()
+    assert {"qhat", "lse", "scpos", "cnt", "csr"} <= set(saved)
+
+
+@pytest.mark.parametrize("layer", [1, 2])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("N,d,B,R,per,pad", _BI_SHAPES)
+def test_bi_layer_bwd_kernel_matches_plain(cuda, layer, rate, N, d, B, R, per,
+                                           pad):
+    """K9+K10 for one layer against its plain version, the same output
+    cotangent on both sides: all 16 cotangents (the impute scalars' and the
+    local tables' on layer 2)."""
+    bg, w = _bi_case(N, d, cuda, B=B, rate=rate, num_rels=R,
+                     edges_per_time=per, pad=pad)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    h_in = torch.randn(B, N, d, generator=gen, device=cuda) * 0.5
+    args, kw = _bi_layer_args(bg, w, layer, h_in)
+    d_out = torch.randn(B, N, d, generator=gen, device=cuda)
+    before = fb.bi_layer_bwd.launches
+    got = fb.bi_layer_bwd(*args, d_out, **kw)
+    torch.cuda.synchronize()
+    assert fb.bi_layer_bwd.launches == before + 5
+    ref = fb.bi_layer_bwd_plain(*args, d_out, **kw)
+    assert len(got) == len(ref) == 16
+    bad = {}
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if b is None:
+            assert a is None and layer == 1
+            continue
+        ok, err, top = _scaled_ok(a, b)
+        if not (a.shape == b.shape and ok):
+            bad[i] = (err, top)
+    assert not bad, bad
+    if layer == 2:
+        assert float(got[5].abs().min()) > 0.0  # all four impute scalars
+
+
+def test_bi_layer_bwd_is_deterministic(cuda):
+    """K9+K10 use no atomics: two runs on the same inputs agree bit for
+    bit."""
+    bg, w = _bi_case(7128, 128, cuda, B=8, num_rels=230, edges_per_time=200,
+                     pad=128)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    h_in = torch.randn(8, 7128, 128, generator=gen, device=cuda) * 0.5
+    d_out = torch.randn(8, 7128, 128, generator=gen, device=cuda)
+    for layer in (1, 2):
+        args, kw = _bi_layer_args(bg, w, layer, h_in)
+        x = fb.bi_layer_bwd(*args, d_out, **kw)
+        y = fb.bi_layer_bwd(*args, d_out, **kw)
+        assert all((u is None and v is None) or torch.equal(u, v)
+                   for u, v in zip(x, y))
+
+
+def _bi_params(w):
+    """The flagship's parameter tree over w's tensors (cloned, requiring
+    grad), and the flat leaves."""
+    d = w["h0"].shape[1]
+    leaf = lambda t: t.clone().requires_grad_()  # noqa: E731
+    enc = {}
+    for i in (1, 2):
+        enc[f"layer{i}"] = {
+            "weight": leaf(w["wrel"][:, (i - 1) * d:i * d]),
+            "loop_weight": leaf(w[f"loop{i}"])}
+        for tag, key in (("f", "gru_fwd"), ("b", "gru_bwd")):
+            g = w["grus"][f"{i}{tag}"]
+            enc[f"layer{i}"][key] = [{"w_ih": leaf(g["wih_t"].t()),
+                                      "w_hh": leaf(g["whh_t"].t()),
+                                      "b_ih": leaf(g["bih"]),
+                                      "b_hh": leaf(g["bhh"])}]
+    for k, v in zip(("impute_w_fwd", "impute_b_fwd", "impute_w_bwd",
+                     "impute_b_bwd"), w["imp"]):
+        enc[k] = leaf(v)
+    params = {"ent_embeds": leaf(w["h0"]), "rel_embeds": leaf(w["rtab"]),
+              "encoder": enc}
+    return params, param_leaves(params)
+
+
+@pytest.mark.parametrize("noact", [False, True])
+def test_fused_final_bi_autograd_matches_plain_autograd(cuda, noact):
+    bg, w = _bi_case(300, 32, cuda, B=4, noact=noact)
+    tv = torch.tensor([1.0, 1.0, 0.0, 1.0], device=cuda)
+    grads = []
+    for kernels in (True, False):
+        params, leaves = _bi_params(w)
+        hists = [h.clone().requires_grad_() for h in w["hists"]]
+        loss = fb.fused_final_bi_loss(params, bg, hists, kernels=kernels)
+        (loss * tv).sum().backward()
+        grads.append([t.grad for t in leaves + hists])
+    for a, b in zip(*grads):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert _close(a, b)
+
+
+def test_bi_kernels_refuse_what_they_do_not_take(cuda):
+    bg, w = _bi_case(77, 16, cuda, B=3)
+    args, kw = _bi_layer_args(bg, w, 2, w["hists"][0])
+    with pytest.raises(TypeError):
+        fb.bi_layer_fwd(args[0].double(), *args[1:], **kw)
+    with pytest.raises(ValueError):  # the blend without its scalars
+        fb.bi_layer_fwd(*args, relu=True, hl=kw["hl"], imp=None)
+    with pytest.raises(ValueError):  # a history of another batch size
+        fb.bi_layer_fwd(args[0], args[1][:2], *args[2:], **kw)
+    with pytest.raises(ValueError):
+        fb.bi_layer_bwd(*args[:6], 5, *args[7:], w["hists"][0], **kw)
+    bg2, w2 = _bi_case(40, 256, cuda, B=2, num_rels=3, edges_per_time=10)
+    args2, kw2 = _bi_layer_args(bg2, w2, 1)
+    with pytest.raises(ValueError):  # d = 256: the kernels take d <= 128
+        fb.bi_layer_fwd(*args2, **kw2)
+
+
+def test_flagship_training_steps_match_plain_and_unfused(cuda):
+    """Training steps of the flagship on the fused path (K2 in its new
+    modes, K6-K10, K4) against the plain path and the unfused path (K1,
+    fused_final off), from the same weights and draws."""
+    data = make_synthetic(num_ents=300, num_rels=12, num_times=20,
+                          edges_per_time=60, seed=1, edge_pad_multiple=128)
+    losses, finals = {}, {}
+    counters = (fb.bi_layer_fwd, fb.bi_loss_fwd, fused_final_bwd_loss,
+                fb.bi_layer_bwd, fused_window_fwd, fused_window_bwd,
+                spmm_fwd, spmm_bwd)
+    for name, kw in (("fused", {}), ("plain", {"kernels": False}),
+                     ("unfused", {"fused_final": False})):
+        cfg = TKGConfig(module="BiGRRGCN", impute=True, embed_size=32,
+                        hidden_size=32, n_bases=32, train_seq_len=6,
+                        batch_size=4, num_pos_facts=40, **kw)
+        model = get_model(cfg, data, device=cuda)
+        assert model.fused_final_on() == (name != "unfused")
+        tr = Trainer(cfg, model, data)
+        params, opt = tr.init_state(0)
+        for fn in counters:
+            fn.launches = 0
+        losses[name] = [float(tr.train_step(params, opt, t_pos, t_valid,
+                                            gen=tr.step_generator(0, step)))
+                        for step, (t_pos, t_valid)
+                        in enumerate(tr.epoch_batches(0)[:3])]
+        n = {fn.__name__: fn.launches for fn in counters}
+        if name == "fused":
+            assert n["bi_layer_fwd"] == 6 and n["bi_loss_fwd"] == 6
+            assert n["fused_final_bwd_loss"] == 12
+            assert n["bi_layer_bwd"] == 30 and n["spmm_fwd"] == 0
+            # two windows of L1 = 5 steps: 2 launches a step forward, 5 a
+            # step and 2 more backward
+            assert n["fused_window_fwd"] == 3 * 2 * 2 * 5
+            assert n["fused_window_bwd"] == 3 * 2 * (5 * 5 + 2)
+        elif name == "plain":
+            assert not any(n.values())
+        else:
+            assert n["spmm_bwd"] > 0 and n["bi_layer_fwd"] == 0
+        finals[name] = [p.detach() for p in param_leaves(params)]
+    for other in ("plain", "unfused"):
+        for a, b in zip(losses["fused"], losses[other]):
+            assert abs(a - b) <= 1e-4 * max(1.0, abs(b))
+        for a, b in zip(finals["fused"], finals[other]):
+            assert _close(a, b)

@@ -221,7 +221,9 @@ def test_fused_window_envelope_is_decided_by_the_config():
     assert not fused_window_supported(grid.replace(n_bases=4), "GRRGCN")
     assert not fused_window_supported(grid, "RRGCN")
     assert not fused_window_supported(grid.replace(type1=True), "GRRGCN")
-    assert not fused_window_supported(grid, "GRRGCN", activation2="relu")
+    # the Bi models' ReLU on layer 2 is a mode of K2; nothing else is
+    assert fused_window_supported(grid, "GRRGCN", activation2="relu")
+    assert not fused_window_supported(grid, "GRRGCN", activation2="tanh")
     big = grid.replace(embed_size=512, hidden_size=512, n_bases=512)
     assert not fused_window_supported(big, "GRRGCN")
 

@@ -167,13 +167,24 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     k4 = chip_smoke.phase_k4(ctx)
     k5 = chip_smoke.phase_k5(ctx)
     train = chip_smoke.phase_train(ctx)
-    line = chip_smoke.kernels_line(k1, k2, path, k1b, k2b, k3, k4, k5,
-                                   train)
+    fctx = chip_smoke.phase_setup_flagship(ctx)
+    fctx["train_steps"] = 2
+    assert fctx["cfg"].module == "BiGRRGCN" and fctx["cfg"].impute
+    res = {"k1": k1, "k2": k2, "path": path, "k1b": k1b, "k2b": k2b,
+           "k3": k3, "k4": k4, "k5": k5, "train": train,
+           "k2_flagship": chip_smoke.phase_k2_flagship(fctx),
+           "k6k7": chip_smoke.phase_k6k7(fctx),
+           "k8": chip_smoke.phase_k8(fctx),
+           "k9k10": chip_smoke.phase_k9k10(fctx),
+           "flagship_path": chip_smoke.phase_path(fctx),
+           "flagship_train": chip_smoke.phase_train(fctx, flagship=True)}
+    line = chip_smoke.kernels_line(res)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [k["name"] for k in line["kernels"]] == [
         "spmm_fwd", "spmm_bwd", "fused_window_fwd", "fused_window_bwd",
-        "fused_final_fwd", "fused_final_bwd_loss", "fused_final_bwd_layer"]
+        "fused_final_fwd", "fused_final_bwd_loss", "fused_final_bwd_layer",
+        "bi_layer_fwd", "bi_loss_fwd", "bi_layer_bwd"]
     for rec in line["kernels"]:
         assert keys <= set(rec)
         assert rec["max_abs_err"] == 0.0  # the CPU runs the plain version
@@ -198,6 +209,21 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert max(train["max_rel_gaps"].values()) <= chip_smoke.TRAIN_TOL
     assert len(train["fused"]["losses"]) == 2
     assert 0.0 < train["eval"]["mrr"] <= 1.0
+    # the flagship's phases: both windows in the new modes, both layers'
+    # forward and backward from two upstream cotangents
+    assert set(res["k2_flagship"]) == {"fwd", "bwd"}
+    assert all(res["k2_flagship"][d]["fwd_max_abs_err"] == 0.0
+               for d in ("fwd", "bwd"))
+    assert len(res["k9k10"]["errors"]) == 2 * (16 + 13)
+    for e in list(res["k6k7"]["errors"].values()) + list(
+            res["k9k10"]["errors"].values()):
+        assert e["abs"] == 0.0
+    ft = res["flagship_train"]
+    assert ft["fused"]["losses"][0] == ft["plain"]["losses"][0]
+    assert max(ft["max_rel_gaps"].values()) <= chip_smoke.TRAIN_TOL
+    assert 0.0 < ft["eval"]["mrr"] <= 1.0
+    assert res["flagship_path"]["kernels"]["mrr"] == res["flagship_path"][
+        "plain"]["mrr"]
 
 
 @pytest.mark.parametrize("alone", [False, True])
