@@ -61,6 +61,25 @@ impute on, PostBiDynamicRGCNModel), on the same data:
 19. flagship_train - 8 optimizer steps of the flagship on the three paths,
                      as `train`, with the launch counts of the new kernels.
 
+Then the switches that are off by default, on GRRGCN and the flagship:
+
+20. k11             - kernel K11 (fused_eval_ranks: the final step in eval
+                      mode, the filtered ranks and the BCE of all B elements)
+                      against its plain version on one batch of the valid
+                      split (ranks equal but for counted near-ties, BCE to
+                      1e-5 relative), its ranking half on a table with
+                      copies of target rows planted (they must not count),
+                      and beside it the unfused eval of that batch;
+21. path_fused_eval - the valid sweep with fused_eval on, with the kernels
+                      and with their plain versions: MRR within 1e-4 of each
+                      other and of `path`'s, walls and queries/s;
+22. mb              - fused_window_mb on (K12): its forward against its
+                      plain version on a training batch of windows, 8 fused
+                      training steps of GRRGCN and of the flagship and a
+                      GRRGCN valid sweep, held to the runs without the switch
+                      (the same launches and draws: equal losses, parameters
+                      and ranks).
+
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and the
 result line {"ok": true, "device": {...}}. Any failed check raises and exits
 non-zero; there is no result line then. Without CUDA it exits 1 at once. A
@@ -342,36 +361,71 @@ def phase_k2(ctx) -> dict:
     return out
 
 
-def phase_path(ctx) -> dict:
-    """The valid sweep with the kernels, then with their plain versions."""
-    import numpy as np
+def _counters():
+    """Every kernel wrapper, whose ``launches`` counts its launches, in the
+    kernels line's order."""
+    from temp_tpu_torch.ops import fused_final_bi as fb
+    from temp_tpu_torch.ops.fused_final import (
+        fused_eval_ranks, fused_final_bwd_layer, fused_final_bwd_loss,
+        fused_final_fwd,
+    )
+    from temp_tpu_torch.ops.fused_window import (
+        fused_window_bwd, fused_window_fwd,
+    )
+    from temp_tpu_torch.ops.fused_window_mb import fused_window_mb_fwd
+    from temp_tpu_torch.ops.spmm import spmm_bwd, spmm_fwd
+
+    return (spmm_fwd, spmm_bwd, fused_window_fwd, fused_window_bwd,
+            fused_final_fwd, fused_final_bwd_loss, fused_final_bwd_layer,
+            fb.bi_layer_fwd, fb.bi_loss_fwd, fb.bi_layer_bwd,
+            fused_eval_ranks, fused_window_mb_fwd)
+
+
+def _reset_counts() -> None:
+    for fn in _counters():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {fn.__name__: fn.launches for fn in _counters()}
+
+
+def _sweep(ctx, c):
+    """One valid sweep of config c (every launch counter from 0): its
+    metrics, wall seconds, queries/s and launches; ranks and mask (numpy)."""
     import torch
 
     from temp_tpu_torch.models.objectives import metrics_from_ranks
     from temp_tpu_torch.models.registry import get_model
-    from temp_tpu_torch.ops.fused_window import fused_window_fwd
-    from temp_tpu_torch.ops.spmm import spmm_fwd
     from temp_tpu_torch.train.loop import Trainer
 
-    dev, cfg = ctx["device"], ctx["cfg"]
+    dev = ctx["device"]
+    tr = Trainer(c, get_model(c, ctx["data"], device=dev), ctx["data"])
+    _reset_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ranks, mask, bces = tr.eval_sweep(ctx["params"], "valid")
+    ranks, mask = ranks.cpu().numpy(), mask.cpu().numpy()
+    wall = time.perf_counter() - t0
+    m = metrics_from_ranks(ranks, mask)
+    m["loss"] = float(bces.mean())
+    m["wall_s"] = wall
+    m["queries_per_s"] = m["n"] / wall
+    m["launches"] = _counts()
+    return m, ranks, mask
+
+
+def phase_path(ctx, **over) -> dict:
+    """The valid sweep with the kernels, then with their plain versions
+    (the config's switches set as `over` gives them)."""
+    import numpy as np
+
+    dev, cfg = ctx["device"], ctx["cfg"].replace(**over)
     res = {}
     runs = {}
     for name, kernels in (("kernels", True), ("plain", False)):
-        c = cfg.replace(kernels=kernels)
-        tr = Trainer(c, get_model(c, ctx["data"], device=dev), ctx["data"])
-        spmm_fwd.launches = 0
-        fused_window_fwd.launches = 0
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        ranks, mask, bces = tr.eval_sweep(ctx["params"], "valid")
-        ranks, mask = ranks.cpu().numpy(), mask.cpu().numpy()
-        wall = time.perf_counter() - t0
-        m = metrics_from_ranks(ranks, mask)
-        m["loss"] = float(bces.mean())
-        m["wall_s"] = wall
-        m["k1_launches"] = spmm_fwd.launches
-        m["k2_launches"] = fused_window_fwd.launches
+        m, ranks, mask = _sweep(ctx, cfg.replace(kernels=kernels))
         runs[name] = (ranks, mask)
         res[name] = m
         print(f"  path {name}: {m}", flush=True)
@@ -386,10 +440,17 @@ def phase_path(ctx) -> dict:
         raise AssertionError(f"bad metrics {k}")
     if not abs(k["mrr"] - pl["mrr"]) <= MRR_TOL:
         raise AssertionError(f"MRR kernels {k['mrr']} vs plain {pl['mrr']}")
-    if dev.type == "cuda" and not (k["k1_launches"] > 0
-                                   and k["k2_launches"] > 0):
-        raise AssertionError(f"main path missed a kernel: {k}")
+    want = ["spmm_fwd", "fused_window_mb_fwd" if cfg.fused_window_mb
+            else "fused_window_fwd"] + (["fused_eval_ranks"]
+                                        if cfg.fused_eval else [])
+    if dev.type == "cuda" and not all(k["launches"][n] > 0 for n in want):
+        raise AssertionError(f"main path missed a kernel of {want}: {k}")
+    if any(pl["launches"].values()):
+        raise AssertionError(f"kernels launched on the plain versions' path:"
+                             f" {pl['launches']}")
     res["same_rank_share"] = float(np.mean(rk[mk] == rp[mp]))
+    if not over:
+        ctx["path_runs"] = runs
     return res
 
 
@@ -805,29 +866,52 @@ _PATHS = (("fused", {}), ("unfused", {"fused_final": False}),
           ("plain", {"kernels": False}))
 
 
-def _train_counters(flagship: bool):
-    """The launch counters a training path reads, and the kernels each
-    kernel path must launch: GRRGCN's (K1, K2, K3-K5) or the flagship's
-    (K1, K2, K6-K10 with K4)."""
-    from temp_tpu_torch.ops import fused_final_bi as fb
-    from temp_tpu_torch.ops.fused_final import (
-        fused_final_bwd_layer, fused_final_bwd_loss, fused_final_fwd,
-    )
-    from temp_tpu_torch.ops.fused_window import (
-        fused_window_bwd, fused_window_fwd,
-    )
-    from temp_tpu_torch.ops.spmm import spmm_bwd, spmm_fwd
-
-    common = (spmm_fwd, spmm_bwd, fused_window_fwd, fused_window_bwd)
-    unfused = ("spmm_fwd", "spmm_bwd", "fused_window_fwd", "fused_window_bwd")
+def _train_kernels(flagship: bool, mb: bool = False) -> dict:
+    """The kernels each kernel path of training must launch on the card:
+    GRRGCN's (K1, K2, K3-K5) or the flagship's (K1, K2, K6-K10 with K4);
+    with `mb` the fused path's windows through K12."""
     if flagship:
-        final = (fb.bi_layer_fwd, fb.bi_loss_fwd, fused_final_bwd_loss,
-                 fb.bi_layer_bwd)
+        final = ("bi_layer_fwd", "bi_loss_fwd", "fused_final_bwd_loss",
+                 "bi_layer_bwd")
     else:
-        final = (fused_final_fwd, fused_final_bwd_loss, fused_final_bwd_layer)
-    fused = ("fused_window_fwd", "fused_window_bwd") + tuple(
-        fn.__name__ for fn in final)
-    return common + final, {"fused": fused, "unfused": unfused}
+        final = ("fused_final_fwd", "fused_final_bwd_loss",
+                 "fused_final_bwd_layer")
+    window = "fused_window_mb_fwd" if mb else "fused_window_fwd"
+    return {"fused": (window, "fused_window_bwd") + final,
+            "unfused": ("spmm_fwd", "spmm_bwd", "fused_window_fwd",
+                        "fused_window_bwd")}
+
+
+def _train_path(ctx, c):
+    """The first steps of epoch 0 (TRAIN_STEPS) of config c from the seeded
+    weights and draws, every launch counter from 0. Returns (model, result:
+    losses, ms a step and launches; initial and final parameter leaves;
+    trainer; params)."""
+    import torch
+
+    from temp_tpu_torch.models.registry import get_model
+    from temp_tpu_torch.train.loop import Trainer
+    from temp_tpu_torch.train.optim import param_leaves
+
+    dev = ctx["device"]
+    model = get_model(c, ctx["data"], device=dev)
+    tr = Trainer(c, model, ctx["data"])
+    params, opt = tr.init_state()
+    init = [t.detach().clone() for t in param_leaves(params)]
+    batches = tr.epoch_batches(0)[:ctx.get("train_steps", TRAIN_STEPS)]
+    _reset_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    losses = [tr.train_step(params, opt, t_pos, t_valid,
+                            gen=tr.step_generator(0, i))
+              for i, (t_pos, t_valid) in enumerate(batches)]
+    losses = torch.stack(losses).cpu().tolist()
+    wall = time.perf_counter() - t0
+    res = {"losses": losses, "ms_per_step": wall * 1e3 / len(batches),
+           "launches": _counts()}
+    finals = [t.detach().clone() for t in param_leaves(params)]
+    return model, res, init, finals, tr, params
 
 
 def phase_train(ctx, flagship: bool = False) -> dict:
@@ -836,49 +920,29 @@ def phase_train(ctx, flagship: bool = False) -> dict:
     main path), the kernels with fused_final off, and the plain versions;
     each path's launches counted from 0; then one valid sweep of the
     weights the main path trained. `flagship`: the flagship's context and
-    kernels."""
+    kernels. Keeps the main path's losses and parameters in ctx
+    ("train_ref") for the phases that switch more on."""
     import numpy as np
     import torch
 
-    from temp_tpu_torch.models.registry import get_model
-    from temp_tpu_torch.train.loop import Trainer
-    from temp_tpu_torch.train.optim import param_leaves
-
     dev, cfg = ctx["device"], ctx["cfg"]
-    counters, want = _train_counters(flagship)
+    want = _train_kernels(flagship)
     res, trained, init, finals = {}, None, None, {}
     for name, over in _PATHS:
-        c = cfg.replace(**over)
-        model = get_model(c, ctx["data"], device=dev)
+        model, res[name], leaves, finals[name], tr, params = _train_path(
+            ctx, cfg.replace(**over))
         if model.fused_final_on() != (name != "unfused"):
             raise AssertionError(f"train {name}: fused_final resolved "
                                  f"{model.fused_final_on()}")
-        tr = Trainer(c, model, ctx["data"])
-        params, opt = tr.init_state()
-        leaves = [t.detach().clone() for t in param_leaves(params)]
         if init is None:
             init = leaves
         elif not all(torch.equal(a, b) for a, b in zip(leaves, init)):
             raise AssertionError(f"train {name}: other initial weights")
-        batches = tr.epoch_batches(0)[:ctx.get("train_steps", TRAIN_STEPS)]
-        for fn in counters:
-            fn.launches = 0
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        losses = [tr.train_step(params, opt, t_pos, t_valid,
-                                gen=tr.step_generator(0, i))
-                  for i, (t_pos, t_valid) in enumerate(batches)]
-        losses = torch.stack(losses).cpu().tolist()
-        wall = time.perf_counter() - t0
-        res[name] = {"losses": losses,
-                     "ms_per_step": wall * 1e3 / len(batches),
-                     "launches": {fn.__name__: fn.launches
-                                  for fn in counters}}
-        finals[name] = [t.detach().clone() for t in param_leaves(params)]
         print(f"  train {name}: {res[name]}", flush=True)
         if name == "fused":
             trained = (tr, params)
+    ctx["train_ref"] = {"losses": res["fused"]["losses"], "init": init,
+                        "params": finals["fused"]}
     gaps = {}
     for a, b in (("fused", "plain"), ("fused", "unfused"),
                  ("unfused", "plain")):
@@ -1292,6 +1356,297 @@ def flagship_step_ms(fctx, fb_) -> dict:
             t.requires_grad_(False)
 
 
+# -- the switches that are off by default: K11 and K12 ----------------------
+
+def eval_batch(ctx) -> dict:
+    """K11's inputs for the valid split's batch of targets that
+    ``window_batch`` takes, as the fused eval prepares them: the window's
+    history (K2f from the conv1 table), the eval graph and queries with the
+    total-table answer lists, the weights in the kernels' layout."""
+    import torch
+
+    from temp_tpu_torch.data.snapshots import build_answer_lists, to_device
+    from temp_tpu_torch.ops.fused_final import (
+        final_graph_eval, final_weights,
+    )
+
+    model, data, p, cfg = (ctx["model"], ctx["trainer"].data, ctx["params"],
+                           ctx["cfg"])
+    L, B, dev = ctx["L1"] + 1, ctx["B"], ctx["device"]
+    tp = torch.arange(B, device=dev) + data.num_times // 2
+    with torch.no_grad():
+        hist1, hist2, last_pos = model.batch_hists(
+            p, data, tp, L, conv1_all=model.precompute_eval_conv1(p, data))
+    answers = to_device(build_answer_lists(ctx["data"], "valid"), dev)
+    gr, q = final_graph_eval(data, answers, tp, last_pos,
+                             cfg.inv_temperature, L,
+                             cfg.use_embed_for_non_active, "valid")
+    h0, wrel, loop1, loop2, g1, g2, rtab = final_weights(p)
+    return {"tp": tp, "hists": (hist1, hist2, last_pos), "gr": gr, "q": q,
+            "args": (h0, hist1.contiguous(), hist2.contiguous(), gr, q, wrel,
+                     loop1, loop2, g1, g2, rtab)}
+
+
+def _direction_scores(table, rtab, q, direction: str):
+    """The plain version's scores [B, Q, N] of one direction, the target of
+    each query and its true answers (bool [B, Q, N])."""
+    import torch
+
+    from temp_tpu_torch.ops.membership import true_answer_mask
+    from temp_tpu_torch.ops.scores import complex_all
+
+    bidx = torch.arange(table.shape[0], device=table.device)[:, None]
+    src, dst, rel = q.src.long(), q.dst.long(), q.rel.long()
+    remb, N = rtab[rel], table.shape[1]
+    if direction == "tail":
+        sc = complex_all(table[bidx, src], remb, table, "tail")
+        known = true_answer_mask(q.tail_grp, q.tail_val, src * q.r2 + rel, N)
+        return sc, dst, known
+    sc = complex_all(table[bidx, dst], remb, table, "head")
+    known = true_answer_mask(q.head_grp, q.head_val, dst * q.r2 + rel, N)
+    return sc, src, known
+
+
+def near_ties(table, rtab, q):
+    """[B, 2Q] bool in the [head, tail] layout: the queries whose plain
+    scores hold a column other than the target, not a true answer, within
+    SCALED_TOL of the row's largest |score| of the target's score (there an
+    f32 sum in another order may put the column on the other side)."""
+    import torch
+
+    out = []
+    for direction in ("head", "tail"):
+        sc, target, known = _direction_scores(table, rtab, q, direction)
+        tgt = torch.gather(sc, -1, target[..., None])
+        cols = torch.arange(sc.shape[-1], device=sc.device)
+        other = ~known & (cols != target[..., None])
+        scale = SCALED_TOL * sc.abs().amax(-1, keepdim=True)
+        out.append(((sc - tgt).abs() <= scale).logical_and(other).any(-1))
+    return torch.cat(out, -1)
+
+
+def plant_copies(table, rtab, q, n_copies: int = 32):
+    """The table with, for the first real query of each element (the tail
+    direction on even elements, the head on odd), its target's row copied
+    into the n_copies columns that score lowest for that query (not true
+    answers, well below the target). Returns (table, [(b, rank column)])."""
+    import torch
+
+    planted, picks = table.clone(), []
+    Q = q.src.shape[1]
+    dirs = {k: _direction_scores(table, rtab, q, k) for k in ("tail", "head")}
+    for b in range(table.shape[0]):
+        real = torch.nonzero(q.mask[b] > 0)[:, 0]
+        if real.numel() == 0:
+            continue
+        qi, direction = int(real[0]), ("tail", "head")[b % 2]
+        sc, target, known = dirs[direction]
+        row, t = sc[b, qi], int(target[b, qi])
+        margin = 1e-3 * float(row.abs().max())
+        ok = ~known[b, qi] & (row < row[t] - margin)
+        ok[int(q.src[b, qi])] = ok[int(q.dst[b, qi])] = False
+        cols = torch.nonzero(ok)[:, 0]
+        cols = cols[torch.argsort(row[cols])][:n_copies]
+        planted[b, cols] = table[b, t]
+        picks.append((b, qi + (Q if direction == "tail" else 0)))
+    return planted, picks
+
+
+def phase_k11(ctx) -> dict:
+    """K11 against its plain version on one eval batch at full width: ranks
+    equal on every real query but the counted near-ties, the BCE to
+    SCALED_TOL relative; its ranking half on a table with copies of target
+    rows planted (they must not count); beside it the unfused eval of the
+    batch (forward_element and eval_ranks_single, one element at a time)."""
+    import torch
+
+    from temp_tpu_torch.models.objectives import eval_ranks_single
+    from temp_tpu_torch.ops.fused_final import (
+        _encoder_plain, fused_eval_ranks, fused_eval_ranks_plain,
+        table_ranks, table_ranks_plain,
+    )
+
+    dev, eb = ctx["device"], eval_batch(ctx)
+    args, q = eb["args"], eb["q"]
+    h0, hist1, hist2, gr, _, wrel, loop1, loop2, g1, g2, rtab = args
+    with torch.no_grad():
+        ranks, mask, bce = fused_eval_ranks(*args)
+        r_p, m_p, bce_p = fused_eval_ranks_plain(*args)
+        table, _ = _encoder_plain(h0, hist1, hist2, gr, wrel, loop1, loop2,
+                                  g1, g2)
+        near = near_ties(table, rtab, q) & mask
+        if not torch.equal(mask, m_p):
+            raise AssertionError("K11: query masks differ")
+        off = (ranks != r_p) & mask
+        if bool((off & ~near).any()):
+            raise AssertionError(f"K11: {int((off & ~near).sum())} ranks "
+                                 f"differ from the plain version's away "
+                                 f"from a near-tie")
+        bce_err = float(((bce - bce_p).abs()
+                         / bce_p.abs().clamp(min=1e-30)).max())
+        if not (bce_err <= SCALED_TOL and bool(torch.isfinite(bce).all())):
+            raise AssertionError(f"K11: BCE relative error {bce_err} > "
+                                 f"{SCALED_TOL}")
+        # planted copies of the targets' rows: the ranking half on the
+        # plain table, before and after
+        planted, picks = plant_copies(table, rtab, q)
+        before, _, _ = table_ranks(table, rtab, q)
+        after, _, _ = table_ranks(planted, rtab, q)
+        moved = [(b, c) for b, c in picks
+                 if int(after[b, c]) != int(before[b, c])]
+        if moved or not picks:
+            raise AssertionError(f"K11: planted copies counted at {moved}")
+        plain_after, _, _ = table_ranks_plain(planted, rtab, q)
+        plain_agrees = sum(int(plain_after[b, c]) == int(after[b, c])
+                           for b, c in picks)
+
+    model, data, p, cfg = (ctx["model"], ctx["trainer"].data, ctx["params"],
+                           ctx["cfg"])
+    hist1_, hist2_, last_pos = eb["hists"]
+    t_host = [int(t) for t in eb["tp"]]
+    ev = data.valid
+
+    def unfused():
+        return [eval_ranks_single(
+            cfg, data, model.score_all, model.score_single, p["rel_embeds"],
+            model.forward_element(p, data, t, hists=(hist1_[b], hist2_[b],
+                                                     last_pos[b])),
+            t, ev.src[t], ev.rel[t], ev.dst[t], ev.emask[t])
+            for b, t in enumerate(t_host)]
+
+    B, N, d = hist1.shape
+    Q, E = q.src.shape[1], gr.src.shape[1]
+    n_q = float(q.mask.sum())
+    edges = float(gr.emf.sum())
+    # per element two layers of 14 N d^2 (K3's count: four GRU gate
+    # products and a self-loop product a row) and the SpMMs, then both
+    # directions' scores of each real query against all N rows; the
+    # history, input rows, weights and queries read once, the ranks and
+    # BCE written once
+    flops = B * 2 * 14 * N * d * d + 2 * edges * 3 * d + 2 * n_q * N * 2 * d
+    nbytes = 4 * (2 * B * N * d + N * d + 2 * B * N + wrel.numel()
+                  + 2 * 7 * d * d + rtab.numel() + 5 * B * (E + Q)
+                  + 2 * B * Q + B)
+    bound_ms, bound_by = _bound(flops, nbytes)
+    with torch.no_grad():
+        out = {"shape": f"B={B} N={N} E={E} Q={Q} d={d} real queries="
+                        f"{int(n_q)}",
+               "max_abs_err": float((bce - bce_p).abs().max()),
+               "bce_rel_err": bce_err, "rank_mismatches": int(off.sum()),
+               "near_ties": int(near.sum()),
+               "planted": len(picks), "planted_plain_agrees": plain_agrees,
+               "ms": time_ms(lambda: fused_eval_ranks(*args), dev, reps=10),
+               "plain_ms": time_ms(lambda: fused_eval_ranks_plain(*args),
+                                   dev, reps=5),
+               "unfused_ms": time_ms(unfused, dev, reps=3),
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+    print(f"  K11: {out}", flush=True)
+    return out
+
+
+def phase_path_fused_eval(ctx, path: dict) -> dict:
+    """The valid sweep with fused_eval on (kernels, then plain versions):
+    MRR within MRR_TOL of each other and of `path`'s, the default sweep."""
+    res = phase_path(ctx, fused_eval=True)
+    k = res["kernels"]
+    gap = abs(k["mrr"] - path["kernels"]["mrr"])
+    if not gap <= MRR_TOL:
+        raise AssertionError(f"fused eval MRR {k['mrr']} vs the unfused "
+                             f"sweep's {path['kernels']['mrr']}")
+    res["mrr_gap_to_path"] = gap
+    res["k11_launches"] = k["launches"]["fused_eval_ranks"]
+    return res
+
+
+def phase_mb(ctx, fctx) -> dict:
+    """fused_window_mb on: K12's forward against its plain version (and
+    K2f's output) on a training batch of windows; 8 fused training steps of
+    GRRGCN and of the flagship and a GRRGCN valid sweep, held to the runs
+    of `train`, `flagship_train` and `path` without the switch."""
+    import numpy as np
+    import torch
+
+    from temp_tpu_torch.ops.fused_window import (
+        fused_window_fwd, window_args,
+    )
+    from temp_tpu_torch.ops.fused_window_mb import (
+        fused_window_mb_fwd, fused_window_mb_fwd_plain,
+    )
+
+    dev, p, cfg = ctx["device"], ctx["params"], ctx["cfg"]
+    win, kw = window_batch(ctx, False)
+    kw.pop("conv1_in")
+    B, L1, A, d = kw["h0_xs"].shape
+    keep = 1.0 - cfg.dropout
+    gen = torch.Generator(device=dev).manual_seed(0)
+    masks = tuple((torch.rand(B, L1, A, d, generator=gen, device=dev) < keep)
+                  .to(torch.float32) / keep for _ in range(2))
+    fwd_args = dict(window_args(p["encoder"], cfg, masks=masks, **kw),
+                    conv1_in=False)
+    with torch.no_grad():
+        got = fused_window_mb_fwd(**fwd_args)
+        ref = fused_window_mb_fwd_plain(**fwd_args)
+        k2f = fused_window_fwd(**fwd_args)
+    err = max(max_err(x, y) for x, y in zip(got, ref))
+    if not err <= TOL:
+        raise AssertionError(f"K12: max abs err {err} > {TOL}")
+    bound_ms, bound_by = _window_bound(ctx, win, False, masks=True)
+    with torch.no_grad():
+        res = {"k12": {
+            "shape": f"B={B} L1={L1} A={A} E={ctx['E']} d={d}, train mode",
+            "max_abs_err": err,
+            "same_as_k2f": all(torch.equal(x, y) for x, y in zip(got, k2f)),
+            "ms": time_ms(lambda: fused_window_mb_fwd(**fwd_args), dev,
+                          reps=5),
+            "plain_ms": time_ms(lambda: fused_window_mb_fwd_plain(
+                **fwd_args), dev, reps=2),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}}
+    print(f"  K12: {res['k12']}", flush=True)
+
+    for tag, c, flagship in (("train", ctx, False),
+                             ("flagship_train", fctx, True)):
+        mb_cfg = c["cfg"].replace(fused_window_mb=True)
+        model, r, _, finals, _, _ = _train_path(c, mb_cfg)
+        if not model.fused_window_mb_on(mb_cfg.train_seq_len, train=True):
+            raise AssertionError(f"mb {tag}: the batched window is off")
+        ref = c["train_ref"]
+        x, y = np.array(r["losses"]), np.array(ref["losses"])
+        r["loss_gap"] = float(np.max(np.abs(x - y)
+                                     / np.maximum(1.0, np.abs(y))))
+        r["bitwise"] = bool(np.array_equal(x, y)) and all(
+            torch.equal(a, b) for a, b in zip(finals, ref["params"]))
+        r["param_gap"] = max(
+            float((a - b).norm()) / max(float((b - i).norm()), 1e-30)
+            for a, b, i in zip(finals, ref["params"], ref["init"]))
+        if not (np.isfinite(x).all() and r["loss_gap"] <= TRAIN_TOL
+                and r["param_gap"] <= PARAM_TOL):
+            raise AssertionError(f"mb {tag}: differs from the run without "
+                                 f"the switch: {r}")
+        n = r["launches"]
+        want = _train_kernels(flagship, mb=True)["fused"]
+        if dev.type == "cuda" and not (all(n[k] > 0 for k in want)
+                                       and n["fused_window_fwd"] == 0):
+            raise AssertionError(f"mb {tag} missed a kernel: {n}")
+        res[tag] = r
+        print(f"  mb {tag}: {r}", flush=True)
+
+    m, ranks, mask = _sweep(ctx, cfg.replace(fused_window_mb=True))
+    rk, mk = ctx["path_runs"]["kernels"]
+    m["ranks_equal"] = bool(np.array_equal(mask, mk)
+                            and np.array_equal(ranks[mask], rk[mk]))
+    if not m["ranks_equal"]:
+        raise AssertionError(f"mb eval: ranks differ from the sweep without "
+                             f"the switch: {m}")
+    n = m["launches"]
+    if dev.type == "cuda" and not (n["fused_window_mb_fwd"] > 0
+                                   and n["fused_window_fwd"] == 0):
+        raise AssertionError(f"mb eval missed K12: {n}")
+    res["eval"] = m
+    print(f"  mb eval: {m}", flush=True)
+    return res
+
+
 _KERNELS = (
     ("spmm_fwd", "temp_tpu_torch/csrc/spmm.cu",
      "temp_tpu/ops/pallas_spmm.py:110"),
@@ -1313,22 +1668,46 @@ _KERNELS = (
      "temp_tpu/ops/fused_final_bi.py:252"),
     ("bi_layer_bwd", "temp_tpu_torch/csrc/fused_final_bi.cu",
      "temp_tpu/ops/fused_final_bi.py:305,388"),
+    ("fused_eval_ranks", "temp_tpu_torch/csrc/fused_final.cu",
+     "temp_tpu/ops/fused_final.py:547"),
+    ("fused_window_mb_fwd", "temp_tpu_torch/csrc/fused_window.cu",
+     "temp_tpu/ops/fused_window_mb.py:78"),
 )
 
 # the path whose run gives each kernel's "launches"
 _HOME = {"spmm_fwd": "eval", "spmm_bwd": "train_unfused",
          "bi_layer_fwd": "flagship_train_fused",
          "bi_loss_fwd": "flagship_train_fused",
-         "bi_layer_bwd": "flagship_train_fused"}
+         "bi_layer_bwd": "flagship_train_fused",
+         "fused_eval_ranks": "eval_fused",
+         "fused_window_mb_fwd": "train_fused_mb"}
+
+
+def _paths(res: dict) -> dict:
+    """Every path the phases ran with the kernels -> its launch counts."""
+    out = {}
+    for prefix, key in (("", "train"), ("flagship_", "flagship_train")):
+        for p in ("fused", "unfused"):
+            out[f"{prefix}train_{p}"] = res[key][p]["launches"]
+    out["eval"] = res["path"]["kernels"]["launches"]
+    out["flagship_eval"] = res["flagship_path"]["kernels"]["launches"]
+    out["eval_fused"] = res["path_fused_eval"]["kernels"]["launches"]
+    out["eval_mb"] = res["mb"]["eval"]["launches"]
+    out["train_fused_mb"] = res["mb"]["train"]["launches"]
+    out["flagship_train_fused_mb"] = res["mb"]["flagship_train"]["launches"]
+    return out
 
 
 def kernels_line(res: dict) -> dict:
     """One record per kernel from the phases' results `res` (keyed by phase
     name): its numbers at the main paths' shapes, its launches on each path
     (``launches_by_path``: the eval sweeps and each training path of GRRGCN
-    and of the flagship), and as ``launches`` those of the path that runs it
-    (GRRGCN's fused training path; the eval sweep for K1f, the unfused
-    training path for K1b, the flagship's fused training path for K6-K10)."""
+    and of the flagship, with and without the switches that are off by
+    default), and as ``launches`` those of the path that runs it (GRRGCN's
+    fused training path; the eval sweep for K1f, the unfused training path
+    for K1b, the flagship's fused training path for K6-K10, the fused eval
+    sweep for K11, the fused training path with the batched window for
+    K12)."""
     measured = {"spmm_fwd": res["k1"]["final"], "spmm_bwd": res["k1b"],
                 "fused_window_fwd": res["k2"]["conv1_in"],
                 "fused_window_bwd": res["k2b"]["bwd"],
@@ -1336,23 +1715,13 @@ def kernels_line(res: dict) -> dict:
                 "fused_final_bwd_loss": res["k4"],
                 "fused_final_bwd_layer": res["k5"],
                 "bi_layer_fwd": res["k6k7"], "bi_loss_fwd": res["k8"],
-                "bi_layer_bwd": res["k9k10"]}
+                "bi_layer_bwd": res["k9k10"], "fused_eval_ranks": res["k11"],
+                "fused_window_mb_fwd": res["mb"]["k12"]}
+    paths = _paths(res)
     rec = []
     for name, src, replaces in _KERNELS:
         m = measured[name]
-        by_path = {}
-        for prefix, train in (("", res["train"]),
-                              ("flagship_", res["flagship_train"])):
-            for p in ("fused", "unfused"):
-                n = train[p]["launches"].get(name)
-                if n is not None:
-                    by_path[f"{prefix}train_{p}"] = n
-        for prefix, path in (("", res["path"]),
-                             ("flagship_", res["flagship_path"])):
-            key = {"spmm_fwd": "k1_launches",
-                   "fused_window_fwd": "k2_launches"}.get(name)
-            if key:
-                by_path[f"{prefix}eval"] = path["kernels"][key]
+        by_path = {path: n[name] for path, n in paths.items()}
         r = {"name": name, "route": "cuda", "source": src,
              "replaces": replaces,
              "launches": by_path[_HOME.get(name, "train_fused")],
@@ -1370,6 +1739,8 @@ def kernels_line(res: dict) -> dict:
                 d: {k: res["k2_flagship"][d][f"{part}_{k}"] for k in (
                     "ms", "plain_ms", "bound_ms")}
                 for d in ("fwd", "bwd")}
+        if name == "fused_eval_ranks":
+            r["unfused_ms"] = m["unfused_ms"]
         rec.append(r)
     return {"kernels": rec}
 
@@ -1442,6 +1813,22 @@ def main() -> int:
         for name, _ in _PATHS:
             ft[f"ms_per_step_{name}"] = ft[name]["ms_per_step"]
     res["flagship_train"] = ft
+    with phase("k11", {}) as k11:
+        k11.update(phase_k11(ctx))
+    res["k11"] = k11
+    with phase("path_fused_eval", {}) as pf:
+        pf.update(phase_path_fused_eval(ctx, pa))
+        for name in ("kernels", "plain"):
+            pf[f"mrr_{name}"] = pf[name]["mrr"]
+            pf[f"wall_s_{name}"] = pf[name]["wall_s"]
+            pf[f"queries_per_s_{name}"] = pf[name]["queries_per_s"]
+    res["path_fused_eval"] = pf
+    with phase("mb", {}) as mb:
+        mb.update(phase_mb(ctx, fctx))
+        mb["train_bitwise"] = mb["train"]["bitwise"]
+        mb["flagship_train_bitwise"] = mb["flagship_train"]["bitwise"]
+        mb["eval_ranks_equal"] = mb["eval"]["ranks_equal"]
+    res["mb"] = mb
     _state["phase"] = "report"
     print(json.dumps(kernels_line(res)), flush=True)
     print(f"total_s={time.perf_counter() - t_start:.3f}", flush=True)

@@ -104,6 +104,12 @@ SIGNATURES = {
     "final_wgrad_launch": [_P] * 7 + [_I] * 4 + [_P],
     # final_wgrad_reduce(part, n_split, total, out, stream)
     "final_wgrad_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],
+    # final_ranks(table, rtab, qsrc, qdst, qrel, qmask, t_ptr, t_ans, h_ptr,
+    #             h_ans, part_cnt, tgt_tail, B, N, Q, d, n_split, stream)
+    "final_ranks_launch": [_P] * 12 + [_I] * 5 + [_P],
+    # final_rank_reduce(part_cnt, tgt_tail, qmask, ranks, bce, B, Q, n_split,
+    #                   stream)
+    "final_rank_reduce_launch": [_P] * 5 + [_I] * 3 + [_P],
     # bi_layer(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask, relu,
     #          wih_f, whh_f, bih_f, bhh_f, wih_b, whh_b, bih_b, bhh_b, dt_f,
     #          dt_b, lam, prev_f, prev_b, active, hl_f, hl_b, imp, sel_x, out,

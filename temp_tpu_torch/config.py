@@ -32,10 +32,6 @@ import torch
 # fields whose non-default values select paths the port has not ported:
 # (name, default, what that value needs)
 _UNPORTED = (
-    ("fused_window_mb", False, "kernel K12, the batched window kernel "
-     "(temp_tpu/ops/fused_window_mb.py:_fwd_kernel_mb)"),
-    ("fused_eval", False, "kernel K11, the fused eval kernel "
-     "(temp_tpu/ops/fused_final.py:_eval_kernel)"),
     ("dp_size", 1, "data parallelism (temp_tpu/parallel/)"),
     ("mp_size", 1, "model parallelism (temp_tpu/parallel/)"),
     ("distributed", False, "multi-process training (temp_tpu/parallel/)"),
@@ -121,6 +117,9 @@ class TKGConfig:
     # CUDA when the config lies inside the kernel's envelope
     fused_window: object = "auto"
     fused_final: object = "auto"
+    # the whole batch's history windows as one batched window call (K12,
+    # ops/fused_window_mb.py) and the fused eval of the final step and
+    # ranks (K11, ops/fused_final.py); off by default, as in the JAX package
     fused_window_mb: object = False
     fused_eval: object = False
 
@@ -148,6 +147,15 @@ class TKGConfig:
         """The fused dense final step and loss (kernels K3-K5); an explicit
         on runs their plain versions on the CPU."""
         return self._auto_flag(self.fused_final, device)
+
+    def fused_window_mb_on(self, device) -> bool:
+        """The batched window (K12); "auto" is on for CUDA."""
+        return self._auto_flag(self.fused_window_mb, device)
+
+    def fused_eval_on(self, device) -> bool:
+        """The fused eval (K11); an explicit on runs its plain version on
+        the CPU."""
+        return self._auto_flag(self.fused_eval, device)
 
     def __post_init__(self):
         for name, default, what in _UNPORTED:

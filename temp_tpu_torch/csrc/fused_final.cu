@@ -1,6 +1,6 @@
 // The dense final step and the exact-softmax loss of GRRGCN training, for a
 // batch of B target snapshots: forward (K3), loss backward (K4) and layer
-// backward (K5).
+// backward (K5); and the fused filtered eval of B snapshots (K11).
 //
 // K3 replaces the TPU kernel temp_tpu/ops/fused_final.py:_fwd_kernel, which
 // runs one batch element as one program: layer 1 (relational SpMM with the
@@ -38,10 +38,24 @@
 // cotangents, the weight cotangents over B*N rows in 32 ranges, their sum,
 // and the relation sum.
 //
-// What bounds all three on an H100: f32 arithmetic. Per element K3 does
+// K11 replaces _eval_kernel, the forward-only eval of one element: the
+// final encoder in eval mode (no dropout, the full edge mask), the ComplEx
+// query of each eval query slot in both directions, its scores against
+// every entity with the other true answers (the total filter table: the
+// facts of all splits at t) at -1e7, the filtered rank as 1 + the count of
+// strictly greater scores, and the BCE of the positives. Here: K3's
+// final_layer_kernel twice, then final_ranks_kernel (shaped like
+// final_scores_kernel: for a tile of 64 query slots, one direction and one
+// of 8 ranges of entity columns, a count per slot instead of a running
+// max and sum) and final_rank_reduce_kernel (per element: the counts into
+// ranks, and the BCE). Nothing but the ranks and the BCE leaves the card:
+// the [B, 2, Q, N] scores are never stored.
+//
+// What bounds all four on an H100: f32 arithmetic. Per element K3 does
 // four [N, d] x [d, 3d] GRU products, two [N, d] x [d, d] self-loop products
 // and two [E, d] x [d, N] score products; K4 four score-sized products; K5
-// per layer about three times the layer's forward. The bytes (the history,
+// per layer about three times the layer's forward; K11 K3's layers and two
+// [Q, d] x [d, N] score products. The bytes (the history,
 // the tables, the weights) are a small fraction of that at d = 128.
 //
 // What the design does about that. Every launch covers the whole batch (b
@@ -49,8 +63,11 @@
 // thread 4 x 4, plain FMA; wgmma/TF32 is left for later work. Every sum
 // across blocks goes through per-block partials and an ordered second pass,
 // and no kernel uses atomics, so runs repeat bit for bit. The true answers
-// come as a sorted list per edge slot, built once with the data; a block
-// turns them into a 64-bit mask per query and column tile.
+// come as a sorted list per edge or query slot, built once with the data; a
+// block turns them into a 64-bit mask per query and column tile. K11's
+// rank counts the target's own column out explicitly and scores the target
+// by the tile's own chain of fused multiply-adds, so that neither the target
+// nor a column equal to it counts against it.
 
 #include <math.h>
 
@@ -100,7 +117,9 @@ __device__ __forceinline__ LossSmem loss_smem(int d) {
   return s;
 }
 
-// acc[ii][jj] = qs[ty + 16 ii] . ts[tx + 16 jj]
+// acc[ii][jj] = qs[ty + 16 ii] . ts[tx + 16 jj], as one chain of fused
+// multiply-adds over k = 0..d-1 from 0 (final_ranks_kernel repeats the
+// chain for the target's score)
 __device__ __forceinline__ void score_tile(const float* qs, const float* ts,
                                            int d, int ty, int tx,
                                            float acc[kSub][kSub]) {
@@ -118,7 +137,7 @@ __device__ __forceinline__ void score_tile(const float* qs, const float* ts,
 #pragma unroll
     for (int i = 0; i < kSub; ++i)
 #pragma unroll
-      for (int j = 0; j < kSub; ++j) acc[i][j] += a[i] * b[j];
+      for (int j = 0; j < kSub; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
@@ -176,6 +195,12 @@ __device__ __forceinline__ float max16(float v) {
 }
 
 __device__ __forceinline__ float sum16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+__device__ __forceinline__ int isum16(int v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
@@ -689,6 +714,159 @@ __global__ void final_wgrad_reduce_kernel(const float* __restrict__ part,
   wgrad_reduce_one(part, n_split, total, out);
 }
 
+// -- K11 ---------------------------------------------------------------------
+
+// A true answer's score in the ranks (ops/ranking.py NEG_INF).
+constexpr float kNegRank = -1.0e7f;
+
+// Block (query tile, column range) x direction x element of the fused
+// eval. For each of its 64 query slots with qmask > 0: the query row (as
+// final_scores_kernel builds it) and the target's score by the same chain
+// of fused multiply-adds as score_tile, so that a column whose row equals
+// the target's scores exactly the same and does not count; then over the
+// range's column tiles the count of the columns other than the target whose
+// score, -1e7 at a true answer, is strictly greater. Range 0's tail blocks
+// also write each target's tail score, which the BCE reads.
+__global__ void final_ranks_kernel(
+    const float* __restrict__ table, const float* __restrict__ rtab,
+    const int* __restrict__ qsrc, const int* __restrict__ qdst,
+    const int* __restrict__ qrel, const float* __restrict__ qmask,
+    const int* __restrict__ t_ptr, const int* __restrict__ t_ans,
+    const int* __restrict__ h_ptr, const int* __restrict__ h_ans,
+    int* __restrict__ part_cnt, float* __restrict__ tgt_tail, int N, int Q,
+    int d, int n_split, int chunk) {
+  LossSmem s = loss_smem(d);
+  const int ds = d + 1, d2 = d / 2;
+  const int n_qt = (Q + kQ - 1) / kQ;
+  const int split = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * kQ;
+  const int dir = blockIdx.y, b = blockIdx.z;
+  const int c_begin = min(N, split * chunk), c_end = min(N, c_begin + chunk);
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const float* tb = table + (long long)b * N * d;
+  const float* qm = qmask + (long long)b * Q;
+  const int* ans = dir == 0 ? t_ans : h_ans;
+
+  for (int i = warp; i < kQ; i += kLossThreads / kWarp) {
+    const int q = q0 + i;
+    if (q < Q && qm[q] > 0.f) {
+      const long long bq = (long long)b * Q + q;
+      const float* sr = tb + (long long)qsrc[bq] * d;
+      const float* orow = tb + (long long)qdst[bq] * d;
+      const float* r = rtab + (long long)qrel[bq] * d;
+      for (int c = lane; c < d2; c += kWarp) {
+        float re, im;
+        if (dir == 0) {
+          re = sr[c] * r[c] - sr[c + d2] * r[c + d2];
+          im = sr[c] * r[c + d2] + sr[c + d2] * r[c];
+        } else {
+          re = r[c] * orow[c] + r[c + d2] * orow[c + d2];
+          im = r[c] * orow[c + d2] - r[c + d2] * orow[c];
+        }
+        s.qs[i * ds + c] = re;
+        s.qs[i * ds + c + d2] = im;
+      }
+    } else {
+      for (int c = lane; c < d; c += kWarp) s.qs[i * ds + c] = 0.f;
+    }
+  }
+  __syncthreads();
+  if (tid < kQ) {
+    const int q = q0 + tid;
+    float acc = 0.f;
+    if (q < Q && qm[q] > 0.f) {
+      const long long bq = (long long)b * Q + q;
+      const float* trow = tb + (long long)(dir == 0 ? qdst[bq] : qsrc[bq]) * d;
+      for (int k = 0; k < d; ++k) acc = fmaf(s.qs[tid * ds + k], trow[k], acc);
+      if (dir == 0 && split == 0) tgt_tail[bq] = acc;
+    }
+    s.w[tid] = acc;
+  }
+  init_cursors(s, (dir == 0 ? t_ptr : h_ptr) + (long long)b * (Q + 1), ans,
+               qm, q0, Q, c_begin);
+  __syncthreads();
+
+  const int ty = tid / 16, tx = tid % 16;
+  bool on[kSub];
+  int target[kSub], cnt[kSub];
+  float tgt[kSub];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const int q = q0 + ty + 16 * i;
+    on[i] = q < Q && qm[q] > 0.f;
+    const long long bq = (long long)b * Q + q;
+    target[i] = on[i] ? (dir == 0 ? qdst[bq] : qsrc[bq]) : -1;
+    tgt[i] = s.w[ty + 16 * i];
+    cnt[i] = 0;
+  }
+  for (int c0 = c_begin; c0 < c_end; c0 += kC) {
+    __syncthreads();
+    load_rows(s.ts, tb, c0, c_end, d);
+    next_masks(s, ans, c0);
+    __syncthreads();
+    float acc[kSub][kSub];
+    score_tile(s.qs, s.ts, d, ty, tx, acc);
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      if (!on[i]) continue;
+      const unsigned long long bits = s.mb[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const int c = tx + 16 * j;
+        if (c0 + c >= c_end || c0 + c == target[i]) continue;
+        const float v = ((bits >> c) & 1ull) ? kNegRank : acc[i][j];
+        cnt[i] += v > tgt[i] ? 1 : 0;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    const int tot = isum16(cnt[i]);
+    const int q = q0 + ty + 16 * i;
+    if (tx == 0 && q < Q)
+      part_cnt[(((long long)b * 2 + dir) * n_split + split) * Q + q] = tot;
+  }
+}
+
+// One block per element: each query slot's rank, 1 + its counts summed
+// over the column ranges (1 for a slot with qmask 0), into the [head ranks,
+// tail ranks] layout; and the BCE of the positives, the mean over the
+// masked slots of softplus(-tail score), summed by a fixed tree.
+__global__ void final_rank_reduce_kernel(
+    const int* __restrict__ part_cnt, const float* __restrict__ tgt_tail,
+    const float* __restrict__ qmask, int* __restrict__ ranks,
+    float* __restrict__ bce, int Q, int n_split) {
+  __shared__ float red_l[kLossThreads], red_n[kLossThreads];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  float l = 0.f, n = 0.f;
+  for (int q = tid; q < Q; q += kLossThreads) {
+    const long long bq = (long long)b * Q + q;
+    for (int dir = 0; dir < 2; ++dir) {
+      int c = 0;
+      for (int sp = 0; sp < n_split; ++sp)
+        c += part_cnt[(((long long)b * 2 + dir) * n_split + sp) * Q + q];
+      ranks[(long long)b * 2 * Q + (dir == 0 ? Q : 0) + q] = 1 + c;
+    }
+    const float m = qmask[bq];
+    if (m > 0.f) {
+      const float x = -tgt_tail[bq];
+      l += m * (x > 20.f ? x : log1pf(expf(x)));  // torch's softplus
+      n += m;
+    }
+  }
+  red_l[tid] = l;
+  red_n[tid] = n;
+  __syncthreads();
+  for (int w = kLossThreads / 2; w > 0; w >>= 1) {
+    if (tid < w) {
+      red_l[tid] += red_l[tid + w];
+      red_n[tid] += red_n[tid + w];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) bce[b] = red_l[0] / fmaxf(red_n[0], 1.f);
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -933,6 +1111,45 @@ extern "C" int final_wgrad_reduce_launch(const void* part, int n_split,
                                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(part), n_split, total,
         static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int final_ranks_launch(
+    const void* table, const void* rtab, const void* qsrc, const void* qdst,
+    const void* qrel, const void* qmask, const void* t_ptr,
+    const void* t_ans, const void* h_ptr, const void* h_ans, void* part_cnt,
+    void* tgt_tail, int B, int N, int Q, int d, int n_split, void* stream) {
+  if (B > 0 && Q > 0) {
+    const size_t smem = loss_smem_floats(d, false) * sizeof(float);
+    cudaError_t err = allow_smem(final_ranks_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(((Q + kQ - 1) / kQ) * n_split, 2, B);
+    final_ranks_kernel<<<grid, kLossThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(table), static_cast<const float*>(rtab),
+        static_cast<const int*>(qsrc), static_cast<const int*>(qdst),
+        static_cast<const int*>(qrel), static_cast<const float*>(qmask),
+        static_cast<const int*>(t_ptr), static_cast<const int*>(t_ans),
+        static_cast<const int*>(h_ptr), static_cast<const int*>(h_ans),
+        static_cast<int*>(part_cnt), static_cast<float*>(tgt_tail), N, Q, d,
+        n_split, loss_chunk(N, n_split));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int final_rank_reduce_launch(const void* part_cnt,
+                                        const void* tgt_tail,
+                                        const void* qmask, void* ranks,
+                                        void* bce, int B, int Q, int n_split,
+                                        void* stream) {
+  if (B > 0) {
+    final_rank_reduce_kernel<<<B, kLossThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(part_cnt),
+        static_cast<const float*>(tgt_tail),
+        static_cast<const float*>(qmask), static_cast<int*>(ranks),
+        static_cast<float*>(bce), Q, n_split);
   }
   return static_cast<int>(cudaGetLastError());
 }

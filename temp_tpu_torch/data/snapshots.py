@@ -116,14 +116,16 @@ class HistoryTables:
 
 @dataclass
 class AnswerLists:
-    """The true answers of each train edge slot's query, as one list a slot
-    (the fused final step's loss masks them).
+    """The true answers of each edge slot's query of one split, as one list
+    a slot (the fused final step's loss masks them for the train slots, the
+    fused eval's ranks for the valid and test slots).
 
     For slot e of time position t, ``tail_val[tail_ptr[t, e]:tail_ptr[t,
     e + 1]]`` (sorted ascending) are the entities c with (group, c) in the
-    train filter table at t, group = head * 2R + rel: the train filter
-    table's lookup for the slot's tail query, the slot's own tail among
-    them. ``head_*`` the same for the head query (group = tail * 2R + rel).
+    split's filter table at t, group = head * 2R + rel: the train filter
+    table for the train slots, the total table (the facts of all three
+    splits) for the valid and test slots, the slot's own tail among them.
+    ``head_*`` the same for the head query (group = tail * 2R + rel).
     Padded slots have empty lists.
     """
 
@@ -234,17 +236,20 @@ def _filter_tables(quads: np.ndarray, times: np.ndarray, num_rels: int,
     return pack(per_time_tail), pack(per_time_head)
 
 
-def build_answer_lists(data: TKGData) -> AnswerLists:
-    """Host-side construction (numpy) from the train edge slots; see
-    AnswerLists."""
-    train = data.train
+def build_answer_lists(data: TKGData, split: str = "train") -> AnswerLists:
+    """Host-side construction (numpy) for the edge slots of `split`
+    ("train", "valid" or "test"); see AnswerLists."""
+    edges = getattr(data, split)
+    tables = ((data.train_tail, data.train_head) if split == "train"
+              else (data.total_tail, data.total_head))
     r2 = 2 * data.num_rels
-    rel, n_edges = np.asarray(train.rel), np.asarray(train.n_edges)
+    rel, n_edges = np.asarray(edges.rel), np.asarray(edges.n_edges)
     T, e_pad = rel.shape
     out = {}
-    for name, grp_ids, val_ids in (("tail", train.src, train.dst),
-                                   ("head", train.dst, train.src)):
-        grp_ids, val_ids = np.asarray(grp_ids), np.asarray(val_ids)
+    for name, grp_ids, table in (("tail", edges.src, tables[0]),
+                                 ("head", edges.dst, tables[1])):
+        grp_ids = np.asarray(grp_ids)
+        t_grp, t_val = np.asarray(table.grp), np.asarray(table.val)
         ptr = np.zeros((T, e_pad + 1), np.int64)
         vals = []
         off = 0
@@ -253,14 +258,14 @@ def build_answer_lists(data: TKGData) -> AnswerLists:
             ptr[t] = off
             if k == 0:
                 continue
+            # the table's row is sorted by (group, value), padding last
             grp = grp_ids[t, :k].astype(np.int64) * r2 + rel[t, :k]
-            pairs = np.unique(np.stack([grp, val_ids[t, :k]], 1), axis=0)
-            lo = np.searchsorted(pairs[:, 0], grp, "left")
-            lens = np.searchsorted(pairs[:, 0], grp, "right") - lo
+            lo = np.searchsorted(t_grp[t], grp, "left")
+            lens = np.searchsorted(t_grp[t], grp, "right") - lo
             ends = np.cumsum(lens)
             idx = (np.repeat(lo, lens) + np.arange(ends[-1])
                    - np.repeat(ends - lens, lens))
-            vals.append(pairs[idx, 1])
+            vals.append(t_val[t][idx])
             ptr[t, 1:k + 1] = off + ends
             ptr[t, k + 1:] = off + ends[-1]
             off += int(ends[-1])

@@ -13,6 +13,9 @@ Training runs the final step and loss of the whole batch as one call of
 kernels K3-K5 (``ops/fused_final.py``) when ``fused_final`` is on and the
 config lies inside their envelope, else one element at a time
 (``forward_element`` and ``train_loss_single``), as the JAX package does.
+Eval does the same with kernel K11 when ``fused_eval`` is on, and with
+``fused_window_mb`` on the windows run through K12
+(``ops/fused_window_mb.py``) where the JAX package runs its batched window.
 
 Training draws every random choice of a step up front (``draw_train``):
 the self-loop dropout masks of the window and of the final step, the 50%
@@ -43,11 +46,14 @@ from temp_tpu_torch.models.objectives import (
     eval_ranks_single, train_loss_single,
 )
 from temp_tpu_torch.ops.fused_final import (
-    final_graph, fused_final_loss, fused_final_supported,
+    final_graph, final_graph_eval, final_weights, fused_eval_ranks,
+    fused_eval_ranks_plain, fused_eval_supported, fused_final_loss,
+    fused_final_supported,
 )
 from temp_tpu_torch.ops.fused_window import (
     fused_window_scan, fused_window_supported,
 )
+from temp_tpu_torch.ops.fused_window_mb import fused_window_scan_mb
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 from temp_tpu_torch.ops.scores import get_score_fn
 
@@ -127,9 +133,13 @@ class DynamicRGCNModel:
         self.tbl_bwd = (to_device(build_history_tables(
             data, self.train_len, backward=True), self.device)
             if cfg.module.startswith("Bi") else None)
-        # the train edge slots' true answers, the fused loss's mask
+        # the train edge slots' true answers, the fused loss's mask; the
+        # eval splits' query slots' (total table), the fused eval's
         self.answers: AnswerLists = to_device(build_answer_lists(data),
                                               self.device)
+        self.eval_answers: Dict[str, AnswerLists] = {
+            split: to_device(build_answer_lists(data, split), self.device)
+            for split in ("valid", "test")} if self.fused_eval_on() else {}
 
     # -- parameters ---------------------------------------------------------
 
@@ -166,6 +176,30 @@ class DynamicRGCNModel:
         return (self.cfg.fused_final_on(self.device)
                 and type(self) is DynamicRGCNModel
                 and fused_final_supported(
+                    self.cfg, _base_module(self.cfg.module),
+                    self.lc2.activation))
+
+    def fused_window_mb_on(self, length: int, train: bool = False) -> bool:
+        """Whether the windows of a batch run through the batched window
+        (K12): the dispatch of the JAX package's ``_use_mb`` and its
+        callers. The fused window is on and takes the config, the window
+        has steps, and training runs the fused final step (the batched
+        window only with it, as in JAX) or eval runs ``DynamicRGCNModel``
+        itself."""
+        if not (self.cfg.fused_window_mb_on(self.device) and length > 1
+                and self.fused_window_on(train)):
+            return False
+        return self.fused_final_on() if train else (
+            type(self) is DynamicRGCNModel)
+
+    def fused_eval_on(self) -> bool:
+        """Whether eval runs the final step and ranks through K11 (the
+        dispatch of the JAX package's ``eval_ranks``); the other models
+        evaluate one element at a time, as in JAX."""
+        return (self.cfg.fused_eval_on(self.device)
+                and type(self) is DynamicRGCNModel
+                and not self.cfg.use_time_embedding
+                and fused_eval_supported(
                     self.cfg, _base_module(self.cfg.module),
                     self.lc2.activation))
 
@@ -246,12 +280,19 @@ class DynamicRGCNModel:
             keep = 1.0 - self.lc1.dropout
             scaled = None if masks is None else tuple(
                 m.to(torch.float32) / keep for m in masks)
-            bufs = fused_window_scan(
-                params["encoder"], cfg, h0_xs, win.src_loc[:, :L1],
-                win.dst_loc[:, :L1], win.rel[:, :L1], win.emask[:, :L1],
-                prev_step, prev_row, dt, prev_step >= 0, conv1_in=conv1_in,
-                kernels=cfg.kernels, masks=scaled, direction=direction,
-                activation2=self.lc2.activation, n_buf=n_buf)
+            edges = (win.src_loc[:, :L1], win.dst_loc[:, :L1],
+                     win.rel[:, :L1], win.emask[:, :L1], prev_step,
+                     prev_row, dt, prev_step >= 0)
+            if self.fused_window_mb_on(length, train):
+                bufs = fused_window_scan_mb(
+                    params["encoder"], cfg, self.lc2, h0_xs, *edges, scaled,
+                    train, n_buf, direction=direction, conv1_in=conv1_in,
+                    kernels=cfg.kernels)
+            else:
+                bufs = fused_window_scan(
+                    params["encoder"], cfg, h0_xs, *edges, conv1_in=conv1_in,
+                    kernels=cfg.kernels, masks=scaled, direction=direction,
+                    activation2=self.lc2.activation, n_buf=n_buf)
         else:
             bufs = tuple(torch.zeros(B, L1, A, d, device=self.device)
                          for _ in range(n_buf))
@@ -429,13 +470,30 @@ class DynamicRGCNModel:
         [B, 2Q], mask [B, 2Q], mean bce loss).
 
         `conv1_all` [T, A, d]: the precomputed layer-1 convs
-        (precompute_eval_conv1), gathered by every window step."""
+        (precompute_eval_conv1), gathered by every window step. With
+        ``fused_eval_on`` the final steps and ranks of all B targets run as
+        one call of K11 (which runs layer 1 of the final snapshot itself),
+        else one target at a time."""
         edges = {"valid": data.valid, "test": data.test}[split]
         t_host = [int(t) for t in np.asarray(t_pos)]
         tp = torch.tensor(t_host, device=self.device)
         tv = torch.as_tensor(np.asarray(t_valid, bool), device=self.device)
         hists = self.batch_hists(params, data, tp, self.eval_len,
                                  conv1_all=conv1_all)
+        if self.fused_eval_on():
+            hist1, hist2, last_pos = hists
+            gr, q = final_graph_eval(
+                data, self.eval_answers[split], tp, last_pos,
+                self.cfg.inv_temperature, self.eval_len,
+                self.cfg.use_embed_for_non_active, split)
+            h0, wrel, loop1, loop2, g1, g2, rtab = final_weights(params)
+            run = fused_eval_ranks if self.cfg.kernels else (
+                fused_eval_ranks_plain)
+            ranks, mask, bces = run(h0, hist1.contiguous(),
+                                    hist2.contiguous(), gr, q, wrel, loop1,
+                                    loop2, g1, g2, rtab)
+            mask = mask & tv[:, None]
+            return ranks, mask, _mean_bce(bces, mask)
         out = []
         for b, t in enumerate(t_host):
             table = self.forward_element(
@@ -446,10 +504,13 @@ class DynamicRGCNModel:
                 edges.dst[t], edges.emask[t]))
         ranks = torch.stack([o[0] for o in out])
         mask = torch.stack([o[1] for o in out]) & tv[:, None]
-        bces = torch.stack([o[2] for o in out])
-        has_q = (mask.sum(1) > 0).to(torch.float32)
-        mean_bce = (bces * has_q).sum() / has_q.sum().clamp(min=1.0)
-        return ranks, mask, mean_bce
+        return ranks, mask, _mean_bce(torch.stack([o[2] for o in out]), mask)
+
+
+def _mean_bce(bces, mask):
+    """The mean of the per-element BCEs over the elements with a query."""
+    has_q = (mask.sum(1) > 0).to(torch.float32)
+    return (bces * has_q).sum() / has_q.sum().clamp(min=1.0)
 
 
 def _tree_to(tree, device):

@@ -1,4 +1,5 @@
-"""The dense final step and the exact-softmax loss: kernels K3, K4 and K5.
+"""The dense final step and the exact-softmax loss: kernels K3, K4 and K5;
+and the fused filtered eval, kernel K11.
 
 For a batch of B target snapshots, ``fused_final_fwd`` (K3) computes what
 the JAX package's ``fused_final_loss`` returns for each element: the
@@ -31,6 +32,16 @@ tables (``ops/membership.py``, as ``train_loss_single`` does); the kernels
 read the same answers as one sorted list per edge slot
 (``data/snapshots.py`` ``AnswerLists``), built once with the model from the
 data.
+
+``fused_eval_ranks`` (K11) computes what the JAX package's
+``fused_eval_ranks`` returns for each of B eval targets: the final step in
+eval mode (K3's two layer launches: no dropout, the full edge mask), the
+ComplEx scores of the split's query slots against the whole table in both
+directions with the other true answers of the TOTAL filter table at -1e7,
+the filtered ranks (1 + the count of strictly greater scores) and the BCE of
+the positives; ``table_ranks`` is its ranking half (two launches). Its
+plain version, ``fused_eval_ranks_plain``, is the port's unfused eval
+arithmetic (``eval_ranks_single``) batched over B.
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ import torch
 from temp_tpu_torch import _build
 from temp_tpu_torch.ops.fused_window import _gru_t
 from temp_tpu_torch.ops.membership import true_answer_mask
+from temp_tpu_torch.ops.ranking import filtered_ranks
+from temp_tpu_torch.ops.scores import complex_all, complex_single
 from temp_tpu_torch.ops.spmm import (
     _norm2_plain, build_csr, spmm_bwd_plain, spmm_fwd_plain,
 )
@@ -400,6 +413,27 @@ def final_csr(gr: FinalGraph, N: int, n_rels: int):
     return by_dst, by_src, (r_ptr[:n_rels + 1], r_eid), (r_ptr[n_rels:], r_eid)
 
 
+def _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr: FinalGraph,
+                    by_dst, wrel, loop1, loop2, g1, g2, out1, table):
+    """The final step's two encoder layers as two launches of
+    ``final_layer_kernel`` (K3's, and K11's encoder): layer 1 from h0x
+    [B, N, d] into out1, layer 2 from out1 into table, with the select where
+    gr.active is given; `by_dst` is the SpMM's CSR (``final_csr``'s first);
+    `launched(err, what)` checks and counts each launch."""
+    B, N, d = hist1.shape
+    rowptr, s_src, s_rel, s_em = by_dst
+    p = _p
+    for x, col, loop, m, g, prev, sel, out in (
+            (h0x, 0, loop1, gr.m1, g1, hist1, None, out1),
+            (out1, d, loop2, gr.m2, g2, hist2, gr.active, table)):
+        launched(lib.final_layer_launch(
+            p(x), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d,
+            col, p(loop), p(m), p(g["wih_t"]), p(g["whh_t"]), p(g["bih"]),
+            p(g["bhh"]), p(gr.dt), float(gr.lam), p(prev),
+            p(h0x if sel is not None else None), p(sel), p(out), B, N, d,
+            stream), f"layer {1 + col // d}")
+
+
 def fused_final_fwd(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
                     g2, rtab):
     """K3 for B elements. h0 [N, d] the input embeddings; hist1/hist2
@@ -424,7 +458,6 @@ def fused_final_fwd(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
     dev = hist1.device
     f32 = dict(device=dev, dtype=torch.float32)
     csr = final_csr(gr, N, max(wrel.shape[0], rtab.shape[0]))
-    rowptr, s_src, s_rel, s_em = csr[0]
     h0x = h0.expand(B, N, d).contiguous()
     out1 = torch.empty(B, N, d, **f32)
     table = torch.empty(B, N, d, **f32)
@@ -438,21 +471,13 @@ def fused_final_fwd(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
     lib = _build.lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _p
-    lam = float(gr.lam)
 
     def launched(err, what):
         _build.check(err, f"fused_final_fwd ({what})")
         fused_final_fwd.launches += 1
 
-    for x, col, loop, m, g, prev, sel, out in (
-            (h0x, 0, loop1, gr.m1, g1, hist1, None, out1),
-            (out1, d, loop2, gr.m2, g2, hist2, gr.active, table)):
-        launched(lib.final_layer_launch(
-            p(x), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d,
-            col, p(loop), p(m), p(g["wih_t"]), p(g["whh_t"]), p(g["bih"]),
-            p(g["bhh"]), p(gr.dt), lam, p(prev),
-            p(h0x if sel is not None else None), p(sel), p(out), B, N, d,
-            stream), f"layer {1 + col // d}")
+    _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr, csr[0],
+                    wrel, loop1, loop2, g1, g2, out1, table)
     answers = (p(gr.tail_ptr), p(gr.tail_ans), p(gr.head_ptr),
                p(gr.head_ans))
     launched(lib.final_scores_launch(
@@ -664,6 +689,16 @@ def fused_final_supported(cfg, base: str, activation2=None) -> bool:
     embedding, ComplEx, negative_pool "all"), with no ReLU on layer 2 (the
     GRRGCN of ``DynamicRGCNModel`` never sets it) and a width the kernels
     take."""
+    return (fused_eval_supported(cfg, base, activation2)
+            and cfg.negative_pool == "all")
+
+
+def fused_eval_supported(cfg, base: str, activation2=None) -> bool:
+    """Config-only envelope of K11 (and of its plain version): the JAX
+    package's ``fused_eval_supported`` without its VMEM bounds (plain GRRGCN
+    final step, diagonal relation weights, fixed decay, no time embedding,
+    ComplEx), with no ReLU on layer 2 and a width K3's layer launch takes
+    (d a multiple of 16, at most 128)."""
     d = cfg.embed_size
     return (base == "GRRGCN"
             and not cfg.rec_only_last_layer
@@ -674,7 +709,6 @@ def fused_final_supported(cfg, base: str, activation2=None) -> bool:
             and cfg.n_bases == d == cfg.hidden_size
             and d % 16 == 0 and d <= _MAX_D
             and cfg.score_function == "complex"
-            and cfg.negative_pool == "all"
             and not cfg.impute
             and activation2 is None)
 
@@ -743,3 +777,191 @@ def fused_final_loss(params, gr: FinalGraph, hist1, hist2,
         gr, h0, hist1, hist2, wrel, loop1, loop2, g1["wih_t"], g1["whh_t"],
         g1["bih"], g1["bhh"], g2["wih_t"], g2["whh_t"], g2["bih"], g2["bhh"],
         rtab)
+
+
+# -- K11: the fused filtered eval --------------------------------------------
+
+class EvalQueries(NamedTuple):
+    """The eval split's query slots of B elements (K11's ranks).
+
+    src/dst/rel [B, Q] int32 and mask [B, Q] float (1 for a real query,
+    0 for a padded slot). The true answers of each slot's tail and head
+    query from the TOTAL filter tables (the facts of all splits at t): as
+    the tables (the plain version; *_grp/*_val [B, F]) and as lists (the
+    kernels; *_ptr [B, Q + 1] into *_ans). r2: 2 * num_rels."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    rel: torch.Tensor
+    mask: torch.Tensor
+    tail_grp: torch.Tensor
+    tail_val: torch.Tensor
+    head_grp: torch.Tensor
+    head_val: torch.Tensor
+    tail_ptr: torch.Tensor
+    tail_ans: torch.Tensor
+    head_ptr: torch.Tensor
+    head_ans: torch.Tensor
+    r2: int
+
+
+def final_graph_eval(data, answers, t_pos, last_pos, lam: float, length: int,
+                     use_noact: bool, split: str):
+    """(FinalGraph, EvalQueries) of the eval targets t_pos [B] (a tensor on
+    the data's device): the encoder runs on the final snapshots' train
+    edges under their full mask (no subsample, no dropout) with dt =
+    (length - 1) - last_pos (last_pos [B, N] from ``pre_forward``) and, with
+    `use_noact`, the select's active rows; the fields of the graph that only
+    the training loss reads are None. The queries are the slots of `split`
+    with their true-answer lists `answers` (``build_answer_lists(data,
+    split)`` on that device)."""
+    tp = t_pos.long()
+    tr, ev = data.train, getattr(data, split)
+    i32, f32 = torch.int32, torch.float32
+    gr = FinalGraph(
+        src=tr.src[tp].to(i32).contiguous(),
+        dst=tr.dst[tp].to(i32).contiguous(),
+        rel=tr.rel[tp].to(i32).contiguous(),
+        emf=tr.emask[tp].to(f32).contiguous(), posm=None,
+        dt=((length - 1) - last_pos).to(f32).contiguous(),
+        active=(data.active[tp].to(f32).contiguous() if use_noact
+                else None),
+        m1=None, m2=None, tail_grp=None, tail_val=None, head_grp=None,
+        head_val=None, tail_ptr=None, tail_ans=None, head_ptr=None,
+        head_ans=None, lam=float(lam), r2=2 * data.num_rels)
+    q = EvalQueries(
+        src=ev.src[tp].to(i32).contiguous(),
+        dst=ev.dst[tp].to(i32).contiguous(),
+        rel=ev.rel[tp].to(i32).contiguous(),
+        mask=ev.emask[tp].to(f32).contiguous(),
+        tail_grp=data.total_tail.grp[tp], tail_val=data.total_tail.val[tp],
+        head_grp=data.total_head.grp[tp], head_val=data.total_head.val[tp],
+        tail_ptr=answers.tail_ptr[tp].to(i32).contiguous(),
+        tail_ans=answers.tail_val.to(i32).contiguous(),
+        head_ptr=answers.head_ptr[tp].to(i32).contiguous(),
+        head_ans=answers.head_val.to(i32).contiguous(),
+        r2=2 * data.num_rels)
+    return gr, q
+
+
+def table_ranks_plain(table, rtab, q: EvalQueries):
+    """Plain version of K11's ranking half: the port's ``eval_ranks_single``
+    batched over B. From the table [B, N, d] and the relation embeddings
+    rtab [R2, d]: (ranks [B, 2Q] int32 in the [head, tail] layout, mask
+    [B, 2Q] bool, bce [B])."""
+    bidx = torch.arange(table.shape[0], device=table.device)[:, None]
+    src, dst, rel = q.src.long(), q.dst.long(), q.rel.long()
+    s_rows, o_rows, remb = table[bidx, src], table[bidx, dst], rtab[rel]
+    ranks_tail = filtered_ranks(complex_all(s_rows, remb, table, "tail"), dst,
+                                q.tail_grp, q.tail_val, src * q.r2 + rel)
+    ranks_head = filtered_ranks(complex_all(o_rows, remb, table, "head"), src,
+                                q.head_grp, q.head_val, dst * q.r2 + rel)
+    m = (q.mask > 0).to(table.dtype)
+    sp = torch.nn.functional.softplus(-complex_single(s_rows, remb, o_rows))
+    bce = (sp * m).sum(-1) / m.sum(-1).clamp(min=1.0)
+    mask = q.mask > 0
+    return (torch.cat([ranks_head, ranks_tail], -1),
+            torch.cat([mask, mask], -1), bce)
+
+
+def fused_eval_ranks_plain(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries,
+                           wrel, loop1, loop2, g1, g2, rtab):
+    """Plain version of K11: ``_encoder_plain`` in eval mode, then
+    ``table_ranks_plain``. Arguments and result as in
+    ``fused_eval_ranks``."""
+    table, _ = _encoder_plain(h0, hist1, hist2, gr, wrel, loop1, loop2, g1,
+                              g2)
+    return table_ranks_plain(table, rtab, q)
+
+
+def _check_queries(name, q: EvalQueries, B, Q):
+    shapes = {"src": (B, Q), "dst": (B, Q), "rel": (B, Q), "mask": (B, Q),
+              "tail_ptr": (B, Q + 1), "head_ptr": (B, Q + 1)}
+    named = {k: getattr(q, k) for k in shapes}
+    named.update(tail_ans=q.tail_ans, head_ans=q.head_ans)
+    _check(name, named, shapes, _GRAPH_INTS)
+
+
+def table_ranks(table, rtab, q: EvalQueries):
+    """K11's ranking half, from the table [B, N, d]: the rank and reduce
+    launches, counted on ``fused_eval_ranks`` (on a CPU tensor the plain
+    version). Result as in ``fused_eval_ranks``."""
+    if _device("table_ranks", table) == "cpu":
+        return table_ranks_plain(table, rtab, q)
+    B, N, d = table.shape
+    Q = q.src.shape[1]
+    _check_queries("table_ranks", q, B, Q)
+    _check("table_ranks", {"table": table, "rtab": rtab},
+           {"rtab": (rtab.shape[0], d)})
+    if rtab.dim() != 2 or d > _MAX_D or d % 16:
+        raise ValueError(f"table_ranks: rtab must be [R2, d] and d a "
+                         f"multiple of 16 up to {_MAX_D}, d = {d}")
+    dev = table.device
+    part = torch.empty(B, 2, _N_SPLIT, Q, device=dev, dtype=torch.int32)
+    tgt = torch.empty(B, Q, device=dev, dtype=torch.float32)
+    ranks = torch.empty(B, 2 * Q, device=dev, dtype=torch.int32)
+    bce = torch.empty(B, device=dev, dtype=torch.float32)
+    lib = _build.lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = _p
+    _build.check(lib.final_ranks_launch(
+        p(table), p(rtab), p(q.src), p(q.dst), p(q.rel), p(q.mask),
+        p(q.tail_ptr), p(q.tail_ans), p(q.head_ptr), p(q.head_ans), p(part),
+        p(tgt), B, N, Q, d, _N_SPLIT, stream), "fused_eval_ranks (ranks)")
+    fused_eval_ranks.launches += 1
+    _build.check(lib.final_rank_reduce_launch(
+        p(part), p(tgt), p(q.mask), p(ranks), p(bce), B, Q, _N_SPLIT,
+        stream), "fused_eval_ranks (reduce)")
+    fused_eval_ranks.launches += 1
+    mask = q.mask > 0
+    return ranks, torch.cat([mask, mask], -1), bce
+
+
+def fused_eval_ranks(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
+                     loop1, loop2, g1, g2, rtab):
+    """K11 for B elements: what the JAX package's ``fused_eval_ranks``
+    returns for each. h0 [N, d], hist1/hist2 [B, N, d], gr the eval graph
+    and q the queries of ``final_graph_eval``, the weights as
+    ``final_weights`` gives them.
+
+    Returns (ranks [B, 2Q] int32, the filtered ranks of every query slot in
+    the [head, tail] layout, 1 at a padded slot; mask [B, 2Q] bool, the real
+    queries; bce [B], each element's mean BCE of its positives). On a CPU
+    tensor the plain version; on a CUDA tensor K3's two layer launches and
+    ``table_ranks``' two, four in all."""
+    if _device("fused_eval_ranks", hist1) == "cpu":
+        return fused_eval_ranks_plain(h0, hist1, hist2, gr, q, wrel, loop1,
+                                      loop2, g1, g2, rtab)
+    B, N, d = hist1.shape
+    E = gr.src.shape[1]
+    _check_weights("fused_eval_ranks", h0, hist1, hist2, wrel, loop1, loop2,
+                   g1, g2, rtab)
+    _check("fused_eval_ranks",
+           {k: getattr(gr, k) for k in ("src", "dst", "rel", "emf", "dt",
+                                        "active")},
+           {"src": (B, E), "dst": (B, E), "rel": (B, E), "emf": (B, E),
+            "dt": (B, N), "active": (B, N)}, _GRAPH_INTS)
+    if d > _MAX_D or d % 16 or gr.m1 is not None or gr.m2 is not None:
+        raise ValueError(f"fused_eval_ranks: d = {d} (the kernels take "
+                         f"multiples of 16 up to {_MAX_D}) or dropout masks "
+                         f"given (eval has none)")
+    dev = hist1.device
+    nb = (torch.arange(B, device=dev, dtype=torch.int32) * N)[:, None]
+    by_dst = build_csr((gr.dst + nb).reshape(-1), B * N, gr.src.reshape(-1),
+                       gr.rel.reshape(-1), gr.emf.reshape(-1),
+                       keep=gr.emf.reshape(-1) > 0)
+    h0x = h0.expand(B, N, d).contiguous()
+    out1 = torch.empty(B, N, d, device=dev, dtype=torch.float32)
+    table = torch.empty(B, N, d, device=dev, dtype=torch.float32)
+
+    def launched(err, what):
+        _build.check(err, f"fused_eval_ranks ({what})")
+        fused_eval_ranks.launches += 1
+
+    _layer_launches(_build.lib(), torch.cuda.current_stream(dev).cuda_stream,
+                    launched, h0x, hist1, hist2, gr, by_dst, wrel, loop1,
+                    loop2, g1, g2, out1, table)
+    return table_ranks(table, rtab, q)
+
+
+fused_eval_ranks.launches = 0

@@ -177,13 +177,27 @@ def fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
         return fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt,
                                       wrel, loop1, loop2, g1, g2, lam,
                                       conv1_in, m1, m2, act2, n_buf)
+    return window_fwd_launches(fused_window_fwd, h0x, src, dst, rel, em,
+                               gidx, live, dt, wrel, loop1, loop2, g1, g2,
+                               lam, conv1_in, m1, m2, act2, n_buf)
+
+
+fused_window_fwd.launches = 0
+
+
+def window_fwd_launches(owner, h0x, src, dst, rel, em, gidx, live, dt, wrel,
+                        loop1, loop2, g1, g2, lam: float, conv1_in: bool, m1,
+                        m2, act2: bool, n_buf: int):
+    """K2f's launches on a CUDA tensor (raises on another device), counted
+    on ``owner.launches``: the wrapper that launches them (K2f's own, or
+    K12's, which runs on them)."""
+    name = owner.__name__
     if h0x.device.type != "cuda":
-        raise ValueError(f"fused_window_fwd: no kernel for device {h0x.device}")
+        raise ValueError(f"{name}: no kernel for device {h0x.device}")
     B, L1, A, d = h0x.shape
     E = src.shape[-1]
-    _check_cuda("fused_window_fwd", _named(h0x, src, dst, rel, em, gidx,
-                                           live, dt, wrel, loop1, loop2, g1,
-                                           g2, m1, m2), B, L1, A, E, d)
+    _check_cuda(name, _named(h0x, src, dst, rel, em, gidx, live, dt, wrel,
+                             loop1, loop2, g1, g2, m1, m2), B, L1, A, E, d)
     # CSR over (element, step, destination row) for both layers' SpMMs
     rowptr, s_src, s_rel, s_em = _step_csr(dst, em, B, L1, A, src, rel, em)
 
@@ -203,12 +217,9 @@ def fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
                 p(g["wih_t"]), p(g["whh_t"]), p(g["bih"]), p(g["bhh"]),
                 p(gidx), p(live), p(dt), float(lam), p(buf), p(loc), B, L1,
                 A, d, k, stream)
-            _build.check(err, "fused_window_fwd")
-            fused_window_fwd.launches += 1
+            _build.check(err, name)
+            owner.launches += 1
     return (buf1, buf2) if buf3 is None else (buf1, buf2, buf3)
-
-
-fused_window_fwd.launches = 0
 
 
 def fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
@@ -348,19 +359,20 @@ fused_window_bwd.launches = 0
 
 
 class FusedWindow(torch.autograd.Function):
-    """Differentiable K2: ``fused_window_fwd`` forward, ``fused_window_bwd``
-    backward. `graph` holds the tensors that take no gradient (src, dst,
-    rel, em, gidx, live, dt, m1, m2). Returns n_buf buffers."""
+    """Differentiable K2: `fwd` forward (``fused_window_fwd``, or K12's
+    ``fused_window_mb_fwd``), ``fused_window_bwd`` backward. `graph` holds
+    the tensors that take no gradient (src, dst, rel, em, gidx, live, dt,
+    m1, m2). Returns n_buf buffers."""
 
     @staticmethod
-    def forward(ctx, lam, conv1_in, act2, n_buf, graph, h0x, wrel, loop1,
-                loop2, wih1, whh1, bih1, bhh1, wih2, whh2, bih2, bhh2):
+    def forward(ctx, fwd, lam, conv1_in, act2, n_buf, graph, h0x, wrel,
+                loop1, loop2, wih1, whh1, bih1, bhh1, wih2, whh2, bih2,
+                bhh2):
         src, dst, rel, em, gidx, live, dt, m1, m2 = graph
         g1 = {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1}
         g2 = {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2}
-        bufs = fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel,
-                                loop1, loop2, g1, g2, lam, conv1_in, m1, m2,
-                                act2, n_buf)
+        bufs = fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1, loop2,
+                   g1, g2, lam, conv1_in, m1, m2, act2, n_buf)
         ctx.lam, ctx.conv1_in, ctx.act2, ctx.graph = lam, conv1_in, act2, graph
         ctx.save_for_backward(h0x, wrel, loop1, loop2, wih1, whh1, bih1,
                               bhh1, wih2, whh2, bih2, bhh2, bufs[0], bufs[1])
@@ -383,8 +395,9 @@ class FusedWindow(torch.autograd.Function):
             {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1},
             {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2},
             ctx.lam, m1, m2, buf1, buf2, gbs[0], gbs[1], gb3, ctx.act2)
-        return (None, None, None, None, None, dh0x, dwrel, dloop1, dloop2,
-                dwih1, dwhh1, dbih1, dbhh1, dwih2, dwhh2, dbih2, dbhh2)
+        return (None, None, None, None, None, None, dh0x, dwrel, dloop1,
+                dloop2, dwih1, dwhh1, dbih1, dbhh1, dwih2, dwhh2, dbih2,
+                dbhh2)
 
 
 def fused_window_supported(cfg, base: str, activation2=None,
@@ -445,6 +458,18 @@ def window_args(enc_params, cfg, h0_xs, src, dst, rel, emask, prev_step,
         act2=activation2 == "relu")
 
 
+def apply_window(fwd, a: dict, conv1_in: bool, n_buf: int):
+    """``FusedWindow`` with the forward `fwd` on ``window_args``' dict."""
+    g1, g2 = a["g1"], a["g2"]
+    graph = tuple(a[k] for k in ("src", "dst", "rel", "em", "gidx", "live",
+                                 "dt", "m1", "m2"))
+    return FusedWindow.apply(
+        fwd, a["lam"], bool(conv1_in), a["act2"], n_buf, graph, a["h0x"],
+        a["wrel"], a["loop1"], a["loop2"], g1["wih_t"], g1["whh_t"],
+        g1["bih"], g1["bhh"], g2["wih_t"], g2["whh_t"], g2["bih"],
+        g2["bhh"])
+
+
 def fused_window_scan(enc_params, cfg, h0_xs, src, dst, rel, emask,
                       prev_step, prev_row, dt, live, conv1_in: bool = False,
                       kernels: bool = True, masks=None, direction=None,
@@ -457,11 +482,4 @@ def fused_window_scan(enc_params, cfg, h0_xs, src, dst, rel, emask,
     if not kernels:
         return fused_window_fwd_plain(conv1_in=bool(conv1_in), n_buf=n_buf,
                                       **a)
-    g1, g2 = a["g1"], a["g2"]
-    graph = tuple(a[k] for k in ("src", "dst", "rel", "em", "gidx", "live",
-                                 "dt", "m1", "m2"))
-    return FusedWindow.apply(
-        a["lam"], bool(conv1_in), a["act2"], n_buf, graph, a["h0x"],
-        a["wrel"], a["loop1"], a["loop2"], g1["wih_t"], g1["whh_t"],
-        g1["bih"], g1["bhh"], g2["wih_t"], g2["whh_t"], g2["bih"],
-        g2["bhh"])
+    return apply_window(fused_window_fwd, a, conv1_in, n_buf)

@@ -1,12 +1,14 @@
 """Where the time of one eval sweep goes, on the card.
 
     python -m temp_tpu_torch.profile_eval [--plain] [--config FILE]
-        [--impute] [--out DIR]
+        [--impute] [--fused-eval] [--fused-window-mb] [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
 grid/icews14/config_grrgcn.json model or the one of --config, with
 imputation on for --impute: ``--config grid/icews14/config_bigrrgcn.json
---impute`` is the flagship; seeded random weights), runs one
+--impute`` is the flagship; seeded random weights; --fused-eval and
+--fused-window-mb switch on the fused eval, K11, and the batched window,
+K12), runs one
 warm-up valid sweep, then traces a second one with torch.profiler. Prints
 the wall time, the device time summed over all kernels and its share of the
 wall time, and the device time of each kernel name, largest first. With
@@ -41,6 +43,10 @@ def main(argv=None) -> int:
                          "(default: %(default)s)")
     ap.add_argument("--impute", action="store_true",
                     help="with imputation (BiGRRGCN --impute: the flagship)")
+    ap.add_argument("--fused-eval", action="store_true",
+                    help="the final step and ranks through K11 (fused_eval)")
+    ap.add_argument("--fused-window-mb", action="store_true",
+                    help="the windows through K12 (fused_window_mb)")
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
@@ -50,7 +56,8 @@ def main(argv=None) -> int:
     cfg = TKGConfig.from_json_file(
         os.path.join(_ROOT, args.config),
         **({"impute": True} if args.impute else {}),
-        kernels=not args.plain)
+        kernels=not args.plain, fused_eval=args.fused_eval,
+        fused_window_mb=args.fused_window_mb)
     data = make_synthetic(num_ents=7128, num_rels=230, num_times=365,
                           edges_per_time=200, seed=0,
                           edge_pad_multiple=cfg.edge_pad_multiple)
@@ -62,9 +69,14 @@ def main(argv=None) -> int:
 
     report = profile(lambda: trainer.eval_sweep(params, "valid"),
                      "valid sweep", args.top)
-    print(f"path: {'plain' if args.plain else 'kernels'}; {report}")
+    path = "plain" if args.plain else "kernels"
+    path += "".join(f", {name}" for name, on in (
+        ("fused_eval", args.fused_eval),
+        ("fused_window_mb", args.fused_window_mb)) if on)
+    print(f"path: {path}; {report}")
     if args.out:
-        export(args.out, f"eval_{'plain' if args.plain else 'kernels'}")
+        export(args.out, f"eval_{'plain' if args.plain else 'kernels'}"
+               f"{'_fused' if args.fused_eval else ''}")
     return 0
 
 

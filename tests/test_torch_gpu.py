@@ -13,7 +13,14 @@ sums of that many terms in another order differ by about sqrt(n) * 6e-8 of
 the terms' size. The final step's losses are held to 1e-4 relative. The flagship's
 final-step kernels (K6-K10) are held to 1e-5 of the largest entry of their
 plain version's output, with no floor: their cotangents lie far below 1.
+The fused eval (K11): ranks equal on every real query whose plain scores
+hold no other column within 1e-5 of the row's largest |score| of the
+target's, the BCE within 1e-5 relative. The batched window (K12) makes
+K2f's launches: equal to K2f's output bit for bit.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -26,13 +33,18 @@ from temp_tpu_torch.data.snapshots import (
 from temp_tpu_torch.models.layers import dropout_mask
 from temp_tpu_torch.models.registry import get_model
 from temp_tpu_torch.ops.fused_final import (
-    _loss_plain, final_graph, fused_final_bwd_layer, fused_final_bwd_layer_plain,
-    fused_final_bwd_loss, fused_final_bwd_loss_plain, fused_final_fwd,
-    fused_final_fwd_plain, fused_final_loss,
+    _encoder_plain, _loss_plain, final_graph, final_graph_eval,
+    fused_eval_ranks, fused_eval_ranks_plain, fused_final_bwd_layer,
+    fused_final_bwd_layer_plain, fused_final_bwd_loss,
+    fused_final_bwd_loss_plain, fused_final_fwd, fused_final_fwd_plain,
+    fused_final_loss, table_ranks,
 )
 from temp_tpu_torch.ops import fused_final_bi as fb
 from temp_tpu_torch.ops.fused_window import (
-    fused_window_bwd, fused_window_fwd, fused_window_scan,
+    fused_window_bwd, fused_window_fwd, fused_window_scan, window_args,
+)
+from temp_tpu_torch.ops.fused_window_mb import (
+    fused_window_mb_fwd, fused_window_mb_fwd_plain,
 )
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 from temp_tpu_torch.ops.spmm import (
@@ -924,3 +936,182 @@ def test_flagship_training_steps_match_plain_and_unfused(cuda):
             assert abs(a - b) <= 1e-4 * max(1.0, abs(b))
         for a, b in zip(finals["fused"], finals[other]):
             assert _close(a, b)
+
+
+# -- K11: the fused eval; K12: the batched window ----------------------------
+
+def _smoke():
+    """chip_smoke.py at the root of the checkout, for its K11 helpers."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+def _eval_case(N, d, dev, B=4, seed=0, noact=False, num_rels=12,
+               edges_per_time=60, pad=16, L=6):
+    """K11's arguments for B eval targets of the valid split on synthetic
+    data, with _final_case's random history and weights."""
+    _, w = _final_case(N, d, dev, B=B, seed=seed, rate=0.0,
+                       num_rels=num_rels, edges_per_time=edges_per_time,
+                       pad=pad, L=L)
+    host = make_synthetic(
+        num_ents=N, num_rels=num_rels, num_times=B + 4,
+        edges_per_time=edges_per_time, seed=seed, edge_pad_multiple=pad)
+    data = to_device(host, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    last_pos = torch.randint(0, L - 1, (B, N), generator=gen,
+                             device=dev).float()
+    gr, q = final_graph_eval(
+        data, to_device(build_answer_lists(host, "valid"), dev),
+        torch.arange(B, device=dev) + 2, last_pos, 0.1, L, noact, "valid")
+    return (w["h0"], w["hist1"], w["hist2"], gr, q, w["wrel"], w["loop1"],
+            w["loop2"], w["g1"], w["g2"], w["rtab"])
+
+
+def _ranks_agree(got, ref, args):
+    """K11's result against the plain version's: masks equal, ranks equal
+    on every real query but the plain scores' near-ties, BCE to 1e-5."""
+    (ranks, mask, bce), (r_p, m_p, bce_p) = got, ref
+    h0, hist1, hist2, gr, q, wrel, loop1, loop2, g1, g2, rtab = args
+    table, _ = _encoder_plain(h0, hist1, hist2, gr, wrel, loop1, loop2, g1,
+                              g2)
+    near = _smoke().near_ties(table, rtab, q)
+    assert torch.equal(mask, m_p) and ranks.dtype == torch.int32
+    assert not bool(((ranks != r_p) & mask & ~near).any())
+    assert bool(((bce - bce_p).abs() <= 1e-5 * bce_p.abs()).all())
+
+
+_EVAL_SHAPES = [(7128, 128, 8, 230, 200, 128), (300, 32, 4, 12, 60, 16),
+                (77, 16, 3, 5, 20, 16)]
+
+
+@pytest.mark.parametrize("noact", [False, True])
+@pytest.mark.parametrize("N,d,B,R,per,pad", _EVAL_SHAPES)
+def test_fused_eval_kernel_matches_plain(cuda, noact, N, d, B, R, per, pad):
+    args = _eval_case(N, d, cuda, B=B, noact=noact, num_rels=R,
+                      edges_per_time=per, pad=pad)
+    before = fused_eval_ranks.launches
+    got = fused_eval_ranks(*args)
+    torch.cuda.synchronize()
+    assert fused_eval_ranks.launches == before + 4
+    _ranks_agree(got, fused_eval_ranks_plain(*args), args)
+    if N == 77:
+        assert args[4].src.shape[1] % 64  # Q not a multiple of 64
+
+
+def test_fused_eval_element_without_queries(cuda):
+    """An element with no real query (a snapshot without facts of the
+    split): BCE 0 and every rank masked, on the kernels as on the plain
+    versions; the other elements unchanged."""
+    args = list(_eval_case(300, 32, cuda, B=3))
+    q = args[4]
+    qmask = q.mask.clone()
+    qmask[1] = 0.0
+    args[4] = q._replace(mask=qmask)
+    ranks, mask, bce = fused_eval_ranks(*args)
+    ref = fused_eval_ranks_plain(*args)
+    assert float(bce[1]) == 0.0 and not bool(mask[1].any())
+    _ranks_agree((ranks, mask, bce), ref, args)
+
+
+def test_fused_eval_planted_copies_do_not_count(cuda):
+    """K11's ranking half on a table with a target's row copied into the
+    32 columns that scored lowest for its query: the copies tie with the
+    target exactly and do not count, so the rank stays as it was."""
+    args = _eval_case(7128, 128, cuda, B=4, num_rels=230,
+                      edges_per_time=200, pad=128)
+    h0, hist1, hist2, gr, q, wrel, loop1, loop2, g1, g2, rtab = args
+    table, _ = _encoder_plain(h0, hist1, hist2, gr, wrel, loop1, loop2, g1,
+                              g2)
+    planted, picks = _smoke().plant_copies(table, rtab, q)
+    before, _, _ = table_ranks(table, rtab, q)
+    after, _, _ = table_ranks(planted, rtab, q)
+    assert len(picks) == 4
+    for b, c in picks:
+        assert int(after[b, c]) == int(before[b, c])
+
+
+def test_fused_eval_is_deterministic(cuda):
+    args = _eval_case(7128, 128, cuda, B=8, num_rels=230,
+                      edges_per_time=200, pad=128)
+    a = fused_eval_ranks(*args)
+    b = fused_eval_ranks(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_fused_eval_refuses_what_it_does_not_take(cuda):
+    args = list(_eval_case(77, 16, cuda, B=3))
+    q = args[4]
+    with pytest.raises(TypeError):
+        fused_eval_ranks(args[0], args[1].double(), *args[2:])
+    with pytest.raises(ValueError):  # a history of another batch size
+        fused_eval_ranks(args[0], args[1], args[2][:2], *args[3:])
+    with pytest.raises(ValueError):  # queries of another batch size
+        fused_eval_ranks(*args[:4], q._replace(mask=q.mask[:2]), *args[5:])
+    with pytest.raises(ValueError):  # eval has no dropout masks
+        gr = args[3]
+        fused_eval_ranks(*args[:3], gr._replace(m1=torch.ones_like(
+            args[1])), *args[4:])
+    big = _eval_case(40, 256, cuda, B=2, num_rels=3, edges_per_time=10)
+    with pytest.raises(ValueError):  # d = 256: K3's layer takes d <= 128
+        fused_eval_ranks(*big)
+
+
+@pytest.mark.parametrize("B,L1,A,E,d", [(8, 14, 640, 256, 128),
+                                        (3, 4, 40, 30, 32)])
+def test_batched_window_kernel_matches_plain(cuda, B, L1, A, E, d):
+    """K12's forward makes K2f's launches (bit for bit K2f's output) and
+    agrees with its per-element plain version."""
+    enc, kw, masks = _train_window_args(B, L1, A, E, d, cuda)
+    cfg = TKGConfig(embed_size=d, hidden_size=d, n_bases=d)
+    a = dict(window_args(enc, cfg, masks=masks, **kw), conv1_in=False)
+    before = (fused_window_mb_fwd.launches, fused_window_fwd.launches)
+    got = fused_window_mb_fwd(**a)
+    torch.cuda.synchronize()
+    assert (fused_window_mb_fwd.launches, fused_window_fwd.launches) == (
+        before[0] + 2 * L1, before[1])
+    ref = fused_window_mb_fwd_plain(**a)
+    k2f = fused_window_fwd(**a)
+    for x, y, z in zip(got, ref, k2f):
+        assert float((x - y).abs().max()) <= TOL and torch.equal(x, z)
+
+
+def test_batched_window_paths_match_the_default(cuda):
+    """fused_window_mb on: training steps of GRRGCN and of the flagship on
+    the fused path, and a GRRGCN valid sweep with fused_eval on, equal to
+    the runs without the switch (the same launches and draws), with K12's
+    launches in place of K2f's."""
+    data = make_synthetic(num_ents=300, num_rels=12, num_times=20,
+                          edges_per_time=60, seed=1, edge_pad_multiple=128)
+    for extra in ({}, {"module": "BiGRRGCN", "impute": True}):
+        runs = {}
+        for mb in (False, True):
+            cfg = TKGConfig(embed_size=32, hidden_size=32, n_bases=32,
+                            train_seq_len=6, batch_size=4, num_pos_facts=40,
+                            fused_window_mb=mb, fused_eval=True, **extra)
+            model = get_model(cfg, data, device=cuda)
+            assert model.fused_window_mb_on(6, train=True) == mb
+            tr = Trainer(cfg, model, data)
+            params, opt = tr.init_state(0)
+            fused_window_mb_fwd.launches = fused_window_fwd.launches = 0
+            fused_eval_ranks.launches = 0
+            losses = [float(tr.train_step(params, opt, t_pos, t_valid,
+                                          gen=tr.step_generator(0, step)))
+                      for step, (t_pos, t_valid)
+                      in enumerate(tr.epoch_batches(0)[:3])]
+            ranks, mask, _ = tr.eval_sweep(params, "valid")
+            runs[mb] = (losses, [p.detach() for p in param_leaves(params)],
+                        ranks[mask])
+            # training through K12 with the switch; GRRGCN's eval too (the
+            # flagship's eval windows stay on K2f, as in the JAX package)
+            assert (fused_window_mb_fwd.launches > 0) == mb
+            assert (fused_window_fwd.launches == 0) == (mb and not extra)
+            # K11 is GRRGCN's only: the flagship evaluates as before
+            assert (fused_eval_ranks.launches > 0) == (not extra)
+        (la, pa, ra), (lb, pb, rb) = runs[False], runs[True]
+        assert la == lb and torch.equal(ra, rb)
+        assert all(torch.equal(x, y) for x, y in zip(pa, pb))

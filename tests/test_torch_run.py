@@ -1,6 +1,7 @@
 """The plumbing around the port's numbers against the JAX package's: run
 directory names, --resume from the best checkpoint, config values the port
-refuses, and the gradient clip (CPU)."""
+refuses (and the kernels' switches it accepts), and the gradient clip
+(CPU)."""
 
 import json
 import os
@@ -83,6 +84,18 @@ def test_resume_from_best_restarts_epochs_as_reference(tmp_path,
     ("distributed", True, "multi-process"), ("edge_partition", True, "K13"),
     ("compute_dtype", "bfloat16", "float32 only")])
 def test_unported_config_values_raise(field, value, what):
+    """Values that need an unported kernel or module raise, naming it. K11
+    (fused_eval) and K12 (fused_window_mb) are ported: their values are
+    accepted and resolve as the JAX package's do, "auto" on for the
+    accelerator and off for the CPU (the JAX backend here is the CPU)."""
+    if what in ("K11", "K12"):
+        cfg = TKGConfig(**{field: value})
+        on = getattr(cfg, f"{field}_on")
+        jax_on = getattr(JaxConfig(**{field: value}), f"{field}_on")
+        assert on("cpu") == jax_on == (value is True)
+        assert on("cuda")
+        assert not getattr(TKGConfig(), f"{field}_on")("cuda")  # default off
+        return
     with pytest.raises(NotImplementedError, match=what):
         TKGConfig(**{field: value})
     TKGConfig(**{field: getattr(TKGConfig(), field)})

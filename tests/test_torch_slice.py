@@ -177,14 +177,18 @@ def test_chip_smoke_phases_rehearse_on_cpu():
            "k8": chip_smoke.phase_k8(fctx),
            "k9k10": chip_smoke.phase_k9k10(fctx),
            "flagship_path": chip_smoke.phase_path(fctx),
-           "flagship_train": chip_smoke.phase_train(fctx, flagship=True)}
+           "flagship_train": chip_smoke.phase_train(fctx, flagship=True),
+           "k11": chip_smoke.phase_k11(ctx),
+           "path_fused_eval": chip_smoke.phase_path_fused_eval(ctx, path),
+           "mb": chip_smoke.phase_mb(ctx, fctx)}
     line = chip_smoke.kernels_line(res)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [k["name"] for k in line["kernels"]] == [
         "spmm_fwd", "spmm_bwd", "fused_window_fwd", "fused_window_bwd",
         "fused_final_fwd", "fused_final_bwd_loss", "fused_final_bwd_layer",
-        "bi_layer_fwd", "bi_loss_fwd", "bi_layer_bwd"]
+        "bi_layer_fwd", "bi_loss_fwd", "bi_layer_bwd", "fused_eval_ranks",
+        "fused_window_mb_fwd"]
     for rec in line["kernels"]:
         assert keys <= set(rec)
         assert rec["max_abs_err"] == 0.0  # the CPU runs the plain version
@@ -224,6 +228,23 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert 0.0 < ft["eval"]["mrr"] <= 1.0
     assert res["flagship_path"]["kernels"]["mrr"] == res["flagship_path"][
         "plain"]["mrr"]
+    # K11: the plain version on both sides, the planted copies not counted
+    k11 = res["k11"]
+    assert k11["rank_mismatches"] == 0 and k11["bce_rel_err"] == 0.0
+    assert k11["planted"] == 3 and k11["planted_plain_agrees"] == 3
+    assert k11["unfused_ms"] > 0
+    pf = res["path_fused_eval"]
+    assert pf["kernels"]["mrr"] == pf["plain"]["mrr"]
+    assert pf["mrr_gap_to_path"] <= chip_smoke.MRR_TOL
+    assert pf["kernels"]["n"] == path["kernels"]["n"]
+    # K12: the same arithmetic as the runs without the switch
+    mb = res["mb"]
+    assert mb["k12"]["same_as_k2f"] and mb["k12"]["max_abs_err"] == 0.0
+    assert mb["train"]["bitwise"] and mb["flagship_train"]["bitwise"]
+    assert mb["eval"]["ranks_equal"]
+    paths = set(line["kernels"][0]["launches_by_path"])
+    assert {"eval_fused", "eval_mb", "train_fused_mb",
+            "flagship_train_fused_mb"} <= paths
 
 
 @pytest.mark.parametrize("alone", [False, True])
