@@ -80,6 +80,26 @@ Then the switches that are off by default, on GRRGCN and the flagship:
                       (the same launches and draws: equal losses, parameters
                       and ranks).
 
+Then the model-parallel path, GRRGCN with edge_partition="ring_pallas" over
+RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
+
+23. ring_setup - the dataset regrouped for 4 ranks (ring_regroup_data) and
+                 the model on it with the same seeded weights; prints the
+                 ranks' placement and the number of cards;
+24. k13        - kernel K13 (ring_spmm_fwd) against its plain version at
+                 the final-snapshot shape (7128 rows in 4 shards of 1792)
+                 and at one window step's compact shape (the 8 graphs of
+                 an eval batch), within 1e-5 of the largest entry, rows
+                 without in-edges exactly 0; and RingSpMM's backward
+                 against autograd through the plain forward;
+25. ring_path  - the valid sweep under the partition with the kernels and
+                 with their plain versions, and without a partition on the
+                 same data: MRR within 1e-4; K13's launches and none of
+                 K1, K2, K3-K5, K11 or K12;
+26. ring_train - 8 optimizer steps under the partition (kernels, plain)
+                 and without it (fused_final off): losses and parameters
+                 held together as in `train`.
+
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and the
 result line {"ok": true, "device": {...}}. Any failed check raises and exits
 non-zero; there is no result line then. Without CUDA it exits 1 at once. A
@@ -122,6 +142,7 @@ TRAIN_TOL = 1e-4
 # near Adam's eps), f32 rounding moves that entry's step by a few percent
 PARAM_TOL = 1e-2
 TRAIN_STEPS = 8
+RING_M = 4  # ranks of the edge partition's ring (all on the one card)
 H100_F32_FLOPS = 67e12   # f32 outside the tensor cores, SXM data sheet
 H100_BYTES_S = 3.35e12   # HBM3
 
@@ -374,11 +395,12 @@ def _counters():
     )
     from temp_tpu_torch.ops.fused_window_mb import fused_window_mb_fwd
     from temp_tpu_torch.ops.spmm import spmm_bwd, spmm_fwd
+    from temp_tpu_torch.parallel.ring_spmm import ring_spmm_fwd
 
     return (spmm_fwd, spmm_bwd, fused_window_fwd, fused_window_bwd,
             fused_final_fwd, fused_final_bwd_loss, fused_final_bwd_layer,
             fb.bi_layer_fwd, fb.bi_loss_fwd, fb.bi_layer_bwd,
-            fused_eval_ranks, fused_window_mb_fwd)
+            fused_eval_ranks, fused_window_mb_fwd, ring_spmm_fwd)
 
 
 def _reset_counts() -> None:
@@ -400,7 +422,8 @@ def _sweep(ctx, c):
     from temp_tpu_torch.train.loop import Trainer
 
     dev = ctx["device"]
-    tr = Trainer(c, get_model(c, ctx["data"], device=dev), ctx["data"])
+    tr = Trainer(c, get_model(c, ctx["data"], device=dev), ctx["data"],
+                 mesh=ctx.get("mesh"))
     _reset_counts()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -895,7 +918,7 @@ def _train_path(ctx, c):
 
     dev = ctx["device"]
     model = get_model(c, ctx["data"], device=dev)
-    tr = Trainer(c, model, ctx["data"])
+    tr = Trainer(c, model, ctx["data"], mesh=ctx.get("mesh"))
     params, opt = tr.init_state()
     init = [t.detach().clone() for t in param_leaves(params)]
     batches = tr.epoch_batches(0)[:ctx.get("train_steps", TRAIN_STEPS)]
@@ -976,17 +999,18 @@ def phase_train(ctx, flagship: bool = False) -> dict:
     return res
 
 
-def param_gaps(init, finals) -> dict:
-    """For each pair of training paths and each leaf, |a - b| / |plain -
-    init| (norms; the plain path's change to that leaf); raises where a
-    leaf's gap exceeds PARAM_TOL of its change (a leaf the plain path left
-    as it was must agree exactly). Beside it, for reading only, the same
-    ratio of the largest entries."""
-    change = [(f - i) for f, i in zip(finals["plain"], init)]
+def param_gaps(init, finals, names=("fused", "unfused", "plain")) -> dict:
+    """For each pair of the three training paths `names` (the last the
+    plain path) and each leaf, |a - b| / |plain - init| (norms; the plain
+    path's change to that leaf); raises where a leaf's gap exceeds
+    PARAM_TOL of its change (a leaf the plain path left as it was must
+    agree exactly). Beside it, for reading only, the same ratio of the
+    largest entries."""
+    x, y, plain = names
+    change = [(f - i) for f, i in zip(finals[plain], init)]
     norms = [float(c.norm()) for c in change]
     gaps, maxes, bad = {}, {}, {}
-    for a, b in (("fused", "plain"), ("fused", "unfused"),
-                 ("unfused", "plain")):
+    for a, b in ((x, plain), (x, y), (y, plain)):
         worst = worst_max = 0.0
         for k, (x, y, c, n) in enumerate(zip(finals[a], finals[b], change,
                                              norms)):
@@ -1647,6 +1671,239 @@ def phase_mb(ctx, fctx) -> dict:
     return res
 
 
+def phase_setup_ring(ctx) -> dict:
+    """The smoke's dataset regrouped for RING_M ranks (ring_regroup_data:
+    each rank's edge slice holds the edges into its row shard) and the
+    GRRGCN model on it with the same seeded weights, under
+    edge_partition="ring_pallas"; every rank on the smoke's device (one
+    card), each on its own streams."""
+    from temp_tpu_torch.models.registry import get_model
+    from temp_tpu_torch.parallel.edge_partition import (
+        ring_geometry, ring_regroup_data,
+    )
+    from temp_tpu_torch.parallel.mesh import make_mesh
+    from temp_tpu_torch.train.loop import Trainer
+
+    dev, cfg = ctx["device"], ctx["cfg"].replace(
+        edge_partition="ring_pallas", mp_size=RING_M)
+    data = ring_regroup_data(ctx["data"], RING_M)
+    mesh = make_mesh(1, RING_M, devices=[dev] * RING_M)
+    model = get_model(cfg, data, device=dev)
+    trainer = Trainer(cfg, model, data, mesh=mesh)
+    A = int(data.act_idx.shape[1])
+    return {"cfg": cfg, "data": data, "model": model, "mesh": mesh,
+            "params": model.init_params(cfg.seed), "trainer": trainer,
+            "device": dev, "N": ctx["N"], "A": A,
+            "E": int(data.train.src.shape[1]), "B": ctx["B"],
+            "d": ctx["d"], "rows": ring_geometry(ctx["N"], RING_M),
+            "a_cap": A // RING_M, "train_steps": ctx.get("train_steps",
+                                                         TRAIN_STEPS)}
+
+
+def _graph_index(src):
+    """The graph index of each edge of B graphs' edges [B, E]."""
+    import torch
+
+    return torch.arange(src.shape[0], device=src.device)[:, None].expand(
+        src.shape)
+
+
+def _ring_bound(h, w, src, rel, emask):
+    """Least time for one K13 call: what the function needs to move (the
+    referenced rows of h and w, the edge arrays, the written output and
+    norm^2) against 2 s flops a kept edge column and the norm scale of each
+    output entry. The (M - 1) shards each rank receives are the ring's own
+    cost, not the function's: returned apart as the rotation's bytes."""
+    B, n, d = h.shape
+    m = emask.bool()
+    s = w.shape[1] // d
+    b_idx = _graph_index(src)[m]
+    refs = int((b_idx * n + src[m].long()).unique().numel())
+    nbytes = (refs * d * 4 + int(rel[m].unique().numel()) * d * s * 4
+              + src.numel() * 13 + B * n * (d + 1) * 4)
+    flops = 2 * s * int(m.sum()) * d + B * n * d
+    t_b, t_f = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
+    return (max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"),
+            (RING_M - 1) * B * n * d * 4)
+
+
+def phase_k13(rctx) -> dict:
+    """K13 against its plain version with RING_M ranks at the final-snapshot
+    shape (all N rows padded to RING_M shards, one snapshot's regrouped
+    train edges) and at one window step's compact shape (the B = 8 graphs
+    of an eval batch, A = RING_M * a_cap rows each): within SCALED_TOL of
+    the largest entry, rows without in-edges exactly 0; then RingSpMM's
+    backward against autograd through the plain version at the
+    final-snapshot shape, to the same scale."""
+    import torch
+    import torch.nn.functional as F
+
+    from temp_tpu_torch.parallel.ring_spmm import (
+        ring_spmm, ring_spmm_fwd, ring_spmm_fwd_plain,
+    )
+
+    dev, p, data = rctx["device"], rctx["params"], rctx["trainer"].data
+    devices = rctx["mesh"].devices[0]
+    w = p["encoder"]["layer1"]["weight"]
+    N, rows = rctx["N"], rctx["rows"]
+    t = data.num_times // 2
+    h_final = F.pad(p["ent_embeds"], (0, 0, 0, RING_M * rows - N))[None]
+    final = (h_final, w, data.train.src[t][None], data.train.dst[t][None],
+             data.train.rel[t][None], data.train.emask[t][None])
+    tp = torch.arange(rctx["B"], device=dev) + t
+    h_win = p["ent_embeds"][data.act_idx[tp].long().clamp(max=N - 1)]
+    window = (h_win.contiguous(), w, data.train_src_loc[tp],
+              data.train_dst_loc[tp], data.train.rel[tp], data.train.emask[tp])
+    out = {}
+    for tag, args, r in (("final", final, rows),
+                         ("window", window, rctx["a_cap"])):
+        h, _, src, dst, rel, em = args
+        before = ring_spmm_fwd.launches
+        got, n2 = ring_spmm_fwd(*args, RING_M, r, devices)
+        per_call = ring_spmm_fwd.launches - before
+        ref, n2p = ring_spmm_fwd_plain(*args, RING_M, r, devices)
+        # held to the outputs' own scale (xavier weights: entries of order
+        # 1e-3), as the K4/K5 checks are
+        scaled = scaled_errs([(f"K13 {tag} out", got, ref),
+                              (f"K13 {tag} norm^2", n2, n2p)])
+        err = max(e["abs"] for e in scaled.values())
+        b_e = _graph_index(src)
+        fed = torch.zeros(h.shape[:2], dtype=torch.bool, device=dev)
+        fed[b_e[em.bool()], dst[em.bool()].long()] = True
+        isolated_zero = bool((got[~fed] == 0).all() and (ref[~fed] == 0).all())
+        if not isolated_zero:
+            raise AssertionError(f"K13 {tag}: rows without in-edges not 0")
+        # the library yardstick: one index_add_ SpMM of the same messages
+        # (computed outside the timing) on the card
+        emf = em.to(torch.float32)
+        seg = (b_e * h.shape[1] + dst.long()).reshape(-1)
+        msg = (h[b_e, src.long()] * w[rel.long()]
+               * emf[..., None]).reshape(-1, h.shape[2])
+        lib = torch.zeros(h.shape[0] * h.shape[1], h.shape[2], device=dev)
+        bound_ms, bound_by, rot_bytes = _ring_bound(h, w, src, rel, em)
+        out[tag] = {
+            "shape": f"B={h.shape[0]} rows={h.shape[1]} E={src.shape[1]} "
+                     f"kept={int(em.sum())} R={w.shape[0]} d={h.shape[2]} "
+                     f"m={RING_M}",
+            "max_abs_err": err, "scaled_errs": scaled,
+            "isolated_rows_zero": isolated_zero,
+            "launches_per_call": per_call,
+            "ms": time_ms(lambda: ring_spmm_fwd(*args, RING_M, r, devices),
+                          dev),
+            "plain_ms": time_ms(lambda: ring_spmm_fwd_plain(
+                *args, RING_M, r, devices), dev, reps=5),
+            "library_ms": time_ms(
+                lambda: lib.zero_().index_add_(0, seg, msg), dev),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "rotation_bytes": rot_bytes,
+            "rotation_ms": rot_bytes / H100_BYTES_S * 1e3}
+        print(f"  K13 {tag}: {out[tag]}", flush=True)
+    # backward: RingSpMM (K13 forward) against autograd through the plain
+    # forward, from one seeded cotangent
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn(final[0].shape, generator=gen, device=dev)
+    grads = {}
+    for name, kernels in (("kernel", True), ("plain", False)):
+        h = final[0].detach().clone().requires_grad_()
+        wq = w.detach().clone().requires_grad_()
+        if kernels:
+            o = ring_spmm(h, wq, *final[2:], RING_M, rows, devices)
+        else:
+            o, _ = ring_spmm_fwd_plain(h, wq, *final[2:], RING_M, rows,
+                                       devices)
+        (o * g).sum().backward()
+        grads[name] = (h.grad, wq.grad)
+    errs = scaled_errs((f"K13 backward {n}", a, b) for n, a, b in zip(
+        ("dh", "dw"), grads["kernel"], grads["plain"]))
+    out["bwd_scaled_errs"] = errs
+    print(f"  K13 backward: {errs}", flush=True)
+    return out
+
+
+_NOT_ON_RING = ("spmm_fwd", "spmm_bwd", "fused_window_fwd",
+                "fused_window_bwd", "fused_final_fwd", "fused_final_bwd_loss",
+                "fused_final_bwd_layer", "fused_eval_ranks",
+                "fused_window_mb_fwd")
+
+
+def _ring_launches_ok(dev, launches: dict, tag: str) -> None:
+    """The ring path launched K13 and none of K1, K2, K3-K5, K11, K12."""
+    if dev.type == "cuda" and not launches["ring_spmm_fwd"] > 0:
+        raise AssertionError(f"{tag}: K13 was not launched: {launches}")
+    if any(launches[n] for n in _NOT_ON_RING):
+        raise AssertionError(f"{tag}: another kernel launched: {launches}")
+
+
+def phase_ring_path(rctx) -> dict:
+    """The valid sweep with edge_partition="ring_pallas" over RING_M ranks,
+    with the kernels and with their plain versions, and without a partition
+    on the same regrouped data and weights: MRR within MRR_TOL of each
+    other; walls, queries/s and launches."""
+    import numpy as np
+
+    cfg = rctx["cfg"]
+    res = {}
+    for name, c in (("kernels", cfg), ("plain", cfg.replace(kernels=False)),
+                    ("unpartitioned", cfg.replace(edge_partition=False,
+                                                  mp_size=1))):
+        m, _, _ = _sweep(rctx, c)
+        res[name] = m
+        print(f"  ring path {name}: {m}", flush=True)
+    k = res["kernels"]
+    n_q = 2 * int(rctx["data"].valid.emask.sum())
+    if not (k["n"] == res["plain"]["n"] == res["unpartitioned"]["n"] == n_q
+            and np.isfinite(k["mrr"]) and 0.0 < k["mrr"] <= 1.0):
+        raise AssertionError(f"ring path: bad metrics {res}")
+    gaps = {f"kernels/{o}": abs(k["mrr"] - res[o]["mrr"])
+            for o in ("plain", "unpartitioned")}
+    if not all(g <= MRR_TOL for g in gaps.values()):
+        raise AssertionError(f"ring path: MRR gaps {gaps} > {MRR_TOL}")
+    _ring_launches_ok(rctx["device"], k["launches"], "ring eval")
+    if any(res["plain"]["launches"].values()):
+        raise AssertionError(f"ring path plain: kernels launched: "
+                             f"{res['plain']['launches']}")
+    res["mrr_gaps"] = gaps
+    return res
+
+
+def phase_ring_train(rctx) -> dict:
+    """TRAIN_STEPS optimizer steps from the same weights and draws with
+    edge_partition="ring_pallas" (the kernels, and their plain versions)
+    and without a partition (fused_final off: the final step one element
+    at a time, as under the partition): losses within TRAIN_TOL, the
+    parameters within PARAM_TOL of the plain path's change."""
+    import numpy as np
+
+    cfg = rctx["cfg"]
+    runs = (("ring", cfg), ("plain", cfg.replace(kernels=False)),
+            ("unpartitioned", cfg.replace(edge_partition=False, mp_size=1,
+                                          fused_final=False)))
+    res, init, finals = {}, None, {}
+    for name, c in runs:
+        _, res[name], leaves, finals[name], _, _ = _train_path(rctx, c)
+        init = leaves if init is None else init
+        print(f"  ring train {name}: {res[name]}", flush=True)
+    gaps = {}
+    for a, b in (("ring", "plain"), ("ring", "unpartitioned"),
+                 ("unpartitioned", "plain")):
+        x, y = np.array(res[a]["losses"]), np.array(res[b]["losses"])
+        if not np.isfinite(x).all():
+            raise AssertionError(f"ring train {a}: losses not finite: {x}")
+        gaps[f"{a}/{b}"] = float(np.max(np.abs(x - y)
+                                        / np.maximum(1.0, np.abs(y))))
+    res["max_rel_gaps"] = gaps
+    if not all(g <= TRAIN_TOL for g in gaps.values()):
+        raise AssertionError(f"ring train: loss trajectories differ: {gaps}")
+    res["params"] = param_gaps(init, finals,
+                               names=("ring", "unpartitioned", "plain"))
+    print(f"  ring train params: {res['params']}", flush=True)
+    _ring_launches_ok(rctx["device"], res["ring"]["launches"], "ring train")
+    if any(res["plain"]["launches"].values()):
+        raise AssertionError(f"ring train plain: kernels launched: "
+                             f"{res['plain']['launches']}")
+    return res
+
+
 _KERNELS = (
     ("spmm_fwd", "temp_tpu_torch/csrc/spmm.cu",
      "temp_tpu/ops/pallas_spmm.py:110"),
@@ -1672,6 +1929,8 @@ _KERNELS = (
      "temp_tpu/ops/fused_final.py:547"),
     ("fused_window_mb_fwd", "temp_tpu_torch/csrc/fused_window.cu",
      "temp_tpu/ops/fused_window_mb.py:78"),
+    ("ring_spmm_fwd", "temp_tpu_torch/csrc/ring_spmm.cu",
+     "temp_tpu/parallel/ring_pallas.py:100"),
 )
 
 # the path whose run gives each kernel's "launches"
@@ -1680,7 +1939,8 @@ _HOME = {"spmm_fwd": "eval", "spmm_bwd": "train_unfused",
          "bi_loss_fwd": "flagship_train_fused",
          "bi_layer_bwd": "flagship_train_fused",
          "fused_eval_ranks": "eval_fused",
-         "fused_window_mb_fwd": "train_fused_mb"}
+         "fused_window_mb_fwd": "train_fused_mb",
+         "ring_spmm_fwd": "ring_train"}
 
 
 def _paths(res: dict) -> dict:
@@ -1695,6 +1955,8 @@ def _paths(res: dict) -> dict:
     out["eval_mb"] = res["mb"]["eval"]["launches"]
     out["train_fused_mb"] = res["mb"]["train"]["launches"]
     out["flagship_train_fused_mb"] = res["mb"]["flagship_train"]["launches"]
+    out["ring_eval"] = res["ring_path"]["kernels"]["launches"]
+    out["ring_train"] = res["ring_train"]["ring"]["launches"]
     return out
 
 
@@ -1707,7 +1969,7 @@ def kernels_line(res: dict) -> dict:
     fused training path; the eval sweep for K1f, the unfused training path
     for K1b, the flagship's fused training path for K6-K10, the fused eval
     sweep for K11, the fused training path with the batched window for
-    K12)."""
+    K12, the ring_pallas training path for K13)."""
     measured = {"spmm_fwd": res["k1"]["final"], "spmm_bwd": res["k1b"],
                 "fused_window_fwd": res["k2"]["conv1_in"],
                 "fused_window_bwd": res["k2b"]["bwd"],
@@ -1716,7 +1978,8 @@ def kernels_line(res: dict) -> dict:
                 "fused_final_bwd_layer": res["k5"],
                 "bi_layer_fwd": res["k6k7"], "bi_loss_fwd": res["k8"],
                 "bi_layer_bwd": res["k9k10"], "fused_eval_ranks": res["k11"],
-                "fused_window_mb_fwd": res["mb"]["k12"]}
+                "fused_window_mb_fwd": res["mb"]["k12"],
+                "ring_spmm_fwd": res["k13"]["final"]}
     paths = _paths(res)
     rec = []
     for name, src, replaces in _KERNELS:
@@ -1741,6 +2004,10 @@ def kernels_line(res: dict) -> dict:
                 for d in ("fwd", "bwd")}
         if name == "fused_eval_ranks":
             r["unfused_ms"] = m["unfused_ms"]
+        if name == "ring_spmm_fwd":
+            r["window_step"] = {k: res["k13"]["window"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+                "shape")}
         rec.append(r)
     return {"kernels": rec}
 
@@ -1829,6 +2096,29 @@ def main() -> int:
         mb["flagship_train_bitwise"] = mb["flagship_train"]["bitwise"]
         mb["eval_ranks_equal"] = mb["eval"]["ranks_equal"]
     res["mb"] = mb
+    with phase("ring_setup", {}) as rs:
+        rctx = phase_setup_ring(ctx)
+        rs.update({k: rctx[k] for k in ("N", "A", "E", "B", "d", "rows",
+                                        "a_cap")})
+        rs["placement"] = rctx["mesh"].placement()
+        rs["device_count"] = torch.cuda.device_count()
+    with phase("k13", {}) as k13:
+        k13.update(phase_k13(rctx))
+    res["k13"] = k13
+    with phase("ring_path", {}) as rp:
+        rp.update(phase_ring_path(rctx))
+        for name in ("kernels", "plain", "unpartitioned"):
+            rp[f"mrr_{name}"] = rp[name]["mrr"]
+            rp[f"wall_s_{name}"] = rp[name]["wall_s"]
+            rp[f"queries_per_s_{name}"] = rp[name]["queries_per_s"]
+        rp["k13_launches"] = rp["kernels"]["launches"]["ring_spmm_fwd"]
+    res["ring_path"] = rp
+    with phase("ring_train", {}) as rt:
+        rt.update(phase_ring_train(rctx))
+        for name in ("ring", "plain", "unpartitioned"):
+            rt[f"ms_per_step_{name}"] = rt[name]["ms_per_step"]
+        rt["k13_launches"] = rt["ring"]["launches"]["ring_spmm_fwd"]
+    res["ring_train"] = rt
     _state["phase"] = "report"
     print(json.dumps(kernels_line(res)), flush=True)
     print(f"total_s={time.perf_counter() - t_start:.3f}", flush=True)

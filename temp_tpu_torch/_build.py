@@ -35,6 +35,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     # spmm_fwd(rowptr, src, rel, em, h, w, out, n2_out, n_rows, d, stream)
     "spmm_fwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # ring_spmm_step(rowptr, src, rel, h_visit, w, out, n2_out, B, m, rows,
+    #                d, s, owner, first, last, stream)
+    "ring_spmm_step_launch": [_P] * 7 + [_I] * 8 + [_P],
     # spmm_bwd(s_ptr, s_dst, s_rel, s_em, r_ptr, r_src, r_dst, r_em, g, n2,
     #          h, w, dh, dw, n_rows, n_rels, d, stream)
     "spmm_bwd_launch": [_P] * 14 + [_I, _I, _I, _P],

@@ -13,9 +13,11 @@ files, so one config file drives both packages. Differences:
   against end to end);
 - this package computes in float32 throughout;
 - a field whose non-default value selects a path the port has not ported
-  (``_UNPORTED``; ``compute_dtype`` other than float32) raises
-  ``NotImplementedError`` when the config is made, naming what is missing,
-  rather than quietly running another path.
+  (``_UNPORTED``; ``compute_dtype`` other than float32; the ``"boundary"``
+  edge partition, which ``edge_partition=True`` selects; ``mp_size > 1``
+  without an edge partition) raises ``NotImplementedError`` when the config
+  is made, naming what is missing, rather than quietly running another
+  path.
 """
 
 from __future__ import annotations
@@ -32,12 +34,14 @@ import torch
 # fields whose non-default values select paths the port has not ported:
 # (name, default, what that value needs)
 _UNPORTED = (
-    ("dp_size", 1, "data parallelism (temp_tpu/parallel/)"),
-    ("mp_size", 1, "model parallelism (temp_tpu/parallel/)"),
-    ("distributed", False, "multi-process training (temp_tpu/parallel/)"),
-    ("edge_partition", False, "kernel K13, the sharded SpMM ring "
-     "(temp_tpu/parallel/ring_pallas.py:_ring_kernel)"),
+    ("dp_size", 1, "data parallelism (the data mesh axis of "
+     "temp_tpu/parallel/edge_partition.py EdgePartitionedModel)"),
+    ("distributed", False, "multi-process training "
+     "(temp_tpu/parallel/multihost.py)"),
 )
+
+# the edge-partition modes the port runs (ops/segment.py rel_spmm)
+PARTITION_MODES = ("psum", "ring", "ring_pallas")
 
 
 @dataclass
@@ -157,7 +161,45 @@ class TKGConfig:
         the CPU."""
         return self._auto_flag(self.fused_eval, device)
 
+    @property
+    def edge_partition_mode(self) -> Optional[str]:
+        """The exchange of the partitioned SpMM, as the JAX package's
+        property: None when off, "boundary" for True, else the mode's
+        name."""
+        value = self.edge_partition
+        if isinstance(value, str) and value.lower() in (
+                "0", "false", "no", "off", "1", "true", "yes", "on"):
+            value = value.lower() in ("1", "true", "yes", "on")
+        if not value:
+            return None
+        if value is True:
+            return "boundary"
+        mode = str(value)
+        if mode not in PARTITION_MODES + ("boundary",):
+            raise ValueError(f"edge_partition={value!r}: not a mode")
+        return mode
+
+    @property
+    def partitioned(self) -> bool:
+        """Whether the model runs edge-partitioned over more than one rank
+        (the Trainer then wraps it; the ring modes regroup the data)."""
+        return self.edge_partition_mode is not None and int(self.mp_size) > 1
+
     def __post_init__(self):
+        mode = self.edge_partition_mode
+        if mode == "boundary":
+            raise NotImplementedError(
+                f"edge_partition={self.edge_partition!r} selects the "
+                f"boundary-only exchange (temp_tpu/ops/segment.py "
+                f"_rel_spmm_boundary), which is not ported yet; the ported "
+                f"modes are {', '.join(PARTITION_MODES)} (ring_pallas: "
+                f"kernel K13); see ROADMAP.md")
+        if int(self.mp_size) > 1 and mode is None:
+            raise NotImplementedError(
+                f"mp_size={self.mp_size} without edge_partition needs the "
+                f"GSPMD entity sharding of model parallelism "
+                f"(temp_tpu/parallel/mesh.py), which is not ported yet; "
+                f"see ROADMAP.md")
         for name, default, what in _UNPORTED:
             value = getattr(self, name)
             off = (value.lower() in ("0", "false", "no", "off")

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from temp_tpu_torch.data.quadruples import load_quadruples, load_stat
+from temp_tpu_torch.parallel.edge_partition import ring_regroup_data
 
 INT_PAD = np.iinfo(np.int32).max
 
@@ -397,7 +398,9 @@ def build_tkg_data(cfg, cache: bool = True,
     (keyed by path, dataset_dir, edge_pad_multiple and this package's
     version key). Extrapolation datasets carry both edge directions, the
     reverse with relation id rel + num_rels, and icews14's dev split there
-    is its test split, as in the reference."""
+    is its test split, as in the reference. A ring edge partition
+    regroups the result (``ring_layout``); the cache holds the arrays
+    before that."""
     path = cfg.dataset_path
     num_ents, num_rels, _ = load_stat(path)
     key = hashlib.md5(
@@ -407,7 +410,7 @@ def build_tkg_data(cfg, cache: bool = True,
         cache_dir, f"tkg_torch_{os.path.basename(path)}_{key}.npz")
     if cache and os.path.exists(cache_file):
         with np.load(cache_file) as z:
-            return _from_npz(z, num_ents, num_rels)
+            return ring_layout(cfg, _from_npz(z, num_ents, num_rels))
 
     train_q, _ = load_quadruples(path, "train.txt")
     valid_q, _ = load_quadruples(path, "valid.txt")
@@ -431,6 +434,16 @@ def build_tkg_data(cfg, cache: bool = True,
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
+    return ring_layout(cfg, data)
+
+
+def ring_layout(cfg, data: TKGData) -> TKGData:
+    """The edges grouped by destination owner, for the ring edge-partition
+    modes with more than one rank (``ring_regroup_data``), as the JAX
+    package lays them out in ``build_tkg_data``: everything downstream (the
+    history tables, the answer lists) is built from this one layout."""
+    if cfg.partitioned and cfg.edge_partition_mode in ("ring", "ring_pallas"):
+        return ring_regroup_data(data, int(cfg.mp_size))
     return data
 
 

@@ -12,7 +12,10 @@ test split and writes its metrics to test_metrics.json beside it.
 after it; without one it restores the best checkpoint's parameters and
 optimizer state and trains from epoch 0 with no best yet, as the JAX
 package's main.py does. ``--device`` defaults to cuda; ``--device cpu`` runs
-every kernel's plain version.
+every kernel's plain version. ``--edge-partition psum|ring|ring_pallas
+--mp-size M`` partitions every SpMM over M ranks (``parallel/``), which take
+the visible cards in turn, several ranks a card when there are fewer cards
+(on the CPU with ``--device cpu``); the run prints the ranks' placement.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     for f in dataclasses.fields(TKGConfig):
         name = "--" + f.name.replace("_", "-")
-        if isinstance(f.default, bool):
+        if isinstance(f.default, bool) and f.name != "edge_partition":
             parser.add_argument(name, action=argparse.BooleanOptionalAction,
                                 default=None)
         else:
@@ -46,7 +49,9 @@ def parse_args(argv=None):
         v = getattr(args, f.name, None)
         if v is None:
             continue
-        if not isinstance(v, bool) and f.default is not None:
+        if f.name == "edge_partition":
+            pass  # a mode's name or a boolean word (TKGConfig reads both)
+        elif not isinstance(v, bool) and f.default is not None:
             v = {int: int, float: float}.get(type(f.default), str)(v)
         raw[f.name] = v
     return TKGConfig.from_dict(raw), args.device
@@ -66,6 +71,10 @@ def main(argv=None):
           f"{data.train.src.shape[1]}")
     model = get_model(cfg, data, device=device)
     trainer = Trainer(cfg, model, data)
+    if trainer.mesh is not None:
+        print(f"mesh: {trainer.mesh.placement()} "
+              f"(edge_partition={cfg.edge_partition_mode}, controller "
+              f"{model.device})")
     kw = {}
     if cfg.resume:
         last = trainer.load_last()

@@ -17,6 +17,11 @@ Eval does the same with kernel K11 when ``fused_eval`` is on, and with
 ``fused_window_mb`` on the windows run through K12
 (``ops/fused_window_mb.py``) where the JAX package runs its batched window.
 
+Inside an edge partition (``parallel/edge_partition.py``
+``EdgePartitionedModel``) every fused path is off, as in the JAX package:
+the windows and final steps run step by step through ``rel_spmm``, which
+partitions each SpMM over the ranks (the ring modes through K13).
+
 Training draws every random choice of a step up front (``draw_train``):
 the self-loop dropout masks of the window and of the final step, the 50%
 edge subsample of the final snapshot and the positive subset of the loss.
@@ -56,6 +61,7 @@ from temp_tpu_torch.ops.fused_window import (
 from temp_tpu_torch.ops.fused_window_mb import fused_window_scan_mb
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 from temp_tpu_torch.ops.scores import get_score_fn
+from temp_tpu_torch.parallel.mesh import manual_axis
 
 
 class WindowSlice(NamedTuple):
@@ -101,13 +107,6 @@ def gather_window(data: TKGData, t_pos, length: int,
         act_mask=data.act_mask[safe] & valid[..., None],
         src_loc=data.train_src_loc[safe], dst_loc=data.train_dst_loc[safe],
     )
-
-
-def _flat_graph(src, dst, n_rows: int):
-    """Edges of B graphs [B, E] (ids < n_rows) as one block-diagonal graph
-    over B * n_rows rows."""
-    offs = (torch.arange(src.shape[0], device=src.device) * n_rows)[:, None]
-    return (src.long() + offs).reshape(-1), (dst.long() + offs).reshape(-1)
 
 
 class DynamicRGCNModel:
@@ -165,15 +164,19 @@ class DynamicRGCNModel:
         return params["ent_embeds"][idx.long().clamp(max=self.num_ents - 1)]
 
     def fused_window_on(self, train: bool = False) -> bool:
+        """Whether the windows run through K2; off under a partition."""
         return (self.cfg.fused_window_on(self.device)
+                and manual_axis() is None
                 and fused_window_supported(
                     self.cfg, _base_module(self.cfg.module),
                     self.lc2.activation, train=train))
 
     def fused_final_on(self) -> bool:
         """Whether training runs the final step and loss through K3-K5 (the
-        dispatch of the JAX package's ``DynamicRGCNModel.loss``)."""
+        dispatch of the JAX package's ``DynamicRGCNModel.loss``); off under
+        a partition."""
         return (self.cfg.fused_final_on(self.device)
+                and manual_axis() is None
                 and type(self) is DynamicRGCNModel
                 and fused_final_supported(
                     self.cfg, _base_module(self.cfg.module),
@@ -195,8 +198,10 @@ class DynamicRGCNModel:
     def fused_eval_on(self) -> bool:
         """Whether eval runs the final step and ranks through K11 (the
         dispatch of the JAX package's ``eval_ranks``); the other models
-        evaluate one element at a time, as in JAX."""
+        evaluate one element at a time, as in JAX; off under a
+        partition."""
         return (self.cfg.fused_eval_on(self.device)
+                and manual_axis() is None
                 and type(self) is DynamicRGCNModel
                 and not self.cfg.use_time_embedding
                 and fused_eval_supported(
@@ -211,16 +216,19 @@ class DynamicRGCNModel:
         window that holds it: computed once per eval sweep, as one SpMM over
         the T snapshots laid side by side. None when the table would take
         more than 256 MB, and for the subclasses (the Post models), whose
-        eval threads its own windows, as in the JAX package.
+        eval threads its own windows, as in the JAX package, and under an
+        edge partition (the config's or an active one), whose windows run
+        every SpMM through the partition.
         """
         cfg = self.cfg
         T, A = data.act_idx.shape
         d = cfg.embed_size
-        if type(self) is not DynamicRGCNModel or T * A * d * 4 > 256 * 2**20:
+        if (type(self) is not DynamicRGCNModel or T * A * d * 4 > 256 * 2**20
+                or cfg.edge_partition_mode is not None
+                or manual_axis() is not None):
             return None
-        src, dst = _flat_graph(data.train_src_loc, data.train_dst_loc, A)
-        snap = Snapshot(src=src, dst=dst, rel=data.train.rel.reshape(-1),
-                        emask=data.train.emask.reshape(-1), t_idx=0)
+        snap = Snapshot(src=data.train_src_loc, dst=data.train_dst_loc,
+                        rel=data.train.rel, emask=data.train.emask, t_idx=0)
         h = self._rows(params, data.act_idx.reshape(-1))
         return rgcn_conv(params["encoder"]["layer1"], cfg, self.lc1, h,
                          snap).reshape(T, A, d)
@@ -303,10 +311,11 @@ class DynamicRGCNModel:
                 h1 = bufs[0].reshape(B, L1 * A, d)[bidx, gidx] * live
                 h2 = bufs[1].reshape(B, L1 * A, d)[bidx, gidx] * live
                 dt = (k - pstep.clamp(min=0)).to(torch.float32)
-                src, dst = _flat_graph(win.src_loc[:, k], win.dst_loc[:, k], A)
-                snap = Snapshot(src=src, dst=dst,
-                                rel=win.rel[:, k].reshape(-1),
-                                emask=win.emask[:, k].reshape(-1), t_idx=0)
+                # the B graphs side by side (rel_spmm), each in its own
+                # compact ids
+                snap = Snapshot(src=win.src_loc[:, k], dst=win.dst_loc[:, k],
+                                rel=win.rel[:, k], emask=win.emask[:, k],
+                                t_idx=0)
                 step_masks = (None, None) if masks is None else tuple(
                     m[:, k].reshape(B * A, d) for m in masks)
                 outs = encoder_forward(

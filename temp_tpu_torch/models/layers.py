@@ -23,12 +23,14 @@ from temp_tpu_torch.ops.segment import rel_spmm
 
 
 class Snapshot(NamedTuple):
-    """One timestamp's graph in the id space of the rows it is applied to."""
+    """One timestamp's graph in the id space of the rows it is applied to;
+    or B graphs side by side, edges [B, E] each in its own rows' ids (see
+    ``rel_spmm``)."""
 
-    src: torch.Tensor    # [E] int
-    dst: torch.Tensor    # [E] int
-    rel: torch.Tensor    # [E] int
-    emask: torch.Tensor  # [E] bool
+    src: torch.Tensor    # [E] or [B, E] int
+    dst: torch.Tensor    # [E] or [B, E] int
+    rel: torch.Tensor    # [E] or [B, E] int
+    emask: torch.Tensor  # [E] or [B, E] bool
     t_idx: Any           # time position (for the time embedding)
     valid: Any = True
     active: Optional[torch.Tensor] = None

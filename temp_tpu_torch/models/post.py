@@ -15,7 +15,8 @@ the fused final step K6-K10 (``ops/fused_final_bi.py``) when
 element at a time (``forward_element``, K1 on the card). The gates
 (``post_aggregation``, ``post_ensemble``) and the unidirectional impute
 model are not ported yet: ``PostDynamicRGCNModel`` holds what the two share
-and raises for the rest.
+and raises for the rest. Under an edge partition (``parallel/``) the impute
+variants raise too.
 """
 
 from __future__ import annotations
@@ -33,6 +34,10 @@ from temp_tpu_torch.ops.fused_final_bi import (
     final_graph_bi, fused_final_bi_loss, fused_final_bi_supported,
 )
 from temp_tpu_torch.ops.gru import gru_stack
+from temp_tpu_torch.parallel.mesh import manual_axis
+
+PARTITION_UNPORTED = ("the impute variants under an edge partition are not "
+                      "ported yet; see ROADMAP.md")
 
 
 class PostDynamicRGCNModel(DynamicRGCNModel):
@@ -52,7 +57,9 @@ class PostDynamicRGCNModel(DynamicRGCNModel):
     def pre_forward_loc(self, params, win, length: int, t_pos, train=False,
                         masks=None, direction=None):
         """``pre_forward`` carrying the local stream: (hist1, hist2,
-        hist_loc, last_pos)."""
+        hist_loc, last_pos). Raises under an edge partition."""
+        if manual_axis() is not None:
+            raise NotImplementedError(PARTITION_UNPORTED)
         return self.pre_forward(params, win, length, t_pos, train=train,
                                 masks=masks, direction=direction,
                                 with_loc=True)

@@ -1,8 +1,8 @@
 """Model selection: --module string + behavior flags -> model class, after
 the JAX package's ``models/registry.py``. Ported: GRRGCN
 (``DynamicRGCNModel``) and BiGRRGCN with ``--impute``
-(``PostBiDynamicRGCNModel``, the flagship); every other combination
-raises."""
+(``PostBiDynamicRGCNModel``, the flagship; not under an edge partition);
+every other combination raises."""
 
 from __future__ import annotations
 
@@ -48,7 +48,11 @@ def get_model(cfg: TKGConfig, data: TKGData, device="cuda"):
         from temp_tpu_torch.models.dynamic import DynamicRGCNModel
         return DynamicRGCNModel(cfg, data, device=device)
     if cfg.module == "BiGRRGCN" and cfg.impute and not gated:
-        from temp_tpu_torch.models.post import PostBiDynamicRGCNModel
+        from temp_tpu_torch.models.post import (
+            PARTITION_UNPORTED, PostBiDynamicRGCNModel,
+        )
+        if cfg.partitioned:
+            raise NotImplementedError(PARTITION_UNPORTED)
         return PostBiDynamicRGCNModel(cfg, data, device=device)
     raise NotImplementedError(f"module {cfg.module} with these flags is not "
                               f"ported yet")

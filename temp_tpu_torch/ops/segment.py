@@ -6,13 +6,25 @@ canonical configuration has n_bases == d (1x1 blocks: a per-relation
 diagonal scale); there ``rel_spmm`` goes through kernel K1
 (``ops/spmm.py``: K1f forward, K1b backward). Block-diagonal weights stay a
 torch einsum, differentiated by autograd.
+
+Inside ``parallel/mesh.py`` ``manual_partition`` every call is partitioned
+over the ranks of the model axis instead, by the partition's mode (the JAX
+package's dispatch): "psum" splits the edge list into chunks and adds the
+ranks' partial degrees and sums; "ring" and "ring_pallas" need edges
+grouped by destination owner (``parallel/edge_partition.py``
+``ring_regroup_data``) and rotate row shards of h around the ranks, the
+latter through kernel K13 (``parallel/ring_spmm.py``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from temp_tpu_torch.ops.spmm import spmm, spmm_fwd_plain
+from temp_tpu_torch.parallel.edge_partition import ring_geometry
+from temp_tpu_torch.parallel.mesh import manual_axis, rank_devices
+from temp_tpu_torch.parallel.ring_spmm import ring_spmm, ring_spmm_fwd_plain
 
 
 def segment_sum(data, segment_ids, num_segments: int):
@@ -42,6 +54,13 @@ def rel_message(h_src, rel, weight, n_bases: int, d_in: int, d_out: int):
     return torch.einsum("ebi,ebio->ebo", hb, w).reshape(-1, n_bases * so)
 
 
+def flat_graph(src, dst, n_rows: int):
+    """Edges of B graphs [B, E] (ids < n_rows) as one block-diagonal graph
+    over B * n_rows rows."""
+    offs = (torch.arange(src.shape[0], device=src.device) * n_rows)[:, None]
+    return (src.long() + offs).reshape(-1), (dst.long() + offs).reshape(-1)
+
+
 def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
              num_ents: int, kernels: bool = True):
     """RGCN neighbourhood aggregation with double degree normalization:
@@ -52,9 +71,33 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
     Returns [num_ents, d_out]; rows without in-edges are exactly 0. With
     diagonal weights this is kernel K1, differentiable in h and weight
     (``kernels=False`` runs its plain version on any device, differentiated
-    by autograd).
+    by autograd). Edges [B, E] give B graphs side by side: h holds
+    num_ents = B * n rows, graph b's ids index its own rows
+    [b * n, (b + 1) * n). Inside ``manual_partition`` the call is
+    partitioned by its mode (see the module's docstring).
     """
     d_in = h.shape[-1]
+    part = manual_axis()
+    if part is not None and part[1] > 1:
+        _, m, mode = part
+        B = src.shape[0] if src.dim() == 2 else 1
+        h3 = h.reshape(B, num_ents // B, d_in)
+        e2 = [x.reshape(B, -1) for x in (src, dst, rel, emask)]
+        args = (h3, *e2, weight, n_bases, d_out, m,
+                rank_devices(h.device))
+        if mode in ("ring", "ring_pallas"):
+            out = _rel_spmm_ring(*args, kernels=kernels,
+                                 k13=mode == "ring_pallas")
+        elif mode == "psum":
+            out = _rel_spmm_partitioned(*args)
+        else:
+            raise NotImplementedError(
+                f"edge partition mode {mode!r} is not ported yet; see "
+                f"ROADMAP.md")
+        return out.reshape(num_ents, d_out)
+    if src.dim() == 2:
+        src, dst = flat_graph(src, dst, num_ents // src.shape[0])
+        rel, emask = rel.reshape(-1), emask.reshape(-1)
     if n_bases == d_in == d_out:
         fn = spmm if kernels else spmm_fwd_plain
         return fn(h, src, dst, rel, emask, weight)
@@ -62,3 +105,60 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
     msg = rel_message(h[src.long()], rel, weight, n_bases, d_in, d_out)
     msg = msg * (norm[dst.long()] * emask.to(h.dtype))[:, None]
     return segment_sum(msg, dst, num_ents) * norm[:, None]
+
+
+def _rel_spmm_ring(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
+                   m: int, devices, kernels: bool = True, k13: bool = False):
+    """The ring modes (the JAX package's ``_rel_spmm_ring``) for B graphs:
+    h [B, n, d_in] on the controller, edges [B, E] grouped by destination
+    owner (``ring_regroup_data``). Rank i owns rows [i * rows, (i + 1) *
+    rows) of every graph, rows = ring_geometry(n, m), and edge slice i;
+    the m row shards visit every rank once. `k13` ("ring_pallas") takes
+    kernel K13 inside its envelope (d_in == d_out, blocks of s <= 8), as
+    the JAX package takes its Pallas kernel; outside it, and in "ring"
+    mode, K13's plain version runs the ring in torch ops (the JAX
+    package's XLA form). ``Trainer`` checks the layout
+    (``check_ring_layout``). Returns [B, n, d_out], the ranks' rows
+    gathered on the controller."""
+    n, d_in = h.shape[1:]
+    rows = ring_geometry(n, m)
+    h_pad = F.pad(h, (0, 0, 0, m * rows - n))
+    s = d_in // n_bases if d_in % n_bases == 0 else 0
+    if k13 and d_in == d_out and 1 <= s <= 8:
+        return ring_spmm(h_pad, weight, src, dst, rel, emask, m, rows,
+                         devices, kernels=kernels)[:, :n]
+    return ring_spmm_fwd_plain(h_pad, weight, src, dst, rel, emask, m, rows,
+                               devices, d_out=d_out)[0][:, :n]
+
+
+def _rel_spmm_partitioned(h, src, dst, rel, emask, weight, n_bases: int,
+                          d_out: int, m: int, devices):
+    """The "psum" mode (the JAX package's ``_rel_spmm_partitioned``) for B
+    graphs, h [B, n, d_in] on the controller, edges [B, E] in any order:
+    rank i takes edge chunk i of ceil(E / m) slots; the ranks' partial
+    in-degrees are added into the global norm, then their partial sums of
+    messages. Returns [B, n, d_out]."""
+    B, n, d_in = h.shape
+    E = src.shape[1]
+    chunk = -(-E // m)
+    ranks, deg = [], None
+    for r, dev in enumerate(devices):
+        sl = slice(r * chunk, min(E, (r + 1) * chunk))
+        seg = (torch.arange(B, device=dev)[:, None] * n
+               + dst[:, sl].long().to(dev)).reshape(-1)
+        em = emask[:, sl].to(dev).to(h.dtype).reshape(-1)
+        part = segment_sum(em, seg, B * n).to(h.device)
+        deg = part if deg is None else deg + part
+        ranks.append((dev, sl, seg, em))
+    norm = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0),
+                       torch.zeros_like(deg))
+    agg = None
+    for dev, sl, seg, em in ranks:
+        hs = h.to(dev)[torch.arange(B, device=dev)[:, None],
+                       src[:, sl].long().to(dev)].reshape(-1, d_in)
+        msg = rel_message(hs, rel[:, sl].reshape(-1).to(dev), weight.to(dev),
+                          n_bases, d_in, d_out)
+        msg = msg * (norm.to(dev)[seg] * em)[:, None]
+        part = segment_sum(msg, seg, B * n).to(h.device)
+        agg = part if agg is None else agg + part
+    return (agg * norm[:, None]).reshape(B, n, d_out)

@@ -1,0 +1,192 @@
+"""Edge-partitioned (model-parallel) training and eval: the data layout of
+the ring modes and the wrapper that partitions a model's SpMMs.
+
+``ring_geometry``, ``ring_regroup_data`` and ``group_edges_by_dst_owner``
+are the JAX package's host-side layout helpers on numpy, giving equal
+arrays. ``EdgePartitionedModel`` runs a model's ``loss`` and ``eval_ranks``
+with every ``rel_spmm`` partitioned over the model axis of a mesh
+(``parallel/mesh.py``): in the ring modes each rank owns a row shard of the
+entity states and the edges whose destination it owns, and the shards
+rotate around the ring (``ops/segment.py``, kernel K13 in
+``parallel/ring_spmm.py``). The rest of the model runs once, on the
+controller. Only the model axis is ported: a data axis (dp > 1) raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from temp_tpu_torch.parallel.mesh import Mesh, manual_partition
+
+
+def ring_geometry(num_ents: int, m: int, align: int = 128) -> int:
+    """Rows of a ring shard: ceil(num_ents / m) rounded up to `align`; the
+    owner of row v is v // rows, in the data layout and in the SpMM
+    alike."""
+    rows = -(-num_ents // m)
+    return max(align, -(-rows // align) * align)
+
+
+def ring_regroup_data(data, m: int, align: int = 128):
+    """The ring layout of a TKGData (the JAX package's
+    ``ring_regroup_data``): slice i of every train edge row holds exactly
+    the edges whose dst entity ring shard i owns (padded to e_cap), and
+    slice i of every compact active row holds the active entities shard i
+    owns (padded to a_cap, a multiple of `align`), so an edge's compact
+    owner dst_loc // a_cap equals its global owner dst // rows. Padding
+    edges keep their destination inside their shard in both spaces.
+    Reordering edges changes only the order of sums."""
+    rows = ring_geometry(data.num_ents, m, align)
+    T = data.num_times
+    src = np.asarray(data.train.src)
+    dst = np.asarray(data.train.dst)
+    rel = np.asarray(data.train.rel)
+    emask = np.asarray(data.train.emask)
+    active = np.asarray(data.active)
+
+    act_lists = [[np.nonzero(active[t, i * rows:(i + 1) * rows])[0] + i * rows
+                  if i * rows < data.num_ents else np.zeros(0, np.int64)
+                  for i in range(m)] for t in range(T)]
+    edge_lists = [[np.nonzero((dst[t] // rows == i) & emask[t])[0]
+                   for i in range(m)] for t in range(T)]
+    a_cap = max(align, -(-max(len(a) for row in act_lists for a in row)
+                         // align) * align)
+    e_cap = max(8, -(-max(1, max(len(e) for row in edge_lists for e in row))
+                     // 8) * 8)
+
+    A_new, E_new = m * a_cap, m * e_cap
+    act_idx = np.full((T, A_new), data.num_ents, np.int32)
+    act_mask = np.zeros((T, A_new), bool)
+    n_src, n_dst, n_rel, n_srcl, n_dstl = (np.zeros((T, E_new), np.int32)
+                                           for _ in range(5))
+    n_em = np.zeros((T, E_new), bool)
+    for t in range(T):
+        # global id -> compact slot (slot = shard * a_cap + rank in shard)
+        g2l = np.full(data.num_ents + 1, A_new, np.int64)
+        for i in range(m):
+            ids = act_lists[t][i]
+            s = i * a_cap
+            act_idx[t, s:s + len(ids)] = ids
+            act_mask[t, s:s + len(ids)] = True
+            g2l[ids] = s + np.arange(len(ids))
+        for i in range(m):
+            e = edge_lists[t][i]
+            s = i * e_cap
+            n_src[t, s:s + len(e)] = src[t, e]
+            n_dst[t, s:s + len(e)] = dst[t, e]
+            n_rel[t, s:s + len(e)] = rel[t, e]
+            n_em[t, s:s + len(e)] = True
+            n_srcl[t, s:s + len(e)] = g2l[src[t, e]]
+            n_dstl[t, s:s + len(e)] = g2l[dst[t, e]]
+            n_dst[t, s + len(e):s + e_cap] = min(i * rows, data.num_ents - 1)
+            n_dstl[t, s + len(e):s + e_cap] = i * a_cap
+
+    train = dataclasses.replace(data.train, src=n_src, dst=n_dst, rel=n_rel,
+                                emask=n_em)
+    return dataclasses.replace(data, train=train, act_idx=act_idx,
+                               act_mask=act_mask, train_src_loc=n_srcl,
+                               train_dst_loc=n_dstl)
+
+
+def check_ring_layout(data, m: int, align: int = 128) -> None:
+    """Raise unless the train edges of `data` are in the ring layout of m
+    ranks (``ring_regroup_data``): slice i of every edge row holds only
+    kept edges whose destination shard i owns, by global id (the final
+    step's graph, rows = ring_geometry(num_ents, m)) and by compact slot
+    (the window's, rows = ring_geometry(A, m)). The ring SpMM clips a
+    destination into its slice's shard, so data in another layout would
+    give wrong sums rather than fail there."""
+    dst = np.asarray(data.train.dst)
+    keep = np.asarray(data.train.emask).astype(bool)
+    dloc = np.asarray(data.train_dst_loc)
+    E, A = dst.shape[1], np.asarray(data.act_idx).shape[1]
+    ok = E % m == 0
+    if ok:
+        slot = np.arange(E) // (E // m)
+        ok = bool(np.all(~keep | (dst // ring_geometry(data.num_ents, m,
+                                                       align) == slot))
+                  and np.all(~keep | (dloc // ring_geometry(A, m, align)
+                                      == slot)))
+    if not ok:
+        raise ValueError(
+            f"the ring edge partitions need the train edges grouped by "
+            f"destination owner for {m} ranks; regroup the data with "
+            f"ring_regroup_data (data.snapshots.ring_layout)")
+
+
+def group_edges_by_dst_owner(src, dst, rel, emask, num_ents: int, m: int):
+    """Reorder and pad one edge list so slice i of m equal slices holds
+    exactly the edges whose dst row shard i (num_ents // m rows) owns;
+    padding edges point at row i * rows with emask False."""
+    src, dst, rel, emask = map(np.asarray, (src, dst, rel, emask))
+    rows = num_ents // m
+    owner = dst // rows
+    buckets = [np.nonzero((owner == i) & emask)[0] for i in range(m)]
+    cap = max(1, max(len(b) for b in buckets))
+    out = {k: np.zeros(m * cap, np.int32) for k in ("src", "dst", "rel")}
+    out["emask"] = np.zeros(m * cap, bool)
+    for i, b in enumerate(buckets):
+        s = i * cap
+        out["src"][s:s + len(b)] = src[b]
+        out["dst"][s:s + len(b)] = dst[b]
+        out["rel"][s:s + len(b)] = rel[b]
+        out["emask"][s:s + len(b)] = True
+        out["dst"][s + len(b):s + cap] = i * rows
+    return out["src"], out["dst"], out["rel"], out["emask"]
+
+
+def rel_spmm_edge_partitioned(h, src, dst, rel, emask, weight, n_bases: int,
+                              d_out: int, num_ents: int, mesh: Mesh,
+                              kernels: bool = True):
+    """The psum form of one partitioned SpMM (the JAX package's
+    ``rel_spmm_edge_partitioned``): rank i aggregates chunk i of the edge
+    list into a partial [N, d_out], and the partial degrees and sums are
+    added over the ranks. h [N, d_in] on the controller."""
+    from temp_tpu_torch.ops.segment import rel_spmm
+
+    mp = mesh.shape["model"]
+    with manual_partition("model", mp, "psum", mesh.devices[0]):
+        return rel_spmm(h, src, dst, rel, emask, weight, n_bases, d_out,
+                        num_ents, kernels=kernels)
+
+
+class EdgePartitionedModel:
+    """A model (the ``loss``/``eval_ranks`` signature of
+    ``models/registry.py``) whose SpMMs are partitioned over the model axis
+    of `mesh` with exchange `mode`. The model's fused paths turn off inside
+    (as in the JAX package), so its windows and final steps run step by
+    step through ``rel_spmm``. Attributes pass through to the inner
+    model."""
+
+    def __init__(self, model, mesh: Mesh, axis: str = "model",
+                 mode: str = "psum"):
+        if mesh.shape["data"] > 1:
+            raise NotImplementedError(
+                f"a mesh with data axis {mesh.shape['data']} needs data "
+                f"parallelism, which is not ported yet; see ROADMAP.md")
+        self.inner = model
+        self.mesh = mesh
+        self.axis = axis
+        self.mode = mode
+        self.mp = mesh.shape[axis]
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _partition(self):
+        return manual_partition(self.axis, self.mp, self.mode,
+                                self.mesh.devices[0])
+
+    def loss(self, params, data, t_pos, t_valid, gen=None, draws=None):
+        with self._partition():
+            return self.inner.loss(params, data, t_pos, t_valid, gen=gen,
+                                   draws=draws)
+
+    def eval_ranks(self, params, data, t_pos, t_valid, split: str,
+                   conv1_all=None):
+        """The inner model's eval; `conv1_all` is not taken (the table is
+        off under a partition, as in the JAX package)."""
+        with self._partition():
+            return self.inner.eval_ranks(params, data, t_pos, t_valid, split)

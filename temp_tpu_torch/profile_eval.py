@@ -1,17 +1,22 @@
 """Where the time of one eval sweep goes, on the card.
 
     python -m temp_tpu_torch.profile_eval [--plain] [--config FILE]
-        [--impute] [--fused-eval] [--fused-window-mb] [--out DIR]
+        [--impute] [--fused-eval] [--fused-window-mb]
+        [--edge-partition MODE [--mp-size M]] [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
 grid/icews14/config_grrgcn.json model or the one of --config, with
 imputation on for --impute: ``--config grid/icews14/config_bigrrgcn.json
 --impute`` is the flagship; seeded random weights; --fused-eval and
 --fused-window-mb switch on the fused eval, K11, and the batched window,
-K12), runs one
+K12; --edge-partition, psum, ring or ring_pallas, partitions every SpMM
+over --mp-size ranks, default 4, on the data regrouped for them, the ranks
+on the visible cards in turn), runs one
 warm-up valid sweep, then traces a second one with torch.profiler. Prints
 the wall time, the device time summed over all kernels and its share of the
-wall time, and the device time of each kernel name, largest first. With
+wall time (kernels on the ranks' streams may overlap, so the sum can
+exceed the busy time), and the device time of each kernel name, largest
+first. With
 --out it also writes the Chrome trace there. Needs a CUDA device.
 """
 
@@ -25,8 +30,8 @@ import time
 
 import torch
 
-from temp_tpu_torch.config import TKGConfig
-from temp_tpu_torch.data.snapshots import make_synthetic
+from temp_tpu_torch.config import PARTITION_MODES, TKGConfig
+from temp_tpu_torch.data.snapshots import make_synthetic, ring_layout
 from temp_tpu_torch.models.registry import get_model
 from temp_tpu_torch.train.loop import Trainer
 
@@ -47,6 +52,12 @@ def main(argv=None) -> int:
                     help="the final step and ranks through K11 (fused_eval)")
     ap.add_argument("--fused-window-mb", action="store_true",
                     help="the windows through K12 (fused_window_mb)")
+    ap.add_argument("--edge-partition", choices=PARTITION_MODES,
+                    default=None, help="partition every SpMM over "
+                    "--mp-size ranks (ring_pallas: kernel K13)")
+    ap.add_argument("--mp-size", type=int, default=4,
+                    help="ranks of the edge partition (default 4; on the "
+                         "visible cards in turn)")
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
@@ -58,12 +69,18 @@ def main(argv=None) -> int:
         **({"impute": True} if args.impute else {}),
         kernels=not args.plain, fused_eval=args.fused_eval,
         fused_window_mb=args.fused_window_mb)
-    data = make_synthetic(num_ents=7128, num_rels=230, num_times=365,
-                          edges_per_time=200, seed=0,
-                          edge_pad_multiple=cfg.edge_pad_multiple)
+    if args.edge_partition:
+        cfg = cfg.replace(edge_partition=args.edge_partition,
+                          mp_size=args.mp_size)
+    data = ring_layout(cfg, make_synthetic(
+        num_ents=7128, num_rels=230, num_times=365, edges_per_time=200,
+        seed=0, edge_pad_multiple=cfg.edge_pad_multiple))
     model = get_model(cfg, data, device="cuda")
     params = model.init_params(cfg.seed)
     trainer = Trainer(cfg, model, data)
+    if trainer.mesh is not None:
+        print(f"mesh: {trainer.mesh.placement()} "
+              f"(edge_partition={cfg.edge_partition_mode})")
     trainer.eval_sweep(params, "valid")  # warm-up: build, caches, allocator
     torch.cuda.synchronize()
 
@@ -72,7 +89,9 @@ def main(argv=None) -> int:
     path = "plain" if args.plain else "kernels"
     path += "".join(f", {name}" for name, on in (
         ("fused_eval", args.fused_eval),
-        ("fused_window_mb", args.fused_window_mb)) if on)
+        ("fused_window_mb", args.fused_window_mb),
+        (f"{args.edge_partition} x {args.mp_size}", args.edge_partition))
+        if on)
     print(f"path: {path}; {report}")
     if args.out:
         export(args.out, f"eval_{'plain' if args.plain else 'kernels'}"

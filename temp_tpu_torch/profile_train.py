@@ -1,7 +1,8 @@
 """Where the time of a few training steps goes, on the card.
 
     python -m temp_tpu_torch.profile_train [--plain | --unfused] [--steps N]
-        [--config FILE] [--impute] [--out DIR]
+        [--config FILE] [--impute] [--edge-partition MODE [--mp-size M]]
+        [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
 grid/icews14/config_grrgcn.json model or the one of --config, with
@@ -11,7 +12,10 @@ warm-up optimizer steps, then traces the next N (default 4) with
 torch.profiler. The path: the kernels with the fused final step (K3-K5, or
 K6-K10 for the flagship; the default), ``--unfused`` the kernels with
 fused_final off (the final step one element at a time through K1),
-``--plain`` the plain versions. Prints the wall time, the device time summed
+``--plain`` the plain versions; ``--edge-partition`` (psum, ring or
+ring_pallas) partitions every SpMM over M ranks (default 4) on the data
+regrouped for them, the ranks on the visible cards in turn (several to a
+card when there are fewer cards). Prints the wall time, the device time summed
 over all kernels and its share of the wall time, and the device time of
 each kernel name, largest first. With --out it also writes the Chrome trace
 there. Needs a CUDA device.
@@ -25,8 +29,8 @@ import sys
 
 import torch
 
-from temp_tpu_torch.config import TKGConfig
-from temp_tpu_torch.data.snapshots import make_synthetic
+from temp_tpu_torch.config import PARTITION_MODES, TKGConfig
+from temp_tpu_torch.data.snapshots import make_synthetic, ring_layout
 from temp_tpu_torch.models.registry import get_model
 from temp_tpu_torch.profile_eval import export, profile
 from temp_tpu_torch.train.loop import Trainer
@@ -48,6 +52,12 @@ def main(argv=None) -> int:
                          "(default: %(default)s)")
     ap.add_argument("--impute", action="store_true",
                     help="with imputation (BiGRRGCN --impute: the flagship)")
+    ap.add_argument("--edge-partition", choices=PARTITION_MODES,
+                    default=None, help="partition every SpMM over "
+                    "--mp-size ranks (ring_pallas: kernel K13)")
+    ap.add_argument("--mp-size", type=int, default=4,
+                    help="ranks of the edge partition (default 4; on the "
+                         "visible cards in turn)")
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args(argv)
@@ -58,11 +68,17 @@ def main(argv=None) -> int:
         os.path.join(_ROOT, args.config),
         **({"impute": True} if args.impute else {}),
         kernels=not args.plain, fused_final=not args.unfused)
-    data = make_synthetic(num_ents=7128, num_rels=230, num_times=365,
-                          edges_per_time=200, seed=0,
-                          edge_pad_multiple=cfg.edge_pad_multiple)
+    if args.edge_partition:
+        cfg = cfg.replace(edge_partition=args.edge_partition,
+                          mp_size=args.mp_size)
+    data = ring_layout(cfg, make_synthetic(
+        num_ents=7128, num_rels=230, num_times=365, edges_per_time=200,
+        seed=0, edge_pad_multiple=cfg.edge_pad_multiple))
     model = get_model(cfg, data, device="cuda")
     trainer = Trainer(cfg, model, data)
+    if trainer.mesh is not None:
+        print(f"mesh: {trainer.mesh.placement()} "
+              f"(edge_partition={cfg.edge_partition_mode})")
     params, opt = trainer.init_state()
     batches = trainer.epoch_batches(0)[:2 + args.steps]
 
@@ -77,6 +93,9 @@ def main(argv=None) -> int:
     report = profile(lambda: steps(range(2, 2 + args.steps)),
                      f"{args.steps} training steps", args.top)
     name = "plain" if args.plain else "unfused" if args.unfused else "fused"
+    if args.edge_partition:  # the fused final step is off under it
+        name = (f"{'plain' if args.plain else 'kernels'}_"
+                f"{args.edge_partition}_x{args.mp_size}")
     print(f"path: {name}; {report}")
     if args.out:
         export(args.out, f"train_{name}")

@@ -20,6 +20,10 @@ import torch
 from temp_tpu_torch.config import TKGConfig, encode_run_name
 from temp_tpu_torch.data.snapshots import TKGData, to_device
 from temp_tpu_torch.models.objectives import metrics_from_ranks
+from temp_tpu_torch.parallel.edge_partition import (
+    EdgePartitionedModel, check_ring_layout,
+)
+from temp_tpu_torch.parallel.mesh import make_mesh
 from temp_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from temp_tpu_torch.train.optim import (
     clip_and_step, make_optimizer, param_leaves,
@@ -45,11 +49,29 @@ def batched_time_positions(num_times: int, batch_size: int,
 
 class Trainer:
     def __init__(self, cfg: TKGConfig, model, data: TKGData,
-                 run_dir: Optional[str] = None):
+                 run_dir: Optional[str] = None, mesh=None):
         """`data` is the host (numpy) dataset; it is moved to the model's
         device once here. Runs write under `run_dir` (default
-        <experiments_dir>/<model_name or encode_run_name(cfg)>)."""
+        <experiments_dir>/<model_name or encode_run_name(cfg)>).
+
+        With an edge partition in `cfg` and mp_size > 1 the model runs
+        wrapped in ``EdgePartitionedModel`` over `mesh` (default: mp_size
+        ranks on the visible cards, or on the CPU for a CPU model); the
+        model's device is the controller. The ring modes need `data` in
+        their layout (``ring_regroup_data``) and raise otherwise."""
         self.cfg = cfg
+        self.mesh = None
+        if cfg.partitioned:
+            if mesh is None:
+                mp = int(cfg.mp_size)
+                on_cpu = model.device.type == "cpu"
+                mesh = make_mesh(1, mp, devices=[model.device] * mp
+                                 if on_cpu else None)
+            self.mesh = mesh
+            if cfg.edge_partition_mode in ("ring", "ring_pallas"):
+                check_ring_layout(data, mesh.shape["model"])
+            model = EdgePartitionedModel(model, mesh,
+                                         mode=cfg.edge_partition_mode)
         self.model = model
         self.device = model.device
         self.data = to_device(data, self.device)

@@ -181,6 +181,11 @@ def test_chip_smoke_phases_rehearse_on_cpu():
            "k11": chip_smoke.phase_k11(ctx),
            "path_fused_eval": chip_smoke.phase_path_fused_eval(ctx, path),
            "mb": chip_smoke.phase_mb(ctx, fctx)}
+    rctx = chip_smoke.phase_setup_ring(ctx)
+    assert rctx["mesh"].placement() == "4 ranks on cpu"
+    res.update(k13=chip_smoke.phase_k13(rctx),
+               ring_path=chip_smoke.phase_ring_path(rctx),
+               ring_train=chip_smoke.phase_ring_train(rctx))
     line = chip_smoke.kernels_line(res)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -188,7 +193,7 @@ def test_chip_smoke_phases_rehearse_on_cpu():
         "spmm_fwd", "spmm_bwd", "fused_window_fwd", "fused_window_bwd",
         "fused_final_fwd", "fused_final_bwd_loss", "fused_final_bwd_layer",
         "bi_layer_fwd", "bi_loss_fwd", "bi_layer_bwd", "fused_eval_ranks",
-        "fused_window_mb_fwd"]
+        "fused_window_mb_fwd", "ring_spmm_fwd"]
     for rec in line["kernels"]:
         assert keys <= set(rec)
         assert rec["max_abs_err"] == 0.0  # the CPU runs the plain version
@@ -244,7 +249,20 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert mb["eval"]["ranks_equal"]
     paths = set(line["kernels"][0]["launches_by_path"])
     assert {"eval_fused", "eval_mb", "train_fused_mb",
-            "flagship_train_fused_mb"} <= paths
+            "flagship_train_fused_mb", "ring_eval", "ring_train"} <= paths
+    # K13: the plain version on both sides, at both shapes; the ring paths
+    # agree with the unpartitioned ones on the regrouped data
+    for tag in ("final", "window"):
+        assert res["k13"][tag]["max_abs_err"] == 0.0
+        assert res["k13"][tag]["isolated_rows_zero"]
+    # RingSpMM's backward is autograd through the same plain ring
+    assert all(e["abs"] == 0.0 for e in res["k13"]["bwd_scaled_errs"].values())
+    assert max(res["ring_path"]["mrr_gaps"].values()) <= chip_smoke.MRR_TOL
+    rt = res["ring_train"]
+    assert max(rt["max_rel_gaps"].values()) <= chip_smoke.TRAIN_TOL
+    assert len(rt["ring"]["losses"]) == 2
+    assert set(rt["params"]["max_rel_gaps"]) == {
+        "ring/plain", "ring/unpartitioned", "unpartitioned/plain"}
 
 
 @pytest.mark.parametrize("alone", [False, True])
