@@ -83,22 +83,30 @@ Then the switches that are off by default, on GRRGCN and the flagship:
 Then the model-parallel path, GRRGCN with edge_partition="ring_pallas" over
 RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
 
-23. ring_setup - the dataset regrouped for 4 ranks (ring_regroup_data) and
-                 the model on it with the same seeded weights; prints the
-                 ranks' placement and the number of cards;
-24. k13        - kernel K13 (ring_spmm_fwd) against its plain version at
-                 the final-snapshot shape (7128 rows in 4 shards of 1792)
-                 and at one window step's compact shape (the 8 graphs of
-                 an eval batch), within 1e-5 of the largest entry, rows
-                 without in-edges exactly 0; and RingSpMM's backward
-                 against autograd through the plain forward;
+23. ring_setup - the dataset regrouped for 4 ranks (ring_layout: the edges
+                 grouped by destination owner, and K13's static CSR tables
+                 of every train snapshot) and the model on it with the
+                 same seeded weights; prints the ranks' placement and the
+                 number of cards;
+24. k13        - kernel K13 (ring_spmm_fwd) at the final-snapshot shape
+                 (7128 rows in 4 shards of 1792) and at one window step's
+                 compact shape (the 8 graphs of an eval batch): walking
+                 the data's tables (the path's route) and sorting the
+                 call's edges (the in-call route), timed side by side and
+                 equal bit for bit, also under a 50% dynamic mask; both
+                 within 1e-5 of the largest entry of the plain version,
+                 rows without in-edges exactly 0, 4 launches a call; then
+                 K13's backward kernels (ring_spmm_bwd) over the tables at
+                 both shapes against autograd through the plain forward
+                 and against ring_spmm_bwd_plain, with their times;
 25. ring_path  - the valid sweep under the partition with the kernels and
                  with their plain versions, and without a partition on the
-                 same data: MRR within 1e-4; K13's launches and none of
-                 K1, K2, K3-K5, K11 or K12;
+                 same data: MRR within 1e-4; K13's launches, no sort in a
+                 call, and none of K1, K2, K3-K5, K11 or K12;
 26. ring_train - 8 optimizer steps under the partition (kernels, plain)
                  and without it (fused_final off): losses and parameters
-                 held together as in `train`.
+                 held together as in `train`; K13's forward and backward
+                 launched, no sort in a call.
 
 Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and the
 result line {"ok": true, "device": {...}}. Any failed check raises and exits
@@ -395,17 +403,30 @@ def _counters():
     )
     from temp_tpu_torch.ops.fused_window_mb import fused_window_mb_fwd
     from temp_tpu_torch.ops.spmm import spmm_bwd, spmm_fwd
-    from temp_tpu_torch.parallel.ring_spmm import ring_spmm_fwd
+    from temp_tpu_torch.parallel.ring_spmm import ring_spmm_bwd, ring_spmm_fwd
 
     return (spmm_fwd, spmm_bwd, fused_window_fwd, fused_window_bwd,
             fused_final_fwd, fused_final_bwd_loss, fused_final_bwd_layer,
             fb.bi_layer_fwd, fb.bi_loss_fwd, fb.bi_layer_bwd,
-            fused_eval_ranks, fused_window_mb_fwd, ring_spmm_fwd)
+            fused_eval_ranks, fused_window_mb_fwd, ring_spmm_fwd,
+            ring_spmm_bwd)
 
 
 def _reset_counts() -> None:
+    """Every launch counter, and K13's count of in-call sorts, to 0."""
+    from temp_tpu_torch.parallel.ring_spmm import ring_spmm_fwd
+
     for fn in _counters():
         fn.launches = 0
+    ring_spmm_fwd.csr_builds = 0
+
+
+def _csr_builds() -> int:
+    """The tables K13 sorted in a call since the last reset (0 on a path
+    that walks the data's tables)."""
+    from temp_tpu_torch.parallel.ring_spmm import ring_spmm_fwd
+
+    return ring_spmm_fwd.csr_builds
 
 
 def _counts() -> dict:
@@ -436,6 +457,7 @@ def _sweep(ctx, c):
     m["wall_s"] = wall
     m["queries_per_s"] = m["n"] / wall
     m["launches"] = _counts()
+    m["csr_builds"] = _csr_builds()
     return m, ranks, mask
 
 
@@ -932,7 +954,7 @@ def _train_path(ctx, c):
     losses = torch.stack(losses).cpu().tolist()
     wall = time.perf_counter() - t0
     res = {"losses": losses, "ms_per_step": wall * 1e3 / len(batches),
-           "launches": _counts()}
+           "launches": _counts(), "csr_builds": _csr_builds()}
     finals = [t.detach().clone() for t in param_leaves(params)]
     return model, res, init, finals, tr, params
 
@@ -1672,21 +1694,20 @@ def phase_mb(ctx, fctx) -> dict:
 
 
 def phase_setup_ring(ctx) -> dict:
-    """The smoke's dataset regrouped for RING_M ranks (ring_regroup_data:
-    each rank's edge slice holds the edges into its row shard) and the
-    GRRGCN model on it with the same seeded weights, under
-    edge_partition="ring_pallas"; every rank on the smoke's device (one
-    card), each on its own streams."""
+    """The smoke's dataset in the ring layout of RING_M ranks (ring_layout:
+    each rank's edge slice holds the edges into its row shard, and K13's
+    static tables of every train snapshot) and the GRRGCN model on it with
+    the same seeded weights, under edge_partition="ring_pallas"; every
+    rank on the smoke's device (one card)."""
+    from temp_tpu_torch.data.snapshots import ring_layout
     from temp_tpu_torch.models.registry import get_model
-    from temp_tpu_torch.parallel.edge_partition import (
-        ring_geometry, ring_regroup_data,
-    )
+    from temp_tpu_torch.parallel.edge_partition import ring_geometry
     from temp_tpu_torch.parallel.mesh import make_mesh
     from temp_tpu_torch.train.loop import Trainer
 
     dev, cfg = ctx["device"], ctx["cfg"].replace(
         edge_partition="ring_pallas", mp_size=RING_M)
-    data = ring_regroup_data(ctx["data"], RING_M)
+    data = ring_layout(cfg, ctx["data"])
     mesh = make_mesh(1, RING_M, devices=[dev] * RING_M)
     model = get_model(cfg, data, device=dev)
     trainer = Trainer(cfg, model, data, mesh=mesh)
@@ -1727,50 +1748,112 @@ def _ring_bound(h, w, src, rel, emask):
             (RING_M - 1) * B * n * d * 4)
 
 
-def phase_k13(rctx) -> dict:
-    """K13 against its plain version with RING_M ranks at the final-snapshot
-    shape (all N rows padded to RING_M shards, one snapshot's regrouped
-    train edges) and at one window step's compact shape (the B = 8 graphs
-    of an eval batch, A = RING_M * a_cap rows each): within SCALED_TOL of
-    the largest entry, rows without in-edges exactly 0; then RingSpMM's
-    backward against autograd through the plain version at the
-    final-snapshot shape, to the same scale."""
+def _ring_bwd_bound(h, w, src, dst, rel, emask):
+    """Least time for one call of K13's backward: the referenced rows of g
+    (and their norm^2), h and w, the edge arrays, dh and dw written once,
+    against (1 + 4 s) d flops a kept edge (dmsg, dh's and dw's
+    multiply-adds). The accumulators' (M - 1) passes round the ring are
+    its own cost: returned apart as the rotation's bytes."""
+    B, n, d = h.shape
+    m = emask.bool()
+    R, W = w.shape
+    s = W // d
+    b_idx = _graph_index(src)[m]
+    g_rows = int((b_idx * n + dst[m].long()).unique().numel())
+    h_rows = int((b_idx * n + src[m].long()).unique().numel())
+    nbytes = (g_rows * (d + 1) * 4 + h_rows * d * 4
+              + int(rel[m].unique().numel()) * W * 4 + src.numel() * 13
+              + B * n * d * 4 + R * W * 4)
+    flops = (1 + 4 * s) * d * int(m.sum())
+    t_b, t_f = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
+    return (max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"),
+            (RING_M - 1) * B * n * d * 4)
+
+
+def _k13_cases(rctx):
+    """K13's two shapes on the path's data, with the tables the path walks:
+    (tag, (h, w, src, dst, rel, emask), rows, (tables, t_pos)). "final":
+    all N rows padded to RING_M shards, one snapshot's regrouped train
+    edges in global ids; "window": one window step's compact shape, the
+    B = 8 graphs of an eval batch (A = RING_M * a_cap rows each)."""
     import torch
     import torch.nn.functional as F
 
-    from temp_tpu_torch.parallel.ring_spmm import (
-        ring_spmm, ring_spmm_fwd, ring_spmm_fwd_plain,
-    )
-
     dev, p, data = rctx["device"], rctx["params"], rctx["trainer"].data
-    devices = rctx["mesh"].devices[0]
     w = p["encoder"]["layer1"]["weight"]
     N, rows = rctx["N"], rctx["rows"]
     t = data.num_times // 2
     h_final = F.pad(p["ent_embeds"], (0, 0, 0, RING_M * rows - N))[None]
-    final = (h_final, w, data.train.src[t][None], data.train.dst[t][None],
-             data.train.rel[t][None], data.train.emask[t][None])
+    tf = torch.tensor([t], device=dev)
+    final = (h_final, w, data.train.src[tf], data.train.dst[tf],
+             data.train.rel[tf], data.train.emask[tf])
     tp = torch.arange(rctx["B"], device=dev) + t
     h_win = p["ent_embeds"][data.act_idx[tp].long().clamp(max=N - 1)]
     window = (h_win.contiguous(), w, data.train_src_loc[tp],
               data.train_dst_loc[tp], data.train.rel[tp], data.train.emask[tp])
+    return (("final", final, rows, (data.ring.glob, tf)),
+            ("window", window, rctx["a_cap"], (data.ring.comp, tp)))
+
+
+def phase_k13(rctx) -> dict:
+    """K13 at the final-snapshot and window-step shapes (``_k13_cases``):
+    the route that walks the data's tables (the path's) and the route that
+    sorts the call's edges (the in-call route), timed side by side and
+    equal bit for bit, also under a 50% dynamic mask; both within
+    SCALED_TOL of the largest entry of the plain version, rows without
+    in-edges exactly 0, RING_M launches a call and no sort on the table
+    route. Then K13's backward kernels (ring_spmm_bwd) over the tables at
+    both shapes (the final step under the training's 50% subsample):
+    against autograd through the plain forward and against
+    ring_spmm_bwd_plain, to the same scale, and RingSpMM's gradients equal
+    to theirs."""
+    import torch
+
+    from temp_tpu_torch.parallel.ring_spmm import (
+        ring_spmm, ring_spmm_bwd, ring_spmm_bwd_plain, ring_spmm_fwd,
+        ring_spmm_fwd_plain,
+    )
+
+    dev = rctx["device"]
+    devices = rctx["mesh"].devices[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    on_card = dev.type == "cuda"  # the CPU rehearsal runs the plain versions
     out = {}
-    for tag, args, r in (("final", final, rows),
-                         ("window", window, rctx["a_cap"])):
-        h, _, src, dst, rel, em = args
-        before = ring_spmm_fwd.launches
-        got, n2 = ring_spmm_fwd(*args, RING_M, r, devices)
+    for tag, args, r, tables in _k13_cases(rctx):
+        h, w, src, dst, rel, em = args
+        ring = (RING_M, r, devices)
+        before, builds = ring_spmm_fwd.launches, ring_spmm_fwd.csr_builds
+        got, n2 = ring_spmm_fwd(*args, *ring, tables=tables)
         per_call = ring_spmm_fwd.launches - before
-        ref, n2p = ring_spmm_fwd_plain(*args, RING_M, r, devices)
+        if (ring_spmm_fwd.csr_builds != builds
+                or per_call != (RING_M if on_card else 0)):
+            raise AssertionError(f"K13 {tag}: {per_call} launches, "
+                                 f"{ring_spmm_fwd.csr_builds - builds} "
+                                 f"sorts with the tables")
+        own, n2o = ring_spmm_fwd(*args, *ring)
+        sub = em & (torch.rand(em.shape, generator=gen, device=dev) < 0.5)
+        sub_args = (h, w, src, dst, rel, sub)
+        sub_t, _ = ring_spmm_fwd(*sub_args, *ring, tables=tables)
+        sub_o, _ = ring_spmm_fwd(*sub_args, *ring)
+        if not (torch.equal(got, own) and torch.equal(n2, n2o)
+                and torch.equal(sub_t, sub_o)):
+            raise AssertionError(f"K13 {tag}: the table route and the "
+                                 f"in-call route differ")
+        ref, n2p = ring_spmm_fwd_plain(*args, *ring)
+        sub_p, _ = ring_spmm_fwd_plain(*sub_args, *ring)
         # held to the outputs' own scale (xavier weights: entries of order
         # 1e-3), as the K4/K5 checks are
         scaled = scaled_errs([(f"K13 {tag} out", got, ref),
-                              (f"K13 {tag} norm^2", n2, n2p)])
+                              (f"K13 {tag} norm^2", n2, n2p),
+                              (f"K13 {tag} out, 50% mask", sub_t, sub_p)])
         err = max(e["abs"] for e in scaled.values())
         b_e = _graph_index(src)
-        fed = torch.zeros(h.shape[:2], dtype=torch.bool, device=dev)
-        fed[b_e[em.bool()], dst[em.bool()].long()] = True
-        isolated_zero = bool((got[~fed] == 0).all() and (ref[~fed] == 0).all())
+        isolated_zero = True
+        for e_mask, a, b in ((em, got, ref), (sub, sub_t, sub_p)):
+            fed = torch.zeros(h.shape[:2], dtype=torch.bool, device=dev)
+            fed[b_e[e_mask.bool()], dst[e_mask.bool()].long()] = True
+            isolated_zero &= bool((a[~fed] == 0).all()
+                                  and (b[~fed] == 0).all())
         if not isolated_zero:
             raise AssertionError(f"K13 {tag}: rows without in-edges not 0")
         # the library yardstick: one index_add_ SpMM of the same messages
@@ -1787,36 +1870,82 @@ def phase_k13(rctx) -> dict:
                      f"m={RING_M}",
             "max_abs_err": err, "scaled_errs": scaled,
             "isolated_rows_zero": isolated_zero,
-            "launches_per_call": per_call,
-            "ms": time_ms(lambda: ring_spmm_fwd(*args, RING_M, r, devices),
-                          dev),
-            "plain_ms": time_ms(lambda: ring_spmm_fwd_plain(
-                *args, RING_M, r, devices), dev, reps=5),
+            "bitwise_in_call": True, "launches_per_call": per_call,
+            "ms": time_ms(lambda: ring_spmm_fwd(*args, *ring,
+                                                tables=tables), dev),
+            "in_call_ms": time_ms(lambda: ring_spmm_fwd(*args, *ring), dev),
+            "plain_ms": time_ms(lambda: ring_spmm_fwd_plain(*args, *ring),
+                                dev, reps=5),
             "library_ms": time_ms(
                 lambda: lib.zero_().index_add_(0, seg, msg), dev),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "rotation_bytes": rot_bytes,
             "rotation_ms": rot_bytes / H100_BYTES_S * 1e3}
         print(f"  K13 {tag}: {out[tag]}", flush=True)
-    # backward: RingSpMM (K13 forward) against autograd through the plain
-    # forward, from one seeded cotangent
-    gen = torch.Generator(device=dev).manual_seed(0)
-    g = torch.randn(final[0].shape, generator=gen, device=dev)
-    grads = {}
-    for name, kernels in (("kernel", True), ("plain", False)):
-        h = final[0].detach().clone().requires_grad_()
-        wq = w.detach().clone().requires_grad_()
-        if kernels:
-            o = ring_spmm(h, wq, *final[2:], RING_M, rows, devices)
-        else:
-            o, _ = ring_spmm_fwd_plain(h, wq, *final[2:], RING_M, rows,
-                                       devices)
+        # the backward: the final step trains on the 50% subsample
+        if tag == "final":
+            args = sub_args
+        h, w, src, dst, rel, em = args
+        _, n2 = ring_spmm_fwd(*args, *ring, tables=tables)
+        g = torch.randn(h.shape, generator=gen, device=dev)
+        hh, ww = h.detach().clone().requires_grad_(), w.detach().clone(
+        ).requires_grad_()
+        o, _ = ring_spmm_fwd_plain(hh, ww, *args[2:], *ring)
         (o * g).sum().backward()
-        grads[name] = (h.grad, wq.grad)
-    errs = scaled_errs((f"K13 backward {n}", a, b) for n, a, b in zip(
-        ("dh", "dw"), grads["kernel"], grads["plain"]))
-    out["bwd_scaled_errs"] = errs
-    print(f"  K13 backward: {errs}", flush=True)
+        bwd_args = (g, n2, h, w, src, dst, rel, em, *ring)
+        before = ring_spmm_bwd.launches
+        dh, dw = ring_spmm_bwd(*bwd_args, tables=tables)
+        per_call = ring_spmm_bwd.launches - before
+        ph, pw = ring_spmm_bwd_plain(*bwd_args)
+        if per_call != (RING_M + 2 if on_card else 0):
+            raise AssertionError(f"K13 bwd {tag}: {per_call} launches")
+        errs = scaled_errs([(f"K13 bwd {tag} dh", dh, hh.grad),
+                            (f"K13 bwd {tag} dw", dw, ww.grad),
+                            (f"K13 bwd {tag} dh plain", dh, ph),
+                            (f"K13 bwd {tag} dw plain", dw, pw)])
+        ah, aw = h.detach().clone().requires_grad_(), w.detach().clone(
+        ).requires_grad_()
+        (ring_spmm(ah, aw, *args[2:], *ring, tables=tables)
+         * g).sum().backward()
+        dh2, dw2 = ring_spmm_bwd(*bwd_args, tables=tables)
+        if not (torch.equal(ah.grad, dh) and torch.equal(aw.grad, dw)
+                and torch.equal(dh2, dh) and torch.equal(dw2, dw)):
+            raise AssertionError(f"K13 bwd {tag}: not the same bits twice")
+        # the library yardstick: the same backward as two index_add_ calls
+        # on the per-edge cotangents of the same dmsg (computed outside
+        # the timing), as K1b's
+        emf = em.to(torch.float32)[..., None]
+        d_ = h.shape[2]
+        dmsg = ((g * n2[..., None])[b_e, dst.long()] * emf).reshape(-1, d_)
+        mh = dmsg * w[rel.long()].reshape(-1, d_)
+        mw = dmsg * h[b_e, src.long()].reshape(-1, d_)
+        src_seg = (b_e * h.shape[1] + src.long()).reshape(-1)
+        lib_h = torch.zeros(h.shape[0] * h.shape[1], d_, device=dev)
+        lib_w = torch.zeros_like(w)
+
+        def library():
+            lib_h.zero_().index_add_(0, src_seg, mh)
+            lib_w.zero_().index_add_(0, rel.long().reshape(-1), mw)
+
+        bound_ms, bound_by, rot_bytes = _ring_bwd_bound(h, w, src, dst, rel,
+                                                        em)
+        out[f"bwd_{tag}"] = {
+            "shape": f"B={h.shape[0]} rows={h.shape[1]} E={src.shape[1]} "
+                     f"kept={int(em.sum())} R={w.shape[0]} d={d_} "
+                     f"m={RING_M}",
+            # against its plain version; against autograd in scaled_errs
+            "max_abs_err": max(errs[f"K13 bwd {tag} {x} plain"]["abs"]
+                               for x in ("dh", "dw")),
+            "scaled_errs": errs, "launches_per_call": per_call,
+            "ms": time_ms(lambda: ring_spmm_bwd(*bwd_args, tables=tables),
+                          dev),
+            "plain_ms": time_ms(lambda: ring_spmm_bwd_plain(*bwd_args), dev,
+                                reps=5),
+            "library_ms": time_ms(library, dev),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "rotation_bytes": rot_bytes,
+            "rotation_ms": rot_bytes / H100_BYTES_S * 1e3}
+        print(f"  K13 bwd {tag}: {out[f'bwd_{tag}']}", flush=True)
     return out
 
 
@@ -1826,10 +1955,17 @@ _NOT_ON_RING = ("spmm_fwd", "spmm_bwd", "fused_window_fwd",
                 "fused_window_mb_fwd")
 
 
-def _ring_launches_ok(dev, launches: dict, tag: str) -> None:
-    """The ring path launched K13 and none of K1, K2, K3-K5, K11, K12."""
-    if dev.type == "cuda" and not launches["ring_spmm_fwd"] > 0:
-        raise AssertionError(f"{tag}: K13 was not launched: {launches}")
+def _ring_launches_ok(dev, run: dict, tag: str, train: bool) -> None:
+    """The ring path launched K13 (and, training, its backward kernels)
+    over the data's tables, sorting nothing in a call, and none of K1, K2,
+    K3-K5, K11, K12. A sweep has no backward."""
+    launches = run["launches"]
+    bwd = launches["ring_spmm_bwd"]
+    if dev.type == "cuda" and not (launches["ring_spmm_fwd"] > 0
+                                   and (bwd > 0 if train else bwd == 0)):
+        raise AssertionError(f"{tag}: K13's launches: {launches}")
+    if run["csr_builds"]:
+        raise AssertionError(f"{tag}: {run['csr_builds']} sorts in a call")
     if any(launches[n] for n in _NOT_ON_RING):
         raise AssertionError(f"{tag}: another kernel launched: {launches}")
 
@@ -1858,7 +1994,7 @@ def phase_ring_path(rctx) -> dict:
             for o in ("plain", "unpartitioned")}
     if not all(g <= MRR_TOL for g in gaps.values()):
         raise AssertionError(f"ring path: MRR gaps {gaps} > {MRR_TOL}")
-    _ring_launches_ok(rctx["device"], k["launches"], "ring eval")
+    _ring_launches_ok(rctx["device"], k, "ring eval", train=False)
     if any(res["plain"]["launches"].values()):
         raise AssertionError(f"ring path plain: kernels launched: "
                              f"{res['plain']['launches']}")
@@ -1897,7 +2033,8 @@ def phase_ring_train(rctx) -> dict:
     res["params"] = param_gaps(init, finals,
                                names=("ring", "unpartitioned", "plain"))
     print(f"  ring train params: {res['params']}", flush=True)
-    _ring_launches_ok(rctx["device"], res["ring"]["launches"], "ring train")
+    _ring_launches_ok(rctx["device"], res["ring"], "ring train",
+                      train=True)
     if any(res["plain"]["launches"].values()):
         raise AssertionError(f"ring train plain: kernels launched: "
                              f"{res['plain']['launches']}")
@@ -1931,6 +2068,8 @@ _KERNELS = (
      "temp_tpu/ops/fused_window_mb.py:78"),
     ("ring_spmm_fwd", "temp_tpu_torch/csrc/ring_spmm.cu",
      "temp_tpu/parallel/ring_pallas.py:100"),
+    ("ring_spmm_bwd", "temp_tpu_torch/csrc/ring_spmm.cu",
+     "temp_tpu/parallel/ring_pallas.py:270"),
 )
 
 # the path whose run gives each kernel's "launches"
@@ -1940,7 +2079,7 @@ _HOME = {"spmm_fwd": "eval", "spmm_bwd": "train_unfused",
          "bi_layer_bwd": "flagship_train_fused",
          "fused_eval_ranks": "eval_fused",
          "fused_window_mb_fwd": "train_fused_mb",
-         "ring_spmm_fwd": "ring_train"}
+         "ring_spmm_fwd": "ring_train", "ring_spmm_bwd": "ring_train"}
 
 
 def _paths(res: dict) -> dict:
@@ -1969,7 +2108,7 @@ def kernels_line(res: dict) -> dict:
     fused training path; the eval sweep for K1f, the unfused training path
     for K1b, the flagship's fused training path for K6-K10, the fused eval
     sweep for K11, the fused training path with the batched window for
-    K12, the ring_pallas training path for K13)."""
+    K12, the ring_pallas training path for K13 and its backward)."""
     measured = {"spmm_fwd": res["k1"]["final"], "spmm_bwd": res["k1b"],
                 "fused_window_fwd": res["k2"]["conv1_in"],
                 "fused_window_bwd": res["k2b"]["bwd"],
@@ -1979,7 +2118,8 @@ def kernels_line(res: dict) -> dict:
                 "bi_layer_fwd": res["k6k7"], "bi_loss_fwd": res["k8"],
                 "bi_layer_bwd": res["k9k10"], "fused_eval_ranks": res["k11"],
                 "fused_window_mb_fwd": res["mb"]["k12"],
-                "ring_spmm_fwd": res["k13"]["final"]}
+                "ring_spmm_fwd": res["k13"]["final"],
+                "ring_spmm_bwd": res["k13"]["bwd_final"]}
     paths = _paths(res)
     rec = []
     for name, src, replaces in _KERNELS:
@@ -2004,10 +2144,15 @@ def kernels_line(res: dict) -> dict:
                 for d in ("fwd", "bwd")}
         if name == "fused_eval_ranks":
             r["unfused_ms"] = m["unfused_ms"]
-        if name == "ring_spmm_fwd":
-            r["window_step"] = {k: res["k13"]["window"][k] for k in (
+        if name in ("ring_spmm_fwd", "ring_spmm_bwd"):
+            part = "window" if name == "ring_spmm_fwd" else "bwd_window"
+            r["window_step"] = {k: res["k13"][part][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
                 "shape")}
+        if name == "ring_spmm_fwd":
+            r["in_call_ms"] = m["in_call_ms"]
+            r["window_step"]["in_call_ms"] = res["k13"]["window"][
+                "in_call_ms"]
         rec.append(r)
     return {"kernels": rec}
 
@@ -2112,12 +2257,15 @@ def main() -> int:
             rp[f"wall_s_{name}"] = rp[name]["wall_s"]
             rp[f"queries_per_s_{name}"] = rp[name]["queries_per_s"]
         rp["k13_launches"] = rp["kernels"]["launches"]["ring_spmm_fwd"]
+        rp["csr_builds"] = rp["kernels"]["csr_builds"]
     res["ring_path"] = rp
     with phase("ring_train", {}) as rt:
         rt.update(phase_ring_train(rctx))
         for name in ("ring", "plain", "unpartitioned"):
             rt[f"ms_per_step_{name}"] = rt[name]["ms_per_step"]
         rt["k13_launches"] = rt["ring"]["launches"]["ring_spmm_fwd"]
+        rt["k13_bwd_launches"] = rt["ring"]["launches"]["ring_spmm_bwd"]
+        rt["csr_builds"] = rt["ring"]["csr_builds"]
     res["ring_train"] = rt
     _state["phase"] = "report"
     print(json.dumps(kernels_line(res)), flush=True)

@@ -28,6 +28,7 @@ NVCC_TIMEOUT_S = 120
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # launcher name -> argtypes (pointers and the stream as c_void_p, so ctypes
@@ -35,9 +36,23 @@ _F = ctypes.c_float
 SIGNATURES = {
     # spmm_fwd(rowptr, src, rel, em, h, w, out, n2_out, n_rows, d, stream)
     "spmm_fwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # ring_spmm_step(rowptr, src, rel, h_visit, w, out, n2_out, B, m, rows,
-    #                d, s, owner, first, last, stream)
-    "ring_spmm_step_launch": [_P] * 7 + [_I] * 8 + [_P],
+    # ring_fwd_step(ptr, edge, tpos, tpos_stride, n_times, mask,
+    #               mask_stride, rank_ids, out_ids, h_visit, w, out, n2_out,
+    #               B, nc, n_out, m, rows, cap, d, s, k, first, last, stream)
+    "ring_fwd_step_launch": [_P, _P, _P, _L, _I, _P, _L] + [_P] * 6
+                            + [_I] * 11 + [_P],
+    # ring_bwd_step(ptr, edge, tpos, tpos_stride, n_times, mask,
+    #               mask_stride, rank_ids, out_ids, g, n2, w, acc_in,
+    #               acc_out, B, nc, n_out, m, rows, cap, d, s, k, stream)
+    "ring_bwd_step_launch": [_P, _P, _P, _L, _I, _P, _L] + [_P] * 7
+                            + [_I] * 9 + [_P],
+    # ring_dw(ptr, edge, tpos, tpos_stride, n_times, mask, mask_stride,
+    #         rank_ids, out_ids, g, n2, h, part, B, nc, m, rows, cap,
+    #         n_rels, d, s, stream)
+    "ring_dw_launch": [_P, _P, _P, _L, _I, _P, _L] + [_P] * 6 + [_I] * 8
+                      + [_P],
+    # ring_dw_reduce(part, out, n_part, total, stream)
+    "ring_dw_reduce_launch": [_P, _P, _I, _L, _P],
     # spmm_bwd(s_ptr, s_dst, s_rel, s_em, r_ptr, r_src, r_dst, r_em, g, n2,
     #          h, w, dh, dw, n_rows, n_rels, d, stream)
     "spmm_bwd_launch": [_P] * 14 + [_I, _I, _I, _P],

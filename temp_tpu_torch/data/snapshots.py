@@ -26,7 +26,9 @@ import numpy as np
 import torch
 
 from temp_tpu_torch.data.quadruples import load_quadruples, load_stat
-from temp_tpu_torch.parallel.edge_partition import ring_regroup_data
+from temp_tpu_torch.parallel.edge_partition import (
+    ring_data, ring_regroup_data,
+)
 
 INT_PAD = np.iinfo(np.int32).max
 
@@ -93,6 +95,10 @@ class TKGData:
     num_ents: int = 0
     num_rels: int = 0
     num_times: int = 0
+    # kernel K13's static CSR tables of the train snapshots
+    # (parallel/edge_partition.py RingData); built by ring_layout for
+    # "ring_pallas", else None
+    ring: Any = None
 
     @property
     def group_stride(self) -> int:
@@ -441,9 +447,14 @@ def ring_layout(cfg, data: TKGData) -> TKGData:
     """The edges grouped by destination owner, for the ring edge-partition
     modes with more than one rank (``ring_regroup_data``), as the JAX
     package lays them out in ``build_tkg_data``: everything downstream (the
-    history tables, the answer lists) is built from this one layout."""
+    history tables, the answer lists) is built from this one layout. For
+    "ring_pallas" also K13's static CSR tables of the train snapshots
+    (``ring_data``), sorted here once rather than in every call."""
     if cfg.partitioned and cfg.edge_partition_mode in ("ring", "ring_pallas"):
-        return ring_regroup_data(data, int(cfg.mp_size))
+        m = int(cfg.mp_size)
+        data = ring_regroup_data(data, m)
+        if cfg.edge_partition_mode == "ring_pallas":
+            data = dataclasses.replace(data, ring=ring_data(data, m))
     return data
 
 

@@ -315,7 +315,8 @@ class DynamicRGCNModel:
                 # compact ids
                 snap = Snapshot(src=win.src_loc[:, k], dst=win.dst_loc[:, k],
                                 rel=win.rel[:, k], emask=win.emask[:, k],
-                                t_idx=0)
+                                t_idx=0, t_pos=win.t_idx[:, k],
+                                compact=True)
                 step_masks = (None, None) if masks is None else tuple(
                     m[:, k].reshape(B * A, d) for m in masks)
                 outs = encoder_forward(
@@ -359,7 +360,7 @@ class DynamicRGCNModel:
                         rel=win.rel[last],
                         emask=win.emask[last] if emask is None else emask,
                         t_idx=win.t_idx[last], valid=win.valid[last],
-                        active=win.active[last])
+                        active=win.active[last], t_pos=win.t_idx[last])
         dt = last - last_pos
         emb = params["ent_embeds"]
         _, out2, _ = encoder_forward(params["encoder"], self.cfg, self.lc1,

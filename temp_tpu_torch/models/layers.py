@@ -25,7 +25,13 @@ from temp_tpu_torch.ops.segment import rel_spmm
 class Snapshot(NamedTuple):
     """One timestamp's graph in the id space of the rows it is applied to;
     or B graphs side by side, edges [B, E] each in its own rows' ids (see
-    ``rel_spmm``)."""
+    ``rel_spmm``).
+
+    `t_pos` names the train snapshots the graphs' edges are (their time
+    positions, [B] or a scalar, in global ids or, with `compact`, in the
+    window's compact slots), so that the ring SpMM (K13) walks the data's
+    static tables of those snapshots; None where the edges are no train
+    snapshot's."""
 
     src: torch.Tensor    # [E] or [B, E] int
     dst: torch.Tensor    # [E] or [B, E] int
@@ -34,6 +40,8 @@ class Snapshot(NamedTuple):
     t_idx: Any           # time position (for the time embedding)
     valid: Any = True
     active: Optional[torch.Tensor] = None
+    t_pos: Optional[torch.Tensor] = None
+    compact: bool = False
 
 
 @dataclass(frozen=True)
@@ -119,7 +127,8 @@ def rgcn_conv(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
     self-loop message takes dropout at rate ``lc.dropout`` with the keep
     mask `mask`."""
     out = rel_spmm(h, snap.src, snap.dst, snap.rel, snap.emask, p["weight"],
-                   lc.n_bases, lc.out_feat, h.shape[0], kernels=cfg.kernels)
+                   lc.n_bases, lc.out_feat, h.shape[0], kernels=cfg.kernels,
+                   t_pos=snap.t_pos, compact=snap.compact)
     if lc.bias:
         out = out + p["h_bias"]
     if lc.self_loop:

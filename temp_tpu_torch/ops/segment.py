@@ -23,7 +23,9 @@ import torch.nn.functional as F
 
 from temp_tpu_torch.ops.spmm import spmm, spmm_fwd_plain
 from temp_tpu_torch.parallel.edge_partition import ring_geometry
-from temp_tpu_torch.parallel.mesh import manual_axis, rank_devices
+from temp_tpu_torch.parallel.mesh import (
+    manual_axis, partition_tables, rank_devices,
+)
 from temp_tpu_torch.parallel.ring_spmm import ring_spmm, ring_spmm_fwd_plain
 
 
@@ -62,7 +64,8 @@ def flat_graph(src, dst, n_rows: int):
 
 
 def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
-             num_ents: int, kernels: bool = True):
+             num_ents: int, kernels: bool = True, t_pos=None,
+             compact: bool = False):
     """RGCN neighbourhood aggregation with double degree normalization:
 
         msg_e = (h[src_e] . W[rel_e]) * norm[dst_e] * emask_e
@@ -74,7 +77,9 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
     by autograd). Edges [B, E] give B graphs side by side: h holds
     num_ents = B * n rows, graph b's ids index its own rows
     [b * n, (b + 1) * n). Inside ``manual_partition`` the call is
-    partitioned by its mode (see the module's docstring).
+    partitioned by its mode (see the module's docstring); `t_pos` and
+    `compact` (``Snapshot``) name the train snapshots whose static tables
+    "ring_pallas" walks.
     """
     d_in = h.shape[-1]
     part = manual_axis()
@@ -87,7 +92,8 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
                 rank_devices(h.device))
         if mode in ("ring", "ring_pallas"):
             out = _rel_spmm_ring(*args, kernels=kernels,
-                                 k13=mode == "ring_pallas")
+                                 k13=mode == "ring_pallas",
+                                 tables=_snapshot_tables(t_pos, compact))
         elif mode == "psum":
             out = _rel_spmm_partitioned(*args)
         else:
@@ -107,8 +113,18 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
     return segment_sum(msg, dst, num_ents) * norm[:, None]
 
 
+def _snapshot_tables(t_pos, compact: bool):
+    """(the partition's K13 tables of the id space, t_pos [B]) for a call
+    that names its snapshots, else None."""
+    data = partition_tables()
+    if data is None or t_pos is None:
+        return None
+    return (data.comp if compact else data.glob), t_pos.reshape(-1)
+
+
 def _rel_spmm_ring(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
-                   m: int, devices, kernels: bool = True, k13: bool = False):
+                   m: int, devices, kernels: bool = True, k13: bool = False,
+                   tables=None):
     """The ring modes (the JAX package's ``_rel_spmm_ring``) for B graphs:
     h [B, n, d_in] on the controller, edges [B, E] grouped by destination
     owner (``ring_regroup_data``). Rank i owns rows [i * rows, (i + 1) *
@@ -118,15 +134,17 @@ def _rel_spmm_ring(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
     the JAX package takes its Pallas kernel; outside it, and in "ring"
     mode, K13's plain version runs the ring in torch ops (the JAX
     package's XLA form). ``Trainer`` checks the layout
-    (``check_ring_layout``). Returns [B, n, d_out], the ranks' rows
-    gathered on the controller."""
+    (``check_ring_layout``). `tables`: (the data's K13 tables of the
+    edges' id space, their time positions [B]), which K13 walks in place
+    of sorting the edges; None sorts them in the call. Returns
+    [B, n, d_out], the ranks' rows gathered on the controller."""
     n, d_in = h.shape[1:]
     rows = ring_geometry(n, m)
     h_pad = F.pad(h, (0, 0, 0, m * rows - n))
     s = d_in // n_bases if d_in % n_bases == 0 else 0
     if k13 and d_in == d_out and 1 <= s <= 8:
         return ring_spmm(h_pad, weight, src, dst, rel, emask, m, rows,
-                         devices, kernels=kernels)[:, :n]
+                         devices, kernels=kernels, tables=tables)[:, :n]
     return ring_spmm_fwd_plain(h_pad, weight, src, dst, rel, emask, m, rows,
                                devices, d_out=d_out)[0][:, :n]
 

@@ -3,7 +3,9 @@ the ring modes and the wrapper that partitions a model's SpMMs.
 
 ``ring_geometry``, ``ring_regroup_data`` and ``group_edges_by_dst_owner``
 are the JAX package's host-side layout helpers on numpy, giving equal
-arrays. ``EdgePartitionedModel`` runs a model's ``loss`` and ``eval_ranks``
+arrays. ``ring_tables`` sorts a regrouped edge set into the CSR tables
+that kernel K13 walks (``RingTables``); ``data.snapshots.ring_layout``
+builds them once for every train snapshot (``ring_data``). ``EdgePartitionedModel`` runs a model's ``loss`` and ``eval_ranks``
 with every ``rel_spmm`` partitioned over the model axis of a mesh
 (``parallel/mesh.py``): in the ring modes each rank owns a row shard of the
 entity states and the edges whose destination it owns, and the shards
@@ -15,8 +17,11 @@ controller. Only the model axis is ported: a data axis (dp > 1) raises.
 from __future__ import annotations
 
 import dataclasses
+from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
+import torch
 
 from temp_tpu_torch.parallel.mesh import Mesh, manual_partition
 
@@ -88,6 +93,107 @@ def ring_regroup_data(data, m: int, align: int = 128):
     return dataclasses.replace(data, train=train, act_idx=act_idx,
                                act_mask=act_mask, train_src_loc=n_srcl,
                                train_dst_loc=n_dstl)
+
+
+@dataclass
+class RingTables:
+    """The edges of T snapshots in the ring layout of m ranks, sorted once
+    for kernel K13 (``parallel/ring_spmm.py``), in one id space whose row
+    shards have `rows` rows. Rank r owns edge slots [r * cap, (r + 1) *
+    cap) of each snapshot (E = m * cap); its edges are sorted three ways,
+    each ordering a row pointer over its keys and the edges' three ints in
+    that order (positions relative to the rank's block of cap). Only the
+    slots of the static mask enter; the others, and the padding, sort past
+    the last row, so a call's mask (always a subset) is read per edge.
+
+    - ``fwd``: by (source owner, local dst), the forward's owner segments;
+      edges (src, rel, slot);
+    - ``src``: by source row (owner * rows + local src), the backward's
+      dh; edges (dst, rel, slot);
+    - ``rel``: by relation, the backward's dw; edges (src, dst, slot).
+
+    src and dst are ids of the space, slot the edge's index in [0, E)."""
+
+    rows: int
+    fwd_ptr: Any   # [T, m, m * rows + 1] int32
+    fwd_edge: Any  # [T, m, cap, 3] int32
+    src_ptr: Any   # [T, m, m * rows + 1] int32
+    src_edge: Any  # [T, m, cap, 3] int32
+    rel_ptr: Any   # [T, m, n_rels + 1] int32
+    rel_edge: Any  # [T, m, cap, 3] int32
+
+
+@dataclass
+class RingData:
+    """K13's tables of a dataset's train snapshots in both id spaces: the
+    final step's global ids (rows = ring_geometry(num_ents, m)) and the
+    window's compact slots (rows = a_cap)."""
+
+    glob: RingTables
+    comp: RingTables
+
+
+def ring_tables(src, dst, rel, keep, m: int, rows: int,
+                n_rels: int) -> RingTables:
+    """``RingTables`` of T edge lists [T, E] (torch tensors, on their
+    device) in the ring layout: one stable sort an ordering for all
+    snapshots and ranks, keyed by (snapshot, rank, key), so the sorted
+    edges of rank r of snapshot t are positions [(t * m + r) * cap, +cap)
+    and keep their slot order within a key. Slots where `keep` is False
+    sort past the last key. A kept edge's destination is clipped into its
+    rank's shard in all three orderings, as the plain ring and its
+    transpose clip it. The data's tables
+    (``ring_data``) and the in-call route of ``parallel/ring_spmm.py``
+    both come from here."""
+    dev = src.device
+    T, E = src.shape
+    cap = E // m
+    src, dst, rel, keep = src.long(), dst.long(), rel.long(), keep.bool()
+    rank = torch.arange(E, device=dev) // cap
+    block = torch.arange(T, device=dev)[:, None] * m + rank
+    dst_l = (dst - rank * rows).clamp(0, rows - 1)
+    dst_c = rank * rows + dst_l  # the clipped destination, in the space's ids
+    slot = torch.arange(E, device=dev).expand(T, E)
+    n_seg = m * rows
+
+    def order(key, width, a, b):
+        full = (block * (width + 1)
+                + torch.where(keep, key, width)).reshape(-1)
+        perm = torch.argsort(full, stable=True)
+        counts = torch.bincount(full, minlength=T * m * (width + 1))
+        ptr = torch.zeros(T * m, width + 1, dtype=torch.int64, device=dev)
+        ptr[:, 1:] = torch.cumsum(
+            counts.reshape(T * m, width + 1)[:, :width], 1)
+        edge = torch.stack([a, b, slot], -1).reshape(-1, 3)[perm]
+        return (ptr.reshape(T, m, width + 1).to(torch.int32),
+                edge.reshape(T, m, cap, 3).to(torch.int32))
+
+    return RingTables(rows,
+                      *order(src // rows * rows + dst_l, n_seg, src, rel),
+                      *order(src, n_seg, dst_c, rel),
+                      *order(rel, n_rels, src, dst_c))
+
+
+def ring_data(data, m: int, align: int = 128) -> RingData:
+    """K13's tables (``ring_tables``) of the train snapshots of `data`
+    (numpy, as the dataset is on the host), in the ring layout of m ranks
+    (``ring_regroup_data``), over the static mask ``data.train.emask`` and
+    the weights' 2 * num_rels relations."""
+    tr = data.train
+    n_rels = 2 * data.num_rels
+    A = np.asarray(data.act_idx).shape[1]
+
+    def tables(src, dst, rows):
+        t = ring_tables(*(torch.from_numpy(np.asarray(x)) for x in (
+            src, dst, tr.rel, tr.emask)), m, rows, n_rels)
+        return dataclasses.replace(t, **{
+            f.name: getattr(t, f.name).numpy()
+            for f in dataclasses.fields(t) if f.name != "rows"})
+
+    return RingData(
+        glob=tables(tr.src, tr.dst, ring_geometry(data.num_ents, m, align)),
+        comp=tables(data.train_src_loc, data.train_dst_loc,
+                    ring_geometry(A, m, align)))
 
 
 def check_ring_layout(data, m: int, align: int = 128) -> None:
@@ -175,12 +281,15 @@ class EdgePartitionedModel:
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
-    def _partition(self):
+    def _partition(self, data=None):
+        """The partition context; with `data`, its K13 tables
+        (``ring_data``; None where the data has none)."""
         return manual_partition(self.axis, self.mp, self.mode,
-                                self.mesh.devices[0])
+                                self.mesh.devices[0],
+                                tables=getattr(data, "ring", None))
 
     def loss(self, params, data, t_pos, t_valid, gen=None, draws=None):
-        with self._partition():
+        with self._partition(data):
             return self.inner.loss(params, data, t_pos, t_valid, gen=gen,
                                    draws=draws)
 
@@ -188,5 +297,5 @@ class EdgePartitionedModel:
                    conv1_all=None):
         """The inner model's eval; `conv1_all` is not taken (the table is
         off under a partition, as in the JAX package)."""
-        with self._partition():
+        with self._partition(data):
             return self.inner.eval_ranks(params, data, t_pos, t_valid, split)

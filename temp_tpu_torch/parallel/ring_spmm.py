@@ -1,23 +1,15 @@
-"""Ring-exchanged relational SpMM: kernel K13.
+"""Ring-exchanged relational SpMM: kernel K13, forward and backward.
 
 The counterpart of the JAX package's ``parallel/ring_pallas.py``
-(``_ring_kernel``, reached through ``_rel_spmm_ring`` in
-``edge_partition="ring_pallas"`` mode). The entity states are cut into m
-row shards of `rows` rows; rank i owns shard i and exactly the edges whose
-destination row it owns (``ring_regroup_data``), so its degrees are local.
-In m steps every shard visits every rank once: at step k rank i holds
-shard (i + k) % m and
-
-1. starts the copy of that shard to its left neighbour's next slot, on a
-   copy stream, after the event that marks the shard resident;
-2. aggregates the messages of its edges whose source lies in the visiting
-   shard into its own rows (one kernel launch on the rank's stream);
-3. makes its step k + 1 wait on the event of the copy it receives.
-
-Slots are never reused (each rank has m of them), so the only order needed
-is receive-before-read, which the event wait gives; no block waits on
-another. The ranks' outputs are then gathered onto the controller's device
-(the JAX package's ``all_gather``). For one graph, with norm = 1 / deg,
+(``_ring_kernel`` and its backward ``_ring_spmm_bwd``, reached through
+``_rel_spmm_ring`` in ``edge_partition="ring_pallas"`` mode). The entity
+states are cut into m row shards of `rows` rows; rank i owns shard i and
+exactly the edges whose destination row it owns (``ring_regroup_data``),
+so its degrees are local. In m steps every shard visits every rank once:
+at step k rank i holds shard (i + k) % m and aggregates the messages of
+its edges whose source lies there into its own rows; between steps each
+shard is copied to its left neighbour's next slot (slots are never
+reused). For one graph, with norm = 1 / deg,
 
     out[v] = norm[v]^2 * sum_{e : dst_e = v} h[src_e] . W[rel_e]
 
@@ -26,24 +18,40 @@ the weights [R, n_bases * s * s] unpacked, as ``rel_message`` takes them).
 Every function takes B graphs at once: h [B, m * rows, d] and edges
 [B, E], E = m * cap; rank i owns the same row range and edge slice in each.
 
-On CUDA tensors ``ring_spmm_fwd`` launches the kernel in
-``csrc/ring_spmm.cu`` (m launches a rank a call) or raises; on CPU tensors
-it runs ``ring_spmm_fwd_plain``, the same ring in torch ops, which is also
-the "ring" mode's SpMM for any block shape. ``RingSpMM`` differentiates
-K13: its backward is autograd through that plain ring, as the JAX
-package's is XLA ops (dmsg at the destinations, dw summed over the ranks,
-dh's per-edge contributions sent back to their owners: the
-reduce-scatter).
+On CUDA tensors ``ring_spmm_fwd`` launches the kernels in
+``csrc/ring_spmm.cu``: one launch a ring step for all the ranks of a card
+(m a call on one card), each rank walking static CSR tables of its edges
+(``RingTables``) for the snapshots the call names by time position, and
+reading the call's mask per edge. The data's tables are sorted once, with
+the data (``data.snapshots.ring_layout``); a call without them sorts its
+own edges into the same tables, one device sort an ordering for all ranks
+(counted on ``ring_spmm_fwd.csr_builds``). ``ring_spmm_bwd`` is the
+backward as kernels over the same tables: dh carried back round the ring
+to the sources' owners (the reduce-scatter), dw per-rank partials by
+relation summed in rank order. Ranks on the controller's card write
+straight into its outputs; ranks on other cards run on a stream of their
+card, and shards and rows move between cards by copies that PyTorch orders
+between the cards' streams.
+
+On CPU tensors the wrappers run the plain versions: ``ring_spmm_fwd_plain``,
+the same ring in torch ops (also the "ring" mode's SpMM, any block shape),
+and ``ring_spmm_bwd_plain``, the JAX package's transpose in torch ops.
+``RingSpMM`` is K13 differentiated in h and w.
 """
 
 from __future__ import annotations
 
+import weakref
+from typing import NamedTuple, Optional
+
 import torch
 
 from temp_tpu_torch import _build
-from temp_tpu_torch.ops.spmm import build_csr
+from temp_tpu_torch.parallel.edge_partition import (
+    RingTables, ring_tables,
+)
 
-_MAX_D = 256  # the kernel keeps d / 32 <= 8 columns per lane in registers
+_MAX_D = 256  # the kernels keep d / 32 <= 8 columns per lane in registers
 _MAX_S = 8    # block width of block-diagonal relation weights
 
 
@@ -144,122 +152,452 @@ def ring_spmm_fwd_plain(h, w, src, dst, rel, emask, m: int, rows: int,
     return out, n2
 
 
-def _ring_fwd_cuda(h, w, src, dst, rel, emask, m: int, rows: int, devices,
-                   s: int):
-    B, _, d = h.shape
+def _transform_bwd(hs, dmsg, we, si: int, so: int):
+    """The cotangents of ``_transform`` at each edge: (dh rows
+    [n, nb * si], dw rows [n, nb * si * so]) from the messages' cotangents
+    dmsg [n, nb * so]."""
+    if si == so == 1:
+        return dmsg * we, dmsg * hs
+    nb = hs.shape[1] // si
+    w4 = we.reshape(-1, nb, si, so)
+    dm = dmsg.reshape(-1, nb, so)
+    dh = torch.einsum("ebio,ebo->ebi", w4, dm).reshape(-1, nb * si)
+    dw = torch.einsum("ebi,ebo->ebio", hs.reshape(-1, nb, si),
+                      dm).reshape(-1, nb * si * so)
+    return dh, dw
+
+
+def ring_spmm_bwd_plain(g, n2, h, w, src, dst, rel, emask, m: int, rows: int,
+                        devices):
+    """Plain PyTorch version of K13's backward: the JAX package's
+    ``_ring_spmm_bwd`` in torch ops, without a replay of the forward. g
+    [B, m * rows, d_out] is the cotangent of the forward's output, n2
+    [B, m * rows] its norm^2. Each rank, on its device, forms dmsg =
+    g * n2 at its destinations times the mask, its dw partial by relation
+    and its edges' dh contributions at their source rows (h[src] gathered
+    again); the ranks' dh rows and dw partials are added on h's device in
+    rank order (the reduce-scatter, and the sum of the replicated weight's
+    cotangents). Returns (dh [B, m * rows, d_in], dw like w)."""
+    B, M, d_in = h.shape
+    d_out = g.shape[-1]
+    _, si, so = _check(h, w, src, dst, rel, emask, m, rows, devices, d_out)
+    dh, dw = torch.zeros_like(h), torch.zeros_like(w)
+    for r, dev in enumerate(devices):
+        s_l, d_l, r_l, keep = _rank_edges(src, dst, rel, emask, r, m, rows,
+                                          dev)
+        b = torch.arange(B, device=dev)[:, None]
+        sl = slice(r * rows, (r + 1) * rows)
+        gn2 = (g[:, sl] * n2[:, sl, None]).to(dev)
+        dmsg = (gn2[b, d_l] * keep[..., None]).reshape(-1, d_out)
+        hs = h.to(dev)[b, s_l].reshape(-1, d_in)
+        dh_e, dw_e = _transform_bwd(hs, dmsg, w.to(dev)[r_l.reshape(-1)], si,
+                                    so)
+        contrib = torch.zeros(B * M, d_in, device=dev).index_add_(
+            0, (b * M + s_l).reshape(-1), dh_e)
+        part = torch.zeros(w.shape, device=dev).index_add_(
+            0, r_l.reshape(-1), dw_e)
+        dh = dh + contrib.reshape(B, M, d_in).to(h.device)
+        dw = dw + part.to(w.device)
+    return dh, dw
+
+
+# -- the cards of a ring ------------------------------------------------------
+
+class _Card(NamedTuple):
+    """The ranks (in rank order) that one card runs. Outputs on a card are
+    [B, n_out, rows, ...] with rank j's rows at block out_ids[j]: on the
+    controller's card the controller's own outputs (n_out = m, the global
+    rank), elsewhere the card's (n_out = nc). ``recv[name]`` lists, for
+    the forward's ("fwd") and the backward's ("bwd") rotation, the groups
+    (sender card, slots here, slots there) of what its ranks receive."""
+
+    dev: torch.device
+    ranks: tuple
+    ranks_ctrl: torch.Tensor  # int64 [nc], on the controller's card
+    rank_ids: torch.Tensor    # int32 [nc]
+    out_ids: torch.Tensor     # int32 [nc]
+    n_out: int
+    stream: Optional[torch.cuda.Stream]  # None on the controller's card
+    recv: dict
+
+
+_PLANS: dict = {}
+
+
+def _cards(devices, ctrl: torch.device) -> tuple:
+    """The cards of `devices` (rank r on devices[r]), the controller's
+    first; made once per device set and controller, each card other than
+    the controller's with its own stream."""
+    devices = tuple(_indexed(d) for d in devices)
+    key = (devices, ctrl)
+    if key in _PLANS:
+        return _PLANS[key]
+    m = len(devices)
+    order = sorted(dict.fromkeys(devices), key=lambda c: c != ctrl)
+    ranks = [tuple(r for r in range(m) if devices[r] == c) for c in order]
+    where = {r: (ci, j) for ci, rs in enumerate(ranks)
+             for j, r in enumerate(rs)}
+    cards = []
+    for c, rs in zip(order, ranks):
+        local = c == ctrl
+        recv = {}
+        for name, step in (("fwd", 1), ("bwd", -1)):
+            groups: dict = {}
+            for j, r in enumerate(rs):
+                cj, jj = where[(r + step) % m]
+                groups.setdefault(cj, ([], []))
+                groups[cj][0].append(j)
+                groups[cj][1].append(jj)
+            recv[name] = tuple(
+                (cj, torch.tensor(js, device=c),
+                 torch.tensor(jjs, device=order[cj]))
+                for cj, (js, jjs) in groups.items())
+        cards.append(_Card(
+            dev=c, ranks=rs, ranks_ctrl=torch.tensor(rs, device=ctrl),
+            rank_ids=torch.tensor(rs, dtype=torch.int32, device=c),
+            out_ids=torch.tensor(rs if local else range(len(rs)),
+                                 dtype=torch.int32, device=c),
+            n_out=m if local else len(rs),
+            stream=None if local else torch.cuda.Stream(device=c),
+            recv=recv))
+    _PLANS[key] = tuple(cards)
+    return _PLANS[key]
+
+
+def _indexed(dev) -> torch.device:
+    """A CUDA device with its index ("cuda" is the current card)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+_COPIES: dict = {}  # (id of a static tensor, card) -> its copy there
+
+
+def _on(t, dev):
+    """Static `t` on card `dev`: itself, or a copy kept while `t` lives
+    (the data's tables reach each card once)."""
+    if t.device == dev:
+        return t
+    key = (id(t), dev)
+    if key not in _COPIES:
+        _COPIES[key] = t.to(dev)
+        weakref.finalize(t, _COPIES.pop, key, None)
+    return _COPIES[key]
+
+
+class _Streams:
+    """Each card's stream current on its card while a ring call runs:
+    tensor ops and copies on a card run on its stream, and PyTorch orders
+    a copy between cards after the work of both cards' streams. The
+    streams start after the controller's work so far; the controller
+    waits for them at the end."""
+
+    def __init__(self, cards, ctrl_stream):
+        self.streams = [c.stream for c in cards if c.stream is not None]
+        self.ctrl = ctrl_stream
+        self.ctx = [torch.cuda.stream(s) for s in self.streams]
+
+    def __enter__(self):
+        for s, c in zip(self.streams, self.ctx):
+            s.wait_stream(self.ctrl)
+            c.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for c in reversed(self.ctx):
+            c.__exit__(*exc)
+        for s in self.streams:
+            self.ctrl.wait_stream(s)
+        return False
+
+
+def _launch(fn, name: str, dev, stream, *args) -> None:
+    """One launcher call on `stream` of card `dev`; tensors go as their
+    data pointers, None as a null pointer."""
+    with torch.cuda.device(dev):
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args), stream.cuda_stream)
+    _build.check(err, name)
+
+
+def _rotate(cards, cur: list, name: str) -> list:
+    """Each card's next slots [B, nc, rows, d]: every rank's slot gets
+    what its neighbour held (``_Card.recv``), one copy a sending card."""
+    out = []
+    for ci, (card, here) in enumerate(zip(cards, cur)):
+        groups = card.recv[name]
+        if len(groups) == 1 and groups[0][0] == ci:
+            out.append(here.index_select(1, groups[0][2]))
+            continue
+        nxt = torch.empty_like(here)
+        for cj, js, jjs in groups:
+            nxt.index_copy_(1, js, cur[cj].index_select(1, jjs).to(card.dev))
+        out.append(nxt)
+    return out
+
+
+def _card_table(card: _Card, ptr, edge, t_pos, emask) -> tuple:
+    """What a card's launches read of a table: (ptr, edge, t_pos, its
+    stride, the tables' T, mask, its row stride), on the card."""
+    dev = card.dev
+    pos = t_pos if t_pos.device == dev else t_pos.to(dev)
+    mask = emask if emask.device == dev else emask.to(dev)
+    return (_on(ptr, dev), _on(edge, dev), pos, pos.stride(0), ptr.shape[0],
+            mask, mask.stride(0))
+
+
+def _kernel_args(h, w, emask, devices, s: int, name: str):
+    """Refuse what the kernels do not take; the mask as bytes with rows of
+    unit stride."""
     if h.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"ring_spmm_fwd: kernel takes float32 h and weight, "
-                        f"got {h.dtype} and {w.dtype}")
-    if d > _MAX_D:
-        raise ValueError(f"ring_spmm_fwd: d = {d} > {_MAX_D}")
-    lib = _build.lib()
+        raise TypeError(f"{name}: kernel takes float32 h and weight, got "
+                        f"{h.dtype} and {w.dtype}")
+    if h.shape[-1] > _MAX_D:
+        raise ValueError(f"{name}: d = {h.shape[-1]} > {_MAX_D}")
+    if s > _MAX_S:
+        raise ValueError(f"{name}: blocks of {s} > {_MAX_S}")
+    if any(torch.device(d).type != "cuda" for d in devices):
+        raise ValueError(f"{name}: ranks on {devices}, h on {h.device}")
+    emask = emask.bool()
+    return emask if emask.stride(-1) == 1 else emask.contiguous()
+
+
+def _call_tables(h, w, src, dst, rel, emask, m: int, rows: int, tables):
+    """(tables, t_pos [B] int64) of a call: the given ones, checked
+    against the call, or the call's own edges sorted here (counted on
+    ``ring_spmm_fwd.csr_builds``)."""
+    B, E = src.shape
+    n_rels = w.shape[0]
+    if tables is None:
+        ring_spmm_fwd.csr_builds += 1
+        return (ring_tables(src, dst, rel, emask, m, rows, n_rels),
+                torch.arange(B, device=h.device))
+    tab, t_pos = tables
+    t_pos = t_pos.long()
+    shape = (tuple(tab.fwd_ptr.shape[1:]) + tuple(tab.fwd_edge.shape[2:])
+             + (tab.rel_ptr.shape[2],))
+    if tab.rows != rows or shape != (m, m * rows + 1, E // m, 3, n_rels + 1):
+        raise ValueError(
+            f"ring_spmm: tables of rows = {tab.rows}, "
+            f"{tuple(tab.fwd_ptr.shape)}, {tuple(tab.fwd_edge.shape)}, "
+            f"{tuple(tab.rel_ptr.shape)} for a call of m = {m}, rows = "
+            f"{rows}, E = {E}, {n_rels} relations")
+    if t_pos.shape != (B,) or tab.fwd_ptr.device != h.device or (
+            t_pos.device != h.device):
+        raise ValueError(f"ring_spmm: t_pos {tuple(t_pos.shape)} on "
+                         f"{t_pos.device}, tables on {tab.fwd_ptr.device} "
+                         f"for {B} graphs on {h.device}")
+    return tab, t_pos
+
+
+def _ring_fwd_cuda(h, w, emask, m: int, rows: int, devices, s: int,
+                   tab: RingTables, t_pos):
+    B, M, d = h.shape
+    cap = emask.shape[1] // m
+    fn = _build.lib().ring_fwd_step_launch
     ctrl = torch.cuda.current_stream(h.device)
-    h, w = h.contiguous(), w.contiguous()
-    # each rank's compute and copy streams (from PyTorch's stream pool)
-    comp = [torch.cuda.Stream(device=dev) for dev in devices]
-    copy = [torch.cuda.Stream(device=dev) for dev in devices]
-    slots, csr, outs, n2s, resident = [], [], [], [], []
-    for r, dev in enumerate(devices):
-        comp[r].wait_stream(ctrl)
-        comp[r].wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(comp[r]):
-            s_l, d_l, r_l, keep = _rank_edges(src, dst, rel, emask, r, m,
-                                              rows, dev)
-            # one sort a call: the rank's edges by (graph, source owner,
-            # local dst), so step k reads the CSR of owner (r + k) % m
-            key = ((torch.arange(B, device=dev)[:, None] * m
-                    + s_l // rows) * rows + d_l)
-            rowptr, s_src, s_rel = build_csr(
-                key.reshape(-1), B * m * rows,
-                s_l.reshape(-1).to(torch.int32),
-                r_l.reshape(-1).to(torch.int32), keep=keep.reshape(-1))
-            csr.append((rowptr, s_src, s_rel, w.to(dev)))
-            slot = torch.empty(m, B, rows, d, device=dev)
-            slot[0].copy_(h[:, r * rows:(r + 1) * rows])
-            slots.append(slot)
-            outs.append(torch.empty(B, rows, d, device=dev))
-            n2s.append(torch.empty(B, rows, device=dev))
-            resident.append({0: comp[r].record_event()})
-    for k in range(m):
-        for r in range(m):
-            if k < m - 1:  # 1. send the visiting shard to the left
-                left = (r - 1) % m
-                copy[r].wait_event(resident[r][k])
-                with torch.cuda.stream(copy[r]):
-                    slots[left][k + 1].copy_(slots[r][k], non_blocking=True)
-                    resident[left][k + 1] = copy[r].record_event()
-            if k > 0:  # 3. (of step k - 1) the shard has arrived
-                comp[r].wait_event(resident[r][k])
-            rowptr, s_src, s_rel, w_r = csr[r]
-            p = lambda t: t.data_ptr()  # noqa: E731
-            with torch.cuda.device(devices[r]):  # the stream's own card
-                err = lib.ring_spmm_step_launch(  # 2. aggregate
-                    p(rowptr), p(s_src), p(s_rel), p(slots[r][k]), p(w_r),
-                    p(outs[r]), p(n2s[r]), B, m, rows, d, s, (r + k) % m,
-                    int(k == 0), int(k == m - 1), comp[r].cuda_stream)
-            _build.check(err, "ring_spmm_fwd")
-            ring_spmm_fwd.launches += 1
-    for r, dev in enumerate(devices):
-        # the slots a rank sends from are read until its copies end; the
-        # gather below runs on each device's current stream
-        comp[r].wait_stream(copy[r])
-        torch.cuda.current_stream(dev).wait_stream(comp[r])
-        ctrl.wait_stream(comp[r])
-    out = torch.cat([o.to(h.device) for o in outs], dim=1)
-    n2 = torch.cat([n.to(h.device) for n in n2s], dim=1)
+    cards = _cards(devices, h.device)
+    w = w.contiguous()
+    h4 = h.contiguous().view(B, m, rows, d)
+    out = torch.empty(B, M, d, device=h.device)
+    n2 = torch.empty(B, M, device=h.device)
+    whole = len(cards) == 1 and cards[0].stream is None
+    with _Streams(cards, ctrl):
+        runs, slots = [], []
+        for c in cards:
+            nc = len(c.ranks)
+            # step 0's slots: the card's ranks' own shards
+            slots.append(h4 if whole else
+                         h4.index_select(1, c.ranks_ctrl).to(c.dev))
+            o, n = out, n2
+            if c.stream is not None:
+                o = torch.empty(B, nc, rows, d, device=c.dev)
+                n = torch.empty(B, nc, rows, device=c.dev)
+            runs.append((_card_table(c, tab.fwd_ptr, tab.fwd_edge, t_pos,
+                                     emask), w.to(c.dev), o, n,
+                         ctrl if c.stream is None else c.stream))
+        for k in range(m):
+            if k > 0:  # every shard to its left neighbour's next slot
+                slots = _rotate(cards, slots, "fwd")
+            for c, (tbl, w_c, o, n, st), slot in zip(cards, runs, slots):
+                _launch(fn, "ring_spmm_fwd", c.dev, st, *tbl, c.rank_ids,
+                        c.out_ids, slot, w_c, o, n, B, len(c.ranks), c.n_out,
+                        m, rows, cap, d, s, k, int(k == 0), int(k == m - 1))
+                ring_spmm_fwd.launches += 1
+        for c, (_, _, o, n, _) in zip(cards, runs):
+            if c.stream is not None:  # the rows of another card's ranks
+                out.view(B, m, rows, d).index_copy_(1, c.ranks_ctrl,
+                                                    o.to(h.device))
+                n2.view(B, m, rows).index_copy_(1, c.ranks_ctrl,
+                                                n.to(h.device))
     return out, n2
 
 
-def ring_spmm_fwd(h, w, src, dst, rel, emask, m: int, rows: int, devices):
-    """K13: (out [B, m * rows, d], norm^2 [B, m * rows]) on h's device. The
-    kernel when h lies on a CUDA device (ranks on `devices`, all CUDA), the
-    plain version when it lies on the CPU."""
+def _ring_bwd_cuda(g, n2, h, w, emask, m: int, rows: int, devices, s: int,
+                   tab: RingTables, t_pos):
+    B, M, d = h.shape
+    R, W = w.shape
+    cap = emask.shape[1] // m
+    lib = _build.lib()
+    ctrl = torch.cuda.current_stream(h.device)
+    cards = _cards(devices, h.device)
+    g, n2, h, w = (x.contiguous() for x in (g, n2, h, w))
+    dh = torch.empty_like(h)
+    part = torch.empty(m, R, W, device=h.device)  # dw of each rank
+    dw = torch.empty_like(w)
+    with _Streams(cards, ctrl):
+        runs = []
+        for c in cards:
+            nc = len(c.ranks)
+            far = c.stream is not None
+            runs.append(dict(
+                by_src=_card_table(c, tab.src_ptr, tab.src_edge, t_pos,
+                                   emask),
+                by_rel=_card_table(c, tab.rel_ptr, tab.rel_edge, t_pos,
+                                   emask),
+                g=g.to(c.dev), n2=n2.to(c.dev), h=h.to(c.dev),
+                w=w.to(c.dev),
+                stream=ctrl if c.stream is None else c.stream,
+                dh=torch.empty(B, nc, rows, d, device=c.dev) if far else dh,
+                part=torch.empty(nc, R, W, device=c.dev) if far else part))
+        # dh: each shard's accumulator visits every rank once and ends at
+        # its owner; received from the left neighbour before each step
+        acc = [None] * len(cards)
+        for k in range(m):
+            last = k == m - 1
+            if k > 0:
+                acc = _rotate(cards, acc, "bwd")
+            nxt = []
+            for c, run, a in zip(cards, runs, acc):
+                nc = len(c.ranks)
+                o, ids, n_out = run["dh"], c.out_ids, c.n_out
+                if not last:
+                    o = torch.empty(B, nc, rows, d, device=c.dev)
+                    ids, n_out = None, nc
+                _launch(lib.ring_bwd_step_launch, "ring_spmm_bwd", c.dev,
+                        run["stream"], *run["by_src"], c.rank_ids, ids,
+                        run["g"], run["n2"], run["w"], a, o, B, nc, n_out, m,
+                        rows, cap, d, s, k)
+                ring_spmm_bwd.launches += 1
+                nxt.append(o)
+            acc = nxt
+        for c, run in zip(cards, runs):
+            _launch(lib.ring_dw_launch, "ring_spmm_bwd", c.dev,
+                    run["stream"], *run["by_rel"], c.rank_ids, c.out_ids,
+                    run["g"], run["n2"], run["h"], run["part"], B,
+                    len(c.ranks), m, rows, cap, R, d, s)
+            ring_spmm_bwd.launches += 1
+            if c.stream is not None:
+                dh.view(B, m, rows, d).index_copy_(1, c.ranks_ctrl,
+                                                   run["dh"].to(h.device))
+                part.index_copy_(0, c.ranks_ctrl, run["part"].to(h.device))
+        _launch(lib.ring_dw_reduce_launch, "ring_spmm_bwd", h.device, ctrl,
+                part, dw, m, R * W)
+        ring_spmm_bwd.launches += 1
+    return dh, dw
+
+
+def _check_positions(tables, name: str) -> None:
+    """Refuse time positions outside the tables' [0, T) on the CPU, where
+    the plain versions read no table; on the card the kernels assert the
+    same per graph, with no host sync."""
+    if tables is None:
+        return
+    tab, t_pos = tables
+    n_times = tab.fwd_ptr.shape[0]
+    if bool(((t_pos < 0) | (t_pos >= n_times)).any()):
+        raise ValueError(f"{name}: time positions {t_pos.tolist()} outside "
+                         f"the tables' [0, {n_times})")
+
+
+def _fwd(h, w, src, dst, rel, emask, m: int, rows: int, devices, tables):
+    """``ring_spmm_fwd``, with the tables the kernels walked (for the
+    backward)."""
     _, s, _ = _check(h, w, src, dst, rel, emask, m, rows, devices,
                      h.shape[-1])
     if h.device.type == "cpu":
-        return ring_spmm_fwd_plain(h, w, src, dst, rel, emask, m, rows,
-                                   devices)
+        _check_positions(tables, "ring_spmm_fwd")
+        out, n2 = ring_spmm_fwd_plain(h, w, src, dst, rel, emask, m, rows,
+                                      devices)
+        return out, n2, tables
     if h.device.type != "cuda":
         raise ValueError(f"ring_spmm_fwd: no kernel for device {h.device}")
-    if s > _MAX_S:
-        raise ValueError(f"ring_spmm_fwd: blocks of {s} > {_MAX_S}")
-    return _ring_fwd_cuda(h, w, src, dst, rel, emask, m, rows, devices, s)
+    emask = _kernel_args(h, w, emask, devices, s, "ring_spmm_fwd")
+    tables = _call_tables(h, w, src, dst, rel, emask, m, rows, tables)
+    out, n2 = _ring_fwd_cuda(h, w, emask, m, rows, devices, s, *tables)
+    return out, n2, tables
+
+
+def ring_spmm_fwd(h, w, src, dst, rel, emask, m: int, rows: int, devices,
+                  tables=None):
+    """K13: (out [B, m * rows, d], norm^2 [B, m * rows]) on h's device. The
+    kernels when h lies on a CUDA device (ranks on `devices`, all CUDA),
+    the plain version when it lies on the CPU. `tables`: (``RingTables``
+    of the edges' id space, t_pos [B]) when the B graphs are train
+    snapshots of the data (their time positions t_pos): the kernels then
+    read src, dst and rel from the tables and only the mask from the call
+    (a position outside the tables' [0, T) raises on the CPU and stops the
+    kernel on a device assert on the card); None sorts the call's edges
+    into tables here."""
+    return _fwd(h, w, src, dst, rel, emask, m, rows, devices, tables)[:2]
 
 
 ring_spmm_fwd.launches = 0
+ring_spmm_fwd.csr_builds = 0  # tables sorted in a call (not the data's)
+
+
+def ring_spmm_bwd(g, n2, h, w, src, dst, rel, emask, m: int, rows: int,
+                  devices, tables=None):
+    """K13's backward: (dh like h, dw like w) from the cotangent g of the
+    forward's output and its norm^2 n2 [B, m * rows]. The kernels when h
+    lies on a CUDA device (`tables` as in ``ring_spmm_fwd``), the plain
+    version when it lies on the CPU."""
+    _, s, _ = _check(h, w, src, dst, rel, emask, m, rows, devices,
+                     h.shape[-1])
+    if h.device.type == "cpu":
+        _check_positions(tables, "ring_spmm_bwd")
+        return ring_spmm_bwd_plain(g, n2, h, w, src, dst, rel, emask, m,
+                                   rows, devices)
+    if h.device.type != "cuda":
+        raise ValueError(f"ring_spmm_bwd: no kernel for device {h.device}")
+    emask = _kernel_args(h, w, emask, devices, s, "ring_spmm_bwd")
+    tables = _call_tables(h, w, src, dst, rel, emask, m, rows, tables)
+    return _ring_bwd_cuda(g, n2, h, w, emask, m, rows, devices, s, *tables)
+
+
+ring_spmm_bwd.launches = 0
 
 
 class RingSpMM(torch.autograd.Function):
     """K13 differentiated in h and w: the forward is ``ring_spmm_fwd``, the
-    backward autograd through the plain ring (recomputed), which is the
-    JAX package's transpose in torch ops: dmsg at the destinations, dw
-    summed over the ranks, dh's per-edge contributions carried back round
-    the ring to their owners (the reduce-scatter)."""
+    backward ``ring_spmm_bwd`` over the same tables (the JAX package's
+    transpose: dmsg at the destinations, dw summed over the ranks, dh
+    carried back round the ring to its owners)."""
 
     @staticmethod
-    def forward(ctx, h, w, src, dst, rel, emask, m, rows, devices):
-        out, _ = ring_spmm_fwd(h, w, src, dst, rel, emask, m, rows, devices)
-        ctx.save_for_backward(h, w, src, dst, rel, emask)
-        ctx.ring = (m, rows, devices)
+    def forward(ctx, h, w, src, dst, rel, emask, m, rows, devices, tables):
+        out, n2, tables = _fwd(h, w, src, dst, rel, emask, m, rows, devices,
+                               tables)
+        ctx.save_for_backward(h, w, src, dst, rel, emask, n2)
+        ctx.ring = (m, rows, devices, tables)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        h, w, src, dst, rel, emask = ctx.saved_tensors
-        with torch.enable_grad():
-            h, w = h.detach().requires_grad_(), w.detach().requires_grad_()
-            out, _ = ring_spmm_fwd_plain(h, w, src, dst, rel, emask,
-                                         *ctx.ring)
-            dh, dw = torch.autograd.grad(out, (h, w), g)
-        return dh, dw, None, None, None, None, None, None, None
+        h, w, src, dst, rel, emask, n2 = ctx.saved_tensors
+        dh, dw = ring_spmm_bwd(g, n2, h, w, src, dst, rel, emask, *ctx.ring)
+        return dh, dw, None, None, None, None, None, None, None, None
 
 
 def ring_spmm(h, w, src, dst, rel, emask, m: int, rows: int, devices,
-              kernels: bool = True):
+              kernels: bool = True, tables=None):
     """K13 as a differentiable function of h [B, m * rows, d] and w
-    (``kernels=False``: its plain version, on any device)."""
+    (``kernels=False``: its plain version, on any device, differentiated
+    by autograd). `tables` as in ``ring_spmm_fwd``."""
     if not kernels:
         return ring_spmm_fwd_plain(h, w, src, dst, rel, emask, m, rows,
                                    tuple(devices))[0]
     return RingSpMM.apply(h.contiguous(), w.contiguous(), src, dst, rel,
-                          emask, m, rows, tuple(devices))
+                          emask, m, rows, tuple(devices), tables)

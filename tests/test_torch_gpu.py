@@ -17,11 +17,14 @@ The fused eval (K11): ranks equal on every real query whose plain scores
 hold no other column within 1e-5 of the row's largest |score| of the
 target's, the BCE within 1e-5 relative. The batched window (K12) makes
 K2f's launches: equal to K2f's output bit for bit. The ring SpMM (K13)
-within 1e-4 of its plain version, and bit for bit equal whether its ranks
-share one card or sit on several.
+and its backward within 1e-5 of the largest entry of their plain
+versions' outputs; bit for bit equal whether its ranks share one card or
+sit on several, and whether it walks the data's tables or sorts the
+call's edges.
 """
 
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -30,7 +33,7 @@ import torch
 
 from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.data.snapshots import (
-    build_answer_lists, make_synthetic, to_device,
+    build_answer_lists, make_synthetic, ring_layout, to_device,
 )
 from temp_tpu_torch.models.layers import dropout_mask
 from temp_tpu_torch.models.registry import get_model
@@ -54,16 +57,18 @@ from temp_tpu_torch.ops.spmm import (
     spmm, spmm_bwd, spmm_bwd_plain, spmm_fwd, spmm_fwd_plain,
 )
 from temp_tpu_torch.parallel.edge_partition import (
-    group_edges_by_dst_owner, ring_geometry, ring_regroup_data,
+    group_edges_by_dst_owner, ring_geometry,
 )
 from temp_tpu_torch.parallel.ring_spmm import (
-    ring_spmm, ring_spmm_fwd, ring_spmm_fwd_plain,
+    ring_spmm, ring_spmm_bwd, ring_spmm_bwd_plain, ring_spmm_fwd,
+    ring_spmm_fwd_plain,
 )
 from temp_tpu_torch.train.loop import Trainer
 from temp_tpu_torch.train.optim import param_leaves
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -1149,13 +1154,13 @@ def _ring_case(dev, s=1, n=7128, m=4, e=256, r=460, d=128, seed=0):
 def test_ring_spmm_kernel_matches_plain(cuda, s):
     """K13 with 4 ranks on the card: forward, norm^2 and rows without
     in-edges (exactly 0) against the plain version; RingSpMM's backward
-    against autograd through the plain forward; m * m launches a call."""
+    against autograd through the plain forward; m launches a call."""
     h, w, edges, rows = _ring_case(cuda, s=s)
     devs = (cuda,) * 4
     before = ring_spmm_fwd.launches
     out, n2 = ring_spmm_fwd(h, w, *edges, 4, rows, devs)
     torch.cuda.synchronize()
-    assert ring_spmm_fwd.launches == before + 16
+    assert ring_spmm_fwd.launches == before + 4  # one a ring step
     ref, n2p = ring_spmm_fwd_plain(h, w, *edges, 4, rows, devs)
     assert _scaled_ok(out, ref)[0] and _scaled_ok(n2, n2p)[0]
     assert bool((out[0][n2[0] == 0] == 0).all())
@@ -1173,6 +1178,155 @@ def test_ring_spmm_kernel_matches_plain(cuda, s):
     assert _scaled_ok(kh, ph)[0] and _scaled_ok(kw, pw)[0]
 
 
+def _ring_tables_cases(dev, s):
+    """K13 at the final-snapshot shape (one snapshot's edges in global ids,
+    7128 rows in 4 shards) and at the window-step shape (8 snapshots in
+    compact slots) of a dataset in the ring layout with its static tables:
+    (tag, h, w, edges, rows, tables) each, the mask a 50% subsample of the
+    static one."""
+    cfg = TKGConfig(edge_partition="ring_pallas", mp_size=4)
+    data = to_device(ring_layout(cfg, make_synthetic(
+        num_ents=7128, num_rels=230, num_times=12, edges_per_time=200,
+        seed=2, edge_pad_multiple=128)), dev)
+    g = torch.Generator(device=dev).manual_seed(s)
+    tr, d = data.train, 128
+    w = torch.randn(2 * data.num_rels, d * s, generator=g, device=dev) / s
+    out = []
+    for tag, tab, t_pos, src, dst in (
+            ("final", data.ring.glob, torch.tensor([5], device=dev),
+             tr.src, tr.dst),
+            ("window", data.ring.comp, torch.arange(2, 10, device=dev),
+             data.train_src_loc, data.train_dst_loc)):
+        rows = tab.rows
+        em = tr.emask[t_pos] & (torch.rand(tr.emask[t_pos].shape,
+                                           generator=g, device=dev) < 0.5)
+        h = torch.randn(len(t_pos), 4 * rows, d, generator=g, device=dev)
+        edges = (src[t_pos], dst[t_pos], tr.rel[t_pos], em)
+        out.append((tag, h, w, edges, rows, (tab, t_pos)))
+    return out
+
+
+@pytest.mark.parametrize("s", [1, 4])
+def test_ring_spmm_tables_match_in_call_route(cuda, s):
+    """K13 walking the data's static tables (the path's route) against K13
+    sorting the call's edges (the in-call route) at the final-snapshot and
+    window-step shapes: equal bit for bit, both within 1e-5 of the
+    largest entry of the plain version; 4 launches a call on one card and
+    no sort with tables; a row whose every edge the call's mask drops
+    comes out exactly 0."""
+    devs = (cuda,) * 4
+    for tag, h, w, edges, rows, tables in _ring_tables_cases(cuda, s):
+        src, dst, rel, em = edges
+        # drop every edge into one fed row of graph 0 from the mask
+        row = int(dst[0][em[0]][0])
+        em = em.clone()
+        em[0][dst[0] == row] = False
+        edges = (src, dst, rel, em)
+        builds, before = ring_spmm_fwd.csr_builds, ring_spmm_fwd.launches
+        out, n2 = ring_spmm_fwd(h, w, *edges, 4, rows, devs, tables=tables)
+        torch.cuda.synchronize()
+        assert ring_spmm_fwd.launches == before + 4
+        assert ring_spmm_fwd.csr_builds == builds
+        own, n2o = ring_spmm_fwd(h, w, *edges, 4, rows, devs)
+        assert ring_spmm_fwd.csr_builds == builds + 1
+        assert torch.equal(out, own) and torch.equal(n2, n2o), tag
+        ref, n2p = ring_spmm_fwd_plain(h, w, *edges, 4, rows, devs)
+        assert _scaled_ok(out, ref)[0] and _scaled_ok(n2, n2p)[0], tag
+        assert bool((out[0, row] == 0).all()) and float(n2[0, row]) == 0.0
+        assert bool((out[n2 == 0] == 0).all())
+
+
+@pytest.mark.parametrize("s", [1, 4])
+def test_ring_spmm_bwd_kernel_matches_plain_autograd(cuda, s):
+    """K13's backward kernels over the data's tables against autograd
+    through the plain forward (dh, dw within 1e-5 of the largest entry)
+    and against ring_spmm_bwd_plain, at both shapes; the same call twice
+    gives the same bits; m + 2 launches a call on one card (m ring steps,
+    the dw partials, their sum)."""
+    devs = (cuda,) * 4
+    for tag, h, w, edges, rows, tables in _ring_tables_cases(cuda, s):
+        gk = torch.Generator(device=cuda).manual_seed(7)
+        g = torch.randn(h.shape, generator=gk, device=cuda)
+        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+        o, n2 = ring_spmm_fwd_plain(hh, ww, *edges, 4, rows, devs)
+        (o * g).sum().backward()
+        before = ring_spmm_bwd.launches
+        dh, dw = ring_spmm_bwd(g, n2, h, w, *edges, 4, rows, devs,
+                               tables=tables)
+        torch.cuda.synchronize()
+        assert ring_spmm_bwd.launches == before + 6
+        assert _scaled_ok(dh, hh.grad)[0] and _scaled_ok(dw, ww.grad)[0], tag
+        ph, pw = ring_spmm_bwd_plain(g, n2, h, w, *edges, 4, rows, devs)
+        assert _scaled_ok(dh, ph)[0] and _scaled_ok(dw, pw)[0], tag
+        dh2, dw2 = ring_spmm_bwd(g, n2, h, w, *edges, 4, rows, devs,
+                                 tables=tables)
+        assert torch.equal(dh, dh2) and torch.equal(dw, dw2), tag
+        ah, aw = h.clone().requires_grad_(), w.clone().requires_grad_()
+        (ring_spmm(ah, aw, *edges, 4, rows, devs, tables=tables)
+         * g).sum().backward()
+        assert torch.equal(ah.grad, dh) and torch.equal(aw.grad, dw), tag
+
+
+@pytest.mark.parametrize("s", [1, 4])
+def test_ring_spmm_clips_a_destination_outside_its_slice(cuda, s):
+    """The in-call route on edges where two kept edges have their
+    destination outside their slice's shard (the plain ring clips it into
+    the shard): the forward within 1e-5 of the largest entry of the plain
+    version, and the backward kernels within 1e-5 of ring_spmm_bwd_plain
+    and of autograd through the plain forward."""
+    h, w, (src, dst, rel, em), rows = _ring_case(cuda, s=s, seed=5)
+    cap = src.shape[1] // 4
+    dst = dst.clone()
+    assert bool(em[0, 0]) and bool(em[0, cap])
+    dst[0, 0] = 3 * rows + 5    # slice 0, row 3 * rows + 5: clipped
+    dst[0, cap] = 5             # slice 1, row 5: clipped
+    edges = (src, dst, rel, em)
+    devs = (cuda,) * 4
+    out, n2 = ring_spmm_fwd(h, w, *edges, 4, rows, devs)
+    ref, n2p = ring_spmm_fwd_plain(h, w, *edges, 4, rows, devs)
+    assert _scaled_ok(out, ref)[0] and _scaled_ok(n2, n2p)[0]
+    g = torch.randn(h.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(8))
+    dh, dw = ring_spmm_bwd(g, n2, h, w, *edges, 4, rows, devs)
+    ph, pw = ring_spmm_bwd_plain(g, n2p, h, w, *edges, 4, rows, devs)
+    assert _scaled_ok(dh, ph)[0] and _scaled_ok(dw, pw)[0]
+    ah, aw = h.clone().requires_grad_(), w.clone().requires_grad_()
+    o, _ = ring_spmm_fwd_plain(ah, aw, *edges, 4, rows, devs)
+    (o * g).sum().backward()
+    assert _scaled_ok(dh, ah.grad)[0] and _scaled_ok(dw, aw.grad)[0]
+
+
+_BAD_POSITION = """
+import torch
+from temp_tpu_torch.parallel.edge_partition import ring_tables
+from temp_tpu_torch.parallel.ring_spmm import ring_spmm_fwd
+dev, m, rows = torch.device("cuda"), 4, 128
+g = torch.Generator(device=dev).manual_seed(0)
+src, dst, rel = (torch.randint(0, n, (2, 64), device=dev, generator=g)
+                 for n in (m * rows, m * rows, 3))
+keep = torch.ones(2, 64, dtype=torch.bool, device=dev)
+tab = ring_tables(src, dst, rel, keep, m, rows, 3)
+h = torch.randn(1, m * rows, 32, device=dev, generator=g)
+w = torch.randn(3, 32, device=dev, generator=g)
+ring_spmm_fwd(h, w, src[:1], dst[:1], rel[:1], keep[:1], m, rows,
+              (dev,) * m, tables=(tab, torch.tensor([2], device=dev)))
+torch.cuda.synchronize()
+print("no assert")
+"""
+
+
+def test_ring_spmm_time_position_outside_the_tables_asserts(cuda):
+    """A call on the card that names a snapshot past its tables' T stops
+    on the kernels' device assert instead of reading past the tables (in
+    a process of its own: a device assert ends the process's CUDA
+    context)."""
+    proc = subprocess.run([sys.executable, "-c", _BAD_POSITION], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    said = proc.stdout + proc.stderr
+    assert proc.returncode != 0 and "no assert" not in said, said[-2000:]
+    assert "device-side assert" in said, said[-2000:]
+
+
 def test_ring_spmm_on_distinct_cards(cuda):
     """The same ring with its ranks on distinct cards (peer copies between
     the slots), against the ranks all on one card."""
@@ -1185,6 +1339,11 @@ def test_ring_spmm_on_distinct_cards(cuda):
     one, n2o = ring_spmm_fwd(h, w, *edges, 4, rows, (cuda,) * 4)
     assert out.device == h.device
     assert torch.equal(out, one) and torch.equal(n2, n2o)
+    g = torch.randn_like(h)
+    dh, dw = ring_spmm_bwd(g, n2, h, w, *edges, 4, rows, devs)
+    dho, dwo = ring_spmm_bwd(g, n2, h, w, *edges, 4, rows, (cuda,) * 4)
+    assert dh.device == h.device and dw.device == w.device
+    assert torch.equal(dh, dho) and torch.equal(dw, dwo)
 
 
 def _ring_near_ties(tr, params, tol=1e-5):
@@ -1222,13 +1381,15 @@ def _ring_near_ties(tr, params, tol=1e-5):
 
 def test_ring_path_launches_k13_and_no_k1(cuda):
     """A valid sweep and training steps of GRRGCN with edge_partition
-    "ring_pallas" over 4 ranks: K13 launched, none of K1, K2, K3-K5 or
-    K11; the losses agree with the plain versions', and the ranks from the
+    "ring_pallas" over 4 ranks: K13 and its backward launched over the
+    data's tables (no sort in a call), none of K1, K2, K3-K5 or K11; the
+    losses agree with the plain versions', and the ranks from the
     same weights are equal but for the counted near-ties of the plain
     scores."""
-    data = ring_regroup_data(make_synthetic(
-        num_ents=300, num_rels=12, num_times=20, edges_per_time=60, seed=1,
-        edge_pad_multiple=128), 4)
+    data = ring_layout(TKGConfig(edge_partition="ring_pallas", mp_size=4),
+                       make_synthetic(num_ents=300, num_rels=12,
+                                      num_times=20, edges_per_time=60,
+                                      seed=1, edge_pad_multiple=128))
     runs = {}
     for kernels in (True, False):
         cfg = TKGConfig(embed_size=32, hidden_size=32, n_bases=32,
@@ -1239,8 +1400,9 @@ def test_ring_path_launches_k13_and_no_k1(cuda):
         params, opt = tr.init_state(0)
         counters = (ring_spmm_fwd, spmm_fwd, spmm_bwd, fused_window_fwd,
                     fused_window_bwd, fused_final_fwd, fused_eval_ranks)
-        for c in counters:
+        for c in counters + (ring_spmm_bwd,):
             c.launches = 0
+        ring_spmm_fwd.csr_builds = 0
         ranks, mask, _ = tr.eval_sweep(params, "valid")
         near = None if kernels else _ring_near_ties(tr, params)
         losses = [float(tr.train_step(params, opt, t_pos, t_valid,
@@ -1248,6 +1410,8 @@ def test_ring_path_launches_k13_and_no_k1(cuda):
                   for step, (t_pos, t_valid)
                   in enumerate(tr.epoch_batches(0)[:2])]
         assert (ring_spmm_fwd.launches > 0) == kernels
+        assert (ring_spmm_bwd.launches > 0) == kernels
+        assert ring_spmm_fwd.csr_builds == 0
         assert all(c.launches == 0 for c in counters[1:])
         runs[kernels] = (losses, ranks, mask, near)
     (lk, rk, mk, _), (lp, rp, mp, near) = runs[True], runs[False]

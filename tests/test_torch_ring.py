@@ -17,6 +17,7 @@ losses, 1e-5 relative to max(1, the largest entry); ranks equal (the float
 paths agree to about 1e-6, far from any rank-changing gap at these seeds).
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -41,15 +42,20 @@ from temp_tpu.parallel.mesh import replicated, use_mesh
 from temp_tpu.parallel.ring_pallas import ring_rel_spmm_pallas
 from temp_tpu_torch.bridge import params_from_numpy
 from temp_tpu_torch.config import TKGConfig
-from temp_tpu_torch.data.snapshots import make_synthetic, to_device
+from temp_tpu_torch.data.snapshots import (
+    make_synthetic, ring_layout, to_device,
+)
 from temp_tpu_torch.models.registry import get_model
+from temp_tpu_torch.ops import segment
+from temp_tpu_torch.ops.spmm import _norm2_plain, build_csr
 from temp_tpu_torch.parallel.edge_partition import (
     EdgePartitionedModel, check_ring_layout, group_edges_by_dst_owner,
-    rel_spmm_edge_partitioned, ring_geometry, ring_regroup_data,
+    rel_spmm_edge_partitioned, ring_geometry, ring_regroup_data, ring_tables,
 )
 from temp_tpu_torch.parallel.mesh import make_mesh, manual_partition
 from temp_tpu_torch.parallel.ring_spmm import (
-    ring_spmm, ring_spmm_fwd, ring_spmm_fwd_plain,
+    ring_spmm, ring_spmm_bwd, ring_spmm_bwd_plain, ring_spmm_fwd,
+    ring_spmm_fwd_plain,
 )
 from temp_tpu_torch.train.loop import Trainer
 from temp_tpu_torch.train.optim import param_leaves
@@ -208,10 +214,318 @@ def test_psum_form_matches_jax():
     _close(got.numpy(), np.asarray(ref), "psum")
 
 
+@pytest.fixture(scope="module")
+def jax_ring_vjp():
+    """The JAX package's K13 (ring_rel_spmm_pallas, Mosaic interpreter on
+    the 4-device virtual mesh) and its vjp at one seeded cotangent, for
+    diagonal (s = 1) and 4 x 4 block weights."""
+    mesh = JaxMesh(np.array(jax.devices()[:M]), ("model",))
+    out = {}
+    for s in (1, 4):
+        h, edges, w = _graph(21 + s, n_bases=D_G // s)
+        cot = np.random.RandomState(s).randn(N_G, D_G).astype(np.float32)
+        jedges = [jnp.asarray(x) for x in edges]
+        _, vjp = jax.vjp(
+            lambda h, w: ring_rel_spmm_pallas(h, *jedges, w, N_G, mesh,
+                                              n_bases=D_G // s),
+            jnp.asarray(h), jnp.asarray(w))
+        out[s] = (h, edges, w, cot, *(np.asarray(x) for x in vjp(cot)))
+    return out
+
+
+@pytest.mark.parametrize("s", [1, 4])
+def test_ring_spmm_bwd_plain_matches_pallas_vjp(jax_ring_vjp, s):
+    """ring_spmm_bwd_plain (the transpose in torch ops, no replay of the
+    forward) against the vjp of the JAX package's K13 in interpret mode,
+    and against autograd through the plain forward: dh and dw within 1e-5
+    of max(1, the largest entry)."""
+    h, edges, w, cot, ref_h, ref_w = jax_ring_vjp[s]
+    th, tw = torch.from_numpy(h)[None], torch.from_numpy(w)
+    e = [torch.from_numpy(x)[None] for x in edges]
+    g = torch.from_numpy(cot)[None]
+    rows = N_G // M
+    _, n2 = ring_spmm_fwd_plain(th, tw, *e, M, rows, CPU4)
+    dh, dw = ring_spmm_bwd_plain(g, n2, th, tw, *e, M, rows, CPU4)
+    _close(dh[0].numpy(), ref_h, "dh")
+    _close(dw.numpy(), ref_w, "dw")
+    ah, aw = th.clone().requires_grad_(), tw.clone().requires_grad_()
+    out, _ = ring_spmm_fwd_plain(ah, aw, *e, M, rows, CPU4)
+    (out * g).sum().backward()
+    _close(dh.numpy(), ah.grad.numpy(), "dh autograd")
+    _close(dw.numpy(), aw.grad.numpy(), "dw autograd")
+
+
+# -- K13's static tables ----------------------------------------------------
+
+def _ring_data():
+    cfg = TKGConfig(edge_partition="ring_pallas", **KW)
+    return ring_layout(cfg, make_synthetic(**DATA))
+
+
+def _spaces(data):
+    """(name, tables, src, dst, rel) of both id spaces (numpy)."""
+    tr = data.train
+    return (("global", data.ring.glob, tr.src, tr.dst, tr.rel),
+            ("compact", data.ring.comp, data.train_src_loc,
+             data.train_dst_loc, tr.rel))
+
+
+def test_static_tables_equal_in_call_csr():
+    """ring_layout's tables (sorted once with the data, for all snapshots
+    and ranks at once, as the kernels' in-call route sorts a call's
+    graphs) equal, for every snapshot and rank, in both id spaces and all
+    three orderings, build_csr run on that rank's edges alone with the
+    same keys (destinations clipped into their rank's shard)."""
+    data = _ring_data()
+    keep = torch.from_numpy(data.train.emask)
+    T, E = keep.shape
+    cap, n_rels = E // M, 2 * data.num_rels
+    assert data.ring.glob.rows == ring_geometry(data.num_ents, M)
+    assert data.ring.comp.rows == data.act_idx.shape[1] // M
+    for name, tab, *arrs in _spaces(data):
+        rows, n_seg = tab.rows, M * tab.rows
+        src, dst, rel = (torch.from_numpy(np.asarray(a)).long()
+                         for a in arrs)
+        slot = torch.arange(E).expand(T, E)
+        base = torch.arange(E) // cap * rows
+        dst_l = (dst - base).clamp(0, rows - 1)
+        orders = (("fwd", src // rows * rows + dst_l, n_seg, (src, rel)),
+                  ("src", src, n_seg, (base + dst_l, rel)),
+                  ("rel", rel, n_rels, (src, base + dst_l)))
+        for t in range(T):
+            for r in range(M):
+                sl = slice(r * cap, (r + 1) * cap)
+                for o, key, width, (a, b) in orders:
+                    ptr, x, y, z = build_csr(key[t, sl], width, a[t, sl],
+                                             b[t, sl], slot[t, sl],
+                                             keep=keep[t, sl])
+                    got_ptr = getattr(tab, f"{o}_ptr")[t, r]
+                    got = getattr(tab, f"{o}_edge")[t, r]
+                    np.testing.assert_array_equal(got_ptr, ptr.numpy(),
+                                                  f"{name} {o} {t} {r}")
+                    np.testing.assert_array_equal(
+                        got, torch.stack([x, y, z], -1).numpy(),
+                        f"{name} {o} {t} {r}")
+
+
+def test_table_walker_selects_the_plain_rings_edges():
+    """A walker that reads only the tables, as the kernels do (the row
+    pointer of its rank's block, the call's mask per edge), under a
+    random dynamic mask inside the static one: at forward step k rank r
+    gets exactly the edges the plain ring selects (kept, source in shard
+    (r + k) % m) into each row, in slot order; the rows' degrees over
+    their m owner segments give _norm2's norm^2; the table by source row
+    gives the backward's step k exactly the rank's edges from shard
+    (r + m - 1 - k) % m, the table by relation each relation's edges. The
+    backward's accumulators, passed right after each step, end at their
+    owners, and the walk's dh and dw equal ring_spmm_bwd_plain's."""
+    data = _ring_data()
+    rs = np.random.RandomState(3)
+    static = np.asarray(data.train.emask)
+    T, E = static.shape
+    cap, n_rels, d = E // M, 2 * data.num_rels, 4
+    dyn = static & (rs.rand(T, E) < 0.6)
+    for name, tab, src, dst, rel in _spaces(data):
+        rows = tab.rows
+        n = M * rows
+        w = rs.randn(n_rels, d).astype(np.float32)
+        for t in range(T):
+            keep, s_t, d_t, r_t = dyn[t], src[t], dst[t], rel[t]
+            h = rs.randn(n, d).astype(np.float32)
+            g = rs.randn(n, d).astype(np.float32)
+            deg = np.zeros(n)
+            for r in range(M):
+                ptr, edge = tab.fwd_ptr[t, r], tab.fwd_edge[t, r]
+                mine = np.arange(r * cap, (r + 1) * cap)
+                for k in range(M):
+                    owner = (r + k) % M
+                    sel = mine[keep[mine] & (s_t[mine] // rows == owner)]
+                    walked = []
+                    for v in range(rows):
+                        seg = edge[ptr[owner * rows + v]:
+                                   ptr[owner * rows + v + 1]]
+                        seg = seg[keep[seg[:, 2]]]
+                        assert np.all(d_t[seg[:, 2]] == r * rows + v)
+                        assert np.all(np.diff(seg[:, 2]) > 0)  # slot order
+                        assert np.array_equal(seg[:, 0], s_t[seg[:, 2]])
+                        assert np.array_equal(seg[:, 1], r_t[seg[:, 2]])
+                        walked.append(seg[:, 2])
+                        deg[r * rows + v] += len(seg)
+                    walked = np.concatenate(walked)
+                    assert np.array_equal(np.sort(walked), sel), (name, t)
+            # the kernel's f32 arithmetic: norm = 1 / deg, norm^2
+            deg = deg.astype(np.float32)
+            norm = np.where(deg > 0, np.float32(1) / np.maximum(deg, 1),
+                            np.float32(0))
+            ref = _norm2_plain(torch.from_numpy(d_t.astype(np.int64)),
+                               torch.from_numpy(keep.astype(np.float32)), n)
+            np.testing.assert_array_equal(norm * norm, ref.numpy())
+            n2 = ref.numpy()
+            dh, dw = _walk_bwd(tab, t, keep, s_t, r_t, g, n2, h, w)
+            args = [torch.from_numpy(np.asarray(a)[t][None]) for a in
+                    (src, dst, rel)] + [torch.from_numpy(keep[None])]
+            ph, pw = ring_spmm_bwd_plain(
+                torch.from_numpy(g)[None], torch.from_numpy(n2)[None],
+                torch.from_numpy(h)[None], torch.from_numpy(w), *args, M,
+                rows, CPU4)
+            _close(dh, ph[0].numpy(), f"{name} dh walk")
+            _close(dw, pw.numpy(), f"{name} dw walk")
+
+
+def _walk_bwd(tab, t, keep, s_t, r_t, g, n2, h, w):
+    """K13's backward (s = 1) of snapshot t walked through the tables as
+    its kernels walk them, under the dynamic mask `keep` [E]: accumulators
+    [M, rows, d], rank r's at step k for shard (r + M - 1 - k) % M, gaining
+    its edges from there (the table by source row, each edge's cotangent
+    read at the destination the table holds) and passed right; dw partials
+    by relation (the table by relation), summed in rank order. Asserts
+    each step gets exactly the rank's kept edges from its shard. Returns
+    (dh [M * rows, d], dw [n_rels, d])."""
+    rows, cap = tab.rows, len(keep) // M
+    d, n_rels = g.shape[1], w.shape[0]
+    acc = np.zeros((M, rows, d), np.float64)
+    dw = np.zeros((M, n_rels, d), np.float64)
+    for k in range(M):
+        for r in range(M):
+            q = (r + M - 1 - k) % M
+            ptr, edge = tab.src_ptr[t, r], tab.src_edge[t, r]
+            got = []
+            for v in range(rows):
+                seg = edge[ptr[q * rows + v]:ptr[q * rows + v + 1]]
+                seg = seg[keep[seg[:, 2]]]
+                assert np.all(s_t[seg[:, 2]] == q * rows + v)
+                for dd, rr, _ in seg:
+                    acc[r, v] += g[dd] * n2[dd] * w[rr]
+                got.append(seg[:, 2])
+            mine = np.arange(r * cap, (r + 1) * cap)
+            want = mine[keep[mine] & (s_t[mine] // rows == q)]
+            assert np.array_equal(np.sort(np.concatenate(got)), want)
+        if k < M - 1:
+            acc = acc[[(r - 1) % M for r in range(M)]]
+    for r in range(M):
+        ptr, edge = tab.rel_ptr[t, r], tab.rel_edge[t, r]
+        for x in range(n_rels):
+            seg = edge[ptr[x]:ptr[x + 1]]
+            seg = seg[keep[seg[:, 2]]]
+            assert np.all(r_t[seg[:, 2]] == x)
+            for ss, dd, _ in seg:
+                dw[r, x] += h[ss] * g[dd] * n2[dd]
+    return acc.reshape(M * rows, d), dw.sum(0)
+
+
+def test_tables_clip_a_destination_outside_its_slice():
+    """Edges sorted in a call (ring_tables, the in-call route) where two
+    kept edges have their destination outside their slice's shard: all
+    three orderings hold the destination clipped into the shard, as the
+    plain ring clips it, and the backward walked through the tables equals
+    ring_spmm_bwd_plain and autograd through the plain forward."""
+    h, (src, dst, rel, em), w = _graph(31)
+    rows, cap = N_G // M, len(em) // M
+    dst = dst.copy()
+    assert em[0] and em[2 * cap]
+    dst[0] = 3 * rows + 5      # slice 0 -> clipped to row rows - 1
+    dst[2 * cap] = 5           # slice 2 -> clipped to row 2 * rows
+    clipped = {0: rows - 1, 2 * cap: 2 * rows}
+    e = [torch.from_numpy(x)[None] for x in (src, dst, rel, em)]
+    tab = ring_tables(*e, M, rows, R_G)
+    tab = type(tab)(rows, *(getattr(tab, f.name).numpy()
+                            for f in dataclasses.fields(tab)[1:]))
+    for o, col in (("src", 0), ("rel", 1)):
+        edge = getattr(tab, f"{o}_edge")[0].reshape(-1, 3)
+        for slot, row in clipped.items():
+            assert edge[edge[:, 2] == slot, col].tolist() == [row], o
+    g = np.random.RandomState(32).randn(N_G, D_G).astype(np.float32)
+    th, tw, tg = (torch.from_numpy(x) for x in (h[None], w, g[None]))
+    _, n2 = ring_spmm_fwd_plain(th, tw, *e, M, rows, CPU4)
+    dh, dw = _walk_bwd(tab, 0, em, src, rel, g, n2[0].numpy(), h, w)
+    ph, pw = ring_spmm_bwd_plain(tg, n2, th, tw, *e, M, rows, CPU4)
+    _close(dh, ph[0].numpy(), "dh walk")
+    _close(dw, pw.numpy(), "dw walk")
+    ah, aw = th.clone().requires_grad_(), tw.clone().requires_grad_()
+    out, _ = ring_spmm_fwd_plain(ah, aw, *e, M, rows, CPU4)
+    (out * tg).sum().backward()
+    _close(ph.numpy(), ah.grad.numpy(), "dh autograd")
+    _close(pw.numpy(), aw.grad.numpy(), "dw autograd")
+
+
+def test_time_position_outside_the_tables_raises():
+    """A call that names a snapshot outside its tables' [0, T) raises (on
+    the card the kernels stop on a device assert instead of reading past
+    the tables)."""
+    data = _ring_data()
+    tab = data.ring.glob
+    T, rows = data.num_times, tab.rows
+    tr = data.train
+    e = [torch.from_numpy(np.asarray(x)[:1]) for x in (tr.src, tr.dst, tr.rel,
+                                                       tr.emask)]
+    h = torch.zeros(1, M * rows, 4)
+    w = torch.zeros(2 * data.num_rels, 4)
+    g = torch.zeros_like(h)
+    n2 = torch.zeros(1, M * rows)
+    for bad in (T, -1):
+        tables = (tab, torch.tensor([bad]))
+        with pytest.raises(ValueError, match="outside"):
+            ring_spmm_fwd(h, w, *e, M, rows, CPU4, tables=tables)
+        with pytest.raises(ValueError, match="outside"):
+            ring_spmm_bwd(g, n2, h, w, *e, M, rows, CPU4, tables=tables)
+    out, _ = ring_spmm_fwd(h, w, *e, M, rows, CPU4,
+                           tables=(tab, torch.tensor([0])))
+    assert out.shape == h.shape
+
+
+def test_ring_calls_name_train_snapshots_whose_mask_they_narrow(
+        monkeypatch):
+    """Under ring_pallas on the CPU, through the window and the final step
+    of a training batch and of an eval batch, every SpMM names the
+    snapshots its edges are (the data's tables of its id space and their
+    time positions), its edges equal those snapshots' train edges in that
+    space, and its mask lies inside their static mask, which the tables
+    hold (a recording wrapper around the ring SpMM; the model is
+    unchanged)."""
+    data = to_device(_ring_data(), "cpu")
+    cfg = TKGConfig(edge_partition="ring_pallas", **KW)
+    model = get_model(cfg, data, device="cpu")
+    wrapped = EdgePartitionedModel(model, make_mesh(1, M, devices=CPU4),
+                                   mode="ring_pallas")
+    calls = []
+    real = segment.ring_spmm
+
+    def record(h, w, src, dst, rel, emask, m, rows, devices, kernels=True,
+               tables=None):
+        calls.append((src, dst, rel, emask, tables))
+        return real(h, w, src, dst, rel, emask, m, rows, devices,
+                    kernels=kernels, tables=tables)
+
+    monkeypatch.setattr(segment, "ring_spmm", record)
+    params = model.init_params(0)
+    gen = torch.Generator().manual_seed(0)
+    wrapped.loss(params, data, T_POS, [True, True, False, True], gen=gen)
+    n_train = len(calls)
+    with torch.no_grad():
+        wrapped.eval_ranks(params, data, T_POS, [True] * 4, "valid")
+    L1 = KW["train_seq_len"] - 1
+    assert n_train == 2 * L1 + 2 * 3 and len(calls) == n_train + 2 * L1 + 8
+    tr = data.train
+    spaces = {id(data.ring.glob): (tr.src, tr.dst),
+              id(data.ring.comp): (data.train_src_loc, data.train_dst_loc)}
+    seen = set()
+    for src, dst, rel, emask, tables in calls:
+        assert tables is not None
+        tab, t_pos = tables
+        s_all, d_all = spaces[id(tab)]
+        seen.add(id(tab))
+        assert t_pos.shape == (src.shape[0],)
+        for b, t in enumerate(t_pos.tolist()):
+            assert torch.equal(src[b], s_all[t])
+            assert torch.equal(dst[b], d_all[t])
+            assert torch.equal(rel[b], tr.rel[t])
+            assert not bool((emask[b] & ~tr.emask[t]).any())
+    assert seen == set(spaces)
+
+
 # -- the ring data layout ---------------------------------------------------
 
 def _fields(d):
-    import dataclasses
     out = {}
     for f in dataclasses.fields(d):
         v = getattr(d, f.name)

@@ -193,7 +193,7 @@ def test_chip_smoke_phases_rehearse_on_cpu():
         "spmm_fwd", "spmm_bwd", "fused_window_fwd", "fused_window_bwd",
         "fused_final_fwd", "fused_final_bwd_loss", "fused_final_bwd_layer",
         "bi_layer_fwd", "bi_loss_fwd", "bi_layer_bwd", "fused_eval_ranks",
-        "fused_window_mb_fwd", "ring_spmm_fwd"]
+        "fused_window_mb_fwd", "ring_spmm_fwd", "ring_spmm_bwd"]
     for rec in line["kernels"]:
         assert keys <= set(rec)
         assert rec["max_abs_err"] == 0.0  # the CPU runs the plain version
@@ -251,13 +251,18 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert {"eval_fused", "eval_mb", "train_fused_mb",
             "flagship_train_fused_mb", "ring_eval", "ring_train"} <= paths
     # K13: the plain version on both sides, at both shapes; the ring paths
-    # agree with the unpartitioned ones on the regrouped data
+    # agree with the unpartitioned ones on the regrouped data, walking the
+    # data's tables (no sort in a call)
     for tag in ("final", "window"):
         assert res["k13"][tag]["max_abs_err"] == 0.0
         assert res["k13"][tag]["isolated_rows_zero"]
-    # RingSpMM's backward is autograd through the same plain ring
-    assert all(e["abs"] == 0.0 for e in res["k13"]["bwd_scaled_errs"].values())
+        assert res["k13"][tag]["bitwise_in_call"]
+        # K13's backward is ring_spmm_bwd_plain on the CPU, held to
+        # autograd through the plain ring by scaled_errs
+        bwd = res["k13"][f"bwd_{tag}"]
+        assert bwd["max_abs_err"] == 0.0 and len(bwd["scaled_errs"]) == 4
     assert max(res["ring_path"]["mrr_gaps"].values()) <= chip_smoke.MRR_TOL
+    assert res["ring_path"]["kernels"]["csr_builds"] == 0
     rt = res["ring_train"]
     assert max(rt["max_rel_gaps"].values()) <= chip_smoke.TRAIN_TOL
     assert len(rt["ring"]["losses"]) == 2
