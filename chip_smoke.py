@@ -9,17 +9,24 @@ Phases, each printing one line with its elapsed seconds as it ends:
 2. build   - one nvcc call for every kernel source, with the register and
              spill summary of each kernel;
 3. setup   - a synthetic dataset at icews14's sizes (7128 entities, 230
-             relations, 365 times, 200 train facts a time) and the
-             grid/icews14/config_grrgcn.json model with seeded random weights;
-4. k1      - kernel K1 (spmm_fwd) against its plain PyTorch version at the
-             final-snapshot shape and at the eval conv1-table shape;
+             relations, 365 times, 200 train facts a time) with K1's static
+             CSR tables of every train snapshot (ring_layout; their size)
+             and the grid/icews14/config_grrgcn.json model with seeded
+             random weights;
+4. k1      - kernel K1 (spmm_fwd) at the final-snapshot shape, the eval
+             conv1-table shape and the training shape (the 50% edge
+             subsample): over the data's tables (one launch, no sort in the
+             call, no synchronizing call) and sorting the call's edges (the
+             in-call route), timed side by side and equal bit for bit, both
+             within 1e-5 of its plain PyTorch version;
 5. k2      - kernel K2 (fused_window_fwd) against its plain version on one
              eval batch of windows, for both conv1_in values;
 6. path    - Trainer.run_eval over the whole valid split, with the kernels
              and then with their plain versions; the launch counts of the
-             kernel run, the MRR of both, and the share of identical ranks;
-7. k1b     - kernel K1b (spmm_bwd) against its plain version at the
-             training final-step shape (the 50% edge subsample);
+             kernel run (no K1 call sorting its edges), the MRR of both,
+             and the share of identical ranks;
+7. k1b     - kernel K1b (spmm_bwd) at the training final-step shape (the
+             50% edge subsample) and under the full mask, as k1 does K1f;
 8. k2b     - kernel K2f in train mode (dropout masks) and K2b
              (fused_window_bwd) against autograd through the plain forward
              on one training batch of windows: all 12 cotangents;
@@ -38,8 +45,9 @@ Phases, each printing one line with its elapsed seconds as it ends:
              from seeded weights and draws on three paths: the kernels with
              fused_final on (the main path), the kernels with fused_final
              off (K1f/K1b for the final step), and the plain versions; the
-             three loss trajectories, the launch counts of each path, then
-             one run_eval of the trained weights.
+             three loss trajectories, the launch counts of each path (no K1
+             call sorting its edges), then one run_eval of the trained
+             weights.
 
 Then the flagship, BiGRRGCN --impute (grid/icews14/config_bigrrgcn.json with
 impute on, PostBiDynamicRGCNModel), on the same data:
@@ -57,7 +65,8 @@ impute on, PostBiDynamicRGCNModel), on the same data:
                 and the final step and loss forward and backward, fused
                 (K6-K10, K4) and unfused (K1 one element at a time);
 18. flagship_path  - the flagship's valid sweep with the kernels and with
-                     their plain versions (MRR within 1e-4);
+                     their plain versions (MRR within 1e-4; no K1 call
+                     sorting its edges);
 19. flagship_train - 8 optimizer steps of the flagship on the three paths,
                      as `train`, with the launch counts of the new kernels.
 
@@ -84,8 +93,8 @@ Then the model-parallel path, GRRGCN with edge_partition="ring_pallas" over
 RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
 
 23. ring_setup - the dataset regrouped for 4 ranks (ring_layout: the edges
-                 grouped by destination owner, and K13's static CSR tables
-                 of every train snapshot) and the model on it with the
+                 grouped by destination owner, K13's and K1's static CSR
+                 tables of every train snapshot) and the model on it with the
                  same seeded weights; prints the ranks' placement and the
                  number of cards;
 24. k13        - kernel K13 (ring_spmm_fwd) at the final-snapshot shape
@@ -101,8 +110,9 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  and against ring_spmm_bwd_plain, with their times;
 25. ring_path  - the valid sweep under the partition with the kernels and
                  with their plain versions, and without a partition on the
-                 same data: MRR within 1e-4; K13's launches, no sort in a
-                 call, and none of K1, K2, K3-K5, K11 or K12;
+                 same data (K1 over the data's K1 tables of that layout):
+                 MRR within 1e-4; K13's launches, no sort in a call, and
+                 none of K1, K2, K3-K5, K11 or K12 under the partition;
 26. ring_train - 8 optimizer steps under the partition (kernels, plain)
                  and without it (fused_final off): losses and parameters
                  held together as in `train`; K13's forward and backward
@@ -117,6 +127,7 @@ TF32 is off for every product, on the kernels' side and the plain side.
 
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import json
 import os
@@ -128,6 +139,10 @@ from contextlib import contextmanager
 
 WATCHDOG_S = 300
 TOL = 1e-4           # kernel vs plain, max abs error, f32 at full width
+# K1 (the relational SpMM) vs plain, max abs error: at full width its
+# outputs and cotangents lie below 1 (xavier-sized h and w, norm^2 <= 1)
+# and each row sums a few edges
+K1_TOL = 1e-5
 LOSS_TOL = 1e-4      # the final step's per-element losses, relative
 MRR_TOL = 1e-4       # whole valid sweep, kernels vs plain path
 # gradients summed over many rows (weight cotangents over B*L1*A = 71,680
@@ -233,7 +248,7 @@ def phase_setup(device, num_ents=7128, num_rels=230, num_times=365,
     import torch
 
     from temp_tpu_torch.config import TKGConfig
-    from temp_tpu_torch.data.snapshots import make_synthetic
+    from temp_tpu_torch.data.snapshots import make_synthetic, ring_layout
     from temp_tpu_torch.models.registry import get_model
     from temp_tpu_torch.train.loop import Trainer
 
@@ -241,9 +256,11 @@ def phase_setup(device, num_ents=7128, num_rels=230, num_times=365,
     cfg = TKGConfig.from_json_file(
         os.path.join(root, "grid", "icews14", config), fused_window=True,
         **cfg_over)
-    data = make_synthetic(num_ents=num_ents, num_rels=num_rels,
-                          num_times=num_times, edges_per_time=edges_per_time,
-                          seed=seed, edge_pad_multiple=cfg.edge_pad_multiple)
+    # with K1's static tables of every train snapshot (TKGData.spmm)
+    data = ring_layout(cfg, make_synthetic(
+        num_ents=num_ents, num_rels=num_rels, num_times=num_times,
+        edges_per_time=edges_per_time, seed=seed,
+        edge_pad_multiple=cfg.edge_pad_multiple))
     model = get_model(cfg, data, device=device)
     params = model.init_params(cfg.seed)
     trainer = Trainer(cfg, model, data)
@@ -257,7 +274,12 @@ def phase_setup(device, num_ents=7128, num_rels=230, num_times=365,
             "A": int(data.act_idx.shape[1]),
             "E": int(data.train.src.shape[1]),
             "L1": cfg.train_seq_len - 1, "B": cfg.eval_batch,
-            "d": cfg.embed_size}
+            "d": cfg.embed_size,
+            "k1_tables_mb": {sp: sum(getattr(tab, f.name).nbytes
+                                     for f in dataclasses.fields(tab)
+                                     if f.name != "rows") / 2**20
+                             for sp, tab in (("glob", data.spmm.glob),
+                                             ("comp", data.spmm.comp))}}
 
 
 def _spmm_bound(h, src, rel, emask, n_rows):
@@ -272,43 +294,116 @@ def _spmm_bound(h, src, rel, emask, n_rows):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def phase_k1(ctx) -> dict:
+def _k1_cases(ctx):
+    """K1's shapes on the main path, each with the data's tables and the
+    time positions that the path's call names: (tag, (h, src, dst, rel,
+    emask, w), tables). "final": all N entity rows and one snapshot's
+    edges (eval's final step); "table": the T snapshots' active rows side
+    by side (eval's conv1 table, compact slots); "train": the final step
+    on the 50% edge subsample (unfused training)."""
     import torch
 
-    from temp_tpu_torch.ops.spmm import spmm_fwd, spmm_fwd_plain
+    from temp_tpu_torch.ops.sampling import subsample_edges
 
-    dev, p, tr = ctx["device"], ctx["params"], ctx["trainer"]
-    data = tr.data
+    dev, p, data = ctx["device"], ctx["params"], ctx["trainer"].data
+    tr, tab = data.train, data.spmm
     w = p["encoder"]["layer1"]["weight"]
     t = data.num_times // 2
-    out = {}
-    # the final-snapshot shape: all N entity rows, one snapshot's edges
-    final = (p["ent_embeds"], data.train.src[t], data.train.dst[t],
-             data.train.rel[t], data.train.emask[t], w)
-    # the conv1-table shape: all T snapshots' active rows side by side
-    A = ctx["A"]
-    offs = (torch.arange(data.num_times, device=dev) * A)[:, None]
+    tp = torch.tensor([t], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sub = subsample_edges(gen, tr.emask[t], 0.5)
     h_tab = p["ent_embeds"][data.act_idx.long().clamp(max=ctx["N"] - 1)]
-    table = (h_tab.reshape(-1, ctx["d"]).contiguous(),
-             (data.train_src_loc + offs).reshape(-1),
-             (data.train_dst_loc + offs).reshape(-1),
-             data.train.rel.reshape(-1), data.train.emask.reshape(-1), w)
-    for tag, args in (("final", final), ("table", table)):
-        k = spmm_fwd(*args)
-        ref = spmm_fwd_plain(*args)
+    edges = (tr.src[t], tr.dst[t], tr.rel[t])
+    return (("final", (p["ent_embeds"], *edges, tr.emask[t], w),
+             (tab.glob, tp)),
+            ("table", (h_tab.reshape(-1, ctx["d"]).contiguous(),
+                       data.train_src_loc, data.train_dst_loc, tr.rel,
+                       tr.emask, w),
+             (tab.comp, torch.arange(data.num_times, device=dev))),
+            ("train", (p["ent_embeds"], *edges, sub, w), (tab.glob, tp)))
+
+
+def _flat(args):
+    """A call's (h, src, dst, rel, emask, w) with its graphs flattened
+    into one (the plain versions' and the yardsticks' form)."""
+    from temp_tpu_torch.ops.spmm import flat_graph
+
+    h, src, dst, rel, em, w = args
+    if src.dim() == 1:
+        return args
+    s, t = flat_graph(src, dst, h.shape[0] // src.shape[0])
+    return h, s, t, rel.reshape(-1), em.reshape(-1), w
+
+
+@contextmanager
+def _no_sync():
+    """Raise on any synchronizing CUDA call PyTorch makes inside."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _one_launch(fn, counter, what: str, device):
+    """Run fn once; on the card it must launch `counter`'s kernel once,
+    sort nothing in the call and make no synchronizing call."""
+    from temp_tpu_torch.ops.spmm import spmm_fwd
+
+    if device.type != "cuda":
+        return fn()
+    launches, builds = counter.launches, spmm_fwd.csr_builds
+    with _no_sync():
+        out = fn()
+    if counter.launches != launches + 1 or spmm_fwd.csr_builds != builds:
+        raise AssertionError(f"{what}: {counter.launches - launches} "
+                             f"launches, {spmm_fwd.csr_builds - builds} "
+                             f"sorts in the call")
+    return out
+
+
+def phase_k1(ctx) -> dict:
+    """K1f at the main path's shapes (``_k1_cases``) over the data's tables
+    (the path's route: one launch, no sort, no host sync) and over tables
+    sorted in the call (the in-call route): bit for bit equal, both within
+    K1_TOL of the plain version; their times beside the plain version's,
+    one ``index_add_`` of the same messages and the bound."""
+    import torch
+
+    from temp_tpu_torch.ops.spmm import _spmm_fwd, spmm_fwd, spmm_fwd_plain
+
+    dev = ctx["device"]
+    out = {}
+    for tag, args, tables in _k1_cases(ctx):
+        k, kn2, _ = _one_launch(lambda: _spmm_fwd(*args, tables=tables),
+                                spmm_fwd, f"K1 {tag}", dev)
+        builds = spmm_fwd.csr_builds
+        c, cn2, _ = _spmm_fwd(*args)
+        if dev.type == "cuda" and spmm_fwd.csr_builds != builds + 1:
+            raise AssertionError(f"K1 {tag}: the in-call route sorted "
+                                 f"{spmm_fwd.csr_builds - builds} times")
+        flat = _flat(args)
+        ref = spmm_fwd_plain(*flat)
         err = max_err(k, ref)
-        if not err <= TOL:
-            raise AssertionError(f"K1 {tag}: max abs err {err} > {TOL}")
-        h, src, dst, rel, em, _ = args
+        bitwise = bool(torch.equal(k, c) and torch.equal(kn2, cn2))
+        if not (err <= K1_TOL and bitwise):
+            raise AssertionError(f"K1 {tag}: max abs err {err} (> {K1_TOL}?)"
+                                 f", table route bit-equal to the in-call "
+                                 f"route: {bitwise}")
+        h, src, dst, rel, em, w = flat
         msg = h[src.long()] * w[rel.long()] * em.to(h.dtype)[:, None]
         lib = torch.zeros_like(h)
         bound_ms, bound_by = _spmm_bound(h, src, rel, em, h.shape[0])
         out[tag] = {
-            "shape": f"N={h.shape[0]} E={src.numel()} R={w.shape[0]} "
-                     f"d={h.shape[1]}",
-            "max_abs_err": err,
-            "ms": time_ms(lambda: spmm_fwd(*args), dev),
-            "plain_ms": time_ms(lambda: spmm_fwd_plain(*args), dev),
+            "shape": f"N={h.shape[0]} B={tables[1].numel()} "
+                     f"E={src.numel()} kept={int(em.sum())} "
+                     f"R={w.shape[0]} d={h.shape[1]}",
+            "max_abs_err": err, "bitwise": bitwise,
+            "ms": time_ms(lambda: spmm_fwd(*args, tables=tables), dev),
+            "in_call_ms": time_ms(lambda: spmm_fwd(*args), dev),
+            "plain_ms": time_ms(lambda: spmm_fwd_plain(*flat), dev),
             "library_ms": time_ms(
                 lambda: lib.zero_().index_add_(0, dst.long(), msg), dev),
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -413,12 +508,14 @@ def _counters():
 
 
 def _reset_counts() -> None:
-    """Every launch counter, and K13's count of in-call sorts, to 0."""
+    """Every launch counter, and K1's and K13's counts of in-call sorts, to
+    0."""
+    from temp_tpu_torch.ops.spmm import spmm_fwd
     from temp_tpu_torch.parallel.ring_spmm import ring_spmm_fwd
 
     for fn in _counters():
         fn.launches = 0
-    ring_spmm_fwd.csr_builds = 0
+    ring_spmm_fwd.csr_builds = spmm_fwd.csr_builds = 0
 
 
 def _csr_builds() -> int:
@@ -427,6 +524,14 @@ def _csr_builds() -> int:
     from temp_tpu_torch.parallel.ring_spmm import ring_spmm_fwd
 
     return ring_spmm_fwd.csr_builds
+
+
+def _k1_csr_builds() -> int:
+    """The tables K1 sorted in a call since the last reset (0 on a path
+    whose calls all name the data's tables)."""
+    from temp_tpu_torch.ops.spmm import spmm_fwd
+
+    return spmm_fwd.csr_builds
 
 
 def _counts() -> dict:
@@ -458,6 +563,7 @@ def _sweep(ctx, c):
     m["queries_per_s"] = m["n"] / wall
     m["launches"] = _counts()
     m["csr_builds"] = _csr_builds()
+    m["k1_csr_builds"] = _k1_csr_builds()
     return m, ranks, mask
 
 
@@ -490,6 +596,10 @@ def phase_path(ctx, **over) -> dict:
                                         if cfg.fused_eval else [])
     if dev.type == "cuda" and not all(k["launches"][n] > 0 for n in want):
         raise AssertionError(f"main path missed a kernel of {want}: {k}")
+    if dev.type == "cuda" and k["k1_csr_builds"]:
+        raise AssertionError(f"K1 sorted {k['k1_csr_builds']} calls' edges "
+                             f"on the path (every call names the data's "
+                             f"tables)")
     if any(pl["launches"].values()):
         raise AssertionError(f"kernels launched on the plain versions' path:"
                              f" {pl['launches']}")
@@ -522,55 +632,68 @@ def scaled_errs(pairs, tol: float = SCALED_TOL) -> dict:
 
 
 def phase_k1b(ctx) -> dict:
-    """K1b against its plain version at the training final-step shape: all
-    N rows, one snapshot's padded train edges with the 50% subsample."""
+    """K1b at the training final-step shape (all N rows, one snapshot's
+    padded train edges with the 50% subsample) and under the full mask:
+    over the data's tables (one launch, no sort, no host sync) and over
+    tables sorted in the call, bit for bit equal, both within K1_TOL of
+    the plain version; their times beside the plain version's, two
+    ``index_add_`` calls on the same messages and the bound."""
     import torch
 
-    from temp_tpu_torch.ops.sampling import subsample_edges
     from temp_tpu_torch.ops.spmm import _spmm_fwd, spmm_bwd, spmm_bwd_plain
 
-    dev, p, data = ctx["device"], ctx["params"], ctx["trainer"].data
-    t = data.num_times // 2
-    gen = torch.Generator(device=dev).manual_seed(0)
-    em = subsample_edges(gen, data.train.emask[t], 0.5)
-    h, w = p["ent_embeds"], p["encoder"]["layer1"]["weight"]
-    src, dst, rel = data.train.src[t], data.train.dst[t], data.train.rel[t]
-    _, n2 = _spmm_fwd(h, src, dst, rel, em, w)
-    g = torch.randn(h.shape, generator=gen, device=dev)
-    args = (g, n2, h, src, dst, rel, em, w)
-    dh, dw = spmm_bwd(*args)
-    rh, rw = spmm_bwd_plain(*args)
-    err_h, err_w = max_err(dh, rh), max_err(dw, rw)
-    if not (err_h <= TOL and err_w <= TOL):
-        raise AssertionError(f"K1b: max abs err dh {err_h}, dw {err_w} > {TOL}")
-    # the library yardstick: the same backward as two index_add_ calls on
-    # the per-edge messages (computed outside the timing)
-    emf = em.to(torch.float32)[:, None]
-    dmsg = (g * n2[:, None])[dst.long()] * emf
-    mh, mw = dmsg * w[rel.long()], dmsg * h[src.long()]
-    lib_h, lib_w = torch.zeros_like(h), torch.zeros_like(w)
+    dev = ctx["device"]
+    cases = {tag: (args, tables) for tag, args, tables in _k1_cases(ctx)}
+    out = {}
+    for tag in ("train", "final"):
+        args, tables = cases[tag]
+        h, src, dst, rel, em, w = args
+        _, n2, _ = _spmm_fwd(*args, tables=tables)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        g = torch.randn(h.shape, generator=gen, device=dev)
+        bargs = (g, n2, h, src, dst, rel, em, w)
+        dh, dw = _one_launch(lambda: spmm_bwd(*bargs, tables=tables),
+                             spmm_bwd, f"K1b {tag}", dev)
+        ch, cw = spmm_bwd(*bargs)
+        rh, rw = spmm_bwd_plain(*bargs)
+        err_h, err_w = max_err(dh, rh), max_err(dw, rw)
+        bitwise = bool(torch.equal(dh, ch) and torch.equal(dw, cw))
+        if not (err_h <= K1_TOL and err_w <= K1_TOL and bitwise):
+            raise AssertionError(f"K1b {tag}: max abs err dh {err_h}, dw "
+                                 f"{err_w} (> {K1_TOL}?), table route "
+                                 f"bit-equal to the in-call route: "
+                                 f"{bitwise}")
+        # the library yardstick: the same backward as two index_add_ calls
+        # on the per-edge messages (computed outside the timing)
+        emf = em.to(torch.float32)[:, None]
+        dmsg = (g * n2[:, None])[dst.long()] * emf
+        mh, mw = dmsg * w[rel.long()], dmsg * h[src.long()]
+        lib_h, lib_w = torch.zeros_like(h), torch.zeros_like(w)
 
-    def library():
-        lib_h.zero_().index_add_(0, src.long(), mh)
-        lib_w.zero_().index_add_(0, rel.long(), mw)
+        def library():
+            lib_h.zero_().index_add_(0, src.long(), mh)
+            lib_w.zero_().index_add_(0, rel.long(), mw)
 
-    m = em.bool()
-    d, n_kept = h.shape[1], int(m.sum())
-    rows = (int(dst[m].unique().numel()) + int(src[m].unique().numel())
-            + int(rel[m].unique().numel()))
-    nbytes = (rows * d * 4 + src.numel() * 16 + h.shape[0] * 4
-              + (h.shape[0] + w.shape[0]) * d * 4)
-    flops = 6 * n_kept * d
-    t_b, t_f = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
-    out = {"shape": f"N={h.shape[0]} E={src.numel()} kept={n_kept} "
-                    f"R={w.shape[0]} d={d}",
-           "max_abs_err": max(err_h, err_w), "err_dh": err_h, "err_dw": err_w,
-           "ms": time_ms(lambda: spmm_bwd(*args), dev),
-           "plain_ms": time_ms(lambda: spmm_bwd_plain(*args), dev),
-           "library_ms": time_ms(library, dev),
-           "bound_ms": max(t_b, t_f) * 1e3,
-           "bound_by": "bytes" if t_b >= t_f else "operations"}
-    print(f"  K1b: {out}", flush=True)
+        m = em.bool()
+        d, n_kept = h.shape[1], int(m.sum())
+        rows = (int(dst[m].unique().numel()) + int(src[m].unique().numel())
+                + int(rel[m].unique().numel()))
+        nbytes = (rows * d * 4 + src.numel() * 16 + h.shape[0] * 4
+                  + (h.shape[0] + w.shape[0]) * d * 4)
+        flops = 6 * n_kept * d
+        t_b, t_f = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
+        out[tag] = {
+            "shape": f"N={h.shape[0]} E={src.numel()} kept={n_kept} "
+                     f"R={w.shape[0]} d={d}",
+            "max_abs_err": max(err_h, err_w), "err_dh": err_h,
+            "err_dw": err_w, "bitwise": bitwise,
+            "ms": time_ms(lambda: spmm_bwd(*bargs, tables=tables), dev),
+            "in_call_ms": time_ms(lambda: spmm_bwd(*bargs), dev),
+            "plain_ms": time_ms(lambda: spmm_bwd_plain(*bargs), dev),
+            "library_ms": time_ms(library, dev),
+            "bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations"}
+        print(f"  K1b {tag}: {out[tag]}", flush=True)
     return out
 
 
@@ -954,7 +1077,8 @@ def _train_path(ctx, c):
     losses = torch.stack(losses).cpu().tolist()
     wall = time.perf_counter() - t0
     res = {"losses": losses, "ms_per_step": wall * 1e3 / len(batches),
-           "launches": _counts(), "csr_builds": _csr_builds()}
+           "launches": _counts(), "csr_builds": _csr_builds(),
+           "k1_csr_builds": _k1_csr_builds()}
     finals = [t.detach().clone() for t in param_leaves(params)]
     return model, res, init, finals, tr, params
 
@@ -1006,6 +1130,11 @@ def phase_train(ctx, flagship: bool = False) -> dict:
         n = res[name]["launches"]
         if dev.type == "cuda" and not all(n[k] > 0 for k in kernels):
             raise AssertionError(f"train {name} missed a kernel: {n}")
+        if dev.type == "cuda" and res[name]["k1_csr_builds"]:
+            raise AssertionError(f"train {name}: K1 sorted "
+                                 f"{res[name]['k1_csr_builds']} calls' "
+                                 f"edges (every call names the data's "
+                                 f"tables)")
     for name in ("plain",) + (tuple(want) if dev.type == "cpu" else ()):
         if any(res[name]["launches"].values()):
             raise AssertionError(f"train {name}: kernels launched on the "
@@ -1695,8 +1824,9 @@ def phase_mb(ctx, fctx) -> dict:
 
 def phase_setup_ring(ctx) -> dict:
     """The smoke's dataset in the ring layout of RING_M ranks (ring_layout:
-    each rank's edge slice holds the edges into its row shard, and K13's
-    static tables of every train snapshot) and the GRRGCN model on it with
+    each rank's edge slice holds the edges into its row shard, with K13's
+    and K1's static tables of every train snapshot) and the GRRGCN model
+    on it with
     the same seeded weights, under edge_partition="ring_pallas"; every
     rank on the smoke's device (one card)."""
     from temp_tpu_torch.data.snapshots import ring_layout
@@ -1970,6 +2100,16 @@ def _ring_launches_ok(dev, run: dict, tag: str, train: bool) -> None:
         raise AssertionError(f"{tag}: another kernel launched: {launches}")
 
 
+def _walks_k1_tables(dev, run: dict, tag: str) -> None:
+    """The run without a partition on the regrouped data launched K1 over
+    the data's K1 tables of that layout, sorting nothing in a call."""
+    if dev.type == "cuda" and not (run["launches"]["spmm_fwd"] > 0
+                                   and run["k1_csr_builds"] == 0):
+        raise AssertionError(f"{tag} unpartitioned: K1 launched "
+                             f"{run['launches']['spmm_fwd']} times, sorted "
+                             f"{run['k1_csr_builds']} calls' edges")
+
+
 def phase_ring_path(rctx) -> dict:
     """The valid sweep with edge_partition="ring_pallas" over RING_M ranks,
     with the kernels and with their plain versions, and without a partition
@@ -1995,6 +2135,7 @@ def phase_ring_path(rctx) -> dict:
     if not all(g <= MRR_TOL for g in gaps.values()):
         raise AssertionError(f"ring path: MRR gaps {gaps} > {MRR_TOL}")
     _ring_launches_ok(rctx["device"], k, "ring eval", train=False)
+    _walks_k1_tables(rctx["device"], res["unpartitioned"], "ring eval")
     if any(res["plain"]["launches"].values()):
         raise AssertionError(f"ring path plain: kernels launched: "
                              f"{res['plain']['launches']}")
@@ -2035,6 +2176,7 @@ def phase_ring_train(rctx) -> dict:
     print(f"  ring train params: {res['params']}", flush=True)
     _ring_launches_ok(rctx["device"], res["ring"], "ring train",
                       train=True)
+    _walks_k1_tables(rctx["device"], res["unpartitioned"], "ring train")
     if any(res["plain"]["launches"].values()):
         raise AssertionError(f"ring train plain: kernels launched: "
                              f"{res['plain']['launches']}")
@@ -2109,7 +2251,8 @@ def kernels_line(res: dict) -> dict:
     for K1b, the flagship's fused training path for K6-K10, the fused eval
     sweep for K11, the fused training path with the batched window for
     K12, the ring_pallas training path for K13 and its backward)."""
-    measured = {"spmm_fwd": res["k1"]["final"], "spmm_bwd": res["k1b"],
+    measured = {"spmm_fwd": res["k1"]["final"],
+                "spmm_bwd": res["k1b"]["train"],
                 "fused_window_fwd": res["k2"]["conv1_in"],
                 "fused_window_bwd": res["k2b"]["bwd"],
                 "fused_final_fwd": res["k3"],
@@ -2144,6 +2287,16 @@ def kernels_line(res: dict) -> dict:
                 for d in ("fwd", "bwd")}
         if name == "fused_eval_ranks":
             r["unfused_ms"] = m["unfused_ms"]
+        if name in ("spmm_fwd", "spmm_bwd"):
+            # the table route (ms) beside the route that sorts in the call
+            r["in_call_ms"], r["bitwise"] = m["in_call_ms"], m["bitwise"]
+            other = (("table", "train") if name == "spmm_fwd"
+                     else ("final",))
+            phase_res = res["k1" if name == "spmm_fwd" else "k1b"]
+            for tag in other:
+                r[tag] = {k: phase_res[tag][k] for k in (
+                    "ms", "in_call_ms", "plain_ms", "library_ms",
+                    "bound_ms", "max_abs_err", "bitwise", "shape")}
         if name in ("ring_spmm_fwd", "ring_spmm_bwd"):
             part = "window" if name == "ring_spmm_fwd" else "bwd_window"
             r["window_step"] = {k: res["k13"][part][k] for k in (
@@ -2183,6 +2336,8 @@ def main() -> int:
     with phase("setup", {}) as s:
         ctx = phase_setup("cuda")
         s.update({k: ctx[k] for k in ("N", "T", "A", "E", "L1", "B", "d")})
+        for sp, mb in ctx["k1_tables_mb"].items():
+            s[f"k1_tables_mb_{sp}"] = mb
     with phase("k1", {}) as k1:
         k1.update(phase_k1(ctx))
     with phase("k2", {}) as k2:

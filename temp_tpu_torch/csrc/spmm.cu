@@ -1,168 +1,369 @@
 // Relational SpMM for diagonal relation weights (n_bases == d): forward
-// (K1f) and backward (K1b).
+// (K1f) and backward (K1b), one launch a call over static CSR tables of
+// the snapshots the call names.
 //
-// K1f replaces the TPU kernel temp_tpu/ops/pallas_spmm.py:_fwd_kernel
-// (reached through rel_spmm_pallas). It computes, for every row v,
+// A call takes B graphs side by side: graph b has rows [b * n, (b + 1) * n)
+// of h, out, g and dh, its edges are those of snapshot t_b of the tables,
+// and mask[b, e] says which of them the call keeps. K1f replaces the TPU
+// kernel temp_tpu/ops/pallas_spmm.py:_fwd_kernel (reached through
+// rel_spmm_pallas). For every row v of graph b it computes
 //
-//     out[v] = norm[v]^2 * sum_{e : dst_e = v} h[src_e] * w[rel_e] * em_e
-//     norm[v] = 1 / deg[v]  (0 where deg[v] == 0),  deg[v] = sum em_e
+//     out[b, v] = norm[b, v]^2 * sum_{e in fwd(t_b, v), mask[b, e]}
+//                                   h[b, src_e] * w[rel_e]
+//     norm = 1 / deg  (0 where deg == 0),  deg[b, v] = the count of those e
 //
-// which is the reference's double degree normalization, and optionally
-// writes norm[v]^2 for the backward pass.
+// (the reference's double degree normalization) and writes norm^2 for the
+// backward. K1b replaces temp_tpu/ops/pallas_spmm.py:_bwd_kernel (with
+// _spmm_bwd). With g the cotangent of out and dmsg_e = g[b, dst_e] *
+// norm[b, dst_e]^2:
 //
-// K1b replaces temp_tpu/ops/pallas_spmm.py:_bwd_kernel with _spmm_bwd. With
-// g the cotangent of out and dmsg_e = g[dst_e] * norm[dst_e]^2 * em_e:
+//     dh[b, u] = sum_{e in src(t_b, u), mask[b, e]} dmsg_e * w[rel_e]
+//     dw[r]    = sum_{b = 0 .. B - 1} sum_{e in rel(t_b, r), mask[b, e]}
+//                    dmsg_e * h[b, src_e]
 //
-//     dh[u] = sum_{e : src_e = u} dmsg_e * w[rel_e]
-//     dw[r] = sum_{e : rel_e = r} dmsg_e * h[src_e]
+// The tables (RingTables with m = 1, temp_tpu_torch/parallel/
+// edge_partition.py) hold each snapshot's edges sorted by destination
+// (edges: src, rel, slot), by source (dst, rel, slot) and by relation
+// (src, dst, slot), each ordering with its row pointer, and only the
+// slots of the static mask. They are the data's, sorted once with the
+// dataset (temp_tpu_torch/data/snapshots.py ring_layout), or, for a call
+// whose graphs are no train snapshots, the call's own edges sorted by the
+// wrapper. A warp reads its graph's time position t_b (a device assert
+// stops a position outside the tables' [0, T)), finds its row in that
+// snapshot's block and reads the call's mask per edge (always a subset of
+// the static mask). So a call makes no sort, no degree pass and no host
+// sync: one launch and two outputs.
 //
-// What bounds both on an H100: memory. Each edge reads one or two gathered
-// rows and does 3 flops per column, so the work is the gathered rows plus
-// one write of each output, far below the card's 67 TFLOP/s of f32.
+// What bounds both on an H100: memory. Each kept edge gathers two rows of
+// d floats (h or g, and w or h) and does 3 flops a column, and each output
+// row is written once; there is no product or tile that tensor cores,
+// wgmma or TMA could take. At the main path's sizes h ([7128, 128] f32,
+// 3.6 MB) and w stay in the 50 MB L2, so the rows come from there.
 //
-// What the design does about that: the TPU kernels turned gathers and
-// scatters into one-hot matrix products because the MXU was their fast
-// path. Here the wrapper sorts the edges once per grouping (a CSR row
-// pointer: by destination for K1f; by source and by relation for K1b), and
-// one warp owns one output row: the lanes read each gathered row as
-// coalesced 128-byte lines, sum into registers and write the row once. No
-// atomics, so every result is deterministic and each sum runs in the edge
-// order within its row. K1b is one launch: warps below n_rows give dh rows,
-// the rest give dw rows.
+// What the design does about that: one warp owns one output row (a
+// (graph, row) of out or dh, a relation of dw), sums in registers and
+// writes the row once. At d = 128 each lane reads one float4 of a gathered
+// row, so a row is one 512-byte coalesced read (d not a multiple of 4 or a
+// pointer not 16-byte aligned: one float a lane). The warp loads the index
+// triples and mask bytes of 32 edges at once, one edge a lane, keeps the
+// kept ones as a ballot, and gathers the rows of up to kAhead kept edges
+// before it sums them, so several row loads are in flight a warp on long
+// rows (K1b's relations, the conv1 table). Each row sums in its edge (slot)
+// order, with no atomics and no block waiting on another: runs repeat bit
+// for bit, and the tables of the data and those sorted in the call give
+// each row the same edges in the same order, so the two routes agree bit
+// for bit. K1b is one launch: warps below B * n give dh rows, the rest dw
+// rows, each relation walking the graphs in order b = 0 .. B - 1.
 
 #include <cuda_runtime.h>
+
+#include <cassert>
+#include <tuple>
 
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kMaxChunks = 8;       // d <= 256: 8 columns per lane
 constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxD = 256;   // the wrapper refuses d > 256
+constexpr int kAhead = 2;    // kept edges whose rows a warp loads at once
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void spmm_fwd_kernel(const int* __restrict__ rowptr,
-                                const int* __restrict__ src,
-                                const int* __restrict__ rel,
-                                const float* __restrict__ em,
+// One snapshot's block of a table for graph b: its row pointer (n_keys + 1
+// entries), its edges (cap x 3 ints) and graph b's row of the mask.
+struct Block {
+  const int* ptr;
+  const int* edge;
+  const unsigned char* mask;
+};
+
+__device__ __forceinline__ Block table_block(const int* ptr, const int* edge,
+                                             const long long* tpos,
+                                             int n_times,
+                                             const unsigned char* mask,
+                                             int b, int n_keys, int cap) {
+  const long long tp = tpos[b];
+  assert(tp >= 0 && tp < n_times);  // a time position outside the tables
+  return {ptr + tp * (n_keys + 1), edge + tp * cap * 3LL,
+          mask + (long long)b * cap};
+}
+
+// V floats a lane, at columns (c * 32 + lane) * V .. + V - 1 for chunk c.
+template <int V>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p,
+                                         float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* __restrict__ p,
+                                          const float (&x)[V], float scale) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) =
+        make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
+  } else {
+    p[0] = x[0] * scale;
+  }
+}
+
+// A lane holds C chunks of V columns of a row: C * 32 * V >= d. The
+// launchers take the fewest chunks that cover d, since the registers of
+// the rows in flight bound how many warps an SM holds.
+
+// Adds to acc, in edge order, the kept edges of [e0, e1) of a block: edge
+// e brings ints (x0, x1, slot) and is kept where mask[slot] != 0; its term
+// is a[col] * b[col] for kScaled false (K1f: a = A[x_ia], b = Bm[x_ib]) and
+// a[col] * s * b[col] with s = S[x_ia] for kScaled true (K1b). Returns the
+// number of kept edges (K1f's degree).
+template <int V, int C, bool kScaled>
+__device__ __forceinline__ int walk(const int* __restrict__ edge,
+                                    const unsigned char* __restrict__ mask,
+                                    int e0, int e1, int lane, int d,
+                                    const float* __restrict__ A, int ia,
+                                    const float* __restrict__ S,
+                                    const float* __restrict__ Bm, int ib,
+                                    float (&acc)[C][V]) {
+  int n_kept = 0;
+  for (int base = e0; base < e1; base += kWarp) {
+    const int e = base + lane;
+    int xa = 0, xb = 0;
+    bool keep = false;
+    if (e < e1) {
+      const int* x = edge + 3LL * e;
+      xa = x[ia];
+      xb = x[ib];
+      keep = mask[x[2]] != 0;
+    }
+    unsigned kept = __ballot_sync(kFull, keep);  // the same in every lane
+    n_kept += __popc(kept);
+    while (kept != 0u) {
+      int qa[kAhead], qb[kAhead];
+      int k = 0;
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) {
+        const int j = kept != 0u ? __ffs(kept) - 1 : 0;
+        qa[q] = __shfl_sync(kFull, xa, j);
+        qb[q] = __shfl_sync(kFull, xb, j);
+        if (kept != 0u) {
+          ++k;
+          kept &= kept - 1;
+        }
+      }
+      // the rows of k kept edges in flight, then summed in edge order
+      float av[kAhead][C][V], bv[kAhead][C][V], sv[kAhead];
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) {
+        if (q < k) {
+          if constexpr (kScaled) sv[q] = __ldg(S + qa[q]);
+          const float* ra = A + (long long)qa[q] * d;
+          const float* rb = Bm + (long long)qb[q] * d;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int col = (c * kWarp + lane) * V;
+            if (col < d) {
+              load_vec<V>(ra + col, av[q][c]);
+              load_vec<V>(rb + col, bv[q][c]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) {
+        if (q < k) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            if ((c * kWarp + lane) * V < d) {
+#pragma unroll
+              for (int i = 0; i < V; ++i) {
+                if constexpr (kScaled)
+                  acc[c][i] += av[q][c][i] * sv[q] * bv[q][c][i];
+                else
+                  acc[c][i] += __fmul_rn(av[q][c][i], bv[q][c][i]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  return n_kept;
+}
+
+template <int V, int C>
+__device__ __forceinline__ void store_row(float* __restrict__ o,
+                                          const float (&acc)[C][V], int lane,
+                                          int d, float scale) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int col = (c * kWarp + lane) * V;
+    if (col < d) store_vec<V>(o + col, acc[c], scale);
+  }
+}
+
+// One warp a (graph, row): the table by destination.
+template <int V, int C>
+__global__ void spmm_fwd_kernel(const int* __restrict__ ptr,
+                                const int* __restrict__ edge,
+                                const long long* __restrict__ tpos,
+                                int n_times,
+                                const unsigned char* __restrict__ mask,
                                 const float* __restrict__ h,
                                 const float* __restrict__ w,
                                 float* __restrict__ out,
-                                float* __restrict__ n2_out,  // may be null
-                                int n_rows, int d) {
+                                float* __restrict__ n2_out, int B, int n,
+                                int rows, int cap, int d) {
   const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= n_rows) return;
-  float acc[kMaxChunks];
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j) acc[j] = 0.f;
-  float deg = 0.f;
-  const int e0 = rowptr[row], e1 = rowptr[row + 1];
-  for (int e = e0; e < e1; ++e) {
-    const float m = em[e];
-    deg += m;
-    const float* hs = h + (long long)src[e] * d;
-    const float* wr = w + (long long)rel[e] * d;
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      const int c = lane + j * kWarp;
-      if (c < d) acc[j] += hs[c] * wr[c] * m;
-    }
-  }
-  const float norm = deg > 0.f ? 1.f / deg : 0.f;
+  const long long warp =
+      (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (warp >= (long long)B * n) return;
+  const int b = static_cast<int>(warp / n);
+  const int v = static_cast<int>(warp % n);
+  const Block t = table_block(ptr, edge, tpos, n_times, mask, b, rows, cap);
+  float acc[C][V] = {};
+  const int deg = walk<V, C, false>(t.edge, t.mask, t.ptr[v], t.ptr[v + 1],
+                                 lane, d, h + (long long)b * n * d, 0,
+                                 nullptr, w, 1, acc);
+  const float fdeg = static_cast<float>(deg);
+  const float norm = fdeg > 0.f ? 1.f / fdeg : 0.f;
   const float n2 = norm * norm;
-  float* o = out + (long long)row * d;
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j) {
-    const int c = lane + j * kWarp;
-    if (c < d) o[c] = acc[j] * n2;
-  }
-  if (n2_out != nullptr && lane == 0) n2_out[row] = n2;
+  store_row<V, C>(out + warp * d, acc, lane, d, n2);
+  if (lane == 0) n2_out[warp] = n2;
 }
 
-// One warp per output row. Rows [0, n_rows) are dh over the CSR by source
-// (each edge brings its dst, rel, em); rows [n_rows, n_rows + n_rels) are
-// dw over the CSR by relation (each edge brings its src, dst, em).
+// Warps [0, B * n): dh of a (graph, row) over the table by source; warps
+// [B * n, B * n + n_rels): dw of a relation over the tables by relation of
+// the B graphs in order.
+template <int V, int C>
 __global__ void spmm_bwd_kernel(const int* __restrict__ s_ptr,
-                                const int* __restrict__ s_dst,
-                                const int* __restrict__ s_rel,
-                                const float* __restrict__ s_em,
+                                const int* __restrict__ s_edge,
                                 const int* __restrict__ r_ptr,
-                                const int* __restrict__ r_src,
-                                const int* __restrict__ r_dst,
-                                const float* __restrict__ r_em,
+                                const int* __restrict__ r_edge,
+                                const long long* __restrict__ tpos,
+                                int n_times,
+                                const unsigned char* __restrict__ mask,
                                 const float* __restrict__ g,
                                 const float* __restrict__ n2,
                                 const float* __restrict__ h,
                                 const float* __restrict__ w,
                                 float* __restrict__ dh,
-                                float* __restrict__ dw,
-                                int n_rows, int n_rels, int d) {
+                                float* __restrict__ dw, int B, int n,
+                                int rows, int cap, int n_rels, int d) {
   const int lane = threadIdx.x % kWarp;
-  const int warp = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (warp >= n_rows + n_rels) return;
-  const bool by_src = warp < n_rows;
-  const int row = by_src ? warp : warp - n_rows;
-  const int* ptr = by_src ? s_ptr : r_ptr;
-  float acc[kMaxChunks];
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j) acc[j] = 0.f;
-  const int e1 = ptr[row + 1];
-  for (int e = ptr[row]; e < e1; ++e) {
-    const int t = by_src ? s_dst[e] : r_dst[e];
-    const float s = n2[t] * (by_src ? s_em[e] : r_em[e]);
-    const float* gt = g + (long long)t * d;
-    // the other factor: w[rel_e] for dh, h[src_e] for dw
-    const float* f = by_src ? w + (long long)s_rel[e] * d
-                            : h + (long long)r_src[e] * d;
-#pragma unroll
-    for (int j = 0; j < kMaxChunks; ++j) {
-      const int c = lane + j * kWarp;
-      if (c < d) acc[j] += gt[c] * s * f[c];
+  const long long warp =
+      (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const long long n_dh = (long long)B * n;
+  if (warp >= n_dh + n_rels) return;
+  float acc[C][V] = {};
+  if (warp < n_dh) {
+    const int b = static_cast<int>(warp / n);
+    const int u = static_cast<int>(warp % n);
+    const Block t =
+        table_block(s_ptr, s_edge, tpos, n_times, mask, b, rows, cap);
+    const long long off = (long long)b * n;
+    // edge (dst, rel, slot): g[dst] * n2[dst] * w[rel]
+    walk<V, C, true>(t.edge, t.mask, t.ptr[u], t.ptr[u + 1], lane, d,
+                     g + off * d, 0, n2 + off, w, 1, acc);
+    store_row<V, C>(dh + warp * d, acc, lane, d, 1.f);
+  } else {
+    const int r = static_cast<int>(warp - n_dh);
+    for (int b = 0; b < B; ++b) {
+      const Block t =
+          table_block(r_ptr, r_edge, tpos, n_times, mask, b, n_rels, cap);
+      const long long off = (long long)b * n;
+      // edge (src, dst, slot): g[dst] * n2[dst] * h[src]
+      walk<V, C, true>(t.edge, t.mask, t.ptr[r], t.ptr[r + 1], lane, d,
+                       g + off * d, 1, n2 + off, h + off * d, 0, acc);
     }
+    store_row<V, C>(dw + (long long)r * d, acc, lane, d, 1.f);
   }
-  float* o = (by_src ? dh : dw) + (long long)row * d;
-#pragma unroll
-  for (int j = 0; j < kMaxChunks; ++j) {
-    const int c = lane + j * kWarp;
-    if (c < d) o[c] = acc[j];
-  }
+}
+
+int blocks_for(long long warps) {
+  return static_cast<int>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+constexpr int kThreads = kWarpsPerBlock * kWarp;
+
+template <int V, int C>
+void fwd(cudaStream_t s, long long warps, const int* p, const int* e,
+         const long long* tp, int n_times, const unsigned char* m,
+         const float* h, const float* w, float* o, float* o2, int B, int n,
+         int rows, int cap, int d) {
+  spmm_fwd_kernel<V, C><<<blocks_for(warps), kThreads, 0, s>>>(
+      p, e, tp, n_times, m, h, w, o, o2, B, n, rows, cap, d);
+}
+
+template <int V, int C>
+void bwd(cudaStream_t s, long long warps, const int* sp, const int* se,
+         const int* rp, const int* re, const long long* tp, int n_times,
+         const unsigned char* m, const float* g, const float* n2,
+         const float* h, const float* w, float* dh, float* dw, int B, int n,
+         int rows, int cap, int n_rels, int d) {
+  spmm_bwd_kernel<V, C><<<blocks_for(warps), kThreads, 0, s>>>(
+      sp, se, rp, re, tp, n_times, m, g, n2, h, w, dh, dw, B, n, rows, cap,
+      n_rels, d);
 }
 
 }  // namespace
 
-extern "C" int spmm_fwd_launch(const void* rowptr, const void* src,
-                               const void* rel, const void* em, const void* h,
-                               const void* w, void* out, void* n2_out,
-                               int n_rows, int d, void* stream) {
-  if (n_rows > 0) {
-    const int blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    spmm_fwd_kernel<<<blocks, kWarpsPerBlock * kWarp, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(rowptr), static_cast<const int*>(src),
-        static_cast<const int*>(rel), static_cast<const float*>(em),
-        static_cast<const float*>(h), static_cast<const float*>(w),
-        static_cast<float*>(out), static_cast<float*>(n2_out), n_rows, d);
+// vec: 4 (float4 a lane; d % 4 == 0 and 16-byte aligned rows) or 1.
+extern "C" int spmm_fwd_launch(const void* ptr, const void* edge,
+                               const void* tpos, int n_times,
+                               const void* mask, const void* h,
+                               const void* w, void* out, void* n2_out, int B,
+                               int n, int rows, int cap, int d, int vec,
+                               void* stream) {
+  const long long warps = (long long)B * n;
+  if (warps > 0) {
+    const auto args = std::make_tuple(
+        static_cast<cudaStream_t>(stream), warps,
+        static_cast<const int*>(ptr), static_cast<const int*>(edge),
+        static_cast<const long long*>(tpos), n_times,
+        static_cast<const unsigned char*>(mask), static_cast<const float*>(h),
+        static_cast<const float*>(w), static_cast<float*>(out),
+        static_cast<float*>(n2_out), B, n, rows, cap, d);
+    if (vec == 4 && d <= kWarp * 4)
+      std::apply(fwd<4, 1>, args);
+    else if (vec == 4)
+      std::apply(fwd<4, kMaxD / (kWarp * 4)>, args);
+    else
+      std::apply(fwd<1, kMaxD / kWarp>, args);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int spmm_bwd_launch(const void* s_ptr, const void* s_dst,
-                               const void* s_rel, const void* s_em,
-                               const void* r_ptr, const void* r_src,
-                               const void* r_dst, const void* r_em,
-                               const void* g, const void* n2, const void* h,
-                               const void* w, void* dh, void* dw, int n_rows,
-                               int n_rels, int d, void* stream) {
-  const int warps = n_rows + n_rels;
+extern "C" int spmm_bwd_launch(const void* s_ptr, const void* s_edge,
+                               const void* r_ptr, const void* r_edge,
+                               const void* tpos, int n_times,
+                               const void* mask, const void* g,
+                               const void* n2, const void* h, const void* w,
+                               void* dh, void* dw, int B, int n, int rows,
+                               int cap, int n_rels, int d, int vec,
+                               void* stream) {
+  const long long warps = (long long)B * n + n_rels;
   if (warps > 0) {
-    const int blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    spmm_bwd_kernel<<<blocks, kWarpsPerBlock * kWarp, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(s_ptr), static_cast<const int*>(s_dst),
-        static_cast<const int*>(s_rel), static_cast<const float*>(s_em),
-        static_cast<const int*>(r_ptr), static_cast<const int*>(r_src),
-        static_cast<const int*>(r_dst), static_cast<const float*>(r_em),
-        static_cast<const float*>(g), static_cast<const float*>(n2),
-        static_cast<const float*>(h), static_cast<const float*>(w),
-        static_cast<float*>(dh), static_cast<float*>(dw), n_rows, n_rels, d);
+    const auto args = std::make_tuple(
+        static_cast<cudaStream_t>(stream), warps,
+        static_cast<const int*>(s_ptr), static_cast<const int*>(s_edge),
+        static_cast<const int*>(r_ptr), static_cast<const int*>(r_edge),
+        static_cast<const long long*>(tpos), n_times,
+        static_cast<const unsigned char*>(mask), static_cast<const float*>(g),
+        static_cast<const float*>(n2), static_cast<const float*>(h),
+        static_cast<const float*>(w), static_cast<float*>(dh),
+        static_cast<float*>(dw), B, n, rows, cap, n_rels, d);
+    if (vec == 4 && d <= kWarp * 4)
+      std::apply(bwd<4, 1>, args);
+    else if (vec == 4)
+      std::apply(bwd<4, kMaxD / (kWarp * 4)>, args);
+    else
+      std::apply(bwd<1, kMaxD / kWarp>, args);
   }
   return static_cast<int>(cudaGetLastError());
 }

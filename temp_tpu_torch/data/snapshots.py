@@ -99,6 +99,8 @@ class TKGData:
     # (parallel/edge_partition.py RingData); built by ring_layout for
     # "ring_pallas", else None
     ring: Any = None
+    # kernel K1's (RingData of one rank); built by ring_layout, else None
+    spmm: Any = None
 
     @property
     def group_stride(self) -> int:
@@ -447,15 +449,17 @@ def ring_layout(cfg, data: TKGData) -> TKGData:
     """The edges grouped by destination owner, for the ring edge-partition
     modes with more than one rank (``ring_regroup_data``), as the JAX
     package lays them out in ``build_tkg_data``: everything downstream (the
-    history tables, the answer lists) is built from this one layout. For
-    "ring_pallas" also K13's static CSR tables of the train snapshots
-    (``ring_data``), sorted here once rather than in every call."""
+    history tables, the answer lists) is built from this one layout. Then
+    the static CSR tables of the train snapshots in that layout
+    (``ring_data``), sorted here once rather than in every call: K1's (one
+    rank, ``TKGData.spmm``), which every unpartitioned SpMM walks, and for
+    "ring_pallas" K13's (``TKGData.ring``)."""
     if cfg.partitioned and cfg.edge_partition_mode in ("ring", "ring_pallas"):
         m = int(cfg.mp_size)
         data = ring_regroup_data(data, m)
         if cfg.edge_partition_mode == "ring_pallas":
             data = dataclasses.replace(data, ring=ring_data(data, m))
-    return data
+    return dataclasses.replace(data, spmm=ring_data(data, 1))
 
 
 _SPLITS = ("train", "valid", "test")

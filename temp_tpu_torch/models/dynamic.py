@@ -61,6 +61,7 @@ from temp_tpu_torch.ops.fused_window import (
 from temp_tpu_torch.ops.fused_window_mb import fused_window_scan_mb
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 from temp_tpu_torch.ops.scores import get_score_fn
+from temp_tpu_torch.ops.segment import data_tables
 from temp_tpu_torch.parallel.mesh import manual_axis
 
 
@@ -78,6 +79,7 @@ class WindowSlice(NamedTuple):
     act_mask: torch.Tensor  # [..., L, A]
     src_loc: torch.Tensor   # [..., L, E] src position within act_idx row
     dst_loc: torch.Tensor   # [..., L, E]
+    tables: Any = None      # the data's SpMM tables (``data_tables``)
 
 
 def _window_positions(t_pos, length: int, num_times: int, backward: bool):
@@ -106,6 +108,7 @@ def gather_window(data: TKGData, t_pos, length: int,
         act_idx=data.act_idx[safe],
         act_mask=data.act_mask[safe] & valid[..., None],
         src_loc=data.train_src_loc[safe], dst_loc=data.train_dst_loc[safe],
+        tables=data_tables(data),
     )
 
 
@@ -227,8 +230,11 @@ class DynamicRGCNModel:
                 or cfg.edge_partition_mode is not None
                 or manual_axis() is not None):
             return None
+        # the T snapshots side by side, each named in compact slots
         snap = Snapshot(src=data.train_src_loc, dst=data.train_dst_loc,
-                        rel=data.train.rel, emask=data.train.emask, t_idx=0)
+                        rel=data.train.rel, emask=data.train.emask, t_idx=0,
+                        t_pos=torch.arange(T, device=self.device),
+                        compact=True, tables=data_tables(data))
         h = self._rows(params, data.act_idx.reshape(-1))
         return rgcn_conv(params["encoder"]["layer1"], cfg, self.lc1, h,
                          snap).reshape(T, A, d)
@@ -316,7 +322,7 @@ class DynamicRGCNModel:
                 snap = Snapshot(src=win.src_loc[:, k], dst=win.dst_loc[:, k],
                                 rel=win.rel[:, k], emask=win.emask[:, k],
                                 t_idx=0, t_pos=win.t_idx[:, k],
-                                compact=True)
+                                compact=True, tables=win.tables)
                 step_masks = (None, None) if masks is None else tuple(
                     m[:, k].reshape(B * A, d) for m in masks)
                 outs = encoder_forward(
@@ -360,7 +366,8 @@ class DynamicRGCNModel:
                         rel=win.rel[last],
                         emask=win.emask[last] if emask is None else emask,
                         t_idx=win.t_idx[last], valid=win.valid[last],
-                        active=win.active[last], t_pos=win.t_idx[last])
+                        active=win.active[last], t_pos=win.t_idx[last],
+                        tables=win.tables)
         dt = last - last_pos
         emb = params["ent_embeds"]
         _, out2, _ = encoder_forward(params["encoder"], self.cfg, self.lc1,

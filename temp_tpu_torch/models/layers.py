@@ -29,9 +29,10 @@ class Snapshot(NamedTuple):
 
     `t_pos` names the train snapshots the graphs' edges are (their time
     positions, [B] or a scalar, in global ids or, with `compact`, in the
-    window's compact slots), so that the ring SpMM (K13) walks the data's
-    static tables of those snapshots; None where the edges are no train
-    snapshot's."""
+    window's compact slots) in `tables`, the data's static tables of them
+    (``ops.segment.data_tables``), so that the SpMM (K1, or K13 under a
+    ring partition) walks those tables rather than sort the edges; None
+    where the edges are no train snapshot's or the data has no tables."""
 
     src: torch.Tensor    # [E] or [B, E] int
     dst: torch.Tensor    # [E] or [B, E] int
@@ -42,6 +43,7 @@ class Snapshot(NamedTuple):
     active: Optional[torch.Tensor] = None
     t_pos: Optional[torch.Tensor] = None
     compact: bool = False
+    tables: Any = None
 
 
 @dataclass(frozen=True)
@@ -128,7 +130,8 @@ def rgcn_conv(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
     mask `mask`."""
     out = rel_spmm(h, snap.src, snap.dst, snap.rel, snap.emask, p["weight"],
                    lc.n_bases, lc.out_feat, h.shape[0], kernels=cfg.kernels,
-                   t_pos=snap.t_pos, compact=snap.compact)
+                   t_pos=snap.t_pos, compact=snap.compact,
+                   tables=snap.tables)
     if lc.bias:
         out = out + p["h_bias"]
     if lc.self_loop:

@@ -153,7 +153,8 @@ class PostBiDynamicRGCNModel(PostDynamicRGCNModel):
                         rel=win.rel[last],
                         emask=win.emask[last] if emask is None else emask,
                         t_idx=win.t_idx[last], valid=win.valid[last],
-                        active=win.active[last])
+                        active=win.active[last], t_pos=win.t_idx[last],
+                        tables=win.tables)
         dtf, dtb = last - lpf, last - lpb
         conv1 = rgcn_conv(p1, cfg, self.lc1, params["ent_embeds"], snap,
                           train, masks[0])

@@ -21,11 +21,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from temp_tpu_torch.ops.spmm import spmm, spmm_fwd_plain
+from temp_tpu_torch.ops.spmm import flat_graph, spmm, spmm_fwd_plain
 from temp_tpu_torch.parallel.edge_partition import ring_geometry
-from temp_tpu_torch.parallel.mesh import (
-    manual_axis, partition_tables, rank_devices,
-)
+from temp_tpu_torch.parallel.mesh import manual_axis, rank_devices
 from temp_tpu_torch.parallel.ring_spmm import ring_spmm, ring_spmm_fwd_plain
 
 
@@ -56,16 +54,9 @@ def rel_message(h_src, rel, weight, n_bases: int, d_in: int, d_out: int):
     return torch.einsum("ebi,ebio->ebo", hb, w).reshape(-1, n_bases * so)
 
 
-def flat_graph(src, dst, n_rows: int):
-    """Edges of B graphs [B, E] (ids < n_rows) as one block-diagonal graph
-    over B * n_rows rows."""
-    offs = (torch.arange(src.shape[0], device=src.device) * n_rows)[:, None]
-    return (src.long() + offs).reshape(-1), (dst.long() + offs).reshape(-1)
-
-
 def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
              num_ents: int, kernels: bool = True, t_pos=None,
-             compact: bool = False):
+             compact: bool = False, tables=None):
     """RGCN neighbourhood aggregation with double degree normalization:
 
         msg_e = (h[src_e] . W[rel_e]) * norm[dst_e] * emask_e
@@ -77,11 +68,14 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
     by autograd). Edges [B, E] give B graphs side by side: h holds
     num_ents = B * n rows, graph b's ids index its own rows
     [b * n, (b + 1) * n). Inside ``manual_partition`` the call is
-    partitioned by its mode (see the module's docstring); `t_pos` and
-    `compact` (``Snapshot``) name the train snapshots whose static tables
-    "ring_pallas" walks.
+    partitioned by its mode (see the module's docstring). `tables`,
+    `t_pos` and `compact` (``Snapshot``) name the train snapshots the
+    graphs are: the data's static tables (``data_tables``), the graphs'
+    time positions and the id space, so that K1 outside a partition and
+    K13 ("ring_pallas") walk those tables rather than sort the edges.
     """
     d_in = h.shape[-1]
+    named = _snapshot_tables(tables, t_pos, compact)
     part = manual_axis()
     if part is not None and part[1] > 1:
         _, m, mode = part
@@ -92,8 +86,7 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
                 rank_devices(h.device))
         if mode in ("ring", "ring_pallas"):
             out = _rel_spmm_ring(*args, kernels=kernels,
-                                 k13=mode == "ring_pallas",
-                                 tables=_snapshot_tables(t_pos, compact))
+                                 k13=mode == "ring_pallas", tables=named)
         elif mode == "psum":
             out = _rel_spmm_partitioned(*args)
         else:
@@ -101,25 +94,33 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
                 f"edge partition mode {mode!r} is not ported yet; see "
                 f"ROADMAP.md")
         return out.reshape(num_ents, d_out)
+    if n_bases == d_in == d_out and kernels:
+        return spmm(h, src, dst, rel, emask, weight, tables=named)
     if src.dim() == 2:
         src, dst = flat_graph(src, dst, num_ents // src.shape[0])
         rel, emask = rel.reshape(-1), emask.reshape(-1)
     if n_bases == d_in == d_out:
-        fn = spmm if kernels else spmm_fwd_plain
-        return fn(h, src, dst, rel, emask, weight)
+        return spmm_fwd_plain(h, src, dst, rel, emask, weight)
     norm = in_degree_norm(dst, emask, num_ents)
     msg = rel_message(h[src.long()], rel, weight, n_bases, d_in, d_out)
     msg = msg * (norm[dst.long()] * emask.to(h.dtype))[:, None]
     return segment_sum(msg, dst, num_ents) * norm[:, None]
 
 
-def _snapshot_tables(t_pos, compact: bool):
-    """(the partition's K13 tables of the id space, t_pos [B]) for a call
-    that names its snapshots, else None."""
-    data = partition_tables()
-    if data is None or t_pos is None:
+def data_tables(data):
+    """The static tables of `data` (``RingData``) that the SpMMs of the
+    running code walk: K13's (``TKGData.ring``) inside an edge partition,
+    K1's (``TKGData.spmm``) outside one; None where the data has none."""
+    part = manual_axis()
+    return data.ring if part is not None and part[1] > 1 else data.spmm
+
+
+def _snapshot_tables(tables, t_pos, compact: bool):
+    """(the ``RingTables`` of the id space, t_pos [B]) for a call that
+    names its snapshots in `tables` (``RingData``), else None."""
+    if tables is None or t_pos is None:
         return None
-    return (data.comp if compact else data.glob), t_pos.reshape(-1)
+    return (tables.comp if compact else tables.glob), t_pos.reshape(-1)
 
 
 def _rel_spmm_ring(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,

@@ -90,21 +90,24 @@ def ring_regroup_data(data, m: int, align: int = 128):
 
     train = dataclasses.replace(data.train, src=n_src, dst=n_dst, rel=n_rel,
                                 emask=n_em)
+    # the static tables of the old layout no longer describe these edges
     return dataclasses.replace(data, train=train, act_idx=act_idx,
                                act_mask=act_mask, train_src_loc=n_srcl,
-                               train_dst_loc=n_dstl)
+                               train_dst_loc=n_dstl, ring=None, spmm=None)
 
 
 @dataclass
 class RingTables:
     """The edges of T snapshots in the ring layout of m ranks, sorted once
-    for kernel K13 (``parallel/ring_spmm.py``), in one id space whose row
-    shards have `rows` rows. Rank r owns edge slots [r * cap, (r + 1) *
-    cap) of each snapshot (E = m * cap); its edges are sorted three ways,
-    each ordering a row pointer over its keys and the edges' three ints in
-    that order (positions relative to the rank's block of cap). Only the
-    slots of the static mask enter; the others, and the padding, sort past
-    the last row, so a call's mask (always a subset) is read per edge.
+    for kernel K13 (``parallel/ring_spmm.py``), or with m = 1 for kernel K1
+    (``ops/spmm.py``: ``fwd`` is then the table by destination), in one id
+    space whose row shards have `rows` rows. Rank r owns edge slots
+    [r * cap, (r + 1) * cap) of each snapshot (E = m * cap); its edges are
+    sorted three ways, each ordering a row pointer over its keys and the
+    edges' three ints in that order (positions relative to the rank's
+    block of cap). Only the slots of the static mask enter; the others,
+    and the padding, sort past the last row, so a call's mask (always a
+    subset) is read per edge.
 
     - ``fwd``: by (source owner, local dst), the forward's owner segments;
       edges (src, rel, slot);
@@ -125,9 +128,10 @@ class RingTables:
 
 @dataclass
 class RingData:
-    """K13's tables of a dataset's train snapshots in both id spaces: the
-    final step's global ids (rows = ring_geometry(num_ents, m)) and the
-    window's compact slots (rows = a_cap)."""
+    """The tables of a dataset's train snapshots (K13's, or with m = 1
+    K1's) in both id spaces: the final step's global ids (rows =
+    ring_geometry(num_ents, m)) and the window's compact slots (rows =
+    a_cap)."""
 
     glob: RingTables
     comp: RingTables
@@ -142,9 +146,9 @@ def ring_tables(src, dst, rel, keep, m: int, rows: int,
     and keep their slot order within a key. Slots where `keep` is False
     sort past the last key. A kept edge's destination is clipped into its
     rank's shard in all three orderings, as the plain ring and its
-    transpose clip it. The data's tables
-    (``ring_data``) and the in-call route of ``parallel/ring_spmm.py``
-    both come from here."""
+    transpose clip it. The data's tables (``ring_data``) and the in-call
+    routes of ``parallel/ring_spmm.py`` and (m = 1) ``ops/spmm.py`` all
+    come from here."""
     dev = src.device
     T, E = src.shape
     cap = E // m
@@ -175,10 +179,11 @@ def ring_tables(src, dst, rel, keep, m: int, rows: int,
 
 
 def ring_data(data, m: int, align: int = 128) -> RingData:
-    """K13's tables (``ring_tables``) of the train snapshots of `data`
+    """The tables (``ring_tables``) of the train snapshots of `data`
     (numpy, as the dataset is on the host), in the ring layout of m ranks
-    (``ring_regroup_data``), over the static mask ``data.train.emask`` and
-    the weights' 2 * num_rels relations."""
+    (``ring_regroup_data``; m = 1: any layout, K1's tables), over the
+    static mask ``data.train.emask`` and the weights' 2 * num_rels
+    relations."""
     tr = data.train
     n_rels = 2 * data.num_rels
     A = np.asarray(data.act_idx).shape[1]
@@ -281,15 +286,14 @@ class EdgePartitionedModel:
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
-    def _partition(self, data=None):
-        """The partition context; with `data`, its K13 tables
-        (``ring_data``; None where the data has none)."""
+    def _partition(self):
+        """The partition context (the snapshots it runs name the data's
+        K13 tables, ``ops.segment.data_tables``)."""
         return manual_partition(self.axis, self.mp, self.mode,
-                                self.mesh.devices[0],
-                                tables=getattr(data, "ring", None))
+                                self.mesh.devices[0])
 
     def loss(self, params, data, t_pos, t_valid, gen=None, draws=None):
-        with self._partition(data):
+        with self._partition():
             return self.inner.loss(params, data, t_pos, t_valid, gen=gen,
                                    draws=draws)
 
@@ -297,5 +301,5 @@ class EdgePartitionedModel:
                    conv1_all=None):
         """The inner model's eval; `conv1_all` is not taken (the table is
         off under a partition, as in the JAX package)."""
-        with self._partition(data):
+        with self._partition():
             return self.inner.eval_ranks(params, data, t_pos, t_valid, split)

@@ -77,17 +77,15 @@ def _indexed(dev: torch.device) -> torch.device:
 
 @contextlib.contextmanager
 def manual_partition(axis: str, size: int, mode: str = "psum",
-                     devices: Optional[Sequence] = None, tables=None):
+                     devices: Optional[Sequence] = None):
     """Partition every rel_spmm in the enclosed code over the `size` ranks
     of mesh axis `axis` with exchange `mode` ("psum", "ring" or
     "ring_pallas"), rank i on ``devices[i]`` (default: each call's own
-    device for every rank). `tables`: the data's K13 tables
-    (``edge_partition.RingData``), which "ring_pallas" walks for the
-    snapshots a call names by time position."""
+    device for every rank)."""
     global _MANUAL
     prev = _MANUAL
     _MANUAL = (axis, size, mode,
-               None if devices is None else tuple(devices), tables)
+               None if devices is None else tuple(devices))
     try:
         yield
     finally:
@@ -104,8 +102,3 @@ def rank_devices(default: torch.device) -> Tuple[torch.device, ...]:
     or `default` for every rank."""
     size, devices = _MANUAL[1], _MANUAL[3]
     return devices if devices is not None else (default,) * size
-
-
-def partition_tables():
-    """The K13 tables given to ``manual_partition`` (or None)."""
-    return None if _MANUAL is None else _MANUAL[4]

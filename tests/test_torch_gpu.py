@@ -54,10 +54,10 @@ from temp_tpu_torch.ops.fused_window_mb import (
 from temp_tpu_torch.ops.membership import true_answer_mask
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 from temp_tpu_torch.ops.spmm import (
-    spmm, spmm_bwd, spmm_bwd_plain, spmm_fwd, spmm_fwd_plain,
+    flat_graph, spmm, spmm_bwd, spmm_bwd_plain, spmm_fwd, spmm_fwd_plain,
 )
 from temp_tpu_torch.parallel.edge_partition import (
-    group_edges_by_dst_owner, ring_geometry,
+    group_edges_by_dst_owner, ring_geometry, ring_tables,
 )
 from temp_tpu_torch.parallel.ring_spmm import (
     ring_spmm, ring_spmm_bwd, ring_spmm_bwd_plain, ring_spmm_fwd,
@@ -121,6 +121,89 @@ def test_spmm_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         spmm_fwd(big, src[:2] % 4, dst[:2] % 4, rel[:2] % 3, em[:2],
                  torch.zeros(3, 512, device=cuda))
+
+
+def _k1_tables_case(n, e, r, d, dev, B=1, rate=1.0, T=3, seed=0):
+    """K1 over static tables: T snapshots' edges [T, E] and their tables
+    (ring_tables of one rank over a static mask, sorted on the CPU and
+    moved to the card, as the data's are), B graphs naming snapshots
+    t_pos (one named twice where B > 1), a call mask inside the static
+    mask (`rate` of it kept). Returns (h, (src, dst, rel, mask) [B, E], w,
+    (tables, t_pos))."""
+    g = torch.Generator().manual_seed(seed)
+    src = torch.randint(0, n, (T, e), generator=g, dtype=torch.int32)
+    dst = torch.randint(0, max(1, n // 2), (T, e), generator=g,
+                        dtype=torch.int32)  # half the rows get no edges
+    rel = torch.randint(0, r, (T, e), generator=g, dtype=torch.int32)
+    static = torch.rand(T, e, generator=g) < 0.8
+    tab = to_device(ring_tables(src, dst, rel, static, 1,
+                                ring_geometry(n, 1), r), dev)
+    t_pos = torch.tensor([T - 1, 0, T - 1, 1][:B]) if B > 1 else (
+        torch.tensor([T // 2]))
+    mask = static[t_pos] & (torch.rand(B, e, generator=g) < rate)
+    h = torch.randn(B * n, d, generator=g)
+    w = torch.randn(r, d, generator=g)
+    edges = tuple(x.to(dev) for x in (src[t_pos], dst[t_pos], rel[t_pos],
+                                      mask))
+    return h.to(dev), edges, w.to(dev), (tab, t_pos.to(dev))
+
+
+def _k1_flat(h, edges):
+    s, t = flat_graph(edges[0], edges[1], h.shape[0] // edges[0].shape[0])
+    return s, t, edges[2].reshape(-1), edges[3].reshape(-1)
+
+
+_K1_TABLE_CASES = [(n, e, r, d, B, rate)
+                   for n, e, r, d in ((7128, 256, 460, 128), (50, 0, 3, 32),
+                                      (300, 5000, 7, 256), (33, 90, 4, 16))
+                   for B, rate in ((1, 1.0), (3, 0.5))]
+
+
+@pytest.mark.parametrize("n,e,r,d,B,rate", _K1_TABLE_CASES)
+def test_spmm_tables_match_in_call_route(cuda, n, e, r, d, B, rate):
+    """K1f and K1b over the static tables (one launch each, no sort in the
+    call) equal the route that sorts the call's edges bit for bit, and the
+    plain versions within 1e-5 of the largest entry; for one graph and
+    for B graphs side by side, under the static mask and a 50% mask."""
+    h, edges, w, tables = _k1_tables_case(n, e, r, d, cuda, B, rate)
+    fl, fb, builds = spmm_fwd.launches, spmm_bwd.launches, \
+        spmm_fwd.csr_builds
+    out = spmm_fwd(h, *edges, w, tables=tables)
+    g = torch.randn_like(h)
+    deg = torch.zeros(h.shape[0], device=cuda).index_add_(
+        0, _k1_flat(h, edges)[1], edges[3].reshape(-1).float())
+    n2 = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0), 0.0) ** 2
+    dh, dw = spmm_bwd(g, n2, h, *edges, w, tables=tables)
+    torch.cuda.synchronize()
+    assert (spmm_fwd.launches, spmm_bwd.launches, spmm_fwd.csr_builds) == (
+        fl + 1, fb + 1, builds)
+    assert torch.equal(out, spmm_fwd(h, *edges, w))
+    ch, cw = spmm_bwd(g, n2, h, *edges, w)
+    assert torch.equal(dh, ch) and torch.equal(dw, cw)
+    assert spmm_fwd.csr_builds == builds + 2
+    flat = _k1_flat(h, edges)
+    assert _scaled_ok(out, spmm_fwd_plain(h, *flat, w), 1e-5)[0]
+    rh, rw = spmm_bwd_plain(g, n2, h, *flat, w)
+    assert _scaled_ok(dh, rh, 1e-5)[0] and _scaled_ok(dw, rw, 1e-5)[0]
+
+
+def test_spmm_table_route_makes_no_sync(cuda):
+    """One table-route call of K1f, of K1b and of the differentiable K1
+    forward and backward makes no synchronizing CUDA call."""
+    h, edges, w, tables = _k1_tables_case(7128, 256, 460, 128, cuda, 3, 0.5)
+    g = torch.randn_like(h)
+    n2 = torch.rand(h.shape[0], device=cuda)
+    hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spmm_fwd(h, *edges, w, tables=tables)
+        spmm_bwd(g, n2, h, *edges, w, tables=tables)
+        spmm(hh, *edges, ww, tables=tables).backward(g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert hh.grad is not None and ww.grad is not None
 
 
 def _window_args(B, L1, A, E, d, dev, seed=0):

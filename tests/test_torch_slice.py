@@ -144,7 +144,19 @@ def test_port_builds_without_pytorch_extension_headers():
             assert banned not in text, (path, banned)
 
 
-def test_chip_smoke_phases_rehearse_on_cpu():
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: the smoke's phases run thousands
+    of tiny ops, and with every test worker's thread pool on the same
+    cores each op waits on the others' threads far longer than it
+    computes (about 900 s in the parallel tier-1 run, 6 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     sys.path.insert(0, ROOT)
     try:
         import chip_smoke
@@ -212,6 +224,20 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert k5["final_step_fused_ms"] > 0 and k5["final_step_unfused_ms"] > 0
     assert path["kernels"]["mrr"] == path["plain"]["mrr"]
     assert path["same_rank_share"] == 1.0
+    # K1 at its three shapes over the data's tables and sorted in the call
+    assert set(k1) == {"final", "table", "train"} and set(k1b) == {
+        "train", "final"}
+    for rec in list(k1.values()) + list(k1b.values()):
+        assert rec["bitwise"] and rec["max_abs_err"] == 0.0
+        assert rec["in_call_ms"] > 0 and rec["bound_ms"] > 0
+    assert ctx["k1_tables_mb"]["glob"] > 0 and ctx["k1_tables_mb"]["comp"] > 0
+    for run in (path["kernels"], train["unfused"],
+                res["flagship_path"]["kernels"],
+                res["flagship_train"]["unfused"]):
+        assert run["k1_csr_builds"] == 0
+    assert {"in_call_ms", "bitwise", "table", "train"} <= set(
+        line["kernels"][0])
+    assert {"in_call_ms", "bitwise", "final"} <= set(line["kernels"][1])
     # the same plain forward on both paths; the updates then differ by the
     # rounding of the hand-written backward against autograd's
     assert train["fused"]["losses"][0] == train["plain"]["losses"][0]
