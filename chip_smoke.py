@@ -29,7 +29,9 @@ Phases, each printing one line with its elapsed seconds as it ends:
              50% edge subsample) and under the full mask, as k1 does K1f;
 8. k2b     - kernel K2f in train mode (dropout masks) and K2b
              (fused_window_bwd) against autograd through the plain forward
-             on one training batch of windows: all 12 cotangents;
+             on one training batch of windows: all 12 cotangents (each
+             also scaled to its largest plain entry), and two runs of K2b
+             bit-equal;
 9. k3      - kernel K3 (fused_final_fwd: the dense final step and the
              exact-softmax loss of all B elements) against its plain version
              on the first training batch, as the main path prepares it (the
@@ -39,8 +41,9 @@ Phases, each printing one line with its elapsed seconds as it ends:
              the same saved table and upstream cotangent;
 11. k5     - kernel K5 (fused_final_bwd_layer) against its plain version for
              layer 2 and layer 1, each given the same cotangent on both
-             sides: all 8 cotangents; and the whole final step and loss,
-             forward and backward, fused (K3-K5) and unfused (K1, K1b);
+             sides: all 8 cotangents, and two runs of each layer bit-equal;
+             and the whole final step and loss, forward and backward, fused
+             (K3-K5) and unfused (K1, K1b);
 12. train  - Trainer.train_step at the full config for a few optimizer steps
              from seeded weights and draws on three paths: the kernels with
              fused_final on (the main path), the kernels with fused_final
@@ -56,14 +59,16 @@ impute on, PostBiDynamicRGCNModel), on the same data:
 14. k2_flagship    - K2f and K2b in the flagship's modes (a ReLU on layer
                      2, the third "local" buffer) for the forward and the
                      backward window of its first training batch, against
-                     the plain version: three buffers, 12 cotangents;
+                     the plain version: three buffers, 12 cotangents, two
+                     runs of K2b bit-equal;
 15. k6k7      - the bi layer forward (K6+K7) of both layers of that batch's
                 final step against its plain version;
 16. k8        - the loss from the table (K8) against its plain version;
 17. k9k10     - the bi layer backward (K9+K10) of both layers against its
-                plain version, from the loss's cotangent and from a unit one;
-                and the final step and loss forward and backward, fused
-                (K6-K10, K4) and unfused (K1 one element at a time);
+                plain version, from the loss's cotangent and from a unit one,
+                two runs bit-equal; and the final step and loss forward and
+                backward, fused (K6-K10, K4) and unfused (K1 one element at a
+                time);
 18. flagship_path  - the flagship's valid sweep with the kernels and with
                      their plain versions (MRR within 1e-4; no K1 call
                      sorting its edges);
@@ -118,7 +123,10 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  held together as in `train`; K13's forward and backward
                  launched, no sort in a call.
 
-Then a "kernels" JSON line, the nvidia-smi name/power-limit line, and the
+Then a "kernels" JSON line (each kernel's bound_share, bound / ms, and for
+K2b and K5, whose products run in 3xTF32 on the tensor cores, bound_tc_ms:
+their operations at 3xTF32's 165 TFLOP/s beside the f32 bound_ms), the
+nvidia-smi name/power-limit line, and the
 result line {"ok": true, "device": {...}}. Any failed check raises and exits
 non-zero; there is no result line then. Without CUDA it exits 1 at once. A
 watchdog ends a run that stops making progress and names the phase it was in.
@@ -167,6 +175,9 @@ PARAM_TOL = 1e-2
 TRAIN_STEPS = 8
 RING_M = 4  # ranks of the edge partition's ring (all on the one card)
 H100_F32_FLOPS = 67e12   # f32 outside the tensor cores, SXM data sheet
+# K2b's and K5's products in 3xTF32: three TF32 tensor-core products for
+# each f32 one, at the data sheet's 495 TFLOP/s dense TF32
+H100_TF32X3_FLOPS = 495e12 / 3
 H100_BYTES_S = 3.35e12   # HBM3
 
 _state = {"phase": "start"}
@@ -614,16 +625,17 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
-def scaled_errs(pairs, tol: float = SCALED_TOL) -> dict:
+def scaled_errs(pairs, tol=SCALED_TOL) -> dict:
     """{name: {"abs": max |got - ref|, "max_ref": max |ref|}} over
-    (name, got, ref) triples; raises unless every abs is at most tol times
-    its max_ref (no floor: exact zeros must agree exactly)."""
+    (name, got, ref) triples; unless tol is None, raises unless every abs is
+    at most tol times its max_ref (no floor: exact zeros must agree
+    exactly)."""
     errs, bad = {}, []
     for n, got, ref in pairs:
         e = {"abs": float((got - ref).abs().max()),
              "max_ref": float(ref.abs().max())}
         errs[n] = e
-        if not e["abs"] <= tol * e["max_ref"]:
+        if tol is not None and not e["abs"] <= tol * e["max_ref"]:
             bad.append(n)
     if bad:
         raise AssertionError(f"beyond {tol} of the largest entry: "
@@ -701,22 +713,44 @@ _COTANGENTS = ("dh0x", "dwrel", "dloop1", "dloop2", "dwih1", "dwhh1",
                "dwih2", "dwhh2", "dbih1", "dbhh1", "dbih2", "dbhh2")
 
 
-def _window_bwd_bound(ctx, win):
+def _window_bwd_bound(ctx, win, extra_bytes: int = 0) -> dict:
     """Least time for one K2b call: f32 flops over the active rows (per row
     and layer two GRU gate products and one self-loop product recomputed,
     and for each of them the input and the weight cotangent products:
     84 d^2 a row) and the SpMMs and their transposes over the real edges
     (16 d an edge), against the buffers, masks and cotangents read once
-    and dh0x written once."""
+    and dh0x written once (and `extra_bytes`): "bound_ms" at f32's rate,
+    "bound_tc_ms" at 3xTF32's, the rate of K2b's products."""
     L1, d = ctx["L1"], ctx["d"]
     rows = int(win.act_mask[:, :L1].sum())
     edges = int(win.emask[:, :L1].sum())
     flops = rows * 84 * d * d + edges * 16 * d
     n_rel = ctx["params"]["encoder"]["layer1"]["weight"].shape[0]
     w_bytes = (4 * d * 3 * d * 2 + 2 * d * d * 2 + n_rel * 2 * d * 2) * 4
-    nbytes = rows * d * 4 * 8 + edges * 16 + rows * 12 + w_bytes
-    t_b, t_f = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
-    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+    nbytes = (rows * d * 4 * 8 + edges * 16 + rows * 12 + w_bytes
+              + extra_bytes)
+    return _bounds(flops, nbytes)
+
+
+def _bounds(flops: float, nbytes: float) -> dict:
+    """The least time of a kernel whose products run in 3xTF32: at f32's
+    rate (every kernel's bound, comparable across the table) and at
+    3xTF32's, each the larger of the operations' and the bytes' time."""
+    bound_ms, bound_by = _bound(flops, nbytes)
+    t_b = nbytes / H100_BYTES_S
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_tc_ms": max(t_b, flops / H100_TF32X3_FLOPS) * 1e3}
+
+
+def _bitwise(a, b) -> bool:
+    """Two runs' outputs (tuples, None where a cotangent is not given)
+    equal bit for bit."""
+    import torch
+
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
 
 
 def phase_k2b(ctx) -> dict:
@@ -749,13 +783,15 @@ def phase_k2b(ctx) -> dict:
         raise AssertionError(f"K2f train: max abs err {err_fwd} > {TOL}")
     bwd_args = dict(a, buf1=k1, buf2=k2, gb1=gb1, gb2=gb2)
     got = fused_window_bwd(**bwd_args)
+    bitwise = _bitwise(got, fused_window_bwd(**bwd_args))
     ref = fused_window_bwd_plain(**a, gb1=gb1, gb2=gb2)
     errs = {n: rel_err(x, y) for n, x, y in zip(_COTANGENTS, got, ref)}
     bad = {n: e for n, e in errs.items() if not e <= GRAD_TOL}
-    if bad:
-        raise AssertionError(f"K2b: cotangents beyond {GRAD_TOL}: {bad}")
+    if bad or not bitwise:
+        raise AssertionError(f"K2b: cotangents beyond {GRAD_TOL}: {bad}; "
+                             f"two runs bit-equal: {bitwise}")
     fwd_bound, fwd_by = _window_bound(ctx, win, False, masks=True)
-    bwd_bound, bwd_by = _window_bwd_bound(ctx, win)
+    bwd_bounds = _window_bwd_bound(ctx, win)
     shape = f"B={B} L1={L1} A={A} E={ctx['E']} d={d}"
     out = {
         "fwd": {"shape": shape, "max_abs_err": err_fwd,
@@ -767,12 +803,17 @@ def phase_k2b(ctx) -> dict:
                 "bound_by": fwd_by},
         "bwd": {"shape": shape, "max_abs_err": max(errs.values()),
                 "errors": errs,
+                # printed beside the GRAD_TOL gate, as K5's
+                "scaled_errs": scaled_errs(zip(_COTANGENTS, got, ref),
+                                           tol=None),
+                "bitwise": bitwise,
                 "ms": time_ms(lambda: fused_window_bwd(**bwd_args), dev,
                               reps=5),
                 "plain_ms": time_ms(lambda: fused_window_bwd_plain(
                     **a, gb1=gb1, gb2=gb2), dev, reps=3),
-                "library_ms": None, "bound_ms": bwd_bound,
-                "bound_by": bwd_by}}
+                "library_ms": None, **bwd_bounds}}
+    for r in out.values():
+        r["bound_share"] = r["bound_ms"] / r["ms"]
     print(f"  K2f train: {out['fwd']}", flush=True)
     print(f"  K2b: {out['bwd']}", flush=True)
     return out
@@ -968,13 +1009,18 @@ def phase_k5(ctx) -> dict:
     except AssertionError as e:
         raise AssertionError(f"K5: {e}") from None
     layer2, layer1 = layers["loss"]
+    bitwise = all(_bitwise(fused_final_bwd_layer(*args),
+                           fused_final_bwd_layer(*args))
+                  for args in (layer2, layer1))
+    if not bitwise:
+        raise AssertionError("K5: two runs differ")
     B, N, _, _ = _final_counts(ctx, fb)
     # per layer and row: the layer forward recomputed (14 d^2) and the
     # input, history and weight cotangent products (28 d^2); the inputs,
     # history, mask and output cotangent read, d_h and d_prev written
     n_masks = 0 if gr.m1 is None else 1
-    bound_ms, bound_by = _bound(2 * B * N * 42 * d * d,
-                                2 * 4 * B * N * d * (5 + n_masks))
+    bounds = _bounds(2 * B * N * 42 * d * d,
+                     2 * 4 * B * N * d * (5 + n_masks))
 
     def both_layers(fn, **kw):
         return lambda: (fn(*layer2, **kw), fn(*layer1, **kw))
@@ -987,7 +1033,8 @@ def phase_k5(ctx) -> dict:
                                      csr=saved.get("csr")), dev, reps=10),
            "plain_ms": time_ms(both_layers(fused_final_bwd_layer_plain), dev,
                                reps=5),
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+           "library_ms": None, "bitwise": bitwise, **bounds}
+    out["bound_share"] = out["bound_ms"] / out["ms"]
     out.update(final_step_ms(ctx, fb))
     print(f"  K5: {out}", flush=True)
     return out
@@ -1249,15 +1296,19 @@ def phase_k2_flagship(fctx) -> dict:
         bwd_args = dict(a, buf1=got[0], buf2=got[1], gb1=gb1, gb2=gb2,
                         gb3=gb3)
         cot = fused_window_bwd(**bwd_args)
+        bitwise = _bitwise(cot, fused_window_bwd(**bwd_args))
         cot_ref = fused_window_bwd_plain(**a, gb1=gb1, gb2=gb2, gb3=gb3)
         errs = {n: rel_err(x, y) for n, x, y in zip(_COTANGENTS, cot,
                                                      cot_ref)}
         bad = {n: e for n, e in errs.items() if not e <= GRAD_TOL}
-        if bad:
+        if bad or not bitwise:
             raise AssertionError(f"K2b {direction} flagship: cotangents "
-                                 f"beyond {GRAD_TOL}: {bad}")
+                                 f"beyond {GRAD_TOL}: {bad}; two runs "
+                                 f"bit-equal: {bitwise}")
         fwd_bound, fwd_by = _window_bound(fctx, win, False, masks=True)
-        bwd_bound, bwd_by = _window_bwd_bound(fctx, win)
+        # the third buffer written (forward) and read (backward) once more
+        buf3_bytes = B * L1 * A * d * 4
+        bwd = _window_bwd_bound(fctx, win, extra_bytes=buf3_bytes)
         out[direction] = {
             "shape": f"B={B} L1={L1} A={A} E={fctx['E']} d={d} n_buf=3 relu",
             "fwd_max_abs_err": err_fwd, "bwd_max_rel_err": max(errs.values()),
@@ -1269,11 +1320,15 @@ def phase_k2_flagship(fctx) -> dict:
                               reps=5),
             "bwd_plain_ms": time_ms(lambda: fused_window_bwd_plain(
                 **a, gb1=gb1, gb2=gb2, gb3=gb3), dev, reps=2),
-            # the third buffer written (forward) and read (backward) once more
-            "fwd_bound_ms": fwd_bound + _bound(0, B * L1 * A * d * 4)[0],
+            "bwd_scaled_errs": scaled_errs(zip(_COTANGENTS, cot, cot_ref),
+                                           tol=None),
+            "bwd_bitwise": bitwise,
+            "fwd_bound_ms": fwd_bound + _bound(0, buf3_bytes)[0],
             "fwd_bound_by": fwd_by,
-            "bwd_bound_ms": bwd_bound + _bound(0, B * L1 * A * d * 4)[0],
-            "bwd_bound_by": bwd_by}
+            **{f"bwd_{k}": v for k, v in bwd.items()}}
+        r = out[direction]
+        for part in ("fwd", "bwd"):
+            r[f"{part}_bound_share"] = r[f"{part}_bound_ms"] / r[f"{part}_ms"]
         print(f"  K2 flagship {direction}: {out[direction]}", flush=True)
     return out
 
@@ -1470,6 +1525,10 @@ def phase_k9k10(fctx) -> dict:
         errs = scaled_errs(pairs)
     except AssertionError as e:
         raise AssertionError(f"K9+K10: {e}") from None
+    bitwise = all(_bitwise(bi_layer_bwd(*a, g, **k), bi_layer_bwd(*a, g, **k))
+                  for a, g, k, _ in calls["loss"])
+    if not bitwise:
+        raise AssertionError("K9+K10: two runs differ")
     B, N, d = fb_["hists"][0].shape
     kept = float(bg.gr.emf.sum())
     # per layer and element: the forward recomputed (26 N d^2), the input,
@@ -1488,7 +1547,9 @@ def phase_k9k10(fctx) -> dict:
            "plain_ms": time_ms(lambda: (bi_layer_bwd_plain(*a2, g2, **k2p),
                                         bi_layer_bwd_plain(*a1, g1, **k1p)),
                                dev, reps=3),
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bitwise": bitwise}
+    out["bound_share"] = bound_ms / out["ms"]
     out.update(flagship_step_ms(fctx, fb_))
     print(f"  K9+K10: {out}", flush=True)
     return out
@@ -2275,15 +2336,19 @@ def kernels_line(res: dict) -> dict:
              "max_abs_err": m["max_abs_err"], "ms": m["ms"],
              "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
              "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-             "shape": m["shape"]}
+             "bound_share": m["bound_ms"] / m["ms"], "shape": m["shape"]}
+        for k in ("bound_tc_ms", "bitwise", "scaled_errs"):
+            if k in m:
+                r[k] = m[k]
         if name == "fused_window_fwd":
             r["train_mode"] = {k: res["k2b"]["fwd"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "max_abs_err")}
         if name in ("fused_window_fwd", "fused_window_bwd"):
             part = "fwd" if name == "fused_window_fwd" else "bwd"
+            keys = ("ms", "plain_ms", "bound_ms", "bound_share") + (
+                ("bound_tc_ms", "bitwise") if part == "bwd" else ())
             r["flagship_mode"] = {
-                d: {k: res["k2_flagship"][d][f"{part}_{k}"] for k in (
-                    "ms", "plain_ms", "bound_ms")}
+                d: {k: res["k2_flagship"][d][f"{part}_{k}"] for k in keys}
                 for d in ("fwd", "bwd")}
         if name == "fused_eval_ranks":
             r["unfused_ms"] = m["unfused_ms"]

@@ -34,10 +34,12 @@
 // window backward's launches for one step (rgcn_gru_layer.cuh) with L1 = 1,
 // the previous-state cotangent written to d_hist (not added into an
 // earlier row) and the input cotangent to the layer's input: the GRU
-// recompute and backward, the input cotangent with per-edge relation
-// cotangents, the weight cotangents over B*N rows in 32 ranges, their sum,
-// and the relation sum.
-//
+// recompute and backward (32-row tiles), the input cotangent with per-edge
+// relation cotangents, the weight cotangents over B*N rows in 16 ranges,
+// their sum, and the relation sum. Its products (42 d^2 flops a row) run
+// on the tensor cores in 3xTF32 at f32 accuracy (tile_product and
+// wgrad_tile), with the weights streamed through shared memory.
+
 // K11 replaces _eval_kernel, the forward-only eval of one element: the
 // final encoder in eval mode (no dropout, the full edge mask), the ComplEx
 // query of each eval query slot in both directions, its scores against
@@ -59,8 +61,11 @@
 // the tables, the weights) are a small fraction of that at d = 128.
 //
 // What the design does about that. Every launch covers the whole batch (b
-// in the grid). The score products are tiled 64 x 64 from shared memory, a
-// thread 4 x 4, plain FMA; wgmma/TF32 is left for later work. Every sum
+// in the grid). K5's products run on the tensor cores (above). The score
+// products are tiled 64 x 64 from shared memory, a thread 4 x 4, plain
+// FMA, and K3's and K11's layer launches keep the forward tiles' plain FMA
+// (rgcn_gru_layer.cuh): both wait on shared loads more than on the FMA
+// units. Every sum
 // across blocks goes through per-block partials and an ordered second pass,
 // and no kernel uses atomics, so runs repeat bit for bit. The true answers
 // come as a sorted list per edge or query slot, built once with the data; a
@@ -680,7 +685,7 @@ __global__ void final_dtable_kernel(
 
 // -- K5 ----------------------------------------------------------------------
 
-__global__ void final_bwd_gru_kernel(
+__global__ void __launch_bounds__(256, 2) final_bwd_gru_kernel(
     Layer p, const float* __restrict__ wih, const float* __restrict__ whh,
     float* dout, float* __restrict__ dprev, float* n2_out,
     float* __restrict__ conv_s, float* __restrict__ h0g_s,
@@ -702,7 +707,8 @@ __global__ void final_bwd_input_kernel(
                  wstride, wcol, loop_t, x, ewg, out, 0, 1, A, d, 0);
 }
 
-__global__ void final_wgrad_kernel(WJobs jobs, int B, int A,
+__global__ void __launch_bounds__(kWgThreads, 4) final_wgrad_kernel(
+    WJobs jobs, int B, int A,
                                    int rows_per_split,
                                    long long part_stride) {
   wgrad_tile(jobs, B, A, rows_per_split, part_stride);
@@ -1032,18 +1038,14 @@ extern "C" int final_bwd_gru_launch(
     const Layer p = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
                                wcol, loopw, mask, 0, wih_t, whh_t, bih, bhh,
                                nullptr, nullptr, dt, lam, prev, 1, N, d, 0);
-    const size_t smem = 7 * kTileRows * d * sizeof(float);
-    cudaError_t err = allow_smem(final_bwd_gru_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((N + kTileRows - 1) / kTileRows, B);
-    final_bwd_gru_kernel<<<grid, kRowGroups * d, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        p, static_cast<const float*>(wih), static_cast<const float*>(whh),
+    return static_cast<int>(launch_bwd_tile(
+        final_bwd_gru_kernel, bwd_gru_smem_floats(d), B, N, d, stream, p,
+        static_cast<const float*>(wih), static_cast<const float*>(whh),
         const_cast<float*>(static_cast<const float*>(dout)),
         static_cast<float*>(dprev), static_cast<float*>(n2_out),
         static_cast<float*>(conv_s), static_cast<float*>(h0g_s),
         static_cast<float*>(dgi_s), static_cast<float*>(dgh_s),
-        static_cast<float*>(dconv_s), static_cast<float*>(dlp_s));
+        static_cast<float*>(dconv_s), static_cast<float*>(dlp_s)));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1055,17 +1057,15 @@ extern "C" int final_bwd_input_launch(
     int wcol, const void* loop_t, const void* x, void* ewg, void* out, int B,
     int N, int d, void* stream) {
   if (B > 0 && N > 0) {
-    const dim3 grid((N + kTileRows - 1) / kTileRows, B);
-    const size_t smem = 2 * kTileRows * d * sizeof(float);
-    final_bwd_input_kernel<<<grid, kRowGroups * d, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+    return static_cast<int>(launch_bwd_tile(
+        final_bwd_input_kernel, bwd_input_smem_floats(d), B, N, d, stream,
         static_cast<const int*>(s_ptr), static_cast<const int*>(s_dst),
         static_cast<const int*>(s_rel), static_cast<const float*>(s_em),
         static_cast<const int*>(s_eid), static_cast<const float*>(n2),
         static_cast<const float*>(dconv_s), static_cast<const float*>(dlp_s),
         static_cast<const float*>(wrel), wstride, wcol,
         static_cast<const float*>(loop_t), static_cast<const float*>(x),
-        static_cast<float*>(ewg), static_cast<float*>(out), N, d);
+        static_cast<float*>(ewg), static_cast<float*>(out), N, d));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1094,9 +1094,8 @@ extern "C" int final_wgrad_launch(const void* conv_s, const void* dgi_s,
     jobs.job[1] = make_job(h0g_s, sd, dgh_s, sg, whh, bhh, d, 3 * d, &first);
     jobs.job[2] = make_job(x, sd, dlp_s, sd, loop, nullptr, d, d, &first);
     for (int j = 3; j < kWgJobs; ++j) jobs.job[j].first = kNoJob;
-    final_wgrad_kernel<<<dim3(first, n_split), kWgThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        jobs, B, N, wgrad_rows_per_split(B * N, n_split), total);
+    return static_cast<int>(launch_wgrad(final_wgrad_kernel, jobs, first,
+                                         n_split, B, N, total, stream));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,7 +25,7 @@
 // ReLU's mask) with the gate cotangents and their product operands for the
 // weight launch. Then K5's launches: the input cotangent with per-edge
 // relation cotangents (final_bwd_input), the weight cotangents of both GRUs,
-// the self-loop and the four impute scalars as sums over the B*N rows in 32
+// the self-loop and the four impute scalars as sums over the B*N rows in 16
 // ranges (bi_wgrad, the window's weight tiles with six jobs), their ordered
 // sum, and the relation sum. Layer 1 runs without the ReLU and the blend.
 //
@@ -37,9 +37,12 @@
 // below that at 67 TFLOP/s.
 //
 // What the design does about that: one launch covers the batch (b in the
-// grid), each thread owns one column and eight rows, and every weight
-// element is read once per block, as in the window's kernels; plain FMA,
-// wgmma/TF32 left for later work. No atomics: every sum over rows goes
+// grid). bi_layer_kernel and bi_bwd_gru_kernel keep the forward tiles'
+// plain FMA (each thread one column and eight rows, every weight element
+// read once per block, as in the window's forward), waiting on the load
+// pipe more than on the FMA units. K9+K10's input launch (K5's) and its
+// weight launch (wgrad_tile) compute on the tensor cores in 3xTF32 at f32
+// accuracy (rgcn_gru_layer.cuh). No atomics: every sum over rows goes
 // through per-range partials and an ordered reduction, so runs repeat bit
 // for bit.
 
@@ -319,8 +322,8 @@ __global__ void bi_bwd_gru_kernel(
   }
 }
 
-__global__ void bi_wgrad_kernel(WJobs jobs, int B, int N, int rows_per_split,
-                                long long part_stride) {
+__global__ void __launch_bounds__(kWgThreads, 4) bi_wgrad_kernel(
+    WJobs jobs, int B, int N, int rows_per_split, long long part_stride) {
   wgrad_tile(jobs, B, N, rows_per_split, part_stride);
 }
 
@@ -456,9 +459,8 @@ extern "C" int bi_wgrad_launch(const void* gin_s, const void* h0f_s,
                              &first);
     else
       jobs.job[5].first = kNoJob;
-    bi_wgrad_kernel<<<dim3(first, n_split), kWgThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        jobs, B, N, wgrad_rows_per_split(B * N, n_split), total);
+    return static_cast<int>(launch_wgrad(bi_wgrad_kernel, jobs, first,
+                                         n_split, B, N, total, stream));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,8 +30,8 @@
 // forward does four [A, d] x [d, 3d] GRU gate products and one or two
 // [A, d] x [d, d] self-loop products in f32; the backward recomputes them
 // and adds two products per forward product (the input and the weight
-// cotangents), about three times the forward's work, against a few MB of
-// buffers. The SpMM parts are small. So the bound is f32 operations.
+// cotangents), 84 d^2 flops an active row for both layers, against a few
+// MB of buffers. The SpMM parts are small. So the bound is f32 operations.
 //
 // What the design does about that. Step k+1 needs every row of step k,
 // and layer 2 every row of layer 1's output of the same step; backward
@@ -40,26 +40,29 @@
 // backward (layer-2 GRU, layer-2 input cotangent, layer-1 GRU, layer-1
 // input cotangent, weight cotangents), each over (row tile, batch element)
 // or over (weight tile, row range), and two at the end (the relation and
-// the other weight cotangents' sums). No block ever waits for another block. Within a
-// block the tile's operands sit in shared memory; each thread owns one
-// column and eight rows, so every weight element is read once per block
-// (coalesced across the warp) and every shared operand is a warp-wide
-// broadcast. The SpMMs and their transposes give one warp per row over a
-// CSR of that step's edges (by destination forward, by source backward),
-// summing in registers without atomics, as in spmm.cu. The weight
-// cotangents are sums over all rows, steps and elements: each step's
-// launch gives one block per output tile and range of the step's rows,
-// which adds its tile into that range's own copy of the outputs; one last
-// launch sums the copies in a fixed order, so the sums are deterministic.
+// the other weight cotangents' sums). No block ever waits for another
+// block. The SpMMs and their transposes give one warp per row over a CSR
+// of that step's edges (by destination forward, by source backward),
+// summing in registers without atomics, as in spmm.cu.
+// - K2f's tiles (16 rows, each thread one column and eight rows) keep
+//   plain FMA from shared-memory broadcasts: their loop waits on the load
+//   pipe, a shared load per one to three FMAs.
+// - K2b's products run on the tensor cores in 3xTF32 at f32 accuracy
+//   (rgcn_gru_layer.cuh tile_product and wgrad_tile): a GRU tile of 32 rows
+//   recomputes the conv output and the gates and forms d_gi @ W_ih and
+//   d_gh @ W_hh with the weights streamed through shared memory, each warp
+//   16 columns of every window; the input tile's d_lp @ loop^T the same
+//   way. The weight cotangents are sums over all rows, steps and elements:
+//   each step's launch gives one block per 64 x 64 output tile and range of
+//   the step's rows, the rows as the product's depth, which adds its tile
+//   into that range's own copy of the outputs; one last launch sums the
+//   copies in a fixed order, so the sums are deterministic.
 // The relation-weight cotangent is written per edge and summed per
 // relation by one last launch over a CSR by relation. The cotangent of a
 // row's previous state goes to the row of an earlier step that gidx names;
 // a live row names a row no other live row names (each earlier row is read
 // only by its entity's next active step), so a plain read-add-store is
-// exact, and dead rows (live = 0) store nothing. Products use plain FMA;
-// wgmma and TMA are left for later work. The tile forward, the GRU and
-// input backward and the weight sums are device code shared with the
-// final step's kernels (rgcn_gru_layer.cuh).
+// exact, and dead rows (live = 0) store nothing.
 
 #include "rgcn_gru_layer.cuh"
 
@@ -90,7 +93,7 @@ __global__ void window_layer_kernel(Layer p, float* buf, float* loc) {
   }
 }
 
-__global__ void window_bwd_gru_kernel(
+__global__ void __launch_bounds__(256, 2) window_bwd_gru_kernel(
     Layer p, const float* __restrict__ wih, const float* __restrict__ whh,
     float* db, const float* __restrict__ g_loc, float* n2_out,
     float* __restrict__ conv_s,
@@ -114,7 +117,8 @@ __global__ void window_bwd_input_kernel(
                  wstride, wcol, loop_t, x, ewg, out, accumulate, L1, A, d, k);
 }
 
-__global__ void window_wgrad_kernel(WJobs jobs, int B, int A,
+__global__ void __launch_bounds__(kWgThreads, 4) window_wgrad_kernel(
+    WJobs jobs, int B, int A,
                                     int rows_per_split,
                                     long long part_stride) {
   wgrad_tile(jobs, B, A, rows_per_split, part_stride);
@@ -162,20 +166,14 @@ extern "C" int window_bwd_gru_launch(
     const Layer p = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
                                wcol, loopw, mask, relu, wih_t, whh_t, bih,
                                bhh, gidx, live, dt, lam, prev, L1, A, d, k);
-    const size_t smem = 7 * kTileRows * d * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        window_bwd_gru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((A + kTileRows - 1) / kTileRows, B);
-    window_bwd_gru_kernel<<<grid, kRowGroups * d, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-        p, static_cast<const float*>(wih), static_cast<const float*>(whh),
+    return static_cast<int>(launch_bwd_tile(
+        window_bwd_gru_kernel, bwd_gru_smem_floats(d), B, A, d, stream, p,
+        static_cast<const float*>(wih), static_cast<const float*>(whh),
         static_cast<float*>(db), static_cast<const float*>(g_loc),
-        static_cast<float*>(n2_out),
-        static_cast<float*>(conv_s), static_cast<float*>(h0g_s),
-        static_cast<float*>(dgi_s), static_cast<float*>(dgh_s),
-        static_cast<float*>(dconv_s), static_cast<float*>(dlp_s));
+        static_cast<float*>(n2_out), static_cast<float*>(conv_s),
+        static_cast<float*>(h0g_s), static_cast<float*>(dgi_s),
+        static_cast<float*>(dgh_s), static_cast<float*>(dconv_s),
+        static_cast<float*>(dlp_s)));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -187,10 +185,8 @@ extern "C" int window_bwd_input_launch(
     int wcol, const void* loop_t, const void* x, void* ewg, void* out,
     int accumulate, int B, int L1, int A, int d, int k, void* stream) {
   if (B > 0 && A > 0) {
-    const dim3 grid((A + kTileRows - 1) / kTileRows, B);
-    const size_t smem = 2 * kTileRows * d * sizeof(float);
-    window_bwd_input_kernel<<<grid, kRowGroups * d, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+    return static_cast<int>(launch_bwd_tile(
+        window_bwd_input_kernel, bwd_input_smem_floats(d), B, A, d, stream,
         static_cast<const int*>(s_ptr), static_cast<const int*>(s_dst),
         static_cast<const int*>(s_rel), static_cast<const float*>(s_em),
         static_cast<const int*>(s_eid), static_cast<const float*>(n2),
@@ -198,7 +194,7 @@ extern "C" int window_bwd_input_launch(
         static_cast<const float*>(wrel), wstride, wcol,
         static_cast<const float*>(loop_t), static_cast<const float*>(x),
         static_cast<float*>(ewg), static_cast<float*>(out), accumulate, L1,
-        A, d, k);
+        A, d, k));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -240,9 +236,8 @@ extern "C" int window_wgrad_launch(
     jobs.job[3] = make_job(conv1, sd, dgi1, sg, wih1, bih1, d, 3 * d, &first);
     jobs.job[4] = make_job(h0g1, sd, dgh1, sg, whh1, bhh1, d, 3 * d, &first);
     jobs.job[5] = make_job(h0, win, dlp1, sd, loop1, nullptr, d, d, &first);
-    window_wgrad_kernel<<<dim3(first, n_split), kWgThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        jobs, B, A, wgrad_rows_per_split(B * A, n_split), total);
+    return static_cast<int>(launch_wgrad(window_wgrad_kernel, jobs, first,
+                                         n_split, B, A, total, stream));
   }
   return static_cast<int>(cudaGetLastError());
 }

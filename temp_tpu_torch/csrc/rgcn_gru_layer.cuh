@@ -10,12 +10,21 @@
 // step (L1 = 1, k = 0) over all A = N entities, whose previous state is the
 // same row of a dense history (gidx null) and always live (live null).
 //
-// Within a block the tile's operands sit in shared memory; each thread owns
-// one column and eight rows, so every weight element is read once per block
-// (coalesced across the warp) and every shared operand is a warp-wide
-// broadcast. The SpMMs and their transposes give one warp per row over a
-// CSR of that step's edges, summing in registers without atomics. Products
-// use plain FMA.
+// The SpMMs and their transposes give one warp per row over a CSR of that
+// step's edges, summing in registers without atomics. The products:
+// - The forward tiles (layer_tile, conv_tile, gru_gates: K2f, K3, K11, and
+//   K6+K7 and K9+K10's own GRU launch, bi_bwd_gru_kernel) keep plain FMA
+//   from shared-memory broadcasts: each thread owns one column and eight
+//   rows of a kTileRows tile. What bounds them is the load pipe (a shared
+//   load per one or three FMAs), not the FMA units.
+// - The backward tiles (bwd_gru_tile, bwd_input_tile, wgrad_tile: K2b and
+//   K5, and K9+K10's input and weight launches) compute every product with
+//   tile_product (or wgrad_tile's own loop of the same parts) on the tensor
+//   cores in 3xTF32 at f32 accuracy: the weights stream through shared
+//   memory by cp.async, each warp owns 16 columns of every window and all
+//   32 rows of the tile, and keeps its outputs in mma accumulators. What
+//   bounds them is the tensor cores' mma.sync rate at three products for
+//   each f32 one, with the 3xTF32 splits and the staging beside it.
 
 #pragma once
 
@@ -28,16 +37,14 @@ constexpr int kTileRows = 16;
 constexpr int kRowGroups = 2;                         // threads = 2 * d
 constexpr int kRowsPerThread = kTileRows / kRowGroups;
 constexpr int kMaxChunks = 8;                         // d <= 256
-// Unroll of the GRU gate-product loop: 4 in the one-GRU forward kernels,
-// none in the backward ones, which recompute the gates beside their own
-// products, nor in the bidirectional forward (two GRUs a tile). Measured on
-// an H100 (PERF.md): unrolled, the window forward takes 2.7 ms where it took
-// 3.5 (86 -> 126 registers); the window backward 17 ms where it took 14.4
-// (80 -> 130 registers) and the bidirectional forward 4.7 where it took 3.0
-// (96 -> 130): above 128 registers a 256-thread block leaves no room for a
-// second one on an SM.
+// Unroll of the forward tiles' GRU gate-product loop: 4 in the one-GRU
+// forward kernels, none in the bidirectional ones (two GRUs a tile).
+// Measured on an H100 (PERF.md): unrolled, the window forward takes 2.7 ms
+// where it took 3.5 (86 -> 126 registers) and the bidirectional forward 4.7
+// where it took 3.0 (96 -> 130): above 128 registers a 256-thread block
+// leaves no room for a second one on an SM.
 constexpr int kUnrolled = 4;  // window_layer_kernel, final_layer_kernel
-constexpr int kRolled = 1;    // the backward tiles, bi_layer_kernel
+constexpr int kRolled = 1;    // bi_layer_kernel, bi_bwd_gru_kernel
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -87,15 +94,16 @@ struct Gates {
   float ghn[kRowsPerThread];  // W_hn h + b_hn, before the reset gate
 };
 
-// Rows a0..a0+15 of element b into shared memory: xs = the input rows, hs =
-// the previous states times live * exp(-lambda * dt) (cs = xs when the conv
-// output is given). No barrier at the end.
+// Rows a0..a0+nrows-1 of element b into shared memory (row stride ld): xs
+// = the input rows, hs = the previous states times live * exp(-lambda * dt)
+// (cs = xs when the conv output is given). No barrier at the end.
 __device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
-                                          float* xs, float* cs, float* hs) {
+                                          int nrows, int ld, float* xs,
+                                          float* cs, float* hs) {
   const int d = p.d, A = p.A;
   const long long elem_row = (long long)b * p.L1 * A;
   const long long step_row = elem_row + (long long)p.k * A;
-  for (int i = threadIdx.x; i < kTileRows * d; i += blockDim.x) {
+  for (int i = threadIdx.x; i < nrows * d; i += blockDim.x) {
     const int r = i / d, c = i - r * d;
     const int a = a0 + r;
     float xv = 0.f, hv = 0.f;
@@ -105,10 +113,15 @@ __device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
       const float dec = expf(-p.lam * p.dt[row]);
       hv = p.prev[prev_row(p, elem_row, row) * d + c] * live_of(p, row) * dec;
     }
-    xs[i] = xv;
-    if (hs != nullptr) hs[i] = hv;
-    if (p.conv_given) cs[i] = xv;
+    xs[r * ld + c] = xv;
+    if (hs != nullptr) hs[r * ld + c] = hv;
+    if (p.conv_given) cs[r * ld + c] = xv;
   }
+}
+
+__device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
+                                          float* xs, float* cs, float* hs) {
+  load_tile(p, b, a0, kTileRows, p.d, xs, cs, hs);
 }
 
 // The decayed previous states of a tile only (the second direction of a
@@ -131,22 +144,17 @@ __device__ __forceinline__ void load_prev(const Layer& p, int b, int a0,
   }
 }
 
-// The conv output of a loaded tile into cs: the relational SpMM with double
-// degree normalization (one warp a row) plus the self-loop product times its
-// dropout mask, then the ReLU when p.relu. Writes norm^2 of each row to
-// n2_out when it is not null. Starts and ends with a barrier.
-__device__ __forceinline__ void conv_tile(const Layer& p, int b, int a0,
-                                          const float* xs, float* cs,
+// The relational SpMM with double degree normalization of rows
+// a0..a0+nrows-1 of element b (one warp a row) into cs (row stride ld);
+// writes norm^2 of each row to n2_out when it is not null. No barrier.
+__device__ __forceinline__ void spmm_rows(const Layer& p, int b, int a0,
+                                          int nrows, float* cs, int ld,
                                           float* n2_out) {
   const int d = p.d, A = p.A;
   const long long step_row = ((long long)b * p.L1 + p.k) * A;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  __syncthreads();
-  if (p.conv_given) return;
-  const int warp = tid / kWarp, lane = tid % kWarp;
-  const int nwarps = (nthreads + kWarp - 1) / kWarp;
-  for (int r = warp; r < kTileRows; r += nwarps) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int nwarps = (blockDim.x + kWarp - 1) / kWarp;
+  for (int r = warp; r < nrows; r += nwarps) {
     const int a = a0 + r;
     float acc[kMaxChunks];
 #pragma unroll
@@ -172,10 +180,26 @@ __device__ __forceinline__ void conv_tile(const Layer& p, int b, int a0,
 #pragma unroll
     for (int j = 0; j < kMaxChunks; ++j) {
       const int c = lane + j * kWarp;
-      if (c < d) cs[r * d + c] = acc[j] * n2;
+      if (c < d) cs[r * ld + c] = acc[j] * n2;
     }
     if (n2_out != nullptr && lane == 0 && a < A) n2_out[step_row + a] = n2;
   }
+}
+
+// The conv output of a loaded tile of kTileRows rows into cs: spmm_rows
+// plus the self-loop product times its dropout mask, then the ReLU when
+// p.relu. Writes norm^2 of each row to n2_out when it is not null. Starts
+// and ends with a barrier. (The forward tiles' product: plain FMA, each
+// thread one column and eight rows.)
+__device__ __forceinline__ void conv_tile(const Layer& p, int b, int a0,
+                                          const float* xs, float* cs,
+                                          float* n2_out) {
+  const int d = p.d, A = p.A;
+  const long long step_row = ((long long)b * p.L1 + p.k) * A;
+  const int tid = threadIdx.x;
+  __syncthreads();
+  if (p.conv_given) return;
+  spmm_rows(p, b, a0, kTileRows, cs, d, n2_out);
   __syncthreads();
 
   const int col = tid % d;
@@ -261,16 +285,248 @@ __device__ __forceinline__ void layer_tile(const Layer& p, int b, int a0,
   gru_gates<kUnroll>(cs, hs, p.wih_t, p.whh_t, p.bih, p.bhh, p.d, gt);
 }
 
-// Backward of one layer's GRU at step k for a tile of rows (blockIdx.x) of
-// element blockIdx.y: recomputes the conv output and the gates, takes d_out
-// from db, and gives d_conv (plus the cotangent g_loc of the conv output
-// itself when it is not null, both through the ReLU's mask when p.relu; and
-// d_conv * mask, the self-loop cotangent) into the step scratch, the gate
-// cotangents and their product operands into the step scratch for the
-// weight launch. The cotangent of each row's
-// previous state goes to dprev at the row itself when dprev is not null
-// (the final step: d_hist), else it is added into db at the row gidx names
-// (the window; dead rows add nothing). Shared memory: 7 * kTileRows * d.
+// -- The backward tiles' products: 3xTF32 on the tensor cores ---------------
+//
+// Every product of the backward tiles (the self-loop and gate products of
+// the recompute, the transposed gate products, the input cotangent's
+// d_lp @ loop^T and the weight cotangents X^T G) runs on mma.sync
+// m16n8k8 with tf32 operands at f32 accuracy: each f32 operand x is split
+// into hi, x with its 13 low mantissa bits cleared (the tiles) or rounded
+// to tf32 (the weight launch), and lo = x - hi, exact in f32, of which the
+// tensor core reads the top 11 significant bits. A k8 step adds lo*hi +
+// hi*lo + hi*hi (the lo*lo term, under 2^-20 of the product, is dropped).
+// The three products of a k8 step start from zero and their sum is added
+// to the f32 accumulator with an ordinary rounded add, so the tensor
+// cores' own truncating accumulation covers 8 terms at a time, never a
+// long sum. Per product the error is then a few 2^-21 relative, within a
+// small factor of f32's own rounding over the sums of 128-384 terms of the
+// tiles; the weight launch's sums run over thousands of rows, and its
+// rounded hi halves the error there (tests/test_torch_tf32x3.py holds a
+// model of both to float64). The rounding conversions are the costly part:
+// without them K5 took 3.28 ms where it took 3.70 on an H100 (PERF.md).
+
+constexpr int kBwdRows = 32;               // rows a backward tile
+constexpr int kMTiles = kBwdRows / 16;     // m16 tiles a warp: all the rows
+constexpr int kWarpCols = 16;              // columns a warp owns: two n8
+constexpr int kKs = 8;                     // depth rows a ring slot holds
+constexpr int kRingSlots = 3;
+
+// x = hi + lo: hi rounded to tf32 (kRound) or truncated, lo the exact rest.
+template <bool kRound>
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  if (kRound)
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  else
+    hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An m16 x k8 operand of A and a k8 x n8 operand of B, split.
+struct FragA {
+  unsigned hi[4], lo[4];
+};
+struct FragB {
+  unsigned hi[2], lo[2];
+};
+
+// acc += A B over one k8 step in 3xTF32.
+__device__ __forceinline__ void mma3(float (&acc)[4], const FragA& a,
+                                     const FragB& b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(t, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(t, a.hi, b.hi[0], b.hi[1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += t[i];
+}
+
+// A's m16 x k8 operand at rows r0.., columns k0.. of a row-major [rows, ld]
+// array in shared memory (the mma's row layout: lane g = lane / 4 holds rows
+// g and g + 8, lane t = lane % 4 columns t and t + 4), its high parts
+// truncated (the tiles).
+__device__ __forceinline__ FragA frag_a_rows(const float* a, int ld, int r0,
+                                             int k0) {
+  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
+  const float* p = a + (r0 + g) * ld + k0 + t;
+  FragA f;
+  split_tf32<false>(p[0], f.hi[0], f.lo[0]);
+  split_tf32<false>(p[8 * ld], f.hi[1], f.lo[1]);
+  split_tf32<false>(p[4], f.hi[2], f.lo[2]);
+  split_tf32<false>(p[8 * ld + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// The same operand from a depth-major [k, m] array (A transposed), its
+// high parts rounded (the weight launch).
+__device__ __forceinline__ FragA frag_a_depth(const float* a, int ld, int m0,
+                                              int k0) {
+  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
+  const float* p = a + (k0 + t) * ld + m0 + g;
+  FragA f;
+  split_tf32<true>(p[0], f.hi[0], f.lo[0]);
+  split_tf32<true>(p[8], f.hi[1], f.lo[1]);
+  split_tf32<true>(p[4 * ld], f.hi[2], f.lo[2]);
+  split_tf32<true>(p[4 * ld + 8], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B's k8 x n8 operand at depth rows k0.., columns n0.. of a depth-major
+// [k, n] array in shared memory, its high parts rounded when kRound.
+template <bool kRound>
+__device__ __forceinline__ FragB frag_b(const float* b, int ld, int k0,
+                                        int n0) {
+  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
+  const float* p = b + (k0 + t) * ld + n0 + g;
+  FragB f;
+  split_tf32<kRound>(p[0], f.hi[0], f.lo[0]);
+  split_tf32<kRound>(p[4 * ld], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// 16 bytes from device to shared memory, asynchronously; zeros when !valid
+// (then nothing is read at src).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
+}
+
+// The first column of the warp's 16 in a backward tile.
+__device__ __forceinline__ int warp_col0() {
+  return (threadIdx.x / kWarp) * kWarpCols;
+}
+
+// The position of element i (0..3) of a thread's accumulator of tile
+// (mt, nt): row within the block's kBwdRows, column within the warp's 16.
+__device__ __forceinline__ int acc_row(int mt, int i) {
+  return mt * 16 + ((threadIdx.x % kWarp) >> 2) + (i >= 2 ? 8 : 0);
+}
+
+__device__ __forceinline__ int acc_col(int nt, int i) {
+  return nt * 8 + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// Floats of the ring that streams G weight windows of d columns.
+__host__ __device__ constexpr int ring_floats(int G, int d) {
+  return kRingSlots * kKs * (G * d + 8);
+}
+
+// The block's product routine: acc[Slot_g] += A @ W_g for g < G, over the
+// warp's 16 columns of each W_g. A: kBwdRows rows in shared memory
+// (row-major, row stride lda, depth column 0 at a); W_g: [K, d] windows in
+// device memory (row stride ldw, column 0 at w[g]). The K depth rows of the
+// G windows stream through `ring` in slots of kKs rows (cp.async, kRingSlots
+// slots in flight, one barrier a slot), so each weight element is read from
+// device memory once a block and by the warp that owns its column from
+// shared memory. Warp w owns columns 16w..16w+15 of every window and all the
+// block's rows; the block has d / 16 warps and K is a multiple of 8. Starts
+// with a barrier (A must be complete) and ends with one (the ring and A may
+// be rewritten after it).
+template <int NA, int... Slot>
+__device__ __forceinline__ void tile_product(
+    const float* a, int lda, int K,
+    const float* const (&w)[sizeof...(Slot)], int ldw, int d, float* ring,
+    float (&acc)[NA][kMTiles][2][4]) {
+  constexpr int G = sizeof...(Slot);
+  constexpr int slot[G] = {Slot...};
+  const int ws = G * d + 8;              // ring row stride: no bank conflicts
+  const int slot_floats = kKs * ws;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int quads = d / 4;
+  const int c0 = warp_col0();
+  const int steps = K / kKs;
+  auto stage = [&](int s) {
+    if (s < steps) {
+      float* dst = ring + (s % kRingSlots) * slot_floats;
+      const int k0 = s * kKs;
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        for (int i = tid; i < kKs * quads; i += nthreads) {
+          const int r = i / quads, q = i - r * quads;
+          cp_async16(dst + r * ws + g * d + 4 * q,
+                     w[g] + (long long)(k0 + r) * ldw + 4 * q, true);
+        }
+    }
+    cp_async_commit();
+  };
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kRingSlots - 1; ++s) stage(s);
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kRingSlots - 2>();
+    __syncthreads();
+    stage(s + kRingSlots - 1);
+    const float* bs = ring + (s % kRingSlots) * slot_floats;
+    FragA fa[kMTiles];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+      fa[mt] = frag_a_rows(a, lda, mt * 16, s * kKs);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const FragB fb = frag_b<false>(bs, ws, 0, g * d + c0 + nt * 8);
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt)
+          mma3(acc[slot[g]][mt][nt], fa[mt], fb);
+      }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+template <int NA>
+__device__ __forceinline__ void zero_acc(float (&acc)[NA][kMTiles][2][4]) {
+#pragma unroll
+  for (int j = 0; j < NA; ++j)
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][mt][nt][i] = 0.f;
+}
+
+// Shared memory of bwd_gru_tile in floats: the ring of three gate windows,
+// then the tile region: xs, cs, hs ([kBwdRows, d + 4] each), later dg
+// ([kBwdRows, 4d + 4], the larger) over them. 103,680 bytes at d = 128:
+// two blocks an SM.
+__host__ __device__ constexpr int bwd_gru_smem_floats(int d) {
+  return ring_floats(3, d) + kBwdRows * (4 * d + 4);
+}
+
+// Backward of one layer's GRU at step k for a tile of kBwdRows rows
+// (blockIdx.x) of element blockIdx.y, with d / 16 warps: recomputes the
+// conv output and the gates, takes d_out from db, and gives d_conv (plus
+// the cotangent g_loc of the conv output itself when it is not null, both
+// through the ReLU's mask when p.relu; and d_conv * mask, the self-loop
+// cotangent) into the step scratch, the gate cotangents and their product
+// operands into the step scratch for the weight launch. The cotangent of
+// each row's previous state goes to dprev at the row itself when dprev is
+// not null (the final step: d_hist), else it is added into db at the row
+// gidx names (the window; dead rows add nothing). Its five products (the
+// self-loop, the input and hidden gate products, d_gi @ W_ih and
+// d_gh @ W_hh) go through tile_product; each thread keeps the gates of its
+// accumulator positions in registers between them.
 __device__ __forceinline__ void bwd_gru_tile(
     const Layer& p,
     const float* __restrict__ wih,     // [3d, d] (torch layout)
@@ -286,102 +542,163 @@ __device__ __forceinline__ void bwd_gru_tile(
     float* __restrict__ dconv_s,       // [B*A, d]
     float* __restrict__ dlp_s) {       // [B*A, d]
   extern __shared__ float smem[];
-  const int d = p.d, A = p.A, d3 = 3 * d, d4 = 4 * d;
-  float* xs = smem;
-  float* cs = xs + kTileRows * d;
-  float* hs = cs + kTileRows * d;
-  float* dg = hs + kTileRows * d;      // [kTileRows, 4d]: d_r, d_z, d_n, d_ghn
+  const int d = p.d, A = p.A, d3 = 3 * d;
+  const int ld = d + 4, ldg = 4 * d + 4;
+  float* ring = smem;
+  float* xs = smem + ring_floats(3, d);
+  float* cs = xs + kBwdRows * ld;
+  float* hs = cs + kBwdRows * ld;
+  float* dg = xs;                      // [kBwdRows, 4d]: d_r, d_z, d_n, d_ghn
   const int b = blockIdx.y;
-  const int a0 = blockIdx.x * kTileRows;
-  Gates gt;
-  layer_tile<kRolled>(p, b, a0, xs, cs, hs, n2_out, gt);
-
-  const int col = threadIdx.x % d;
-  const int r0 = (threadIdx.x / d) * kRowsPerThread;
+  const int a0 = blockIdx.x * kBwdRows;
+  const int c0 = warp_col0();
   const long long elem_row = (long long)b * p.L1 * A;
   const long long step_row = elem_row + (long long)p.k * A;
-  float dh_direct[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = r0 + i, a = a0 + r;
-    float pr = 0.f, pz = 0.f, pn = 0.f, phn = 0.f;
-    dh_direct[i] = 0.f;
-    if (a < A) {
-      const long long row = step_row + a;
-      const long long m = (long long)b * A + a;
-      const float dout = db[row * d + col];
-      const float h = hs[r * d + col];
-      const float z = gt.z[i], n = gt.n[i], rg = gt.r[i];
-      const float dz = dout * (h - n);
-      const float dn = dout * (1.f - z);
-      dh_direct[i] = dout * z;
-      pn = dn * (1.f - n * n);
-      phn = pn * rg;
-      const float dr = pn * gt.ghn[i];
-      pr = dr * rg * (1.f - rg);
-      pz = dz * z * (1.f - z);
-      conv_s[m * d + col] = cs[r * d + col];
-      h0g_s[m * d + col] = h;
-      dgi_s[m * d3 + col] = pr;
-      dgi_s[m * d3 + d + col] = pz;
-      dgi_s[m * d3 + 2 * d + col] = pn;
-      dgh_s[m * d3 + col] = pr;
-      dgh_s[m * d3 + d + col] = pz;
-      dgh_s[m * d3 + 2 * d + col] = phn;
-    }
-    dg[r * d4 + col] = pr;
-    dg[r * d4 + d + col] = pz;
-    dg[r * d4 + 2 * d + col] = pn;
-    dg[r * d4 + 3 * d + col] = phn;
-  }
-  __syncthreads();
 
-  // d_conv = d_gi @ W_ih and d_h0g += d_gh @ W_hh, column `col`
-  float dx[kRowsPerThread], dh[kRowsPerThread];
+  // the conv output: the SpMM rows into cs, then + (xs @ loop) * mask
+  load_tile(p, b, a0, kBwdRows, ld, xs, nullptr, hs);
+  spmm_rows(p, b, a0, kBwdRows, cs, ld, n2_out);
+  {
+    float lp[1][kMTiles][2][4];
+    zero_acc(lp);
+    const float* w[1] = {p.loopw};
+    tile_product<1, 0>(xs, ld, d, w, d, d, ring, lp);
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) dx[i] = dh[i] = 0.f;
-  for (int j = 0; j < d; ++j) {
-    const float wr = wih[(long long)j * d + col];
-    const float wz = wih[(long long)(d + j) * d + col];
-    const float wn = wih[(long long)(2 * d + j) * d + col];
-    const float ur = whh[(long long)j * d + col];
-    const float uz = whh[(long long)(d + j) * d + col];
-    const float un = whh[(long long)(2 * d + j) * d + col];
+    for (int mt = 0; mt < kMTiles; ++mt)
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const float* g = dg + (r0 + i) * d4;
-      dx[i] += g[j] * wr + g[d + j] * wz + g[2 * d + j] * wn;
-      dh[i] += g[j] * ur + g[d + j] * uz + g[3 * d + j] * un;
-    }
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = acc_row(mt, i), c = c0 + acc_col(nt, i);
+          float v = lp[0][mt][nt][i];
+          if (p.mask != nullptr && a0 + r < A)
+            v *= p.mask[(step_row + a0 + r) * d + c];
+          v += cs[r * ld + c];
+          cs[r * ld + c] = p.relu ? fmaxf(v, 0.f) : v;
+        }
+  }
+
+  // the gates: acc 0 = gi_r + gh_r, 1 = gi_z + gh_z, 2 = gi_n, 3 = gh_n
+  float acc[4][kMTiles][2][4];
+  zero_acc(acc);
+  {
+    const float* wi[3] = {p.wih_t, p.wih_t + d, p.wih_t + 2 * d};
+    tile_product<4, 0, 1, 2>(cs, ld, d, wi, d3, d, ring, acc);
+    const float* wh[3] = {p.whh_t, p.whh_t + d, p.whh_t + 2 * d};
+    tile_product<4, 0, 1, 3>(hs, ld, d, wh, d3, d, ring, acc);
+  }
+  // the gate cotangents, in place of the gates; d_out * z
+  float dh_direct[kMTiles][2][4];
+  unsigned pos_bits = 0;               // conv output > 0, by position
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = acc_row(mt, i), c = c0 + acc_col(nt, i), a = a0 + r;
+        const float cv = cs[r * ld + c];
+        if (cv > 0.f) pos_bits |= 1u << ((mt * 2 + nt) * 4 + i);
+        float pr = 0.f, pz = 0.f, pn = 0.f, phn = 0.f, dhd = 0.f;
+        if (a < A) {
+          const long long row = step_row + a;
+          const long long m = (long long)b * A + a;
+          const float rg = sigmoid(acc[0][mt][nt][i] + (p.bih[c] + p.bhh[c]));
+          const float z = sigmoid(acc[1][mt][nt][i]
+                                  + (p.bih[d + c] + p.bhh[d + c]));
+          const float ghn = acc[3][mt][nt][i] + p.bhh[2 * d + c];
+          const float n = tanhf((acc[2][mt][nt][i] + p.bih[2 * d + c])
+                                + rg * ghn);
+          const float dout = db[row * d + c];
+          const float h = hs[r * ld + c];
+          const float dz = dout * (h - n);
+          const float dn = dout * (1.f - z);
+          dhd = dout * z;
+          pn = dn * (1.f - n * n);
+          phn = pn * rg;
+          pr = pn * ghn * rg * (1.f - rg);
+          pz = dz * z * (1.f - z);
+          conv_s[m * d + c] = cv;
+          h0g_s[m * d + c] = h;
+          dgi_s[m * d3 + c] = pr;
+          dgi_s[m * d3 + d + c] = pz;
+          dgi_s[m * d3 + 2 * d + c] = pn;
+          dgh_s[m * d3 + c] = pr;
+          dgh_s[m * d3 + d + c] = pz;
+          dgh_s[m * d3 + 2 * d + c] = phn;
+        }
+        dh_direct[mt][nt][i] = dhd;
+        acc[0][mt][nt][i] = pr;
+        acc[1][mt][nt][i] = pz;
+        acc[2][mt][nt][i] = pn;
+        acc[3][mt][nt][i] = phn;
+      }
+  __syncthreads();                     // dg overwrites xs, cs and hs
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dg[acc_row(mt, i) * ldg + j * d + c0 + acc_col(nt, i)] =
+              acc[j][mt][nt][i];
+
+  // d_conv = d_gi @ W_ih (acc 0), d_h0g += d_gh @ W_hh (acc 1), a gate
+  // section of the depth at a time
+  float dx[2][kMTiles][2][4];
+  zero_acc(dx);
+  {
+    const long long dd = (long long)d * d;
+    const float* wr[2] = {wih, whh};
+    tile_product<2, 0, 1>(dg, ldg, d, wr, d, d, ring, dx);
+    const float* wz[2] = {wih + dd, whh + dd};
+    tile_product<2, 0, 1>(dg + d, ldg, d, wz, d, d, ring, dx);
+    const float* wn[1] = {wih + 2 * dd};
+    tile_product<2, 0>(dg + 2 * d, ldg, d, wn, d, d, ring, dx);
+    const float* wh[1] = {whh + 2 * dd};
+    tile_product<2, 1>(dg + 3 * d, ldg, d, wh, d, d, ring, dx);
   }
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int a = a0 + r0 + i;
-    if (a >= A) continue;
-    const long long row = step_row + a;
-    const long long m = (long long)b * A + a;
-    float dc = dx[i];
-    if (g_loc != nullptr) dc += g_loc[row * d + col];
-    if (p.relu && !(cs[(r0 + i) * d + col] > 0.f)) dc = 0.f;
-    dconv_s[m * d + col] = dc;
-    dlp_s[m * d + col] = p.mask != nullptr ? dc * p.mask[row * d + col] : dc;
-    const float lv = live_of(p, row);
-    const float dec = expf(-p.lam * p.dt[row]);
-    if (dprev != nullptr) {
-      dprev[row * d + col] = (dh_direct[i] + dh[i]) * dec * lv;
-    } else if (lv != 0.f) {
-      const long long t = prev_row(p, elem_row, row) * d + col;
-      db[t] += (dh_direct[i] + dh[i]) * dec * lv;
-    }
-  }
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int a = a0 + acc_row(mt, i), c = c0 + acc_col(nt, i);
+        if (a >= A) continue;
+        const long long row = step_row + a;
+        const long long m = (long long)b * A + a;
+        float dc = dx[0][mt][nt][i];
+        if (g_loc != nullptr) dc += g_loc[row * d + c];
+        if (p.relu && !((pos_bits >> ((mt * 2 + nt) * 4 + i)) & 1u)) dc = 0.f;
+        dconv_s[m * d + c] = dc;
+        dlp_s[m * d + c] = p.mask != nullptr ? dc * p.mask[row * d + c] : dc;
+        const float lv = live_of(p, row);
+        const float dec = expf(-p.lam * p.dt[row]);
+        const float dh = dh_direct[mt][nt][i] + dx[1][mt][nt][i];
+        if (dprev != nullptr) {
+          dprev[row * d + c] = dh * dec * lv;
+        } else if (lv != 0.f) {
+          db[prev_row(p, elem_row, row) * d + c] += dh * dec * lv;
+        }
+      }
 }
 
-// Cotangent of one layer's input rows at step k, for a tile of rows
-// (blockIdx.x) of element blockIdx.y: out = (base + SpMM^T of d_conv) +
-// d_lp @ loop^T, with base the current out (accumulate) or 0. Also writes
-// each edge's relation-weight cotangent (over a CSR by source, so every
-// unmasked edge of the step is written once; masked edges are in no CSR and
-// their slots are never read). Shared memory: 2 * kTileRows * d.
+// Shared memory of bwd_input_tile in floats: the ring of one window, then
+// ls and cs ([kBwdRows, d + 4] each).
+__host__ __device__ constexpr int bwd_input_smem_floats(int d) {
+  return ring_floats(1, d) + 2 * kBwdRows * (d + 4);
+}
+
+// Cotangent of one layer's input rows at step k, for a tile of kBwdRows
+// rows (blockIdx.x) of element blockIdx.y, with d / 16 warps: out = (base +
+// SpMM^T of d_conv) + d_lp @ loop^T, with base the current out (accumulate)
+// or 0; the product through tile_product. Also writes each edge's
+// relation-weight cotangent (over a CSR by source, so every unmasked edge
+// of the step is written once; masked edges are in no CSR and their slots
+// are never read).
 __device__ __forceinline__ void bwd_input_tile(
     const int* __restrict__ s_ptr,     // [B*L1*A + 1] CSR by (b, k, src)
     const int* __restrict__ s_dst,     // step-local destination rows
@@ -398,20 +715,22 @@ __device__ __forceinline__ void bwd_input_tile(
     float* out,                        // [B, L1, A, d]
     int accumulate, int L1, int A, int d, int k) {
   extern __shared__ float smem[];
-  float* ls = smem;                    // [kTileRows, d] d_lp rows
-  float* cs = ls + kTileRows * d;      // [kTileRows, d] SpMM^T rows
+  const int ld = d + 4;
+  float* ring = smem;
+  float* ls = smem + ring_floats(1, d);  // [kBwdRows, d] d_lp rows
+  float* cs = ls + kBwdRows * ld;        // [kBwdRows, d] SpMM^T rows
   const int b = blockIdx.y;
-  const int a0 = blockIdx.x * kTileRows;
+  const int a0 = blockIdx.x * kBwdRows;
   const long long step_row = ((long long)b * L1 + k) * A;
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  for (int i = tid; i < kTileRows * d; i += nthreads) {
+  for (int i = tid; i < kBwdRows * d; i += nthreads) {
     const int r = i / d, c = i - r * d;
     const int a = a0 + r;
-    ls[i] = a < A ? dlp_s[((long long)b * A + a) * d + c] : 0.f;
+    ls[r * ld + c] = a < A ? dlp_s[((long long)b * A + a) * d + c] : 0.f;
   }
   const int warp = tid / kWarp, lane = tid % kWarp;
   const int nwarps = (nthreads + kWarp - 1) / kWarp;
-  for (int r = warp; r < kTileRows; r += nwarps) {
+  for (int r = warp; r < kBwdRows; r += nwarps) {
     const int a = a0 + r;
     float acc[kMaxChunks];
 #pragma unroll
@@ -440,43 +759,50 @@ __device__ __forceinline__ void bwd_input_tile(
 #pragma unroll
     for (int j = 0; j < kMaxChunks; ++j) {
       const int c = lane + j * kWarp;
-      if (c < d) cs[r * d + c] = acc[j];
+      if (c < d) cs[r * ld + c] = acc[j];
     }
   }
-  __syncthreads();
 
-  const int col = tid % d;
-  const int r0 = (tid / d) * kRowsPerThread;
-  float acc[kRowsPerThread];
+  float lp[1][kMTiles][2][4];
+  zero_acc(lp);
+  const float* w[1] = {loop_t};
+  tile_product<1, 0>(ls, ld, d, w, d, d, ring, lp);
+  const int c0 = warp_col0();
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.f;
-  for (int j = 0; j < d; ++j) {
-    const float w = loop_t[j * d + col];
+  for (int mt = 0; mt < kMTiles; ++mt)
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) acc[i] += ls[(r0 + i) * d + j] * w;
-  }
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int a = a0 + r0 + i;
-    if (a >= A) continue;
-    float* o = out + (step_row + a) * d + col;
-    const float base = accumulate ? *o : 0.f;
-    *o = (base + cs[(r0 + i) * d + col]) + acc[i];
-  }
+      for (int i = 0; i < 4; ++i) {
+        const int r = acc_row(mt, i), c = c0 + acc_col(nt, i), a = a0 + r;
+        if (a >= A) continue;
+        float* o = out + (step_row + a) * d + c;
+        const float base = accumulate ? *o : 0.f;
+        *o = (base + cs[r * ld + c]) + lp[0][mt][nt][i];
+      }
 }
 
 // Weight cotangents: out[x_col, g_col] += sum over B*A rows of
-// X[row, x_col] * G[row, g_col], and bias[g_col] += sum of G. The rows are
-// cut into ranges (blockIdx.y); each range adds into its own copy of the
-// outputs (part + range * part_stride), so no two blocks write one address,
-// and a reduction sums the copies in range order: deterministic sums.
-// blockIdx.x walks the output tiles of up to kWgJobs jobs.
-constexpr int kWgX = 32;      // x columns per tile (16 threads x 2)
-constexpr int kWgG = 64;      // g columns per tile (16 threads x 4)
-constexpr int kWgRows = 32;   // rows per shared-memory chunk
-constexpr int kWgThreads = 256;
+// X[row, x_col] * G[row, g_col], and bias[g_col] += sum of G (X's column of
+// ones), as a product whose depth is the rows. The rows are cut into ranges
+// (blockIdx.y); each range adds into its own copy of the outputs (part +
+// range * part_stride), so no two blocks write one address, and a
+// reduction sums the copies in range order: deterministic sums.
+// blockIdx.x walks the output tiles of up to kWgJobs jobs: kWgM x columns
+// by kWgN g columns, four warps of 32 x 32. The X and G rows of a range
+// stream through a ring of kWgSlots slots of kWgK rows (cp.async), the
+// products in 3xTF32 as the tiles'. The bias is the column sums of the
+// staged G rows, taken in row order by the first x tile's blocks (the ones
+// column of X, without a tile of its own).
+constexpr int kWgM = 64;      // x columns per tile
+constexpr int kWgN = 64;      // g columns per tile
+constexpr int kWgK = 32;      // rows per ring slot
+constexpr int kWgSlots = 3;
+constexpr int kWgLd = kWgM + 8;  // slot row stride (kWgM == kWgN)
+constexpr int kWgThreads = 128;
 constexpr int kWgJobs = 6;
 constexpr int kNoJob = 0x7fffffff;  // `first` of an unused job slot
+constexpr int kWgSmemBytes = kWgSlots * 2 * kWgK * kWgLd * sizeof(float);
 
 struct WJob {
   const float* x;      // row (b, a) at x + b * x_es + a * nx
@@ -484,7 +810,7 @@ struct WJob {
   const float* g;      // row (b, a) at g + b * g_es + a * ng
   long long g_es;
   float* out;          // [nx, ng] in range 0's copy
-  float* bias;         // [ng] or null; then X has a column of ones at nx
+  float* bias;         // [ng] or null
   int nx, ng, tiles_g, first;
 };
 
@@ -495,76 +821,97 @@ struct WJobs {
 __device__ __forceinline__ void wgrad_tile(const WJobs& jobs, int B, int A,
                                            int rows_per_split,
                                            long long part_stride) {
-  __shared__ float xsm[kWgRows][kWgX];
-  __shared__ float gsm[kWgRows][kWgG];
+  extern __shared__ float smem[];
   int j = 0;
   while (j + 1 < kWgJobs && (int)blockIdx.x >= jobs.job[j + 1].first) ++j;
   const WJob jb = jobs.job[j];
   const int t = blockIdx.x - jb.first;
-  const int tx0 = (t / jb.tiles_g) * kWgX;
-  const int tg0 = (t % jb.tiles_g) * kWgG;
-  const int tid = threadIdx.x;
-  const int tx = tid / 16, tg = tid % 16;
+  const int tx0 = (t / jb.tiles_g) * kWgM;
+  const int tg0 = (t % jb.tiles_g) * kWgN;
+  const int tid = threadIdx.x, warp = tid / kWarp;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int m_begin = blockIdx.y * rows_per_split;
   const int m_end = min(B * A, m_begin + rows_per_split);
-  float acc[2][4];
+  const int steps = m_end > m_begin ? (m_end - m_begin + kWgK - 1) / kWgK : 0;
+  const bool x_rows = tx0 + wm < jb.nx;      // the warp has x columns
+  const bool bias_sum = jb.bias != nullptr && tx0 == 0 && tid < kWgN;
+  constexpr int kSlot = 2 * kWgK * kWgLd;    // X rows, then G rows
+  float acc[2][4][4];
 #pragma unroll
-  for (int p = 0; p < 2; ++p)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  float bsum = 0.f;
 
-  for (int m0 = m_begin; m0 < m_end; m0 += kWgRows) {
-    for (int i = tid; i < kWgRows * kWgX; i += kWgThreads) {
-      const int r = i / kWgX, c = i % kWgX;
-      const int m = m0 + r, xc = tx0 + c;
-      float v = 0.f;
-      if (m < m_end) {
-        if (xc < jb.nx) {
-          const int b = m / A, a = m - b * A;
-          v = jb.x[b * jb.x_es + (long long)a * jb.nx + xc];
-        } else if (xc == jb.nx && jb.bias != nullptr) {
-          v = 1.f;
+  auto stage = [&](int s) {
+    if (s < steps) {
+      float* xs = smem + (s % kWgSlots) * kSlot;
+      float* gs = xs + kWgK * kWgLd;
+      const int m0 = m_begin + s * kWgK;
+      for (int i = tid; i < kWgK * (kWgM / 4); i += kWgThreads) {
+        const int r = i / (kWgM / 4), q = i % (kWgM / 4);
+        const int m = m0 + r;
+        const int b = m / A, a = m - b * A;
+        const int xc = tx0 + 4 * q, gc = tg0 + 4 * q;
+        const bool xv = m < m_end && xc < jb.nx;
+        const bool gv = m < m_end && gc < jb.ng;
+        cp_async16(xs + r * kWgLd + 4 * q,
+                   xv ? jb.x + b * jb.x_es + (long long)a * jb.nx + xc : jb.g,
+                   xv);
+        cp_async16(gs + r * kWgLd + 4 * q,
+                   gv ? jb.g + b * jb.g_es + (long long)a * jb.ng + gc : jb.g,
+                   gv);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < kWgSlots - 1; ++s) stage(s);
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kWgSlots - 2>();
+    __syncthreads();
+    stage(s + kWgSlots - 1);
+    const float* xs = smem + (s % kWgSlots) * kSlot;
+    const float* gs = xs + kWgK * kWgLd;
+    if (x_rows) {
+#pragma unroll
+      for (int k0 = 0; k0 < kWgK; k0 += 8) {
+        FragA fa[2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          fa[mt] = frag_a_depth(xs, kWgLd, wm + mt * 16, k0);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const FragB fb = frag_b<true>(gs, kWgLd, k0, wn + nt * 8);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma3(acc[mt][nt], fa[mt], fb);
         }
       }
-      xsm[r][c] = v;
     }
-    for (int i = tid; i < kWgRows * kWgG; i += kWgThreads) {
-      const int r = i / kWgG, c = i % kWgG;
-      const int m = m0 + r, gc = tg0 + c;
-      float v = 0.f;
-      if (m < m_end && gc < jb.ng) {
-        const int b = m / A, a = m - b * A;
-        v = jb.g[b * jb.g_es + (long long)a * jb.ng + gc];
-      }
-      gsm[r][c] = v;
+    if (bias_sum) {
+      float slot_sum = 0.f;
+      for (int r = 0; r < kWgK; ++r) slot_sum += gs[r * kWgLd + tid];
+      bsum += slot_sum;
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kWgRows; ++r) {
-      const float xa = xsm[r][tx], xb = xsm[r][tx + 16];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float gv = gsm[r][tg + 16 * q];
-        acc[0][q] += xa * gv;
-        acc[1][q] += xb * gv;
-      }
-    }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+
   const long long off = (long long)blockIdx.y * part_stride;
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const int xc = tx0 + tx + 16 * p;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int gc = tg0 + tg + 16 * q;
-      if (gc >= jb.ng) continue;
-      if (xc < jb.nx)
-        jb.out[off + (long long)xc * jb.ng + gc] += acc[p][q];
-      else if (xc == jb.nx && jb.bias != nullptr)
-        jb.bias[off + gc] += acc[p][q];
-    }
-  }
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int xc = tx0 + wm + acc_row(mt, i);
+        const int gc = tg0 + wn + nt * 8 + 2 * (tid & 3) + (i & 1);
+        if (xc < jb.nx && gc < jb.ng)
+          jb.out[off + (long long)xc * jb.ng + gc] += acc[mt][nt][i];
+      }
+  if (bias_sum && tg0 + tid < jb.ng) jb.bias[off + tg0 + tid] += bsum;
 }
 
 // out[i] = sum over the ranges s = 0..n_split-1 of part[s][i], in order.
@@ -581,7 +928,35 @@ __device__ __forceinline__ void wgrad_reduce_one(
 // Rows per range of a weight launch over M rows cut into n_split ranges.
 inline int wgrad_rows_per_split(int M, int n_split) {
   const int per = (M + n_split - 1) / n_split;
-  return (per + kWgRows - 1) / kWgRows * kWgRows;
+  return (per + kWgK - 1) / kWgK * kWgK;
+}
+
+// A weight launch: `tiles` output tiles (make_job's count) by n_split
+// ranges of the B*A rows.
+template <typename K>
+cudaError_t launch_wgrad(K kernel, const WJobs& jobs, int tiles, int n_split,
+                         int B, int A, long long total, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles, n_split), kWgThreads, kWgSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      jobs, B, A, wgrad_rows_per_split(B * A, n_split), total);
+  return cudaGetLastError();
+}
+
+// A backward tile launch (bwd_gru_tile or bwd_input_tile in `kernel`) over
+// (row tile, element), d / 16 warps, `floats` of shared memory.
+template <typename K, typename... Args>
+cudaError_t launch_bwd_tile(K kernel, int floats, int B, int A, int d,
+                            void* stream, Args... args) {
+  const int bytes = floats * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((A + kBwdRows - 1) / kBwdRows, B);
+  kernel<<<grid, 2 * d, bytes, static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
 }
 
 Layer make_layer(const void* x, int conv_given, const void* rowptr,
@@ -632,9 +1007,9 @@ WJob make_job(const void* x, long long x_es, const void* g, long long g_es,
   jb.bias = bias;
   jb.nx = nx;
   jb.ng = ng;
-  jb.tiles_g = (ng + kWgG - 1) / kWgG;
+  jb.tiles_g = (ng + kWgN - 1) / kWgN;
   jb.first = *first;
-  const int tiles_x = (nx + (bias != nullptr ? 1 : 0) + kWgX - 1) / kWgX;
+  const int tiles_x = nx > 0 ? (nx + kWgM - 1) / kWgM : 1;
   *first += tiles_x * jb.tiles_g;
   return jb;
 }

@@ -51,7 +51,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from temp_tpu_torch import _build
-from temp_tpu_torch.ops.fused_window import _gru_t
+from temp_tpu_torch.ops.fused_window import _device, _gru_t
 from temp_tpu_torch.ops.membership import true_answer_mask
 from temp_tpu_torch.ops.ranking import filtered_ranks
 from temp_tpu_torch.ops.scores import complex_all, complex_single
@@ -61,7 +61,11 @@ from temp_tpu_torch.ops.spmm import (
 
 _MAX_D = 128       # K5 reuses K2b's GRU launch, which takes d <= 128
 _N_SPLIT = 8       # K3/K4 cut the entity columns into this many ranges
-_WGRAD_SPLIT = 32  # K5's weight launch cuts the B*N rows into this many
+# K5's (and K9+K10's) weight launch cuts the B*N rows into this many
+# ranges. At B*N = 57,024 and d = 128: 112 ring slots of 32 rows a range,
+# 16 x 28 tiles of 64 x 64 = 448 blocks (K9+K10: 16 x 53), one wave of the
+# H100's 132 SMs at four 128-thread blocks an SM; 32 ranges took two waves
+_WGRAD_SPLIT = 16
 # K5's weight cotangents as its weight launch lays them out in one buffer
 _WGRAD_LAYOUT = ("dwih", "dbih", "dwhh", "dbhh", "dloop")
 _NEG = -1e9        # the score of a masked column (JAX: jnp.where(bad, -1e9))
@@ -324,12 +328,6 @@ def fused_final_bwd_layer_plain(h_in, prev, gr: FinalGraph, mask, wrel,
 
 
 # -- the kernels' wrappers ---------------------------------------------------
-
-def _device(name, t) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {t.device}")
-    return t.device.type
-
 
 def _check(name, tensors: dict, shapes: dict, ints=()):
     """Device, dtype, shape and contiguity of the kernels' operands."""

@@ -22,7 +22,8 @@ order. ``FusedWindow`` is the autograd function made of the two.
 On a CPU tensor each wrapper runs its plain version (the backward's is
 autograd through ``fused_window_fwd_plain``); on a CUDA tensor it launches
 the hand-written kernels in ``csrc/fused_window.cu`` or raises: forward two
-launches a step (layer 1, then layer 2), backward five a step and two more.
+launches a step (layer 1, then layer 2), backward five a step and two more,
+its products on the tensor cores in 3xTF32 at f32 accuracy.
 """
 
 from __future__ import annotations
@@ -34,9 +35,14 @@ from temp_tpu_torch.ops.gru import GRU_KEY
 from temp_tpu_torch.ops.spmm import build_csr, spmm_fwd_plain
 
 _MAX_D = 256
-_MAX_D_BWD = 128  # K2b's GRU launch keeps 2d threads x ~100 registers
+# K2b's GRU tile: 2d threads (d / 16 warps of 16 columns) and 103,680
+# bytes of shared memory at d = 128, two blocks an SM
+_MAX_D_BWD = 128
 # K2b's weight launch cuts each step's B*A rows into this many ranges, each
-# summed by its own blocks into its own copy of the weight cotangents
+# summed by its own blocks into its own copy of the weight cotangents. At the
+# main path's 5,120 rows a step and d = 128: 20 ring slots of 32 rows a
+# range, 8 x 56 tiles of 64 x 64 = 448 blocks, within one wave of the
+# H100's 132 SMs at four 128-thread blocks an SM
 _WGRAD_SPLIT = 8
 # the weight cotangents as the weight launch lays them out in one buffer
 _WGRAD_LAYOUT = ("dwih2", "dbih2", "dwhh2", "dbhh2", "dloop2",
@@ -147,6 +153,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _device(name, t) -> str:
+    """t's device type, "cpu" or "cuda"; raises on another."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return t.device.type
+
+
 def _step_csr(key_ids, em, B, L1, A, *edge_arrays):
     """CSR over (element, step, row) of [B, L1, E] step-local row ids; the
     masked edges (em = 0) in no row."""
@@ -252,12 +265,10 @@ def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     ``fused_window_fwd`` (conv1_in is not differentiable). Returns (dh0x,
     dwrel, dloop1, dloop2, dwih1, dwhh1, dwih2, dwhh2, dbih1, dbhh1, dbih2,
     dbhh2), the GRU weights' in the wih_t/whh_t layout."""
-    if h0x.device.type == "cpu":
+    if _device("fused_window_bwd", h0x) == "cpu":
         return fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt,
                                       wrel, loop1, loop2, g1, g2, lam, m1,
                                       m2, gb1, gb2, gb3, act2)
-    if h0x.device.type != "cuda":
-        raise ValueError(f"fused_window_bwd: no kernel for device {h0x.device}")
     B, L1, A, d = h0x.shape
     E = src.shape[-1]
     R = wrel.shape[0]

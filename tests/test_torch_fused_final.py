@@ -34,6 +34,7 @@ from temp_tpu_torch.data.snapshots import (
 from temp_tpu_torch.models.layers import dropout_mask
 from temp_tpu_torch.models.registry import get_model
 from temp_tpu_torch.ops import fused_final as ff
+from temp_tpu_torch.ops import fused_window as fw
 from temp_tpu_torch.ops.fused_window import _gru_t
 from temp_tpu_torch.ops.membership import true_answer_mask
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
@@ -338,3 +339,65 @@ def test_kernel_launches_match_the_library_signatures(monkeypatch):
     assert (ff.fused_final_fwd.launches - counts[0],
             ff.fused_final_bwd_loss.launches - counts[1],
             ff.fused_final_bwd_layer.launches - counts[2]) == (4, 4, 10)
+
+
+def test_window_bwd_launches_match_the_library_signatures(monkeypatch):
+    """K2b's plumbing, rehearsed on the CPU as the test above does K3-K5's:
+    one fused window backward (the flagship's ReLU and third buffer, a
+    ragged A) makes, per step in reverse order, the layer-2 GRU and input
+    launches, the layer-1 GRU and input launches and the weight launch,
+    then the weights' sum and the relation sum, each with the argument
+    count and types that ``_build.SIGNATURES`` declares."""
+    kinds = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: int,
+             ctypes.c_float: float, ctypes.c_longlong: int}
+    calls = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            sig = _build.SIGNATURES[name]
+
+            def launch(*args):
+                assert len(args) == len(sig), name
+                for a, t in zip(args, sig):
+                    assert isinstance(a, kinds[t]) and not isinstance(
+                        a, bool), (name, a)
+                calls.append(name)
+                return 0
+            return launch
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(_build, "lib", lambda: Recorder())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None:
+                        Stream())
+    monkeypatch.setattr(fw, "_device", lambda name, t: "cuda")
+    B, L1, A, E, d, R = 2, 3, 37, 6, 16, 5
+    g = np.random.default_rng(0)
+
+    def f32(*shape):
+        return torch.from_numpy(g.standard_normal(shape).astype(np.float32))
+
+    def ids(n, *shape):
+        return torch.from_numpy(g.integers(0, n, shape, dtype=np.int32))
+
+    def gru():
+        return {"wih_t": f32(d, 3 * d), "whh_t": f32(d, 3 * d),
+                "bih": f32(3 * d), "bhh": f32(3 * d)}
+
+    act = (B, L1, A, d)
+    em = torch.from_numpy((g.random((B, L1, E)) < 0.7).astype(np.float32))
+    before = fw.fused_window_bwd.launches
+    out = fw.fused_window_bwd(
+        f32(*act), ids(A, B, L1, E), ids(A, B, L1, E), ids(R, B, L1, E), em,
+        ids(L1 * A, B, L1, A), torch.ones(B, L1, A), torch.ones(B, L1, A),
+        f32(R, 2 * d), f32(d, d), f32(d, d), gru(), gru(), 0.1, f32(*act),
+        f32(*act), f32(*act), f32(*act), f32(*act), f32(*act), f32(*act),
+        act2=True)
+    step = ["window_bwd_gru_launch", "window_bwd_input_launch"] * 2 + [
+        "window_wgrad_launch"]
+    assert calls == step * L1 + ["window_wgrad_reduce_launch",
+                                 "window_rel_grad_launch"]
+    assert fw.fused_window_bwd.launches - before == 5 * L1 + 2
+    assert [tuple(t.shape) for t in out[:4]] == [act, (R, 2 * d), (d, d),
+                                                 (d, d)]

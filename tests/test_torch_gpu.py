@@ -931,6 +931,89 @@ def test_bi_layer_bwd_is_deterministic(cuda):
                    for u, v in zip(x, y))
 
 
+@pytest.mark.parametrize("B,L1,A,E,d,act2", [(8, 14, 640, 256, 128, False),
+                                             (3, 4, 37, 20, 16, True)])
+def test_window_bwd_is_deterministic(cuda, B, L1, A, E, d, act2):
+    """K2b's tensor-core products sum in a fixed order and use no atomics:
+    two runs on the same inputs agree bit for bit, at the main path's shape
+    and at a ragged one (A not a multiple of the 32-row tile, d = 16) with
+    the flagship's ReLU and third buffer."""
+    enc, kw, masks = _train_window_args(B, L1, A, E, d, cuda)
+    cfg = TKGConfig(embed_size=d, hidden_size=d, n_bases=d)
+    a = window_args(enc, cfg, masks=masks,
+                    activation2="relu" if act2 else None, **kw)
+    n_buf = 3 if act2 else 2
+    bufs = fused_window_fwd(**a, conv1_in=False, n_buf=n_buf)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    gbs = [torch.randn(B, L1, A, d, generator=gen, device=cuda)
+           for _ in range(n_buf)]
+    args = dict(a, buf1=bufs[0], buf2=bufs[1], gb1=gbs[0], gb2=gbs[1],
+                gb3=gbs[2] if act2 else None)
+    x = fused_window_bwd(**args)
+    y = fused_window_bwd(**args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(x, y))
+
+
+@pytest.mark.parametrize("N,d,B,R,per,pad", _FINAL_SHAPES)
+def test_final_bwd_layer_is_deterministic(cuda, N, d, B, R, per, pad):
+    """K5's tensor-core products sum in a fixed order and use no atomics:
+    two runs of both layers agree bit for bit, at the main path's shape and
+    at ragged ones (N not a multiple of the 32-row tile, d = 32 and 16)."""
+    gr, w = _final_case(N, d, cuda, B=B, num_rels=R, edges_per_time=per,
+                        pad=pad)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    d_out = torch.randn(B, N, d, generator=gen, device=cuda)
+    h_in = torch.randn(B, N, d, generator=gen, device=cuda) * 0.5
+    for args in ((w["h0"], w["hist1"], gr, gr.m1, w["wrel"], 0, w["loop1"],
+                  w["g1"], d_out),
+                 (h_in, w["hist2"], gr, gr.m2, w["wrel"], d, w["loop2"],
+                  w["g2"], d_out)):
+        x = fused_final_bwd_layer(*args)
+        y = fused_final_bwd_layer(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(x, y))
+
+
+@pytest.mark.parametrize("B,N,d,n_split", [(3, 37, 16, 4), (2, 1000, 64, 16),
+                                           (8, 7128, 128, 16)])
+def test_weight_product_matches_plain(cuda, B, N, d, n_split):
+    """The weight launch alone (wgrad_tile: the rows as the product's depth,
+    3xTF32 on the tensor cores, the bias as the column sums of G), at a
+    ragged row count with d = 16 (most of each 64 x 64 tile masked), a
+    ragged one at d = 64 and K5's shape: each cotangent within 1e-5 of the
+    largest entry of the plain x.T @ g (in float64), the bias of g.sum(0)."""
+    from temp_tpu_torch import _build
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    rows = B * N
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    conv, h0g, x, dlp = (rand(rows, d) for _ in range(4))
+    dgi, dgh = rand(rows, 3 * d), rand(rows, 3 * d)
+    sizes = [3 * d * d, 3 * d, 3 * d * d, 3 * d, d * d]
+    part = torch.zeros(n_split, sum(sizes), device=cuda)
+    out = torch.empty(sum(sizes), device=cuda)
+    lib = _build.lib()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    p = [t.data_ptr() for t in (conv, dgi, h0g, dgh, x, dlp, part)]
+    _build.check(lib.final_wgrad_launch(*p, n_split, B, N, d, stream),
+                 "final_wgrad")
+    _build.check(lib.final_wgrad_reduce_launch(part.data_ptr(), n_split,
+                                               out.numel(), out.data_ptr(),
+                                               stream), "final_wgrad_reduce")
+    torch.cuda.synchronize()
+    got = torch.split(out, sizes)
+    want = [conv.double().t() @ dgi.double(), dgi.double().sum(0),
+            h0g.double().t() @ dgh.double(), dgh.double().sum(0),
+            x.double().t() @ dlp.double()]
+    for g, r in zip(got, want):
+        err = float((g.double() - r.reshape(-1)).abs().max())
+        assert err <= 1e-5 * float(r.abs().max()), (err, float(r.abs().max()))
+
+
 def _bi_params(w):
     """The flagship's parameter tree over w's tensors (cloned, requiring
     grad), and the flat leaves."""

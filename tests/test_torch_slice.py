@@ -213,6 +213,20 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
         assert os.path.exists(os.path.join(ROOT, rec["source"]))
         assert rec["bound_ms"] > 0
     assert set(k2b["bwd"]["errors"]) == set(chip_smoke._COTANGENTS)
+    assert set(k2b["bwd"]["scaled_errs"]) == set(chip_smoke._COTANGENTS)
+    # K2b, K5 and K9+K10 run twice, bit-equal; K2b and K5 carry the bound
+    # of their 3xTF32 products beside the f32 one
+    assert k2b["bwd"]["bitwise"] and k5["bitwise"]
+    assert res["k9k10"]["bitwise"]
+    assert all(res["k2_flagship"][d]["bwd_bitwise"] for d in ("fwd", "bwd"))
+    for rec in line["kernels"]:
+        assert rec["bound_share"] == rec["bound_ms"] / rec["ms"]
+        tc = rec["name"] in ("fused_window_bwd", "fused_final_bwd_layer")
+        assert ("bound_tc_ms" in rec) == tc
+        if tc:
+            assert 0 < rec["bound_tc_ms"] < rec["bound_ms"]
+            assert rec["bitwise"]
+    assert line["kernels"][3]["flagship_mode"]["bwd"]["bitwise"]
     # both layers, from the loss's cotangent and from a unit-scale one, each
     # error beside the largest entry it is held against
     assert len(k5["errors"]) == 4 * len(chip_smoke._LAYER_COTANGENTS)

@@ -1,0 +1,115 @@
+"""The tolerance argument for K2b's and K5's tensor-core products (3xTF32).
+
+The backward tiles (``csrc/rgcn_gru_layer.cuh`` ``tile_product``) split
+each f32 operand x into hi, x with its 13 low mantissa bits cleared, and
+lo = x - hi (exact in f32), passed to the tensor core as it is: a tf32
+operand's 13 low bits are not read, so the product sees lo truncated to
+11 significant bits. The weight launch (``wgrad_tile``), whose sums run
+over thousands of rows, rounds hi to tf32 instead (nearest, ties away, as
+``cvt.rna.tf32.f32``). Each step of 8 depth terms adds lo*hi + hi*lo +
+hi*hi, from zero, into an f32 accumulator. A numpy model of those
+products, at the depths of the kernels' products (128: the gate and
+self-loop products at d = 128; 384: the transposed gate products over 3d;
+3,584: a range of K5's weight launch, whose depth is rows), is held to
+float64 within 1e-6 of the largest entry, tenfold inside the smoke's 1e-5
+(``SCALED_TOL``). Plain f32 (one rounded multiply-add a term, as the
+forward tiles) and a single TF32 product are printed beside it. The card's
+own accumulation order inside an mma is not modelled: the card's checks
+(``chip_smoke.py``, ``tests/test_torch_gpu.py``) decide.
+"""
+
+import numpy as np
+import pytest
+
+TOL = 1e-6
+
+
+def tf32(x):
+    """x (float32) rounded to tf32: nearest, ties away from zero."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def trunc13(x):
+    """x (float32) with its 13 low mantissa bits cleared: tf32 by
+    truncation, and what the tensor core reads of a tf32 operand."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x, rounded: bool):
+    """(hi, lo as the tensor core reads it) of the kernels' split."""
+    hi = tf32(x) if rounded else trunc13(x)
+    return hi, trunc13((x - hi).astype(np.float32))
+
+
+def product_3xtf32(a, b, rounded: bool):
+    """a [M, K] @ b [K, N] as the kernels compute it: per step of 8 depth
+    terms the three split products, exact (float64: each is a product of
+    two 11-bit significands) and rounded once to f32, added to the f32
+    accumulator."""
+    ahi, alo = split(a, rounded)
+    bhi, blo = split(b, rounded)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        t = (alo[:, s].astype(np.float64) @ bhi[s].astype(np.float64)
+             + ahi[:, s].astype(np.float64) @ blo[s].astype(np.float64)
+             + ahi[:, s].astype(np.float64) @ bhi[s].astype(np.float64))
+        acc = (acc + t.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+def product_f32(a, b):
+    """a @ b as one f32 multiply-add a depth term, in order."""
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(a.shape[1]):
+        prod = (a[:, k:k + 1].astype(np.float64) * b[k:k + 1].astype(
+            np.float64) + acc).astype(np.float32)
+        acc = prod
+    return acc
+
+
+@pytest.mark.parametrize("rounded,bound", [(False, 2.0 ** -20),
+                                           (True, 2.0 ** -21)])
+def test_split_keeps_21_bits(rounded, bound):
+    g = np.random.default_rng(0)
+    x = g.standard_normal(4096).astype(np.float32)
+    hi, lo = split(x, rounded)
+    # both parts are tf32 values; together they hold x to 2^-20 (hi
+    # truncated) or 2^-21 (hi rounded)
+    assert np.all(hi.view(np.uint32) & np.uint32(0x1FFF) == 0)
+    assert np.all(lo.view(np.uint32) & np.uint32(0x1FFF) == 0)
+    rel = np.abs((hi.astype(np.float64) + lo) - x) / np.abs(x)
+    assert rel.max() <= bound
+    assert np.abs(hi - x).max() > 0  # tf32 alone drops bits
+    # ties round away from zero, as cvt.rna does
+    t = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11)], np.float32)
+    assert tf32(t).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
+    assert trunc13(t).tolist() == [1.0, -1.0]
+
+
+@pytest.mark.parametrize("depth,rows,cols,scale,rounded", [
+    (128, 256, 64, 1.0, False),     # gate and self-loop products, d = 128
+    (384, 256, 64, 1.0, False),     # d_gi @ W_ih, d_gh @ W_hh over 3d
+    (3584, 64, 64, 1e-3, True),     # a range of K5's weight launch (rows)
+])
+def test_split_product_is_within_f32_rounding(depth, rows, cols, scale,
+                                              rounded):
+    g = np.random.default_rng(depth)
+    a = (g.standard_normal((rows, depth)) * scale).astype(np.float32)
+    # xavier-sized weights, or for the weight launch cotangent-sized rows
+    b = (g.standard_normal((depth, cols)) / np.sqrt(depth)).astype(
+        np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    big = float(np.abs(ref).max())
+    err3 = float(np.abs(product_3xtf32(a, b, rounded) - ref).max())
+    err32 = float(np.abs(product_f32(a, b) - ref).max())
+    err1 = float(np.abs(tf32(a).astype(np.float64) @ tf32(b) - ref).max())
+    print(f"depth {depth}: 3xTF32 {err3 / big:.3e}, plain f32 "
+          f"{err32 / big:.3e}, one TF32 product {err1 / big:.3e} of the "
+          f"largest entry {big:.3e}")
+    assert err3 <= TOL * big
+    # the same order as plain f32, and far from a single TF32 product
+    assert err3 <= 10 * max(err32, 1e-9 * big)
+    assert err1 > 10 * err3
