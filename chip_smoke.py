@@ -19,8 +19,9 @@ Phases, each printing one line with its elapsed seconds as it ends:
              call, no synchronizing call) and sorting the call's edges (the
              in-call route), timed side by side and equal bit for bit, both
              within 1e-5 of its plain PyTorch version;
-5. k2      - kernel K2 (fused_window_fwd) against its plain version on one
-             eval batch of windows, for both conv1_in values;
+5. k2      - kernel K2f (fused_window_fwd) against its plain version on
+             one eval batch of windows, for both conv1_in values, two runs
+             bit-equal;
 6. path    - Trainer.run_eval over the whole valid split, with the kernels
              and then with their plain versions; the launch counts of the
              kernel run (no K1 call sorting its edges), the MRR of both,
@@ -30,8 +31,8 @@ Phases, each printing one line with its elapsed seconds as it ends:
 8. k2b     - kernel K2f in train mode (dropout masks) and K2b
              (fused_window_bwd) against autograd through the plain forward
              on one training batch of windows: all 12 cotangents (each
-             also scaled to its largest plain entry), and two runs of K2b
-             bit-equal;
+             also scaled to its largest plain entry), and two runs of K2f
+             and of K2b bit-equal;
 9. k3      - kernel K3 (fused_final_fwd: the dense final step and the
              exact-softmax loss of all B elements) against its plain version
              on the first training batch, as the main path prepares it (the
@@ -59,16 +60,20 @@ impute on, PostBiDynamicRGCNModel), on the same data:
 14. k2_flagship    - K2f and K2b in the flagship's modes (a ReLU on layer
                      2, the third "local" buffer) for the forward and the
                      backward window of its first training batch, against
-                     the plain version: three buffers, 12 cotangents, two
-                     runs of K2b bit-equal;
+                     the plain version: three buffers, 12 cotangents (the
+                     plain ones through the kernels' ReLU pattern, and the
+                     elements where the two forwards' patterns differ
+                     counted), two runs of K2f and of K2b bit-equal;
 15. k6k7      - the bi layer forward (K6+K7) of both layers of that batch's
                 final step against its plain version;
 16. k8        - the loss from the table (K8) against its plain version;
 17. k9k10     - the bi layer backward (K9+K10) of both layers against its
-                plain version, from the loss's cotangent and from a unit one,
-                two runs bit-equal; and the final step and loss forward and
-                backward, fused (K6-K10, K4) and unfused (K1 one element at a
-                time);
+                plain version (layer 2's through the kernel's ReLU pattern,
+                bi_relu_pattern), from the loss's cotangent and from a unit
+                one, two runs bit-equal; its GRU launch (bi_bwd_gru_kernel)
+                timed alone with its bounds; and the final step and loss
+                forward and backward, fused (K6-K10, K4) and unfused (K1 one
+                element at a time);
 18. flagship_path  - the flagship's valid sweep with the kernels and with
                      their plain versions (MRR within 1e-4; no K1 call
                      sorting its edges);
@@ -124,8 +129,9 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  launched, no sort in a call.
 
 Then a "kernels" JSON line (each kernel's bound_share, bound / ms, and for
-K2b and K5, whose products run in 3xTF32 on the tensor cores, bound_tc_ms:
-their operations at 3xTF32's 165 TFLOP/s beside the f32 bound_ms), the
+K2f, K2b, K5, K9+K10 and K12, whose products run in 3xTF32 on the tensor
+cores, bound_tc_ms: their operations at 3xTF32's 165 TFLOP/s beside the f32
+bound_ms), the
 nvidia-smi name/power-limit line, and the
 result line {"ok": true, "device": {...}}. Any failed check raises and exits
 non-zero; there is no result line then. Without CUDA it exits 1 at once. A
@@ -175,8 +181,8 @@ PARAM_TOL = 1e-2
 TRAIN_STEPS = 8
 RING_M = 4  # ranks of the edge partition's ring (all on the one card)
 H100_F32_FLOPS = 67e12   # f32 outside the tensor cores, SXM data sheet
-# K2b's and K5's products in 3xTF32: three TF32 tensor-core products for
-# each f32 one, at the data sheet's 495 TFLOP/s dense TF32
+# the tensor-core kernels' products in 3xTF32: three TF32 tensor-core
+# products for each f32 one, at the data sheet's 495 TFLOP/s dense TF32
 H100_TF32X3_FLOPS = 495e12 / 3
 H100_BYTES_S = 3.35e12   # HBM3
 
@@ -449,11 +455,14 @@ def window_batch(ctx, conv1_in: bool):
                      conv1_in=conv1_in)
 
 
-def _window_bound(ctx, win, conv1_in: bool, masks: bool = False):
-    """Least time for one K2 call: f32 flops of the GRU gate products
+def _window_bound(ctx, win, conv1_in: bool, masks: bool = False,
+                  extra_bytes: int = 0) -> dict:
+    """Least time for one K2f call: f32 flops of the GRU gate products
     (4 of [rows, d] x [d, 3d] a step), the self-loop products and the SpMMs
     over the active rows and real edges, against the buffers and inputs
-    (the two dropout masks in training) moved once."""
+    (the two dropout masks in training, and `extra_bytes`) moved once:
+    "bound_ms" at f32's rate, "bound_tc_ms" at 3xTF32's, the rate of K2f's
+    products."""
     L1, d = ctx["L1"], ctx["d"]
     rows = int(win.act_mask[:, :L1].sum())
     edges = int(win.emask[:, :L1].sum())
@@ -463,9 +472,8 @@ def _window_bound(ctx, win, conv1_in: bool, masks: bool = False):
     n_rel = ctx["params"]["encoder"]["layer1"]["weight"].shape[0]
     w_bytes = (2 * d * 3 * d * 2 + 2 * d * d + n_rel * 2 * d) * 4
     nbytes = (rows * d * 4 * (5 if masks else 3) + edges * 16 + rows * 12
-              + w_bytes)
-    t_b, t_f = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
-    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+              + w_bytes + extra_bytes)
+    return _bounds(flops, nbytes)
 
 
 def phase_k2(ctx) -> dict:
@@ -478,20 +486,23 @@ def phase_k2(ctx) -> dict:
         run_k = lambda: fused_window_scan(p["encoder"], cfg, **kw)  # noqa
         run_p = lambda: fused_window_scan(p["encoder"], cfg,  # noqa: E731
                                           kernels=False, **kw)
-        k1, k2 = run_k()
+        got = run_k()
         r1, r2 = run_p()
-        err = max(max_err(k1, r1), max_err(k2, r2))
-        if not err <= TOL:
+        err = max(max_err(got[0], r1), max_err(got[1], r2))
+        bitwise = _bitwise(got, run_k())
+        if not (err <= TOL and bitwise):
             raise AssertionError(f"K2 conv1_in={conv1_in}: max abs err "
-                                 f"{err} > {TOL}")
-        bound_ms, bound_by = _window_bound(ctx, win, conv1_in)
+                                 f"{err} > {TOL}, or two runs differ "
+                                 f"(bit-equal: {bitwise})")
         tag = "conv1_in" if conv1_in else "recompute"
         out[tag] = {
             "shape": f"B={ctx['B']} L1={ctx['L1']} A={ctx['A']} "
                      f"E={ctx['E']} d={ctx['d']}",
-            "max_abs_err": err, "ms": time_ms(run_k, dev, reps=5),
+            "max_abs_err": err, "bitwise": bitwise,
+            "ms": time_ms(run_k, dev, reps=5),
             "plain_ms": time_ms(run_p, dev, reps=5),
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": None, **_window_bound(ctx, win, conv1_in)}
+        out[tag]["bound_share"] = out[tag]["bound_ms"] / out[tag]["ms"]
         print(f"  K2 {tag}: {out[tag]}", flush=True)
     return out
 
@@ -779,8 +790,10 @@ def phase_k2b(ctx) -> dict:
     k1, k2 = fused_window_fwd(**fwd_args)
     r1, r2 = fused_window_fwd_plain(**fwd_args)
     err_fwd = max(max_err(k1, r1), max_err(k2, r2))
-    if not err_fwd <= TOL:
-        raise AssertionError(f"K2f train: max abs err {err_fwd} > {TOL}")
+    fwd_bitwise = _bitwise((k1, k2), fused_window_fwd(**fwd_args))
+    if not (err_fwd <= TOL and fwd_bitwise):
+        raise AssertionError(f"K2f train: max abs err {err_fwd} > {TOL}, or "
+                             f"two runs differ (bit-equal: {fwd_bitwise})")
     bwd_args = dict(a, buf1=k1, buf2=k2, gb1=gb1, gb2=gb2)
     got = fused_window_bwd(**bwd_args)
     bitwise = _bitwise(got, fused_window_bwd(**bwd_args))
@@ -790,17 +803,17 @@ def phase_k2b(ctx) -> dict:
     if bad or not bitwise:
         raise AssertionError(f"K2b: cotangents beyond {GRAD_TOL}: {bad}; "
                              f"two runs bit-equal: {bitwise}")
-    fwd_bound, fwd_by = _window_bound(ctx, win, False, masks=True)
     bwd_bounds = _window_bwd_bound(ctx, win)
     shape = f"B={B} L1={L1} A={A} E={ctx['E']} d={d}"
     out = {
         "fwd": {"shape": shape, "max_abs_err": err_fwd,
+                "bitwise": fwd_bitwise,
                 "ms": time_ms(lambda: fused_window_fwd(**fwd_args), dev,
                               reps=5),
                 "plain_ms": time_ms(lambda: fused_window_fwd_plain(
                     **fwd_args), dev, reps=3),
-                "library_ms": None, "bound_ms": fwd_bound,
-                "bound_by": fwd_by},
+                "library_ms": None,
+                **_window_bound(ctx, win, False, masks=True)},
         "bwd": {"shape": shape, "max_abs_err": max(errs.values()),
                 "errors": errs,
                 # printed beside the GRAD_TOL gate, as K5's
@@ -1290,14 +1303,22 @@ def phase_k2_flagship(fctx) -> dict:
         got = fused_window_fwd(**fwd_args)
         ref = fused_window_fwd_plain(**fwd_args)
         err_fwd = max(max_err(x, y) for x, y in zip(got, ref))
-        if not (err_fwd <= TOL and len(got) == 3):
+        fwd_bitwise = _bitwise(got, fused_window_fwd(**fwd_args))
+        if not (err_fwd <= TOL and len(got) == 3 and fwd_bitwise):
             raise AssertionError(f"K2f {direction} flagship: max abs err "
-                                 f"{err_fwd} > {TOL}")
+                                 f"{err_fwd} > {TOL}, or two runs differ "
+                                 f"(bit-equal: {fwd_bitwise})")
         bwd_args = dict(a, buf1=got[0], buf2=got[1], gb1=gb1, gb2=gb2,
                         gb3=gb3)
         cot = fused_window_bwd(**bwd_args)
         bitwise = _bitwise(cot, fused_window_bwd(**bwd_args))
-        cot_ref = fused_window_bwd_plain(**a, gb1=gb1, gb2=gb2, gb3=gb3)
+        # the plain cotangents through the kernels' ReLU pattern (their
+        # third buffer > 0), as K2b takes it: where layer 2's conv output
+        # lies within rounding of 0 the two forwards may fall on either side
+        relu = (got[2] > 0).to(torch.float32)
+        cot_ref = fused_window_bwd_plain(**a, gb1=gb1, gb2=gb2, gb3=gb3,
+                                         relu_mask=relu)
+        flips = int(((got[2] > 0) != (ref[2] > 0)).sum())
         errs = {n: rel_err(x, y) for n, x, y in zip(_COTANGENTS, cot,
                                                      cot_ref)}
         bad = {n: e for n, e in errs.items() if not e <= GRAD_TOL}
@@ -1305,13 +1326,15 @@ def phase_k2_flagship(fctx) -> dict:
             raise AssertionError(f"K2b {direction} flagship: cotangents "
                                  f"beyond {GRAD_TOL}: {bad}; two runs "
                                  f"bit-equal: {bitwise}")
-        fwd_bound, fwd_by = _window_bound(fctx, win, False, masks=True)
         # the third buffer written (forward) and read (backward) once more
         buf3_bytes = B * L1 * A * d * 4
+        fwd = _window_bound(fctx, win, False, masks=True,
+                            extra_bytes=buf3_bytes)
         bwd = _window_bwd_bound(fctx, win, extra_bytes=buf3_bytes)
         out[direction] = {
             "shape": f"B={B} L1={L1} A={A} E={fctx['E']} d={d} n_buf=3 relu",
             "fwd_max_abs_err": err_fwd, "bwd_max_rel_err": max(errs.values()),
+            "relu_flips": flips,
             "fwd_ms": time_ms(lambda: fused_window_fwd(**fwd_args), dev,
                               reps=5),
             "fwd_plain_ms": time_ms(lambda: fused_window_fwd_plain(
@@ -1322,9 +1345,8 @@ def phase_k2_flagship(fctx) -> dict:
                 **a, gb1=gb1, gb2=gb2, gb3=gb3), dev, reps=2),
             "bwd_scaled_errs": scaled_errs(zip(_COTANGENTS, cot, cot_ref),
                                            tol=None),
-            "bwd_bitwise": bitwise,
-            "fwd_bound_ms": fwd_bound + _bound(0, buf3_bytes)[0],
-            "fwd_bound_by": fwd_by,
+            "fwd_bitwise": fwd_bitwise, "bwd_bitwise": bitwise,
+            **{f"fwd_{k}": v for k, v in fwd.items()},
             **{f"bwd_{k}": v for k, v in bwd.items()}}
         r = out[direction]
         for part in ("fwd", "bwd"):
@@ -1497,7 +1519,8 @@ def phase_k9k10(fctx) -> dict:
         fused_final_bwd_loss_plain, select_bwd,
     )
     from temp_tpu_torch.ops.fused_final_bi import (
-        bi_layer_bwd, bi_layer_bwd_plain,
+        _rows_plain, bi_bwd_gru_launcher, bi_layer_bwd, bi_layer_bwd_plain,
+        bi_relu_pattern,
     )
 
     dev, fb_ = fctx["device"], final_batch_flagship(fctx)
@@ -1508,9 +1531,16 @@ def phase_k9k10(fctx) -> dict:
     gen = torch.Generator(device=dev).manual_seed(9)
     d_unit = torch.randn(d_out2.shape, generator=gen, device=dev)
     pairs, calls = [], {}
+    # layer 2's plain version through the kernels' ReLU pattern: where its
+    # conv output lies within rounding of 0 the kernel's recompute and the
+    # plain conv may fall on either side
+    a2, k2 = _bi_layer_args(fb_, 2, fb_["out1"])
+    relu2 = bi_relu_pattern(*a2, d_unit, **k2)
+    conv2 = _rows_plain(*a2[:8], True, k2["hl"], k2["imp"])[0]
+    flips = 0 if relu2 is None else int(((relu2 > 0) != (conv2 > 0)).sum())
     for up, d_out in (("loss", d_out2.contiguous()), ("unit", d_unit)):
-        a2, k2 = _bi_layer_args(fb_, 2, fb_["out1"])
         k2p = {k: v for k, v in k2.items() if k != "csr"}
+        k2p["relu_mask"] = relu2
         ref2 = bi_layer_bwd_plain(*a2, d_out, **k2p)
         a1, k1 = _bi_layer_args(fb_, 1)
         k1p = {k: v for k, v in k1.items() if k != "csr"}
@@ -1536,7 +1566,6 @@ def phase_k9k10(fctx) -> dict:
     # the self-loop (4 N d^2); the SpMM's transpose 6 d a kept edge
     flops = 2 * B * 78 * N * d * d + 2 * kept * 6 * d
     nbytes = _bi_bytes(fb_, 1, extra_rows=4) + _bi_bytes(fb_, 2, extra_rows=6)
-    bound_ms, bound_by = _bound(flops, nbytes)
     (a2, g2, k2, k2p), (a1, g1, k1, k1p) = calls["loss"]
     out = {"shape": f"B={B} N={N} E={bg.gr.src.shape[1]} d={d}, both layers",
            "max_abs_err": max(e["abs"] for e in errs.values()),
@@ -1547,9 +1576,26 @@ def phase_k9k10(fctx) -> dict:
            "plain_ms": time_ms(lambda: (bi_layer_bwd_plain(*a2, g2, **k2p),
                                         bi_layer_bwd_plain(*a1, g1, **k1p)),
                                dev, reps=3),
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-           "bitwise": bitwise}
-    out["bound_share"] = bound_ms / out["ms"]
+           "library_ms": None, **_bounds(flops, nbytes), "bitwise": bitwise,
+           "relu_flips": flips}
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    # the GRU launch (bi_bwd_gru_kernel) of both layers alone: the forward
+    # recomputed (26 N d^2 a layer and element) and the transposed gate
+    # products of both GRUs (24 N d^2), against its reads (d_out and, on
+    # layer 2, both local tables, beside the layer's inputs) and writes
+    # (both previous states' cotangents, the GRU input, both h0g, the four
+    # gate cotangents of 3d, d_conv and d_lp; on layer 2 both local tables'
+    # cotangents). Timed on the card only: it has no plain counterpart
+    out.update({f"gru_{k}": v for k, v in _bounds(
+        2 * B * 50 * N * d * d + 2 * kept * 3 * d,
+        _bi_bytes(fb_, 1, extra_rows=19)
+        + _bi_bytes(fb_, 2, extra_rows=21)).items()})
+    out["gru_ms"] = out["gru_bound_share"] = None
+    if dev.type == "cuda":
+        gru = [bi_bwd_gru_launcher(*a, g, **k) for a, g, k in
+               ((a2, g2, k2), (a1, g1, k1))]
+        out["gru_ms"] = time_ms(lambda: [f() for f in gru], dev, reps=10)
+        out["gru_bound_share"] = out["gru_bound_ms"] / out["gru_ms"]
     out.update(flagship_step_ms(fctx, fb_))
     print(f"  K9+K10: {out}", flush=True)
     return out
@@ -1827,7 +1873,6 @@ def phase_mb(ctx, fctx) -> dict:
     err = max(max_err(x, y) for x, y in zip(got, ref))
     if not err <= TOL:
         raise AssertionError(f"K12: max abs err {err} > {TOL}")
-    bound_ms, bound_by = _window_bound(ctx, win, False, masks=True)
     with torch.no_grad():
         res = {"k12": {
             "shape": f"B={B} L1={L1} A={A} E={ctx['E']} d={d}, train mode",
@@ -1837,7 +1882,9 @@ def phase_mb(ctx, fctx) -> dict:
                           reps=5),
             "plain_ms": time_ms(lambda: fused_window_mb_fwd_plain(
                 **fwd_args), dev, reps=2),
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}}
+            "library_ms": None,
+            **_window_bound(ctx, win, False, masks=True)}}
+        res["k12"]["bound_share"] = res["k12"]["bound_ms"] / res["k12"]["ms"]
     print(f"  K12: {res['k12']}", flush=True)
 
     for tag, c, flagship in (("train", ctx, False),
@@ -2342,14 +2389,21 @@ def kernels_line(res: dict) -> dict:
                 r[k] = m[k]
         if name == "fused_window_fwd":
             r["train_mode"] = {k: res["k2b"]["fwd"][k] for k in (
-                "ms", "plain_ms", "bound_ms", "max_abs_err")}
+                "ms", "plain_ms", "bound_ms", "bound_tc_ms", "bound_share",
+                "max_abs_err", "bitwise")}
+            r["recompute_mode"] = {k: res["k2"]["recompute"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_tc_ms", "bound_share",
+                "max_abs_err", "bitwise")}
         if name in ("fused_window_fwd", "fused_window_bwd"):
             part = "fwd" if name == "fused_window_fwd" else "bwd"
-            keys = ("ms", "plain_ms", "bound_ms", "bound_share") + (
-                ("bound_tc_ms", "bitwise") if part == "bwd" else ())
+            keys = ("ms", "plain_ms", "bound_ms", "bound_share",
+                    "bound_tc_ms", "bitwise")
             r["flagship_mode"] = {
                 d: {k: res["k2_flagship"][d][f"{part}_{k}"] for k in keys}
                 for d in ("fwd", "bwd")}
+        if name == "bi_layer_bwd":
+            r["gru_launch"] = {k: m[f"gru_{k}"] for k in (
+                "ms", "bound_ms", "bound_by", "bound_tc_ms", "bound_share")}
         if name == "fused_eval_ranks":
             r["unfused_ms"] = m["unfused_ms"]
         if name in ("spmm_fwd", "spmm_bwd"):

@@ -140,10 +140,11 @@ SIGNATURES = {
     #            bih_b, bhh_b, wih_f, whh_f, wih_b, whh_b, dt_f, dt_b, lam,
     #            prev_f, prev_b, active, hl_f, hl_b, imp, dout, dprev_f,
     #            dprev_b, dhl_f, dhl_b, dimp_rows, n2_out, gin_s, h0f_s,
-    #            h0b_s, dgi_f, dgh_f, dgi_b, dgh_b, dconv_s, dlp_s, B, N, d,
-    #            stream)
+    #            h0b_s, dgi_f, dgh_f, dgi_b, dgh_b, dconv_s, dlp_s, relu_out,
+    #            B, N, d, stream); relu_out (the ReLU's pattern, for holding
+    #            the kernel to its plain version) is null on the main path
     "bi_bwd_gru_launch": [_P] * 6 + [_I, _I, _P, _P, _I] + [_P] * 14 + [_F]
-                         + [_P] * 22 + [_I] * 3 + [_P],
+                         + [_P] * 23 + [_I] * 3 + [_P],
     # bi_wgrad(gin_s, h0f_s, h0b_s, dgi_f, dgh_f, dgi_b, dgh_b, x, dlp_s,
     #          dimp_rows, part, n_split, B, N, d, stream)
     "bi_wgrad_launch": [_P] * 11 + [_I] * 4 + [_P],

@@ -216,7 +216,8 @@ __device__ __forceinline__ int isum16(int v) {
 // One encoder layer of the final step for rows a0..a0+15 of element
 // blockIdx.y; layer 2 also applies the select (active[row] <= 0 keeps the
 // input row sel_x).
-__global__ void final_layer_kernel(Layer p, const float* __restrict__ sel_x,
+__global__ void __launch_bounds__(256, 2) final_layer_kernel(
+    Layer p, const float* __restrict__ sel_x,
                                    const float* __restrict__ active,
                                    float* __restrict__ out) {
   extern __shared__ float smem[];

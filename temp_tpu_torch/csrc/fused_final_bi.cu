@@ -37,14 +37,15 @@
 // below that at 67 TFLOP/s.
 //
 // What the design does about that: one launch covers the batch (b in the
-// grid). bi_layer_kernel and bi_bwd_gru_kernel keep the forward tiles'
-// plain FMA (each thread one column and eight rows, every weight element
-// read once per block, as in the window's forward), waiting on the load
-// pipe more than on the FMA units. K9+K10's input launch (K5's) and its
-// weight launch (wgrad_tile) compute on the tensor cores in 3xTF32 at f32
-// accuracy (rgcn_gru_layer.cuh). No atomics: every sum over rows goes
-// through per-range partials and an ordered reduction, so runs repeat bit
-// for bit.
+// grid). bi_layer_kernel keeps the FMA tiles' plain FMA (each thread one
+// column and eight rows, every weight element read once per block),
+// waiting on the load pipe more than on the FMA units. K9+K10's launches
+// compute on the tensor cores in 3xTF32 at f32 accuracy
+// (rgcn_gru_layer.cuh): bi_bwd_gru_kernel on 32-row tiles of d / 16 warps,
+// its ten products through tile_product, as K5's GRU tile; the input
+// launch is K5's, the weight launch wgrad_tile's. No atomics: every sum
+// over rows goes through per-range partials and an ordered reduction, so
+// runs repeat bit for bit.
 
 #include <math.h>
 
@@ -127,58 +128,135 @@ __global__ void bi_layer_kernel(Layer pf, Layer pb, BiRows q,
   }
 }
 
-// One direction's GRU backward for the rows a thread owns: the gate
-// cotangents into dg ([kTileRows, 4d]: d_r, d_z, d_n, d_ghn) and the scratch
-// of the weight launch, and d_out * z (the direct part of the previous
-// state's cotangent) into dh_direct.
-__device__ __forceinline__ void gate_bwd(const Gates& gt, const float* dout,
-                                         const float* hs, const float* cs,
-                                         int b, int a0, int N, int d,
-                                         float* dg, float* __restrict__ h0g_s,
-                                         float* __restrict__ dgi_s,
-                                         float* __restrict__ dgh_s,
-                                         float* __restrict__ gin_s,
-                                         float dh_direct[kRowsPerThread]) {
-  const int col = threadIdx.x % d;
-  const int r0 = (threadIdx.x / d) * kRowsPerThread;
-  const int d3 = 3 * d, d4 = 4 * d;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = r0 + i, a = a0 + r;
-    float pr = 0.f, pz = 0.f, pn = 0.f, phn = 0.f;
-    dh_direct[i] = 0.f;
-    if (a < N) {
-      const long long m = (long long)b * N + a;
-      const float dv = dout[m * d + col];
-      const float h = hs[r * d + col];
-      const float z = gt.z[i], n = gt.n[i], rg = gt.r[i];
-      const float dz = dv * (h - n);
-      const float dn = dv * (1.f - z);
-      dh_direct[i] = dv * z;
-      pn = dn * (1.f - n * n);
-      phn = pn * rg;
-      const float dr = pn * gt.ghn[i];
-      pr = dr * rg * (1.f - rg);
-      pz = dz * z * (1.f - z);
-      h0g_s[m * d + col] = h;
-      if (gin_s != nullptr) gin_s[m * d + col] = cs[r * d + col];
-      dgi_s[m * d3 + col] = pr;
-      dgi_s[m * d3 + d + col] = pz;
-      dgi_s[m * d3 + 2 * d + col] = pn;
-      dgh_s[m * d3 + col] = pr;
-      dgh_s[m * d3 + d + col] = pz;
-      dgh_s[m * d3 + 2 * d + col] = phn;
-    }
-    dg[r * d4 + col] = pr;
-    dg[r * d4 + d + col] = pz;
-    dg[r * d4 + 2 * d + col] = pn;
-    dg[r * d4 + 3 * d + col] = phn;
-  }
+// Shared memory of bi_bwd_gru_kernel in floats: the ring of three gate
+// windows, then four [kBwdRows, d + 4] regions: xs (the input rows), hf,
+// hb (loaded when the backward direction starts) and cs (the GRU input).
+// Once a direction's states are dead, its gate cotangents go over the
+// first three regions, three gate sections at a time ([kBwdRows, 3d + 4]:
+// d_r, d_z, d_n, then d_ghn), and at the end the impute sums' scratch.
+// 105,216 bytes at d = 128: two blocks an SM, where one [kBwdRows, 4d + 4]
+// region for all four sections and a copy of the conv output (188,160
+// bytes) would leave room for one.
+__host__ __device__ constexpr int bi_bwd_smem_floats(int d) {
+  return ring_floats(3, d) + 4 * kBwdRows * (d + 4);
 }
 
-// Backward of one bidirectional layer's row part for a tile of rows
-// (blockIdx.x) of element blockIdx.y. Shared memory: 13 * kTileRows * d.
-__global__ void bi_bwd_gru_kernel(
+// One direction's GRU backward for the tile: its gates from the GRU input
+// cs and its decayed states hs (gate_products), the gate cotangents into
+// the step scratch (with h0g), d_gi @ W_ih and d_gh @ W_hh through
+// tile_product (their A operand the sections [d_r | d_z | d_n], then
+// d_ghn, in dg, row stride ldg; dg overlays hs: a barrier parts the two),
+// the previous state's cotangent into dprev, and d_gi @ W_ih into dgin at
+// the thread's own positions, added to what is there when `add` (the
+// second direction: dgin holds the first's, so no accumulator lives across
+// the second direction's gate products). d_out * z waits in dprev at the
+// thread's own positions until the products are done.
+__device__ __forceinline__ void bi_direction_bwd(
+    const Layer& p, const float* __restrict__ wih,
+    const float* __restrict__ whh, const float* cs, const float* hs,
+    float* dg, int ldg, float* ring, int b, int a0,
+    const float* __restrict__ dout, float* __restrict__ h0g_s,
+    float* __restrict__ dgi_s, float* __restrict__ dgh_s,
+    float* __restrict__ dprev, float* dgin, bool add) {
+  const int d = p.d, N = p.A, d3 = 3 * d, ld = d + 4;
+  const int c0 = warp_col0();
+  float acc[4][kMTiles][2][4];
+  gate_products(cs, hs, ld, p.wih_t, p.whh_t, d, 0, ring, acc);
+  const GateBias gb = gate_bias(p.bih, p.bhh, d, c0);
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = acc_row(mt, i), c = c0 + acc_col(nt, i), a = a0 + r;
+        float pr = 0.f, pz = 0.f, pn = 0.f, phn = 0.f;
+        if (a < N) {
+          const long long m = (long long)b * N + a;
+          const GateAt g = gate_at(acc, mt, nt, i, gb);
+          const float dv = dout[m * d + c];
+          const float h = hs[r * ld + c];
+          const float dz = dv * (h - g.n);
+          const float dn = dv * (1.f - g.z);
+          dprev[m * d + c] = dv * g.z;
+          pn = dn * (1.f - g.n * g.n);
+          phn = pn * g.r;
+          pr = pn * g.ghn * g.r * (1.f - g.r);
+          pz = dz * g.z * (1.f - g.z);
+          h0g_s[m * d + c] = h;
+          dgi_s[m * d3 + c] = pr;
+          dgi_s[m * d3 + d + c] = pz;
+          dgi_s[m * d3 + 2 * d + c] = pn;
+          dgh_s[m * d3 + c] = pr;
+          dgh_s[m * d3 + d + c] = pz;
+          dgh_s[m * d3 + 2 * d + c] = phn;
+        }
+        acc[0][mt][nt][i] = pr;
+        acc[1][mt][nt][i] = pz;
+        acc[2][mt][nt][i] = pn;
+        acc[3][mt][nt][i] = phn;
+      }
+  __syncthreads();                     // dg overwrites hs
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dg[acc_row(mt, i) * ldg + j * d + c0 + acc_col(nt, i)] =
+              acc[j][mt][nt][i];
+  float dacc[2][kMTiles][2][4];        // d_gi @ W_ih, d_gh @ W_hh
+  zero_acc(dacc);
+  {
+    // [d_r | d_z] against the r and z rows of both weights (depth 2d), d_n
+    // against W_ih's n rows
+    const float* wrz[2] = {wih, whh};
+    tile_product<2, 0, 1>(dg, ldg, 2 * d, wrz, d, d, ring, dacc);
+    const float* wn[1] = {wih + 2LL * d * d};
+    tile_product<2, 0>(dg + 2 * d, ldg, d, wn, d, d, ring, dacc);
+  }
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        dg[acc_row(mt, i) * ldg + c0 + acc_col(nt, i)] = acc[3][mt][nt][i];
+  {
+    const float* wh[1] = {whh + 2LL * d * d};
+    tile_product<2, 1>(dg, ldg, d, wh, d, d, ring, dacc);
+  }
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int a = a0 + acc_row(mt, i), c = c0 + acc_col(nt, i);
+        if (a >= N) continue;
+        const long long row = (long long)b * N + a;
+        const long long e = row * d + c;
+        dprev[e] = (dprev[e] + dacc[1][mt][nt][i])
+                   * expf(-p.lam * p.dt[row]);
+        dgin[e] = add ? dgin[e] + dacc[0][mt][nt][i] : dacc[0][mt][nt][i];
+      }
+}
+
+// Backward of one bidirectional layer's row part for a tile of kBwdRows
+// rows (blockIdx.x) of element blockIdx.y, with d / 16 warps: the conv
+// output recomputed on the tensor cores (conv_rows_tc), the blend on the
+// inactive rows, then each direction in turn (bi_direction_bwd), then the
+// input's cotangent through the blend and the ReLU and the impute terms.
+// The conv output before the blend, which the impute terms read at the
+// end, waits in dconv_s at the thread's own positions (written and read by
+// the same thread; dconv_s takes its own value last); the ReLU's signs in
+// a register. So the tile keeps at most the gates, or a direction's gate
+// cotangents and products, in registers. With relu_out it also writes the
+// ReLU's pattern (1 where it passes) for holding the kernel to its plain
+// version.
+__global__ void __launch_bounds__(256, 2) bi_bwd_gru_kernel(
     Layer pf, Layer pb, BiRows q,
     const float* __restrict__ wih_f,   // [3d, d] (torch layout)
     const float* __restrict__ whh_f, const float* __restrict__ wih_b,
@@ -194,109 +272,110 @@ __global__ void bi_bwd_gru_kernel(
     float* __restrict__ dgi_f, float* __restrict__ dgh_f,  // [B*N, 3d]
     float* __restrict__ dgi_b, float* __restrict__ dgh_b,
     float* __restrict__ dconv_s,       // [B*N, d]
-    float* __restrict__ dlp_s) {
+    float* __restrict__ dlp_s,
+    float* __restrict__ relu_out) {    // [B*N, d] the ReLU's pattern, or null
   extern __shared__ float smem[];
-  const int d = pf.d, N = pf.A, d4 = 4 * d;
-  float* xs = smem;
-  float* cv = xs + kTileRows * d;      // conv output (after the ReLU)
-  float* cs = cv + kTileRows * d;      // GRU input (after the blend)
-  float* hf = cs + kTileRows * d;
-  float* hb = hf + kTileRows * d;
-  float* dgf = hb + kTileRows * d;     // [kTileRows, 4d]
-  float* dgb = dgf + kTileRows * d4;
+  const int d = pf.d, N = pf.A, ld = d + 4, ldg = 3 * d + 4;
+  float* ring = smem;
+  float* xs = smem + ring_floats(3, d);
+  float* hf = xs + kBwdRows * ld;
+  float* hb = hf + kBwdRows * ld;
+  float* cs = hb + kBwdRows * ld;
+  float* dg = xs;                      // over xs, hf and hb
   const int b = blockIdx.y;
-  const int a0 = blockIdx.x * kTileRows;
+  const int a0 = blockIdx.x * kBwdRows;
+  const int c0 = warp_col0();
   const bool impute = q.hl_f != nullptr;
-  load_tile(pf, b, a0, xs, cs, hf);
-  load_prev(pb, b, a0, hb);
-  conv_tile(pf, b, a0, xs, cs, n2_out);
-  for (int i = threadIdx.x; i < kTileRows * d; i += blockDim.x) cv[i] = cs[i];
-  __syncthreads();
-  if (impute) blend_tile(pf, pb, q, b, a0, cs);
-
-  const int col = threadIdx.x % d;
-  const int r0 = (threadIdx.x / d) * kRowsPerThread;
-  float dhd_f[kRowsPerThread], dhd_b[kRowsPerThread];
-  {
-    Gates gt;
-    gru_gates<kRolled>(cs, hf, pf.wih_t, pf.whh_t, pf.bih, pf.bhh, d,
-                          gt);
-    gate_bwd(gt, dout, hf, cs, b, a0, N, d, dgf, h0f_s, dgi_f, dgh_f, gin_s,
-             dhd_f);
-    gru_gates<kRolled>(cs, hb, pb.wih_t, pb.whh_t, pb.bih, pb.bhh, d,
-                          gt);
-    gate_bwd(gt, dout, hb, cs, b, a0, N, d, dgb, h0b_s, dgi_b, dgh_b,
-             nullptr, dhd_b);
-  }
-  __syncthreads();
-
-  // d_gin = d_gi_f @ W_ih_f + d_gi_b @ W_ih_b, d_h0g_dir = d_gh_dir @ W_hh_dir
-  float dx[kRowsPerThread], dhf[kRowsPerThread], dhb[kRowsPerThread];
+  load_tile(pf, b, a0, kBwdRows, ld, xs, nullptr, hf);
+  conv_rows_tc(pf, b, a0, xs, cs, ld, ring, n2_out);
+  // the blend, at the thread's own positions of the conv output
+  unsigned pos_bits = 0;               // conv output > 0, by position
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) dx[i] = dhf[i] = dhb[i] = 0.f;
-  for (int j = 0; j < d; ++j) {
-    const long long jr = (long long)j * d + col;
-    const long long jz = (long long)(d + j) * d + col;
-    const long long jn = (long long)(2 * d + j) * d + col;
-    const float fr = wih_f[jr], fz = wih_f[jz], fn = wih_f[jn];
-    const float br = wih_b[jr], bz = wih_b[jz], bn = wih_b[jn];
-    const float ufr = whh_f[jr], ufz = whh_f[jz], ufn = whh_f[jn];
-    const float ubr = whh_b[jr], ubz = whh_b[jz], ubn = whh_b[jn];
+  for (int mt = 0; mt < kMTiles; ++mt)
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const float* gf = dgf + (r0 + i) * d4;
-      const float* gb = dgb + (r0 + i) * d4;
-      dx[i] += (gf[j] * fr + gf[d + j] * fz + gf[2 * d + j] * fn)
-               + (gb[j] * br + gb[d + j] * bz + gb[2 * d + j] * bn);
-      dhf[i] += gf[j] * ufr + gf[d + j] * ufz + gf[3 * d + j] * ufn;
-      dhb[i] += gb[j] * ubr + gb[d + j] * ubz + gb[3 * d + j] * ubn;
-    }
-  }
-  __syncthreads();  // xs and hf become the impute sums' scratch below
-
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = r0 + i, a = a0 + r;
-    float pfv = 0.f, pbv = 0.f;
-    if (a < N) {
-      const long long row = (long long)b * N + a;
-      const long long e = row * d + col;
-      dprev_f[e] = (dhd_f[i] + dhf[i]) * expf(-pf.lam * pf.dt[row]);
-      dprev_b[e] = (dhd_b[i] + dhb[i]) * expf(-pb.lam * pb.dt[row]);
-      float dc = dx[i];
-      if (impute) {
-        float hlf = 0.f, hlb = 0.f;
-        if (!(q.active[row] > 0.f)) {
-          const float wf = impute_weight(q.imp[0], q.imp[1], pf.dt[row]);
-          const float wb = impute_weight(q.imp[2], q.imp[3], pb.dt[row]);
-          const float c = cv[r * d + col];
-          hlf = wf * dx[i];
-          hlb = wb * dx[i];
-          pfv = dx[i] * (q.hl_f[e] - c);
-          pbv = dx[i] * (q.hl_b[e] - c);
-          dc = (1.f - wf - wb) * dx[i];
+      for (int i = 0; i < 4; ++i) {
+        const int r = acc_row(mt, i), c = c0 + acc_col(nt, i), a = a0 + r;
+        const float cv = cs[r * ld + c];
+        if (cv > 0.f) pos_bits |= 1u << ((mt * 2 + nt) * 4 + i);
+        if (a >= N) continue;
+        const long long row = (long long)b * N + a;
+        const long long e = row * d + c;
+        if (relu_out != nullptr)
+          relu_out[e] = !pf.relu || cv > 0.f ? 1.f : 0.f;
+        float gv = cv;
+        if (impute) {
+          dconv_s[e] = cv;
+          if (!(q.active[row] > 0.f)) {
+            const float wf = impute_weight(q.imp[0], q.imp[1], pf.dt[row]);
+            const float wb = impute_weight(q.imp[2], q.imp[3], pb.dt[row]);
+            gv = wf * q.hl_f[e] + wb * q.hl_b[e] + (1.f - wf - wb) * cv;
+            cs[r * ld + c] = gv;
+          }
         }
-        dhl_f[e] = hlf;
-        dhl_b[e] = hlb;
+        gin_s[e] = gv;
       }
-      if (pf.relu && !(cv[r * d + col] > 0.f)) dc = 0.f;
-      dconv_s[e] = dc;
-      dlp_s[e] = pf.mask != nullptr ? dc * pf.mask[e] : dc;
-    }
-    xs[r * d + col] = pfv;
-    hf[r * d + col] = pbv;
-  }
+
+  // d_gin = d_gi_f @ W_ih_f + d_gi_b @ W_ih_b waits in dlp_s (which takes
+  // its own value last) at the thread's own positions
+  bi_direction_bwd(pf, wih_f, whh_f, cs, hf, dg, ldg, ring, b, a0, dout,
+                   h0f_s, dgi_f, dgh_f, dprev_f, dlp_s, false);
+  // the backward direction's states, into the region the products have
+  // left (the last one ended with a barrier)
+  load_prev(pb, b, a0, kBwdRows, ld, hb);
+  bi_direction_bwd(pb, wih_b, whh_b, cs, hb, dg, ldg, ring, b, a0, dout,
+                   h0b_s, dgi_b, dgh_b, dprev_b, dlp_s, true);
+
+  // the input's cotangent through the blend and the ReLU; the impute
+  // terms' rows into xs and hf (free since the last product's barrier)
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = acc_row(mt, i), c = c0 + acc_col(nt, i), a = a0 + r;
+        float pfv = 0.f, pbv = 0.f;
+        if (a < N) {
+          const long long row = (long long)b * N + a;
+          const long long e = row * d + c;
+          const float dxv = dlp_s[e];
+          float dc = dxv;
+          if (impute) {
+            float hlf = 0.f, hlb = 0.f;
+            if (!(q.active[row] > 0.f)) {
+              const float wf = impute_weight(q.imp[0], q.imp[1], pf.dt[row]);
+              const float wb = impute_weight(q.imp[2], q.imp[3], pb.dt[row]);
+              const float cv = dconv_s[e];
+              hlf = wf * dxv;
+              hlb = wb * dxv;
+              pfv = dxv * (q.hl_f[e] - cv);
+              pbv = dxv * (q.hl_b[e] - cv);
+              dc = (1.f - wf - wb) * dxv;
+            }
+            dhl_f[e] = hlf;
+            dhl_b[e] = hlb;
+          }
+          if (pf.relu && !((pos_bits >> ((mt * 2 + nt) * 4 + i)) & 1u))
+            dc = 0.f;
+          dconv_s[e] = dc;
+          dlp_s[e] = pf.mask != nullptr ? dc * pf.mask[e] : dc;
+        }
+        xs[r * ld + c] = pfv;
+        hf[r * ld + c] = pbv;
+      }
   if (!impute) return;
   __syncthreads();
 
   // each row's impute terms: d w_dir / d a_dir = -w_dir where a_dir > 0
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int nwarps = blockDim.x / kWarp;
-  for (int r = warp; r < kTileRows; r += nwarps) {
+  for (int r = warp; r < kBwdRows; r += nwarps) {
     float sf = 0.f, sb = 0.f;
     for (int c = lane; c < d; c += kWarp) {
-      sf += xs[r * d + c];
-      sb += hf[r * d + c];
+      sf += xs[r * ld + c];
+      sb += hf[r * ld + c];
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -382,7 +461,7 @@ extern "C" int bi_bwd_gru_launch(
     const void* dout, void* dprev_f, void* dprev_b, void* dhl_f, void* dhl_b,
     void* dimp_rows, void* n2_out, void* gin_s, void* h0f_s, void* h0b_s,
     void* dgi_f, void* dgh_f, void* dgi_b, void* dgh_b, void* dconv_s,
-    void* dlp_s, int B, int N, int d, void* stream) {
+    void* dlp_s, void* relu_out, int B, int N, int d, void* stream) {
   if (B > 0 && N > 0) {
     const Layer pf = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
                                 wcol, loopw, mask, relu, wih_f_t, whh_f_t,
@@ -392,15 +471,11 @@ extern "C" int bi_bwd_gru_launch(
                                 wcol, loopw, mask, relu, wih_b_t, whh_b_t,
                                 bih_b, bhh_b, nullptr, nullptr, dt_b, lam,
                                 prev_b, 1, N, d, 0);
-    const size_t smem = 13 * kTileRows * d * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        bi_bwd_gru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((N + kTileRows - 1) / kTileRows, B);
-    bi_bwd_gru_kernel<<<grid, kRowGroups * d, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        pf, pb, make_rows(active, hl_f, hl_b, imp, nullptr),
+    // 32-row tiles of d / 16 warps over the B * N rows (1,784 blocks at the
+    // main shape, two an SM), as K5's GRU tile
+    return static_cast<int>(launch_bwd_tile(
+        bi_bwd_gru_kernel, bi_bwd_smem_floats(d), B, N, d, stream, pf, pb,
+        make_rows(active, hl_f, hl_b, imp, nullptr),
         static_cast<const float*>(wih_f), static_cast<const float*>(whh_f),
         static_cast<const float*>(wih_b), static_cast<const float*>(whh_b),
         static_cast<const float*>(dout), static_cast<float*>(dprev_f),
@@ -410,7 +485,8 @@ extern "C" int bi_bwd_gru_launch(
         static_cast<float*>(h0f_s), static_cast<float*>(h0b_s),
         static_cast<float*>(dgi_f), static_cast<float*>(dgh_f),
         static_cast<float*>(dgi_b), static_cast<float*>(dgh_b),
-        static_cast<float*>(dconv_s), static_cast<float*>(dlp_s));
+        static_cast<float*>(dconv_s), static_cast<float*>(dlp_s),
+        static_cast<float*>(relu_out)));
   }
   return static_cast<int>(cudaGetLastError());
 }

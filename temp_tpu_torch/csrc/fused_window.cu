@@ -44,16 +44,21 @@
 // block. The SpMMs and their transposes give one warp per row over a CSR
 // of that step's edges (by destination forward, by source backward),
 // summing in registers without atomics, as in spmm.cu.
-// - K2f's tiles (16 rows, each thread one column and eight rows) keep
-//   plain FMA from shared-memory broadcasts: their loop waits on the load
-//   pipe, a shared load per one to three FMAs.
-// - K2b's products run on the tensor cores in 3xTF32 at f32 accuracy
-//   (rgcn_gru_layer.cuh tile_product and wgrad_tile): a GRU tile of 32 rows
-//   recomputes the conv output and the gates and forms d_gi @ W_ih and
-//   d_gh @ W_hh with the weights streamed through shared memory, each warp
-//   16 columns of every window; the input tile's d_lp @ loop^T the same
-//   way. The weight cotangents are sums over all rows, steps and elements:
-//   each step's launch gives one block per 64 x 64 output tile and range of
+// - K2f's products run on the tensor cores in 3xTF32 at f32 accuracy
+//   (rgcn_gru_layer.cuh conv_rows_tc and gate_products on tile_product): a
+//   block takes 32 rows and a slab of the columns of every gate (kFwdWarps
+//   warps of 16 columns), recomputes the tile's conv output in full (the
+//   SpMM and the self-loop product, a slab at a time) and forms the gate
+//   products of its slab only, so one layer's launch gives d / (16 *
+//   kFwdWarps) blocks for each 32 rows: 320 at the main shape's 5,120 rows
+//   and d = 128, where whole-width tiles would give 160 for 132 SMs.
+// - K2b's products run on the tensor cores the same way: a GRU tile of 32
+//   rows and all d columns recomputes the conv output and the gates with
+//   K2f's routines and forms d_gi @ W_ih and d_gh @ W_hh with the weights
+//   streamed through shared memory, each warp 16 columns of every window;
+//   the input tile's d_lp @ loop^T the same way. The weight cotangents are
+//   sums over all rows, steps and elements: each step's launch gives one
+//   block per 64 x 64 output tile and range of
 //   the step's rows, the rows as the product's depth, which adds its tile
 //   into that range's own copy of the outputs; one last launch sums the
 //   copies in a fixed order, so the sums are deterministic.
@@ -68,29 +73,63 @@
 
 namespace {
 
-__global__ void window_layer_kernel(Layer p, float* buf, float* loc) {
-  extern __shared__ float smem[];
-  const int d = p.d;
-  float* xs = smem;                    // [kTileRows, d] input rows
-  float* cs = xs + kTileRows * d;      // [kTileRows, d] conv output
-  float* hs = cs + kTileRows * d;      // [kTileRows, d] decayed prev state
-  const int b = blockIdx.y;
-  const int a0 = blockIdx.x * kTileRows;
-  Gates gt;
-  layer_tile<kUnrolled>(p, b, a0, xs, cs, hs, nullptr, gt);
+// K2f's block: kFwdWarps warps (fewer where d / 16 is not a multiple of
+// it), each owning 16 columns of the block's slab of every gate. Four warps
+// give the main shape (d = 128) two slabs of 64 columns: 320 blocks of 128
+// threads a launch over 5,120 rows, and 69,888 bytes of shared memory, so
+// three blocks an SM; eight (one slab, 160 blocks) measured slower on an
+// H100 (PERF.md). Each slab block redoes the tile's SpMM and self-loop (2
+// d^2 of the 14 d^2 flops a row) rather than take them from a conv launch
+// a layer, which would double the launches the host makes (1,288 on the
+// eval sweep).
+constexpr int kFwdWarps = 4;
 
-  const int col = threadIdx.x % d;
-  const int r0 = (threadIdx.x / d) * kRowsPerThread;
-  const long long step_row = ((long long)b * p.L1 + p.k) * p.A;
+__host__ __device__ constexpr int fwd_warps(int d) {
+  int w = kFwdWarps < d / 16 ? kFwdWarps : d / 16;
+  while ((d / 16) % w != 0) --w;
+  return w;
+}
+
+// Shared memory of window_layer_kernel in floats: the ring of three gate
+// windows of the slab, then xs, cs and hs ([kBwdRows, d + 4] each).
+__host__ __device__ constexpr int fwd_layer_smem_floats(int d) {
+  return ring_floats(3, 16 * fwd_warps(d)) + 3 * kBwdRows * (d + 4);
+}
+
+// One RGCN+GRU layer of window step k for the rows of tile blockIdx.x /
+// slabs of element blockIdx.y, at the columns of slab blockIdx.x % slabs of
+// every gate: the output rows (and with loc the conv output) there.
+__global__ void __launch_bounds__(kFwdWarps * kWarp, 3) window_layer_kernel(
+    Layer p, float* buf, float* loc, int slabs) {
+  extern __shared__ float smem[];
+  const int d = p.d, A = p.A, ld = d + 4;
+  float* ring = smem;
+  float* xs = ring + ring_floats(3, block_cols());
+  float* cs = xs + kBwdRows * ld;      // conv output (xs when given)
+  float* hs = cs + kBwdRows * ld;      // decayed previous states
+  const int b = blockIdx.y;
+  const int a0 = (blockIdx.x / slabs) * kBwdRows;
+  const int s0 = (blockIdx.x % slabs) * block_cols();
+  const int c0 = warp_col0();
+  const long long step_row = ((long long)b * p.L1 + p.k) * A;
+  load_tile(p, b, a0, kBwdRows, ld, xs, cs, hs);
+  if (!p.conv_given) conv_rows_tc(p, b, a0, xs, cs, ld, ring, nullptr);
+  float acc[4][kMTiles][2][4];
+  gate_products(cs, hs, ld, p.wih_t, p.whh_t, d, s0, ring, acc);
+  const GateBias gb = gate_bias(p.bih, p.bhh, d, s0 + c0);
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int a = a0 + r0 + i;
-    if (a < p.A) {
-      const float h = hs[(r0 + i) * d + col];
-      buf[(step_row + a) * d + col] = (1.f - gt.z[i]) * gt.n[i] + gt.z[i] * h;
-      if (loc != nullptr) loc[(step_row + a) * d + col] = cs[(r0 + i) * d + col];
-    }
-  }
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = acc_row(mt, i), c = s0 + c0 + acc_col(nt, i);
+        if (a0 + r >= A) continue;
+        const long long e = (step_row + a0 + r) * d + c;
+        const GateAt g = gate_at(acc, mt, nt, i, gb);
+        buf[e] = (1.f - g.z) * g.n + g.z * hs[r * ld + c];
+        if (loc != nullptr) loc[e] = cs[r * ld + c];
+      }
 }
 
 __global__ void __launch_bounds__(256, 2) window_bwd_gru_kernel(
@@ -144,11 +183,18 @@ extern "C" int window_layer_launch(
                                wstride, wcol, loopw, mask, relu, wih_t, whh_t,
                                bih, bhh, gidx, live, dt, lam, buf, L1, A, d,
                                k);
-    const dim3 grid((A + kTileRows - 1) / kTileRows, B);
-    const size_t smem = 3 * kTileRows * d * sizeof(float);
-    window_layer_kernel<<<grid, kRowGroups * d, smem,
+    const int warps = fwd_warps(d);
+    const int slabs = d / (16 * warps);
+    const int bytes =
+        fwd_layer_smem_floats(d) * static_cast<int>(sizeof(float));
+    cudaError_t err = cudaFuncSetAttribute(
+        window_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((A + kBwdRows - 1) / kBwdRows * slabs, B);
+    window_layer_kernel<<<grid, warps * kWarp, bytes,
                           static_cast<cudaStream_t>(stream)>>>(
-        p, static_cast<float*>(buf), static_cast<float*>(loc));
+        p, static_cast<float*>(buf), static_cast<float*>(loc), slabs);
   }
   return static_cast<int>(cudaGetLastError());
 }

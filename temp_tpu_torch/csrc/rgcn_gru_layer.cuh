@@ -12,19 +12,25 @@
 //
 // The SpMMs and their transposes give one warp per row over a CSR of that
 // step's edges, summing in registers without atomics. The products:
-// - The forward tiles (layer_tile, conv_tile, gru_gates: K2f, K3, K11, and
-//   K6+K7 and K9+K10's own GRU launch, bi_bwd_gru_kernel) keep plain FMA
-//   from shared-memory broadcasts: each thread owns one column and eight
-//   rows of a kTileRows tile. What bounds them is the load pipe (a shared
-//   load per one or three FMAs), not the FMA units.
-// - The backward tiles (bwd_gru_tile, bwd_input_tile, wgrad_tile: K2b and
-//   K5, and K9+K10's input and weight launches) compute every product with
-//   tile_product (or wgrad_tile's own loop of the same parts) on the tensor
-//   cores in 3xTF32 at f32 accuracy: the weights stream through shared
-//   memory by cp.async, each warp owns 16 columns of every window and all
-//   32 rows of the tile, and keeps its outputs in mma accumulators. What
-//   bounds them is the tensor cores' mma.sync rate at three products for
-//   each f32 one, with the 3xTF32 splits and the staging beside it.
+// - The tensor-core tiles compute every product with tile_product (or
+//   wgrad_tile's own loop of the same parts) on mma.sync m16n8k8 in 3xTF32
+//   at f32 accuracy: 32-row tiles whose warps own 16 columns of every weight
+//   window and all the rows, the weights streamed through shared memory by
+//   cp.async, the outputs kept in mma accumulators. They are the window's
+//   forward layer (K2f, and K12 on its launches), which works on a column
+//   slab of every gate a block so that a window step's few thousand rows
+//   still fill the card, and the backward tiles on all d columns
+//   (bwd_gru_tile, bwd_input_tile, wgrad_tile: K2b and K5; K9+K10's own
+//   GRU tile bi_bwd_gru_kernel, its input and its weight launches).
+//   conv_rows_tc and gate_products are the forward products that K2f and
+//   the backward tiles' recompute share, so both give the same conv output
+//   and gates bit for bit. What bounds them is the tensor cores' mma.sync
+//   rate at three products for each f32 one, with the 3xTF32 splits and
+//   the staging beside it.
+// - The other forward tiles (layer_tile, conv_tile, gru_gates: K3, K11 and
+//   K6+K7) keep plain FMA from shared-memory broadcasts: each thread owns
+//   one column and eight rows of a kTileRows tile. What bounds them is the
+//   load pipe (a shared load per one or three FMAs), not the FMA units.
 
 #pragma once
 
@@ -37,17 +43,35 @@ constexpr int kTileRows = 16;
 constexpr int kRowGroups = 2;                         // threads = 2 * d
 constexpr int kRowsPerThread = kTileRows / kRowGroups;
 constexpr int kMaxChunks = 8;                         // d <= 256
-// Unroll of the forward tiles' GRU gate-product loop: 4 in the one-GRU
-// forward kernels, none in the bidirectional ones (two GRUs a tile).
-// Measured on an H100 (PERF.md): unrolled, the window forward takes 2.7 ms
+// Unroll of the FMA tiles' GRU gate-product loop: 4 in the one-GRU forward
+// kernel, none in the bidirectional one (two GRUs a tile). Measured on an
+// H100 (PERF.md): unrolled, the window forward of the time took 2.7 ms
 // where it took 3.5 (86 -> 126 registers) and the bidirectional forward 4.7
 // where it took 3.0 (96 -> 130): above 128 registers a 256-thread block
 // leaves no room for a second one on an SM.
-constexpr int kUnrolled = 4;  // window_layer_kernel, final_layer_kernel
-constexpr int kRolled = 1;    // bi_layer_kernel, bi_bwd_gru_kernel
+constexpr int kUnrolled = 4;  // final_layer_kernel
+constexpr int kRolled = 1;    // bi_layer_kernel
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
+}
+
+// 16 bytes from device to shared memory, asynchronously; zeros when !valid
+// (then nothing is read at src).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // One RGCN+GRU layer of window step k.
@@ -94,28 +118,59 @@ struct Gates {
   float ghn[kRowsPerThread];  // W_hn h + b_hn, before the reset gate
 };
 
+// A window row's (or a final-step row's) previous state: where it starts
+// in prev, and the live and decay factors it is scaled by.
+struct PrevRow {
+  long long off;
+  float live, dec;
+};
+
 // Rows a0..a0+nrows-1 of element b into shared memory (row stride ld): xs
-// = the input rows, hs = the previous states times live * exp(-lambda * dt)
-// (cs = xs when the conv output is given). No barrier at the end.
+// = the input rows (cs too when the conv output is given, cs may be null
+// otherwise), hs = the previous states times live * exp(-lambda * dt) (hs
+// may be null). The rows are copied by cp.async, a warp a row, after each
+// warp's lanes have read the gather index, live and dt of the warp's rows
+// at once (lane i those of its i-th row); then each warp scales its rows of
+// hs. So a row costs no chain of dependent loads. Rows past A are zeros.
+// No barrier at the end (each warp's copies are complete).
 __device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
                                           int nrows, int ld, float* xs,
                                           float* cs, float* hs) {
-  const int d = p.d, A = p.A;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int d = p.d, A = p.A, quads = d / 4;
   const long long elem_row = (long long)b * p.L1 * A;
   const long long step_row = elem_row + (long long)p.k * A;
-  for (int i = threadIdx.x; i < nrows * d; i += blockDim.x) {
-    const int r = i / d, c = i - r * d;
-    const int a = a0 + r;
-    float xv = 0.f, hv = 0.f;
-    if (a < A) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int nwarps = blockDim.x / kWarp;
+  PrevRow mine = {0, 0.f, 0.f};
+  {
+    const int r = warp + lane * nwarps, a = a0 + r;
+    if (r < nrows && a < A && hs != nullptr) {
       const long long row = step_row + a;
-      xv = p.x[row * d + c];
-      const float dec = expf(-p.lam * p.dt[row]);
-      hv = p.prev[prev_row(p, elem_row, row) * d + c] * live_of(p, row) * dec;
+      mine.off = prev_row(p, elem_row, row) * d;
+      mine.live = live_of(p, row);
+      mine.dec = expf(-p.lam * p.dt[row]);
     }
-    xs[r * ld + c] = xv;
-    if (hs != nullptr) hs[r * ld + c] = hv;
-    if (p.conv_given) cs[r * ld + c] = xv;
+  }
+  for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
+    const bool in = a0 + r < A;
+    const float* xr = p.x + (step_row + (in ? a0 + r : 0)) * d;
+    const float* pr = p.prev + __shfl_sync(kAll, mine.off, i);
+    for (int q = lane; q < quads; q += kWarp) {
+      cp_async16(xs + r * ld + 4 * q, xr + 4 * q, in);
+      if (p.conv_given) cp_async16(cs + r * ld + 4 * q, xr + 4 * q, in);
+      if (hs != nullptr) cp_async16(hs + r * ld + 4 * q, pr + 4 * q, in);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  if (hs == nullptr) return;
+  __syncwarp();
+  for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
+    const float lv = __shfl_sync(kAll, mine.live, i);
+    const float dec = __shfl_sync(kAll, mine.dec, i);
+    for (int c = lane; c < d; c += kWarp)
+      hs[r * ld + c] = hs[r * ld + c] * lv * dec;
   }
 }
 
@@ -124,24 +179,47 @@ __device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
   load_tile(p, b, a0, kTileRows, p.d, xs, cs, hs);
 }
 
-// The decayed previous states of a tile only (the second direction of a
-// bidirectional layer, whose input rows are already loaded).
+// The decayed previous states of rows a0..a0+nrows-1 only (row stride ld;
+// the second direction of a bidirectional layer, whose input rows are
+// already loaded), as load_tile loads them. No barrier at the end.
 __device__ __forceinline__ void load_prev(const Layer& p, int b, int a0,
-                                          float* hs) {
-  const int d = p.d, A = p.A;
+                                          int nrows, int ld, float* hs) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int d = p.d, A = p.A, quads = d / 4;
   const long long elem_row = (long long)b * p.L1 * A;
   const long long step_row = elem_row + (long long)p.k * A;
-  for (int i = threadIdx.x; i < kTileRows * d; i += blockDim.x) {
-    const int r = i / d, c = i - r * d;
-    const int a = a0 + r;
-    float hv = 0.f;
-    if (a < A) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int nwarps = blockDim.x / kWarp;
+  PrevRow mine = {0, 0.f, 0.f};
+  {
+    const int r = warp + lane * nwarps, a = a0 + r;
+    if (r < nrows && a < A) {
       const long long row = step_row + a;
-      const float dec = expf(-p.lam * p.dt[row]);
-      hv = p.prev[prev_row(p, elem_row, row) * d + c] * live_of(p, row) * dec;
+      mine.off = prev_row(p, elem_row, row) * d;
+      mine.live = live_of(p, row);
+      mine.dec = expf(-p.lam * p.dt[row]);
     }
-    hs[i] = hv;
   }
+  for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
+    const bool in = a0 + r < A;
+    const float* pr = p.prev + __shfl_sync(kAll, mine.off, i);
+    for (int q = lane; q < quads; q += kWarp)
+      cp_async16(hs + r * ld + 4 * q, pr + 4 * q, in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
+    const float lv = __shfl_sync(kAll, mine.live, i);
+    const float dec = __shfl_sync(kAll, mine.dec, i);
+    for (int c = lane; c < d; c += kWarp)
+      hs[r * ld + c] = hs[r * ld + c] * lv * dec;
+  }
+}
+
+__device__ __forceinline__ void load_prev(const Layer& p, int b, int a0,
+                                          float* hs) {
+  load_prev(p, b, a0, kTileRows, p.d, hs);
 }
 
 // The relational SpMM with double degree normalization of rows
@@ -189,7 +267,7 @@ __device__ __forceinline__ void spmm_rows(const Layer& p, int b, int a0,
 // The conv output of a loaded tile of kTileRows rows into cs: spmm_rows
 // plus the self-loop product times its dropout mask, then the ReLU when
 // p.relu. Writes norm^2 of each row to n2_out when it is not null. Starts
-// and ends with a barrier. (The forward tiles' product: plain FMA, each
+// and ends with a barrier. (The FMA tiles' product: plain FMA, each
 // thread one column and eight rows.)
 __device__ __forceinline__ void conv_tile(const Layer& p, int b, int a0,
                                           const float* xs, float* cs,
@@ -285,11 +363,12 @@ __device__ __forceinline__ void layer_tile(const Layer& p, int b, int a0,
   gru_gates<kUnroll>(cs, hs, p.wih_t, p.whh_t, p.bih, p.bhh, p.d, gt);
 }
 
-// -- The backward tiles' products: 3xTF32 on the tensor cores ---------------
+// -- The tensor-core tiles' products: 3xTF32 --------------------------------
 //
-// Every product of the backward tiles (the self-loop and gate products of
-// the recompute, the transposed gate products, the input cotangent's
-// d_lp @ loop^T and the weight cotangents X^T G) runs on mma.sync
+// Every product of the tensor-core tiles (the self-loop and gate products
+// of K2f and of the backward tiles' recompute, the transposed gate
+// products, the input cotangent's d_lp @ loop^T and the weight cotangents
+// X^T G) runs on mma.sync
 // m16n8k8 with tf32 operands at f32 accuracy: each f32 operand x is split
 // into hi, x with its 13 low mantissa bits cleared (the tiles) or rounded
 // to tf32 (the weight launch), and lo = x - hi, exact in f32, of which the
@@ -392,24 +471,6 @@ __device__ __forceinline__ FragB frag_b(const float* b, int ld, int k0,
   return f;
 }
 
-// 16 bytes from device to shared memory, asynchronously; zeros when !valid
-// (then nothing is read at src).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N));
-}
-
 // The first column of the warp's 16 in a backward tile.
 __device__ __forceinline__ int warp_col0() {
   return (threadIdx.x / kWarp) * kWarpCols;
@@ -506,6 +567,107 @@ __device__ __forceinline__ void zero_acc(float (&acc)[NA][kMTiles][2][4]) {
         for (int i = 0; i < 4; ++i) acc[j][mt][nt][i] = 0.f;
 }
 
+// The columns of a tensor-core tile's block at a time: 16 a warp, so all d
+// with the backward tiles' d / 16 warps, a slab with fewer (K2f).
+__device__ __forceinline__ int block_cols() { return blockDim.x / 2; }
+
+// The conv output of a tile of kBwdRows rows (a0.. of element b; its input
+// rows loaded in xs) into cs (row stride ld): the SpMM rows, then + (xs @
+// loop) * mask through tile_product, block_cols() columns at a time, then
+// the ReLU when p.relu. Writes norm^2 of each row to n2_out when it is not
+// null. Each column slab's epilogue writes the thread's own accumulator
+// positions of cs, so with one slab a thread may read its own positions
+// back without a barrier; the next tile_product's opening barrier
+// publishes the rest.
+__device__ __forceinline__ void conv_rows_tc(const Layer& p, int b, int a0,
+                                             const float* xs, float* cs,
+                                             int ld, float* ring,
+                                             float* n2_out) {
+  const int d = p.d, A = p.A, w = block_cols(), c0 = warp_col0();
+  const long long step_row = ((long long)b * p.L1 + p.k) * A;
+  spmm_rows(p, b, a0, kBwdRows, cs, ld, n2_out);
+  for (int s0 = 0; s0 < d; s0 += w) {
+    float lp[1][kMTiles][2][4];
+    zero_acc(lp);
+    const float* wl[1] = {p.loopw + s0};
+    tile_product<1, 0>(xs, ld, d, wl, d, w, ring, lp);
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = acc_row(mt, i), c = s0 + c0 + acc_col(nt, i);
+          float v = lp[0][mt][nt][i];
+          if (p.mask != nullptr && a0 + r < A)
+            v *= p.mask[(step_row + a0 + r) * d + c];
+          v += cs[r * ld + c];
+          cs[r * ld + c] = p.relu ? fmaxf(v, 0.f) : v;
+        }
+  }
+}
+
+// The GRU gate products of a tile at columns s0..s0+block_cols()-1 of each
+// gate: acc 0 = gi_r + gh_r, 1 = gi_z + gh_z, 2 = gi_n, 3 = gh_n, without
+// the biases, from the GRU input rows cs and the decayed states hs (row
+// stride ld, complete at the call) and W_ih, W_hh transposed ([d, 3d]).
+// Ends with a barrier.
+__device__ __forceinline__ void gate_products(
+    const float* cs, const float* hs, int ld, const float* wih_t,
+    const float* whh_t, int d, int s0, float* ring,
+    float (&acc)[4][kMTiles][2][4]) {
+  const int w = block_cols();
+  zero_acc(acc);
+  const float* wi[3] = {wih_t + s0, wih_t + d + s0, wih_t + 2 * d + s0};
+  tile_product<4, 0, 1, 2>(cs, ld, d, wi, 3 * d, w, ring, acc);
+  const float* wh[3] = {whh_t + s0, whh_t + d + s0, whh_t + 2 * d + s0};
+  tile_product<4, 0, 1, 3>(hs, ld, d, wh, 3 * d, w, ring, acc);
+}
+
+// The gates at an accumulator position of gate_products.
+struct GateAt {
+  float r, z, n;
+  float ghn;  // W_hn h + b_hn, before the reset gate
+};
+
+// The GRU biases at the four columns of a thread's accumulator positions
+// (column c0 + acc_col(nt, i), by nt and i & 1), read once: b_ir + b_hr,
+// b_iz + b_hz, b_in and b_hn.
+struct GateBias {
+  float r[2][2], z[2][2], in[2][2], hn[2][2];
+};
+
+__device__ __forceinline__ GateBias gate_bias(const float* __restrict__ bih,
+                                              const float* __restrict__ bhh,
+                                              int d, int c0) {
+  GateBias gb;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + acc_col(nt, h);
+      gb.r[nt][h] = bih[c] + bhh[c];
+      gb.z[nt][h] = bih[d + c] + bhh[d + c];
+      gb.in[nt][h] = bih[2 * d + c];
+      gb.hn[nt][h] = bhh[2 * d + c];
+    }
+  return gb;
+}
+
+// The gates at accumulator position (mt, nt, i) of gate_products, with the
+// biases of gate_bias.
+__device__ __forceinline__ GateAt gate_at(
+    const float (&acc)[4][kMTiles][2][4], int mt, int nt, int i,
+    const GateBias& gb) {
+  const int h = i & 1;
+  GateAt g;
+  g.r = sigmoid(acc[0][mt][nt][i] + gb.r[nt][h]);
+  g.z = sigmoid(acc[1][mt][nt][i] + gb.z[nt][h]);
+  g.ghn = acc[3][mt][nt][i] + gb.hn[nt][h];
+  g.n = tanhf((acc[2][mt][nt][i] + gb.in[nt][h]) + g.r * g.ghn);
+  return g;
+}
+
 // Shared memory of bwd_gru_tile in floats: the ring of three gate windows,
 // then the tile region: xs, cs, hs ([kBwdRows, d + 4] each), later dg
 // ([kBwdRows, 4d + 4], the larger) over them. 103,680 bytes at d = 128:
@@ -516,7 +678,8 @@ __host__ __device__ constexpr int bwd_gru_smem_floats(int d) {
 
 // Backward of one layer's GRU at step k for a tile of kBwdRows rows
 // (blockIdx.x) of element blockIdx.y, with d / 16 warps: recomputes the
-// conv output and the gates, takes d_out from db, and gives d_conv (plus
+// conv output and the gates (conv_rows_tc, gate_products: K2f's products),
+// takes d_out from db, and gives d_conv (plus
 // the cotangent g_loc of the conv output itself when it is not null, both
 // through the ReLU's mask when p.relu; and d_conv * mask, the self-loop
 // cotangent) into the step scratch, the gate cotangents and their product
@@ -555,38 +718,11 @@ __device__ __forceinline__ void bwd_gru_tile(
   const long long elem_row = (long long)b * p.L1 * A;
   const long long step_row = elem_row + (long long)p.k * A;
 
-  // the conv output: the SpMM rows into cs, then + (xs @ loop) * mask
   load_tile(p, b, a0, kBwdRows, ld, xs, nullptr, hs);
-  spmm_rows(p, b, a0, kBwdRows, cs, ld, n2_out);
-  {
-    float lp[1][kMTiles][2][4];
-    zero_acc(lp);
-    const float* w[1] = {p.loopw};
-    tile_product<1, 0>(xs, ld, d, w, d, d, ring, lp);
-#pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = acc_row(mt, i), c = c0 + acc_col(nt, i);
-          float v = lp[0][mt][nt][i];
-          if (p.mask != nullptr && a0 + r < A)
-            v *= p.mask[(step_row + a0 + r) * d + c];
-          v += cs[r * ld + c];
-          cs[r * ld + c] = p.relu ? fmaxf(v, 0.f) : v;
-        }
-  }
-
-  // the gates: acc 0 = gi_r + gh_r, 1 = gi_z + gh_z, 2 = gi_n, 3 = gh_n
+  conv_rows_tc(p, b, a0, xs, cs, ld, ring, n2_out);
   float acc[4][kMTiles][2][4];
-  zero_acc(acc);
-  {
-    const float* wi[3] = {p.wih_t, p.wih_t + d, p.wih_t + 2 * d};
-    tile_product<4, 0, 1, 2>(cs, ld, d, wi, d3, d, ring, acc);
-    const float* wh[3] = {p.whh_t, p.whh_t + d, p.whh_t + 2 * d};
-    tile_product<4, 0, 1, 3>(hs, ld, d, wh, d3, d, ring, acc);
-  }
+  gate_products(cs, hs, ld, p.wih_t, p.whh_t, d, 0, ring, acc);
+  const GateBias gb = gate_bias(p.bih, p.bhh, d, c0);
   // the gate cotangents, in place of the gates; d_out * z
   float dh_direct[kMTiles][2][4];
   unsigned pos_bits = 0;               // conv output > 0, by position
@@ -603,12 +739,8 @@ __device__ __forceinline__ void bwd_gru_tile(
         if (a < A) {
           const long long row = step_row + a;
           const long long m = (long long)b * A + a;
-          const float rg = sigmoid(acc[0][mt][nt][i] + (p.bih[c] + p.bhh[c]));
-          const float z = sigmoid(acc[1][mt][nt][i]
-                                  + (p.bih[d + c] + p.bhh[d + c]));
-          const float ghn = acc[3][mt][nt][i] + p.bhh[2 * d + c];
-          const float n = tanhf((acc[2][mt][nt][i] + p.bih[2 * d + c])
-                                + rg * ghn);
+          const GateAt g = gate_at(acc, mt, nt, i, gb);
+          const float rg = g.r, z = g.z, n = g.n, ghn = g.ghn;
           const float dout = db[row * d + c];
           const float h = hs[r * ld + c];
           const float dz = dout * (h - n);

@@ -347,6 +347,9 @@ def _check(name, tensors: dict, shapes: dict, ints=()):
                              f"expected {tuple(shapes[key])}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} is not 16-byte aligned (the "
+                             f"kernels copy its rows 16 bytes at a time)")
 
 
 _GRAPH_INTS = ("src", "dst", "rel", "tail_ptr", "tail_ans", "head_ptr",

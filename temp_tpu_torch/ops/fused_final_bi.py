@@ -19,6 +19,11 @@ tail+head cross-entropy over the positives from that table.
   its input, both histories, both local tables, the four impute scalars,
   the relation and self-loop weights and both GRUs' weights.
 
+``bi_relu_pattern`` gives the ReLU's pattern that K9+K10 take from their
+recomputed conv output, for holding them to their plain version
+(``bi_layer_bwd_plain``'s `relu_mask`); ``bi_bwd_gru_launcher`` their GRU
+launch alone, for timing it.
+
 ``FusedFinalBi`` is the autograd function made of them: K4, the select's
 backward, the layer-2 backward, the layer-1 backward, as the JAX package's
 ``_fused_final_bi_bwd``. On a CPU tensor each wrapper runs its plain
@@ -187,10 +192,12 @@ def _gru_bwd_plain(d_out, x, h0g, g):
 
 def bi_layer_bwd_plain(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
                        loop, gf, gb, d_out, relu: bool = False, hl=None,
-                       imp=None):
+                       imp=None, relu_mask=None):
     """Plain version of K9+K10 (the JAX package's ``_gru_bwd_bi_kernel``
     and ``_conv_bwd_bi_kernel``) for one layer; arguments and result as in
-    ``bi_layer_bwd``."""
+    ``bi_layer_bwd``. relu_mask [B, N, d], when given, stands for the
+    ReLU's pattern (``bi_relu_pattern``: the kernels', whose conv output
+    differs from this one by rounding)."""
     gr = bg.gr
     B, N, d = prev_f.shape
     conv, gin, h0f, h0b = _rows_plain(x, prev_f, prev_b, bg, mask, wrel, col,
@@ -215,7 +222,7 @@ def bi_layer_bwd_plain(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
     else:
         d_conv = d_gin
     if relu:
-        d_conv = d_conv * (conv > 0)
+        d_conv = d_conv * ((conv > 0) if relu_mask is None else relu_mask)
     # the edge part: the SpMM's transpose and the dropped self-loop
     rows = B * N
     xf = x.expand(B, N, d).reshape(rows, d)
@@ -366,6 +373,102 @@ def bi_loss_fwd(table, rtab, gr: FinalGraph, csr=None):
 bi_loss_fwd.launches = 0
 
 
+def _bi_bwd_prepare(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
+                    loop, gf, gb, d_out, relu: bool, hl, imp, csr,
+                    pattern: bool = False):
+    """(st, gru): the checked operands, CSRs, outputs and scratch of one
+    ``bi_layer_bwd`` call on the card, and a function of no arguments that
+    makes its GRU launch (``bi_bwd_gru_kernel``) into them; with `pattern`
+    the launch also writes the ReLU's pattern into st["relu"]."""
+    gr = bg.gr
+    B, N, d = prev_f.shape
+    R = wrel.shape[0]
+    xx = _expand("bi_layer_bwd", x, B, N, d)
+    _check_layer("bi_layer_bwd", bg, xx, prev_f, prev_b, mask, wrel, loop,
+                 gf, gb, hl, imp, {"d_out": d_out})
+    if col not in (0, d):
+        raise ValueError(f"bi_layer_bwd: col = {col}, not 0 or d")
+    csr = final_csr(gr, N, R) if csr is None else csr
+    (rowptr, s_src, s_rel, s_em), _, (r_ptr, _), _ = csr
+    if r_ptr.numel() < R + 1:
+        raise ValueError(f"bi_layer_bwd: the CSR by relation has "
+                         f"{r_ptr.numel() - 1} rows, wrel {R}")
+    dev = prev_f.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    rows = B * N
+    impute = hl is not None
+    st = {"xx": xx, "csr": csr, "n2": torch.empty(rows, **f32),
+          "scr": {k: torch.empty(rows * (3 * d if k.startswith("dg") else d),
+                                 **f32)
+                  for k in ("gin", "h0f", "h0b", "dgi_f", "dgh_f", "dgi_b",
+                            "dgh_b", "dconv", "dlp")},
+          "d_prev_f": torch.empty(B, N, d, **f32),
+          "d_prev_b": torch.empty(B, N, d, **f32),
+          "d_hl": ((torch.empty(B, N, d, **f32), torch.empty(B, N, d, **f32))
+                   if impute else (None, None)),
+          "dimp_rows": torch.empty(rows, 4, **f32) if impute else None,
+          "relu": torch.empty(B, N, d, **f32) if pattern else None}
+    torch_layout = [g[k].t().contiguous() for g in (gf, gb)
+                    for k in ("wih_t", "whh_t")]
+    hl_f, hl_b = (None, None) if hl is None else hl
+    scr, p = st["scr"], _p
+    args = (
+        p(xx), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d, col,
+        p(loop), p(mask), int(relu), *(p(gf[k]) for k in _GRU_PARTS),
+        *(p(gb[k]) for k in _GRU_PARTS), *(p(t) for t in torch_layout),
+        p(gr.dt), p(bg.dt_b), float(gr.lam), p(prev_f), p(prev_b),
+        p(gr.active), p(hl_f), p(hl_b), p(imp), p(d_out), p(st["d_prev_f"]),
+        p(st["d_prev_b"]), p(st["d_hl"][0]), p(st["d_hl"][1]),
+        p(st["dimp_rows"]), p(st["n2"]),
+        *(p(scr[k]) for k in ("gin", "h0f", "h0b", "dgi_f", "dgh_f", "dgi_b",
+                              "dgh_b", "dconv", "dlp")),
+        p(st["relu"]), B, N, d)
+
+    # the launch holds the tensors behind its pointers (st, and the weights
+    # in torch's layout), so that a caller may keep the function alone; st
+    # holds no reference back, so the scratch goes when both are gone
+    def gru(_keep=(st, torch_layout)):
+        _build.check(_build.lib().bi_bwd_gru_launch(
+            *args, torch.cuda.current_stream(dev).cuda_stream),
+            "bi_layer_bwd (gru)")
+        bi_layer_bwd.launches += 1
+
+    return st, gru
+
+
+def bi_bwd_gru_launcher(x, prev_f, prev_b, bg: BiGraph, mask, wrel,
+                        col: int, loop, gf, gb, d_out, relu: bool = False,
+                        hl=None, imp=None, csr=None):
+    """K9+K10's GRU launch alone, on operands prepared as ``bi_layer_bwd``
+    prepares them (arguments as there, CUDA tensors only): a function of no
+    arguments that makes that one launch (counted on
+    ``bi_layer_bwd.launches``), so that its time can be taken apart from
+    the layer backward's other four launches."""
+    if _device("bi_layer_bwd", prev_f) != "cuda":
+        raise ValueError("bi_bwd_gru_launcher: the GRU launch runs on a "
+                         "CUDA tensor only")
+    return _bi_bwd_prepare(x, prev_f, prev_b, bg, mask, wrel, col, loop, gf,
+                           gb, d_out, relu, hl, imp, csr)[1]
+
+
+def bi_relu_pattern(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
+                    loop, gf, gb, d_out, relu: bool = False, hl=None,
+                    imp=None, csr=None):
+    """The ReLU's pattern [B, N, d] (1 where it passes) as the GRU launch of
+    ``bi_layer_bwd`` (arguments as there) takes it from its recomputed conv
+    output, or None on the CPU, where the plain version takes its own: the
+    pattern that ``bi_layer_bwd_plain``'s `relu_mask` needs to hold the
+    kernels to it where the conv output lies within rounding of 0. One
+    launch, counted on ``bi_layer_bwd.launches``."""
+    if _device("bi_layer_bwd", prev_f) == "cpu":
+        return None
+    st, gru = _bi_bwd_prepare(x, prev_f, prev_b, bg, mask, wrel, col, loop,
+                              gf, gb, d_out, relu, hl, imp, csr,
+                              pattern=True)
+    gru()
+    return st["relu"]
+
+
 def bi_layer_bwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
                  gf, gb, d_out, relu: bool = False, hl=None, imp=None,
                  csr=None):
@@ -380,33 +483,15 @@ def bi_layer_bwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
     if _device("bi_layer_bwd", prev_f) == "cpu":
         return bi_layer_bwd_plain(x, prev_f, prev_b, bg, mask, wrel, col,
                                   loop, gf, gb, d_out, relu, hl, imp)
-    gr = bg.gr
     B, N, d = prev_f.shape
-    E = gr.src.shape[1]
+    E = bg.gr.src.shape[1]
     R = wrel.shape[0]
-    xx = _expand("bi_layer_bwd", x, B, N, d)
-    _check_layer("bi_layer_bwd", bg, xx, prev_f, prev_b, mask, wrel, loop,
-                 gf, gb, hl, imp, {"d_out": d_out})
-    if col not in (0, d):
-        raise ValueError(f"bi_layer_bwd: col = {col}, not 0 or d")
-    ((rowptr, s_src, s_rel, s_em), (sp, sp_dst, sp_rel, sp_em, sp_eid),
-     (r_ptr, r_eid), _) = final_csr(gr, N, R) if csr is None else csr
-    if r_ptr.numel() < R + 1:
-        raise ValueError(f"bi_layer_bwd: the CSR by relation has "
-                         f"{r_ptr.numel() - 1} rows, wrel {R}")
+    st, gru = _bi_bwd_prepare(x, prev_f, prev_b, bg, mask, wrel, col, loop,
+                              gf, gb, d_out, relu, hl, imp, csr)
+    xx, scr, n2, dimp_rows = st["xx"], st["scr"], st["n2"], st["dimp_rows"]
+    _, (sp, sp_dst, sp_rel, sp_em, sp_eid), (r_ptr, r_eid), _ = st["csr"]
     dev = prev_f.device
     f32 = dict(device=dev, dtype=torch.float32)
-    rows = B * N
-    impute = hl is not None
-    n2 = torch.empty(rows, **f32)
-    scr = {k: torch.empty(rows * (3 * d if k.startswith("dg") else d), **f32)
-           for k in ("gin", "h0f", "h0b", "dgi_f", "dgh_f", "dgi_b", "dgh_b",
-                     "dconv", "dlp")}
-    d_prev_f = torch.empty(B, N, d, **f32)
-    d_prev_b = torch.empty(B, N, d, **f32)
-    d_hl = ((torch.empty(B, N, d, **f32), torch.empty(B, N, d, **f32))
-            if impute else (None, None))
-    dimp_rows = torch.empty(rows, 4, **f32) if impute else None
     d_h = torch.empty(B, N, d, **f32)
     ewg = torch.empty(B * E, d, **f32)
     d_wrel = torch.empty(R, d, **f32)
@@ -416,10 +501,7 @@ def bi_layer_bwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
     sizes = [torch.Size(shapes[n]).numel() for n in _WGRAD_LAYOUT]
     wpart = torch.zeros(_WGRAD_SPLIT, sum(sizes), **f32)
     wsum = torch.empty(sum(sizes), **f32)
-    torch_layout = [g[k].t().contiguous() for g in (gf, gb)
-                    for k in ("wih_t", "whh_t")]
     loop_t = loop.t().contiguous()
-    hl_f, hl_b = (None, None) if hl is None else hl
     lib = _build.lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _p
@@ -428,16 +510,7 @@ def bi_layer_bwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
         _build.check(err, f"bi_layer_bwd ({what})")
         bi_layer_bwd.launches += 1
 
-    launched(lib.bi_bwd_gru_launch(
-        p(xx), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d, col,
-        p(loop), p(mask), int(relu), *(p(gf[k]) for k in _GRU_PARTS),
-        *(p(gb[k]) for k in _GRU_PARTS), *(p(t) for t in torch_layout),
-        p(gr.dt), p(bg.dt_b), float(gr.lam), p(prev_f), p(prev_b),
-        p(gr.active), p(hl_f), p(hl_b), p(imp), p(d_out), p(d_prev_f),
-        p(d_prev_b), p(d_hl[0]), p(d_hl[1]), p(dimp_rows), p(n2),
-        *(p(scr[k]) for k in ("gin", "h0f", "h0b", "dgi_f", "dgh_f", "dgi_b",
-                              "dgh_b", "dconv", "dlp")),
-        B, N, d, stream), "gru")
+    gru()
     launched(lib.final_bwd_input_launch(
         p(sp), p(sp_dst), p(sp_rel), p(sp_em), p(sp_eid), p(n2),
         p(scr["dconv"]), p(scr["dlp"]), p(wrel), 2 * d, col, p(loop_t),
@@ -454,8 +527,9 @@ def bi_layer_bwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
         p(r_ptr), p(r_eid), p(ewg), p(d_wrel), R, d, stream), "relations")
     w = {n: t.view(shapes[n]) for n, t in
          zip(_WGRAD_LAYOUT, torch.split(wsum, sizes))}
-    return (d_h, d_prev_f, d_prev_b, d_hl[0], d_hl[1],
-            w["dimp"] if impute else None, d_wrel, w["dloop"],
+    d_hl = st["d_hl"]
+    return (d_h, st["d_prev_f"], st["d_prev_b"], d_hl[0], d_hl[1],
+            w["dimp"] if hl is not None else None, d_wrel, w["dloop"],
             w["dwih_f"], w["dwhh_f"], w["dbih_f"], w["dbhh_f"],
             w["dwih_b"], w["dwhh_b"], w["dbih_b"], w["dbhh_b"])
 

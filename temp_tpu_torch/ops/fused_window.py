@@ -23,7 +23,8 @@ On a CPU tensor each wrapper runs its plain version (the backward's is
 autograd through ``fused_window_fwd_plain``); on a CUDA tensor it launches
 the hand-written kernels in ``csrc/fused_window.cu`` or raises: forward two
 launches a step (layer 1, then layer 2), backward five a step and two more,
-its products on the tensor cores in 3xTF32 at f32 accuracy.
+the products of both on the tensor cores in 3xTF32 at f32 accuracy, the
+forward's and the backward's recompute the same sums in the same order.
 """
 
 from __future__ import annotations
@@ -63,9 +64,14 @@ def _gru_t(x, h, g):
 def fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
                            loop1, loop2, g1, g2, lam: float, conv1_in: bool,
                            m1=None, m2=None, act2: bool = False,
-                           n_buf: int = 2):
+                           n_buf: int = 2, relu_mask=None):
     """Plain PyTorch version of K2f; arguments as in ``fused_window_fwd``.
-    Differentiable by autograd (that is K2b's plain version)."""
+    Differentiable by autograd (that is K2b's plain version). relu_mask
+    [B, L1, A, d] (1 where the ReLU passes), when given, stands for the
+    ReLU's pattern: the pattern of another computation of the same window
+    (the kernels', whose outputs differ from these by rounding), so that
+    the two differentiate through the same side of the ReLU where layer
+    2's conv output lies within rounding of 0."""
     B, L1, A, d = h0x.shape
     buf1 = torch.zeros_like(h0x)
     buf2 = torch.zeros_like(h0x)
@@ -96,7 +102,12 @@ def fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
         buf1[:, k] = out1
         c2 = conv(out1, k, w2, loop2, m2)
         if act2:
-            c2 = torch.relu(c2)
+            r2 = torch.relu(c2)
+            if relu_mask is not None:
+                # the ReLU's value, its derivative from the given pattern
+                m = relu_mask[:, k]
+                r2 = c2 * m + (r2 - c2 * m).detach()
+            c2 = r2
         if buf3 is not None:
             buf3[:, k] = c2
         buf2[:, k] = _gru_t(c2, h2, g2)
@@ -126,6 +137,9 @@ def _check_cuda(name, tensors: dict, B, L1, A, E, d):
                              f"expected {shapes[key]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} is not 16-byte aligned (the "
+                             f"kernels copy its rows 16 bytes at a time)")
     if tensors["wrel"].dim() != 2 or tensors["wrel"].shape[1] != 2 * d:
         raise ValueError(f"{name}: wrel must be [R, 2d]")
     for key in ("wih1", "whh1", "wih2", "whh2"):
@@ -186,7 +200,7 @@ def fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     """
     if n_buf not in (2, 3):
         raise ValueError(f"fused_window_fwd: n_buf = {n_buf}, not 2 or 3")
-    if h0x.device.type == "cpu":
+    if _device("fused_window_fwd", h0x) == "cpu":
         return fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt,
                                       wrel, loop1, loop2, g1, g2, lam,
                                       conv1_in, m1, m2, act2, n_buf)
@@ -205,7 +219,7 @@ def window_fwd_launches(owner, h0x, src, dst, rel, em, gidx, live, dt, wrel,
     on ``owner.launches``: the wrapper that launches them (K2f's own, or
     K12's, which runs on them)."""
     name = owner.__name__
-    if h0x.device.type != "cuda":
+    if _device(name, h0x) != "cuda":
         raise ValueError(f"{name}: no kernel for device {h0x.device}")
     B, L1, A, d = h0x.shape
     E = src.shape[-1]
@@ -237,9 +251,11 @@ def window_fwd_launches(owner, h0x, src, dst, rel, em, gidx, live, dt, wrel,
 
 def fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
                            loop1, loop2, g1, g2, lam: float, m1, m2, gb1,
-                           gb2, gb3=None, act2: bool = False):
-    """Plain version of K2b: autograd through ``fused_window_fwd_plain``.
-    Returns the 12 cotangents in the order of ``fused_window_bwd``."""
+                           gb2, gb3=None, act2: bool = False,
+                           relu_mask=None):
+    """Plain version of K2b: autograd through ``fused_window_fwd_plain``
+    (with `relu_mask` as there). Returns the 12 cotangents in the order of
+    ``fused_window_bwd``."""
     leaves = [t.detach().requires_grad_(True) for t in (
         h0x, wrel, loop1, loop2, g1["wih_t"], g1["whh_t"], g2["wih_t"],
         g2["whh_t"], g1["bih"], g1["bhh"], g2["bih"], g2["bhh"])]
@@ -250,7 +266,7 @@ def fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
             x, src, dst, rel, em, gidx, live, dt, w, l1, l2,
             {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1},
             {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2},
-            lam, False, m1, m2, act2, len(gbs))
+            lam, False, m1, m2, act2, len(gbs), relu_mask)
         grads = torch.autograd.grad(bufs, leaves, gbs, allow_unused=True)
     return tuple(torch.zeros_like(t) if g is None else g
                  for g, t in zip(grads, leaves))

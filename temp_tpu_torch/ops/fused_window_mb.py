@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from temp_tpu_torch.ops.fused_window import (
-    apply_window, fused_window_fwd_plain, window_args, window_fwd_launches,
+    _device, apply_window, fused_window_fwd_plain, window_args,
+    window_fwd_launches,
 )
 
 
@@ -47,7 +48,7 @@ def fused_window_mb_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     whose launches it makes."""
     if n_buf not in (2, 3):
         raise ValueError(f"fused_window_mb_fwd: n_buf = {n_buf}, not 2 or 3")
-    if h0x.device.type == "cpu":
+    if _device("fused_window_mb_fwd", h0x) == "cpu":
         return fused_window_mb_fwd_plain(h0x, src, dst, rel, em, gidx, live,
                                          dt, wrel, loop1, loop2, g1, g2, lam,
                                          conv1_in, m1, m2, act2, n_buf)

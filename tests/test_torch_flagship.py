@@ -751,6 +751,82 @@ def test_fused_flagship_step_launches_the_kernels_in_order(monkeypatch):
             fb.bi_layer_bwd.launches - counts[3]) == (2, 2, 4, 10)
 
 
+@pytest.mark.parametrize("layer", [1, 2])
+def test_bi_layer_bwd_launches_match_the_library_signatures(monkeypatch,
+                                                            layer):
+    """K9+K10's plumbing, rehearsed on the CPU with a library that records
+    its calls: one layer backward (layer 2 with the ReLU and the impute
+    blend, layer 1 without) makes the GRU, input, weight, weight-sum and
+    relation launches in that order, each with the argument count and types
+    that ``_build.SIGNATURES`` declares, the GRU launch without the ReLU
+    pattern's output; ``bi_relu_pattern`` and ``bi_bwd_gru_launcher`` make
+    the GRU launch alone, the first with that output. Each launch counts on
+    ``bi_layer_bwd.launches``."""
+    kinds = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: int,
+             ctypes.c_float: float, ctypes.c_longlong: int}
+    calls = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            sig = _build.SIGNATURES[name]
+
+            def launch(*args):
+                assert len(args) == len(sig), name
+                for a, t in zip(args, sig):
+                    assert isinstance(a, kinds[t]) and not isinstance(
+                        a, bool), (name, a)
+                # the GRU launch: its relu flag and whether it writes the
+                # ReLU's pattern
+                calls.append((name, args[10], args[-5] is not None)
+                             if name == "bi_bwd_gru_launch" else name)
+                return 0
+            return launch
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(_build, "lib", lambda: Recorder())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None:
+                        Stream())
+    monkeypatch.setattr(fb, "_device", lambda name, t: "cuda")
+    host = make_synthetic(**DATA)
+    data = to_device(host, "cpu")
+    answers = to_device(build_answer_lists(host), "cpu")
+    gen = torch.Generator().manual_seed(2)
+    B, N, d = len(T_POS), host.num_ents, 16
+    tp = torch.tensor(T_POS)
+    em = data.train.emask[tp]
+    draws = {"edges": em, "pos": em,
+             "fin1": torch.rand(B, N, d, generator=gen) < 0.9,
+             "fin2": torch.rand(B, N, d, generator=gen) < 0.9}
+    lp = [torch.randint(0, 2, (B, N), generator=gen).float() for _ in "fb"]
+    bg = fb.final_graph_bi(data, answers, tp, draws, lp[0], lp[1], 0.1, 0.1,
+                           3, True, False)
+    rnd = lambda *s: torch.randn(*s, generator=gen)  # noqa: E731
+    grus = [{k: rnd(*((3 * d,) if k.startswith("b") else (d, 3 * d)))
+             for k in fb._GRU_PARTS} for _ in "fb"]
+    relu = layer == 2
+    kw = dict(relu=relu, hl=(rnd(B, N, d), rnd(B, N, d)) if relu else None,
+              imp=rnd(4) if relu else None)
+    args = (rnd(B, N, d), rnd(B, N, d), rnd(B, N, d), bg,
+            bg.gr.m2 if relu else bg.gr.m1, rnd(2 * host.num_rels, 2 * d),
+            d if relu else 0, rnd(d, d), *grus, rnd(B, N, d))
+    before = fb.bi_layer_bwd.launches
+    out = fb.bi_layer_bwd(*args, **kw)
+    assert calls == [("bi_bwd_gru_launch", int(relu), False),
+                     "final_bwd_input_launch", "bi_wgrad_launch",
+                     "final_wgrad_reduce_launch", "final_rel_grad_launch"]
+    assert len(out) == 16 and tuple(out[0].shape) == (B, N, d)
+    assert (out[3] is None) == (not relu) and (out[5] is None) == (not relu)
+    calls.clear()
+    pattern = fb.bi_relu_pattern(*args, **kw)
+    assert tuple(pattern.shape) == (B, N, d)
+    fb.bi_bwd_gru_launcher(*args, **kw)()
+    assert calls == [("bi_bwd_gru_launch", int(relu), True),
+                     ("bi_bwd_gru_launch", int(relu), False)]
+    assert fb.bi_layer_bwd.launches - before == 7
+
+
 def test_final_bi_envelope():
     cfg = TKGConfig(**KW)
     assert fb.fused_final_bi_supported(cfg, "GRRGCN")

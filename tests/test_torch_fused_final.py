@@ -35,6 +35,7 @@ from temp_tpu_torch.models.layers import dropout_mask
 from temp_tpu_torch.models.registry import get_model
 from temp_tpu_torch.ops import fused_final as ff
 from temp_tpu_torch.ops import fused_window as fw
+from temp_tpu_torch.ops import fused_window_mb as mb
 from temp_tpu_torch.ops.fused_window import _gru_t
 from temp_tpu_torch.ops.membership import true_answer_mask
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
@@ -401,3 +402,83 @@ def test_window_bwd_launches_match_the_library_signatures(monkeypatch):
     assert fw.fused_window_bwd.launches - before == 5 * L1 + 2
     assert [tuple(t.shape) for t in out[:4]] == [act, (R, 2 * d), (d, d),
                                                  (d, d)]
+
+
+@pytest.mark.parametrize("conv1_in,n_buf,act2,masks", [
+    (True, 2, False, False),      # eval: the layer-1 convs given
+    (False, 2, False, True),      # GRRGCN training
+    (False, 3, True, True),       # the flagship's windows
+])
+def test_window_fwd_launches_match_the_library_signatures(
+        monkeypatch, conv1_in, n_buf, act2, masks):
+    """K2f's plumbing (and K12's, on K2f's launches), rehearsed on the CPU
+    as the tests above do K2b's and K3-K5's: one window forward in each
+    mode (a ragged A) makes one layer launch a layer and step, layer 1 then
+    layer 2, each with the argument count and types that
+    ``_build.SIGNATURES`` declares, counted on its own wrapper."""
+    kinds = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: int,
+             ctypes.c_float: float, ctypes.c_longlong: int}
+    calls = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            sig = _build.SIGNATURES[name]
+
+            def launch(*args):
+                assert len(args) == len(sig), name
+                for a, t in zip(args, sig):
+                    assert isinstance(a, kinds[t]) and not isinstance(
+                        a, bool), (name, a)
+                calls.append((name, args[1], args[11], args[21] is None,
+                              args[-2]))
+                return 0
+            return launch
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(_build, "lib", lambda: Recorder())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None:
+                        Stream())
+    monkeypatch.setattr(fw, "_device", lambda name, t: "cuda")
+    monkeypatch.setattr(mb, "_device", lambda name, t: "cuda")
+    B, L1, A, E, d, R = 2, 3, 37, 6, 16, 5
+    g = np.random.default_rng(1)
+
+    def f32(*shape):
+        return torch.from_numpy(g.standard_normal(shape).astype(np.float32))
+
+    def ids(n, *shape):
+        return torch.from_numpy(g.integers(0, n, shape, dtype=np.int32))
+
+    def gru():
+        return {"wih_t": f32(d, 3 * d), "whh_t": f32(d, 3 * d),
+                "bih": f32(3 * d), "bhh": f32(3 * d)}
+
+    act = (B, L1, A, d)
+    em = torch.from_numpy((g.random((B, L1, E)) < 0.7).astype(np.float32))
+    args = dict(
+        h0x=f32(*act), src=ids(A, B, L1, E), dst=ids(A, B, L1, E),
+        rel=ids(R, B, L1, E), em=em, gidx=ids(L1 * A, B, L1, A),
+        live=torch.ones(B, L1, A), dt=torch.ones(B, L1, A),
+        wrel=f32(R, 2 * d), loop1=f32(d, d), loop2=f32(d, d), g1=gru(),
+        g2=gru(), lam=0.1, conv1_in=conv1_in,
+        m1=f32(*act) if masks else None, m2=f32(*act) if masks else None,
+        act2=act2, n_buf=n_buf)
+    for fwd in (fw.fused_window_fwd, mb.fused_window_mb_fwd):
+        calls.clear()
+        before = (fw.fused_window_fwd.launches,
+                  mb.fused_window_mb_fwd.launches)
+        bufs = fwd(**args)
+        assert len(bufs) == n_buf
+        assert all(tuple(b.shape) == act for b in bufs)
+        # (name, conv given, relu, no third buffer, k): layer 1 (given in
+        # eval, never a ReLU or a third buffer), then layer 2, step by step
+        assert calls == [
+            c for k in range(L1) for c in (
+                ("window_layer_launch", int(conv1_in), 0, True, k),
+                ("window_layer_launch", 0, int(act2), n_buf == 2, k))]
+        own = fwd is mb.fused_window_mb_fwd
+        assert (fw.fused_window_fwd.launches - before[0],
+                mb.fused_window_mb_fwd.launches - before[1]) == (
+            (0, 2 * L1) if own else (2 * L1, 0))

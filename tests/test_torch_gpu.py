@@ -46,7 +46,8 @@ from temp_tpu_torch.ops.fused_final import (
 )
 from temp_tpu_torch.ops import fused_final_bi as fb
 from temp_tpu_torch.ops.fused_window import (
-    fused_window_bwd, fused_window_fwd, fused_window_scan, window_args,
+    fused_window_bwd, fused_window_fwd, fused_window_fwd_plain,
+    fused_window_scan, window_args,
 )
 from temp_tpu_torch.ops.fused_window_mb import (
     fused_window_mb_fwd, fused_window_mb_fwd_plain,
@@ -747,7 +748,11 @@ def test_window_flagship_modes_match_plain_autograd(cuda, direction, rate, B,
                                                     L1, A, E, d):
     """K2f/K2b in the flagship's modes (the ReLU on layer 2, the third
     buffer, either direction's GRUs) against autograd through the plain
-    forward, with a cotangent on all three buffers."""
+    forward, with a cotangent on all three buffers. The plain forward takes
+    the kernels' ReLU pattern (their third buffer > 0): the two forwards
+    round differently, and where layer 2's conv output lies within that
+    rounding of 0 they may fall on either side of the ReLU, where the
+    cotangents differ by the whole upstream cotangent."""
     enc, kw, masks = _train_window_args(B, L1, A, E, d, cuda)
     enc = _bi_enc(enc, cuda)
     masks = masks if rate > 0 else None
@@ -763,9 +768,17 @@ def test_window_flagship_modes_match_plain_autograd(cuda, direction, rate, B,
                  for n, v in layer.items()} for k, layer in enc.items()}
         h0 = kw["h0_xs"].clone().requires_grad_()
         fb_, bb = fused_window_fwd.launches, fused_window_bwd.launches
-        bufs = fused_window_scan(e, cfg, kernels=kernels, masks=masks,
-                                 direction=direction, activation2="relu",
-                                 n_buf=3, **{**kw, "h0_xs": h0})
+        if kernels:
+            bufs = fused_window_scan(e, cfg, kernels=True, masks=masks,
+                                     direction=direction,
+                                     activation2="relu", n_buf=3,
+                                     **{**kw, "h0_xs": h0})
+            relu = (bufs[2] > 0).float().detach()
+        else:
+            a = window_args(e, cfg, masks=masks, direction=direction,
+                            activation2="relu", **{**kw, "h0_xs": h0})
+            bufs = fused_window_fwd_plain(conv1_in=False, n_buf=3,
+                                          relu_mask=relu, **a)
         assert len(bufs) == 3
         sum((b * c).sum() for b, c in zip(bufs, cot)).backward()
         torch.cuda.synchronize()
@@ -929,6 +942,87 @@ def test_bi_layer_bwd_is_deterministic(cuda):
         y = fb.bi_layer_bwd(*args, d_out, **kw)
         assert all((u is None and v is None) or torch.equal(u, v)
                    for u, v in zip(x, y))
+
+
+# (conv1_in, dropout rate, direction, n_buf)
+_K2F_MODES = [(True, 0.0, None, 2),        # eval, the layer-1 convs given
+              (False, 0.0, None, 2),       # eval, recomputed
+              (False, 0.1, None, 2),       # GRRGCN training
+              (False, 0.1, "fwd", 3),      # the flagship's windows
+              (False, 0.0, "bwd", 3)]
+
+
+@pytest.mark.parametrize("mode", range(len(_K2F_MODES)))
+@pytest.mark.parametrize("B,L1,A,E,d", [(8, 14, 640, 256, 128),
+                                        (3, 4, 37, 20, 16),
+                                        (2, 3, 100, 300, 48),
+                                        (2, 3, 100, 300, 64),
+                                        (2, 3, 70, 100, 80),
+                                        (2, 3, 100, 300, 256)])
+def test_window_fwd_modes_match_plain_and_repeat(cuda, mode, B, L1, A, E, d):
+    """K2f on the tensor cores in every mode (the layer-1 convs given or
+    recomputed, the training dropout masks, the flagship's ReLU, third
+    buffer and either direction's GRUs) against its plain version within
+    TOL, and two runs equal bit for bit: at the main path's shape (two
+    column slabs of 64), at a ragged A with d = 16 (one warp, one slab),
+    and at widths of three warps (48), one slab of four (64), five slabs of
+    one warp (80) and four slabs (256)."""
+    conv1_in, rate, direction, n_buf = _K2F_MODES[mode]
+    enc, kw, masks = _train_window_args(B, L1, A, E, d, cuda,
+                                        rate=rate or 0.1)
+    if direction is not None:
+        enc = _bi_enc(enc, cuda)
+    cfg = TKGConfig(embed_size=d, hidden_size=d, n_bases=d)
+    a = window_args(enc, cfg, masks=masks if rate else None,
+                    direction=direction,
+                    activation2="relu" if n_buf == 3 else None, **kw)
+    before = fused_window_fwd.launches
+    got = fused_window_fwd(**a, conv1_in=conv1_in, n_buf=n_buf)
+    again = fused_window_fwd(**a, conv1_in=conv1_in, n_buf=n_buf)
+    torch.cuda.synchronize()
+    assert fused_window_fwd.launches == before + 4 * L1
+    ref = fused_window_fwd_plain(**a, conv1_in=conv1_in, n_buf=n_buf)
+    assert len(got) == len(ref) == n_buf
+    for x, y, z in zip(got, again, ref):
+        assert torch.equal(x, y)
+        assert float((x - z).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("relu,impute", [(False, False), (True, False),
+                                         (False, True), (True, True)])
+def test_bi_bwd_gru_ragged_matches_plain_and_repeats(cuda, relu, impute):
+    """K9+K10's tensor-core GRU tile at a ragged N (not a multiple of its
+    32-row tile) and d = 16 (one slab of one warp's 16 columns), with and
+    without the ReLU and the impute blend, against its plain version
+    through the kernel's ReLU pattern (``bi_relu_pattern``), and two runs
+    equal bit for bit."""
+    N, d, B = 37, 16, 3
+    bg, w = _bi_case(N, d, cuda, B=B, num_rels=5, edges_per_time=20, pad=16)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    h_in = torch.randn(B, N, d, generator=gen, device=cuda) * 0.5
+    d_out = torch.randn(B, N, d, generator=gen, device=cuda)
+    h1f, h2f, hlf, h1b, h2b, hlb = w["hists"]
+    args = (h_in, h2f, h2b, bg, bg.gr.m2, w["wrel"], d, w["loop2"],
+            w["grus"]["2f"], w["grus"]["2b"])
+    kw = dict(relu=relu, hl=(hlf, hlb) if impute else None,
+              imp=w["imp"] if impute else None)
+    got = fb.bi_layer_bwd(*args, d_out, **kw)
+    again = fb.bi_layer_bwd(*args, d_out, **kw)
+    pattern = fb.bi_relu_pattern(*args, d_out, **kw)
+    torch.cuda.synchronize()
+    ref = fb.bi_layer_bwd_plain(*args, d_out, **kw, relu_mask=pattern)
+    assert bool(((pattern == 0) | (pattern == 1)).all())
+    assert relu or bool((pattern == 1).all())
+    bad = {}
+    for i, (x, y, z) in enumerate(zip(got, again, ref)):
+        if z is None:
+            assert x is None and y is None and not impute
+            continue
+        assert torch.equal(x, y), i
+        ok, err, top = _scaled_ok(x, z)
+        if not ok:
+            bad[i] = (err, top)
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("B,L1,A,E,d,act2", [(8, 14, 640, 256, 128, False),

@@ -214,19 +214,43 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
         assert rec["bound_ms"] > 0
     assert set(k2b["bwd"]["errors"]) == set(chip_smoke._COTANGENTS)
     assert set(k2b["bwd"]["scaled_errs"]) == set(chip_smoke._COTANGENTS)
-    # K2b, K5 and K9+K10 run twice, bit-equal; K2b and K5 carry the bound
-    # of their 3xTF32 products beside the f32 one
+    # K2f, K2b, K5 and K9+K10 run twice, bit-equal; they (and K12, on
+    # K2f's launches) carry the bound of their 3xTF32 products beside the
+    # f32 one
     assert k2b["bwd"]["bitwise"] and k5["bitwise"]
+    assert k2b["fwd"]["bitwise"]
+    assert all(k2[m]["bitwise"] for m in ("conv1_in", "recompute"))
     assert res["k9k10"]["bitwise"]
-    assert all(res["k2_flagship"][d]["bwd_bitwise"] for d in ("fwd", "bwd"))
+    assert all(res["k2_flagship"][d][f"{part}_bitwise"]
+               for d in ("fwd", "bwd") for part in ("fwd", "bwd"))
+    tc_kernels = ("fused_window_fwd", "fused_window_bwd",
+                  "fused_final_bwd_layer", "bi_layer_bwd",
+                  "fused_window_mb_fwd")
     for rec in line["kernels"]:
         assert rec["bound_share"] == rec["bound_ms"] / rec["ms"]
-        tc = rec["name"] in ("fused_window_bwd", "fused_final_bwd_layer")
+        tc = rec["name"] in tc_kernels
         assert ("bound_tc_ms" in rec) == tc
         if tc:
-            assert 0 < rec["bound_tc_ms"] < rec["bound_ms"]
-            assert rec["bitwise"]
-    assert line["kernels"][3]["flagship_mode"]["bwd"]["bitwise"]
+            # at this size the forward's bytes may bound it at both rates
+            assert 0 < rec["bound_tc_ms"] <= rec["bound_ms"]
+            assert rec["name"] == "fused_window_mb_fwd" or rec["bitwise"]
+        if rec["name"] in ("fused_window_bwd", "fused_final_bwd_layer"):
+            assert rec["bound_tc_ms"] < rec["bound_ms"]
+    for mode in ("train_mode", "recompute_mode"):
+        r = line["kernels"][2][mode]
+        assert r["bitwise"] and 0 < r["bound_tc_ms"] <= r["bound_ms"]
+    for k in (2, 3):
+        for d in ("fwd", "bwd"):
+            r = line["kernels"][k]["flagship_mode"][d]
+            assert r["bitwise"] and 0 < r["bound_tc_ms"] <= r["bound_ms"]
+    # the K2 flagship check differentiates the plain window through the
+    # kernels' ReLU pattern, and counts where the two forwards disagree
+    assert all(res["k2_flagship"][d]["relu_flips"] == 0
+               for d in ("fwd", "bwd"))
+    # K9+K10's GRU launch alone: its bounds here, its time only on the card
+    gru = line["kernels"][9]["gru_launch"]
+    assert gru["ms"] is None and gru["bound_share"] is None
+    assert 0 < gru["bound_tc_ms"] <= gru["bound_ms"]
     # both layers, from the loss's cotangent and from a unit-scale one, each
     # error beside the largest entry it is held against
     assert len(k5["errors"]) == 4 * len(chip_smoke._LAYER_COTANGENTS)

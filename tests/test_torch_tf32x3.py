@@ -113,3 +113,65 @@ def test_split_product_is_within_f32_rounding(depth, rows, cols, scale,
     # the same order as plain f32, and far from a single TF32 product
     assert err3 <= 10 * max(err32, 1e-9 * big)
     assert err1 > 10 * err3
+
+
+def mma_rz(c, prods):
+    """One tensor-core step as modelled here: the f32 sum c [M, N] plus the
+    exact products prods [k, M, N], each addend truncated toward zero to
+    the 24-bit grid of the largest of them (alignment without guard bits),
+    summed, and the sum truncated toward zero to f32. Pessimistic beside
+    the card: it keeps no extra alignment bits."""
+    terms = np.concatenate([c[None].astype(np.float64), prods], 0)
+    top = np.abs(terms).max(0)
+    grid = 2.0 ** (np.floor(np.log2(np.where(top > 0, top, 1.0))) - 23)
+    s = (np.trunc(terms / grid) * grid).sum(0)
+    f = s.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(s)
+    return np.where(over, np.nextafter(f, np.float32(0)), f).astype(
+        np.float32)
+
+
+def product_tc(a, b, window: int):
+    """a [M, K] @ b [K, N] as the tensor-core tiles compute it (the split of
+    ``split`` with hi truncated, as ``tile_product``): per step of 8 depth
+    terms the products lo*hi, hi*lo and hi*hi in that order, each an mma
+    step (``mma_rz``) on a running sum that starts from zero every
+    `window` depth terms and is then added to the f32 accumulator with a
+    rounded add."""
+    ahi, alo = split(a, False)
+    bhi, blo = split(b, False)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for w0 in range(0, a.shape[1], window):
+        t = np.zeros_like(acc)
+        for k in range(w0, min(a.shape[1], w0 + window), 8):
+            s = slice(k, k + 8)
+            for x, y in ((alo, bhi), (ahi, blo), (ahi, bhi)):
+                t = mma_rz(t, np.einsum("mk,kn->kmn", x[:, s].astype(
+                    np.float64), y[s].astype(np.float64)))
+        acc = (acc + t).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("depth", [
+    128,    # K2f's and K9+K10's self-loop and gate products at d = 128
+    384,    # the bi tile's transposed products over 2d, then d, a section
+])
+def test_tile_accumulation_depth_keeps_f32_accuracy(depth):
+    """The window's forward layer (K2f) and the flagship's bi GRU tile
+    (K9+K10) compute every product with ``tile_product``: the truncated
+    split and a running sum of 8 depth terms in the tensor core, then a
+    rounded f32 add. Under the truncating accumulation of ``mma_rz`` that
+    stays within 1e-6 of the largest entry of the float64 product; the
+    tensor core's own sum over the whole depth (as one long chain of
+    products into one accumulator would keep it) does not."""
+    g = np.random.default_rng(depth + 1)
+    a = g.standard_normal((96, depth)).astype(np.float32)
+    b = (g.standard_normal((depth, 48)) / np.sqrt(depth)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    big = float(np.abs(ref).max())
+    err8 = float(np.abs(product_tc(a, b, 8) - ref).max())
+    err_all = float(np.abs(product_tc(a, b, depth) - ref).max())
+    print(f"depth {depth}: 8 terms a sum {err8 / big:.3e}, the whole depth "
+          f"{err_all / big:.3e} of the largest entry {big:.3e}")
+    assert err8 <= TOL * big
+    assert err_all > err8
