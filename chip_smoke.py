@@ -880,30 +880,33 @@ def _final_counts(ctx, fb):
     return B, N, d, 2 * float(fb["gr"].posm.sum())
 
 
-def _k3_bound(ctx, fb):
-    """Least time for one K3 call: per element and layer two GRU gate
-    products and a self-loop product over all N rows (14 N d^2 flops), the
-    SpMM over the kept edges (3 d an edge), and per positive query its
-    scores against all N rows (2 N d); against the history, masks, input
-    rows and weights read once and the table and out1 written once."""
+def _k3_work(ctx, fb):
+    """(layer flops, score flops, bytes) of one K3 call: per element and
+    layer two GRU gate products and a self-loop product over all N rows (14
+    N d^2 flops), the SpMM over the kept edges (3 d an edge); per positive
+    query its scores against all N rows (2 N d); against the history,
+    masks, input rows and weights read once and the table and out1 written
+    once."""
     B, N, d, q = _final_counts(ctx, fb)
     gr = fb["gr"]
     kept = float(gr.emf.sum())
-    flops = 2 * B * 14 * N * d * d + 2 * kept * 3 * d + q * N * 2 * d
     n_masks = 0 if gr.m1 is None else 2
     nbytes = 4 * (B * N * d * (2 + n_masks + 2) + N * d + B * N
                   + 2 * (2 * 3 * d * d + d * d) + fb["fwd"][4].numel()
                   + fb["fwd"][-1].numel())
-    return _bound(flops, nbytes)
+    return (2 * B * 14 * N * d * d + 2 * kept * 3 * d, q * N * 2 * d,
+            nbytes)
 
 
 def phase_k3(ctx) -> dict:
-    """K3 against its plain version on the first training batch; beside it
-    the unfused forward (K1, one element at a time) on the same batch."""
+    """K3 against its plain version on the first training batch, run twice
+    (bit-equal); its two layer launches and its score launch timed apart on
+    the card; beside it the unfused forward (K1, one element at a time) on
+    the same batch."""
     import torch
 
     from temp_tpu_torch.ops.fused_final import (
-        fused_final_fwd, fused_final_fwd_plain,
+        fused_final_fwd, fused_final_fwd_launchers, fused_final_fwd_plain,
     )
 
     dev, fb = ctx["device"], final_batch(ctx)
@@ -913,10 +916,15 @@ def phase_k3(ctx) -> dict:
     err_loss = float(((loss - ref) / ref.abs().clamp(min=1.0)).abs().max())
     err_rows = max(max_err(saved["table"], table), max_err(saved["out1"],
                                                             out1))
-    if not (err_loss <= LOSS_TOL and err_rows <= TOL
+    keys = [k for k in ("table", "out1", "qhat", "lse") if k in saved]
+    again, saved2 = fused_final_fwd(*args)
+    bitwise = _bitwise([loss] + [saved[k] for k in keys],
+                       [again] + [saved2[k] for k in keys])
+    if not (err_loss <= LOSS_TOL and err_rows <= TOL and bitwise
             and bool(torch.isfinite(loss).all())):
         raise AssertionError(f"K3: loss err {err_loss} > {LOSS_TOL} or rows "
-                             f"err {err_rows} > {TOL}")
+                             f"err {err_rows} > {TOL}, or two runs differ "
+                             f"(bit-equal: {bitwise})")
     model, data, p = ctx["model"], ctx["trainer"].data, ctx["params"]
     gr, d = fb["gr"], args[0].shape[1]
     hists = (fb["hist1"], fb["hist2"], fb["last_pos"])
@@ -930,19 +938,33 @@ def phase_k3(ctx) -> dict:
     fused_sum = float(ref.sum())
     if not abs(un - fused_sum) <= LOSS_TOL * max(1.0, abs(fused_sum)):
         raise AssertionError(f"K3: unfused loss {un} vs plain {fused_sum}")
-    bound_ms, bound_by = _k3_bound(ctx, fb)
+    layer_flops, score_flops, nbytes = _k3_work(ctx, fb)
     B, N, _, q = _final_counts(ctx, fb)
     with torch.no_grad():
         out = {"shape": f"B={B} N={N} E={gr.src.shape[1]} d={d} "
                         f"positive queries={int(q)}",
                "max_abs_err": max(err_loss, err_rows), "err_loss": err_loss,
-               "err_rows": err_rows,
+               "err_rows": err_rows, "bitwise": bitwise,
                "ms": time_ms(lambda: fused_final_fwd(*args), dev, reps=10),
                "plain_ms": time_ms(lambda: fused_final_fwd_plain(*args), dev,
                                    reps=5),
                "unfused_ms": time_ms(unfused, dev, reps=3),
-               "library_ms": None, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "library_ms": None,
+               **_bounds(layer_flops + score_flops, nbytes)}
+        # the two layer launches and the score launch apart: the layers
+        # read and write the rows, the scores read the table once
+        E = gr.src.shape[1]
+        parts = {"layers": _bounds(layer_flops, nbytes),
+                 "scores": _bounds(score_flops,
+                                   4 * (B * N * d + B * 2 * E * d))}
+        launchers = (fused_final_fwd_launchers(*args) if dev.type == "cuda"
+                     else (None, None))
+        for (name, part), fn in zip(parts.items(), launchers):
+            part["ms"] = None if fn is None else time_ms(fn, dev, reps=10)
+            part["bound_share"] = (None if fn is None
+                                   else part["bound_ms"] / part["ms"])
+            out[name] = part
+    out["bound_share"] = out["bound_ms"] / out["ms"]
     ctx["k3_saved"] = saved
     print(f"  K3: {out}", flush=True)
     return out
@@ -950,7 +972,8 @@ def phase_k3(ctx) -> dict:
 
 def phase_k4(ctx) -> dict:
     """K4 against its plain version: the same saved table and the same
-    upstream cotangent (the batch's t_valid) on both sides."""
+    upstream cotangent (the batch's t_valid) on both sides; run twice
+    (bit-equal)."""
     from temp_tpu_torch.ops.fused_final import (
         fused_final_bwd_loss, fused_final_bwd_loss_plain,
     )
@@ -963,20 +986,24 @@ def phase_k4(ctx) -> dict:
         errs = scaled_errs(zip(("d_table", "d_rtab"), got, ref))
     except AssertionError as e:
         raise AssertionError(f"K4: {e}") from None
+    bitwise = _bitwise(got, fused_final_bwd_loss(saved, rtab, gr, g))
+    if not bitwise:
+        raise AssertionError("K4: two runs differ")
     ctx["k4_ref"] = ref
     B, N, d, q = _final_counts(ctx, fb)
     # recompute the scores, then p . table and p^T . qhat: 3 products of
     # 2 N d flops per positive query; the table read and d_table written
-    bound_ms, bound_by = _bound(q * N * 2 * d * 3, 4 * 2 * B * N * d)
     out = {"shape": f"B={B} N={N} E={gr.src.shape[1]} d={d} "
                     f"positive queries={int(q)}",
            "max_abs_err": max(e["abs"] for e in errs.values()),
-           "errors": errs,
+           "errors": errs, "bitwise": bitwise,
            "ms": time_ms(lambda: fused_final_bwd_loss(saved, rtab, gr, g),
                          dev, reps=10),
            "plain_ms": time_ms(lambda: fused_final_bwd_loss_plain(
                saved["table"], rtab, gr, g), dev, reps=5),
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+           "library_ms": None,
+           **_bounds(q * N * 2 * d * 3, 4 * 2 * B * N * d)}
+    out["bound_share"] = out["bound_ms"] / out["ms"]
     print(f"  K4: {out}", flush=True)
     return out
 
@@ -1486,18 +1513,25 @@ def phase_k8(fctx) -> dict:
         errs = scaled_errs([("loss", loss, ref)])
     except AssertionError as e:
         raise AssertionError(f"K8: {e}") from None
+    again, saved2 = bi_loss_fwd(table, rtab, gr, fb_["csr"])
+    keys = [k for k in ("qhat", "lse") if k in saved]
+    bitwise = _bitwise([loss] + [saved[k] for k in keys],
+                       [again] + [saved2[k] for k in keys])
+    if not bitwise:
+        raise AssertionError("K8: two runs differ")
     fb_["saved"] = dict(saved, out1=fb_["out1"], h0x=fb_["h0x"])
     B, N, d = table.shape
     q = 2 * float(gr.posm.sum())
-    bound_ms, bound_by = _bound(q * N * 2 * d, 4 * (B * N * d + rtab.numel()))
     out = {"shape": f"B={B} N={N} E={gr.src.shape[1]} d={d} "
                     f"positive queries={int(q)}",
            "max_abs_err": errs["loss"]["abs"], "errors": errs,
+           "bitwise": bitwise,
            "ms": time_ms(lambda: bi_loss_fwd(table, rtab, gr, fb_["csr"]),
                          dev, reps=10),
            "plain_ms": time_ms(lambda: _loss_plain(table, rtab, gr), dev,
                                reps=5),
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+           "library_ms": None,
+           **_bounds(q * N * 2 * d, 4 * (B * N * d + rtab.numel()))}
     print(f"  K8: {out}", flush=True)
     return out
 
@@ -1805,12 +1839,19 @@ def phase_k11(ctx) -> dict:
     # directions' scores of each real query against all N rows; the
     # history, input rows, weights and queries read once, the ranks and
     # BCE written once
-    flops = B * 2 * 14 * N * d * d + 2 * edges * 3 * d + 2 * n_q * N * 2 * d
+    layer_flops = B * 2 * 14 * N * d * d + 2 * edges * 3 * d
+    rank_flops = 2 * n_q * N * 2 * d
     nbytes = 4 * (2 * B * N * d + N * d + 2 * B * N + wrel.numel()
                   + 2 * 7 * d * d + rtab.numel() + 5 * B * (E + Q)
                   + 2 * B * Q + B)
-    bound_ms, bound_by = _bound(flops, nbytes)
+    bound_ms, bound_by = _bound(layer_flops + rank_flops, nbytes)
+    # the layers' products in 3xTF32, the rank tile in plain f32
+    bound_tc_ms = max(nbytes / H100_BYTES_S, layer_flops / H100_TF32X3_FLOPS
+                      + rank_flops / H100_F32_FLOPS) * 1e3
     with torch.no_grad():
+        bitwise = _bitwise((ranks, bce), fused_eval_ranks(*args)[::2])
+        if not bitwise:
+            raise AssertionError("K11: two runs differ")
         out = {"shape": f"B={B} N={N} E={E} Q={Q} d={d} real queries="
                         f"{int(n_q)}",
                "max_abs_err": float((bce - bce_p).abs().max()),
@@ -1822,7 +1863,9 @@ def phase_k11(ctx) -> dict:
                                    dev, reps=5),
                "unfused_ms": time_ms(unfused, dev, reps=3),
                "library_ms": None, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "bound_by": bound_by, "bound_tc_ms": bound_tc_ms,
+               "bitwise": bitwise}
+    out["bound_share"] = out["bound_ms"] / out["ms"]
     print(f"  K11: {out}", flush=True)
     return out
 
@@ -2406,6 +2449,11 @@ def kernels_line(res: dict) -> dict:
                 "ms", "bound_ms", "bound_by", "bound_tc_ms", "bound_share")}
         if name == "fused_eval_ranks":
             r["unfused_ms"] = m["unfused_ms"]
+        if name == "fused_final_fwd":
+            for part in ("layers", "scores"):
+                r[part] = {k: m[part][k] for k in (
+                    "ms", "bound_ms", "bound_by", "bound_tc_ms",
+                    "bound_share")}
         if name in ("spmm_fwd", "spmm_bwd"):
             # the table route (ms) beside the route that sorts in the call
             r["in_call_ms"], r["bitwise"] = m["in_call_ms"], m["bitwise"]

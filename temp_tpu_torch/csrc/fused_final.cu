@@ -10,14 +10,14 @@
 // use_embed_for_non_active select, the ComplEx query of each edge slot in
 // both directions, its scores against every entity with the other true
 // answers at -1e9, and the exact-softmax cross-entropy averaged over the
-// positives. Here: final_layer_kernel twice (the window's tile forward,
-// rgcn_gru_layer.cuh, with one step of all N rows and the dense history as
-// previous state), final_scores_kernel (for a tile of 64 queries, one
-// direction and one of 8 ranges of entity columns: the queries, then the
-// column tiles with the masked columns skipped and a running max and sum of
-// exponentials, written as partials) and final_loss_reduce_kernel (per
-// element: the partials and the positive's score into each query's
-// log-sum-exp, then the loss).
+// positives. Here: final_layer_kernel twice (the window's forward tile,
+// rgcn_gru_layer.cuh fwd_layer_tile, with one step of all N rows and the
+// dense history as previous state), final_scores_kernel (for a tile of 64
+// queries, one direction and one of 8 ranges of entity columns: the
+// queries, then the column tiles with the masked columns skipped and a
+// running max and sum of exponentials, written as partials) and
+// final_loss_reduce_kernel (per element: the partials and the positive's
+// score into each query's log-sum-exp, then the loss).
 //
 // K4 replaces _bwd_loss_kernel: from the saved table, the queries and their
 // log-sum-exps, final_dq_kernel gives each query's sum over one column range
@@ -57,22 +57,29 @@
 // four [N, d] x [d, 3d] GRU products, two [N, d] x [d, d] self-loop products
 // and two [E, d] x [d, N] score products; K4 four score-sized products; K5
 // per layer about three times the layer's forward; K11 K3's layers and two
-// [Q, d] x [d, N] score products. The bytes (the history,
-// the tables, the weights) are a small fraction of that at d = 128.
+// [Q, d] x [d, N] score products. The bytes (the history, the tables, the
+// weights) are a small fraction of that at d = 128.
 //
 // What the design does about that. Every launch covers the whole batch (b
-// in the grid). K5's products run on the tensor cores (above). The score
-// products are tiled 64 x 64 from shared memory, a thread 4 x 4, plain
-// FMA, and K3's and K11's layer launches keep the forward tiles' plain FMA
-// (rgcn_gru_layer.cuh): both wait on shared loads more than on the FMA
-// units. Every sum
-// across blocks goes through per-block partials and an ordered second pass,
-// and no kernel uses atomics, so runs repeat bit for bit. The true answers
-// come as a sorted list per edge or query slot, built once with the data; a
-// block turns them into a 64-bit mask per query and column tile. K11's
-// rank counts the target's own column out explicitly and scores the target
-// by the tile's own chain of fused multiply-adds, so that neither the target
-// nor a column equal to it counts against it.
+// in the grid). The products run on the tensor cores in 3xTF32 at f32
+// accuracy (rgcn_gru_layer.cuh), bound by mma.sync's rate: K3's layer
+// launches (and K11's) are the window's forward tile in whole-width
+// 32-row tiles, so they form the conv output and the gates bit for bit as
+// K5's recompute does; K5's tiles are K2b's. K3's scores, and both score
+// recomputes of K4, are one routine, score_product: 64 queries by 64
+// table rows a block, the queries as A and the table rows, staged by
+// cp.async, as B, so every score K4 recomputes equals the one K3 summed.
+// K4's two cotangent products, dq = P T and d_table = P^T Q, read the
+// probability tile P from shared memory (cot_product). Only K11's rank
+// tile keeps plain FMA (score_tile, 64 x 64, a thread 4 x 4, waiting on
+// shared loads): its rank counts the target's own column out explicitly
+// and scores the target by the tile's own chain of fused multiply-adds, so
+// that neither the target nor a column equal to it counts against it. Every
+// sum across blocks goes through per-block partials and an ordered second
+// pass, and no kernel uses atomics, so runs repeat bit for bit. The true
+// answers come as a sorted list per edge or query slot, built once with
+// the data; a block turns them into a 64-bit mask per query and column
+// tile.
 
 #include <math.h>
 
@@ -82,17 +89,32 @@ namespace {
 
 constexpr int kQ = 64;              // queries per block
 constexpr int kC = 64;              // entity rows per column tile
-constexpr int kLossThreads = 256;   // 16 x 16 threads, 4 x 4 scores each
-constexpr int kSub = 4;
-constexpr int kMaxK = 8;            // d / 16 columns per thread, d <= 128
+constexpr int kLossThreads = 256;   // 8 warps
+constexpr int kSub = 4;             // the rank tile: 16 x 16 threads, 4 x 4
+constexpr int kMaxNt = 8;           // n8 tiles in d / 2 columns, d <= 128
 constexpr unsigned kFull = 0xffffffffu;
+// Row strides of the probability tile ps of the cotangent products:
+// final_dq reads its rows in pairs (8-byte loads, conflict-free at 8 mod
+// 32), final_dtable its columns in pairs of rows (conflict-free at 4 mod 32).
+constexpr int kLdDq = kC + 8;
+constexpr int kLdDt = kC + 4;
+// Table tiles of final_scores_kernel in flight: the next tile's copy runs
+// under the current tile's products. The cotangent kernels stage one tile
+// at a time, so that two of their blocks share an SM (87,808 and 86,784
+// bytes at d = 128) and each block's copy runs under the other's products.
+constexpr int kScoreBufs = 2;
+
+// Row stride of the query and table tiles of the tensor-core kernels: rows
+// of d + 4 floats give the fragment loads of the score product (a row a
+// lane group) and of the cotangent products (row pairs) distinct banks.
+__host__ __device__ constexpr int tc_ld(int d) { return d + 4; }
 
 // Dynamic shared memory of the loss kernels, in floats: the query masks and
-// list cursors, three per-query scalars, the query and column tiles (rows
-// padded to d + 1 floats against bank conflicts) and the probability tile.
-__host__ __device__ constexpr int loss_smem_floats(int d, bool with_p) {
-  return 2 * kQ + 2 * kQ + 3 * kQ + (kQ + kC) * (d + 1)
-         + (with_p ? kQ * (kC + 1) : 0);
+// list cursors, three per-query scalars, the query tile, n_ts table tiles
+// (row stride ld) and the probability tile (ps floats).
+__host__ __device__ constexpr int loss_smem_floats(int ld, int n_ts,
+                                                   int ps) {
+  return 2 * kQ + 2 * kQ + 3 * kQ + (kQ + n_ts * kC) * ld + ps;
 }
 
 struct LossSmem {
@@ -102,12 +124,12 @@ struct LossSmem {
   float* w;                 // [kQ] per-query scalars
   float* l;
   float* f;
-  float* qs;                // [kQ][d + 1]
-  float* ts;                // [kC][d + 1]
-  float* ps;                // [kQ][kC + 1]
+  float* qs;                // [kQ][ld]
+  float* ts;                // [n_ts][kC][ld]
+  float* ps;                // the probability tile
 };
 
-__device__ __forceinline__ LossSmem loss_smem(int d) {
+__device__ __forceinline__ LossSmem loss_smem(int ld, int n_ts) {
   extern __shared__ float smem[];
   LossSmem s;
   s.mb = reinterpret_cast<unsigned long long*>(smem);
@@ -117,14 +139,14 @@ __device__ __forceinline__ LossSmem loss_smem(int d) {
   s.l = s.w + kQ;
   s.f = s.l + kQ;
   s.qs = s.f + kQ;
-  s.ts = s.qs + kQ * (d + 1);
-  s.ps = s.ts + kC * (d + 1);
+  s.ts = s.qs + kQ * ld;
+  s.ps = s.ts + n_ts * kC * ld;
   return s;
 }
 
-// acc[ii][jj] = qs[ty + 16 ii] . ts[tx + 16 jj], as one chain of fused
-// multiply-adds over k = 0..d-1 from 0 (final_ranks_kernel repeats the
-// chain for the target's score)
+// acc[ii][jj] = qs[ty + 16 ii] . ts[tx + 16 jj] (rows of d + 1 floats), as
+// one chain of fused multiply-adds over k = 0..d-1 from 0: K11's rank tile
+// (final_ranks_kernel repeats the chain for the target's score)
 __device__ __forceinline__ void score_tile(const float* qs, const float* ts,
                                            int d, int ty, int tx,
                                            float acc[kSub][kSub]) {
@@ -146,7 +168,8 @@ __device__ __forceinline__ void score_tile(const float* qs, const float* ts,
   }
 }
 
-// kC rows of `rows` [n, d] from row c0 into ts (zeros past c_end).
+// kC rows of `rows` [n, d] from row c0 into ts (rows of d + 1 floats; zeros
+// past c_end): the rank tile's
 __device__ __forceinline__ void load_rows(float* ts, const float* rows,
                                           int c0, int c_end, int d) {
   const int ds = d + 1;
@@ -154,6 +177,96 @@ __device__ __forceinline__ void load_rows(float* ts, const float* rows,
     const int r = i / d, k = i - r * d;
     ts[r * ds + k] = c0 + r < c_end ? rows[(long long)(c0 + r) * d + k] : 0.f;
   }
+}
+
+// 64 rows of `rows` [*, d] from row r0 into dst (row stride ld) by
+// cp.async, row r only where ok(r) (zeros elsewhere); commits the group.
+template <typename Ok>
+__device__ __forceinline__ void stage_rows(float* dst, int ld,
+                                           const float* rows, long long r0,
+                                           int d, Ok&& ok) {
+  const int quads = d / 4;
+  for (int i = threadIdx.x; i < kC * quads; i += blockDim.x) {
+    const int r = i / quads, q = i - r * quads;
+    const bool in = ok(r);
+    cp_async16(dst + r * ld + 4 * q, rows + (in ? r0 + r : 0) * d + 4 * q,
+               in);
+  }
+  cp_async_commit();
+}
+
+// -- The tensor-core tiles: the score product and the cotangent products --
+//
+// The score tile S = Q T^T, 64 queries by 64 table rows at depth d (a
+// multiple of 8), from the query tile qs and a table tile ts ([64][ld] each
+// in shared memory), on mma.sync m16n8k8 in 3xTF32 with tile_product's rule
+// (each operand split into its truncated tf32 part and the rest; each k8
+// step's lo*hi + hi*lo + hi*hi from zero, added to the f32 accumulator).
+// Warp w holds rows 16 (w / 2).. and columns 32 (w % 2).. of the tile:
+// acc[nt][i] at (score_row(i), score_col(nt, i)). K3's scores (and K8's)
+// and both of K4's recomputes call it, with the queries as A and the table
+// rows as B, so every score K4 recomputes equals bit for bit the one K3
+// summed into the log-sum-exp.
+__device__ __forceinline__ int score_row(int i) {
+  return ((threadIdx.x / kWarp) >> 1) * 16 + acc_row(0, i);
+}
+
+__device__ __forceinline__ int score_col(int nt, int i) {
+  return ((threadIdx.x / kWarp) & 1) * 32 + acc_col(nt, i);
+}
+
+__device__ __forceinline__ void score_product(const float* qs,
+                                              const float* ts, int ld, int d,
+                                              float (&acc)[4][4]) {
+  const int warp = threadIdx.x / kWarp;
+  const int r0 = (warp >> 1) * 16, n0 = (warp & 1) * 32;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < d; k0 += 8) {
+    const FragA fa = frag_a_rows(qs, ld, r0, k0);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      mma3(acc[nt], fa, frag_b_rows(ts, ld, k0, n0 + nt * 8));
+  }
+}
+
+// The cotangent products over one tile's 64 depth terms, in 3xTF32 with the
+// same rule and the depth in the paired order (frag_a_pairs): acc += P R,
+// with P the probability tile (its rows the output's 64 rows; kTrans: P^T,
+// ps read by columns) and R [64][ld] depth-major (the table tile for d_q,
+// the query tile for d_table). Warp w holds rows 16 (w / 2).. and the
+// d / 2 columns (w % 2) d / 2.. of the 64 x d output: acc[nt][i] at
+// (score_row(i), cot_col(nt, i, d)), nt < d / 16.
+__device__ __forceinline__ int cot_col(int nt, int i, int d) {
+  return ((threadIdx.x / kWarp) & 1) * (d / 2) + acc_col(nt, i);
+}
+
+template <bool kTrans>
+__device__ __forceinline__ void cot_product(const float* ps, int ldp,
+                                            const float* rs, int ld, int d,
+                                            float (&acc)[kMaxNt][4]) {
+  const int warp = threadIdx.x / kWarp;
+  const int r0 = (warp >> 1) * 16, n0 = (warp & 1) * (d / 2);
+  const int nts = d / 16;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kC; k0 += 8) {
+    const FragA fa = kTrans ? frag_a_pairs_t(ps, ldp, r0, k0)
+                            : frag_a_pairs(ps, ldp, r0, k0);
+#pragma unroll
+    for (int nt = 0; nt < kMaxNt; ++nt)
+      if (nt < nts) mma3(acc[nt], fa, frag_b_pairs(rs, ld, k0, n0 + nt * 8));
+  }
+}
+
+template <int NA>
+__device__ __forceinline__ void zero_rows(float (&acc)[NA][4]) {
+#pragma unroll
+  for (int j = 0; j < NA; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 }
 
 // Each of the block's queries: its list cursor at the first answer >= c_begin
@@ -192,17 +305,15 @@ __device__ __forceinline__ void next_masks(LossSmem& s, const int* ans,
   }
 }
 
-__device__ __forceinline__ float max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
+// (m, s) += (m2, s2): two running maxima and sums of exp(x - m) as one (an
+// empty one has m = -inf and s = 0).
+__device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
+                                          float s2) {
+  const float mn = fmaxf(m, m2);
+  if (mn == -INFINITY) return;
+  s = (m == -INFINITY ? 0.f : s * expf(m - mn))
+      + (m2 == -INFINITY ? 0.f : s2 * expf(m2 - mn));
+  m = mn;
 }
 
 __device__ __forceinline__ int isum16(int v) {
@@ -213,41 +324,41 @@ __device__ __forceinline__ int isum16(int v) {
 
 // -- K3 ----------------------------------------------------------------------
 
-// One encoder layer of the final step for rows a0..a0+15 of element
-// blockIdx.y; layer 2 also applies the select (active[row] <= 0 keeps the
-// input row sel_x).
-__global__ void __launch_bounds__(256, 2) final_layer_kernel(
-    Layer p, const float* __restrict__ sel_x,
-                                   const float* __restrict__ active,
-                                   float* __restrict__ out) {
-  extern __shared__ float smem[];
+// K3's layer block: at most kFinalWarps warps of 16 columns each, so one
+// slab of all d = 128 columns a 32-row tile: 1,784 blocks of 256 threads a
+// launch at the main shape (B = 8, N = 7,128), 88,320 bytes, two an SM.
+// The final step's 57,024 rows give blocks enough for whole-width tiles,
+// which do not redo the SpMM and the self-loop a slab: 0.88 ms a step for
+// both layers where two slabs of 64 columns (four warps, three blocks an
+// SM) took 1.10 on an H100 (PERF.md).
+constexpr int kFinalWarps = 8;
+
+// One encoder layer of the final step for the 32-row tile blockIdx.x /
+// slabs of element blockIdx.y at slab blockIdx.x % slabs of every gate
+// (fwd_layer_tile: one step of all N rows against the dense history, with
+// K2f's and K5's products); layer 2 also applies the select (active[row]
+// <= 0 keeps the input row sel_x).
+__global__ void __launch_bounds__(kFinalWarps * kWarp, 2) final_layer_kernel(
+    Layer p, const float* __restrict__ sel_x, const float* __restrict__ active,
+    float* __restrict__ out, int slabs) {
   const int d = p.d;
-  float* xs = smem;
-  float* cs = xs + kTileRows * d;
-  float* hs = cs + kTileRows * d;
-  const int b = blockIdx.y;
-  const int a0 = blockIdx.x * kTileRows;
-  Gates gt;
-  layer_tile<kUnrolled>(p, b, a0, xs, cs, hs, nullptr, gt);
-  const int col = threadIdx.x % d;
-  const int r0 = (threadIdx.x / d) * kRowsPerThread;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int a = a0 + r0 + i;
-    if (a >= p.A) continue;
-    const long long row = (long long)b * p.A + a;
-    float v = (1.f - gt.z[i]) * gt.n[i] + gt.z[i] * hs[(r0 + i) * d + col];
-    if (active != nullptr && active[row] <= 0.f) v = sel_x[row * d + col];
-    out[row * d + col] = v;
-  }
+  const int a0 = (blockIdx.x / slabs) * kBwdRows;
+  const int s0 = (blockIdx.x % slabs) * block_cols();
+  fwd_layer_tile(p, blockIdx.y, a0, s0,
+                 [&](long long row, int c, float h, float) {
+                   out[row * d + c] = active != nullptr && active[row] <= 0.f
+                                          ? sel_x[row * d + c] : h;
+                 });
 }
 
 // Block (query tile, column range) x direction x element. For each of its
 // 64 edge slots: the query row (tail: s * r, head: conj(r) * o in ComplEx
 // terms) and the positive's score (both written out by range 0's blocks),
-// then over the range's column tiles the running max m and sum s of
-// exp(score - m) over the columns that are not true answers.
-__global__ void final_scores_kernel(
+// then over the range's column tiles (kScoreBufs in flight) the running
+// max m and sum s of exp(score - m) over the columns that are not true
+// answers: each thread over its own positions, then merged across the four
+// threads of a row and the two warps of its rows, in a fixed order.
+__global__ void __launch_bounds__(kLossThreads, 2) final_scores_kernel(
     const float* __restrict__ table, const float* __restrict__ rtab,
     const int* __restrict__ src, const int* __restrict__ dst,
     const int* __restrict__ rel, const float* __restrict__ posm,
@@ -256,8 +367,8 @@ __global__ void final_scores_kernel(
     float* __restrict__ part_m, float* __restrict__ part_s,
     float* __restrict__ qhat_out, float* __restrict__ scpos_out, int N,
     int E, int d, int n_split, int chunk) {
-  LossSmem s = loss_smem(d);
-  const int ds = d + 1, d2 = d / 2;
+  const int ld = tc_ld(d), d2 = d / 2;
+  LossSmem s = loss_smem(ld, kScoreBufs);
   const int n_et = (E + kQ - 1) / kQ;
   const int split = blockIdx.x / n_et;
   const int e0 = (blockIdx.x % n_et) * kQ;
@@ -268,6 +379,12 @@ __global__ void final_scores_kernel(
   const float* pm = posm + (long long)b * E;
   const int* ans = dir == 0 ? t_ans : h_ans;
   const long long qrow = ((long long)b * 2 + dir) * E;
+  auto stage = [&](int c0, int buf) {
+    stage_rows(s.ts + buf * kC * ld, ld, tb, c0, d,
+               [&](int r) { return c0 + r < c_end; });
+  };
+#pragma unroll
+  for (int i = 0; i < kScoreBufs - 1; ++i) stage(c_begin + i * kC, i);
 
   for (int i = warp; i < kQ; i += kLossThreads / kWarp) {
     const int e = e0 + i;
@@ -287,67 +404,91 @@ __global__ void final_scores_kernel(
           re = r[c] * orow[c] + r[c + d2] * orow[c + d2];
           im = r[c] * orow[c + d2] - r[c + d2] * orow[c];
         }
-        s.qs[i * ds + c] = re;
-        s.qs[i * ds + c + d2] = im;
+        s.qs[i * ld + c] = re;
+        s.qs[i * ld + c + d2] = im;
         part += re * pos[c] + im * pos[c + d2];
       }
     } else {
-      for (int c = lane; c < d; c += kWarp) s.qs[i * ds + c] = 0.f;
+      for (int c = lane; c < d; c += kWarp) s.qs[i * ld + c] = 0.f;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       part += __shfl_xor_sync(kFull, part, off);
     if (split == 0 && e < E) {
       float* qo = qhat_out + (qrow + e) * d;
-      for (int c = lane; c < d; c += kWarp) qo[c] = s.qs[i * ds + c];
+      for (int c = lane; c < d; c += kWarp) qo[c] = s.qs[i * ld + c];
       if (lane == 0) scpos_out[qrow + e] = part;
     }
   }
   init_cursors(s, (dir == 0 ? t_ptr : h_ptr) + (long long)b * (E + 1), ans,
                pm, e0, E, c_begin);
 
-  const int ty = tid / 16, tx = tid % 16;
-  float m[kSub], sum[kSub];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    m[i] = -INFINITY;
-    sum[i] = 0.f;
-  }
-  for (int c0 = c_begin; c0 < c_end; c0 += kC) {
+  // the thread's two rows (h = 0, 1: score_row(2 h)) over its columns
+  float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+  for (int c0 = c_begin, it = 0; c0 < c_end; c0 += kC, ++it) {
     __syncthreads();
-    load_rows(s.ts, tb, c0, c_end, d);
+    stage(c0 + (kScoreBufs - 1) * kC, (it + kScoreBufs - 1) % kScoreBufs);
     next_masks(s, ans, c0);
+    cp_async_wait<kScoreBufs - 1>();
     __syncthreads();
-    float acc[kSub][kSub];
-    score_tile(s.qs, s.ts, d, ty, tx, acc);
+    float acc[4][4];
+    score_product(s.qs, s.ts + (it % kScoreBufs) * kC * ld, ld, d, acc);
 #pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      const unsigned long long bits = s.mb[ty + 16 * i];
+    for (int h = 0; h < 2; ++h) {
+      const unsigned long long bits = s.mb[score_row(2 * h)];
       float tmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const int c = tx + 16 * j;
-        if (c0 + c >= c_end || ((bits >> c) & 1ull)) acc[i][j] = -INFINITY;
-        tmax = fmaxf(tmax, acc[i][j]);
-      }
-      const float mn = fmaxf(m[i], max16(tmax));
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = score_col(nt, 2 * h + j);
+          float& v = acc[nt][2 * h + j];
+          if (c0 + c >= c_end || ((bits >> c) & 1ull)) v = -INFINITY;
+          tmax = fmaxf(tmax, v);
+        }
+      const float mn = fmaxf(m[h], tmax);
+      if (mn == -INFINITY) continue;
       float add = 0.f;
 #pragma unroll
-      for (int j = 0; j < kSub; ++j)
-        add += acc[i][j] == -INFINITY ? 0.f : expf(acc[i][j] - mn);
-      const float scale = m[i] == -INFINITY ? 0.f : expf(m[i] - mn);
-      sum[i] = sum[i] * scale + add;
-      m[i] = mn;
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float v = acc[nt][2 * h + j];
+          add += v == -INFINITY ? 0.f : expf(v - mn);
+        }
+      sum[h] = (m[h] == -INFINITY ? 0.f : sum[h] * expf(m[h] - mn)) + add;
+      m[h] = mn;
     }
   }
+  cp_async_wait<0>();
+  // the four threads of a row, then the two warps of its rows
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const float tot = sum16(sum[i]);
-    const int e = e0 + ty + 16 * i;
-    if (tx == 0 && e < E) {
-      const long long o = (((long long)b * 2 + dir) * n_split + split) * E + e;
-      part_m[o] = m[i];
-      part_s[o] = tot;
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      lse_merge(m[h], sum[h], __shfl_xor_sync(kFull, m[h], off),
+                __shfl_xor_sync(kFull, sum[h], off));
+  __syncthreads();
+  const bool lead = (lane & 3) == 0;
+  if ((warp & 1) && lead) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s.w[score_row(2 * h)] = m[h];
+      s.l[score_row(2 * h)] = sum[h];
+    }
+  }
+  __syncthreads();
+  if (!(warp & 1) && lead) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = score_row(2 * h), e = e0 + q;
+      lse_merge(m[h], sum[h], s.w[q], s.l[q]);
+      if (e < E) {
+        const long long o =
+            (((long long)b * 2 + dir) * n_split + split) * E + e;
+        part_m[o] = m[h];
+        part_s[o] = sum[h];
+      }
     }
   }
 }
@@ -410,16 +551,17 @@ __global__ void final_loss_reduce_kernel(
 // Block (query tile, column range) x direction x element: for each positive
 // query q, the sum over the range's columns n of p_qn * table[n], with
 // p_qn = exp(score - lse_q) (0 at true answers); unscaled by the loss
-// weight, one partial per range.
-__global__ void final_dq_kernel(
+// weight, one partial per range. A column tile: its scores (score_product,
+// K3's), then p into ps, then dq += P T (cot_product).
+__global__ void __launch_bounds__(kLossThreads, 2) final_dq_kernel(
     const float* __restrict__ table, const float* __restrict__ qhat,
     const float* __restrict__ lse, const float* __restrict__ posm,
     const int* __restrict__ t_ptr, const int* __restrict__ t_ans,
     const int* __restrict__ h_ptr, const int* __restrict__ h_ans,
     float* __restrict__ part_dq, int N, int E, int d, int n_split,
     int chunk) {
-  LossSmem s = loss_smem(d);
-  const int ds = d + 1, nk = d / 16;
+  const int ld = tc_ld(d);
+  LossSmem s = loss_smem(ld, 1);
   const int n_et = (E + kQ - 1) / kQ;
   const int split = blockIdx.x / n_et;
   const int e0 = (blockIdx.x % n_et) * kQ;
@@ -431,11 +573,9 @@ __global__ void final_dq_kernel(
   const int* ans = dir == 0 ? t_ans : h_ans;
   const long long qrow = ((long long)b * 2 + dir) * E;
 
-  for (int i = tid; i < kQ * d; i += kLossThreads) {
-    const int r = i / d, k = i - r * d, e = e0 + r;
-    const bool on = e < E && pm[e] > 0.f;
-    s.qs[r * ds + k] = on ? qhat[(qrow + e) * d + k] : 0.f;
-  }
+  stage_rows(s.qs, ld, qhat, qrow + e0, d, [&](int r) {
+    return e0 + r < E && pm[e0 + r] > 0.f;
+  });
   if (tid < kQ) {
     const int e = e0 + tid;
     const bool on = e < E && pm[e] > 0.f;
@@ -445,55 +585,48 @@ __global__ void final_dq_kernel(
   init_cursors(s, (dir == 0 ? t_ptr : h_ptr) + (long long)b * (E + 1), ans,
                pm, e0, E, c_begin);
 
-  const int ty = tid / 16, tx = tid % 16;
-  float dq[kSub][kMaxK];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) dq[i][k] = 0.f;
+  float dq[kMaxNt][4];
+  zero_rows(dq);
   for (int c0 = c_begin; c0 < c_end; c0 += kC) {
     __syncthreads();
-    load_rows(s.ts, tb, c0, c_end, d);
+    stage_rows(s.ts, ld, tb, c0, d, [&](int r) { return c0 + r < c_end; });
     next_masks(s, ans, c0);
+    cp_async_wait<0>();
     __syncthreads();
-    float acc[kSub][kSub];
-    score_tile(s.qs, s.ts, d, ty, tx, acc);
+    float acc[4][4];
+    score_product(s.qs, s.ts, ld, d, acc);
 #pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      const int q = ty + 16 * i;
+    for (int h = 0; h < 2; ++h) {
+      const int q = score_row(2 * h);
       const unsigned long long bits = s.mb[q];
+      const bool on = s.f[q] > 0.f;
+      const float l = s.l[q];
 #pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = s.f[q] > 0.f && c0 + c < c_end && !((bits >> c) & 1ull);
-        s.ps[q * (kC + 1) + c] = ok ? expf(acc[i][j] - s.l[q]) : 0.f;
+      for (int nt = 0; nt < 4; ++nt) {
+        float p[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = score_col(nt, 2 * h + j);
+          const bool ok = on && c0 + c < c_end && !((bits >> c) & 1ull);
+          p[j] = ok ? expf(acc[nt][2 * h + j] - l) : 0.f;
+        }
+        *reinterpret_cast<float2*>(s.ps + q * kLdDq + score_col(nt, 2 * h)) =
+            make_float2(p[0], p[1]);
       }
     }
     __syncthreads();
-    for (int c = 0; c < kC; ++c) {
-      float pv[kSub];
+    cot_product<false>(s.ps, kLdDq, s.ts, ld, d, dq);
+  }
+  cp_async_wait<0>();
 #pragma unroll
-      for (int i = 0; i < kSub; ++i) pv[i] = s.ps[(ty + 16 * i) * (kC + 1) + c];
+  for (int nt = 0; nt < kMaxNt; ++nt)
 #pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (k < nk) {
-          const float tv = s.ts[c * ds + tx + 16 * k];
-#pragma unroll
-          for (int i = 0; i < kSub; ++i) dq[i][k] += pv[i] * tv;
-        }
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int e = e0 + score_row(i);
+      if (nt >= d / 16 || e >= E) continue;
+      part_dq[((((long long)b * 2 + dir) * n_split + split) * E + e) * d
+              + cot_col(nt, i, d)] = dq[nt][i];
     }
-  }
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int e = e0 + ty + 16 * i;
-    if (e >= E) continue;
-    float* o = part_dq + ((((long long)b * 2 + dir) * n_split + split) * E + e)
-                             * d;
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k)
-      if (k < nk) o[tx + 16 * k] = dq[i][k];
-  }
 }
 
 // One warp per edge slot: w = posm * g / count; per direction the query
@@ -575,8 +708,10 @@ __global__ void final_dq_finish_kernel(
 
 // Block = 64 table rows of one element: the sum over both directions and
 // all positive queries q of w_q * p_qn * qhat_q, then the subject and object
-// row cotangents of the element's positive edges, in edge order.
-__global__ void final_dtable_kernel(
+// row cotangents of the element's positive edges, in edge order. A query
+// tile: its scores against the block's rows (score_product, K3's), then
+// w * p into ps, then d_table += P^T Q (cot_product).
+__global__ void __launch_bounds__(kLossThreads, 2) final_dtable_kernel(
     const float* __restrict__ table, const float* __restrict__ qhat,
     const float* __restrict__ lse, const float* __restrict__ posm,
     const float* __restrict__ cnt, const float* __restrict__ gout,
@@ -585,31 +720,26 @@ __global__ void final_dtable_kernel(
     const int* __restrict__ h_ptr, const int* __restrict__ h_ans,
     const float* __restrict__ d_s, const float* __restrict__ d_o,
     float* __restrict__ d_table, int N, int E, int d) {
-  LossSmem s = loss_smem(d);
-  const int ds = d + 1, nk = d / 16;
+  const int ld = tc_ld(d);
+  LossSmem s = loss_smem(ld, 1);
   const int n0 = blockIdx.x * kC, b = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x;
   const float* tb = table + (long long)b * N * d;
   const float* pm = posm + (long long)b * E;
   const float gw = gout[b] / cnt[b];
-  load_rows(s.ts, tb, n0, N, d);
+  stage_rows(s.ts, ld, tb, n0, d, [&](int r) { return n0 + r < N; });
 
-  float acc[kSub][kMaxK];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) acc[i][k] = 0.f;
+  float acc[kMaxNt][4];
+  zero_rows(acc);
   for (int dir = 0; dir < 2; ++dir) {
     const int* aptr = (dir == 0 ? t_ptr : h_ptr) + (long long)b * (E + 1);
     const int* ans = dir == 0 ? t_ans : h_ans;
     const long long qrow = ((long long)b * 2 + dir) * E;
     for (int q0 = 0; q0 < E; q0 += kQ) {
       __syncthreads();
-      for (int i = tid; i < kQ * d; i += kLossThreads) {
-        const int r = i / d, k = i - r * d, e = q0 + r;
-        const bool on = e < E && pm[e] > 0.f;
-        s.qs[r * ds + k] = on ? qhat[(qrow + e) * d + k] : 0.f;
-      }
+      stage_rows(s.qs, ld, qhat, qrow + q0, d, [&](int r) {
+        return q0 + r < E && pm[q0 + r] > 0.f;
+      });
       if (tid < kQ) {
         const int e = q0 + tid;
         const bool on = e < E && pm[e] > 0.f;
@@ -625,63 +755,80 @@ __global__ void final_dtable_kernel(
         }
         s.mb[tid] = bits;
       }
+      cp_async_wait<0>();
       __syncthreads();
-      float sc[kSub][kSub];
-      score_tile(s.qs, s.ts, d, ty, tx, sc);
+      float sc[4][4];
+      score_product(s.qs, s.ts, ld, d, sc);
 #pragma unroll
-      for (int i = 0; i < kSub; ++i) {
-        const int q = ty + 16 * i;
+      for (int h = 0; h < 2; ++h) {
+        const int q = score_row(2 * h);
         const unsigned long long bits = s.mb[q];
+        const float w = s.w[q], l = s.l[q];
 #pragma unroll
-        for (int j = 0; j < kSub; ++j) {
-          const int c = tx + 16 * j;
-          const bool ok = s.w[q] != 0.f && n0 + c < N && !((bits >> c) & 1ull);
-          s.ps[q * (kC + 1) + c] =
-              ok ? s.w[q] * expf(sc[i][j] - s.l[q]) : 0.f;
-        }
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int c = score_col(nt, 2 * h + j);
+            const bool ok = w != 0.f && n0 + c < N && !((bits >> c) & 1ull);
+            s.ps[q * kLdDt + c] = ok ? w * expf(sc[nt][2 * h + j] - l) : 0.f;
+          }
       }
       __syncthreads();
-      for (int q = 0; q < kQ; ++q) {
-        float pv[kSub];
+      cot_product<true>(s.ps, kLdDt, s.qs, ld, d, acc);
+    }
+  }
+  cp_async_wait<0>();
+  // the subject and object rows of the positive edges, relative to the
+  // block's (-1: not a positive), kLossThreads edges at a time in shared
+  // memory (over the query tile); each thread adds the rows of its own
+  // rows score_row(0) and score_row(2), in edge order
+  const int nts = d / 16;
+  int* er = reinterpret_cast<int*>(s.qs);
+  for (int e0 = 0; e0 < E; e0 += kLossThreads) {
+    __syncthreads();
+    const int e = e0 + tid;
+    int rs = -1, ro = -1;
+    if (e < E && pm[e] > 0.f) {
+      rs = src[(long long)b * E + e] - n0;
+      ro = dst[(long long)b * E + e] - n0;
+    }
+    er[2 * tid] = rs;
+    er[2 * tid + 1] = ro;
+    __syncthreads();
+    const int n = min(kLossThreads, E - e0);
+    for (int i = 0; i < n; ++i) {
+      const int es = er[2 * i], eo = er[2 * i + 1];
+      const long long be = (long long)b * E + e0 + i;
 #pragma unroll
-        for (int i = 0; i < kSub; ++i) pv[i] = s.ps[q * (kC + 1) + ty + 16 * i];
+      for (int h = 0; h < 2; ++h) {
+        const int r = score_row(2 * h);
+        if (es == r) {
 #pragma unroll
-        for (int k = 0; k < kMaxK; ++k) {
-          if (k < nk) {
-            const float qv = s.qs[q * ds + tx + 16 * k];
+          for (int nt = 0; nt < kMaxNt; ++nt)
 #pragma unroll
-            for (int i = 0; i < kSub; ++i) acc[i][k] += pv[i] * qv;
-          }
+            for (int j = 0; j < 2; ++j)
+              if (nt < nts)
+                acc[nt][2 * h + j] += d_s[be * d + cot_col(nt, j, d)];
+        }
+        if (eo == r) {
+#pragma unroll
+          for (int nt = 0; nt < kMaxNt; ++nt)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              if (nt < nts)
+                acc[nt][2 * h + j] += d_o[be * d + cot_col(nt, j, d)];
         }
       }
     }
   }
-  for (int e = 0; e < E; ++e) {
-    if (!(pm[e] > 0.f)) continue;
-    const long long be = (long long)b * E + e;
-    const int rs = src[be] - n0 - ty, ro = dst[be] - n0 - ty;
 #pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      if (rs == 16 * i) {
+  for (int nt = 0; nt < kMaxNt; ++nt)
 #pragma unroll
-        for (int k = 0; k < kMaxK; ++k)
-          if (k < nk) acc[i][k] += d_s[be * d + tx + 16 * k];
-      }
-      if (ro == 16 * i) {
-#pragma unroll
-        for (int k = 0; k < kMaxK; ++k)
-          if (k < nk) acc[i][k] += d_o[be * d + tx + 16 * k];
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int n = n0 + score_row(i);
+      if (nt >= nts || n >= N) continue;
+      d_table[((long long)b * N + n) * d + cot_col(nt, i, d)] = acc[nt][i];
     }
-  }
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k)
-      if (k < nk) d_table[((long long)b * N + n) * d + tx + 16 * k] = acc[i][k];
-  }
 }
 
 // -- K5 ----------------------------------------------------------------------
@@ -742,8 +889,8 @@ __global__ void final_ranks_kernel(
     const int* __restrict__ h_ptr, const int* __restrict__ h_ans,
     int* __restrict__ part_cnt, float* __restrict__ tgt_tail, int N, int Q,
     int d, int n_split, int chunk) {
-  LossSmem s = loss_smem(d);
   const int ds = d + 1, d2 = d / 2;
+  LossSmem s = loss_smem(ds, 1);
   const int n_qt = (Q + kQ - 1) / kQ;
   const int split = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * kQ;
@@ -899,12 +1046,16 @@ extern "C" int final_layer_launch(
     const Layer p = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
                                wcol, loopw, mask, 0, wih_t, whh_t, bih, bhh,
                                nullptr, nullptr, dt, lam, prev, 1, N, d, 0);
-    const dim3 grid((N + kTileRows - 1) / kTileRows, B);
-    const size_t smem = 3 * kTileRows * d * sizeof(float);
-    final_layer_kernel<<<grid, kRowGroups * d, smem,
+    const int warps = fwd_warps(d, kFinalWarps);
+    const int slabs = d / (16 * warps);
+    const size_t smem = fwd_layer_smem_floats(d, warps) * sizeof(float);
+    cudaError_t err = allow_smem(final_layer_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((N + kBwdRows - 1) / kBwdRows * slabs, B);
+    final_layer_kernel<<<grid, warps * kWarp, smem,
                          static_cast<cudaStream_t>(stream)>>>(
         p, static_cast<const float*>(sel_x),
-        static_cast<const float*>(active), static_cast<float*>(out));
+        static_cast<const float*>(active), static_cast<float*>(out), slabs);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -916,7 +1067,8 @@ extern "C" int final_scores_launch(
     void* qhat, void* scpos, int B, int N, int E, int d, int n_split,
     void* stream) {
   if (B > 0 && E > 0) {
-    const size_t smem = loss_smem_floats(d, false) * sizeof(float);
+    const size_t smem =
+        loss_smem_floats(tc_ld(d), kScoreBufs, 0) * sizeof(float);
     cudaError_t err = allow_smem(final_scores_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(((E + kQ - 1) / kQ) * n_split, 2, B);
@@ -955,7 +1107,8 @@ extern "C" int final_dq_launch(
     const void* h_ans, void* part_dq, int B, int N, int E, int d,
     int n_split, void* stream) {
   if (B > 0 && E > 0) {
-    const size_t smem = loss_smem_floats(d, true) * sizeof(float);
+    const size_t smem =
+        loss_smem_floats(tc_ld(d), 1, kQ * kLdDq) * sizeof(float);
     cudaError_t err = allow_smem(final_dq_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(((E + kQ - 1) / kQ) * n_split, 2, B);
@@ -1001,7 +1154,8 @@ extern "C" int final_dtable_launch(
     const void* h_ans, const void* d_s, const void* d_o, void* d_table,
     int B, int N, int E, int d, void* stream) {
   if (B > 0 && N > 0) {
-    const size_t smem = loss_smem_floats(d, true) * sizeof(float);
+    const size_t smem =
+        loss_smem_floats(tc_ld(d), 1, kQ * kLdDt) * sizeof(float);
     cudaError_t err = allow_smem(final_dtable_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((N + kC - 1) / kC, B);
@@ -1121,7 +1275,7 @@ extern "C" int final_ranks_launch(
     const void* t_ans, const void* h_ptr, const void* h_ans, void* part_cnt,
     void* tgt_tail, int B, int N, int Q, int d, int n_split, void* stream) {
   if (B > 0 && Q > 0) {
-    const size_t smem = loss_smem_floats(d, false) * sizeof(float);
+    const size_t smem = loss_smem_floats(d + 1, 1, 0) * sizeof(float);
     cudaError_t err = allow_smem(final_ranks_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(((Q + kQ - 1) / kQ) * n_split, 2, B);

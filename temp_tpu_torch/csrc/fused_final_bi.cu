@@ -37,7 +37,7 @@
 // below that at 67 TFLOP/s.
 //
 // What the design does about that: one launch covers the batch (b in the
-// grid). bi_layer_kernel keeps the FMA tiles' plain FMA (each thread one
+// grid). bi_layer_kernel keeps plain FMA (each thread one
 // column and eight rows, every weight element read once per block),
 // waiting on the load pipe more than on the FMA units. K9+K10's launches
 // compute on the tensor cores in 3xTF32 at f32 accuracy

@@ -45,8 +45,8 @@
 // of that step's edges (by destination forward, by source backward),
 // summing in registers without atomics, as in spmm.cu.
 // - K2f's products run on the tensor cores in 3xTF32 at f32 accuracy
-//   (rgcn_gru_layer.cuh conv_rows_tc and gate_products on tile_product): a
-//   block takes 32 rows and a slab of the columns of every gate (kFwdWarps
+//   (rgcn_gru_layer.cuh fwd_layer_tile: conv_rows_tc and gate_products on
+//   tile_product, the tile K3's layer launches run too): a block takes 32 rows and a slab of the columns of every gate (kFwdWarps
 //   warps of 16 columns), recomputes the tile's conv output in full (the
 //   SpMM and the self-loop product, a slab at a time) and forms the gate
 //   products of its slab only, so one layer's launch gives d / (16 *
@@ -84,52 +84,19 @@ namespace {
 // eval sweep).
 constexpr int kFwdWarps = 4;
 
-__host__ __device__ constexpr int fwd_warps(int d) {
-  int w = kFwdWarps < d / 16 ? kFwdWarps : d / 16;
-  while ((d / 16) % w != 0) --w;
-  return w;
-}
-
-// Shared memory of window_layer_kernel in floats: the ring of three gate
-// windows of the slab, then xs, cs and hs ([kBwdRows, d + 4] each).
-__host__ __device__ constexpr int fwd_layer_smem_floats(int d) {
-  return ring_floats(3, 16 * fwd_warps(d)) + 3 * kBwdRows * (d + 4);
-}
-
 // One RGCN+GRU layer of window step k for the rows of tile blockIdx.x /
 // slabs of element blockIdx.y, at the columns of slab blockIdx.x % slabs of
 // every gate: the output rows (and with loc the conv output) there.
 __global__ void __launch_bounds__(kFwdWarps * kWarp, 3) window_layer_kernel(
     Layer p, float* buf, float* loc, int slabs) {
-  extern __shared__ float smem[];
-  const int d = p.d, A = p.A, ld = d + 4;
-  float* ring = smem;
-  float* xs = ring + ring_floats(3, block_cols());
-  float* cs = xs + kBwdRows * ld;      // conv output (xs when given)
-  float* hs = cs + kBwdRows * ld;      // decayed previous states
-  const int b = blockIdx.y;
+  const int d = p.d;
   const int a0 = (blockIdx.x / slabs) * kBwdRows;
   const int s0 = (blockIdx.x % slabs) * block_cols();
-  const int c0 = warp_col0();
-  const long long step_row = ((long long)b * p.L1 + p.k) * A;
-  load_tile(p, b, a0, kBwdRows, ld, xs, cs, hs);
-  if (!p.conv_given) conv_rows_tc(p, b, a0, xs, cs, ld, ring, nullptr);
-  float acc[4][kMTiles][2][4];
-  gate_products(cs, hs, ld, p.wih_t, p.whh_t, d, s0, ring, acc);
-  const GateBias gb = gate_bias(p.bih, p.bhh, d, s0 + c0);
-#pragma unroll
-  for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = acc_row(mt, i), c = s0 + c0 + acc_col(nt, i);
-        if (a0 + r >= A) continue;
-        const long long e = (step_row + a0 + r) * d + c;
-        const GateAt g = gate_at(acc, mt, nt, i, gb);
-        buf[e] = (1.f - g.z) * g.n + g.z * hs[r * ld + c];
-        if (loc != nullptr) loc[e] = cs[r * ld + c];
-      }
+  fwd_layer_tile(p, blockIdx.y, a0, s0,
+                 [&](long long row, int c, float h, float conv) {
+                   buf[row * d + c] = h;
+                   if (loc != nullptr) loc[row * d + c] = conv;
+                 });
 }
 
 __global__ void __launch_bounds__(256, 2) window_bwd_gru_kernel(
@@ -183,10 +150,10 @@ extern "C" int window_layer_launch(
                                wstride, wcol, loopw, mask, relu, wih_t, whh_t,
                                bih, bhh, gidx, live, dt, lam, buf, L1, A, d,
                                k);
-    const int warps = fwd_warps(d);
+    const int warps = fwd_warps(d, kFwdWarps);
     const int slabs = d / (16 * warps);
     const int bytes =
-        fwd_layer_smem_floats(d) * static_cast<int>(sizeof(float));
+        fwd_layer_smem_floats(d, warps) * static_cast<int>(sizeof(float));
     cudaError_t err = cudaFuncSetAttribute(
         window_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);

@@ -16,21 +16,22 @@
 //   wgrad_tile's own loop of the same parts) on mma.sync m16n8k8 in 3xTF32
 //   at f32 accuracy: 32-row tiles whose warps own 16 columns of every weight
 //   window and all the rows, the weights streamed through shared memory by
-//   cp.async, the outputs kept in mma accumulators. They are the window's
-//   forward layer (K2f, and K12 on its launches), which works on a column
-//   slab of every gate a block so that a window step's few thousand rows
-//   still fill the card, and the backward tiles on all d columns
-//   (bwd_gru_tile, bwd_input_tile, wgrad_tile: K2b and K5; K9+K10's own
-//   GRU tile bi_bwd_gru_kernel, its input and its weight launches).
-//   conv_rows_tc and gate_products are the forward products that K2f and
-//   the backward tiles' recompute share, so both give the same conv output
-//   and gates bit for bit. What bounds them is the tensor cores' mma.sync
-//   rate at three products for each f32 one, with the 3xTF32 splits and
-//   the staging beside it.
-// - The other forward tiles (layer_tile, conv_tile, gru_gates: K3, K11 and
-//   K6+K7) keep plain FMA from shared-memory broadcasts: each thread owns
-//   one column and eight rows of a kTileRows tile. What bounds them is the
-//   load pipe (a shared load per one or three FMAs), not the FMA units.
+//   cp.async, the outputs kept in mma accumulators. fwd_layer_tile is the
+//   forward layer of the window (K2f, and K12 on its launches) and of the
+//   final step (K3's two layer launches, which K11 makes too): a block
+//   works on a column slab of every gate, so that a window step's few
+//   thousand rows still fill the card, or on all d columns. The backward
+//   tiles work on all d columns (bwd_gru_tile, bwd_input_tile, wgrad_tile:
+//   K2b and K5; K9+K10's own GRU tile bi_bwd_gru_kernel, its input and its
+//   weight launches). conv_rows_tc and gate_products are the forward
+//   products that every forward tile and the backward tiles' recompute
+//   share, so all give the same conv output and gates bit for bit. What
+//   bounds them is the tensor cores' mma.sync rate at three products for
+//   each f32 one, with the 3xTF32 splits and the staging beside it.
+// - The flagship's forward tile (conv_tile and gru_gates: K6+K7) keeps
+//   plain FMA from shared-memory broadcasts: each thread owns one column
+//   and eight rows of a kTileRows tile. What bounds it is the load pipe (a
+//   shared load per one or three FMAs), not the FMA units.
 
 #pragma once
 
@@ -43,14 +44,11 @@ constexpr int kTileRows = 16;
 constexpr int kRowGroups = 2;                         // threads = 2 * d
 constexpr int kRowsPerThread = kTileRows / kRowGroups;
 constexpr int kMaxChunks = 8;                         // d <= 256
-// Unroll of the FMA tiles' GRU gate-product loop: 4 in the one-GRU forward
-// kernel, none in the bidirectional one (two GRUs a tile). Measured on an
-// H100 (PERF.md): unrolled, the window forward of the time took 2.7 ms
-// where it took 3.5 (86 -> 126 registers) and the bidirectional forward 4.7
-// where it took 3.0 (96 -> 130): above 128 registers a 256-thread block
-// leaves no room for a second one on an SM.
-constexpr int kUnrolled = 4;  // final_layer_kernel
-constexpr int kRolled = 1;    // bi_layer_kernel
+// The flagship's FMA tile (bi_layer_kernel, two GRUs a tile) runs its GRU
+// gate-product loop rolled: unrolled it took 4.7 ms where it took 3.0 on an
+// H100 (96 -> 130 registers, and above 128 a 256-thread block leaves no
+// room for a second one on an SM; PERF.md).
+constexpr int kRolled = 1;
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -267,7 +265,7 @@ __device__ __forceinline__ void spmm_rows(const Layer& p, int b, int a0,
 // The conv output of a loaded tile of kTileRows rows into cs: spmm_rows
 // plus the self-loop product times its dropout mask, then the ReLU when
 // p.relu. Writes norm^2 of each row to n2_out when it is not null. Starts
-// and ends with a barrier. (The FMA tiles' product: plain FMA, each
+// and ends with a barrier. (The FMA tile's product: plain FMA, each
 // thread one column and eight rows.)
 __device__ __forceinline__ void conv_tile(const Layer& p, int b, int a0,
                                           const float* xs, float* cs,
@@ -349,18 +347,6 @@ __device__ __forceinline__ void gru_gates(const float* cs, const float* hs,
     gt.ghn[i] = ghn[i] + bhn;
     gt.n[i] = tanhf((gin[i] + bin) + gt.r[i] * gt.ghn[i]);
   }
-}
-
-// The forward of one layer for rows a0..a0+15 of element b, up to the GRU
-// gates: xs = the input rows, hs = the decayed previous states, cs = the
-// conv output. Writes norm^2 of each row to n2_out when it is not null.
-template <int kUnroll>
-__device__ __forceinline__ void layer_tile(const Layer& p, int b, int a0,
-                                           float* xs, float* cs, float* hs,
-                                           float* n2_out, Gates& gt) {
-  load_tile(p, b, a0, xs, cs, hs);
-  conv_tile(p, b, a0, xs, cs, n2_out);
-  gru_gates<kUnroll>(cs, hs, p.wih_t, p.whh_t, p.bih, p.bhh, p.d, gt);
 }
 
 // -- The tensor-core tiles' products: 3xTF32 --------------------------------
@@ -468,6 +454,62 @@ __device__ __forceinline__ FragB frag_b(const float* b, int ld, int k0,
   FragB f;
   split_tf32<kRound>(p[0], f.hi[0], f.lo[0]);
   split_tf32<kRound>(p[4 * ld], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B's k8 x n8 operand at depth columns k0.., columns n0.. of an [n, k]
+// array in shared memory (B transposed: a row per column of the product,
+// as the score tile's table rows), its high parts truncated.
+__device__ __forceinline__ FragB frag_b_rows(const float* b, int ld, int k0,
+                                             int n0) {
+  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
+  const float* p = b + (n0 + g) * ld + k0 + t;
+  FragB f;
+  split_tf32<false>(p[0], f.hi[0], f.lo[0]);
+  split_tf32<false>(p[4], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// The paired operands: a product whose depth slots t and t + 4 of a k8
+// step hold the depth terms k0 + 2t and k0 + 2t + 1 (A and B take the same
+// order, so the sum is the same one). A lane's two depth terms then sit
+// side by side: in a row-major A one 8-byte load, and in a depth-major
+// array rows 2t, 2t + 1, so rows of d + 4 floats give B conflict-free
+// loads. High parts truncated, as the tiles'.
+__device__ __forceinline__ FragA frag_a_pairs(const float* a, int ld, int r0,
+                                              int k0) {
+  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
+  const float* p = a + (r0 + g) * ld + k0 + 2 * t;
+  const float2 v0 = *reinterpret_cast<const float2*>(p);
+  const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * ld);
+  FragA f;
+  split_tf32<false>(v0.x, f.hi[0], f.lo[0]);
+  split_tf32<false>(v1.x, f.hi[1], f.lo[1]);
+  split_tf32<false>(v0.y, f.hi[2], f.lo[2]);
+  split_tf32<false>(v1.y, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// The same order from a depth-major [k, m] array (A transposed).
+__device__ __forceinline__ FragA frag_a_pairs_t(const float* a, int ld,
+                                                int m0, int k0) {
+  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
+  const float* p = a + (k0 + 2 * t) * ld + m0 + g;
+  FragA f;
+  split_tf32<false>(p[0], f.hi[0], f.lo[0]);
+  split_tf32<false>(p[8], f.hi[1], f.lo[1]);
+  split_tf32<false>(p[ld], f.hi[2], f.lo[2]);
+  split_tf32<false>(p[ld + 8], f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB frag_b_pairs(const float* b, int ld, int k0,
+                                              int n0) {
+  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
+  const float* p = b + (k0 + 2 * t) * ld + n0 + g;
+  FragB f;
+  split_tf32<false>(p[0], f.hi[0], f.lo[0]);
+  split_tf32<false>(p[ld], f.hi[1], f.lo[1]);
   return f;
 }
 
@@ -666,6 +708,59 @@ __device__ __forceinline__ GateAt gate_at(
   g.ghn = acc[3][mt][nt][i] + gb.hn[nt][h];
   g.n = tanhf((acc[2][mt][nt][i] + gb.in[nt][h]) + g.r * g.ghn);
   return g;
+}
+
+// The warps of a forward tile's block, at most max_warps: each owns 16
+// columns of the block's slab of every gate, so a slab of 16 * warps
+// columns, and d / (16 * warps) slabs a tile (fewer warps where d / 16 is
+// not a multiple of max_warps).
+__host__ __device__ constexpr int fwd_warps(int d, int max_warps) {
+  int w = max_warps < d / 16 ? max_warps : d / 16;
+  while ((d / 16) % w != 0) --w;
+  return w;
+}
+
+// Shared memory of fwd_layer_tile in floats: the ring of three gate windows
+// of the slab, then xs, cs and hs ([kBwdRows, d + 4] each).
+__host__ __device__ constexpr int fwd_layer_smem_floats(int d, int warps) {
+  return ring_floats(3, 16 * warps) + 3 * kBwdRows * (d + 4);
+}
+
+// The forward of one RGCN+GRU layer of step p.k for the kBwdRows rows
+// a0.. of element b, at the block_cols() columns s0.. of every gate: the
+// rows, the conv output (conv_rows_tc, unless p.conv_given) and the gate
+// products (gate_products) into the accumulators; then out(row, c, h,
+// conv) at each of the thread's accumulator positions inside the layer,
+// with row the row's index in [B, L1, A], c the column, h the GRU's output
+// (1 - z) n + z h_prev and conv the conv output there.
+template <typename Out>
+__device__ __forceinline__ void fwd_layer_tile(const Layer& p, int b, int a0,
+                                               int s0, Out&& out) {
+  extern __shared__ float smem[];
+  const int d = p.d, A = p.A, ld = d + 4;
+  float* ring = smem;
+  float* xs = ring + ring_floats(3, block_cols());
+  float* cs = xs + kBwdRows * ld;      // conv output (xs when given)
+  float* hs = cs + kBwdRows * ld;      // decayed previous states
+  const int c0 = warp_col0();
+  const long long step_row = ((long long)b * p.L1 + p.k) * A;
+  load_tile(p, b, a0, kBwdRows, ld, xs, cs, hs);
+  if (!p.conv_given) conv_rows_tc(p, b, a0, xs, cs, ld, ring, nullptr);
+  float acc[4][kMTiles][2][4];
+  gate_products(cs, hs, ld, p.wih_t, p.whh_t, d, s0, ring, acc);
+  const GateBias gb = gate_bias(p.bih, p.bhh, d, s0 + c0);
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = acc_row(mt, i), c = s0 + c0 + acc_col(nt, i);
+        if (a0 + r >= A) continue;
+        const GateAt g = gate_at(acc, mt, nt, i, gb);
+        out(step_row + a0 + r, c, (1.f - g.z) * g.n + g.z * hs[r * ld + c],
+            cs[r * ld + c]);
+      }
 }
 
 // Shared memory of bwd_gru_tile in floats: the ring of three gate windows,

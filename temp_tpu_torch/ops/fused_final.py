@@ -451,6 +451,36 @@ def fused_final_fwd(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
         loss, table, out1 = fused_final_fwd_plain(h0, hist1, hist2, gr, wrel,
                                                   loop1, loop2, g1, g2, rtab)
         return loss, {"table": table, "out1": out1}
+    layers, scores, reduce, saved = _fwd_prepare(
+        h0, hist1, hist2, gr, wrel, loop1, loop2, g1, g2, rtab)
+    layers()
+    scores()
+    reduce()
+    return saved.pop("loss"), saved
+
+
+def fused_final_fwd_launchers(h0, hist1, hist2, gr: FinalGraph, wrel, loop1,
+                              loop2, g1, g2, rtab):
+    """K3's two layer launches and its score launch apart, on operands
+    prepared as ``fused_final_fwd`` prepares them (arguments as there, CUDA
+    tensors only): two functions of no arguments, the first making the two
+    layer launches, the second the score launch on their output (each
+    counted on ``fused_final_fwd.launches``), so that their times can be
+    taken apart."""
+    if _device("fused_final_fwd", hist1) != "cuda":
+        raise ValueError("fused_final_fwd_launchers: K3 runs on a CUDA "
+                         "tensor only")
+    layers, scores, _, _ = _fwd_prepare(h0, hist1, hist2, gr, wrel, loop1,
+                                        loop2, g1, g2, rtab)
+    return layers, scores
+
+
+def _fwd_prepare(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
+                 g2, rtab):
+    """K3 on the card: the checked operands, CSRs and outputs, and its
+    launches as three functions of no arguments (the two layers, the
+    scores, the loss) with the dict they fill (``fused_final_fwd``'s saved
+    dict and the loss)."""
     B, N, d = hist1.shape
     E = gr.src.shape[1]
     _check_weights("fused_final_fwd", h0, hist1, hist2, wrel, loop1, loop2,
@@ -477,19 +507,27 @@ def fused_final_fwd(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
         _build.check(err, f"fused_final_fwd ({what})")
         fused_final_fwd.launches += 1
 
-    _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr, csr[0],
-                    wrel, loop1, loop2, g1, g2, out1, table)
+    def layers():
+        _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr, csr[0],
+                        wrel, loop1, loop2, g1, g2, out1, table)
+
     answers = (p(gr.tail_ptr), p(gr.tail_ans), p(gr.head_ptr),
                p(gr.head_ans))
-    launched(lib.final_scores_launch(
-        p(table), p(rtab), p(gr.src), p(gr.dst), p(gr.rel), p(gr.posm),
-        *answers, p(part_m), p(part_s), p(qhat), p(scpos), B, N, E, d,
-        _N_SPLIT, stream), "scores")
-    launched(lib.final_loss_reduce_launch(
-        p(part_m), p(part_s), p(scpos), p(gr.posm), p(lse), p(cnt), p(loss),
-        B, E, _N_SPLIT, stream), "loss")
-    return loss, {"table": table, "out1": out1, "h0x": h0x, "qhat": qhat,
-                  "scpos": scpos, "lse": lse, "cnt": cnt, "csr": csr}
+
+    def scores():
+        launched(lib.final_scores_launch(
+            p(table), p(rtab), p(gr.src), p(gr.dst), p(gr.rel), p(gr.posm),
+            *answers, p(part_m), p(part_s), p(qhat), p(scpos), B, N, E, d,
+            _N_SPLIT, stream), "scores")
+
+    def reduce():
+        launched(lib.final_loss_reduce_launch(
+            p(part_m), p(part_s), p(scpos), p(gr.posm), p(lse), p(cnt),
+            p(loss), B, E, _N_SPLIT, stream), "loss")
+
+    return layers, scores, reduce, {
+        "loss": loss, "table": table, "out1": out1, "h0x": h0x,
+        "qhat": qhat, "scpos": scpos, "lse": lse, "cnt": cnt, "csr": csr}
 
 
 fused_final_fwd.launches = 0

@@ -38,7 +38,7 @@ from temp_tpu_torch.data.snapshots import (
 from temp_tpu_torch.models.layers import dropout_mask
 from temp_tpu_torch.models.registry import get_model
 from temp_tpu_torch.ops.fused_final import (
-    _encoder_plain, _loss_plain, final_graph, final_graph_eval,
+    _encoder_plain, _loss_plain, _loss_side, final_graph, final_graph_eval,
     fused_eval_ranks, fused_eval_ranks_plain, fused_final_bwd_layer,
     fused_final_bwd_layer_plain, fused_final_bwd_loss,
     fused_final_bwd_loss_plain, fused_final_fwd, fused_final_fwd_plain,
@@ -1067,6 +1067,111 @@ def test_final_bwd_layer_is_deterministic(cuda, N, d, B, R, per, pad):
         y = fused_final_bwd_layer(*args)
         torch.cuda.synchronize()
         assert all(torch.equal(u, v) for u, v in zip(x, y))
+
+
+@pytest.mark.parametrize("noact", [False, True])
+@pytest.mark.parametrize("N,d,B,R,per,pad", _FINAL_SHAPES)
+def test_final_fwd_and_bwd_loss_are_deterministic(cuda, noact, N, d, B, R,
+                                                  per, pad):
+    """K3's and K4's tensor-core products sum in a fixed order and use no
+    atomics: two runs agree bit for bit (the loss, the rows, the queries
+    and log-sum-exps K4 reads, both cotangents), at the main path's shape
+    and at ragged ones."""
+    gr, w = _final_case(N, d, cuda, B=B, noact=noact, num_rels=R,
+                        edges_per_time=per, pad=pad)
+    args = (*_fwd_args(w), gr, w["wrel"], w["loop1"], w["loop2"], w["g1"],
+            w["g2"], w["rtab"])
+    (la, sa), (lb, sb) = fused_final_fwd(*args), fused_final_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(la, lb)
+    for k in ("table", "out1", "qhat", "scpos", "lse", "cnt"):
+        assert torch.equal(sa[k], sb[k]), k
+    g = torch.rand(B, device=cuda) + 0.5
+    x = fused_final_bwd_loss(sa, w["rtab"], gr, g)
+    y = fused_final_bwd_loss(sa, w["rtab"], gr, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(x, y))
+
+
+@pytest.mark.parametrize("N,d,B,R,per,pad", _FINAL_SHAPES)
+def test_final_lse_matches_plain(cuda, N, d, B, R, per, pad):
+    """K3's log-sum-exp of each positive query (its scores on the tensor
+    cores, summed per thread, then across threads and warps) within 1e-6
+    relative of the plain version's on the same table."""
+    gr, w = _final_case(N, d, cuda, B=B, num_rels=R, edges_per_time=per,
+                        pad=pad)
+    _, saved = fused_final_fwd(*_fwd_args(w), gr, w["wrel"], w["loop1"],
+                               w["loop2"], w["g1"], w["g2"], w["rtab"])
+    dirs, _ = _loss_side(saved["table"], w["rtab"], gr)
+    on = gr.posm > 0
+    assert bool(on.any())
+    for k, (_, _, _, _, lse) in enumerate(dirs):
+        got = saved["lse"][:, k][on]
+        ref = lse[on]
+        assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("N,d,B,R,per,pad", _FINAL_SHAPES)
+def test_final_layer_shares_k2f_and_k5_products(cuda, N, d, B, R, per, pad):
+    """K3's layer launches form the conv output and the gates with the
+    routines of K2f and of K5's recompute (fwd_layer_tile: conv_rows_tc,
+    gate_products), in whole-width tiles where K2f cuts column slabs: K3's
+    layer 2 equals bit for bit K2f's layer on the same rows (one window step
+    whose previous states are the dense history), and K2f's conv output
+    there equals bit for bit the one K5's GRU launch recomputes (its step
+    scratch)."""
+    from temp_tpu_torch import _build
+    from temp_tpu_torch.ops.fused_final import final_csr
+
+    gr, w = _final_case(N, d, cuda, B=B, num_rels=R, edges_per_time=per,
+                        pad=pad)
+    _, saved = fused_final_fwd(*_fwd_args(w), gr, w["wrel"], w["loop1"],
+                               w["loop2"], w["g1"], w["g2"], w["rtab"])
+    out1, table = saved["out1"], saved["table"]
+    assert gr.active is None  # no select: the table is layer 2's output
+    lib = _build.lib()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    p = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    f32 = dict(device=cuda, dtype=torch.float32)
+    g2 = w["g2"]
+    rowptr, s_src, s_rel, s_em = final_csr(gr, N, R * 2)[0]
+    # K2f, step k = 1 of a two-step window: its rows are layer 2's input,
+    # its previous states step 0's rows, which hold the history
+    counts = (rowptr[1:] - rowptr[:-1]).reshape(B, 1, N)
+    counts = torch.cat([torch.zeros_like(counts), counts], 1).reshape(-1)
+    ptr2 = torch.zeros(B * 2 * N + 1, device=cuda, dtype=torch.int32)
+    ptr2[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    x = torch.zeros(B, 2, N, d, **f32)
+    x[:, 1] = out1
+    buf = torch.zeros(B, 2, N, d, **f32)
+    buf[:, 0] = w["hist2"]
+    loc = torch.zeros(B, 2, N, d, **f32)
+    mask = torch.ones(B, 2, N, d, **f32)
+    mask[:, 1] = gr.m2
+    gidx = torch.arange(N, device=cuda, dtype=torch.int32).expand(
+        B, 2, N).contiguous()
+    live = torch.ones(B, 2, N, **f32)
+    dt = torch.stack([gr.dt, gr.dt], 1).contiguous()
+    _build.check(lib.window_layer_launch(
+        p(x), 0, p(ptr2), p(s_src), p(s_rel), p(s_em), p(w["wrel"]), 2 * d,
+        d, p(w["loop2"]), p(mask), 0, p(g2["wih_t"]), p(g2["whh_t"]),
+        p(g2["bih"]), p(g2["bhh"]), p(gidx), p(live), p(dt), float(gr.lam),
+        p(buf), p(loc), B, 2, N, d, 1, stream), "window_layer")
+    # K5's GRU launch on layer 2, its conv output in the step scratch
+    rows = B * N
+    wih, whh = (g2[k].t().contiguous() for k in ("wih_t", "whh_t"))
+    d_out, d_prev = torch.ones(B, N, d, **f32), torch.empty(B, N, d, **f32)
+    n2 = torch.empty(rows, **f32)
+    scr = [torch.empty(rows * n * d, **f32) for n in (1, 1, 3, 3, 1, 1)]
+    _build.check(lib.final_bwd_gru_launch(
+        p(out1), p(rowptr), p(s_src), p(s_rel), p(s_em), p(w["wrel"]),
+        2 * d, d, p(w["loop2"]), p(gr.m2), p(g2["wih_t"]), p(g2["whh_t"]),
+        p(g2["bih"]), p(g2["bhh"]), p(wih), p(whh), p(gr.dt), float(gr.lam),
+        p(w["hist2"]), p(d_out), p(d_prev), p(n2), *(p(t) for t in scr), B,
+        N, d, stream), "final_bwd_gru")
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:, 1], table)
+    assert torch.equal(loc[:, 1], scr[0].view(B, N, d))
 
 
 @pytest.mark.parametrize("B,N,d,n_split", [(3, 37, 16, 4), (2, 1000, 64, 16),

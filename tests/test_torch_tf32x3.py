@@ -1,4 +1,5 @@
-"""The tolerance argument for K2b's and K5's tensor-core products (3xTF32).
+"""The tolerance argument for the tensor-core products (3xTF32) of the
+window's and the final step's kernels (K2f, K2b, K3, K4, K5, K9+K10).
 
 The backward tiles (``csrc/rgcn_gru_layer.cuh`` ``tile_product``) split
 each f32 operand x into hi, x with its 13 low mantissa bits cleared, and
@@ -175,3 +176,42 @@ def test_tile_accumulation_depth_keeps_f32_accuracy(depth):
           f"{err_all / big:.3e} of the largest entry {big:.3e}")
     assert err8 <= TOL * big
     assert err_all > err8
+
+
+def _softmax_rows(g, rows: int, n: int, cols: int, scale: float):
+    """The probability tile of K4: exp(score - lse) of `rows` queries over
+    the first `cols` of n columns, float32, scaled by `scale` (d_table's
+    loss weight)."""
+    s = (g.standard_normal((rows, n)) * 3).astype(np.float32)
+    lse = np.log(np.exp(s.astype(np.float64)).sum(1, keepdims=True))
+    return (np.exp(s[:, :cols] - lse) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["scores", "dq", "d_table"])
+def test_loss_products_keep_f32_accuracy(case):
+    """K3's and K4's tensor-core products (``csrc/fused_final.cu``
+    ``score_product`` and ``cot_product``) use the tiles' split and 8-term
+    running sums: the score tile (64 queries by 64 table rows at depth d =
+    128); K4's dq = P T over one column range of the main shape (891
+    columns, 14 tiles of 64 whose sums carry on in one f32 accumulator);
+    and d_table = P^T Q over both directions' 256 queries (8 tiles of 64),
+    P the loss-weighted probabilities. Under ``mma_rz`` each stays within
+    1e-6 of the largest entry of the float64 product. The kernels take a
+    k8 step's terms in another order (pairs of depth terms in slots t and
+    t + 4), which the model does not see: a step sums the same 8 terms."""
+    g = np.random.default_rng({"scores": 11, "dq": 12, "d_table": 13}[case])
+    if case == "scores":
+        a = (g.standard_normal((64, 128)) * 0.5).astype(np.float32)
+        b = g.standard_normal((128, 64)).astype(np.float32)
+    elif case == "dq":
+        a = _softmax_rows(g, 64, 7128, 891, 1.0)
+        b = g.standard_normal((891, 128)).astype(np.float32)
+    else:
+        a = np.ascontiguousarray(_softmax_rows(g, 512, 7128, 64,
+                                               1 / 3200).T)
+        b = g.standard_normal((512, 128)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    big = float(np.abs(ref).max())
+    err = float(np.abs(product_tc(a, b, 8) - ref).max())
+    print(f"{case}: 3xTF32 {err / big:.3e} of the largest entry {big:.3e}")
+    assert err <= TOL * big
