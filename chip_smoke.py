@@ -1458,7 +1458,8 @@ def _bi_bytes(fb_, layer: int, extra_rows: int = 0) -> int:
 
 def phase_k6k7(fctx) -> dict:
     """The bi layer forward (K6+K7) of both layers against its plain
-    version (layer 2 fed the plain layer 1's output)."""
+    version (layer 2 fed the plain layer 1's output); run twice
+    (bit-equal)."""
     from temp_tpu_torch.ops.fused_final_bi import (
         bi_layer_fwd, bi_layer_fwd_plain,
     )
@@ -1477,24 +1478,29 @@ def phase_k6k7(fctx) -> dict:
         errs = scaled_errs([("layer1", out1, ref1), ("layer2", table, ref2)])
     except AssertionError as e:
         raise AssertionError(f"K6+K7: {e}") from None
+    bitwise = _bitwise((out1, table), (bi_layer_fwd(*a1, **k1),
+                                       bi_layer_fwd(*a2, **k2, sel=sel)))
+    if not bitwise:
+        raise AssertionError("K6+K7: two runs differ")
     fb_["table"], fb_["out1"] = ref2, ref1
     B, N, d = ref1.shape
     kept = float(fb_["bg"].gr.emf.sum())
     # per element and layer: the self-loop (2 N d^2) and four gate
     # products (24 N d^2); the SpMM 3 d a kept edge
     flops = 2 * B * 26 * N * d * d + 2 * kept * 3 * d
-    bound_ms, bound_by = _bound(flops, _bi_bytes(fb_, 1) + _bi_bytes(fb_, 2))
     out = {"shape": f"B={B} N={N} E={fb_['bg'].gr.src.shape[1]} d={d}, both "
                     f"layers",
            "max_abs_err": max(e["abs"] for e in errs.values()),
-           "errors": errs,
+           "errors": errs, "bitwise": bitwise,
            "ms": time_ms(lambda: (bi_layer_fwd(*a1, **k1),
                                   bi_layer_fwd(*a2, **k2, sel=sel)), dev,
                          reps=10),
            "plain_ms": time_ms(lambda: (
                bi_layer_fwd_plain(*a1, **k1p),
                bi_layer_fwd_plain(*a2, **k2p, sel=sel)), dev, reps=5),
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+           "library_ms": None,
+           **_bounds(flops, _bi_bytes(fb_, 1) + _bi_bytes(fb_, 2))}
+    out["bound_share"] = out["bound_ms"] / out["ms"]
     print(f"  K6+K7: {out}", flush=True)
     return out
 
@@ -1778,8 +1784,9 @@ def phase_k11(ctx) -> dict:
 
     from temp_tpu_torch.models.objectives import eval_ranks_single
     from temp_tpu_torch.ops.fused_final import (
-        _encoder_plain, fused_eval_ranks, fused_eval_ranks_plain,
-        table_ranks, table_ranks_plain,
+        _N_SPLIT, _encoder_plain, fused_eval_ranks,
+        fused_eval_ranks_launchers, fused_eval_ranks_plain, table_ranks,
+        table_ranks_plain,
     )
 
     dev, eb = ctx["device"], eval_batch(ctx)
@@ -1836,18 +1843,21 @@ def phase_k11(ctx) -> dict:
     edges = float(gr.emf.sum())
     # per element two layers of 14 N d^2 (K3's count: four GRU gate
     # products and a self-loop product a row) and the SpMMs, then both
-    # directions' scores of each real query against all N rows; the
-    # history, input rows, weights and queries read once, the ranks and
-    # BCE written once
+    # directions' scores of each real query against all N rows and its
+    # target; the history, input rows, weights and queries read once, the
+    # ranks and BCE written once. Apart, the layer launches also write
+    # out1 and the table (out1 read back), and the rank launch reads the
+    # table, the relation embeddings and the queries and writes the counts
+    # and the targets' scores
     layer_flops = B * 2 * 14 * N * d * d + 2 * edges * 3 * d
-    rank_flops = 2 * n_q * N * 2 * d
+    rank_flops = 2 * n_q * (N + 1) * 2 * d
     nbytes = 4 * (2 * B * N * d + N * d + 2 * B * N + wrel.numel()
                   + 2 * 7 * d * d + rtab.numel() + 5 * B * (E + Q)
                   + 2 * B * Q + B)
-    bound_ms, bound_by = _bound(layer_flops + rank_flops, nbytes)
-    # the layers' products in 3xTF32, the rank tile in plain f32
-    bound_tc_ms = max(nbytes / H100_BYTES_S, layer_flops / H100_TF32X3_FLOPS
-                      + rank_flops / H100_F32_FLOPS) * 1e3
+    layer_bytes = 4 * (5 * B * N * d + N * d + 2 * B * N + wrel.numel()
+                       + 2 * 7 * d * d + 5 * B * E)
+    rank_bytes = 4 * (B * N * d + rtab.numel() + 4 * B * Q
+                      + 2 * B * _N_SPLIT * Q + B * Q)
     with torch.no_grad():
         bitwise = _bitwise((ranks, bce), fused_eval_ranks(*args)[::2])
         if not bitwise:
@@ -1862,9 +1872,19 @@ def phase_k11(ctx) -> dict:
                "plain_ms": time_ms(lambda: fused_eval_ranks_plain(*args),
                                    dev, reps=5),
                "unfused_ms": time_ms(unfused, dev, reps=3),
-               "library_ms": None, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bound_tc_ms": bound_tc_ms,
+               "library_ms": None,
+               **_bounds(layer_flops + rank_flops, nbytes),
                "bitwise": bitwise}
+        # the two layer launches and the rank launch apart
+        parts = {"layers": _bounds(layer_flops, layer_bytes),
+                 "ranks": _bounds(rank_flops, rank_bytes)}
+        launchers = (fused_eval_ranks_launchers(*args)
+                     if dev.type == "cuda" else (None, None))
+        for (name, part), fn in zip(parts.items(), launchers):
+            part["ms"] = None if fn is None else time_ms(fn, dev, reps=10)
+            part["bound_share"] = (None if fn is None
+                                   else part["bound_ms"] / part["ms"])
+            out[name] = part
     out["bound_share"] = out["bound_ms"] / out["ms"]
     print(f"  K11: {out}", flush=True)
     return out
@@ -2449,11 +2469,11 @@ def kernels_line(res: dict) -> dict:
                 "ms", "bound_ms", "bound_by", "bound_tc_ms", "bound_share")}
         if name == "fused_eval_ranks":
             r["unfused_ms"] = m["unfused_ms"]
-        if name == "fused_final_fwd":
-            for part in ("layers", "scores"):
-                r[part] = {k: m[part][k] for k in (
-                    "ms", "bound_ms", "bound_by", "bound_tc_ms",
-                    "bound_share")}
+        parts = {"fused_final_fwd": ("layers", "scores"),
+                 "fused_eval_ranks": ("layers", "ranks")}
+        for part in parts.get(name, ()):
+            r[part] = {k: m[part][k] for k in (
+                "ms", "bound_ms", "bound_by", "bound_tc_ms", "bound_share")}
         if name in ("spmm_fwd", "spmm_bwd"):
             # the table route (ms) beside the route that sorts in the call
             r["in_call_ms"], r["bitwise"] = m["in_call_ms"], m["bitwise"]

@@ -132,9 +132,10 @@ SIGNATURES = {
     # bi_layer(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask, relu,
     #          wih_f, whh_f, bih_f, bhh_f, wih_b, whh_b, bih_b, bhh_b, dt_f,
     #          dt_b, lam, prev_f, prev_b, active, hl_f, hl_b, imp, sel_x, out,
-    #          B, N, d, stream)
+    #          gin_out, B, N, d, stream); gin_out (the GRU input, for holding
+    #          it to K9+K10's recompute) is null on the main path
     "bi_layer_launch": [_P] * 6 + [_I, _I, _P, _P, _I] + [_P] * 10 + [_F]
-                       + [_P] * 8 + [_I] * 3 + [_P],
+                       + [_P] * 9 + [_I] * 3 + [_P],
     # bi_bwd_gru(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask,
     #            relu, wih_f_t, whh_f_t, bih_f, bhh_f, wih_b_t, whh_b_t,
     #            bih_b, bhh_b, wih_f, whh_f, wih_b, whh_b, dt_f, dt_b, lam,

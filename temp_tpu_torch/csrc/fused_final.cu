@@ -65,21 +65,20 @@
 // accuracy (rgcn_gru_layer.cuh), bound by mma.sync's rate: K3's layer
 // launches (and K11's) are the window's forward tile in whole-width
 // 32-row tiles, so they form the conv output and the gates bit for bit as
-// K5's recompute does; K5's tiles are K2b's. K3's scores, and both score
-// recomputes of K4, are one routine, score_product: 64 queries by 64
-// table rows a block, the queries as A and the table rows, staged by
-// cp.async, as B, so every score K4 recomputes equals the one K3 summed.
-// K4's two cotangent products, dq = P T and d_table = P^T Q, read the
-// probability tile P from shared memory (cot_product). Only K11's rank
-// tile keeps plain FMA (score_tile, 64 x 64, a thread 4 x 4, waiting on
-// shared loads): its rank counts the target's own column out explicitly
-// and scores the target by the tile's own chain of fused multiply-adds, so
-// that neither the target nor a column equal to it counts against it. Every
-// sum across blocks goes through per-block partials and an ordered second
-// pass, and no kernel uses atomics, so runs repeat bit for bit. The true
-// answers come as a sorted list per edge or query slot, built once with
-// the data; a block turns them into a 64-bit mask per query and column
-// tile.
+// K5's recompute does; K5's tiles are K2b's. K3's scores, both score
+// recomputes of K4 and K11's ranks are one routine, score_product: 64
+// queries by 64 table rows a block, the queries as A and the table rows,
+// staged by cp.async, as B, so every score K4 recomputes equals the one K3
+// summed. K11 scores each query's target by the same routine (its rows
+// staged as one table tile, the diagonal read), so a column whose row
+// equals the target's scores exactly the target's score and does not count
+// against it; the target's own column is left out by index. K4's two
+// cotangent products, dq = P T and d_table = P^T Q, read the probability
+// tile P from shared memory (cot_product). Every sum across blocks goes
+// through per-block partials and an ordered second pass, and no kernel
+// uses atomics, so runs repeat bit for bit. The true answers come as a
+// sorted list per edge or query slot, built once with the data; a block
+// turns them into a 64-bit mask per query and column tile.
 
 #include <math.h>
 
@@ -90,7 +89,6 @@ namespace {
 constexpr int kQ = 64;              // queries per block
 constexpr int kC = 64;              // entity rows per column tile
 constexpr int kLossThreads = 256;   // 8 warps
-constexpr int kSub = 4;             // the rank tile: 16 x 16 threads, 4 x 4
 constexpr int kMaxNt = 8;           // n8 tiles in d / 2 columns, d <= 128
 constexpr unsigned kFull = 0xffffffffu;
 // Row strides of the probability tile ps of the cotangent products:
@@ -144,55 +142,30 @@ __device__ __forceinline__ LossSmem loss_smem(int ld, int n_ts) {
   return s;
 }
 
-// acc[ii][jj] = qs[ty + 16 ii] . ts[tx + 16 jj] (rows of d + 1 floats), as
-// one chain of fused multiply-adds over k = 0..d-1 from 0: K11's rank tile
-// (final_ranks_kernel repeats the chain for the target's score)
-__device__ __forceinline__ void score_tile(const float* qs, const float* ts,
-                                           int d, int ty, int tx,
-                                           float acc[kSub][kSub]) {
-  const int ds = d + 1;
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < d; ++k) {
-    float a[kSub], b[kSub];
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) a[i] = qs[(ty + 16 * i) * ds + k];
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) b[j] = ts[(tx + 16 * j) * ds + k];
-#pragma unroll
-    for (int i = 0; i < kSub; ++i)
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+// 64 rows of `rows` [*, d] into dst (row stride ld) by cp.async: row r of
+// the tile is row at(r) of `rows`, or zeros where at(r) < 0; commits the
+// group.
+template <typename At>
+__device__ __forceinline__ void stage_rows_at(float* dst, int ld,
+                                              const float* rows, int d,
+                                              At&& at) {
+  const int quads = d / 4;
+  for (int i = threadIdx.x; i < kC * quads; i += blockDim.x) {
+    const int r = i / quads, q = i - r * quads;
+    const long long src = at(r);
+    cp_async16(dst + r * ld + 4 * q, rows + (src >= 0 ? src : 0) * d + 4 * q,
+               src >= 0);
   }
+  cp_async_commit();
 }
 
-// kC rows of `rows` [n, d] from row c0 into ts (rows of d + 1 floats; zeros
-// past c_end): the rank tile's
-__device__ __forceinline__ void load_rows(float* ts, const float* rows,
-                                          int c0, int c_end, int d) {
-  const int ds = d + 1;
-  for (int i = threadIdx.x; i < kC * d; i += blockDim.x) {
-    const int r = i / d, k = i - r * d;
-    ts[r * ds + k] = c0 + r < c_end ? rows[(long long)(c0 + r) * d + k] : 0.f;
-  }
-}
-
-// 64 rows of `rows` [*, d] from row r0 into dst (row stride ld) by
-// cp.async, row r only where ok(r) (zeros elsewhere); commits the group.
+// 64 rows of `rows` from row r0 (row r only where ok(r)).
 template <typename Ok>
 __device__ __forceinline__ void stage_rows(float* dst, int ld,
                                            const float* rows, long long r0,
                                            int d, Ok&& ok) {
-  const int quads = d / 4;
-  for (int i = threadIdx.x; i < kC * quads; i += blockDim.x) {
-    const int r = i / quads, q = i - r * quads;
-    const bool in = ok(r);
-    cp_async16(dst + r * ld + 4 * q, rows + (in ? r0 + r : 0) * d + 4 * q,
-               in);
-  }
-  cp_async_commit();
+  stage_rows_at(dst, ld, rows, d,
+                [&](int r) { return ok(r) ? r0 + r : -1LL; });
 }
 
 // -- The tensor-core tiles: the score product and the cotangent products --
@@ -203,10 +176,10 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld,
 // (each operand split into its truncated tf32 part and the rest; each k8
 // step's lo*hi + hi*lo + hi*hi from zero, added to the f32 accumulator).
 // Warp w holds rows 16 (w / 2).. and columns 32 (w % 2).. of the tile:
-// acc[nt][i] at (score_row(i), score_col(nt, i)). K3's scores (and K8's)
-// and both of K4's recomputes call it, with the queries as A and the table
-// rows as B, so every score K4 recomputes equals bit for bit the one K3
-// summed into the log-sum-exp.
+// acc[nt][i] at (score_row(i), score_col(nt, i)). K3's scores (and K8's),
+// both of K4's recomputes and K11's ranks call it, with the queries as A
+// and the table rows as B, so every score K4 recomputes equals bit for bit
+// the one K3 summed into the log-sum-exp.
 __device__ __forceinline__ int score_row(int i) {
   return ((threadIdx.x / kWarp) >> 1) * 16 + acc_row(0, i);
 }
@@ -305,6 +278,23 @@ __device__ __forceinline__ void next_masks(LossSmem& s, const int* ans,
   }
 }
 
+// Column c < d / 2 of a ComplEx query (re at c, im at c + d / 2) from the
+// subject row sr, the object row orow and the relation row r: the tail
+// query s * r (dir 0) or the head query conj(r) * o. K3's scores and K11's
+// ranks build their query tiles with it.
+__device__ __forceinline__ void complex_query(int dir, const float* sr,
+                                              const float* orow,
+                                              const float* r, int c, int d2,
+                                              float& re, float& im) {
+  if (dir == 0) {
+    re = sr[c] * r[c] - sr[c + d2] * r[c + d2];
+    im = sr[c] * r[c + d2] + sr[c + d2] * r[c];
+  } else {
+    re = r[c] * orow[c] + r[c + d2] * orow[c + d2];
+    im = r[c] * orow[c + d2] - r[c + d2] * orow[c];
+  }
+}
+
 // (m, s) += (m2, s2): two running maxima and sums of exp(x - m) as one (an
 // empty one has m = -inf and s = 0).
 __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
@@ -314,12 +304,6 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
   s = (m == -INFINITY ? 0.f : s * expf(m - mn))
       + (m2 == -INFINITY ? 0.f : s2 * expf(m2 - mn));
   m = mn;
-}
-
-__device__ __forceinline__ int isum16(int v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
 }
 
 // -- K3 ----------------------------------------------------------------------
@@ -397,13 +381,7 @@ __global__ void __launch_bounds__(kLossThreads, 2) final_scores_kernel(
       const float* pos = dir == 0 ? orow : sr;
       for (int c = lane; c < d2; c += kWarp) {
         float re, im;
-        if (dir == 0) {
-          re = sr[c] * r[c] - sr[c + d2] * r[c + d2];
-          im = sr[c] * r[c + d2] + sr[c + d2] * r[c];
-        } else {
-          re = r[c] * orow[c] + r[c + d2] * orow[c + d2];
-          im = r[c] * orow[c + d2] - r[c + d2] * orow[c];
-        }
+        complex_query(dir, sr, orow, r, c, d2, re, im);
         s.qs[i * ld + c] = re;
         s.qs[i * ld + c + d2] = im;
         part += re * pos[c] + im * pos[c + d2];
@@ -875,13 +853,16 @@ constexpr float kNegRank = -1.0e7f;
 
 // Block (query tile, column range) x direction x element of the fused
 // eval. For each of its 64 query slots with qmask > 0: the query row (as
-// final_scores_kernel builds it) and the target's score by the same chain
-// of fused multiply-adds as score_tile, so that a column whose row equals
-// the target's scores exactly the same and does not count; then over the
-// range's column tiles the count of the columns other than the target whose
-// score, -1e7 at a true answer, is strictly greater. Range 0's tail blocks
-// also write each target's tail score, which the BCE reads.
-__global__ void final_ranks_kernel(
+// final_scores_kernel builds it), then the target's score from a tile of
+// the 64 targets' rows (score_product, its diagonal), so that a column whose
+// row equals the target's scores exactly the same and does not count; then
+// over the range's column tiles (kScoreBufs in flight, score_product) the
+// count of the columns other than the target whose score, -1e7 at a true
+// answer, is strictly greater: each thread over its own positions, then
+// summed across the four threads of a row and the two warps of its rows.
+// Range 0's tail blocks also write each target's tail score, which the BCE
+// reads.
+__global__ void __launch_bounds__(kLossThreads, 2) final_ranks_kernel(
     const float* __restrict__ table, const float* __restrict__ rtab,
     const int* __restrict__ qsrc, const int* __restrict__ qdst,
     const int* __restrict__ qrel, const float* __restrict__ qmask,
@@ -889,8 +870,8 @@ __global__ void final_ranks_kernel(
     const int* __restrict__ h_ptr, const int* __restrict__ h_ans,
     int* __restrict__ part_cnt, float* __restrict__ tgt_tail, int N, int Q,
     int d, int n_split, int chunk) {
-  const int ds = d + 1, d2 = d / 2;
-  LossSmem s = loss_smem(ds, 1);
+  const int ld = tc_ld(d), d2 = d / 2;
+  LossSmem s = loss_smem(ld, kScoreBufs);
   const int n_qt = (Q + kQ - 1) / kQ;
   const int split = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * kQ;
@@ -900,6 +881,22 @@ __global__ void final_ranks_kernel(
   const float* tb = table + (long long)b * N * d;
   const float* qm = qmask + (long long)b * Q;
   const int* ans = dir == 0 ? t_ans : h_ans;
+  // the query slot's target row, or -1 for a slot that is not real
+  auto target_of = [&](int r) -> long long {
+    const int q = q0 + r;
+    if (q >= Q || !(qm[q] > 0.f)) return -1;
+    const long long bq = (long long)b * Q + q;
+    return dir == 0 ? qdst[bq] : qsrc[bq];
+  };
+  auto stage = [&](int c0, int buf) {
+    stage_rows(s.ts + buf * kC * ld, ld, tb, c0, d,
+               [&](int r) { return c0 + r < c_end; });
+  };
+  // the targets' rows into the last buffer, the first column tile into
+  // buffer 0
+  stage_rows_at(s.ts + (kScoreBufs - 1) * kC * ld, ld, tb, d, target_of);
+#pragma unroll
+  for (int i = 0; i < kScoreBufs - 1; ++i) stage(c_begin + i * kC, i);
 
   for (int i = warp; i < kQ; i += kLossThreads / kWarp) {
     const int q = q0 + i;
@@ -910,75 +907,94 @@ __global__ void final_ranks_kernel(
       const float* r = rtab + (long long)qrel[bq] * d;
       for (int c = lane; c < d2; c += kWarp) {
         float re, im;
-        if (dir == 0) {
-          re = sr[c] * r[c] - sr[c + d2] * r[c + d2];
-          im = sr[c] * r[c + d2] + sr[c + d2] * r[c];
-        } else {
-          re = r[c] * orow[c] + r[c + d2] * orow[c + d2];
-          im = r[c] * orow[c + d2] - r[c + d2] * orow[c];
-        }
-        s.qs[i * ds + c] = re;
-        s.qs[i * ds + c + d2] = im;
+        complex_query(dir, sr, orow, r, c, d2, re, im);
+        s.qs[i * ld + c] = re;
+        s.qs[i * ld + c + d2] = im;
       }
     } else {
-      for (int c = lane; c < d; c += kWarp) s.qs[i * ds + c] = 0.f;
+      for (int c = lane; c < d; c += kWarp) s.qs[i * ld + c] = 0.f;
     }
-  }
-  __syncthreads();
-  if (tid < kQ) {
-    const int q = q0 + tid;
-    float acc = 0.f;
-    if (q < Q && qm[q] > 0.f) {
-      const long long bq = (long long)b * Q + q;
-      const float* trow = tb + (long long)(dir == 0 ? qdst[bq] : qsrc[bq]) * d;
-      for (int k = 0; k < d; ++k) acc = fmaf(s.qs[tid * ds + k], trow[k], acc);
-      if (dir == 0 && split == 0) tgt_tail[bq] = acc;
-    }
-    s.w[tid] = acc;
   }
   init_cursors(s, (dir == 0 ? t_ptr : h_ptr) + (long long)b * (Q + 1), ans,
                qm, q0, Q, c_begin);
+  cp_async_wait<0>();
+  __syncthreads();
+  {
+    // each target's score: the diagonal of the queries against their
+    // targets' rows, read by the one thread that holds it
+    float acc[4][4];
+    score_product(s.qs, s.ts + (kScoreBufs - 1) * kC * ld, ld, d, acc);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = score_row(i);
+        if (score_col(nt, i) != r) continue;
+        s.w[r] = acc[nt][i];
+        const int q = q0 + r;
+        if (dir == 0 && split == 0 && q < Q && qm[q] > 0.f)
+          tgt_tail[(long long)b * Q + q] = acc[nt][i];
+      }
+  }
   __syncthreads();
 
-  const int ty = tid / 16, tx = tid % 16;
-  bool on[kSub];
-  int target[kSub], cnt[kSub];
-  float tgt[kSub];
+  // the thread's two rows (h = 0, 1: score_row(2 h)) over its columns
+  bool on[2];
+  int target[2], cnt[2] = {0, 0};
+  float tgt[2];
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int q = q0 + ty + 16 * i;
-    on[i] = q < Q && qm[q] > 0.f;
-    const long long bq = (long long)b * Q + q;
-    target[i] = on[i] ? (dir == 0 ? qdst[bq] : qsrc[bq]) : -1;
-    tgt[i] = s.w[ty + 16 * i];
-    cnt[i] = 0;
+  for (int h = 0; h < 2; ++h) {
+    const long long t = target_of(score_row(2 * h));
+    on[h] = t >= 0;
+    target[h] = static_cast<int>(t);
+    tgt[h] = s.w[score_row(2 * h)];
   }
-  for (int c0 = c_begin; c0 < c_end; c0 += kC) {
+  for (int c0 = c_begin, it = 0; c0 < c_end; c0 += kC, ++it) {
     __syncthreads();
-    load_rows(s.ts, tb, c0, c_end, d);
+    stage(c0 + (kScoreBufs - 1) * kC, (it + kScoreBufs - 1) % kScoreBufs);
     next_masks(s, ans, c0);
+    cp_async_wait<kScoreBufs - 1>();
     __syncthreads();
-    float acc[kSub][kSub];
-    score_tile(s.qs, s.ts, d, ty, tx, acc);
+    float acc[4][4];
+    score_product(s.qs, s.ts + (it % kScoreBufs) * kC * ld, ld, d, acc);
 #pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      if (!on[i]) continue;
-      const unsigned long long bits = s.mb[ty + 16 * i];
+    for (int h = 0; h < 2; ++h) {
+      if (!on[h]) continue;
+      const unsigned long long bits = s.mb[score_row(2 * h)];
 #pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const int c = tx + 16 * j;
-        if (c0 + c >= c_end || c0 + c == target[i]) continue;
-        const float v = ((bits >> c) & 1ull) ? kNegRank : acc[i][j];
-        cnt[i] += v > tgt[i] ? 1 : 0;
-      }
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = score_col(nt, 2 * h + j);
+          if (c0 + c >= c_end || c0 + c == target[h]) continue;
+          const float v = ((bits >> c) & 1ull) ? kNegRank
+                                               : acc[nt][2 * h + j];
+          cnt[h] += v > tgt[h] ? 1 : 0;
+        }
     }
   }
+  cp_async_wait<0>();
+  // the four threads of a row, then the two warps of its rows
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int tot = isum16(cnt[i]);
-    const int q = q0 + ty + 16 * i;
-    if (tx == 0 && q < Q)
-      part_cnt[(((long long)b * 2 + dir) * n_split + split) * Q + q] = tot;
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      cnt[h] += __shfl_xor_sync(kFull, cnt[h], off);
+  __syncthreads();
+  const bool lead = (lane & 3) == 0;
+  if ((warp & 1) && lead) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) s.cur[score_row(2 * h)] = cnt[h];
+  }
+  __syncthreads();
+  if (!(warp & 1) && lead) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = score_row(2 * h), q = q0 + r;
+      if (q < Q)
+        part_cnt[(((long long)b * 2 + dir) * n_split + split) * Q + q] =
+            cnt[h] + s.cur[r];
+    }
   }
 }
 
@@ -1275,7 +1291,8 @@ extern "C" int final_ranks_launch(
     const void* t_ans, const void* h_ptr, const void* h_ans, void* part_cnt,
     void* tgt_tail, int B, int N, int Q, int d, int n_split, void* stream) {
   if (B > 0 && Q > 0) {
-    const size_t smem = loss_smem_floats(d + 1, 1, 0) * sizeof(float);
+    const size_t smem =
+        loss_smem_floats(tc_ld(d), kScoreBufs, 0) * sizeof(float);
     cudaError_t err = allow_smem(final_ranks_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(((Q + kQ - 1) / kQ) * n_split, 2, B);

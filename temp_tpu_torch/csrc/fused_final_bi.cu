@@ -29,7 +29,7 @@
 // ranges (bi_wgrad, the window's weight tiles with six jobs), their ordered
 // sum, and the relation sum. Layer 1 runs without the ReLU and the blend.
 //
-// What bounds them on an H100: f32 arithmetic. Per layer and element the
+// What bounds them on an H100: arithmetic. Per layer and element the
 // forward does the self-loop product (2 N d^2 flops) and four [N, d] x
 // [d, 3d] gate products (24 N d^2); the backward recomputes them and adds
 // the input and weight cotangent products of both GRUs and the self-loop
@@ -37,15 +37,17 @@
 // below that at 67 TFLOP/s.
 //
 // What the design does about that: one launch covers the batch (b in the
-// grid). bi_layer_kernel keeps plain FMA (each thread one
-// column and eight rows, every weight element read once per block),
-// waiting on the load pipe more than on the FMA units. K9+K10's launches
-// compute on the tensor cores in 3xTF32 at f32 accuracy
-// (rgcn_gru_layer.cuh): bi_bwd_gru_kernel on 32-row tiles of d / 16 warps,
-// its ten products through tile_product, as K5's GRU tile; the input
-// launch is K5's, the weight launch wgrad_tile's. No atomics: every sum
-// over rows goes through per-range partials and an ordered reduction, so
-// runs repeat bit for bit.
+// grid), and every product runs on the tensor cores in 3xTF32 at f32
+// accuracy (rgcn_gru_layer.cuh). bi_layer_kernel and bi_bwd_gru_kernel
+// work on the same 32-row tiles of d / 16 warps and the same shared-memory
+// regions (bi_tile_smem_floats: two blocks an SM at d = 128), and form the
+// conv output (conv_rows_tc), the GRU input (gin_at) and both directions'
+// gates (gate_products) with the same routines, so the backward's
+// recompute equals the forward bit for bit; bi_bwd_gru_kernel's ten
+// products go through tile_product, as K5's GRU tile; the input launch is
+// K5's, the weight launch wgrad_tile's. No atomics: every sum over rows
+// goes through per-range partials and an ordered reduction, so runs repeat
+// bit for bit.
 
 #include <math.h>
 
@@ -69,76 +71,109 @@ __device__ __forceinline__ float impute_weight(float w, float bias, float dt) {
   return expf(-fmaxf(w * dt + bias, 0.f)) * 0.5f;
 }
 
-// gin = the blend on the inactive rows of a tile whose conv output is cs
-// (in place). Ends with a barrier.
-__device__ __forceinline__ void blend_tile(const Layer& pf, const Layer& pb,
-                                           const BiRows& q, int b, int a0,
-                                           float* cs) {
-  const int d = pf.d, N = pf.A;
-  const float wf_w = q.imp[0], wf_b = q.imp[1];
-  const float wb_w = q.imp[2], wb_b = q.imp[3];
-  for (int i = threadIdx.x; i < kTileRows * d; i += blockDim.x) {
-    const int r = i / d, c = i - r * d;
-    const int a = a0 + r;
-    if (a >= N) continue;
-    const long long row = (long long)b * N + a;
-    if (q.active[row] > 0.f) continue;
-    const float wf = impute_weight(wf_w, wf_b, pf.dt[row]);
-    const float wb = impute_weight(wb_w, wb_b, pb.dt[row]);
-    cs[i] = wf * q.hl_f[row * d + c] + wb * q.hl_b[row * d + c]
-            + (1.f - wf - wb) * cs[i];
-  }
-  __syncthreads();
+// The GRU input of row `row` at element e of the [B, N, d] rows, from its
+// conv output cv: cv on an active row or without the blend, else
+// w_f * hl_f + w_b * hl_b + (1 - w_f - w_b) * cv. The forward and the
+// backward's recompute both form it here.
+__device__ __forceinline__ float gin_at(const Layer& pf, const Layer& pb,
+                                        const BiRows& q, long long row,
+                                        long long e, float cv) {
+  if (q.hl_f == nullptr || q.active[row] > 0.f) return cv;
+  const float wf = impute_weight(q.imp[0], q.imp[1], pf.dt[row]);
+  const float wb = impute_weight(q.imp[2], q.imp[3], pb.dt[row]);
+  return wf * q.hl_f[e] + wb * q.hl_b[e] + (1.f - wf - wb) * cv;
 }
 
-__global__ void bi_layer_kernel(Layer pf, Layer pb, BiRows q,
-                                float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int d = pf.d;
-  float* xs = smem;
-  float* cs = xs + kTileRows * d;
-  float* hf = cs + kTileRows * d;
-  float* hb = hf + kTileRows * d;
-  const int b = blockIdx.y;
-  const int a0 = blockIdx.x * kTileRows;
-  load_tile(pf, b, a0, xs, cs, hf);
-  load_prev(pb, b, a0, hb);
-  conv_tile(pf, b, a0, xs, cs, nullptr);
-  if (q.hl_f != nullptr) blend_tile(pf, pb, q, b, a0, cs);
-
-  const int col = threadIdx.x % d;
-  const int r0 = (threadIdx.x / d) * kRowsPerThread;
-  float o[kRowsPerThread];
-  Gates gt;
-  gru_gates<kRolled>(cs, hf, pf.wih_t, pf.whh_t, pf.bih, pf.bhh, d, gt);
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-    o[i] = (1.f - gt.z[i]) * gt.n[i] + gt.z[i] * hf[(r0 + i) * d + col];
-  gru_gates<kRolled>(cs, hb, pb.wih_t, pb.whh_t, pb.bih, pb.bhh, d, gt);
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int a = a0 + r0 + i;
-    if (a >= pf.A) continue;
-    const long long row = (long long)b * pf.A + a;
-    float v = o[i] + ((1.f - gt.z[i]) * gt.n[i]
-                      + gt.z[i] * hb[(r0 + i) * d + col]);
-    if (q.sel_x != nullptr && !(q.active[row] > 0.f))
-      v = q.sel_x[row * d + col];
-    out[row * d + col] = v;
-  }
-}
-
-// Shared memory of bi_bwd_gru_kernel in floats: the ring of three gate
-// windows, then four [kBwdRows, d + 4] regions: xs (the input rows), hf,
-// hb (loaded when the backward direction starts) and cs (the GRU input).
-// Once a direction's states are dead, its gate cotangents go over the
-// first three regions, three gate sections at a time ([kBwdRows, 3d + 4]:
-// d_r, d_z, d_n, then d_ghn), and at the end the impute sums' scratch.
-// 105,216 bytes at d = 128: two blocks an SM, where one [kBwdRows, 4d + 4]
-// region for all four sections and a copy of the conv output (188,160
-// bytes) would leave room for one.
-__host__ __device__ constexpr int bi_bwd_smem_floats(int d) {
+// Shared memory of the bidirectional tiles in floats: the ring of three
+// gate windows, then four [kBwdRows, d + 4] regions: xs (the input rows),
+// hf, hb (the two directions' decayed states) and cs (the GRU input).
+// bi_layer_kernel parks the forward direction's output in xs, dead after
+// the conv. In bi_bwd_gru_kernel, once a direction's states are dead, its
+// gate cotangents go over the first three regions, three gate sections at
+// a time ([kBwdRows, 3d + 4]: d_r, d_z, d_n, then d_ghn), and at the end the
+// impute sums' scratch. 105,216 bytes at d = 128: two blocks an SM, where
+// one [kBwdRows, 4d + 4] region for all four sections and a copy of the
+// conv output (188,160 bytes) would leave room for one.
+__host__ __device__ constexpr int bi_tile_smem_floats(int d) {
   return ring_floats(3, d) + 4 * kBwdRows * (d + 4);
+}
+
+// One bidirectional layer forward for a tile of kBwdRows rows (blockIdx.x)
+// of element blockIdx.y, with d / 16 warps: the input rows and the forward
+// direction's decayed states (load_tile), the backward direction's states
+// copied while the conv runs (copy_prev, decay_prev), the conv output on the
+// tensor cores (conv_rows_tc), the GRU input at the threads' own positions
+// (gin_at; the next product's opening barrier publishes it), then each
+// direction's gates (gate_products) and GRU output. The forward
+// direction's output waits in xs at the thread's own positions, so no
+// accumulator lives across the backward direction's products. Writes the
+// sum of the two GRUs, or on an inactive row sel_x's when it is not null;
+// with gin_out also the GRU input, for holding it to K9+K10's recompute.
+__global__ void __launch_bounds__(256, 2) bi_layer_kernel(
+    Layer pf, Layer pb, BiRows q, float* __restrict__ out,
+    float* __restrict__ gin_out) {   // [B*N, d] the GRU input, or null
+  extern __shared__ float smem[];
+  const int d = pf.d, N = pf.A, ld = d + 4;
+  float* ring = smem;
+  float* xs = smem + ring_floats(3, d);
+  float* hf = xs + kBwdRows * ld;
+  float* hb = hf + kBwdRows * ld;
+  float* cs = hb + kBwdRows * ld;
+  const int b = blockIdx.y;
+  const int a0 = blockIdx.x * kBwdRows;
+  const int c0 = warp_col0();
+  load_tile(pf, b, a0, kBwdRows, ld, xs, nullptr, hf);
+  copy_prev(pb, b, a0, kBwdRows, ld, hb);
+  conv_rows_tc(pf, b, a0, xs, cs, ld, ring, nullptr);
+  decay_prev(pb, b, a0, kBwdRows, ld, hb);
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = acc_row(mt, i), c = c0 + acc_col(nt, i), a = a0 + r;
+        if (a >= N) continue;
+        const long long row = (long long)b * N + a;
+        const long long e = row * d + c;
+        const float gv = gin_at(pf, pb, q, row, e, cs[r * ld + c]);
+        cs[r * ld + c] = gv;
+        if (gin_out != nullptr) gin_out[e] = gv;
+      }
+
+  float acc[4][kMTiles][2][4];
+  gate_products(cs, hf, ld, pf.wih_t, pf.whh_t, d, 0, ring, acc);
+  {
+    const GateBias gb = gate_bias(pf.bih, pf.bhh, d, c0);
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = acc_row(mt, i), c = c0 + acc_col(nt, i);
+          const GateAt g = gate_at(acc, mt, nt, i, gb);
+          xs[r * ld + c] = (1.f - g.z) * g.n + g.z * hf[r * ld + c];
+        }
+  }
+  gate_products(cs, hb, ld, pb.wih_t, pb.whh_t, d, 0, ring, acc);
+  const GateBias gb = gate_bias(pb.bih, pb.bhh, d, c0);
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = acc_row(mt, i), c = c0 + acc_col(nt, i), a = a0 + r;
+        if (a >= N) continue;
+        const long long row = (long long)b * N + a;
+        const GateAt g = gate_at(acc, mt, nt, i, gb);
+        float v = xs[r * ld + c]
+                  + ((1.f - g.z) * g.n + g.z * hb[r * ld + c]);
+        if (q.sel_x != nullptr && !(q.active[row] > 0.f))
+          v = q.sel_x[row * d + c];
+        out[row * d + c] = v;
+      }
 }
 
 // One direction's GRU backward for the tile: its gates from the GRU input
@@ -304,16 +339,9 @@ __global__ void __launch_bounds__(256, 2) bi_bwd_gru_kernel(
         const long long e = row * d + c;
         if (relu_out != nullptr)
           relu_out[e] = !pf.relu || cv > 0.f ? 1.f : 0.f;
-        float gv = cv;
-        if (impute) {
-          dconv_s[e] = cv;
-          if (!(q.active[row] > 0.f)) {
-            const float wf = impute_weight(q.imp[0], q.imp[1], pf.dt[row]);
-            const float wb = impute_weight(q.imp[2], q.imp[3], pb.dt[row]);
-            gv = wf * q.hl_f[e] + wb * q.hl_b[e] + (1.f - wf - wb) * cv;
-            cs[r * ld + c] = gv;
-          }
-        }
+        if (impute) dconv_s[e] = cv;
+        const float gv = gin_at(pf, pb, q, row, e, cv);
+        cs[r * ld + c] = gv;
         gin_s[e] = gv;
       }
 
@@ -323,7 +351,8 @@ __global__ void __launch_bounds__(256, 2) bi_bwd_gru_kernel(
                    h0f_s, dgi_f, dgh_f, dprev_f, dlp_s, false);
   // the backward direction's states, into the region the products have
   // left (the last one ended with a barrier)
-  load_prev(pb, b, a0, kBwdRows, ld, hb);
+  copy_prev(pb, b, a0, kBwdRows, ld, hb);
+  decay_prev(pb, b, a0, kBwdRows, ld, hb);
   bi_direction_bwd(pb, wih_b, whh_b, cs, hb, dg, ldg, ring, b, a0, dout,
                    h0b_s, dgi_b, dgh_b, dprev_b, dlp_s, true);
 
@@ -428,7 +457,7 @@ extern "C" int bi_layer_launch(
     const void* bhh_b, const void* dt_f, const void* dt_b, float lam,
     const void* prev_f, const void* prev_b, const void* active,
     const void* hl_f, const void* hl_b, const void* imp, const void* sel_x,
-    void* out, int B, int N, int d, void* stream) {
+    void* out, void* gin_out, int B, int N, int d, void* stream) {
   if (B > 0 && N > 0) {
     const Layer pf = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
                                 wcol, loopw, mask, relu, wih_f, whh_f, bih_f,
@@ -438,12 +467,12 @@ extern "C" int bi_layer_launch(
                                 wcol, loopw, mask, relu, wih_b, whh_b, bih_b,
                                 bhh_b, nullptr, nullptr, dt_b, lam, prev_b, 1,
                                 N, d, 0);
-    const size_t smem = 4 * kTileRows * d * sizeof(float);
-    const dim3 grid((N + kTileRows - 1) / kTileRows, B);
-    bi_layer_kernel<<<grid, kRowGroups * d, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-        pf, pb, make_rows(active, hl_f, hl_b, imp, sel_x),
-        static_cast<float*>(out));
+    // 32-row tiles of d / 16 warps over the B * N rows (1,784 blocks at the
+    // main shape, two an SM), as K9+K10's GRU tile
+    return static_cast<int>(launch_bwd_tile(
+        bi_layer_kernel, bi_tile_smem_floats(d), B, N, d, stream, pf, pb,
+        make_rows(active, hl_f, hl_b, imp, sel_x), static_cast<float*>(out),
+        static_cast<float*>(gin_out)));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -474,7 +503,7 @@ extern "C" int bi_bwd_gru_launch(
     // 32-row tiles of d / 16 warps over the B * N rows (1,784 blocks at the
     // main shape, two an SM), as K5's GRU tile
     return static_cast<int>(launch_bwd_tile(
-        bi_bwd_gru_kernel, bi_bwd_smem_floats(d), B, N, d, stream, pf, pb,
+        bi_bwd_gru_kernel, bi_tile_smem_floats(d), B, N, d, stream, pf, pb,
         make_rows(active, hl_f, hl_b, imp, nullptr),
         static_cast<const float*>(wih_f), static_cast<const float*>(whh_f),
         static_cast<const float*>(wih_b), static_cast<const float*>(whh_b),

@@ -11,27 +11,24 @@
 // same row of a dense history (gidx null) and always live (live null).
 //
 // The SpMMs and their transposes give one warp per row over a CSR of that
-// step's edges, summing in registers without atomics. The products:
-// - The tensor-core tiles compute every product with tile_product (or
-//   wgrad_tile's own loop of the same parts) on mma.sync m16n8k8 in 3xTF32
-//   at f32 accuracy: 32-row tiles whose warps own 16 columns of every weight
-//   window and all the rows, the weights streamed through shared memory by
-//   cp.async, the outputs kept in mma accumulators. fwd_layer_tile is the
-//   forward layer of the window (K2f, and K12 on its launches) and of the
-//   final step (K3's two layer launches, which K11 makes too): a block
-//   works on a column slab of every gate, so that a window step's few
-//   thousand rows still fill the card, or on all d columns. The backward
-//   tiles work on all d columns (bwd_gru_tile, bwd_input_tile, wgrad_tile:
-//   K2b and K5; K9+K10's own GRU tile bi_bwd_gru_kernel, its input and its
-//   weight launches). conv_rows_tc and gate_products are the forward
-//   products that every forward tile and the backward tiles' recompute
-//   share, so all give the same conv output and gates bit for bit. What
-//   bounds them is the tensor cores' mma.sync rate at three products for
-//   each f32 one, with the 3xTF32 splits and the staging beside it.
-// - The flagship's forward tile (conv_tile and gru_gates: K6+K7) keeps
-//   plain FMA from shared-memory broadcasts: each thread owns one column
-//   and eight rows of a kTileRows tile. What bounds it is the load pipe (a
-//   shared load per one or three FMAs), not the FMA units.
+// step's edges, summing in registers without atomics. Every product runs
+// on the tensor cores: tile_product (or wgrad_tile's own loop of the same
+// parts) on mma.sync m16n8k8 in 3xTF32 at f32 accuracy, in 32-row tiles
+// whose warps own 16 columns of every weight window and all the rows, the
+// weights streamed through shared memory by cp.async, the outputs kept in
+// mma accumulators. fwd_layer_tile is the forward layer of the window
+// (K2f, and K12 on its launches) and of the final step (K3's two layer
+// launches, which K11 makes too): a block works on a column slab of every
+// gate, so that a window step's few thousand rows still fill the card, or
+// on all d columns. The flagship's forward layer (bi_layer_kernel, K6+K7)
+// and the backward tiles work on all d columns (bwd_gru_tile,
+// bwd_input_tile, wgrad_tile: K2b and K5; K9+K10's own GRU tile
+// bi_bwd_gru_kernel, its input and its weight launches). conv_rows_tc and
+// gate_products are the forward products that every forward tile and the
+// backward tiles' recompute share, so all give the same conv output and
+// gates bit for bit. What bounds them is the tensor cores' mma.sync rate at
+// three products for each f32 one, with the 3xTF32 splits and the staging
+// beside it.
 
 #pragma once
 
@@ -40,15 +37,7 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kTileRows = 16;
-constexpr int kRowGroups = 2;                         // threads = 2 * d
-constexpr int kRowsPerThread = kTileRows / kRowGroups;
 constexpr int kMaxChunks = 8;                         // d <= 256
-// The flagship's FMA tile (bi_layer_kernel, two GRUs a tile) runs its GRU
-// gate-product loop rolled: unrolled it took 4.7 ms where it took 3.0 on an
-// H100 (96 -> 130 registers, and above 128 a 256-thread block leaves no
-// room for a second one on an SM; PERF.md).
-constexpr int kRolled = 1;
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -110,12 +99,6 @@ __device__ __forceinline__ float live_of(const Layer& p, long long row) {
   return p.live != nullptr ? p.live[row] : 1.f;
 }
 
-// The gates of the rows r0..r0+7 a thread owns, at its column.
-struct Gates {
-  float r[kRowsPerThread], z[kRowsPerThread], n[kRowsPerThread];
-  float ghn[kRowsPerThread];  // W_hn h + b_hn, before the reset gate
-};
-
 // A window row's (or a final-step row's) previous state: where it starts
 // in prev, and the live and decay factors it is scaled by.
 struct PrevRow {
@@ -172,15 +155,14 @@ __device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
   }
 }
 
-__device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
-                                          float* xs, float* cs, float* hs) {
-  load_tile(p, b, a0, kTileRows, p.d, xs, cs, hs);
-}
-
-// The decayed previous states of rows a0..a0+nrows-1 only (row stride ld;
-// the second direction of a bidirectional layer, whose input rows are
-// already loaded), as load_tile loads them. No barrier at the end.
-__device__ __forceinline__ void load_prev(const Layer& p, int b, int a0,
+// The previous states of rows a0..a0+nrows-1 only (row stride ld; the
+// second direction of a bidirectional layer, whose input rows are already
+// loaded), as load_tile loads them, in two halves: copy_prev starts the
+// copies by cp.async and commits them; decay_prev waits for every copy of
+// the thread, then scales the rows by live * exp(-lambda * dt). Between
+// the two the block may compute on other regions, so the copies run under
+// that work. No barrier at the end of either.
+__device__ __forceinline__ void copy_prev(const Layer& p, int b, int a0,
                                           int nrows, int ld, float* hs) {
   constexpr unsigned kAll = 0xffffffffu;
   const int d = p.d, A = p.A, quads = d / 4;
@@ -188,36 +170,43 @@ __device__ __forceinline__ void load_prev(const Layer& p, int b, int a0,
   const long long step_row = elem_row + (long long)p.k * A;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int nwarps = blockDim.x / kWarp;
-  PrevRow mine = {0, 0.f, 0.f};
+  long long off = 0;
   {
     const int r = warp + lane * nwarps, a = a0 + r;
-    if (r < nrows && a < A) {
-      const long long row = step_row + a;
-      mine.off = prev_row(p, elem_row, row) * d;
-      mine.live = live_of(p, row);
-      mine.dec = expf(-p.lam * p.dt[row]);
-    }
+    if (r < nrows && a < A) off = prev_row(p, elem_row, step_row + a) * d;
   }
   for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
     const bool in = a0 + r < A;
-    const float* pr = p.prev + __shfl_sync(kAll, mine.off, i);
+    const float* pr = p.prev + __shfl_sync(kAll, off, i);
     for (int q = lane; q < quads; q += kWarp)
       cp_async16(hs + r * ld + 4 * q, pr + 4 * q, in);
   }
   cp_async_commit();
+}
+
+__device__ __forceinline__ void decay_prev(const Layer& p, int b, int a0,
+                                           int nrows, int ld, float* hs) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int d = p.d, A = p.A;
+  const long long step_row = ((long long)b * p.L1 + p.k) * A;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int nwarps = blockDim.x / kWarp;
+  float live = 0.f, dec = 0.f;
+  {
+    const int r = warp + lane * nwarps, a = a0 + r;
+    if (r < nrows && a < A) {
+      live = live_of(p, step_row + a);
+      dec = expf(-p.lam * p.dt[step_row + a]);
+    }
+  }
   cp_async_wait<0>();
   __syncwarp();
   for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
-    const float lv = __shfl_sync(kAll, mine.live, i);
-    const float dec = __shfl_sync(kAll, mine.dec, i);
+    const float lv = __shfl_sync(kAll, live, i);
+    const float dc = __shfl_sync(kAll, dec, i);
     for (int c = lane; c < d; c += kWarp)
-      hs[r * ld + c] = hs[r * ld + c] * lv * dec;
+      hs[r * ld + c] = hs[r * ld + c] * lv * dc;
   }
-}
-
-__device__ __forceinline__ void load_prev(const Layer& p, int b, int a0,
-                                          float* hs) {
-  load_prev(p, b, a0, kTileRows, p.d, hs);
 }
 
 // The relational SpMM with double degree normalization of rows
@@ -262,93 +251,6 @@ __device__ __forceinline__ void spmm_rows(const Layer& p, int b, int a0,
   }
 }
 
-// The conv output of a loaded tile of kTileRows rows into cs: spmm_rows
-// plus the self-loop product times its dropout mask, then the ReLU when
-// p.relu. Writes norm^2 of each row to n2_out when it is not null. Starts
-// and ends with a barrier. (The FMA tile's product: plain FMA, each
-// thread one column and eight rows.)
-__device__ __forceinline__ void conv_tile(const Layer& p, int b, int a0,
-                                          const float* xs, float* cs,
-                                          float* n2_out) {
-  const int d = p.d, A = p.A;
-  const long long step_row = ((long long)b * p.L1 + p.k) * A;
-  const int tid = threadIdx.x;
-  __syncthreads();
-  if (p.conv_given) return;
-  spmm_rows(p, b, a0, kTileRows, cs, d, n2_out);
-  __syncthreads();
-
-  const int col = tid % d;
-  const int r0 = (tid / d) * kRowsPerThread;
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.f;
-  for (int kk = 0; kk < d; ++kk) {
-    const float w = p.loopw[kk * d + col];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-      acc[i] += xs[(r0 + i) * d + kk] * w;
-  }
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int a = a0 + r0 + i;
-    if (p.mask != nullptr && a < A)
-      acc[i] *= p.mask[(step_row + a) * d + col];
-    const float v = cs[(r0 + i) * d + col] + acc[i];
-    cs[(r0 + i) * d + col] = p.relu ? fmaxf(v, 0.f) : v;
-  }
-  __syncthreads();
-}
-
-// The GRU gates at column `col` of the rows r0..r0+7 a thread owns, from the
-// input rows cs and the decayed states hs (both in shared memory); the loop
-// over the input columns unrolled kUnroll times.
-template <int kUnroll>
-__device__ __forceinline__ void gru_gates(const float* cs, const float* hs,
-                                          const float* __restrict__ wih_t,
-                                          const float* __restrict__ whh_t,
-                                          const float* __restrict__ bih,
-                                          const float* __restrict__ bhh,
-                                          int d, Gates& gt) {
-  const int col = threadIdx.x % d;
-  const int r0 = (threadIdx.x / d) * kRowsPerThread;
-  float gir[kRowsPerThread], giz[kRowsPerThread], gin[kRowsPerThread];
-  float ghr[kRowsPerThread], ghz[kRowsPerThread], ghn[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    gir[i] = giz[i] = gin[i] = 0.f;
-    ghr[i] = ghz[i] = ghn[i] = 0.f;
-  }
-  const int d3 = 3 * d;
-#pragma unroll (kUnroll)
-  for (int kk = 0; kk < d; ++kk) {
-    const float* wi = wih_t + (long long)kk * d3;
-    const float* wh = whh_t + (long long)kk * d3;
-    const float wir = wi[col], wiz = wi[d + col], win = wi[2 * d + col];
-    const float whr = wh[col], whz = wh[d + col], whn = wh[2 * d + col];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const float cv = cs[(r0 + i) * d + kk];
-      const float hv = hs[(r0 + i) * d + kk];
-      gir[i] += cv * wir;
-      giz[i] += cv * wiz;
-      gin[i] += cv * win;
-      ghr[i] += hv * whr;
-      ghz[i] += hv * whz;
-      ghn[i] += hv * whn;
-    }
-  }
-  const float bir = bih[col], biz = bih[d + col], bin = bih[2 * d + col];
-  const float bhr = bhh[col], bhz = bhh[d + col], bhn = bhh[2 * d + col];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    gt.r[i] = sigmoid((gir[i] + bir) + (ghr[i] + bhr));
-    gt.z[i] = sigmoid((giz[i] + biz) + (ghz[i] + bhz));
-    gt.ghn[i] = ghn[i] + bhn;
-    gt.n[i] = tanhf((gin[i] + bin) + gt.r[i] * gt.ghn[i]);
-  }
-}
-
 // -- The tensor-core tiles' products: 3xTF32 --------------------------------
 //
 // Every product of the tensor-core tiles (the self-loop and gate products
@@ -370,7 +272,7 @@ __device__ __forceinline__ void gru_gates(const float* cs, const float* hs,
 // model of both to float64). The rounding conversions are the costly part:
 // without them K5 took 3.28 ms where it took 3.70 on an H100 (PERF.md).
 
-constexpr int kBwdRows = 32;               // rows a backward tile
+constexpr int kBwdRows = 32;               // rows a tensor-core tile
 constexpr int kMTiles = kBwdRows / 16;     // m16 tiles a warp: all the rows
 constexpr int kWarpCols = 16;              // columns a warp owns: two n8
 constexpr int kKs = 8;                     // depth rows a ring slot holds
@@ -1172,8 +1074,9 @@ cudaError_t launch_wgrad(K kernel, const WJobs& jobs, int tiles, int n_split,
   return cudaGetLastError();
 }
 
-// A backward tile launch (bwd_gru_tile or bwd_input_tile in `kernel`) over
-// (row tile, element), d / 16 warps, `floats` of shared memory.
+// A whole-width tile launch (the backward tiles, or the flagship's forward
+// bi_layer_kernel, in `kernel`) over (row tile, element), d / 16 warps,
+// `floats` of shared memory.
 template <typename K, typename... Args>
 cudaError_t launch_bwd_tile(K kernel, int floats, int B, int A, int d,
                             void* stream, Args... args) {

@@ -927,6 +927,16 @@ def table_ranks(table, rtab, q: EvalQueries):
     version). Result as in ``fused_eval_ranks``."""
     if _device("table_ranks", table) == "cpu":
         return table_ranks_plain(table, rtab, q)
+    ranks, reduce, out = _ranks_prepare(table, rtab, q)
+    ranks()
+    reduce()
+    return out
+
+
+def _ranks_prepare(table, rtab, q: EvalQueries):
+    """K11's ranking half on the card: the checked operands and outputs,
+    and its launches as two functions of no arguments (the rank launch,
+    the reduction) with the result they fill."""
     B, N, d = table.shape
     Q = q.src.shape[1]
     _check_queries("table_ranks", q, B, Q)
@@ -943,17 +953,23 @@ def table_ranks(table, rtab, q: EvalQueries):
     lib = _build.lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _p
-    _build.check(lib.final_ranks_launch(
-        p(table), p(rtab), p(q.src), p(q.dst), p(q.rel), p(q.mask),
-        p(q.tail_ptr), p(q.tail_ans), p(q.head_ptr), p(q.head_ans), p(part),
-        p(tgt), B, N, Q, d, _N_SPLIT, stream), "fused_eval_ranks (ranks)")
-    fused_eval_ranks.launches += 1
-    _build.check(lib.final_rank_reduce_launch(
-        p(part), p(tgt), p(q.mask), p(ranks), p(bce), B, Q, _N_SPLIT,
-        stream), "fused_eval_ranks (reduce)")
-    fused_eval_ranks.launches += 1
+
+    def rank():
+        _build.check(lib.final_ranks_launch(
+            p(table), p(rtab), p(q.src), p(q.dst), p(q.rel), p(q.mask),
+            p(q.tail_ptr), p(q.tail_ans), p(q.head_ptr), p(q.head_ans),
+            p(part), p(tgt), B, N, Q, d, _N_SPLIT, stream),
+            "fused_eval_ranks (ranks)")
+        fused_eval_ranks.launches += 1
+
+    def reduce():
+        _build.check(lib.final_rank_reduce_launch(
+            p(part), p(tgt), p(q.mask), p(ranks), p(bce), B, Q, _N_SPLIT,
+            stream), "fused_eval_ranks (reduce)")
+        fused_eval_ranks.launches += 1
+
     mask = q.mask > 0
-    return ranks, torch.cat([mask, mask], -1), bce
+    return rank, reduce, (ranks, torch.cat([mask, mask], -1), bce)
 
 
 def fused_eval_ranks(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
@@ -971,6 +987,36 @@ def fused_eval_ranks(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
     if _device("fused_eval_ranks", hist1) == "cpu":
         return fused_eval_ranks_plain(h0, hist1, hist2, gr, q, wrel, loop1,
                                       loop2, g1, g2, rtab)
+    layers, rank, reduce, out = _eval_prepare(h0, hist1, hist2, gr, q, wrel,
+                                              loop1, loop2, g1, g2, rtab)
+    layers()
+    rank()
+    reduce()
+    return out
+
+
+def fused_eval_ranks_launchers(h0, hist1, hist2, gr: FinalGraph,
+                               q: EvalQueries, wrel, loop1, loop2, g1, g2,
+                               rtab):
+    """K11's two layer launches and its rank launch apart, on operands
+    prepared as ``fused_eval_ranks`` prepares them (arguments as there, CUDA
+    tensors only): two functions of no arguments, the first making the two
+    layer launches, the second the rank launch on their output (each
+    counted on ``fused_eval_ranks.launches``), so that their times can be
+    taken apart."""
+    if _device("fused_eval_ranks", hist1) != "cuda":
+        raise ValueError("fused_eval_ranks_launchers: K11 runs on a CUDA "
+                         "tensor only")
+    layers, rank, _, _ = _eval_prepare(h0, hist1, hist2, gr, q, wrel, loop1,
+                                       loop2, g1, g2, rtab)
+    return layers, rank
+
+
+def _eval_prepare(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
+                  loop1, loop2, g1, g2, rtab):
+    """K11 on the card: the checked operands, the CSR and the outputs, and
+    its launches as three functions of no arguments (the two layers, the
+    ranks, the reduction) with the result they fill."""
     B, N, d = hist1.shape
     E = gr.src.shape[1]
     _check_weights("fused_eval_ranks", h0, hist1, hist2, wrel, loop1, loop2,
@@ -992,15 +1038,19 @@ def fused_eval_ranks(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
     h0x = h0.expand(B, N, d).contiguous()
     out1 = torch.empty(B, N, d, device=dev, dtype=torch.float32)
     table = torch.empty(B, N, d, device=dev, dtype=torch.float32)
+    rank, reduce, out = _ranks_prepare(table, rtab, q)
+    lib = _build.lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launched(err, what):
         _build.check(err, f"fused_eval_ranks ({what})")
         fused_eval_ranks.launches += 1
 
-    _layer_launches(_build.lib(), torch.cuda.current_stream(dev).cuda_stream,
-                    launched, h0x, hist1, hist2, gr, by_dst, wrel, loop1,
-                    loop2, g1, g2, out1, table)
-    return table_ranks(table, rtab, q)
+    def layers():
+        _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr, by_dst,
+                        wrel, loop1, loop2, g1, g2, out1, table)
+
+    return layers, rank, reduce, out
 
 
 fused_eval_ranks.launches = 0

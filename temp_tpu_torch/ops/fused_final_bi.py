@@ -22,7 +22,9 @@ tail+head cross-entropy over the positives from that table.
 ``bi_relu_pattern`` gives the ReLU's pattern that K9+K10 take from their
 recomputed conv output, for holding them to their plain version
 (``bi_layer_bwd_plain``'s `relu_mask`); ``bi_bwd_gru_launcher`` their GRU
-launch alone, for timing it.
+launch alone, for timing it; ``bi_gru_input`` the GRU input that K6+K7
+form (the conv output after the ReLU and the blend), for holding it to
+K9+K10's recompute.
 
 ``FusedFinalBi`` is the autograd function made of them: K4, the select's
 backward, the layer-2 backward, the layer-1 backward, as the JAX package's
@@ -49,7 +51,7 @@ from temp_tpu_torch.ops.fused_final import (
 from temp_tpu_torch.ops.fused_window import _gru_t
 from temp_tpu_torch.ops.spmm import _norm2_plain, spmm_bwd_plain
 
-_MAX_D = 128   # the layer backward keeps 2d threads of ~100 registers
+_MAX_D = 128   # the layer tiles run d / 16 warps, two blocks an SM
 _GRUS = ("1f", "1b", "2f", "2b")   # layer and direction
 _GRU_PARTS = ("wih_t", "whh_t", "bih", "bhh")
 # the layer backward's weight cotangents as its weight launch lays them out
@@ -297,6 +299,15 @@ def bi_layer_fwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
     if _device("bi_layer_fwd", prev_f) == "cpu":
         return bi_layer_fwd_plain(x, prev_f, prev_b, bg, mask, wrel, col,
                                   loop, gf, gb, relu, hl, imp, sel)
+    return _bi_layer_launch(x, prev_f, prev_b, bg, mask, wrel, col, loop, gf,
+                            gb, relu, hl, imp, sel, csr, None)
+
+
+def _bi_layer_launch(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
+                     loop, gf, gb, relu: bool, hl, imp, sel, csr, gin):
+    """K6+K7's one launch on the card (arguments as ``bi_layer_fwd``),
+    counted on ``bi_layer_fwd.launches``; with `gin` [B, N, d] the launch
+    also writes the GRU input there. Returns the layer's output."""
     gr = bg.gr
     B, N, d = prev_f.shape
     xx = _expand("bi_layer_fwd", x, B, N, d)
@@ -315,11 +326,27 @@ def bi_layer_fwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
         p(loop), p(mask), int(relu), *(p(gf[k]) for k in _GRU_PARTS),
         *(p(gb[k]) for k in _GRU_PARTS), p(gr.dt), p(bg.dt_b),
         float(gr.lam), p(prev_f), p(prev_b), p(gr.active), p(hl_f), p(hl_b),
-        p(imp), p(sel_x), p(out), B, N, d,
+        p(imp), p(sel_x), p(out), p(gin), B, N, d,
         torch.cuda.current_stream(prev_f.device).cuda_stream)
     _build.check(err, "bi_layer_fwd")
     bi_layer_fwd.launches += 1
     return out
+
+
+def bi_gru_input(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
+                 gf, gb, relu: bool = False, hl=None, imp=None, csr=None):
+    """The GRU input [B, N, d] of one layer (arguments as in
+    ``bi_layer_fwd``): its conv output after the ReLU and, on the inactive
+    rows, the impute blend. On the card as K6+K7's launch forms it (one
+    launch, counted on ``bi_layer_fwd.launches``), which K9+K10's recompute
+    must equal bit for bit; on the CPU the plain version's."""
+    if _device("bi_layer_fwd", prev_f) == "cpu":
+        return _rows_plain(x, prev_f, prev_b, bg, mask, wrel, col, loop,
+                           relu, hl, imp)[1]
+    gin = torch.empty_like(prev_f)
+    _bi_layer_launch(x, prev_f, prev_b, bg, mask, wrel, col, loop, gf, gb,
+                     relu, hl, imp, None, csr, gin)
+    return gin
 
 
 bi_layer_fwd.launches = 0

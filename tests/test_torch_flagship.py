@@ -698,8 +698,8 @@ def test_fused_flagship_step_launches_the_kernels_in_order(monkeypatch):
     """With the wrappers told the tensors lie on a card and a library that
     records its calls: the flagship's fused training step makes the calls
     ``_build.SIGNATURES`` declares, in the order of the JAX package's
-    ``_fused_final_bi_fwd``/``_bwd``: K6+K7 for both layers, K8, then K4,
-    K9+K10 for layer 2 and for layer 1."""
+    ``_fused_final_bi_fwd``/``_bwd``: K6+K7 for both layers (without the
+    GRU input's output), K8, then K4, K9+K10 for layer 2 and for layer 1."""
     kinds = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: int,
              ctypes.c_float: float, ctypes.c_longlong: int}
     calls = []
@@ -713,6 +713,7 @@ def test_fused_flagship_step_launches_the_kernels_in_order(monkeypatch):
                 for a, t in zip(args, sig):
                     assert isinstance(a, kinds[t]) and not isinstance(
                         a, bool), (name, a)
+                assert name != "bi_layer_launch" or args[-5] is None
                 calls.append(name)
                 return 0
             return launch
@@ -751,17 +752,13 @@ def test_fused_flagship_step_launches_the_kernels_in_order(monkeypatch):
             fb.bi_layer_bwd.launches - counts[3]) == (2, 2, 4, 10)
 
 
-@pytest.mark.parametrize("layer", [1, 2])
-def test_bi_layer_bwd_launches_match_the_library_signatures(monkeypatch,
-                                                            layer):
-    """K9+K10's plumbing, rehearsed on the CPU with a library that records
-    its calls: one layer backward (layer 2 with the ReLU and the impute
-    blend, layer 1 without) makes the GRU, input, weight, weight-sum and
-    relation launches in that order, each with the argument count and types
-    that ``_build.SIGNATURES`` declares, the GRU launch without the ReLU
-    pattern's output; ``bi_relu_pattern`` and ``bi_bwd_gru_launcher`` make
-    the GRU launch alone, the first with that output. Each launch counts on
-    ``bi_layer_bwd.launches``."""
+def _recorded_bi_layer(monkeypatch, layer: int, d: int = 16):
+    """One bi layer's operands (layer 2 with the ReLU and the impute blend,
+    layer 1 without; d_out last) with the wrappers told they lie on a card
+    and a library that checks each call's argument count and types against
+    ``_build.SIGNATURES`` and records it: its name, or for the bi layer's
+    forward and GRU launches (name, relu flag, whether the optional output
+    is given). Returns (args, kw, calls)."""
     kinds = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: int,
              ctypes.c_float: float, ctypes.c_longlong: int}
     calls = []
@@ -775,10 +772,10 @@ def test_bi_layer_bwd_launches_match_the_library_signatures(monkeypatch,
                 for a, t in zip(args, sig):
                     assert isinstance(a, kinds[t]) and not isinstance(
                         a, bool), (name, a)
-                # the GRU launch: its relu flag and whether it writes the
-                # ReLU's pattern
+                # the GRU input (forward) and the ReLU's pattern (GRU launch)
                 calls.append((name, args[10], args[-5] is not None)
-                             if name == "bi_bwd_gru_launch" else name)
+                             if name in ("bi_bwd_gru_launch",
+                                         "bi_layer_launch") else name)
                 return 0
             return launch
 
@@ -793,7 +790,7 @@ def test_bi_layer_bwd_launches_match_the_library_signatures(monkeypatch,
     data = to_device(host, "cpu")
     answers = to_device(build_answer_lists(host), "cpu")
     gen = torch.Generator().manual_seed(2)
-    B, N, d = len(T_POS), host.num_ents, 16
+    B, N = len(T_POS), host.num_ents
     tp = torch.tensor(T_POS)
     em = data.train.emask[tp]
     draws = {"edges": em, "pos": em,
@@ -811,6 +808,48 @@ def test_bi_layer_bwd_launches_match_the_library_signatures(monkeypatch,
     args = (rnd(B, N, d), rnd(B, N, d), rnd(B, N, d), bg,
             bg.gr.m2 if relu else bg.gr.m1, rnd(2 * host.num_rels, 2 * d),
             d if relu else 0, rnd(d, d), *grus, rnd(B, N, d))
+    return args, kw, calls
+
+
+@pytest.mark.parametrize("layer", [1, 2])
+def test_bi_layer_fwd_launches_match_the_library_signatures(monkeypatch,
+                                                            layer):
+    """K6+K7's plumbing, rehearsed on the CPU with a recording library: one
+    layer forward makes one launch with the argument count and types that
+    ``_build.SIGNATURES`` declares, without the GRU input's output (null on
+    the main path); ``bi_gru_input`` makes the same launch with it and
+    returns a [B, N, d] tensor. Each launch counts on
+    ``bi_layer_fwd.launches``; a width the tiles do not take (not a
+    multiple of 16) is refused before any launch."""
+    args, kw, calls = _recorded_bi_layer(monkeypatch, layer)
+    relu = int(layer == 2)
+    before = fb.bi_layer_fwd.launches
+    out = fb.bi_layer_fwd(*args[:10], **kw)
+    gin = fb.bi_gru_input(*args[:10], **kw)
+    assert calls == [("bi_layer_launch", relu, False),
+                     ("bi_layer_launch", relu, True)]
+    assert tuple(out.shape) == tuple(gin.shape) == tuple(args[1].shape)
+    assert fb.bi_layer_fwd.launches - before == 2
+    args, kw, calls = _recorded_bi_layer(monkeypatch, layer, d=24)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fb.bi_layer_fwd(*args[:10], **kw)
+    assert calls == []
+
+
+@pytest.mark.parametrize("layer", [1, 2])
+def test_bi_layer_bwd_launches_match_the_library_signatures(monkeypatch,
+                                                            layer):
+    """K9+K10's plumbing, rehearsed on the CPU with a library that records
+    its calls: one layer backward (layer 2 with the ReLU and the impute
+    blend, layer 1 without) makes the GRU, input, weight, weight-sum and
+    relation launches in that order, each with the argument count and types
+    that ``_build.SIGNATURES`` declares, the GRU launch without the ReLU
+    pattern's output; ``bi_relu_pattern`` and ``bi_bwd_gru_launcher`` make
+    the GRU launch alone, the first with that output. Each launch counts on
+    ``bi_layer_bwd.launches``."""
+    args, kw, calls = _recorded_bi_layer(monkeypatch, layer)
+    relu = layer == 2
+    B, N, d = args[1].shape
     before = fb.bi_layer_bwd.launches
     out = fb.bi_layer_bwd(*args, **kw)
     assert calls == [("bi_bwd_gru_launch", int(relu), False),

@@ -1025,6 +1025,76 @@ def test_bi_bwd_gru_ragged_matches_plain_and_repeats(cuda, relu, impute):
     assert not bad, bad
 
 
+# (relu, impute blend, select) of the bi layer tests
+_BI_MODES = [(False, False, False), (True, False, False),
+             (False, True, False), (True, True, True)]
+
+
+def _bi_mode_args(bg, w, relu, impute, dev, seed=6):
+    """A layer-2 call of the bi layer with the ReLU and the impute blend on
+    or off, from a random input: (positional arguments, keywords)."""
+    B, N, d = w["hists"][0].shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h_in = torch.randn(B, N, d, generator=gen, device=dev) * 0.5
+    h1f, h2f, hlf, h1b, h2b, hlb = w["hists"]
+    args = (h_in, h2f, h2b, bg, bg.gr.m2, w["wrel"], d, w["loop2"],
+            w["grus"]["2f"], w["grus"]["2b"])
+    kw = dict(relu=relu, hl=(hlf, hlb) if impute else None,
+              imp=w["imp"] if impute else None)
+    return args, kw
+
+
+@pytest.mark.parametrize("mode", range(len(_BI_MODES)))
+@pytest.mark.parametrize("N,d,B,R,per,pad", _BI_SHAPES)
+def test_bi_layer_fwd_repeats_and_matches_plain(cuda, mode, N, d, B, R, per,
+                                                pad):
+    """K6+K7 on the tensor cores, with the ReLU, the impute blend and the
+    select on and off, at the main shape, at d = 32 and at a ragged N (not
+    a multiple of the 32-row tile) with d = 16 (one warp): two runs equal
+    bit for bit, one launch each, and within 1e-5 of the largest entry of
+    the plain version's output."""
+    relu, impute, select = _BI_MODES[mode]
+    bg, w = _bi_case(N, d, cuda, B=B, noact=select, num_rels=R,
+                     edges_per_time=per, pad=pad)
+    args, kw = _bi_mode_args(bg, w, relu, impute, cuda)
+    sel = w["h0"] if select else None
+    before = fb.bi_layer_fwd.launches
+    got = fb.bi_layer_fwd(*args, **kw, sel=sel)
+    again = fb.bi_layer_fwd(*args, **kw, sel=sel)
+    torch.cuda.synchronize()
+    assert fb.bi_layer_fwd.launches == before + 2
+    assert torch.equal(got, again)
+    ok, err, top = _scaled_ok(got, fb.bi_layer_fwd_plain(*args, **kw,
+                                                         sel=sel))
+    assert ok, (err, top)
+
+
+@pytest.mark.parametrize("mode", range(len(_BI_MODES)))
+@pytest.mark.parametrize("N,d,B,R,per,pad", _BI_SHAPES)
+def test_bi_layer_gru_input_equals_the_backward_recompute(cuda, mode, N, d,
+                                                          B, R, per, pad):
+    """K6+K7 and K9+K10's GRU launch form the layer's GRU input (the conv
+    output after the ReLU and the blend) with the same routines: the one
+    the forward writes equals bit for bit the one the backward recomputes
+    into its weight launch's operands (gin_s), and lies within 1e-5 of the
+    largest entry of the plain version's."""
+    relu, impute, _ = _BI_MODES[mode]
+    bg, w = _bi_case(N, d, cuda, B=B, num_rels=R, edges_per_time=per,
+                     pad=pad)
+    args, kw = _bi_mode_args(bg, w, relu, impute, cuda)
+    d_out = torch.randn(args[1].shape, generator=torch.Generator(
+        device=cuda).manual_seed(7), device=cuda)
+    gin = fb.bi_gru_input(*args, **kw)
+    st, gru = fb._bi_bwd_prepare(*args, d_out, relu, kw["hl"], kw["imp"],
+                                 None)
+    gru()
+    torch.cuda.synchronize()
+    assert torch.equal(gin.reshape(-1), st["scr"]["gin"])
+    ref = fb._rows_plain(*args[:8], relu, kw["hl"], kw["imp"])[1]
+    ok, err, top = _scaled_ok(gin, ref)
+    assert ok, (err, top)
+
+
 @pytest.mark.parametrize("B,L1,A,E,d,act2", [(8, 14, 640, 256, 128, False),
                                              (3, 4, 37, 20, 16, True)])
 def test_window_bwd_is_deterministic(cuda, B, L1, A, E, d, act2):
@@ -1420,6 +1490,24 @@ def test_fused_eval_is_deterministic(cuda):
     a = fused_eval_ranks(*args)
     b = fused_eval_ranks(*args)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("N,d,B,R,per,pad", _EVAL_SHAPES)
+def test_fused_eval_repeats_at_every_shape(cuda, N, d, B, R, per, pad):
+    """K11 (its rank launch on the tensor cores, the targets scored by the
+    same routine) twice on the same inputs: ranks, masks and BCE equal bit
+    for bit, at the main shape, at d = 32 and at a Q and an N that are not
+    multiples of 64; and its ranking half alone on the plain table."""
+    args = _eval_case(N, d, cuda, B=B, num_rels=R, edges_per_time=per,
+                      pad=pad)
+    a = fused_eval_ranks(*args)
+    b = fused_eval_ranks(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    h0, hist1, hist2, gr, q, wrel, loop1, loop2, g1, g2, rtab = args
+    table, _ = _encoder_plain(h0, hist1, hist2, gr, wrel, loop1, loop2, g1,
+                              g2)
+    x, y = table_ranks(table, rtab, q), table_ranks(table, rtab, q)
+    assert all(torch.equal(u, v) for u, v in zip(x, y))
 
 
 def test_fused_eval_refuses_what_it_does_not_take(cuda):

@@ -223,13 +223,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     assert res["k9k10"]["bitwise"]
     assert all(res["k2_flagship"][d][f"{part}_bitwise"]
                for d in ("fwd", "bwd") for part in ("fwd", "bwd"))
-    # K3, K4, K8 and K11 too (K11's bound: its layers at 3xTF32's rate,
-    # its rank tile at f32's); each runs twice, bit-equal
-    assert all(res[k]["bitwise"] for k in ("k3", "k4", "k8", "k11"))
+    # K3, K4, K6+K7, K8 and K11 too; each runs twice, bit-equal
+    assert all(res[k]["bitwise"] for k in ("k3", "k4", "k6k7", "k8", "k11"))
     tc_kernels = ("fused_window_fwd", "fused_window_bwd", "fused_final_fwd",
                   "fused_final_bwd_loss", "fused_final_bwd_layer",
-                  "bi_loss_fwd", "bi_layer_bwd", "fused_eval_ranks",
-                  "fused_window_mb_fwd")
+                  "bi_layer_fwd", "bi_loss_fwd", "bi_layer_bwd",
+                  "fused_eval_ranks", "fused_window_mb_fwd")
     for rec in line["kernels"]:
         assert rec["bound_share"] == rec["bound_ms"] / rec["ms"]
         tc = rec["name"] in tc_kernels
@@ -251,12 +250,13 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     # kernels' ReLU pattern, and counts where the two forwards disagree
     assert all(res["k2_flagship"][d]["relu_flips"] == 0
                for d in ("fwd", "bwd"))
-    # K3's layer launches and score launch apart: their bounds here, their
-    # times only on the card
-    for part in ("layers", "scores"):
-        r = line["kernels"][4][part]
-        assert r["ms"] is None and r["bound_share"] is None
-        assert 0 < r["bound_tc_ms"] <= r["bound_ms"]
+    # K3's layer launches and score launch apart, and K11's layer launches
+    # and rank launch: their bounds here, their times only on the card
+    for k, parts in ((4, ("layers", "scores")), (10, ("layers", "ranks"))):
+        for part in parts:
+            r = line["kernels"][k][part]
+            assert r["ms"] is None and r["bound_share"] is None
+            assert 0 < r["bound_tc_ms"] <= r["bound_ms"]
     # K9+K10's GRU launch alone: its bounds here, its time only on the card
     gru = line["kernels"][9]["gru_launch"]
     assert gru["ms"] is None and gru["bound_share"] is None

@@ -1,5 +1,5 @@
 """The tolerance argument for the tensor-core products (3xTF32) of the
-window's and the final step's kernels (K2f, K2b, K3, K4, K5, K9+K10).
+window's and the final step's kernels (K2f, K2b, K3-K7, K9-K11).
 
 The backward tiles (``csrc/rgcn_gru_layer.cuh`` ``tile_product``) split
 each f32 operand x into hi, x with its 13 low mantissa bits cleared, and
@@ -16,7 +16,12 @@ float64 within 1e-6 of the largest entry, tenfold inside the smoke's 1e-5
 (``SCALED_TOL``). Plain f32 (one rounded multiply-add a term, as the
 forward tiles) and a single TF32 product are printed beside it. The card's
 own accumulation order inside an mma is not modelled: the card's checks
-(``chip_smoke.py``, ``tests/test_torch_gpu.py``) decide.
+(``chip_smoke.py``, ``tests/test_torch_gpu.py``) decide. Beyond the
+products: the flagship's forward layer rows (K6+K7: the conv output, the
+impute blend and both directions' gates and outputs in f32 from the
+modelled products) and K11's rank count (scores and each target's score
+by the modelled route, planted copies of target rows, ties of the band
+that ``chip_smoke.py`` leaves out).
 """
 
 import numpy as np
@@ -215,3 +220,200 @@ def test_loss_products_keep_f32_accuracy(case):
     err = float(np.abs(product_tc(a, b, 8) - ref).max())
     print(f"{case}: 3xTF32 {err / big:.3e} of the largest entry {big:.3e}")
     assert err <= TOL * big
+
+
+def _sigmoid32(v):
+    return (np.float32(1) / (np.float32(1) + np.exp(-v))).astype(np.float32)
+
+
+def _gru_rows(x, h, wih_t, whh_t, bih, bhh, route: str):
+    """One GRU over rows x, h [M, d] with weights [d, 3d] and biases [3d]:
+    (r, z, n, output). route "tc": as the tiles compute it
+    (``gate_products``: the r and z gates one running sum over the input's
+    then the state's depth, the n gate's two products apart, in
+    ``product_tc``; ``gate_at``'s order of the bias adds; f32 throughout);
+    "f32": the same with plain f32 products (one rounded multiply-add a
+    depth term); "f64": float64."""
+    d = x.shape[1]
+    sl = [slice(0, d), slice(d, 2 * d), slice(2 * d, 3 * d)]
+    if route == "f64":
+        x, h, wih_t, whh_t, bih, bhh = (v.astype(np.float64) for v in (
+            x, h, wih_t, whh_t, bih, bhh))
+        gi, gh = x @ wih_t + bih, h @ whh_t + bhh
+        r = 1 / (1 + np.exp(-(gi[:, sl[0]] + gh[:, sl[0]])))
+        z = 1 / (1 + np.exp(-(gi[:, sl[1]] + gh[:, sl[1]])))
+        n = np.tanh(gi[:, sl[2]] + r * gh[:, sl[2]])
+        return r, z, n, (1 - z) * n + z * h
+    prod = ((lambda a, b: product_tc(a, b, 8)) if route == "tc"
+            else product_f32)
+    xh = np.concatenate([x, h], 1)
+    acc = [prod(xh, np.concatenate([wih_t[:, s], whh_t[:, s]], 0))
+           for s in sl[:2]]
+    acc += [prod(x, wih_t[:, sl[2]]), prod(h, whh_t[:, sl[2]])]
+    r = _sigmoid32(acc[0] + (bih[sl[0]] + bhh[sl[0]]))
+    z = _sigmoid32(acc[1] + (bih[sl[1]] + bhh[sl[1]]))
+    n = np.tanh((acc[2] + bih[sl[2]]) + r * (acc[3] + bhh[sl[2]]))
+    return r, z, n, ((np.float32(1) - z) * n + z * h).astype(np.float32)
+
+
+def _bi_rows(inputs, relu: bool, blend: bool, route: str):
+    """The row part of one bi layer (K6+K7): the conv output (the SpMM rows
+    plus the self-loop product times its dropout mask, then the ReLU), the
+    GRU input (the impute blend on the inactive rows) and both directions'
+    gates and outputs, and their sum; by `route` as ``_gru_rows``."""
+    x, s, mask, loop, hf, hb, hl_f, hl_b, dt_f, dt_b, active, imp, grus = (
+        inputs)
+    if route == "f64":
+        one = 1.0
+        conv = s.astype(np.float64) + (x.astype(np.float64) @ loop) * mask
+    else:
+        one = np.float32(1)
+        prod = product_tc(x, loop, 8) if route == "tc" else product_f32(
+            x, loop)
+        conv = (s + prod * mask).astype(np.float32)
+    if relu:
+        conv = np.maximum(conv, 0)
+    gin = conv
+    if blend:
+        def w(i, dt):
+            a = imp[i] * dt + imp[i + 1]
+            return (np.exp(-np.maximum(a, 0)) * (one / 2))[:, None]
+
+        wf, wb = w(0, dt_f), w(2, dt_b)
+        blended = wf * hl_f + wb * hl_b + (one - wf - wb) * conv
+        gin = np.where(active[:, None] > 0, conv, blended)
+    out = {"gin": gin}
+    total = 0
+    for tag, h, gw in (("f", hf, grus[0]), ("b", hb, grus[1])):
+        r, z, n, o = _gru_rows(gin, h, *gw, route)
+        out.update({f"r_{tag}": r, f"z_{tag}": z, f"n_{tag}": n,
+                    f"out_{tag}": o})
+        total = total + o
+    out["out"] = total
+    return out
+
+
+@pytest.mark.parametrize("relu,blend", [(False, False), (True, True)])
+def test_bi_layer_rows_keep_f32_accuracy(relu, blend):
+    """K6+K7's row part at d = 128 (layer 1: no ReLU, no blend; layer 2:
+    both) from the tiles' modelled products (``conv_rows_tc``,
+    ``gate_products``, in ``product_tc``'s split and 8-term running sums)
+    and f32 elsewhere: the GRU input, each direction's gates and output
+    and their sum, each within 1e-6 of the largest float64 entry of the
+    row part (the GRU input's, which the products take) and of the order
+    of plain f32's error (printed beside it). The weights and biases are
+    drawn as the model initialises a GRU (U(-k, k), k = 1 / sqrt(d)), the
+    self-loop at xavier scale, the states in (-1, 1) as a GRU's are, and
+    the input rows unit normal, larger than either layer's (the embeddings;
+    the sum of two GRU outputs)."""
+    g = np.random.default_rng(21 if relu else 20)
+    rows, d = 64, 128
+    f = np.float32
+    k = d ** -0.5
+
+    def unif(*shape, scale=1.0):
+        return ((g.random(shape) * 2 - 1) * scale).astype(f)
+
+    keep = 0.9
+    mask = ((g.random((rows, d)) < keep) / keep).astype(f)
+    grus = [(unif(d, 3 * d, scale=k), unif(d, 3 * d, scale=k),
+             unif(3 * d, scale=k), unif(3 * d, scale=k)) for _ in "fb"]
+    inputs = (g.standard_normal((rows, d)).astype(f),
+              (g.standard_normal((rows, d)) * 0.5).astype(f), mask,
+              unif(d, d, scale=np.sqrt(3.0) * k), unif(rows, d),
+              unif(rows, d), unif(rows, d), unif(rows, d),
+              g.integers(0, 7, rows).astype(f),
+              g.integers(0, 7, rows).astype(f),
+              (g.random(rows) < 0.5).astype(f),
+              np.array([0.3, -0.4, -0.1, 0.5], f), grus)
+    got = _bi_rows(inputs, relu, blend, "tc")
+    f32 = _bi_rows(inputs, relu, blend, "f32")
+    ref = _bi_rows(inputs, relu, blend, "f64")
+    big = max(float(np.abs(r).max()) for r in ref.values())
+    for name, r in ref.items():
+        err = float(np.abs(got[name].astype(np.float64) - r).max())
+        err32 = float(np.abs(f32[name].astype(np.float64) - r).max())
+        print(f"{name}: 3xTF32 {err / big:.3e}, plain f32 {err32 / big:.3e} "
+              f"of the largest entry {big:.3e}")
+        assert got[name].dtype == np.float32, name
+        assert err <= TOL * big, name
+        assert err <= 10 * max(err32, 1e-9 * big), name
+
+
+def _ranks(scores, tgt, target, known):
+    """1 + the count of the columns other than the target, the true answers
+    at -1e7, whose score is strictly greater than the target's."""
+    v = np.where(known, -1.0e7, scores)
+    v[np.arange(len(target)), target] = -np.inf
+    return 1 + (v > tgt[:, None]).sum(1)
+
+
+@pytest.mark.parametrize("scale", [0.5, 0.05])
+def test_rank_tile_counts_like_float64(scale):
+    """K11's rank count from its modelled scores (``score_product``: the
+    queries as A, the table rows as B, the split and 8-term running sums)
+    for a 64-query tile against 896 columns. Each target is scored by the
+    same route from a tile of the targets' rows, so copies of a target's
+    row planted into columns that scored well below it tie with it
+    exactly and never count; and the ranks equal float64's on every query
+    whose float64 scores hold no column (other than the target, not a true
+    answer) within the smoke's band (1e-5 of the row's largest |score|) of
+    the target's."""
+    g = np.random.default_rng(31 if scale > 0.1 else 32)
+    n_q, n_c, d = 64, 896, 128
+    qs = (g.standard_normal((n_q, d)) * scale).astype(np.float32)
+    table = g.standard_normal((n_c, d)).astype(np.float32)
+    target = g.permutation(n_c)[:n_q]
+    known = g.random((n_q, n_c)) < 0.02
+    known[np.arange(n_q), target] = False
+
+    def model(tab):
+        sc = product_tc(qs, np.ascontiguousarray(tab.T), 8)
+        tg = np.diagonal(product_tc(qs, np.ascontiguousarray(
+            tab[target].T), 8)).copy()
+        return sc, tg
+
+    sc, tg = model(table)
+    ranks = _ranks(sc, tg, target, known)
+    s64 = qs.astype(np.float64) @ table.astype(np.float64).T
+    t64 = s64[np.arange(n_q), target]
+    ranks64 = _ranks(s64, t64, target, known)
+    other = ~known
+    other[np.arange(n_q), target] = False
+    band = 1e-5 * np.abs(s64).max(1, keepdims=True)
+    near = ((np.abs(s64 - t64[:, None]) <= band) & other).any(1)
+    print(f"scale {scale}: {int(near.sum())} near-ties, "
+          f"{int((ranks != ranks64).sum())} ranks differ")
+    assert near.sum() <= n_q // 8
+    assert np.array_equal(ranks[~near], ranks64[~near])
+    # the target's score by the route of a column: the same bits
+    assert np.array_equal(tg, sc[np.arange(n_q), target])
+
+    # copies of the first 16 targets' rows, 8 each, into columns that
+    # scored well below that target and are no query's target or answer:
+    # they score the target's bits exactly, and the ranks on the planted
+    # table equal float64's there (where a copy ties exactly too) on every
+    # query without a near-tie among the other columns
+    planted = table.copy()
+    free = np.ones(n_c, bool)
+    free[target] = False
+    free &= ~known.any(0)
+    copy = np.zeros((n_q, n_c), bool)
+    for q in range(16):
+        ok = free & (s64[q] < t64[q] - 1e-3 * np.abs(s64[q]).max())
+        cols = np.nonzero(ok)[0][:8]
+        assert len(cols) == 8
+        planted[cols] = table[target[q]]
+        free[cols] = False
+        copy[:, cols] = (table[target][:, None] == table[target[q]]).all(-1)
+    sc_p, tg_p = model(planted)
+    assert np.array_equal(tg_p, tg)
+    for q in range(16):
+        assert np.array_equal(sc_p[q, copy[q]], np.full(8, tg[q]))
+    s64_p = qs.astype(np.float64) @ planted.astype(np.float64).T
+    ranks_p = _ranks(sc_p, tg_p, target, known)
+    ranks64_p = _ranks(s64_p, t64, target, known)
+    near_p = ((np.abs(s64_p - t64[:, None]) <= band) & other
+              & ~copy).any(1)
+    assert np.array_equal(ranks_p[~near_p], ranks64_p[~near_p])
+    assert not near_p[:16].all()

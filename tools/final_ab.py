@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The final step's kernels (K3, K4, K11) and K2f of several checkouts,
-in turns, on one GPU.
+"""The final step's kernels (K3, K4, K6+K7, K11) and K2f of several
+checkouts, in turns, on one GPU.
 
     python3 tools/final_ab.py ROOT [ROOT ...] [--order 0110] [--out FILE]
 
@@ -17,8 +17,10 @@ and the device time a call of each of its kernels (the profiler):
   score launch and the loss reduction, on the first training batch;
 - K4 (``fused_final_bwd_loss``): ``final_dq``, ``final_dq_finish``,
   ``final_dtable`` and the relation sum, from K3's saved residuals;
+- K6+K7 (``bi_layer_fwd``): its launch for both layers of the flagship's
+  final step (``bi_layer``), on the flagship's first training batch;
 - K11 (``fused_eval_ranks``): its two layer launches and the rank launch
-  on the first eval batch;
+  (``final_ranks``) on the first eval batch;
 - K2f (``fused_window_fwd``) a launch, on the first eval batch's window
   (``conv1_in``), whose tile K3's layers share.
 
@@ -59,6 +61,7 @@ def _measure(root: str) -> dict:
 
     import chip_smoke as cs
     from temp_tpu_torch.ops import fused_final as ff
+    from temp_tpu_torch.ops import fused_final_bi as fbi
     from temp_tpu_torch.ops import fused_window as fw
 
     if not torch.cuda.is_available():
@@ -76,6 +79,15 @@ def _measure(root: str) -> dict:
     gr, rtab, g = batch["gr"], args[-1], batch["tv"]
     res["k4"] = _record(
         cs, lambda: ff.fused_final_bwd_loss(saved, rtab, gr, g), _K4, dev)
+    fctx = cs.phase_setup_flagship(ctx)
+    fb_ = cs.final_batch_flagship(fctx)
+    sel = fb_["h0x"] if fb_["bg"].noact else None
+    a1, k1 = cs._bi_layer_args(fb_, 1)
+    with torch.no_grad():
+        a2, k2 = cs._bi_layer_args(fb_, 2, fbi.bi_layer_fwd(*a1, **k1))
+        res["k6k7"] = _record(cs, lambda: (
+            fbi.bi_layer_fwd(*a1, **k1),
+            fbi.bi_layer_fwd(*a2, **k2, sel=sel)), ["bi_layer"], dev)
     eb = cs.eval_batch(ctx)
     with torch.no_grad():
         res["k11"] = _record(cs, lambda: ff.fused_eval_ranks(*eb["args"]),
