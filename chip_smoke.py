@@ -99,15 +99,40 @@ Then the switches that are off by default, on GRRGCN and the flagship:
                       (the same launches and draws: equal losses, parameters
                       and ranks).
 
+Then the TeMP variants (models/post.py, models/bidynamic.py), on the same
+data:
+
+23. k2_modes   - K2f and K2b in the two modes these models add, in train
+                 mode at the full shape: (a) three buffers without the ReLU
+                 (the unidirectional Post models' windows, L1 = 14) and (b)
+                 two buffers with it (BiGRRGCN's forward and backward
+                 windows, L1 = 7), against the plain versions (mode (b)'s
+                 cotangents through the kernels' ReLU pattern), two runs
+                 bit-equal, with times and bounds;
+24. ted_setup  - TED, BiGRRGCN --impute --post-ensemble, with seeded random
+                 weights, and the seconds its frequency features take to
+                 build;
+25. ted_path   - its valid sweep with the kernels and with their plain
+                 versions (MRR within 1e-4, the gated eval's loss 0), K1f
+                 and K2f launched and none of K3-K12;
+26. ted_train  - 8 optimizer steps with the kernels and with their plain
+                 versions: losses and every parameter leaf (the gates')
+                 held together as in `train`; K1f, K1b, K2f and K2b
+                 launched, none of K3-K12;
+27. variants   - GRRGCN --impute --post-ensemble, BiGRRGCN
+                 --post-aggregation and plain BiGRRGCN at full width and
+                 train_seq_len VARIANT_SEQ_LEN: 2 steps and one valid batch
+                 each, kernels against plain.
+
 Then the model-parallel path, GRRGCN with edge_partition="ring_pallas" over
 RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
 
-23. ring_setup - the dataset regrouped for 4 ranks (ring_layout: the edges
+28. ring_setup - the dataset regrouped for 4 ranks (ring_layout: the edges
                  grouped by destination owner, K13's and K1's static CSR
                  tables of every train snapshot) and the model on it with the
                  same seeded weights; prints the ranks' placement and the
                  number of cards;
-24. k13        - kernel K13 (ring_spmm_fwd) at the final-snapshot shape
+29. k13        - kernel K13 (ring_spmm_fwd) at the final-snapshot shape
                  (7128 rows in 4 shards of 1792) and at one window step's
                  compact shape (the 8 graphs of an eval batch): walking
                  the data's tables (the path's route) and sorting the
@@ -118,12 +143,12 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  K13's backward kernels (ring_spmm_bwd) over the tables at
                  both shapes against autograd through the plain forward
                  and against ring_spmm_bwd_plain, with their times;
-25. ring_path  - the valid sweep under the partition with the kernels and
+30. ring_path  - the valid sweep under the partition with the kernels and
                  with their plain versions, and without a partition on the
                  same data (K1 over the data's K1 tables of that layout):
                  MRR within 1e-4; K13's launches, no sort in a call, and
                  none of K1, K2, K3-K5, K11 or K12 under the partition;
-26. ring_train - 8 optimizer steps under the partition (kernels, plain)
+31. ring_train - 8 optimizer steps under the partition (kernels, plain)
                  and without it (fused_final off): losses and parameters
                  held together as in `train`; K13's forward and backward
                  launched, no sort in a call.
@@ -131,7 +156,8 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
 Then a "kernels" JSON line (each kernel's bound_share, bound / ms, and for
 K2f, K2b, K5, K9+K10 and K12, whose products run in 3xTF32 on the tensor
 cores, bound_tc_ms: their operations at 3xTF32's 165 TFLOP/s beside the f32
-bound_ms), the
+bound_ms; K2f's and K2b's rows with their modes apart, `extra_modes` the
+k2_modes phase's; every path's launches), the
 nvidia-smi name/power-limit line, and the
 result line {"ok": true, "device": {...}}. Any failed check raises and exits
 non-zero; there is no result line then. Without CUDA it exits 1 at once. A
@@ -261,7 +287,7 @@ def phase_build() -> dict:
 
 def phase_setup(device, num_ents=7128, num_rels=230, num_times=365,
                 edges_per_time=200, seed=0, config="config_grrgcn.json",
-                **cfg_over) -> dict:
+                data=None, **cfg_over) -> dict:
     import torch
 
     from temp_tpu_torch.config import TKGConfig
@@ -273,11 +299,13 @@ def phase_setup(device, num_ents=7128, num_rels=230, num_times=365,
     cfg = TKGConfig.from_json_file(
         os.path.join(root, "grid", "icews14", config), fused_window=True,
         **cfg_over)
-    # with K1's static tables of every train snapshot (TKGData.spmm)
-    data = ring_layout(cfg, make_synthetic(
-        num_ents=num_ents, num_rels=num_rels, num_times=num_times,
-        edges_per_time=edges_per_time, seed=seed,
-        edge_pad_multiple=cfg.edge_pad_multiple))
+    # with K1's static tables of every train snapshot (TKGData.spmm);
+    # `data`, when given, is such a dataset already (another setup's)
+    if data is None:
+        data = ring_layout(cfg, make_synthetic(
+            num_ents=num_ents, num_rels=num_rels, num_times=num_times,
+            edges_per_time=edges_per_time, seed=seed,
+            edge_pad_multiple=cfg.edge_pad_multiple))
     model = get_model(cfg, data, device=device)
     params = model.init_params(cfg.seed)
     trainer = Trainer(cfg, model, data)
@@ -1238,29 +1266,29 @@ def phase_train(ctx, flagship: bool = False) -> dict:
 
 
 def param_gaps(init, finals, names=("fused", "unfused", "plain")) -> dict:
-    """For each pair of the three training paths `names` (the last the
-    plain path) and each leaf, |a - b| / |plain - init| (norms; the plain
-    path's change to that leaf); raises where a leaf's gap exceeds
-    PARAM_TOL of its change (a leaf the plain path left as it was must
-    agree exactly). Beside it, for reading only, the same ratio of the
-    largest entries."""
-    x, y, plain = names
+    """For each pair of the training paths `names` (the last the plain
+    path) and each leaf, |a - b| / |plain - init| (norms; the plain path's
+    change to that leaf); raises where a leaf's gap exceeds PARAM_TOL of
+    its change (a leaf the plain path left as it was must agree exactly).
+    Beside it, for reading only, the same ratio of the largest entries."""
+    plain = names[-1]
     change = [(f - i) for f, i in zip(finals[plain], init)]
     norms = [float(c.norm()) for c in change]
     gaps, maxes, bad = {}, {}, {}
-    for a, b in ((x, plain), (x, y), (y, plain)):
-        worst = worst_max = 0.0
-        for k, (x, y, c, n) in enumerate(zip(finals[a], finals[b], change,
-                                             norms)):
-            gap = float((x - y).norm())
-            if not gap <= PARAM_TOL * n:
-                bad[f"{a}/{b} leaf {k}"] = {"gap": gap, "change": n}
-            if n > 0:
-                worst = max(worst, gap / n)
-                worst_max = max(worst_max, float((x - y).abs().max())
-                                / float(c.abs().max()))
-        gaps[f"{a}/{b}"] = worst
-        maxes[f"{a}/{b}"] = worst_max
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            worst = worst_max = 0.0
+            for k, (x, y, c, n) in enumerate(zip(finals[a], finals[b],
+                                                 change, norms)):
+                gap = float((x - y).norm())
+                if not gap <= PARAM_TOL * n:
+                    bad[f"{a}/{b} leaf {k}"] = {"gap": gap, "change": n}
+                if n > 0:
+                    worst = max(worst, gap / n)
+                    worst_max = max(worst_max, float((x - y).abs().max())
+                                    / float(c.abs().max()))
+            gaps[f"{a}/{b}"] = worst
+            maxes[f"{a}/{b}"] = worst_max
     if bad:
         raise AssertionError(f"train: parameters differ beyond {PARAM_TOL} "
                              f"of the plain path's change: {bad}")
@@ -1993,6 +2021,301 @@ def phase_mb(ctx, fctx) -> dict:
     return res
 
 
+# -- the TeMP variants: K2's two new modes, TED, and the other variants -----
+
+# (mode, buffers, layer 2's ReLU): the unidirectional Post models' windows
+# (GRRGCN's weights, L1 = 14) and BiGRRGCN's (L1 = 7, either direction)
+_K2_MODES = (("a", 3, False), ("b_fwd", 2, True), ("b_bwd", 2, True))
+# the kernels a path that runs its final step one element at a time must
+# not launch: K3-K12 and the ring's
+_NOT_UNFUSED = ("fused_final_fwd", "fused_final_bwd_loss",
+                "fused_final_bwd_layer", "bi_layer_fwd", "bi_loss_fwd",
+                "bi_layer_bwd", "fused_eval_ranks", "fused_window_mb_fwd",
+                "ring_spmm_fwd", "ring_spmm_bwd")
+_UNFUSED_TRAIN = ("spmm_fwd", "spmm_bwd", "fused_window_fwd",
+                  "fused_window_bwd")
+# the variants held kernels against plain at full width and this window
+# length (the configs' 15 and 8 cut to keep the smoke inside its watchdog)
+VARIANT_SEQ_LEN = 4
+_VARIANTS = (
+    ("grrgcn_impute_ensemble", "config_grrgcn.json",
+     {"impute": True, "post_ensemble": True}),
+    ("bigrrgcn_aggregation", "config_bigrrgcn.json",
+     {"post_aggregation": True}),
+    ("bigrrgcn", "config_bigrrgcn.json", {}))
+
+
+def _k2_mode_case(ctx, fctx, mode: str):
+    """(context, window, K2's arguments) of one mode's windows of a
+    training batch with seeded dropout masks: mode "a" GRRGCN's eval batch
+    of ``window_batch`` on its own weights (the Post model's windows have
+    its weights and shape), "b_fwd"/"b_bwd" the flagship's first training
+    batch's windows of that direction (``flagship_window_batch``)."""
+    import torch
+
+    from temp_tpu_torch.ops.fused_window import window_args
+
+    if mode == "a":
+        c = ctx
+        win, kw = window_batch(ctx, False)
+        kw.pop("conv1_in")
+        B, L1, A, d = kw["h0_xs"].shape
+        keep = 1.0 - ctx["cfg"].dropout
+        gen = torch.Generator(device=ctx["device"]).manual_seed(3)
+        kw["masks"] = tuple(
+            (torch.rand(B, L1, A, d, generator=gen, device=ctx["device"])
+             < keep).to(torch.float32) / keep for _ in range(2))
+    else:
+        c = fctx
+        win, kw = flagship_window_batch(fctx, mode[2:])
+    return c, win, window_args(c["params"]["encoder"], c["cfg"], **kw)
+
+
+def phase_k2_modes(ctx, fctx) -> dict:
+    """K2f and K2b in the two modes the TeMP variants add, at the smoke's
+    full shape in train mode: (a) three buffers without the ReLU (the
+    unidirectional Post models) and (b) two buffers with it (BiGRRGCN, both
+    windows), against their plain versions: the buffers, the 12 cotangents
+    from random cotangents on every buffer (mode (b)'s plain ones through
+    the kernels' ReLU pattern, read from the same launches with the third
+    buffer written), two runs of each bit-equal; times and bounds."""
+    import torch
+
+    from temp_tpu_torch.ops.fused_window import (
+        fused_window_bwd, fused_window_bwd_plain, fused_window_fwd,
+        fused_window_fwd_plain,
+    )
+
+    out = {}
+    for mode, n_buf, relu in _K2_MODES:
+        c, win, a = _k2_mode_case(ctx, fctx, mode)
+        dev = c["device"]
+        B, L1, A, d = a["h0x"].shape
+        if a["act2"] != relu:
+            raise AssertionError(f"K2 mode {mode}: act2 {a['act2']}")
+        fwd_args = dict(a, conv1_in=False, n_buf=n_buf)
+        got = fused_window_fwd(**fwd_args)
+        ref = fused_window_fwd_plain(**fwd_args)
+        err_fwd = max(max_err(x, y) for x, y in zip(got, ref))
+        fwd_bitwise = _bitwise(got, fused_window_fwd(**fwd_args))
+        if not (err_fwd <= TOL and len(got) == n_buf and fwd_bitwise):
+            raise AssertionError(f"K2f mode {mode}: max abs err {err_fwd} > "
+                                 f"{TOL}, or two runs differ (bit-equal: "
+                                 f"{fwd_bitwise})")
+        gen = torch.Generator(device=dev).manual_seed(8)
+        gbs = [torch.randn(B, L1, A, d, generator=gen, device=dev)
+               for _ in range(n_buf)]
+        bwd_args = dict(a, buf1=got[0], buf2=got[1], gb1=gbs[0], gb2=gbs[1],
+                        gb3=gbs[2] if n_buf == 3 else None)
+        cot = fused_window_bwd(**bwd_args)
+        bitwise = _bitwise(cot, fused_window_bwd(**bwd_args))
+        relu_mask, flips = None, 0
+        if relu:
+            # the ReLU's pattern of these launches: the same launches with
+            # the local buffer written, whose other buffers must not change
+            loc = fused_window_fwd(**dict(fwd_args, n_buf=3))
+            if not _bitwise(got, loc[:2]):
+                raise AssertionError(f"K2f mode {mode}: the third buffer "
+                                     f"changes the other two")
+            relu_mask = (loc[2] > 0).to(torch.float32)
+            plain_loc = fused_window_fwd_plain(**dict(fwd_args, n_buf=3))[2]
+            flips = int(((loc[2] > 0) != (plain_loc > 0)).sum())
+        cot_ref = fused_window_bwd_plain(**a, gb1=gbs[0], gb2=gbs[1],
+                                         gb3=bwd_args["gb3"],
+                                         relu_mask=relu_mask)
+        errs = {n: rel_err(x, y) for n, x, y in zip(_COTANGENTS, cot,
+                                                     cot_ref)}
+        bad = {n: e for n, e in errs.items() if not e <= GRAD_TOL}
+        if bad or not bitwise:
+            raise AssertionError(f"K2b mode {mode}: cotangents beyond "
+                                 f"{GRAD_TOL}: {bad}; two runs bit-equal: "
+                                 f"{bitwise}")
+        buf3_bytes = (n_buf - 2) * B * L1 * A * d * 4
+        r = {"shape": f"B={B} L1={L1} A={A} E={c['E']} d={d} n_buf={n_buf}"
+                      f"{' relu' if relu else ''}",
+             "relu_flips": flips,
+             "fwd": {"max_abs_err": err_fwd, "bitwise": fwd_bitwise,
+                     "ms": time_ms(lambda: fused_window_fwd(**fwd_args), dev,
+                                   reps=5),
+                     "plain_ms": time_ms(lambda: fused_window_fwd_plain(
+                         **fwd_args), dev, reps=2),
+                     "library_ms": None,
+                     **_window_bound(c, win, False, masks=True,
+                                     extra_bytes=buf3_bytes)},
+             "bwd": {"max_abs_err": max(errs.values()), "errors": errs,
+                     "scaled_errs": scaled_errs(zip(_COTANGENTS, cot,
+                                                    cot_ref), tol=None),
+                     "bitwise": bitwise,
+                     "ms": time_ms(lambda: fused_window_bwd(**bwd_args), dev,
+                                   reps=5),
+                     "plain_ms": time_ms(lambda: fused_window_bwd_plain(
+                         **a, gb1=gbs[0], gb2=gbs[1], gb3=bwd_args["gb3"]),
+                         dev, reps=2),
+                     "library_ms": None,
+                     **_window_bwd_bound(c, win, extra_bytes=buf3_bytes)}}
+        for part in ("fwd", "bwd"):
+            r[part]["bound_share"] = r[part]["bound_ms"] / r[part]["ms"]
+        out[mode] = r
+        print(f"  K2 mode {mode}: {r}", flush=True)
+    return out
+
+
+def phase_setup_ted(ctx) -> dict:
+    """TED, BiGRRGCN --impute --post-ensemble
+    (grid/icews14/config_bigrrgcn.json with both flags), on the smoke's
+    data at full width with seeded random weights; beside it the seconds
+    its frequency features take to build on the host."""
+    from temp_tpu_torch.data.frequency import build_freq_features
+
+    tctx = phase_setup(ctx["device"].type, config="config_bigrrgcn.json",
+                       data=ctx["data"], **{**ctx["setup_kw"], "impute": True,
+                                            "post_ensemble": True})
+    t0 = time.perf_counter()
+    build_freq_features(tctx["data"], tctx["cfg"].train_seq_len, future=True)
+    tctx["freq_s"] = time.perf_counter() - t0
+    return tctx
+
+
+def _unfused_launches_ok(dev, launches: dict, want, tag: str) -> None:
+    """On the card the kernels `want` launched and none of K3-K12 or the
+    ring's (a path whose final step runs one element at a time)."""
+    if dev.type != "cuda":
+        return
+    missed = [k for k in want if not launches[k] > 0]
+    extra = {k: launches[k] for k in _NOT_UNFUSED if launches[k]}
+    if missed or extra:
+        raise AssertionError(f"{tag}: missed {missed}, or launched {extra}")
+
+
+def phase_ted_path(tctx) -> dict:
+    """TED's valid sweep with the kernels and with their plain versions
+    (``phase_path``: MRR within MRR_TOL); K2f and K1f launched, none of
+    K3-K12; the gated eval's loss 0, as the reference reports it."""
+    res = phase_path(tctx)
+    k = res["kernels"]
+    _unfused_launches_ok(tctx["device"], k["launches"],
+                         ("spmm_fwd", "fused_window_fwd"), "ted eval")
+    if not (k["loss"] == 0.0 == res["plain"]["loss"]):
+        raise AssertionError(f"ted eval: loss {k['loss']}, not 0")
+    return res
+
+
+def phase_train_unfused(c) -> dict:
+    """The first steps of epoch 0 (TRAIN_STEPS, or c["train_steps"]) of a
+    model whose final step runs one element at a time (TED and the other
+    variants), with the kernels and with their plain versions, from the
+    same seeded weights and draws: the losses within TRAIN_TOL, every
+    parameter leaf (the gates' among them) within PARAM_TOL of the plain
+    path's change (``param_gaps``), K1f, K1b, K2f and K2b launched and none
+    of K3-K12."""
+    import numpy as np
+    import torch
+
+    dev = c["device"]
+    res, finals, init, names = {}, {}, None, None
+    for name, over in (("kernels", {}), ("plain", {"kernels": False})):
+        model, res[name], leaves, finals[name], _, params = _train_path(
+            c, c["cfg"].replace(**over))
+        if model.fused_final_on():
+            raise AssertionError(f"{name}: a fused final step")
+        if init is None:
+            init = leaves
+            names = _leaf_names(params)
+        elif not all(torch.equal(a, b) for a, b in zip(leaves, init)):
+            raise AssertionError(f"train {name}: other initial weights")
+        print(f"  train {name}: {res[name]}", flush=True)
+    x, y = np.array(res["kernels"]["losses"]), np.array(res["plain"]["losses"])
+    if not np.isfinite(x).all():
+        raise AssertionError(f"losses not finite: {x}")
+    res["max_rel_gap"] = float(np.max(np.abs(x - y)
+                                      / np.maximum(1.0, np.abs(y))))
+    if not res["max_rel_gap"] <= TRAIN_TOL:
+        raise AssertionError(f"loss trajectories differ: "
+                             f"{res['max_rel_gap']} > {TRAIN_TOL}")
+    res["params"] = param_gaps(init, finals, names=("kernels", "plain"))
+    gates = [k for k, n in enumerate(names) if n.startswith("gates/")]
+    res["gate_leaves"] = len(gates)
+    res["gate_leaves_moved"] = sum(
+        not torch.equal(finals["plain"][k], init[k]) for k in gates)
+    _unfused_launches_ok(dev, res["kernels"]["launches"], _UNFUSED_TRAIN,
+                         "train kernels")
+    if any(res["plain"]["launches"].values()):
+        raise AssertionError(f"train plain: kernels launched: "
+                             f"{res['plain']['launches']}")
+    res["ms_per_step"] = res["kernels"]["ms_per_step"]
+    return res
+
+
+def _leaf_names(tree, path=""):
+    """The paths of a parameter tree's leaves, in ``param_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{path}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{path}{i}/")]
+    return [path.rstrip("/")]
+
+
+def _eval_batch_ranks(c, kernels: bool):
+    """One valid batch of targets (``window_batch``'s) through the model of
+    c with the kernels or their plain versions, every counter from 0:
+    (ranks, mask) numpy, launches."""
+    import numpy as np
+    import torch
+
+    from temp_tpu_torch.models.registry import get_model
+
+    dev, data = c["device"], c["trainer"].data
+    model = get_model(c["cfg"].replace(kernels=kernels), c["data"],
+                      device=dev)
+    t_pos = np.arange(c["B"]) + data.num_times // 2
+    _reset_counts()
+    with torch.no_grad():
+        ranks, mask, _ = model.eval_ranks(c["params"], data, t_pos,
+                                          np.ones(c["B"], bool), "valid")
+    return ranks.cpu().numpy(), mask.cpu().numpy(), _counts()
+
+
+def phase_variants(ctx) -> dict:
+    """The other TeMP variants at full width and VARIANT_SEQ_LEN: GRRGCN
+    --impute --post-ensemble (K2's mode (a)), BiGRRGCN --post-aggregation
+    and plain BiGRRGCN (mode (b)): 2 training steps with the kernels and
+    with their plain versions (``phase_train_unfused``) and one valid batch
+    of each, held together (MRR within MRR_TOL, the same query mask)."""
+    import numpy as np
+
+    from temp_tpu_torch.models.objectives import metrics_from_ranks
+
+    out = {}
+    for tag, config, flags in _VARIANTS:
+        vctx = phase_setup(ctx["device"].type, config=config,
+                           data=ctx["data"],
+                           **{**ctx["setup_kw"], **flags,
+                              "train_seq_len": VARIANT_SEQ_LEN})
+        vctx["train_steps"] = 2
+        r = {"model": type(vctx["model"]).__name__,
+             "train": phase_train_unfused(vctx)}
+        (rk, mk, launches), (rp, mp, plain) = (
+            _eval_batch_ranks(vctx, k) for k in (True, False))
+        mk_, mp_ = metrics_from_ranks(rk, mk), metrics_from_ranks(rp, mp)
+        r["eval"] = {"mrr_kernels": mk_["mrr"], "mrr_plain": mp_["mrr"],
+                     "n": mk_["n"], "same_rank_share": float(
+                         np.mean(rk[mk] == rp[mp])), "launches": launches}
+        if not (np.array_equal(mk, mp) and mk_["n"] > 0
+                and abs(mk_["mrr"] - mp_["mrr"]) <= MRR_TOL):
+            raise AssertionError(f"variant {tag} eval: {r['eval']} "
+                                 f"(plain {mp_})")
+        _unfused_launches_ok(vctx["device"], launches,
+                             ("spmm_fwd", "fused_window_fwd"),
+                             f"variant {tag} eval")
+        if any(plain.values()):
+            raise AssertionError(f"variant {tag} eval plain: {plain}")
+        out[tag] = r
+        print(f"  variant {tag}: {r}", flush=True)
+    return out
+
+
 def phase_setup_ring(ctx) -> dict:
     """The smoke's dataset in the ring layout of RING_M ranks (ring_layout:
     each rank's edge slice holds the edges into its row shard, with K13's
@@ -2409,6 +2732,11 @@ def _paths(res: dict) -> dict:
     out["flagship_train_fused_mb"] = res["mb"]["flagship_train"]["launches"]
     out["ring_eval"] = res["ring_path"]["kernels"]["launches"]
     out["ring_train"] = res["ring_train"]["ring"]["launches"]
+    out["ted_eval"] = res["ted_path"]["kernels"]["launches"]
+    out["ted_train"] = res["ted_train"]["kernels"]["launches"]
+    for tag, r in res["variants"].items():
+        out[f"{tag}_train"] = r["train"]["kernels"]["launches"]
+        out[f"{tag}_eval"] = r["eval"]["launches"]
     return out
 
 
@@ -2464,6 +2792,12 @@ def kernels_line(res: dict) -> dict:
             r["flagship_mode"] = {
                 d: {k: res["k2_flagship"][d][f"{part}_{k}"] for k in keys}
                 for d in ("fwd", "bwd")}
+            # the TeMP variants' modes: (a) 3 buffers, no ReLU; (b) 2, ReLU
+            r["extra_modes"] = {
+                mode: {"shape": m["shape"], **{k: m[part][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms",
+                    "bound_share", "max_abs_err", "bitwise")}}
+                for mode, m in res["k2_modes"].items()}
         if name == "bi_layer_bwd":
             r["gru_launch"] = {k: m[f"gru_{k}"] for k in (
                 "ms", "bound_ms", "bound_by", "bound_tc_ms", "bound_share")}
@@ -2583,6 +2917,34 @@ def main() -> int:
         mb["flagship_train_bitwise"] = mb["flagship_train"]["bitwise"]
         mb["eval_ranks_equal"] = mb["eval"]["ranks_equal"]
     res["mb"] = mb
+    with phase("k2_modes", {}) as km:
+        km.update(phase_k2_modes(ctx, fctx))
+        for mode in list(km):
+            if isinstance(km[mode], dict):
+                km[f"{mode}_fwd_ms"] = km[mode]["fwd"]["ms"]
+                km[f"{mode}_bwd_ms"] = km[mode]["bwd"]["ms"]
+    res["k2_modes"] = {m: km[m] for m, _, _ in _K2_MODES}
+    with phase("ted_setup", {}) as ts:
+        tctx = phase_setup_ted(ctx)
+        ts.update({k: tctx[k] for k in ("N", "A", "E", "L1", "B", "d",
+                                        "freq_s")})
+    with phase("ted_path", {}) as tp:
+        tp.update(phase_ted_path(tctx))
+        for name in ("kernels", "plain"):
+            tp[f"mrr_{name}"] = tp[name]["mrr"]
+            tp[f"wall_s_{name}"] = tp[name]["wall_s"]
+            tp[f"queries_per_s_{name}"] = tp[name]["queries_per_s"]
+    res["ted_path"] = tp
+    with phase("ted_train", {}) as tt:
+        tt.update(phase_train_unfused(tctx))
+        tt["ms_per_step_plain"] = tt["plain"]["ms_per_step"]
+    res["ted_train"] = tt
+    with phase("variants", {}) as va:
+        va.update(phase_variants(ctx))
+        for tag in list(va):
+            if isinstance(va[tag], dict):
+                va[f"{tag}_ms_per_step"] = va[tag]["train"]["ms_per_step"]
+    res["variants"] = {t: va[t] for t, _, _ in _VARIANTS}
     with phase("ring_setup", {}) as rs:
         rctx = phase_setup_ring(ctx)
         rs.update({k: rctx[k] for k in ("N", "A", "E", "B", "d", "rows",

@@ -115,6 +115,12 @@ def gather_window(data: TKGData, t_pos, length: int,
 class DynamicRGCNModel:
     """GRRGCN (reference models/DynamicRGCN.py)."""
 
+    # whether the windows carry the third (local) history stream
+    with_loc = False
+    # whether the model runs under an edge partition (``parallel/``); the
+    # subclasses do not yet
+    partitionable = True
+
     def __init__(self, cfg: TKGConfig, data: TKGData, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -149,15 +155,18 @@ class DynamicRGCNModel:
         """Seeded init (drawn on the CPU, then moved to the model's device,
         so a seed gives the same weights on every device)."""
         gen = torch.Generator().manual_seed(int(seed))
+        return _tree_to(self.init_tree(gen), self.device)
+
+    def init_tree(self, gen: torch.Generator) -> Dict[str, Any]:
+        """The parameter tree on the CPU, drawn from `gen` in order."""
         d = self.cfg.embed_size
-        params = {
+        return {
             "ent_embeds": xavier_uniform(gen, (self.num_ents, d), RELU_GAIN),
             "rel_embeds": xavier_uniform(gen, (2 * self.num_rels, d),
                                          RELU_GAIN),
             "encoder": init_encoder(gen, self.cfg, self.num_rels,
                                     self.num_times),
         }
-        return _tree_to(params, self.device)
 
     # -- forward ------------------------------------------------------------
 
@@ -266,6 +275,10 @@ class DynamicRGCNModel:
         weights and the backward history tables; "fwd" the forward one on
         gru_fwd (the Bi models); None the unidirectional model's.
         """
+        if not self.partitionable and manual_axis() is not None:
+            raise NotImplementedError(
+                f"{type(self).__name__} under an edge partition is not "
+                f"ported yet; see ROADMAP.md")
         cfg = self.cfg
         d = cfg.embed_size
         L1 = length - 1
@@ -343,6 +356,27 @@ class DynamicRGCNModel:
                       for buf in bufs)
         return hists + (fin_step.clamp(min=0).to(torch.float32),)
 
+    def final_snapshot(self, data: TKGData, t_pos: int, length: int,
+                       emask=None) -> Snapshot:
+        """The target snapshot t_pos, the last of a window of `length`, on
+        `emask` [E] bool (its train edges when None; the 50% subsample in
+        training)."""
+        tp = torch.tensor(int(t_pos), device=self.device)
+        win = gather_window(data, tp, length)
+        last = length - 1
+        return Snapshot(src=win.src[last], dst=win.dst[last],
+                        rel=win.rel[last],
+                        emask=win.emask[last] if emask is None else emask,
+                        t_idx=win.t_idx[last], valid=win.valid[last],
+                        active=win.active[last], t_pos=win.t_idx[last],
+                        tables=win.tables)
+
+    def element_hists(self, params, data: TKGData, t_pos: int, length: int):
+        """One target's history (eval), as ``batch_hists`` gives it."""
+        tp = torch.tensor([int(t_pos)], device=self.device)
+        return tuple(h[0] for h in self.batch_hists(params, data, tp,
+                                                    length))
+
     def forward_element(self, params, data: TKGData, t_pos: int, hists=None,
                         train: bool = False, emask=None, masks=(None, None)):
         """Full forward for one target time -> dense [N, d] entity table.
@@ -355,27 +389,23 @@ class DynamicRGCNModel:
         None without dropout); ``draw_train`` draws them.
         """
         length = self.train_len if train else self.eval_len
-        tp = torch.tensor(int(t_pos), device=self.device)
-        win = gather_window(data, tp, length)
         if hists is None:
-            hists = tuple(h[0] for h in self.batch_hists(
-                params, data, tp[None], length))
+            hists = self.element_hists(params, data, t_pos, length)
         hist1, hist2, last_pos = hists
-        last = length - 1
-        snap = Snapshot(src=win.src[last], dst=win.dst[last],
-                        rel=win.rel[last],
-                        emask=win.emask[last] if emask is None else emask,
-                        t_idx=win.t_idx[last], valid=win.valid[last],
-                        active=win.active[last], t_pos=win.t_idx[last],
-                        tables=win.tables)
-        dt = last - last_pos
+        snap = self.final_snapshot(data, t_pos, length, emask)
+        dt = (length - 1) - last_pos
         emb = params["ent_embeds"]
         _, out2, _ = encoder_forward(params["encoder"], self.cfg, self.lc1,
                                      self.lc2, emb, snap, hist1, hist2, dt,
                                      train=train, masks=masks)
-        if self.cfg.use_embed_for_non_active:
-            out2 = torch.where(snap.active[:, None], out2, emb)
-        return out2
+        return self.embed_non_active(params, snap.active, out2)
+
+    def embed_non_active(self, params, active, table):
+        """`table` with the rows of the entities not `active` [N] replaced
+        by their input embeddings when ``use_embed_for_non_active``."""
+        if not self.cfg.use_embed_for_non_active:
+            return table
+        return torch.where(active[:, None], table, params["ent_embeds"])
 
     # -- training -----------------------------------------------------------
 
@@ -419,7 +449,8 @@ class DynamicRGCNModel:
         masks = None if draws is None else (draws["win1"], draws["win2"])
         return self.pre_forward(params, gather_window(data, tp, length),
                                 length, tp, conv1_xs=c1,
-                                train=draws is not None, masks=masks)
+                                train=draws is not None, masks=masks,
+                                with_loc=self.with_loc)
 
     def fused_final_losses(self, params, data: TKGData, tp, draws, hists):
         """The final steps and losses of the B targets tp as one call of
@@ -461,23 +492,31 @@ class DynamicRGCNModel:
     def unfused_final_loss(self, params, data: TKGData, t_host, tv, hists,
                            draws):
         """The final steps and losses of the targets t_host one at a time
-        (``forward_element`` and ``train_loss_single``; K1 on the card),
-        summed over the elements whose tv is True. `hists`: the batch's
-        ``batch_hists``; `draws` as in ``loss``."""
-        tr = data.train
+        (``element_loss``; K1 on the card), summed over the elements whose
+        tv is True. `hists`: the batch's ``batch_hists``; `draws` as in
+        ``loss``."""
         total = torch.zeros((), device=self.device)
         for b, t in enumerate(t_host):
             if not tv[b]:
                 continue
             fin = (None, None) if draws["fin1"] is None else (
                 draws["fin1"][b], draws["fin2"][b])
-            table = self.forward_element(
-                params, data, t, hists=tuple(h[b] for h in hists),
-                train=True, emask=draws["edges"][b], masks=fin)
-            total = total + train_loss_single(
-                self.cfg, data, self.score_all, params["rel_embeds"], table,
-                t, tr.src[t], tr.rel[t], tr.dst[t], draws["pos"][b])
+            total = total + self.element_loss(
+                params, data, t, tuple(h[b] for h in hists),
+                draws["edges"][b], fin, draws["pos"][b])
         return total
+
+    def element_loss(self, params, data: TKGData, t_pos: int, hists, emask,
+                     masks, pos):
+        """One target's training loss from its history `hists`, on the
+        edge subsample `emask` with the self-loop keep masks `masks`, over
+        the positives `pos` (``forward_element``, ``train_loss_single``)."""
+        tr = data.train
+        table = self.forward_element(params, data, t_pos, hists=hists,
+                                     train=True, emask=emask, masks=masks)
+        return train_loss_single(
+            self.cfg, data, self.score_all, params["rel_embeds"], table,
+            t_pos, tr.src[t_pos], tr.rel[t_pos], tr.dst[t_pos], pos)
 
     # -- objectives ---------------------------------------------------------
 
@@ -491,7 +530,6 @@ class DynamicRGCNModel:
         ``fused_eval_on`` the final steps and ranks of all B targets run as
         one call of K11 (which runs layer 1 of the final snapshot itself),
         else one target at a time."""
-        edges = {"valid": data.valid, "test": data.test}[split]
         t_host = [int(t) for t in np.asarray(t_pos)]
         tp = torch.tensor(t_host, device=self.device)
         tv = torch.as_tensor(np.asarray(t_valid, bool), device=self.device)
@@ -511,17 +549,23 @@ class DynamicRGCNModel:
                                     loop2, g1, g2, rtab)
             mask = mask & tv[:, None]
             return ranks, mask, _mean_bce(bces, mask)
-        out = []
-        for b, t in enumerate(t_host):
-            table = self.forward_element(
-                params, data, t, hists=tuple(h[b] for h in hists))
-            out.append(eval_ranks_single(
-                self.cfg, data, self.score_all, self.score_single,
-                params["rel_embeds"], table, t, edges.src[t], edges.rel[t],
-                edges.dst[t], edges.emask[t]))
+        out = [self.element_ranks(params, data, t,
+                                  tuple(h[b] for h in hists), split)
+               for b, t in enumerate(t_host)]
         ranks = torch.stack([o[0] for o in out])
         mask = torch.stack([o[1] for o in out]) & tv[:, None]
         return ranks, mask, _mean_bce(torch.stack([o[2] for o in out]), mask)
+
+    def element_ranks(self, params, data: TKGData, t_pos: int, hists,
+                      split: str):
+        """One target's (ranks [2Q], mask [2Q], bce) on `split` from its
+        history `hists` (``forward_element``, ``eval_ranks_single``)."""
+        edges = getattr(data, split)
+        table = self.forward_element(params, data, t_pos, hists=hists)
+        return eval_ranks_single(
+            self.cfg, data, self.score_all, self.score_single,
+            params["rel_embeds"], table, t_pos, edges.src[t_pos],
+            edges.rel[t_pos], edges.dst[t_pos], edges.emask[t_pos])
 
 
 def _mean_bce(bces, mask):

@@ -3,9 +3,9 @@
 Layer 1 maps embed -> hidden and layer 2 hidden -> hidden, both without bias;
 layer 2 has no activation in the unidirectional recurrent models and a ReLU
 in the Bi models, whose layers own a GRU for each direction. Both layers'
-outputs are history state. Ported so far: GRRGCN without time embeddings,
-imputation or gating, and BiGRRGCN with imputation (the flagship,
-``models/post.py``); other configurations raise.
+outputs are history state. Ported so far: GRRGCN and BiGRRGCN, with or
+without imputation and the Post gates (``models/post.py``), without time
+embeddings; other configurations raise.
 """
 
 from __future__ import annotations
@@ -16,8 +16,8 @@ import torch
 
 from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.models.layers import (
-    LayerCfg, Snapshot, decay_factor, grrgcn_layer, init_grrgcn_layer,
-    rgcn_conv,
+    LayerCfg, Snapshot, bigrrgcn_layer_center, decay_factor, grrgcn_layer,
+    init_grrgcn_layer, rgcn_conv,
 )
 from temp_tpu_torch.ops.gru import GRU_KEY, gru_stack
 
@@ -50,16 +50,12 @@ def make_layer_cfgs(cfg: TKGConfig, num_rels: int,
 
 
 def _check_ported(cfg: TKGConfig) -> None:
-    """GRRGCN without imputation, and BiGRRGCN with it, pass; everything
-    else raises."""
+    """GRRGCN and BiGRRGCN, with or without ``impute``, ``post_ensemble``
+    and ``post_aggregation``, pass; the other modules and flags raise."""
     if cfg.module not in ("GRRGCN", "BiGRRGCN"):
         raise NotImplementedError(f"module {cfg.module} is not ported yet")
-    if cfg.impute != cfg.module.startswith("Bi"):
-        raise NotImplementedError(
-            f"module {cfg.module} with impute={cfg.impute} is not ported yet")
     for flag in ("rec_only_last_layer", "type1", "learnable_lambda",
-                 "use_time_embedding", "post_ensemble", "post_aggregation",
-                 "edge_dropout", "random_dropout"):
+                 "use_time_embedding", "edge_dropout", "random_dropout"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag} is not ported yet")
 
@@ -103,6 +99,22 @@ def encoder_forward(p, cfg: TKGConfig, lc1: LayerCfg, lc2: LayerCfg, h0,
     out2 = gru_stack(p["layer2"][GRU_KEY[direction]], conv2,
                      prev2 * decay_factor(p["layer2"], cfg, dt))
     return out1, out2, conv2
+
+
+def encoder_forward_center(p, cfg: TKGConfig, lc1: LayerCfg, lc2: LayerCfg,
+                           h0, snap: Snapshot, prev1_f, prev2_f, dt_f,
+                           prev1_b, prev2_b, dt_b, train: bool = False,
+                           masks=(None, None)):
+    """The target snapshot through the Bi container, both windows' states
+    meeting in each layer (``bigrrgcn_layer_center``). Returns (out2,
+    local2); `train` and `masks` as in ``encoder_forward``."""
+    _, out1 = bigrrgcn_layer_center(p["layer1"], cfg, lc1, h0, snap, prev1_f,
+                                    dt_f, prev1_b, dt_b, train=train,
+                                    mask=masks[0])
+    local2, out2 = bigrrgcn_layer_center(p["layer2"], cfg, lc2, out1, snap,
+                                         prev2_f, dt_f, prev2_b, dt_b,
+                                         train=train, mask=masks[1])
+    return out2, local2
 
 
 def calc_impute_weight(p, dt, direction=None):

@@ -1,5 +1,5 @@
 """RGCN layer with GRU recurrence (the GRRGCN layer, and the BiGRRGCN layer,
-which owns a GRU for each direction).
+which owns a GRU for each direction and sums both at the target snapshot).
 
 Dense unified formulation: a layer maps the entity rows it is given [M, d_in]
 -> [M, d_out] for one snapshot's padded edge list; rows without in-edges get
@@ -165,3 +165,18 @@ def grrgcn_layer(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot, prev,
     h0 = prev * decay_factor(p, cfg, dt)
     rec = gru_stack(p[GRU_KEY[direction]], conv, h0)
     return conv, rec, layer_time_embedding(p, snap)
+
+
+def bigrrgcn_layer_center(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
+                          prev_f, dt_f, prev_b, dt_b, conv_in: bool = False,
+                          train: bool = False, mask=None):
+    """The Bi layer at the target snapshot, where the two windows meet: the
+    conv output into the forward GRU (from the forward window's state) and
+    into the backward one (from the backward window's), their outputs
+    summed. Returns (conv_out, rec_out); `conv_in`, `train` and `mask` as
+    in ``grrgcn_layer``."""
+    conv = h if conv_in else rgcn_conv(p, cfg, lc, h, snap, train, mask)
+    rec = (gru_stack(p["gru_fwd"], conv, prev_f * decay_factor(p, cfg, dt_f))
+           + gru_stack(p["gru_bwd"], conv,
+                       prev_b * decay_factor(p, cfg, dt_b)))
+    return conv, rec

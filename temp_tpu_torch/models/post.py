@@ -1,175 +1,294 @@
-"""The imputation variants of the recurrent models (the flagship BiGRRGCN
-``--impute``).
+"""The TeMP variants of the recurrent models: imputation and the frequency
+gates (``--impute``, ``--post-aggregation``, ``--post-ensemble``).
 
 Reference: the JAX package's ``models/post.py`` (after the reference's
-models/PostDynamicRGCN.py and models/PostBiDynamicRGCN.py). With
-``--impute`` the layer-2 input of the snapshot's INACTIVE entities is
-blended with their last local (pre-GRU) embedding, weighted by
-exp(-max(w * dt + b, 0)), halved on each side in the Bi model; the blend
-feeds the GRUs. The windows therefore carry a third history stream, layer
-2's local output (``pre_forward(with_loc=True)``).
+models/PostDynamicRGCN.py, models/PostBiDynamicRGCN.py and
+utils/post_evaluation.py). The final step gives two tables: the local one,
+layer 2's conv output, and the recurrent one, the GRUs' output. The
+windows therefore carry a third history stream, layer 2's local output
+(``pre_forward(with_loc=True)``).
 
-Ported: ``PostBiDynamicRGCNModel`` with impute and no gates, trained through
-the fused final step K6-K10 (``ops/fused_final_bi.py``) when
-``fused_final`` is on and the config is inside its envelope, else one
-element at a time (``forward_element``, K1 on the card). The gates
-(``post_aggregation``, ``post_ensemble``) and the unidirectional impute
-model are not ported yet: ``PostDynamicRGCNModel`` holds what the two share
-and raises for the rest. Under an edge partition (``parallel/``) the impute
-variants raise too.
+- ``--impute``: the local rows of the snapshot's INACTIVE entities are
+  blended with their last local embedding, weighted by
+  exp(-max(w * dt + b, 0)), halved on each side in the Bi model. Without a
+  gate the blend also feeds the GRUs and the model scores the recurrent
+  table, one element at a time as ``DynamicRGCNModel`` does (the flagship
+  BiGRRGCN ``--impute`` through the fused final step K6-K10 when
+  ``fused_final`` is on).
+- ``--post-aggregation``: two tiny MLPs map per-query frequency features
+  (``data/frequency.py``) to a sigmoid gate that blends the local and the
+  recurrent EMBEDDINGS before scoring. Quirks of the reference kept: four
+  MLPs are made and two used, and the head loss's "blended" object reads
+  the recurrent table.
+- ``--post-ensemble`` (the paper's TED): two MLPs blend the local and the
+  recurrent SCORES. Eval pairs the gates opposite to training (the tail
+  ranks take the subject's gate), as the reference does.
+
+Under a gate the GRUs take the unblended conv output, and training and
+eval run one element at a time (K2 for the windows, K1 in the final
+step), the eval reporting a loss of 0 as the reference's does.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from temp_tpu_torch.config import TKGConfig
-from temp_tpu_torch.data.snapshots import TKGData
-from temp_tpu_torch.models.dynamic import DynamicRGCNModel, gather_window
+from temp_tpu_torch.data.frequency import build_freq_features
+from temp_tpu_torch.data.snapshots import TKGData, to_device
+from temp_tpu_torch.models.bidynamic import BiWindows
+from temp_tpu_torch.models.dynamic import DynamicRGCNModel
 from temp_tpu_torch.models.encoders import _base_module, calc_impute_weight
 from temp_tpu_torch.models.layers import (
-    Snapshot, decay_factor, dropout_mask, rgcn_conv,
+    bigrrgcn_layer_center, grrgcn_layer, rgcn_conv,
+)
+from temp_tpu_torch.models.objectives import (
+    _masked_mean, both_ranks, cross_entropy_0, make_raw_scorers,
 )
 from temp_tpu_torch.ops.fused_final_bi import (
     final_graph_bi, fused_final_bi_loss, fused_final_bi_supported,
 )
-from temp_tpu_torch.ops.gru import gru_stack
-from temp_tpu_torch.parallel.mesh import manual_axis
+from temp_tpu_torch.ops.scores import query_for
 
-PARTITION_UNPORTED = ("the impute variants under an edge partition are not "
-                      "ported yet; see ROADMAP.md")
+# the gate MLPs by flag; post_aggregation's last two are never used (kept
+# for the parameter tree's parity with the reference)
+GATES = {"post_aggregation": ("sqse", "oqse", "sqoe", "oqoe"),
+         "post_ensemble": ("subject", "object")}
+
+
+def init_gate_mlp(gen: torch.Generator):
+    """Linear(3, 3), ReLU, Linear(3, 1) with torch's default init: every
+    weight and bias U(-1/sqrt(3), 1/sqrt(3))."""
+    b = 1.0 / math.sqrt(3)
+
+    def u(*shape):
+        return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * b
+
+    return {"w1": u(3, 3), "b1": u(3), "w2": u(1, 3), "b2": u(1)}
+
+
+def gate_weight(p, x):
+    """sigmoid(MLP(features x [Q, 3])) -> [Q] in (0, 1)."""
+    h = torch.relu(x @ p["w1"].T + p["b1"])
+    return torch.sigmoid((h @ p["w2"].T + p["b2"])[..., 0])
 
 
 class PostDynamicRGCNModel(DynamicRGCNModel):
-    """The shared part of the impute variants: the windows with the local
-    stream, and the table the decoder scores (the recurrent one)."""
+    """The unidirectional variants (GRRGCN base), and what the Bi ones
+    share: the windows with the local stream, the gates, the gated loss and
+    ranks."""
+
+    with_loc = True
+    partitionable = False
 
     def __init__(self, cfg: TKGConfig, data: TKGData, device="cuda"):
         if _base_module(cfg.module) != "GRRGCN":
             raise NotImplementedError(
-                f"the impute variants need a GRU module, not {cfg.module}")
-        if cfg.post_aggregation or cfg.post_ensemble:
-            raise NotImplementedError("the post_aggregation and "
-                                      "post_ensemble gates are not ported "
-                                      "yet; see ROADMAP.md")
+                f"the Post variants need a GRU module, not {cfg.module}")
         super().__init__(cfg, data, device=device)
+        self.freq = None
+        if self.gated:
+            self.freq = to_device(build_freq_features(
+                data, cfg.train_seq_len, future=cfg.module.startswith("Bi")),
+                self.device)
 
-    def pre_forward_loc(self, params, win, length: int, t_pos, train=False,
-                        masks=None, direction=None):
-        """``pre_forward`` carrying the local stream: (hist1, hist2,
-        hist_loc, last_pos). Raises under an edge partition."""
-        if manual_axis() is not None:
-            raise NotImplementedError(PARTITION_UNPORTED)
-        return self.pre_forward(params, win, length, t_pos, train=train,
-                                masks=masks, direction=direction,
-                                with_loc=True)
+    @property
+    def gated(self) -> bool:
+        return bool(self.cfg.post_aggregation or self.cfg.post_ensemble)
+
+    def init_tree(self, gen: torch.Generator):
+        """``DynamicRGCNModel``'s tree and, under a gate, its MLPs as
+        "gates" (``GATES``), drawn after it."""
+        p = super().init_tree(gen)
+        for flag, names in GATES.items():
+            if getattr(self.cfg, flag):
+                p["gates"] = {n: init_gate_mlp(gen) for n in names}
+                break
+        return p
+
+    # -- the final step -----------------------------------------------------
+
+    def local_and_gru_input(self, snap, conv2, blended):
+        """(loc, the layer-2 GRUs' input) from layer 2's conv output and the
+        impute blend (None without impute): the blend on the inactive rows
+        is the local table, which also feeds the GRUs unless a gate is on
+        (then they take the conv output)."""
+        loc = conv2 if blended is None else torch.where(
+            snap.active[:, None], conv2, blended)
+        return loc, conv2 if self.gated else loc
 
     def forward_tables(self, params, data: TKGData, t_pos: int, hists,
                        train: bool = False, emask=None, masks=(None, None)):
-        raise NotImplementedError("the unidirectional impute model is not "
-                                  "ported yet; see ROADMAP.md")
+        """(loc, rec) [N, d] of one target from its ``batch_hists``
+        (hist1, hist2, hist_loc, last_pos): layer 1 (SpMM and self-loop, K1
+        on the card) and its GRU; layer 2's conv output, blended with the
+        local history on the inactive rows under impute (loc), into its GRU
+        (rec). `train`, `emask` and `masks` as in
+        ``DynamicRGCNModel.forward_element``."""
+        cfg, enc = self.cfg, params["encoder"]
+        h1, h2, hl, lp = hists
+        length = self.train_len if train else self.eval_len
+        snap = self.final_snapshot(data, t_pos, length, emask)
+        dt = (length - 1) - lp
+        _, out1, _ = grrgcn_layer(enc["layer1"], cfg, self.lc1,
+                                  params["ent_embeds"], snap, h1, dt,
+                                  train=train, mask=masks[0])
+        conv2 = rgcn_conv(enc["layer2"], cfg, self.lc2, out1, snap, train,
+                          masks[1])
+        blended = None
+        if cfg.impute:
+            w = calc_impute_weight(enc, dt)
+            blended = w * hl + (1.0 - w) * conv2
+        loc, gru_in = self.local_and_gru_input(snap, conv2, blended)
+        _, rec, _ = grrgcn_layer(enc["layer2"], cfg, self.lc2, gru_in, snap,
+                                 h2, dt, conv_in=True)
+        return loc, rec
 
     def forward_element(self, params, data: TKGData, t_pos: int, hists=None,
                         train: bool = False, emask=None, masks=(None, None)):
         """The recurrent table of ``forward_tables`` (the table the impute
-        variants score), with ``use_embed_for_non_active``'s select.
+        variant scores), with ``use_embed_for_non_active``'s select.
         Arguments as in ``DynamicRGCNModel.forward_element``; `hists` this
         element's ``batch_hists``."""
         length = self.train_len if train else self.eval_len
-        tp = torch.tensor(int(t_pos), device=self.device)
         if hists is None:
-            hists = tuple(h[0] for h in self.batch_hists(
-                params, data, tp[None], length))
+            hists = self.element_hists(params, data, t_pos, length)
         _, rec = self.forward_tables(params, data, t_pos, hists, train=train,
                                      emask=emask, masks=masks)
-        if self.cfg.use_embed_for_non_active:
-            rec = torch.where(data.active[tp][:, None], rec,
-                              params["ent_embeds"])
-        return rec
+        return self.embed_non_active(params, data.active[int(t_pos)], rec)
+
+    # -- the gates ----------------------------------------------------------
+
+    def gate_weights(self, params, split: str, t_pos: int):
+        """(w_sub, w_obj) [Q, 1]: the gates of the subject and the object
+        query of each edge slot of `split` at t_pos, from its frequency
+        features. post_aggregation's weights both come from its first two
+        MLPs ("sqse", "oqse"), as the reference's do."""
+        sub = getattr(self.freq, f"{split}_sub")[t_pos]
+        obj = getattr(self.freq, f"{split}_obj")[t_pos]
+        g = params["gates"]
+        names = GATES["post_aggregation" if self.cfg.post_aggregation
+                      else "post_ensemble"]
+        return (gate_weight(g[names[0]], sub)[:, None],
+                gate_weight(g[names[1]], obj)[:, None])
+
+    def element_loss(self, params, data: TKGData, t_pos: int, hists, emask,
+                     masks, pos):
+        """One target's training loss (``DynamicRGCNModel.element_loss``);
+        under a gate the gated cross-entropy over both tables."""
+        if not self.gated:
+            return super().element_loss(params, data, t_pos, hists, emask,
+                                        masks, pos)
+        loc, rec = self.forward_tables(params, data, t_pos, hists,
+                                       train=True, emask=emask, masks=masks)
+        tr = data.train
+        src, rel, dst = (x[t_pos].long() for x in (tr.src, tr.rel, tr.dst))
+        r_emb = params["rel_embeds"][rel]
+        w_s, w_o = self.gate_weights(params, "train", t_pos)
+        score_t, score_h = make_raw_scorers(self.cfg, data, t_pos, src, rel,
+                                            dst)
+
+        def q(ent, mode):
+            return query_for(self.score_all, ent, r_emb, mode)
+
+        if self.cfg.post_aggregation:
+            # tail: the subject blended by the object query's gate
+            qt = q(w_o * loc[src] + (1 - w_o) * rec[src], "tail")
+            sc_t = w_o * score_t(qt, loc) + (1 - w_o) * score_t(qt, rec)
+            # head: the reference's "blended" object reads the rec table
+            qh = q(rec[dst], "head")
+            sc_h = w_s * score_h(qh, loc) + (1 - w_s) * score_h(qh, rec)
+        else:
+            # the object query's gate weighs the tail scores, the
+            # subject's the head scores
+            sc_t = (w_o * score_t(q(loc[src], "tail"), loc)
+                    + (1 - w_o) * score_t(q(rec[src], "tail"), rec))
+            sc_h = (w_s * score_h(q(loc[dst], "head"), loc)
+                    + (1 - w_s) * score_h(q(rec[dst], "head"), rec))
+        return (_masked_mean(cross_entropy_0(sc_t), pos)
+                + _masked_mean(cross_entropy_0(sc_h), pos))
+
+    def element_ranks(self, params, data: TKGData, t_pos: int, hists,
+                      split: str):
+        """One target's (ranks, mask, bce) on `split`
+        (``DynamicRGCNModel.element_ranks``); under a gate the gated
+        scores' ranks, and a bce of 0 (the reference computes no eval loss
+        for the gated models)."""
+        if not self.gated:
+            return super().element_ranks(params, data, t_pos, hists, split)
+        loc, rec = self.forward_tables(params, data, t_pos, hists)
+        edges = getattr(data, split)
+        src, rel, dst = (x[t_pos].long()
+                         for x in (edges.src, edges.rel, edges.dst))
+        r_emb = params["rel_embeds"][rel]
+        w_s, w_o = self.gate_weights(params, split, t_pos)
+
+        def sc(ent, table, mode):
+            return self.score_all(ent, r_emb, table, mode)
+
+        if self.cfg.post_aggregation:
+            s = w_o * loc[src] + (1 - w_o) * rec[src]
+            sc_tail = w_o * sc(s, loc, "tail") + (1 - w_o) * sc(s, rec, "tail")
+            # the object blended here, unlike in the loss
+            o = w_s * loc[dst] + (1 - w_s) * rec[dst]
+            sc_head = w_s * sc(o, loc, "head") + (1 - w_s) * sc(o, rec, "head")
+        else:
+            # the gates paired opposite to training: the subject query's
+            # gate weighs the tail scores
+            sc_tail = (w_s * sc(loc[src], loc, "tail")
+                       + (1 - w_s) * sc(rec[src], rec, "tail"))
+            sc_head = (w_o * sc(loc[dst], loc, "head")
+                       + (1 - w_o) * sc(rec[dst], rec, "head"))
+        qmask = edges.emask[t_pos]
+        return (both_ranks(data, t_pos, sc_tail, sc_head, src, rel, dst),
+                torch.cat([qmask, qmask]),
+                torch.zeros((), device=self.device))
 
 
-class PostBiDynamicRGCNModel(PostDynamicRGCNModel):
-    """BiGRRGCN with imputation (reference models/PostBiDynamicRGCN.py):
-    a forward and a backward window, whose layer-1 and layer-2 GRUs meet at
-    the target snapshot (center fusion: rec = GRU_f + GRU_b)."""
+class PostBiDynamicRGCNModel(BiWindows, PostDynamicRGCNModel):
+    """The Bi variants (reference models/PostBiDynamicRGCN.py), the
+    flagship BiGRRGCN ``--impute`` among them: a forward and a backward
+    window, whose layer-1 and layer-2 GRUs meet at the target snapshot
+    (rec = GRU_f + GRU_b)."""
 
     def fused_final_on(self) -> bool:
         """Whether training runs the final step and loss through K6-K10
-        (the dispatch of the JAX package's ``PostBiDynamicRGCNModel.loss``)."""
+        (the dispatch of the JAX package's ``PostBiDynamicRGCNModel.loss``:
+        impute without a gate)."""
         return (self.cfg.fused_final_on(self.device)
                 and type(self) is PostBiDynamicRGCNModel
                 and fused_final_bi_supported(self.cfg,
                                              _base_module(self.cfg.module)))
 
-    def draw_train(self, gen: torch.Generator, data: TKGData, t_pos):
-        """``DynamicRGCNModel.draw_train`` (its "win1"/"win2" the forward
-        window's masks) and "win1_b"/"win2_b", the backward window's."""
-        out = super().draw_train(gen, data, t_pos)
-        out["win1_b"] = out["win2_b"] = None
-        L1 = self.train_len - 1
-        rate = self.lc1.dropout
-        if rate > 0.0 and L1 > 0:
-            shape = (t_pos.shape[0], L1, data.act_idx.shape[-1],
-                     self.cfg.embed_size)
-            for key in ("win1_b", "win2_b"):
-                out[key] = dropout_mask(gen, shape, rate, self.device)
-        return out
-
-    def batch_hists(self, params, data: TKGData, tp, length: int,
-                    draws=None, conv1_all=None):
-        """Both windows of B targets: (h1f, h2f, hlf, lpf, h1b, h2b, hlb,
-        lpb), the forward window's ``pre_forward_loc`` then the backward
-        one's. `conv1_all` is always None here (``precompute_eval_conv1``
-        gives the Post models none, as in the JAX package)."""
-        if conv1_all is not None:
-            raise ValueError("the Post models take no precomputed convs")
-        out = ()
-        for direction, keys in (("fwd", ("win1", "win2")),
-                                ("bwd", ("win1_b", "win2_b"))):
-            win = gather_window(data, tp, length,
-                                backward=direction == "bwd")
-            masks = None if draws is None else tuple(draws[k] for k in keys)
-            out += self.pre_forward_loc(params, win, length, tp,
-                                        train=draws is not None, masks=masks,
-                                        direction=direction)
-        return out
-
     def forward_tables(self, params, data: TKGData, t_pos: int, hists,
                        train: bool = False, emask=None, masks=(None, None)):
         """(loc, rec) [N, d] of one target from its ``batch_hists``: layer 1
         (SpMM and self-loop, K1 on the card) into both GRUs, summed; layer 2
-        with its ReLU, the impute blend on the inactive rows (loc) feeding
-        both GRUs, summed (rec). `train`, `emask` and `masks` as in
+        with its ReLU, under impute blended with both windows' local
+        histories on the inactive rows (loc), into both GRUs, summed (rec).
+        `train`, `emask` and `masks` as in
         ``DynamicRGCNModel.forward_element``."""
-        cfg = self.cfg
-        enc = params["encoder"]
-        p1, p2 = enc["layer1"], enc["layer2"]
+        cfg, enc = self.cfg, params["encoder"]
         h1f, h2f, hlf, lpf, h1b, h2b, hlb, lpb = hists
         length = self.train_len if train else self.eval_len
-        last = length - 1
-        tp = torch.tensor(int(t_pos), device=self.device)
-        win = gather_window(data, tp, length)
-        snap = Snapshot(src=win.src[last], dst=win.dst[last],
-                        rel=win.rel[last],
-                        emask=win.emask[last] if emask is None else emask,
-                        t_idx=win.t_idx[last], valid=win.valid[last],
-                        active=win.active[last], t_pos=win.t_idx[last],
-                        tables=win.tables)
-        dtf, dtb = last - lpf, last - lpb
-        conv1 = rgcn_conv(p1, cfg, self.lc1, params["ent_embeds"], snap,
-                          train, masks[0])
-        out1 = (gru_stack(p1["gru_fwd"], conv1,
-                          h1f * decay_factor(p1, cfg, dtf))
-                + gru_stack(p1["gru_bwd"], conv1,
-                            h1b * decay_factor(p1, cfg, dtb)))
-        conv2 = rgcn_conv(p2, cfg, self.lc2, out1, snap, train, masks[1])
-        w_f = calc_impute_weight(enc, dtf, "fwd")
-        w_b = calc_impute_weight(enc, dtb, "bwd")
-        blended = w_f * hlf + w_b * hlb + (1.0 - w_f - w_b) * conv2
-        loc = torch.where(snap.active[:, None], conv2, blended)
-        rec = (gru_stack(p2["gru_fwd"], loc, h2f * decay_factor(p2, cfg, dtf))
-               + gru_stack(p2["gru_bwd"], loc,
-                           h2b * decay_factor(p2, cfg, dtb)))
+        snap = self.final_snapshot(data, t_pos, length, emask)
+        dtf, dtb = (length - 1) - lpf, (length - 1) - lpb
+        _, out1 = bigrrgcn_layer_center(
+            enc["layer1"], cfg, self.lc1, params["ent_embeds"], snap, h1f,
+            dtf, h1b, dtb, train=train, mask=masks[0])
+        conv2 = rgcn_conv(enc["layer2"], cfg, self.lc2, out1, snap, train,
+                          masks[1])
+        blended = None
+        if cfg.impute:
+            w_f = calc_impute_weight(enc, dtf, "fwd")
+            w_b = calc_impute_weight(enc, dtb, "bwd")
+            blended = w_f * hlf + w_b * hlb + (1.0 - w_f - w_b) * conv2
+        loc, gru_in = self.local_and_gru_input(snap, conv2, blended)
+        _, rec = bigrrgcn_layer_center(enc["layer2"], cfg, self.lc2, gru_in,
+                                       snap, h2f, dtf, h2b, dtb,
+                                       conv_in=True)
         return loc, rec
 
     def fused_final_losses(self, params, data: TKGData, tp, draws, hists):

@@ -1,8 +1,11 @@
 """Model selection: --module string + behavior flags -> model class, after
 the JAX package's ``models/registry.py``. Ported: GRRGCN
-(``DynamicRGCNModel``) and BiGRRGCN with ``--impute``
-(``PostBiDynamicRGCNModel``, the flagship; not under an edge partition);
-every other combination raises."""
+(``DynamicRGCNModel``; with ``--impute``, ``--post-ensemble`` or
+``--post-aggregation`` ``PostDynamicRGCNModel``) and BiGRRGCN
+(``BiDynamicRGCNModel``; with any of the three flags
+``PostBiDynamicRGCNModel``, the flagship BiGRRGCN ``--impute`` among
+them); only plain GRRGCN under an edge partition. Every other combination
+raises."""
 
 from __future__ import annotations
 
@@ -43,16 +46,21 @@ def normalize_remap_flags(cfg: TKGConfig) -> TKGConfig:
 
 def get_model(cfg: TKGConfig, data: TKGData, device="cuda"):
     cfg = normalize_remap_flags(cfg)
-    gated = cfg.post_ensemble or cfg.post_aggregation
-    if cfg.module == "GRRGCN" and not (gated or cfg.impute):
+    variant = cfg.impute or cfg.post_ensemble or cfg.post_aggregation
+    if cfg.module not in ("GRRGCN", "BiGRRGCN"):
+        raise NotImplementedError(f"module {cfg.module} is not ported yet")
+    if cfg.partitioned and (variant or cfg.module != "GRRGCN"):
+        raise NotImplementedError(f"{cfg.module} with these flags under an "
+                                  f"edge partition is not ported yet; see "
+                                  f"ROADMAP.md")
+    if cfg.module == "GRRGCN":
+        if variant:
+            from temp_tpu_torch.models.post import PostDynamicRGCNModel
+            return PostDynamicRGCNModel(cfg, data, device=device)
         from temp_tpu_torch.models.dynamic import DynamicRGCNModel
         return DynamicRGCNModel(cfg, data, device=device)
-    if cfg.module == "BiGRRGCN" and cfg.impute and not gated:
-        from temp_tpu_torch.models.post import (
-            PARTITION_UNPORTED, PostBiDynamicRGCNModel,
-        )
-        if cfg.partitioned:
-            raise NotImplementedError(PARTITION_UNPORTED)
+    if variant:
+        from temp_tpu_torch.models.post import PostBiDynamicRGCNModel
         return PostBiDynamicRGCNModel(cfg, data, device=device)
-    raise NotImplementedError(f"module {cfg.module} with these flags is not "
-                              f"ported yet")
+    from temp_tpu_torch.models.bidynamic import BiDynamicRGCNModel
+    return BiDynamicRGCNModel(cfg, data, device=device)

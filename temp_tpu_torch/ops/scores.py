@@ -50,21 +50,13 @@ def complex_all(s, r, o_table, mode):
 _QHAT_FNS = {complex_all: complex_qhat}
 
 
-def _qhat(score_all_fn, q_ent, q_rel, mode):
+def query_for(score_all_fn, q_ent, q_rel, mode):
+    """The query vector qhat [P, d] of the queries (q_ent, q_rel [P, d]),
+    such that score(p, n) = qhat[p] . row[n] for the decoder
+    `score_all_fn`."""
     if score_all_fn not in _QHAT_FNS:
         raise NotImplementedError("only ComplEx is ported as a table scorer")
     return _QHAT_FNS[score_all_fn](q_ent, q_rel, mode)
-
-
-def score_against_rows(score_all_fn, q_ent, q_rel, rows, mode):
-    """[P, C] scores of every query (q_ent, q_rel [P, d]) against one shared
-    row set `rows` [C, d]: one [P, d] x [d, C] product."""
-    return _qhat(score_all_fn, q_ent, q_rel, mode) @ rows.transpose(-1, -2)
-
-
-def score_positive_rows(score_all_fn, q_ent, q_rel, pos_rows, mode):
-    """[P] score of each query against its own positive row [P, d]."""
-    return torch.sum(_qhat(score_all_fn, q_ent, q_rel, mode) * pos_rows, -1)
 
 
 _ALL_FNS = {"complex": complex_all}

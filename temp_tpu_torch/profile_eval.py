@@ -1,18 +1,18 @@
 """Where the time of one eval sweep goes, on the card.
 
     python -m temp_tpu_torch.profile_eval [--plain] [--config FILE]
-        [--impute] [--fused-eval] [--fused-window-mb]
+        [--impute] [--post-ensemble] [--fused-eval] [--fused-window-mb]
         [--edge-partition MODE [--mp-size M]] [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
 grid/icews14/config_grrgcn.json model or the one of --config, with
 imputation on for --impute: ``--config grid/icews14/config_bigrrgcn.json
---impute`` is the flagship; seeded random weights; --fused-eval and
---fused-window-mb switch on the fused eval, K11, and the batched window,
-K12; --edge-partition, psum, ring or ring_pallas, partitions every SpMM
-over --mp-size ranks, default 4, on the data regrouped for them, the ranks
-on the visible cards in turn), runs one
-warm-up valid sweep, then traces a second one with torch.profiler. Prints
+--impute`` is the flagship, with ``--post-ensemble`` also TED's gates;
+seeded random weights; --fused-eval and --fused-window-mb switch on the
+fused eval, K11, and the batched window, K12; --edge-partition, psum, ring
+or ring_pallas, partitions every SpMM over --mp-size ranks, default 4, on
+the data regrouped for them, the ranks on the visible cards in turn), runs
+one warm-up valid sweep, then traces a second one with torch.profiler. Prints
 the wall time, the device time summed over all kernels and its share of the
 wall time (kernels on the ranks' streams may overlap, so the sum can
 exceed the busy time), and the device time of each kernel name, largest
@@ -48,6 +48,8 @@ def main(argv=None) -> int:
                          "(default: %(default)s)")
     ap.add_argument("--impute", action="store_true",
                     help="with imputation (BiGRRGCN --impute: the flagship)")
+    ap.add_argument("--post-ensemble", action="store_true",
+                    help="with TED's gates (with --impute on BiGRRGCN: TED)")
     ap.add_argument("--fused-eval", action="store_true",
                     help="the final step and ranks through K11 (fused_eval)")
     ap.add_argument("--fused-window-mb", action="store_true",
@@ -66,7 +68,7 @@ def main(argv=None) -> int:
         return 1
     cfg = TKGConfig.from_json_file(
         os.path.join(_ROOT, args.config),
-        **({"impute": True} if args.impute else {}),
+        **{k: True for k in ("impute", "post_ensemble") if getattr(args, k)},
         kernels=not args.plain, fused_eval=args.fused_eval,
         fused_window_mb=args.fused_window_mb)
     if args.edge_partition:

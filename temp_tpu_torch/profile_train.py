@@ -1,18 +1,19 @@
 """Where the time of a few training steps goes, on the card.
 
     python -m temp_tpu_torch.profile_train [--plain | --unfused] [--steps N]
-        [--config FILE] [--impute] [--edge-partition MODE [--mp-size M]]
-        [--out DIR]
+        [--config FILE] [--impute] [--post-ensemble]
+        [--edge-partition MODE [--mp-size M]] [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
 grid/icews14/config_grrgcn.json model or the one of --config, with
 imputation on for --impute: ``--config grid/icews14/config_bigrrgcn.json
---impute`` is the flagship; seeded random weights and draws), takes two
-warm-up optimizer steps, then traces the next N (default 4) with
-torch.profiler. The path: the kernels with the fused final step (K3-K5, or
-K6-K10 for the flagship; the default), ``--unfused`` the kernels with
-fused_final off (the final step one element at a time through K1),
-``--plain`` the plain versions; ``--edge-partition`` (psum, ring or
+--impute`` is the flagship, with ``--post-ensemble`` also TED's gates;
+seeded random weights and draws), takes two warm-up optimizer steps, then
+traces the next N (default 4) with torch.profiler. The path: the kernels
+with the fused final step (K3-K5, or K6-K10 for the flagship; the default
+where the model has one), ``--unfused`` the kernels with fused_final off
+(the final step one element at a time through K1, as the gated models and
+plain BiGRRGCN always run), ``--plain`` the plain versions; ``--edge-partition`` (psum, ring or
 ring_pallas) partitions every SpMM over M ranks (default 4) on the data
 regrouped for them, the ranks on the visible cards in turn (several to a
 card when there are fewer cards). Prints the wall time, the device time summed
@@ -52,6 +53,8 @@ def main(argv=None) -> int:
                          "(default: %(default)s)")
     ap.add_argument("--impute", action="store_true",
                     help="with imputation (BiGRRGCN --impute: the flagship)")
+    ap.add_argument("--post-ensemble", action="store_true",
+                    help="with TED's gates (with --impute on BiGRRGCN: TED)")
     ap.add_argument("--edge-partition", choices=PARTITION_MODES,
                     default=None, help="partition every SpMM over "
                     "--mp-size ranks (ring_pallas: kernel K13)")
@@ -66,7 +69,7 @@ def main(argv=None) -> int:
         return 1
     cfg = TKGConfig.from_json_file(
         os.path.join(_ROOT, args.config),
-        **({"impute": True} if args.impute else {}),
+        **{k: True for k in ("impute", "post_ensemble") if getattr(args, k)},
         kernels=not args.plain, fused_final=not args.unfused)
     if args.edge_partition:
         cfg = cfg.replace(edge_partition=args.edge_partition,
@@ -92,7 +95,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     report = profile(lambda: steps(range(2, 2 + args.steps)),
                      f"{args.steps} training steps", args.top)
-    name = "plain" if args.plain else "unfused" if args.unfused else "fused"
+    name = ("plain" if args.plain
+            else "fused" if model.fused_final_on() else "unfused")
     if args.edge_partition:  # the fused final step is off under it
         name = (f"{'plain' if args.plain else 'kernels'}_"
                 f"{args.edge_partition}_x{args.mp_size}")

@@ -52,7 +52,11 @@ from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.data.snapshots import (
     build_answer_lists, make_synthetic, to_device,
 )
-from temp_tpu_torch.models.post import PostBiDynamicRGCNModel
+from temp_tpu_torch.models.bidynamic import BiDynamicRGCNModel
+from temp_tpu_torch.models.dynamic import DynamicRGCNModel
+from temp_tpu_torch.models.post import (
+    PostBiDynamicRGCNModel, PostDynamicRGCNModel,
+)
 from temp_tpu_torch.models.registry import get_model, normalize_remap_flags
 from temp_tpu_torch.ops import fused_final as ff
 from temp_tpu_torch.ops import fused_final_bi as fb
@@ -148,15 +152,16 @@ def _enc_params(c, gen_seed=7):
             for i in (1, 2)}
 
 
-def _jax_flagship_window_vjp(c, rate, lam=0.1):
-    """Per element: jax.vjp of _fused_window in its act2 / n_buf=3 mode
-    (interpret) on the case's weights, with a cotangent on all three
-    buffers. Returns (bufs [3 of B, L1, A, d], dh0x, weight cotangents)."""
+def _jax_flagship_window_vjp(c, rate, lam=0.1, act2=True, n_buf=3):
+    """Per element: jax.vjp of _fused_window in its act2 / n_buf mode
+    (interpret; the flagship's: the ReLU and three buffers) on the case's
+    weights, with a cotangent on every buffer (g1, g2, g3). Returns (bufs
+    [n_buf of B, L1, A, d], dh0x, weight cotangents)."""
     B, L1, A, d = c["h0x"].shape
     E, R2 = c["src"].shape[-1], c["wrel"].shape[0]
     Ap = Ep = Rp = 128
-    static = (L1, Ap, Ep, d, Rp, rate, True, lam, True, 3, None, "float32",
-              True, False)
+    static = (L1, Ap, Ep, d, Rp, rate, act2, lam, True, n_buf, None,
+              "float32", True, False)
     pa, pe = ((0, 0), (0, Ap - A)), ((0, 0), (0, Ep - E))
     pm = ((0, 0), (0, Ap - A), (0, 0))
     ws = [jnp.pad(c["wrel"], ((0, Rp - R2), (0, 0)))] + [
@@ -177,7 +182,7 @@ def _jax_flagship_window_vjp(c, rate, lam=0.1):
         outs, vjp = jax.vjp(f, jnp.pad(c["h0x"][b], pm), *ws)
         cts = vjp((jnp.pad(c["g1"][b], pm).reshape(L1 * Ap, d),
                    jnp.pad(c["g2"][b], pm).reshape(L1 * Ap, d),
-                   jnp.pad(c["g3"][b], pm)))
+                   jnp.pad(c["g3"][b], pm))[:n_buf])
         bufs.append([np.asarray(o).reshape(L1, Ap, d)[:, :A] for o in outs])
         dh0x.append(np.asarray(cts[0])[:, :A])
         w_ct = [np.asarray(x) for x in cts[1:]]
@@ -555,6 +560,12 @@ def test_three_optimizer_steps_match_optax(jax_adam, fused_final):
     and some entries end 1.5e-5 apart."""
     kw, jcfg, data, jparams, opt, grad_fn = jax_adam
     state = opt.init(jparams)
+
+    @jax.jit  # one compile, not one for each eager op of the chain
+    def adam(grads, state, params):
+        updates, state = opt.update(grads, state, params)
+        return optax.apply_updates(params, updates), state
+
     cfg = TKGConfig(fused_final=fused_final, **kw)
     model = get_model(cfg, make_synthetic(**DATA), device="cpu")
     assert model.fused_final_on() == fused_final
@@ -585,8 +596,7 @@ def test_three_optimizer_steps_match_optax(jax_adam, fused_final):
         port_grads = to_jax(params, True)
         for path, ref, got in _pairs(grads, port_grads):
             _close(np.asarray(got), np.asarray(ref), f"step {step} {path}")
-        updates, state = opt.update(port_grads, state, jparams)
-        jparams = optax.apply_updates(jparams, updates)
+        jparams, state = adam(port_grads, state, jparams)
         n = 0
         for path, ref, got in _pairs(jparams, params):
             _close(got.detach().numpy(), np.asarray(ref),
@@ -602,12 +612,34 @@ def test_registry_dispatches_the_flagship_and_refuses_the_rest():
     model = get_model(TKGConfig(**KW), data, device="cpu")
     assert type(model) is PostBiDynamicRGCNModel
     assert model.tbl_bwd is not None
-    # BiGRRGCN with post_aggregation and impute normalizes to the gated
-    # model, which is not ported; so do the other combinations
-    for over in ({"impute": False}, {"module": "GRRGCN"},
-                 {"post_aggregation": True}, {"post_ensemble": True},
-                 {"module": "BiRRGCN"}, {"module": "BiSARGCN"},
-                 {"use_time_embedding": True}, {"type1": True}):
+    # the TeMP variants and plain BiGRRGCN, after the remap of the flags
+    for over, cls in (
+            ({"module": "GRRGCN", "impute": True}, PostDynamicRGCNModel),
+            ({"module": "GRRGCN", "impute": False, "post_ensemble": True},
+             PostDynamicRGCNModel),
+            ({"module": "GRRGCN", "post_ensemble": True},
+             PostDynamicRGCNModel),
+            ({"module": "GRRGCN", "impute": False,
+              "post_aggregation": True}, PostDynamicRGCNModel),
+            ({"post_ensemble": True}, PostBiDynamicRGCNModel),
+            ({"post_aggregation": True}, PostBiDynamicRGCNModel),
+            ({"impute": False, "post_ensemble": True},
+             PostBiDynamicRGCNModel),
+            ({"impute": False}, BiDynamicRGCNModel),
+            ({"module": "GRRGCN", "impute": False}, DynamicRGCNModel)):
+        m = get_model(TKGConfig(**{**KW, **over}), data, device="cpu")
+        assert type(m) is cls, over
+        m.init_params(0)
+    # the other modules and flags, and every model but plain GRRGCN under
+    # an edge partition
+    for over in ({"module": "BiRRGCN"}, {"module": "BiSARGCN"},
+                 {"use_time_embedding": True}, {"type1": True},
+                 {"edge_dropout": True},
+                 {"post_ensemble": True, "edge_partition": "ring",
+                  "mp_size": 4},
+                 {"module": "GRRGCN", "post_aggregation": True,
+                  "impute": False, "edge_partition": "psum", "mp_size": 4},
+                 {"impute": False, "edge_partition": "ring", "mp_size": 4}):
         with pytest.raises(NotImplementedError):
             m = get_model(TKGConfig(**{**KW, **over}), data, device="cpu")
             m.init_params(0)

@@ -740,6 +740,65 @@ def _bi_enc(enc, dev, seed=1):
             for k, v in enc.items()}
 
 
+# the TeMP variants' modes of K2: (n_buf, layer 2's ReLU, direction)
+_NEW_K2_MODES = {"a": (3, False, None), "b": (2, True, "bwd")}
+
+
+@pytest.mark.parametrize("mode", list(_NEW_K2_MODES))
+@pytest.mark.parametrize("B,L1,A,E,d", [(8, 14, 640, 256, 128),
+                                        (8, 7, 640, 256, 128),
+                                        (3, 4, 37, 20, 16)])
+def test_window_new_modes_match_plain_autograd(cuda, mode, B, L1, A, E, d):
+    """K2f/K2b in the modes of the TeMP variants, (a) three buffers without
+    the ReLU (the unidirectional Post models) and (b) two with it
+    (BiGRRGCN), in train mode, against autograd through the plain forward
+    with a cotangent on every buffer: buffers within TOL, cotangents within
+    _close. In mode (b) the plain forward takes the kernels' ReLU pattern,
+    read from the same launches with the third buffer written."""
+    n_buf, relu, direction = _NEW_K2_MODES[mode]
+    enc, kw, masks = _train_window_args(B, L1, A, E, d, cuda)
+    if direction is not None:
+        enc = _bi_enc(enc, cuda)
+    cfg = TKGConfig(embed_size=d, hidden_size=d, n_bases=d)
+    act2 = "relu" if relu else None
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cot = [torch.randn(B, L1, A, d, generator=gen, device=cuda)
+           for _ in range(n_buf)]
+    pattern = None
+    if relu:
+        with torch.no_grad():
+            pattern = (fused_window_scan(
+                enc, cfg, masks=masks, direction=direction, activation2=act2,
+                n_buf=3, **kw)[2] > 0).float()
+    res = {}
+    for kernels in (True, False):
+        e = {k: {n: ([{m: t.clone().requires_grad_() for m, t in v[0].items()}]
+                     if n.startswith("gru") else v.clone().requires_grad_())
+                 for n, v in layer.items()} for k, layer in enc.items()}
+        h0 = kw["h0_xs"].clone().requires_grad_()
+        if kernels:
+            bufs = fused_window_scan(e, cfg, kernels=True, masks=masks,
+                                     direction=direction, activation2=act2,
+                                     n_buf=n_buf, **{**kw, "h0_xs": h0})
+        else:
+            a = window_args(e, cfg, masks=masks, direction=direction,
+                            activation2=act2, **{**kw, "h0_xs": h0})
+            bufs = fused_window_fwd_plain(conv1_in=False, n_buf=n_buf,
+                                          relu_mask=pattern, **a)
+        assert len(bufs) == n_buf
+        sum((b * c).sum() for b, c in zip(bufs, cot)).backward()
+        torch.cuda.synchronize()
+        grads = [h0.grad] + [t.grad for t in param_leaves(e)
+                             if t.grad is not None]
+        res[kernels] = ([b.detach() for b in bufs], grads)
+    (kb, kg), (pb, pg) = res[True], res[False]
+    for a, b in zip(kb, pb):
+        assert float((a - b).abs().max()) <= TOL
+    assert len(kg) == len(pg) == 13
+    for a, b in zip(kg, pg):
+        assert _close(a, b)
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 @pytest.mark.parametrize("B,L1,A,E,d", [(8, 7, 640, 256, 128),
@@ -944,12 +1003,14 @@ def test_bi_layer_bwd_is_deterministic(cuda):
                    for u, v in zip(x, y))
 
 
-# (conv1_in, dropout rate, direction, n_buf)
-_K2F_MODES = [(True, 0.0, None, 2),        # eval, the layer-1 convs given
-              (False, 0.0, None, 2),       # eval, recomputed
-              (False, 0.1, None, 2),       # GRRGCN training
-              (False, 0.1, "fwd", 3),      # the flagship's windows
-              (False, 0.0, "bwd", 3)]
+# (conv1_in, dropout rate, direction, n_buf, layer 2's ReLU)
+_K2F_MODES = [(True, 0.0, None, 2, False),     # eval, the layer-1 convs given
+              (False, 0.0, None, 2, False),    # eval, recomputed
+              (False, 0.1, None, 2, False),    # GRRGCN training
+              (False, 0.1, "fwd", 3, True),    # the flagship's windows
+              (False, 0.0, "bwd", 3, True),
+              (False, 0.1, None, 3, False),    # (a): the unidirectional Post
+              (False, 0.1, "bwd", 2, True)]    # (b): BiGRRGCN
 
 
 @pytest.mark.parametrize("mode", range(len(_K2F_MODES)))
@@ -962,20 +1023,21 @@ _K2F_MODES = [(True, 0.0, None, 2),        # eval, the layer-1 convs given
 def test_window_fwd_modes_match_plain_and_repeat(cuda, mode, B, L1, A, E, d):
     """K2f on the tensor cores in every mode (the layer-1 convs given or
     recomputed, the training dropout masks, the flagship's ReLU, third
-    buffer and either direction's GRUs) against its plain version within
-    TOL, and two runs equal bit for bit: at the main path's shape (two
-    column slabs of 64), at a ragged A with d = 16 (one warp, one slab),
-    and at widths of three warps (48), one slab of four (64), five slabs of
-    one warp (80) and four slabs (256)."""
-    conv1_in, rate, direction, n_buf = _K2F_MODES[mode]
+    buffer and either direction's GRUs, the third buffer without the ReLU
+    and the ReLU without it) against its plain version within TOL, and two
+    runs equal bit for bit: at the main path's shape (two column slabs of
+    64), at a ragged A with d = 16 (one warp, one slab), and at widths of
+    three warps (48), one slab of four (64), five slabs of one warp (80)
+    and four slabs (256)."""
+    conv1_in, rate, direction, n_buf, relu = _K2F_MODES[mode]
     enc, kw, masks = _train_window_args(B, L1, A, E, d, cuda,
                                         rate=rate or 0.1)
     if direction is not None:
         enc = _bi_enc(enc, cuda)
     cfg = TKGConfig(embed_size=d, hidden_size=d, n_bases=d)
     a = window_args(enc, cfg, masks=masks if rate else None,
-                    direction=direction,
-                    activation2="relu" if n_buf == 3 else None, **kw)
+                    direction=direction, activation2="relu" if relu else None,
+                    **kw)
     before = fused_window_fwd.launches
     got = fused_window_fwd(**a, conv1_in=conv1_in, n_buf=n_buf)
     again = fused_window_fwd(**a, conv1_in=conv1_in, n_buf=n_buf)
@@ -1095,24 +1157,30 @@ def test_bi_layer_gru_input_equals_the_backward_recompute(cuda, mode, N, d,
     assert ok, (err, top)
 
 
-@pytest.mark.parametrize("B,L1,A,E,d,act2", [(8, 14, 640, 256, 128, False),
-                                             (3, 4, 37, 20, 16, True)])
-def test_window_bwd_is_deterministic(cuda, B, L1, A, E, d, act2):
+@pytest.mark.parametrize("B,L1,A,E,d,act2,n_buf",
+                         [(8, 14, 640, 256, 128, False, 2),
+                          (3, 4, 37, 20, 16, True, 3),
+                          (8, 14, 640, 256, 128, False, 3),
+                          (8, 7, 640, 256, 128, True, 2),
+                          (3, 4, 37, 20, 16, False, 3),
+                          (3, 4, 37, 20, 16, True, 2)])
+def test_window_bwd_is_deterministic(cuda, B, L1, A, E, d, act2, n_buf):
     """K2b's tensor-core products sum in a fixed order and use no atomics:
     two runs on the same inputs agree bit for bit, at the main path's shape
-    and at a ragged one (A not a multiple of the 32-row tile, d = 16) with
-    the flagship's ReLU and third buffer."""
+    and at a ragged one (A not a multiple of the 32-row tile, d = 16), in
+    GRRGCN's mode, the flagship's (the ReLU and the third buffer), and the
+    TeMP variants' (a) (the third buffer without the ReLU) and (b) (the
+    ReLU without it)."""
     enc, kw, masks = _train_window_args(B, L1, A, E, d, cuda)
     cfg = TKGConfig(embed_size=d, hidden_size=d, n_bases=d)
     a = window_args(enc, cfg, masks=masks,
                     activation2="relu" if act2 else None, **kw)
-    n_buf = 3 if act2 else 2
     bufs = fused_window_fwd(**a, conv1_in=False, n_buf=n_buf)
     gen = torch.Generator(device=cuda).manual_seed(2)
     gbs = [torch.randn(B, L1, A, d, generator=gen, device=cuda)
            for _ in range(n_buf)]
     args = dict(a, buf1=bufs[0], buf2=bufs[1], gb1=gbs[0], gb2=gbs[1],
-                gb3=gbs[2] if act2 else None)
+                gb3=gbs[2] if n_buf == 3 else None)
     x = fused_window_bwd(**args)
     y = fused_window_bwd(**args)
     torch.cuda.synchronize()

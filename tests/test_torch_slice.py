@@ -102,8 +102,9 @@ def test_seeded_init_is_deterministic_and_shaped_like_reference(reference):
 
 def test_unported_configs_raise():
     data = make_synthetic(**DATA)
-    for kw in ({"module": "BiGRRGCN"}, {"impute": True},
-               {"use_time_embedding": True}):
+    for kw in ({"module": "RRGCN"}, {"module": "SRGCN"},
+               {"use_time_embedding": True}, {"edge_dropout": True},
+               {"rec_only_last_layer": True}):
         with pytest.raises(NotImplementedError):
             model = get_model(TKGConfig(**{**KW, **kw}), data, device="cpu")
             model.init_params(0)
@@ -192,7 +193,15 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
            "flagship_train": chip_smoke.phase_train(fctx, flagship=True),
            "k11": chip_smoke.phase_k11(ctx),
            "path_fused_eval": chip_smoke.phase_path_fused_eval(ctx, path),
-           "mb": chip_smoke.phase_mb(ctx, fctx)}
+           "mb": chip_smoke.phase_mb(ctx, fctx),
+           "k2_modes": chip_smoke.phase_k2_modes(ctx, fctx)}
+    tctx = chip_smoke.phase_setup_ted(ctx)
+    tctx["train_steps"] = 2
+    assert type(tctx["model"]).__name__ == "PostBiDynamicRGCNModel"
+    assert tctx["cfg"].post_ensemble and tctx["cfg"].impute
+    res.update(ted_path=chip_smoke.phase_ted_path(tctx),
+               ted_train=chip_smoke.phase_train_unfused(tctx),
+               variants=chip_smoke.phase_variants(ctx))
     rctx = chip_smoke.phase_setup_ring(ctx)
     assert rctx["mesh"].placement() == "4 ranks on cpu"
     res.update(k13=chip_smoke.phase_k13(rctx),
@@ -342,6 +351,46 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     assert len(rt["ring"]["losses"]) == 2
     assert set(rt["params"]["max_rel_gaps"]) == {
         "ring/plain", "ring/unpartitioned", "unpartitioned/plain"}
+    # K2's two new modes: (a) three buffers, no ReLU; (b) two, the ReLU,
+    # both windows; the plain versions on both sides, run twice
+    km = res["k2_modes"]
+    assert set(km) == {"a", "b_fwd", "b_bwd"}
+    for mode, r in km.items():
+        assert r["fwd"]["max_abs_err"] == 0.0 and r["relu_flips"] == 0
+        assert r["fwd"]["bitwise"] and r["bwd"]["bitwise"]
+        assert set(r["bwd"]["errors"]) == set(chip_smoke._COTANGENTS)
+        assert all(e == 0.0 for e in r["bwd"]["errors"].values())
+        assert ("n_buf=3" in r["shape"]) == (mode == "a")
+        for part in ("fwd", "bwd"):
+            assert 0 < r[part]["bound_tc_ms"] <= r[part]["bound_ms"]
+    for k in (2, 3):
+        extra = line["kernels"][k]["extra_modes"]
+        assert set(extra) == set(km)
+        assert all(m["bitwise"] and m["bound_ms"] > 0 for m in extra.values())
+    # TED: its sweep (the gated eval's loss 0), its steps, the gates trained
+    tp, tt = res["ted_path"], res["ted_train"]
+    assert tp["kernels"]["mrr"] == tp["plain"]["mrr"] > 0
+    assert tp["kernels"]["loss"] == 0.0 and tctx["freq_s"] > 0
+    assert len(tt["kernels"]["losses"]) == 2
+    assert tt["kernels"]["losses"][0] == tt["plain"]["losses"][0]
+    assert tt["max_rel_gap"] <= chip_smoke.TRAIN_TOL
+    assert set(tt["params"]["max_rel_gaps"]) == {"kernels/plain"}
+    assert tt["gate_leaves"] == 8 and tt["gate_leaves_moved"] == 8
+    assert tt["ms_per_step"] > 0
+    # the other variants, kernels against plain
+    va = res["variants"]
+    assert {t: r["model"] for t, r in va.items()} == {
+        "grrgcn_impute_ensemble": "PostDynamicRGCNModel",
+        "bigrrgcn_aggregation": "PostBiDynamicRGCNModel",
+        "bigrrgcn": "BiDynamicRGCNModel"}
+    for r in va.values():
+        assert r["eval"]["mrr_kernels"] == r["eval"]["mrr_plain"] > 0
+        assert r["eval"]["same_rank_share"] == 1.0
+        assert len(r["train"]["kernels"]["losses"]) == 2
+        assert r["train"]["max_rel_gap"] <= chip_smoke.TRAIN_TOL
+    assert va["bigrrgcn"]["train"]["gate_leaves"] == 0
+    assert {"ted_eval", "ted_train", "bigrrgcn_train",
+            "grrgcn_impute_ensemble_eval"} <= paths
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -354,6 +354,12 @@ def test_three_optimizer_steps_match_optax():
     jparams = jmodel.init_params(jax.random.PRNGKey(0))
     opt = jax_make_optimizer(jcfg)
     state = opt.init(jparams)
+
+    @jax.jit  # one compile, not one for each eager op of the chain
+    def adam(grads, state, params):
+        updates, state = opt.update(grads, state, params)
+        return optax.apply_updates(params, updates), state
+
     tv = jnp.asarray([True, True, True])
     grad_fn = jax.jit(jax.value_and_grad(
         lambda p, r: jmodel.loss(p, data, jnp.asarray(T_POS, jnp.int32), tv,
@@ -367,8 +373,7 @@ def test_three_optimizer_steps_match_optax():
     for step in range(3):
         rng = jax.random.PRNGKey(10 + step)
         jloss, grads = grad_fn(jparams, rng)
-        updates, state = opt.update(grads, state, jparams)
-        jparams = optax.apply_updates(jparams, updates)
+        jparams, state = adam(grads, state, jparams)
         loss = tr.train_step(params, optimizer, T_POS, [True] * 3,
                              draws=jax_draws(jcfg, data, T_POS, rng))
         assert abs(float(loss) - float(jloss)) <= ATOL * max(1.0,
