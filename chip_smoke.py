@@ -124,15 +124,42 @@ data:
                  train_seq_len VARIANT_SEQ_LEN: 2 steps and one valid batch
                  each, kernels against plain.
 
+Then the self-attention models (models/selfattn.py, models/postselfattn.py),
+on the same data, whose every graph product is K1:
+
+28. sa_setup    - SARGCN (grid/icews14/config_sargcn.json, L1 = 14) with
+                  seeded random weights;
+29. sa_k1       - K1f and K1b at its history's shape: one element's 14
+                  window slots side by side in one call, each over all 7128
+                  rows in global ids (a window inside the data and one
+                  running off t = 0, whose first slots name the clamped
+                  position 0 with every edge masked), and the same window
+                  in sa_compact's form (A rows a slot); over the data's
+                  tables, one launch, no sort, no host sync, two runs and
+                  the in-call route bit-equal, within K1_TOL of the plain
+                  versions; times, bounds and one index_add_'s time;
+30. sa_train    - TRAIN_STEPS optimizer steps with the kernels and with
+                  their plain versions: losses within TRAIN_TOL, every
+                  leaf within PARAM_TOL, K1f and K1b launched and no other
+                  kernel, no K1 call sorting its edges;
+31. sa_path     - the valid sweep, kernels against plain (MRR within
+                  MRR_TOL, the same query mask), queries/s;
+32-34. bisa_setup, bisa_train, bisa_path - the same for BiSARGCN
+                  (config_bisargcn.json, L1 = 7 a window);
+35. sa_variants - SARGCN and BiSARGCN --post-aggregation and SARGCN with
+                  sa_compact, learnable_lambda and ema at full width and
+                  VARIANT_SEQ_LEN: 2 steps and one valid batch each,
+                  kernels against plain.
+
 Then the model-parallel path, GRRGCN with edge_partition="ring_pallas" over
 RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
 
-28. ring_setup - the dataset regrouped for 4 ranks (ring_layout: the edges
+36. ring_setup - the dataset regrouped for 4 ranks (ring_layout: the edges
                  grouped by destination owner, K13's and K1's static CSR
                  tables of every train snapshot) and the model on it with the
                  same seeded weights; prints the ranks' placement and the
                  number of cards;
-29. k13        - kernel K13 (ring_spmm_fwd) at the final-snapshot shape
+37. k13        - kernel K13 (ring_spmm_fwd) at the final-snapshot shape
                  (7128 rows in 4 shards of 1792) and at one window step's
                  compact shape (the 8 graphs of an eval batch): walking
                  the data's tables (the path's route) and sorting the
@@ -143,12 +170,12 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  K13's backward kernels (ring_spmm_bwd) over the tables at
                  both shapes against autograd through the plain forward
                  and against ring_spmm_bwd_plain, with their times;
-30. ring_path  - the valid sweep under the partition with the kernels and
+38. ring_path  - the valid sweep under the partition with the kernels and
                  with their plain versions, and without a partition on the
                  same data (K1 over the data's K1 tables of that layout):
                  MRR within 1e-4; K13's launches, no sort in a call, and
                  none of K1, K2, K3-K5, K11 or K12 under the partition;
-31. ring_train - 8 optimizer steps under the partition (kernels, plain)
+39. ring_train - 8 optimizer steps under the partition (kernels, plain)
                  and without it (fused_final off): losses and parameters
                  held together as in `train`; K13's forward and backward
                  launched, no sort in a call.
@@ -157,7 +184,9 @@ Then a "kernels" JSON line (each kernel's bound_share, bound / ms, and for
 K2f, K2b, K5, K9+K10 and K12, whose products run in 3xTF32 on the tensor
 cores, bound_tc_ms: their operations at 3xTF32's 165 TFLOP/s beside the f32
 bound_ms; K2f's and K2b's rows with their modes apart, `extra_modes` the
-k2_modes phase's; every path's launches), the
+k2_modes phase's; K1f's and K1b's rows with the attention history's
+shapes, `sa_history`, `sa_history_edge`, `sa_compact`; every path's
+launches, the attention models' among them), the
 nvidia-smi name/power-limit line, and the
 result line {"ok": true, "device": {...}}. Any failed check raises and exits
 non-zero; there is no result line then. Without CUDA it exits 1 at once. A
@@ -409,21 +438,23 @@ def _one_launch(fn, counter, what: str, device):
     return out
 
 
-def phase_k1(ctx) -> dict:
-    """K1f at the main path's shapes (``_k1_cases``) over the data's tables
-    (the path's route: one launch, no sort, no host sync) and over tables
-    sorted in the call (the in-call route): bit for bit equal, both within
-    K1_TOL of the plain version; their times beside the plain version's,
-    one ``index_add_`` of the same messages and the bound."""
+def phase_k1(ctx, cases=None) -> dict:
+    """K1f at the main path's shapes (``_k1_cases``, or `cases` of that
+    form) over the data's tables (the path's route: one launch, no sort,
+    no host sync; two runs bit for bit equal) and over tables sorted in
+    the call (the in-call route): bit for bit equal, both within K1_TOL of
+    the plain version; their times beside the plain version's, one
+    ``index_add_`` of the same messages and the bound."""
     import torch
 
     from temp_tpu_torch.ops.spmm import _spmm_fwd, spmm_fwd, spmm_fwd_plain
 
     dev = ctx["device"]
     out = {}
-    for tag, args, tables in _k1_cases(ctx):
+    for tag, args, tables in (cases or _k1_cases(ctx)):
         k, kn2, _ = _one_launch(lambda: _spmm_fwd(*args, tables=tables),
                                 spmm_fwd, f"K1 {tag}", dev)
+        again = _spmm_fwd(*args, tables=tables)[0]
         builds = spmm_fwd.csr_builds
         c, cn2, _ = _spmm_fwd(*args)
         if dev.type == "cuda" and spmm_fwd.csr_builds != builds + 1:
@@ -432,11 +463,12 @@ def phase_k1(ctx) -> dict:
         flat = _flat(args)
         ref = spmm_fwd_plain(*flat)
         err = max_err(k, ref)
-        bitwise = bool(torch.equal(k, c) and torch.equal(kn2, cn2))
+        bitwise = bool(torch.equal(k, c) and torch.equal(kn2, cn2)
+                       and torch.equal(k, again))
         if not (err <= K1_TOL and bitwise):
             raise AssertionError(f"K1 {tag}: max abs err {err} (> {K1_TOL}?)"
-                                 f", table route bit-equal to the in-call "
-                                 f"route: {bitwise}")
+                                 f", table route bit-equal to itself and "
+                                 f"the in-call route: {bitwise}")
         h, src, dst, rel, em, w = flat
         msg = h[src.long()] * w[rel.long()] * em.to(h.dtype)[:, None]
         lib = torch.zeros_like(h)
@@ -588,6 +620,16 @@ def _counts() -> dict:
     return {fn.__name__: fn.launches for fn in _counters()}
 
 
+def _peak_mb(dev):
+    """The card's peak allocated memory since the last reset, in MiB (None
+    off the card)."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(dev) / 2**20
+
+
 def _sweep(ctx, c):
     """One valid sweep of config c (every launch counter from 0): its
     metrics, wall seconds, queries/s and launches; ranks and mask (numpy)."""
@@ -603,6 +645,7 @@ def _sweep(ctx, c):
     _reset_counts()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     ranks, mask, bces = tr.eval_sweep(ctx["params"], "valid")
     ranks, mask = ranks.cpu().numpy(), mask.cpu().numpy()
@@ -614,12 +657,15 @@ def _sweep(ctx, c):
     m["launches"] = _counts()
     m["csr_builds"] = _csr_builds()
     m["k1_csr_builds"] = _k1_csr_builds()
+    m["peak_mb"] = _peak_mb(dev)
     return m, ranks, mask
 
 
-def phase_path(ctx, **over) -> dict:
+def phase_path(ctx, want=None, **over) -> dict:
     """The valid sweep with the kernels, then with their plain versions
-    (the config's switches set as `over` gives them)."""
+    (the config's switches set as `over` gives them); `want`: the kernels
+    the sweep must launch on the card (default: the recurrent models', K1f
+    and K2f or its batched form, with K11 under fused_eval)."""
     import numpy as np
 
     dev, cfg = ctx["device"], ctx["cfg"].replace(**over)
@@ -641,9 +687,10 @@ def phase_path(ctx, **over) -> dict:
         raise AssertionError(f"bad metrics {k}")
     if not abs(k["mrr"] - pl["mrr"]) <= MRR_TOL:
         raise AssertionError(f"MRR kernels {k['mrr']} vs plain {pl['mrr']}")
-    want = ["spmm_fwd", "fused_window_mb_fwd" if cfg.fused_window_mb
-            else "fused_window_fwd"] + (["fused_eval_ranks"]
-                                        if cfg.fused_eval else [])
+    if want is None:
+        want = ["spmm_fwd", "fused_window_mb_fwd" if cfg.fused_window_mb
+                else "fused_window_fwd"] + (["fused_eval_ranks"]
+                                            if cfg.fused_eval else [])
     if dev.type == "cuda" and not all(k["launches"][n] > 0 for n in want):
         raise AssertionError(f"main path missed a kernel of {want}: {k}")
     if dev.type == "cuda" and k["k1_csr_builds"]:
@@ -682,38 +729,43 @@ def scaled_errs(pairs, tol=SCALED_TOL) -> dict:
     return errs
 
 
-def phase_k1b(ctx) -> dict:
+def phase_k1b(ctx, cases=None, tags=("train", "final")) -> dict:
     """K1b at the training final-step shape (all N rows, one snapshot's
-    padded train edges with the 50% subsample) and under the full mask:
-    over the data's tables (one launch, no sort, no host sync) and over
-    tables sorted in the call, bit for bit equal, both within K1_TOL of
-    the plain version; their times beside the plain version's, two
-    ``index_add_`` calls on the same messages and the bound."""
+    padded train edges with the 50% subsample) and under the full mask
+    (or at the `tags` of `cases`, ``_k1_cases``' form): over the data's
+    tables (one launch, no sort, no host sync; two runs bit for bit equal)
+    and over tables sorted in the call, bit for bit equal, both within
+    K1_TOL of the plain version; their times beside the plain version's,
+    two ``index_add_`` calls on the same messages and the bound."""
     import torch
 
     from temp_tpu_torch.ops.spmm import _spmm_fwd, spmm_bwd, spmm_bwd_plain
 
     dev = ctx["device"]
-    cases = {tag: (args, tables) for tag, args, tables in _k1_cases(ctx)}
+    cases = {tag: (args, tables)
+             for tag, args, tables in (cases or _k1_cases(ctx))}
     out = {}
-    for tag in ("train", "final"):
+    for tag in tags:
         args, tables = cases[tag]
-        h, src, dst, rel, em, w = args
         _, n2, _ = _spmm_fwd(*args, tables=tables)
         gen = torch.Generator(device=dev).manual_seed(1)
-        g = torch.randn(h.shape, generator=gen, device=dev)
-        bargs = (g, n2, h, src, dst, rel, em, w)
+        g = torch.randn(args[0].shape, generator=gen, device=dev)
+        bargs = (g, n2) + tuple(args)
         dh, dw = _one_launch(lambda: spmm_bwd(*bargs, tables=tables),
                              spmm_bwd, f"K1b {tag}", dev)
+        ah, aw = spmm_bwd(*bargs, tables=tables)
         ch, cw = spmm_bwd(*bargs)
-        rh, rw = spmm_bwd_plain(*bargs)
+        h, src, dst, rel, em, w = _flat(args)
+        flat = (g, n2, h, src, dst, rel, em, w)
+        rh, rw = spmm_bwd_plain(*flat)
         err_h, err_w = max_err(dh, rh), max_err(dw, rw)
-        bitwise = bool(torch.equal(dh, ch) and torch.equal(dw, cw))
+        bitwise = bool(torch.equal(dh, ch) and torch.equal(dw, cw)
+                       and torch.equal(dh, ah) and torch.equal(dw, aw))
         if not (err_h <= K1_TOL and err_w <= K1_TOL and bitwise):
             raise AssertionError(f"K1b {tag}: max abs err dh {err_h}, dw "
                                  f"{err_w} (> {K1_TOL}?), table route "
-                                 f"bit-equal to the in-call route: "
-                                 f"{bitwise}")
+                                 f"bit-equal to itself and the in-call "
+                                 f"route: {bitwise}")
         # the library yardstick: the same backward as two index_add_ calls
         # on the per-edge messages (computed outside the timing)
         emf = em.to(torch.float32)[:, None]
@@ -734,13 +786,13 @@ def phase_k1b(ctx) -> dict:
         flops = 6 * n_kept * d
         t_b, t_f = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
         out[tag] = {
-            "shape": f"N={h.shape[0]} E={src.numel()} kept={n_kept} "
-                     f"R={w.shape[0]} d={d}",
+            "shape": f"N={h.shape[0]} B={tables[1].numel()} "
+                     f"E={src.numel()} kept={n_kept} R={w.shape[0]} d={d}",
             "max_abs_err": max(err_h, err_w), "err_dh": err_h,
             "err_dw": err_w, "bitwise": bitwise,
             "ms": time_ms(lambda: spmm_bwd(*bargs, tables=tables), dev),
             "in_call_ms": time_ms(lambda: spmm_bwd(*bargs), dev),
-            "plain_ms": time_ms(lambda: spmm_bwd_plain(*bargs), dev),
+            "plain_ms": time_ms(lambda: spmm_bwd_plain(*flat), dev),
             "library_ms": time_ms(library, dev),
             "bound_ms": max(t_b, t_f) * 1e3,
             "bound_by": "bytes" if t_b >= t_f else "operations"}
@@ -1185,6 +1237,7 @@ def _train_path(ctx, c):
     _reset_counts()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     losses = [tr.train_step(params, opt, t_pos, t_valid,
                             gen=tr.step_generator(0, i))
@@ -1193,7 +1246,7 @@ def _train_path(ctx, c):
     wall = time.perf_counter() - t0
     res = {"losses": losses, "ms_per_step": wall * 1e3 / len(batches),
            "launches": _counts(), "csr_builds": _csr_builds(),
-           "k1_csr_builds": _k1_csr_builds()}
+           "k1_csr_builds": _k1_csr_builds(), "peak_mb": _peak_mb(dev)}
     finals = [t.detach().clone() for t in param_leaves(params)]
     return model, res, init, finals, tr, params
 
@@ -2176,13 +2229,15 @@ def phase_setup_ted(ctx) -> dict:
     return tctx
 
 
-def _unfused_launches_ok(dev, launches: dict, want, tag: str) -> None:
-    """On the card the kernels `want` launched and none of K3-K12 or the
-    ring's (a path whose final step runs one element at a time)."""
+def _unfused_launches_ok(dev, launches: dict, want, tag: str,
+                         banned=_NOT_UNFUSED) -> None:
+    """On the card the kernels `want` launched and none of `banned` (by
+    default K3-K12 and the ring's: a path whose final step runs one element
+    at a time)."""
     if dev.type != "cuda":
         return
     missed = [k for k in want if not launches[k] > 0]
-    extra = {k: launches[k] for k in _NOT_UNFUSED if launches[k]}
+    extra = {k: launches[k] for k in banned if launches[k]}
     if missed or extra:
         raise AssertionError(f"{tag}: missed {missed}, or launched {extra}")
 
@@ -2200,14 +2255,15 @@ def phase_ted_path(tctx) -> dict:
     return res
 
 
-def phase_train_unfused(c) -> dict:
+def phase_train_unfused(c, want=_UNFUSED_TRAIN, banned=_NOT_UNFUSED) -> dict:
     """The first steps of epoch 0 (TRAIN_STEPS, or c["train_steps"]) of a
-    model whose final step runs one element at a time (TED and the other
-    variants), with the kernels and with their plain versions, from the
-    same seeded weights and draws: the losses within TRAIN_TOL, every
-    parameter leaf (the gates' among them) within PARAM_TOL of the plain
-    path's change (``param_gaps``), K1f, K1b, K2f and K2b launched and none
-    of K3-K12."""
+    model whose final step runs one element at a time (TED, the other
+    variants, the attention models), with the kernels and with their plain
+    versions, from the same seeded weights and draws: the losses within
+    TRAIN_TOL, every parameter leaf (the gates' among them) within
+    PARAM_TOL of the plain path's change (``param_gaps``), the kernels
+    `want` launched (K1f, K1b, K2f and K2b) and none of `banned` (K3-K12),
+    no K1 call sorting its edges."""
     import numpy as np
     import torch
 
@@ -2237,8 +2293,12 @@ def phase_train_unfused(c) -> dict:
     res["gate_leaves"] = len(gates)
     res["gate_leaves_moved"] = sum(
         not torch.equal(finals["plain"][k], init[k]) for k in gates)
-    _unfused_launches_ok(dev, res["kernels"]["launches"], _UNFUSED_TRAIN,
-                         "train kernels")
+    _unfused_launches_ok(dev, res["kernels"]["launches"], want,
+                         "train kernels", banned)
+    if dev.type == "cuda" and res["kernels"]["k1_csr_builds"]:
+        raise AssertionError(f"train kernels: K1 sorted "
+                             f"{res['kernels']['k1_csr_builds']} calls' "
+                             f"edges")
     if any(res["plain"]["launches"].values()):
         raise AssertionError(f"train plain: kernels launched: "
                              f"{res['plain']['launches']}")
@@ -2277,25 +2337,29 @@ def _eval_batch_ranks(c, kernels: bool):
     return ranks.cpu().numpy(), mask.cpu().numpy(), _counts()
 
 
-def phase_variants(ctx) -> dict:
+def phase_variants(ctx, variants=_VARIANTS, train_want=_UNFUSED_TRAIN,
+                   eval_want=("spmm_fwd", "fused_window_fwd"),
+                   banned=_NOT_UNFUSED) -> dict:
     """The other TeMP variants at full width and VARIANT_SEQ_LEN: GRRGCN
     --impute --post-ensemble (K2's mode (a)), BiGRRGCN --post-aggregation
-    and plain BiGRRGCN (mode (b)): 2 training steps with the kernels and
-    with their plain versions (``phase_train_unfused``) and one valid batch
-    of each, held together (MRR within MRR_TOL, the same query mask)."""
+    and plain BiGRRGCN (mode (b)), or the (tag, config, flags) of
+    `variants`: 2 training steps with the kernels and with their plain
+    versions (``phase_train_unfused``, the kernels `train_want` launched
+    and none of `banned`) and one valid batch of each, held together (MRR
+    within MRR_TOL, the same query mask; `eval_want` launched)."""
     import numpy as np
 
     from temp_tpu_torch.models.objectives import metrics_from_ranks
 
     out = {}
-    for tag, config, flags in _VARIANTS:
+    for tag, config, flags in variants:
         vctx = phase_setup(ctx["device"].type, config=config,
                            data=ctx["data"],
                            **{**ctx["setup_kw"], **flags,
                               "train_seq_len": VARIANT_SEQ_LEN})
         vctx["train_steps"] = 2
         r = {"model": type(vctx["model"]).__name__,
-             "train": phase_train_unfused(vctx)}
+             "train": phase_train_unfused(vctx, train_want, banned)}
         (rk, mk, launches), (rp, mp, plain) = (
             _eval_batch_ranks(vctx, k) for k in (True, False))
         mk_, mp_ = metrics_from_ranks(rk, mk), metrics_from_ranks(rp, mp)
@@ -2306,14 +2370,88 @@ def phase_variants(ctx) -> dict:
                 and abs(mk_["mrr"] - mp_["mrr"]) <= MRR_TOL):
             raise AssertionError(f"variant {tag} eval: {r['eval']} "
                                  f"(plain {mp_})")
-        _unfused_launches_ok(vctx["device"], launches,
-                             ("spmm_fwd", "fused_window_fwd"),
-                             f"variant {tag} eval")
+        _unfused_launches_ok(vctx["device"], launches, eval_want,
+                             f"variant {tag} eval", banned)
         if any(plain.values()):
             raise AssertionError(f"variant {tag} eval plain: {plain}")
         out[tag] = r
         print(f"  variant {tag}: {r}", flush=True)
     return out
+
+
+# the attention models (models/selfattn.py, models/postselfattn.py): their
+# training and eval launch K1 alone, no K2 and none of K3-K13
+_SA_TRAIN = ("spmm_fwd", "spmm_bwd")
+_NOT_SA = _NOT_UNFUSED + ("fused_window_fwd", "fused_window_bwd")
+_SA_VARIANTS = (
+    ("post_sargcn", "config_sargcn.json", {"post_aggregation": True}),
+    ("post_bisargcn", "config_bisargcn.json", {"post_aggregation": True}),
+    ("sargcn_compact_lambda_ema", "config_sargcn.json",
+     {"sa_compact": True, "learnable_lambda": True, "ema": True}))
+
+
+def phase_setup_sa(ctx, config: str = "config_sargcn.json") -> dict:
+    """An attention model (grid/icews14/`config`: SARGCN, or BiSARGCN) on
+    the smoke's data at full width with seeded random weights."""
+    return phase_setup(ctx["device"].type, config=config, data=ctx["data"],
+                       **ctx["setup_kw"])
+
+
+def _sa_k1_cases(c):
+    """K1's shapes on an attention model's history, in ``_k1_cases``' form:
+    one element's L1 window slots side by side in one call, each slot's
+    graph over all N entity rows in global ids, its time position named in
+    the data's global tables: "history" a target whose window lies inside
+    the data, "history_edge" one whose window runs off t = 0 (its first
+    slots name the clamped position 0, every edge masked); "compact" the
+    same window in ``sa_compact``'s form (each slot's A active rows, the
+    data's compact tables)."""
+    import torch
+
+    from temp_tpu_torch.models.dynamic import gather_window
+
+    dev, p, data, model = c["device"], c["params"], c["trainer"].data, \
+        c["model"]
+    L1, N, d = c["L1"], c["N"], c["d"]
+    w = p["encoder"]["layer1"]["weight"]
+    emb = p["ent_embeds"]
+    dense = emb.expand(L1, N, d).reshape(L1 * N, d)
+    out = []
+    for tag, t in (("history", data.num_times // 2),
+                   ("history_edge", L1 // 2)):
+        win = gather_window(data, torch.tensor(t, device=dev), L1 + 1)
+        out.append((tag, (dense, win.src[:L1], win.dst[:L1], win.rel[:L1],
+                          win.emask[:L1], w),
+                    (data.spmm.glob, win.t_idx[:L1])))
+        if tag == "history":
+            h = model._rows(p, win.act_idx[:L1]).reshape(-1, d)
+            compact = ("compact", (h.contiguous(), win.src_loc[:L1],
+                                   win.dst_loc[:L1], win.rel[:L1],
+                                   win.emask[:L1], w),
+                       (data.spmm.comp, win.t_idx[:L1]))
+    return out + [compact]
+
+
+def phase_sa_k1(c) -> dict:
+    """K1f and K1b at the attention history's shapes (``_sa_k1_cases``)
+    as ``phase_k1`` and ``phase_k1b`` hold them: over the data's tables
+    (one launch, no sort, no host sync, two runs bit-equal), bit-equal to
+    the in-call route, within K1_TOL of the plain versions; times and
+    bounds."""
+    cases = _sa_k1_cases(c)
+    return {"fwd": phase_k1(c, cases),
+            "bwd": phase_k1b(c, cases, tags=[t for t, _, _ in cases])}
+
+
+def phase_sa_path(c) -> dict:
+    """An attention model's valid sweep with the kernels and with their
+    plain versions (``phase_path``: MRR within MRR_TOL, the same query
+    mask, no K1 call sorting its edges): K1f launched and no other
+    kernel."""
+    res = phase_path(c, want=["spmm_fwd"])
+    _unfused_launches_ok(c["device"], res["kernels"]["launches"],
+                         ("spmm_fwd",), "attention eval", _NOT_SA)
+    return res
 
 
 def phase_setup_ring(ctx) -> dict:
@@ -2734,9 +2872,12 @@ def _paths(res: dict) -> dict:
     out["ring_train"] = res["ring_train"]["ring"]["launches"]
     out["ted_eval"] = res["ted_path"]["kernels"]["launches"]
     out["ted_train"] = res["ted_train"]["kernels"]["launches"]
-    for tag, r in res["variants"].items():
+    for tag, r in {**res["variants"], **res["sa_variants"]}.items():
         out[f"{tag}_train"] = r["train"]["kernels"]["launches"]
         out[f"{tag}_eval"] = r["eval"]["launches"]
+    for tag in ("sa", "bisa"):
+        out[f"{tag}_train"] = res[f"{tag}_train"]["kernels"]["launches"]
+        out[f"{tag}_eval"] = res[f"{tag}_path"]["kernels"]["launches"]
     return out
 
 
@@ -2814,8 +2955,11 @@ def kernels_line(res: dict) -> dict:
             other = (("table", "train") if name == "spmm_fwd"
                      else ("final",))
             phase_res = res["k1" if name == "spmm_fwd" else "k1b"]
-            for tag in other:
-                r[tag] = {k: phase_res[tag][k] for k in (
+            # and at the attention models' history shapes
+            sa = res["sa_k1"]["fwd" if name == "spmm_fwd" else "bwd"]
+            for tag, case in [(t, phase_res[t]) for t in other] + [
+                    (f"sa_{t}", c) for t, c in sa.items()]:
+                r[tag] = {k: case[k] for k in (
                     "ms", "in_call_ms", "plain_ms", "library_ms",
                     "bound_ms", "max_abs_err", "bitwise", "shape")}
         if name in ("ring_spmm_fwd", "ring_spmm_bwd"):
@@ -2829,6 +2973,54 @@ def kernels_line(res: dict) -> dict:
                 "in_call_ms"]
         rec.append(r)
     return {"kernels": rec}
+
+
+def sa_phases(ctx, train_steps=None) -> dict:
+    """The attention models' phases (28-35 above) on the data of `ctx`,
+    each printing its line: SARGCN's setup, sa_k1, train and path, then
+    BiSARGCN's, then sa_variants; `train_steps` (default TRAIN_STEPS) the
+    steps of the train phases. Returns their results by phase name."""
+    res = {}
+    for tag, config in (("sa", "config_sargcn.json"),
+                        ("bisa", "config_bisargcn.json")):
+        with phase(f"{tag}_setup", {}) as ss:
+            sctx = phase_setup_sa(ctx, config)
+            if train_steps:
+                sctx["train_steps"] = train_steps
+            ss.update({k: sctx[k] for k in ("N", "A", "E", "L1", "B", "d")})
+            ss["model"] = type(sctx["model"]).__name__
+        if tag == "sa":
+            with phase("sa_k1", {}) as sk:
+                sk.update(phase_sa_k1(sctx))
+                for part in ("fwd", "bwd"):
+                    for case, r in sk[part].items():
+                        sk[f"{part}_{case}_ms"] = r["ms"]
+            res["sa_k1"] = sk
+        with phase(f"{tag}_train", {}) as st:
+            st.update(phase_train_unfused(sctx, _SA_TRAIN, _NOT_SA))
+            st["ms_per_step_plain"] = st["plain"]["ms_per_step"]
+            st["peak_mb"] = st["kernels"]["peak_mb"]
+            for k in _SA_TRAIN:
+                st[f"{k}_launches"] = st["kernels"]["launches"][k]
+        res[f"{tag}_train"] = st
+        with phase(f"{tag}_path", {}) as sp:
+            sp.update(phase_sa_path(sctx))
+            for name in ("kernels", "plain"):
+                sp[f"mrr_{name}"] = sp[name]["mrr"]
+                sp[f"wall_s_{name}"] = sp[name]["wall_s"]
+                sp[f"queries_per_s_{name}"] = sp[name]["queries_per_s"]
+            sp["spmm_fwd_launches"] = sp["kernels"]["launches"]["spmm_fwd"]
+            sp["peak_mb"] = sp["kernels"]["peak_mb"]
+        res[f"{tag}_path"] = sp
+        del sctx
+    with phase("sa_variants", {}) as sv:
+        sv.update(phase_variants(ctx, _SA_VARIANTS, _SA_TRAIN, ("spmm_fwd",),
+                                 _NOT_SA))
+        for tag in list(sv):
+            if isinstance(sv[tag], dict):
+                sv[f"{tag}_ms_per_step"] = sv[tag]["train"]["ms_per_step"]
+    res["sa_variants"] = {t: sv[t] for t, _, _ in _SA_VARIANTS}
+    return res
 
 
 def main() -> int:
@@ -2945,6 +3137,7 @@ def main() -> int:
             if isinstance(va[tag], dict):
                 va[f"{tag}_ms_per_step"] = va[tag]["train"]["ms_per_step"]
     res["variants"] = {t: va[t] for t, _, _ in _VARIANTS}
+    res.update(sa_phases(ctx))
     with phase("ring_setup", {}) as rs:
         rctx = phase_setup_ring(ctx)
         rs.update({k: rctx[k] for k in ("N", "A", "E", "B", "d", "rows",

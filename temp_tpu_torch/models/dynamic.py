@@ -120,6 +120,9 @@ class DynamicRGCNModel:
     # whether the model runs under an edge partition (``parallel/``); the
     # subclasses do not yet
     partitionable = True
+    # whether the model runs recurrent windows (their history tables and
+    # the fused final step's answer lists); the attention models do not
+    recurrent = True
 
     def __init__(self, cfg: TKGConfig, data: TKGData, device="cuda"):
         self.cfg = cfg
@@ -134,17 +137,19 @@ class DynamicRGCNModel:
         # (reference models/DynamicRGCN.py:18)
         self.eval_len = cfg.train_seq_len
         self.score_all, self.score_single = get_score_fn(cfg.score_function)
-        self.tbl_fwd: HistoryTables = to_device(
-            build_history_tables(data, self.train_len), self.device)
-        # the Bi models' backward-direction windows run over their own
-        # tables
-        self.tbl_bwd = (to_device(build_history_tables(
-            data, self.train_len, backward=True), self.device)
-            if cfg.module.startswith("Bi") else None)
-        # the train edge slots' true answers, the fused loss's mask; the
-        # eval splits' query slots' (total table), the fused eval's
-        self.answers: AnswerLists = to_device(build_answer_lists(data),
-                                              self.device)
+        self.tbl_fwd = self.tbl_bwd = self.answers = None
+        if self.recurrent:
+            self.tbl_fwd = to_device(build_history_tables(data,
+                                                          self.train_len),
+                                     self.device)
+            # the Bi models' backward-direction windows run over their own
+            # tables
+            if cfg.module.startswith("Bi"):
+                self.tbl_bwd = to_device(build_history_tables(
+                    data, self.train_len, backward=True), self.device)
+            # the train edge slots' true answers, the fused loss's mask
+            self.answers = to_device(build_answer_lists(data), self.device)
+        # the eval splits' query slots' (total table), the fused eval's
         self.eval_answers: Dict[str, AnswerLists] = {
             split: to_device(build_answer_lists(data, split), self.device)
             for split in ("valid", "test")} if self.fused_eval_on() else {}

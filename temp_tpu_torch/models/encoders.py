@@ -5,7 +5,8 @@ layer 2 has no activation in the unidirectional recurrent models and a ReLU
 in the Bi models, whose layers own a GRU for each direction. Both layers'
 outputs are history state. Ported so far: GRRGCN and BiGRRGCN, with or
 without imputation and the Post gates (``models/post.py``), without time
-embeddings; other configurations raise.
+embeddings; the self-attention modules' layers (bias on both, a ReLU on
+layer 2) are made in ``models/selfattn.py``; other configurations raise.
 """
 
 from __future__ import annotations
@@ -49,15 +50,26 @@ def make_layer_cfgs(cfg: TKGConfig, num_rels: int,
     return lc1, lc2
 
 
+# the self-attention modules (``models/selfattn.py``)
+SA_MODULES = ("SARGCN", "BiSARGCN")
+
+
 def _check_ported(cfg: TKGConfig) -> None:
     """GRRGCN and BiGRRGCN, with or without ``impute``, ``post_ensemble``
-    and ``post_aggregation``, pass; the other modules and flags raise."""
-    if cfg.module not in ("GRRGCN", "BiGRRGCN"):
+    and ``post_aggregation``, pass; so do SARGCN and BiSARGCN, also with
+    time embeddings (which they force on), ``rec_only_last_layer``,
+    ``learnable_lambda`` and ``random_dropout``; the other modules and
+    flags raise."""
+    if cfg.module not in ("GRRGCN", "BiGRRGCN") + SA_MODULES:
         raise NotImplementedError(f"module {cfg.module} is not ported yet")
-    for flag in ("rec_only_last_layer", "type1", "learnable_lambda",
-                 "use_time_embedding", "edge_dropout", "random_dropout"):
+    unported = ("type1", "edge_dropout")
+    if cfg.module not in SA_MODULES:
+        unported += ("rec_only_last_layer", "learnable_lambda",
+                     "use_time_embedding", "random_dropout")
+    for flag in unported:
         if getattr(cfg, flag):
-            raise NotImplementedError(f"{flag} is not ported yet")
+            raise NotImplementedError(f"{flag} is not ported yet for "
+                                      f"{cfg.module}")
 
 
 def init_encoder(gen: torch.Generator, cfg: TKGConfig, num_rels: int,

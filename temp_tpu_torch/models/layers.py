@@ -85,6 +85,11 @@ def init_rgcn_layer(gen: torch.Generator, cfg: TKGConfig,
     if lc.self_loop:
         p["loop_weight"] = xavier_uniform(gen, (lc.in_feat, lc.out_feat),
                                           RELU_GAIN)
+    if cfg.learnable_lambda:
+        # nn.Linear(1, 1)'s default init, U(-1, 1): the attention's logit
+        # decay (models/selfattn.py)
+        for name in ("decay_w", "decay_b"):
+            p[name] = torch.rand((), generator=gen) * 2.0 - 1.0
     return p
 
 
@@ -145,9 +150,12 @@ def layer_time_embedding(p, snap: Snapshot):
 
 
 def decay_factor(p, cfg: TKGConfig, dt):
-    """exp(-dt * lambda) with a fixed lambda. dt: [M] -> [M, 1]."""
+    """exp(-dt * lambda) with a fixed lambda. dt: [M] -> [M, 1]. The
+    recurrent layers' learnable lambda is not ported (the attention models'
+    logit decay is, ``models/selfattn.py``)."""
     if cfg.learnable_lambda:
-        raise NotImplementedError("learnable_lambda is not ported yet")
+        raise NotImplementedError("learnable_lambda in the recurrent layers "
+                                  "is not ported yet; see ROADMAP.md")
     return torch.exp(-dt[:, None] * cfg.inv_temperature)
 
 

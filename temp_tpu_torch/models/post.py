@@ -26,7 +26,9 @@ windows therefore carry a third history stream, layer 2's local output
 
 Under a gate the GRUs take the unblended conv output, and training and
 eval run one element at a time (K2 for the windows, K1 in the final
-step), the eval reporting a loss of 0 as the reference's does.
+step), the eval reporting a loss of 0 as the reference's does. The gates
+(``Gated``) also serve the attention models' Post variants
+(``models/postselfattn.py``).
 """
 
 from __future__ import annotations
@@ -75,18 +77,14 @@ def gate_weight(p, x):
     return torch.sigmoid((h @ p["w2"].T + p["b2"])[..., 0])
 
 
-class PostDynamicRGCNModel(DynamicRGCNModel):
-    """The unidirectional variants (GRRGCN base), and what the Bi ones
-    share: the windows with the local stream, the gates, the gated loss and
-    ranks."""
-
-    with_loc = True
-    partitionable = False
+class Gated:
+    """The frequency gates of ``--post-aggregation`` and ``--post-ensemble``
+    (the JAX package shares them by assignment with its Post attention
+    models), a mixin before a model class whose ``forward_tables`` gives
+    the (loc, rec) tables of one target: the gate MLPs, their features
+    and, under a gate, the gated loss and ranks of one element."""
 
     def __init__(self, cfg: TKGConfig, data: TKGData, device="cuda"):
-        if _base_module(cfg.module) != "GRRGCN":
-            raise NotImplementedError(
-                f"the Post variants need a GRU module, not {cfg.module}")
         super().__init__(cfg, data, device=device)
         self.freq = None
         if self.gated:
@@ -99,14 +97,116 @@ class PostDynamicRGCNModel(DynamicRGCNModel):
         return bool(self.cfg.post_aggregation or self.cfg.post_ensemble)
 
     def init_tree(self, gen: torch.Generator):
-        """``DynamicRGCNModel``'s tree and, under a gate, its MLPs as
-        "gates" (``GATES``), drawn after it."""
+        """The base model's tree and, under a gate, its MLPs as "gates"
+        (``GATES``), drawn after it."""
         p = super().init_tree(gen)
         for flag, names in GATES.items():
             if getattr(self.cfg, flag):
                 p["gates"] = {n: init_gate_mlp(gen) for n in names}
                 break
         return p
+
+    # -- the gates ----------------------------------------------------------
+
+    def gate_weights(self, params, split: str, t_pos: int):
+        """(w_sub, w_obj) [Q, 1]: the gates of the subject and the object
+        query of each edge slot of `split` at t_pos, from its frequency
+        features. post_aggregation's weights both come from its first two
+        MLPs ("sqse", "oqse"), as the reference's do."""
+        sub = getattr(self.freq, f"{split}_sub")[t_pos]
+        obj = getattr(self.freq, f"{split}_obj")[t_pos]
+        g = params["gates"]
+        names = GATES["post_aggregation" if self.cfg.post_aggregation
+                      else "post_ensemble"]
+        return (gate_weight(g[names[0]], sub)[:, None],
+                gate_weight(g[names[1]], obj)[:, None])
+
+    def element_loss(self, params, data: TKGData, t_pos: int, hists, emask,
+                     masks, pos):
+        """One target's training loss (the base model's
+        ``element_loss``); under a gate the gated cross-entropy over both
+        tables of ``forward_tables``."""
+        if not self.gated:
+            return super().element_loss(params, data, t_pos, hists, emask,
+                                        masks, pos)
+        loc, rec = self.forward_tables(params, data, t_pos, hists,
+                                       train=True, emask=emask, masks=masks)
+        tr = data.train
+        src, rel, dst = (x[t_pos].long() for x in (tr.src, tr.rel, tr.dst))
+        r_emb = params["rel_embeds"][rel]
+        w_s, w_o = self.gate_weights(params, "train", t_pos)
+        score_t, score_h = make_raw_scorers(self.cfg, data, t_pos, src, rel,
+                                            dst)
+
+        def q(ent, mode):
+            return query_for(self.score_all, ent, r_emb, mode)
+
+        if self.cfg.post_aggregation:
+            # tail: the subject blended by the object query's gate
+            qt = q(w_o * loc[src] + (1 - w_o) * rec[src], "tail")
+            sc_t = w_o * score_t(qt, loc) + (1 - w_o) * score_t(qt, rec)
+            # head: the reference's "blended" object reads the rec table
+            qh = q(rec[dst], "head")
+            sc_h = w_s * score_h(qh, loc) + (1 - w_s) * score_h(qh, rec)
+        else:
+            # the object query's gate weighs the tail scores, the
+            # subject's the head scores
+            sc_t = (w_o * score_t(q(loc[src], "tail"), loc)
+                    + (1 - w_o) * score_t(q(rec[src], "tail"), rec))
+            sc_h = (w_s * score_h(q(loc[dst], "head"), loc)
+                    + (1 - w_s) * score_h(q(rec[dst], "head"), rec))
+        return (_masked_mean(cross_entropy_0(sc_t), pos)
+                + _masked_mean(cross_entropy_0(sc_h), pos))
+
+    def element_ranks(self, params, data: TKGData, t_pos: int, hists,
+                      split: str):
+        """One target's (ranks, mask, bce) on `split` (the base model's
+        ``element_ranks``); under a gate the gated scores' ranks, and a bce
+        of 0 (the reference computes no eval loss for the gated models)."""
+        if not self.gated:
+            return super().element_ranks(params, data, t_pos, hists, split)
+        loc, rec = self.forward_tables(params, data, t_pos, hists)
+        edges = getattr(data, split)
+        src, rel, dst = (x[t_pos].long()
+                         for x in (edges.src, edges.rel, edges.dst))
+        r_emb = params["rel_embeds"][rel]
+        w_s, w_o = self.gate_weights(params, split, t_pos)
+
+        def sc(ent, table, mode):
+            return self.score_all(ent, r_emb, table, mode)
+
+        if self.cfg.post_aggregation:
+            s = w_o * loc[src] + (1 - w_o) * rec[src]
+            sc_tail = w_o * sc(s, loc, "tail") + (1 - w_o) * sc(s, rec, "tail")
+            # the object blended here, unlike in the loss
+            o = w_s * loc[dst] + (1 - w_s) * rec[dst]
+            sc_head = w_s * sc(o, loc, "head") + (1 - w_s) * sc(o, rec, "head")
+        else:
+            # the gates paired opposite to training: the subject query's
+            # gate weighs the tail scores
+            sc_tail = (w_s * sc(loc[src], loc, "tail")
+                       + (1 - w_s) * sc(rec[src], rec, "tail"))
+            sc_head = (w_o * sc(loc[dst], loc, "head")
+                       + (1 - w_o) * sc(rec[dst], rec, "head"))
+        qmask = edges.emask[t_pos]
+        return (both_ranks(data, t_pos, sc_tail, sc_head, src, rel, dst),
+                torch.cat([qmask, qmask]),
+                torch.zeros((), device=self.device))
+
+
+class PostDynamicRGCNModel(Gated, DynamicRGCNModel):
+    """The unidirectional variants (GRRGCN base), and what the Bi ones
+    share: the windows with the local stream, the gates, the gated loss and
+    ranks."""
+
+    with_loc = True
+    partitionable = False
+
+    def __init__(self, cfg: TKGConfig, data: TKGData, device="cuda"):
+        if _base_module(cfg.module) != "GRRGCN":
+            raise NotImplementedError(
+                f"the Post variants need a GRU module, not {cfg.module}")
+        super().__init__(cfg, data, device=device)
 
     # -- the final step -----------------------------------------------------
 
@@ -158,93 +258,6 @@ class PostDynamicRGCNModel(DynamicRGCNModel):
         _, rec = self.forward_tables(params, data, t_pos, hists, train=train,
                                      emask=emask, masks=masks)
         return self.embed_non_active(params, data.active[int(t_pos)], rec)
-
-    # -- the gates ----------------------------------------------------------
-
-    def gate_weights(self, params, split: str, t_pos: int):
-        """(w_sub, w_obj) [Q, 1]: the gates of the subject and the object
-        query of each edge slot of `split` at t_pos, from its frequency
-        features. post_aggregation's weights both come from its first two
-        MLPs ("sqse", "oqse"), as the reference's do."""
-        sub = getattr(self.freq, f"{split}_sub")[t_pos]
-        obj = getattr(self.freq, f"{split}_obj")[t_pos]
-        g = params["gates"]
-        names = GATES["post_aggregation" if self.cfg.post_aggregation
-                      else "post_ensemble"]
-        return (gate_weight(g[names[0]], sub)[:, None],
-                gate_weight(g[names[1]], obj)[:, None])
-
-    def element_loss(self, params, data: TKGData, t_pos: int, hists, emask,
-                     masks, pos):
-        """One target's training loss (``DynamicRGCNModel.element_loss``);
-        under a gate the gated cross-entropy over both tables."""
-        if not self.gated:
-            return super().element_loss(params, data, t_pos, hists, emask,
-                                        masks, pos)
-        loc, rec = self.forward_tables(params, data, t_pos, hists,
-                                       train=True, emask=emask, masks=masks)
-        tr = data.train
-        src, rel, dst = (x[t_pos].long() for x in (tr.src, tr.rel, tr.dst))
-        r_emb = params["rel_embeds"][rel]
-        w_s, w_o = self.gate_weights(params, "train", t_pos)
-        score_t, score_h = make_raw_scorers(self.cfg, data, t_pos, src, rel,
-                                            dst)
-
-        def q(ent, mode):
-            return query_for(self.score_all, ent, r_emb, mode)
-
-        if self.cfg.post_aggregation:
-            # tail: the subject blended by the object query's gate
-            qt = q(w_o * loc[src] + (1 - w_o) * rec[src], "tail")
-            sc_t = w_o * score_t(qt, loc) + (1 - w_o) * score_t(qt, rec)
-            # head: the reference's "blended" object reads the rec table
-            qh = q(rec[dst], "head")
-            sc_h = w_s * score_h(qh, loc) + (1 - w_s) * score_h(qh, rec)
-        else:
-            # the object query's gate weighs the tail scores, the
-            # subject's the head scores
-            sc_t = (w_o * score_t(q(loc[src], "tail"), loc)
-                    + (1 - w_o) * score_t(q(rec[src], "tail"), rec))
-            sc_h = (w_s * score_h(q(loc[dst], "head"), loc)
-                    + (1 - w_s) * score_h(q(rec[dst], "head"), rec))
-        return (_masked_mean(cross_entropy_0(sc_t), pos)
-                + _masked_mean(cross_entropy_0(sc_h), pos))
-
-    def element_ranks(self, params, data: TKGData, t_pos: int, hists,
-                      split: str):
-        """One target's (ranks, mask, bce) on `split`
-        (``DynamicRGCNModel.element_ranks``); under a gate the gated
-        scores' ranks, and a bce of 0 (the reference computes no eval loss
-        for the gated models)."""
-        if not self.gated:
-            return super().element_ranks(params, data, t_pos, hists, split)
-        loc, rec = self.forward_tables(params, data, t_pos, hists)
-        edges = getattr(data, split)
-        src, rel, dst = (x[t_pos].long()
-                         for x in (edges.src, edges.rel, edges.dst))
-        r_emb = params["rel_embeds"][rel]
-        w_s, w_o = self.gate_weights(params, split, t_pos)
-
-        def sc(ent, table, mode):
-            return self.score_all(ent, r_emb, table, mode)
-
-        if self.cfg.post_aggregation:
-            s = w_o * loc[src] + (1 - w_o) * rec[src]
-            sc_tail = w_o * sc(s, loc, "tail") + (1 - w_o) * sc(s, rec, "tail")
-            # the object blended here, unlike in the loss
-            o = w_s * loc[dst] + (1 - w_s) * rec[dst]
-            sc_head = w_s * sc(o, loc, "head") + (1 - w_s) * sc(o, rec, "head")
-        else:
-            # the gates paired opposite to training: the subject query's
-            # gate weighs the tail scores
-            sc_tail = (w_s * sc(loc[src], loc, "tail")
-                       + (1 - w_s) * sc(rec[src], rec, "tail"))
-            sc_head = (w_o * sc(loc[dst], loc, "head")
-                       + (1 - w_o) * sc(rec[dst], rec, "head"))
-        qmask = edges.emask[t_pos]
-        return (both_ranks(data, t_pos, sc_tail, sc_head, src, rel, dst),
-                torch.cat([qmask, qmask]),
-                torch.zeros((), device=self.device))
 
 
 class PostBiDynamicRGCNModel(BiWindows, PostDynamicRGCNModel):

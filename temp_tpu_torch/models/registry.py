@@ -4,8 +4,9 @@ the JAX package's ``models/registry.py``. Ported: GRRGCN
 ``--post-aggregation`` ``PostDynamicRGCNModel``) and BiGRRGCN
 (``BiDynamicRGCNModel``; with any of the three flags
 ``PostBiDynamicRGCNModel``, the flagship BiGRRGCN ``--impute`` among
-them); only plain GRRGCN under an edge partition. Every other combination
-raises."""
+them), SARGCN and BiSARGCN (``models/selfattn.py``; with
+``--post-aggregation`` ``models/postselfattn.py``); only plain GRRGCN under
+an edge partition. Every other combination raises."""
 
 from __future__ import annotations
 
@@ -47,12 +48,23 @@ def normalize_remap_flags(cfg: TKGConfig) -> TKGConfig:
 def get_model(cfg: TKGConfig, data: TKGData, device="cuda"):
     cfg = normalize_remap_flags(cfg)
     variant = cfg.impute or cfg.post_ensemble or cfg.post_aggregation
-    if cfg.module not in ("GRRGCN", "BiGRRGCN"):
+    if cfg.module not in ("GRRGCN", "BiGRRGCN", "SARGCN", "BiSARGCN"):
         raise NotImplementedError(f"module {cfg.module} is not ported yet")
     if cfg.partitioned and (variant or cfg.module != "GRRGCN"):
         raise NotImplementedError(f"{cfg.module} with these flags under an "
                                   f"edge partition is not ported yet; see "
                                   f"ROADMAP.md")
+    if cfg.module in ("SARGCN", "BiSARGCN"):
+        bi = cfg.module == "BiSARGCN"
+        if cfg.post_aggregation:
+            from temp_tpu_torch.models import postselfattn as m
+            cls = (m.PostBiSelfAttentionRGCNModel if bi
+                   else m.PostSelfAttentionRGCNModel)
+        else:
+            from temp_tpu_torch.models import selfattn as m
+            cls = (m.BiSelfAttentionRGCNModel if bi
+                   else m.SelfAttentionRGCNModel)
+        return cls(cfg, data, device=device)
     if cfg.module == "GRRGCN":
         if variant:
             from temp_tpu_torch.models.post import PostDynamicRGCNModel

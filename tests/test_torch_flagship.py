@@ -58,6 +58,7 @@ from temp_tpu_torch.models.post import (
     PostBiDynamicRGCNModel, PostDynamicRGCNModel,
 )
 from temp_tpu_torch.models.registry import get_model, normalize_remap_flags
+from temp_tpu_torch.models.selfattn import BiSelfAttentionRGCNModel
 from temp_tpu_torch.ops import fused_final as ff
 from temp_tpu_torch.ops import fused_final_bi as fb
 from temp_tpu_torch.ops.fused_window import (
@@ -626,13 +627,16 @@ def test_registry_dispatches_the_flagship_and_refuses_the_rest():
             ({"impute": False, "post_ensemble": True},
              PostBiDynamicRGCNModel),
             ({"impute": False}, BiDynamicRGCNModel),
-            ({"module": "GRRGCN", "impute": False}, DynamicRGCNModel)):
+            ({"module": "GRRGCN", "impute": False}, DynamicRGCNModel),
+            ({"module": "BiSARGCN"}, BiSelfAttentionRGCNModel)):
         m = get_model(TKGConfig(**{**KW, **over}), data, device="cpu")
         assert type(m) is cls, over
         m.init_params(0)
     # the other modules and flags, and every model but plain GRRGCN under
     # an edge partition
-    for over in ({"module": "BiRRGCN"}, {"module": "BiSARGCN"},
+    for over in ({"module": "BiRRGCN"}, {"module": "SRGCN"},
+                 {"module": "BiSARGCN", "edge_partition": "psum",
+                  "mp_size": 4},
                  {"use_time_embedding": True}, {"type1": True},
                  {"edge_dropout": True},
                  {"post_ensemble": True, "edge_partition": "ring",

@@ -55,7 +55,8 @@ from temp_tpu_torch.ops.fused_window_mb import (
 from temp_tpu_torch.ops.membership import true_answer_mask
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 from temp_tpu_torch.ops.spmm import (
-    flat_graph, spmm, spmm_bwd, spmm_bwd_plain, spmm_fwd, spmm_fwd_plain,
+    _norm2_plain, flat_graph, spmm, spmm_bwd, spmm_bwd_plain, spmm_fwd,
+    spmm_fwd_plain,
 )
 from temp_tpu_torch.parallel.edge_partition import (
     group_edges_by_dst_owner, ring_geometry, ring_tables,
@@ -124,13 +125,14 @@ def test_spmm_kernel_refuses_what_it_does_not_take(cuda):
                  torch.zeros(3, 512, device=cuda))
 
 
-def _k1_tables_case(n, e, r, d, dev, B=1, rate=1.0, T=3, seed=0):
+def _k1_tables_case(n, e, r, d, dev, B=1, rate=1.0, T=3, seed=0,
+                    t_pos=None):
     """K1 over static tables: T snapshots' edges [T, E] and their tables
     (ring_tables of one rank over a static mask, sorted on the CPU and
     moved to the card, as the data's are), B graphs naming snapshots
-    t_pos (one named twice where B > 1), a call mask inside the static
-    mask (`rate` of it kept). Returns (h, (src, dst, rel, mask) [B, E], w,
-    (tables, t_pos))."""
+    t_pos (one named twice where B > 1; or the given t_pos, [B]), a call
+    mask inside the static mask (`rate` of it kept). Returns (h, (src,
+    dst, rel, mask) [B, E], w, (tables, t_pos))."""
     g = torch.Generator().manual_seed(seed)
     src = torch.randint(0, n, (T, e), generator=g, dtype=torch.int32)
     dst = torch.randint(0, max(1, n // 2), (T, e), generator=g,
@@ -139,8 +141,10 @@ def _k1_tables_case(n, e, r, d, dev, B=1, rate=1.0, T=3, seed=0):
     static = torch.rand(T, e, generator=g) < 0.8
     tab = to_device(ring_tables(src, dst, rel, static, 1,
                                 ring_geometry(n, 1), r), dev)
-    t_pos = torch.tensor([T - 1, 0, T - 1, 1][:B]) if B > 1 else (
-        torch.tensor([T // 2]))
+    if t_pos is None:
+        t_pos = torch.tensor([T - 1, 0, T - 1, 1][:B]) if B > 1 else (
+            torch.tensor([T // 2]))
+    B = t_pos.shape[0]
     mask = static[t_pos] & (torch.rand(B, e, generator=g) < rate)
     h = torch.randn(B * n, d, generator=g)
     w = torch.randn(r, d, generator=g)
@@ -186,6 +190,72 @@ def test_spmm_tables_match_in_call_route(cuda, n, e, r, d, B, rate):
     assert _scaled_ok(out, spmm_fwd_plain(h, *flat, w), 1e-5)[0]
     rh, rw = spmm_bwd_plain(g, n2, h, *flat, w)
     assert _scaled_ok(dh, rh, 1e-5)[0] and _scaled_ok(dw, rw, 1e-5)[0]
+
+
+@pytest.mark.parametrize("off", [0, 5])
+def test_spmm_at_the_attention_history_shape(cuda, off):
+    """K1f and K1b at the attention models' history shape (SARGCN's: one
+    element's 14 window slots side by side, 7128 rows each): over the
+    tables one launch each and no sort, bit-equal to the in-call route and
+    within 1e-5 of the largest entry of the plain versions. With `off`
+    slots running off the data, as a window before t = 0 does: they name
+    the clamped position 0 and mask every edge, and their rows are 0."""
+    t_pos = (torch.arange(14) - off).clamp(min=0)
+    h, edges, w, tables = _k1_tables_case(7128, 256, 460, 128, cuda,
+                                          rate=0.8, T=20, t_pos=t_pos)
+    src, dst, rel, mask = edges
+    mask = mask.clone()
+    mask[:off] = False
+    edges = (src, dst, rel, mask)
+    fl, fb, builds = spmm_fwd.launches, spmm_bwd.launches, \
+        spmm_fwd.csr_builds
+    out = spmm_fwd(h, *edges, w, tables=tables)
+    g = torch.randn_like(h)
+    flat = _k1_flat(h, edges)
+    n2 = _norm2_plain(flat[1], flat[3].float(), h.shape[0])
+    dh, dw = spmm_bwd(g, n2, h, *edges, w, tables=tables)
+    torch.cuda.synchronize()
+    assert (spmm_fwd.launches, spmm_bwd.launches, spmm_fwd.csr_builds) == (
+        fl + 1, fb + 1, builds)
+    assert torch.equal(out, spmm_fwd(h, *edges, w))
+    ch, cw = spmm_bwd(g, n2, h, *edges, w)
+    assert torch.equal(dh, ch) and torch.equal(dw, cw)
+    assert not out[:off * 7128].any()
+    assert _scaled_ok(out, spmm_fwd_plain(h, *flat, w), 1e-5)[0]
+    rh, rw = spmm_bwd_plain(g, n2, h, *flat, w)
+    assert _scaled_ok(dh, rh, 1e-5)[0] and _scaled_ok(dw, rw, 1e-5)[0]
+
+
+def test_attention_models_train_and_evaluate_kernels_like_plain(cuda):
+    """SARGCN (dense history) and BiSARGCN (sa_compact) at a small size:
+    two training steps and an eval sweep with the kernels and with their
+    plain versions, held to TOL; the kernel path launches K1f and K1b and
+    sorts no call's edges."""
+    data = make_synthetic(num_ents=300, num_rels=6, num_times=12,
+                          edges_per_time=60, seed=0, edge_pad_multiple=16)
+    for flags in ({"module": "SARGCN"},
+                  {"module": "BiSARGCN", "sa_compact": True}):
+        out = {}
+        for kernels in (True, False):
+            cfg = TKGConfig(embed_size=32, hidden_size=32, n_bases=32,
+                            train_seq_len=5, batch_size=4, dropout=0.1,
+                            kernels=kernels, **flags)
+            d = ring_layout(cfg, data)
+            tr = Trainer(cfg, get_model(cfg, d, device="cuda"), d)
+            params, opt = tr.init_state()
+            fl, fb, builds = spmm_fwd.launches, spmm_bwd.launches, \
+                spmm_fwd.csr_builds
+            losses = [float(tr.train_step(params, opt, t, v,
+                                          gen=tr.step_generator(0, i)))
+                      for i, (t, v) in enumerate(tr.epoch_batches(0)[:2])]
+            out[kernels] = (losses, tr.run_eval(params, "valid"),
+                            (spmm_fwd.launches - fl, spmm_bwd.launches - fb,
+                             spmm_fwd.csr_builds - builds))
+        (lk, mk, nk), (lp, mp, np_) = out[True], out[False]
+        assert all(abs(a - b) <= TOL * max(1.0, abs(b))
+                   for a, b in zip(lk, lp))
+        assert mk["n"] == mp["n"] > 0 and abs(mk["mrr"] - mp["mrr"]) <= TOL
+        assert nk[0] > 0 and nk[1] > 0 and nk[2] == 0 and np_ == (0, 0, 0)
 
 
 def test_spmm_table_route_makes_no_sync(cuda):

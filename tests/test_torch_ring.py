@@ -58,6 +58,7 @@ from temp_tpu_torch.parallel.ring_spmm import (
     ring_spmm_fwd_plain,
 )
 from temp_tpu_torch.train.loop import Trainer
+from test_torch_slice import one_thread  # noqa: F401
 from temp_tpu_torch.train.optim import param_leaves
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -681,11 +682,13 @@ def test_eval_ranks_match_jax_unpartitioned(jax_ring, mode):
                                   jax_ring["ranks"][jax_ring["mask"]])
 
 
-def test_trainer_fits_and_evaluates_under_ring_pallas(tmp_path):
+def test_trainer_fits_and_evaluates_under_ring_pallas(tmp_path, one_thread):
     """Trainer.fit for one epoch and run_eval with edge_partition
     "ring_pallas" and 4 CPU ranks: the Trainer wraps the model, the losses
     are finite, and the sweep's MRR equals the unpartitioned sweep's of the
-    trained weights on the same data."""
+    trained weights on the same data. On one intra-op thread: the ring's
+    thousands of tiny ops otherwise wait on the other test workers'
+    threads (``one_thread``)."""
     cfg = TKGConfig(edge_partition="ring_pallas", fast_dev_run=True,
                     **{**KW, "batch_size": 2})
     data = ring_regroup_data(make_synthetic(**DATA), M)
@@ -741,6 +744,8 @@ def test_main_cli_ring_pallas_on_cpu(tmp_path):
     root = _write_dataset(tmp_path / "data")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
+    # one intra-op thread, as ``one_thread`` gives the tests in process
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run(
         [sys.executable, "-m", "temp_tpu_torch.main", "-c",
          os.path.join(ROOT, "grid", "icews14", "config_grrgcn.json"),

@@ -202,6 +202,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     res.update(ted_path=chip_smoke.phase_ted_path(tctx),
                ted_train=chip_smoke.phase_train_unfused(tctx),
                variants=chip_smoke.phase_variants(ctx))
+    res.update(chip_smoke.sa_phases(ctx, train_steps=2))
     rctx = chip_smoke.phase_setup_ring(ctx)
     assert rctx["mesh"].placement() == "4 ranks on cpu"
     res.update(k13=chip_smoke.phase_k13(rctx),
@@ -391,6 +392,35 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     assert va["bigrrgcn"]["train"]["gate_leaves"] == 0
     assert {"ted_eval", "ted_train", "bigrrgcn_train",
             "grrgcn_impute_ensemble_eval"} <= paths
+    # the attention models: K1 at their history's shapes, their steps,
+    # sweeps and variants, kernels against plain
+    sk = res["sa_k1"]
+    assert set(sk["fwd"]) == set(sk["bwd"]) == {
+        "history", "history_edge", "compact"}
+    for r in list(sk["fwd"].values()) + list(sk["bwd"].values()):
+        assert r["bitwise"] and r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
+    assert "B=3 " in sk["fwd"]["history"]["shape"]
+    for k in (0, 1):
+        assert {"sa_history", "sa_history_edge", "sa_compact"} <= set(
+            line["kernels"][k])
+    for tag in ("sa", "bisa"):
+        tr_, pa = res[f"{tag}_train"], res[f"{tag}_path"]
+        assert len(tr_["kernels"]["losses"]) == 2
+        assert tr_["kernels"]["losses"][0] == tr_["plain"]["losses"][0]
+        assert tr_["max_rel_gap"] <= chip_smoke.TRAIN_TOL
+        assert tr_["kernels"]["k1_csr_builds"] == 0
+        assert pa["kernels"]["mrr"] == pa["plain"]["mrr"] > 0
+        assert pa["same_rank_share"] == 1.0
+        assert {f"{tag}_train", f"{tag}_eval"} <= paths
+    sv = res["sa_variants"]
+    assert {t: r["model"] for t, r in sv.items()} == {
+        "post_sargcn": "PostSelfAttentionRGCNModel",
+        "post_bisargcn": "PostBiSelfAttentionRGCNModel",
+        "sargcn_compact_lambda_ema": "SelfAttentionRGCNModel"}
+    for r in sv.values():
+        assert r["eval"]["mrr_kernels"] == r["eval"]["mrr_plain"] > 0
+        assert r["train"]["max_rel_gap"] <= chip_smoke.TRAIN_TOL
+    assert sv["post_sargcn"]["train"]["gate_leaves"] == 16
 
 
 @pytest.mark.parametrize("alone", [False, True])
