@@ -151,15 +151,52 @@ on the same data, whose every graph product is K1:
                   VARIANT_SEQ_LEN: 2 steps and one valid batch each,
                   kernels against plain.
 
+Then the linear-recurrence and static models (models/dynamic.py,
+models/bidynamic.py, models/static.py) and the recurrent options, on the
+same data:
+
+36. rrgcn_setup  - RRGCN (grid/icews14/config_rrgcn.json, L1 = 14) with
+                   seeded random weights, and the seconds DropEdge's rates
+                   take to build at its window length;
+37. rrgcn_k1     - K1f and K1b at its window step's shape: the 8 graphs of
+                   a batch side by side, 640 compact rows each, each naming
+                   its own time position in the data's tables, under its
+                   own mask and an 80% subsample of it; as sa_k1 holds
+                   them;
+38. rrgcn_train  - TRAIN_STEPS optimizer steps with the kernels and with
+                   their plain versions: losses within TRAIN_TOL, every
+                   leaf within PARAM_TOL, K1f and K1b launched (exactly
+                   k1_launches_a_step a step: 28 window calls of the
+                   batch's graphs side by side and 2 an element) and no
+                   other kernel, no K1 call sorting its edges; ms a step,
+                   peak memory;
+39. rrgcn_path   - the valid sweep, kernels against plain (MRR within
+                   MRR_TOL, the same query mask), queries/s;
+40-42. birrgcn_setup, birrgcn_train, birrgcn_path - the same for BiRRGCN
+                   (config_birrgcn.json, two windows of L1 = 7);
+43-45. srgcn_setup, srgcn_train, srgcn_path - the same for SRGCN
+                   (config_srgcn.json, no window: 2 K1 calls an element);
+46. rec_variants - GRRGCN with type1 + learnable_lambda +
+                   use_time_embedding, with rec_only_last_layer, with
+                   edge_dropout and with random_dropout, BiGRRGCN --impute
+                   --edge-dropout and --post-aggregation with time
+                   embeddings, RRGCN with random_dropout, and DRGCN at full
+                   width and VARIANT_SEQ_LEN: 2 steps and one valid batch
+                   each, kernels against plain, each with the kernels it
+                   must and must not launch (under the dropouts the
+                   training windows run through K1 and the final step
+                   through K3-K5, or the flagship's K6-K10 and K4; eval
+                   through K2f), and the DropEdge rates' build seconds.
+
 Then the model-parallel path, GRRGCN with edge_partition="ring_pallas" over
 RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
 
-36. ring_setup - the dataset regrouped for 4 ranks (ring_layout: the edges
+47. ring_setup - the dataset regrouped for 4 ranks (ring_layout: the edges
                  grouped by destination owner, K13's and K1's static CSR
                  tables of every train snapshot) and the model on it with the
                  same seeded weights; prints the ranks' placement and the
                  number of cards;
-37. k13        - kernel K13 (ring_spmm_fwd) at the final-snapshot shape
+48. k13        - kernel K13 (ring_spmm_fwd) at the final-snapshot shape
                  (7128 rows in 4 shards of 1792) and at one window step's
                  compact shape (the 8 graphs of an eval batch): walking
                  the data's tables (the path's route) and sorting the
@@ -170,12 +207,12 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  K13's backward kernels (ring_spmm_bwd) over the tables at
                  both shapes against autograd through the plain forward
                  and against ring_spmm_bwd_plain, with their times;
-38. ring_path  - the valid sweep under the partition with the kernels and
+49. ring_path  - the valid sweep under the partition with the kernels and
                  with their plain versions, and without a partition on the
                  same data (K1 over the data's K1 tables of that layout):
                  MRR within 1e-4; K13's launches, no sort in a call, and
                  none of K1, K2, K3-K5, K11 or K12 under the partition;
-39. ring_train - 8 optimizer steps under the partition (kernels, plain)
+50. ring_train - 8 optimizer steps under the partition (kernels, plain)
                  and without it (fused_final off): losses and parameters
                  held together as in `train`; K13's forward and backward
                  launched, no sort in a call.
@@ -185,8 +222,10 @@ K2f, K2b, K5, K9+K10 and K12, whose products run in 3xTF32 on the tensor
 cores, bound_tc_ms: their operations at 3xTF32's 165 TFLOP/s beside the f32
 bound_ms; K2f's and K2b's rows with their modes apart, `extra_modes` the
 k2_modes phase's; K1f's and K1b's rows with the attention history's
-shapes, `sa_history`, `sa_history_edge`, `sa_compact`; every path's
-launches, the attention models' among them), the
+shapes, `sa_history`, `sa_history_edge`, `sa_compact`, and the linear
+recurrence's window step, `rrgcn_window`, `rrgcn_window_sub`; every path's
+launches, the attention, linear-recurrence and static models' and the
+recurrent options' among them), the
 nvidia-smi name/power-limit line, and the
 result line {"ok": true, "device": {...}}. Any failed check raises and exits
 non-zero; there is no result line then. Without CUDA it exits 1 at once. A
@@ -2255,15 +2294,18 @@ def phase_ted_path(tctx) -> dict:
     return res
 
 
-def phase_train_unfused(c, want=_UNFUSED_TRAIN, banned=_NOT_UNFUSED) -> dict:
+def phase_train_unfused(c, want=_UNFUSED_TRAIN, banned=_NOT_UNFUSED,
+                        fused: bool = False) -> dict:
     """The first steps of epoch 0 (TRAIN_STEPS, or c["train_steps"]) of a
     model whose final step runs one element at a time (TED, the other
-    variants, the attention models), with the kernels and with their plain
-    versions, from the same seeded weights and draws: the losses within
-    TRAIN_TOL, every parameter leaf (the gates' among them) within
-    PARAM_TOL of the plain path's change (``param_gaps``), the kernels
-    `want` launched (K1f, K1b, K2f and K2b) and none of `banned` (K3-K12),
-    no K1 call sorting its edges."""
+    variants, the attention, linear-recurrence and static models; with
+    `fused` one whose final step runs fused, after windows that run step by
+    step), with the kernels and with their plain versions, from the same
+    seeded weights and draws: the losses within TRAIN_TOL, every parameter
+    leaf (the gates' among them) within PARAM_TOL of the plain path's
+    change (``param_gaps``), the kernels `want` launched (by default K1f,
+    K1b, K2f and K2b) and none of `banned` (by default K3-K12), no K1 call
+    sorting its edges."""
     import numpy as np
     import torch
 
@@ -2272,8 +2314,9 @@ def phase_train_unfused(c, want=_UNFUSED_TRAIN, banned=_NOT_UNFUSED) -> dict:
     for name, over in (("kernels", {}), ("plain", {"kernels": False})):
         model, res[name], leaves, finals[name], _, params = _train_path(
             c, c["cfg"].replace(**over))
-        if model.fused_final_on():
-            raise AssertionError(f"{name}: a fused final step")
+        if model.fused_final_on() != fused:
+            raise AssertionError(f"{name}: fused final step "
+                                 f"{model.fused_final_on()}, not {fused}")
         if init is None:
             init = leaves
             names = _leaf_names(params)
@@ -2342,24 +2385,34 @@ def phase_variants(ctx, variants=_VARIANTS, train_want=_UNFUSED_TRAIN,
                    banned=_NOT_UNFUSED) -> dict:
     """The other TeMP variants at full width and VARIANT_SEQ_LEN: GRRGCN
     --impute --post-ensemble (K2's mode (a)), BiGRRGCN --post-aggregation
-    and plain BiGRRGCN (mode (b)), or the (tag, config, flags) of
+    and plain BiGRRGCN (mode (b)), or the (tag, config, flags[, spec]) of
     `variants`: 2 training steps with the kernels and with their plain
     versions (``phase_train_unfused``, the kernels `train_want` launched
     and none of `banned`) and one valid batch of each, held together (MRR
-    within MRR_TOL, the same query mask; `eval_want` launched)."""
+    within MRR_TOL, the same query mask; `eval_want` launched). A
+    variant's `spec` may set its own "train_want", "train_banned",
+    "eval_want", "eval_banned" and "fused" (its training's final step
+    fused). A model with DropEdge's rates records their build seconds."""
     import numpy as np
 
     from temp_tpu_torch.models.objectives import metrics_from_ranks
 
     out = {}
-    for tag, config, flags in variants:
+    for tag, config, flags, *more in variants:
+        spec = {"train_want": train_want, "train_banned": banned,
+                "eval_want": eval_want, "eval_banned": banned,
+                "fused": False, **(more[0] if more else {})}
         vctx = phase_setup(ctx["device"].type, config=config,
                            data=ctx["data"],
                            **{**ctx["setup_kw"], **flags,
                               "train_seq_len": VARIANT_SEQ_LEN})
         vctx["train_steps"] = 2
         r = {"model": type(vctx["model"]).__name__,
-             "train": phase_train_unfused(vctx, train_want, banned)}
+             "train": phase_train_unfused(vctx, spec["train_want"],
+                                          spec["train_banned"],
+                                          spec["fused"])}
+        if getattr(vctx["model"], "drop_rates_s", None) is not None:
+            r["drop_rates_s"] = vctx["model"].drop_rates_s
         (rk, mk, launches), (rp, mp, plain) = (
             _eval_batch_ranks(vctx, k) for k in (True, False))
         mk_, mp_ = metrics_from_ranks(rk, mk), metrics_from_ranks(rp, mp)
@@ -2370,8 +2423,8 @@ def phase_variants(ctx, variants=_VARIANTS, train_want=_UNFUSED_TRAIN,
                 and abs(mk_["mrr"] - mp_["mrr"]) <= MRR_TOL):
             raise AssertionError(f"variant {tag} eval: {r['eval']} "
                                  f"(plain {mp_})")
-        _unfused_launches_ok(vctx["device"], launches, eval_want,
-                             f"variant {tag} eval", banned)
+        _unfused_launches_ok(vctx["device"], launches, spec["eval_want"],
+                             f"variant {tag} eval", spec["eval_banned"])
         if any(plain.values()):
             raise AssertionError(f"variant {tag} eval plain: {plain}")
         out[tag] = r
@@ -2390,9 +2443,10 @@ _SA_VARIANTS = (
      {"sa_compact": True, "learnable_lambda": True, "ema": True}))
 
 
-def phase_setup_sa(ctx, config: str = "config_sargcn.json") -> dict:
-    """An attention model (grid/icews14/`config`: SARGCN, or BiSARGCN) on
-    the smoke's data at full width with seeded random weights."""
+def phase_setup_config(ctx, config: str = "config_sargcn.json") -> dict:
+    """The model of grid/icews14/`config` (SARGCN, BiSARGCN, RRGCN,
+    BiRRGCN, SRGCN) on the smoke's data at full width with seeded random
+    weights."""
     return phase_setup(ctx["device"].type, config=config, data=ctx["data"],
                        **ctx["setup_kw"])
 
@@ -2432,25 +2486,53 @@ def _sa_k1_cases(c):
     return out + [compact]
 
 
-def phase_sa_k1(c) -> dict:
-    """K1f and K1b at the attention history's shapes (``_sa_k1_cases``)
-    as ``phase_k1`` and ``phase_k1b`` hold them: over the data's tables
-    (one launch, no sort, no host sync, two runs bit-equal), bit-equal to
-    the in-call route, within K1_TOL of the plain versions; times and
-    bounds."""
-    cases = _sa_k1_cases(c)
+def phase_sa_k1(c, cases=None) -> dict:
+    """K1f and K1b at the attention history's shapes (``_sa_k1_cases``),
+    or at the shapes of `cases` in that form, as ``phase_k1`` and
+    ``phase_k1b`` hold them: over the data's tables (one launch, no sort,
+    no host sync, two runs bit-equal), bit-equal to the in-call route,
+    within K1_TOL of the plain versions; times and bounds."""
+    cases = _sa_k1_cases(c) if cases is None else cases
     return {"fwd": phase_k1(c, cases),
             "bwd": phase_k1b(c, cases, tags=[t for t, _, _ in cases])}
 
 
-def phase_sa_path(c) -> dict:
-    """An attention model's valid sweep with the kernels and with their
-    plain versions (``phase_path``: MRR within MRR_TOL, the same query
-    mask, no K1 call sorting its edges): K1f launched and no other
-    kernel."""
+def _rec_k1_cases(c):
+    """K1's shapes on a linear-recurrence model's window step, in
+    ``_k1_cases``' form: the B graphs of an eval batch side by side, A
+    compact rows each, each graph naming its own time position in the
+    data's compact tables, layer 1's input rows; "window" under each
+    graph's own mask (eval), "window_sub" under an 80% subsample of it
+    (training under random_dropout)."""
+    import torch
+
+    from temp_tpu_torch.models.dynamic import gather_window
+    from temp_tpu_torch.ops.sampling import subsample_edges
+
+    dev, p, data, model = c["device"], c["params"], c["trainer"].data, \
+        c["model"]
+    tp = torch.arange(c["B"], device=dev) + data.num_times // 2
+    win = gather_window(data, tp, c["L1"] + 1)
+    k = c["L1"] // 2
+    h = model._rows(p, win.act_idx[:, k]).reshape(-1, c["d"]).contiguous()
+    w = p["encoder"]["layer1"]["weight"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    edges = (win.src_loc[:, k], win.dst_loc[:, k], win.rel[:, k])
+    tables = (data.spmm.comp, win.t_idx[:, k])
+    return (("window", (h, *edges, win.emask[:, k], w), tables),
+            ("window_sub", (h, *edges, subsample_edges(
+                gen, win.emask[:, k], 0.8), w), tables))
+
+
+def phase_k1_path(c, what: str) -> dict:
+    """The valid sweep of a model whose every graph product is K1 (the
+    attention, linear-recurrence and static models; `what` names it) with
+    the kernels and with their plain versions (``phase_path``: MRR within
+    MRR_TOL, the same query mask, no K1 call sorting its edges): K1f
+    launched and no other kernel."""
     res = phase_path(c, want=["spmm_fwd"])
     _unfused_launches_ok(c["device"], res["kernels"]["launches"],
-                         ("spmm_fwd",), "attention eval", _NOT_SA)
+                         ("spmm_fwd",), f"{what} eval", _NOT_SA)
     return res
 
 
@@ -2872,10 +2954,11 @@ def _paths(res: dict) -> dict:
     out["ring_train"] = res["ring_train"]["ring"]["launches"]
     out["ted_eval"] = res["ted_path"]["kernels"]["launches"]
     out["ted_train"] = res["ted_train"]["kernels"]["launches"]
-    for tag, r in {**res["variants"], **res["sa_variants"]}.items():
+    for tag, r in {**res["variants"], **res["sa_variants"],
+                   **res["rec_variants"]}.items():
         out[f"{tag}_train"] = r["train"]["kernels"]["launches"]
         out[f"{tag}_eval"] = r["eval"]["launches"]
-    for tag in ("sa", "bisa"):
+    for tag in ("sa", "bisa", "rrgcn", "birrgcn", "srgcn"):
         out[f"{tag}_train"] = res[f"{tag}_train"]["kernels"]["launches"]
         out[f"{tag}_eval"] = res[f"{tag}_path"]["kernels"]["launches"]
     return out
@@ -2955,10 +3038,12 @@ def kernels_line(res: dict) -> dict:
             other = (("table", "train") if name == "spmm_fwd"
                      else ("final",))
             phase_res = res["k1" if name == "spmm_fwd" else "k1b"]
-            # and at the attention models' history shapes
-            sa = res["sa_k1"]["fwd" if name == "spmm_fwd" else "bwd"]
+            # and at the attention models' history shapes and the linear
+            # recurrence's window step
+            part = "fwd" if name == "spmm_fwd" else "bwd"
             for tag, case in [(t, phase_res[t]) for t in other] + [
-                    (f"sa_{t}", c) for t, c in sa.items()]:
+                    (f"{pre}_{t}", c) for pre in ("sa", "rrgcn")
+                    for t, c in res[f"{pre}_k1"][part].items()]:
                 r[tag] = {k: case[k] for k in (
                     "ms", "in_call_ms", "plain_ms", "library_ms",
                     "bound_ms", "max_abs_err", "bitwise", "shape")}
@@ -2984,7 +3069,7 @@ def sa_phases(ctx, train_steps=None) -> dict:
     for tag, config in (("sa", "config_sargcn.json"),
                         ("bisa", "config_bisargcn.json")):
         with phase(f"{tag}_setup", {}) as ss:
-            sctx = phase_setup_sa(ctx, config)
+            sctx = phase_setup_config(ctx, config)
             if train_steps:
                 sctx["train_steps"] = train_steps
             ss.update({k: sctx[k] for k in ("N", "A", "E", "L1", "B", "d")})
@@ -3004,7 +3089,7 @@ def sa_phases(ctx, train_steps=None) -> dict:
                 st[f"{k}_launches"] = st["kernels"]["launches"][k]
         res[f"{tag}_train"] = st
         with phase(f"{tag}_path", {}) as sp:
-            sp.update(phase_sa_path(sctx))
+            sp.update(phase_k1_path(sctx, "attention"))
             for name in ("kernels", "plain"):
                 sp[f"mrr_{name}"] = sp[name]["mrr"]
                 sp[f"wall_s_{name}"] = sp[name]["wall_s"]
@@ -3020,6 +3105,129 @@ def sa_phases(ctx, train_steps=None) -> dict:
             if isinstance(sv[tag], dict):
                 sv[f"{tag}_ms_per_step"] = sv[tag]["train"]["ms_per_step"]
     res["sa_variants"] = {t: sv[t] for t, _, _ in _SA_VARIANTS}
+    return res
+
+
+# the linear-recurrence and static models (models/dynamic.py,
+# models/bidynamic.py, models/static.py): every graph product K1, no other
+# kernel
+_REC_MODELS = (("rrgcn", "config_rrgcn.json"),
+               ("birrgcn", "config_birrgcn.json"),
+               ("srgcn", "config_srgcn.json"))
+_K1_ONLY = {"train_want": _SA_TRAIN, "train_banned": _NOT_SA,
+            "eval_want": ("spmm_fwd",), "eval_banned": _NOT_SA}
+_NOT_TRAINED_AFTER_DROP = ("fused_window_fwd", "fused_window_bwd",
+                           "fused_eval_ranks", "fused_window_mb_fwd",
+                           "ring_spmm_fwd", "ring_spmm_bwd")
+# GRRGCN under random_dropout or DropEdge: training's windows step by step
+# (K1), its final step fused (K3-K5), no K2; eval (no dropout) K2f and K1f
+_DROP_GRU = {"fused": True,
+             "train_want": _SA_TRAIN + ("fused_final_fwd",
+                                        "fused_final_bwd_loss",
+                                        "fused_final_bwd_layer"),
+             "train_banned": _NOT_TRAINED_AFTER_DROP + (
+                 "bi_layer_fwd", "bi_loss_fwd", "bi_layer_bwd"),
+             "eval_want": ("spmm_fwd", "fused_window_fwd"),
+             "eval_banned": _NOT_UNFUSED}
+# the flagship under DropEdge: the same with K6-K10 and K4
+_DROP_FLAGSHIP = {**_DROP_GRU,
+                  "train_want": _SA_TRAIN + ("bi_layer_fwd", "bi_loss_fwd",
+                                             "fused_final_bwd_loss",
+                                             "bi_layer_bwd"),
+                  "train_banned": _NOT_TRAINED_AFTER_DROP + (
+                      "fused_final_fwd", "fused_final_bwd_layer")}
+# the recurrent options, each with the kernels it must and must not launch
+_REC_VARIANTS = (
+    ("grrgcn_type1_lambda_temb", "config_grrgcn.json",
+     {"type1": True, "learnable_lambda": True, "use_time_embedding": True},
+     _K1_ONLY),
+    ("grrgcn_rec_only", "config_grrgcn.json", {"rec_only_last_layer": True},
+     _K1_ONLY),
+    ("grrgcn_edge_dropout", "config_grrgcn.json", {"edge_dropout": True},
+     _DROP_GRU),
+    ("grrgcn_random_dropout", "config_grrgcn.json", {"random_dropout": True},
+     _DROP_GRU),
+    ("bigrrgcn_impute_edge_dropout", "config_bigrrgcn.json",
+     {"impute": True, "edge_dropout": True}, _DROP_FLAGSHIP),
+    ("bigrrgcn_aggregation_temb", "config_bigrrgcn.json",
+     {"post_aggregation": True, "use_time_embedding": True}, _K1_ONLY),
+    ("rrgcn_random_dropout", "config_rrgcn.json", {"random_dropout": True},
+     _K1_ONLY),
+    ("drgcn", "config_srgcn.json", {"module": "DRGCN"}, _K1_ONLY))
+
+
+def k1_launches_a_step(c) -> int:
+    """K1f's (and K1b's) launches in a training step of the model of c,
+    whose every graph product is K1: two a step of each window (the
+    batch's graphs side by side, one a layer), two a valid element's
+    final snapshot (the first steps' batches hold no padding)."""
+    cfg, model = c["cfg"], c["model"]
+    windows = (0 if not model.recurrent
+               else 2 if cfg.module.startswith("Bi") else 1)
+    return 2 * (cfg.train_seq_len - 1) * windows + 2 * cfg.batch_size
+
+
+def rec_phases(ctx, train_steps=None) -> dict:
+    """The linear-recurrence and static models' phases (36-46 above) on
+    the data of `ctx`, each printing its line: RRGCN's setup (with the
+    seconds DropEdge's rates take at its window length), train and path,
+    then BiRRGCN's and SRGCN's, then rec_variants; `train_steps` (default
+    TRAIN_STEPS) the steps of the train phases. Returns their results by
+    phase name."""
+    from temp_tpu_torch.data.frequency import build_drop_rates
+
+    res = {}
+    for tag, config in _REC_MODELS:
+        with phase(f"{tag}_setup", {}) as ss:
+            c = phase_setup_config(ctx, config)
+            if train_steps:
+                c["train_steps"] = train_steps
+            ss.update({k: c[k] for k in ("N", "A", "E", "L1", "B", "d")})
+            ss["model"] = type(c["model"]).__name__
+            if c["model"].recurrent:
+                t0 = time.perf_counter()
+                build_drop_rates(c["data"], c["cfg"].train_seq_len,
+                                 c["cfg"].module.startswith("Bi"))
+                ss["drop_rates_s"] = time.perf_counter() - t0
+        if tag == "rrgcn":
+            with phase("rrgcn_k1", {}) as rk:
+                rk.update(phase_sa_k1(c, _rec_k1_cases(c)))
+                for part in ("fwd", "bwd"):
+                    for case, r in rk[part].items():
+                        rk[f"{part}_{case}_ms"] = r["ms"]
+            res["rrgcn_k1"] = rk
+        with phase(f"{tag}_train", {}) as st:
+            st.update(phase_train_unfused(c, _SA_TRAIN, _NOT_SA))
+            steps = c.get("train_steps", TRAIN_STEPS)
+            n = st["kernels"]["launches"]
+            st["k1_launches_a_step"] = per = k1_launches_a_step(c)
+            for k in _SA_TRAIN:
+                st[f"{k}_launches"] = n[k]
+            if ctx["device"].type == "cuda" and not (
+                    n["spmm_fwd"] == n["spmm_bwd"] == per * steps):
+                raise AssertionError(f"{tag} train: K1 launches {n}, not "
+                                     f"{per} a step")
+            st["ms_per_step_plain"] = st["plain"]["ms_per_step"]
+            st["peak_mb"] = st["kernels"]["peak_mb"]
+        res[f"{tag}_train"] = st
+        with phase(f"{tag}_path", {}) as sp:
+            sp.update(phase_k1_path(c, tag))
+            for name in ("kernels", "plain"):
+                sp[f"mrr_{name}"] = sp[name]["mrr"]
+                sp[f"wall_s_{name}"] = sp[name]["wall_s"]
+                sp[f"queries_per_s_{name}"] = sp[name]["queries_per_s"]
+            sp["spmm_fwd_launches"] = sp["kernels"]["launches"]["spmm_fwd"]
+            sp["peak_mb"] = sp["kernels"]["peak_mb"]
+        res[f"{tag}_path"] = sp
+        del c
+    with phase("rec_variants", {}) as rv:
+        rv.update(phase_variants(ctx, _REC_VARIANTS))
+        for tag in list(rv):
+            if isinstance(rv[tag], dict):
+                rv[f"{tag}_ms_per_step"] = rv[tag]["train"]["ms_per_step"]
+                if "drop_rates_s" in rv[tag]:
+                    rv[f"{tag}_drop_rates_s"] = rv[tag]["drop_rates_s"]
+    res["rec_variants"] = {t: rv[t] for t, *_ in _REC_VARIANTS}
     return res
 
 
@@ -3138,6 +3346,7 @@ def main() -> int:
                 va[f"{tag}_ms_per_step"] = va[tag]["train"]["ms_per_step"]
     res["variants"] = {t: va[t] for t, _, _ in _VARIANTS}
     res.update(sa_phases(ctx))
+    res.update(rec_phases(ctx))
     with phase("ring_setup", {}) as rs:
         rctx = phase_setup_ring(ctx)
         rs.update({k: rctx[k] for k in ("N", "A", "E", "B", "d", "rows",

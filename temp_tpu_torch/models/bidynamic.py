@@ -1,13 +1,20 @@
-"""BiDynamicRGCN: the bidirectional recurrent model (BiGRRGCN).
+"""BiDynamicRGCN: the bidirectional recurrent models (BiGRRGCN, BiRRGCN).
 
 Reference: the JAX package's ``models/bidynamic.py`` (after the reference's
 models/BiDynamicRGCN.py). Two history windows run for each target: the
-past one on the forward GRUs and the future one, in reverse order, on the
-backward GRUs and the backward history tables. At the target snapshot both
-windows' states meet in each layer (``encoder_forward_center``: the conv
-output into both GRUs, their outputs summed). Layer 2 has a ReLU, so both
-windows run K2 with it on the card; the final step runs one element at a
-time (K1), with no precomputed layer-1 convs, as in the JAX package.
+past one on the forward recurrence (GRUs, or BiRRGCN's forward time
+weights) and the future one, in reverse order, on the backward recurrence
+and the backward history tables. At the target snapshot both windows'
+states meet in each layer (``encoder_forward_center``: BiGRRGCN's conv
+output into both GRUs, their outputs summed; BiRRGCN's two decayed states
+through their time weights, added to the aggregation). Layer 2 has a
+ReLU, so BiGRRGCN's windows run K2 with it on the card; BiRRGCN's, and
+those under the options K2 does not take, run step by step through K1.
+The final step runs one element at a time (K1), with no precomputed
+layer-1 convs, as in the JAX package. In training the forward windows
+take DropEdge's past rates and the backward ones its future rates
+(``edge_dropout``), or both an 80% subsample of each step's edges
+(``random_dropout``).
 
 ``BiWindows`` holds the two windows' draws and histories, which the Post
 Bi model (``models/post.py``) shares.
@@ -30,9 +37,12 @@ class BiWindows:
     partitionable = False
 
     def draw_train(self, gen: torch.Generator, data: TKGData, t_pos):
-        """``DynamicRGCNModel.draw_train`` (its "win1"/"win2" the forward
-        window's masks) and "win1_b"/"win2_b", the backward window's."""
+        """``DynamicRGCNModel.draw_train`` (its "win1"/"win2" and
+        "win_edges" the forward window's masks) and "win1_b"/"win2_b" and
+        "win_edges_b", the backward window's."""
         out = super().draw_train(gen, data, t_pos)
+        out["win_edges_b"] = self.window_edges(gen, data, t_pos.long(),
+                                               direction="bwd")
         out["win1_b"] = out["win2_b"] = None
         L1 = self.train_len - 1
         rate = self.lc1.dropout
@@ -53,20 +63,22 @@ class BiWindows:
         if conv1_all is not None:
             raise ValueError("the Bi models take no precomputed convs")
         out = ()
-        for direction, keys in (("fwd", ("win1", "win2")),
-                                ("bwd", ("win1_b", "win2_b"))):
+        for direction, sfx in (("fwd", ""), ("bwd", "_b")):
             win = gather_window(data, tp, length,
                                 backward=direction == "bwd")
-            masks = None if draws is None else tuple(draws[k] for k in keys)
+            masks = edges = None
+            if draws is not None:
+                masks = (draws["win1" + sfx], draws["win2" + sfx])
+                edges = draws.get("win_edges" + sfx)
             out += self.pre_forward(params, win, length, tp,
                                     train=draws is not None, masks=masks,
                                     direction=direction,
-                                    with_loc=self.with_loc)
+                                    with_loc=self.with_loc, edges=edges)
         return out
 
 
 class BiDynamicRGCNModel(BiWindows, DynamicRGCNModel):
-    """BiGRRGCN (reference models/BiDynamicRGCN.py)."""
+    """BiGRRGCN and BiRRGCN (reference models/BiDynamicRGCN.py)."""
 
     def forward_element(self, params, data: TKGData, t_pos: int, hists=None,
                         train: bool = False, emask=None, masks=(None, None)):

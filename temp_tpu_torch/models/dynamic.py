@@ -1,4 +1,4 @@
-"""DynamicRGCN: the unidirectional recurrent pipeline (GRRGCN).
+"""DynamicRGCN: the unidirectional recurrent pipeline (GRRGCN, RRGCN).
 
 For a batch of target times the history window (the L-1 snapshots before
 each target) runs in compact form: every step computes only the active rows
@@ -23,20 +23,28 @@ the windows and final steps run step by step through ``rel_spmm``, which
 partitions each SpMM over the ranks (the ring modes through K13).
 
 Training draws every random choice of a step up front (``draw_train``):
-the self-loop dropout masks of the window and of the final step, the 50%
-edge subsample of the final snapshot and the positive subset of the loss.
-``loss`` takes them as the optional `draws`, so a test can hand the model
-the JAX package's own draws.
+the self-loop dropout masks of the window and of the final step, the
+window steps' edge masks (``random_dropout``'s 80% subsample, or DropEdge's
+frequency-driven drops under ``edge_dropout``, from the rates built once at
+model build, ``data/frequency.py``), the 50% edge subsample of the final
+snapshot and the positive subset of the loss. ``loss`` takes them as the
+optional `draws`, so a test can hand the model the JAX package's own
+draws. Windows with edge masks, RRGCN's windows and those under the
+options K2 does not take (``type1``, ``learnable_lambda``, time embeddings,
+``rec_only_last_layer``) run step by step (K1 for every graph product);
+the final step still runs fused through K3-K5 where its envelope holds.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from temp_tpu_torch.config import TKGConfig
+from temp_tpu_torch.data.frequency import build_drop_rates
 from temp_tpu_torch.data.snapshots import (
     AnswerLists, HistoryTables, TKGData, build_answer_lists,
     build_history_tables, to_device,
@@ -113,7 +121,7 @@ def gather_window(data: TKGData, t_pos, length: int,
 
 
 class DynamicRGCNModel:
-    """GRRGCN (reference models/DynamicRGCN.py)."""
+    """GRRGCN and RRGCN (reference models/DynamicRGCN.py)."""
 
     # whether the windows carry the third (local) history stream
     with_loc = False
@@ -149,6 +157,19 @@ class DynamicRGCNModel:
                     data, self.train_len, backward=True), self.device)
             # the train edge slots' true answers, the fused loss's mask
             self.answers = to_device(build_answer_lists(data), self.device)
+        # DropEdge's per-(target, window step, edge) drop rates of the
+        # forward windows and (the Bi models) the backward ones, built on
+        # the host once; their seconds in drop_rates_s
+        self.drop_past = self.drop_future = self.drop_rates_s = None
+        if self.recurrent and cfg.edge_dropout:
+            t0 = time.perf_counter()
+            past, future = build_drop_rates(
+                data, cfg.train_seq_len, cfg.module.startswith("Bi"),
+                cfg.rate_lower, cfg.rate_upper, cfg.lambda_1, cfg.lambda_2,
+                cfg.lambda_3)
+            self.drop_past = torch.from_numpy(past).to(self.device)
+            self.drop_future = torch.from_numpy(future).to(self.device)
+            self.drop_rates_s = time.perf_counter() - t0
         # the eval splits' query slots' (total table), the fused eval's
         self.eval_answers: Dict[str, AnswerLists] = {
             split: to_device(build_answer_lists(data, split), self.device)
@@ -232,15 +253,20 @@ class DynamicRGCNModel:
         deterministic graphs each snapshot's conv1 is the same in every
         window that holds it: computed once per eval sweep, as one SpMM over
         the T snapshots laid side by side. None when the table would take
-        more than 256 MB, and for the subclasses (the Post models), whose
-        eval threads its own windows, as in the JAX package, and under an
-        edge partition (the config's or an active one), whose windows run
-        every SpMM through the partition.
+        more than 256 MB; for the subclasses (the Post models), whose
+        eval threads its own windows, as in the JAX package; where layer 1
+        is no GRU layer fed by the conv alone (RRGCN, whose recurrence sits
+        inside the layer, and ``rec_only_last_layer``) or its output takes
+        a time embedding; and under an edge partition (the config's or an
+        active one), whose windows run every SpMM through the partition.
         """
         cfg = self.cfg
         T, A = data.act_idx.shape
         d = cfg.embed_size
-        if (type(self) is not DynamicRGCNModel or T * A * d * 4 > 256 * 2**20
+        if (type(self) is not DynamicRGCNModel
+                or _base_module(cfg.module) != "GRRGCN"
+                or cfg.rec_only_last_layer or cfg.use_time_embedding
+                or T * A * d * 4 > 256 * 2**20
                 or cfg.edge_partition_mode is not None
                 or manual_axis() is not None):
             return None
@@ -265,7 +291,7 @@ class DynamicRGCNModel:
 
     def pre_forward(self, params, win: WindowSlice, length: int, t_pos,
                     conv1_xs=None, train: bool = False, masks=None,
-                    direction=None, with_loc: bool = False):
+                    direction=None, with_loc: bool = False, edges=None):
         """Run the first length-1 snapshots of B windows (win and t_pos with
         a leading batch dim). Returns (hist1, hist2[, hist_loc], last_pos):
         [B, N, d] each and [B, N], the history each entity carries into the
@@ -275,10 +301,13 @@ class DynamicRGCNModel:
         `conv1_xs` [B, L1, A, d]: precomputed layer-1 convs of the window
         steps (eval); layer 1's SpMM is then skipped. `masks` (train): the
         self-loop keep masks of layer 1 and layer 2, each bool
-        [B, L1, A, d], or None without dropout. `direction` "bwd" runs a
-        backward window (``gather_window(backward=True)``) on the gru_bwd
-        weights and the backward history tables; "fwd" the forward one on
-        gru_fwd (the Bi models); None the unidirectional model's.
+        [B, L1, A, d], or None without dropout. `edges` (train): the steps'
+        edge masks [B, L1, E] bool (``random_dropout``, ``edge_dropout``),
+        or None for the window's own. `direction` "bwd" runs a backward
+        window (``gather_window(backward=True)``) on the backward weights
+        (gru_bwd, time_weight_bwd) and the backward history tables; "fwd"
+        the forward one on the forward weights (the Bi models); None the
+        unidirectional model's.
         """
         if not self.partitionable and manual_axis() is not None:
             raise NotImplementedError(
@@ -306,7 +335,10 @@ class DynamicRGCNModel:
 
         if masks is not None and masks[0] is None:
             masks = None
+        emask = win.emask if edges is None else edges
         if self.fused_window_on(train):
+            if edges is not None:
+                raise ValueError("K2 takes no per-step edge masks")
             pos = torch.arange(L1, device=self.device)[None, :, None]
             dt = (pos - prev_step.clamp(min=0)).to(torch.float32)
             keep = 1.0 - self.lc1.dropout
@@ -336,10 +368,10 @@ class DynamicRGCNModel:
                 h2 = bufs[1].reshape(B, L1 * A, d)[bidx, gidx] * live
                 dt = (k - pstep.clamp(min=0)).to(torch.float32)
                 # the B graphs side by side (rel_spmm), each in its own
-                # compact ids
+                # compact ids at its own time position
                 snap = Snapshot(src=win.src_loc[:, k], dst=win.dst_loc[:, k],
-                                rel=win.rel[:, k], emask=win.emask[:, k],
-                                t_idx=0, t_pos=win.t_idx[:, k],
+                                rel=win.rel[:, k], emask=emask[:, k],
+                                t_idx=win.t_idx[:, k], t_pos=win.t_idx[:, k],
                                 compact=True, tables=win.tables)
                 step_masks = (None, None) if masks is None else tuple(
                     m[:, k].reshape(B * A, d) for m in masks)
@@ -419,7 +451,10 @@ class DynamicRGCNModel:
         (a tensor on the model's device), from `gen` (on that device):
 
         - "win1"/"win2": the window's self-loop keep masks, [B, L1, A, d]
-          bool (None without dropout);
+          bool (None without dropout, and in a model without windows);
+        - "win_edges": the window steps' edge masks, [B, L1, E] bool
+          (``window_edges``; None without ``random_dropout`` or
+          ``edge_dropout``);
         - "fin1"/"fin2": the final step's, [B, N, d] bool (None without);
         - "edges": the final snapshot's 50% edge subsample, [B, E] bool;
         - "pos": the loss's positive subset, [B, E] bool.
@@ -429,9 +464,10 @@ class DynamicRGCNModel:
         B, L1, d = tp.shape[0], self.train_len - 1, cfg.embed_size
         A = data.act_idx.shape[-1]
         rate = self.lc1.dropout
-        out = {"win1": None, "win2": None, "fin1": None, "fin2": None}
+        out = {"win1": None, "win2": None, "fin1": None, "fin2": None,
+               "win_edges": self.window_edges(gen, data, tp)}
         if rate > 0.0:
-            if L1 > 0:
+            if L1 > 0 and self.recurrent:
                 for key in ("win1", "win2"):
                     out[key] = dropout_mask(gen, (B, L1, A, d), rate,
                                             self.device)
@@ -443,19 +479,44 @@ class DynamicRGCNModel:
                                          cfg.num_pos_facts)
         return out
 
+    def window_edges(self, gen: torch.Generator, data: TKGData, tp,
+                     direction=None):
+        """The training edge masks [B, L1, E] bool of the windows of the
+        targets tp [B] (the backward ones for `direction` "bwd"): under
+        ``edge_dropout`` each edge kept when a uniform draw is at least its
+        DropEdge rate (the forward windows' rates, or the backward ones');
+        else under ``random_dropout`` an 80% subsample of each step's
+        edges; else (and in a model without windows) None."""
+        cfg = self.cfg
+        L1 = self.train_len - 1
+        if not (self.recurrent and L1 > 0
+                and (cfg.edge_dropout or cfg.random_dropout)):
+            return None
+        emask = gather_window(data, tp, self.train_len,
+                              backward=direction == "bwd").emask[:, :L1]
+        if cfg.edge_dropout:
+            rates = (self.drop_future if direction == "bwd"
+                     else self.drop_past)[tp]
+            return emask & (torch.rand(emask.shape, generator=gen,
+                                       device=emask.device) >= rates)
+        return subsample_edges(gen, emask, 0.8)
+
     def batch_hists(self, params, data: TKGData, tp, length: int,
                     draws=None, conv1_all=None):
         """The history of B targets tp [B] (a tensor on the model's device)
         as ``pre_forward`` gives it: (hist1, hist2, last_pos). Training
-        (`draws` given) takes its window masks; eval may gather layer 1's
-        convs from `conv1_all` (``precompute_eval_conv1``)."""
+        (`draws` given) takes its window masks and edge masks; eval may
+        gather layer 1's convs from `conv1_all`
+        (``precompute_eval_conv1``)."""
         c1 = (None if conv1_all is None
               else self._window_conv1(conv1_all, tp, length))
         masks = None if draws is None else (draws["win1"], draws["win2"])
         return self.pre_forward(params, gather_window(data, tp, length),
                                 length, tp, conv1_xs=c1,
                                 train=draws is not None, masks=masks,
-                                with_loc=self.with_loc)
+                                with_loc=self.with_loc,
+                                edges=None if draws is None
+                                else draws.get("win_edges"))
 
     def fused_final_losses(self, params, data: TKGData, tp, draws, hists):
         """The final steps and losses of the B targets tp as one call of

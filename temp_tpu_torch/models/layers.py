@@ -1,12 +1,18 @@
-"""RGCN layer with GRU recurrence (the GRRGCN layer, and the BiGRRGCN layer,
-which owns a GRU for each direction and sums both at the target snapshot).
+"""The RGCN layer family: the static conv, the GRU-recurrent layer (GRRGCN;
+BiGRRGCN's owns a GRU for each direction and sums both at the target
+snapshot) and the linear-recurrent one (RRGCN; BiRRGCN's owns a time
+weight for each direction).
 
 Dense unified formulation: a layer maps the entity rows it is given [M, d_in]
 -> [M, d_out] for one snapshot's padded edge list; rows without in-edges get
 zero aggregation. Parameters follow the reference: per-relation
 block-diagonal weights (xavier-uniform with ReLU gain), optional bias, a
 self-loop weight, a per-timestamp time embedding, exponential decay of the
-previous state, and a torch-semantics GRU fed by the conv output.
+previous state (a fixed rate, or under ``learnable_lambda`` a clamped
+Linear(1, 1) of the time difference), and the recurrence: a torch-semantics
+GRU (or the reference's type1 cell) fed by the conv output, or in RRGCN
+``prev @ time_weight`` times the decay added inside the layer, before bias,
+self-loop and activation.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from temp_tpu_torch.config import TKGConfig
-from temp_tpu_torch.ops.gru import GRU_KEY, gru_stack, init_gru_params
+from temp_tpu_torch.ops.gru import (
+    GRU_KEY, init_gru_params, init_type1_gru_params, run_gru,
+)
 from temp_tpu_torch.ops.segment import rel_spmm
 
 
@@ -86,8 +94,9 @@ def init_rgcn_layer(gen: torch.Generator, cfg: TKGConfig,
         p["loop_weight"] = xavier_uniform(gen, (lc.in_feat, lc.out_feat),
                                           RELU_GAIN)
     if cfg.learnable_lambda:
-        # nn.Linear(1, 1)'s default init, U(-1, 1): the attention's logit
-        # decay (models/selfattn.py)
+        # nn.Linear(1, 1)'s default init, U(-1, 1): the recurrent layers'
+        # decay (``decay_factor``) and the attention's logit decay
+        # (models/selfattn.py)
         for name in ("decay_w", "decay_b"):
             p[name] = torch.rand((), generator=gen) * 2.0 - 1.0
     return p
@@ -96,12 +105,34 @@ def init_rgcn_layer(gen: torch.Generator, cfg: TKGConfig,
 def init_grrgcn_layer(gen: torch.Generator, cfg: TKGConfig, lc: LayerCfg,
                       bidirectional: bool = False):
     """The conv's parameters and one GRU ("gru"), or one for each direction
-    ("gru_fwd", "gru_bwd") when `bidirectional`."""
+    ("gru_fwd", "gru_bwd") when `bidirectional`: a stack of
+    ``cfg.num_layers`` standard cells, or under ``type1`` a list of one
+    type1 cell."""
     p = init_rgcn_layer(gen, cfg, lc)
     names = ("gru_fwd", "gru_bwd") if bidirectional else ("gru",)
     for name in names:
-        p[name] = init_gru_params(gen, lc.in_feat, lc.out_feat,
-                                  cfg.num_layers)
+        p[name] = ([init_type1_gru_params(gen, lc.in_feat, lc.out_feat)]
+                   if cfg.type1 else
+                   init_gru_params(gen, lc.in_feat, lc.out_feat,
+                                   cfg.num_layers))
+    return p
+
+
+# the time weight of a linear-recurrent layer by window direction
+TIME_WEIGHT_KEY = {"fwd": "time_weight_fwd", "bwd": "time_weight_bwd",
+                   None: "time_weight"}
+
+
+def init_rrgcn_layer(gen: torch.Generator, cfg: TKGConfig, lc: LayerCfg,
+                     bidirectional: bool = False):
+    """The conv's parameters and the recurrence's time weight [d_in,
+    d_out] ("time_weight"), or one for each direction ("time_weight_fwd",
+    "time_weight_bwd") when `bidirectional`; xavier-uniform, ReLU gain."""
+    p = init_rgcn_layer(gen, cfg, lc)
+    names = ("fwd", "bwd") if bidirectional else (None,)
+    for d in names:
+        p[TIME_WEIGHT_KEY[d]] = xavier_uniform(gen, (lc.in_feat, lc.out_feat),
+                                               RELU_GAIN)
     return p
 
 
@@ -128,15 +159,19 @@ def _dropout(x, rate: float, train: bool, mask=None):
     return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
 
 
-def rgcn_conv(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
-              train: bool = False, mask=None):
-    """Aggregation + bias + self-loop + activation. In training the
-    self-loop message takes dropout at rate ``lc.dropout`` with the keep
-    mask `mask`."""
-    out = rel_spmm(h, snap.src, snap.dst, snap.rel, snap.emask, p["weight"],
-                   lc.n_bases, lc.out_feat, h.shape[0], kernels=cfg.kernels,
-                   t_pos=snap.t_pos, compact=snap.compact,
-                   tables=snap.tables)
+def _aggregate(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot):
+    """The relational aggregation of `snap`'s edges over the rows h (K1 on
+    the card)."""
+    return rel_spmm(h, snap.src, snap.dst, snap.rel, snap.emask, p["weight"],
+                    lc.n_bases, lc.out_feat, h.shape[0], kernels=cfg.kernels,
+                    t_pos=snap.t_pos, compact=snap.compact,
+                    tables=snap.tables)
+
+
+def _bias_loop_act(p, lc: LayerCfg, out, h, train: bool, mask):
+    """out + bias + the self-loop message of h (dropout at rate
+    ``lc.dropout`` with the keep mask `mask` in training), then the
+    activation."""
     if lc.bias:
         out = out + p["h_bias"]
     if lc.self_loop:
@@ -144,19 +179,41 @@ def rgcn_conv(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
     return _activation(lc.activation, out)
 
 
+def rgcn_conv(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
+              train: bool = False, mask=None):
+    """Aggregation + bias + self-loop + activation. In training the
+    self-loop message takes dropout at rate ``lc.dropout`` with the keep
+    mask `mask`."""
+    return _bias_loop_act(p, lc, _aggregate(p, cfg, lc, h, snap), h, train,
+                          mask)
+
+
 def layer_time_embedding(p, snap: Snapshot):
-    """time_embed[t] broadcast over nodes. [d_in]."""
+    """time_embed[t]: [d_in], broadcast over the rows; [G, d_in] for G
+    graphs side by side whose t_idx is [G] (``plus_time_embedding``)."""
     return p["time_embed"][snap.t_idx]
 
 
+def plus_time_embedding(x, temb):
+    """x [M, d] plus a time embedding (``layer_time_embedding``): [d] for
+    every row, or [G, d] for G graphs side by side, each to its M / G
+    rows."""
+    if temb.dim() == 1:
+        return x + temb
+    G, d = temb.shape
+    return (x.reshape(G, -1, d) + temb[:, None]).reshape(x.shape)
+
+
 def decay_factor(p, cfg: TKGConfig, dt):
-    """exp(-dt * lambda) with a fixed lambda. dt: [M] -> [M, 1]. The
-    recurrent layers' learnable lambda is not ported (the attention models'
-    logit decay is, ``models/selfattn.py``)."""
+    """The previous state's decay, dt: [M] -> [M, 1]: exp(-dt * lambda)
+    with the fixed ``inv_temperature``, or under ``learnable_lambda``
+    exp(-max(decay_w * dt + decay_b, 0)) with the layer's Linear(1, 1)."""
+    dt = dt[:, None]
     if cfg.learnable_lambda:
-        raise NotImplementedError("learnable_lambda in the recurrent layers "
-                                  "is not ported yet; see ROADMAP.md")
-    return torch.exp(-dt[:, None] * cfg.inv_temperature)
+        x = p["decay_w"] * dt + p["decay_b"]
+        # torch.maximum splits the gradient at a tie, as jnp.maximum does
+        return torch.exp(-torch.maximum(x, torch.zeros_like(x)))
+    return torch.exp(-dt * cfg.inv_temperature)
 
 
 def grrgcn_layer(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot, prev,
@@ -171,7 +228,7 @@ def grrgcn_layer(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot, prev,
     """
     conv = h if conv_in else rgcn_conv(p, cfg, lc, h, snap, train, mask)
     h0 = prev * decay_factor(p, cfg, dt)
-    rec = gru_stack(p[GRU_KEY[direction]], conv, h0)
+    rec = run_gru(cfg, p[GRU_KEY[direction]], conv, h0)
     return conv, rec, layer_time_embedding(p, snap)
 
 
@@ -181,10 +238,40 @@ def bigrrgcn_layer_center(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
     """The Bi layer at the target snapshot, where the two windows meet: the
     conv output into the forward GRU (from the forward window's state) and
     into the backward one (from the backward window's), their outputs
-    summed. Returns (conv_out, rec_out); `conv_in`, `train` and `mask` as
-    in ``grrgcn_layer``."""
+    summed. Returns (conv_out, rec_out, time_emb); `conv_in`, `train` and
+    `mask` as in ``grrgcn_layer``."""
     conv = h if conv_in else rgcn_conv(p, cfg, lc, h, snap, train, mask)
-    rec = (gru_stack(p["gru_fwd"], conv, prev_f * decay_factor(p, cfg, dt_f))
-           + gru_stack(p["gru_bwd"], conv,
-                       prev_b * decay_factor(p, cfg, dt_b)))
-    return conv, rec
+    rec = (run_gru(cfg, p["gru_fwd"], conv,
+                   prev_f * decay_factor(p, cfg, dt_f))
+           + run_gru(cfg, p["gru_bwd"], conv,
+                     prev_b * decay_factor(p, cfg, dt_b)))
+    return conv, rec, layer_time_embedding(p, snap)
+
+
+def rrgcn_layer(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot, prev,
+                dt, train: bool = False, mask=None, direction=None):
+    """Linear-recurrent RGCN layer (reference models/RRGCN.py:130-151):
+    agg + (prev @ time_weight) * decay + bias + self-loop, then the
+    activation; the recurrence sits inside the layer. Returns (agg, out,
+    time_emb), agg the aggregation alone (the layer's "local" output).
+    `train` and `mask` are the self-loop's dropout; `direction` picks the
+    time weight (``TIME_WEIGHT_KEY``)."""
+    agg = _aggregate(p, cfg, lc, h, snap)
+    rec = (prev @ p[TIME_WEIGHT_KEY[direction]]) * decay_factor(p, cfg, dt)
+    return (agg, _bias_loop_act(p, lc, agg + rec, h, train, mask),
+            layer_time_embedding(p, snap))
+
+
+def birrgcn_layer_center(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
+                         prev_f, dt_f, prev_b, dt_b, train: bool = False,
+                         mask=None):
+    """The BiRRGCN layer at the target snapshot (reference
+    models/BiRRGCN.py:115-140): both directions' decayed states through
+    their time weights, added to the aggregation before bias, self-loop
+    and activation. Returns (agg, out, time_emb); `train` and `mask` as in
+    ``rrgcn_layer``."""
+    agg = _aggregate(p, cfg, lc, h, snap)
+    out = (agg + (prev_f * decay_factor(p, cfg, dt_f)) @ p["time_weight_fwd"]
+           + (prev_b * decay_factor(p, cfg, dt_b)) @ p["time_weight_bwd"])
+    return (agg, _bias_loop_act(p, lc, out, h, train, mask),
+            layer_time_embedding(p, snap))

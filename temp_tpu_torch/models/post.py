@@ -29,6 +29,13 @@ eval run one element at a time (K2 for the windows, K1 in the final
 step), the eval reporting a loss of 0 as the reference's does. The gates
 (``Gated``) also serve the attention models' Post variants
 (``models/postselfattn.py``).
+
+The recurrent options apply as in the base models: ``type1`` and
+``learnable_lambda`` in the GRUs and their decay, ``rec_only_last_layer``
+(layer 1 a plain conv), time embeddings on layer 1's output and on both
+tables, ``random_dropout`` and DropEdge in the training windows (which then
+run step by step, K1). Only GRU modules have these variants: the reference
+has no RRGCN ones, and RRGCN or BiRRGCN with a flag raises.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from temp_tpu_torch.models.bidynamic import BiWindows
 from temp_tpu_torch.models.dynamic import DynamicRGCNModel
 from temp_tpu_torch.models.encoders import _base_module, calc_impute_weight
 from temp_tpu_torch.models.layers import (
-    bigrrgcn_layer_center, grrgcn_layer, rgcn_conv,
+    bigrrgcn_layer_center, grrgcn_layer, layer_time_embedding, rgcn_conv,
 )
 from temp_tpu_torch.models.objectives import (
     _masked_mean, both_ranks, cross_entropy_0, make_raw_scorers,
@@ -205,10 +212,31 @@ class PostDynamicRGCNModel(Gated, DynamicRGCNModel):
     def __init__(self, cfg: TKGConfig, data: TKGData, device="cuda"):
         if _base_module(cfg.module) != "GRRGCN":
             raise NotImplementedError(
-                f"the Post variants need a GRU module, not {cfg.module}")
+                f"the Post variants need a GRU module, not {cfg.module} (the "
+                f"reference has no RRGCN variants)")
         super().__init__(cfg, data, device=device)
 
     # -- the final step -----------------------------------------------------
+
+    def layer1_out(self, params, snap, recurrent, train: bool, mask):
+        """Layer 1's output in the final step: its plain conv under
+        ``rec_only_last_layer``, else the output of `recurrent()` (a
+        layer's (conv, rec, time_emb)) with the time embedding under
+        ``use_time_embedding``."""
+        cfg = self.cfg
+        if cfg.rec_only_last_layer:
+            return rgcn_conv(params["encoder"]["layer1"], cfg, self.lc1,
+                             params["ent_embeds"], snap, train, mask)
+        _, out1, t1 = recurrent()
+        return out1 + t1 if cfg.use_time_embedding else out1
+
+    def with_time_embedding(self, params, snap, loc, rec):
+        """(loc, rec), each plus layer 2's time embedding under
+        ``use_time_embedding``."""
+        if not self.cfg.use_time_embedding:
+            return loc, rec
+        t2 = layer_time_embedding(params["encoder"]["layer2"], snap)
+        return loc + t2, rec + t2
 
     def local_and_gru_input(self, snap, conv2, blended):
         """(loc, the layer-2 GRUs' input) from layer 2's conv output and the
@@ -223,18 +251,19 @@ class PostDynamicRGCNModel(Gated, DynamicRGCNModel):
                        train: bool = False, emask=None, masks=(None, None)):
         """(loc, rec) [N, d] of one target from its ``batch_hists``
         (hist1, hist2, hist_loc, last_pos): layer 1 (SpMM and self-loop, K1
-        on the card) and its GRU; layer 2's conv output, blended with the
-        local history on the inactive rows under impute (loc), into its GRU
-        (rec). `train`, `emask` and `masks` as in
+        on the card) and its GRU (``layer1_out``); layer 2's conv output,
+        blended with the local history on the inactive rows under impute
+        (loc), into its GRU (rec), both with the time embedding under
+        ``use_time_embedding``. `train`, `emask` and `masks` as in
         ``DynamicRGCNModel.forward_element``."""
         cfg, enc = self.cfg, params["encoder"]
         h1, h2, hl, lp = hists
         length = self.train_len if train else self.eval_len
         snap = self.final_snapshot(data, t_pos, length, emask)
         dt = (length - 1) - lp
-        _, out1, _ = grrgcn_layer(enc["layer1"], cfg, self.lc1,
-                                  params["ent_embeds"], snap, h1, dt,
-                                  train=train, mask=masks[0])
+        out1 = self.layer1_out(params, snap, lambda: grrgcn_layer(
+            enc["layer1"], cfg, self.lc1, params["ent_embeds"], snap, h1, dt,
+            train=train, mask=masks[0]), train, masks[0])
         conv2 = rgcn_conv(enc["layer2"], cfg, self.lc2, out1, snap, train,
                           masks[1])
         blended = None
@@ -244,7 +273,7 @@ class PostDynamicRGCNModel(Gated, DynamicRGCNModel):
         loc, gru_in = self.local_and_gru_input(snap, conv2, blended)
         _, rec, _ = grrgcn_layer(enc["layer2"], cfg, self.lc2, gru_in, snap,
                                  h2, dt, conv_in=True)
-        return loc, rec
+        return self.with_time_embedding(params, snap, loc, rec)
 
     def forward_element(self, params, data: TKGData, t_pos: int, hists=None,
                         train: bool = False, emask=None, masks=(None, None)):
@@ -278,19 +307,20 @@ class PostBiDynamicRGCNModel(BiWindows, PostDynamicRGCNModel):
     def forward_tables(self, params, data: TKGData, t_pos: int, hists,
                        train: bool = False, emask=None, masks=(None, None)):
         """(loc, rec) [N, d] of one target from its ``batch_hists``: layer 1
-        (SpMM and self-loop, K1 on the card) into both GRUs, summed; layer 2
-        with its ReLU, under impute blended with both windows' local
-        histories on the inactive rows (loc), into both GRUs, summed (rec).
-        `train`, `emask` and `masks` as in
+        (SpMM and self-loop, K1 on the card) into both GRUs, summed
+        (``layer1_out``); layer 2 with its ReLU, under impute blended with
+        both windows' local histories on the inactive rows (loc), into both
+        GRUs, summed (rec), both with the time embedding under
+        ``use_time_embedding``. `train`, `emask` and `masks` as in
         ``DynamicRGCNModel.forward_element``."""
         cfg, enc = self.cfg, params["encoder"]
         h1f, h2f, hlf, lpf, h1b, h2b, hlb, lpb = hists
         length = self.train_len if train else self.eval_len
         snap = self.final_snapshot(data, t_pos, length, emask)
         dtf, dtb = (length - 1) - lpf, (length - 1) - lpb
-        _, out1 = bigrrgcn_layer_center(
+        out1 = self.layer1_out(params, snap, lambda: bigrrgcn_layer_center(
             enc["layer1"], cfg, self.lc1, params["ent_embeds"], snap, h1f,
-            dtf, h1b, dtb, train=train, mask=masks[0])
+            dtf, h1b, dtb, train=train, mask=masks[0]), train, masks[0])
         conv2 = rgcn_conv(enc["layer2"], cfg, self.lc2, out1, snap, train,
                           masks[1])
         blended = None
@@ -299,10 +329,10 @@ class PostBiDynamicRGCNModel(BiWindows, PostDynamicRGCNModel):
             w_b = calc_impute_weight(enc, dtb, "bwd")
             blended = w_f * hlf + w_b * hlb + (1.0 - w_f - w_b) * conv2
         loc, gru_in = self.local_and_gru_input(snap, conv2, blended)
-        _, rec = bigrrgcn_layer_center(enc["layer2"], cfg, self.lc2, gru_in,
-                                       snap, h2f, dtf, h2b, dtb,
-                                       conv_in=True)
-        return loc, rec
+        _, rec, _ = bigrrgcn_layer_center(enc["layer2"], cfg, self.lc2,
+                                          gru_in, snap, h2f, dtf, h2b, dtb,
+                                          conv_in=True)
+        return self.with_time_embedding(params, snap, loc, rec)
 
     def fused_final_losses(self, params, data: TKGData, tp, draws, hists):
         """The final steps and losses of the B targets tp as one call of

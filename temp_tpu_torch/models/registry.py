@@ -1,17 +1,21 @@
 """Model selection: --module string + behavior flags -> model class, after
-the JAX package's ``models/registry.py``. Ported: GRRGCN
-(``DynamicRGCNModel``; with ``--impute``, ``--post-ensemble`` or
-``--post-aggregation`` ``PostDynamicRGCNModel``) and BiGRRGCN
-(``BiDynamicRGCNModel``; with any of the three flags
+the JAX package's ``models/registry.py``. Ported: GRRGCN and RRGCN
+(``DynamicRGCNModel``; GRRGCN with ``--impute``, ``--post-ensemble`` or
+``--post-aggregation`` ``PostDynamicRGCNModel``), BiGRRGCN and BiRRGCN
+(``BiDynamicRGCNModel``; BiGRRGCN with any of the three flags
 ``PostBiDynamicRGCNModel``, the flagship BiGRRGCN ``--impute`` among
-them), SARGCN and BiSARGCN (``models/selfattn.py``; with
-``--post-aggregation`` ``models/postselfattn.py``); only plain GRRGCN under
-an edge partition. Every other combination raises."""
+them), SRGCN and DRGCN (``models/static.py``), SARGCN and BiSARGCN
+(``models/selfattn.py``; with ``--post-aggregation``
+``models/postselfattn.py``), each with the recurrent options; only plain
+GRRGCN (no flag, no option) under an edge partition. The other modules,
+RRGCN with a flag (the reference has no such model), the other decoders
+and negative pools raise."""
 
 from __future__ import annotations
 
 from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.data.snapshots import TKGData
+from temp_tpu_torch.models.encoders import PORTED_MODULES
 
 
 def normalize_remap_flags(cfg: TKGConfig) -> TKGConfig:
@@ -45,12 +49,20 @@ def normalize_remap_flags(cfg: TKGConfig) -> TKGConfig:
     return cfg
 
 
+# the options a partitioned model does not take: every recurrent option
+# the unpartitioned models do (only plain GRRGCN runs under a partition)
+_OPTIONS = ("type1", "learnable_lambda", "use_time_embedding",
+            "rec_only_last_layer", "random_dropout", "edge_dropout")
+
+
 def get_model(cfg: TKGConfig, data: TKGData, device="cuda"):
     cfg = normalize_remap_flags(cfg)
     variant = cfg.impute or cfg.post_ensemble or cfg.post_aggregation
-    if cfg.module not in ("GRRGCN", "BiGRRGCN", "SARGCN", "BiSARGCN"):
-        raise NotImplementedError(f"module {cfg.module} is not ported yet")
-    if cfg.partitioned and (variant or cfg.module != "GRRGCN"):
+    if cfg.module not in PORTED_MODULES:
+        raise NotImplementedError(f"module {cfg.module} is not ported yet; "
+                                  f"see ROADMAP.md")
+    if cfg.partitioned and (variant or cfg.module != "GRRGCN" or any(
+            getattr(cfg, o) for o in _OPTIONS)):
         raise NotImplementedError(f"{cfg.module} with these flags under an "
                                   f"edge partition is not ported yet; see "
                                   f"ROADMAP.md")
@@ -65,14 +77,17 @@ def get_model(cfg: TKGConfig, data: TKGData, device="cuda"):
             cls = (m.BiSelfAttentionRGCNModel if bi
                    else m.SelfAttentionRGCNModel)
         return cls(cfg, data, device=device)
-    if cfg.module == "GRRGCN":
-        if variant:
-            from temp_tpu_torch.models.post import PostDynamicRGCNModel
-            return PostDynamicRGCNModel(cfg, data, device=device)
-        from temp_tpu_torch.models.dynamic import DynamicRGCNModel
-        return DynamicRGCNModel(cfg, data, device=device)
+    if cfg.module in ("SRGCN", "DRGCN"):
+        from temp_tpu_torch.models import static as m
+        cls = m.StaticRGCNModel if cfg.module == "SRGCN" else m.DRGCNModel
+        return cls(cfg, data, device=device)
+    bi = cfg.module.startswith("Bi")
     if variant:
-        from temp_tpu_torch.models.post import PostBiDynamicRGCNModel
-        return PostBiDynamicRGCNModel(cfg, data, device=device)
-    from temp_tpu_torch.models.bidynamic import BiDynamicRGCNModel
-    return BiDynamicRGCNModel(cfg, data, device=device)
+        # the Post models raise for an RRGCN base
+        from temp_tpu_torch.models import post as m
+        cls = m.PostBiDynamicRGCNModel if bi else m.PostDynamicRGCNModel
+    elif bi:
+        from temp_tpu_torch.models.bidynamic import BiDynamicRGCNModel as cls
+    else:
+        from temp_tpu_torch.models.dynamic import DynamicRGCNModel as cls
+    return cls(cfg, data, device=device)

@@ -1,6 +1,14 @@
-"""GRU cells for the temporal recurrence (torch ``nn.GRU`` semantics: gate
-order r, z, n; the reset gate scales ``W_hn h + b_hn``). The model only ever
-runs the GRU as a cell, sequence length 1."""
+"""GRU cells for the temporal recurrence. The model only ever runs the GRU
+as a cell, sequence length 1.
+
+- ``gru_cell``: torch ``nn.GRU`` semantics (gate order r, z, n; the reset
+  gate scales ``W_hn h + b_hn``), stacked ``num_layers`` deep by
+  ``gru_stack``;
+- ``type1_gru_cell`` (``type1``): the reference's hand-written cell
+  (models/GRU_cell.py), whose reset and input gates read the hidden state
+  only.
+
+``run_gru`` picks the one the config names."""
 
 from __future__ import annotations
 
@@ -53,3 +61,36 @@ def gru_stack(params, x, h0):
         h = gru_cell(p, inp, h0)
         inp = h
     return h
+
+
+def init_type1_gru_params(gen: torch.Generator, input_size: int,
+                          hidden_size: int):
+    """The reference's type1 cell init (GRU_cell.py:12-15): every weight and
+    bias standard normal (torch.randn)."""
+
+    def n(*shape):
+        return torch.randn(shape, generator=gen)
+
+    return {"w_ih": n(hidden_size, input_size),
+            "w_hh": n(3 * hidden_size, hidden_size),
+            "b_ih": n(hidden_size), "b_hh": n(3 * hidden_size)}
+
+
+def type1_gru_cell(p, x, h):
+    """The reference's type1 cell (GRU_cell.py:18-31), its gates from the
+    hidden state only: i_n = x W_ih^T + b_ih; (h_r, h_i, h_n) = h W_hh^T +
+    b_hh; new = tanh(i_n + sigmoid(h_r) h_n); h' = new + sigmoid(h_i)
+    (h - new)."""
+    i_n = x @ p["w_ih"].T + p["b_ih"]
+    gh = h @ p["w_hh"].T + p["b_hh"]
+    H = h.shape[-1]
+    new = torch.tanh(i_n + torch.sigmoid(gh[..., :H]) * gh[..., 2 * H:])
+    return new + torch.sigmoid(gh[..., H:2 * H]) * (h - new)
+
+
+def run_gru(cfg, params, x, h0):
+    """A layer's recurrence from x with initial hidden h0: its one type1
+    cell under ``cfg.type1``, else its standard stack."""
+    if cfg.type1:
+        return type1_gru_cell(params[0], x, h0)
+    return gru_stack(params, x, h0)

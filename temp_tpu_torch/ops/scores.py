@@ -65,4 +65,7 @@ _SINGLE_FNS = {"complex": complex_single}
 
 def get_score_fn(name: str):
     """Return (score_all, score_single) for a decoder name."""
+    if name not in _ALL_FNS:
+        raise NotImplementedError(f"score_function={name!r} is not ported "
+                                  f"yet; see ROADMAP.md")
     return _ALL_FNS[name], _SINGLE_FNS[name]

@@ -9,7 +9,9 @@ grid/icews14/config_grrgcn.json model or the one of --config, with
 imputation on for --impute: ``--config grid/icews14/config_bigrrgcn.json
 --impute`` is the flagship, with ``--post-ensemble`` also TED's gates;
 ``--config grid/icews14/config_sargcn.json`` (or ``config_bisargcn.json``)
-the attention models, whose every graph product is K1;
+the attention models and ``config_rrgcn.json``, ``config_birrgcn.json`` or
+``config_srgcn.json`` the linear-recurrence and static ones, whose every
+graph product is K1;
 seeded random weights; --fused-eval and --fused-window-mb switch on the
 fused eval, K11, and the batched window, K12; --edge-partition, psum, ring
 or ring_pallas, partitions every SpMM over --mp-size ranks, default 4, on

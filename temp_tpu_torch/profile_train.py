@@ -9,7 +9,9 @@ grid/icews14/config_grrgcn.json model or the one of --config, with
 imputation on for --impute: ``--config grid/icews14/config_bigrrgcn.json
 --impute`` is the flagship, with ``--post-ensemble`` also TED's gates;
 ``--config grid/icews14/config_sargcn.json`` (or ``config_bisargcn.json``)
-the attention models, whose every graph product is K1;
+the attention models and ``config_rrgcn.json``, ``config_birrgcn.json`` or
+``config_srgcn.json`` the linear-recurrence and static ones, whose every
+graph product is K1;
 seeded random weights and draws), takes two warm-up optimizer steps, then
 traces the next N (default 4) with torch.profiler. The path: the kernels
 with the fused final step (K3-K5, or K6-K10 for the flagship; the default

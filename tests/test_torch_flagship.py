@@ -59,6 +59,7 @@ from temp_tpu_torch.models.post import (
 )
 from temp_tpu_torch.models.registry import get_model, normalize_remap_flags
 from temp_tpu_torch.models.selfattn import BiSelfAttentionRGCNModel
+from temp_tpu_torch.models.static import StaticRGCNModel
 from temp_tpu_torch.ops import fused_final as ff
 from temp_tpu_torch.ops import fused_final_bi as fb
 from temp_tpu_torch.ops.fused_window import (
@@ -628,17 +629,23 @@ def test_registry_dispatches_the_flagship_and_refuses_the_rest():
              PostBiDynamicRGCNModel),
             ({"impute": False}, BiDynamicRGCNModel),
             ({"module": "GRRGCN", "impute": False}, DynamicRGCNModel),
-            ({"module": "BiSARGCN"}, BiSelfAttentionRGCNModel)):
+            ({"module": "BiSARGCN"}, BiSelfAttentionRGCNModel),
+            # the linear-recurrence and static models, and the flagship
+            # with the recurrent options
+            ({"module": "BiRRGCN", "impute": False}, BiDynamicRGCNModel),
+            ({"module": "SRGCN"}, StaticRGCNModel),
+            ({"use_time_embedding": True}, PostBiDynamicRGCNModel),
+            ({"type1": True}, PostBiDynamicRGCNModel),
+            ({"edge_dropout": True}, PostBiDynamicRGCNModel)):
         m = get_model(TKGConfig(**{**KW, **over}), data, device="cpu")
         assert type(m) is cls, over
         m.init_params(0)
-    # the other modules and flags, and every model but plain GRRGCN under
-    # an edge partition
-    for over in ({"module": "BiRRGCN"}, {"module": "SRGCN"},
+    # the other modules, decoders and pools, RRGCN's TeMP variants, and
+    # every model but plain GRRGCN under an edge partition
+    for over in ({"module": "BiRRGCN"}, {"score_function": "distmult"},
+                 {"negative_pool": "shared"}, {"module": "Hyte"},
                  {"module": "BiSARGCN", "edge_partition": "psum",
                   "mp_size": 4},
-                 {"use_time_embedding": True}, {"type1": True},
-                 {"edge_dropout": True},
                  {"post_ensemble": True, "edge_partition": "ring",
                   "mp_size": 4},
                  {"module": "GRRGCN", "post_aggregation": True,

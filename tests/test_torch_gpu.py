@@ -258,6 +258,51 @@ def test_attention_models_train_and_evaluate_kernels_like_plain(cuda):
         assert nk[0] > 0 and nk[1] > 0 and nk[2] == 0 and np_ == (0, 0, 0)
 
 
+@pytest.mark.parametrize("flags", [
+    {"module": "RRGCN"}, {"module": "BiRRGCN"}, {"module": "SRGCN"},
+    {"module": "GRRGCN", "type1": True, "learnable_lambda": True,
+     "use_time_embedding": True, "random_dropout": True},
+    {"module": "BiRRGCN", "rec_only_last_layer": True,
+     "edge_dropout": True}])
+def test_linear_and_static_models_train_and_evaluate_kernels_like_plain(
+        cuda, flags):
+    """RRGCN, BiRRGCN and SRGCN, and the recurrent options, at a small
+    size: two training steps and an eval sweep with the kernels and with
+    their plain versions, held to TOL; the kernel path launches K1f and
+    K1b (two a layer's graph product: the window steps' B graphs side by
+    side, then each element's final snapshot) and sorts no call's
+    edges."""
+    data = make_synthetic(num_ents=300, num_rels=6, num_times=12,
+                          edges_per_time=60, seed=0, edge_pad_multiple=16)
+    out = {}
+    for kernels in (True, False):
+        cfg = TKGConfig(embed_size=32, hidden_size=32, n_bases=32,
+                        train_seq_len=5, batch_size=4, dropout=0.1,
+                        kernels=kernels, **flags)
+        d = ring_layout(cfg, data)
+        model = get_model(cfg, d, device="cuda")
+        tr = Trainer(cfg, model, d)
+        params, opt = tr.init_state()
+        fl, fb, builds = spmm_fwd.launches, spmm_bwd.launches, \
+            spmm_fwd.csr_builds
+        batches = tr.epoch_batches(0)[:2]
+        losses = [float(tr.train_step(params, opt, t, v,
+                                      gen=tr.step_generator(0, i)))
+                  for i, (t, v) in enumerate(batches)]
+        out[kernels] = (losses, tr.run_eval(params, "valid"),
+                        (spmm_fwd.launches - fl, spmm_bwd.launches - fb,
+                         spmm_fwd.csr_builds - builds))
+    (lk, mk, nk), (lp, mp, np_) = out[True], out[False]
+    assert all(abs(a - b) <= TOL * max(1.0, abs(b)) for a, b in zip(lk, lp))
+    assert mk["n"] == mp["n"] > 0 and abs(mk["mrr"] - mp["mrr"]) <= TOL
+    assert nk[0] > 0 and nk[1] > 0 and nk[2] == 0 and np_ == (0, 0, 0)
+    windows = (0 if flags["module"] == "SRGCN"
+               else 2 if flags["module"].startswith("Bi") else 1)
+    n_valid = sum(int(v.sum()) for _, v in batches)
+    per_layer = 2 * (cfg.train_seq_len - 1) * windows * len(batches)
+    assert nk[1] == per_layer + 2 * n_valid
+
+
 def test_spmm_table_route_makes_no_sync(cuda):
     """One table-route call of K1f, of K1b and of the differentiable K1
     forward and backward makes no synchronizing CUDA call."""

@@ -82,30 +82,50 @@ VARIANTS = {
 }
 
 
-def jax_draws_scan(cfg, data, t_pos, rng):
+def jax_draws_scan(cfg, data, t_pos, rng, rates=(None, None)):
     """Every draw of the JAX package's Post and Bi losses with its windows
     on the XLA scan: split(rng, B) per element; split -> (r_fwd, r_loss);
     split(r_fwd, 4) -> (k_f, k_b, k_fin, k_sub) in the Bi models,
     split(r_fwd, 3) -> (k_pre, k_fin, k_sub) in the others; a window's
     step keys split(k_window, L1), each split into layer 1's and layer 2's
-    self-loop keys at (A, d); the final step's from split(k_fin) at (N, d);
-    the edge subsample from k_sub; the positives from split(r_loss, 3)[0]
-    (the gated loss's k_pos, and train_loss_single's)."""
+    self-loop keys at (A, d) (under random_dropout or edge_dropout first
+    split into the step's edge key and the rest: the 80% edge subsample,
+    or DropEdge's keep = uniform >= rate with `rates`, the JAX model's
+    (drop_past, drop_future)); the final step's from split(k_fin) at
+    (N, d); the edge subsample from k_sub; the positives from
+    split(r_loss, 3)[0] (the gated loss's k_pos, and
+    train_loss_single's)."""
     L = cfg.train_seq_len
     L1, A, N, d = L - 1, data.act_idx.shape[1], data.num_ents, cfg.embed_size
     bi = cfg.module.startswith("Bi")
+    drop = cfg.random_dropout or cfg.edge_dropout
     keep = 1.0 - cfg.dropout
-    wins = (("win1", "win2"), ("win1_b", "win2_b"))[:2 if bi else 1]
-    out = {k: [] for k in sum(wins, ()) + ("fin1", "fin2", "edges", "pos")}
+    wins = (("win1", "win2", "win_edges", False, rates[0]),
+            ("win1_b", "win2_b", "win_edges_b", True, rates[1]))
+    wins = wins[:2 if bi else 1]
+    out = {k: [] for k in sum((w[:3] for w in wins), ())
+           + ("fin1", "fin2", "edges", "pos")}
     for t, r in zip(t_pos, jax.random.split(rng, len(t_pos))):
         r_fwd, r_loss = jax.random.split(r)
         keys = jax.random.split(r_fwd, 4 if bi else 3)
         k_fin, k_sub = keys[-2], keys[-1]
-        for names, k_win in zip(wins, keys):
-            steps = [jax.random.split(k) for k in jax.random.split(k_win, L1)]
-            for i, key in enumerate(names):
+        for (m1, m2, me, backward, rate), k_win in zip(wins, keys):
+            win = jax_gather_window(data, jnp.int32(t), L, backward=backward)
+            steps, edges = [], []
+            for i, k in enumerate(jax.random.split(k_win, L1)):
+                if drop:
+                    kd, k = jax.random.split(k)
+                    em = win.emask[i]
+                    edges.append(np.asarray(
+                        em & (jax.random.uniform(kd, em.shape) >= rate[t, i])
+                        if cfg.edge_dropout
+                        else jax_subsample_edges(kd, em, 0.8)))
+                steps.append(jax.random.split(k))
+            for i, key in enumerate((m1, m2)):
                 out[key].append(np.stack([np.asarray(jax.random.bernoulli(
                     s[i], keep, (A, d))) for s in steps]))
+            if drop:
+                out[me].append(np.stack(edges))
         for key, k in zip(("fin1", "fin2"), jax.random.split(k_fin)):
             out[key].append(np.asarray(jax.random.bernoulli(k, keep, (N, d))))
         win = jax_gather_window(data, jnp.int32(t), L)
@@ -114,7 +134,8 @@ def jax_draws_scan(cfg, data, t_pos, rng):
         out["pos"].append(np.asarray(jax_subsample_pos(
             jax.random.split(r_loss, 3)[0], data.train.emask[t],
             cfg.num_pos_facts)))
-    return {k: torch.from_numpy(np.stack(v)) for k, v in out.items()}
+    return {k: torch.from_numpy(np.stack(v)) if v else None
+            for k, v in out.items()}
 
 
 def _open(params, flags):
@@ -207,9 +228,21 @@ def test_freq_features_match_reference(future, seq_len):
             np.testing.assert_array_equal(x, y, name)
             n += int((y > 0).sum())
     assert n > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_freq_features(make_synthetic(**DATA), seq_len, future,
-                            with_drop_rates=True)
+    # with the DropEdge rates: the same features, and the rates of both
+    # directions equal to the JAX package's
+    ref = jax_freq(jax_synthetic(**DATA), seq_len, future,
+                   with_drop_rates=True)
+    got2 = build_freq_features(make_synthetic(**DATA), seq_len, future,
+                               with_drop_rates=True)
+    for name in ("train_sub", "valid_obj"):
+        np.testing.assert_array_equal(getattr(got2, name),
+                                      getattr(got, name))
+    for name in ("drop_rate_past", "drop_rate_future"):
+        x, y = getattr(got2, name), np.asarray(getattr(ref, name))
+        assert x.dtype == np.float32 and x.shape == y.shape, name
+        np.testing.assert_array_equal(x, y, name)
+    assert (got2.drop_rate_past > 0).any()
+    assert (got2.drop_rate_future > 0).any() == future
 
 
 def test_gate_mlp_matches_reference():

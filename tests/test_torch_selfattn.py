@@ -50,10 +50,12 @@ from temp_tpu_torch.models.objectives import metrics_from_ranks
 from temp_tpu_torch.models.postselfattn import (
     PostBiSelfAttentionRGCNModel, PostSelfAttentionRGCNModel,
 )
+from temp_tpu_torch.models.dynamic import DynamicRGCNModel
 from temp_tpu_torch.models.registry import get_model
 from temp_tpu_torch.models.selfattn import (
     BiSelfAttentionRGCNModel, SelfAttentionRGCNModel,
 )
+from temp_tpu_torch.models.static import StaticRGCNModel
 from temp_tpu_torch.train.loop import Trainer
 from temp_tpu_torch.train.optim import make_optimizer, param_leaves
 from test_torch_post import _xla_unoptimized
@@ -424,11 +426,23 @@ def test_registry_selects_the_attention_models():
         for extra in ({}, {"impute": True, "post_ensemble": True}):
             cfg = TKGConfig(**KW, **flags, **extra)
             assert type(get_model(cfg, data, device="cpu")) is cls
+    # DropEdge and type1 take no part in the attention models (the JAX
+    # package's ignore them); the other modules and options build since
+    for flags, cls in (({**SA, "edge_dropout": True},
+                        SelfAttentionRGCNModel),
+                       ({**SA, "type1": True}, SelfAttentionRGCNModel),
+                       ({"module": "SRGCN"}, StaticRGCNModel),
+                       ({"module": "RRGCN"}, DynamicRGCNModel),
+                       ({"module": "GRRGCN", "learnable_lambda": True},
+                        DynamicRGCNModel),
+                       ({"module": "GRRGCN", "use_time_embedding": True},
+                        DynamicRGCNModel)):
+        m = get_model(TKGConfig(**KW, **flags), data, device="cpu")
+        assert type(m) is cls, flags
+        m.init_params(0)
     for flags in ({**SA, "edge_partition": "psum", "mp_size": 2},
-                  {**SA, "edge_dropout": True}, {**SA, "type1": True},
-                  {"module": "SRGCN"}, {"module": "RRGCN"},
-                  {"module": "GRRGCN", "learnable_lambda": True},
-                  {"module": "GRRGCN", "use_time_embedding": True}):
+                  {**SA, "score_function": "distmult"},
+                  {**SA, "negative_pool": "per_query"}):
         with pytest.raises(NotImplementedError):
             get_model(TKGConfig(**KW, **flags), data,
                       device="cpu").init_params(0)

@@ -102,9 +102,20 @@ def test_seeded_init_is_deterministic_and_shaped_like_reference(reference):
 
 def test_unported_configs_raise():
     data = make_synthetic(**DATA)
-    for kw in ({"module": "RRGCN"}, {"module": "SRGCN"},
-               {"use_time_embedding": True}, {"edge_dropout": True},
-               {"rec_only_last_layer": True}):
+    # ported since: the linear-recurrence and static models and the
+    # recurrent options build and initialize
+    for kw, name in (({"module": "RRGCN"}, "DynamicRGCNModel"),
+                     ({"module": "SRGCN"}, "StaticRGCNModel"),
+                     ({"use_time_embedding": True}, "DynamicRGCNModel"),
+                     ({"edge_dropout": True}, "DynamicRGCNModel"),
+                     ({"rec_only_last_layer": True}, "DynamicRGCNModel")):
+        model = get_model(TKGConfig(**{**KW, **kw}), data, device="cpu")
+        assert type(model).__name__ == name, kw
+        model.init_params(0)
+    for kw in ({"score_function": "distmult"}, {"negative_pool": "shared"},
+               {"module": "DE"}, {"module": "TimeDynamicRGCN"},
+               {"module": "RRGCN", "edge_partition": "psum", "mp_size": 2},
+               {"module": "RRGCN", "impute": True}):
         with pytest.raises(NotImplementedError):
             model = get_model(TKGConfig(**{**KW, **kw}), data, device="cpu")
             model.init_params(0)
@@ -203,6 +214,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
                ted_train=chip_smoke.phase_train_unfused(tctx),
                variants=chip_smoke.phase_variants(ctx))
     res.update(chip_smoke.sa_phases(ctx, train_steps=2))
+    res.update(chip_smoke.rec_phases(ctx, train_steps=2))
     rctx = chip_smoke.phase_setup_ring(ctx)
     assert rctx["mesh"].placement() == "4 ranks on cpu"
     res.update(k13=chip_smoke.phase_k13(rctx),
@@ -401,7 +413,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
         assert r["bitwise"] and r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
     assert "B=3 " in sk["fwd"]["history"]["shape"]
     for k in (0, 1):
-        assert {"sa_history", "sa_history_edge", "sa_compact"} <= set(
+        assert {"sa_history", "sa_history_edge", "sa_compact",
+                "rrgcn_window", "rrgcn_window_sub"} <= set(
             line["kernels"][k])
     for tag in ("sa", "bisa"):
         tr_, pa = res[f"{tag}_train"], res[f"{tag}_path"]
@@ -421,6 +434,46 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
         assert r["eval"]["mrr_kernels"] == r["eval"]["mrr_plain"] > 0
         assert r["train"]["max_rel_gap"] <= chip_smoke.TRAIN_TOL
     assert sv["post_sargcn"]["train"]["gate_leaves"] == 16
+    # K1 at the linear recurrence's window step: the batch's graphs side
+    # by side, each at its own time position
+    rk = res["rrgcn_k1"]
+    assert set(rk["fwd"]) == set(rk["bwd"]) == {"window", "window_sub"}
+    for r in list(rk["fwd"].values()) + list(rk["bwd"].values()):
+        assert r["bitwise"] and r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
+    assert "B=3 " in rk["fwd"]["window"]["shape"]
+    # the linear-recurrence and static models: their steps and sweeps,
+    # kernels against plain, and K1's launches a step (batch 3, L1 = 3
+    # here: 2 a window step and window, 2 an element)
+    for tag, per in (("rrgcn", 12), ("birrgcn", 18), ("srgcn", 6)):
+        tr_, pa = res[f"{tag}_train"], res[f"{tag}_path"]
+        assert tr_["k1_launches_a_step"] == per
+        assert len(tr_["kernels"]["losses"]) == 2
+        assert tr_["kernels"]["losses"][0] == tr_["plain"]["losses"][0]
+        assert tr_["max_rel_gap"] <= chip_smoke.TRAIN_TOL
+        assert tr_["kernels"]["k1_csr_builds"] == 0
+        assert pa["kernels"]["mrr"] == pa["plain"]["mrr"] > 0
+        assert pa["same_rank_share"] == 1.0
+        assert {f"{tag}_train", f"{tag}_eval"} <= paths
+    # the recurrent options, each on its model and final-step path
+    rv = res["rec_variants"]
+    assert {t: r["model"] for t, r in rv.items()} == {
+        "grrgcn_type1_lambda_temb": "DynamicRGCNModel",
+        "grrgcn_rec_only": "DynamicRGCNModel",
+        "grrgcn_edge_dropout": "DynamicRGCNModel",
+        "grrgcn_random_dropout": "DynamicRGCNModel",
+        "bigrrgcn_impute_edge_dropout": "PostBiDynamicRGCNModel",
+        "bigrrgcn_aggregation_temb": "PostBiDynamicRGCNModel",
+        "rrgcn_random_dropout": "DynamicRGCNModel",
+        "drgcn": "DRGCNModel"}
+    for r in rv.values():
+        assert r["eval"]["mrr_kernels"] == r["eval"]["mrr_plain"] > 0
+        assert r["eval"]["same_rank_share"] == 1.0
+        assert len(r["train"]["kernels"]["losses"]) == 2
+        assert r["train"]["max_rel_gap"] <= chip_smoke.TRAIN_TOL
+    drop = {t for t, r in rv.items() if "drop_rates_s" in r}
+    assert drop == {"grrgcn_edge_dropout", "bigrrgcn_impute_edge_dropout"}
+    assert all(rv[t]["drop_rates_s"] > 0 for t in drop)
+    assert {f"{t}_{p}" for t in rv for p in ("train", "eval")} <= paths
 
 
 @pytest.mark.parametrize("alone", [False, True])
