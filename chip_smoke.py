@@ -188,15 +188,58 @@ same data:
                    through K3-K5, or the flagship's K6-K10 and K4; eval
                    through K2f), and the DropEdge rates' build seconds.
 
+Then TimeDynamicRGCN (models/timedynamic.py), the other decoders and
+negative pools, the embedding baselines (models/baselines.py) and the
+Aggregator (models/aggregator.py), on the same data:
+
+47. tdyn_setup   - TimeDynamicRGCN (grid/icews14/config_grrgcn.json with
+                   module TimeDynamicRGCN, L1 = 14) with seeded weights;
+48. tdyn_train   - TRAIN_STEPS optimizer steps with the kernels and with
+                   their plain versions on the same draws: losses within
+                   TRAIN_TOL, every leaf (w_temp and b_temp among them)
+                   within PARAM_TOL; K2f, K2b, K1f and K1b launched exactly
+                   as tdyn_launches predicts, none of K3-K13; ms a step,
+                   peak memory;
+49. tdyn_path    - the valid sweep, kernels against plain (MRR within
+                   MRR_TOL, the same query mask), K2f and K1f launched as
+                   predicted, queries/s;
+50. zoo_variants - GRRGCN with distmult, with transE, with the shared pool
+                   and with the per_query pool, BiGRRGCN --impute with
+                   transE and per_query, GRRGCN --impute --post-ensemble
+                   with transE and shared, SARGCN with distmult, at full
+                   width and VARIANT_SEQ_LEN: 2 steps and one valid batch
+                   each, kernels against plain on the same draws, each
+                   with the kernels it must and must not launch (windows
+                   K2f/K2b, the final step K1, none of K3-K12); each
+                   training run's peak memory;
+51-55. baselines_Static, _DE, _ATiSE, _Hyte, _SimplE - each baseline at
+                   d = 128: TRAIN_STEPS steps on the card, the CPU
+                   replaying them from the same seeded weights on the
+                   card's draws (losses within
+                   TRAIN_TOL, leaves within PARAM_TOL), the valid sweep on
+                   the card (queries/s); no kernel launched;
+56. agg_setup    - seeded SRGCN (config_srgcn.json) and BiGRRGCN
+                   (config_bigrrgcn.json) written as two port run
+                   directories (config.json, checkpoints/best.pt) in a
+                   temporary directory, and the Aggregator that loads both
+                   (load_checkpoint_params);
+57. agg_train    - 2 steps with the kernels and with their plain versions:
+                   losses and the gates' leaves held together, every
+                   submodel leaf bit-equal to its checkpoint; K1f and K2f
+                   launched, no K1b or K2b;
+58. agg_path     - one valid batch, kernels against plain: the same mask,
+                   ranks equal but for the plain scores' near-ties; K1f
+                   and K2f launched; the temporary directory removed.
+
 Then the model-parallel path, GRRGCN with edge_partition="ring_pallas" over
 RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
 
-47. ring_setup - the dataset regrouped for 4 ranks (ring_layout: the edges
+59. ring_setup - the dataset regrouped for 4 ranks (ring_layout: the edges
                  grouped by destination owner, K13's and K1's static CSR
                  tables of every train snapshot) and the model on it with the
                  same seeded weights; prints the ranks' placement and the
                  number of cards;
-48. k13        - kernel K13 (ring_spmm_fwd) at the final-snapshot shape
+60. k13        - kernel K13 (ring_spmm_fwd) at the final-snapshot shape
                  (7128 rows in 4 shards of 1792) and at one window step's
                  compact shape (the 8 graphs of an eval batch): walking
                  the data's tables (the path's route) and sorting the
@@ -207,12 +250,12 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  K13's backward kernels (ring_spmm_bwd) over the tables at
                  both shapes against autograd through the plain forward
                  and against ring_spmm_bwd_plain, with their times;
-49. ring_path  - the valid sweep under the partition with the kernels and
+61. ring_path  - the valid sweep under the partition with the kernels and
                  with their plain versions, and without a partition on the
                  same data (K1 over the data's K1 tables of that layout):
                  MRR within 1e-4; K13's launches, no sort in a call, and
                  none of K1, K2, K3-K5, K11 or K12 under the partition;
-50. ring_train - 8 optimizer steps under the partition (kernels, plain)
+62. ring_train - 8 optimizer steps under the partition (kernels, plain)
                  and without it (fused_final off): losses and parameters
                  held together as in `train`; K13's forward and backward
                  launched, no sort in a call.
@@ -224,12 +267,13 @@ bound_ms; K2f's and K2b's rows with their modes apart, `extra_modes` the
 k2_modes phase's; K1f's and K1b's rows with the attention history's
 shapes, `sa_history`, `sa_history_edge`, `sa_compact`, and the linear
 recurrence's window step, `rrgcn_window`, `rrgcn_window_sub`; every path's
-launches, the attention, linear-recurrence and static models' and the
-recurrent options' among them), the
+launches, the attention, linear-recurrence and static models', the
+recurrent options', TimeDynamicRGCN's, the other decoders' and pools',
+the baselines' and the Aggregator's among them), the
 nvidia-smi name/power-limit line, and the
 result line {"ok": true, "device": {...}}. Any failed check raises and exits
 non-zero; there is no result line then. Without CUDA it exits 1 at once. A
-watchdog ends a run that stops making progress and names the phase it was in.
+watchdog ends a run whose phase runs past WATCHDOG_S and names the phase.
 TF32 is off for every product, on the kernels' side and the plain side.
 """
 
@@ -284,15 +328,20 @@ _state = {"phase": "start"}
 
 
 def _on_alarm(signum, frame):
-    print(f"WATCHDOG: no result after {WATCHDOG_S} s; stuck in phase "
+    print(f"WATCHDOG: phase not done after {WATCHDOG_S} s; stuck in phase "
           f"'{_state['phase']}'", flush=True)
     os._exit(1)
 
 
 @contextmanager
 def phase(name: str, out: dict):
-    """Run one phase; print its line with the elapsed seconds at its end."""
+    """Run one phase; print its line with the elapsed seconds at its end.
+    Under ``main`` the watchdog restarts at each phase: WATCHDOG_S a
+    phase."""
     _state["phase"] = name
+    if _state.get("watchdog"):
+        signal.alarm(WATCHDOG_S)
+        faulthandler.dump_traceback_later(WATCHDOG_S + 15, exit=True)
     t0 = time.perf_counter()
     yield out
     out["seconds"] = time.perf_counter() - t0
@@ -1856,15 +1905,21 @@ def near_ties(table, rtab, q):
     f32 sum in another order may put the column on the other side)."""
     import torch
 
-    out = []
-    for direction in ("head", "tail"):
-        sc, target, known = _direction_scores(table, rtab, q, direction)
-        tgt = torch.gather(sc, -1, target[..., None])
-        cols = torch.arange(sc.shape[-1], device=sc.device)
-        other = ~known & (cols != target[..., None])
-        scale = SCALED_TOL * sc.abs().amax(-1, keepdim=True)
-        out.append(((sc - tgt).abs() <= scale).logical_and(other).any(-1))
-    return torch.cat(out, -1)
+    return torch.cat([_tied(*_direction_scores(table, rtab, q, direction))
+                      for direction in ("head", "tail")], -1)
+
+
+def _tied(sc, target, known):
+    """[..., Q] bool: the rows of scores sc [..., Q, N] that hold a column
+    other than the target [..., Q], not a true answer (`known`), within
+    SCALED_TOL of the row's largest |score| of the target's score."""
+    import torch
+
+    tgt = torch.gather(sc, -1, target[..., None])
+    cols = torch.arange(sc.shape[-1], device=sc.device)
+    other = ~known & (cols != target[..., None])
+    scale = SCALED_TOL * sc.abs().amax(-1, keepdim=True)
+    return ((sc - tgt).abs() <= scale).logical_and(other).any(-1)
 
 
 def plant_copies(table, rtab, q, n_copies: int = 32):
@@ -2305,7 +2360,7 @@ def phase_train_unfused(c, want=_UNFUSED_TRAIN, banned=_NOT_UNFUSED,
     leaf (the gates' among them) within PARAM_TOL of the plain path's
     change (``param_gaps``), the kernels `want` launched (by default K1f,
     K1b, K2f and K2b) and none of `banned` (by default K3-K12), no K1 call
-    sorting its edges."""
+    sorting its edges. The models of both runs stay in c["models"]."""
     import numpy as np
     import torch
 
@@ -2314,6 +2369,7 @@ def phase_train_unfused(c, want=_UNFUSED_TRAIN, banned=_NOT_UNFUSED,
     for name, over in (("kernels", {}), ("plain", {"kernels": False})):
         model, res[name], leaves, finals[name], _, params = _train_path(
             c, c["cfg"].replace(**over))
+        c.setdefault("models", {})[name] = model
         if model.fused_final_on() != fused:
             raise AssertionError(f"{name}: fused final step "
                                  f"{model.fused_final_on()}, not {fused}")
@@ -2955,12 +3011,17 @@ def _paths(res: dict) -> dict:
     out["ted_eval"] = res["ted_path"]["kernels"]["launches"]
     out["ted_train"] = res["ted_train"]["kernels"]["launches"]
     for tag, r in {**res["variants"], **res["sa_variants"],
-                   **res["rec_variants"]}.items():
+                   **res["rec_variants"], **res["zoo_variants"]}.items():
         out[f"{tag}_train"] = r["train"]["kernels"]["launches"]
         out[f"{tag}_eval"] = r["eval"]["launches"]
-    for tag in ("sa", "bisa", "rrgcn", "birrgcn", "srgcn"):
+    for tag in ("sa", "bisa", "rrgcn", "birrgcn", "srgcn", "tdyn"):
         out[f"{tag}_train"] = res[f"{tag}_train"]["kernels"]["launches"]
         out[f"{tag}_eval"] = res[f"{tag}_path"]["kernels"]["launches"]
+    for module, r in res["baselines"].items():
+        out[f"{module}_train"] = r["train"]["launches"]
+        out[f"{module}_eval"] = r["eval"]["launches"]
+    out["agg_train"] = res["agg_train"]["kernels"]["launches"]
+    out["agg_eval"] = res["agg_path"]["launches"]
     return out
 
 
@@ -3231,6 +3292,381 @@ def rec_phases(ctx, train_steps=None) -> dict:
     return res
 
 
+# TimeDynamicRGCN (models/timedynamic.py): GRRGCN's windows through K2 on
+# diachronic inputs, its final step one element at a time through K1
+def tdyn_launches(c, steps: int, batches: int) -> dict:
+    """The launches of `steps` training steps and an eval sweep of
+    `batches` batches of TimeDynamicRGCN: K1f and K1b two an element's
+    final step (the first steps' batches hold no padding), K2f two a
+    window step, K2b five a window step and two more; in eval K2f two a
+    window step and K1f two an element, each batch (no conv1 table)."""
+    L1, B, Be = c["L1"], c["cfg"].batch_size, c["cfg"].eval_batch
+    return {"train": {"spmm_fwd": 2 * B * steps, "spmm_bwd": 2 * B * steps,
+                      "fused_window_fwd": 2 * L1 * steps,
+                      "fused_window_bwd": (5 * L1 + 2) * steps},
+            "eval": {"spmm_fwd": 2 * Be * batches,
+                     "fused_window_fwd": 2 * L1 * batches}}
+
+
+def _exact_launches(dev, launches: dict, want: dict, tag: str) -> None:
+    """On the card, each kernel of `want` launched exactly as often."""
+    if dev.type != "cuda":
+        return
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, predicted {want}")
+
+
+def tdyn_phases(ctx, train_steps=None) -> dict:
+    """TimeDynamicRGCN's phases on the data of `ctx`: tdyn_setup
+    (grid/icews14/config_grrgcn.json with module TimeDynamicRGCN, L1 = 14,
+    seeded weights), tdyn_train (TRAIN_STEPS, or `train_steps`, optimizer
+    steps with the kernels and with their plain versions on the same
+    draws: losses within TRAIN_TOL, every leaf, w_temp and b_temp among
+    them, within PARAM_TOL; K2f, K2b, K1f and K1b launched as
+    ``tdyn_launches`` predicts and none of K3-K13), tdyn_path (the valid
+    sweep, kernels against plain, MRR within MRR_TOL and the same query
+    mask, K2f and K1f launched as predicted). Returns their results."""
+    res = {}
+    with phase("tdyn_setup", {}) as ts:
+        c = phase_setup(ctx["device"].type, config="config_grrgcn.json",
+                        data=ctx["data"], **{**ctx["setup_kw"],
+                                             "module": "TimeDynamicRGCN"})
+        if train_steps:
+            c["train_steps"] = train_steps
+        ts.update({k: c[k] for k in ("N", "A", "E", "L1", "B", "d")})
+        ts["model"] = type(c["model"]).__name__
+    steps = c.get("train_steps", TRAIN_STEPS)
+    n_batches = -(-c["T"] // c["cfg"].eval_batch)
+    want = tdyn_launches(c, steps, n_batches)
+    with phase("tdyn_train", {}) as tt:
+        tt.update(phase_train_unfused(c))
+        names = _leaf_names(c["params"])
+        for leaf in ("w_temp", "b_temp"):
+            if leaf not in names:
+                raise AssertionError(f"tdyn: no {leaf} leaf in {names}")
+        _exact_launches(ctx["device"], tt["kernels"]["launches"],
+                        want["train"], "tdyn train")
+        tt["ms_per_step_plain"] = tt["plain"]["ms_per_step"]
+        tt["peak_mb"] = tt["kernels"]["peak_mb"]
+        for k, n in want["train"].items():
+            tt[f"{k}_launches"] = tt["kernels"]["launches"][k]
+    res["tdyn_train"] = tt
+    with phase("tdyn_path", {}) as tp:
+        tp.update(phase_path(c, want=["spmm_fwd", "fused_window_fwd"]))
+        k = tp["kernels"]
+        _unfused_launches_ok(ctx["device"], k["launches"],
+                             ("spmm_fwd", "fused_window_fwd"), "tdyn eval")
+        _exact_launches(ctx["device"], k["launches"], want["eval"],
+                        "tdyn eval")
+        for name in ("kernels", "plain"):
+            tp[f"mrr_{name}"] = tp[name]["mrr"]
+            tp[f"wall_s_{name}"] = tp[name]["wall_s"]
+            tp[f"queries_per_s_{name}"] = tp[name]["queries_per_s"]
+        tp["peak_mb"] = k["peak_mb"]
+    res["tdyn_path"] = tp
+    return res
+
+
+# the other decoders and negative pools on the recurrent, gated and
+# attention models: the windows through K2 (K1 for the attention
+# models), the final step one element at a time through K1, none of K3-K12
+_ZOO_VARIANTS = (
+    ("grrgcn_distmult", "config_grrgcn.json", {"score_function": "distmult"}),
+    ("grrgcn_transe", "config_grrgcn.json", {"score_function": "transE"}),
+    ("grrgcn_shared", "config_grrgcn.json", {"negative_pool": "shared"}),
+    ("grrgcn_per_query", "config_grrgcn.json",
+     {"negative_pool": "per_query"}),
+    ("bigrrgcn_impute_transe_per_query", "config_bigrrgcn.json",
+     {"impute": True, "score_function": "transE",
+      "negative_pool": "per_query"}),
+    ("grrgcn_ted_transe_shared", "config_grrgcn.json",
+     {"impute": True, "post_ensemble": True, "score_function": "transE",
+      "negative_pool": "shared"}),
+    ("sargcn_distmult", "config_sargcn.json", {"score_function": "distmult"},
+     _K1_ONLY))
+
+
+def phase_zoo_variants(ctx) -> dict:
+    """The ``_ZOO_VARIANTS`` at full width and VARIANT_SEQ_LEN
+    (``phase_variants``: 2 steps and one valid batch each, kernels against
+    plain on the same draws, the kernels each must and must not launch),
+    with the peak memory of each training run."""
+    out = phase_variants(ctx, _ZOO_VARIANTS)
+    for tag, r in out.items():
+        r["peak_mb"] = r["train"]["kernels"]["peak_mb"]
+    return out
+
+
+# the embedding baselines (models/baselines.py): no graph, no kernel
+_BASELINE_MODULES = ("Static", "DE", "ATiSE", "Hyte", "SimplE")
+
+
+def _baseline_steps(c, device, batches, draws=None, gen=True):
+    """The steps `batches` of the baseline of c on `device` from its seeded
+    weights (each step's draws from the Trainer's generator, or `draws`
+    moved to `device`), every launch counter from 0: (losses, ms a step,
+    launches, peak MiB, initial and final leaves, the draws used)."""
+    import torch
+
+    from temp_tpu_torch.models.registry import get_model
+    from temp_tpu_torch.train.loop import Trainer
+    from temp_tpu_torch.train.optim import param_leaves
+
+    dev = torch.device(device)
+    model = get_model(c["cfg"], c["data"], device=dev)
+    tr = Trainer(c["cfg"], model, c["data"])
+    params, opt = tr.init_state()
+    init = [t.detach().clone() for t in param_leaves(params)]
+    if draws is None:
+        draws = [model.draw_train(tr.step_generator(0, i), tr.data,
+                                  torch.tensor(t_pos, device=dev))
+                 for i, (t_pos, _) in enumerate(batches)]
+    draws = [{k: None if v is None else v.to(dev) for k, v in d.items()}
+             for d in draws]
+    _reset_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    losses = [tr.train_step(params, opt, t_pos, t_valid, draws=d)
+              for (t_pos, t_valid), d in zip(batches, draws)]
+    losses = torch.stack(losses).cpu().tolist()
+    wall = time.perf_counter() - t0
+    finals = [t.detach().clone().cpu() for t in param_leaves(params)]
+    return {"losses": losses, "ms_per_step": wall * 1e3 / len(batches),
+            "launches": _counts(), "peak_mb": _peak_mb(dev),
+            "params": params, "init": [t.cpu() for t in init],
+            "finals": finals, "draws": draws}
+
+
+def phase_baseline(ctx, module: str, train_steps=None) -> dict:
+    """One embedding baseline (grid/icews14/config_grrgcn.json with
+    `module`, d = 128) on the card: TRAIN_STEPS (or `train_steps`) steps,
+    the CPU replaying them from the same seeded weights on the card's
+    draws (losses within TRAIN_TOL, every leaf within PARAM_TOL of the
+    CPU's change), then the valid sweep on the card (queries/s); no
+    kernel launched anywhere."""
+    import numpy as np
+    import torch
+
+    dev = ctx["device"]
+    c = phase_setup(dev.type, config="config_grrgcn.json", data=ctx["data"],
+                    **{**ctx["setup_kw"], "module": module})
+    batches = c["trainer"].epoch_batches(0)[:train_steps or TRAIN_STEPS]
+    card = _baseline_steps(c, dev, batches)
+    t0 = time.perf_counter()
+    cpu = _baseline_steps(c, "cpu", batches, draws=card["draws"])
+    res = {"model": type(c["model"]).__name__,
+           "score_function": c["model"].cfg.score_function,
+           "cpu_steps": len(batches), "cpu_s": time.perf_counter() - t0,
+           "train": {k: card[k] for k in ("losses", "ms_per_step",
+                                          "launches", "peak_mb")},
+           "cpu_losses": cpu["losses"]}
+    x, y = np.array(card["losses"]), np.array(cpu["losses"])
+    if not np.isfinite(x).all():
+        raise AssertionError(f"{module}: losses not finite: "
+                             f"{card['losses']}")
+    res["max_rel_gap"] = float(np.max(np.abs(x - y)
+                                      / np.maximum(1.0, np.abs(y))))
+    if not res["max_rel_gap"] <= TRAIN_TOL:
+        raise AssertionError(f"{module}: card and CPU losses differ: "
+                             f"{res['max_rel_gap']} > {TRAIN_TOL}")
+    res["params"] = param_gaps(cpu["init"], {"card": card["finals"],
+                                             "cpu": cpu["finals"]},
+                               names=("card", "cpu"))
+    if not all(torch.equal(a, b) for a, b in zip(card["init"], cpu["init"])):
+        raise AssertionError(f"{module}: other initial weights on the CPU")
+    m, _, _ = _sweep({**ctx, "params": card["params"]}, c["cfg"])
+    res["eval"] = {k: m[k] for k in ("mrr", "n", "loss", "wall_s",
+                                     "queries_per_s", "launches",
+                                     "peak_mb")}
+    n_q = 2 * int(ctx["data"].valid.emask.sum())
+    if not (m["n"] == n_q and 0.0 < m["mrr"] <= 1.0
+            and np.isfinite(m["loss"])):
+        raise AssertionError(f"{module} eval: {res['eval']}")
+    for what, launches in (("train", card["launches"]),
+                           ("cpu", cpu["launches"]),
+                           ("eval", m["launches"])):
+        if any(launches.values()):
+            raise AssertionError(f"{module} {what}: kernels launched: "
+                                 f"{launches}")
+    return res
+
+
+def baseline_phases(ctx, train_steps=None) -> dict:
+    """The baselines' phases, one a baseline (``phase_baseline``); returns
+    them as {"baselines": {module: result}}."""
+    out = {}
+    for module in _BASELINE_MODULES:
+        with phase(f"baselines_{module}", {}) as bp:
+            r = phase_baseline(ctx, module, train_steps)
+            bp.update(r)
+            bp["ms_per_step"] = r["train"]["ms_per_step"]
+            bp["peak_mb"] = r["train"]["peak_mb"]
+            bp["queries_per_s"] = r["eval"]["queries_per_s"]
+            bp["mrr"] = r["eval"]["mrr"]
+        out[module] = r
+    return {"baselines": out}
+
+
+# the Aggregator (models/aggregator.py): frozen submodels in eval mode (K1f,
+# K2f), the gates trained
+_AGG_WANT = ("spmm_fwd", "fused_window_fwd")
+_NOT_AGG = _NOT_UNFUSED + ("spmm_bwd", "fused_window_bwd")
+
+
+def phase_setup_agg(ctx, tmp: str) -> dict:
+    """Two port run directories under `tmp`, each with its config.json and
+    checkpoints/best.pt: seeded SRGCN (config_srgcn.json, "spatial") and
+    BiGRRGCN (config_bigrrgcn.json, "temporal") on the smoke's data; then
+    the Aggregator (config_bigrrgcn.json, module Aggregator) that loads both
+    through ``load_checkpoint_params``. "ckpt": each submodel's saved
+    leaves (on the CPU)."""
+    from temp_tpu_torch.train.checkpoint import save_checkpoint
+    from temp_tpu_torch.train.optim import param_leaves
+
+    runs, ckpt = {}, {}
+    for name, config in (("spatial", "config_srgcn.json"),
+                         ("temporal", "config_bigrrgcn.json")):
+        c = phase_setup(ctx["device"].type, config=config, data=ctx["data"],
+                        **ctx["setup_kw"])
+        runs[name] = os.path.join(tmp, name)
+        os.makedirs(runs[name])
+        with open(os.path.join(runs[name], "config.json"), "w") as f:
+            f.write(c["cfg"].to_json())
+        save_checkpoint(os.path.join(runs[name], "checkpoints", "best.pt"),
+                        c["params"], None, 0, {"mrr": 0.0})
+        ckpt[name] = [t.detach().cpu() for t in param_leaves(c["params"])]
+        del c
+    actx = phase_setup(ctx["device"].type, config="config_bigrrgcn.json",
+                       data=ctx["data"],
+                       **{**ctx["setup_kw"], "module": "Aggregator",
+                          "spatial_checkpoint": runs["spatial"],
+                          "temporal_checkpoint": runs["temporal"]})
+    actx["ckpt"] = ckpt
+    actx["train_steps"] = 2
+    return actx
+
+
+def _frozen_leaves_ok(model, ckpt) -> None:
+    """Every leaf of the Aggregator's submodels bit-equal to its saved
+    checkpoint."""
+    import torch
+
+    from temp_tpu_torch.train.optim import param_leaves
+
+    for name, params in (("spatial", model.spatial_params),
+                         ("temporal", model.temporal_params)):
+        leaves = param_leaves(params)
+        if not (len(leaves) == len(ckpt[name]) and all(
+                torch.equal(a.cpu(), b) for a, b in zip(leaves,
+                                                         ckpt[name]))):
+            raise AssertionError(f"agg: the {name} submodel moved")
+
+
+def phase_agg_train(actx) -> dict:
+    """2 steps of the Aggregator with the kernels and with their plain
+    versions (``phase_train_unfused``: losses, every gate leaf; K1f and K2f
+    launched, no K1b or K2b, none of K3-K13); every gate leaf moved, and
+    every submodel leaf still bit-equal to its checkpoint."""
+    res = phase_train_unfused(actx, _AGG_WANT, _NOT_AGG)
+    if not res["gate_leaves"] == res["gate_leaves_moved"] == 8:
+        raise AssertionError(f"agg: gates {res['gate_leaves']}, moved "
+                             f"{res['gate_leaves_moved']}")
+    for model in actx["models"].values():
+        _frozen_leaves_ok(model, actx["ckpt"])
+    res["ms_per_step_plain"] = res["plain"]["ms_per_step"]
+    res["peak_mb"] = res["kernels"]["peak_mb"]
+    return res
+
+
+def _agg_near_ties(model, params, data, t_pos, split: str):
+    """[B, 2Q] bool in the [head, tail] layout: the queries whose gated
+    plain scores hold a column other than the target, not a true answer,
+    within SCALED_TOL of the row's largest |score| of the target's score
+    (``_tied``, ``near_ties``'s rule)."""
+    import torch
+
+    from temp_tpu_torch.ops.membership import true_answer_mask
+
+    out = []
+    r2 = 2 * data.num_rels
+    with torch.no_grad():
+        for t, tables in zip(t_pos, model._tables(data, t_pos)):
+            sc_t, sc_h, src, rel, dst = model.element_scores(
+                params, data, t, tables, split)
+            out.append(torch.cat([
+                _tied(sc, target, true_answer_mask(
+                    tbl.grp[t], tbl.val[t], grp, data.num_ents))
+                for sc, target, tbl, grp in (
+                    (sc_h, src, data.total_head, dst * r2 + rel),
+                    (sc_t, dst, data.total_tail, src * r2 + rel))]))
+    return torch.stack(out).cpu().numpy()
+
+
+def phase_agg_path(actx) -> dict:
+    """One valid batch of the Aggregator with the kernels and with their
+    plain versions: the same query mask, ranks equal on every real query
+    but the plain scores' near-ties (``_agg_near_ties``), the gated eval's
+    loss 0; K1f and K2f launched, no K1b or K2b, none of K3-K13."""
+    import numpy as np
+
+    from temp_tpu_torch.models.objectives import metrics_from_ranks
+    from temp_tpu_torch.models.registry import get_model
+
+    (rk, mk, launches), (rp, mp, plain) = (
+        _eval_batch_ranks(actx, k) for k in (True, False))
+    if not np.array_equal(mk, mp) or not mk.any():
+        raise AssertionError("agg eval: query masks differ or are empty")
+    diff = mk & (rk != rp)
+    model = get_model(actx["cfg"].replace(kernels=False), actx["data"],
+                      device=actx["device"])
+    t_pos = [int(t) for t in np.arange(actx["B"])
+             + actx["trainer"].data.num_times // 2]
+    near = _agg_near_ties(model, actx["params"], actx["trainer"].data,
+                          t_pos, "valid") & mk
+    if (diff & ~near).any():
+        raise AssertionError(f"agg eval: {int((diff & ~near).sum())} ranks "
+                             f"differ beyond the near-ties")
+    m_k, m_p = metrics_from_ranks(rk, mk), metrics_from_ranks(rp, mp)
+    _unfused_launches_ok(actx["device"], launches, _AGG_WANT, "agg eval",
+                         _NOT_AGG)
+    if any(plain.values()):
+        raise AssertionError(f"agg eval plain: {plain}")
+    return {"mrr_kernels": m_k["mrr"], "mrr_plain": m_p["mrr"],
+            "n": m_k["n"], "rank_diffs": int(diff.sum()),
+            "near_ties": int(near.sum()), "launches": launches}
+
+
+def agg_phases(ctx) -> dict:
+    """The Aggregator's phases: agg_setup (two seeded submodels written as
+    port checkpoints in a temporary directory, loaded by the Aggregator),
+    agg_train, agg_path; the directory removed at the end."""
+    import shutil
+    import tempfile
+
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_agg_")
+    try:
+        with phase("agg_setup", {}) as st:
+            actx = phase_setup_agg(ctx, tmp)
+            st["model"] = type(actx["model"]).__name__
+            st["temporal"] = type(actx["model"].temporal_model).__name__
+            st["spatial"] = type(actx["model"].spatial_model).__name__
+        with phase("agg_train", {}) as at:
+            at.update(phase_agg_train(actx))
+        res["agg_train"] = at
+        with phase("agg_path", {}) as ap:
+            ap.update(phase_agg_path(actx))
+        res["agg_path"] = ap
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        raise AssertionError(f"agg: {tmp} not removed")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3243,6 +3679,7 @@ def main() -> int:
         return 1
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(WATCHDOG_S)
+    _state["watchdog"] = True
     # backstop for a call that never returns to Python (a hung kernel under
     # synchronize): a C-level thread dumps the stacks and exits 1
     faulthandler.dump_traceback_later(WATCHDOG_S + 15, exit=True)
@@ -3347,6 +3784,16 @@ def main() -> int:
     res["variants"] = {t: va[t] for t, _, _ in _VARIANTS}
     res.update(sa_phases(ctx))
     res.update(rec_phases(ctx))
+    res.update(tdyn_phases(ctx))
+    with phase("zoo_variants", {}) as zv:
+        zv.update(phase_zoo_variants(ctx))
+        for tag in list(zv):
+            if isinstance(zv[tag], dict):
+                zv[f"{tag}_ms_per_step"] = zv[tag]["train"]["ms_per_step"]
+                zv[f"{tag}_peak_mb"] = zv[tag]["peak_mb"]
+    res["zoo_variants"] = {t: zv[t] for t, *_ in _ZOO_VARIANTS}
+    res.update(baseline_phases(ctx))
+    res.update(agg_phases(ctx))
     with phase("ring_setup", {}) as rs:
         rctx = phase_setup_ring(ctx)
         rs.update({k: rctx[k] for k in ("N", "A", "E", "B", "d", "rows",

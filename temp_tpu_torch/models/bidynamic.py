@@ -95,4 +95,4 @@ class BiDynamicRGCNModel(BiWindows, DynamicRGCNModel):
             params["encoder"], self.cfg, self.lc1, self.lc2,
             params["ent_embeds"], snap, h1f, h2f, (length - 1) - lpf, h1b,
             h2b, (length - 1) - lpb, train=train, masks=masks)
-        return self.embed_non_active(params, snap.active, out2)
+        return self.embed_non_active(params, snap.active, out2, t_pos)

@@ -56,7 +56,7 @@ from temp_tpu_torch.models.layers import (
     RELU_GAIN, Snapshot, dropout_mask, rgcn_conv, xavier_uniform,
 )
 from temp_tpu_torch.models.objectives import (
-    eval_ranks_single, train_loss_single,
+    draw_pool, element_neg, eval_ranks_single, train_loss_single,
 )
 from temp_tpu_torch.ops.fused_final import (
     final_graph, final_graph_eval, final_weights, fused_eval_ranks,
@@ -201,6 +201,20 @@ class DynamicRGCNModel:
         last row, as a clamped gather does in the JAX package."""
         return params["ent_embeds"][idx.long().clamp(max=self.num_ents - 1)]
 
+    def input_embeddings(self, params, t_pos):
+        """The input entity features [N, d] at time position t_pos (an int
+        or a 0-d tensor): the final step's layer-1 input and the inactive
+        rows' under ``use_embed_for_non_active``. TimeDynamicRGCN and
+        DRGCN make them time-dependent."""
+        return params["ent_embeds"]
+
+    def input_embeddings_rows(self, params, t_idx, rows):
+        """The input features [..., A, d] of the entity ids rows [..., A]
+        at the time positions t_idx [...] (the window steps' clamped
+        positions): the windows' layer-1 input, whose gradient K2b
+        returns. The padding id num_ents reads the last row (``_rows``)."""
+        return self._rows(params, rows)
+
     def fused_window_on(self, train: bool = False) -> bool:
         """Whether the windows run through K2; off under a partition."""
         return (self.cfg.fused_window_on(self.device)
@@ -329,8 +343,8 @@ class DynamicRGCNModel:
         prev_step = tbl.prev_step[tp].long()          # [B, L1, A]
         prev_row = tbl.prev_row[tp].long()
         conv1_in = conv1_xs is not None
-        h0_xs = conv1_xs if conv1_in else self._rows(params,
-                                                     win.act_idx[:, :L1])
+        h0_xs = conv1_xs if conv1_in else self.input_embeddings_rows(
+            params, win.t_idx[:, :L1], win.act_idx[:, :L1])
         bidx = torch.arange(B, device=self.device)[:, None]
 
         if masks is not None and masks[0] is None:
@@ -431,18 +445,20 @@ class DynamicRGCNModel:
         hist1, hist2, last_pos = hists
         snap = self.final_snapshot(data, t_pos, length, emask)
         dt = (length - 1) - last_pos
-        emb = params["ent_embeds"]
+        emb = self.input_embeddings(params, t_pos)
         _, out2, _ = encoder_forward(params["encoder"], self.cfg, self.lc1,
                                      self.lc2, emb, snap, hist1, hist2, dt,
                                      train=train, masks=masks)
-        return self.embed_non_active(params, snap.active, out2)
+        return self.embed_non_active(params, snap.active, out2, t_pos)
 
-    def embed_non_active(self, params, active, table):
+    def embed_non_active(self, params, active, table, t_pos):
         """`table` with the rows of the entities not `active` [N] replaced
-        by their input embeddings when ``use_embed_for_non_active``."""
+        by their input embeddings at t_pos when
+        ``use_embed_for_non_active``."""
         if not self.cfg.use_embed_for_non_active:
             return table
-        return torch.where(active[:, None], table, params["ent_embeds"])
+        return torch.where(active[:, None], table,
+                           self.input_embeddings(params, t_pos))
 
     # -- training -----------------------------------------------------------
 
@@ -457,7 +473,9 @@ class DynamicRGCNModel:
           ``edge_dropout``);
         - "fin1"/"fin2": the final step's, [B, N, d] bool (None without);
         - "edges": the final snapshot's 50% edge subsample, [B, E] bool;
-        - "pos": the loss's positive subset, [B, E] bool.
+        - "pos": the loss's positive subset, [B, E] bool;
+        - "neg_tail"/"neg_head": the loss's negative candidates
+          (``draw_pool``; None under the "all" pool).
         """
         cfg = self.cfg
         tp = t_pos.long()
@@ -477,6 +495,7 @@ class DynamicRGCNModel:
         out["edges"] = subsample_edges(gen, data.train.emask[tp], 0.5)
         out["pos"] = subsample_positives(gen, data.train.emask[tp],
                                          cfg.num_pos_facts)
+        out.update(draw_pool(gen, cfg, data, tp))
         return out
 
     def window_edges(self, gen: torch.Generator, data: TKGData, tp,
@@ -569,20 +588,23 @@ class DynamicRGCNModel:
                 draws["fin1"][b], draws["fin2"][b])
             total = total + self.element_loss(
                 params, data, t, tuple(h[b] for h in hists),
-                draws["edges"][b], fin, draws["pos"][b])
+                draws["edges"][b], fin, draws["pos"][b],
+                element_neg(draws, b))
         return total
 
     def element_loss(self, params, data: TKGData, t_pos: int, hists, emask,
-                     masks, pos):
+                     masks, pos, neg=None):
         """One target's training loss from its history `hists`, on the
         edge subsample `emask` with the self-loop keep masks `masks`, over
-        the positives `pos` (``forward_element``, ``train_loss_single``)."""
+        the positives `pos` and the negative candidates `neg` (``draw_pool``
+        of this element; None under the "all" pool) (``forward_element``,
+        ``train_loss_single``)."""
         tr = data.train
         table = self.forward_element(params, data, t_pos, hists=hists,
                                      train=True, emask=emask, masks=masks)
         return train_loss_single(
             self.cfg, data, self.score_all, params["rel_embeds"], table,
-            t_pos, tr.src[t_pos], tr.rel[t_pos], tr.dst[t_pos], pos)
+            t_pos, tr.src[t_pos], tr.rel[t_pos], tr.dst[t_pos], pos, neg)
 
     # -- objectives ---------------------------------------------------------
 

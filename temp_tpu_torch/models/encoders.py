@@ -62,31 +62,6 @@ def make_layer_cfgs(cfg: TKGConfig, num_rels: int,
     return lc1, lc2
 
 
-# the self-attention modules (``models/selfattn.py``)
-SA_MODULES = ("SARGCN", "BiSARGCN")
-# the modules the port runs: the recurrent ones, the static ones
-# (``models/static.py``) and the attention ones
-PORTED_MODULES = ("GRRGCN", "BiGRRGCN", "RRGCN", "BiRRGCN", "SRGCN",
-                  "DRGCN") + SA_MODULES
-
-
-def _check_ported(cfg: TKGConfig) -> None:
-    """The modules of ``PORTED_MODULES`` with the ComplEx decoder and the
-    "all" negative pool pass, with every option; the other modules (the
-    baselines, TimeDynamicRGCN, the Aggregator), decoders and pools
-    raise."""
-    if cfg.module not in PORTED_MODULES:
-        raise NotImplementedError(f"module {cfg.module} is not ported yet; "
-                                  f"see ROADMAP.md")
-    if cfg.score_function != "complex":
-        raise NotImplementedError(f"score_function={cfg.score_function!r} "
-                                  f"is not ported yet; see ROADMAP.md")
-    if cfg.negative_pool != "all":
-        raise NotImplementedError(f"negative_pool={cfg.negative_pool!r} (and "
-                                  f"its samplers) is not ported yet; see "
-                                  f"ROADMAP.md")
-
-
 def init_encoder(gen: torch.Generator, cfg: TKGConfig, num_rels: int,
                  num_times: int) -> Dict[str, Any]:
     """Both layers' parameters (a plain conv layer 1 under
@@ -94,7 +69,6 @@ def init_encoder(gen: torch.Generator, cfg: TKGConfig, num_rels: int,
     ``impute`` also the imputation weights, one (weight, bias) pair a
     direction in the Bi models, each U(-1, 1) as torch's nn.Linear(1, 1)
     starts."""
-    _check_ported(cfg)
     lc1, lc2 = make_layer_cfgs(cfg, num_rels, num_times)
     bidir = cfg.module.startswith("Bi")
     base = _base_module(cfg.module)

@@ -10,7 +10,10 @@ from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.data.snapshots import TKGData
 from temp_tpu_torch.ops.membership import true_answer_mask
 from temp_tpu_torch.ops.ranking import filtered_ranks
-from temp_tpu_torch.ops.scores import query_for
+from temp_tpu_torch.ops.sampling import (
+    draw_negatives, draw_shared_negatives, shared_bad,
+)
+from temp_tpu_torch.ops.scores import query_for, row_scores, table_scores
 
 
 def _masked_mean(x, mask):
@@ -18,49 +21,96 @@ def _masked_mean(x, mask):
     return torch.sum(x * m) / torch.sum(m).clamp(min=1.0)
 
 
+def draw_pool(gen: torch.Generator, cfg: TKGConfig, data: TKGData, tp):
+    """The negative candidates of the train queries of the targets tp [B]
+    (a tensor on the data's device), from `gen`: "neg_tail" and
+    "neg_head", the tail and the head queries' candidates, [B, E, 1 + K]
+    long under ``per_query`` (``draw_negatives``, column 0 the positive)
+    and the pools [B, K] long under ``shared``
+    (``draw_shared_negatives``); both None under "all", which draws
+    nothing."""
+    if cfg.negative_pool == "all":
+        return {"neg_tail": None, "neg_head": None}
+    tr, r2 = data.train, 2 * data.num_rels
+    n, k = data.num_ents, cfg.negative_rate
+    src, rel, dst = (x[tp].long() for x in (tr.src, tr.rel, tr.dst))
+    out = {}
+    for key, tbl, grp, pos in (
+            ("neg_tail", data.train_tail, src * r2 + rel, dst),
+            ("neg_head", data.train_head, dst * r2 + rel, src)):
+        if cfg.negative_pool == "shared":
+            out[key] = draw_shared_negatives(gen, tbl.grp[tp], tbl.val[tp],
+                                             grp, n, k)[0]
+        else:
+            out[key] = draw_negatives(gen, tbl.grp[tp], tbl.val[tp], grp,
+                                      pos, n, k, cfg.neg_oversample)
+    return out
+
+
+def element_neg(draws, b: int):
+    """Element b's (neg_tail, neg_head) of ``draw_pool``'s draws, or None
+    (the "all" pool, or draws without them)."""
+    if draws.get("neg_tail") is None:
+        return None
+    return draws["neg_tail"][b], draws["neg_head"][b]
+
+
 def make_raw_scorers(cfg: TKGConfig, data: TKGData, t_pos: int, src, rel,
-                     dst):
+                     dst, neg=None):
     """The candidate scorers of one target snapshot's train queries (src,
-    rel, dst [P], long), negative pool "all": (score_tail, score_head),
-    each mapping query vectors qhat [P, d] (``ops.scores.query_for``) and
-    an entity table [N, d] to [P, 1 + N] logits, the positive's score (the
-    query's own dst, or src, row of that table) in column 0 and the other
-    true answers of the query (train facts at t) masked to -1e9. Tables
-    blended by the gated losses share the one mask. `data` holds
-    tensors."""
-    if cfg.negative_pool != "all":
-        raise NotImplementedError(
-            f"negative_pool={cfg.negative_pool!r} (and its samplers "
-            f"draw_negatives/draw_shared_negatives) is not ported yet; see "
-            f"ROADMAP.md")
+    rel, dst [P], long): (score_tail, score_head), each mapping a query
+    (``ops.scores.query_for``: (qvec [P, d], kind)) and an entity table
+    [N, d] to [P, 1 + C] logits, the positive's score in column 0. The
+    candidates follow ``cfg.negative_pool``:
+
+    - "all": every entity, the other true answers of the query (train
+      facts at t) masked to -1e9;
+    - "shared": one pool [K] of entity ids a direction, its true answers
+      masked per query;
+    - "per_query": each query's own candidates [P, 1 + K] (column 0 the
+      positive), their columns of the scores against the whole table.
+
+    `neg` is (tail, head) of the drawn candidates (``draw_pool``; None for
+    "all"): the scorers never draw. Tables blended by the gated losses
+    share the one draw and mask. `data` holds tensors."""
     r2 = 2 * data.num_rels
+    pool = cfg.negative_pool
+    if (neg is None) != (pool == "all"):
+        raise ValueError(f"negative_pool={pool!r} with drawn candidates "
+                         f"{neg is not None}")
 
-    def scorer(tbl, q_grp, pos):
-        bad = true_answer_mask(tbl.grp[t_pos], tbl.val[t_pos], q_grp,
-                               data.num_ents)
+    def scorer(tbl, q_grp, pos, cand):
+        if pool == "per_query":
+            return lambda query, table: torch.gather(
+                table_scores(query, table), 1, cand.long())
+        grp, val = tbl.grp[t_pos], tbl.val[t_pos]
+        bad = (true_answer_mask(grp, val, q_grp, data.num_ents)
+               if cand is None
+               else shared_bad(grp, val, q_grp, data.num_ents, cand))
 
-        def score(qhat, table):
-            sc = (qhat @ table.transpose(-1, -2)).masked_fill(bad, -1e9)
-            sc_pos = torch.sum(qhat * table[pos], -1)
+        def score(query, table):
+            rows = table if cand is None else table[cand.long()]
+            sc = table_scores(query, rows).masked_fill(bad, -1e9)
+            sc_pos = row_scores(query, table[pos])
             return torch.cat([sc_pos[:, None], sc], dim=1)
         return score
 
-    return (scorer(data.train_tail, src * r2 + rel, dst),
-            scorer(data.train_head, dst * r2 + rel, src))
+    nt, nh = (None, None) if neg is None else neg
+    return (scorer(data.train_tail, src * r2 + rel, dst, nt),
+            scorer(data.train_head, dst * r2 + rel, src, nh))
 
 
 def train_loss_single(cfg: TKGConfig, data: TKGData, score_all_fn,
                       rel_embeds, table, t_pos: int, src, rel, dst,
-                      pos_mask):
-    """Tail+head cross-entropy for one target snapshot, negative pool
-    "all": an exact softmax over every entity, the other true answers of
-    each query (train facts at t) masked out, the positive in column 0
-    (``make_raw_scorers``). The mean over the positives `pos_mask` [E] (the
-    edge slots the loss takes) of each direction, summed. `data` holds
-    tensors."""
+                      pos_mask, neg=None):
+    """Tail+head cross-entropy for one target snapshot over the candidates
+    of ``cfg.negative_pool`` (``make_raw_scorers``; `neg` its drawn
+    candidates, None for "all"), the positive in column 0. The mean over
+    the positives `pos_mask` [E] (the edge slots the loss takes) of each
+    direction, summed. `data` holds tensors."""
     src, rel, dst = src.long(), rel.long(), dst.long()
     r_emb = rel_embeds[rel]
-    score_t, score_h = make_raw_scorers(cfg, data, t_pos, src, rel, dst)
+    score_t, score_h = make_raw_scorers(cfg, data, t_pos, src, rel, dst, neg)
     ce_tail = cross_entropy_0(score_t(
         query_for(score_all_fn, table[src], r_emb, "tail"), table))
     ce_head = cross_entropy_0(score_h(

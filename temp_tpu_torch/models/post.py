@@ -129,13 +129,14 @@ class Gated:
                 gate_weight(g[names[1]], obj)[:, None])
 
     def element_loss(self, params, data: TKGData, t_pos: int, hists, emask,
-                     masks, pos):
+                     masks, pos, neg=None):
         """One target's training loss (the base model's
         ``element_loss``); under a gate the gated cross-entropy over both
-        tables of ``forward_tables``."""
+        tables of ``forward_tables``, every table scored against the one
+        draw of candidates `neg`."""
         if not self.gated:
             return super().element_loss(params, data, t_pos, hists, emask,
-                                        masks, pos)
+                                        masks, pos, neg)
         loc, rec = self.forward_tables(params, data, t_pos, hists,
                                        train=True, emask=emask, masks=masks)
         tr = data.train
@@ -143,7 +144,7 @@ class Gated:
         r_emb = params["rel_embeds"][rel]
         w_s, w_o = self.gate_weights(params, "train", t_pos)
         score_t, score_h = make_raw_scorers(self.cfg, data, t_pos, src, rel,
-                                            dst)
+                                            dst, neg)
 
         def q(ent, mode):
             return query_for(self.score_all, ent, r_emb, mode)
@@ -286,7 +287,8 @@ class PostDynamicRGCNModel(Gated, DynamicRGCNModel):
             hists = self.element_hists(params, data, t_pos, length)
         _, rec = self.forward_tables(params, data, t_pos, hists, train=train,
                                      emask=emask, masks=masks)
-        return self.embed_non_active(params, data.active[int(t_pos)], rec)
+        return self.embed_non_active(params, data.active[int(t_pos)], rec,
+                                     t_pos)
 
 
 class PostBiDynamicRGCNModel(BiWindows, PostDynamicRGCNModel):

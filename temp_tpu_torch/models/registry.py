@@ -1,21 +1,24 @@
 """Model selection: --module string + behavior flags -> model class, after
-the JAX package's ``models/registry.py``. Ported: GRRGCN and RRGCN
+the JAX package's ``models/registry.py``: GRRGCN and RRGCN
 (``DynamicRGCNModel``; GRRGCN with ``--impute``, ``--post-ensemble`` or
 ``--post-aggregation`` ``PostDynamicRGCNModel``), BiGRRGCN and BiRRGCN
 (``BiDynamicRGCNModel``; BiGRRGCN with any of the three flags
 ``PostBiDynamicRGCNModel``, the flagship BiGRRGCN ``--impute`` among
 them), SRGCN and DRGCN (``models/static.py``), SARGCN and BiSARGCN
 (``models/selfattn.py``; with ``--post-aggregation``
-``models/postselfattn.py``), each with the recurrent options; only plain
-GRRGCN (no flag, no option) under an edge partition. The other modules,
-RRGCN with a flag (the reference has no such model), the other decoders
-and negative pools raise."""
+``models/postselfattn.py``), each with the recurrent options; the
+embedding baselines Static, DE, ATiSE (or AtiSE), Hyte and SimplE (or
+Simple) (``models/baselines.py``), TimeDynamicRGCN
+(``models/timedynamic.py``) and the Aggregator (``models/aggregator.py``);
+every decoder (complex, distmult, transE) and negative pool (all, shared,
+per_query). Under an edge partition only plain GRRGCN with ComplEx and the
+"all" pool runs; the rest raises there, as RRGCN with a flag does (the
+reference has no such model)."""
 
 from __future__ import annotations
 
 from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.data.snapshots import TKGData
-from temp_tpu_torch.models.encoders import PORTED_MODULES
 
 
 def normalize_remap_flags(cfg: TKGConfig) -> TKGConfig:
@@ -53,21 +56,25 @@ def normalize_remap_flags(cfg: TKGConfig) -> TKGConfig:
 # the unpartitioned models do (only plain GRRGCN runs under a partition)
 _OPTIONS = ("type1", "learnable_lambda", "use_time_embedding",
             "rec_only_last_layer", "random_dropout", "edge_dropout")
+# the baselines' names, the reference CLI's aliases among them
+_BASELINES = {"Static": "Static", "DE": "DE", "ATiSE": "ATiSE",
+              "AtiSE": "ATiSE", "Hyte": "Hyte", "SimplE": "SimplE",
+              "Simple": "SimplE"}
 
 
 def get_model(cfg: TKGConfig, data: TKGData, device="cuda"):
     cfg = normalize_remap_flags(cfg)
+    module = cfg.module
     variant = cfg.impute or cfg.post_ensemble or cfg.post_aggregation
-    if cfg.module not in PORTED_MODULES:
-        raise NotImplementedError(f"module {cfg.module} is not ported yet; "
-                                  f"see ROADMAP.md")
-    if cfg.partitioned and (variant or cfg.module != "GRRGCN" or any(
-            getattr(cfg, o) for o in _OPTIONS)):
-        raise NotImplementedError(f"{cfg.module} with these flags under an "
-                                  f"edge partition is not ported yet; see "
-                                  f"ROADMAP.md")
-    if cfg.module in ("SARGCN", "BiSARGCN"):
-        bi = cfg.module == "BiSARGCN"
+    if cfg.partitioned and (variant or module != "GRRGCN" or any(
+            getattr(cfg, o) for o in _OPTIONS)
+            or cfg.score_function != "complex"
+            or cfg.negative_pool != "all"):
+        raise NotImplementedError(f"{module} with these flags, decoder or "
+                                  f"pool under an edge partition is not "
+                                  f"ported yet; see ROADMAP.md")
+    if module in ("SARGCN", "BiSARGCN"):
+        bi = module == "BiSARGCN"
         if cfg.post_aggregation:
             from temp_tpu_torch.models import postselfattn as m
             cls = (m.PostBiSelfAttentionRGCNModel if bi
@@ -77,11 +84,23 @@ def get_model(cfg: TKGConfig, data: TKGData, device="cuda"):
             cls = (m.BiSelfAttentionRGCNModel if bi
                    else m.SelfAttentionRGCNModel)
         return cls(cfg, data, device=device)
-    if cfg.module in ("SRGCN", "DRGCN"):
+    if module in ("SRGCN", "DRGCN"):
         from temp_tpu_torch.models import static as m
-        cls = m.StaticRGCNModel if cfg.module == "SRGCN" else m.DRGCNModel
+        cls = m.StaticRGCNModel if module == "SRGCN" else m.DRGCNModel
         return cls(cfg, data, device=device)
-    bi = cfg.module.startswith("Bi")
+    if module in _BASELINES:
+        from temp_tpu_torch.models.baselines import get_baseline
+        return get_baseline(cfg.replace(module=_BASELINES[module]), data,
+                            device=device)
+    if module == "Aggregator":
+        from temp_tpu_torch.models.aggregator import AggregatorModel
+        return AggregatorModel(cfg, data, device=device)
+    if module == "TimeDynamicRGCN":
+        from temp_tpu_torch.models.timedynamic import TimeDynamicRGCNModel
+        return TimeDynamicRGCNModel(cfg, data, device=device)
+    if module not in ("GRRGCN", "RRGCN", "BiGRRGCN", "BiRRGCN"):
+        raise ValueError(f"unknown module: {module}")
+    bi = module.startswith("Bi")
     if variant:
         # the Post models raise for an RRGCN base
         from temp_tpu_torch.models import post as m

@@ -41,11 +41,11 @@ import torch
 from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.data.snapshots import TKGData
 from temp_tpu_torch.models.dynamic import DynamicRGCNModel, gather_window
-from temp_tpu_torch.models.encoders import _check_ported
 from temp_tpu_torch.models.layers import (
     RELU_GAIN, Snapshot, dropout_mask, init_rgcn_layer, layer_time_embedding,
     rgcn_conv, xavier_uniform,
 )
+from temp_tpu_torch.models.objectives import draw_pool
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 
 NEG_MASK = -10e9  # reference SelfAttentionRGCN.py:109
@@ -188,7 +188,6 @@ class SelfAttentionRGCNModel(DynamicRGCNModel):
         # the reference forces time embeddings on for the attention models
         # (SARGCN.py:92)
         cfg = cfg.replace(use_time_embedding=True)
-        _check_ported(cfg)
         super().__init__(cfg, data, device=device)
 
     def init_tree(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -330,7 +329,8 @@ class SelfAttentionRGCNModel(DynamicRGCNModel):
         - "win_edges": under ``random_dropout`` the history steps' 80%
           edge subsample, [B, L1, E] bool (the unidirectional models only,
           as in JAX); else None;
-        - "fin1"/"fin2", "edges", "pos": as ``DynamicRGCNModel.draw_train``.
+        - "fin1"/"fin2", "edges", "pos", "neg_tail"/"neg_head": as
+          ``DynamicRGCNModel.draw_train``.
         """
         cfg = self.cfg
         tp = t_pos.long()
@@ -353,6 +353,7 @@ class SelfAttentionRGCNModel(DynamicRGCNModel):
         out["edges"] = subsample_edges(gen, data.train.emask[tp], 0.5)
         out["pos"] = subsample_positives(gen, data.train.emask[tp],
                                          cfg.num_pos_facts)
+        out.update(draw_pool(gen, cfg, data, tp))
         return out
 
     # -- the final step -------------------------------------------------------
@@ -425,7 +426,7 @@ class SelfAttentionRGCNModel(DynamicRGCNModel):
         snap = self.final_snapshot(data, t_pos, length, emask)
         table = self._final(params, snap, hists, self._time_diff(length),
                             train, masks)
-        return self.embed_non_active(params, snap.active, table)
+        return self.embed_non_active(params, snap.active, table, t_pos)
 
 
 class BiSelfAttentionRGCNModel(SelfAttentionRGCNModel):

@@ -40,10 +40,6 @@ class StaticRGCNModel(DynamicRGCNModel):
         # the static layers whichever static module is named
         super().__init__(cfg.replace(module="SRGCN"), data, device=device)
 
-    def input_embeddings(self, params, t_pos: int):
-        """The input entity features [N, d] at time position t_pos."""
-        return params["ent_embeds"]
-
     def batch_hists(self, params, data: TKGData, tp, length: int,
                     draws=None, conv1_all=None):
         """No history: an empty tuple for every element. `conv1_all` is
@@ -83,7 +79,8 @@ class DRGCNModel(StaticRGCNModel):
         p["b_ent"] = xavier_uniform(gen, shape, RELU_GAIN)
         return p
 
-    def input_embeddings(self, params, t_pos: int):
-        """ent_embeds + sin(t * w_ent + b_ent), t the time position."""
+    def input_embeddings(self, params, t_pos):
+        """ent_embeds + sin(t * w_ent + b_ent), t the time position (the
+        ``DynamicRGCNModel.input_embeddings`` hook)."""
         return params["ent_embeds"] + torch.sin(
             float(t_pos) * params["w_ent"] + params["b_ent"])

@@ -248,3 +248,16 @@ class Trainer:
         m = metrics_from_ranks(ranks.cpu().numpy(), mask.cpu().numpy())
         m["loss"] = float(bces.mean())
         return m
+
+
+def load_checkpoint_params(run_dir: str, device="cuda"):
+    """(cfg, params on `device`, blob) of a run directory the Trainer
+    wrote: its config.json and the parameters of checkpoints/best.pt; blob
+    holds "params", "opt_state" (the optimizer's state dict), "epoch" and
+    "metrics"."""
+    with open(os.path.join(run_dir, "config.json")) as f:
+        cfg = TKGConfig.from_dict(json.load(f))
+    params, opt_state, extra = load_checkpoint(
+        os.path.join(run_dir, "checkpoints", "best.pt"), device)
+    blob = {"params": params, "opt_state": opt_state, **extra}
+    return cfg, params, blob

@@ -22,8 +22,6 @@ about 1e-6, far from any rank-changing gap at these seeds) and MRR within
 import ctypes
 import os
 import re
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +50,7 @@ from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.data.snapshots import (
     build_answer_lists, make_synthetic, to_device,
 )
+from temp_tpu_torch.models.baselines import HyteModel
 from temp_tpu_torch.models.bidynamic import BiDynamicRGCNModel
 from temp_tpu_torch.models.dynamic import DynamicRGCNModel
 from temp_tpu_torch.models.post import (
@@ -67,8 +66,9 @@ from temp_tpu_torch.ops.fused_window import (
 )
 from temp_tpu_torch.train.loop import Trainer
 from temp_tpu_torch.train.optim import make_optimizer, param_leaves
+from test_torch_slice import one_thread  # noqa: F401
 from test_torch_train import (
-    _close, _pairs, _torch_params, _window_case, _write_dataset,
+    _close, _pairs, _torch_params, _window_case, _write_dataset, run_cli,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -636,14 +636,23 @@ def test_registry_dispatches_the_flagship_and_refuses_the_rest():
             ({"module": "SRGCN"}, StaticRGCNModel),
             ({"use_time_embedding": True}, PostBiDynamicRGCNModel),
             ({"type1": True}, PostBiDynamicRGCNModel),
-            ({"edge_dropout": True}, PostBiDynamicRGCNModel)):
+            ({"edge_dropout": True}, PostBiDynamicRGCNModel),
+            # the other decoders and pools, and the baselines
+            ({"score_function": "distmult"}, PostBiDynamicRGCNModel),
+            ({"negative_pool": "shared"}, PostBiDynamicRGCNModel),
+            ({"module": "Hyte"}, HyteModel)):
         m = get_model(TKGConfig(**{**KW, **over}), data, device="cpu")
         assert type(m) is cls, over
         m.init_params(0)
-    # the other modules, decoders and pools, RRGCN's TeMP variants, and
-    # every model but plain GRRGCN under an edge partition
-    for over in ({"module": "BiRRGCN"}, {"score_function": "distmult"},
-                 {"negative_pool": "shared"}, {"module": "Hyte"},
+    # RRGCN's TeMP variants, and every model but plain GRRGCN with
+    # ComplEx and the "all" pool under an edge partition
+    for over in ({"module": "BiRRGCN"},
+                 {"module": "GRRGCN", "impute": False,
+                  "score_function": "distmult", "edge_partition": "psum",
+                  "mp_size": 4},
+                 {"module": "GRRGCN", "impute": False,
+                  "negative_pool": "shared", "edge_partition": "ring",
+                  "mp_size": 4},
                  {"module": "BiSARGCN", "edge_partition": "psum",
                   "mp_size": 4},
                  {"post_ensemble": True, "edge_partition": "ring",
@@ -696,22 +705,18 @@ def test_params_from_numpy_carries_the_bi_pytree():
     assert n == len(param_leaves(own))
 
 
-def test_main_cli_trains_the_flagship_on_cpu(tmp_path):
+def test_main_cli_trains_the_flagship_on_cpu(tmp_path, capsys, one_thread):
     root = _write_dataset(tmp_path / "data")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["CUDA_VISIBLE_DEVICES"] = ""
-    proc = subprocess.run(
-        [sys.executable, "-m", "temp_tpu_torch.main", "-c",
-         os.path.join(ROOT, "grid", "icews14", "config_bigrrgcn.json"),
-         "--impute", "--device", "cpu", "--fast-dev-run", "--data-root",
-         root, "--dataset", "tiny", "--edge-pad-multiple", "16",
-         "--embed-size", "16", "--hidden-size", "16", "--n-bases", "16",
-         "--train-seq-len", "3", "--batch-size", "2", "--fused-final", "on",
-         "--experiments-dir", str(tmp_path / "runs"), "--model-name", "bi"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "module=BiGRRGCN" in proc.stdout
-    assert "epoch 0:" in proc.stdout and "test: mrr=" in proc.stdout
+    out = run_cli([
+        "-c", os.path.join(ROOT, "grid", "icews14", "config_bigrrgcn.json"),
+        "--impute", "--device", "cpu", "--fast-dev-run", "--data-root", root,
+        "--dataset", "tiny", "--edge-pad-multiple", "16", "--embed-size", "16",
+        "--hidden-size", "16", "--n-bases", "16", "--train-seq-len", "3",
+        "--batch-size", "2", "--fused-final", "on", "--experiments-dir",
+        str(tmp_path / "runs"), "--model-name", "bi",
+    ], capsys)
+    assert "module=BiGRRGCN" in out
+    assert "epoch 0:" in out and "test: mrr=" in out
     ckpt = torch.load(tmp_path / "runs" / "bi" / "checkpoints" / "best.pt",
                       weights_only=True)
     assert ckpt["params"]["encoder"]["impute_w_fwd"].shape == ()

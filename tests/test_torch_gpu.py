@@ -53,7 +53,10 @@ from temp_tpu_torch.ops.fused_window_mb import (
     fused_window_mb_fwd, fused_window_mb_fwd_plain,
 )
 from temp_tpu_torch.ops.membership import true_answer_mask
-from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
+from temp_tpu_torch.ops.sampling import (
+    draw_negatives, draw_shared_negatives, subsample_edges,
+    subsample_positives,
+)
 from temp_tpu_torch.ops.spmm import (
     _norm2_plain, flat_graph, spmm, spmm_bwd, spmm_bwd_plain, spmm_fwd,
     spmm_fwd_plain,
@@ -2062,3 +2065,123 @@ def test_ring_path_launches_k13_and_no_k1(cuda):
     assert not bool((off & ~near).any()), (
         f"{int((off & ~near).sum())} ranks differ away from a near-tie "
         f"({int((near & per_time(mk)).sum())} near-ties)")
+
+
+# -- the negative samplers, TransE's table scores, TimeDynamicRGCN's window --
+
+def _filter_on(dev, n_ents, n_groups, per, seed=0):
+    """A sorted filter table (grp, val [F] on `dev`) of `per` true answers
+    for each of n_groups groups, and its Python sets."""
+    rs = np.random.RandomState(seed)
+    pairs = sorted({(g, int(v)) for g in range(n_groups)
+                    for v in rs.choice(n_ents, per, replace=False)})
+    grp = torch.tensor([p[0] for p in pairs], device=dev)
+    val = torch.tensor([p[1] for p in pairs], device=dev)
+    sets = [set() for _ in range(n_groups)]
+    for g, v in pairs:
+        sets[g].add(v)
+    return grp, val, sets
+
+
+def test_negative_samplers_on_the_card(cuda):
+    """The per_query and shared samplers on CUDA tensors from a CUDA
+    generator: column 0 the positive; the draws replayed from the seed: a
+    true answer only where its spare is one too; strict mode the first
+    valid draws in draw order; the shared pool's mask the sets'
+    membership; the same seed, the same draws."""
+    N, G, K, os_, P = 300, 8, 40, 8, 128
+    grp, val, sets = _filter_on(cuda, N, G, 60)
+    g = torch.Generator().manual_seed(1)
+    q = torch.randint(0, G, (P,), generator=g).to(cuda)
+    pos = torch.randint(0, N, (P,), generator=g).to(cuda)
+
+    def gen():
+        return torch.Generator(device=cuda).manual_seed(3)
+
+    cand = draw_negatives(gen(), grp, val, q, pos, N, K, os_)
+    assert cand.device.type == "cuda" and cand.shape == (P, 1 + K)
+    assert torch.equal(cand[:, 0], pos.long())
+    assert torch.equal(cand, draw_negatives(gen(), grp, val, q, pos, N, K,
+                                            os_))
+    draws = torch.randint(0, N, (P, K + os_), generator=gen(),
+                          device=cuda).cpu().numpy()
+    cand, qh = cand.cpu().numpy(), q.cpu().numpy()
+    for p in range(P):
+        bad = sets[qh[p]]
+        for k in range(K):
+            main, spare = draws[p, k], draws[p, K + k % os_]
+            want = spare if (main in bad and spare not in bad) else main
+            assert cand[p, 1 + k] == want
+    strict = draw_negatives(gen(), grp, val, q, pos, N, K, os_,
+                            strict=True).cpu().numpy()
+    for p in range(P):
+        valid = [v for v in draws[p] if v not in sets[qh[p]]]
+        assert list(strict[p, 1:]) == (valid + [0] * K)[:K]
+    pool, bad = draw_shared_negatives(gen(), grp, val, q, N, K)
+    assert pool.device.type == "cuda" and bad.shape == (P, K)
+    want = [[int(v) in sets[qh[p]] for v in pool.tolist()] for p in range(P)]
+    assert bad.cpu().tolist() == want and bad.any()
+
+
+def test_transe_table_scores_match_the_chunked_broadcast(cuda):
+    """TransE's L1 scores of 256 queries against a 7128-row table (cdist
+    on the card) and their gradients, within 1e-5 of the largest entry of
+    the JAX package's chunked [P, N, d] broadcast on the CPU."""
+    from temp_tpu_torch.ops.scores import l1_scores, table_scores
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(256, 128, generator=g) * 0.1
+    table = torch.randn(7128, 128, generator=g) * 0.1
+    up = torch.randn(256, 7128, generator=g)
+    qc, tc = (x.clone().requires_grad_(True) for x in (q, table))
+    ref = torch.cat([-(qc[i:i + 64, None, :] - tc[None]).abs().sum(-1)
+                     for i in range(0, 256, 64)])
+    (ref * up).sum().backward()
+    qg, tg = (x.to(cuda).requires_grad_(True) for x in (q, table))
+    got = table_scores((qg, "l1"), tg)
+    assert torch.equal(got, l1_scores(qg, tg))
+    (got * up.to(cuda)).sum().backward()
+    for a, b in ((got, ref), (qg.grad, qc.grad), (tg.grad, tc.grad)):
+        a, b = a.detach().cpu(), b.detach()
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_time_dynamic_window_kernel_matches_plain(cuda):
+    """TimeDynamicRGCN's training windows at a small size, one of them
+    running off t = 0: K2f and K2b with the kernels against their plain
+    versions on the same draws, the histories and the gradients of the
+    diachronic inputs (ent_embeds, w_temp, b_temp) within TOL."""
+    data = make_synthetic(num_ents=300, num_rels=6, num_times=12,
+                          edges_per_time=60, seed=0, edge_pad_multiple=16)
+    tp = torch.tensor([1, 6, 9, 3], device=cuda)
+    out = {}
+    for kernels in (True, False):
+        cfg = TKGConfig(module="TimeDynamicRGCN", embed_size=32,
+                        hidden_size=32, n_bases=32, train_seq_len=5,
+                        batch_size=4, dropout=0.1, kernels=kernels)
+        d = ring_layout(cfg, data)
+        model = get_model(cfg, d, device="cuda")
+        assert model.fused_window_on(train=True)
+        tr = Trainer(cfg, model, d)
+        params = model.init_params(0)
+        for p in param_leaves(params):
+            p.requires_grad_(True)
+        draws = model.draw_train(torch.Generator(device=cuda).manual_seed(0),
+                                 tr.data, tp)
+        before = (fused_window_fwd.launches, fused_window_bwd.launches)
+        hists = model.batch_hists(params, tr.data, tp, model.train_len,
+                                  draws)
+        up = torch.Generator(device=cuda).manual_seed(1)
+        sum((h * torch.randn(h.shape, generator=up, device=cuda)).sum()
+            for h in hists[:2]).backward()
+        torch.cuda.synchronize()
+        out[kernels] = ([h.detach() for h in hists],
+                        [params[k].grad for k in ("ent_embeds", "w_temp",
+                                                  "b_temp")],
+                        (fused_window_fwd.launches - before[0],
+                         fused_window_bwd.launches - before[1]))
+    (hk, gk, nk), (hp, gp, np_) = out[True], out[False]
+    assert nk[0] > 0 and nk[1] > 0 and np_ == (0, 0)
+    for a, b in zip(hk + gk, hp + gp):
+        assert _close(a, b), float((a - b).abs().max())
+    assert float(gk[1].abs().max()) > 0 and float(gk[2].abs().max()) > 0

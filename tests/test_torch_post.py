@@ -21,8 +21,6 @@ gate weights within 1e-6; eval ranks equal and MRR within 1e-6.
 """
 
 import os
-import subprocess
-import sys
 from contextlib import contextmanager
 
 import jax
@@ -56,8 +54,9 @@ from temp_tpu_torch.ops.fused_window import fused_window_scan
 from temp_tpu_torch.train.loop import Trainer
 from temp_tpu_torch.train.optim import make_optimizer, param_leaves
 from test_torch_flagship import _jax_flagship_window_vjp, _open_impute
+from test_torch_slice import one_thread  # noqa: F401
 from test_torch_train import (
-    _close, _pairs, _torch_params, _window_case, _write_dataset,
+    _close, _pairs, _torch_params, _window_case, _write_dataset, run_cli,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -428,22 +427,18 @@ def test_last_checkpoint_restores_the_gates(tmp_path):
                for k, v in opt2.state_dict()["state"].items())
 
 
-def test_main_cli_trains_ted_on_cpu(tmp_path):
+def test_main_cli_trains_ted_on_cpu(tmp_path, capsys, one_thread):
     root = _write_dataset(tmp_path / "data")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["CUDA_VISIBLE_DEVICES"] = ""
-    proc = subprocess.run(
-        [sys.executable, "-m", "temp_tpu_torch.main", "-c",
-         os.path.join(ROOT, "grid", "icews14", "config_bigrrgcn.json"),
-         "--post-ensemble", "--device", "cpu", "--fast-dev-run",
-         "--data-root", root, "--dataset", "tiny", "--edge-pad-multiple",
-         "16", "--embed-size", "16", "--hidden-size", "16", "--n-bases",
-         "16", "--train-seq-len", "3", "--batch-size", "2",
-         "--experiments-dir", str(tmp_path / "runs"), "--model-name", "ted"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "module=BiGRRGCN" in proc.stdout
-    assert "epoch 0:" in proc.stdout and "test: mrr=" in proc.stdout
+    out = run_cli([
+        "-c", os.path.join(ROOT, "grid", "icews14", "config_bigrrgcn.json"),
+        "--post-ensemble", "--device", "cpu", "--fast-dev-run", "--data-root",
+        root, "--dataset", "tiny", "--edge-pad-multiple", "16", "--embed-size",
+        "16", "--hidden-size", "16", "--n-bases", "16", "--train-seq-len", "3",
+        "--batch-size", "2", "--experiments-dir", str(tmp_path / "runs"),
+        "--model-name", "ted",
+    ], capsys)
+    assert "module=BiGRRGCN" in out
+    assert "epoch 0:" in out and "test: mrr=" in out
     ckpt = torch.load(tmp_path / "runs" / "ted" / "checkpoints" / "best.pt",
                       weights_only=True)
     gates = ckpt["params"]["gates"]

@@ -23,8 +23,6 @@ order); eval ranks equal and MRR within 1e-6.
 """
 
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -62,7 +60,9 @@ from temp_tpu_torch.train.optim import make_optimizer, param_leaves
 from test_torch_post import _open as open_impute
 from test_torch_post import _xla_unoptimized, jax_draws_scan
 from test_torch_slice import one_thread  # noqa: F401
-from test_torch_train import _close, _pairs, _torch_params, _write_dataset
+from test_torch_train import (
+    _close, _pairs, _torch_params, _write_dataset, run_cli,
+)
 
 # the port's side on one intra-op thread (``one_thread``)
 pytestmark = pytest.mark.usefixtures("one_thread")
@@ -546,36 +546,40 @@ def test_registry_dispatches_the_new_models_and_refuses_the_rest():
     for flags, cls, _ in VARIANTS.values():
         assert type(get_model(TKGConfig(**KW, **flags), data,
                               device="cpu")) is cls
+    # the other decoders, the baselines and TimeDynamicRGCN build since
+    for flags, name in (({"module": "SRGCN", "score_function": "distmult"},
+                         "StaticRGCNModel"),
+                        ({"module": "DE"}, "DiachronicEmbeddingModel"),
+                        ({"module": "TimeDynamicRGCN"},
+                         "TimeDynamicRGCNModel")):
+        m = get_model(TKGConfig(**KW, **flags), data, device="cpu")
+        assert type(m).__name__ == name, flags
+        m.init_params(0)
     for flags in ({"module": "RRGCN", "impute": True},
                   {"module": "BiRRGCN", "post_ensemble": True},
                   {"module": "RRGCN", "edge_partition": "ring",
                    "mp_size": 4},
                   {**GRU, "type1": True, "edge_partition": "psum",
                    "mp_size": 2},
-                  {"module": "SRGCN", "score_function": "distmult"},
-                  {"module": "DE"}, {"module": "TimeDynamicRGCN"}):
+                  {**GRU, "score_function": "transE",
+                   "edge_partition": "psum", "mp_size": 2}):
         with pytest.raises(NotImplementedError):
             get_model(TKGConfig(**KW, **flags), data,
                       device="cpu").init_params(0)
 
 
-def test_main_cli_trains_rrgcn_on_cpu(tmp_path):
+def test_main_cli_trains_rrgcn_on_cpu(tmp_path, capsys, one_thread):
     root = _write_dataset(tmp_path / "data")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["CUDA_VISIBLE_DEVICES"] = ""
-    env["OMP_NUM_THREADS"] = "1"
-    proc = subprocess.run(
-        [sys.executable, "-m", "temp_tpu_torch.main", "-c",
-         os.path.join(ROOT, "grid", "icews14", "config_rrgcn.json"),
-         "--device", "cpu", "--fast-dev-run", "--data-root", root,
-         "--dataset", "tiny", "--edge-pad-multiple", "16", "--embed-size",
-         "16", "--hidden-size", "16", "--n-bases", "16", "--train-seq-len",
-         "3", "--batch-size", "2", "--experiments-dir",
-         str(tmp_path / "runs"), "--model-name", "rr"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "module=RRGCN" in proc.stdout
-    assert "epoch 0:" in proc.stdout and "test: mrr=" in proc.stdout
+    out = run_cli([
+        "-c", os.path.join(ROOT, "grid", "icews14", "config_rrgcn.json"),
+        "--device", "cpu", "--fast-dev-run", "--data-root", root, "--dataset",
+        "tiny", "--edge-pad-multiple", "16", "--embed-size", "16",
+        "--hidden-size", "16", "--n-bases", "16", "--train-seq-len", "3",
+        "--batch-size", "2", "--experiments-dir", str(tmp_path / "runs"),
+        "--model-name", "rr",
+    ], capsys)
+    assert "module=RRGCN" in out
+    assert "epoch 0:" in out and "test: mrr=" in out
     ckpt = torch.load(tmp_path / "runs" / "rr" / "checkpoints" / "best.pt",
                       weights_only=True)
     assert tuple(ckpt["params"]["encoder"]["layer2"]["time_weight"].shape) \

@@ -19,8 +19,6 @@ paths agree to about 1e-6, far from any rank-changing gap at these seeds).
 
 import dataclasses
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -59,6 +57,7 @@ from temp_tpu_torch.parallel.ring_spmm import (
 )
 from temp_tpu_torch.train.loop import Trainer
 from test_torch_slice import one_thread  # noqa: F401
+from test_torch_train import run_cli
 from temp_tpu_torch.train.optim import param_leaves
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -740,25 +739,19 @@ def _write_dataset(root, num_ents=300, num_rels=4, num_times=8, n=400):
     return str(root)
 
 
-def test_main_cli_ring_pallas_on_cpu(tmp_path):
+def test_main_cli_ring_pallas_on_cpu(tmp_path, capsys, one_thread):
     root = _write_dataset(tmp_path / "data")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["CUDA_VISIBLE_DEVICES"] = ""
-    # one intra-op thread, as ``one_thread`` gives the tests in process
-    env["OMP_NUM_THREADS"] = "1"
-    proc = subprocess.run(
-        [sys.executable, "-m", "temp_tpu_torch.main", "-c",
-         os.path.join(ROOT, "grid", "icews14", "config_grrgcn.json"),
-         "--device", "cpu", "--fast-dev-run", "--data-root", root,
-         "--dataset", "tiny", "--edge-pad-multiple", "16",
-         "--embed-size", "16", "--hidden-size", "16", "--n-bases", "16",
-         "--train-seq-len", "3", "--batch-size", "2",
-         "--edge-partition", "ring_pallas", "--mp-size", "4",
-         "--experiments-dir", str(tmp_path / "runs"), "--model-name", "cli"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "mesh: 4 ranks on cpu" in proc.stdout
-    assert "epoch 0:" in proc.stdout and "test: mrr=" in proc.stdout
+    out = run_cli([
+        "-c", os.path.join(ROOT, "grid", "icews14", "config_grrgcn.json"),
+        "--device", "cpu", "--fast-dev-run", "--data-root", root, "--dataset",
+        "tiny", "--edge-pad-multiple", "16", "--embed-size", "16",
+        "--hidden-size", "16", "--n-bases", "16", "--train-seq-len", "3",
+        "--batch-size", "2", "--edge-partition", "ring_pallas", "--mp-size",
+        "4", "--experiments-dir", str(tmp_path / "runs"), "--model-name",
+        "cli",
+    ], capsys)
+    assert "mesh: 4 ranks on cpu" in out
+    assert "epoch 0:" in out and "test: mrr=" in out
 
 
 # -- what stays unported ----------------------------------------------------

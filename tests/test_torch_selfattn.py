@@ -22,8 +22,6 @@ in another order); eval ranks equal and MRR within 1e-6.
 """
 
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -60,7 +58,9 @@ from temp_tpu_torch.train.loop import Trainer
 from temp_tpu_torch.train.optim import make_optimizer, param_leaves
 from test_torch_post import _xla_unoptimized
 from test_torch_slice import one_thread  # noqa: F401
-from test_torch_train import _close, _pairs, _torch_params, _write_dataset
+from test_torch_train import (
+    _close, _pairs, _torch_params, _write_dataset, run_cli,
+)
 
 # the port's side on one intra-op thread: its many tiny ops otherwise wait
 # on the other test workers' threads (``one_thread``)
@@ -436,35 +436,34 @@ def test_registry_selects_the_attention_models():
                        ({"module": "GRRGCN", "learnable_lambda": True},
                         DynamicRGCNModel),
                        ({"module": "GRRGCN", "use_time_embedding": True},
-                        DynamicRGCNModel)):
+                        DynamicRGCNModel),
+                       ({**SA, "score_function": "distmult"},
+                        SelfAttentionRGCNModel),
+                       ({**SA, "negative_pool": "per_query"},
+                        SelfAttentionRGCNModel)):
         m = get_model(TKGConfig(**KW, **flags), data, device="cpu")
         assert type(m) is cls, flags
         m.init_params(0)
     for flags in ({**SA, "edge_partition": "psum", "mp_size": 2},
-                  {**SA, "score_function": "distmult"},
-                  {**SA, "negative_pool": "per_query"}):
+                  {"module": "GRRGCN", "negative_pool": "per_query",
+                   "edge_partition": "psum", "mp_size": 2}):
         with pytest.raises(NotImplementedError):
             get_model(TKGConfig(**KW, **flags), data,
                       device="cpu").init_params(0)
 
 
-def test_main_cli_trains_sargcn_on_cpu(tmp_path):
+def test_main_cli_trains_sargcn_on_cpu(tmp_path, capsys, one_thread):
     root = _write_dataset(tmp_path / "data")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["CUDA_VISIBLE_DEVICES"] = ""
-    env["OMP_NUM_THREADS"] = "1"
-    proc = subprocess.run(
-        [sys.executable, "-m", "temp_tpu_torch.main", "-c",
-         os.path.join(ROOT, "grid", "icews14", "config_sargcn.json"),
-         "--device", "cpu", "--fast-dev-run", "--data-root", root,
-         "--dataset", "tiny", "--edge-pad-multiple", "16", "--embed-size",
-         "16", "--hidden-size", "16", "--n-bases", "16", "--train-seq-len",
-         "3", "--batch-size", "2", "--experiments-dir",
-         str(tmp_path / "runs"), "--model-name", "sa"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "module=SARGCN" in proc.stdout
-    assert "epoch 0:" in proc.stdout and "test: mrr=" in proc.stdout
+    out = run_cli([
+        "-c", os.path.join(ROOT, "grid", "icews14", "config_sargcn.json"),
+        "--device", "cpu", "--fast-dev-run", "--data-root", root, "--dataset",
+        "tiny", "--edge-pad-multiple", "16", "--embed-size", "16",
+        "--hidden-size", "16", "--n-bases", "16", "--train-seq-len", "3",
+        "--batch-size", "2", "--experiments-dir", str(tmp_path / "runs"),
+        "--model-name", "sa",
+    ], capsys)
+    assert "module=SARGCN" in out
+    assert "epoch 0:" in out and "test: mrr=" in out
     ckpt = torch.load(tmp_path / "runs" / "sa" / "checkpoints" / "best.pt",
                       weights_only=True)
     assert tuple(ckpt["params"]["encoder"]["layer2"]["q_linear"].shape) == (

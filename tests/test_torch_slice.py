@@ -102,18 +102,27 @@ def test_seeded_init_is_deterministic_and_shaped_like_reference(reference):
 
 def test_unported_configs_raise():
     data = make_synthetic(**DATA)
-    # ported since: the linear-recurrence and static models and the
-    # recurrent options build and initialize
+    # ported since: the linear-recurrence and static models, the
+    # recurrent options, the other decoders and pools, the baselines,
+    # TimeDynamicRGCN and the Aggregator build and initialize
     for kw, name in (({"module": "RRGCN"}, "DynamicRGCNModel"),
                      ({"module": "SRGCN"}, "StaticRGCNModel"),
                      ({"use_time_embedding": True}, "DynamicRGCNModel"),
                      ({"edge_dropout": True}, "DynamicRGCNModel"),
-                     ({"rec_only_last_layer": True}, "DynamicRGCNModel")):
+                     ({"rec_only_last_layer": True}, "DynamicRGCNModel"),
+                     ({"score_function": "distmult"}, "DynamicRGCNModel"),
+                     ({"negative_pool": "shared"}, "DynamicRGCNModel"),
+                     ({"module": "DE"}, "DiachronicEmbeddingModel"),
+                     ({"module": "TimeDynamicRGCN"}, "TimeDynamicRGCNModel"),
+                     ({"module": "Aggregator"}, "AggregatorModel")):
         model = get_model(TKGConfig(**{**KW, **kw}), data, device="cpu")
         assert type(model).__name__ == name, kw
         model.init_params(0)
-    for kw in ({"score_function": "distmult"}, {"negative_pool": "shared"},
-               {"module": "DE"}, {"module": "TimeDynamicRGCN"},
+    for kw in ({"score_function": "distmult", "edge_partition": "psum",
+                "mp_size": 2},
+               {"negative_pool": "shared", "edge_partition": "ring",
+                "mp_size": 2},
+               {"module": "DE", "edge_partition": "psum", "mp_size": 2},
                {"module": "RRGCN", "edge_partition": "psum", "mp_size": 2},
                {"module": "RRGCN", "impute": True}):
         with pytest.raises(NotImplementedError):
@@ -215,6 +224,10 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
                variants=chip_smoke.phase_variants(ctx))
     res.update(chip_smoke.sa_phases(ctx, train_steps=2))
     res.update(chip_smoke.rec_phases(ctx, train_steps=2))
+    res.update(chip_smoke.tdyn_phases(ctx, train_steps=2))
+    res["zoo_variants"] = chip_smoke.phase_zoo_variants(ctx)
+    res.update(chip_smoke.baseline_phases(ctx, train_steps=2))
+    res.update(chip_smoke.agg_phases(ctx))
     rctx = chip_smoke.phase_setup_ring(ctx)
     assert rctx["mesh"].placement() == "4 ranks on cpu"
     res.update(k13=chip_smoke.phase_k13(rctx),
@@ -474,6 +487,59 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     assert drop == {"grrgcn_edge_dropout", "bigrrgcn_impute_edge_dropout"}
     assert all(rv[t]["drop_rates_s"] > 0 for t in drop)
     assert {f"{t}_{p}" for t in rv for p in ("train", "eval")} <= paths
+    # TimeDynamicRGCN: its steps and sweep, kernels against plain, and the
+    # launches the card must show (L1 = 3, batch 3 here)
+    tt, tp = res["tdyn_train"], res["tdyn_path"]
+    assert len(tt["kernels"]["losses"]) == 2
+    assert tt["kernels"]["losses"][0] == tt["plain"]["losses"][0]
+    assert tt["max_rel_gap"] <= chip_smoke.TRAIN_TOL
+    assert tp["kernels"]["mrr"] == tp["plain"]["mrr"] > 0
+    assert tp["same_rank_share"] == 1.0
+    assert chip_smoke.tdyn_launches({"L1": 3, "cfg": ctx["cfg"]}, 2, 4) == {
+        "train": {"spmm_fwd": 12, "spmm_bwd": 12, "fused_window_fwd": 12,
+                  "fused_window_bwd": 34},
+        "eval": {"spmm_fwd": 4 * 2 * ctx["cfg"].eval_batch,
+                 "fused_window_fwd": 24}}
+    # the other decoders and pools on their models, kernels against plain
+    zv = res["zoo_variants"]
+    assert {t: r["model"] for t, r in zv.items()} == {
+        "grrgcn_distmult": "DynamicRGCNModel",
+        "grrgcn_transe": "DynamicRGCNModel",
+        "grrgcn_shared": "DynamicRGCNModel",
+        "grrgcn_per_query": "DynamicRGCNModel",
+        "bigrrgcn_impute_transe_per_query": "PostBiDynamicRGCNModel",
+        "grrgcn_ted_transe_shared": "PostDynamicRGCNModel",
+        "sargcn_distmult": "SelfAttentionRGCNModel"}
+    for r in zv.values():
+        assert r["eval"]["mrr_kernels"] == r["eval"]["mrr_plain"] > 0
+        assert r["eval"]["same_rank_share"] == 1.0
+        assert len(r["train"]["kernels"]["losses"]) == 2
+        assert r["train"]["kernels"]["losses"][0] == r["train"]["plain"][
+            "losses"][0]
+        assert r["train"]["max_rel_gap"] <= chip_smoke.TRAIN_TOL
+    # the baselines: the "card" and the CPU are one device here
+    bl = res["baselines"]
+    assert {m: r["model"] for m, r in bl.items()} == {
+        "Static": "StaticModel", "DE": "DiachronicEmbeddingModel",
+        "ATiSE": "AtiSEModel", "Hyte": "HyteModel",
+        "SimplE": "SimplEModel"}
+    assert bl["Hyte"]["score_function"] == "transE"
+    for m, r in bl.items():
+        assert r["cpu_steps"] == 2 and r["max_rel_gap"] == 0.0
+        assert r["cpu_losses"] == r["train"]["losses"]
+        assert r["params"]["max_rel_gaps"] == {"card/cpu": 0.0}
+        assert 0.0 < r["eval"]["mrr"] <= 1.0 and r["eval"]["n"] > 0
+        assert not any(r["train"]["launches"].values())
+        assert {f"{m}_train", f"{m}_eval"} <= paths
+    assert bl["SimplE"]["eval"]["loss"] == 0.0
+    # the Aggregator: its gates trained, its submodels as loaded
+    at, ap = res["agg_train"], res["agg_path"]
+    assert at["gate_leaves"] == at["gate_leaves_moved"] == 8
+    assert at["max_rel_gap"] <= chip_smoke.TRAIN_TOL
+    assert ap["rank_diffs"] == 0 and ap["n"] > 0
+    assert ap["mrr_kernels"] == ap["mrr_plain"] > 0
+    assert {"agg_train", "agg_eval", "tdyn_train", "tdyn_eval",
+            "grrgcn_transe_train", "Hyte_eval"} <= paths
 
 
 @pytest.mark.parametrize("alone", [False, True])
