@@ -3022,6 +3022,10 @@ def _paths(res: dict) -> dict:
         out[f"{module}_eval"] = r["eval"]["launches"]
     out["agg_train"] = res["agg_train"]["kernels"]["launches"]
     out["agg_eval"] = res["agg_path"]["launches"]
+    # fit's training steps and valid sweeps (per call), the predictions CLI
+    out["fit_train"] = res["preempt"]["launches_a_step"]
+    out["fit_eval"] = res["preempt"]["launches_a_sweep"]
+    out["predictions_eval"] = res["predictions"]["kernels"]["launches"]
     return out
 
 
@@ -3667,6 +3671,558 @@ def agg_phases(ctx) -> dict:
     return res
 
 
+# -- the run around the model: data build, preemption, predictions, traces --
+
+_FIT_TRAIN = ("fused_window_fwd", "fused_window_bwd", "fused_final_fwd",
+              "fused_final_bwd_loss", "fused_final_bwd_layer")
+_NOT_FIT_TRAIN = ("spmm_fwd", "spmm_bwd") + _NOT_UNFUSED[3:]
+_SWEEP = ("spmm_fwd", "fused_window_fwd")
+_NOT_SWEEP = _NOT_UNFUSED + ("spmm_bwd", "fused_window_bwd")
+PREEMPT_EPOCHS = 3
+CLI_EPOCHS = 8
+CLI_TIMEOUT_S = 240
+PARSE_LINES = 1_734_399  # GDELT's train facts
+
+
+def write_dataset(root: str, name: str, quads, num_ents: int,
+                  num_rels: int) -> str:
+    """(train, valid, test) quadruples as a dataset directory in the
+    standard text layout, <root>/interpolation/<name>; returns root."""
+    import numpy as np
+
+    path = os.path.join(root, "interpolation", name)
+    os.makedirs(path)
+    for split, q in zip(("train", "valid", "test"), quads):
+        np.savetxt(os.path.join(path, f"{split}.txt"), q, fmt="%d",
+                   delimiter="\t")
+    times = len(np.unique(np.concatenate(quads)[:, 3]))
+    with open(os.path.join(path, "stat.txt"), "w") as f:
+        f.write(f"{num_ents}\t{num_rels}\t{times}\n")
+    return root
+
+
+def _arrays_equal(a, b, tag: str) -> None:
+    """Every array of two TKGData (``_to_npz``) equal, dtypes included."""
+    import numpy as np
+
+    from temp_tpu_torch.data.snapshots import _to_npz
+
+    x, y = _to_npz(a), _to_npz(b)
+    bad = [k for k in x if not (x[k].dtype == y[k].dtype
+                                and np.array_equal(x[k], y[k]))]
+    if x.keys() != y.keys() or bad:
+        raise AssertionError(f"{tag}: arrays differ: {bad}")
+
+
+def phase_data_native(ctx, tmp: str) -> dict:
+    """The smoke's dataset (make_synthetic's quadruples at ctx's sizes)
+    written as text, then ``build_tkg_data(cache=False)`` through the
+    native packer and through numpy: every array equal (and equal to the
+    smoke's own data), the native path taken. Also the parse of train.txt
+    alone, native against ``np.loadtxt``, at this size and at GDELT's
+    (ctx "parse_lines", default PARSE_LINES). Keeps the dataset's root and
+    config in ctx ("text_cfg")."""
+    import numpy as np
+
+    from temp_tpu_torch.data import native
+    from temp_tpu_torch.data.snapshots import build_tkg_data, synthetic_quads
+
+    kw = ctx["setup_kw"]
+    sizes = [kw[k] for k in ("num_ents", "num_rels", "num_times",
+                             "edges_per_time", "seed")]
+    quads = synthetic_quads(*sizes)
+    t0 = time.perf_counter()
+    root = write_dataset(os.path.join(tmp, "data"), "synthetic", quads,
+                         sizes[0], sizes[1])
+    write_s = time.perf_counter() - t0
+    cfg = ctx["cfg"].replace(data_root=root, dataset="synthetic",
+                             dataset_dir="interpolation")
+    ctx["text_cfg"] = cfg
+    native.reset()
+    t0 = time.perf_counter()
+    fast = build_tkg_data(cfg, cache=False)
+    native_s = time.perf_counter() - t0
+    if not native.used():
+        raise AssertionError("data_native: the native packer did not run")
+    with native.disabled():
+        native.reset()
+        t0 = time.perf_counter()
+        slow = build_tkg_data(cfg, cache=False)
+        numpy_s = time.perf_counter() - t0
+        if native.used():
+            raise AssertionError("data_native: native ran while disabled")
+    _arrays_equal(fast, slow, "data_native native/numpy")
+    _arrays_equal(fast, ctx["data"], "data_native text/make_synthetic")
+    train = os.path.join(cfg.dataset_path, "train.txt")
+    t0 = time.perf_counter()
+    parsed = native.parse_quads(train)
+    parse_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = np.loadtxt(train, dtype=np.int64, ndmin=2)
+    parse_loadtxt_s = time.perf_counter() - t0
+    if not np.array_equal(parsed, ref):
+        raise AssertionError("data_native: parse_quads != np.loadtxt")
+    # and at GDELT's size (PARSE_LINES train facts: 500 entities, 20
+    # relations, 366 times)
+    lines = ctx.get("parse_lines", PARSE_LINES)
+    big = synthetic_quads(500, 20, 366, -(-lines // 366), seed=2)[0][:lines]
+    path = os.path.join(tmp, "gdelt_train.txt")
+    np.savetxt(path, big, fmt="%d", delimiter="\t")
+    t0 = time.perf_counter()
+    parsed = native.parse_quads(path)
+    big_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = np.loadtxt(path, dtype=np.int64, ndmin=2)
+    big_loadtxt_s = time.perf_counter() - t0
+    os.unlink(path)
+    if not (np.array_equal(parsed, ref) and np.array_equal(parsed, big)):
+        raise AssertionError("data_native: the GDELT-sized parse differs")
+    return {"facts": int(sum(len(q) for q in quads)), "write_s": write_s,
+            "build_native_s": native_s, "build_numpy_s": numpy_s,
+            "build_speedup": numpy_s / native_s,
+            "parse_native_s": parse_native_s,
+            "parse_loadtxt_s": parse_loadtxt_s,
+            "parse_speedup": parse_loadtxt_s / parse_native_s,
+            "gdelt_lines": lines, "gdelt_parse_native_s": big_native_s,
+            "gdelt_parse_loadtxt_s": big_loadtxt_s,
+            "gdelt_parse_speedup": big_loadtxt_s / big_native_s}
+
+
+def _count_calls(tr, out: dict) -> None:
+    """Wrap the trainer's train_step and run_eval, so that each call
+    appends its launch counts to out["steps"] or out["sweeps"], and
+    save_last, so that its wall seconds go to out["save_last_s"]."""
+    import torch
+
+    def counted(fn, key):
+        def call(*a, **k):
+            before = _counts()
+            res = fn(*a, **k)
+            after = _counts()
+            out.setdefault(key, []).append(
+                {n: after[n] - before[n] for n in after})
+            return res
+        return call
+
+    def timed_save(*a, **k):
+        if tr.device.type == "cuda":
+            torch.cuda.synchronize(tr.device)
+        t0 = time.perf_counter()
+        tr_save(*a, **k)
+        out.setdefault("save_last_s", []).append(time.perf_counter() - t0)
+
+    tr_save = tr.save_last
+    tr.train_step = counted(tr.train_step, "steps")
+    tr.run_eval = counted(tr.run_eval, "sweeps")
+    tr.save_last = timed_save
+
+
+def _tb_events(run_dir: str) -> list:
+    """Every scalar event under <run_dir>/tb, files in name order."""
+    import glob
+
+    from temp_tpu_torch.utils.tbevents import read_scalars
+
+    return [e for f in sorted(glob.glob(os.path.join(
+        run_dir, "tb", "events.out.tfevents.*"))) for e in read_scalars(f)]
+
+
+def _state_equal(a: dict, b: dict) -> bool:
+    """Two fits' parameters and Adam states equal bit for bit."""
+    import torch
+
+    from temp_tpu_torch.train.optim import param_leaves
+
+    pa, pb = param_leaves(a["params"]), param_leaves(b["params"])
+    sa = [t for st in a["optimizer"].state_dict()["state"].values()
+          for t in st.values()]
+    sb = [t for st in b["optimizer"].state_dict()["state"].values()
+          for t in st.values()]
+    return (len(pa) == len(pb) and len(sa) == len(sb) > 0
+            and all(torch.equal(x.detach(), y.detach())
+                    for x, y in zip(pa, pb))
+            and all(torch.equal(x, y) for x, y in zip(sa, sb)))
+
+
+def phase_preempt(ctx, tmp: str) -> dict:
+    """GRRGCN at ctx's config with debug on (about a tenth of an epoch's
+    batches, then the valid sweep): an uninterrupted PREEMPT_EPOCHS-epoch
+    ``fit``; a fit that sends itself SIGTERM after epoch 0's line, stops
+    there with last.pt and restores the signal handlers; ``load_last`` and
+    the resumed fit. The resumed run's parameters, Adam state, best MRR and
+    epoch and the replayed epochs' val MRR equal the uninterrupted run's
+    bit for bit; last.pt gone at the end; each run's tb events hold the
+    8 tags of every epoch; every training step launches K2f, K2b and K3-K5
+    (no K1, none of K6-K13), every sweep K1f and K2f (none of K1b, K2b,
+    K3-K13). Also save_last's wall and the tb writes' wall an epoch."""
+    import torch
+
+    from temp_tpu_torch.models.registry import get_model
+    from temp_tpu_torch.train.loop import Trainer
+    from temp_tpu_torch.utils import tbevents
+
+    dev, data = ctx["device"], ctx["data"]
+    cfg = ctx["cfg"].replace(debug=True, patience=50)
+    tb_s = []
+    add = tbevents.EventWriter.add_scalars
+
+    def timed_add(self, *a, **k):
+        t0 = time.perf_counter()
+        add(self, *a, **k)
+        tb_s.append(time.perf_counter() - t0)
+
+    def trainer(run):
+        tr = Trainer(cfg, get_model(cfg, data, device=dev), data,
+                     run_dir=os.path.join(tmp, run))
+        calls = {}
+        _count_calls(tr, calls)
+        return tr, calls
+
+    handlers = {s: signal.getsignal(s)
+                for s in (signal.SIGTERM, signal.SIGUSR1)}
+    tbevents.EventWriter.add_scalars = timed_add
+    try:
+        t0 = time.perf_counter()
+        tr_a, calls_a = trainer("control")
+        out_a = tr_a.fit(max_epochs=PREEMPT_EPOCHS, log_fn=lambda *_: None)
+        control_s = time.perf_counter() - t0
+        tr_b, calls_b = trainer("stopped")
+
+        def stop_after_epoch0(msg):
+            if msg.startswith("epoch 0:"):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        out_b = tr_b.fit(max_epochs=PREEMPT_EPOCHS, log_fn=stop_after_epoch0)
+        restored = all(signal.getsignal(s) is h for s, h in handlers.items())
+        last_after_stop = os.path.exists(tr_b.last_ckpt_path())
+        t0 = time.perf_counter()
+        tr_c, calls_c = trainer("stopped")
+        params, optimizer, start, best = tr_c.load_last()
+        load_last_s = time.perf_counter() - t0
+        out_c = tr_c.fit(params, optimizer, max_epochs=PREEMPT_EPOCHS,
+                         start_epoch=start, best=best,
+                         log_fn=lambda *_: None)
+    finally:
+        tbevents.EventWriter.add_scalars = add
+    if not (out_b["preempted"] and out_b["last_epoch"] == 0
+            and last_after_stop and start == 1 and restored):
+        raise AssertionError(
+            f"preempt: the stop: preempted {out_b['preempted']} at "
+            f"{out_b['last_epoch']}, last.pt {last_after_stop}, resume at "
+            f"{start}, handlers restored {restored}")
+    if out_a["preempted"] or out_c["preempted"] or os.path.exists(
+            tr_c.last_ckpt_path()):
+        raise AssertionError("preempt: a finished run was preempted or "
+                             "left last.pt")
+    hist_a = {r["epoch"]: r["val"]["mrr"] for r in out_a["history"]}
+    hist_c = {r["epoch"]: r["val"]["mrr"] for r in out_c["history"]}
+    replay = {e: (hist_a[e], hist_c.get(e)) for e in range(1, PREEMPT_EPOCHS)}
+    bitwise = (_state_equal(out_a, out_c)
+               and (out_a["best_mrr"], out_a["best_epoch"])
+               == (out_c["best_mrr"], out_c["best_epoch"])
+               and all(a == c for a, c in replay.values()))
+    if not bitwise:
+        raise AssertionError(f"preempt: the resumed run differs from the "
+                             f"uninterrupted one (val mrr {replay}, best "
+                             f"{out_a['best_mrr']}@{out_a['best_epoch']} / "
+                             f"{out_c['best_mrr']}@{out_c['best_epoch']})")
+    tags = {"train/loss", "val/mrr", "val/hit_1", "val/hit_3", "val/hit_10",
+            "val/loss", "time/train_s", "time/eval_s"}
+    for run, want in (("control", list(range(PREEMPT_EPOCHS))),
+                      ("stopped", list(range(PREEMPT_EPOCHS)))):
+        events = _tb_events(os.path.join(tmp, run))
+        if [e[0] for e in events] != want or any(set(s) != tags
+                                                 for _, s in events):
+            raise AssertionError(f"preempt: tb events of {run}: "
+                                 f"{[(e[0], sorted(e[1])) for e in events]}")
+    steps = calls_a["steps"] + calls_b["steps"] + calls_c["steps"]
+    sweeps = calls_a["sweeps"] + calls_b["sweeps"] + calls_c["sweeps"]
+    for i, n in enumerate(steps):
+        _unfused_launches_ok(dev, n, _FIT_TRAIN, f"preempt step {i}",
+                             _NOT_FIT_TRAIN)
+    for i, n in enumerate(sweeps):
+        _unfused_launches_ok(dev, n, _SWEEP, f"preempt sweep {i}",
+                             _NOT_SWEEP)
+    if dev.type != "cuda" and any(v for n in steps + sweeps
+                                  for v in n.values()):
+        raise AssertionError("preempt: kernels launched off the card")
+    return {"epochs": PREEMPT_EPOCHS, "steps_an_epoch": len(calls_a["steps"])
+            // PREEMPT_EPOCHS, "control_s": control_s,
+            "val_mrr": [hist_a[e] for e in sorted(hist_a)],
+            "bitwise": bitwise, "handlers_restored": restored,
+            "save_last_s": calls_b["save_last_s"][0],
+            "load_last_s": load_last_s,
+            "tb_write_s_an_epoch": sum(tb_s) / len(tb_s),
+            "tb_writes": len(tb_s),
+            "launches_a_step": steps[0], "launches_a_sweep": sweeps[0]}
+
+
+def _cli_flags(ctx) -> list:
+    """ctx's config overrides (phase_setup's keywords beyond the data
+    sizes) as training CLI flags."""
+    from temp_tpu_torch.config import TKGConfig
+
+    switches = {f.name for f in dataclasses.fields(TKGConfig)
+                if isinstance(f.default, bool)}
+    flags = []
+    for k, v in ctx["setup_kw"].items():
+        name = k.replace("_", "-")
+        if k in ("num_ents", "num_rels", "num_times", "edges_per_time",
+                 "seed"):
+            continue
+        if k in switches:
+            flags.append(f"--{name}" if v else f"--no-{name}")
+        else:
+            flags += [f"--{name}", str(v)]
+    return flags
+
+
+def phase_preempt_cli(ctx, tmp: str) -> dict:
+    """``python -m temp_tpu_torch.main`` (GRRGCN, --debug, CLI_EPOCHS
+    epochs) on a small text dataset, in a subprocess on ctx's device:
+    SIGTERM after its first metrics.jsonl line -> exit 75 with last.pt and
+    no test evaluation; the rerun with --resume exits 0, names the epoch it
+    resumed at, evaluates the test split and leaves no last.pt."""
+    from temp_tpu_torch.data.snapshots import synthetic_quads
+
+    kw = ctx["setup_kw"]
+    n_ents, n_rels = min(kw["num_ents"], 600), min(kw["num_rels"], 24)
+    quads = synthetic_quads(n_ents, n_rels, min(kw["num_times"], 48),
+                            min(kw["edges_per_time"], 60), seed=1)
+    root = write_dataset(os.path.join(tmp, "cli_data"), "cli", quads,
+                         n_ents, n_rels)
+    runs = os.path.join(tmp, "cli_runs")
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = [sys.executable, "-m", "temp_tpu_torch.main", "-c",
+            os.path.join(here, "grid", "icews14", "config_grrgcn.json"),
+            "--device", ctx["device"].type, "--data-root", root,
+            "--dataset", "cli", "--debug", "--patience", "50",
+            "--max-nb-epochs", str(CLI_EPOCHS), "--experiments-dir", runs,
+            "--model-name", "preempt", *_cli_flags(ctx)]
+    env = dict(os.environ)
+    if ctx["device"].type == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    run = os.path.join(runs, "preempt")
+    metrics = os.path.join(run, "metrics.jsonl")
+    last = os.path.join(run, "checkpoints", "last.pt")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(args, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        while time.perf_counter() - t0 < CLI_TIMEOUT_S:
+            if os.path.exists(metrics) and open(metrics).read().count("\n"):
+                break
+            if proc.poll() is not None:
+                raise AssertionError(f"preempt_cli: the run ended before "
+                                     f"its first epoch:\n{proc.stdout.read()}")
+            time.sleep(0.02)
+        first_epoch_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stopped_s = time.perf_counter() - t0
+    done = open(metrics).read().count("\n")
+    if not (proc.returncode == 75 and "preempted at epoch" in out
+            and "test: mrr=" not in out and os.path.exists(last)
+            and done < CLI_EPOCHS):
+        raise AssertionError(f"preempt_cli: exit {proc.returncode}, last.pt "
+                             f"{os.path.exists(last)}, {done} epochs:\n"
+                             f"{out[-3000:]}")
+    t0 = time.perf_counter()
+    res = subprocess.run(args + ["--resume"], cwd=here, env=env,
+                         capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    resumed_s = time.perf_counter() - t0
+    epochs = [json.loads(x)["epoch"] for x in
+              open(metrics).read().splitlines()]
+    if not (res.returncode == 0
+            and f"resumed preempted run at epoch {done}" in res.stdout
+            and "test: mrr=" in res.stdout and not os.path.exists(last)
+            and epochs == list(range(CLI_EPOCHS))):
+        raise AssertionError(f"preempt_cli: the resumed run: exit "
+                             f"{res.returncode}, epochs {epochs}, last.pt "
+                             f"{os.path.exists(last)}:\n"
+                             f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+    return {"stopped_exit": 75, "stopped_after_epochs": done,
+            "resumed_exit": 0, "first_epoch_s": first_epoch_s,
+            "stopped_s": stopped_s, "resumed_s": resumed_s,
+            "facts": int(sum(len(q) for q in quads))}
+
+
+def _element_near_ties(model, params, data, t: int, split: str):
+    """[2Q] bool in the [head, tail] layout: the queries of `split` at time
+    position t whose plain scores (``model.forward_element``, eval mode)
+    hold a column other than the target, not a true answer, within
+    SCALED_TOL of the row's largest |score| of the target's (``_tied``)."""
+    import torch
+
+    from temp_tpu_torch.ops.membership import true_answer_mask
+
+    edges, r2 = getattr(data, split), 2 * data.num_rels
+    src, rel, dst = (x[t].long() for x in (edges.src, edges.rel, edges.dst))
+    with torch.no_grad():
+        table = model.forward_element(params, data, t)
+        r_emb = params["rel_embeds"][rel]
+        return torch.cat([
+            _tied(model.score_all(table[ent], r_emb, table, direction),
+                  target, true_answer_mask(tab.grp[t], tab.val[t], key,
+                                           data.num_ents))
+            for direction, ent, target, tab, key in (
+                ("head", dst, src, data.total_head, dst * r2 + rel),
+                ("tail", src, dst, data.total_tail, src * r2 + rel))])
+
+
+def phase_predictions(ctx, tmp: str) -> dict:
+    """The smoke's seeded GRRGCN written as a port run (config.json on the
+    text dataset of data_native, checkpoints/best.pt), then
+    ``temp_tpu_torch.test`` in process on the valid split with the kernels
+    and with kernels=False: the kernel run's pickle is the records of the
+    path phase's sweep (the same weights and data) element for element, 2
+    records a fact; the plain run's ranks equal but for the plain scores'
+    counted near-ties; K1f and K2f launched, none of the others; the wall
+    and queries/s of each."""
+    import numpy as np
+
+    from temp_tpu_torch.models.registry import get_model
+    from temp_tpu_torch.test import prediction_records, predict
+    from temp_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg, dev = ctx["text_cfg"], ctx["device"]
+    run = os.path.join(tmp, "predictions")
+    os.makedirs(run)
+    with open(os.path.join(run, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    save_checkpoint(os.path.join(run, "checkpoints", "best.pt"),
+                    ctx["params"], None, 0, {"mrr": 0.0})
+    res, out = {}, {}
+    for name, over in (("kernels", {}), ("plain", {"kernels": False})):
+        _reset_counts()
+        t0 = time.perf_counter()
+        m, records, ranks, mask = predict(run, "valid", device=dev.type,
+                                          log_fn=lambda *_: None, **over)
+        wall = time.perf_counter() - t0
+        res[name] = {"wall_s": wall, "sweep_s": m["n"] / m["queries_per_s"],
+                     "queries_per_s": m["queries_per_s"], "mrr": m["mrr"],
+                     "n": m["n"], "records": len(records),
+                     "launches": _counts()}
+        out[name] = (records, ranks, mask)
+    (rec_k, rk, mk), (rec_p, rp, mp) = out["kernels"], out["plain"]
+    data = ctx["data"]
+    n_facts = int(data.valid.emask.sum())
+    path_ranks = ctx["path_runs"]["kernels"][0]
+    if rec_k != prediction_records(data, "valid", path_ranks,
+                                   ctx["cfg"].eval_batch):
+        raise AssertionError("predictions: the pickle differs from the "
+                             "path sweep's ranks")
+    if not (len(rec_k) == len(rec_p) == 2 * n_facts == res["kernels"]["n"]
+            and np.array_equal(mk, mp)):
+        raise AssertionError(f"predictions: {len(rec_k)} / {len(rec_p)} "
+                             f"records for {n_facts} facts")
+    _unfused_launches_ok(dev, res["kernels"]["launches"], _SWEEP,
+                         "predictions", _NOT_SWEEP)
+    if any(res["plain"]["launches"].values()) or (
+            dev.type != "cuda" and any(res["kernels"]["launches"].values())):
+        raise AssertionError(f"predictions: kernels launched on a plain "
+                             f"run: {res['plain']['launches']}")
+    # ranks equal but the plain scores' near-ties, judged where they differ
+    diff = mk & (rk != rp)
+    B = rk.shape[1]
+    model = get_model(cfg.replace(kernels=False), data, device=dev)
+    tdata = ctx["trainer"].data
+    near = 0
+    for bi, b in sorted({(int(i), int(j)) for i, j, _ in np.argwhere(diff)}):
+        t = bi * B + b
+        tied = _element_near_ties(model, ctx["params"], tdata, t,
+                                  "valid").cpu().numpy()
+        if (diff[bi, b] & ~tied).any():
+            raise AssertionError(f"predictions: ranks at time position {t} "
+                                 f"differ away from a near-tie")
+        near += int((diff[bi, b] & tied).sum())
+    res.update(rank_diffs=int(diff.sum()), near_ties=near,
+               records=len(rec_k), facts=n_facts)
+    for name in ("kernels", "plain"):
+        for k in ("wall_s", "sweep_s", "queries_per_s"):
+            res[f"{k}_{name}"] = res[name][k]
+    return res
+
+
+def phase_profiling(ctx, tmp: str) -> dict:
+    """``trace`` around one GRRGCN training step (the main path: K2f, K2b,
+    K3-K5): the Chrome trace names the hand-written kernels on the card
+    (window_layer_kernel, final_layer_kernel among them);
+    ``StepTimer`` over that step; ``device_memory_stats()`` with a peak
+    above 0 for card 0 (empty off the card)."""
+    import glob
+
+    import torch
+
+    from temp_tpu_torch.utils.profiling import (
+        StepTimer, device_memory_stats, trace,
+    )
+
+    dev, tr = ctx["device"], ctx["trainer"]
+    params, opt = tr.init_state()
+    t_pos, t_valid = tr.epoch_batches(0)[0]
+    tr.train_step(params, opt, t_pos, t_valid, gen=tr.step_generator(0, 0))
+    timer = StepTimer()
+    with trace(os.path.join(tmp, "trace")) as log_dir:
+        timer.start()
+        loss = tr.train_step(params, opt, t_pos, t_valid,
+                             gen=tr.step_generator(0, 1))
+        step_s = timer.stop(sync_on=loss)
+    files = glob.glob(os.path.join(log_dir, "trace.*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"profiling: trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    want = ("window_layer_kernel", "final_layer_kernel")
+    found = {k: sum(k in n for n in names) for k in want}
+    kernels = sorted(n for n in names if "kernel" in n)[:40]
+    mem = device_memory_stats()
+    if dev.type == "cuda":
+        if not all(found.values()):
+            raise AssertionError(f"profiling: the trace misses {found}: "
+                                 f"{kernels}")
+        if not mem.get("cuda:0", {}).get("peak_bytes_mb", 0) > 0:
+            raise AssertionError(f"profiling: memory stats {mem}")
+    elif mem:
+        raise AssertionError(f"profiling: memory stats off the card: {mem}")
+    return {"trace_mb": os.path.getsize(files[0]) / 2**20,
+            "events": len(events), "kernel_names": found,
+            "step_ms": step_s * 1e3, "ema_ms": timer.ema * 1e3,
+            "memory": mem,
+            "peak_mb": mem.get("cuda:0", {}).get("peak_bytes_mb")}
+
+
+def run_phases(ctx) -> dict:
+    """The run tools' phases, each printing its line: data_native, preempt,
+    preempt_cli, predictions, profiling, in a temporary directory removed
+    at the end. Returns their results by phase name."""
+    import shutil
+    import tempfile
+
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
+    try:
+        for name, fn in (("data_native", phase_data_native),
+                         ("preempt", phase_preempt),
+                         ("preempt_cli", phase_preempt_cli),
+                         ("predictions", phase_predictions),
+                         ("profiling", phase_profiling)):
+            with phase(name, {}) as out:
+                out.update(fn(ctx, tmp))
+            res[name] = out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        raise AssertionError(f"run phases: {tmp} not removed")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3794,6 +4350,7 @@ def main() -> int:
     res["zoo_variants"] = {t: zv[t] for t, *_ in _ZOO_VARIANTS}
     res.update(baseline_phases(ctx))
     res.update(agg_phases(ctx))
+    res.update(run_phases(ctx))
     with phase("ring_setup", {}) as rs:
         rctx = phase_setup_ring(ctx)
         rs.update({k: rctx[k] for k in ("N", "A", "E", "B", "d", "rows",

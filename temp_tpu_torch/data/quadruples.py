@@ -1,7 +1,8 @@
 """Raw quadruple file loading.
 
 Parses the ``(head, rel, tail, time)`` text format of the interpolation
-datasets (column order head, rel, tail, time).
+datasets (column order head, rel, tail, time), through the native parser
+(``data/native.py``) where it is available and ``np.loadtxt`` elsewhere.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ import os
 from typing import Dict, Tuple
 
 import numpy as np
+
+from temp_tpu_torch.data import native
 
 
 def load_quadruples(dataset_path: str, *filenames: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -22,7 +25,9 @@ def load_quadruples(dataset_path: str, *filenames: str) -> Tuple[np.ndarray, np.
         path = os.path.join(dataset_path, fname)
         if not os.path.exists(path):
             continue
-        arr = np.loadtxt(path, dtype=np.int64, ndmin=2)
+        arr = native.parse_quads(path)
+        if arr is None:
+            arr = np.loadtxt(path, dtype=np.int64, ndmin=2)
         if arr.size == 0:
             continue
         rows.append(arr[:, :4])

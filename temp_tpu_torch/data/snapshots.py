@@ -11,7 +11,9 @@ Every snapshot is a fixed-width padded edge list in global entity ids:
 
 ``TKGData`` holds numpy arrays; ``to_device`` gives the same structure with
 torch tensors on a device. ``build_tkg_data`` loads a dataset directory,
-with an npz cache at the root of the checkout.
+with an npz cache at the root of the checkout. The edge buckets and the
+filter tables pack natively (``data/native.py``) where the library is
+available; the numpy path is the reference.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from temp_tpu_torch.data import native
 from temp_tpu_torch.data.quadruples import load_quadruples, load_stat
 from temp_tpu_torch.parallel.edge_partition import (
     ring_data, ring_regroup_data,
@@ -183,8 +186,28 @@ def build_history_tables(data: TKGData, length: int,
                          fin_step=fin_step, fin_row=fin_row)
 
 
+def _time_pos_lut(times: np.ndarray) -> np.ndarray:
+    """Raw time value -> its position in the sorted unique `times` (-1 for
+    a value that is not there)."""
+    lut = np.full(int(times.max()) + 1 if len(times) else 1, -1, np.int32)
+    lut[times] = np.arange(len(times), dtype=np.int32)
+    return lut
+
+
+def _native_ok(quads: np.ndarray, times: np.ndarray) -> bool:
+    """Whether the native packer can take these arrays: edges to pack, and
+    raw time values that index its lookup table."""
+    return bool(len(quads) and len(times) and times.min() >= 0)
+
+
 def _split_edges(quads: np.ndarray, times: np.ndarray, e_pad: int) -> SplitEdges:
+    """Per-time padded edge arrays of one split, each time's edges in the
+    order of `quads`: natively where the library is available."""
     T = len(times)
+    if _native_ok(quads, times):
+        packed = native.pack_snapshots(quads, _time_pos_lut(times), T, e_pad)
+        if packed is not None:
+            return SplitEdges(*packed)
     src = np.zeros((T, e_pad), np.int32)
     rel = np.zeros((T, e_pad), np.int32)
     dst = np.zeros((T, e_pad), np.int32)
@@ -209,9 +232,19 @@ def _split_edges(quads: np.ndarray, times: np.ndarray, e_pad: int) -> SplitEdges
 
 def _filter_tables(quads: np.ndarray, times: np.ndarray, num_rels: int,
                    pad_mult: int) -> Tuple[FilterTable, FilterTable]:
-    """Build (tail_table, head_table) of deduped sorted per-time pairs."""
+    """Build (tail_table, head_table) of deduped sorted per-time pairs:
+    natively where the library is available."""
     T = len(times)
     r2 = 2 * num_rels
+    if _native_ok(quads, times):
+        # the pad width follows the largest per-time fact count
+        f_pad = _round_up(int(np.unique(quads[:, 3], return_counts=True)[1]
+                              .max()), pad_mult)
+        lut = _time_pos_lut(times)
+        tail = native.filter_pairs(quads, lut, T, f_pad, "tail", r2)
+        if tail is not None:
+            head = native.filter_pairs(quads, lut, T, f_pad, "head", r2)
+            return FilterTable(*tail), FilterTable(*head)
     per_time_tail = []
     per_time_head = []
     order = np.argsort(quads[:, 3], kind="stable")
@@ -375,6 +408,15 @@ def make_synthetic(
 ) -> TKGData:
     """Random TKG drawn from `seed` with numpy's RandomState: the same
     quadruples as the JAX package's ``make_synthetic`` for the same seed."""
+    return build_tkg_data_from_quads(
+        *synthetic_quads(num_ents, num_rels, num_times, edges_per_time, seed),
+        num_ents, num_rels, edge_pad_multiple)
+
+
+def synthetic_quads(num_ents: int, num_rels: int, num_times: int,
+                    edges_per_time: int, seed: int = 0):
+    """``make_synthetic``'s (train, valid, test) quadruples, int64 [M, 4]
+    each."""
     rng = np.random.RandomState(seed)
 
     def sample(n):
@@ -388,9 +430,7 @@ def make_synthetic(
     train_q = sample(edges_per_time * num_times)
     valid_q = sample(edges_per_time * num_times // 4)
     test_q = sample(edges_per_time * num_times // 4)
-    return build_tkg_data_from_quads(
-        train_q, valid_q, test_q, num_ents, num_rels, edge_pad_multiple
-    )
+    return train_q, valid_q, test_q
 
 
 CACHE_DIR = os.path.join(

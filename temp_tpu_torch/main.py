@@ -7,15 +7,20 @@ Every TKGConfig field is a flag (``--field value``, or ``--flag`` /
 ``--no-flag`` for booleans). The run trains with ``Trainer.fit`` (early stop
 on val MRR, best checkpoint, metrics.jsonl under
 <experiments_dir>/<model name>/), then evaluates the best checkpoint on the
-test split and writes its metrics to test_metrics.json beside it.
-``--resume`` continues from the run's last-state checkpoint at the epoch
-after it; without one it restores the best checkpoint's parameters and
-optimizer state and trains from epoch 0 with no best yet, as the JAX
-package's main.py does. ``--device`` defaults to cuda; ``--device cpu`` runs
-every kernel's plain version. ``--edge-partition psum|ring|ring_pallas
---mp-size M`` partitions every SpMM over M ranks (``parallel/``), which take
-the visible cards in turn, several ranks a card when there are fewer cards
-(on the CPU with ``--device cpu``); the run prints the ranks' placement.
+test split and writes its metrics to test_metrics.json beside it; the
+process exits 0. SIGTERM or SIGUSR1 stops the run at the end of the epoch
+with its last state in checkpoints/last.pt, skips the test evaluation, and
+exits 75 (EX_TEMPFAIL), for the scheduler to requeue it with ``--resume``.
+``--resume`` continues from the last-state checkpoint at the epoch after
+it; without one it restores the best checkpoint's parameters and optimizer
+state and trains from epoch 0 with no best yet, as the JAX package's
+main.py does. In process, ``main(argv)`` returns the test metrics, or
+{"preempted": True, "last_epoch": k} after a stop. ``--device`` defaults
+to cuda; ``--device cpu`` runs every kernel's plain version.
+``--edge-partition psum|ring|ring_pallas --mp-size M`` partitions every
+SpMM over M ranks (``parallel/``), which take the visible cards in turn,
+several ranks a card when there are fewer cards (on the CPU with
+``--device cpu``); the run prints the ranks' placement.
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
+
+EX_TEMPFAIL = 75
 
 
 def parse_args(argv=None):
@@ -79,17 +87,23 @@ def main(argv=None):
     if cfg.resume:
         last = trainer.load_last()
         if last is not None:
+            # a preempted run's last state: training continues at the epoch
+            # after it, with its early-stop counters
             params, optimizer, start_epoch, best = last
             kw = dict(params=params, optimizer=optimizer,
                       start_epoch=start_epoch, best=best)
-            print(f"resumed at epoch {start_epoch} (best mrr {best[0]:.4f} "
-                  f"@ epoch {best[1]})")
+            print(f"resumed preempted run at epoch {start_epoch} (best mrr "
+                  f"{best[0]:.4f} @ epoch {best[1]})")
         elif os.path.exists(trainer.ckpt_path()):
             params, optimizer, extra = trainer.load_checkpoint()
             kw = dict(params=params, optimizer=optimizer)
             print(f"resumed from epoch {extra['epoch']} (val mrr "
                   f"{extra['metrics'].get('mrr', 0):.4f})")
     result = trainer.fit(**kw)
+    print(f"best val mrr {result['best_mrr']:.4f} @ epoch "
+          f"{result['best_epoch']}")
+    if result["preempted"]:
+        return {"preempted": True, "last_epoch": result["last_epoch"]}
     params = result["params"]
     if os.path.exists(trainer.ckpt_path()):
         params, _, _ = trainer.load_checkpoint()
@@ -101,5 +115,12 @@ def main(argv=None):
     return test
 
 
+def exit_code(result) -> int:
+    """The process's exit code for `main`'s result: EX_TEMPFAIL (75) after
+    a preemption, so that the scheduler requeues the job with --resume;
+    0 after a finished run."""
+    return EX_TEMPFAIL if result.get("preempted") else 0
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(exit_code(main()))

@@ -1,5 +1,6 @@
 """The Trainer: training steps and epochs, early stopping on val MRR, the
-best and last checkpoints, metric logging, and filtered evaluation sweeps.
+best checkpoint and the last state of a preempted run, metric logging
+(metrics.jsonl and TensorBoard scalars), and filtered evaluation sweeps.
 
 Every random choice of an epoch comes from (cfg.seed, epoch) alone: the
 shuffle of the target times from a numpy RandomState, and each step's draws
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import time
 from typing import Any, Dict, Optional
 
@@ -28,6 +30,7 @@ from temp_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from temp_tpu_torch.train.optim import (
     clip_and_step, make_optimizer, param_leaves,
 )
+from temp_tpu_torch.utils.tbevents import EventWriter
 
 
 def batched_time_positions(num_times: int, batch_size: int,
@@ -134,10 +137,17 @@ class Trainer:
             max_epochs: Optional[int] = None, log_fn=print,
             start_epoch: int = 0, best: Optional[tuple] = None):
         """Train to early stop on val MRR (patience epochs without a new
-        best). Writes config.json, one metrics.jsonl line an epoch, the best
-        checkpoint at every new best, and the last state after every epoch
-        (removed when the run ends normally; ``load_last`` resumes from
-        it)."""
+        best). Writes config.json, one metrics.jsonl line an epoch, the
+        epoch's TensorBoard scalars under tb/, and the best checkpoint at
+        every new best.
+
+        SIGTERM or SIGUSR1 during the fit (a scheduler's preemption) only
+        requests a stop: at the end of that epoch the last state (params,
+        optimizer, early-stop counters) goes to checkpoints/last.pt and the
+        loop ends with "preempted" set; ``load_last`` resumes from it, and
+        the resumed run replays the epochs the uninterrupted one would have
+        run. The previous handlers are restored at the end. A fit that ends
+        without a stop removes any last.pt it finds."""
         cfg = self.cfg
         if params is None:
             params, optimizer = self.init_state()
@@ -146,38 +156,77 @@ class Trainer:
         os.makedirs(self.run_dir, exist_ok=True)
         with open(os.path.join(self.run_dir, "config.json"), "w") as f:
             f.write(cfg.to_json())
+        tb = EventWriter(os.path.join(self.run_dir, "tb"))
+
+        self._stop_requested = False
+
+        def request_stop(signum, frame):
+            self._stop_requested = True
+
+        prev_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGUSR1):
+            try:
+                prev_handlers[sig] = signal.signal(sig, request_stop)
+            except (ValueError, OSError):
+                pass  # not the main thread, or no such signal here
+
+        preempted = False
         epoch = start_epoch - 1
-        for epoch in range(start_epoch, max_epochs):
-            t0 = time.time()
-            losses = self.train_epoch(params, optimizer, epoch)
-            train_s = time.time() - t0
-            t1 = time.time()
-            val = self.run_eval(params, "valid")
-            rec = {"epoch": epoch, "train_loss": float(np.mean(losses)),
-                   "val": val, "train_s": round(train_s, 3),
-                   "eval_s": round(time.time() - t1, 3)}
-            self.history.append(rec)
-            with open(os.path.join(self.run_dir, "metrics.jsonl"), "a") as f:
-                f.write(json.dumps(rec) + "\n")
-            log_fn(f"epoch {epoch}: loss={rec['train_loss']:.4f} "
-                   f"val_mrr={val['mrr']:.4f} h1={val['hit_1']:.4f} "
-                   f"h3={val['hit_3']:.4f} h10={val['hit_10']:.4f} "
-                   f"({train_s:.1f}s train, {rec['eval_s']:.1f}s eval)")
-            if val["mrr"] > best_mrr:
-                best_mrr, best_epoch = val["mrr"], epoch
-                self.save_checkpoint(params, optimizer, epoch, val)
-            self.save_last(params, optimizer, epoch, best_mrr, best_epoch)
-            if epoch - best_epoch >= cfg.patience:
-                log_fn(f"early stop at epoch {epoch} (best mrr "
-                       f"{best_mrr:.4f} @ epoch {best_epoch})")
-                break
-            if cfg.fast_dev_run:
-                break
-        if os.path.exists(self.last_ckpt_path()):
+        try:
+            for epoch in range(start_epoch, max_epochs):
+                t0 = time.time()
+                losses = self.train_epoch(params, optimizer, epoch)
+                train_s = time.time() - t0
+                t1 = time.time()
+                val = self.run_eval(params, "valid")
+                rec = {"epoch": epoch, "train_loss": float(np.mean(losses)),
+                       "val": val, "train_s": round(train_s, 3),
+                       "eval_s": round(time.time() - t1, 3)}
+                self.history.append(rec)
+                with open(os.path.join(self.run_dir, "metrics.jsonl"),
+                          "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+                tb.add_scalars(epoch, {
+                    "train/loss": rec["train_loss"],
+                    "val/mrr": val["mrr"], "val/hit_1": val["hit_1"],
+                    "val/hit_3": val["hit_3"], "val/hit_10": val["hit_10"],
+                    "val/loss": val.get("loss", float("nan")),
+                    "time/train_s": train_s, "time/eval_s": rec["eval_s"]})
+                log_fn(f"epoch {epoch}: loss={rec['train_loss']:.4f} "
+                       f"val_mrr={val['mrr']:.4f} h1={val['hit_1']:.4f} "
+                       f"h3={val['hit_3']:.4f} h10={val['hit_10']:.4f} "
+                       f"({train_s:.1f}s train, {rec['eval_s']:.1f}s eval)")
+                if val["mrr"] > best_mrr:
+                    best_mrr, best_epoch = val["mrr"], epoch
+                    self.save_checkpoint(params, optimizer, epoch, val)
+                if self._stop_requested:
+                    preempted = True
+                    self.save_last(params, optimizer, epoch, best_mrr,
+                                   best_epoch)
+                    log_fn(f"preempted at epoch {epoch}: training state "
+                           f"saved to {self.last_ckpt_path()}; rerun with "
+                           f"--resume")
+                    break
+                if epoch - best_epoch >= cfg.patience:
+                    log_fn(f"early stop at epoch {epoch} (best mrr "
+                           f"{best_mrr:.4f} @ epoch {best_epoch})")
+                    break
+                if cfg.fast_dev_run:
+                    break
+        finally:
+            for sig, h in prev_handlers.items():
+                try:
+                    signal.signal(sig, h if h is not None else signal.SIG_DFL)
+                except (ValueError, OSError):
+                    pass
+        if not preempted and os.path.exists(self.last_ckpt_path()):
+            # a finished run leaves no mid-training state for a later
+            # --resume to restart from
             os.unlink(self.last_ckpt_path())
         return {"best_mrr": best_mrr, "best_epoch": best_epoch,
                 "params": params, "optimizer": optimizer,
-                "history": self.history, "last_epoch": epoch}
+                "history": self.history, "preempted": preempted,
+                "last_epoch": epoch}
 
     # -- checkpoints --------------------------------------------------------
 
@@ -207,6 +256,9 @@ class Trainer:
 
     def save_last(self, params, optimizer, epoch: int, best_mrr: float,
                   best_epoch: int):
+        """The state a preempted run resumes from: params and optimizer at
+        the end of `epoch`, with the early-stop counters. Randomness needs
+        no state: every epoch's draws come from (seed, epoch, step)."""
         save_checkpoint(self.last_ckpt_path(), params, optimizer, epoch,
                         {"best_mrr": best_mrr, "best_epoch": best_epoch})
 

@@ -2185,3 +2185,50 @@ def test_time_dynamic_window_kernel_matches_plain(cuda):
     for a, b in zip(hk + gk, hp + gp):
         assert _close(a, b), float((a - b).abs().max())
     assert float(gk[1].abs().max()) > 0 and float(gk[2].abs().max()) > 0
+
+
+# -- the predictions CLI ------------------------------------------------------
+
+def test_predictions_cli_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """temp_tpu_torch.test on the card and with --device cpu on the same
+    run directory (seeded GRRGCN weights, a small text dataset): the same
+    records but the ranks, which are equal but for the CPU scores' counted
+    near-ties; K1f and K2f launched on the card."""
+    from temp_tpu_torch.data.snapshots import synthetic_quads, to_device
+    from temp_tpu_torch.test import predict
+    from temp_tpu_torch.train.checkpoint import save_checkpoint
+
+    smoke = _smoke()
+    root = smoke.write_dataset(str(tmp_path / "data"), "small",
+                               synthetic_quads(300, 12, 20, 60, seed=3),
+                               300, 12)
+    cfg = TKGConfig(embed_size=32, hidden_size=32, n_bases=32,
+                    train_seq_len=5, batch_size=4, data_root=root,
+                    dataset="small", edge_pad_multiple=16)
+    run = tmp_path / "run"
+    run.mkdir()
+    (run / "config.json").write_text(cfg.to_json())
+    data = make_synthetic(300, 12, 20, 60, seed=3, edge_pad_multiple=16)
+    params = get_model(cfg, data, device="cpu").init_params(0)
+    save_checkpoint(str(run / "checkpoints" / "best.pt"), params, None, 0,
+                    {"mrr": 0.0})
+    before = (spmm_fwd.launches, fused_window_fwd.launches)
+    got = predict(str(run), "valid", device="cuda", log_fn=lambda *_: None)
+    assert spmm_fwd.launches > before[0]
+    assert fused_window_fwd.launches > before[1]
+    ref = predict(str(run), "valid", device="cpu", log_fn=lambda *_: None)
+    (m, rec, rk, mk), (m_p, rec_p, rp, mp) = got, ref
+    assert len(rec) == len(rec_p) == m["n"] == m_p["n"] > 0
+    assert [r[:5] for r in rec] == [r[:5] for r in rec_p]
+    assert np.array_equal(mk, mp)
+    diff = mk & (rk != rp)
+    model = get_model(cfg, data, device="cpu")
+    host = to_device(ring_layout(cfg, data), "cpu")
+    B = rk.shape[1]
+    near = 0
+    for bi, b in {(int(i), int(j)) for i, j, _ in np.argwhere(diff)}:
+        tied = smoke._element_near_ties(model, params, host, bi * B + b,
+                                        "valid").numpy()
+        assert not (diff[bi, b] & ~tied).any()
+        near += int((diff[bi, b] & tied).sum())
+    assert int(diff.sum()) == near

@@ -228,6 +228,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     res["zoo_variants"] = chip_smoke.phase_zoo_variants(ctx)
     res.update(chip_smoke.baseline_phases(ctx, train_steps=2))
     res.update(chip_smoke.agg_phases(ctx))
+    ctx["parse_lines"] = 2000
+    res.update(chip_smoke.run_phases(ctx))
     rctx = chip_smoke.phase_setup_ring(ctx)
     assert rctx["mesh"].placement() == "4 ranks on cpu"
     res.update(k13=chip_smoke.phase_k13(rctx),
@@ -540,6 +542,26 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     assert ap["mrr_kernels"] == ap["mrr_plain"] > 0
     assert {"agg_train", "agg_eval", "tdyn_train", "tdyn_eval",
             "grrgcn_transe_train", "Hyte_eval"} <= paths
+    # the run around the model: the native data build, preemption and
+    # resume in process and through the CLI, predictions, a trace
+    dn = res["data_native"]
+    assert dn["facts"] == 12 * 30 * 3 // 2 and dn["build_native_s"] > 0
+    assert dn["gdelt_lines"] == 2000
+    pr = res["preempt"]
+    assert pr["bitwise"] and pr["handlers_restored"]
+    assert pr["steps_an_epoch"] == 1 and pr["tb_writes"] == 6
+    assert pr["save_last_s"] > 0 and len(pr["val_mrr"]) == 3
+    pc = res["preempt_cli"]
+    assert (pc["stopped_exit"], pc["resumed_exit"]) == (75, 0)
+    assert 0 < pc["stopped_after_epochs"] < chip_smoke.CLI_EPOCHS
+    pd = res["predictions"]
+    assert pd["records"] == 2 * pd["facts"] == pd["kernels"]["n"] > 0
+    assert pd["rank_diffs"] == pd["near_ties"] == 0
+    assert pd["kernels"]["mrr"] == pd["plain"]["mrr"] == path["kernels"][
+        "mrr"]
+    prof = res["profiling"]
+    assert prof["events"] > 0 and prof["memory"] == {}
+    assert {"fit_train", "fit_eval", "predictions_eval"} <= paths
 
 
 @pytest.mark.parametrize("alone", [False, True])
