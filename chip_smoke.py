@@ -52,6 +52,22 @@ Phases, each printing one line with its elapsed seconds as it ends:
              three loss trajectories, the launch counts of each path (no K1
              call sorting its edges), then one run_eval of the trained
              weights.
+12a. bf16_kernels - compute_dtype="bfloat16": the bfloat16 modes of K2f
+             (eval with the conv1 table, and training with dropout
+             masks), K2b, K3, K4 and K5 at the main path's shapes, each
+             against its plain bfloat16 version on the same inputs: RMS
+             of the gap at most BF16_RULE of the plain float32 version's
+             RMS distance from the plain bfloat16 one (K3's loss within
+             LOSS_TOL), with times and bounds at the bfloat16 and TF32
+             rates;
+12b. bf16_path  - GRRGCN in bfloat16: TRAIN_STEPS steps on the fused path,
+             the unfused one and the plain versions of both, each path's
+             losses within TRAIN_TOL and trained leaves within PARAM_TOL of
+             its plain versions', the launches a step (K2f 28, K2b 72, K3
+             4, K4 4, K5 10; none of K6-K13); the valid sweep with the
+             kernels and plain (K1f 737, K2f 1,288), its MRR against
+             plain; the bfloat16 - float32 gaps of the losses and MRR, and
+             the fused path's peak memory beside float32's.
 
 Then the flagship, BiGRRGCN --impute (grid/icews14/config_bigrrgcn.json with
 impute on, PostBiDynamicRGCNModel), on the same data:
@@ -260,7 +276,9 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  held together as in `train`; K13's forward and backward
                  launched, no sort in a call.
 
-Then a "kernels" JSON line (each kernel's bound_share, bound / ms, and for
+Then a "kernels" JSON line (the bfloat16 modes as "<name>_bf16" records
+after the float32 ones, their launches the bf16 fused training path's;
+each kernel's bound_share, bound / ms, and for
 K2f, K2b, K5, K9+K10 and K12, whose products run in 3xTF32 on the tensor
 cores, bound_tc_ms: their operations at 3xTF32's 165 TFLOP/s beside the f32
 bound_ms; K2f's and K2b's rows with their modes apart, `extra_modes` the
@@ -282,6 +300,7 @@ from __future__ import annotations
 import dataclasses
 import faulthandler
 import json
+import math
 import os
 import signal
 import subprocess
@@ -718,6 +737,21 @@ def _peak_mb(dev):
     return torch.cuda.max_memory_allocated(dev) / 2**20
 
 
+def _allocated_mb(dev):
+    """The card's allocated memory now, in MiB (None off the card): taken
+    at a reset of the peak, so that a run's own rise above what earlier
+    phases hold, peak - this, compares across phases."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.memory_allocated(dev) / 2**20
+
+
+def _rise_mb(dev, base):
+    return None if base is None else _peak_mb(dev) - base
+
+
 def _sweep(ctx, c):
     """One valid sweep of config c (every launch counter from 0): its
     metrics, wall seconds, queries/s and launches; ranks and mask (numpy)."""
@@ -734,6 +768,7 @@ def _sweep(ctx, c):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+    base = _allocated_mb(dev)
     t0 = time.perf_counter()
     ranks, mask, bces = tr.eval_sweep(ctx["params"], "valid")
     ranks, mask = ranks.cpu().numpy(), mask.cpu().numpy()
@@ -746,6 +781,7 @@ def _sweep(ctx, c):
     m["csr_builds"] = _csr_builds()
     m["k1_csr_builds"] = _k1_csr_builds()
     m["peak_mb"] = _peak_mb(dev)
+    m["peak_rise_mb"] = _rise_mb(dev, base)
     return m, ranks, mask
 
 
@@ -1326,6 +1362,7 @@ def _train_path(ctx, c):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+    base = _allocated_mb(dev)
     t0 = time.perf_counter()
     losses = [tr.train_step(params, opt, t_pos, t_valid,
                             gen=tr.step_generator(0, i))
@@ -1334,7 +1371,8 @@ def _train_path(ctx, c):
     wall = time.perf_counter() - t0
     res = {"losses": losses, "ms_per_step": wall * 1e3 / len(batches),
            "launches": _counts(), "csr_builds": _csr_builds(),
-           "k1_csr_builds": _k1_csr_builds(), "peak_mb": _peak_mb(dev)}
+           "k1_csr_builds": _k1_csr_builds(), "peak_mb": _peak_mb(dev),
+           "peak_rise_mb": _rise_mb(dev, base)}
     finals = [t.detach().clone() for t in param_leaves(params)]
     return model, res, init, finals, tr, params
 
@@ -1435,6 +1473,361 @@ def param_gaps(init, finals, names=("fused", "unfused", "plain")) -> dict:
                              f"of the plain path's change: {bad}")
     return {"max_rel_gaps": gaps, "max_entry_gaps": maxes,
             "largest_change": max(norms), "smallest_change": min(norms)}
+
+
+# -- bfloat16 (compute_dtype="bfloat16"): K2f, K2b, K3, K4, K5 ---------------
+
+# the card's dense bfloat16 tensor-core rate (the bound of the bfloat16
+# modes) and its TF32 rate (the ceiling of their design: one TF32 product of
+# bfloat16-rounded operands a k8 step), SXM data sheet
+H100_BF16_FLOPS = 989e12
+H100_TF32_FLOPS = 495e12
+# a bfloat16 mode against its plain version: RMS(kernel - plain) at most
+# this share of RMS(plain float32 - plain bfloat16) on the same inputs, the
+# distance between the two precisions being the yardstick (the kernel and
+# the plain version round at the same points and differ by float32 sums in
+# another order, and where one lands on a bfloat16 rounding boundary)
+BF16_RULE = 0.1
+
+
+def _rms(x) -> float:
+    return float(x.double().pow(2).mean().sqrt()) if x.numel() else 0.0
+
+
+def bf16_rule(pairs, what: str) -> dict:
+    """{name: RMS(kernel - plain bf16) / RMS(plain f32 - plain bf16)} over
+    (name, kernel, plain bf16, plain f32) quadruples; raises where a ratio
+    exceeds BF16_RULE (a yardstick of 0 needs an exact match)."""
+    import torch
+
+    ratios, bad = {}, {}
+    for n, k, pb, pf in pairs:
+        k, pb, pf = (t.detach().to(torch.float32) for t in (k, pb, pf))
+        gap, yard = _rms(k - pb), _rms(pf - pb)
+        ratios[n] = gap / yard if yard else (0.0 if gap == 0 else math.inf)
+        if not gap <= BF16_RULE * yard:
+            bad[n] = {"gap": gap, "yard": yard}
+    if bad:
+        raise AssertionError(f"{what}: beyond {BF16_RULE} of the bfloat16 - "
+                             f"float32 distance: {bad}")
+    return ratios
+
+
+def _bf16_bounds(flops: float, nbytes: float) -> dict:
+    """The least time of a bfloat16 mode: the larger of its bytes (bfloat16
+    buffers) over the card's memory rate and its operations over the dense
+    bfloat16 rate ("bound_ms"), and the same at the TF32 rate of its
+    design ("bound_tf32_ms")."""
+    t_b = nbytes / H100_BYTES_S
+    t_f = flops / H100_BF16_FLOPS
+    return {"bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations",
+            "bound_tf32_ms": max(t_b, flops / H100_TF32_FLOPS) * 1e3}
+
+
+def _bf16_case(kernel, plain_bf, plain_f32, errs: dict, flops, nbytes,
+               shape, dev, reps=5, plain_reps=3) -> dict:
+    """One bfloat16 mode's record: its errors, times and bounds."""
+    out = {"shape": shape, "max_abs_err": max(e["abs"] for e in
+                                              errs["abs"].values()),
+           "rms_ratio": max(errs["ratio"].values()),
+           "rms_ratios": errs["ratio"],
+           "ms": time_ms(kernel, dev, reps=reps),
+           "plain_ms": time_ms(plain_bf, dev, reps=plain_reps),
+           "plain_f32_ms": time_ms(plain_f32, dev, reps=plain_reps),
+           "library_ms": None, **_bf16_bounds(flops, nbytes)}
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def _errs(pairs, what):
+    """The rule's ratios and the max abs errors of (name, kernel, plain
+    bf16, plain f32) quadruples."""
+    pairs = list(pairs)
+    return {"ratio": bf16_rule(pairs, what),
+            "abs": {n: {"abs": float((k.float() - pb.float()).abs().max())}
+                    for n, k, pb, _ in pairs}}
+
+
+def phase_bf16_kernels(ctx) -> dict:
+    """K2f (eval with the conv1 table, and training with dropout masks),
+    K2b, K3, K4 and K5 in their bfloat16 mode at the main path's shapes,
+    each against its plain bfloat16 version on the same inputs under
+    BF16_RULE (the plain float32 version's distance from it the
+    yardstick), with times and bounds. Every launch here is a check's:
+    the counters are not read."""
+    import torch
+
+    from temp_tpu_torch.ops import fused_final as ff
+    from temp_tpu_torch.ops import fused_window as fw
+
+    BF = torch.bfloat16
+    dev, p, cfg = ctx["device"], ctx["params"], ctx["cfg"]
+    out = {}
+
+    # K2f: the eval sweep's mode (conv1_in) and training's (masks)
+    win, kw = window_batch(ctx, True)
+    ev = fw.window_args(p["encoder"], cfg, **{k: v for k, v in kw.items()
+                                             if k != "conv1_in"})
+    ev = dict(ev, conv1_in=True)
+    k_ev = fw.fused_window_fwd(**ev, hot=BF)
+    pb_ev = fw.fused_window_fwd_plain(**ev, hot=BF)
+    pf_ev = fw.fused_window_fwd_plain(**ev)
+    errs = _errs(((f"buf{i + 1}", k_ev[i], pb_ev[i], pf_ev[i])
+                  for i in range(2)), "K2f bf16 conv1_in")
+    L1, d = ctx["L1"], ctx["d"]
+    rows = int(win.act_mask[:, :L1].sum())
+    edges = int(win.emask[:, :L1].sum())
+    n_rel = p["encoder"]["layer1"]["weight"].shape[0]
+    w_bytes = (2 * d * 3 * d * 2 + 2 * d * d + n_rel * 2 * d) * 4
+    shape = f"B={ctx['B']} L1={L1} A={ctx['A']} E={ctx['E']} d={d}"
+    # per active row the gate products and layer 2's self-loop; the
+    # conv1 table read in float32, the two buffers written in bfloat16
+    out["k2f"] = _bf16_case(
+        lambda: fw.fused_window_fwd(**ev, hot=BF),
+        lambda: fw.fused_window_fwd_plain(**ev, hot=BF),
+        lambda: fw.fused_window_fwd_plain(**ev), errs,
+        rows * (4 * 2 * d * 3 * d + 2 * d * d) + edges * 3 * d,
+        rows * d * (4 + 2 * 2) + edges * 16 + rows * 12 + w_bytes,
+        shape + " conv1_in", dev)
+
+    win, kw = window_batch(ctx, False)
+    kw.pop("conv1_in")
+    B, L1, A, d = kw["h0_xs"].shape
+    keep = 1.0 - cfg.dropout
+    gen = torch.Generator(device=dev).manual_seed(0)
+    masks = tuple((torch.rand(B, L1, A, d, generator=gen, device=dev) < keep)
+                  .to(torch.float32) / keep for _ in range(2))
+    gbs = [torch.randn(B, L1, A, d, generator=gen, device=dev).to(BF)
+           for _ in range(2)]
+    a = fw.window_args(p["encoder"], cfg, masks=masks, **kw)
+    tr_args = dict(a, conv1_in=False)
+    k_tr = fw.fused_window_fwd(**tr_args, hot=BF)
+    pb_tr = fw.fused_window_fwd_plain(**tr_args, hot=BF)
+    pf_tr = fw.fused_window_fwd_plain(**tr_args)
+    errs = _errs(((f"buf{i + 1}", k_tr[i], pb_tr[i], pf_tr[i])
+                  for i in range(2)), "K2f bf16 train")
+    rows = int(win.act_mask[:, :L1].sum())
+    edges = int(win.emask[:, :L1].sum())
+    out["k2f_train"] = _bf16_case(
+        lambda: fw.fused_window_fwd(**tr_args, hot=BF),
+        lambda: fw.fused_window_fwd_plain(**tr_args, hot=BF),
+        lambda: fw.fused_window_fwd_plain(**tr_args), errs,
+        rows * (4 * 2 * d * 3 * d + 2 * 2 * d * d) + 2 * edges * 3 * d,
+        rows * d * (4 + 2 * 2 + 2 * 4) + edges * 16 + rows * 12 + w_bytes,
+        shape + " train", dev)
+
+    bwd = dict(a, buf1=k_tr[0], buf2=k_tr[1], gb1=gbs[0], gb2=gbs[1])
+    got = fw.fused_window_bwd(**bwd, hot=BF)
+    ref_bf = fw.fused_window_bwd_plain(**a, gb1=gbs[0], gb2=gbs[1], hot=BF)
+    ref_f = fw.fused_window_bwd_plain(**a, gb1=gbs[0].float(),
+                                      gb2=gbs[1].float())
+    errs = _errs(zip(_COTANGENTS, got, ref_bf, ref_f), "K2b bf16")
+    out["k2b"] = _bf16_case(
+        lambda: fw.fused_window_bwd(**bwd, hot=BF),
+        lambda: fw.fused_window_bwd_plain(**a, gb1=gbs[0], gb2=gbs[1],
+                                          hot=BF),
+        lambda: fw.fused_window_bwd_plain(**a, gb1=gbs[0].float(),
+                                          gb2=gbs[1].float()), errs,
+        rows * 84 * d * d + edges * 16 * d,
+        rows * d * (4 * 4 + 4 * 2) + edges * 16 + rows * 12 + 2 * w_bytes,
+        shape, dev)
+
+    # K3-K5 on the first training batch, its history rounded to bfloat16
+    fb = final_batch(ctx)
+    h0, h1, h2, gr, wrel, loop1, loop2, g1, g2, rtab = fb["fwd"]
+    h1, h2 = h1.to(BF).contiguous(), h2.to(BF).contiguous()
+    args = (h0, h1, h2, gr, wrel, loop1, loop2, g1, g2, rtab)
+    loss, saved = ff.fused_final_fwd(*args, hot=BF)
+    lb, tb, o1b = ff.fused_final_fwd_plain(*args, hot=BF)
+    lf, tf, o1f = ff.fused_final_fwd_plain(*args)
+    # the loss is held as float32's is: each element's is a mean over its
+    # positives of log-sum-exps of 7128 scores, where bfloat16's roundings
+    # average out below float32's summation noise, so the rule's yardstick
+    # says nothing there; the rows take the rule
+    err_loss = float(((loss - lb) / lb.abs().clamp(min=1.0)).abs().max())
+    if not (err_loss <= LOSS_TOL and bool(torch.isfinite(loss).all())):
+        raise AssertionError(f"K3 bf16: loss err {err_loss} > {LOSS_TOL}")
+    errs = _errs((("table", saved["table"], tb, tf),
+                  ("out1", saved["out1"], o1b, o1f)), "K3 bf16")
+    errs["abs"]["loss"] = {"abs": float((loss - lb).abs().max())}
+    layer_flops, score_flops, nbytes = _k3_work(ctx, fb)
+    Bf, N, _, q = _final_counts(ctx, fb)
+    # the history read in bfloat16; the score launch scores two query sets
+    out["k3"] = _bf16_case(
+        lambda: ff.fused_final_fwd(*args, hot=BF),
+        lambda: ff.fused_final_fwd_plain(*args, hot=BF),
+        lambda: ff.fused_final_fwd_plain(*args), errs,
+        layer_flops + 2 * score_flops, nbytes - 2 * 2 * Bf * N * d,
+        f"B={Bf} N={N} E={gr.src.shape[1]} d={d} "
+        f"positive queries={int(q)}", dev, reps=10)
+
+    g = fb["tv"]
+    got = ff.fused_final_bwd_loss(saved, rtab, gr, g, hot=BF)
+    ref_bf = ff.fused_final_bwd_loss_plain(saved["table"], rtab, gr, g,
+                                           hot=BF)
+    ref_f = ff.fused_final_bwd_loss_plain(saved["table"], rtab, gr, g)
+    errs = _errs(zip(("d_table", "d_rtab"), got, ref_bf, ref_f), "K4 bf16")
+    out["k4"] = _bf16_case(
+        lambda: ff.fused_final_bwd_loss(saved, rtab, gr, g, hot=BF),
+        lambda: ff.fused_final_bwd_loss_plain(saved["table"], rtab, gr, g,
+                                              hot=BF),
+        lambda: ff.fused_final_bwd_loss_plain(saved["table"], rtab, gr, g),
+        errs, q * N * 2 * d * 3, 4 * 2 * Bf * N * d, out["k3"]["shape"],
+        dev, reps=10)
+
+    d_out2, _ = ff.select_bwd(ref_bf[0], gr.active)
+    layer2 = (saved["out1"], h2, gr, gr.m2, wrel, d, loop2, g2, d_out2)
+    l2b = ff.fused_final_bwd_layer_plain(*layer2, hot=BF)
+    layer1 = (h0, h1, gr, gr.m1, wrel, 0, loop1, g1, l2b[0])
+    pairs = []
+    for tag, la in (("layer2", layer2), ("layer1", layer1)):
+        got = ff.fused_final_bwd_layer(*la, hot=BF)
+        rb = ff.fused_final_bwd_layer_plain(*la, hot=BF)
+        rf = ff.fused_final_bwd_layer_plain(*la)
+        pairs += [(f"{tag} {n}", x, y, z) for n, x, y, z in
+                  zip(_LAYER_COTANGENTS, got, rb, rf)]
+    errs = _errs(pairs, "K5 bf16")
+    n_masks = 0 if gr.m1 is None else 1
+
+    def both(fn, **kw):
+        return lambda: (fn(*layer2, **kw), fn(*layer1, **kw))
+
+    out["k5"] = _bf16_case(
+        both(ff.fused_final_bwd_layer, csr=saved.get("csr"), hot=BF),
+        both(ff.fused_final_bwd_layer_plain, hot=BF),
+        both(ff.fused_final_bwd_layer_plain), errs,
+        2 * Bf * N * 42 * d * d, 2 * 4 * Bf * N * d * (4.5 + n_masks),
+        f"B={Bf} N={N} E={gr.src.shape[1]} d={d}, both layers", dev,
+        reps=10)
+    for name, r in out.items():
+        print(f"  bf16 {name}: {r}", flush=True)
+    return out
+
+
+# the bfloat16 path's launches a training step (fused) and a valid sweep
+_BF16_STEP = {"fused_window_fwd": 28, "fused_window_bwd": 72,
+              "fused_final_fwd": 4, "fused_final_bwd_loss": 4,
+              "fused_final_bwd_layer": 10}
+_BF16_SWEEP = {"spmm_fwd": 737, "fused_window_fwd": 1288}
+_NOT_BF16 = ("bi_layer_fwd", "bi_loss_fwd", "bi_layer_bwd",
+             "fused_eval_ranks", "fused_window_mb_fwd", "ring_spmm_fwd",
+             "ring_spmm_bwd")
+
+
+def phase_bf16_path(ctx, train_res, path_res) -> dict:
+    """GRRGCN with compute_dtype="bfloat16": TRAIN_STEPS training steps on
+    the fused path (K2f, K2b, K3-K5) and the unfused one (K2, K1f, K1b),
+    each with the kernels and with the plain versions, from the seeded
+    weights and draws, then the valid sweep with the kernels and with the
+    plain versions. The launches a step and a sweep (_BF16_STEP,
+    _BF16_SWEEP; none of K6-K13), the losses of each kernel path within
+    TRAIN_TOL of the plain versions of the same path and its trained
+    parameters within PARAM_TOL of their change (``param_gaps``), beside
+    them BF16_RULE's ratio of the parameters against the float32 path
+    (`train_res`, the train phase's) for reading, and
+    the MRR within MRR_TOL of plain or within BF16_RULE of
+    the float32 sweep's distance from it (`path_res`, the path phase's);
+    beside them the bfloat16 - float32 gaps of the losses and MRR, and
+    each run's peak memory above what the earlier phases hold, beside
+    float32's."""
+    import numpy as np
+    import torch
+
+    dev, cfg = ctx["device"], ctx["cfg"].replace(compute_dtype="bfloat16")
+    if cfg.hot_dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 path: hot dtype {cfg.hot_dtype}")
+    steps = ctx.get("train_steps", TRAIN_STEPS)
+    res, finals, init = {}, {}, None
+    # in bfloat16 the fused final step and the unfused one are two
+    # functions, as the JAX package's Pallas and XLA paths are (the fused
+    # kernels round the SpMM's messages, the unfused SpMM K1 stays float32):
+    # each kernel path is held to the plain versions of its own path
+    for name, over in _PATHS + (("unfused_plain", {"fused_final": False,
+                                                   "kernels": False}),):
+        _, res[name], init, finals[name], _, _ = _train_path(
+            ctx, cfg.replace(**over))
+        print(f"  bf16 train {name}: {res[name]}", flush=True)
+    losses = {n: torch.tensor(r["losses"], dtype=torch.float64)
+              for n, r in res.items()}
+    f32 = torch.tensor(train_res["plain"]["losses"], dtype=torch.float64)
+    pairs = (("fused", "plain"), ("unfused", "unfused_plain"))
+    # the losses and the trained parameters held as float32's are
+    # (TRAIN_TOL; each leaf within PARAM_TOL of the plain path's change):
+    # at these random weights bfloat16's roundings average out of each loss
+    # below float32's resolution, so BF16_RULE's yardstick may be 0 there.
+    # Beside them, for reading, the rule's ratio of the parameters (all
+    # leaves as one vector; the float32 fused path's the yardstick)
+    res["max_rel_gaps"] = {
+        k: float(((losses[k] - losses[pl]).abs()
+                  / losses[pl].abs().clamp(min=1.0)).max()) for k, pl in pairs}
+    if not all(g <= TRAIN_TOL for g in res["max_rel_gaps"].values()):
+        raise AssertionError(f"bf16 train: loss trajectories differ: "
+                             f"{res['max_rel_gaps']} > {TRAIN_TOL}")
+    res["params"] = {k: param_gaps(init, finals, names=(k, pl))
+                     for k, pl in pairs}
+    flat = {n: torch.cat([t.flatten().double().cpu() for t in v])
+            for n, v in finals.items()}
+    flat_f32 = torch.cat([t.flatten().double().cpu()
+                          for t in ctx["train_ref"]["params"]])
+    res["param_ratios"] = {
+        k: _rms(flat[k] - flat[pl]) / max(_rms(flat_f32 - flat[pl]), 1e-30)
+        for k, pl in pairs}
+    res["loss_gap_to_f32"] = float((losses["plain"] - f32).abs().max())
+    res["loss_rel_gap_to_f32"] = res["loss_gap_to_f32"] / float(
+        f32.abs().max())
+    res["loss_gap_unfused_to_fused"] = float(
+        (losses["unfused_plain"] - losses["plain"]).abs().max())
+    n = res["fused"]["launches"]
+    want = {k: v * steps for k, v in _BF16_STEP.items()}
+    if dev.type == "cuda":
+        got = {k: n[k] for k in want}
+        if got != want or any(n[k] for k in _NOT_BF16) or n["spmm_fwd"]:
+            raise AssertionError(f"bf16 fused train launches {n}, want "
+                                 f"{want} and none of {_NOT_BF16} or K1")
+        u = res["unfused"]["launches"]
+        if not (u["spmm_fwd"] and u["spmm_bwd"] and u["fused_window_fwd"]
+                and u["fused_window_bwd"]) or any(
+                    u[k] for k in _NOT_BF16 + ("fused_final_fwd",)):
+            raise AssertionError(f"bf16 unfused train launches {u}")
+    for name in ("plain", "unfused_plain"):
+        if any(res[name]["launches"].values()):
+            raise AssertionError(f"bf16 {name} train launched kernels: "
+                                 f"{res[name]['launches']}")
+    runs = {}
+    for name, kernels in (("kernels", True), ("plain", False)):
+        m, ranks, mask = _sweep(ctx, cfg.replace(kernels=kernels))
+        runs[name] = (ranks, mask)
+        res[f"eval_{name}"] = m
+        print(f"  bf16 path {name}: {m}", flush=True)
+    k, pl = res["eval_kernels"], res["eval_plain"]
+    (rk, mk), (rp, mp) = runs["kernels"], runs["plain"]
+    mrr_f32 = path_res["plain"]["mrr"]
+    if not (np.array_equal(mk, mp) and np.isfinite(k["mrr"])
+            and 0.0 < k["mrr"] <= 1.0):
+        raise AssertionError(f"bf16 sweep: masks differ or bad MRR {k}")
+    mrr_tol = max(MRR_TOL, BF16_RULE * abs(mrr_f32 - pl["mrr"]))
+    if not abs(k["mrr"] - pl["mrr"]) <= mrr_tol:
+        raise AssertionError(f"bf16 sweep MRR kernels {k['mrr']} vs plain "
+                             f"{pl['mrr']} (tolerance {mrr_tol})")
+    if dev.type == "cuda":
+        if (k["launches"]["spmm_fwd"], k["launches"]["fused_window_fwd"]) \
+                != (_BF16_SWEEP["spmm_fwd"], _BF16_SWEEP["fused_window_fwd"]) \
+                or any(k["launches"][x] for x in _NOT_BF16 + (
+                    "fused_final_fwd", "spmm_bwd")):
+            raise AssertionError(f"bf16 sweep launches {k['launches']}")
+    if any(pl["launches"].values()):
+        raise AssertionError(f"bf16 plain sweep launched kernels: "
+                             f"{pl['launches']}")
+    res["mrr_gap_to_f32"] = pl["mrr"] - mrr_f32
+    res["mrr_kernels_gap_to_plain"] = k["mrr"] - pl["mrr"]
+    res["same_rank_share"] = float(np.mean(rk[mk] == rp[mp]))
+    # each run's rise above what the earlier phases hold
+    res["peak_rise_mb_fused"] = res["fused"]["peak_rise_mb"]
+    res["peak_rise_mb_fused_f32"] = train_res["fused"]["peak_rise_mb"]
+    res["eval_peak_rise_mb"] = k["peak_rise_mb"]
+    res["eval_peak_rise_mb_f32"] = path_res["kernels"]["peak_rise_mb"]
+    return res
 
 
 def phase_setup_flagship(ctx) -> dict:
@@ -2984,6 +3377,22 @@ _KERNELS = (
      "temp_tpu/parallel/ring_pallas.py:270"),
 )
 
+# the bfloat16 modes (phase_bf16_kernels' records, the bf16_path's
+# launches): (wrapper, record, source, TPU kernel)
+_KERNELS_BF16 = (
+    ("fused_window_fwd", "k2f", "temp_tpu_torch/csrc/fused_window_bf16.cu",
+     "temp_tpu/ops/fused_window.py:223"),
+    ("fused_window_bwd", "k2b", "temp_tpu_torch/csrc/fused_window_bf16.cu",
+     "temp_tpu/ops/fused_window.py:246"),
+    ("fused_final_fwd", "k3", "temp_tpu_torch/csrc/fused_final_bf16.cu",
+     "temp_tpu/ops/fused_final.py:227"),
+    ("fused_final_bwd_loss", "k4", "temp_tpu_torch/csrc/fused_final_bf16.cu",
+     "temp_tpu/ops/fused_final.py:250"),
+    ("fused_final_bwd_layer", "k5",
+     "temp_tpu_torch/csrc/fused_final_bf16.cu",
+     "temp_tpu/ops/fused_final.py:343"),
+)
+
 # the path whose run gives each kernel's "launches"
 _HOME = {"spmm_fwd": "eval", "spmm_bwd": "train_unfused",
          "bi_layer_fwd": "flagship_train_fused",
@@ -3122,6 +3531,29 @@ def kernels_line(res: dict) -> dict:
             r["window_step"]["in_call_ms"] = res["k13"]["window"][
                 "in_call_ms"]
         rec.append(r)
+    if "bf16_kernels" in res:
+        # the bfloat16 modes, their launches on the bfloat16 fused training
+        # path and the sweep
+        bp = res["bf16_path"]
+        for name, tag, src, replaces in _KERNELS_BF16:
+            m = res["bf16_kernels"][tag]
+            r = {"name": f"{name}_bf16", "route": "cuda", "source": src,
+                 "replaces": replaces,
+                 "launches": bp["fused"]["launches"][name],
+                 "launches_by_path": {
+                     "bf16_train_fused": bp["fused"]["launches"][name],
+                     "bf16_train_unfused": bp["unfused"]["launches"][name],
+                     "bf16_eval": bp["eval_kernels"]["launches"][name]},
+                 **{k: m[k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "bound_share", "bound_tf32_ms",
+                     "rms_ratio", "plain_f32_ms", "shape")}}
+            if tag == "k2f":
+                r["train_mode"] = {k: res["bf16_kernels"]["k2f_train"][k]
+                                   for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_tf32_ms", "rms_ratio",
+                                             "max_abs_err")}
+            rec.append(r)
     return {"kernels": rec}
 
 
@@ -3432,6 +3864,7 @@ def _baseline_steps(c, device, batches, draws=None, gen=True):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+    base = _allocated_mb(dev)
     t0 = time.perf_counter()
     losses = [tr.train_step(params, opt, t_pos, t_valid, draws=d)
               for (t_pos, t_valid), d in zip(batches, draws)]
@@ -4276,6 +4709,19 @@ def main() -> int:
             tra[f"ms_per_step_{name}"] = tra[name]["ms_per_step"]
     res = {"k1": k1, "k2": k2, "path": pa, "k1b": k1b, "k2b": k2b, "k3": k3,
            "k4": k4, "k5": k5, "train": tra}
+    with phase("bf16_kernels", {}) as bk:
+        bk.update(phase_bf16_kernels(ctx))
+        for name in [n for n in bk if isinstance(bk[n], dict)]:
+            bk[f"{name}_ms"] = bk[name]["ms"]
+            bk[f"{name}_rms_ratio"] = bk[name]["rms_ratio"]
+    res["bf16_kernels"] = bk
+    with phase("bf16_path", {}) as bp:
+        bp.update(phase_bf16_path(ctx, tra, pa))
+        for name, _ in _PATHS:
+            bp[f"ms_per_step_{name}"] = bp[name]["ms_per_step"]
+        for k in ("wall_s", "mrr", "queries_per_s", "peak_mb"):
+            bp[f"eval_{k}"] = bp["eval_kernels"][k]
+    res["bf16_path"] = bp
     with phase("flagship_setup", {}) as fs:
         fctx = phase_setup_flagship(ctx)
         fs.update({k: fctx[k] for k in ("N", "A", "E", "L1", "B", "d")})

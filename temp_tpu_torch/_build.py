@@ -1,12 +1,15 @@
 """Builds and loads the package's CUDA kernels: the one place that does.
 
-All ``csrc/*.cu`` sources (and the headers they include, ``csrc/*.cuh``)
-compile in ONE ``nvcc`` call into a shared library with a plain C interface
+Every ``csrc/*.cu`` source (with the headers it includes, ``csrc/*.cuh``)
+compiles in its own ``nvcc`` process, all started together, and one more
+``nvcc`` links the objects into a shared library with a plain C interface
 (``.kernel_build/libtemp_kernels.so`` at the root of the checkout), loaded
 with ``ctypes``. No PyTorch headers are compiled, so the build takes
 seconds. It happens at first use and again whenever a source or header is
 newer than the library. Each exported launcher takes raw device pointers,
-sizes and the CUDA stream, and returns ``cudaGetLastError()``.
+sizes and the CUDA stream, and returns ``cudaGetLastError()``. The
+``*_bf16.cu`` sources compile a kernel source again in its bfloat16 mode
+(``BF16_LAUNCHERS``).
 """
 
 from __future__ import annotations
@@ -59,10 +62,10 @@ SIGNATURES = {
     "spmm_bwd_launch": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 7 + [_P],
     # window_layer(x, conv_given, rowptr, src, rel, em, wrel, wstride, wcol,
     #              loop, mask, relu, wih_t, whh_t, bih, bhh, gidx, live, dt,
-    #              lam, buf, loc, B, L1, A, d, k, stream)
+    #              lam, buf, loc, B, L1, A, d, x_bf16, k, stream)
     "window_layer_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I,
                             _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P,
-                            _P, _I, _I, _I, _I, _I, _P],
+                            _P, _I, _I, _I, _I, _I, _I, _P],
     # window_bwd_gru(x, rowptr, src, rel, em, wrel, wstride, wcol, loop,
     #                mask, relu, wih_t, whh_t, bih, bhh, wih, whh, gidx, live,
     #                dt, lam, prev, db, g_loc, n2_out, conv_s, h0g_s, dgi_s,
@@ -95,9 +98,9 @@ SIGNATURES = {
     # final_loss_reduce(part_m, part_s, scpos, posm, lse, cnt, loss, B, E,
     #                   n_split, stream)
     "final_loss_reduce_launch": [_P] * 7 + [_I] * 3 + [_P],
-    # final_dq(table, qhat, lse, posm, t_ptr, t_ans, h_ptr, h_ans, part_dq,
-    #          B, N, E, d, n_split, stream)
-    "final_dq_launch": [_P] * 9 + [_I] * 5 + [_P],
+    # final_dq(table, qhat, lse, posm, t_ptr, t_ans, h_ptr, h_ans, cnt, gout,
+    #          part_dq, B, N, E, d, n_split, stream)
+    "final_dq_launch": [_P] * 11 + [_I] * 5 + [_P],
     # final_dq_finish(table, rtab, src, dst, rel, posm, qhat, scpos, lse,
     #                 cnt, g, part_dq, d_s, d_o, d_remb, B, N, E, d,
     #                 n_split, stream)
@@ -151,6 +154,16 @@ SIGNATURES = {
     "bi_wgrad_launch": [_P] * 11 + [_I] * 4 + [_P],
 }
 
+# the launchers whose bfloat16 mode (csrc/*_bf16.cu, the same sources
+# compiled with TK_BF16 1) is exported as name + "_bf16", with the same
+# arguments
+BF16_LAUNCHERS = (
+    "window_layer_launch", "window_bwd_gru_launch", "window_bwd_input_launch",
+    "window_wgrad_launch", "final_layer_launch", "final_scores_launch",
+    "final_loss_reduce_launch", "final_dq_launch", "final_dq_finish_launch",
+    "final_dtable_launch", "final_bwd_gru_launch", "final_bwd_input_launch",
+    "final_wgrad_launch")
+
 _lib = None
 _lock = threading.Lock()
 
@@ -175,30 +188,49 @@ def _stale() -> bool:
 
 
 def build() -> str:
-    """Compile every kernel source with one nvcc call if the library is
-    missing or older than a source. Returns nvcc's -Xptxas -v report (empty
-    when nothing was built); raises with nvcc's stderr when the build
-    fails."""
+    """Compile every kernel source, one nvcc process each and all at once,
+    and link them, if the library is missing or older than a source.
+    Returns nvcc's -Xptxas -v reports (empty when nothing was built);
+    raises with nvcc's stderr when a compile or the link fails."""
     if not SOURCES:
         raise RuntimeError(f"no CUDA sources under {os.path.join(_PKG, 'csrc')}")
     if not _stale():
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, *SOURCES]
+    tag = f"{os.getpid()}.tmp"
+    tmp = f"{LIB_PATH}.{tag}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)[:-3]}.{tag}.o")
+            for src in SOURCES]
+    flags = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    procs = [subprocess.Popen(flags + ["-Xptxas", "-v", "-c", src, "-o", obj],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(SOURCES, objs)]
+    reports = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
+        for src, proc in zip(SOURCES, procs):
+            _, err = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"(exit {proc.returncode}):\n{err}")
+            reports.append(err)
+        link = subprocess.run(flags + ["-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True,
                               timeout=NVCC_TIMEOUT_S)
-        if proc.returncode != 0:
+        if link.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+                f"nvcc link failed (exit {link.returncode}):\n{link.stderr}")
         os.replace(tmp, LIB_PATH)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return proc.stderr
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in objs + [tmp]:
+            if os.path.exists(path):
+                os.unlink(path)
+    return "".join(reports)
 
 
 def lib() -> ctypes.CDLL:
@@ -209,9 +241,11 @@ def lib() -> ctypes.CDLL:
             build()
             cdll = ctypes.CDLL(LIB_PATH)
             for name, argtypes in SIGNATURES.items():
-                fn = getattr(cdll, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                for exported in ((name, f"{name}_bf16")
+                                 if name in BF16_LAUNCHERS else (name,)):
+                    fn = getattr(cdll, exported)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _lib = cdll
     return _lib
 

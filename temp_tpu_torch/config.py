@@ -11,13 +11,16 @@ files, so one config file drives both packages. Differences:
 - ``kernels`` selects between each hand-written kernel and its plain PyTorch
   version on the card (the plain run is the reference the kernels are held
   against end to end);
-- this package computes in float32 throughout;
+- ``compute_dtype="auto"`` resolves to float32 on every device (the JAX
+  package's resolves to bfloat16 on an accelerator): ``"bfloat16"`` runs
+  GRRGCN's hot contractions in bfloat16 (``hot_dtype``), and only GRRGCN
+  on its default paths has a bfloat16 mode so far (``_BF16_OUTSIDE``);
 - a field whose non-default value selects a path the port has not ported
-  (``_UNPORTED``; ``compute_dtype`` other than float32; the ``"boundary"``
-  edge partition, which ``edge_partition=True`` selects; ``mp_size > 1``
-  without an edge partition) raises ``NotImplementedError`` when the config
-  is made, naming what is missing, rather than quietly running another
-  path.
+  (``_UNPORTED``; a ``compute_dtype`` other than float32 or bfloat16, or
+  bfloat16 outside its slice; the ``"boundary"`` edge partition, which
+  ``edge_partition=True`` selects; ``mp_size > 1`` without an edge
+  partition) raises ``NotImplementedError`` when the config is made,
+  naming what is missing, rather than quietly running another path.
 """
 
 from __future__ import annotations
@@ -42,6 +45,45 @@ _UNPORTED = (
 
 # the edge-partition modes the port runs (ops/segment.py rel_spmm)
 PARTITION_MODES = ("psum", "ring", "ring_pallas")
+
+_F32 = ("float32", "f32", None)
+_BF16 = ("bfloat16", "bf16")
+
+# what runs only in float32 so far, outside compute_dtype="bfloat16"'s
+# slice (GRRGCN's default paths: kernels K2, K3-K5 and K1, whose SpMM stays
+# float32 as the JAX package's row path does): (field, value test, what the
+# value needs in bfloat16)
+_BF16_OUTSIDE = (
+    ("module", lambda v: v != "GRRGCN",
+     "its model's bfloat16 hot path (only GRRGCN has one)"),
+    ("score_function", lambda v: v != "complex",
+     "the DistMult and TransE decoders' bfloat16 scores"),
+    ("negative_pool", lambda v: v != "all",
+     "the shared and per_query pools' bfloat16 scores"),
+    ("impute", bool, "the impute blend's bfloat16 mode (K2's n_buf=3, "
+     "K6-K10)"),
+    ("post_ensemble", bool, "the TeMP gates' bfloat16 mode"),
+    ("post_aggregation", bool, "the TeMP gates' bfloat16 mode"),
+    ("type1", bool, "the type1 GRU's bfloat16 mode"),
+    ("learnable_lambda", bool, "the learnable decay's bfloat16 mode"),
+    ("use_time_embedding", bool, "the time embeddings' bfloat16 mode"),
+    ("rec_only_last_layer", bool, "rec_only_last_layer's bfloat16 mode"),
+    ("random_dropout", bool, "the step-by-step training windows' bfloat16 "
+     "mode"),
+    ("edge_dropout", bool, "the step-by-step training windows' bfloat16 "
+     "mode"),
+    ("fused_eval", lambda v: not _off(v), "kernel K11's bfloat16 mode"),
+    ("fused_window_mb", lambda v: not _off(v), "kernel K12's bfloat16 mode"),
+    ("edge_partition", lambda v: not _off(v), "kernel K13's and the "
+     "partition's bfloat16 mode"),
+)
+
+
+def _off(value) -> bool:
+    """Whether a switch's value is off (False, None or an "off" word)."""
+    if isinstance(value, str):
+        return value.lower() in ("0", "false", "no", "off")
+    return not value
 
 
 @dataclass
@@ -208,11 +250,33 @@ class TKGConfig:
                 raise NotImplementedError(
                     f"{name}={value!r} needs {what}, which is not ported "
                     f"yet; see ROADMAP.md")
-        if self.compute_dtype not in ("auto", "float32", "f32", None):
+        if self.compute_dtype not in ("auto",) + _F32 + _BF16:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r}: the port computes in "
-                f"float32 only (the JAX package's bfloat16 hot path is not "
-                f"ported yet; see ROADMAP.md)")
+                f"float32 or bfloat16; see ROADMAP.md")
+        if self.compute_dtype in _BF16:
+            for name, outside, what in _BF16_OUTSIDE:
+                value = getattr(self, name)
+                if outside(value):
+                    raise NotImplementedError(
+                        f"compute_dtype={self.compute_dtype!r} with "
+                        f"{name}={value!r} needs {what}, which is not ported "
+                        f"yet; see ROADMAP.md")
+
+    @property
+    def hot_dtype(self):
+        """The dtype of the hot contractions, or None for float32: the JAX
+        package's ``TKGConfig.hot_dtype``. torch.bfloat16 for
+        ``compute_dtype`` "bfloat16" (or "bf16"): the products' operands
+        rounded to bfloat16 with float32 sums (the self-loop, GRU and
+        score products, every product of kernels K2-K5), the window's
+        history buffers stored in bfloat16; the relational SpMM outside
+        the fused kernels stays float32, as the JAX package's does.
+
+        "auto" is float32 on every device for now: the JAX package's
+        resolves to bfloat16 on an accelerator, which the port follows in
+        the slice that gives every path a bfloat16 mode (ROADMAP.md)."""
+        return torch.bfloat16 if self.compute_dtype in _BF16 else None
 
     # -- run control --------------------------------------------------------
     debug: bool = False

@@ -80,6 +80,23 @@
 // sorted list per edge or query slot, built once with the data; a block
 // turns them into a 64-bit mask per query and column tile.
 
+//
+// Compiled a second time as fused_final_bf16.cu, with TK_BF16 1: K3's, K4's
+// and K5's bfloat16 mode (rgcn_gru_layer.cuh), the TPU kernels' bfloat16
+// instantiation. The history is bfloat16; the layer launches' products and
+// SpMM are K2's bfloat16 mode; K3 builds the loss's queries from the
+// table's subject and object rows and the relation rows split into a high
+// and a low bfloat16 part (hilo_bf16, as the TPU kernel gathers them) and
+// scores in bfloat16. The TPU kernel's loss backward recomputes the queries
+// from its residual table, stored in bfloat16: so K3's score launch scores
+// a second query set (variant 1: the table's rows rounded to bfloat16, the
+// relation rows split) beside the loss's (variant 0) in the same launch,
+// and its reduce launch gives the loss from variant 0 and the log-sum-exps
+// K4 reads from variant 1. K4 weighs the probabilities by the loss weight
+// before they are rounded (final_dq takes the count and the cotangent),
+// and rounds the row and relation cotangents it writes. K11 has no
+// bfloat16 mode and is left out of this build.
+
 #include <math.h>
 
 #include "rgcn_gru_layer.cuh"
@@ -341,7 +358,10 @@ __global__ void __launch_bounds__(kFinalWarps * kWarp, 2) final_layer_kernel(
 // then over the range's column tiles (kScoreBufs in flight) the running
 // max m and sum s of exp(score - m) over the columns that are not true
 // answers: each thread over its own positions, then merged across the four
-// threads of a row and the two warps of its rows, in a fixed order.
+// threads of a row and the two warps of its rows, in a fixed order. In the
+// bfloat16 mode blockIdx.y is also the variant (2 + direction for variant
+// 1), each variant's partials and positive scores in their own half of the
+// outputs, the queries written for variant 1.
 __global__ void __launch_bounds__(kLossThreads, 2) final_scores_kernel(
     const float* __restrict__ table, const float* __restrict__ rtab,
     const int* __restrict__ src, const int* __restrict__ dst,
@@ -356,13 +376,19 @@ __global__ void __launch_bounds__(kLossThreads, 2) final_scores_kernel(
   const int n_et = (E + kQ - 1) / kQ;
   const int split = blockIdx.x / n_et;
   const int e0 = (blockIdx.x % n_et) * kQ;
-  const int dir = blockIdx.y, b = blockIdx.z;
+  const int dir = blockIdx.y & 1, b = blockIdx.z;
   const int c_begin = min(N, split * chunk), c_end = min(N, c_begin + chunk);
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const float* tb = table + (long long)b * N * d;
   const float* pm = posm + (long long)b * E;
   const int* ans = dir == 0 ? t_ans : h_ans;
   const long long qrow = ((long long)b * 2 + dir) * E;
+  // the variant's half of the partials and positive scores, and whether
+  // its queries are the ones written out
+  const int variant = kBf16 ? blockIdx.y >> 1 : 0;
+  const long long B2 = (long long)gridDim.z * 2;
+  const long long pvar = variant * B2 * n_split * E, svar = variant * B2 * E;
+  const bool write_q = variant == (kBf16 ? 1 : 0);
   auto stage = [&](int c0, int buf) {
     stage_rows(s.ts + buf * kC * ld, ld, tb, c0, d,
                [&](int r) { return c0 + r < c_end; });
@@ -381,10 +407,30 @@ __global__ void __launch_bounds__(kLossThreads, 2) final_scores_kernel(
       const float* pos = dir == 0 ? orow : sr;
       for (int c = lane; c < d2; c += kWarp) {
         float re, im;
-        complex_query(dir, sr, orow, r, c, d2, re, im);
+        if constexpr (kBf16) {
+          // the loss's rows split (variant 0), or the rounded table's rows
+          // (variant 1); the relation rows split in both
+          auto row = [&](float v) {
+            return variant ? round_bf16(v) : hilo_bf16(v);
+          };
+          const float s_re = row(sr[c]), s_im = row(sr[c + d2]);
+          const float o_re = row(orow[c]), o_im = row(orow[c + d2]);
+          const float r_re = hilo_bf16(r[c]), r_im = hilo_bf16(r[c + d2]);
+          if (dir == 0) {
+            re = s_re * r_re - s_im * r_im;
+            im = s_re * r_im + s_im * r_re;
+            part += re * o_re + im * o_im;
+          } else {
+            re = r_re * o_re + r_im * o_im;
+            im = r_re * o_im - r_im * o_re;
+            part += re * s_re + im * s_im;
+          }
+        } else {
+          complex_query(dir, sr, orow, r, c, d2, re, im);
+          part += re * pos[c] + im * pos[c + d2];
+        }
         s.qs[i * ld + c] = re;
         s.qs[i * ld + c + d2] = im;
-        part += re * pos[c] + im * pos[c + d2];
       }
     } else {
       for (int c = lane; c < d; c += kWarp) s.qs[i * ld + c] = 0.f;
@@ -393,9 +439,11 @@ __global__ void __launch_bounds__(kLossThreads, 2) final_scores_kernel(
     for (int off = 16; off > 0; off >>= 1)
       part += __shfl_xor_sync(kFull, part, off);
     if (split == 0 && e < E) {
-      float* qo = qhat_out + (qrow + e) * d;
-      for (int c = lane; c < d; c += kWarp) qo[c] = s.qs[i * ld + c];
-      if (lane == 0) scpos_out[qrow + e] = part;
+      if (write_q) {
+        float* qo = qhat_out + (qrow + e) * d;
+        for (int c = lane; c < d; c += kWarp) qo[c] = s.qs[i * ld + c];
+      }
+      if (lane == 0) scpos_out[svar + qrow + e] = part;
     }
   }
   init_cursors(s, (dir == 0 ? t_ptr : h_ptr) + (long long)b * (E + 1), ans,
@@ -463,7 +511,7 @@ __global__ void __launch_bounds__(kLossThreads, 2) final_scores_kernel(
       lse_merge(m[h], sum[h], s.w[q], s.l[q]);
       if (e < E) {
         const long long o =
-            (((long long)b * 2 + dir) * n_split + split) * E + e;
+            pvar + (((long long)b * 2 + dir) * n_split + split) * E + e;
         part_m[o] = m[h];
         part_s[o] = sum[h];
       }
@@ -474,7 +522,9 @@ __global__ void __launch_bounds__(kLossThreads, 2) final_scores_kernel(
 // One block per element: each positive query's log-sum-exp over its column
 // partials and its positive's score (0 for the other slots), the count of
 // positives (at least 1), and the loss: the sum over positives of both
-// directions' lse - score, over the count. A fixed tree sums the block.
+// directions' lse - score, over the count. A fixed tree sums the block. In
+// the bfloat16 mode the loss is variant 0's and the log-sum-exps written
+// are variant 1's (final_scores_kernel).
 __global__ void final_loss_reduce_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_s,
     const float* __restrict__ scpos, const float* __restrict__ posm,
@@ -482,6 +532,7 @@ __global__ void final_loss_reduce_kernel(
     float* __restrict__ loss, int E, int n_split) {
   __shared__ float red_ce[kLossThreads], red_n[kLossThreads];
   const int b = blockIdx.x, tid = threadIdx.x;
+  const long long B2 = (long long)gridDim.x * 2;
   float ce = 0.f, n = 0.f;
   for (int e = tid; e < E; e += kLossThreads) {
     const float pm = posm[(long long)b * E + e];
@@ -489,20 +540,25 @@ __global__ void final_loss_reduce_kernel(
     for (int dir = 0; dir < 2; ++dir) {
       const long long q = ((long long)b * 2 + dir) * E + e;
       float l = 0.f;
-      if (pm > 0.f) {
-        const float sp = scpos[q];
-        const long long base = ((long long)b * 2 + dir) * n_split * E + e;
-        float mx = sp;
-        for (int sp_i = 0; sp_i < n_split; ++sp_i)
-          mx = fmaxf(mx, part_m[base + (long long)sp_i * E]);
-        float sum = expf(sp - mx);
-        for (int sp_i = 0; sp_i < n_split; ++sp_i) {
-          const float pmx = part_m[base + (long long)sp_i * E];
-          if (pmx != -INFINITY)
-            sum += part_s[base + (long long)sp_i * E] * expf(pmx - mx);
+      for (int v = 0; v < (kBf16 ? 2 : 1); ++v) {
+        l = 0.f;
+        if (pm > 0.f) {
+          const float sp = scpos[v * B2 * E + q];
+          const long long base =
+              v * B2 * n_split * E + ((long long)b * 2 + dir) * n_split * E
+              + e;
+          float mx = sp;
+          for (int sp_i = 0; sp_i < n_split; ++sp_i)
+            mx = fmaxf(mx, part_m[base + (long long)sp_i * E]);
+          float sum = expf(sp - mx);
+          for (int sp_i = 0; sp_i < n_split; ++sp_i) {
+            const float pmx = part_m[base + (long long)sp_i * E];
+            if (pmx != -INFINITY)
+              sum += part_s[base + (long long)sp_i * E] * expf(pmx - mx);
+          }
+          l = mx + logf(sum);
+          if (v == 0) ce += pm * (l - sp);
         }
-        l = mx + logf(sum);
-        ce += pm * (l - sp);
       }
       lse[q] = l;
     }
@@ -530,12 +586,15 @@ __global__ void final_loss_reduce_kernel(
 // query q, the sum over the range's columns n of p_qn * table[n], with
 // p_qn = exp(score - lse_q) (0 at true answers); unscaled by the loss
 // weight, one partial per range. A column tile: its scores (score_product,
-// K3's), then p into ps, then dq += P T (cot_product).
+// K3's), then p into ps, then dq += P T (cot_product). The bfloat16 mode
+// scales p by the query's loss weight posm * g / count first (cnt, gout),
+// as the TPU kernel rounds the weighted probabilities.
 __global__ void __launch_bounds__(kLossThreads, 2) final_dq_kernel(
     const float* __restrict__ table, const float* __restrict__ qhat,
     const float* __restrict__ lse, const float* __restrict__ posm,
     const int* __restrict__ t_ptr, const int* __restrict__ t_ans,
     const int* __restrict__ h_ptr, const int* __restrict__ h_ans,
+    const float* __restrict__ cnt, const float* __restrict__ gout,
     float* __restrict__ part_dq, int N, int E, int d, int n_split,
     int chunk) {
   const int ld = tc_ld(d);
@@ -558,6 +617,7 @@ __global__ void __launch_bounds__(kLossThreads, 2) final_dq_kernel(
     const int e = e0 + tid;
     const bool on = e < E && pm[e] > 0.f;
     s.f[tid] = on ? 1.f : 0.f;
+    if constexpr (kBf16) s.w[tid] = on ? pm[e] * (gout[b] / cnt[b]) : 0.f;
     s.l[tid] = on ? lse[qrow + e] : 0.f;
   }
   init_cursors(s, (dir == 0 ? t_ptr : h_ptr) + (long long)b * (E + 1), ans,
@@ -587,6 +647,7 @@ __global__ void __launch_bounds__(kLossThreads, 2) final_dq_kernel(
           const int c = score_col(nt, 2 * h + j);
           const bool ok = on && c0 + c < c_end && !((bits >> c) & 1ull);
           p[j] = ok ? expf(acc[nt][2 * h + j] - l) : 0.f;
+          if constexpr (kBf16) p[j] *= s.w[q];
         }
         *reinterpret_cast<float2*>(s.ps + q * kLdDq + score_col(nt, 2 * h)) =
             make_float2(p[0], p[1]);
@@ -610,7 +671,11 @@ __global__ void __launch_bounds__(kLossThreads, 2) final_dq_kernel(
 // One warp per edge slot: w = posm * g / count; per direction the query
 // cotangent w * (sum of the range partials) + w * (p_pos - 1) * positive
 // row, taken back through the ComplEx query to the subject, object and
-// relation rows (zeros for slots that are not positives).
+// relation rows (zeros for slots that are not positives). In the bfloat16
+// mode the partials are weighted already, the subject and object rows are
+// the table's rounded to bfloat16 and the relation rows split (as the
+// queries K4 reads were built), and the three cotangents are written
+// rounded to bfloat16, as the TPU kernel casts them before its scatters.
 __global__ void final_dq_finish_kernel(
     const float* __restrict__ table, const float* __restrict__ rtab,
     const int* __restrict__ src, const int* __restrict__ dst,
@@ -646,10 +711,15 @@ __global__ void final_dq_finish_kernel(
   const float* pt = part_dq + (((long long)b * 2) * n_split * E + e) * d;
   const float* ph = part_dq + (((long long)b * 2 + 1) * n_split * E + e) * d;
   const long long stride = (long long)E * d;   // from one range to the next
+  // the partials' weight (1 where final_dq weighted them), the rows' and
+  // the outputs' rounding
+  const float wp = kBf16 ? 1.f : w;
+  auto row = [](float v) { return kBf16 ? round_bf16(v) : v; };
+  auto rel_row = [](float v) { return kBf16 ? hilo_bf16(v) : v; };
   for (int c = lane; c < d2; c += kWarp) {
-    const float s_re = s[c], s_im = s[c + d2];
-    const float o_re = o[c], o_im = o[c + d2];
-    const float r_re = r[c], r_im = r[c + d2];
+    const float s_re = row(s[c]), s_im = row(s[c + d2]);
+    const float o_re = row(o[c]), o_im = row(o[c + d2]);
+    const float r_re = rel_row(r[c]), r_im = rel_row(r[c + d2]);
     float at_re = 0.f, at_im = 0.f, ah_re = 0.f, ah_im = 0.f;
     for (int k = 0; k < n_split; ++k) {
       at_re += pt[k * stride + c];
@@ -658,8 +728,8 @@ __global__ void final_dq_finish_kernel(
       ah_im += ph[k * stride + c + d2];
     }
     // tail: qhat = s * r, positive row o
-    float dq_re = w * at_re + dsp_t * o_re;
-    float dq_im = w * at_im + dsp_t * o_im;
+    float dq_re = wp * at_re + dsp_t * o_re;
+    float dq_im = wp * at_im + dsp_t * o_im;
     float gs_re = dq_re * r_re + dq_im * r_im;
     float gs_im = -dq_re * r_im + dq_im * r_re;
     float gr_re = dq_re * s_re + dq_im * s_im;
@@ -667,20 +737,20 @@ __global__ void final_dq_finish_kernel(
     float go_re = dsp_t * qhat[qt * d + c];
     float go_im = dsp_t * qhat[qt * d + c + d2];
     // head: qhat = conj(r) * o in ComplEx terms, positive row s
-    dq_re = w * ah_re + dsp_h * s_re;
-    dq_im = w * ah_im + dsp_h * s_im;
+    dq_re = wp * ah_re + dsp_h * s_re;
+    dq_im = wp * ah_im + dsp_h * s_im;
     go_re += dq_re * r_re - dq_im * r_im;
     go_im += dq_re * r_im + dq_im * r_re;
     gr_re += dq_re * o_re + dq_im * o_im;
     gr_im += dq_re * o_im - dq_im * o_re;
     gs_re += dsp_h * qhat[qh * d + c];
     gs_im += dsp_h * qhat[qh * d + c + d2];
-    ds_row[c] = gs_re;
-    ds_row[c + d2] = gs_im;
-    do_row[c] = go_re;
-    do_row[c + d2] = go_im;
-    dr_row[c] = gr_re;
-    dr_row[c + d2] = gr_im;
+    ds_row[c] = row(gs_re);
+    ds_row[c + d2] = row(gs_im);
+    do_row[c] = row(go_re);
+    do_row[c + d2] = row(go_im);
+    dr_row[c] = row(gr_re);
+    dr_row[c + d2] = row(gr_im);
   }
 }
 
@@ -848,6 +918,7 @@ __global__ void final_wgrad_reduce_kernel(const float* __restrict__ part,
 
 // -- K11 ---------------------------------------------------------------------
 
+#if !TK_BF16
 // A true answer's score in the ranks (ops/ranking.py NEG_INF).
 constexpr float kNegRank = -1.0e7f;
 
@@ -1036,6 +1107,7 @@ __global__ void final_rank_reduce_kernel(
   }
   if (tid == 0) bce[b] = red_l[0] / fmaxf(red_n[0], 1.f);
 }
+#endif  // !TK_BF16
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -1087,7 +1159,8 @@ extern "C" int final_scores_launch(
         loss_smem_floats(tc_ld(d), kScoreBufs, 0) * sizeof(float);
     cudaError_t err = allow_smem(final_scores_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(((E + kQ - 1) / kQ) * n_split, 2, B);
+    // the bfloat16 mode's two variants in the second grid dimension
+    const dim3 grid(((E + kQ - 1) / kQ) * n_split, kBf16 ? 4 : 2, B);
     final_scores_kernel<<<grid, kLossThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(table), static_cast<const float*>(rtab),
@@ -1117,11 +1190,13 @@ extern "C" int final_loss_reduce_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+// cnt, gout: the count and the cotangent of each element's loss (read by
+// the bfloat16 mode only).
 extern "C" int final_dq_launch(
     const void* table, const void* qhat, const void* lse, const void* posm,
     const void* t_ptr, const void* t_ans, const void* h_ptr,
-    const void* h_ans, void* part_dq, int B, int N, int E, int d,
-    int n_split, void* stream) {
+    const void* h_ans, const void* cnt, const void* gout, void* part_dq,
+    int B, int N, int E, int d, int n_split, void* stream) {
   if (B > 0 && E > 0) {
     const size_t smem =
         loss_smem_floats(tc_ld(d), 1, kQ * kLdDq) * sizeof(float);
@@ -1134,6 +1209,7 @@ extern "C" int final_dq_launch(
         static_cast<const float*>(lse), static_cast<const float*>(posm),
         static_cast<const int*>(t_ptr), static_cast<const int*>(t_ans),
         static_cast<const int*>(h_ptr), static_cast<const int*>(h_ans),
+        static_cast<const float*>(cnt), static_cast<const float*>(gout),
         static_cast<float*>(part_dq), N, E, d, n_split,
         loss_chunk(N, n_split));
   }
@@ -1189,12 +1265,16 @@ extern "C" int final_dtable_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The relation and weight sums read and write float32 only: the float32
+// build's serve both modes.
+#if !TK_BF16
 extern "C" int final_rel_grad_launch(const void* r_ptr, const void* r_eid,
                                      const void* vals, void* out, int n_rels,
                                      int d, void* stream) {
   return static_cast<int>(
       rel_sum(r_ptr, r_eid, vals, nullptr, out, n_rels, d, stream));
 }
+#endif  // !TK_BF16
 
 extern "C" int final_bwd_gru_launch(
     const void* x, const void* rowptr, const void* src, const void* rel,
@@ -1245,11 +1325,10 @@ extern "C" int final_bwd_input_launch(
 // dwih + dbih, (h0g, d_gh) -> dwhh + dbhh, (x, d_lp) -> dloop. `part` holds
 // n_split copies of the flat outputs, each laid out dwih [d, 3d], dbih [3d],
 // dwhh [d, 3d], dbhh [3d], dloop [d, d]; it must start at zero.
-extern "C" int final_wgrad_launch(const void* conv_s, const void* dgi_s,
-                                  const void* h0g_s, const void* dgh_s,
-                                  const void* x, const void* dlp_s,
-                                  void* part, int n_split, int B, int N,
-                                  int d, void* stream) {
+extern "C" int final_wgrad_launch(
+    const void* conv_s, const void* dgi_s, const void* h0g_s,
+    const void* dgh_s, const void* x, const void* dlp_s, void* part,
+    int n_split, int B, int N, int d, void* stream) {
   if (B > 0 && N > 0 && n_split > 0) {
     const long long sd = (long long)N * d, sg = 3LL * N * d;
     const long long dd = (long long)d * d;
@@ -1271,6 +1350,7 @@ extern "C" int final_wgrad_launch(const void* conv_s, const void* dgi_s,
   return static_cast<int>(cudaGetLastError());
 }
 
+#if !TK_BF16
 extern "C" int final_wgrad_reduce_launch(const void* part, int n_split,
                                          long long total, void* out,
                                          void* stream) {
@@ -1324,3 +1404,4 @@ extern "C" int final_rank_reduce_launch(const void* part_cnt,
   }
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // !TK_BF16

@@ -68,6 +68,14 @@
 // a live row names a row no other live row names (each earlier row is read
 // only by its entity's next active step), so a plain read-add-store is
 // exact, and dead rows (live = 0) store nothing.
+//
+// Compiled a second time as fused_window_bf16.cu, with TK_BF16 1: K2f's and
+// K2b's bfloat16 mode (rgcn_gru_layer.cuh), the TPU kernels' bfloat16
+// instantiation. The buffers (and the third) are bfloat16; layer 2 of K2f
+// reads layer 1's buffer as its input (x_bf16); K2b reads the buffers as
+// previous states and takes layer 2's input as float32 (a copy of the
+// buffer the wrapper makes), its cotangent scratch float32. The same
+// launches, one product a k8 step.
 
 #include "rgcn_gru_layer.cuh"
 
@@ -86,7 +94,8 @@ constexpr int kFwdWarps = 4;
 
 // One RGCN+GRU layer of window step k for the rows of tile blockIdx.x /
 // slabs of element blockIdx.y, at the columns of slab blockIdx.x % slabs of
-// every gate: the output rows (and with loc the conv output) there.
+// every gate: the output rows (and with loc the conv output) there, in the
+// store dtype.
 __global__ void __launch_bounds__(kFwdWarps * kWarp, 3) window_layer_kernel(
     Layer p, float* buf, float* loc, int slabs) {
   const int d = p.d;
@@ -94,8 +103,8 @@ __global__ void __launch_bounds__(kFwdWarps * kWarp, 3) window_layer_kernel(
   const int s0 = (blockIdx.x % slabs) * block_cols();
   fwd_layer_tile(p, blockIdx.y, a0, s0,
                  [&](long long row, int c, float h, float conv) {
-                   buf[row * d + c] = h;
-                   if (loc != nullptr) loc[row * d + c] = conv;
+                   store_out(buf, row * d + c, h);
+                   if (loc != nullptr) store_out(loc, row * d + c, conv);
                  });
 }
 
@@ -138,18 +147,19 @@ __global__ void window_wgrad_reduce_kernel(const float* __restrict__ part,
 
 }  // namespace
 
+// x_bf16: whether x is bfloat16 (the bfloat16 mode; 0 otherwise).
 extern "C" int window_layer_launch(
     const void* x, int conv_given, const void* rowptr, const void* src,
     const void* rel, const void* em, const void* wrel, int wstride, int wcol,
     const void* loopw, const void* mask, int relu, const void* wih_t,
     const void* whh_t, const void* bih, const void* bhh, const void* gidx,
     const void* live, const void* dt, float lam, void* buf, void* loc, int B,
-    int L1, int A, int d, int k, void* stream) {
+    int L1, int A, int d, int x_bf16, int k, void* stream) {
   if (B > 0 && A > 0) {
     const Layer p = make_layer(x, conv_given, rowptr, src, rel, em, wrel,
                                wstride, wcol, loopw, mask, relu, wih_t, whh_t,
                                bih, bhh, gidx, live, dt, lam, buf, L1, A, d,
-                               k);
+                               k, x_bf16);
     const int warps = fwd_warps(d, kFwdWarps);
     const int slabs = d / (16 * warps);
     const int bytes =
@@ -255,6 +265,9 @@ extern "C" int window_wgrad_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The sums below read and write float32 only: the float32 build's serve
+// both modes.
+#if !TK_BF16
 extern "C" int window_wgrad_reduce_launch(const void* part, int n_split,
                                           long long total, void* out,
                                           void* stream) {
@@ -276,3 +289,4 @@ extern "C" int window_rel_grad_launch(const void* r_ptr, const void* r_eid,
   return static_cast<int>(
       rel_sum(r_ptr, r_eid, ewg1, ewg2, dwrel, n_rels, d, stream));
 }
+#endif  // !TK_BF16

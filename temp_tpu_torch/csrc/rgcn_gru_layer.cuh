@@ -29,15 +29,64 @@
 // gates bit for bit. What bounds them is the tensor cores' mma.sync rate at
 // three products for each f32 one, with the 3xTF32 splits and the staging
 // beside it.
+//
+// The bfloat16 mode. A source that defines TK_BF16 to 1 before it includes
+// this header (fused_window_bf16.cu, fused_final_bf16.cu: fused_window.cu
+// and fused_final.cu compiled again) gets every routine here in the mode of
+// the TPU kernels' bfloat16 instantiation (temp_tpu/ops/fused_window.py,
+// fused_final.py with dtype_str "bfloat16"): each product operand rounded to
+// bfloat16 (to nearest even) and kept as a float whose low 16 bits are zero,
+// exact in TF32, so ONE mma.sync TF32 product a k8 step (split_tf32, mma3)
+// gives the bfloat16 product with float32 sums; the SpMM rounds each
+// gathered source row, relation weight and message (spmm_rows) and its
+// transpose each gathered cotangent and each product term
+// (bwd_input_tile), where the TPU kernels' one-hot products round them;
+// the previous states (the window's buffers, the final step's history)
+// are bfloat16 in device memory (prev_at), and a layer's input may be
+// (x_at, Layer::x_bf16: layer 2 of the window reads layer 1's buffer). Its
+// exported launchers carry the suffix _bf16 (the including source renames
+// them). What bounds the
+// mode: TF32's 495 TFLOP/s, a third of the tensor cores' bfloat16 rate,
+// on the same fragment loaders; native bfloat16 mma.sync or wgmma is later
+// work.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#ifndef TK_BF16
+#define TK_BF16 0
+#endif
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxChunks = 8;                         // d <= 256
+constexpr bool kBf16 = TK_BF16 != 0;
+
+// x rounded to bfloat16 (to nearest, ties to even, as XLA's convert), as a
+// float.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x as its bfloat16 rounding plus the bfloat16 rounding of the rest (about
+// 16 significant bits): the TPU kernel's hi/lo split of the loss's gathered
+// rows (temp_tpu/ops/fused_final.py _Final._gather_rows).
+__device__ __forceinline__ float hilo_bf16(float x) {
+  const float hi = round_bf16(x);
+  return hi + round_bf16(x - hi);
+}
+
+// A value written to a buffer in the store dtype: bfloat16 in the
+// bfloat16 mode, float otherwise.
+__device__ __forceinline__ void store_out(float* base, long long i, float v) {
+  if constexpr (kBf16)
+    reinterpret_cast<__nv_bfloat16*>(base)[i] = __float2bfloat16_rn(v);
+  else
+    base[i] = v;
+}
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -84,9 +133,27 @@ struct Layer {
   const float* dt;      // [B, L1, A]
   float lam;
   const float* prev;    // [B, L1, A, d] previous states (the window: this
-                        // layer's output buffer; the final step: history)
+                        // layer's output buffer; the final step: history);
+                        // bfloat16 in the bfloat16 mode
   int L1, A, d, k;
+  int x_bf16;           // x is bfloat16 (the bfloat16 mode only)
 };
+
+// Element i of the layer's input and of its previous states, as floats.
+__device__ __forceinline__ float x_at(const Layer& p, long long i) {
+  if constexpr (kBf16) {
+    if (p.x_bf16)
+      return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p.x)[i]);
+  }
+  return p.x[i];
+}
+
+__device__ __forceinline__ float prev_at(const Layer& p, long long i) {
+  if constexpr (kBf16)
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p.prev)[i]);
+  else
+    return p.prev[i];
+}
 
 // The row of prev that holds row `row`'s previous state, and its liveness.
 __device__ __forceinline__ long long prev_row(const Layer& p,
@@ -132,6 +199,26 @@ __device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
       mine.live = live_of(p, row);
       mine.dec = expf(-p.lam * p.dt[row]);
     }
+  }
+  if constexpr (kBf16) {
+    // bfloat16 rows (the previous states, maybe the input) read by loads
+    // that widen them, a warp a row
+    for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
+      const bool in = a0 + r < A;
+      const long long xr = (step_row + (in ? a0 + r : 0)) * d;
+      const long long pr = __shfl_sync(kAll, mine.off, i);
+      const float lv = __shfl_sync(kAll, mine.live, i);
+      const float dec = __shfl_sync(kAll, mine.dec, i);
+      for (int c = lane; c < d; c += kWarp) {
+        const float xv = in ? x_at(p, xr + c) : 0.f;
+        xs[r * ld + c] = xv;
+        if (p.conv_given) cs[r * ld + c] = xv;
+        if (hs != nullptr)
+          hs[r * ld + c] = in ? prev_at(p, pr + c) * lv * dec : 0.f;
+      }
+    }
+    __syncwarp();
+    return;
   }
   for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
     const bool in = a0 + r < A;
@@ -211,7 +298,12 @@ __device__ __forceinline__ void decay_prev(const Layer& p, int b, int a0,
 
 // The relational SpMM with double degree normalization of rows
 // a0..a0+nrows-1 of element b (one warp a row) into cs (row stride ld);
-// writes norm^2 of each row to n2_out when it is not null. No barrier.
+// writes norm^2 of each row to n2_out when it is not null (the bfloat16
+// mode: norm, which its transpose needs). No barrier.
+//
+// The bfloat16 mode sums, as the TPU kernel does, the messages
+// round(round(h[src]) * round(w[rel]) * (norm * em)) and then scales the
+// sum by norm: the degree first, then the messages.
 __device__ __forceinline__ void spmm_rows(const Layer& p, int b, int a0,
                                           int nrows, float* cs, int ld,
                                           float* n2_out) {
@@ -219,6 +311,42 @@ __device__ __forceinline__ void spmm_rows(const Layer& p, int b, int a0,
   const long long step_row = ((long long)b * p.L1 + p.k) * A;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int nwarps = (blockDim.x + kWarp - 1) / kWarp;
+  if constexpr (kBf16) {
+    for (int r = warp; r < nrows; r += nwarps) {
+      const int a = a0 + r;
+      float acc[kMaxChunks];
+#pragma unroll
+      for (int j = 0; j < kMaxChunks; ++j) acc[j] = 0.f;
+      float norm = 0.f;
+      if (a < A) {
+        const long long row = step_row + a;
+        const int e0 = p.rowptr[row], e1 = p.rowptr[row + 1];
+        float deg = 0.f;
+        for (int e = e0; e < e1; ++e) deg += p.em[e];
+        norm = deg > 0.f ? 1.f / deg : 0.f;
+        for (int e = e0; e < e1; ++e) {
+          const float es = norm * p.em[e];
+          const long long hr = (step_row + p.src[e]) * d;
+          const float* wr = p.wrel + (long long)p.rel[e] * p.wstride + p.wcol;
+#pragma unroll
+          for (int j = 0; j < kMaxChunks; ++j) {
+            const int c = lane + j * kWarp;
+            if (c < d) {
+              const float hw = round_bf16(x_at(p, hr + c)) * round_bf16(wr[c]);
+              acc[j] += round_bf16(hw * es);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kMaxChunks; ++j) {
+        const int c = lane + j * kWarp;
+        if (c < d) cs[r * ld + c] = acc[j] * norm;
+      }
+      if (n2_out != nullptr && lane == 0 && a < A) n2_out[step_row + a] = norm;
+    }
+    return;
+  }
   for (int r = warp; r < nrows; r += nwarps) {
     const int a = a0 + r;
     float acc[kMaxChunks];
@@ -279,9 +407,15 @@ constexpr int kKs = 8;                     // depth rows a ring slot holds
 constexpr int kRingSlots = 3;
 
 // x = hi + lo: hi rounded to tf32 (kRound) or truncated, lo the exact rest.
+// The bfloat16 mode: hi = x rounded to bfloat16 (exact in tf32), lo unused.
 template <bool kRound>
 __device__ __forceinline__ void split_tf32(float x, unsigned& hi,
                                            unsigned& lo) {
+  if constexpr (kBf16) {
+    hi = __float_as_uint(round_bf16(x));
+    lo = 0u;
+    return;
+  }
   if (kRound)
     asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
   else
@@ -305,13 +439,18 @@ struct FragB {
   unsigned hi[2], lo[2];
 };
 
-// acc += A B over one k8 step in 3xTF32.
+// acc += A B over one k8 step in 3xTF32; in the bfloat16 mode one TF32
+// product of the rounded operands (exact products, float32 sums).
 __device__ __forceinline__ void mma3(float (&acc)[4], const FragA& a,
                                      const FragB& b) {
   float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(t, a.lo, b.hi[0], b.hi[1]);
-  mma_tf32(t, a.hi, b.lo[0], b.lo[1]);
-  mma_tf32(t, a.hi, b.hi[0], b.hi[1]);
+  if constexpr (kBf16) {
+    mma_tf32(t, a.hi, b.hi[0], b.hi[1]);
+  } else {
+    mma_tf32(t, a.lo, b.hi[0], b.hi[1]);
+    mma_tf32(t, a.hi, b.lo[0], b.lo[1]);
+    mma_tf32(t, a.hi, b.hi[0], b.hi[1]);
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) acc[i] += t[i];
 }
@@ -827,7 +966,10 @@ __host__ __device__ constexpr int bwd_input_smem_floats(int d) {
 // or 0; the product through tile_product. Also writes each edge's
 // relation-weight cotangent (over a CSR by source, so every unmasked edge
 // of the step is written once; masked edges are in no CSR and their slots
-// are never read).
+// are never read). In the bfloat16 mode n2 holds norm (spmm_rows), and the
+// TPU kernel's casts: the message cotangent round(d_conv[dst] * norm[dst]),
+// then each source term round(d_msg * round(w) * (norm * em)) summed and
+// each relation term round(d_msg * round(x[src]) * (norm * em)).
 __device__ __forceinline__ void bwd_input_tile(
     const int* __restrict__ s_ptr,     // [B*L1*A + 1] CSR by (b, k, src)
     const int* __restrict__ s_dst,     // step-local destination rows
@@ -878,9 +1020,16 @@ __device__ __forceinline__ void bwd_input_tile(
         for (int j = 0; j < kMaxChunks; ++j) {
           const int c = lane + j * kWarp;
           if (c < d) {
-            const float gv = gt[c] * s;
-            acc[j] += gv * wr[c];
-            er[c] = gv * xr[c];
+            if constexpr (kBf16) {
+              // s = norm[dst] * em; n2 holds norm in this mode
+              const float dm = round_bf16(gt[c] * n2[step_row + t]);
+              acc[j] += round_bf16(dm * round_bf16(wr[c]) * s);
+              er[c] = round_bf16(dm * round_bf16(xr[c]) * s);
+            } else {
+              const float gv = gt[c] * s;
+              acc[j] += gv * wr[c];
+              er[c] = gv * xr[c];
+            }
           }
         }
       }
@@ -1096,7 +1245,8 @@ Layer make_layer(const void* x, int conv_given, const void* rowptr,
                  const void* whh_t,
                  const void* bih, const void* bhh, const void* gidx,
                  const void* live, const void* dt, float lam,
-                 const void* prev, int L1, int A, int d, int k) {
+                 const void* prev, int L1, int A, int d, int k,
+                 int x_bf16 = 0) {
   Layer p;
   p.x = static_cast<const float*>(x);
   p.conv_given = conv_given;
@@ -1123,6 +1273,7 @@ Layer make_layer(const void* x, int conv_given, const void* rowptr,
   p.A = A;
   p.d = d;
   p.k = k;
+  p.x_bf16 = x_bf16;
   return p;
 }
 

@@ -372,7 +372,9 @@ class DynamicRGCNModel:
                     kernels=cfg.kernels, masks=scaled, direction=direction,
                     activation2=self.lc2.activation, n_buf=n_buf)
         else:
-            bufs = tuple(torch.zeros(B, L1, A, d, device=self.device)
+            store = cfg.hot_dtype or torch.float32
+            bufs = tuple(torch.zeros(B, L1, A, d, device=self.device,
+                                     dtype=store)
                          for _ in range(n_buf))
             for k in range(L1):
                 pstep = prev_step[:, k]
@@ -402,9 +404,10 @@ class DynamicRGCNModel:
         # densify once: hist[e] = output at e's last active step, else 0
         fin_step = tbl.fin_step[tp].long()            # [B, N]
         fidx = fin_step.clamp(min=0) * A + tbl.fin_row[tp].long()
-        has = (fin_step >= 0).to(torch.float32)[..., None]
-        hists = tuple(buf.reshape(B, L1 * A, d)[bidx, fidx] * has
-                      for buf in bufs)
+        has = (fin_step >= 0)[..., None]
+        hists = tuple(
+            buf.reshape(B, L1 * A, d)[bidx, fidx] * has.to(buf.dtype)
+            for buf in bufs)
         return hists + (fin_step.clamp(min=0).to(torch.float32),)
 
     def final_snapshot(self, data: TKGData, t_pos: int, length: int,
@@ -546,7 +549,7 @@ class DynamicRGCNModel:
                          cfg.inv_temperature, self.lc2.dropout,
                          self.train_len, cfg.use_embed_for_non_active)
         return fused_final_loss(params, gr, hist1, hist2,
-                                kernels=cfg.kernels)
+                                kernels=cfg.kernels, hot=cfg.hot_dtype)
 
     def loss(self, params, data: TKGData, t_pos, t_valid,
              gen: torch.Generator = None, draws=None):

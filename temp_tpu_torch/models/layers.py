@@ -25,7 +25,7 @@ import torch
 
 from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.ops.gru import (
-    GRU_KEY, init_gru_params, init_type1_gru_params, run_gru,
+    GRU_KEY, hot_round, init_gru_params, init_type1_gru_params, run_gru,
 )
 from temp_tpu_torch.ops.segment import rel_spmm
 
@@ -168,14 +168,22 @@ def _aggregate(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot):
                     tables=snap.tables)
 
 
-def _bias_loop_act(p, lc: LayerCfg, out, h, train: bool, mask):
-    """out + bias + the self-loop message of h (dropout at rate
-    ``lc.dropout`` with the keep mask `mask` in training), then the
-    activation."""
+def _matmul(x, w, dtype=None):
+    """x @ w with optional low-precision inputs and float32 sums: the JAX
+    package's ``_matmul`` (``ops.gru._mm`` without the transpose)."""
+    return hot_round(x, dtype) @ hot_round(w, dtype)
+
+
+def _bias_loop_act(p, lc: LayerCfg, out, h, train: bool, mask,
+                   dtype=None):
+    """out + bias + the self-loop message of h (its product in `dtype`;
+    dropout at rate ``lc.dropout`` with the keep mask `mask` in training),
+    then the activation."""
     if lc.bias:
         out = out + p["h_bias"]
     if lc.self_loop:
-        out = out + _dropout(h @ p["loop_weight"], lc.dropout, train, mask)
+        out = out + _dropout(_matmul(h, p["loop_weight"], dtype), lc.dropout,
+                             train, mask)
     return _activation(lc.activation, out)
 
 
@@ -183,9 +191,11 @@ def rgcn_conv(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
               train: bool = False, mask=None):
     """Aggregation + bias + self-loop + activation. In training the
     self-loop message takes dropout at rate ``lc.dropout`` with the keep
-    mask `mask`."""
+    mask `mask`. The self-loop product runs in ``cfg.hot_dtype``; the
+    aggregation stays float32 (the JAX package's row SpMM ignores the
+    dtype)."""
     return _bias_loop_act(p, lc, _aggregate(p, cfg, lc, h, snap), h, train,
-                          mask)
+                          mask, cfg.hot_dtype)
 
 
 def layer_time_embedding(p, snap: Snapshot):

@@ -60,8 +60,9 @@ def make_raw_scorers(cfg: TKGConfig, data: TKGData, t_pos: int, src, rel,
     """The candidate scorers of one target snapshot's train queries (src,
     rel, dst [P], long): (score_tail, score_head), each mapping a query
     (``ops.scores.query_for``: (qvec [P, d], kind)) and an entity table
-    [N, d] to [P, 1 + C] logits, the positive's score in column 0. The
-    candidates follow ``cfg.negative_pool``:
+    [N, d] to [P, 1 + C] logits, the positive's score in column 0, the
+    candidates' scores in ``cfg.hot_dtype`` (the positive's in float32).
+    The candidates follow ``cfg.negative_pool``:
 
     - "all": every entity, the other true answers of the query (train
       facts at t) masked to -1e9;
@@ -79,10 +80,12 @@ def make_raw_scorers(cfg: TKGConfig, data: TKGData, t_pos: int, src, rel,
         raise ValueError(f"negative_pool={pool!r} with drawn candidates "
                          f"{neg is not None}")
 
+    hot = cfg.hot_dtype
+
     def scorer(tbl, q_grp, pos, cand):
         if pool == "per_query":
             return lambda query, table: torch.gather(
-                table_scores(query, table), 1, cand.long())
+                table_scores(query, table, hot), 1, cand.long())
         grp, val = tbl.grp[t_pos], tbl.val[t_pos]
         bad = (true_answer_mask(grp, val, q_grp, data.num_ents)
                if cand is None
@@ -90,7 +93,7 @@ def make_raw_scorers(cfg: TKGConfig, data: TKGData, t_pos: int, src, rel,
 
         def score(query, table):
             rows = table if cand is None else table[cand.long()]
-            sc = table_scores(query, rows).masked_fill(bad, -1e9)
+            sc = table_scores(query, rows, hot).masked_fill(bad, -1e9)
             sc_pos = row_scores(query, table[pos])
             return torch.cat([sc_pos[:, None], sc], dim=1)
         return score

@@ -33,6 +33,20 @@ read the same answers as one sorted list per edge slot
 (``data/snapshots.py`` ``AnswerLists``), built once with the model from the
 data.
 
+``hot=torch.bfloat16`` is the JAX kernels' bfloat16 instantiation of K3-K5:
+the encoder's products and SpMM as K2's bfloat16 mode (``ops/fused_window``
+``hot_mm``, ``spmm_hot_plain``), the history read from bfloat16; K3 gathers
+the loss's subject, object and relation rows as a high and a low bfloat16
+part (about 16 significant bits, ``_hilo``; the JAX docstring records that
+plainly rounded rows trained about one MRR point low) and scores in
+bfloat16; K4 recomputes the queries from the table rounded to bfloat16 (the
+JAX kernel's residual table is stored so) and rounds the score and row
+cotangents where the JAX kernel casts them; K5 is K2b's bfloat16 layer. On
+the card the same launches of the kernels compiled in their bfloat16 mode
+(``csrc/fused_final_bf16.cu``): K3's score launch then scores both query
+sets (the forward's, and the backward's from the rounded table, whose
+log-sum-exp K4 reads), so the launch counts stay those of float32.
+
 ``fused_eval_ranks`` (K11) computes what the JAX package's
 ``fused_eval_ranks`` returns for each of B eval targets: the final step in
 eval mode (K3's two layer launches: no dropout, the full edge mask), the
@@ -51,7 +65,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from temp_tpu_torch import _build
-from temp_tpu_torch.ops.fused_window import _device, _gru_t
+from temp_tpu_torch.ops.fused_window import (
+    _device, _gru_t, _lib_fn, hot_mm, spmm_hot_plain,
+)
+from temp_tpu_torch.ops.gru import hot_round
 from temp_tpu_torch.ops.membership import true_answer_mask
 from temp_tpu_torch.ops.ranking import filtered_ranks
 from temp_tpu_torch.ops.scores import complex_all, complex_single
@@ -158,12 +175,15 @@ def _flat(gr: FinalGraph, n: int):
             gr.emf.reshape(-1))
 
 
-def _conv_plain(x, gr: FinalGraph, w, loop, mask):
+def _conv_plain(x, gr: FinalGraph, w, loop, mask, hot=None):
     """Relational SpMM with double degree norm plus the (dropped) self-loop
-    over the final graphs; x [B, N, d]."""
+    over the final graphs; x [B, N, d]; in the mode `hot` (K2's
+    ``spmm_hot_plain`` and ``hot_mm`` for bfloat16)."""
     B, N, d = x.shape
-    agg = spmm_fwd_plain(x.reshape(B * N, d), *_flat(gr, N), w)
-    lp = x @ loop
+    edges = (x.reshape(B * N, d), *_flat(gr, N), w)
+    agg = (spmm_fwd_plain(*edges) if hot is None
+           else spmm_hot_plain(*edges, hot))
+    lp = hot_mm(x, loop, hot)
     if mask is not None:
         lp = lp * mask
     return agg.reshape(B, N, d) + lp
@@ -174,34 +194,54 @@ def _gru_dict(wih_t, whh_t, bih, bhh):
 
 
 def _encoder_plain(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
-                   g2):
-    """(table, out1), each [B, N, d] (``_Final.encoder``)."""
+                   g2, hot=None):
+    """(table, out1), each [B, N, d] (``_Final.encoder``), in the mode
+    `hot`; the histories in any float dtype."""
     B, N, d = hist1.shape
     dec = torch.exp(-gr.lam * gr.dt)[..., None]
     x = h0.expand(B, N, d)
-    out1 = _gru_t(_conv_plain(x, gr, wrel[:, :d], loop1, gr.m1), hist1 * dec,
-                  g1)
-    out2 = _gru_t(_conv_plain(out1, gr, wrel[:, d:], loop2, gr.m2),
-                  hist2 * dec, g2)
+    out1 = _gru_t(_conv_plain(x, gr, wrel[:, :d], loop1, gr.m1, hot),
+                  hist1 * dec, g1, hot)
+    out2 = _gru_t(_conv_plain(out1, gr, wrel[:, d:], loop2, gr.m2, hot),
+                  hist2 * dec, g2, hot)
     if gr.active is None:
         return out2, out1
     return torch.where(gr.active[..., None] > 0, out2, x), out1
 
 
-def _loss_side(table, rtab, gr: FinalGraph):
+def _hilo(x):
+    """x as the sum of its bfloat16 rounding and the bfloat16 rounding of
+    the rest: about 16 significant bits (the JAX kernel's
+    ``_Final._gather_rows`` in bfloat16)."""
+    hi = hot_round(x, torch.bfloat16)
+    return hi + hot_round(x - hi, torch.bfloat16)
+
+
+def _loss_side(table, rtab, gr: FinalGraph, hot=None, residual=False):
     """Per direction: (qhat, positive rows, masked scores [B, E, N], the
-    positives' scores, lse), and (s_rows, o_rows, remb)."""
+    positives' scores, lse), and (s_rows, o_rows, remb). In the mode `hot`
+    the scores' operands are rounded to it, and the rows are gathered as
+    the JAX kernels gather them: the subject, object and relation rows as
+    ``_hilo`` parts (K3), or with `residual` (K4) the subject and object
+    rows of the table rounded to `hot`, the relation rows as ``_hilo``
+    parts."""
     N = table.shape[1]
     bidx = torch.arange(table.shape[0], device=table.device)[:, None]
     src, dst, rel = gr.src.long(), gr.dst.long(), gr.rel.long()
+    if hot is not None and residual:
+        table = hot_round(table, hot)
     s_rows, o_rows, remb = table[bidx, src], table[bidx, dst], rtab[rel]
+    if hot is not None:
+        remb = _hilo(remb)
+        if not residual:
+            s_rows, o_rows = _hilo(s_rows), _hilo(o_rows)
     out = []
     for qhat, pos_rows, q_grp, grp, val in (
             (_qhat_tail(s_rows, remb), o_rows, src * gr.r2 + rel,
              gr.tail_grp, gr.tail_val),
             (_qhat_head(o_rows, remb), s_rows, dst * gr.r2 + rel,
              gr.head_grp, gr.head_val)):
-        sc = qhat @ table.transpose(1, 2)
+        sc = hot_round(qhat, hot) @ hot_round(table, hot).transpose(1, 2)
         sc = sc.masked_fill(true_answer_mask(grp, val, q_grp, N), _NEG)
         sc_pos = torch.sum(qhat * pos_rows, -1)
         m = torch.maximum(sc.max(-1).values, sc_pos)
@@ -215,31 +255,38 @@ def _count(gr: FinalGraph):
     return gr.posm.sum(-1).clamp(min=1.0)
 
 
-def _loss_plain(table, rtab, gr: FinalGraph):
+def _loss_plain(table, rtab, gr: FinalGraph, hot=None):
     """Each element's tail+head cross-entropy summed over its positives,
     over their count: [B]."""
-    dirs, _ = _loss_side(table, rtab, gr)
+    dirs, _ = _loss_side(table, rtab, gr, hot)
     ce = sum(((lse - sc_pos) * gr.posm).sum(-1)
              for _, _, _, sc_pos, lse in dirs)
     return ce / _count(gr)
 
 
 def fused_final_fwd_plain(h0, hist1, hist2, gr: FinalGraph, wrel, loop1,
-                          loop2, g1, g2, rtab):
+                          loop2, g1, g2, rtab, hot=None):
     """Plain version of K3: (loss [B], table [B, N, d], out1 [B, N, d]).
-    Arguments as in ``fused_final_fwd``. Differentiable by autograd."""
+    Arguments as in ``fused_final_fwd``. Differentiable by autograd (in
+    float32 that is K4 and K5's plain version; in bfloat16 they round where
+    the forward does not: ``FusedFinal`` with ``plain``)."""
     table, out1 = _encoder_plain(h0, hist1, hist2, gr, wrel, loop1, loop2,
-                                 g1, g2)
-    return _loss_plain(table, rtab, gr), table, out1
+                                 g1, g2, hot)
+    return _loss_plain(table, rtab, gr, hot), table, out1
 
 
-def fused_final_bwd_loss_plain(table, rtab, gr: FinalGraph, g):
+def fused_final_bwd_loss_plain(table, rtab, gr: FinalGraph, g, hot=None):
     """Plain version of K4 (``_bwd_loss_kernel``): from the saved table
     [B, N, d] and the cotangent g [B] of each element's loss, (d_table
-    [B, N, d], d_rtab [R2, d])."""
+    [B, N, d], d_rtab [R2, d]). In bfloat16 the table's rows and scores are
+    recomputed from the table rounded to bfloat16 and the score, row and
+    relation cotangents rounded before their products and sums, as the JAX
+    kernel's."""
     B, N, d = table.shape
     w = gr.posm * (g / _count(gr))[:, None]                      # [B, E]
-    dirs, (s_rows, o_rows, remb) = _loss_side(table, rtab, gr)
+    dirs, (s_rows, o_rows, remb) = _loss_side(table, rtab, gr, hot,
+                                              residual=True)
+    tb = hot_round(table, hot)
     d_table = torch.zeros_like(table)
     d_s = torch.zeros_like(s_rows)
     d_o = torch.zeros_like(o_rows)
@@ -248,8 +295,9 @@ def fused_final_bwd_loss_plain(table, rtab, gr: FinalGraph, g):
                                                        dirs):
         d_sc = w[..., None] * torch.exp(sc - lse[..., None])  # masked ~ 0
         d_sc_pos = w * (torch.exp(sc_pos - lse) - 1.0)
-        d_table = d_table + d_sc.transpose(1, 2) @ qhat
-        d_qhat = d_sc @ table + d_sc_pos[..., None] * pos_rows
+        d_scr = hot_round(d_sc, hot)
+        d_table = d_table + d_scr.transpose(1, 2) @ hot_round(qhat, hot)
+        d_qhat = d_scr @ tb + d_sc_pos[..., None] * pos_rows
         d_pos = d_sc_pos[..., None] * qhat
         if mode == "tail":
             ds, dr = _qhat_tail_bwd(d_qhat, s_rows, remb)
@@ -260,10 +308,10 @@ def fused_final_bwd_loss_plain(table, rtab, gr: FinalGraph, g):
         d_remb = d_remb + dr
     src, dst, _, _ = _flat(gr, N)
     flat = d_table.reshape(B * N, d)
-    flat = flat.index_add(0, src, d_s.reshape(-1, d))
-    flat = flat.index_add(0, dst, d_o.reshape(-1, d))
-    d_rtab = torch.zeros_like(rtab).index_add_(0, gr.rel.reshape(-1).long(),
-                                               d_remb.reshape(-1, d))
+    flat = flat.index_add(0, src, hot_round(d_s, hot).reshape(-1, d))
+    flat = flat.index_add(0, dst, hot_round(d_o, hot).reshape(-1, d))
+    d_rtab = torch.zeros_like(rtab).index_add_(
+        0, gr.rel.reshape(-1).long(), hot_round(d_remb, hot).reshape(-1, d))
     return flat.reshape(B, N, d), d_rtab
 
 
@@ -278,11 +326,33 @@ def select_bwd(d_table, active):
     return torch.where(a, d_table, zero), torch.where(a, zero, d_table)
 
 
+def _bwd_layer_hot(h_in, prev, gr: FinalGraph, mask, wrel, col: int, loop,
+                   g, d_out, hot):
+    """K5's plain version in the mode `hot`: autograd through the layer's
+    forward built of K2's cast points (``hot_mm``, ``spmm_hot_plain``),
+    whose backward is the JAX kernel's, as K2b's plain version is. Result
+    as ``fused_final_bwd_layer_plain``'s; d_prev in float32."""
+    B, N, d = prev.shape
+    leaves = [t.detach().to(torch.float32).requires_grad_(True) for t in (
+        h_in.expand(B, N, d), prev, wrel, loop, g["wih_t"], g["whh_t"],
+        g["bih"], g["bhh"])]
+    x, pv, w, lp, wih, whh, bih, bhh = leaves
+    dec = torch.exp(-gr.lam * gr.dt)[..., None]
+    with torch.enable_grad():
+        conv = _conv_plain(x, gr, w[:, col:col + d], lp, mask, hot)
+        out = _gru_t(conv, pv * dec, _gru_dict(wih, whh, bih, bhh), hot)
+        grads = torch.autograd.grad(out, leaves, d_out)
+    return (grads[0], grads[1], grads[2][:, col:col + d]) + grads[3:]
+
+
 def fused_final_bwd_layer_plain(h_in, prev, gr: FinalGraph, mask, wrel,
-                                col: int, loop, g, d_out):
+                                col: int, loop, g, d_out, hot=None):
     """Plain version of K5 (``_bwd_layer_kernel``) for one layer; arguments
     as in ``fused_final_bwd_layer``. Returns (d_h, d_prev, d_wrel [R, d],
     d_loop, d_wih_t, d_whh_t, d_bih, d_bhh)."""
+    if hot is not None:
+        return _bwd_layer_hot(h_in, prev, gr, mask, wrel, col, loop, g,
+                              d_out, hot)
     B, N, d = prev.shape
     w = wrel[:, col:col + d]
     x = h_in.expand(B, N, d)
@@ -329,8 +399,11 @@ def fused_final_bwd_layer_plain(h_in, prev, gr: FinalGraph, mask, wrel,
 
 # -- the kernels' wrappers ---------------------------------------------------
 
-def _check(name, tensors: dict, shapes: dict, ints=()):
-    """Device, dtype, shape and contiguity of the kernels' operands."""
+def _check(name, tensors: dict, shapes: dict, ints=(), stored=(),
+           hot=None):
+    """Device, dtype, shape and contiguity of the kernels' operands: int32
+    for `ints`, the store dtype (`hot`, or float32) for `stored`, float32
+    for the rest."""
     dev = None
     for key, t in tensors.items():
         if t is None:
@@ -338,7 +411,8 @@ def _check(name, tensors: dict, shapes: dict, ints=()):
         dev = dev or t.device
         if t.device != dev:
             raise ValueError(f"{name}: {key} on {t.device}, expected {dev}")
-        want = torch.int32 if key in ints else torch.float32
+        want = (torch.int32 if key in ints else
+                hot if hot is not None and key in stored else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{name}: {key} is {t.dtype}, the kernel takes "
                             f"{want}")
@@ -369,7 +443,8 @@ def _check_graph(name, gr: FinalGraph, B, N, E, d):
                          f"up to {_MAX_D}")
 
 
-def _check_weights(name, h0, hist1, hist2, wrel, loop1, loop2, g1, g2, rtab):
+def _check_weights(name, h0, hist1, hist2, wrel, loop1, loop2, g1, g2, rtab,
+                   hot=None):
     B, N, d = hist1.shape
     t = {"h0": h0, "hist1": hist1, "hist2": hist2, "wrel": wrel,
          "loop1": loop1, "loop2": loop2, "rtab": rtab}
@@ -378,7 +453,7 @@ def _check_weights(name, h0, hist1, hist2, wrel, loop1, loop2, g1, g2, rtab):
         for k in ("wih_t", "whh_t", "bih", "bhh"):
             t[f"{k}{i}"] = g[k]
             s[f"{k}{i}"] = (3 * d,) if k.startswith("b") else (d, 3 * d)
-    _check(name, t, s)
+    _check(name, t, s, stored=("hist1", "hist2"), hot=hot)
     if wrel.dim() != 2 or wrel.shape[1] != 2 * d:
         raise ValueError(f"{name}: wrel must be [R, 2d]")
     if rtab.dim() != 2 or rtab.shape[1] != d:
@@ -415,19 +490,22 @@ def final_csr(gr: FinalGraph, N: int, n_rels: int):
 
 
 def _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr: FinalGraph,
-                    by_dst, wrel, loop1, loop2, g1, g2, out1, table):
+                    by_dst, wrel, loop1, loop2, g1, g2, out1, table,
+                    hot=None):
     """The final step's two encoder layers as two launches of
     ``final_layer_kernel`` (K3's, and K11's encoder): layer 1 from h0x
     [B, N, d] into out1, layer 2 from out1 into table, with the select where
     gr.active is given; `by_dst` is the SpMM's CSR (``final_csr``'s first);
-    `launched(err, what)` checks and counts each launch."""
+    `launched(err, what)` checks and counts each launch; `hot` picks the
+    kernel's mode (bfloat16: the histories in bfloat16)."""
     B, N, d = hist1.shape
     rowptr, s_src, s_rel, s_em = by_dst
     p = _p
+    launch = _lib_fn(lib, "final_layer_launch", hot)
     for x, col, loop, m, g, prev, sel, out in (
             (h0x, 0, loop1, gr.m1, g1, hist1, None, out1),
             (out1, d, loop2, gr.m2, g2, hist2, gr.active, table)):
-        launched(lib.final_layer_launch(
+        launched(launch(
             p(x), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d,
             col, p(loop), p(m), p(g["wih_t"]), p(g["whh_t"]), p(g["bih"]),
             p(g["bhh"]), p(gr.dt), float(gr.lam), p(prev),
@@ -436,12 +514,13 @@ def _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr: FinalGraph,
 
 
 def fused_final_fwd(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
-                    g2, rtab):
+                    g2, rtab, hot=None):
     """K3 for B elements. h0 [N, d] the input embeddings; hist1/hist2
-    [B, N, d] the densified window states; gr the FinalGraph; wrel [R, 2d]
-    both layers' diagonal relation weights side by side; loop1/loop2 [d, d];
-    g1/g2 GRU weights as dicts of wih_t/whh_t [d, 3d] and bih/bhh [3d];
-    rtab [R2, d] the relation embeddings.
+    [B, N, d] the densified window states (in the store dtype: float32, or
+    `hot`); gr the FinalGraph; wrel [R, 2d] both layers' diagonal relation
+    weights side by side; loop1/loop2 [d, d]; g1/g2 GRU weights as dicts of
+    wih_t/whh_t [d, 3d] and bih/bhh [3d]; rtab [R2, d] the relation
+    embeddings; hot None (float32) or torch.bfloat16 (the bfloat16 mode).
 
     Returns (loss [B], saved): the mean tail+head cross-entropy over each
     element's positives, and what ``fused_final_bwd_loss`` and
@@ -449,10 +528,11 @@ def fused_final_fwd(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
     device)."""
     if _device("fused_final_fwd", hist1) == "cpu":
         loss, table, out1 = fused_final_fwd_plain(h0, hist1, hist2, gr, wrel,
-                                                  loop1, loop2, g1, g2, rtab)
+                                                  loop1, loop2, g1, g2, rtab,
+                                                  hot)
         return loss, {"table": table, "out1": out1}
     layers, scores, reduce, saved = _fwd_prepare(
-        h0, hist1, hist2, gr, wrel, loop1, loop2, g1, g2, rtab)
+        h0, hist1, hist2, gr, wrel, loop1, loop2, g1, g2, rtab, hot)
     layers()
     scores()
     reduce()
@@ -460,7 +540,7 @@ def fused_final_fwd(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
 
 
 def fused_final_fwd_launchers(h0, hist1, hist2, gr: FinalGraph, wrel, loop1,
-                              loop2, g1, g2, rtab):
+                              loop2, g1, g2, rtab, hot=None):
     """K3's two layer launches and its score launch apart, on operands
     prepared as ``fused_final_fwd`` prepares them (arguments as there, CUDA
     tensors only): two functions of no arguments, the first making the two
@@ -471,20 +551,23 @@ def fused_final_fwd_launchers(h0, hist1, hist2, gr: FinalGraph, wrel, loop1,
         raise ValueError("fused_final_fwd_launchers: K3 runs on a CUDA "
                          "tensor only")
     layers, scores, _, _ = _fwd_prepare(h0, hist1, hist2, gr, wrel, loop1,
-                                        loop2, g1, g2, rtab)
+                                        loop2, g1, g2, rtab, hot)
     return layers, scores
 
 
 def _fwd_prepare(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
-                 g2, rtab):
+                 g2, rtab, hot=None):
     """K3 on the card: the checked operands, CSRs and outputs, and its
     launches as three functions of no arguments (the two layers, the
     scores, the loss) with the dict they fill (``fused_final_fwd``'s saved
-    dict and the loss)."""
+    dict and the loss). In the bfloat16 mode the score launch scores two
+    query sets (variant 0 the loss's, variant 1 the backward's), so its
+    partials and positive scores have a leading dimension of 2; the saved
+    queries, positive scores and log-sum-exps are variant 1's."""
     B, N, d = hist1.shape
     E = gr.src.shape[1]
     _check_weights("fused_final_fwd", h0, hist1, hist2, wrel, loop1, loop2,
-                   g1, g2, rtab)
+                   g1, g2, rtab, hot)
     _check_graph("fused_final_fwd", gr, B, N, E, d)
     dev = hist1.device
     f32 = dict(device=dev, dtype=torch.float32)
@@ -492,14 +575,18 @@ def _fwd_prepare(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
     h0x = h0.expand(B, N, d).contiguous()
     out1 = torch.empty(B, N, d, **f32)
     table = torch.empty(B, N, d, **f32)
-    part_m = torch.empty(B, 2, _N_SPLIT, E, **f32)
-    part_s = torch.empty(B, 2, _N_SPLIT, E, **f32)
+    variants = () if hot is None else (2,)
+    part_m = torch.empty(*variants, B, 2, _N_SPLIT, E, **f32)
+    part_s = torch.empty(*variants, B, 2, _N_SPLIT, E, **f32)
     qhat = torch.empty(B, 2, E, d, **f32)
-    scpos = torch.empty(B, 2, E, **f32)
+    scpos_all = torch.empty(*variants, B, 2, E, **f32)
+    scpos = scpos_all if hot is None else scpos_all[1]
     lse = torch.empty(B, 2, E, **f32)
     cnt = torch.empty(B, **f32)
     loss = torch.empty(B, **f32)
     lib = _build.lib()
+    fn = {n: _lib_fn(lib, n, hot) for n in ("final_scores_launch",
+                                            "final_loss_reduce_launch")}
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _p
 
@@ -509,20 +596,20 @@ def _fwd_prepare(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
 
     def layers():
         _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr, csr[0],
-                        wrel, loop1, loop2, g1, g2, out1, table)
+                        wrel, loop1, loop2, g1, g2, out1, table, hot)
 
     answers = (p(gr.tail_ptr), p(gr.tail_ans), p(gr.head_ptr),
                p(gr.head_ans))
 
     def scores():
-        launched(lib.final_scores_launch(
+        launched(fn["final_scores_launch"](
             p(table), p(rtab), p(gr.src), p(gr.dst), p(gr.rel), p(gr.posm),
-            *answers, p(part_m), p(part_s), p(qhat), p(scpos), B, N, E, d,
-            _N_SPLIT, stream), "scores")
+            *answers, p(part_m), p(part_s), p(qhat), p(scpos_all), B, N, E,
+            d, _N_SPLIT, stream), "scores")
 
     def reduce():
-        launched(lib.final_loss_reduce_launch(
-            p(part_m), p(part_s), p(scpos), p(gr.posm), p(lse), p(cnt),
+        launched(fn["final_loss_reduce_launch"](
+            p(part_m), p(part_s), p(scpos_all), p(gr.posm), p(lse), p(cnt),
             p(loss), B, E, _N_SPLIT, stream), "loss")
 
     return layers, scores, reduce, {
@@ -533,12 +620,13 @@ def _fwd_prepare(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
 fused_final_fwd.launches = 0
 
 
-def fused_final_bwd_loss(saved: dict, rtab, gr: FinalGraph, g):
+def fused_final_bwd_loss(saved: dict, rtab, gr: FinalGraph, g, hot=None):
     """K4: (d_table [B, N, d], d_rtab [R2, d]) from ``fused_final_fwd``'s
-    saved dict and g [B], the cotangent of each element's loss."""
+    saved dict and g [B], the cotangent of each element's loss, in the mode
+    `hot` of the forward that saved them."""
     table = saved["table"]
     if _device("fused_final_bwd_loss", table) == "cpu":
-        return fused_final_bwd_loss_plain(table, rtab, gr, g)
+        return fused_final_bwd_loss_plain(table, rtab, gr, g, hot)
     B, N, d = table.shape
     E = gr.src.shape[1]
     R2 = rtab.shape[0]
@@ -554,6 +642,8 @@ def fused_final_bwd_loss(saved: dict, rtab, gr: FinalGraph, g):
     d_table = torch.empty(B, N, d, **f32)
     d_rtab = torch.empty(R2, d, **f32)
     lib = _build.lib()
+    fn = {n: _lib_fn(lib, n, hot) for n in (
+        "final_dq_launch", "final_dq_finish_launch", "final_dtable_launch")}
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _p
     qhat, lse, scpos, cnt = (saved[k] for k in ("qhat", "lse", "scpos",
@@ -565,14 +655,17 @@ def fused_final_bwd_loss(saved: dict, rtab, gr: FinalGraph, g):
         _build.check(err, f"fused_final_bwd_loss ({what})")
         fused_final_bwd_loss.launches += 1
 
-    launched(lib.final_dq_launch(
-        p(table), p(qhat), p(lse), p(gr.posm), *answers, p(part_dq), B, N, E,
-        d, _N_SPLIT, stream), "dq")
-    launched(lib.final_dq_finish_launch(
+    # the count and the cotangent: the bfloat16 mode weighs each query's
+    # probabilities by its loss weight before rounding them, as the JAX
+    # kernel does
+    launched(fn["final_dq_launch"](
+        p(table), p(qhat), p(lse), p(gr.posm), *answers, p(cnt), p(g),
+        p(part_dq), B, N, E, d, _N_SPLIT, stream), "dq")
+    launched(fn["final_dq_finish_launch"](
         p(table), p(rtab), p(gr.src), p(gr.dst), p(gr.rel), p(gr.posm),
         p(qhat), p(scpos), p(lse), p(cnt), p(g), p(part_dq), p(d_s), p(d_o),
         p(d_remb), B, N, E, d, _N_SPLIT, stream), "dq finish")
-    launched(lib.final_dtable_launch(
+    launched(fn["final_dtable_launch"](
         p(table), p(qhat), p(lse), p(gr.posm), p(cnt), p(g), p(gr.src),
         p(gr.dst), *answers, p(d_s), p(d_o), p(d_table), B, N, E, d, stream),
         "table")
@@ -590,21 +683,22 @@ fused_final_bwd_loss.launches = 0
 
 
 def fused_final_bwd_layer(h_in, prev, gr: FinalGraph, mask, wrel, col: int,
-                          loop, g, d_out, csr=None):
+                          loop, g, d_out, csr=None, hot=None):
     """K5: the backward of one encoder layer of the final step. h_in
     [B, N, d] the layer's input (layer 2: the saved out1; layer 1: the input
     embeddings, [N, d] or expanded); prev [B, N, d] its history; mask its
     self-loop dropout mask over keep, or None; wrel [R, 2d] with this
     layer's weights at column `col`; loop [d, d]; g the GRU weights (dict
     of wih_t/whh_t [d, 3d], bih/bhh [3d]); d_out [B, N, d] the cotangent of
-    the layer's output; csr ``final_csr(gr, N, R)`` when known.
+    the layer's output; csr ``final_csr(gr, N, R)`` when known; hot None
+    (float32) or torch.bfloat16 (the bfloat16 mode: prev in bfloat16).
 
     Returns (d_h [B, N, d], d_prev [B, N, d], d_wrel [R, d], d_loop [d, d],
     d_wih_t, d_whh_t [d, 3d], d_bih, d_bhh [3d]): cotangents of the inputs,
-    the history and the weights (summed over the batch)."""
+    the history and the weights (summed over the batch), all float32."""
     if _device("fused_final_bwd_layer", prev) == "cpu":
         return fused_final_bwd_layer_plain(h_in, prev, gr, mask, wrel, col,
-                                           loop, g, d_out)
+                                           loop, g, d_out, hot)
     B, N, d = prev.shape
     E = gr.src.shape[1]
     R = wrel.shape[0]
@@ -615,7 +709,7 @@ def fused_final_bwd_layer(h_in, prev, gr: FinalGraph, mask, wrel, col: int,
             "d_out": d_out, **g},
            {"mask": (B, N, d), "loop": (d, d), "d_out": (B, N, d),
             "wih_t": (d, 3 * d), "whh_t": (d, 3 * d), "bih": (3 * d,),
-            "bhh": (3 * d,), "wrel": (R, 2 * d)})
+            "bhh": (3 * d,), "wrel": (R, 2 * d)}, stored=("prev",), hot=hot)
     if col not in (0, d):
         raise ValueError(f"fused_final_bwd_layer: col = {col}, not 0 or d")
     dev = prev.device
@@ -642,6 +736,9 @@ def fused_final_bwd_layer(h_in, prev, gr: FinalGraph, mask, wrel, col: int,
     whh = g["whh_t"].t().contiguous()
     loop_t = loop.t().contiguous()
     lib = _build.lib()
+    fn = {n: _lib_fn(lib, n, hot) for n in (
+        "final_bwd_gru_launch", "final_bwd_input_launch",
+        "final_wgrad_launch")}
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _p
 
@@ -649,18 +746,18 @@ def fused_final_bwd_layer(h_in, prev, gr: FinalGraph, mask, wrel, col: int,
         _build.check(err, f"fused_final_bwd_layer ({what})")
         fused_final_bwd_layer.launches += 1
 
-    launched(lib.final_bwd_gru_launch(
+    launched(fn["final_bwd_gru_launch"](
         p(x), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d, col,
         p(loop), p(mask), p(g["wih_t"]), p(g["whh_t"]), p(g["bih"]),
         p(g["bhh"]), p(wih), p(whh), p(gr.dt), float(gr.lam), p(prev),
         p(d_out), p(d_prev), p(n2), p(scr["conv"]), p(scr["h0g"]),
         p(scr["dgi"]), p(scr["dgh"]), p(scr["dconv"]), p(scr["dlp"]), B, N, d,
         stream), "gru")
-    launched(lib.final_bwd_input_launch(
+    launched(fn["final_bwd_input_launch"](
         p(sp), p(sp_dst), p(sp_rel), p(sp_em), p(sp_eid), p(n2),
         p(scr["dconv"]), p(scr["dlp"]), p(wrel), 2 * d, col, p(loop_t), p(x),
         p(ewg), p(d_h), B, N, d, stream), "input")
-    launched(lib.final_wgrad_launch(
+    launched(fn["final_wgrad_launch"](
         p(scr["conv"]), p(scr["dgi"]), p(scr["h0g"]), p(scr["dgh"]), p(x),
         p(scr["dlp"]), p(wpart), _WGRAD_SPLIT, B, N, d, stream), "weights")
     launched(lib.final_wgrad_reduce_launch(p(wpart), _WGRAD_SPLIT,
@@ -680,16 +777,24 @@ fused_final_bwd_layer.launches = 0
 class FusedFinal(torch.autograd.Function):
     """Differentiable K3-K5: ``fused_final_fwd`` forward; backward K4, the
     select's backward, K5 for layer 2, K5 for layer 1, as the JAX package's
-    ``_fused_final_bwd``. `gr` (a FinalGraph) takes no gradient."""
+    ``_fused_final_bwd``, in the mode `hot`. `gr` (a FinalGraph) takes no
+    gradient. With `plain` every part runs its plain version on whatever
+    device the tensors lie on (the bfloat16 plain path: autograd through
+    the plain forward would not round where the kernels' backward does)."""
 
     @staticmethod
-    def forward(ctx, gr, h0, hist1, hist2, wrel, loop1, loop2, wih1, whh1,
-                bih1, bhh1, wih2, whh2, bih2, bhh2, rtab):
+    def forward(ctx, gr, hot, plain, h0, hist1, hist2, wrel, loop1, loop2,
+                wih1, whh1, bih1, bhh1, wih2, whh2, bih2, bhh2, rtab):
         g1 = _gru_dict(wih1, whh1, bih1, bhh1)
         g2 = _gru_dict(wih2, whh2, bih2, bhh2)
-        loss, saved = fused_final_fwd(h0, hist1, hist2, gr, wrel, loop1,
-                                      loop2, g1, g2, rtab)
-        ctx.gr, ctx.saved = gr, saved
+        if plain:
+            loss, table, out1 = fused_final_fwd_plain(
+                h0, hist1, hist2, gr, wrel, loop1, loop2, g1, g2, rtab, hot)
+            saved = {"table": table, "out1": out1}
+        else:
+            loss, saved = fused_final_fwd(h0, hist1, hist2, gr, wrel, loop1,
+                                          loop2, g1, g2, rtab, hot)
+        ctx.gr, ctx.saved, ctx.hot, ctx.plain = gr, saved, hot, plain
         ctx.save_for_backward(h0, hist1, hist2, wrel, loop1, loop2, wih1,
                               whh1, bih1, bhh1, wih2, whh2, bih2, bhh2, rtab)
         return loss
@@ -698,24 +803,37 @@ class FusedFinal(torch.autograd.Function):
     def backward(ctx, g):
         (h0, hist1, hist2, wrel, loop1, loop2, wih1, whh1, bih1, bhh1, wih2,
          whh2, bih2, bhh2, rtab) = ctx.saved_tensors
-        gr, saved = ctx.gr, ctx.saved
+        gr, saved, hot = ctx.gr, ctx.saved, ctx.hot
         g1 = _gru_dict(wih1, whh1, bih1, bhh1)
         g2 = _gru_dict(wih2, whh2, bih2, bhh2)
         d = h0.shape[1]
-        d_table, d_rtab = fused_final_bwd_loss(saved, rtab, gr,
-                                               g.contiguous())
+        if ctx.plain:
+            d_table, d_rtab = fused_final_bwd_loss_plain(
+                saved["table"], rtab, gr, g.contiguous(), hot)
+        else:
+            d_table, d_rtab = fused_final_bwd_loss(saved, rtab, gr,
+                                                   g.contiguous(), hot)
         d_out2, d_h0_sel = select_bwd(d_table, gr.active)
         csr = saved.get("csr")
+
+        def layer(h_in, prev, mask, col, loop, gw, d_out):
+            if ctx.plain:
+                return fused_final_bwd_layer_plain(h_in, prev, gr, mask, wrel,
+                                                   col, loop, gw, d_out, hot)
+            return fused_final_bwd_layer(h_in, prev, gr, mask, wrel, col,
+                                         loop, gw, d_out, csr, hot)
+
         (d_out1, d_hist2, d_wrel2, d_loop2, d_wih2, d_whh2, d_bih2,
-         d_bhh2) = fused_final_bwd_layer(saved["out1"], hist2, gr, gr.m2,
-                                         wrel, d, loop2, g2, d_out2, csr)
+         d_bhh2) = layer(saved["out1"], hist2, gr.m2, d, loop2, g2, d_out2)
         (d_h0, d_hist1, d_wrel1, d_loop1, d_wih1, d_whh1, d_bih1,
-         d_bhh1) = fused_final_bwd_layer(saved.get("h0x", h0), hist1, gr,
-                                         gr.m1, wrel, 0, loop1, g1, d_out1,
-                                         csr)
+         d_bhh1) = layer(saved.get("h0x", h0), hist1, gr.m1, 0, loop1, g1,
+                         d_out1)
         if d_h0_sel is not None:
             d_h0 = d_h0 + d_h0_sel
-        return (None, d_h0.sum(0), d_hist1, d_hist2,
+        # the histories' cotangents come back in their dtype (autograd
+        # rounds float32 ones to a bfloat16 history's, as the JAX
+        # package's convert does)
+        return (None, None, None, d_h0.sum(0), d_hist1, d_hist2,
                 torch.cat([d_wrel1, d_wrel2], 1), d_loop1, d_loop2, d_wih1,
                 d_whh1, d_bih1, d_bhh1, d_wih2, d_whh2, d_bih2, d_bhh2,
                 d_rtab)
@@ -803,19 +921,20 @@ def final_weights(params):
 
 
 def fused_final_loss(params, gr: FinalGraph, hist1, hist2,
-                     kernels: bool = True):
+                     kernels: bool = True, hot=None):
     """The loss of each of the B elements, [B]: K3 with K4/K5 as its
-    backward (``kernels=False``: the plain forward, differentiated by
-    autograd). Mirrors the JAX package's ``fused_final_loss``, batched."""
+    backward, in the mode `hot` (``kernels=False``: the plain forward,
+    differentiated by autograd in float32, and with the plain K4/K5 in
+    bfloat16). Mirrors the JAX package's ``fused_final_loss``, batched."""
     h0, wrel, loop1, loop2, g1, g2, rtab = final_weights(params)
     hist1, hist2 = hist1.contiguous(), hist2.contiguous()
-    if not kernels:
+    if not kernels and hot is None:
         return fused_final_fwd_plain(h0, hist1, hist2, gr, wrel, loop1,
                                      loop2, g1, g2, rtab)[0]
     return FusedFinal.apply(
-        gr, h0, hist1, hist2, wrel, loop1, loop2, g1["wih_t"], g1["whh_t"],
-        g1["bih"], g1["bhh"], g2["wih_t"], g2["whh_t"], g2["bih"], g2["bhh"],
-        rtab)
+        gr, hot, not kernels, h0, hist1, hist2, wrel, loop1, loop2,
+        g1["wih_t"], g1["whh_t"], g1["bih"], g1["bhh"], g2["wih_t"],
+        g2["whh_t"], g2["bih"], g2["bhh"], rtab)
 
 
 # -- K11: the fused filtered eval --------------------------------------------

@@ -25,6 +25,16 @@ the hand-written kernels in ``csrc/fused_window.cu`` or raises: forward two
 launches a step (layer 1, then layer 2), backward five a step and two more,
 the products of both on the tensor cores in 3xTF32 at f32 accuracy, the
 forward's and the backward's recompute the same sums in the same order.
+
+``hot=torch.bfloat16`` is the JAX kernels' bfloat16 instantiation
+(``dtype_str="bfloat16"``, store dtype bfloat16): every product takes
+operands rounded to bfloat16 with float32 sums, the SpMM rounds the
+gathered source rows, the gathered relation weights and each message, the
+buffers come back in bfloat16, and the backward rounds the cotangents at
+the JAX kernel's cast points (``hot_mm``, ``hot_round`` and ``round_store``
+below state which). On the card it launches the same kernels compiled in
+their bfloat16 mode (``csrc/fused_window_bf16.cu``), the same number of
+launches.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from temp_tpu_torch import _build
-from temp_tpu_torch.ops.gru import GRU_KEY
+from temp_tpu_torch.ops.gru import GRU_KEY, hot_round
 from temp_tpu_torch.ops.spmm import build_csr, spmm_fwd_plain
 
 _MAX_D = 256
@@ -50,11 +60,80 @@ _WGRAD_LAYOUT = ("dwih2", "dbih2", "dwhh2", "dbhh2", "dloop2",
                  "dwih1", "dbih1", "dwhh1", "dbhh1", "dloop1")
 
 
-def _gru_t(x, h, g):
-    """torch-semantics GRU cell on pre-transposed weights (wih_t [d, 3d])."""
+# -- the JAX kernels' bfloat16 cast points, as differentiable functions -----
+#
+# The JAX kernels write their backward by hand, and round the cotangents at
+# fixed points; these three functions carry those points in their
+# backward, so that autograd through a plain forward built of them gives
+# the kernels' backward (K2b's here, K5's in ops/fused_final.py):
+# - hot_mm(a, b): the product of a and b rounded (a [..., K], b [K, N]),
+#   float32 sums; its cotangents are products of the rounded cotangent
+#   (``_dot_c1(d.astype(bf16), w.astype(bf16))`` and ``_dot_c0(x.astype(
+#   bf16), d.astype(bf16))`` in the JAX kernels);
+# - hot_round(x) (ops/gru.py): x rounded, and its cotangent rounded (a
+#   one-hot gather or scatter of rounded values: the SpMM's source rows,
+#   relation weights and messages);
+# - round_store(x): x rounded (written to a bfloat16 buffer), its
+#   cotangent left in float32 (the kernels' float32 cotangent scratch).
+
+
+class _HotMM(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, dtype):
+        ar, br = hot_round(a, dtype), hot_round(b, dtype)
+        ctx.save_for_backward(ar, br)
+        ctx.dtype = dtype
+        return ar @ br
+
+    @staticmethod
+    def backward(ctx, g):
+        ar, br = ctx.saved_tensors
+        gr = hot_round(g, ctx.dtype)
+        gb = ar.reshape(-1, ar.shape[-1]).t() @ gr.reshape(-1, gr.shape[-1])
+        return gr @ br.t(), gb, None
+
+
+def hot_mm(a, b, dtype):
+    """a @ b (b a 2-d weight) with both operands rounded to `dtype` and
+    float32 sums; the plain a @ b when dtype is None."""
+    return a @ b if dtype is None else _HotMM.apply(a, b, dtype)
+
+
+def round_store(x, dtype):
+    """x rounded to `dtype` (in x's dtype), its cotangent passed through
+    unrounded. The sum x + (rounded - x) is exactly the rounded value: the
+    difference of two floats within a factor 2 of each other is exact."""
+    if dtype is None:
+        return x
+    xd = x.detach()
+    return x + (xd.to(dtype).to(x.dtype) - xd)
+
+
+def spmm_hot_plain(h, src, dst, rel, em, weight, dtype):
+    """The JAX kernels' bfloat16 SpMM: h [M, d], weight [R, d], flat edges
+    src/dst/rel [E] and their float mask em [E] -> [M, d]. Per edge the
+    message (rounded h[src] * rounded w[rel]) * (norm[dst] * em), rounded,
+    summed per destination in float32, then times norm (norm = 1 / deg over
+    the masked edges, 0 without any)."""
+    n = h.shape[0]
+    src, dst, rel = src.long(), dst.long(), rel.long()
+    em = em.to(torch.float32)
+    deg = torch.zeros(n, device=h.device).index_add_(0, dst, em)
+    norm = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0),
+                       torch.zeros_like(deg))
+    escale = (norm[dst] * em)[:, None]
+    msg = hot_round(hot_round(h[src], dtype) * hot_round(weight[rel], dtype)
+                    * escale, dtype)
+    agg = torch.zeros(n, h.shape[1], device=h.device).index_add(0, dst, msg)
+    return agg * norm[:, None]
+
+
+def _gru_t(x, h, g, hot=None):
+    """torch-semantics GRU cell on pre-transposed weights (wih_t [d, 3d]);
+    its two products in `hot` (``hot_mm``)."""
     d = h.shape[-1]
-    gi = x @ g["wih_t"] + g["bih"]
-    gh = h @ g["whh_t"] + g["bhh"]
+    gi = hot_mm(x, g["wih_t"], hot) + g["bih"]
+    gh = hot_mm(h, g["whh_t"], hot) + g["bhh"]
     r = torch.sigmoid(gi[..., :d] + gh[..., :d])
     z = torch.sigmoid(gi[..., d:2 * d] + gh[..., d:2 * d])
     n = torch.tanh(gi[..., 2 * d:] + r * gh[..., 2 * d:])
@@ -64,14 +143,15 @@ def _gru_t(x, h, g):
 def fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
                            loop1, loop2, g1, g2, lam: float, conv1_in: bool,
                            m1=None, m2=None, act2: bool = False,
-                           n_buf: int = 2, relu_mask=None):
+                           n_buf: int = 2, relu_mask=None, hot=None):
     """Plain PyTorch version of K2f; arguments as in ``fused_window_fwd``.
-    Differentiable by autograd (that is K2b's plain version). relu_mask
-    [B, L1, A, d] (1 where the ReLU passes), when given, stands for the
-    ReLU's pattern: the pattern of another computation of the same window
-    (the kernels', whose outputs differ from these by rounding), so that
-    the two differentiate through the same side of the ReLU where layer
-    2's conv output lies within rounding of 0."""
+    Differentiable by autograd (that is K2b's plain version, also in
+    bfloat16: see ``hot_mm``). relu_mask [B, L1, A, d] (1 where the ReLU
+    passes), when given, stands for the ReLU's pattern: the pattern of
+    another computation of the same window (the kernels', whose outputs
+    differ from these by rounding), so that the two differentiate through
+    the same side of the ReLU where layer 2's conv output lies within
+    rounding of 0."""
     B, L1, A, d = h0x.shape
     buf1 = torch.zeros_like(h0x)
     buf2 = torch.zeros_like(h0x)
@@ -86,9 +166,11 @@ def fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
         # batch elements as one block-diagonal graph of B*A rows
         s = (src[:, k] + offs).reshape(-1)
         t = (dst[:, k] + offs).reshape(-1)
-        agg = spmm_fwd_plain(x.reshape(B * A, d), s, t,
-                             rel[:, k].reshape(-1), em[:, k].reshape(-1), w)
-        lp = x @ loop
+        edges = (x.reshape(B * A, d), s, t, rel[:, k].reshape(-1),
+                 em[:, k].reshape(-1), w)
+        agg = (spmm_fwd_plain(*edges) if hot is None
+               else spmm_hot_plain(*edges, hot))
+        lp = hot_mm(x, loop, hot)
         if m is not None:
             lp = lp * m[:, k]
         return agg.reshape(B, A, d) + lp
@@ -98,8 +180,8 @@ def fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
         h1 = buf1.reshape(B, L1 * A, d)[bidx, rows] * scale[:, k]
         h2 = buf2.reshape(B, L1 * A, d)[bidx, rows] * scale[:, k]
         c1 = h0x[:, k] if conv1_in else conv(h0x[:, k], k, w1, loop1, m1)
-        out1 = _gru_t(c1, h1, g1)
-        buf1[:, k] = out1
+        out1 = _gru_t(c1, h1, g1, hot)
+        buf1[:, k] = round_store(out1, hot)
         c2 = conv(out1, k, w2, loop2, m2)
         if act2:
             r2 = torch.relu(c2)
@@ -109,12 +191,18 @@ def fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
                 r2 = c2 * m + (r2 - c2 * m).detach()
             c2 = r2
         if buf3 is not None:
-            buf3[:, k] = c2
-        buf2[:, k] = _gru_t(c2, h2, g2)
-    return (buf1, buf2) if buf3 is None else (buf1, buf2, buf3)
+            buf3[:, k] = round_store(c2, hot)
+        buf2[:, k] = round_store(_gru_t(c2, h2, g2, hot), hot)
+    bufs = (buf1, buf2) if buf3 is None else (buf1, buf2, buf3)
+    # the buffers in the store dtype: their bfloat16 cotangents come back
+    # as float32, as the JAX kernel's gs.astype(float32)
+    return bufs if hot is None else tuple(b.to(hot) for b in bufs)
 
 
-def _check_cuda(name, tensors: dict, B, L1, A, E, d):
+def _check_cuda(name, tensors: dict, B, L1, A, E, d, hot=None):
+    """Device, dtype, shape, contiguity and alignment of the kernels'
+    operands: the buffers and their cotangents in the store dtype (`hot`,
+    or float32), every other float operand in float32."""
     dev = tensors["h0x"].device
     act = (B, L1, A, d)
     shapes = {"h0x": act, "src": (B, L1, E), "dst": (B, L1, E),
@@ -123,12 +211,14 @@ def _check_cuda(name, tensors: dict, B, L1, A, E, d):
               "loop2": (d, d), "m1": act, "m2": act, "buf1": act,
               "buf2": act, "buf3": act, "gb1": act, "gb2": act, "gb3": act}
     ints = ("src", "dst", "rel", "gidx")
+    stored = ("buf1", "buf2", "buf3", "gb1", "gb2", "gb3")
     for key, t in tensors.items():
         if t is None:
             continue
         if t.device != dev:
             raise ValueError(f"{name}: {key} on {t.device}, h0x on {dev}")
-        want = torch.int32 if key in ints else torch.float32
+        want = (torch.int32 if key in ints else
+                hot if hot is not None and key in stored else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{name}: {key} is {t.dtype}, the kernel takes "
                             f"{want}")
@@ -151,6 +241,16 @@ def _check_cuda(name, tensors: dict, B, L1, A, E, d):
     if d > _MAX_D or d % 16:
         raise ValueError(f"{name}: d = {d}; the kernel takes multiples of "
                          f"16 up to {_MAX_D}")
+
+
+def _lib_fn(lib, name: str, hot):
+    """The launcher `name` of the float32 kernels, or of their bfloat16 mode
+    (``name``_bf16) for hot=torch.bfloat16; raises for another dtype."""
+    if hot is None:
+        return getattr(lib, name)
+    if hot != torch.bfloat16:
+        raise TypeError(f"{name}: no kernel mode for {hot}")
+    return getattr(lib, f"{name}_bf16")
 
 
 def _named(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1, loop2, g1,
@@ -185,7 +285,7 @@ def _step_csr(key_ids, em, B, L1, A, *edge_arrays):
 
 def fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
                      loop2, g1, g2, lam: float, conv1_in: bool, m1=None,
-                     m2=None, act2: bool = False, n_buf: int = 2):
+                     m2=None, act2: bool = False, n_buf: int = 2, hot=None):
     """K2f for B windows.
 
     h0x [B, L1, A, d] input rows (the layer-1 conv outputs when
@@ -195,18 +295,21 @@ def fused_window_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     [R, 2d] both layers' diagonal relation weights side by side; loop1/loop2
     [d, d]; g1/g2 GRU weights as dicts of wih_t/whh_t [d, 3d] and bih/bhh
     [3d]; m1/m2 [B, L1, A, d] the self-loop dropout masks over keep, or None
-    (eval); act2 a ReLU on layer 2's conv output; n_buf 2 or 3. Returns
-    (buf1, buf2[, buf3]), each [B, L1, A, d].
+    (eval); act2 a ReLU on layer 2's conv output; n_buf 2 or 3; hot None
+    (float32) or torch.bfloat16 (the bfloat16 mode). Returns (buf1,
+    buf2[, buf3]), each [B, L1, A, d] in the store dtype (float32, or
+    `hot`).
     """
     if n_buf not in (2, 3):
         raise ValueError(f"fused_window_fwd: n_buf = {n_buf}, not 2 or 3")
     if _device("fused_window_fwd", h0x) == "cpu":
         return fused_window_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt,
                                       wrel, loop1, loop2, g1, g2, lam,
-                                      conv1_in, m1, m2, act2, n_buf)
+                                      conv1_in, m1, m2, act2, n_buf,
+                                      hot=hot)
     return window_fwd_launches(fused_window_fwd, h0x, src, dst, rel, em,
                                gidx, live, dt, wrel, loop1, loop2, g1, g2,
-                               lam, conv1_in, m1, m2, act2, n_buf)
+                               lam, conv1_in, m1, m2, act2, n_buf, hot)
 
 
 fused_window_fwd.launches = 0
@@ -214,10 +317,12 @@ fused_window_fwd.launches = 0
 
 def window_fwd_launches(owner, h0x, src, dst, rel, em, gidx, live, dt, wrel,
                         loop1, loop2, g1, g2, lam: float, conv1_in: bool, m1,
-                        m2, act2: bool, n_buf: int):
+                        m2, act2: bool, n_buf: int, hot=None):
     """K2f's launches on a CUDA tensor (raises on another device), counted
     on ``owner.launches``: the wrapper that launches them (K2f's own, or
-    K12's, which runs on them)."""
+    K12's, which runs on them). With hot=torch.bfloat16 its bfloat16 mode:
+    the buffers in bfloat16, layer 2 reading layer 1's buffer as its
+    input."""
     name = owner.__name__
     if _device(name, h0x) != "cuda":
         raise ValueError(f"{name}: no kernel for device {h0x.device}")
@@ -225,25 +330,29 @@ def window_fwd_launches(owner, h0x, src, dst, rel, em, gidx, live, dt, wrel,
     E = src.shape[-1]
     _check_cuda(name, _named(h0x, src, dst, rel, em, gidx, live, dt, wrel,
                              loop1, loop2, g1, g2, m1, m2), B, L1, A, E, d)
+    lib = _build.lib()
+    launch = _lib_fn(lib, "window_layer_launch", hot)
     # CSR over (element, step, destination row) for both layers' SpMMs
     rowptr, s_src, s_rel, s_em = _step_csr(dst, em, B, L1, A, src, rel, em)
 
-    buf1 = torch.zeros_like(h0x)
-    buf2 = torch.zeros_like(h0x)
-    buf3 = torch.zeros_like(h0x) if n_buf == 3 else None
-    lib = _build.lib()
+    store = torch.float32 if hot is None else hot
+    buf1 = torch.zeros_like(h0x, dtype=store)
+    buf2 = torch.zeros_like(h0x, dtype=store)
+    buf3 = torch.zeros_like(h0x, dtype=store) if n_buf == 3 else None
     stream = torch.cuda.current_stream(h0x.device).cuda_stream
     p = _ptr
     for k in range(L1):
-        for x, given, col, loop, m, relu, g, buf, loc in (
-                (h0x, conv1_in, 0, loop1, m1, False, g1, buf1, None),
-                (buf1, False, d, loop2, m2, act2, g2, buf2, buf3)):
-            err = lib.window_layer_launch(
+        # x_bf16: layer 2 reads layer 1's buffer, bfloat16 in that mode
+        for x, given, col, loop, m, relu, g, buf, loc, x_bf16 in (
+                (h0x, conv1_in, 0, loop1, m1, False, g1, buf1, None, 0),
+                (buf1, False, d, loop2, m2, act2, g2, buf2, buf3,
+                 int(hot is not None))):
+            err = launch(
                 p(x), int(given), p(rowptr), p(s_src), p(s_rel), p(s_em),
                 p(wrel), 2 * d, col, p(loop), p(m), int(relu),
                 p(g["wih_t"]), p(g["whh_t"]), p(g["bih"]), p(g["bhh"]),
                 p(gidx), p(live), p(dt), float(lam), p(buf), p(loc), B, L1,
-                A, d, k, stream)
+                A, d, x_bf16, k, stream)
             _build.check(err, name)
             owner.launches += 1
     return (buf1, buf2) if buf3 is None else (buf1, buf2, buf3)
@@ -252,9 +361,10 @@ def window_fwd_launches(owner, h0x, src, dst, rel, em, gidx, live, dt, wrel,
 def fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
                            loop1, loop2, g1, g2, lam: float, m1, m2, gb1,
                            gb2, gb3=None, act2: bool = False,
-                           relu_mask=None):
+                           relu_mask=None, hot=None):
     """Plain version of K2b: autograd through ``fused_window_fwd_plain``
-    (with `relu_mask` as there). Returns the 12 cotangents in the order of
+    (with `relu_mask` and `hot` as there; the cotangents gb* in the store
+    dtype). Returns the 12 cotangents in the order of
     ``fused_window_bwd``."""
     leaves = [t.detach().requires_grad_(True) for t in (
         h0x, wrel, loop1, loop2, g1["wih_t"], g1["whh_t"], g2["wih_t"],
@@ -266,7 +376,7 @@ def fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
             x, src, dst, rel, em, gidx, live, dt, w, l1, l2,
             {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1},
             {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2},
-            lam, False, m1, m2, act2, len(gbs), relu_mask)
+            lam, False, m1, m2, act2, len(gbs), relu_mask, hot)
         grads = torch.autograd.grad(bufs, leaves, gbs, allow_unused=True)
     return tuple(torch.zeros_like(t) if g is None else g
                  for g, t in zip(grads, leaves))
@@ -274,26 +384,31 @@ def fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
 
 def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
                      loop2, g1, g2, lam: float, m1, m2, buf1, buf2, gb1, gb2,
-                     gb3=None, act2: bool = False):
+                     gb3=None, act2: bool = False, hot=None):
     """K2b: the cotangents of K2f's inputs from gb1/gb2 (and gb3 with
     n_buf=3), the cotangents of its outputs buf1/buf2 (saved by the
-    forward; the third buffer need not be). Arguments as in
-    ``fused_window_fwd`` (conv1_in is not differentiable). Returns (dh0x,
-    dwrel, dloop1, dloop2, dwih1, dwhh1, dwih2, dwhh2, dbih1, dbhh1, dbih2,
-    dbhh2), the GRU weights' in the wih_t/whh_t layout."""
+    forward; the third buffer need not be; buffers and cotangents in the
+    store dtype). Arguments as in ``fused_window_fwd`` (conv1_in is not
+    differentiable). Returns (dh0x, dwrel, dloop1, dloop2, dwih1, dwhh1,
+    dwih2, dwhh2, dbih1, dbhh1, dbih2, dbhh2), the GRU weights' in the
+    wih_t/whh_t layout, all float32."""
     if _device("fused_window_bwd", h0x) == "cpu":
         return fused_window_bwd_plain(h0x, src, dst, rel, em, gidx, live, dt,
                                       wrel, loop1, loop2, g1, g2, lam, m1,
-                                      m2, gb1, gb2, gb3, act2)
+                                      m2, gb1, gb2, gb3, act2, hot=hot)
     B, L1, A, d = h0x.shape
     E = src.shape[-1]
     R = wrel.shape[0]
     _check_cuda("fused_window_bwd", _named(
         h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1, loop2, g1, g2,
         m1, m2, buf1=buf1, buf2=buf2, gb1=gb1, gb2=gb2, gb3=gb3), B, L1, A,
-        E, d)
+        E, d, hot)
     if d > _MAX_D_BWD:
         raise ValueError(f"fused_window_bwd: d = {d} > {_MAX_D_BWD}")
+    lib = _build.lib()
+    fn = {n: _lib_fn(lib, n, hot) for n in (
+        "window_bwd_gru_launch", "window_bwd_input_launch",
+        "window_wgrad_launch")}
     dev = h0x.device
     eid = torch.arange(B * L1 * E, device=dev, dtype=torch.int32)
     # masked edges are in no CSR: their per-edge relation cotangent in ewg
@@ -307,7 +422,14 @@ def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     def tr(t):
         return t.t().contiguous()
 
-    db1, db2 = gb1.clone(), gb2.clone()
+    # the buffers' cotangents, float32 accumulators of the steps' adds
+    db1, db2 = gb1.to(torch.float32, copy=True), gb2.to(torch.float32,
+                                                        copy=True)
+    if gb3 is not None:
+        gb3 = gb3.to(torch.float32)
+    # layer 2's input, layer 1's buffer, as the products and the SpMM read
+    # it: float32 (in the bfloat16 mode a copy of the bfloat16 values)
+    x2 = buf1.to(torch.float32)
     dh0x = torch.empty_like(h0x)
     n2 = torch.empty(B * L1 * A, device=dev)
     ewg1 = torch.empty(B * L1 * E * d, device=dev)
@@ -328,7 +450,6 @@ def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     wpart = torch.zeros(_WGRAD_SPLIT, sum(sizes), **f32)
     wsum = torch.empty(sum(sizes), **f32)
 
-    lib = _build.lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _ptr
     lam = float(lam)
@@ -339,7 +460,7 @@ def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     # relation cotangents, and where the input cotangent goes (added into
     # db1, or written to dh0x)
     layers = (
-        (buf1, m2, act2, loop2, tr(loop2), g2, tr(g2["wih_t"]),
+        (x2, m2, act2, loop2, tr(loop2), g2, tr(g2["wih_t"]),
          tr(g2["whh_t"]), d, buf2, db2, gb3, n2, scr[1], ewg2, db1, 1),
         (h0x, m1, False, loop1, tr(loop1), g1, tr(g1["wih_t"]),
          tr(g1["whh_t"]), 0, buf1, db1, None, None, scr[0], ewg1, dh0x, 0))
@@ -351,21 +472,21 @@ def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     for k in reversed(range(L1)):
         for (x, m, relu, loop, loop_t, g, wih, whh, col, own, dbuf, gloc,
              n2_out, s, ewg, target, acc) in layers:
-            launched(lib.window_bwd_gru_launch(
+            launched(fn["window_bwd_gru_launch"](
                 p(x), p(d_ptr), p(d_src), p(d_rel), p(d_em), p(wrel), 2 * d,
                 col, p(loop), p(m), int(relu), p(g["wih_t"]), p(g["whh_t"]),
                 p(g["bih"]), p(g["bhh"]), p(wih), p(whh), p(gidx), p(live),
                 p(dt), lam, p(own), p(dbuf), p(gloc), p(n2_out),
                 p(s["conv"]), p(s["h0g"]), p(s["dgi"]), p(s["dgh"]),
                 p(s["dconv"]), p(s["dlp"]), B, L1, A, d, k, stream), "gru")
-            launched(lib.window_bwd_input_launch(
+            launched(fn["window_bwd_input_launch"](
                 p(s_ptr), p(s_dst), p(s_rel), p(s_em), p(s_eid), p(n2),
                 p(s["dconv"]), p(s["dlp"]), p(wrel), 2 * d, col, p(loop_t),
                 p(x), p(ewg), p(target), acc, B, L1, A, d, k, stream),
                 "input")
         s1, s2 = scr
-        launched(lib.window_wgrad_launch(
-            p(s2["conv"]), p(s2["h0g"]), p(buf1), p(s2["dgi"]),
+        launched(fn["window_wgrad_launch"](
+            p(s2["conv"]), p(s2["h0g"]), p(x2), p(s2["dgi"]),
             p(s2["dgh"]), p(s2["dlp"]), p(s1["conv"]), p(s1["h0g"]),
             p(h0x), p(s1["dgi"]), p(s1["dgh"]), p(s1["dlp"]), p(wpart),
             _WGRAD_SPLIT, B, L1, A, d, k, stream), "wgrad")
@@ -387,20 +508,22 @@ fused_window_bwd.launches = 0
 
 class FusedWindow(torch.autograd.Function):
     """Differentiable K2: `fwd` forward (``fused_window_fwd``, or K12's
-    ``fused_window_mb_fwd``), ``fused_window_bwd`` backward. `graph` holds
-    the tensors that take no gradient (src, dst, rel, em, gidx, live, dt,
-    m1, m2). Returns n_buf buffers."""
+    ``fused_window_mb_fwd``), ``fused_window_bwd`` backward, in the mode
+    `hot` (None for float32, or torch.bfloat16). `graph` holds the tensors
+    that take no gradient (src, dst, rel, em, gidx, live, dt, m1, m2).
+    Returns n_buf buffers."""
 
     @staticmethod
-    def forward(ctx, fwd, lam, conv1_in, act2, n_buf, graph, h0x, wrel,
+    def forward(ctx, fwd, hot, lam, conv1_in, act2, n_buf, graph, h0x, wrel,
                 loop1, loop2, wih1, whh1, bih1, bhh1, wih2, whh2, bih2,
                 bhh2):
         src, dst, rel, em, gidx, live, dt, m1, m2 = graph
         g1 = {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1}
         g2 = {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2}
         bufs = fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1, loop2,
-                   g1, g2, lam, conv1_in, m1, m2, act2, n_buf)
+                   g1, g2, lam, conv1_in, m1, m2, act2, n_buf, hot=hot)
         ctx.lam, ctx.conv1_in, ctx.act2, ctx.graph = lam, conv1_in, act2, graph
+        ctx.hot = hot
         ctx.save_for_backward(h0x, wrel, loop1, loop2, wih1, whh1, bih1,
                               bhh1, wih2, whh2, bih2, bhh2, bufs[0], bufs[1])
         return bufs
@@ -421,8 +544,9 @@ class FusedWindow(torch.autograd.Function):
             h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1, loop2,
             {"wih_t": wih1, "whh_t": whh1, "bih": bih1, "bhh": bhh1},
             {"wih_t": wih2, "whh_t": whh2, "bih": bih2, "bhh": bhh2},
-            ctx.lam, m1, m2, buf1, buf2, gbs[0], gbs[1], gb3, ctx.act2)
-        return (None, None, None, None, None, None, dh0x, dwrel, dloop1,
+            ctx.lam, m1, m2, buf1, buf2, gbs[0], gbs[1], gb3, ctx.act2,
+            hot=ctx.hot)
+        return (None, None, None, None, None, None, None, dh0x, dwrel, dloop1,
                 dloop2, dwih1, dwhh1, dbih1, dbhh1, dwih2, dwhh2, dbih2,
                 dbhh2)
 
@@ -485,13 +609,15 @@ def window_args(enc_params, cfg, h0_xs, src, dst, rel, emask, prev_step,
         act2=activation2 == "relu")
 
 
-def apply_window(fwd, a: dict, conv1_in: bool, n_buf: int):
-    """``FusedWindow`` with the forward `fwd` on ``window_args``' dict."""
+def apply_window(fwd, a: dict, conv1_in: bool, n_buf: int, hot=None):
+    """``FusedWindow`` with the forward `fwd` on ``window_args``' dict, in
+    the mode `hot`."""
     g1, g2 = a["g1"], a["g2"]
     graph = tuple(a[k] for k in ("src", "dst", "rel", "em", "gidx", "live",
                                  "dt", "m1", "m2"))
     return FusedWindow.apply(
-        fwd, a["lam"], bool(conv1_in), a["act2"], n_buf, graph, a["h0x"],
+        fwd, hot, a["lam"], bool(conv1_in), a["act2"], n_buf, graph,
+        a["h0x"],
         a["wrel"], a["loop1"], a["loop2"], g1["wih_t"], g1["whh_t"],
         g1["bih"], g1["bhh"], g2["wih_t"], g2["whh_t"], g2["bih"],
         g2["bhh"])
@@ -502,11 +628,13 @@ def fused_window_scan(enc_params, cfg, h0_xs, src, dst, rel, emask,
                       kernels: bool = True, masks=None, direction=None,
                       activation2=None, n_buf: int = 2):
     """Run B history windows through K2 (``kernels=False``: its plain
-    version, differentiated by autograd); arguments as in ``window_args``.
-    Returns (buf1, buf2[, buf3]): n_buf buffers."""
+    version, differentiated by autograd) in ``cfg.hot_dtype``; arguments as
+    in ``window_args``. Returns (buf1, buf2[, buf3]): n_buf buffers in the
+    store dtype (float32, or the hot dtype)."""
     a = window_args(enc_params, cfg, h0_xs, src, dst, rel, emask, prev_step,
                     prev_row, dt, live, masks, direction, activation2)
+    hot = cfg.hot_dtype
     if not kernels:
         return fused_window_fwd_plain(conv1_in=bool(conv1_in), n_buf=n_buf,
-                                      **a)
-    return apply_window(fused_window_fwd, a, conv1_in, n_buf)
+                                      hot=hot, **a)
+    return apply_window(fused_window_fwd, a, conv1_in, n_buf, hot)

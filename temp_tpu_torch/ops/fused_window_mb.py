@@ -43,9 +43,14 @@ def fused_window_mb_fwd_plain(h0x, src, dst, rel, em, gidx, live, dt, wrel,
 
 def fused_window_mb_fwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
                         loop2, g1, g2, lam: float, conv1_in: bool, m1=None,
-                        m2=None, act2: bool = False, n_buf: int = 2):
+                        m2=None, act2: bool = False, n_buf: int = 2,
+                        hot=None):
     """K12 for B windows: arguments and result as in ``fused_window_fwd``,
-    whose launches it makes."""
+    whose launches it makes. It has no bfloat16 mode yet: a `hot` dtype
+    raises."""
+    if hot is not None:
+        raise NotImplementedError(f"fused_window_mb_fwd: kernel K12 has no "
+                                  f"{hot} mode yet; see ROADMAP.md")
     if n_buf not in (2, 3):
         raise ValueError(f"fused_window_mb_fwd: n_buf = {n_buf}, not 2 or 3")
     if _device("fused_window_mb_fwd", h0x) == "cpu":

@@ -8,7 +8,9 @@ as a cell, sequence length 1.
   (models/GRU_cell.py), whose reset and input gates read the hidden state
   only.
 
-``run_gru`` picks the one the config names."""
+``run_gru`` picks the one the config names. Under a hot dtype
+(``TKGConfig.hot_dtype``, bfloat16) the cells' products take operands
+rounded to it and sum in float32 (``_mm``)."""
 
 from __future__ import annotations
 
@@ -41,10 +43,28 @@ def init_gru_params(gen: torch.Generator, input_size: int, hidden_size: int,
     return params
 
 
-def gru_cell(p, x, h):
+def hot_round(x, dtype):
+    """x rounded to `dtype` (to nearest, ties to even, as XLA's convert) and
+    back to x's dtype; x itself when dtype is None. Differentiable: the
+    cotangent is rounded the same way on its way back, as the JAX
+    package's convert is transposed."""
+    if dtype is None:
+        return x
+    return x.to(dtype).to(x.dtype)
+
+
+def _mm(x, w, dtype=None):
+    """x @ w.T with optional low-precision inputs and float32 sums: the
+    JAX package's ``_mm``. Both operands rounded to `dtype`, multiplied in
+    float32 (a product of two bfloat16 values is exact in float32; TF32
+    stays off) and returned in float32."""
+    return hot_round(x, dtype) @ hot_round(w, dtype).T
+
+
+def gru_cell(p, x, h, dtype=None):
     """One standard GRU step. x: [N, in], h: [N, H] -> [N, H]."""
-    gi = x @ p["w_ih"].T + p["b_ih"]
-    gh = h @ p["w_hh"].T + p["b_hh"]
+    gi = _mm(x, p["w_ih"], dtype) + p["b_ih"]
+    gh = _mm(h, p["w_hh"], dtype) + p["b_hh"]
     H = h.shape[-1]
     r = torch.sigmoid(gi[..., :H] + gh[..., :H])
     z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
@@ -52,13 +72,13 @@ def gru_cell(p, x, h):
     return (1.0 - z) * n + z * h
 
 
-def gru_stack(params, x, h0):
+def gru_stack(params, x, h0, dtype=None):
     """Multi-layer GRU, sequence length 1: every layer starts from the SAME
     initial hidden state; returns the last layer's hidden."""
     h = None
     inp = x
     for p in params:
-        h = gru_cell(p, inp, h0)
+        h = gru_cell(p, inp, h0, dtype)
         inp = h
     return h
 
@@ -90,7 +110,8 @@ def type1_gru_cell(p, x, h):
 
 def run_gru(cfg, params, x, h0):
     """A layer's recurrence from x with initial hidden h0: its one type1
-    cell under ``cfg.type1``, else its standard stack."""
+    cell under ``cfg.type1``, else its standard stack (its products in
+    ``cfg.hot_dtype``; type1 runs in float32 only)."""
     if cfg.type1:
         return type1_gru_cell(params[0], x, h0)
-    return gru_stack(params, x, h0)
+    return gru_stack(params, x, h0, cfg.hot_dtype)

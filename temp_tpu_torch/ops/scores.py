@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from temp_tpu_torch.ops.gru import hot_round
+
 
 def _split(x):
     d = x.shape[-1] // 2
@@ -134,12 +136,14 @@ def query_for(score_all_fn, q_ent, q_rel, mode):
     return fn(q_ent, q_rel, mode), kind
 
 
-def table_scores(query, table):
+def table_scores(query, table, dtype=None):
     """[P, N] scores of a ``query_for`` query against every row of `table`
-    [N, d]."""
+    [N, d]: for "dot" one product, its operands rounded to `dtype` when
+    given (float32 sums, as the JAX package's ``table_scores``); "l1"
+    stays float32."""
     q, kind = query
     if kind == "dot":
-        return q @ table.transpose(-1, -2)
+        return hot_round(q, dtype) @ hot_round(table, dtype).transpose(-1, -2)
     return l1_scores(q, table)
 
 

@@ -2,7 +2,8 @@
 
     python -m temp_tpu_torch.profile_eval [--plain] [--config FILE]
         [--impute] [--post-ensemble] [--fused-eval] [--fused-window-mb]
-        [--edge-partition MODE [--mp-size M]] [--out DIR]
+        [--edge-partition MODE [--mp-size M]] [--compute-dtype DTYPE]
+        [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
 grid/icews14/config_grrgcn.json model or the one of --config, with
@@ -64,6 +65,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mp-size", type=int, default=4,
                     help="ranks of the edge partition (default 4; on the "
                          "visible cards in turn)")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the hot dtype (bfloat16: GRRGCN's bfloat16 path; "
+                         "default: %(default)s)")
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
@@ -73,8 +78,8 @@ def main(argv=None) -> int:
     cfg = TKGConfig.from_json_file(
         os.path.join(_ROOT, args.config),
         **{k: True for k in ("impute", "post_ensemble") if getattr(args, k)},
-        kernels=not args.plain, fused_eval=args.fused_eval,
-        fused_window_mb=args.fused_window_mb)
+        kernels=not args.plain, compute_dtype=args.compute_dtype,
+        fused_eval=args.fused_eval, fused_window_mb=args.fused_window_mb)
     if args.edge_partition:
         cfg = cfg.replace(edge_partition=args.edge_partition,
                           mp_size=args.mp_size)
@@ -96,7 +101,8 @@ def main(argv=None) -> int:
     path += "".join(f", {name}" for name, on in (
         ("fused_eval", args.fused_eval),
         ("fused_window_mb", args.fused_window_mb),
-        (f"{args.edge_partition} x {args.mp_size}", args.edge_partition))
+        (f"{args.edge_partition} x {args.mp_size}", args.edge_partition),
+        (args.compute_dtype, args.compute_dtype != "float32"))
         if on)
     print(f"path: {path}; {report}")
     if args.out:

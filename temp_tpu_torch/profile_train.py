@@ -2,7 +2,8 @@
 
     python -m temp_tpu_torch.profile_train [--plain | --unfused] [--steps N]
         [--config FILE] [--impute] [--post-ensemble]
-        [--edge-partition MODE [--mp-size M]] [--out DIR]
+        [--edge-partition MODE [--mp-size M]] [--compute-dtype DTYPE]
+        [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
 grid/icews14/config_grrgcn.json model or the one of --config, with
@@ -65,6 +66,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mp-size", type=int, default=4,
                     help="ranks of the edge partition (default 4; on the "
                          "visible cards in turn)")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the hot dtype (bfloat16: GRRGCN's bfloat16 path; "
+                         "default: %(default)s)")
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args(argv)
@@ -74,7 +79,8 @@ def main(argv=None) -> int:
     cfg = TKGConfig.from_json_file(
         os.path.join(_ROOT, args.config),
         **{k: True for k in ("impute", "post_ensemble") if getattr(args, k)},
-        kernels=not args.plain, fused_final=not args.unfused)
+        kernels=not args.plain, compute_dtype=args.compute_dtype,
+        fused_final=not args.unfused)
     if args.edge_partition:
         cfg = cfg.replace(edge_partition=args.edge_partition,
                           mp_size=args.mp_size)
@@ -104,6 +110,8 @@ def main(argv=None) -> int:
     if args.edge_partition:  # the fused final step is off under it
         name = (f"{'plain' if args.plain else 'kernels'}_"
                 f"{args.edge_partition}_x{args.mp_size}")
+    if args.compute_dtype != "float32":
+        name += f", {args.compute_dtype}"
     print(f"path: {name}; {report}")
     if args.out:
         export(args.out, f"train_{name}")

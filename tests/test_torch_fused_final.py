@@ -40,6 +40,7 @@ from temp_tpu_torch.ops.fused_window import _gru_t
 from temp_tpu_torch.ops.membership import true_answer_mask
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 from temp_tpu_torch.train.optim import param_leaves
+from test_torch_post import _xla_unoptimized
 from test_torch_train import _close, _pairs, _torch_params, jax_draws
 
 ATOL = 1e-5
@@ -75,7 +76,9 @@ def jax_fused():
                 return model.loss(p, data, jnp.asarray(T_POS, jnp.int32),
                                   jnp.asarray(tv), rng)
 
-            loss, grads = jax.value_and_grad(loss_fn)(params)
+            # one compile a case: eager Pallas interpret is slow
+            with _xla_unoptimized():
+                loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
             cache[case] = (float(loss), grads,
                            jax.tree_util.tree_map(np.asarray, params),
                            jax_draws(cfg, data, T_POS, rng))

@@ -21,6 +21,7 @@ from temp_tpu.ops.fused_window import fused_window_scan as jax_scan
 from temp_tpu_torch.bridge import params_from_numpy
 from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.ops.fused_window import fused_window_fwd, fused_window_scan
+from test_torch_post import _xla_unoptimized
 
 ATOL = 1e-5
 T_POS = [5, 7, 2, 0]
@@ -65,12 +66,19 @@ def test_plain_k2_matches_pallas_interpret(setup, conv1_in):
     data, model, params = setup
     elems = _window_inputs(data, model, params, conv1_in)
     cfg = JaxConfig(fused_window=True, **KW)
-    refs = [jax_scan(params["encoder"], cfg, model.lc2, e["h0_xs"], e["src"],
-                     e["dst"], e["rel"], e["emask"], e["prev_step"],
-                     e["prev_row"], e["dt"], e["live"], None, False, 2,
-                     interpret=True, conv1_in=conv1_in) for e in elems]
-    batch = {k: torch.from_numpy(np.stack([np.asarray(e[k]) for e in elems]))
-             for k in elems[0]}
+
+    def one(e):
+        return jax_scan(params["encoder"], cfg, model.lc2, e["h0_xs"],
+                        e["src"], e["dst"], e["rel"], e["emask"],
+                        e["prev_step"], e["prev_row"], e["dt"], e["live"],
+                        None, False, 2, interpret=True, conv1_in=conv1_in)
+
+    # the windows under vmap, one compile (eager interpret mode is slow)
+    stacked = {k: jnp.stack([e[k] for e in elems]) for k in elems[0]}
+    with _xla_unoptimized():
+        bufs = jax.jit(jax.vmap(one))(stacked)
+    refs = [tuple(b[i] for b in bufs) for i in range(len(elems))]
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in stacked.items()}
     enc = params_from_numpy(jax.tree_util.tree_map(np.asarray,
                                                    params["encoder"]),
                             device="cpu")

@@ -1412,7 +1412,7 @@ def test_final_layer_shares_k2f_and_k5_products(cuda, N, d, B, R, per, pad):
         p(x), 0, p(ptr2), p(s_src), p(s_rel), p(s_em), p(w["wrel"]), 2 * d,
         d, p(w["loop2"]), p(mask), 0, p(g2["wih_t"]), p(g2["whh_t"]),
         p(g2["bih"]), p(g2["bhh"]), p(gidx), p(live), p(dt), float(gr.lam),
-        p(buf), p(loc), B, 2, N, d, 1, stream), "window_layer")
+        p(buf), p(loc), B, 2, N, d, 0, 1, stream), "window_layer")
     # K5's GRU launch on layer 2, its conv output in the step scratch
     rows = B * N
     wih, whh = (g2[k].t().contiguous() for k in ("wih_t", "whh_t"))

@@ -200,11 +200,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     k4 = chip_smoke.phase_k4(ctx)
     k5 = chip_smoke.phase_k5(ctx)
     train = chip_smoke.phase_train(ctx)
+    bf16_kernels = chip_smoke.phase_bf16_kernels(ctx)
+    bf16_path = chip_smoke.phase_bf16_path(ctx, train, path)
     fctx = chip_smoke.phase_setup_flagship(ctx)
     fctx["train_steps"] = 2
     assert fctx["cfg"].module == "BiGRRGCN" and fctx["cfg"].impute
     res = {"k1": k1, "k2": k2, "path": path, "k1b": k1b, "k2b": k2b,
            "k3": k3, "k4": k4, "k5": k5, "train": train,
+           "bf16_kernels": bf16_kernels, "bf16_path": bf16_path,
            "k2_flagship": chip_smoke.phase_k2_flagship(fctx),
            "k6k7": chip_smoke.phase_k6k7(fctx),
            "k8": chip_smoke.phase_k8(fctx),
@@ -242,7 +245,19 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
         "spmm_fwd", "spmm_bwd", "fused_window_fwd", "fused_window_bwd",
         "fused_final_fwd", "fused_final_bwd_loss", "fused_final_bwd_layer",
         "bi_layer_fwd", "bi_loss_fwd", "bi_layer_bwd", "fused_eval_ranks",
-        "fused_window_mb_fwd", "ring_spmm_fwd", "ring_spmm_bwd"]
+        "fused_window_mb_fwd", "ring_spmm_fwd", "ring_spmm_bwd",
+        "fused_window_fwd_bf16", "fused_window_bwd_bf16",
+        "fused_final_fwd_bf16", "fused_final_bwd_loss_bf16",
+        "fused_final_bwd_layer_bf16"]
+    # the bfloat16 modes' plain versions against themselves on the CPU
+    assert all(r == 0.0 for c in bf16_kernels.values()
+               for r in c["rms_ratios"].values())
+    assert set(bf16_kernels) == {"k2f", "k2f_train", "k2b", "k3", "k4", "k5"}
+    assert bf16_path["max_rel_gaps"] == {"fused": 0.0, "unfused": 0.0}
+    assert all(bf16_path["params"][k]["max_rel_gaps"][f"{k}/{pl}"] < 1e-5
+               for k, pl in (("fused", "plain"),
+                             ("unfused", "unfused_plain")))
+    assert bf16_path["same_rank_share"] == 1.0
     for rec in line["kernels"]:
         assert keys <= set(rec)
         assert rec["max_abs_err"] == 0.0  # the CPU runs the plain version
