@@ -125,6 +125,27 @@ data:
                  windows, L1 = 7), against the plain versions (mode (b)'s
                  cotangents through the kernels' ReLU pattern), two runs
                  bit-equal, with times and bounds;
+23a. bf16_flagship_kernels - compute_dtype="bfloat16" for the flagship:
+                 K2f and K2b in its modes (both windows with three buffers
+                 and the ReLU; mode (a); mode (b), both windows), K6+K7,
+                 K8, K4 on the bi table and K9+K10 in their bfloat16 mode
+                 at full width, each against its plain bfloat16 version
+                 under BF16_RULE (K8's loss within LOSS_TOL), two runs
+                 bit-equal, with times and bounds at the bfloat16 and TF32
+                 rates;
+23b. bf16_flagship_path - the flagship in bfloat16: TRAIN_STEPS steps on
+                 the fused path, the unfused one and the plain versions of
+                 both, losses within TRAIN_TOL and leaves within
+                 BF16_PARAM_TOL of each path's plain versions', the
+                 launches a step (K2f 28, K2b 74, K6+K7 2, K8 2, K4 4,
+                 K9+K10 10; none of K3, K5, K11-K13); the valid sweep (K1f
+                 736, K2f 1,288) against plain; the gaps to float32 and the
+                 peak memory beside float32's;
+23c. bf16_variants - TED, BiGRRGCN --post-aggregation, plain BiGRRGCN and
+                 GRRGCN --impute in bfloat16 at full width and
+                 VARIANT_SEQ_LEN, as `variants` holds them (leaves within
+                 BF16_PARAM_TOL), with the gaps of their plain versions to
+                 float32's.
 24. ted_setup  - TED, BiGRRGCN --impute --post-ensemble, with seeded random
                  weights, and the seconds its frequency features take to
                  build;
@@ -277,7 +298,9 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  launched, no sort in a call.
 
 Then a "kernels" JSON line (the bfloat16 modes as "<name>_bf16" records
-after the float32 ones, their launches the bf16 fused training path's;
+after the float32 ones, their launches the bf16 fused training path's:
+GRRGCN's K2f, K2b, K3-K5, K2's with the flagship's modes and K4's with the
+bi table beside, then the flagship's K6+K7, K8 and K9+K10;
 each kernel's bound_share, bound / ms, and for
 K2f, K2b, K5, K9+K10 and K12, whose products run in 3xTF32 on the tensor
 cores, bound_tc_ms: their operations at 3xTF32's 165 TFLOP/s beside the f32
@@ -335,6 +358,17 @@ TRAIN_TOL = 1e-4
 # max: where weight decay all but cancels an entry's gradient (|g + wd * p|
 # near Adam's eps), f32 rounding moves that entry's step by a few percent
 PARAM_TOL = 1e-2
+# the bfloat16 flagship's and variants' parameters after those steps (each
+# leaf as PARAM_TOL, the bfloat16 kernels against their plain versions): a
+# bfloat16 gradient carries rounding flips where a float32 sum lands on a
+# rounding boundary in one and not the other, and Adam moves an entry whose
+# gradient is near 0 by a full step of either sign, so the two drift apart
+# chaotically from the first step (on an H100 at these sizes, GRRGCN's
+# bfloat16 path: 0.105 of the float32 path's distance after one step, 0.283
+# after 8, each leaf within PARAM_TOL of its change; the flagship's: its
+# input embeddings 2% of their change, its other leaves under 1.3%). A
+# gradient of the wrong direction still shows at the scale of the change
+BF16_PARAM_TOL = 5e-2
 TRAIN_STEPS = 8
 RING_M = 4  # ranks of the edge partition's ring (all on the one card)
 H100_F32_FLOPS = 67e12   # f32 outside the tensor cores, SXM data sheet
@@ -1444,11 +1478,12 @@ def phase_train(ctx, flagship: bool = False) -> dict:
     return res
 
 
-def param_gaps(init, finals, names=("fused", "unfused", "plain")) -> dict:
+def param_gaps(init, finals, names=("fused", "unfused", "plain"),
+               tol=PARAM_TOL) -> dict:
     """For each pair of the training paths `names` (the last the plain
     path) and each leaf, |a - b| / |plain - init| (norms; the plain path's
-    change to that leaf); raises where a leaf's gap exceeds PARAM_TOL of
-    its change (a leaf the plain path left as it was must agree exactly).
+    change to that leaf); raises where a leaf's gap exceeds `tol` of its
+    change (a leaf the plain path left as it was must agree exactly).
     Beside it, for reading only, the same ratio of the largest entries."""
     plain = names[-1]
     change = [(f - i) for f, i in zip(finals[plain], init)]
@@ -1460,7 +1495,7 @@ def param_gaps(init, finals, names=("fused", "unfused", "plain")) -> dict:
             for k, (x, y, c, n) in enumerate(zip(finals[a], finals[b],
                                                  change, norms)):
                 gap = float((x - y).norm())
-                if not gap <= PARAM_TOL * n:
+                if not gap <= tol * n:
                     bad[f"{a}/{b} leaf {k}"] = {"gap": gap, "change": n}
                 if n > 0:
                     worst = max(worst, gap / n)
@@ -1469,7 +1504,7 @@ def param_gaps(init, finals, names=("fused", "unfused", "plain")) -> dict:
             gaps[f"{a}/{b}"] = worst
             maxes[f"{a}/{b}"] = worst_max
     if bad:
-        raise AssertionError(f"train: parameters differ beyond {PARAM_TOL} "
+        raise AssertionError(f"train: parameters differ beyond {tol} "
                              f"of the plain path's change: {bad}")
     return {"max_rel_gaps": gaps, "max_entry_gaps": maxes,
             "largest_change": max(norms), "smallest_change": min(norms)}
@@ -1547,6 +1582,20 @@ def _errs(pairs, what):
     return {"ratio": bf16_rule(pairs, what),
             "abs": {n: {"abs": float((k.float() - pb.float()).abs().max())}
                     for n, k, pb, _ in pairs}}
+
+
+def bf16_param_ratio(kernels, plain, f32) -> float:
+    """For reading: the trained parameters of a bfloat16 kernel path
+    against its plain bfloat16 path, all leaves as one vector, in BF16_RULE's
+    terms: RMS(kernels - plain) over RMS(float32 - plain), `f32` the float32
+    run's leaves from the same weights and draws (BF16_PARAM_TOL says why
+    it grows with the steps)."""
+    import torch
+
+    flat = [torch.cat([t.flatten().double().cpu() for t in v])
+            for v in (kernels, plain, f32)]
+    gap, yard = _rms(flat[0] - flat[1]), _rms(flat[2] - flat[1])
+    return gap / yard if yard else 0.0
 
 
 def phase_bf16_kernels(ctx) -> dict:
@@ -1766,12 +1815,8 @@ def phase_bf16_path(ctx, train_res, path_res) -> dict:
                              f"{res['max_rel_gaps']} > {TRAIN_TOL}")
     res["params"] = {k: param_gaps(init, finals, names=(k, pl))
                      for k, pl in pairs}
-    flat = {n: torch.cat([t.flatten().double().cpu() for t in v])
-            for n, v in finals.items()}
-    flat_f32 = torch.cat([t.flatten().double().cpu()
-                          for t in ctx["train_ref"]["params"]])
     res["param_ratios"] = {
-        k: _rms(flat[k] - flat[pl]) / max(_rms(flat_f32 - flat[pl]), 1e-30)
+        k: bf16_param_ratio(finals[k], finals[pl], ctx["train_ref"]["params"])
         for k, pl in pairs}
     res["loss_gap_to_f32"] = float((losses["plain"] - f32).abs().max())
     res["loss_rel_gap_to_f32"] = res["loss_gap_to_f32"] / float(
@@ -2700,6 +2745,432 @@ def phase_k2_modes(ctx, fctx) -> dict:
     return out
 
 
+# -- bfloat16 for the flagship and the TeMP variants ------------------------
+
+# K2's flagship modes in bfloat16: (tag, _k2_mode_case's case, buffers,
+# ReLU): the flagship's two windows (three buffers and the ReLU), the
+# unidirectional Post models' (mode (a), GRRGCN's eval batch of windows on
+# its own weights) and BiGRRGCN's two (mode (b))
+_K2_BF16_MODES = (("flagship_fwd", "b_fwd", 3, True),
+                  ("flagship_bwd", "b_bwd", 3, True), ("a", "a", 3, False),
+                  ("b_fwd", "b_fwd", 2, True), ("b_bwd", "b_bwd", 2, True))
+
+
+def _k2_bf16_mode(ctx, fctx, tag, case, n_buf, relu) -> dict:
+    """One of K2's flagship modes in bfloat16 (``phase_bf16_flagship_
+    kernels``): K2f and K2b against their plain bfloat16 versions under
+    BF16_RULE, two runs bit-equal; the "fwd" and "bwd" records."""
+    import torch
+
+    from temp_tpu_torch.ops import fused_window as fw
+
+    BF = torch.bfloat16
+    c, win, a = _k2_mode_case(ctx, fctx, case)
+    dev = c["device"]
+    B, L1, A, d = a["h0x"].shape
+    if a["act2"] != relu:
+        raise AssertionError(f"K2 bf16 {tag}: act2 {a['act2']}")
+    fwd_args = dict(a, conv1_in=False, n_buf=n_buf)
+    got = fw.fused_window_fwd(**fwd_args, hot=BF)
+    if len(got) != n_buf or any(b.dtype != BF for b in got):
+        raise AssertionError(f"K2f bf16 {tag}: buffers "
+                             f"{[b.dtype for b in got]}")
+    fwd_errs = _errs(((f"buf{i + 1}", got[i], pb, pf) for i, (pb, pf) in
+                      enumerate(zip(fw.fused_window_fwd_plain(**fwd_args,
+                                                              hot=BF),
+                                    fw.fused_window_fwd_plain(**fwd_args)))),
+                     f"K2f bf16 {tag}")
+    fwd_bitwise = _bitwise(got, fw.fused_window_fwd(**fwd_args, hot=BF))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    gbs = [torch.randn(B, L1, A, d, generator=gen, device=dev).to(BF)
+           for _ in range(n_buf)]
+    g3 = gbs[2] if n_buf == 3 else None
+    bwd_args = dict(a, buf1=got[0], buf2=got[1], gb1=gbs[0], gb2=gbs[1],
+                    gb3=g3, hot=BF)
+    cot = fw.fused_window_bwd(**bwd_args)
+    bitwise = _bitwise(cot, fw.fused_window_bwd(**bwd_args))
+    # the plain backward through the kernels' ReLU pattern (their third
+    # buffer > 0; in mode (b) from the same launches with it written, whose
+    # other buffers must not change)
+    relu_mask = None
+    if relu:
+        loc = got[2] if n_buf == 3 else None
+        if loc is None:
+            full = fw.fused_window_fwd(**dict(fwd_args, n_buf=3), hot=BF)
+            if not _bitwise(got, full[:2]):
+                raise AssertionError(f"K2f bf16 {tag}: the third buffer "
+                                     f"changes the other two")
+            loc = full[2]
+        relu_mask = (loc > 0).to(torch.float32)
+
+    def plain_bwd(hot):
+        gs = gbs if hot is not None else [g.float() for g in gbs]
+        return fw.fused_window_bwd_plain(
+            **a, gb1=gs[0], gb2=gs[1], gb3=gs[2] if n_buf == 3 else None,
+            relu_mask=relu_mask, hot=hot)
+
+    bwd_errs = _errs(zip(_COTANGENTS, cot, plain_bwd(BF), plain_bwd(None)),
+                     f"K2b bf16 {tag}")
+    if not (fwd_bitwise and bitwise):
+        raise AssertionError(f"K2 bf16 {tag}: two runs differ (K2f "
+                             f"{fwd_bitwise}, K2b {bitwise})")
+    rows = int(win.act_mask[:, :L1].sum())
+    edges = int(win.emask[:, :L1].sum())
+    n_rel = c["params"]["encoder"]["layer1"]["weight"].shape[0]
+    w_bytes = (2 * d * 3 * d * 2 + 2 * d * d + n_rel * 2 * d) * 4
+    shape = (f"B={B} L1={L1} A={A} E={c['E']} d={d} n_buf={n_buf}"
+             f"{' relu' if relu else ''}")
+    # per active row the gate products and both self-loops, the input and
+    # both masks read in float32, the buffers written in bfloat16; the
+    # backward (84 d^2 a row) reads the buffers and their cotangents in
+    # bfloat16 and writes dh0x in float32
+    fwd = _bf16_case(
+        lambda: fw.fused_window_fwd(**fwd_args, hot=BF),
+        lambda: fw.fused_window_fwd_plain(**fwd_args, hot=BF),
+        lambda: fw.fused_window_fwd_plain(**fwd_args), fwd_errs,
+        rows * (4 * 2 * d * 3 * d + 2 * 2 * d * d) + 2 * edges * 3 * d,
+        rows * d * (4 + 2 * n_buf + 2 * 4) + edges * 16 + rows * 12
+        + w_bytes, shape, dev, plain_reps=2)
+    bwd = _bf16_case(
+        lambda: fw.fused_window_bwd(**bwd_args),
+        lambda: plain_bwd(BF), lambda: plain_bwd(None), bwd_errs,
+        rows * 84 * d * d + edges * 16 * d,
+        rows * d * (4 * 4 + 2 * (2 + n_buf)) + edges * 16 + rows * 12
+        + 2 * w_bytes, shape, dev, plain_reps=2)
+    fwd["bitwise"], bwd["bitwise"] = fwd_bitwise, bitwise
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def phase_bf16_flagship_kernels(ctx, fctx) -> dict:
+    """The flagship's kernels in their bfloat16 mode at its full width,
+    each against its plain bfloat16 version on the same inputs under
+    BF16_RULE (the plain float32 version's distance from it the
+    yardstick), two runs of each bit-equal, with times and bounds at the
+    bfloat16 and TF32 rates: K2f and K2b in the flagship's modes (both
+    windows of the flagship's first training batch with three buffers and
+    the ReLU, mode (a) on GRRGCN's windows, mode (b) on both of the
+    flagship's windows); then on that batch's final step, its history
+    rounded to bfloat16, K6+K7 for both layers, K8 on the table (its loss
+    within LOSS_TOL, as K3's: at this width bfloat16's roundings average out
+    of each element's loss below float32's noise), K4 on the bi table and
+    K9+K10 for both layers from K4's cotangent (layer 2's plain version
+    through the kernels' ReLU pattern, ``bi_relu_pattern``). Every launch
+    here is a check's: the counters are not read."""
+    import torch
+
+    from temp_tpu_torch.ops import fused_final as ff
+    from temp_tpu_torch.ops import fused_final_bi as fb
+
+    BF = torch.bfloat16
+    out = {}
+    for tag, case, n_buf, relu in _K2_BF16_MODES:
+        r = _k2_bf16_mode(ctx, fctx, tag, case, n_buf, relu)
+        out[f"k2_{tag}_fwd"], out[f"k2_{tag}_bwd"] = r["fwd"], r["bwd"]
+
+    dev, fb_ = fctx["device"], final_batch_flagship(fctx)
+    h1f, h2f, hlf, h1b, h2b, hlb = (h.to(BF).contiguous()
+                                    for h in fb_["hists"])
+    bg, h0x, wrel, rtab = fb_["bg"], fb_["h0x"], fb_["wrel"], fb_["rtab"]
+    gr, csr, g = bg.gr, fb_["csr"], fb_["grus"]
+    B, N, d = h0x.shape
+    loop1, loop2 = fb_["loops"]
+    sel = h0x if bg.noact else None
+    a1 = (h0x, h1f, h1b, bg, gr.m1, wrel, 0, loop1, g["1f"], g["1b"])
+    kw2 = {"relu": True, "hl": (hlf, hlb), "imp": fb_["imp"]}
+
+    def layers(fn, **kw):
+        out1 = fn(*a1, **kw)
+        a2 = (out1, h2f, h2b, bg, gr.m2, wrel, d, loop2, g["2f"], g["2b"])
+        return out1, fn(*a2, **kw2, sel=sel, **kw)
+
+    got = layers(fb.bi_layer_fwd, csr=csr, hot=BF)
+    ref_bf = layers(fb.bi_layer_fwd_plain, hot=BF)
+    ref_f = layers(fb.bi_layer_fwd_plain)
+    # layer 2 of all three from the plain bfloat16 layer 1's output
+    a2 = (ref_bf[0], h2f, h2b, bg, gr.m2, wrel, d, loop2, g["2f"], g["2b"])
+    got = (got[0], fb.bi_layer_fwd(*a2, **kw2, sel=sel, csr=csr, hot=BF))
+    ref_f = (ref_f[0], fb.bi_layer_fwd_plain(*a2, **kw2, sel=sel))
+    errs = _errs((("layer1", got[0], ref_bf[0], ref_f[0]),
+                  ("layer2", got[1], ref_bf[1], ref_f[1])), "K6+K7 bf16")
+    bitwise = _bitwise(got, (fb.bi_layer_fwd(*a1, csr=csr, hot=BF),
+                             fb.bi_layer_fwd(*a2, **kw2, sel=sel, csr=csr,
+                                             hot=BF)))
+    if not bitwise:
+        raise AssertionError("K6+K7 bf16: two runs differ")
+    kept = float(gr.emf.sum())
+    # the four histories and two local tables read in bfloat16
+    hist_bytes = 6 * 2 * B * N * d
+    out["k6k7"] = _bf16_case(
+        lambda: (fb.bi_layer_fwd(*a1, csr=csr, hot=BF),
+                 fb.bi_layer_fwd(*a2, **kw2, sel=sel, csr=csr, hot=BF)),
+        lambda: layers(fb.bi_layer_fwd_plain, hot=BF),
+        lambda: layers(fb.bi_layer_fwd_plain), errs,
+        2 * B * 26 * N * d * d + 2 * kept * 3 * d,
+        _bi_bytes(fb_, 1) + _bi_bytes(fb_, 2) - hist_bytes,
+        f"B={B} N={N} E={gr.src.shape[1]} d={d}, both layers", dev, reps=10)
+    out["k6k7"]["bitwise"] = bitwise
+
+    table = ref_bf[1]
+    loss, saved = fb.bi_loss_fwd(table, rtab, gr, csr, hot=BF)
+    lb = ff._loss_plain(table, rtab, gr, BF)
+    lf = ff._loss_plain(table, rtab, gr)
+    err_loss = float(((loss - lb) / lb.abs().clamp(min=1.0)).abs().max())
+    if not (err_loss <= LOSS_TOL and bool(torch.isfinite(loss).all())):
+        raise AssertionError(f"K8 bf16: loss err {err_loss} > {LOSS_TOL}")
+    again, saved2 = fb.bi_loss_fwd(table, rtab, gr, csr, hot=BF)
+    keys = [k for k in ("qhat", "lse", "scpos") if k in saved]
+    bitwise = _bitwise([loss] + [saved[k] for k in keys],
+                       [again] + [saved2[k] for k in keys])
+    if not bitwise:
+        raise AssertionError("K8 bf16: two runs differ")
+    q = 2 * float(gr.posm.sum())
+    shape = (f"B={B} N={N} E={gr.src.shape[1]} d={d} "
+             f"positive queries={int(q)}")
+    # the score launch scores two query sets
+    k8 = {"shape": shape, "max_abs_err": float((loss - lb).abs().max()),
+          "loss_rel_err": err_loss,
+          "loss_gap_to_f32": float((lb - lf).abs().max()),
+          "rms_ratio": None, "bitwise": bitwise,
+          "ms": time_ms(lambda: fb.bi_loss_fwd(table, rtab, gr, csr,
+                                               hot=BF), dev, reps=10),
+          "plain_ms": time_ms(lambda: ff._loss_plain(table, rtab, gr, BF),
+                              dev, reps=3),
+          "plain_f32_ms": time_ms(lambda: ff._loss_plain(table, rtab, gr),
+                                  dev, reps=3),
+          "library_ms": None,
+          **_bf16_bounds(2 * q * N * 2 * d, 4 * (B * N * d + rtab.numel()))}
+    k8["bound_share"] = k8["bound_ms"] / k8["ms"]
+    out["k8"] = k8
+
+    gv = fb_["tv"]
+    got4 = ff.fused_final_bwd_loss(saved, rtab, gr, gv, hot=BF)
+    ref4 = ff.fused_final_bwd_loss_plain(table, rtab, gr, gv, hot=BF)
+    ref4f = ff.fused_final_bwd_loss_plain(table, rtab, gr, gv)
+    errs = _errs(zip(("d_table", "d_rtab"), got4, ref4, ref4f), "K4 bf16 bi")
+    bitwise = _bitwise(got4, ff.fused_final_bwd_loss(saved, rtab, gr, gv,
+                                                     hot=BF))
+    if not bitwise:
+        raise AssertionError("K4 bf16 on the bi table: two runs differ")
+    out["k4_bi"] = _bf16_case(
+        lambda: ff.fused_final_bwd_loss(saved, rtab, gr, gv, hot=BF),
+        lambda: ff.fused_final_bwd_loss_plain(table, rtab, gr, gv, hot=BF),
+        lambda: ff.fused_final_bwd_loss_plain(table, rtab, gr, gv), errs,
+        q * N * 2 * d * 3, 4 * 2 * B * N * d, shape, dev, reps=10)
+    out["k4_bi"]["bitwise"] = bitwise
+
+    d_out2, _ = ff.select_bwd(ref4[0], gr.active if bg.noact else None)
+    d_out2 = d_out2.contiguous()
+    relu2 = fb.bi_relu_pattern(*a2, d_out2, **kw2, csr=csr, hot=BF)
+    l2 = (a2, d_out2, kw2)
+    rb2 = fb.bi_layer_bwd_plain(*a2, d_out2, **kw2, relu_mask=relu2, hot=BF)
+    l1 = (a1, rb2[0], {})
+
+    def both(fn, **kw):
+        def run():
+            res = []
+            for a, up, k in (l2, l1):
+                extra = ({"relu_mask": relu2} if k and fn is not
+                         fb.bi_layer_bwd else {})
+                res.append(fn(*a, up, **k, **extra, **kw))
+            return res
+        return run
+
+    got9 = both(fb.bi_layer_bwd, csr=csr, hot=BF)()
+    ref9 = both(fb.bi_layer_bwd_plain, hot=BF)()
+    ref9f = both(fb.bi_layer_bwd_plain)()
+    pairs = [(f"{tag} {n}", x, y, z)
+             for tag, gl, rl, fl in zip(("layer2", "layer1"), got9, ref9,
+                                        ref9f)
+             for n, x, y, z in zip(_BI_COTANGENTS, gl, rl, fl)
+             if y is not None]
+    errs = _errs(pairs, "K9+K10 bf16")
+    bitwise = all(_bitwise(x, y) for x, y in zip(
+        got9, both(fb.bi_layer_bwd, csr=csr, hot=BF)()))
+    if not bitwise:
+        raise AssertionError("K9+K10 bf16: two runs differ")
+    conv2 = fb._rows_plain(*a2[:8], True, kw2["hl"], kw2["imp"], BF)[0]
+    out["k9k10"] = _bf16_case(
+        both(fb.bi_layer_bwd, csr=csr, hot=BF),
+        both(fb.bi_layer_bwd_plain, hot=BF), both(fb.bi_layer_bwd_plain),
+        errs, 2 * B * 78 * N * d * d + 2 * kept * 6 * d,
+        _bi_bytes(fb_, 1, extra_rows=4) + _bi_bytes(fb_, 2, extra_rows=6)
+        - hist_bytes, f"B={B} N={N} E={gr.src.shape[1]} d={d}, both layers",
+        dev, reps=10)
+    out["k9k10"].update(bitwise=bitwise, relu_flips=0 if relu2 is None else
+                        int(((relu2 > 0) != (conv2 > 0)).sum()))
+    for name, r in out.items():
+        print(f"  bf16 flagship {name}: {r}", flush=True)
+    return out
+
+
+# the flagship's bfloat16 launches a training step (fused) and a valid sweep
+_BF16_FLAGSHIP_STEP = {"fused_window_fwd": 28, "fused_window_bwd": 74,
+                       "bi_layer_fwd": 2, "bi_loss_fwd": 2,
+                       "fused_final_bwd_loss": 4, "bi_layer_bwd": 10}
+_BF16_FLAGSHIP_SWEEP = {"spmm_fwd": 736, "fused_window_fwd": 1288}
+_NOT_BF16_FLAGSHIP = ("fused_final_fwd", "fused_final_bwd_layer",
+                      "fused_eval_ranks", "fused_window_mb_fwd",
+                      "ring_spmm_fwd", "ring_spmm_bwd")
+
+
+def phase_bf16_flagship_path(fctx, train_res, path_res) -> dict:
+    """The flagship with compute_dtype="bfloat16", as ``phase_bf16_path``
+    holds GRRGCN: TRAIN_STEPS steps on the fused path (K2f, K2b, K6-K10
+    with K4), the unfused one (K2, K1f, K1b) and the plain versions of
+    both, each kernel path's losses within TRAIN_TOL and its trained leaves
+    within BF16_PARAM_TOL of its own plain versions' (beside them
+    ``bf16_param_ratio`` for reading); the launches a step
+    (_BF16_FLAGSHIP_STEP; none of K3, K5, K11-K13); the valid sweep with the
+    kernels and with the plain versions (_BF16_FLAGSHIP_SWEEP; MRR within
+    MRR_TOL of plain or within BF16_RULE of the float32 sweep's distance);
+    beside them the bfloat16 - float32 gaps of the losses, parameters and
+    MRR (`train_res` and `path_res` the flagship's float32 phases') and each
+    run's peak memory above what the earlier phases hold."""
+    import numpy as np
+    import torch
+
+    dev = fctx["device"]
+    cfg = fctx["cfg"].replace(compute_dtype="bfloat16")
+    if cfg.hot_dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 flagship: hot dtype {cfg.hot_dtype}")
+    steps = fctx.get("train_steps", TRAIN_STEPS)
+    res, finals, init = {}, {}, None
+    for name, over in _PATHS + (("unfused_plain", {"fused_final": False,
+                                                   "kernels": False}),):
+        model, res[name], init, finals[name], _, _ = _train_path(
+            fctx, cfg.replace(**over))
+        if model.fused_final_on() != (name in ("fused", "plain")):
+            raise AssertionError(f"bf16 flagship {name}: fused_final "
+                                 f"resolved {model.fused_final_on()}")
+        print(f"  bf16 flagship train {name}: {res[name]}", flush=True)
+    losses = {n: torch.tensor(r["losses"], dtype=torch.float64)
+              for n, r in res.items()}
+    pairs = (("fused", "plain"), ("unfused", "unfused_plain"))
+    res["max_rel_gaps"] = {
+        k: float(((losses[k] - losses[pl]).abs()
+                  / losses[pl].abs().clamp(min=1.0)).max()) for k, pl in pairs}
+    if not all(np.isfinite(r["losses"]).all() for r in
+               (res[n] for n in losses)):
+        raise AssertionError("bf16 flagship train: losses not finite")
+    if not all(g <= TRAIN_TOL for g in res["max_rel_gaps"].values()):
+        raise AssertionError(f"bf16 flagship train: loss trajectories "
+                             f"differ: {res['max_rel_gaps']} > {TRAIN_TOL}")
+    # each leaf within BF16_PARAM_TOL of its plain path's change; beside
+    # it, for reading, the rule's ratio against the float32 fused path's
+    res["params"] = {k: param_gaps(init, finals, names=(k, pl),
+                                   tol=BF16_PARAM_TOL) for k, pl in pairs}
+    res["param_ratios"] = {
+        k: bf16_param_ratio(finals[k], finals[pl],
+                            fctx["train_ref"]["params"]) for k, pl in pairs}
+    flat = {n: torch.cat([t.flatten().double().cpu() for t in v])
+            for n, v in finals.items()}
+    flat_f32 = torch.cat([t.flatten().double().cpu()
+                          for t in fctx["train_ref"]["params"]])
+    f32 = torch.tensor(train_res["plain"]["losses"], dtype=torch.float64)
+    res["loss_gap_to_f32"] = float((losses["plain"] - f32).abs().max())
+    res["loss_rel_gap_to_f32"] = res["loss_gap_to_f32"] / float(
+        f32.abs().max())
+    res["param_rel_gap_to_f32"] = _rms(flat["plain"] - flat_f32) / max(
+        _rms(flat_f32 - torch.cat([t.flatten().double().cpu()
+                                   for t in init])), 1e-30)
+    want = {k: v * steps for k, v in _BF16_FLAGSHIP_STEP.items()}
+    n = res["fused"]["launches"]
+    if dev.type == "cuda":
+        got = {k: n[k] for k in want}
+        if got != want or any(n[k] for k in _NOT_BF16_FLAGSHIP) \
+                or n["spmm_fwd"]:
+            raise AssertionError(f"bf16 flagship fused train launches {n}, "
+                                 f"want {want} and none of "
+                                 f"{_NOT_BF16_FLAGSHIP} or K1")
+        u = res["unfused"]["launches"]
+        if not (u["spmm_fwd"] and u["spmm_bwd"] and u["fused_window_fwd"]
+                and u["fused_window_bwd"]) or any(
+                    u[k] for k in _NOT_UNFUSED):
+            raise AssertionError(f"bf16 flagship unfused train launches {u}")
+    for name in ("plain", "unfused_plain"):
+        if any(res[name]["launches"].values()):
+            raise AssertionError(f"bf16 flagship {name} train launched "
+                                 f"kernels: {res[name]['launches']}")
+    runs = {}
+    for name, kernels in (("kernels", True), ("plain", False)):
+        m, ranks, mask = _sweep(fctx, cfg.replace(kernels=kernels))
+        runs[name] = (ranks, mask)
+        res[f"eval_{name}"] = m
+        print(f"  bf16 flagship path {name}: {m}", flush=True)
+    k, pl = res["eval_kernels"], res["eval_plain"]
+    (rk, mk), (rp, mp) = runs["kernels"], runs["plain"]
+    mrr_f32 = path_res["plain"]["mrr"]
+    if not (np.array_equal(mk, mp) and np.isfinite(k["mrr"])
+            and 0.0 < k["mrr"] <= 1.0):
+        raise AssertionError(f"bf16 flagship sweep: masks differ or bad MRR "
+                             f"{k}")
+    mrr_tol = max(MRR_TOL, BF16_RULE * abs(mrr_f32 - pl["mrr"]))
+    if not abs(k["mrr"] - pl["mrr"]) <= mrr_tol:
+        raise AssertionError(f"bf16 flagship sweep MRR kernels {k['mrr']} "
+                             f"vs plain {pl['mrr']} (tolerance {mrr_tol})")
+    if dev.type == "cuda":
+        got = {x: k["launches"][x] for x in _BF16_FLAGSHIP_SWEEP}
+        if got != _BF16_FLAGSHIP_SWEEP or any(
+                k["launches"][x] for x in _NOT_UNFUSED + ("spmm_bwd",
+                                                          "fused_window_bwd")):
+            raise AssertionError(f"bf16 flagship sweep launches "
+                                 f"{k['launches']}")
+    if any(pl["launches"].values()):
+        raise AssertionError(f"bf16 flagship plain sweep launched kernels: "
+                             f"{pl['launches']}")
+    res["mrr_gap_to_f32"] = pl["mrr"] - mrr_f32
+    res["mrr_kernels_gap_to_plain"] = k["mrr"] - pl["mrr"]
+    res["same_rank_share"] = float(np.mean(rk[mk] == rp[mp]))
+    res["peak_rise_mb_fused"] = res["fused"]["peak_rise_mb"]
+    res["peak_rise_mb_fused_f32"] = train_res["fused"]["peak_rise_mb"]
+    res["eval_peak_rise_mb"] = k["peak_rise_mb"]
+    res["eval_peak_rise_mb_f32"] = path_res["kernels"]["peak_rise_mb"]
+    return res
+
+
+# the TeMP variants in bfloat16, as ``phase_variants`` runs them
+_BF16_VARIANTS = tuple(
+    (tag, config, {**flags, "compute_dtype": "bfloat16"})
+    for tag, config, flags in (
+        ("ted", "config_bigrrgcn.json",
+         {"impute": True, "post_ensemble": True}),
+        ("bigrrgcn_aggregation", "config_bigrrgcn.json",
+         {"post_aggregation": True}),
+        ("bigrrgcn", "config_bigrrgcn.json", {}),
+        ("grrgcn_impute", "config_grrgcn.json", {"impute": True})))
+
+
+def phase_bf16_variants(ctx) -> dict:
+    """TED, BiGRRGCN --post-aggregation, plain BiGRRGCN and the
+    unidirectional GRRGCN --impute with compute_dtype="bfloat16" at full
+    width and VARIANT_SEQ_LEN, as ``phase_variants`` holds them (2 steps
+    and one valid batch, kernels against plain: losses within TRAIN_TOL,
+    MRR within MRR_TOL; K1f, K1b, K2f and K2b launched in training, K1f
+    and K2f in eval, none of K3-K13; each leaf within BF16_PARAM_TOL);
+    beside each, from the same steps and batch in float32 (plain), the
+    trained parameters' ``bf16_param_ratio`` and the bfloat16 - float32
+    gaps of the plain versions' losses and the batch's MRR."""
+    import numpy as np
+
+    from temp_tpu_torch.models.objectives import metrics_from_ranks
+
+    def against_f32(vctx, r):
+        c32 = dict(vctx, cfg=vctx["cfg"].replace(compute_dtype="float32"))
+        _, f32, _, finals, _, _ = _train_path(
+            c32, c32["cfg"].replace(kernels=False))
+        r["param_ratio"] = bf16_param_ratio(
+            vctx["finals"]["kernels"], vctx["finals"]["plain"], finals)
+        rp, mp, _ = _eval_batch_ranks(c32, False)
+        r["loss_gap_to_f32"] = float(np.max(np.abs(
+            np.array(r["train"]["plain"]["losses"])
+            - np.array(f32["losses"]))))
+        r["mrr_gap_to_f32"] = (r["eval"]["mrr_plain"]
+                               - metrics_from_ranks(rp, mp)["mrr"])
+
+    return phase_variants(ctx, _BF16_VARIANTS, param_tol=BF16_PARAM_TOL,
+                          check=against_f32)
+
+
 def phase_setup_ted(ctx) -> dict:
     """TED, BiGRRGCN --impute --post-ensemble
     (grid/icews14/config_bigrrgcn.json with both flags), on the smoke's
@@ -2743,7 +3214,7 @@ def phase_ted_path(tctx) -> dict:
 
 
 def phase_train_unfused(c, want=_UNFUSED_TRAIN, banned=_NOT_UNFUSED,
-                        fused: bool = False) -> dict:
+                        fused: bool = False, param_tol=PARAM_TOL) -> dict:
     """The first steps of epoch 0 (TRAIN_STEPS, or c["train_steps"]) of a
     model whose final step runs one element at a time (TED, the other
     variants, the attention, linear-recurrence and static models; with
@@ -2753,7 +3224,9 @@ def phase_train_unfused(c, want=_UNFUSED_TRAIN, banned=_NOT_UNFUSED,
     leaf (the gates' among them) within PARAM_TOL of the plain path's
     change (``param_gaps``), the kernels `want` launched (by default K1f,
     K1b, K2f and K2b) and none of `banned` (by default K3-K12), no K1 call
-    sorting its edges. The models of both runs stay in c["models"]."""
+    sorting its edges (`param_tol` for the leaves, ``param_gaps``' `tol`).
+    The models and the trained leaves of both runs stay in c["models"] and
+    c["finals"]."""
     import numpy as np
     import torch
 
@@ -2780,7 +3253,9 @@ def phase_train_unfused(c, want=_UNFUSED_TRAIN, banned=_NOT_UNFUSED,
     if not res["max_rel_gap"] <= TRAIN_TOL:
         raise AssertionError(f"loss trajectories differ: "
                              f"{res['max_rel_gap']} > {TRAIN_TOL}")
-    res["params"] = param_gaps(init, finals, names=("kernels", "plain"))
+    res["params"] = param_gaps(init, finals, names=("kernels", "plain"),
+                               tol=param_tol)
+    c["finals"] = finals
     gates = [k for k, n in enumerate(names) if n.startswith("gates/")]
     res["gate_leaves"] = len(gates)
     res["gate_leaves_moved"] = sum(
@@ -2831,7 +3306,8 @@ def _eval_batch_ranks(c, kernels: bool):
 
 def phase_variants(ctx, variants=_VARIANTS, train_want=_UNFUSED_TRAIN,
                    eval_want=("spmm_fwd", "fused_window_fwd"),
-                   banned=_NOT_UNFUSED) -> dict:
+                   banned=_NOT_UNFUSED, param_tol=PARAM_TOL,
+                   check=None) -> dict:
     """The other TeMP variants at full width and VARIANT_SEQ_LEN: GRRGCN
     --impute --post-ensemble (K2's mode (a)), BiGRRGCN --post-aggregation
     and plain BiGRRGCN (mode (b)), or the (tag, config, flags[, spec]) of
@@ -2841,7 +3317,9 @@ def phase_variants(ctx, variants=_VARIANTS, train_want=_UNFUSED_TRAIN,
     within MRR_TOL, the same query mask; `eval_want` launched). A
     variant's `spec` may set its own "train_want", "train_banned",
     "eval_want", "eval_banned" and "fused" (its training's final step
-    fused). A model with DropEdge's rates records their build seconds."""
+    fused). A model with DropEdge's rates records their build seconds.
+    `param_tol` is ``phase_train_unfused``'s; `check(vctx, r)`, when
+    given, adds its checks to a variant's record."""
     import numpy as np
 
     from temp_tpu_torch.models.objectives import metrics_from_ranks
@@ -2859,7 +3337,7 @@ def phase_variants(ctx, variants=_VARIANTS, train_want=_UNFUSED_TRAIN,
         r = {"model": type(vctx["model"]).__name__,
              "train": phase_train_unfused(vctx, spec["train_want"],
                                           spec["train_banned"],
-                                          spec["fused"])}
+                                          spec["fused"], param_tol)}
         if getattr(vctx["model"], "drop_rates_s", None) is not None:
             r["drop_rates_s"] = vctx["model"].drop_rates_s
         (rk, mk, launches), (rp, mp, plain) = (
@@ -2876,6 +3354,8 @@ def phase_variants(ctx, variants=_VARIANTS, train_want=_UNFUSED_TRAIN,
                              f"variant {tag} eval", spec["eval_banned"])
         if any(plain.values()):
             raise AssertionError(f"variant {tag} eval plain: {plain}")
+        if check is not None:
+            check(vctx, r)
         out[tag] = r
         print(f"  variant {tag}: {r}", flush=True)
     return out
@@ -3393,6 +3873,17 @@ _KERNELS_BF16 = (
      "temp_tpu/ops/fused_final.py:343"),
 )
 
+# the flagship's bfloat16 modes (phase_bf16_flagship_kernels' records, the
+# bf16_flagship_path's launches): (wrapper, record, source, TPU kernel)
+_KERNELS_BF16_FLAGSHIP = (
+    ("bi_layer_fwd", "k6k7", "temp_tpu_torch/csrc/fused_final_bi_bf16.cu",
+     "temp_tpu/ops/fused_final_bi.py:167,237"),
+    ("bi_loss_fwd", "k8", "temp_tpu_torch/csrc/fused_final_bf16.cu",
+     "temp_tpu/ops/fused_final_bi.py:252"),
+    ("bi_layer_bwd", "k9k10", "temp_tpu_torch/csrc/fused_final_bi_bf16.cu",
+     "temp_tpu/ops/fused_final_bi.py:305,388"),
+)
+
 # the path whose run gives each kernel's "launches"
 _HOME = {"spmm_fwd": "eval", "spmm_bwd": "train_unfused",
          "bi_layer_fwd": "flagship_train_fused",
@@ -3535,25 +4026,60 @@ def kernels_line(res: dict) -> dict:
         # the bfloat16 modes, their launches on the bfloat16 fused training
         # path and the sweep
         bp = res["bf16_path"]
+        # and the flagship's (its path's launches beside GRRGCN's), when
+        # the flagship's bfloat16 phases ran
+        fk = res.get("bf16_flagship_kernels")
+        fp = res.get("bf16_flagship_path")
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "bound_share", "bound_tf32_ms", "rms_ratio",
+                "plain_f32_ms", "shape")
+
+        def by_path(name):
+            out = {"bf16_train_fused": bp["fused"]["launches"][name],
+                   "bf16_train_unfused": bp["unfused"]["launches"][name],
+                   "bf16_eval": bp["eval_kernels"]["launches"][name]}
+            if fp is not None:
+                out.update({
+                    "bf16_flagship_train_fused": fp["fused"]["launches"][name],
+                    "bf16_flagship_train_unfused":
+                        fp["unfused"]["launches"][name],
+                    "bf16_flagship_eval":
+                        fp["eval_kernels"]["launches"][name]})
+            return out
+
         for name, tag, src, replaces in _KERNELS_BF16:
             m = res["bf16_kernels"][tag]
             r = {"name": f"{name}_bf16", "route": "cuda", "source": src,
                  "replaces": replaces,
                  "launches": bp["fused"]["launches"][name],
-                 "launches_by_path": {
-                     "bf16_train_fused": bp["fused"]["launches"][name],
-                     "bf16_train_unfused": bp["unfused"]["launches"][name],
-                     "bf16_eval": bp["eval_kernels"]["launches"][name]},
-                 **{k: m[k] for k in (
-                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                     "library_ms", "bound_share", "bound_tf32_ms",
-                     "rms_ratio", "plain_f32_ms", "shape")}}
+                 "launches_by_path": by_path(name),
+                 **{k: m[k] for k in keys}}
             if tag == "k2f":
                 r["train_mode"] = {k: res["bf16_kernels"]["k2f_train"][k]
                                    for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_tf32_ms", "rms_ratio",
                                              "max_abs_err")}
+            if fk is not None and tag in ("k2f", "k2b"):
+                # K2's flagship modes: the flagship's windows, modes (a)
+                # and (b)
+                part = "fwd" if tag == "k2f" else "bwd"
+                r["flagship_modes"] = {
+                    mode: {k: fk[f"k2_{mode}_{part}"][k]
+                           for k in keys + ("bitwise",)}
+                    for mode, *_ in _K2_BF16_MODES}
+            if fk is not None and tag == "k4":
+                r["bi_table"] = {k: fk["k4_bi"][k] for k in keys
+                                 + ("bitwise",)}
             rec.append(r)
+        if fk is not None:
+            for name, tag, src, replaces in _KERNELS_BF16_FLAGSHIP:
+                m = fk[tag]
+                rec.append({"name": f"{name}_bf16", "route": "cuda",
+                            "source": src, "replaces": replaces,
+                            "launches": fp["fused"]["launches"][name],
+                            "launches_by_path": by_path(name),
+                            "bitwise": m["bitwise"],
+                            **{k: m[k] for k in keys}})
     return {"kernels": rec}
 
 
@@ -4763,6 +5289,31 @@ def main() -> int:
                 km[f"{mode}_fwd_ms"] = km[mode]["fwd"]["ms"]
                 km[f"{mode}_bwd_ms"] = km[mode]["bwd"]["ms"]
     res["k2_modes"] = {m: km[m] for m, _, _ in _K2_MODES}
+    with phase("bf16_flagship_kernels", {}) as bfk:
+        bfk.update(phase_bf16_flagship_kernels(ctx, fctx))
+        for name in [n for n in bfk if isinstance(bfk[n], dict)]:
+            bfk[f"{name}_ms"] = bfk[name]["ms"]
+            bfk[f"{name}_rms_ratio"] = bfk[name]["rms_ratio"]
+    res["bf16_flagship_kernels"] = bfk
+    with phase("bf16_flagship_path", {}) as bfp:
+        bfp.update(phase_bf16_flagship_path(fctx, ft, fp))
+        for name, _ in _PATHS:
+            bfp[f"ms_per_step_{name}"] = bfp[name]["ms_per_step"]
+        for k in ("wall_s", "mrr", "queries_per_s", "peak_mb"):
+            bfp[f"eval_{k}"] = bfp["eval_kernels"][k]
+        for k, v in bfp["param_ratios"].items():
+            bfp[f"param_ratio_{k}"] = v
+            bfp[f"param_max_rel_gap_{k}"] = max(
+                bfp["params"][k]["max_rel_gaps"].values())
+    res["bf16_flagship_path"] = bfp
+    with phase("bf16_variants", {}) as bv:
+        bv.update(phase_bf16_variants(ctx))
+        for tag in list(bv):
+            if isinstance(bv[tag], dict):
+                bv[f"{tag}_ms_per_step"] = bv[tag]["train"]["ms_per_step"]
+                bv[f"{tag}_loss_gap_to_f32"] = bv[tag]["loss_gap_to_f32"]
+                bv[f"{tag}_param_ratio"] = bv[tag]["param_ratio"]
+    res["bf16_variants"] = {t: bv[t] for t, _, _ in _BF16_VARIANTS}
     with phase("ted_setup", {}) as ts:
         tctx = phase_setup_ted(ctx)
         ts.update({k: tctx[k] for k in ("N", "A", "E", "L1", "B", "d",

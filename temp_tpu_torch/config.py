@@ -13,8 +13,10 @@ files, so one config file drives both packages. Differences:
   against end to end);
 - ``compute_dtype="auto"`` resolves to float32 on every device (the JAX
   package's resolves to bfloat16 on an accelerator): ``"bfloat16"`` runs
-  GRRGCN's hot contractions in bfloat16 (``hot_dtype``), and only GRRGCN
-  on its default paths has a bfloat16 mode so far (``_BF16_OUTSIDE``);
+  the hot contractions in bfloat16 (``hot_dtype``), and only GRRGCN and
+  BiGRRGCN on their default paths (with imputation and the TeMP gates,
+  the flagship BiGRRGCN ``--impute`` among them) have a bfloat16 mode so
+  far (``_BF16_OUTSIDE``);
 - a field whose non-default value selects a path the port has not ported
   (``_UNPORTED``; a ``compute_dtype`` other than float32 or bfloat16, or
   bfloat16 outside its slice; the ``"boundary"`` edge partition, which
@@ -50,20 +52,17 @@ _F32 = ("float32", "f32", None)
 _BF16 = ("bfloat16", "bf16")
 
 # what runs only in float32 so far, outside compute_dtype="bfloat16"'s
-# slice (GRRGCN's default paths: kernels K2, K3-K5 and K1, whose SpMM stays
-# float32 as the JAX package's row path does): (field, value test, what the
-# value needs in bfloat16)
+# slice (the default paths of GRRGCN and BiGRRGCN, with or without
+# imputation and the TeMP gates: kernels K2, K3-K5, K6-K10 and K1, whose
+# SpMM stays float32 as the JAX package's row path does): (field, value
+# test, what the value needs in bfloat16)
 _BF16_OUTSIDE = (
-    ("module", lambda v: v != "GRRGCN",
-     "its model's bfloat16 hot path (only GRRGCN has one)"),
+    ("module", lambda v: v not in ("GRRGCN", "BiGRRGCN"),
+     "its model's bfloat16 hot path (only GRRGCN and BiGRRGCN have one)"),
     ("score_function", lambda v: v != "complex",
      "the DistMult and TransE decoders' bfloat16 scores"),
     ("negative_pool", lambda v: v != "all",
      "the shared and per_query pools' bfloat16 scores"),
-    ("impute", bool, "the impute blend's bfloat16 mode (K2's n_buf=3, "
-     "K6-K10)"),
-    ("post_ensemble", bool, "the TeMP gates' bfloat16 mode"),
-    ("post_aggregation", bool, "the TeMP gates' bfloat16 mode"),
     ("type1", bool, "the type1 GRU's bfloat16 mode"),
     ("learnable_lambda", bool, "the learnable decay's bfloat16 mode"),
     ("use_time_embedding", bool, "the time embeddings' bfloat16 mode"),
@@ -269,7 +268,7 @@ class TKGConfig:
         package's ``TKGConfig.hot_dtype``. torch.bfloat16 for
         ``compute_dtype`` "bfloat16" (or "bf16"): the products' operands
         rounded to bfloat16 with float32 sums (the self-loop, GRU and
-        score products, every product of kernels K2-K5), the window's
+        score products, every product of kernels K2-K10), the windows'
         history buffers stored in bfloat16; the relational SpMM outside
         the fused kernels stays float32, as the JAX package's does.
 

@@ -29,6 +29,18 @@
 // ranges (bi_wgrad, the window's weight tiles with six jobs), their ordered
 // sum, and the relation sum. Layer 1 runs without the ReLU and the blend.
 //
+// Compiled a second time as fused_final_bi_bf16.cu, with TK_BF16 1: the
+// three launchers' bfloat16 mode (suffix _bf16), the TPU kernels' bfloat16
+// instantiation (dtype_str "bfloat16"). The tiles round as
+// rgcn_gru_layer.cuh says (the SpMM's source rows, relation weights and
+// messages, every product operand); both directions' histories and both
+// local tables are bfloat16 in device memory (prev_at, copy_prev,
+// local_at), widened to float32 as the TPU kernels' casts do, and the blend,
+// the decay, the GRUs' elementwise parts and the impute terms' sums stay
+// float32. The input, the layer's output and every cotangent stay float32,
+// as the TPU programs' outputs are. K8 and K4 are then K3's and K4's
+// launches in their bfloat16 mode (fused_final_bf16.cu).
+//
 // What bounds them on an H100: arithmetic. Per layer and element the
 // forward does the self-loop product (2 N d^2 flops) and four [N, d] x
 // [d, 3d] gate products (24 N d^2); the backward recomputes them and adds
@@ -61,7 +73,7 @@ namespace {
 struct BiRows {
   const float* active;  // [B, N] > 0 where the entity is active
   const float* hl_f;    // [B, N, d] local rows of the forward window, or null
-                        // (no impute blend)
+                        // (no impute blend); bfloat16 in the bfloat16 mode
   const float* hl_b;    // [B, N, d]
   const float* imp;     // [4]: w_f, b_f, w_b, b_b
   const float* sel_x;   // [B, N, d] rows kept where inactive, or null
@@ -69,6 +81,15 @@ struct BiRows {
 
 __device__ __forceinline__ float impute_weight(float w, float bias, float dt) {
   return expf(-fmaxf(w * dt + bias, 0.f)) * 0.5f;
+}
+
+// Element e of a local table (K2's third buffer, densified): bfloat16 in
+// the bfloat16 mode, float otherwise.
+__device__ __forceinline__ float local_at(const float* base, long long e) {
+  if constexpr (kBf16)
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(base)[e]);
+  else
+    return base[e];
 }
 
 // The GRU input of row `row` at element e of the [B, N, d] rows, from its
@@ -81,7 +102,8 @@ __device__ __forceinline__ float gin_at(const Layer& pf, const Layer& pb,
   if (q.hl_f == nullptr || q.active[row] > 0.f) return cv;
   const float wf = impute_weight(q.imp[0], q.imp[1], pf.dt[row]);
   const float wb = impute_weight(q.imp[2], q.imp[3], pb.dt[row]);
-  return wf * q.hl_f[e] + wb * q.hl_b[e] + (1.f - wf - wb) * cv;
+  return wf * local_at(q.hl_f, e) + wb * local_at(q.hl_b, e)
+         + (1.f - wf - wb) * cv;
 }
 
 // Shared memory of the bidirectional tiles in floats: the ring of three
@@ -379,8 +401,8 @@ __global__ void __launch_bounds__(256, 2) bi_bwd_gru_kernel(
               const float cv = dconv_s[e];
               hlf = wf * dxv;
               hlb = wb * dxv;
-              pfv = dxv * (q.hl_f[e] - cv);
-              pbv = dxv * (q.hl_b[e] - cv);
+              pfv = dxv * (local_at(q.hl_f, e) - cv);
+              pbv = dxv * (local_at(q.hl_b, e) - cv);
               dc = (1.f - wf - wb) * dxv;
             }
             dhl_f[e] = hlf;

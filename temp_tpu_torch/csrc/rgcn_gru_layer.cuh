@@ -31,10 +31,12 @@
 // beside it.
 //
 // The bfloat16 mode. A source that defines TK_BF16 to 1 before it includes
-// this header (fused_window_bf16.cu, fused_final_bf16.cu: fused_window.cu
-// and fused_final.cu compiled again) gets every routine here in the mode of
+// this header (fused_window_bf16.cu, fused_final_bf16.cu,
+// fused_final_bi_bf16.cu: fused_window.cu, fused_final.cu and
+// fused_final_bi.cu compiled again) gets every routine here in the mode of
 // the TPU kernels' bfloat16 instantiation (temp_tpu/ops/fused_window.py,
-// fused_final.py with dtype_str "bfloat16"): each product operand rounded to
+// fused_final.py, fused_final_bi.py with dtype_str "bfloat16"): each product
+// operand rounded to
 // bfloat16 (to nearest even) and kept as a float whose low 16 bits are zero,
 // exact in TF32, so ONE mma.sync TF32 product a k8 step (split_tf32, mma3)
 // gives the bfloat16 product with float32 sums; the SpMM rounds each
@@ -248,7 +250,10 @@ __device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
 // copies by cp.async and commits them; decay_prev waits for every copy of
 // the thread, then scales the rows by live * exp(-lambda * dt). Between
 // the two the block may compute on other regions, so the copies run under
-// that work. No barrier at the end of either.
+// that work. No barrier at the end of either. The bfloat16 mode reads the
+// bfloat16 states by loads that widen them (prev_at), so its copy_prev
+// returns with the rows in place and decay_prev only scales them: the
+// products (prev * live) * decay of load_tile's bfloat16 mode.
 __device__ __forceinline__ void copy_prev(const Layer& p, int b, int a0,
                                           int nrows, int ld, float* hs) {
   constexpr unsigned kAll = 0xffffffffu;
@@ -261,6 +266,15 @@ __device__ __forceinline__ void copy_prev(const Layer& p, int b, int a0,
   {
     const int r = warp + lane * nwarps, a = a0 + r;
     if (r < nrows && a < A) off = prev_row(p, elem_row, step_row + a) * d;
+  }
+  if constexpr (kBf16) {
+    for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
+      const bool in = a0 + r < A;
+      const long long pr = __shfl_sync(kAll, off, i);
+      for (int c = lane; c < d; c += kWarp)
+        hs[r * ld + c] = in ? prev_at(p, pr + c) : 0.f;
+    }
+    return;
   }
   for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
     const bool in = a0 + r < A;

@@ -42,7 +42,12 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     for f in dataclasses.fields(TKGConfig):
         name = "--" + f.name.replace("_", "-")
-        if isinstance(f.default, bool) and f.name != "edge_partition":
+        if f.name == "edge_partition":
+            # a mode's name or a boolean word; bare, True (the boundary
+            # exchange), as the JAX package's CLI takes it
+            parser.add_argument(name, nargs="?", const=True, default=None,
+                                help="false|psum|ring|ring_pallas|boundary")
+        elif isinstance(f.default, bool):
             parser.add_argument(name, action=argparse.BooleanOptionalAction,
                                 default=None)
         else:

@@ -334,9 +334,10 @@ class DynamicRGCNModel:
         N = self.num_ents
         A = win.act_idx.shape[-1]
         n_buf = 3 if with_loc else 2
+        store = cfg.hot_dtype or torch.float32
         if L1 == 0:
-            zeros = tuple(torch.zeros(B, N, d, device=self.device)
-                          for _ in range(n_buf))
+            zeros = tuple(torch.zeros(B, N, d, device=self.device,
+                                      dtype=store) for _ in range(n_buf))
             return zeros + (torch.zeros(B, N, device=self.device),)
         tbl = self._tables_for(direction)
         tp = t_pos.long()
@@ -372,7 +373,6 @@ class DynamicRGCNModel:
                     kernels=cfg.kernels, masks=scaled, direction=direction,
                     activation2=self.lc2.activation, n_buf=n_buf)
         else:
-            store = cfg.hot_dtype or torch.float32
             bufs = tuple(torch.zeros(B, L1, A, d, device=self.device,
                                      dtype=store)
                          for _ in range(n_buf))

@@ -346,4 +346,4 @@ class PostBiDynamicRGCNModel(BiWindows, PostDynamicRGCNModel):
                             self.train_len, self.lc2.activation == "relu",
                             cfg.use_embed_for_non_active)
         return fused_final_bi_loss(params, bg, (h1f, h2f, hlf, h1b, h2b, hlb),
-                                   kernels=cfg.kernels)
+                                   kernels=cfg.kernels, hot=cfg.hot_dtype)

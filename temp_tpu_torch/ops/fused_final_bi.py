@@ -34,6 +34,19 @@ backward as the JAX kernels' own formulas in PyTorch. On a CUDA tensor it
 launches the hand-written kernels (``csrc/fused_final_bi.cu``, and K3-K5's
 launches in ``csrc/fused_final.cu``) or raises: ``bi_layer_fwd`` one launch,
 ``bi_loss_fwd`` two, ``bi_layer_bwd`` five.
+
+``hot=torch.bfloat16`` is the JAX kernels' bfloat16 instantiation of
+K6-K10: the edge part and the GRUs' products as K2's bfloat16 mode
+(``ops/fused_window`` ``hot_mm``, ``spmm_hot_plain``), both windows'
+histories and local tables read from bfloat16 (K2's buffers), the blend,
+the decay and the impute terms in float32, the layer's output and its
+table in float32 (the TPU programs' outputs are); K8 is K3's bfloat16 loss
+(``ops/fused_final`` ``_loss_plain``) and K4 its bfloat16 mode on the bi
+table. The backward's plain version in bfloat16 is autograd through the
+forward built of those cast points, whose backward is the JAX kernels'.
+On the card the same launches of the kernels compiled in their bfloat16
+mode (``csrc/fused_final_bi_bf16.cu``, ``csrc/fused_final_bf16.cu``), the
+same number of launches.
 """
 
 from __future__ import annotations
@@ -46,9 +59,9 @@ from temp_tpu_torch import _build
 from temp_tpu_torch.ops.fused_final import (
     _N_SPLIT, _WGRAD_SPLIT, FinalGraph, _check, _check_graph, _conv_plain,
     _device, _flat, _gru_dict, _loss_plain, _p, final_csr, final_graph,
-    fused_final_bwd_loss, select_bwd,
+    fused_final_bwd_loss, fused_final_bwd_loss_plain, select_bwd,
 )
-from temp_tpu_torch.ops.fused_window import _gru_t
+from temp_tpu_torch.ops.fused_window import _gru_t, _lib_fn
 from temp_tpu_torch.ops.spmm import _norm2_plain, spmm_bwd_plain
 
 _MAX_D = 128   # the layer tiles run d / 16 warps, two blocks an SM
@@ -121,15 +134,21 @@ def _impute_w(imp, i: int, dt):
 
 
 def _rows_plain(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
-                relu: bool, hl, imp):
+                relu: bool, hl, imp, hot=None, relu_mask=None):
     """One layer's conv output (after the ReLU), GRU input (after the
-    blend) and both decayed previous states, each [B, N, d]."""
+    blend) and both decayed previous states, each [B, N, d] in float32 (the
+    histories and local rows in any float dtype); the conv in the mode
+    `hot`. relu_mask [B, N, d] (1 where it passes), when given, stands for
+    the ReLU's pattern in the derivative (the value is the ReLU's)."""
     gr = bg.gr
     B, N, d = prev_f.shape
     conv = _conv_plain(x.expand(B, N, d), gr, wrel[:, col:col + d], loop,
-                       mask)
+                       mask, hot)
     if relu:
-        conv = torch.relu(conv)
+        r = torch.relu(conv)
+        if relu_mask is not None:
+            r = conv * relu_mask + (r - conv * relu_mask).detach()
+        conv = r
     gin = conv
     if hl is not None:
         wf, wb = _impute_w(imp, 0, gr.dt), _impute_w(imp, 2, bg.dt_b)
@@ -141,12 +160,13 @@ def _rows_plain(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
 
 def bi_layer_fwd_plain(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
                        loop, gf, gb, relu: bool = False, hl=None, imp=None,
-                       sel=None):
+                       sel=None, hot=None):
     """Plain version of K6+K7 for one layer; arguments as in
-    ``bi_layer_fwd``. Differentiable by autograd."""
+    ``bi_layer_fwd``. Differentiable by autograd (in bfloat16 that is
+    K9+K10's plain version: ``bi_layer_bwd_plain``)."""
     _, gin, h0f, h0b = _rows_plain(x, prev_f, prev_b, bg, mask, wrel, col,
-                                   loop, relu, hl, imp)
-    out = _gru_t(gin, h0f, gf) + _gru_t(gin, h0b, gb)
+                                   loop, relu, hl, imp, hot)
+    out = _gru_t(gin, h0f, gf, hot) + _gru_t(gin, h0b, gb, hot)
     if sel is not None:
         out = torch.where(bg.gr.active[..., None] > 0, out,
                           sel.expand_as(out))
@@ -154,19 +174,21 @@ def bi_layer_fwd_plain(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
 
 
 def fused_final_bi_fwd_plain(h0, hists, bg: BiGraph, wrel, loop1, loop2,
-                             grus, rtab, imp):
+                             grus, rtab, imp, hot=None):
     """Plain version of the flagship's final step and loss: (loss [B],
     table [B, N, d], out1 [B, N, d]); arguments as in
-    ``fused_final_bi_fwd``. Differentiable by autograd."""
+    ``fused_final_bi_fwd``. Differentiable by autograd (in float32 that is
+    K4 and K9+K10's plain version; in bfloat16 they round where the
+    forward does not: ``FusedFinalBi`` with ``plain``)."""
     h1f, h2f, hlf, h1b, h2b, hlb = hists
     gr, d = bg.gr, h0.shape[1]
     out1 = bi_layer_fwd_plain(h0, h1f, h1b, bg, gr.m1, wrel, 0, loop1,
-                              grus["1f"], grus["1b"])
+                              grus["1f"], grus["1b"], hot=hot)
     table = bi_layer_fwd_plain(out1, h2f, h2b, bg, gr.m2, wrel, d, loop2,
                                grus["2f"], grus["2b"], relu=bg.act2,
                                hl=(hlf, hlb), imp=imp,
-                               sel=h0 if bg.noact else None)
-    return _loss_plain(table, rtab, gr), table, out1
+                               sel=h0 if bg.noact else None, hot=hot)
+    return _loss_plain(table, rtab, gr, hot), table, out1
 
 
 def _gru_bwd_plain(d_out, x, h0g, g):
@@ -192,14 +214,53 @@ def _gru_bwd_plain(d_out, x, h0g, g):
     return d_gi @ g["wih_t"].t(), d_out * z + d_gh @ g["whh_t"].t(), grads
 
 
+def _bi_layer_bwd_hot(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
+                      loop, gf, gb, d_out, relu, hl, imp, relu_mask, hot):
+    """K9+K10's plain version in the mode `hot`: autograd through the
+    layer's forward built of K2's cast points (``hot_mm``,
+    ``spmm_hot_plain``), whose backward is the JAX kernels', as K5's
+    (``ops/fused_final`` ``_bwd_layer_hot``). Result as
+    ``bi_layer_bwd_plain``'s, every cotangent float32."""
+    B, N, d = prev_f.shape
+
+    def leaf(t):
+        return (None if t is None
+                else t.detach().to(torch.float32).requires_grad_(True))
+
+    xx, pf, pb, w, lw, ip = (leaf(t) for t in (
+        x.expand(B, N, d), prev_f, prev_b, wrel, loop, imp))
+    hf, hb = (None, None) if hl is None else (leaf(hl[0]), leaf(hl[1]))
+    g = [{k: leaf(q[k]) for k in _GRU_PARTS} for q in (gf, gb)]
+    leaves = [xx, pf, pb, hf, hb, ip, w, lw] + [q[k] for q in g
+                                                for k in _GRU_PARTS]
+    used = [t for t in leaves if t is not None]
+    with torch.enable_grad():
+        _, gin, h0f, h0b = _rows_plain(
+            xx, pf, pb, bg, mask, w, col, lw, relu,
+            None if hl is None else (hf, hb), ip, hot, relu_mask)
+        out = _gru_t(gin, h0f, g[0], hot) + _gru_t(gin, h0b, g[1], hot)
+        grads = iter(torch.autograd.grad(out, used, d_out,
+                                         allow_unused=True))
+    res = []
+    for t in leaves:
+        q = None if t is None else next(grads)
+        res.append(torch.zeros_like(t) if t is not None and q is None else q)
+    res[6] = res[6][:, col:col + d]
+    return tuple(res)
+
+
 def bi_layer_bwd_plain(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
                        loop, gf, gb, d_out, relu: bool = False, hl=None,
-                       imp=None, relu_mask=None):
+                       imp=None, relu_mask=None, hot=None):
     """Plain version of K9+K10 (the JAX package's ``_gru_bwd_bi_kernel``
     and ``_conv_bwd_bi_kernel``) for one layer; arguments and result as in
     ``bi_layer_bwd``. relu_mask [B, N, d], when given, stands for the
     ReLU's pattern (``bi_relu_pattern``: the kernels', whose conv output
-    differs from this one by rounding)."""
+    differs from this one by rounding). In bfloat16 (`hot`) autograd
+    through the plain forward (``_bi_layer_bwd_hot``)."""
+    if hot is not None:
+        return _bi_layer_bwd_hot(x, prev_f, prev_b, bg, mask, wrel, col, loop,
+                                 gf, gb, d_out, relu, hl, imp, relu_mask, hot)
     gr = bg.gr
     B, N, d = prev_f.shape
     conv, gin, h0f, h0b = _rows_plain(x, prev_f, prev_b, bg, mask, wrel, col,
@@ -253,8 +314,9 @@ def _expand(name, x, B: int, N: int, d: int):
 
 
 def _check_layer(name, bg: BiGraph, x, prev_f, prev_b, mask, wrel, loop, gf,
-                 gb, hl, imp, more=None):
-    """Device, dtype, shape and contiguity of one layer's operands."""
+                 gb, hl, imp, more=None, hot=None):
+    """Device, dtype, shape and contiguity of one layer's operands: both
+    histories and local tables in the store dtype (`hot`, or float32)."""
     B, N, d = prev_f.shape
     E = bg.gr.src.shape[1]
     _check_graph(name, bg.gr, B, N, E, d)
@@ -278,12 +340,12 @@ def _check_layer(name, bg: BiGraph, x, prev_f, prev_b, mask, wrel, loop, gf,
         for k in _GRU_PARTS:
             t[f"{k}_{tag}"] = g[k]
             s[f"{k}_{tag}"] = (3 * d,) if k.startswith("b") else (d, 3 * d)
-    _check(name, t, s)
+    _check(name, t, s, stored=("prev_f", "prev_b", "hl_f", "hl_b"), hot=hot)
 
 
 def bi_layer_fwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
                  gf, gb, relu: bool = False, hl=None, imp=None, sel=None,
-                 csr=None):
+                 csr=None, hot=None):
     """K6+K7: one layer of the flagship's final step for B elements.
 
     x [B, N, d] (or [N, d], expanded) the layer's input; prev_f/prev_b
@@ -295,16 +357,19 @@ def bi_layer_fwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
     the windows' local rows and imp [4] the impute scalars, for the blend
     on inactive rows (None: no blend); sel [B, N, d] (or [N, d]) the rows
     the select keeps on inactive rows, or None; csr ``final_csr`` when
-    known. Returns the layer's output [B, N, d]."""
+    known; hot None (float32) or torch.bfloat16 (the bfloat16 mode: the
+    histories and local rows in bfloat16). Returns the layer's output
+    [B, N, d], float32."""
     if _device("bi_layer_fwd", prev_f) == "cpu":
         return bi_layer_fwd_plain(x, prev_f, prev_b, bg, mask, wrel, col,
-                                  loop, gf, gb, relu, hl, imp, sel)
+                                  loop, gf, gb, relu, hl, imp, sel, hot)
     return _bi_layer_launch(x, prev_f, prev_b, bg, mask, wrel, col, loop, gf,
-                            gb, relu, hl, imp, sel, csr, None)
+                            gb, relu, hl, imp, sel, csr, None, hot)
 
 
 def _bi_layer_launch(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
-                     loop, gf, gb, relu: bool, hl, imp, sel, csr, gin):
+                     loop, gf, gb, relu: bool, hl, imp, sel, csr, gin,
+                     hot=None):
     """K6+K7's one launch on the card (arguments as ``bi_layer_fwd``),
     counted on ``bi_layer_fwd.launches``; with `gin` [B, N, d] the launch
     also writes the GRU input there. Returns the layer's output."""
@@ -313,7 +378,7 @@ def _bi_layer_launch(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
     xx = _expand("bi_layer_fwd", x, B, N, d)
     sel_x = _expand("bi_layer_fwd", sel, B, N, d)
     _check_layer("bi_layer_fwd", bg, xx, prev_f, prev_b, mask, wrel, loop,
-                 gf, gb, hl, imp, {"sel": sel_x})
+                 gf, gb, hl, imp, {"sel": sel_x}, hot)
     if col not in (0, d):
         raise ValueError(f"bi_layer_fwd: col = {col}, not 0 or d")
     (rowptr, s_src, s_rel, s_em), _, _, _ = (
@@ -321,7 +386,7 @@ def _bi_layer_launch(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
     out = torch.empty(B, N, d, device=prev_f.device, dtype=torch.float32)
     hl_f, hl_b = (None, None) if hl is None else hl
     p = _p
-    err = _build.lib().bi_layer_launch(
+    err = _lib_fn(_build.lib(), "bi_layer_launch", hot)(
         p(xx), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d, col,
         p(loop), p(mask), int(relu), *(p(gf[k]) for k in _GRU_PARTS),
         *(p(gb[k]) for k in _GRU_PARTS), p(gr.dt), p(bg.dt_b),
@@ -334,7 +399,8 @@ def _bi_layer_launch(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
 
 
 def bi_gru_input(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
-                 gf, gb, relu: bool = False, hl=None, imp=None, csr=None):
+                 gf, gb, relu: bool = False, hl=None, imp=None, csr=None,
+                 hot=None):
     """The GRU input [B, N, d] of one layer (arguments as in
     ``bi_layer_fwd``): its conv output after the ReLU and, on the inactive
     rows, the impute blend. On the card as K6+K7's launch forms it (one
@@ -342,25 +408,28 @@ def bi_gru_input(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
     must equal bit for bit; on the CPU the plain version's."""
     if _device("bi_layer_fwd", prev_f) == "cpu":
         return _rows_plain(x, prev_f, prev_b, bg, mask, wrel, col, loop,
-                           relu, hl, imp)[1]
-    gin = torch.empty_like(prev_f)
+                           relu, hl, imp, hot)[1]
+    gin = torch.empty_like(prev_f, dtype=torch.float32)
     _bi_layer_launch(x, prev_f, prev_b, bg, mask, wrel, col, loop, gf, gb,
-                     relu, hl, imp, None, csr, gin)
+                     relu, hl, imp, None, csr, gin, hot)
     return gin
 
 
 bi_layer_fwd.launches = 0
 
 
-def bi_loss_fwd(table, rtab, gr: FinalGraph, csr=None):
+def bi_loss_fwd(table, rtab, gr: FinalGraph, csr=None, hot=None):
     """K8: the exact-softmax tail+head cross-entropy of each element over
     its positives, from the table [B, N, d] and the relation embeddings
-    rtab [R2, d]. Returns (loss [B], saved): what ``fused_final_bwd_loss``
-    (K4) reads ("table" on every device; on the card also the queries,
-    their log-sum-exps and positive scores, the positive counts and the
-    CSRs, `csr` or ``final_csr(gr, N, R2)``)."""
+    rtab [R2, d], in the mode `hot`. Returns (loss [B], saved): what
+    ``fused_final_bwd_loss`` (K4) reads ("table" on every device; on the
+    card also the queries, their log-sum-exps and positive scores, the
+    positive counts and the CSRs, `csr` or ``final_csr(gr, N, R2)``). In the
+    bfloat16 mode the score launch scores two query sets, as K3's (variant
+    0 the loss's, variant 1 the backward's, whose queries, positive scores
+    and log-sum-exps are saved)."""
     if _device("bi_loss_fwd", table) == "cpu":
-        return _loss_plain(table, rtab, gr), {"table": table}
+        return _loss_plain(table, rtab, gr, hot), {"table": table}
     B, N, d = table.shape
     E = gr.src.shape[1]
     R2 = rtab.shape[0]
@@ -372,10 +441,12 @@ def bi_loss_fwd(table, rtab, gr: FinalGraph, csr=None):
                          f"{csr[3][0].numel() - 1} rows, rtab {R2}")
     dev = table.device
     f32 = dict(device=dev, dtype=torch.float32)
-    part_m = torch.empty(B, 2, _N_SPLIT, E, **f32)
-    part_s = torch.empty(B, 2, _N_SPLIT, E, **f32)
+    variants = () if hot is None else (2,)
+    part_m = torch.empty(*variants, B, 2, _N_SPLIT, E, **f32)
+    part_s = torch.empty(*variants, B, 2, _N_SPLIT, E, **f32)
     qhat = torch.empty(B, 2, E, d, **f32)
-    scpos = torch.empty(B, 2, E, **f32)
+    scpos_all = torch.empty(*variants, B, 2, E, **f32)
+    scpos = scpos_all if hot is None else scpos_all[1]
     lse = torch.empty(B, 2, E, **f32)
     cnt = torch.empty(B, **f32)
     loss = torch.empty(B, **f32)
@@ -384,14 +455,14 @@ def bi_loss_fwd(table, rtab, gr: FinalGraph, csr=None):
     p = _p
     answers = (p(gr.tail_ptr), p(gr.tail_ans), p(gr.head_ptr),
                p(gr.head_ans))
-    _build.check(lib.final_scores_launch(
+    _build.check(_lib_fn(lib, "final_scores_launch", hot)(
         p(table), p(rtab), p(gr.src), p(gr.dst), p(gr.rel), p(gr.posm),
-        *answers, p(part_m), p(part_s), p(qhat), p(scpos), B, N, E, d,
+        *answers, p(part_m), p(part_s), p(qhat), p(scpos_all), B, N, E, d,
         _N_SPLIT, stream), "bi_loss_fwd (scores)")
     bi_loss_fwd.launches += 1
-    _build.check(lib.final_loss_reduce_launch(
-        p(part_m), p(part_s), p(scpos), p(gr.posm), p(lse), p(cnt), p(loss),
-        B, E, _N_SPLIT, stream), "bi_loss_fwd (loss)")
+    _build.check(_lib_fn(lib, "final_loss_reduce_launch", hot)(
+        p(part_m), p(part_s), p(scpos_all), p(gr.posm), p(lse), p(cnt),
+        p(loss), B, E, _N_SPLIT, stream), "bi_loss_fwd (loss)")
     bi_loss_fwd.launches += 1
     return loss, {"table": table, "qhat": qhat, "scpos": scpos, "lse": lse,
                   "cnt": cnt, "csr": csr}
@@ -402,7 +473,7 @@ bi_loss_fwd.launches = 0
 
 def _bi_bwd_prepare(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
                     loop, gf, gb, d_out, relu: bool, hl, imp, csr,
-                    pattern: bool = False):
+                    pattern: bool = False, hot=None):
     """(st, gru): the checked operands, CSRs, outputs and scratch of one
     ``bi_layer_bwd`` call on the card, and a function of no arguments that
     makes its GRU launch (``bi_bwd_gru_kernel``) into them; with `pattern`
@@ -412,7 +483,7 @@ def _bi_bwd_prepare(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
     R = wrel.shape[0]
     xx = _expand("bi_layer_bwd", x, B, N, d)
     _check_layer("bi_layer_bwd", bg, xx, prev_f, prev_b, mask, wrel, loop,
-                 gf, gb, hl, imp, {"d_out": d_out})
+                 gf, gb, hl, imp, {"d_out": d_out}, hot)
     if col not in (0, d):
         raise ValueError(f"bi_layer_bwd: col = {col}, not 0 or d")
     csr = final_csr(gr, N, R) if csr is None else csr
@@ -455,7 +526,7 @@ def _bi_bwd_prepare(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
     # in torch's layout), so that a caller may keep the function alone; st
     # holds no reference back, so the scratch goes when both are gone
     def gru(_keep=(st, torch_layout)):
-        _build.check(_build.lib().bi_bwd_gru_launch(
+        _build.check(_lib_fn(_build.lib(), "bi_bwd_gru_launch", hot)(
             *args, torch.cuda.current_stream(dev).cuda_stream),
             "bi_layer_bwd (gru)")
         bi_layer_bwd.launches += 1
@@ -465,7 +536,7 @@ def _bi_bwd_prepare(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
 
 def bi_bwd_gru_launcher(x, prev_f, prev_b, bg: BiGraph, mask, wrel,
                         col: int, loop, gf, gb, d_out, relu: bool = False,
-                        hl=None, imp=None, csr=None):
+                        hl=None, imp=None, csr=None, hot=None):
     """K9+K10's GRU launch alone, on operands prepared as ``bi_layer_bwd``
     prepares them (arguments as there, CUDA tensors only): a function of no
     arguments that makes that one launch (counted on
@@ -475,12 +546,12 @@ def bi_bwd_gru_launcher(x, prev_f, prev_b, bg: BiGraph, mask, wrel,
         raise ValueError("bi_bwd_gru_launcher: the GRU launch runs on a "
                          "CUDA tensor only")
     return _bi_bwd_prepare(x, prev_f, prev_b, bg, mask, wrel, col, loop, gf,
-                           gb, d_out, relu, hl, imp, csr)[1]
+                           gb, d_out, relu, hl, imp, csr, hot=hot)[1]
 
 
 def bi_relu_pattern(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
                     loop, gf, gb, d_out, relu: bool = False, hl=None,
-                    imp=None, csr=None):
+                    imp=None, csr=None, hot=None):
     """The ReLU's pattern [B, N, d] (1 where it passes) as the GRU launch of
     ``bi_layer_bwd`` (arguments as there) takes it from its recomputed conv
     output, or None on the CPU, where the plain version takes its own: the
@@ -491,30 +562,32 @@ def bi_relu_pattern(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
         return None
     st, gru = _bi_bwd_prepare(x, prev_f, prev_b, bg, mask, wrel, col, loop,
                               gf, gb, d_out, relu, hl, imp, csr,
-                              pattern=True)
+                              pattern=True, hot=hot)
     gru()
     return st["relu"]
 
 
 def bi_layer_bwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
                  gf, gb, d_out, relu: bool = False, hl=None, imp=None,
-                 csr=None):
+                 csr=None, hot=None):
     """K9+K10: the backward of one layer of the flagship's final step;
     arguments as in ``bi_layer_fwd`` and d_out [B, N, d] the cotangent of
-    its output (before the select).
+    its output (before the select), float32.
 
     Returns (d_h [B, N, d], d_prev_f, d_prev_b [B, N, d], d_hl_f, d_hl_b
     [B, N, d] or None, d_imp [4] or None, d_wrel [R, d], d_loop [d, d],
     d_wih_t_f, d_whh_t_f, d_bih_f, d_bhh_f, then the same for gb): the
-    weights' summed over the batch; None where the layer has no blend."""
+    weights' summed over the batch; None where the layer has no blend; all
+    float32."""
     if _device("bi_layer_bwd", prev_f) == "cpu":
         return bi_layer_bwd_plain(x, prev_f, prev_b, bg, mask, wrel, col,
-                                  loop, gf, gb, d_out, relu, hl, imp)
+                                  loop, gf, gb, d_out, relu, hl, imp,
+                                  hot=hot)
     B, N, d = prev_f.shape
     E = bg.gr.src.shape[1]
     R = wrel.shape[0]
     st, gru = _bi_bwd_prepare(x, prev_f, prev_b, bg, mask, wrel, col, loop,
-                              gf, gb, d_out, relu, hl, imp, csr)
+                              gf, gb, d_out, relu, hl, imp, csr, hot=hot)
     xx, scr, n2, dimp_rows = st["xx"], st["scr"], st["n2"], st["dimp_rows"]
     _, (sp, sp_dst, sp_rel, sp_em, sp_eid), (r_ptr, r_eid), _ = st["csr"]
     dev = prev_f.device
@@ -538,11 +611,11 @@ def bi_layer_bwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
         bi_layer_bwd.launches += 1
 
     gru()
-    launched(lib.final_bwd_input_launch(
+    launched(_lib_fn(lib, "final_bwd_input_launch", hot)(
         p(sp), p(sp_dst), p(sp_rel), p(sp_em), p(sp_eid), p(n2),
         p(scr["dconv"]), p(scr["dlp"]), p(wrel), 2 * d, col, p(loop_t),
         p(xx), p(ewg), p(d_h), B, N, d, stream), "input")
-    launched(lib.bi_wgrad_launch(
+    launched(_lib_fn(lib, "bi_wgrad_launch", hot)(
         *(p(scr[k]) for k in ("gin", "h0f", "h0b", "dgi_f", "dgh_f", "dgi_b",
                               "dgh_b")),
         p(xx), p(scr["dlp"]), p(dimp_rows), p(wpart), _WGRAD_SPLIT, B, N, d,
@@ -565,17 +638,19 @@ bi_layer_bwd.launches = 0
 
 
 def fused_final_bi_fwd(h0, hists, bg: BiGraph, wrel, loop1, loop2, grus,
-                       rtab, imp):
+                       rtab, imp, hot=None):
     """The flagship's final step and loss for B elements: K6+K7 for layer 1
     and layer 2, then K8. h0 [N, d] the input embeddings; hists (h1f, h2f,
-    hlf, h1b, h2b, hlb), each [B, N, d], the two windows' densified states
-    of layer 1, layer 2 and layer 2's local output; the weights as
-    ``bi_weights`` gives them. Returns (loss [B], saved): what the backward
-    needs ("table" and "out1" on every device)."""
+    hlf, h1b, h2b, hlb), each [B, N, d] in the store dtype (float32, or
+    `hot`), the two windows' densified states of layer 1, layer 2 and
+    layer 2's local output; the weights as ``bi_weights`` gives them; hot
+    None (float32) or torch.bfloat16 (the bfloat16 mode). Returns (loss
+    [B], saved): what the backward needs ("table" and "out1" on every
+    device)."""
     if _device("fused_final_bi_fwd", hists[0]) == "cpu":
         loss, table, out1 = fused_final_bi_fwd_plain(h0, hists, bg, wrel,
                                                      loop1, loop2, grus,
-                                                     rtab, imp)
+                                                     rtab, imp, hot)
         return loss, {"table": table, "out1": out1}
     h1f, h2f, hlf, h1b, h2b, hlb = hists
     gr = bg.gr
@@ -583,11 +658,12 @@ def fused_final_bi_fwd(h0, hists, bg: BiGraph, wrel, loop1, loop2, grus,
     csr = final_csr(gr, N, max(wrel.shape[0], rtab.shape[0]))
     h0x = h0.expand(B, N, d).contiguous()
     out1 = bi_layer_fwd(h0x, h1f, h1b, bg, gr.m1, wrel, 0, loop1, grus["1f"],
-                        grus["1b"], csr=csr)
+                        grus["1b"], csr=csr, hot=hot)
     table = bi_layer_fwd(out1, h2f, h2b, bg, gr.m2, wrel, d, loop2,
                          grus["2f"], grus["2b"], relu=bg.act2, hl=(hlf, hlb),
-                         imp=imp, sel=h0x if bg.noact else None, csr=csr)
-    loss, saved = bi_loss_fwd(table, rtab, gr, csr)
+                         imp=imp, sel=h0x if bg.noact else None, csr=csr,
+                         hot=hot)
+    loss, saved = bi_loss_fwd(table, rtab, gr, csr, hot)
     saved.update(out1=out1, h0x=h0x)
     return loss, saved
 
@@ -604,16 +680,26 @@ def _gru_unflat(flat):
 class FusedFinalBi(torch.autograd.Function):
     """Differentiable flagship final step: ``fused_final_bi_fwd`` forward;
     backward K4, the select's backward, K9+K10 for layer 2, K9+K10 for layer
-    1, as the JAX package's ``_fused_final_bi_bwd``. `bg` (a BiGraph) takes
-    no gradient; the GRU weights come flat in ``_gru_flat`` order."""
+    1, as the JAX package's ``_fused_final_bi_bwd``, in the mode `hot`. `bg`
+    (a BiGraph) takes no gradient; the GRU weights come flat in
+    ``_gru_flat`` order. With `plain` every part runs its plain version on
+    whatever device the tensors lie on (the bfloat16 plain path: autograd
+    through the plain forward would not round where the kernels' backward
+    does)."""
 
     @staticmethod
-    def forward(ctx, bg, h0, h1f, h2f, hlf, h1b, h2b, hlb, wrel, loop1,
-                loop2, rtab, imp, *gru_flat):
+    def forward(ctx, bg, hot, plain, h0, h1f, h2f, hlf, h1b, h2b, hlb, wrel,
+                loop1, loop2, rtab, imp, *gru_flat):
         hists = (h1f, h2f, hlf, h1b, h2b, hlb)
-        loss, saved = fused_final_bi_fwd(h0, hists, bg, wrel, loop1, loop2,
-                                         _gru_unflat(gru_flat), rtab, imp)
-        ctx.bg, ctx.saved = bg, saved
+        grus = _gru_unflat(gru_flat)
+        if plain:
+            loss, table, out1 = fused_final_bi_fwd_plain(
+                h0, hists, bg, wrel, loop1, loop2, grus, rtab, imp, hot)
+            saved = {"table": table, "out1": out1}
+        else:
+            loss, saved = fused_final_bi_fwd(h0, hists, bg, wrel, loop1,
+                                             loop2, grus, rtab, imp, hot)
+        ctx.bg, ctx.saved, ctx.hot, ctx.plain = bg, saved, hot, plain
         ctx.save_for_backward(h0, *hists, wrel, loop1, loop2, rtab, imp,
                               *gru_flat)
         return loss
@@ -622,27 +708,43 @@ class FusedFinalBi(torch.autograd.Function):
     def backward(ctx, g):
         (h0, h1f, h2f, hlf, h1b, h2b, hlb, wrel, loop1, loop2, rtab, imp,
          *gru_flat) = ctx.saved_tensors
-        bg, saved = ctx.bg, ctx.saved
+        bg, saved, hot = ctx.bg, ctx.saved, ctx.hot
         gr, d = bg.gr, h0.shape[1]
         grus = _gru_unflat(gru_flat)
         csr = saved.get("csr")
-        d_table, d_rtab = fused_final_bwd_loss(saved, rtab, gr,
-                                               g.contiguous())
+        if ctx.plain:
+            d_table, d_rtab = fused_final_bwd_loss_plain(
+                saved["table"], rtab, gr, g.contiguous(), hot)
+        else:
+            d_table, d_rtab = fused_final_bwd_loss(saved, rtab, gr,
+                                                   g.contiguous(), hot)
         d_out2, d_h0_sel = select_bwd(d_table,
                                       gr.active if bg.noact else None)
-        two = bi_layer_bwd(saved["out1"], h2f, h2b, bg, gr.m2, wrel, d,
-                           loop2, grus["2f"], grus["2b"], d_out2.contiguous(),
-                           relu=bg.act2, hl=(hlf, hlb), imp=imp, csr=csr)
-        one = bi_layer_bwd(saved.get("h0x", h0), h1f, h1b, bg, gr.m1, wrel, 0,
-                           loop1, grus["1f"], grus["1b"], two[0], csr=csr)
+
+        def layer(x, prev_f, prev_b, mask, col, loop, gf, gb, d_out, **kw):
+            if ctx.plain:
+                return bi_layer_bwd_plain(x, prev_f, prev_b, bg, mask, wrel,
+                                          col, loop, gf, gb, d_out, hot=hot,
+                                          **kw)
+            return bi_layer_bwd(x, prev_f, prev_b, bg, mask, wrel, col, loop,
+                                gf, gb, d_out, csr=csr, hot=hot, **kw)
+
+        two = layer(saved["out1"], h2f, h2b, gr.m2, d, loop2, grus["2f"],
+                    grus["2b"], d_out2.contiguous(), relu=bg.act2,
+                    hl=(hlf, hlb), imp=imp)
+        one = layer(saved.get("h0x", h0), h1f, h1b, gr.m1, 0, loop1,
+                    grus["1f"], grus["1b"], two[0])
         d_h0 = one[0].sum(0)
         if d_h0_sel is not None:
             d_h0 = d_h0 + d_h0_sel.sum(0)
         # per GRU (wih_t, whh_t, bih, bhh) in _gru_flat order: 1f, 1b, 2f, 2b
         d_grus = list(one[8:]) + list(two[8:])
-        return (None, d_h0, one[1], two[1], two[3], one[2], two[2], two[4],
-                torch.cat([one[6], two[6]], 1), one[7], two[7], d_rtab,
-                two[5], *d_grus)
+        # the histories' cotangents come back in their dtype (autograd
+        # rounds float32 ones to a bfloat16 history's, as the JAX
+        # package's convert does)
+        return (None, None, None, d_h0, one[1], two[1], two[3], one[2],
+                two[2], two[4], torch.cat([one[6], two[6]], 1), one[7],
+                two[7], d_rtab, two[5], *d_grus)
 
 
 def fused_final_bi_supported(cfg, base: str) -> bool:
@@ -668,16 +770,18 @@ def fused_final_bi_supported(cfg, base: str) -> bool:
             and cfg.negative_pool == "all")
 
 
-def fused_final_bi_loss(params, bg: BiGraph, hists, kernels: bool = True):
+def fused_final_bi_loss(params, bg: BiGraph, hists, kernels: bool = True,
+                        hot=None):
     """The loss of each of the B elements, [B]: ``FusedFinalBi`` (K6-K10
-    with K4; ``kernels=False``: the plain forward, differentiated by
-    autograd). hists (h1f, h2f, hlf, h1b, h2b, hlb) as in
+    with K4) in the mode `hot` (``kernels=False``: the plain forward,
+    differentiated by autograd in float32, and with the plain K4 and
+    K9+K10 in bfloat16). hists (h1f, h2f, hlf, h1b, h2b, hlb) as in
     ``fused_final_bi_fwd``. Mirrors the JAX package's
     ``fused_final_bi_loss``, batched."""
     h0, wrel, loop1, loop2, grus, rtab, imp = bi_weights(params)
     hists = tuple(h.contiguous() for h in hists)
-    if not kernels:
+    if not kernels and hot is None:
         return fused_final_bi_fwd_plain(h0, hists, bg, wrel, loop1, loop2,
                                         grus, rtab, imp)[0]
-    return FusedFinalBi.apply(bg, h0, *hists, wrel, loop1, loop2, rtab, imp,
-                              *_gru_flat(grus))
+    return FusedFinalBi.apply(bg, hot, not kernels, h0, *hists, wrel, loop1,
+                              loop2, rtab, imp, *_gru_flat(grus))

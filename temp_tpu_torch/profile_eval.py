@@ -1,14 +1,17 @@
 """Where the time of one eval sweep goes, on the card.
 
     python -m temp_tpu_torch.profile_eval [--plain] [--config FILE]
-        [--impute] [--post-ensemble] [--fused-eval] [--fused-window-mb]
+        [--impute] [--post-ensemble] [--post-aggregation] [--fused-eval]
+        [--fused-window-mb]
         [--edge-partition MODE [--mp-size M]] [--compute-dtype DTYPE]
         [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
 grid/icews14/config_grrgcn.json model or the one of --config, with
 imputation on for --impute: ``--config grid/icews14/config_bigrrgcn.json
---impute`` is the flagship, with ``--post-ensemble`` also TED's gates;
+--impute`` is the flagship, with ``--post-ensemble`` also TED's gates
+(``--post-aggregation`` the other gates; ``--compute-dtype bfloat16`` any
+of them in bfloat16);
 ``--config grid/icews14/config_sargcn.json`` (or ``config_bisargcn.json``)
 the attention models and ``config_rrgcn.json``, ``config_birrgcn.json`` or
 ``config_srgcn.json`` the linear-recurrence and static ones, whose every
@@ -55,6 +58,8 @@ def main(argv=None) -> int:
                     help="with imputation (BiGRRGCN --impute: the flagship)")
     ap.add_argument("--post-ensemble", action="store_true",
                     help="with TED's gates (with --impute on BiGRRGCN: TED)")
+    ap.add_argument("--post-aggregation", action="store_true",
+                    help="with the --post-aggregation gates")
     ap.add_argument("--fused-eval", action="store_true",
                     help="the final step and ranks through K11 (fused_eval)")
     ap.add_argument("--fused-window-mb", action="store_true",
@@ -67,8 +72,9 @@ def main(argv=None) -> int:
                          "visible cards in turn)")
     ap.add_argument("--compute-dtype", default="float32",
                     choices=("float32", "bfloat16"),
-                    help="the hot dtype (bfloat16: GRRGCN's bfloat16 path; "
-                         "default: %(default)s)")
+                    help="the hot dtype (bfloat16: the bfloat16 path of "
+                         "GRRGCN, BiGRRGCN and their --impute and gated "
+                         "variants; default: %(default)s)")
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
@@ -77,7 +83,8 @@ def main(argv=None) -> int:
         return 1
     cfg = TKGConfig.from_json_file(
         os.path.join(_ROOT, args.config),
-        **{k: True for k in ("impute", "post_ensemble") if getattr(args, k)},
+        **{k: True for k in ("impute", "post_ensemble", "post_aggregation")
+           if getattr(args, k)},
         kernels=not args.plain, compute_dtype=args.compute_dtype,
         fused_eval=args.fused_eval, fused_window_mb=args.fused_window_mb)
     if args.edge_partition:

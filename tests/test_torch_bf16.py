@@ -560,14 +560,14 @@ def test_slice_trains_and_ranks_as_jax_bf16():
 # -- the config ---------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value,what", [
-    ("module", "SARGCN", "only GRRGCN"), ("module", "BiGRRGCN", "only GRRGCN"),
+    ("module", "SARGCN", "only GRRGCN"), ("module", "BiRRGCN", "only GRRGCN"),
     ("module", "RRGCN", "only GRRGCN"),
     ("score_function", "distmult", "DistMult"),
     ("score_function", "transE", "TransE"),
     ("negative_pool", "shared", "pools"),
     ("negative_pool", "per_query", "pools"),
-    ("impute", True, "impute"), ("post_ensemble", True, "TeMP"),
-    ("post_aggregation", True, "TeMP"), ("type1", True, "type1"),
+    ("module", "BiSARGCN", "only GRRGCN"), ("module", "SRGCN", "only GRRGCN"),
+    ("module", "DE", "only GRRGCN"), ("type1", True, "type1"),
     ("learnable_lambda", True, "learnable decay"),
     ("use_time_embedding", True, "time embeddings"),
     ("rec_only_last_layer", True, "rec_only_last_layer"),
@@ -590,6 +590,16 @@ def test_bf16_in_the_slice_and_auto_stays_f32():
         cfg = TKGConfig(compute_dtype=dt, fused_final="auto",
                         fused_window="off", fused_eval="off")
         assert cfg.hot_dtype == torch.bfloat16
+    # the flagship, plain BiGRRGCN and the TeMP variants
+    for over in ({"module": "BiGRRGCN", "impute": True},
+                 {"module": "BiGRRGCN"},
+                 {"module": "GRRGCN", "impute": True},
+                 {"module": "BiGRRGCN", "impute": True,
+                  "post_ensemble": True},
+                 {"module": "BiGRRGCN", "post_aggregation": True},
+                 {"module": "GRRGCN", "post_ensemble": True}):
+        assert TKGConfig(compute_dtype="bfloat16",
+                         **over).hot_dtype == torch.bfloat16
     for dt in ("auto", "float32", "f32", None):
         assert TKGConfig(compute_dtype=dt).hot_dtype is None
     # "auto" resolves to bfloat16 on an accelerator in the JAX package; the

@@ -72,6 +72,18 @@ from test_torch_train import (
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_unoptimized():
+    """XLA's optimizations off while this file's JAX references compile,
+    as tests/test_torch_post.py's ``_xla_unoptimized`` (about a third less
+    compile time; the same arithmetic up to float32 rounding)."""
+    from test_torch_post import _xla_unoptimized
+    with _xla_unoptimized():
+        yield
+
+
 KW = dict(module="BiGRRGCN", impute=True, embed_size=16, hidden_size=16,
           n_bases=16, train_seq_len=3, batch_size=2, seed=0,
           num_pos_facts=100)

@@ -42,7 +42,17 @@ from temp_tpu_torch.ops.scores import complex_all
 from temp_tpu_torch.train.loop import Trainer
 from temp_tpu_torch.train.optim import param_leaves
 from test_torch_flagship import _open_impute, jax_draws_bi
+from test_torch_post import _xla_unoptimized
 from test_torch_train import _close, _pairs, _torch_params, jax_draws
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_unoptimized():
+    """XLA's optimizations off while this file's JAX references compile
+    (``_xla_unoptimized``: about a third less compile time; the same
+    arithmetic up to float32 rounding)."""
+    with _xla_unoptimized():
+        yield
+
 
 # the sizes of tests/test_fused_final.py and tests/test_fused_window_mb.py
 DATA = dict(num_ents=30, num_rels=4, num_times=10, edges_per_time=25,

@@ -107,6 +107,22 @@ def test_unported_config_values_raise(field, value, what):
     assert TKGConfig(compute_dtype="float32", fused_eval="off").dp_size == 1
 
 
+def test_cli_takes_a_bare_edge_partition():
+    """A bare ``--edge-partition`` is True, the boundary exchange, as the
+    JAX package's CLI takes it (``nargs="?"``): it reaches the config's
+    NotImplementedError for that exchange, not argparse's exit 2. A mode's
+    name and a boolean word parse as before."""
+    with pytest.raises(NotImplementedError, match="boundary"):
+        port_main.parse_args(["--edge-partition", "--mp-size", "4"])
+    with pytest.raises(NotImplementedError, match="boundary"):
+        port_main.parse_args(["--edge-partition"])
+    cfg, _ = port_main.parse_args(["--edge-partition", "ring_pallas",
+                                   "--mp-size", "4"])
+    assert cfg.edge_partition_mode == "ring_pallas" and cfg.partitioned
+    cfg, _ = port_main.parse_args(["--edge-partition", "false"])
+    assert cfg.edge_partition_mode is None
+
+
 @pytest.mark.parametrize("scale", [0.4, 2.0])
 def test_clip_matches_optax(scale):
     """optax.clip_by_global_norm's formula, active (max below the norm) and

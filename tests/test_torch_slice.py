@@ -218,6 +218,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
            "path_fused_eval": chip_smoke.phase_path_fused_eval(ctx, path),
            "mb": chip_smoke.phase_mb(ctx, fctx),
            "k2_modes": chip_smoke.phase_k2_modes(ctx, fctx)}
+    res.update(
+        bf16_flagship_kernels=chip_smoke.phase_bf16_flagship_kernels(ctx,
+                                                                     fctx),
+        bf16_flagship_path=chip_smoke.phase_bf16_flagship_path(
+            fctx, res["flagship_train"], res["flagship_path"]),
+        bf16_variants=chip_smoke.phase_bf16_variants(ctx))
     tctx = chip_smoke.phase_setup_ted(ctx)
     tctx["train_steps"] = 2
     assert type(tctx["model"]).__name__ == "PostBiDynamicRGCNModel"
@@ -248,7 +254,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
         "fused_window_mb_fwd", "ring_spmm_fwd", "ring_spmm_bwd",
         "fused_window_fwd_bf16", "fused_window_bwd_bf16",
         "fused_final_fwd_bf16", "fused_final_bwd_loss_bf16",
-        "fused_final_bwd_layer_bf16"]
+        "fused_final_bwd_layer_bf16", "bi_layer_fwd_bf16", "bi_loss_fwd_bf16",
+        "bi_layer_bwd_bf16"]
     # the bfloat16 modes' plain versions against themselves on the CPU
     assert all(r == 0.0 for c in bf16_kernels.values()
                for r in c["rms_ratios"].values())
@@ -394,6 +401,52 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     assert len(rt["ring"]["losses"]) == 2
     assert set(rt["params"]["max_rel_gaps"]) == {
         "ring/plain", "ring/unpartitioned", "unpartitioned/plain"}
+    # the flagship's bfloat16 modes: K2's three (both windows where they
+    # have two), K6+K7, K8, K4 on the bi table and K9+K10, the plain
+    # versions against themselves on the CPU, run twice
+    bfk = res["bf16_flagship_kernels"]
+    modes = [m for m, *_ in chip_smoke._K2_BF16_MODES]
+    assert set(modes) == {"flagship_fwd", "flagship_bwd", "a", "b_fwd",
+                          "b_bwd"}
+    assert set(bfk) == {f"k2_{m}_{p}" for m in modes for p in ("fwd", "bwd")
+                        } | {"k6k7", "k8", "k4_bi", "k9k10"}
+    for name, r in bfk.items():
+        assert r["bitwise"] and r["max_abs_err"] == 0.0, name
+        assert 0 < r["bound_ms"] <= r["bound_tf32_ms"], name
+        if name != "k8":
+            assert all(x == 0.0 for x in r["rms_ratios"].values()), name
+    assert len(bfk["k9k10"]["rms_ratios"]) == 16 + 13
+    assert set(bfk["k2_flagship_fwd_bwd"]["rms_ratios"]) == set(
+        chip_smoke._COTANGENTS)
+    assert len(bfk["k2_a_fwd"]["rms_ratios"]) == 3
+    assert len(bfk["k2_b_fwd_fwd"]["rms_ratios"]) == 2
+    assert bfk["k8"]["loss_rel_err"] == 0.0 and bfk["k9k10"]["relu_flips"] == 0
+    bfp = res["bf16_flagship_path"]
+    assert bfp["max_rel_gaps"] == {"fused": 0.0, "unfused": 0.0}
+    assert all(bfp["params"][k]["max_rel_gaps"][f"{k}/{pl}"] < 1e-5
+               for k, pl in (("fused", "plain"),
+                             ("unfused", "unfused_plain")))
+    assert bfp["same_rank_share"] == 1.0 and len(bfp["fused"]["losses"]) == 2
+    assert bfp["eval_kernels"]["mrr"] == bfp["eval_plain"]["mrr"] > 0
+    bv = res["bf16_variants"]
+    assert {t: r["model"] for t, r in bv.items()} == {
+        "ted": "PostBiDynamicRGCNModel",
+        "bigrrgcn_aggregation": "PostBiDynamicRGCNModel",
+        "bigrrgcn": "BiDynamicRGCNModel",
+        "grrgcn_impute": "PostDynamicRGCNModel"}
+    for r in bv.values():
+        assert r["eval"]["mrr_kernels"] == r["eval"]["mrr_plain"] > 0
+        assert r["eval"]["same_rank_share"] == 1.0
+        assert r["train"]["max_rel_gap"] == 0.0
+        assert r["loss_gap_to_f32"] > 0
+    by_name = {k["name"]: k for k in line["kernels"]}
+    for name in ("fused_window_fwd_bf16", "fused_window_bwd_bf16"):
+        assert set(by_name[name]["flagship_modes"]) == set(modes)
+    assert by_name["fused_final_bwd_loss_bf16"]["bi_table"]["bitwise"]
+    for name in ("bi_layer_fwd_bf16", "bi_loss_fwd_bf16", "bi_layer_bwd_bf16",
+                 "fused_window_fwd_bf16"):
+        assert {"bf16_flagship_train_fused", "bf16_flagship_eval"} <= set(
+            by_name[name]["launches_by_path"])
     # K2's two new modes: (a) three buffers, no ReLU; (b) two, the ReLU,
     # both windows; the plain versions on both sides, run twice
     km = res["k2_modes"]

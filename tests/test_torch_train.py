@@ -291,7 +291,12 @@ def jax_loss_reference():
     def loss_fn(p):
         return model.loss(p, data, jnp.asarray(T_POS, jnp.int32), tv, rng)
 
-    loss, grads = jax.value_and_grad(loss_fn)(params)
+    # one compile, not one for each eager op of the model, with XLA's
+    # optimizations off (tests/test_torch_post.py's ``_xla_unoptimized``:
+    # less compile time, the same arithmetic up to float32 rounding)
+    from test_torch_post import _xla_unoptimized
+    with _xla_unoptimized():
+        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     return (float(loss), grads, jax.tree_util.tree_map(np.asarray, params),
             jax_draws(cfg, data, T_POS, rng))
 
