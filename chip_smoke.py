@@ -141,11 +141,29 @@ data:
                  K9+K10 10; none of K3, K5, K11-K13); the valid sweep (K1f
                  736, K2f 1,288) against plain; the gaps to float32 and the
                  peak memory beside float32's;
-23c. bf16_variants - TED, BiGRRGCN --post-aggregation, plain BiGRRGCN and
-                 GRRGCN --impute in bfloat16 at full width and
-                 VARIANT_SEQ_LEN, as `variants` holds them (leaves within
-                 BF16_PARAM_TOL), with the gaps of their plain versions to
-                 float32's.
+23c. bf16_k11   - K11 in bfloat16 (its two bfloat16 layer launches, its
+                 float32 rank and reduce launches) on the k11 batch, the
+                 histories rounded to bfloat16, against its plain bfloat16
+                 version: ranks equal but for the counted near-ties
+                 (BF16_NEAR_TIE), the BCE under BF16_RULE, two runs
+                 bit-equal, its launches apart timed; then GRRGCN's
+                 bfloat16 valid sweep with fused_eval on, kernels and
+                 plain, MRR within 1e-4 of each other and of bf16_path's
+                 unfused bfloat16 sweep;
+23d. bf16_mb    - K12 in bfloat16 in train mode (dropout masks) and eval
+                 mode (the conv1 table), bit-equal to K2f's bfloat16
+                 launches one element at a time, under BF16_RULE against
+                 its plain version; 8 fused bfloat16 steps of GRRGCN and of
+                 the flagship and GRRGCN's bfloat16 sweep with
+                 fused_window_mb on, held to bf16_path's and
+                 bf16_flagship_path's runs without it (losses within
+                 LOSS_TOL, leaves within BF16_PARAM_TOL, MRR within 1e-4);
+23e. bf16_variants - TED, BiGRRGCN --post-aggregation, plain BiGRRGCN,
+                 GRRGCN --impute, and GRRGCN under random_dropout and under
+                 edge_dropout (its windows step by step in training) in
+                 bfloat16 at full width and VARIANT_SEQ_LEN, as `variants`
+                 holds them (leaves within BF16_PARAM_TOL), with the gaps
+                 of their plain versions to float32's.
 24. ted_setup  - TED, BiGRRGCN --impute --post-ensemble, with seeded random
                  weights, and the seconds its frequency features take to
                  build;
@@ -296,11 +314,25 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  and without it (fused_final off): losses and parameters
                  held together as in `train`; K13's forward and backward
                  launched, no sort in a call.
+63. bf16_k13   - K13 and its backward in bfloat16 (csrc/ring_spmm_bf16.cu:
+                 the shards read as bfloat16) at k13's shapes, against
+                 their plain bfloat16 versions under BF16_RULE, two runs
+                 bit-equal, with times, bounds and the library's
+                 index_add_ of the same rounded messages;
+64. bf16_ring  - GRRGCN under ring_pallas in bfloat16: the valid sweep and
+                 8 steps with the kernels and with their plain versions
+                 (MRR within 1e-4, losses within TRAIN_TOL, leaves within
+                 BF16_PARAM_TOL), K13 and its backward launched, none of
+                 K1-K12, no sort in a call; the gaps to ring_path's and
+                 ring_train's float32 runs.
 
-Then a "kernels" JSON line (the bfloat16 modes as "<name>_bf16" records
-after the float32 ones, their launches the bf16 fused training path's:
-GRRGCN's K2f, K2b, K3-K5, K2's with the flagship's modes and K4's with the
-bi table beside, then the flagship's K6+K7, K8 and K9+K10;
+Then a "kernels" JSON line (each record with its "id", K1f to K13b; the
+bfloat16 modes as "<name>_bf16" records after the float32 ones, their
+launches the bf16 fused training path's: GRRGCN's K2f, K2b, K3-K5, K2's
+with the flagship's modes and K4's with the bi table beside, then the
+flagship's K6+K7, K8 and K9+K10, then K11's (the bfloat16 fused eval
+sweep's launches), K12's (the fused bfloat16 steps with the batched
+window's), K13's and K13b's (the bfloat16 ring steps');
 each kernel's bound_share, bound / ms, and for
 K2f, K2b, K5, K9+K10 and K12, whose products run in 3xTF32 on the tensor
 cores, bound_tc_ms: their operations at 3xTF32's 165 TFLOP/s beside the f32
@@ -1625,20 +1657,14 @@ def phase_bf16_kernels(ctx) -> dict:
     errs = _errs(((f"buf{i + 1}", k_ev[i], pb_ev[i], pf_ev[i])
                   for i in range(2)), "K2f bf16 conv1_in")
     L1, d = ctx["L1"], ctx["d"]
-    rows = int(win.act_mask[:, :L1].sum())
-    edges = int(win.emask[:, :L1].sum())
     n_rel = p["encoder"]["layer1"]["weight"].shape[0]
     w_bytes = (2 * d * 3 * d * 2 + 2 * d * d + n_rel * 2 * d) * 4
     shape = f"B={ctx['B']} L1={L1} A={ctx['A']} E={ctx['E']} d={d}"
-    # per active row the gate products and layer 2's self-loop; the
-    # conv1 table read in float32, the two buffers written in bfloat16
     out["k2f"] = _bf16_case(
         lambda: fw.fused_window_fwd(**ev, hot=BF),
         lambda: fw.fused_window_fwd_plain(**ev, hot=BF),
         lambda: fw.fused_window_fwd_plain(**ev), errs,
-        rows * (4 * 2 * d * 3 * d + 2 * d * d) + edges * 3 * d,
-        rows * d * (4 + 2 * 2) + edges * 16 + rows * 12 + w_bytes,
-        shape + " conv1_in", dev)
+        *_k2f_bf16_work(ctx, win, True, p), shape + " conv1_in", dev)
 
     win, kw = window_batch(ctx, False)
     kw.pop("conv1_in")
@@ -1662,9 +1688,7 @@ def phase_bf16_kernels(ctx) -> dict:
         lambda: fw.fused_window_fwd(**tr_args, hot=BF),
         lambda: fw.fused_window_fwd_plain(**tr_args, hot=BF),
         lambda: fw.fused_window_fwd_plain(**tr_args), errs,
-        rows * (4 * 2 * d * 3 * d + 2 * 2 * d * d) + 2 * edges * 3 * d,
-        rows * d * (4 + 2 * 2 + 2 * 4) + edges * 16 + rows * 12 + w_bytes,
-        shape + " train", dev)
+        *_k2f_bf16_work(ctx, win, False, p), shape + " train", dev)
 
     bwd = dict(a, buf1=k_tr[0], buf2=k_tr[1], gb1=gbs[0], gb2=gbs[1])
     got = fw.fused_window_bwd(**bwd, hot=BF)
@@ -1869,6 +1893,11 @@ def phase_bf16_path(ctx, train_res, path_res) -> dict:
     res["same_rank_share"] = float(np.mean(rk[mk] == rp[mp]))
     # each run's rise above what the earlier phases hold
     res["peak_rise_mb_fused"] = res["fused"]["peak_rise_mb"]
+    # the fused bfloat16 run and sweep the batched window is held to
+    ctx["bf16_ref"] = {"losses": res["fused"]["losses"],
+                       "params": finals["fused"], "init": init,
+                       "ranks": runs["kernels"],
+                       "mrr": res["eval_kernels"]["mrr"]}
     res["peak_rise_mb_fused_f32"] = train_res["fused"]["peak_rise_mb"]
     res["eval_peak_rise_mb"] = k["peak_rise_mb"]
     res["eval_peak_rise_mb_f32"] = path_res["kernels"]["peak_rise_mb"]
@@ -2336,27 +2365,27 @@ def _direction_scores(table, rtab, q, direction: str):
     return sc, src, known
 
 
-def near_ties(table, rtab, q):
+def near_ties(table, rtab, q, tol=SCALED_TOL):
     """[B, 2Q] bool in the [head, tail] layout: the queries whose plain
     scores hold a column other than the target, not a true answer, within
-    SCALED_TOL of the row's largest |score| of the target's score (there an
+    `tol` of the row's largest |score| of the target's score (there an
     f32 sum in another order may put the column on the other side)."""
     import torch
 
-    return torch.cat([_tied(*_direction_scores(table, rtab, q, direction))
-                      for direction in ("head", "tail")], -1)
+    return torch.cat([_tied(*_direction_scores(table, rtab, q, direction),
+                            tol) for direction in ("head", "tail")], -1)
 
 
-def _tied(sc, target, known):
+def _tied(sc, target, known, tol=SCALED_TOL):
     """[..., Q] bool: the rows of scores sc [..., Q, N] that hold a column
     other than the target [..., Q], not a true answer (`known`), within
-    SCALED_TOL of the row's largest |score| of the target's score."""
+    `tol` of the row's largest |score| of the target's score."""
     import torch
 
     tgt = torch.gather(sc, -1, target[..., None])
     cols = torch.arange(sc.shape[-1], device=sc.device)
     other = ~known & (cols != target[..., None])
-    scale = SCALED_TOL * sc.abs().amax(-1, keepdim=True)
+    scale = tol * sc.abs().amax(-1, keepdim=True)
     return ((sc - tgt).abs() <= scale).logical_and(other).any(-1)
 
 
@@ -2491,7 +2520,7 @@ def phase_k11(ctx) -> dict:
         # the two layer launches and the rank launch apart
         parts = {"layers": _bounds(layer_flops, layer_bytes),
                  "ranks": _bounds(rank_flops, rank_bytes)}
-        launchers = (fused_eval_ranks_launchers(*args)
+        launchers = (fused_eval_ranks_launchers(*args)[:2]
                      if dev.type == "cuda" else (None, None))
         for (name, part), fn in zip(parts.items(), launchers):
             part["ms"] = None if fn is None else time_ms(fn, dev, reps=10)
@@ -3122,6 +3151,11 @@ def phase_bf16_flagship_path(fctx, train_res, path_res) -> dict:
     res["mrr_kernels_gap_to_plain"] = k["mrr"] - pl["mrr"]
     res["same_rank_share"] = float(np.mean(rk[mk] == rp[mp]))
     res["peak_rise_mb_fused"] = res["fused"]["peak_rise_mb"]
+    # the fused bfloat16 run and sweep the batched window is held to
+    fctx["bf16_ref"] = {"losses": res["fused"]["losses"],
+                       "params": finals["fused"], "init": init,
+                       "ranks": runs["kernels"],
+                       "mrr": res["eval_kernels"]["mrr"]}
     res["peak_rise_mb_fused_f32"] = train_res["fused"]["peak_rise_mb"]
     res["eval_peak_rise_mb"] = k["peak_rise_mb"]
     res["eval_peak_rise_mb_f32"] = path_res["kernels"]["peak_rise_mb"]
@@ -3146,7 +3180,10 @@ def phase_bf16_variants(ctx) -> dict:
     width and VARIANT_SEQ_LEN, as ``phase_variants`` holds them (2 steps
     and one valid batch, kernels against plain: losses within TRAIN_TOL,
     MRR within MRR_TOL; K1f, K1b, K2f and K2b launched in training, K1f
-    and K2f in eval, none of K3-K13; each leaf within BF16_PARAM_TOL);
+    and K2f in eval, none of K3-K13; each leaf within BF16_PARAM_TOL),
+    and GRRGCN under random_dropout and under edge_dropout
+    (_BF16_DROP_VARIANTS: its windows step by step in training, K1f and
+    K1b, its final step through K3-K5's bfloat16 mode; eval K2f and K1f);
     beside each, from the same steps and batch in float32 (plain), the
     trained parameters' ``bf16_param_ratio`` and the bfloat16 - float32
     gaps of the plain versions' losses and the batch's MRR."""
@@ -3167,7 +3204,8 @@ def phase_bf16_variants(ctx) -> dict:
         r["mrr_gap_to_f32"] = (r["eval"]["mrr_plain"]
                                - metrics_from_ranks(rp, mp)["mrr"])
 
-    return phase_variants(ctx, _BF16_VARIANTS, param_tol=BF16_PARAM_TOL,
+    return phase_variants(ctx, _BF16_VARIANTS + _BF16_DROP_VARIANTS,
+                          param_tol=BF16_PARAM_TOL,
                           check=against_f32)
 
 
@@ -3502,31 +3540,34 @@ def _graph_index(src):
         src.shape)
 
 
-def _ring_bound(h, w, src, rel, emask):
+def _ring_bound(h, w, src, rel, emask, h_bytes: int = 4):
     """Least time for one K13 call: what the function needs to move (the
-    referenced rows of h and w, the edge arrays, the written output and
-    norm^2) against 2 s flops a kept edge column and the norm scale of each
-    output entry. The (M - 1) shards each rank receives are the ring's own
-    cost, not the function's: returned apart as the rotation's bytes."""
+    referenced rows of h, `h_bytes` an entry (2 in the bfloat16 mode,
+    whose shards are bfloat16), and of w, the edge arrays, the written
+    output and norm^2) against 2 s flops a kept edge column and the norm
+    scale of each output entry. The (M - 1) shards each rank receives are
+    the ring's own cost, not the function's: returned apart as the
+    rotation's bytes."""
     B, n, d = h.shape
     m = emask.bool()
     s = w.shape[1] // d
     b_idx = _graph_index(src)[m]
     refs = int((b_idx * n + src[m].long()).unique().numel())
-    nbytes = (refs * d * 4 + int(rel[m].unique().numel()) * d * s * 4
+    nbytes = (refs * d * h_bytes + int(rel[m].unique().numel()) * d * s * 4
               + src.numel() * 13 + B * n * (d + 1) * 4)
     flops = 2 * s * int(m.sum()) * d + B * n * d
     t_b, t_f = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
     return (max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"),
-            (RING_M - 1) * B * n * d * 4)
+            (RING_M - 1) * B * n * d * h_bytes)
 
 
-def _ring_bwd_bound(h, w, src, dst, rel, emask):
+def _ring_bwd_bound(h, w, src, dst, rel, emask, h_bytes: int = 4):
     """Least time for one call of K13's backward: the referenced rows of g
-    (and their norm^2), h and w, the edge arrays, dh and dw written once,
-    against (1 + 4 s) d flops a kept edge (dmsg, dh's and dw's
-    multiply-adds). The accumulators' (M - 1) passes round the ring are
-    its own cost: returned apart as the rotation's bytes."""
+    (and their norm^2), h (`h_bytes` an entry: 2 in the bfloat16 mode) and
+    w, the edge arrays, dh and dw written once, against (1 + 4 s) d flops a
+    kept edge (dmsg, dh's and dw's multiply-adds). The accumulators'
+    (M - 1) passes round the ring are its own cost: returned apart as the
+    rotation's bytes."""
     B, n, d = h.shape
     m = emask.bool()
     R, W = w.shape
@@ -3534,7 +3575,7 @@ def _ring_bwd_bound(h, w, src, dst, rel, emask):
     b_idx = _graph_index(src)[m]
     g_rows = int((b_idx * n + dst[m].long()).unique().numel())
     h_rows = int((b_idx * n + src[m].long()).unique().numel())
-    nbytes = (g_rows * (d + 1) * 4 + h_rows * d * 4
+    nbytes = (g_rows * (d + 1) * 4 + h_rows * d * h_bytes
               + int(rel[m].unique().numel()) * W * 4 + src.numel() * 13
               + B * n * d * 4 + R * W * 4)
     flops = (1 + 4 * s) * d * int(m.sum())
@@ -3826,6 +3867,524 @@ def phase_ring_train(rctx) -> dict:
     return res
 
 
+# -- bfloat16 for K11, K12 and K13 --------------------------------------------
+
+# a competitor within this share of the row's largest |score| of the
+# target's score is a near-tie in bfloat16: the kernels and the plain
+# versions round the final step's layers at the same points, and a float32
+# sum that lands on a rounding boundary on one side only moves a table entry
+# by a bfloat16 step (2^-8 of it at most)
+BF16_NEAR_TIE = 1e-3
+
+
+def _mixed_bounds(parts, nbytes: float) -> dict:
+    """The least time of a call whose operations run at several rates:
+    the larger of its bytes over the card's memory rate and the sum over
+    `parts` (flops, the peak rate of their type, the rate of their design)
+    of flops over rate ("bound_ms"), and the same at the designs' rates
+    ("bound_tf32_ms")."""
+    t_b = nbytes / H100_BYTES_S
+    t_f = sum(f / rate for f, rate, _ in parts)
+    t_d = sum(f / rate for f, _, rate in parts)
+    return {"bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations",
+            "bound_tf32_ms": max(t_b, t_d) * 1e3}
+
+
+def phase_bf16_k11(ctx, bf16_path) -> dict:
+    """K11 in its bfloat16 mode on ``eval_batch``'s batch at full width,
+    the histories rounded to bfloat16: against its plain bfloat16 version,
+    the same query mask, the ranks equal on every real query but the
+    counted near-ties (BF16_NEAR_TIE); the table its layer launches write
+    under BF16_RULE (the plain float32 version on the same histories the
+    yardstick), the BCE within SCALED_TOL relative (as float32's K11 and
+    K3's bfloat16 loss are held); four launches a call, two runs
+    bit-equal; times (its two bfloat16 layer launches and its float32 rank
+    launch apart) and bounds. Then GRRGCN's valid sweep
+    in bfloat16 with fused_eval on, kernels and plain: the same mask, MRR
+    within MRR_TOL of each other and of `bf16_path`'s sweep without the
+    switch (the unfused bfloat16 eval); K11 launched, K3-K5 not."""
+    import numpy as np
+    import torch
+
+    from temp_tpu_torch.ops import fused_final as ff
+
+    BF = torch.bfloat16
+    dev, eb = ctx["device"], eval_batch(ctx)
+    h0, hist1, hist2, gr, q, wrel, loop1, loop2, g1, g2, rtab = eb["args"]
+    h1, h2 = hist1.to(BF).contiguous(), hist2.to(BF).contiguous()
+    args = (h0, h1, h2, gr, q, wrel, loop1, loop2, g1, g2, rtab)
+    args32 = (h0, h1.float(), h2.float()) + args[3:]
+    on_card = dev.type == "cuda"
+    with torch.no_grad():
+        n0 = ff.fused_eval_ranks.launches
+        ranks, mask, bce = ff.fused_eval_ranks(*args, hot=BF)
+        per_call = ff.fused_eval_ranks.launches - n0
+        if per_call != (4 if on_card else 0):
+            raise AssertionError(f"K11 bf16: {per_call} launches a call")
+        r_p, m_p, bce_p = ff.fused_eval_ranks_plain(*args, hot=BF)
+        table, _ = ff._encoder_plain(h0, h1, h2, gr, wrel, loop1, loop2, g1,
+                                     g2, BF)
+        table_f, _ = ff._encoder_plain(*args32[:4], wrel, loop1, loop2, g1,
+                                       g2)
+        # the table the kernel's bfloat16 layer launches write
+        table_k = table
+        if on_card:
+            layers, _, table_k = ff.fused_eval_ranks_launchers(*args, hot=BF)
+            layers()
+        near = near_ties(table, rtab, q, BF16_NEAR_TIE) & mask
+        if not torch.equal(mask, m_p):
+            raise AssertionError("K11 bf16: query masks differ")
+        off = (ranks != r_p) & mask
+        if bool((off & ~near).any()):
+            raise AssertionError(f"K11 bf16: {int((off & ~near).sum())} "
+                                 f"ranks differ from the plain version's "
+                                 f"away from a near-tie")
+        # the layers' table under BF16_RULE; the BCE, a mean of softplus
+        # terms where bfloat16's roundings average out below float32's
+        # resolution (the rule's yardstick is then float32 noise), held as
+        # float32's K11 holds it (SCALED_TOL relative), as K3's loss is
+        errs = _errs([("table", table_k, table, table_f)], "K11 bf16 layers")
+        bce_err = float(((bce - bce_p).abs()
+                         / bce_p.abs().clamp(min=1e-30)).max())
+        if not (bce_err <= SCALED_TOL and bool(torch.isfinite(bce).all())):
+            raise AssertionError(f"K11 bf16: BCE relative error {bce_err} > "
+                                 f"{SCALED_TOL}")
+        bitwise = _bitwise((ranks, bce),
+                           ff.fused_eval_ranks(*args, hot=BF)[::2])
+        if not bitwise:
+            raise AssertionError("K11 bf16: two runs differ")
+    B, N, d = hist1.shape
+    Q, E = q.src.shape[1], gr.src.shape[1]
+    n_q = float(q.mask.sum())
+    edges = float(gr.emf.sum())
+    # K11's counts (phase_k11), the histories read in bfloat16: its layers'
+    # products of bfloat16 operands, its ranks' of float32 ones
+    layer_flops = B * 2 * 14 * N * d * d + 2 * edges * 3 * d
+    rank_flops = 2 * n_q * (N + 1) * 2 * d
+    nbytes = (4 * (N * d + 2 * B * N + wrel.numel() + 2 * 7 * d * d
+                   + rtab.numel() + 5 * B * (E + Q) + 2 * B * Q + B)
+              + 2 * 2 * B * N * d)
+    layer_bytes = (4 * (3 * B * N * d + N * d + 2 * B * N + wrel.numel()
+                        + 2 * 7 * d * d + 5 * B * E) + 2 * 2 * B * N * d)
+    rank_bytes = 4 * (B * N * d + rtab.numel() + 4 * B * Q
+                      + 2 * B * ff._N_SPLIT * Q + B * Q)
+    with torch.no_grad():
+        out = {"shape": f"B={B} N={N} E={E} Q={Q} d={d} real queries="
+                        f"{int(n_q)}, bf16 histories",
+               "max_abs_err": float((bce - bce_p).abs().max()),
+               "bce_rel_err": bce_err, "table_max_abs_err":
+                   errs["abs"]["table"]["abs"],
+               "rms_ratio": errs["ratio"]["table"],
+               "rank_mismatches": int(off.sum()),
+               "near_ties": int(near.sum()), "bitwise": bitwise,
+               "launches_per_call": per_call,
+               "ms": time_ms(lambda: ff.fused_eval_ranks(*args, hot=BF), dev,
+                             reps=10),
+               "plain_ms": time_ms(lambda: ff.fused_eval_ranks_plain(
+                   *args, hot=BF), dev, reps=5),
+               "plain_f32_ms": time_ms(lambda: ff.fused_eval_ranks_plain(
+                   *args32), dev, reps=5),
+               "library_ms": None,
+               **_mixed_bounds(((layer_flops, H100_BF16_FLOPS,
+                                 H100_TF32_FLOPS),
+                                (rank_flops, H100_F32_FLOPS,
+                                 H100_TF32X3_FLOPS)), nbytes)}
+        parts = {"layers": _mixed_bounds(((layer_flops, H100_BF16_FLOPS,
+                                           H100_TF32_FLOPS),), layer_bytes),
+                 "ranks": _mixed_bounds(((rank_flops, H100_F32_FLOPS,
+                                          H100_TF32X3_FLOPS),), rank_bytes)}
+        launchers = (ff.fused_eval_ranks_launchers(*args, hot=BF)[:2]
+                     if on_card else (None, None))
+        for (name, part), fn in zip(parts.items(), launchers):
+            part["ms"] = None if fn is None else time_ms(fn, dev, reps=10)
+            part["bound_share"] = (None if fn is None
+                                   else part["bound_ms"] / part["ms"])
+            out[name] = part
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    print(f"  K11 bf16: {out}", flush=True)
+
+    cfg = ctx["cfg"].replace(compute_dtype="bfloat16", fused_eval=True)
+    runs = {}
+    for name, kernels in (("kernels", True), ("plain", False)):
+        m, rk, mk = _sweep(ctx, cfg.replace(kernels=kernels))
+        runs[name] = (rk, mk)
+        out[f"eval_{name}"] = m
+        print(f"  bf16 fused eval {name}: {m}", flush=True)
+    k, pl = out["eval_kernels"], out["eval_plain"]
+    (rk, mk), (rp, mp) = runs["kernels"], runs["plain"]
+    if not (np.array_equal(mk, mp) and np.isfinite(k["mrr"])
+            and 0.0 < k["mrr"] <= 1.0):
+        raise AssertionError(f"bf16 fused eval: masks differ or bad MRR {k}")
+    out["mrr_gaps"] = {"kernels/plain": abs(k["mrr"] - pl["mrr"]),
+                       "kernels/unfused": abs(k["mrr"] - bf16_path[
+                           "eval_kernels"]["mrr"])}
+    if not all(g <= MRR_TOL for g in out["mrr_gaps"].values()):
+        raise AssertionError(f"bf16 fused eval: MRR gaps {out['mrr_gaps']} "
+                             f"> {MRR_TOL}")
+    n = k["launches"]
+    if on_card and not (n["fused_eval_ranks"] > 0 and n["fused_window_fwd"]
+                        and not any(n[x] for x in (
+                            "fused_final_fwd", "fused_final_bwd_loss",
+                            "fused_final_bwd_layer", "fused_window_mb_fwd",
+                            "ring_spmm_fwd"))):
+        raise AssertionError(f"bf16 fused eval launches {n}")
+    if any(pl["launches"].values()):
+        raise AssertionError(f"bf16 fused eval plain launched kernels: "
+                             f"{pl['launches']}")
+    out["same_rank_share"] = float(np.mean(rk[mk] == rp[mp]))
+    return out
+
+
+def _element(a: dict, b: int) -> dict:
+    """Element b of ``window_args``' dict of B windows (its per-window
+    tensors sliced, the weights as they are)."""
+    per = ("h0x", "src", "dst", "rel", "em", "gidx", "live", "dt", "m1",
+           "m2")
+    return {k: v[b:b + 1] if k in per and v is not None else v
+            for k, v in a.items()}
+
+
+def _k2f_bf16_work(ctx, win, conv1_in: bool, p) -> tuple:
+    """(flops, bytes) of K2f's bfloat16 mode on `win`'s windows: per active
+    row the gate products and the self-loops, the SpMMs over the real
+    edges; the input read in float32, the two buffers written in bfloat16,
+    the dropout masks read in training."""
+    L1, d = ctx["L1"], ctx["d"]
+    rows = int(win.act_mask[:, :L1].sum())
+    edges = int(win.emask[:, :L1].sum())
+    n_rel = p["encoder"]["layer1"]["weight"].shape[0]
+    w_bytes = (2 * d * 3 * d * 2 + 2 * d * d + n_rel * 2 * d) * 4
+    n_conv = 1 if conv1_in else 2
+    flops = (rows * (4 * 2 * d * 3 * d + n_conv * 2 * d * d)
+             + n_conv * edges * 3 * d)
+    nbytes = (rows * d * (4 + 2 * 2 + (0 if conv1_in else 2 * 4))
+              + edges * 16 + rows * 12 + w_bytes)
+    return flops, nbytes
+
+
+def phase_bf16_mb(ctx, fctx) -> dict:
+    """fused_window_mb on in bfloat16: K12's bfloat16 mode in train mode
+    (dropout masks) and in eval mode (the conv1 table) on ``window_batch``'s
+    windows, bit-equal to K2f's bfloat16 launches one element at a time
+    (the JAX module builds its batched window to give the values of B
+    per-element windows), against its plain bfloat16 version under
+    BF16_RULE, two runs bit-equal, with times and bounds; then
+    TRAIN_STEPS fused bfloat16 training steps of GRRGCN and of the
+    flagship and GRRGCN's bfloat16 sweep with the switch on, held to the
+    bf16_path and bf16_flagship_path runs without it (losses within
+    LOSS_TOL, each leaf within BF16_PARAM_TOL of the run's change, MRR
+    within MRR_TOL); K12 launched there and K2f not."""
+    import numpy as np
+    import torch
+
+    from temp_tpu_torch.ops import fused_window as fw
+    from temp_tpu_torch.ops.fused_window_mb import (
+        fused_window_mb_fwd, fused_window_mb_fwd_plain,
+    )
+
+    BF = torch.bfloat16
+    dev, p, cfg = ctx["device"], ctx["params"], ctx["cfg"]
+    out = {}
+    for tag, conv1_in in (("train", False), ("eval", True)):
+        win, kw = window_batch(ctx, conv1_in)
+        kw.pop("conv1_in")
+        B, L1, A, d = kw["h0_xs"].shape
+        masks = None
+        if not conv1_in:
+            keep = 1.0 - cfg.dropout
+            gen = torch.Generator(device=dev).manual_seed(0)
+            masks = tuple((torch.rand(B, L1, A, d, generator=gen,
+                                      device=dev) < keep)
+                          .to(torch.float32) / keep for _ in range(2))
+        a = dict(fw.window_args(p["encoder"], cfg, masks=masks, **kw),
+                 conv1_in=conv1_in)
+        with torch.no_grad():
+            got = fused_window_mb_fwd(**a, hot=BF)
+            per = [fw.fused_window_fwd(**_element(a, b), hot=BF)
+                   for b in range(B)]
+            if not all(torch.equal(x[b:b + 1], y[i]) for b, y in
+                       enumerate(per) for i, x in enumerate(got)):
+                raise AssertionError(f"K12 bf16 {tag}: not the per-element "
+                                     f"K2f bf16 launches' bits")
+            pb = fused_window_mb_fwd_plain(**a, hot=BF)
+            pf = fused_window_mb_fwd_plain(**a)
+            bitwise = _bitwise(got, fused_window_mb_fwd(**a, hot=BF))
+            if not bitwise:
+                raise AssertionError(f"K12 bf16 {tag}: two runs differ")
+        errs = _errs(((f"buf{i + 1}", got[i], pb[i], pf[i])
+                      for i in range(2)), f"K12 bf16 {tag}")
+        flops, nbytes = _k2f_bf16_work(ctx, win, conv1_in, p)
+        with torch.no_grad():
+            out[tag] = _bf16_case(
+                lambda: fused_window_mb_fwd(**a, hot=BF),
+                lambda: fused_window_mb_fwd_plain(**a, hot=BF),
+                lambda: fused_window_mb_fwd_plain(**a), errs, flops, nbytes,
+                f"B={B} L1={L1} A={A} E={ctx['E']} d={d}, {tag} mode", dev,
+                reps=5, plain_reps=2)
+        out[tag].update(bitwise=bitwise, per_element_bitwise=True)
+        print(f"  K12 bf16 {tag}: {out[tag]}", flush=True)
+
+    for tag, c, flagship in (("train_steps", ctx, False),
+                             ("flagship_train_steps", fctx, True)):
+        mb_cfg = c["cfg"].replace(compute_dtype="bfloat16",
+                                  fused_window_mb=True)
+        model, r, _, finals, _, _ = _train_path(c, mb_cfg)
+        if not model.fused_window_mb_on(mb_cfg.train_seq_len, train=True):
+            raise AssertionError(f"bf16 mb {tag}: the batched window is off")
+        ref = c["bf16_ref"]
+        x, y = np.array(r["losses"]), np.array(ref["losses"])
+        r["loss_gap"] = float(np.max(np.abs(x - y)
+                                     / np.maximum(1.0, np.abs(y))))
+        r["bitwise"] = bool(np.array_equal(x, y)) and all(
+            torch.equal(u, v) for u, v in zip(finals, ref["params"]))
+        if not (np.isfinite(x).all() and r["loss_gap"] <= LOSS_TOL):
+            raise AssertionError(f"bf16 mb {tag}: losses differ from the "
+                                 f"run without the switch: {r}")
+        r["params"] = param_gaps(ref["init"], {"mb": finals,
+                                               "fused": ref["params"]},
+                                 names=("mb", "fused"), tol=BF16_PARAM_TOL)
+        n = r["launches"]
+        want = _train_kernels(flagship, mb=True)["fused"]
+        if dev.type == "cuda" and not (all(n[k] > 0 for k in want)
+                                       and n["fused_window_fwd"] == 0):
+            raise AssertionError(f"bf16 mb {tag} missed a kernel: {n}")
+        out[tag] = r
+        print(f"  bf16 mb {tag}: {r}", flush=True)
+
+    m, ranks, mask = _sweep(ctx, cfg.replace(compute_dtype="bfloat16",
+                                             fused_window_mb=True))
+    rk, mk = ctx["bf16_ref"]["ranks"]
+    m["ranks_equal"] = bool(np.array_equal(mask, mk)
+                            and np.array_equal(ranks[mask], rk[mk]))
+    m["mrr_gap"] = abs(m["mrr"] - ctx["bf16_ref"]["mrr"])
+    if not (np.array_equal(mask, mk) and m["mrr_gap"] <= MRR_TOL):
+        raise AssertionError(f"bf16 mb eval: differs from the sweep without "
+                             f"the switch: {m}")
+    n = m["launches"]
+    if dev.type == "cuda" and not (n["fused_window_mb_fwd"] > 0
+                                   and n["fused_window_fwd"] == 0):
+        raise AssertionError(f"bf16 mb eval missed K12: {n}")
+    out["eval_sweep"] = m
+    print(f"  bf16 mb eval: {m}", flush=True)
+    return out
+
+
+def phase_bf16_k13(rctx) -> dict:
+    """K13 and its backward in their bfloat16 mode at ``_k13_cases``'
+    shapes (the final snapshot and a window step, s = 1), over the data's
+    tables: against their plain bfloat16 versions under BF16_RULE (the
+    plain float32 versions the yardstick), norm^2 to SCALED_TOL, rows
+    without in-edges exactly 0, RING_M launches a forward call and
+    RING_M + 2 a backward one, no sort, two runs bit-equal, RingSpMM's
+    gradients the backward's bits; times, bounds (the shards read in
+    bfloat16) and the library's: one ``index_add_`` of the same rounded
+    messages, two of the same per-edge cotangents."""
+    import torch
+
+    from temp_tpu_torch.parallel.ring_spmm import (
+        ring_spmm, ring_spmm_bwd, ring_spmm_bwd_plain, ring_spmm_fwd,
+        ring_spmm_fwd_plain,
+    )
+
+    BF = torch.bfloat16
+    dev = rctx["device"]
+    devices = rctx["mesh"].devices[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    on_card = dev.type == "cuda"
+    out = {}
+
+    def rb(x):
+        return x.to(BF).to(torch.float32)
+
+    for tag, args, r, tables in _k13_cases(rctx):
+        h, w, src, dst, rel, em = args
+        ring = (RING_M, r, devices)
+        with torch.no_grad():
+            before = ring_spmm_fwd.launches
+            builds = ring_spmm_fwd.csr_builds
+            got, n2 = ring_spmm_fwd(*args, *ring, tables=tables, hot=BF)
+            per_call = ring_spmm_fwd.launches - before
+            if (ring_spmm_fwd.csr_builds != builds
+                    or per_call != (RING_M if on_card else 0)):
+                raise AssertionError(f"K13 bf16 {tag}: {per_call} launches, "
+                                     f"{ring_spmm_fwd.csr_builds - builds} "
+                                     f"sorts with the tables")
+            bitwise = _bitwise((got, n2), ring_spmm_fwd(
+                *args, *ring, tables=tables, hot=BF))
+            pb, n2p = ring_spmm_fwd_plain(*args, *ring, hot=BF)
+            pf, _ = ring_spmm_fwd_plain(*args, *ring)
+        if not bitwise:
+            raise AssertionError(f"K13 bf16 {tag}: two runs differ")
+        errs = _errs([("out", got, pb, pf)], f"K13 bf16 {tag}")
+        scaled = scaled_errs([(f"K13 bf16 {tag} norm^2", n2, n2p)])
+        b_e = _graph_index(src)
+        fed = torch.zeros(h.shape[:2], dtype=torch.bool, device=dev)
+        fed[b_e[em.bool()], dst[em.bool()].long()] = True
+        if not bool((got[~fed] == 0).all()):
+            raise AssertionError(f"K13 bf16 {tag}: rows without in-edges "
+                                 f"not 0")
+        # the library yardstick: one index_add_ of the same rounded
+        # messages (computed outside the timing)
+        emf = em.to(torch.float32)
+        seg = (b_e * h.shape[1] + dst.long()).reshape(-1)
+        msg = (rb(rb(h[b_e, src.long()]) * rb(w[rel.long()]))
+               * emf[..., None]).reshape(-1, h.shape[2])
+        lib = torch.zeros(h.shape[0] * h.shape[1], h.shape[2], device=dev)
+        bound_ms, bound_by, rot_bytes = _ring_bound(h, w, src, rel, em,
+                                                    h_bytes=2)
+        with torch.no_grad():
+            out[tag] = {
+                "shape": f"B={h.shape[0]} rows={h.shape[1]} "
+                         f"E={src.shape[1]} kept={int(em.sum())} "
+                         f"R={w.shape[0]} d={h.shape[2]} m={RING_M}, bf16",
+                "max_abs_err": errs["abs"]["out"]["abs"],
+                "rms_ratio": errs["ratio"]["out"], "scaled_errs": scaled,
+                "bitwise": bitwise, "launches_per_call": per_call,
+                "ms": time_ms(lambda: ring_spmm_fwd(
+                    *args, *ring, tables=tables, hot=BF), dev),
+                "plain_ms": time_ms(lambda: ring_spmm_fwd_plain(
+                    *args, *ring, hot=BF), dev, reps=5),
+                "plain_f32_ms": time_ms(lambda: ring_spmm_fwd_plain(
+                    *args, *ring), dev, reps=5),
+                "library_ms": time_ms(
+                    lambda: lib.zero_().index_add_(0, seg, msg), dev),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "rotation_bytes": rot_bytes,
+                "rotation_ms": rot_bytes / H100_BYTES_S * 1e3}
+        out[tag]["bound_share"] = out[tag]["bound_ms"] / out[tag]["ms"]
+        print(f"  K13 bf16 {tag}: {out[tag]}", flush=True)
+
+        # the backward: the final step trains on the 50% subsample
+        if tag == "final":
+            sub = em & (torch.rand(em.shape, generator=gen, device=dev) < 0.5)
+            args = (h, w, src, dst, rel, sub)
+        h, w, src, dst, rel, em = args
+        with torch.no_grad():
+            _, n2 = ring_spmm_fwd(*args, *ring, tables=tables, hot=BF)
+        g = torch.randn(h.shape, generator=gen, device=dev)
+        bwd_args = (g, n2, h, w, src, dst, rel, em, *ring)
+        before = ring_spmm_bwd.launches
+        dh, dw = ring_spmm_bwd(*bwd_args, tables=tables, hot=BF)
+        per_call = ring_spmm_bwd.launches - before
+        if per_call != (RING_M + 2 if on_card else 0):
+            raise AssertionError(f"K13b bf16 {tag}: {per_call} launches")
+        again = ring_spmm_bwd(*bwd_args, tables=tables, hot=BF)
+        ph, pw = ring_spmm_bwd_plain(*bwd_args, hot=BF)
+        fh, fw_ = ring_spmm_bwd_plain(*bwd_args)
+        errs = _errs([("dh", dh, ph, fh), ("dw", dw, pw, fw_)],
+                     f"K13b bf16 {tag}")
+        ah, aw = h.detach().clone().requires_grad_(), w.detach().clone(
+        ).requires_grad_()
+        (ring_spmm(ah, aw, *args[2:], *ring, tables=tables, hot=BF)
+         * g).sum().backward()
+        bitwise = (_bitwise((dh, dw), again) and torch.equal(ah.grad, dh)
+                   and torch.equal(aw.grad, dw))
+        if not bitwise:
+            raise AssertionError(f"K13b bf16 {tag}: not the same bits twice")
+        # the library yardstick: two index_add_ of the per-edge cotangents
+        # of the same dmsg on the rounded residuals
+        emf = em.to(torch.float32)[..., None]
+        d_ = h.shape[2]
+        b_e = _graph_index(src)
+        dmsg = ((g * n2[..., None])[b_e, dst.long()] * emf).reshape(-1, d_)
+        mh = dmsg * rb(w[rel.long()]).reshape(-1, d_)
+        mw = dmsg * rb(h[b_e, src.long()]).reshape(-1, d_)
+        src_seg = (b_e * h.shape[1] + src.long()).reshape(-1)
+        lib_h = torch.zeros(h.shape[0] * h.shape[1], d_, device=dev)
+        lib_w = torch.zeros_like(w)
+
+        def library():
+            lib_h.zero_().index_add_(0, src_seg, mh)
+            lib_w.zero_().index_add_(0, rel.long().reshape(-1), mw)
+
+        bound_ms, bound_by, rot_bytes = _ring_bwd_bound(h, w, src, dst, rel,
+                                                        em, h_bytes=2)
+        out[f"bwd_{tag}"] = {
+            "shape": f"B={h.shape[0]} rows={h.shape[1]} E={src.shape[1]} "
+                     f"kept={int(em.sum())} R={w.shape[0]} d={d_} "
+                     f"m={RING_M}, bf16",
+            "max_abs_err": max(e["abs"] for e in errs["abs"].values()),
+            "rms_ratio": max(errs["ratio"].values()),
+            "rms_ratios": errs["ratio"], "bitwise": bitwise,
+            "launches_per_call": per_call,
+            "ms": time_ms(lambda: ring_spmm_bwd(*bwd_args, tables=tables,
+                                                hot=BF), dev),
+            "plain_ms": time_ms(lambda: ring_spmm_bwd_plain(*bwd_args,
+                                                            hot=BF),
+                                dev, reps=5),
+            "plain_f32_ms": time_ms(lambda: ring_spmm_bwd_plain(*bwd_args),
+                                    dev, reps=5),
+            "library_ms": time_ms(library, dev),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "rotation_bytes": rot_bytes,
+            "rotation_ms": rot_bytes / H100_BYTES_S * 1e3}
+        out[f"bwd_{tag}"]["bound_share"] = (out[f"bwd_{tag}"]["bound_ms"]
+                                            / out[f"bwd_{tag}"]["ms"])
+        print(f"  K13b bf16 {tag}: {out[f'bwd_{tag}']}", flush=True)
+    return out
+
+
+def phase_bf16_ring(rctx, ring_path, ring_train) -> dict:
+    """GRRGCN with edge_partition="ring_pallas" over RING_M ranks in
+    bfloat16: the valid sweep and TRAIN_STEPS optimizer steps with the
+    kernels and with their plain versions, from the same weights and
+    draws: the same query mask, MRR within MRR_TOL, losses within
+    TRAIN_TOL and each leaf within BF16_PARAM_TOL of the plain run's
+    change; K13 and its backward launched in their bfloat16 mode, none of
+    K1 (the float32 SpMM outside a partition) or K2-K12, no sort in a
+    call. Beside them the gaps to the float32 ring runs (`ring_path`,
+    `ring_train`)."""
+    import numpy as np
+
+    cfg = rctx["cfg"].replace(compute_dtype="bfloat16")
+    dev = rctx["device"]
+    res, runs = {}, {}
+    for name, c in (("kernels", cfg), ("plain", cfg.replace(kernels=False))):
+        m, ranks, mask = _sweep(rctx, c)
+        res[f"eval_{name}"] = m
+        runs[name] = (ranks, mask)
+        print(f"  bf16 ring path {name}: {m}", flush=True)
+    k, pl = res["eval_kernels"], res["eval_plain"]
+    (rk, mk), (rp, mp) = runs["kernels"], runs["plain"]
+    if not (np.array_equal(mk, mp) and np.isfinite(k["mrr"])
+            and 0.0 < k["mrr"] <= 1.0 and abs(k["mrr"] - pl["mrr"])
+            <= MRR_TOL):
+        raise AssertionError(f"bf16 ring path: kernels {k} vs plain {pl}")
+    _ring_launches_ok(dev, k, "bf16 ring eval", train=False)
+    if any(pl["launches"].values()):
+        raise AssertionError(f"bf16 ring path plain: kernels launched: "
+                             f"{pl['launches']}")
+    init, finals = None, {}
+    for name, c in (("ring", cfg), ("plain", cfg.replace(kernels=False))):
+        _, res[name], init, finals[name], _, _ = _train_path(rctx, c)
+        print(f"  bf16 ring train {name}: {res[name]}", flush=True)
+    x, y = np.array(res["ring"]["losses"]), np.array(res["plain"]["losses"])
+    if not np.isfinite(x).all():
+        raise AssertionError(f"bf16 ring train: losses not finite: {x}")
+    res["max_rel_gap"] = float(np.max(np.abs(x - y)
+                                      / np.maximum(1.0, np.abs(y))))
+    if not res["max_rel_gap"] <= TRAIN_TOL:
+        raise AssertionError(f"bf16 ring train: loss trajectories differ: "
+                             f"{res['max_rel_gap']} > {TRAIN_TOL}")
+    res["params"] = param_gaps(init, finals, names=("ring", "plain"),
+                               tol=BF16_PARAM_TOL)
+    print(f"  bf16 ring train params: {res['params']}", flush=True)
+    _ring_launches_ok(dev, res["ring"], "bf16 ring train", train=True)
+    if any(res["plain"]["launches"].values()):
+        raise AssertionError(f"bf16 ring train plain: kernels launched: "
+                             f"{res['plain']['launches']}")
+    f32 = np.array(ring_train["plain"]["losses"])
+    res["loss_gap_to_f32"] = float(np.max(np.abs(y - f32)))
+    res["loss_rel_gap_to_f32"] = res["loss_gap_to_f32"] / float(
+        np.max(np.abs(f32)))
+    res["mrr_gap_to_f32"] = pl["mrr"] - ring_path["plain"]["mrr"]
+    res["ms_per_step_gap_to_f32"] = (res["ring"]["ms_per_step"]
+                                     - ring_train["ring"]["ms_per_step"])
+    res["same_rank_share"] = float(np.mean(rk[mk] == rp[mp]))
+    return res
+
+
 _KERNELS = (
     ("spmm_fwd", "temp_tpu_torch/csrc/spmm.cu",
      "temp_tpu/ops/pallas_spmm.py:110"),
@@ -3882,6 +4441,33 @@ _KERNELS_BF16_FLAGSHIP = (
      "temp_tpu/ops/fused_final_bi.py:252"),
     ("bi_layer_bwd", "k9k10", "temp_tpu_torch/csrc/fused_final_bi_bf16.cu",
      "temp_tpu/ops/fused_final_bi.py:305,388"),
+)
+
+# the kernels of the line by their ids (PERF.md's table)
+_IDS = {"spmm_fwd": "K1f", "spmm_bwd": "K1b", "fused_window_fwd": "K2f",
+        "fused_window_bwd": "K2b", "fused_final_fwd": "K3",
+        "fused_final_bwd_loss": "K4", "fused_final_bwd_layer": "K5",
+        "bi_layer_fwd": "K6+K7", "bi_loss_fwd": "K8",
+        "bi_layer_bwd": "K9+K10", "fused_eval_ranks": "K11",
+        "fused_window_mb_fwd": "K12", "ring_spmm_fwd": "K13",
+        "ring_spmm_bwd": "K13b"}
+
+# the bfloat16 modes of K11-K13 (phases bf16_k11, bf16_mb, bf16_k13 and
+# bf16_ring): (wrapper, source, TPU kernel, their records' phase and key,
+# the phase and path whose run gives "launches")
+_KERNELS_BF16_LAST = (
+    ("fused_eval_ranks", "temp_tpu_torch/csrc/fused_final_bf16.cu",
+     "temp_tpu/ops/fused_final.py:547", ("bf16_k11", None),
+     ("bf16_k11", "eval_kernels")),
+    ("fused_window_mb_fwd", "temp_tpu_torch/csrc/fused_window_bf16.cu",
+     "temp_tpu/ops/fused_window_mb.py:78", ("bf16_mb", "train"),
+     ("bf16_mb", "train_steps")),
+    ("ring_spmm_fwd", "temp_tpu_torch/csrc/ring_spmm_bf16.cu",
+     "temp_tpu/parallel/ring_pallas.py:100", ("bf16_k13", "final"),
+     ("bf16_ring", "ring")),
+    ("ring_spmm_bwd", "temp_tpu_torch/csrc/ring_spmm_bf16.cu",
+     "temp_tpu/parallel/ring_pallas.py:270", ("bf16_k13", "bwd_final"),
+     ("bf16_ring", "ring")),
 )
 
 # the path whose run gives each kernel's "launches"
@@ -4080,7 +4666,55 @@ def kernels_line(res: dict) -> dict:
                             "launches_by_path": by_path(name),
                             "bitwise": m["bitwise"],
                             **{k: m[k] for k in keys}})
+    rec += _kernels_bf16_last(res)
+    for r in rec:
+        base = r["name"][:-len("_bf16")] if r["name"].endswith(
+            "_bf16") else r["name"]
+        r["id"] = _IDS[base] + ("_bf16" if base != r["name"] else "")
     return {"kernels": rec}
+
+
+def _kernels_bf16_last(res: dict) -> list:
+    """The records of K11's, K12's, K13's and K13b's bfloat16 modes, when
+    their phases ran: their numbers at the main paths' shapes and their
+    launches on their bfloat16 paths (K11 the fused eval sweep, K12 the
+    fused training steps with the batched window, K13 and K13b the
+    ring_pallas training steps; ``launches_by_path`` each path's)."""
+    if "bf16_ring" not in res:
+        return []
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "bound_share", "rms_ratio", "plain_f32_ms",
+            "shape", "bitwise")
+    paths = {
+        "bf16_eval_fused": res["bf16_k11"]["eval_kernels"]["launches"],
+        "bf16_train_fused_mb": res["bf16_mb"]["train_steps"]["launches"],
+        "bf16_flagship_train_fused_mb": res["bf16_mb"][
+            "flagship_train_steps"]["launches"],
+        "bf16_eval_mb": res["bf16_mb"]["eval_sweep"]["launches"],
+        "bf16_ring_train": res["bf16_ring"]["ring"]["launches"],
+        "bf16_ring_eval": res["bf16_ring"]["eval_kernels"]["launches"]}
+    rec = []
+    for name, src, replaces, (ph, key), (home, run) in _KERNELS_BF16_LAST:
+        m = res[ph] if key is None else res[ph][key]
+        r = {"name": f"{name}_bf16", "route": "cuda", "source": src,
+             "replaces": replaces,
+             "launches": res[home][run]["launches"][name],
+             "launches_by_path": {p: n[name] for p, n in paths.items()},
+             **{k: m[k] for k in keys}}
+        if "bound_tf32_ms" in m:
+            r["bound_tf32_ms"] = m["bound_tf32_ms"]
+        if name == "fused_eval_ranks":
+            for part in ("layers", "ranks"):
+                r[part] = {k: m[part][k] for k in (
+                    "ms", "bound_ms", "bound_by", "bound_tf32_ms",
+                    "bound_share")}
+        if name == "fused_window_mb_fwd":
+            r["eval_mode"] = {k: res["bf16_mb"]["eval"][k] for k in keys}
+        if name in ("ring_spmm_fwd", "ring_spmm_bwd"):
+            part = "window" if name == "ring_spmm_fwd" else "bwd_window"
+            r["window_step"] = {k: res["bf16_k13"][part][k] for k in keys}
+        rec.append(r)
+    return rec
 
 
 def sa_phases(ctx, train_steps=None) -> dict:
@@ -4159,6 +4793,12 @@ _DROP_FLAGSHIP = {**_DROP_GRU,
                                              "bi_layer_bwd"),
                   "train_banned": _NOT_TRAINED_AFTER_DROP + (
                       "fused_final_fwd", "fused_final_bwd_layer")}
+# GRRGCN's step-by-step training windows in bfloat16 (bf16_variants)
+_BF16_DROP_VARIANTS = (
+    ("grrgcn_random_dropout", "config_grrgcn.json",
+     {"random_dropout": True, "compute_dtype": "bfloat16"}, _DROP_GRU),
+    ("grrgcn_edge_dropout", "config_grrgcn.json",
+     {"edge_dropout": True, "compute_dtype": "bfloat16"}, _DROP_GRU))
 # the recurrent options, each with the kernels it must and must not launch
 _REC_VARIANTS = (
     ("grrgcn_type1_lambda_temb", "config_grrgcn.json",
@@ -5306,6 +5946,21 @@ def main() -> int:
             bfp[f"param_max_rel_gap_{k}"] = max(
                 bfp["params"][k]["max_rel_gaps"].values())
     res["bf16_flagship_path"] = bfp
+    with phase("bf16_k11", {}) as b11:
+        b11.update(phase_bf16_k11(ctx, bp))
+        for k in ("ms", "rms_ratio", "near_ties"):
+            b11[f"k11_{k}"] = b11[k]
+        b11["mrr_kernels"] = b11["eval_kernels"]["mrr"]
+        b11["wall_s_kernels"] = b11["eval_kernels"]["wall_s"]
+    res["bf16_k11"] = b11
+    with phase("bf16_mb", {}) as b12:
+        b12.update(phase_bf16_mb(ctx, fctx))
+        for tag in ("train", "eval"):
+            b12[f"k12_{tag}_ms"] = b12[tag]["ms"]
+        for tag in ("train_steps", "flagship_train_steps"):
+            b12[f"{tag}_bitwise"] = b12[tag]["bitwise"]
+        b12["eval_ranks_equal"] = b12["eval_sweep"]["ranks_equal"]
+    res["bf16_mb"] = b12
     with phase("bf16_variants", {}) as bv:
         bv.update(phase_bf16_variants(ctx))
         for tag in list(bv):
@@ -5313,7 +5968,8 @@ def main() -> int:
                 bv[f"{tag}_ms_per_step"] = bv[tag]["train"]["ms_per_step"]
                 bv[f"{tag}_loss_gap_to_f32"] = bv[tag]["loss_gap_to_f32"]
                 bv[f"{tag}_param_ratio"] = bv[tag]["param_ratio"]
-    res["bf16_variants"] = {t: bv[t] for t, _, _ in _BF16_VARIANTS}
+    res["bf16_variants"] = {t: bv[t] for t, *_ in _BF16_VARIANTS
+                            + _BF16_DROP_VARIANTS}
     with phase("ted_setup", {}) as ts:
         tctx = phase_setup_ted(ctx)
         ts.update({k: tctx[k] for k in ("N", "A", "E", "L1", "B", "d",
@@ -5374,6 +6030,19 @@ def main() -> int:
         rt["k13_bwd_launches"] = rt["ring"]["launches"]["ring_spmm_bwd"]
         rt["csr_builds"] = rt["ring"]["csr_builds"]
     res["ring_train"] = rt
+    with phase("bf16_k13", {}) as b13:
+        b13.update(phase_bf16_k13(rctx))
+        for tag in ("final", "window", "bwd_final", "bwd_window"):
+            b13[f"{tag}_ms"] = b13[tag]["ms"]
+            b13[f"{tag}_rms_ratio"] = b13[tag]["rms_ratio"]
+    res["bf16_k13"] = b13
+    with phase("bf16_ring", {}) as br:
+        br.update(phase_bf16_ring(rctx, rp, rt))
+        br["mrr_kernels"] = br["eval_kernels"]["mrr"]
+        br["ms_per_step_ring"] = br["ring"]["ms_per_step"]
+        br["k13_launches"] = br["ring"]["launches"]["ring_spmm_fwd"]
+        br["k13_bwd_launches"] = br["ring"]["launches"]["ring_spmm_bwd"]
+    res["bf16_ring"] = br
     _state["phase"] = "report"
     print(json.dumps(kernels_line(res)), flush=True)
     print(f"total_s={time.perf_counter() - t_start:.3f}", flush=True)

@@ -163,7 +163,8 @@ BF16_LAUNCHERS = (
     "final_loss_reduce_launch", "final_dq_launch", "final_dq_finish_launch",
     "final_dtable_launch", "final_bwd_gru_launch", "final_bwd_input_launch",
     "final_wgrad_launch", "bi_layer_launch", "bi_bwd_gru_launch",
-    "bi_wgrad_launch")
+    "bi_wgrad_launch", "ring_fwd_step_launch", "ring_bwd_step_launch",
+    "ring_dw_launch")
 
 _lib = None
 _lock = threading.Lock()

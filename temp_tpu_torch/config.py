@@ -14,9 +14,10 @@ files, so one config file drives both packages. Differences:
 - ``compute_dtype="auto"`` resolves to float32 on every device (the JAX
   package's resolves to bfloat16 on an accelerator): ``"bfloat16"`` runs
   the hot contractions in bfloat16 (``hot_dtype``), and only GRRGCN and
-  BiGRRGCN on their default paths (with imputation and the TeMP gates,
-  the flagship BiGRRGCN ``--impute`` among them) have a bfloat16 mode so
-  far (``_BF16_OUTSIDE``);
+  BiGRRGCN (with imputation and the TeMP gates, the flagship BiGRRGCN
+  ``--impute`` among them; with the fused eval, the batched window, the
+  edge partitions and the dropouts) have a bfloat16 mode so far
+  (``_BF16_OUTSIDE``);
 - a field whose non-default value selects a path the port has not ported
   (``_UNPORTED``; a ``compute_dtype`` other than float32 or bfloat16, or
   bfloat16 outside its slice; the ``"boundary"`` edge partition, which
@@ -52,10 +53,10 @@ _F32 = ("float32", "f32", None)
 _BF16 = ("bfloat16", "bf16")
 
 # what runs only in float32 so far, outside compute_dtype="bfloat16"'s
-# slice (the default paths of GRRGCN and BiGRRGCN, with or without
-# imputation and the TeMP gates: kernels K2, K3-K5, K6-K10 and K1, whose
-# SpMM stays float32 as the JAX package's row path does): (field, value
-# test, what the value needs in bfloat16)
+# slice (GRRGCN and BiGRRGCN, with or without imputation and the TeMP
+# gates, their fused eval, batched window, edge partitions and dropouts:
+# kernels K2-K13 and K1, whose SpMM stays float32 as the JAX package's row
+# path does): (field, value test, what the value needs in bfloat16)
 _BF16_OUTSIDE = (
     ("module", lambda v: v not in ("GRRGCN", "BiGRRGCN"),
      "its model's bfloat16 hot path (only GRRGCN and BiGRRGCN have one)"),
@@ -67,22 +68,7 @@ _BF16_OUTSIDE = (
     ("learnable_lambda", bool, "the learnable decay's bfloat16 mode"),
     ("use_time_embedding", bool, "the time embeddings' bfloat16 mode"),
     ("rec_only_last_layer", bool, "rec_only_last_layer's bfloat16 mode"),
-    ("random_dropout", bool, "the step-by-step training windows' bfloat16 "
-     "mode"),
-    ("edge_dropout", bool, "the step-by-step training windows' bfloat16 "
-     "mode"),
-    ("fused_eval", lambda v: not _off(v), "kernel K11's bfloat16 mode"),
-    ("fused_window_mb", lambda v: not _off(v), "kernel K12's bfloat16 mode"),
-    ("edge_partition", lambda v: not _off(v), "kernel K13's and the "
-     "partition's bfloat16 mode"),
 )
-
-
-def _off(value) -> bool:
-    """Whether a switch's value is off (False, None or an "off" word)."""
-    if isinstance(value, str):
-        return value.lower() in ("0", "false", "no", "off")
-    return not value
 
 
 @dataclass
@@ -268,9 +254,10 @@ class TKGConfig:
         package's ``TKGConfig.hot_dtype``. torch.bfloat16 for
         ``compute_dtype`` "bfloat16" (or "bf16"): the products' operands
         rounded to bfloat16 with float32 sums (the self-loop, GRU and
-        score products, every product of kernels K2-K10), the windows'
+        score products, every product of kernels K2-K12), the windows'
         history buffers stored in bfloat16; the relational SpMM outside
-        the fused kernels stays float32, as the JAX package's does.
+        the fused kernels stays float32 (K1), as the JAX package's does,
+        but for K13's under the "ring_pallas" edge partition.
 
         "auto" is float32 on every device for now: the JAX package's
         resolves to bfloat16 on an accelerator, which the port follows in

@@ -49,12 +49,56 @@
 // each row's sum runs in edge order, the steps in step order, the dw
 // partials in rank order, so runs repeat bit for bit. Rows without edges
 // come out 0.
+//
+// Compiled a second time as ring_spmm_bf16.cu, with TK_BF16 1: the TPU
+// kernel's bfloat16 instantiation (_ring_kernel with dtype_str
+// "bfloat16"), whose one-hot products round what they gather. The forward
+// reads the visiting shards as bfloat16 (the wrapper rounds h once, before
+// the ring's copies, so the slots carry half the bytes; rounding once
+// equals rounding at each read), rounds each relation weight it reads,
+// forms the message in float32 (exact for s = 1: a product of two
+// bfloat16 values; s > 1 sums the block's s products in float32) and
+// rounds it before the sum, which stays float32; the degrees and norm^2
+// stay exact. The backward is the TPU kernel's transpose on its rounded
+// residuals: dh's step kernel reads each weight rounded for s = 1 and as
+// it is for s > 1 (the transpose reads the unrounded block weights there),
+// dw's reads h as bfloat16 (rounded by the wrapper); the cotangents are
+// not rounded. The dw reduction is the float32 launcher's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cassert>
 
+#ifndef TK_BF16
+#define TK_BF16 0
+#endif
+
 namespace {
+
+constexpr bool kBf16 = TK_BF16 != 0;
+
+// h as the kernels read it (the visiting shards, dw's source rows):
+// bfloat16 in the bfloat16 mode, float otherwise
+#if TK_BF16
+typedef __nv_bfloat16 hval;
+#else
+typedef float hval;
+#endif
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// x rounded to bfloat16 (to nearest, ties to even, as XLA's convert) in
+// the bfloat16 mode, x itself otherwise
+__device__ __forceinline__ float hot(float x) {
+  if constexpr (kBf16)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
 
 constexpr int kWarp = 32;
 constexpr int kMaxChunks = 8;  // d <= 256: 8 columns per lane
@@ -85,7 +129,7 @@ __global__ void ring_fwd_step_kernel(
     const long long* __restrict__ tpos, long long tpos_stride, int n_times,
     const unsigned char* __restrict__ mask, long long mask_stride,
     const int* __restrict__ rank_ids, const int* __restrict__ out_ids,
-    const float* __restrict__ h_visit, const float* __restrict__ w,
+    const hval* __restrict__ h_visit, const float* __restrict__ w,
     float* __restrict__ out, float* __restrict__ n2_out, int B, int nc,
     int n_out, int m, int rows, int cap, int d, int s, int k, int first,
     int last) {
@@ -101,7 +145,7 @@ __global__ void ring_fwd_step_kernel(
   const Block t = table_block(ptr, edge, tpos, tpos_stride, n_times, mask,
                               mask_stride, b, r, m, m * rows, cap);
   const int e0 = t.ptr[owner * rows + row], e1 = t.ptr[owner * rows + row + 1];
-  const float* hv = h_visit + ((long long)b * nc + j) * rows * d;
+  const hval* hv = h_visit + ((long long)b * nc + j) * rows * d;
   const int wlen = d * s;
   float acc[kMaxChunks];
 #pragma unroll
@@ -109,13 +153,13 @@ __global__ void ring_fwd_step_kernel(
   for (int e = e0; e < e1; ++e) {
     const int* x = t.edge + 3 * e;
     if (!t.mask[x[2]]) continue;
-    const float* hs = hv + (long long)(x[0] - owner * rows) * d;
+    const hval* hs = hv + (long long)(x[0] - owner * rows) * d;
     const float* wr = w + (long long)x[1] * wlen;
     if (s == 1) {
 #pragma unroll
       for (int c = 0; c < kMaxChunks; ++c) {
         const int col = lane + c * kWarp;
-        if (col < d) acc[c] += hs[col] * wr[col];
+        if (col < d) acc[c] += hot(ld(hs + col) * hot(wr[col]));
       }
     } else {
       // column col = blk * s + o sums its block's s inputs:
@@ -127,8 +171,8 @@ __global__ void ring_fwd_step_kernel(
           const int base = col - col % s, o = col % s;
           float v = 0.f;
           for (int i = 0; i < s; ++i)
-            v += hs[base + i] * wr[(base + i) * s + o];
-          acc[c] += v;
+            v += ld(hs + base + i) * hot(wr[(base + i) * s + o]);
+          acc[c] += hot(v);
         }
       }
     }
@@ -192,7 +236,7 @@ __global__ void ring_bwd_step_kernel(
 #pragma unroll
       for (int c = 0; c < kMaxChunks; ++c) {
         const int col = lane + c * kWarp;
-        if (col < d) acc[c] += (gr[col] * sc) * wr[col];
+        if (col < d) acc[c] += (gr[col] * sc) * hot(wr[col]);
       }
     } else {
       // input column col = blk * s + i sums W[blk, i, o] * dmsg[blk * s + o]
@@ -229,7 +273,7 @@ __global__ void ring_dw_kernel(
     const unsigned char* __restrict__ mask, long long mask_stride,
     const int* __restrict__ rank_ids, const int* __restrict__ out_ids,
     const float* __restrict__ g, const float* __restrict__ n2,
-    const float* __restrict__ h, float* __restrict__ part, int B, int nc,
+    const hval* __restrict__ h, float* __restrict__ part, int B, int nc,
     int m, int rows, int cap, int n_rels, int d, int s) {
   const int lane = threadIdx.x % kWarp;
   const int wlen = d * s;
@@ -254,7 +298,7 @@ __global__ void ring_dw_kernel(
       if (!t.mask[x[2]]) continue;
       const float sc = n2[b * M + x[1]];
       const float* gr = g + (b * M + x[1]) * d;
-      const float* hr = h + (b * M + x[0]) * d;
+      const hval* hr = h + (b * M + x[0]) * d;
 #pragma unroll
       for (int c = 0; c < kMaxChunks; ++c) {
         const int wc = ch * kChunkCols + lane + c * kWarp;
@@ -263,7 +307,7 @@ __global__ void ring_dw_kernel(
           // blk * s + o
           const int cin = wc / s;
           const int cout = s == 1 ? wc : (wc / (s * s)) * s + wc % s;
-          acc[c] += hr[cin] * (gr[cout] * sc);
+          acc[c] += ld(hr + cin) * (gr[cout] * sc);
         }
       }
     }
@@ -276,6 +320,7 @@ __global__ void ring_dw_kernel(
   }
 }
 
+#if !TK_BF16
 // dw = the ranks' partials [n_part, total] summed in rank order.
 __global__ void ring_dw_reduce_kernel(const float* __restrict__ part,
                                       float* __restrict__ out, int n_part,
@@ -286,6 +331,7 @@ __global__ void ring_dw_reduce_kernel(const float* __restrict__ part,
   for (int p = 0; p < n_part; ++p) acc += part[p * total + i];
   out[i] = acc;
 }
+#endif  // !TK_BF16
 
 int blocks_for(long long warps) {
   return static_cast<int>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
@@ -298,7 +344,8 @@ int blocks_for(long long warps) {
 // dst), tpos [B] (int64, stride tpos_stride; each in [0, n_times), the
 // tables' T, else a device assert stops the kernel), mask [B, m * cap]
 // (bytes, row stride mask_stride), rank_ids [nc] (each slot's global rank),
-// out_ids [nc] (its block of out), h_visit [B, nc, rows, d], w [R, d * s],
+// out_ids [nc] (its block of out), h_visit [B, nc, rows, d] (bfloat16 in
+// the bfloat16 mode), w [R, d * s],
 // out [B, n_out, rows, d] (written at `first`, added to after), n2_out
 // [B, n_out, rows] (written at `last`).
 extern "C" int ring_fwd_step_launch(
@@ -316,7 +363,7 @@ extern "C" int ring_fwd_step_launch(
         static_cast<const long long*>(tpos), tpos_stride, n_times,
         static_cast<const unsigned char*>(mask), mask_stride,
         static_cast<const int*>(rank_ids), static_cast<const int*>(out_ids),
-        static_cast<const float*>(h_visit), static_cast<const float*>(w),
+        static_cast<const hval*>(h_visit), static_cast<const float*>(w),
         static_cast<float*>(out), static_cast<float*>(n2_out), B, nc, n_out,
         m, rows, cap, d, s, k, first, last);
   }
@@ -352,7 +399,8 @@ extern "C" int ring_bwd_step_launch(
 
 // dw partials of the nc ranks of one card: tables by relation (ptr
 // [T, m, n_rels + 1], edge [T, m, cap, 3] of (src, dst, slot)), g, n2 as
-// in the step, h [B, m * rows, d], part [*, n_rels, d * s] at row
+// in the step, h [B, m * rows, d] (bfloat16 in the bfloat16 mode), part
+// [*, n_rels, d * s] at row
 // out_ids[j].
 extern "C" int ring_dw_launch(
     const void* ptr, const void* edge, const void* tpos,
@@ -370,12 +418,13 @@ extern "C" int ring_dw_launch(
         static_cast<const unsigned char*>(mask), mask_stride,
         static_cast<const int*>(rank_ids), static_cast<const int*>(out_ids),
         static_cast<const float*>(g), static_cast<const float*>(n2),
-        static_cast<const float*>(h), static_cast<float*>(part), B, nc, m,
+        static_cast<const hval*>(h), static_cast<float*>(part), B, nc, m,
         rows, cap, n_rels, d, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+#if !TK_BF16
 // dw [total] = sum over p < n_part of part[p, total], in order.
 extern "C" int ring_dw_reduce_launch(const void* part, void* out, int n_part,
                                      long long total, void* stream) {
@@ -388,3 +437,4 @@ extern "C" int ring_dw_reduce_launch(const void* part, void* out, int n_part,
   }
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // !TK_BF16

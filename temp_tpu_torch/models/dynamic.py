@@ -67,10 +67,12 @@ from temp_tpu_torch.ops.fused_window import (
     fused_window_scan, fused_window_supported,
 )
 from temp_tpu_torch.ops.fused_window_mb import fused_window_scan_mb
+from temp_tpu_torch.ops.gru import shared_rounding
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 from temp_tpu_torch.ops.scores import get_score_fn
 from temp_tpu_torch.ops.segment import data_tables
 from temp_tpu_torch.parallel.mesh import manual_axis
+from temp_tpu_torch.train.optim import param_leaves
 
 
 class WindowSlice(NamedTuple):
@@ -379,7 +381,10 @@ class DynamicRGCNModel:
             for k in range(L1):
                 pstep = prev_step[:, k]
                 gidx = pstep.clamp(min=0) * A + prev_row[:, k]
-                live = (pstep >= 0).to(torch.float32)[..., None]
+                # in the buffers' dtype, as the JAX scan's step; the
+                # store below rounds each output to it, and its
+                # transpose hands the step a cotangent in that dtype
+                live = (pstep >= 0).to(store)[..., None]
                 h1 = bufs[0].reshape(B, L1 * A, d)[bidx, gidx] * live
                 h2 = bufs[1].reshape(B, L1 * A, d)[bidx, gidx] * live
                 dt = (k - pstep.clamp(min=0)).to(torch.float32)
@@ -582,17 +587,20 @@ class DynamicRGCNModel:
         """The final steps and losses of the targets t_host one at a time
         (``element_loss``; K1 on the card), summed over the elements whose
         tv is True. `hists`: the batch's ``batch_hists``; `draws` as in
-        ``loss``."""
+        ``loss``. The parameters are rounded once for all the elements
+        (``shared_rounding``), as the JAX package's vmap over them
+        rounds them."""
         total = torch.zeros((), device=self.device)
-        for b, t in enumerate(t_host):
-            if not tv[b]:
-                continue
-            fin = (None, None) if draws["fin1"] is None else (
-                draws["fin1"][b], draws["fin2"][b])
-            total = total + self.element_loss(
-                params, data, t, tuple(h[b] for h in hists),
-                draws["edges"][b], fin, draws["pos"][b],
-                element_neg(draws, b))
+        with shared_rounding(param_leaves(params)):
+            for b, t in enumerate(t_host):
+                if not tv[b]:
+                    continue
+                fin = (None, None) if draws["fin1"] is None else (
+                    draws["fin1"][b], draws["fin2"][b])
+                total = total + self.element_loss(
+                    params, data, t, tuple(h[b] for h in hists),
+                    draws["edges"][b], fin, draws["pos"][b],
+                    element_neg(draws, b))
         return total
 
     def element_loss(self, params, data: TKGData, t_pos: int, hists, emask,
@@ -637,7 +645,8 @@ class DynamicRGCNModel:
                 fused_eval_ranks_plain)
             ranks, mask, bces = run(h0, hist1.contiguous(),
                                     hist2.contiguous(), gr, q, wrel, loop1,
-                                    loop2, g1, g2, rtab)
+                                    loop2, g1, g2, rtab,
+                                    hot=self.cfg.hot_dtype)
             mask = mask & tv[:, None]
             return ranks, mask, _mean_bce(bces, mask)
         out = [self.element_ranks(params, data, t,

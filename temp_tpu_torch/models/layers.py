@@ -161,11 +161,13 @@ def _dropout(x, rate: float, train: bool, mask=None):
 
 def _aggregate(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot):
     """The relational aggregation of `snap`'s edges over the rows h (K1 on
-    the card)."""
+    the card; K13 under a "ring_pallas" edge partition). The hot dtype
+    goes with it, as the JAX package passes it; only the partitioned
+    modes take it (``rel_spmm``)."""
     return rel_spmm(h, snap.src, snap.dst, snap.rel, snap.emask, p["weight"],
                     lc.n_bases, lc.out_feat, h.shape[0], kernels=cfg.kernels,
                     t_pos=snap.t_pos, compact=snap.compact,
-                    tables=snap.tables)
+                    tables=snap.tables, dtype=cfg.hot_dtype)
 
 
 def _matmul(x, w, dtype=None):
@@ -192,8 +194,8 @@ def rgcn_conv(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
     """Aggregation + bias + self-loop + activation. In training the
     self-loop message takes dropout at rate ``lc.dropout`` with the keep
     mask `mask`. The self-loop product runs in ``cfg.hot_dtype``; the
-    aggregation stays float32 (the JAX package's row SpMM ignores the
-    dtype)."""
+    aggregation stays float32 outside an edge partition (the JAX
+    package's row SpMM ignores the dtype; ``_aggregate``)."""
     return _bias_loop_act(p, lc, _aggregate(p, cfg, lc, h, snap), h, train,
                           mask, cfg.hot_dtype)
 

@@ -55,7 +55,12 @@ directions with the other true answers of the TOTAL filter table at -1e7,
 the filtered ranks (1 + the count of strictly greater scores) and the BCE of
 the positives; ``table_ranks`` is its ranking half (two launches). Its
 plain version, ``fused_eval_ranks_plain``, is the port's unfused eval
-arithmetic (``eval_ranks_single``) batched over B.
+arithmetic (``eval_ranks_single``) batched over B. Its bfloat16 mode
+(``hot``) is the JAX kernel's: the final step's encoder as K3's bfloat16
+layers (the histories in bfloat16, the float32 table), then the ranks and
+the BCE in float32 on that table, as the JAX kernel upcasts the table and
+scores at HIGHEST ("eval scoring is f32 end to end"): K3's two bfloat16
+layer launches, then the float32 rank and reduce launches.
 """
 
 from __future__ import annotations
@@ -1023,12 +1028,12 @@ def table_ranks_plain(table, rtab, q: EvalQueries):
 
 
 def fused_eval_ranks_plain(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries,
-                           wrel, loop1, loop2, g1, g2, rtab):
-    """Plain version of K11: ``_encoder_plain`` in eval mode, then
-    ``table_ranks_plain``. Arguments and result as in
-    ``fused_eval_ranks``."""
+                           wrel, loop1, loop2, g1, g2, rtab, hot=None):
+    """Plain version of K11: ``_encoder_plain`` in eval mode (in the mode
+    `hot`), then ``table_ranks_plain`` in float32. Arguments and result as
+    in ``fused_eval_ranks``."""
     table, _ = _encoder_plain(h0, hist1, hist2, gr, wrel, loop1, loop2, g1,
-                              g2)
+                              g2, hot)
     return table_ranks_plain(table, rtab, q)
 
 
@@ -1092,11 +1097,12 @@ def _ranks_prepare(table, rtab, q: EvalQueries):
 
 
 def fused_eval_ranks(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
-                     loop1, loop2, g1, g2, rtab):
+                     loop1, loop2, g1, g2, rtab, hot=None):
     """K11 for B elements: what the JAX package's ``fused_eval_ranks``
-    returns for each. h0 [N, d], hist1/hist2 [B, N, d], gr the eval graph
-    and q the queries of ``final_graph_eval``, the weights as
-    ``final_weights`` gives them.
+    returns for each. h0 [N, d], hist1/hist2 [B, N, d] (in the store
+    dtype: float32, or `hot`), gr the eval graph and q the queries of
+    ``final_graph_eval``, the weights as ``final_weights`` gives them; hot
+    None (float32) or torch.bfloat16 (the bfloat16 mode).
 
     Returns (ranks [B, 2Q] int32, the filtered ranks of every query slot in
     the [head, tail] layout, 1 at a padded slot; mask [B, 2Q] bool, the real
@@ -1105,9 +1111,9 @@ def fused_eval_ranks(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
     ``table_ranks``' two, four in all."""
     if _device("fused_eval_ranks", hist1) == "cpu":
         return fused_eval_ranks_plain(h0, hist1, hist2, gr, q, wrel, loop1,
-                                      loop2, g1, g2, rtab)
-    layers, rank, reduce, out = _eval_prepare(h0, hist1, hist2, gr, q, wrel,
-                                              loop1, loop2, g1, g2, rtab)
+                                      loop2, g1, g2, rtab, hot)
+    layers, rank, reduce, out, _ = _eval_prepare(
+        h0, hist1, hist2, gr, q, wrel, loop1, loop2, g1, g2, rtab, hot)
     layers()
     rank()
     reduce()
@@ -1116,30 +1122,31 @@ def fused_eval_ranks(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
 
 def fused_eval_ranks_launchers(h0, hist1, hist2, gr: FinalGraph,
                                q: EvalQueries, wrel, loop1, loop2, g1, g2,
-                               rtab):
+                               rtab, hot=None):
     """K11's two layer launches and its rank launch apart, on operands
     prepared as ``fused_eval_ranks`` prepares them (arguments as there, CUDA
     tensors only): two functions of no arguments, the first making the two
     layer launches, the second the rank launch on their output (each
     counted on ``fused_eval_ranks.launches``), so that their times can be
-    taken apart."""
+    taken apart, and the table [B, N, d] the layer launches write."""
     if _device("fused_eval_ranks", hist1) != "cuda":
         raise ValueError("fused_eval_ranks_launchers: K11 runs on a CUDA "
                          "tensor only")
-    layers, rank, _, _ = _eval_prepare(h0, hist1, hist2, gr, q, wrel, loop1,
-                                       loop2, g1, g2, rtab)
-    return layers, rank
+    layers, rank, _, _, table = _eval_prepare(h0, hist1, hist2, gr, q, wrel,
+                                              loop1, loop2, g1, g2, rtab, hot)
+    return layers, rank, table
 
 
 def _eval_prepare(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
-                  loop1, loop2, g1, g2, rtab):
+                  loop1, loop2, g1, g2, rtab, hot=None):
     """K11 on the card: the checked operands, the CSR and the outputs, and
-    its launches as three functions of no arguments (the two layers, the
-    ranks, the reduction) with the result they fill."""
+    its launches as three functions of no arguments (the two layers, in
+    the mode `hot`; the ranks; the reduction) with the result they fill,
+    and the table the layers write."""
     B, N, d = hist1.shape
     E = gr.src.shape[1]
     _check_weights("fused_eval_ranks", h0, hist1, hist2, wrel, loop1, loop2,
-                   g1, g2, rtab)
+                   g1, g2, rtab, hot)
     _check("fused_eval_ranks",
            {k: getattr(gr, k) for k in ("src", "dst", "rel", "emf", "dt",
                                         "active")},
@@ -1167,9 +1174,9 @@ def _eval_prepare(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
 
     def layers():
         _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr, by_dst,
-                        wrel, loop1, loop2, g1, g2, out1, table)
+                        wrel, loop1, loop2, g1, g2, out1, table, hot)
 
-    return layers, rank, reduce, out
+    return layers, rank, reduce, out, table
 
 
 fused_eval_ranks.launches = 0

@@ -14,6 +14,7 @@ rounded to it and sum in float32 (``_mm``)."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -43,14 +44,44 @@ def init_gru_params(gen: torch.Generator, input_size: int, hidden_size: int,
     return params
 
 
+# id(tensor) -> (tensor, {dtype: its rounding}) of the operands that
+# ``shared_rounding`` rounds once
+_SHARED: dict = {}
+
+
 def hot_round(x, dtype):
     """x rounded to `dtype` (to nearest, ties to even, as XLA's convert) and
     back to x's dtype; x itself when dtype is None. Differentiable: the
     cotangent is rounded the same way on its way back, as the JAX
-    package's convert is transposed."""
+    package's convert is transposed. Inside ``shared_rounding`` an operand
+    it names gets one rounding, shared by every use."""
     if dtype is None:
         return x
-    return x.to(dtype).to(x.dtype)
+    hit = _SHARED.get(id(x))
+    if hit is None or hit[0] is not x:
+        return x.to(dtype).to(x.dtype)
+    if dtype not in hit[1]:
+        hit[1][dtype] = x.to(dtype).to(x.dtype)
+    return hit[1][dtype]
+
+
+@contextlib.contextmanager
+def shared_rounding(tensors):
+    """Round each of `tensors` once for all the code inside: the operands a
+    batch's elements share (the weights, the input embeddings) where the
+    elements run one at a time. Their uses' cotangents then add up in
+    float32 and are rounded once, as the JAX package's products round the
+    cotangent of an operand its vmap over the batch does not map (one
+    product over the batch, its sum rounded once), where a rounding a use
+    would round each element's part."""
+    added = [id(t) for t in tensors if id(t) not in _SHARED]
+    for t in tensors:
+        _SHARED.setdefault(id(t), (t, {}))
+    try:
+        yield
+    finally:
+        for key in added:
+            _SHARED.pop(key, None)
 
 
 def _mm(x, w, dtype=None):

@@ -14,6 +14,12 @@ ranks' partial degrees and sums; "ring" and "ring_pallas" need edges
 grouped by destination owner (``parallel/edge_partition.py``
 ``ring_regroup_data``) and rotate row shards of h around the ranks, the
 latter through kernel K13 (``parallel/ring_spmm.py``).
+
+`dtype` (the hot dtype, bfloat16) reaches only the partitioned modes, as
+in the JAX package: K13's bfloat16 mode in "ring_pallas", the block
+products of ``rel_message`` in the other modes and outside K13's envelope
+(diagonal weights take no rounding there). Outside a partition the SpMM
+stays float32 (K1), as the JAX package's row path ignores the dtype.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from temp_tpu_torch.ops.gru import hot_round
 from temp_tpu_torch.ops.spmm import flat_graph, spmm, spmm_fwd_plain
 from temp_tpu_torch.parallel.edge_partition import ring_geometry
 from temp_tpu_torch.parallel.mesh import manual_axis, rank_devices
@@ -41,22 +48,25 @@ def in_degree_norm(dst, emask, num_ents: int):
                        torch.zeros_like(deg))
 
 
-def rel_message(h_src, rel, weight, n_bases: int, d_in: int, d_out: int):
+def rel_message(h_src, rel, weight, n_bases: int, d_in: int, d_out: int,
+                dtype=None):
     """Per-edge block-diagonal relation transform. weight[r] holds n_bases
-    blocks of shape (d_in/n_bases, d_out/n_bases)."""
+    blocks of shape (d_in/n_bases, d_out/n_bases). `dtype` rounds the
+    block products' operands (and their cotangents) with float32 sums; it
+    is inert for 1x1 blocks (the JAX package's ``rel_message``)."""
     si = d_in // n_bases
     so = d_out // n_bases
     w = weight[rel.long()]
     if si == 1 and so == 1:
         return h_src * w
-    w = w.reshape(-1, n_bases, si, so)
-    hb = h_src.reshape(-1, n_bases, si)
+    w = hot_round(w.reshape(-1, n_bases, si, so), dtype)
+    hb = hot_round(h_src.reshape(-1, n_bases, si), dtype)
     return torch.einsum("ebi,ebio->ebo", hb, w).reshape(-1, n_bases * so)
 
 
 def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
              num_ents: int, kernels: bool = True, t_pos=None,
-             compact: bool = False, tables=None):
+             compact: bool = False, tables=None, dtype=None):
     """RGCN neighbourhood aggregation with double degree normalization:
 
         msg_e = (h[src_e] . W[rel_e]) * norm[dst_e] * emask_e
@@ -73,6 +83,8 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
     graphs are: the data's static tables (``data_tables``), the graphs'
     time positions and the id space, so that K1 outside a partition and
     K13 ("ring_pallas") walk those tables rather than sort the edges.
+    `dtype`: the hot dtype, taken by the partitioned modes only (see the
+    module's docstring).
     """
     d_in = h.shape[-1]
     named = _snapshot_tables(tables, t_pos, compact)
@@ -86,9 +98,10 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
                 rank_devices(h.device))
         if mode in ("ring", "ring_pallas"):
             out = _rel_spmm_ring(*args, kernels=kernels,
-                                 k13=mode == "ring_pallas", tables=named)
+                                 k13=mode == "ring_pallas", tables=named,
+                                 dtype=dtype)
         elif mode == "psum":
-            out = _rel_spmm_partitioned(*args)
+            out = _rel_spmm_partitioned(*args, dtype=dtype)
         else:
             raise NotImplementedError(
                 f"edge partition mode {mode!r} is not ported yet; see "
@@ -125,7 +138,7 @@ def _snapshot_tables(tables, t_pos, compact: bool):
 
 def _rel_spmm_ring(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
                    m: int, devices, kernels: bool = True, k13: bool = False,
-                   tables=None):
+                   tables=None, dtype=None):
     """The ring modes (the JAX package's ``_rel_spmm_ring``) for B graphs:
     h [B, n, d_in] on the controller, edges [B, E] grouped by destination
     owner (``ring_regroup_data``). Rank i owns rows [i * rows, (i + 1) *
@@ -137,26 +150,29 @@ def _rel_spmm_ring(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
     package's XLA form). ``Trainer`` checks the layout
     (``check_ring_layout``). `tables`: (the data's K13 tables of the
     edges' id space, their time positions [B]), which K13 walks in place
-    of sorting the edges; None sorts them in the call. Returns
-    [B, n, d_out], the ranks' rows gathered on the controller."""
+    of sorting the edges; None sorts them in the call. `dtype`: K13's
+    bfloat16 mode inside its envelope, else ``rel_message``'s (the JAX
+    package's XLA ring). Returns [B, n, d_out], the ranks' rows gathered
+    on the controller."""
     n, d_in = h.shape[1:]
     rows = ring_geometry(n, m)
     h_pad = F.pad(h, (0, 0, 0, m * rows - n))
     s = d_in // n_bases if d_in % n_bases == 0 else 0
     if k13 and d_in == d_out and 1 <= s <= 8:
         return ring_spmm(h_pad, weight, src, dst, rel, emask, m, rows,
-                         devices, kernels=kernels, tables=tables)[:, :n]
+                         devices, kernels=kernels, tables=tables,
+                         hot=dtype)[:, :n]
     return ring_spmm_fwd_plain(h_pad, weight, src, dst, rel, emask, m, rows,
-                               devices, d_out=d_out)[0][:, :n]
+                               devices, d_out=d_out, dtype=dtype)[0][:, :n]
 
 
 def _rel_spmm_partitioned(h, src, dst, rel, emask, weight, n_bases: int,
-                          d_out: int, m: int, devices):
+                          d_out: int, m: int, devices, dtype=None):
     """The "psum" mode (the JAX package's ``_rel_spmm_partitioned``) for B
     graphs, h [B, n, d_in] on the controller, edges [B, E] in any order:
     rank i takes edge chunk i of ceil(E / m) slots; the ranks' partial
     in-degrees are added into the global norm, then their partial sums of
-    messages. Returns [B, n, d_out]."""
+    messages (``rel_message`` in `dtype`). Returns [B, n, d_out]."""
     B, n, d_in = h.shape
     E = src.shape[1]
     chunk = -(-E // m)
@@ -176,7 +192,7 @@ def _rel_spmm_partitioned(h, src, dst, rel, emask, weight, n_bases: int,
         hs = h.to(dev)[torch.arange(B, device=dev)[:, None],
                        src[:, sl].long().to(dev)].reshape(-1, d_in)
         msg = rel_message(hs, rel[:, sl].reshape(-1).to(dev), weight.to(dev),
-                          n_bases, d_in, d_out)
+                          n_bases, d_in, d_out, dtype)
         msg = msg * (norm.to(dev)[seg] * em)[:, None]
         part = segment_sum(msg, seg, B * n).to(h.device)
         agg = part if agg is None else agg + part

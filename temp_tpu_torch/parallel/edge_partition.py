@@ -268,8 +268,10 @@ class EdgePartitionedModel:
     ``models/registry.py``) whose SpMMs are partitioned over the model axis
     of `mesh` with exchange `mode`. The model's fused paths turn off inside
     (as in the JAX package), so its windows and final steps run step by
-    step through ``rel_spmm``. Attributes pass through to the inner
-    model."""
+    step through ``rel_spmm``, which takes the config's hot dtype (under
+    compute_dtype="bfloat16": K13's bfloat16 mode in "ring_pallas", the
+    block products' in the other modes). Attributes pass through to the
+    inner model."""
 
     def __init__(self, model, mesh: Mesh, axis: str = "model",
                  mode: str = "psum"):

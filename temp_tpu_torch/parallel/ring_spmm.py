@@ -37,6 +37,19 @@ On CPU tensors the wrappers run the plain versions: ``ring_spmm_fwd_plain``,
 the same ring in torch ops (also the "ring" mode's SpMM, any block shape),
 and ``ring_spmm_bwd_plain``, the JAX package's transpose in torch ops.
 ``RingSpMM`` is K13 differentiated in h and w.
+
+``hot=torch.bfloat16`` is the JAX kernel's bfloat16 instantiation
+(``_ring_kernel`` with dtype_str "bfloat16"): each gathered source row and
+relation weight rounded to bfloat16, the message formed in float32 and
+rounded before the float32 sum, the degrees exact; its backward, the JAX
+package's transpose on those rounded residuals (dh from the rounded
+weights for s = 1, the unrounded ones for s > 1; dw from the rounded
+rows), the cotangents unrounded. On the card the same kernels compiled in
+that mode (``csrc/ring_spmm_bf16.cu``), the shards rounded once before the
+ring's copies, which then carry bfloat16. `dtype` of the plain version is
+the other bfloat16 semantics, the JAX package's XLA ring (``rel_message``
+with a dtype): block-diagonal products of rounded operands, diagonal ones
+untouched.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from temp_tpu_torch import _build
+from temp_tpu_torch.ops.gru import hot_round
 from temp_tpu_torch.parallel.edge_partition import (
     RingTables, ring_tables,
 )
@@ -67,14 +81,46 @@ def _blocks(d_in: int, d_out: int, w):
     return nb, d_in // nb, d_out // nb
 
 
-def _transform(hs, wr, si: int, so: int):
+def _transform(hs, wr, si: int, so: int, dtype=None):
     """Per-edge relation transform: h rows [n, nb * si] by their weights
-    [n, nb * si * so]."""
+    [n, nb * si * so]; with `dtype` the block products' operands rounded
+    to it and their cotangents too (the JAX package's ``rel_message``:
+    diagonal weights take no rounding)."""
     if si == so == 1:
         return hs * wr
     nb = hs.shape[1] // si
+    hs, wr = hot_round(hs, dtype), hot_round(wr, dtype)
     return torch.einsum("ebi,ebio->ebo", hs.reshape(-1, nb, si),
                         wr.reshape(-1, nb, si, so)).reshape(-1, nb * so)
+
+
+class _HotMessage(torch.autograd.Function):
+    """K13's bfloat16 message: (rounded h rows by rounded weights, formed
+    in float32) rounded; the backward is the JAX package's transpose on
+    the rounded residuals, the cotangent unrounded (``_ring_spmm_bwd``:
+    dh from the rounded weights for s = 1 and the unrounded ones for
+    s > 1, dw from the rounded rows)."""
+
+    @staticmethod
+    def forward(ctx, hs, we, si, so, hot):
+        hr, wr = hot_round(hs, hot), hot_round(we, hot)
+        ctx.save_for_backward(hr, wr if si == so == 1 else we)
+        ctx.blocks = (si, so)
+        return hot_round(_transform(hr, wr, si, so), hot)
+
+    @staticmethod
+    def backward(ctx, g):
+        hr, wt = ctx.saved_tensors
+        dh, dw = _transform_bwd(hr, g, wt, *ctx.blocks)
+        return dh, dw, None, None, None
+
+
+def _message(hs, we, si: int, so: int, hot=None, dtype=None):
+    """The edges' messages: K13's bfloat16 ones for `hot`, else
+    ``_transform`` (in `dtype`)."""
+    if hot is None:
+        return _transform(hs, we, si, so, dtype)
+    return _HotMessage.apply(hs, we, si, so, hot)
 
 
 def _rank_edges(src, dst, rel, emask, r: int, m: int, rows: int, dev):
@@ -105,14 +151,16 @@ def _check(h, w, src, dst, rel, emask, m: int, rows: int, devices,
 
 
 def ring_spmm_fwd_plain(h, w, src, dst, rel, emask, m: int, rows: int,
-                        devices, d_out: int | None = None):
+                        devices, d_out: int | None = None, hot=None,
+                        dtype=None):
     """Plain PyTorch version of K13, and the "ring" mode's SpMM: the same
     ring, each rank's step a gather, transform and ``index_add`` of the
     edges whose source lies in the visiting shard, the shards' copies
     tensor copies. Any block shape (weights [R, n_bases * si * so], d_out
     columns out, by default h's width); differentiable by autograd in h and
-    w. Returns (out [B, m * rows, d_out], norm^2 [B, m * rows]) on h's
-    device."""
+    w. `hot`: K13's bfloat16 mode (``_HotMessage``); `dtype`: the "ring"
+    mode's (``_transform``). Returns (out [B, m * rows, d_out], norm^2
+    [B, m * rows]) on h's device."""
     B, _, d_in = h.shape
     d_out = d_in if d_out is None else d_out
     _, si, so = _check(h, w, src, dst, rel, emask, m, rows, devices, d_out)
@@ -140,7 +188,8 @@ def ring_spmm_fwd_plain(h, w, src, dst, rel, emask, m: int, rows: int,
             sel = rk["keep"] & (rk["src"] // rows == owner)
             local = torch.where(sel, rk["src"] - owner * rows, 0)
             hs = visit[r][rk["b"], local].reshape(-1, d_in)
-            msg = _transform(hs, rk["w_e"], si, so) * sel.reshape(-1, 1)
+            msg = _message(hs, rk["w_e"], si, so, hot, dtype) * sel.reshape(
+                -1, 1)
             rk["raw"] = rk["raw"].index_add(0, rk["seg"], msg)
         if k < m - 1:  # rank r receives its right neighbour's shard
             visit = [visit[(r + 1) % m].to(dev)
@@ -168,7 +217,7 @@ def _transform_bwd(hs, dmsg, we, si: int, so: int):
 
 
 def ring_spmm_bwd_plain(g, n2, h, w, src, dst, rel, emask, m: int, rows: int,
-                        devices):
+                        devices, hot=None):
     """Plain PyTorch version of K13's backward: the JAX package's
     ``_ring_spmm_bwd`` in torch ops, without a replay of the forward. g
     [B, m * rows, d_out] is the cotangent of the forward's output, n2
@@ -177,7 +226,8 @@ def ring_spmm_bwd_plain(g, n2, h, w, src, dst, rel, emask, m: int, rows: int,
     and its edges' dh contributions at their source rows (h[src] gathered
     again); the ranks' dh rows and dw partials are added on h's device in
     rank order (the reduce-scatter, and the sum of the replicated weight's
-    cotangents). Returns (dh [B, m * rows, d_in], dw like w)."""
+    cotangents). `hot`: the bfloat16 mode's residuals (``_HotMessage``).
+    Returns (dh [B, m * rows, d_in], dw like w)."""
     B, M, d_in = h.shape
     d_out = g.shape[-1]
     _, si, so = _check(h, w, src, dst, rel, emask, m, rows, devices, d_out)
@@ -189,9 +239,11 @@ def ring_spmm_bwd_plain(g, n2, h, w, src, dst, rel, emask, m: int, rows: int,
         sl = slice(r * rows, (r + 1) * rows)
         gn2 = (g[:, sl] * n2[:, sl, None]).to(dev)
         dmsg = (gn2[b, d_l] * keep[..., None]).reshape(-1, d_out)
-        hs = h.to(dev)[b, s_l].reshape(-1, d_in)
-        dh_e, dw_e = _transform_bwd(hs, dmsg, w.to(dev)[r_l.reshape(-1)], si,
-                                    so)
+        hs = hot_round(h.to(dev)[b, s_l].reshape(-1, d_in), hot)
+        we = w.to(dev)[r_l.reshape(-1)]
+        if si == so == 1:
+            we = hot_round(we, hot)
+        dh_e, dw_e = _transform_bwd(hs, dmsg, we, si, so)
         contrib = torch.zeros(B * M, d_in, device=dev).index_add_(
             0, (b * M + s_l).reshape(-1), dh_e)
         part = torch.zeros(w.shape, device=dev).index_add_(
@@ -348,12 +400,15 @@ def _card_table(card: _Card, ptr, edge, t_pos, emask) -> tuple:
             mask, mask.stride(0))
 
 
-def _kernel_args(h, w, emask, devices, s: int, name: str):
-    """Refuse what the kernels do not take; the mask as bytes with rows of
-    unit stride."""
+def _kernel_args(h, w, emask, devices, s: int, name: str, hot=None):
+    """Refuse what the kernels do not take (float32 h and weight in either
+    mode, as the JAX package's caller passes them); the mask as bytes with
+    rows of unit stride."""
     if h.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"{name}: kernel takes float32 h and weight, got "
                         f"{h.dtype} and {w.dtype}")
+    if hot not in (None, torch.bfloat16):
+        raise TypeError(f"{name}: no kernel mode for {hot}")
     if h.shape[-1] > _MAX_D:
         raise ValueError(f"{name}: d = {h.shape[-1]} > {_MAX_D}")
     if s > _MAX_S:
@@ -392,15 +447,22 @@ def _call_tables(h, w, src, dst, rel, emask, m: int, rows: int, tables):
     return tab, t_pos
 
 
+def _launcher(name: str, hot):
+    """The float32 launcher `name`, or its bfloat16 mode's."""
+    lib = _build.lib()
+    return getattr(lib, name if hot is None else f"{name}_bf16")
+
+
 def _ring_fwd_cuda(h, w, emask, m: int, rows: int, devices, s: int,
-                   tab: RingTables, t_pos):
+                   tab: RingTables, t_pos, hot=None):
     B, M, d = h.shape
     cap = emask.shape[1] // m
-    fn = _build.lib().ring_fwd_step_launch
+    fn = _launcher("ring_fwd_step_launch", hot)
     ctrl = torch.cuda.current_stream(h.device)
     cards = _cards(devices, h.device)
     w = w.contiguous()
-    h4 = h.contiguous().view(B, m, rows, d)
+    # the bfloat16 mode's shards rounded once, before the ring's copies
+    h4 = h.to(hot or h.dtype).contiguous().view(B, m, rows, d)
     out = torch.empty(B, M, d, device=h.device)
     n2 = torch.empty(B, M, device=h.device)
     whole = len(cards) == 1 and cards[0].stream is None
@@ -436,14 +498,17 @@ def _ring_fwd_cuda(h, w, emask, m: int, rows: int, devices, s: int,
 
 
 def _ring_bwd_cuda(g, n2, h, w, emask, m: int, rows: int, devices, s: int,
-                   tab: RingTables, t_pos):
+                   tab: RingTables, t_pos, hot=None):
     B, M, d = h.shape
     R, W = w.shape
     cap = emask.shape[1] // m
     lib = _build.lib()
+    step_fn = _launcher("ring_bwd_step_launch", hot)
+    dw_fn = _launcher("ring_dw_launch", hot)
     ctrl = torch.cuda.current_stream(h.device)
     cards = _cards(devices, h.device)
     g, n2, h, w = (x.contiguous() for x in (g, n2, h, w))
+    hk = h.to(hot or h.dtype)  # dw's rows, as the kernel reads them
     dh = torch.empty_like(h)
     part = torch.empty(m, R, W, device=h.device)  # dw of each rank
     dw = torch.empty_like(w)
@@ -457,7 +522,7 @@ def _ring_bwd_cuda(g, n2, h, w, emask, m: int, rows: int, devices, s: int,
                                    emask),
                 by_rel=_card_table(c, tab.rel_ptr, tab.rel_edge, t_pos,
                                    emask),
-                g=g.to(c.dev), n2=n2.to(c.dev), h=h.to(c.dev),
+                g=g.to(c.dev), n2=n2.to(c.dev), h=hk.to(c.dev),
                 w=w.to(c.dev),
                 stream=ctrl if c.stream is None else c.stream,
                 dh=torch.empty(B, nc, rows, d, device=c.dev) if far else dh,
@@ -476,7 +541,7 @@ def _ring_bwd_cuda(g, n2, h, w, emask, m: int, rows: int, devices, s: int,
                 if not last:
                     o = torch.empty(B, nc, rows, d, device=c.dev)
                     ids, n_out = None, nc
-                _launch(lib.ring_bwd_step_launch, "ring_spmm_bwd", c.dev,
+                _launch(step_fn, "ring_spmm_bwd", c.dev,
                         run["stream"], *run["by_src"], c.rank_ids, ids,
                         run["g"], run["n2"], run["w"], a, o, B, nc, n_out, m,
                         rows, cap, d, s, k)
@@ -484,7 +549,7 @@ def _ring_bwd_cuda(g, n2, h, w, emask, m: int, rows: int, devices, s: int,
                 nxt.append(o)
             acc = nxt
         for c, run in zip(cards, runs):
-            _launch(lib.ring_dw_launch, "ring_spmm_bwd", c.dev,
+            _launch(dw_fn, "ring_spmm_bwd", c.dev,
                     run["stream"], *run["by_rel"], c.rank_ids, c.out_ids,
                     run["g"], run["n2"], run["h"], run["part"], B,
                     len(c.ranks), m, rows, cap, R, d, s)
@@ -512,7 +577,8 @@ def _check_positions(tables, name: str) -> None:
                          f"the tables' [0, {n_times})")
 
 
-def _fwd(h, w, src, dst, rel, emask, m: int, rows: int, devices, tables):
+def _fwd(h, w, src, dst, rel, emask, m: int, rows: int, devices, tables,
+         hot=None):
     """``ring_spmm_fwd``, with the tables the kernels walked (for the
     backward)."""
     _, s, _ = _check(h, w, src, dst, rel, emask, m, rows, devices,
@@ -520,18 +586,19 @@ def _fwd(h, w, src, dst, rel, emask, m: int, rows: int, devices, tables):
     if h.device.type == "cpu":
         _check_positions(tables, "ring_spmm_fwd")
         out, n2 = ring_spmm_fwd_plain(h, w, src, dst, rel, emask, m, rows,
-                                      devices)
+                                      devices, hot=hot)
         return out, n2, tables
     if h.device.type != "cuda":
         raise ValueError(f"ring_spmm_fwd: no kernel for device {h.device}")
-    emask = _kernel_args(h, w, emask, devices, s, "ring_spmm_fwd")
+    emask = _kernel_args(h, w, emask, devices, s, "ring_spmm_fwd", hot)
     tables = _call_tables(h, w, src, dst, rel, emask, m, rows, tables)
-    out, n2 = _ring_fwd_cuda(h, w, emask, m, rows, devices, s, *tables)
+    out, n2 = _ring_fwd_cuda(h, w, emask, m, rows, devices, s, *tables,
+                             hot=hot)
     return out, n2, tables
 
 
 def ring_spmm_fwd(h, w, src, dst, rel, emask, m: int, rows: int, devices,
-                  tables=None):
+                  tables=None, hot=None):
     """K13: (out [B, m * rows, d], norm^2 [B, m * rows]) on h's device. The
     kernels when h lies on a CUDA device (ranks on `devices`, all CUDA),
     the plain version when it lies on the CPU. `tables`: (``RingTables``
@@ -540,8 +607,10 @@ def ring_spmm_fwd(h, w, src, dst, rel, emask, m: int, rows: int, devices,
     read src, dst and rel from the tables and only the mask from the call
     (a position outside the tables' [0, T) raises on the CPU and stops the
     kernel on a device assert on the card); None sorts the call's edges
-    into tables here."""
-    return _fwd(h, w, src, dst, rel, emask, m, rows, devices, tables)[:2]
+    into tables here. `hot`: None (float32) or torch.bfloat16, the
+    bfloat16 mode."""
+    return _fwd(h, w, src, dst, rel, emask, m, rows, devices, tables,
+                hot)[:2]
 
 
 ring_spmm_fwd.launches = 0
@@ -549,22 +618,23 @@ ring_spmm_fwd.csr_builds = 0  # tables sorted in a call (not the data's)
 
 
 def ring_spmm_bwd(g, n2, h, w, src, dst, rel, emask, m: int, rows: int,
-                  devices, tables=None):
+                  devices, tables=None, hot=None):
     """K13's backward: (dh like h, dw like w) from the cotangent g of the
-    forward's output and its norm^2 n2 [B, m * rows]. The kernels when h
-    lies on a CUDA device (`tables` as in ``ring_spmm_fwd``), the plain
-    version when it lies on the CPU."""
+    forward's output and its norm^2 n2 [B, m * rows], in the forward's
+    mode `hot`. The kernels when h lies on a CUDA device (`tables` as in
+    ``ring_spmm_fwd``), the plain version when it lies on the CPU."""
     _, s, _ = _check(h, w, src, dst, rel, emask, m, rows, devices,
                      h.shape[-1])
     if h.device.type == "cpu":
         _check_positions(tables, "ring_spmm_bwd")
         return ring_spmm_bwd_plain(g, n2, h, w, src, dst, rel, emask, m,
-                                   rows, devices)
+                                   rows, devices, hot=hot)
     if h.device.type != "cuda":
         raise ValueError(f"ring_spmm_bwd: no kernel for device {h.device}")
-    emask = _kernel_args(h, w, emask, devices, s, "ring_spmm_bwd")
+    emask = _kernel_args(h, w, emask, devices, s, "ring_spmm_bwd", hot)
     tables = _call_tables(h, w, src, dst, rel, emask, m, rows, tables)
-    return _ring_bwd_cuda(g, n2, h, w, emask, m, rows, devices, s, *tables)
+    return _ring_bwd_cuda(g, n2, h, w, emask, m, rows, devices, s, *tables,
+                          hot=hot)
 
 
 ring_spmm_bwd.launches = 0
@@ -574,30 +644,34 @@ class RingSpMM(torch.autograd.Function):
     """K13 differentiated in h and w: the forward is ``ring_spmm_fwd``, the
     backward ``ring_spmm_bwd`` over the same tables (the JAX package's
     transpose: dmsg at the destinations, dw summed over the ranks, dh
-    carried back round the ring to its owners)."""
+    carried back round the ring to its owners), both in the mode `hot`."""
 
     @staticmethod
-    def forward(ctx, h, w, src, dst, rel, emask, m, rows, devices, tables):
+    def forward(ctx, h, w, src, dst, rel, emask, m, rows, devices, tables,
+                hot):
         out, n2, tables = _fwd(h, w, src, dst, rel, emask, m, rows, devices,
-                               tables)
+                               tables, hot)
         ctx.save_for_backward(h, w, src, dst, rel, emask, n2)
         ctx.ring = (m, rows, devices, tables)
+        ctx.hot = hot
         return out
 
     @staticmethod
     def backward(ctx, g):
         h, w, src, dst, rel, emask, n2 = ctx.saved_tensors
-        dh, dw = ring_spmm_bwd(g, n2, h, w, src, dst, rel, emask, *ctx.ring)
-        return dh, dw, None, None, None, None, None, None, None, None
+        dh, dw = ring_spmm_bwd(g, n2, h, w, src, dst, rel, emask, *ctx.ring,
+                               hot=ctx.hot)
+        return dh, dw, None, None, None, None, None, None, None, None, None
 
 
 def ring_spmm(h, w, src, dst, rel, emask, m: int, rows: int, devices,
-              kernels: bool = True, tables=None):
+              kernels: bool = True, tables=None, hot=None):
     """K13 as a differentiable function of h [B, m * rows, d] and w
     (``kernels=False``: its plain version, on any device, differentiated
-    by autograd). `tables` as in ``ring_spmm_fwd``."""
+    by autograd), in the mode `hot` (None for float32, or
+    torch.bfloat16). `tables` as in ``ring_spmm_fwd``."""
     if not kernels:
         return ring_spmm_fwd_plain(h, w, src, dst, rel, emask, m, rows,
-                                   tuple(devices))[0]
+                                   tuple(devices), hot=hot)[0]
     return RingSpMM.apply(h.contiguous(), w.contiguous(), src, dst, rel,
-                          emask, m, rows, tuple(devices), tables)
+                          emask, m, rows, tuple(devices), tables, hot)

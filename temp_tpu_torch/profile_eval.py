@@ -19,7 +19,8 @@ graph product is K1;
 seeded random weights; --fused-eval and --fused-window-mb switch on the
 fused eval, K11, and the batched window, K12; --edge-partition, psum, ring
 or ring_pallas, partitions every SpMM over --mp-size ranks, default 4, on
-the data regrouped for them, the ranks on the visible cards in turn), runs
+the data regrouped for them, the ranks on the visible cards in turn; any of
+them in bfloat16 with --compute-dtype bfloat16), runs
 one warm-up valid sweep, then traces a second one with torch.profiler. Prints
 the wall time, the device time summed over all kernels and its share of the
 wall time (kernels on the ranks' streams may overlap, so the sum can
@@ -47,7 +48,8 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CONFIG = os.path.join("grid", "icews14", "config_grrgcn.json")
 
 
-def main(argv=None) -> int:
+def parse(argv=None):
+    """(the parsed flags, the run's TKGConfig)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plain", action="store_true",
                     help="profile the plain PyTorch versions of the kernels")
@@ -74,13 +76,11 @@ def main(argv=None) -> int:
                     choices=("float32", "bfloat16"),
                     help="the hot dtype (bfloat16: the bfloat16 path of "
                          "GRRGCN, BiGRRGCN and their --impute and gated "
-                         "variants; default: %(default)s)")
+                         "variants, with the fused eval, the batched window "
+                         "or an edge partition; default: %(default)s)")
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("profile_eval: needs a CUDA device", file=sys.stderr)
-        return 1
     cfg = TKGConfig.from_json_file(
         os.path.join(_ROOT, args.config),
         **{k: True for k in ("impute", "post_ensemble", "post_aggregation")
@@ -90,6 +90,14 @@ def main(argv=None) -> int:
     if args.edge_partition:
         cfg = cfg.replace(edge_partition=args.edge_partition,
                           mp_size=args.mp_size)
+    return args, cfg
+
+
+def main(argv=None) -> int:
+    args, cfg = parse(argv)
+    if not torch.cuda.is_available():
+        print("profile_eval: needs a CUDA device", file=sys.stderr)
+        return 1
     data = ring_layout(cfg, make_synthetic(
         num_ents=7128, num_rels=230, num_times=365, edges_per_time=200,
         seed=0, edge_pad_multiple=cfg.edge_pad_multiple))

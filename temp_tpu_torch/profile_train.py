@@ -2,8 +2,8 @@
 
     python -m temp_tpu_torch.profile_train [--plain | --unfused] [--steps N]
         [--config FILE] [--impute] [--post-ensemble] [--post-aggregation]
-        [--edge-partition MODE [--mp-size M]] [--compute-dtype DTYPE]
-        [--out DIR]
+        [--fused-window-mb] [--edge-partition MODE [--mp-size M]]
+        [--compute-dtype DTYPE] [--out DIR]
 
 Builds the chip smoke's workload (synthetic data at icews14's sizes, the
 grid/icews14/config_grrgcn.json model or the one of --config, with
@@ -20,10 +20,12 @@ traces the next N (default 4) with torch.profiler. The path: the kernels
 with the fused final step (K3-K5, or K6-K10 for the flagship; the default
 where the model has one), ``--unfused`` the kernels with fused_final off
 (the final step one element at a time through K1, as the gated models and
-plain BiGRRGCN always run), ``--plain`` the plain versions; ``--edge-partition`` (psum, ring or
-ring_pallas) partitions every SpMM over M ranks (default 4) on the data
-regrouped for them, the ranks on the visible cards in turn (several to a
-card when there are fewer cards). Prints the wall time, the device time summed
+plain BiGRRGCN always run), ``--plain`` the plain versions;
+``--fused-window-mb`` the windows through the batched window, K12;
+``--edge-partition`` (psum, ring or ring_pallas) partitions every SpMM
+over M ranks (default 4) on the data regrouped for them, the ranks on the
+visible cards in turn (several to a card when there are fewer cards); any
+of them in bfloat16 with ``--compute-dtype bfloat16``. Prints the wall time, the device time summed
 over all kernels and its share of the wall time, and the device time of
 each kernel name, largest first. With --out it also writes the Chrome trace
 there. Needs a CUDA device.
@@ -47,7 +49,8 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CONFIG = os.path.join("grid", "icews14", "config_grrgcn.json")
 
 
-def main(argv=None) -> int:
+def parse(argv=None):
+    """(the parsed flags, the run's TKGConfig)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     path = ap.add_mutually_exclusive_group()
     path.add_argument("--plain", action="store_true",
@@ -64,6 +67,8 @@ def main(argv=None) -> int:
                     help="with TED's gates (with --impute on BiGRRGCN: TED)")
     ap.add_argument("--post-aggregation", action="store_true",
                     help="with the --post-aggregation gates")
+    ap.add_argument("--fused-window-mb", action="store_true",
+                    help="the windows through K12 (fused_window_mb)")
     ap.add_argument("--edge-partition", choices=PARTITION_MODES,
                     default=None, help="partition every SpMM over "
                     "--mp-size ranks (ring_pallas: kernel K13)")
@@ -74,22 +79,28 @@ def main(argv=None) -> int:
                     choices=("float32", "bfloat16"),
                     help="the hot dtype (bfloat16: the bfloat16 path of "
                          "GRRGCN, BiGRRGCN and their --impute and gated "
-                         "variants; default: %(default)s)")
+                         "variants, with the fused eval, the batched window "
+                         "or an edge partition; default: %(default)s)")
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("profile_train: needs a CUDA device", file=sys.stderr)
-        return 1
     cfg = TKGConfig.from_json_file(
         os.path.join(_ROOT, args.config),
         **{k: True for k in ("impute", "post_ensemble", "post_aggregation")
            if getattr(args, k)},
         kernels=not args.plain, compute_dtype=args.compute_dtype,
-        fused_final=not args.unfused)
+        fused_final=not args.unfused, fused_window_mb=args.fused_window_mb)
     if args.edge_partition:
         cfg = cfg.replace(edge_partition=args.edge_partition,
                           mp_size=args.mp_size)
+    return args, cfg
+
+
+def main(argv=None) -> int:
+    args, cfg = parse(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: needs a CUDA device", file=sys.stderr)
+        return 1
     data = ring_layout(cfg, make_synthetic(
         num_ents=7128, num_rels=230, num_times=365, edges_per_time=200,
         seed=0, edge_pad_multiple=cfg.edge_pad_multiple))
@@ -116,6 +127,8 @@ def main(argv=None) -> int:
     if args.edge_partition:  # the fused final step is off under it
         name = (f"{'plain' if args.plain else 'kernels'}_"
                 f"{args.edge_partition}_x{args.mp_size}")
+    if args.fused_window_mb:
+        name += ", fused_window_mb"
     if args.compute_dtype != "float32":
         name += f", {args.compute_dtype}"
     print(f"path: {name}; {report}")

@@ -570,19 +570,28 @@ def test_slice_trains_and_ranks_as_jax_bf16():
     ("module", "DE", "only GRRGCN"), ("type1", True, "type1"),
     ("learnable_lambda", True, "learnable decay"),
     ("use_time_embedding", True, "time embeddings"),
-    ("rec_only_last_layer", True, "rec_only_last_layer"),
-    ("random_dropout", True, "step-by-step"),
-    ("edge_dropout", True, "step-by-step"),
-    ("fused_eval", True, "K11"), ("fused_eval", "auto", "K11"),
-    ("fused_window_mb", True, "K12"), ("fused_window_mb", "auto", "K12"),
-    ("edge_partition", "ring_pallas", "K13")])
+    ("rec_only_last_layer", True, "rec_only_last_layer")])
 def test_bf16_outside_the_slice_raises(field, value, what):
     over = {field: value}
-    if field == "edge_partition":
-        over["mp_size"] = 4
     with pytest.raises(NotImplementedError, match=what):
         TKGConfig(compute_dtype="bfloat16", **over)
     TKGConfig(compute_dtype="float32", **over)
+
+
+# the values whose bfloat16 mode is ported: the step-by-step windows, K11,
+# K12 and the partitions with K13 (tests/test_torch_bf16_k11_k12_k13.py)
+@pytest.mark.parametrize("field,value", [
+    ("random_dropout", True), ("edge_dropout", True), ("fused_eval", True),
+    ("fused_eval", "auto"), ("fused_window_mb", True),
+    ("fused_window_mb", "auto"), ("edge_partition", "ring_pallas")])
+def test_bf16_takes_the_ported_values(field, value):
+    over = {field: value}
+    if field == "edge_partition":
+        over["mp_size"] = 4
+    cfg = TKGConfig(compute_dtype="bfloat16", **over)
+    assert cfg.hot_dtype == torch.bfloat16 and getattr(cfg, field) == value
+    if field == "edge_partition":
+        assert cfg.partitioned and cfg.edge_partition_mode == value
 
 
 def test_bf16_in_the_slice_and_auto_stays_f32():
@@ -607,8 +616,23 @@ def test_bf16_in_the_slice_and_auto_stays_f32():
     assert JaxConfig(compute_dtype="auto").hot_dtype is None  # the CPU here
     with pytest.raises(NotImplementedError, match="float16"):
         TKGConfig(compute_dtype="float16")
-    with pytest.raises(NotImplementedError, match="K12"):
-        fused_window_mb_fwd(*([None] * 15), hot=BF)
+    # K12 in bfloat16 on CPU tensors: its plain version, B per-element
+    # calls of K2's bfloat16 plain version
+    c = _window_case(0.0)
+    T = {k: torch.from_numpy(v) for k, v in c.items()}
+    g1, g2 = ({n: T[f"{k}{i}"] for n, k in (("wih_t", "wih"),
+                                             ("whh_t", "whh"), ("bih", "bih"),
+                                             ("bhh", "bhh"))}
+              for i in (1, 2))
+    args = (T["h0x"], T["src"], T["dst"], T["rel"], T["em"], T["gidx"],
+            T["live"], T["dt"], T["wrel"], T["loop1"], T["loop2"], g1, g2,
+            0.1, False)
+    got = fused_window_mb_fwd(*args, hot=BF)
+    want = [fw.fused_window_fwd_plain(*(a[b:b + 1] if i < 8 else a
+                                        for i, a in enumerate(args)),
+                                      hot=BF) for b in range(2)]
+    assert all(x.dtype == BF and torch.equal(x, torch.cat(y))
+               for x, *y in zip(got, *want))
 
 
 # -- the kernels' bfloat16 launches, rehearsed without a card ----------------

@@ -436,11 +436,10 @@ def test_variant_step_and_ranks_match_jax_bf16(variant):
     The step takes one element (T_STEP): a weight's gradient there is the
     cotangent of its bfloat16 cast, a float32 sum rounded to bfloat16, and
     the JAX package's vmap over a batch rounds the final step's sum once
-    for the whole batch where the port's final step, one element at a time,
-    rounds it once an element. With two elements that puts one bfloat16
-    step in most entries of the GRU and self-loop weights' gradients (0.15
-    to 0.35 of the rule's yardstick, as on GRRGCN's path of
-    tests/test_torch_bf16.py); with one they are the same rounding."""
+    for the whole batch. The port's final step, one element at a time,
+    rounds the parameters once for all its elements
+    (``ops.gru.shared_rounding``), so that the two round the same sum;
+    with one element no batch is summed at all."""
     flags = tpo.VARIANTS[variant][0]
     kw = {**tpo.KW, **flags}
     jcfg = JaxConfig(fused_window=False, fused_final=False,

@@ -56,9 +56,19 @@ from temp_tpu_torch.parallel.ring_spmm import (
     ring_spmm_fwd_plain,
 )
 from temp_tpu_torch.train.loop import Trainer
+from test_torch_post import _xla_unoptimized
 from test_torch_slice import one_thread  # noqa: F401
 from test_torch_train import run_cli
 from temp_tpu_torch.train.optim import param_leaves
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_unoptimized():
+    """XLA's optimizations off while this file's JAX references compile
+    (``_xla_unoptimized``: less compile time; the same arithmetic up to
+    float32 rounding)."""
+    with _xla_unoptimized():
+        yield
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
@@ -125,8 +135,8 @@ def test_ring_spmm_matches_pallas_interpret():
         out = ring_rel_spmm_pallas(h, *jedges, w, N_G, mesh)
         return jnp.sum(out * cot), out
 
-    (_, ref), (ref_h, ref_w) = jax.value_and_grad(
-        loss, argnums=(0, 1), has_aux=True)(jnp.asarray(h), jnp.asarray(w))
+    (_, ref), (ref_h, ref_w) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(jnp.asarray(h), jnp.asarray(w))
     before = ring_spmm_fwd.launches
     out, th, tw = _port_ring(h, edges, w)
     assert ring_spmm_fwd.launches == before
@@ -225,11 +235,16 @@ def jax_ring_vjp():
         h, edges, w = _graph(21 + s, n_bases=D_G // s)
         cot = np.random.RandomState(s).randn(N_G, D_G).astype(np.float32)
         jedges = [jnp.asarray(x) for x in edges]
-        _, vjp = jax.vjp(
-            lambda h, w: ring_rel_spmm_pallas(h, *jedges, w, N_G, mesh,
-                                              n_bases=D_G // s),
-            jnp.asarray(h), jnp.asarray(w))
-        out[s] = (h, edges, w, cot, *(np.asarray(x) for x in vjp(cot)))
+
+        def grads(h, w, g, s=s, jedges=jedges):
+            _, vjp = jax.vjp(
+                lambda h, w: ring_rel_spmm_pallas(h, *jedges, w, N_G, mesh,
+                                                  n_bases=D_G // s), h, w)
+            return vjp(g)
+
+        # jitted: the interpreter's host work runs once a call
+        out[s] = (h, edges, w, cot, *(np.asarray(x) for x in jax.jit(grads)(
+            jnp.asarray(h), jnp.asarray(w), jnp.asarray(cot))))
     return out
 
 
@@ -491,10 +506,10 @@ def test_ring_calls_name_train_snapshots_whose_mask_they_narrow(
     real = segment.ring_spmm
 
     def record(h, w, src, dst, rel, emask, m, rows, devices, kernels=True,
-               tables=None):
+               tables=None, hot=None):
         calls.append((src, dst, rel, emask, tables))
         return real(h, w, src, dst, rel, emask, m, rows, devices,
-                    kernels=kernels, tables=tables)
+                    kernels=kernels, tables=tables, hot=hot)
 
     monkeypatch.setattr(segment, "ring_spmm", record)
     params = model.init_params(0)

@@ -224,6 +224,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
         bf16_flagship_path=chip_smoke.phase_bf16_flagship_path(
             fctx, res["flagship_train"], res["flagship_path"]),
         bf16_variants=chip_smoke.phase_bf16_variants(ctx))
+    res.update(bf16_k11=chip_smoke.phase_bf16_k11(ctx, bf16_path),
+               bf16_mb=chip_smoke.phase_bf16_mb(ctx, fctx))
     tctx = chip_smoke.phase_setup_ted(ctx)
     tctx["train_steps"] = 2
     assert type(tctx["model"]).__name__ == "PostBiDynamicRGCNModel"
@@ -244,6 +246,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     res.update(k13=chip_smoke.phase_k13(rctx),
                ring_path=chip_smoke.phase_ring_path(rctx),
                ring_train=chip_smoke.phase_ring_train(rctx))
+    res.update(bf16_k13=chip_smoke.phase_bf16_k13(rctx),
+               bf16_ring=chip_smoke.phase_bf16_ring(
+                   rctx, res["ring_path"], res["ring_train"]))
     line = chip_smoke.kernels_line(res)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -255,7 +260,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
         "fused_window_fwd_bf16", "fused_window_bwd_bf16",
         "fused_final_fwd_bf16", "fused_final_bwd_loss_bf16",
         "fused_final_bwd_layer_bf16", "bi_layer_fwd_bf16", "bi_loss_fwd_bf16",
-        "bi_layer_bwd_bf16"]
+        "bi_layer_bwd_bf16", "fused_eval_ranks_bf16",
+        "fused_window_mb_fwd_bf16", "ring_spmm_fwd_bf16",
+        "ring_spmm_bwd_bf16"]
+    assert [k["id"] for k in line["kernels"]][-4:] == [
+        "K11_bf16", "K12_bf16", "K13_bf16", "K13b_bf16"]
+    assert line["kernels"][0]["id"] == "K1f"
     # the bfloat16 modes' plain versions against themselves on the CPU
     assert all(r == 0.0 for c in bf16_kernels.values()
                for r in c["rms_ratios"].values())
@@ -433,13 +443,39 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
         "ted": "PostBiDynamicRGCNModel",
         "bigrrgcn_aggregation": "PostBiDynamicRGCNModel",
         "bigrrgcn": "BiDynamicRGCNModel",
-        "grrgcn_impute": "PostDynamicRGCNModel"}
+        "grrgcn_impute": "PostDynamicRGCNModel",
+        "grrgcn_random_dropout": "DynamicRGCNModel",
+        "grrgcn_edge_dropout": "DynamicRGCNModel"}
     for r in bv.values():
         assert r["eval"]["mrr_kernels"] == r["eval"]["mrr_plain"] > 0
         assert r["eval"]["same_rank_share"] == 1.0
         assert r["train"]["max_rel_gap"] == 0.0
         assert r["loss_gap_to_f32"] > 0
+    # K11, K12, K13 and K13b in bfloat16: the plain versions on both sides,
+    # run twice; the fused eval, the batched window and the ring in
+    # bfloat16 held to the runs without them / their plain versions
+    b11, b12, b13, bri = (res[k] for k in ("bf16_k11", "bf16_mb",
+                                           "bf16_k13", "bf16_ring"))
+    assert b11["rms_ratio"] == 0.0 and b11["rank_mismatches"] == 0
+    assert b11["bitwise"] and max(b11["mrr_gaps"].values()) <= (
+        chip_smoke.MRR_TOL)
+    assert b11["layers"]["ms"] is None and b11["layers"]["bound_ms"] > 0
+    for tag in ("train", "eval"):
+        assert b12[tag]["bitwise"] and b12[tag]["per_element_bitwise"]
+        assert b12[tag]["rms_ratio"] == 0.0
+    assert b12["train_steps"]["bitwise"]
+    assert b12["flagship_train_steps"]["bitwise"]
+    assert b12["eval_sweep"]["ranks_equal"]
+    for tag in ("final", "window", "bwd_final", "bwd_window"):
+        assert b13[tag]["bitwise"] and b13[tag]["rms_ratio"] == 0.0
+        assert b13[tag]["bound_ms"] > 0 and b13[tag]["library_ms"] > 0
+    assert bri["max_rel_gap"] == 0.0 and bri["same_rank_share"] == 1.0
+    assert bri["eval_kernels"]["csr_builds"] == 0
+    assert bri["loss_gap_to_f32"] > 0
     by_name = {k["name"]: k for k in line["kernels"]}
+    assert {"bf16_eval_fused", "bf16_train_fused_mb", "bf16_ring_train"} \
+        <= set(by_name["ring_spmm_fwd_bf16"]["launches_by_path"])
+    assert set(by_name["fused_eval_ranks_bf16"]) >= {"layers", "ranks"}
     for name in ("fused_window_fwd_bf16", "fused_window_bwd_bf16"):
         assert set(by_name[name]["flagship_modes"]) == set(modes)
     assert by_name["fused_final_bwd_loss_bf16"]["bi_table"]["bitwise"]
