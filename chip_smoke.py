@@ -325,6 +325,20 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  BF16_PARAM_TOL), K13 and its backward launched, none of
                  K1-K12, no sort in a call; the gaps to ring_path's and
                  ring_train's float32 runs.
+65. bf16_k1    - K1f and K1b in bfloat16 (csrc/spmm_bf16.cu: h and w read
+                 as the path gives them, each gathered value rounded in
+                 registers) at every K1 shape above, on the operands the
+                 path hands the wrapper, against their plain bfloat16
+                 versions within K1_TOL of the largest entry, two runs
+                 bit-equal, with times, bounds and the library's index_add_;
+66. bf16_spmm_pallas - under the SpMM method "pallas" in bfloat16:
+                 GRRGCN's unfused valid sweep (K1f bf16 737 launches, no
+                 float32 K1) and SARGCN's 8 steps and sweep (K1f and K1b
+                 bf16 32 each a step), kernels against plain;
+67. bf16_zoo   - every other model, decoder, pool and option in bfloat16
+                 at depth 4 (bf16_zoo), the baselines (bf16_baselines_*)
+                 and the Aggregator (bf16_agg_*), kernels against plain,
+                 with the launches of their float32 phases.
 
 Then a "kernels" JSON line (each record with its "id", K1f to K13b; the
 bfloat16 modes as "<name>_bf16" records after the float32 ones, their
@@ -332,7 +346,8 @@ launches the bf16 fused training path's: GRRGCN's K2f, K2b, K3-K5, K2's
 with the flagship's modes and K4's with the bi table beside, then the
 flagship's K6+K7, K8 and K9+K10, then K11's (the bfloat16 fused eval
 sweep's launches), K12's (the fused bfloat16 steps with the batched
-window's), K13's and K13b's (the bfloat16 ring steps');
+window's), K13's and K13b's (the bfloat16 ring steps'), K1f's and K1b's
+(GRRGCN's bfloat16 sweep's and SARGCN's bfloat16 steps' under "pallas");
 each kernel's bound_share, bound / ms, and for
 K2f, K2b, K5, K9+K10 and K12, whose products run in 3xTF32 on the tensor
 cores, bound_tc_ms: their operations at 3xTF32's 165 TFLOP/s beside the f32
@@ -443,26 +458,26 @@ def smi_line() -> str:
 
 
 def time_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call; CUDA events on the card (the CPU clock is
-    used only by the CPU rehearsal of the phases)."""
+    """Mean milliseconds per call; CUDA events on the card. The CPU
+    rehearsal of the phases times one call on the CPU clock: no check reads
+    its value."""
     import torch
 
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
     for _ in range(warmup):
         fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-    t0 = time.perf_counter()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
         fn()
-    return (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def max_err(a, b) -> float:
@@ -765,11 +780,12 @@ def _counters():
 def _reset_counts() -> None:
     """Every launch counter, and K1's and K13's counts of in-call sorts, to
     0."""
-    from temp_tpu_torch.ops.spmm import spmm_fwd
+    from temp_tpu_torch.ops.spmm import spmm_bwd, spmm_fwd
     from temp_tpu_torch.parallel.ring_spmm import ring_spmm_fwd
 
     for fn in _counters():
         fn.launches = 0
+    spmm_fwd.launches_bf16 = spmm_bwd.launches_bf16 = 0
     ring_spmm_fwd.csr_builds = spmm_fwd.csr_builds = 0
 
 
@@ -790,7 +806,15 @@ def _k1_csr_builds() -> int:
 
 
 def _counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _counters()}
+    """Every kernel's launches since the last reset, and K1's in its
+    bfloat16 mode apart ("spmm_fwd_bf16", "spmm_bwd_bf16": the wrappers
+    count both modes in ``launches``)."""
+    from temp_tpu_torch.ops.spmm import spmm_bwd, spmm_fwd
+
+    out = {fn.__name__: fn.launches for fn in _counters()}
+    out["spmm_fwd_bf16"] = spmm_fwd.launches_bf16
+    out["spmm_bwd_bf16"] = spmm_bwd.launches_bf16
+    return out
 
 
 def _peak_mb(dev):
@@ -4667,6 +4691,7 @@ def kernels_line(res: dict) -> dict:
                             "bitwise": m["bitwise"],
                             **{k: m[k] for k in keys}})
     rec += _kernels_bf16_last(res)
+    rec += _kernels_bf16_k1(res)
     for r in rec:
         base = r["name"][:-len("_bf16")] if r["name"].endswith(
             "_bf16") else r["name"]
@@ -4714,6 +4739,53 @@ def _kernels_bf16_last(res: dict) -> list:
             part = "window" if name == "ring_spmm_fwd" else "bwd_window"
             r["window_step"] = {k: res["bf16_k13"][part][k] for k in keys}
         rec.append(r)
+    return rec
+
+
+# K1's bfloat16 mode (phases bf16_k1 and bf16_spmm_pallas): (wrapper, TPU
+# kernel, its bf16_k1 record, the path whose run gives "launches")
+_KERNELS_BF16_K1 = (
+    ("spmm_fwd", "temp_tpu/ops/pallas_spmm.py:110", "final",
+     "bf16_pallas_eval"),
+    ("spmm_bwd", "temp_tpu/ops/pallas_spmm.py:160", "bwd_train",
+     "bf16_pallas_sa_train"),
+)
+
+
+def _kernels_bf16_k1(res: dict) -> list:
+    """The records of K1f's and K1b's bfloat16 modes, when their phases
+    ran: their numbers at the main paths' shapes (the final step's, the
+    training final step's for K1b; ``cases`` every other shape), and
+    their launches under the SpMM method "pallas" (K1f GRRGCN's valid
+    sweep, K1b SARGCN's training steps; ``launches_by_path`` each
+    path's)."""
+    if "bf16_spmm_pallas" not in res:
+        return []
+    pallas = res["bf16_spmm_pallas"]
+    paths = {"bf16_pallas_eval": pallas["eval_kernels"]["launches"],
+             "bf16_pallas_sa_train": pallas["sa_train"]["kernels"][
+                 "launches"],
+             "bf16_pallas_sa_eval": pallas["sa_path"]["kernels"][
+                 "launches"]}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "bound_share", "rms_ratio", "plain_f32_ms",
+            "shape", "bitwise", "scaled_err")
+    rec = []
+    for name, replaces, tag, home in _KERNELS_BF16_K1:
+        bwd = name == "spmm_bwd"
+        m = res["bf16_k1"][tag]
+        rec.append({
+            "name": f"{name}_bf16", "route": "cuda",
+            "source": "temp_tpu_torch/csrc/spmm_bf16.cu",
+            "replaces": replaces,
+            "launches": paths[home][f"{name}_bf16"],
+            "launches_by_path": {p: n[f"{name}_bf16"]
+                                 for p, n in paths.items()},
+            **{k: m[k] for k in keys},
+            "cases": {t: {k: c[k] for k in keys}
+                      for t, c in res["bf16_k1"].items()
+                      if isinstance(c, dict) and t != tag
+                      and t.startswith("bwd_") == bwd}})
     return rec
 
 
@@ -5043,19 +5115,20 @@ def _baseline_steps(c, device, batches, draws=None, gen=True):
             "finals": finals, "draws": draws}
 
 
-def phase_baseline(ctx, module: str, train_steps=None) -> dict:
+def phase_baseline(ctx, module: str, train_steps=None, **over) -> dict:
     """One embedding baseline (grid/icews14/config_grrgcn.json with
-    `module`, d = 128) on the card: TRAIN_STEPS (or `train_steps`) steps,
-    the CPU replaying them from the same seeded weights on the card's
-    draws (losses within TRAIN_TOL, every leaf within PARAM_TOL of the
-    CPU's change), then the valid sweep on the card (queries/s); no
-    kernel launched anywhere."""
+    `module`, d = 128, the config's fields `over`) on the card:
+    TRAIN_STEPS (or `train_steps`) steps, the CPU replaying them from the
+    same seeded weights on the card's draws (losses within TRAIN_TOL,
+    every leaf within PARAM_TOL of the CPU's change, BF16_PARAM_TOL in
+    bfloat16), then the valid sweep on the card (queries/s); no kernel
+    launched anywhere."""
     import numpy as np
     import torch
 
     dev = ctx["device"]
     c = phase_setup(dev.type, config="config_grrgcn.json", data=ctx["data"],
-                    **{**ctx["setup_kw"], "module": module})
+                    **{**ctx["setup_kw"], "module": module, **over})
     batches = c["trainer"].epoch_batches(0)[:train_steps or TRAIN_STEPS]
     card = _baseline_steps(c, dev, batches)
     t0 = time.perf_counter()
@@ -5075,9 +5148,10 @@ def phase_baseline(ctx, module: str, train_steps=None) -> dict:
     if not res["max_rel_gap"] <= TRAIN_TOL:
         raise AssertionError(f"{module}: card and CPU losses differ: "
                              f"{res['max_rel_gap']} > {TRAIN_TOL}")
-    res["params"] = param_gaps(cpu["init"], {"card": card["finals"],
-                                             "cpu": cpu["finals"]},
-                               names=("card", "cpu"))
+    res["params"] = param_gaps(
+        cpu["init"], {"card": card["finals"], "cpu": cpu["finals"]},
+        names=("card", "cpu"),
+        tol=BF16_PARAM_TOL if c["cfg"].hot_dtype else PARAM_TOL)
     if not all(torch.equal(a, b) for a, b in zip(card["init"], cpu["init"])):
         raise AssertionError(f"{module}: other initial weights on the CPU")
     m, _, _ = _sweep({**ctx, "params": card["params"]}, c["cfg"])
@@ -5170,10 +5244,13 @@ def _frozen_leaves_ok(model, ckpt) -> None:
 
 def phase_agg_train(actx) -> dict:
     """2 steps of the Aggregator with the kernels and with their plain
-    versions (``phase_train_unfused``: losses, every gate leaf; K1f and K2f
-    launched, no K1b or K2b, none of K3-K13); every gate leaf moved, and
-    every submodel leaf still bit-equal to its checkpoint."""
-    res = phase_train_unfused(actx, _AGG_WANT, _NOT_AGG)
+    versions (``phase_train_unfused``: losses, every gate leaf, within
+    BF16_PARAM_TOL in bfloat16; K1f and K2f launched, no K1b or K2b, none
+    of K3-K13); every gate leaf moved, and every submodel leaf still
+    bit-equal to its checkpoint."""
+    res = phase_train_unfused(
+        actx, _AGG_WANT, _NOT_AGG,
+        param_tol=BF16_PARAM_TOL if actx["cfg"].hot_dtype else PARAM_TOL)
     if not res["gate_leaves"] == res["gate_leaves_moved"] == 8:
         raise AssertionError(f"agg: gates {res['gate_leaves']}, moved "
                              f"{res['gate_leaves_moved']}")
@@ -5211,8 +5288,11 @@ def _agg_near_ties(model, params, data, t_pos, split: str):
 def phase_agg_path(actx) -> dict:
     """One valid batch of the Aggregator with the kernels and with their
     plain versions: the same query mask, ranks equal on every real query
-    but the plain scores' near-ties (``_agg_near_ties``), the gated eval's
-    loss 0; K1f and K2f launched, no K1b or K2b, none of K3-K13."""
+    but the plain scores' near-ties (``_agg_near_ties``; in bfloat16,
+    whose rounding flips move scores by more than a near-tie, the MRR
+    within MRR_TOL, as ``phase_variants`` holds the other bfloat16
+    models), the gated eval's loss 0; K1f and K2f launched, no K1b or
+    K2b, none of K3-K13."""
     import numpy as np
 
     from temp_tpu_torch.models.objectives import metrics_from_ranks
@@ -5229,10 +5309,13 @@ def phase_agg_path(actx) -> dict:
              + actx["trainer"].data.num_times // 2]
     near = _agg_near_ties(model, actx["params"], actx["trainer"].data,
                           t_pos, "valid") & mk
-    if (diff & ~near).any():
+    m_k, m_p = metrics_from_ranks(rk, mk), metrics_from_ranks(rp, mp)
+    if actx["cfg"].hot_dtype is None and (diff & ~near).any():
         raise AssertionError(f"agg eval: {int((diff & ~near).sum())} ranks "
                              f"differ beyond the near-ties")
-    m_k, m_p = metrics_from_ranks(rk, mk), metrics_from_ranks(rp, mp)
+    if not abs(m_k["mrr"] - m_p["mrr"]) <= MRR_TOL:
+        raise AssertionError(f"agg eval: MRR {m_k['mrr']}, plain "
+                             f"{m_p['mrr']}")
     _unfused_launches_ok(actx["device"], launches, _AGG_WANT, "agg eval",
                          _NOT_AGG)
     if any(plain.values()):
@@ -5242,31 +5325,365 @@ def phase_agg_path(actx) -> dict:
             "near_ties": int(near.sum()), "launches": launches}
 
 
-def agg_phases(ctx) -> dict:
+def agg_phases(ctx, prefix: str = "agg") -> dict:
     """The Aggregator's phases: agg_setup (two seeded submodels written as
     port checkpoints in a temporary directory, loaded by the Aggregator),
-    agg_train, agg_path; the directory removed at the end."""
+    agg_train, agg_path, each name with `prefix` for "agg"; the directory
+    removed at the end."""
     import shutil
     import tempfile
 
     res = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_agg_")
     try:
-        with phase("agg_setup", {}) as st:
+        with phase(f"{prefix}_setup", {}) as st:
             actx = phase_setup_agg(ctx, tmp)
             st["model"] = type(actx["model"]).__name__
             st["temporal"] = type(actx["model"].temporal_model).__name__
             st["spatial"] = type(actx["model"].spatial_model).__name__
-        with phase("agg_train", {}) as at:
+        with phase(f"{prefix}_train", {}) as at:
             at.update(phase_agg_train(actx))
-        res["agg_train"] = at
-        with phase("agg_path", {}) as ap:
+        res[f"{prefix}_train"] = at
+        with phase(f"{prefix}_path", {}) as ap:
             ap.update(phase_agg_path(actx))
-        res["agg_path"] = ap
+        res[f"{prefix}_path"] = ap
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if os.path.exists(tmp):
         raise AssertionError(f"agg: {tmp} not removed")
+    return res
+
+
+# -- K1 in bfloat16 (the SpMM method "pallas") and every model in bfloat16 --
+
+def _bf16_k1_operands(tag, args):
+    """A K1 call's (h, src, dst, rel, emask, w) as the wrapper takes it:
+    float32 h and w, as the bfloat16 paths hand them (the entity table,
+    the layers' outputs, an attention history); at the RRGCN window step's
+    shapes ("rrgcn_" tags) h in bfloat16, so that the mode's read of a
+    bfloat16 h (JAX's kernel takes one too) is held at a path's shape.
+    The kernel rounds what it gathers either way."""
+    import torch
+
+    if not tag.startswith("rrgcn_"):
+        return args
+    h, src, dst, rel, em, w = args
+    return (h.to(torch.bfloat16).contiguous(), src, dst, rel, em, w)
+
+
+def _k1_scaled_err(a, b) -> float:
+    """max |a - b| over the largest |b| (0 where b is 0 and a equals it)."""
+    scale = float(b.abs().max())
+    err = max_err(a, b)
+    return err / scale if scale else (0.0 if err == 0 else math.inf)
+
+
+def _k1_bf16_bound(h, src, dst, rel, em, n_out: int, w_rows: int,
+                   w_size: int, bwd: bool):
+    """Least time of a bfloat16 K1 call: the referenced rows of h and w in
+    the dtypes they are given (and, for the backward, of g as float32, with
+    norm^2), the edge arrays and the float32 outputs moved once, against 3
+    (forward) or 6 (backward) float32 operations an edge column (the
+    roundings not counted)."""
+    m = em.bool()
+    d, kept = h.shape[1], int(m.sum())
+    nbytes = (int(src[m].unique().numel()) * h.element_size()
+              + int(rel[m].unique().numel()) * w_size) * d + src.numel() * 16
+    if bwd:
+        nbytes += (int(dst[m].unique().numel()) * d * 4 + n_out * 4
+                   + (n_out + w_rows) * d * 4)
+    else:
+        nbytes += n_out * d * 4
+    flops = (6 if bwd else 3) * kept * d
+    t_b, t_f = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def _bf16_k1_cases(ctx):
+    """K1's shapes of ``phase_k1``/``phase_k1b`` (``_k1_cases``), the
+    attention history's (``_sa_k1_cases``, "sa_" tags) and the RRGCN
+    window step's (``_rec_k1_cases``, "rrgcn_" tags), and the tags whose
+    backward is timed (phase_k1b's and every history and window case)."""
+    cases = list(_k1_cases(ctx))
+    for pre, config, fn in (("sa", "config_sargcn.json", _sa_k1_cases),
+                            ("rrgcn", "config_rrgcn.json", _rec_k1_cases)):
+        c = phase_setup_config(ctx, config)
+        cases += [(f"{pre}_{t}", a, tb) for t, a, tb in fn(c)]
+        del c
+    bwd = {"train", "final"} | {t for t, _, _ in cases if "_" in t}
+    return cases, bwd
+
+
+def phase_bf16_k1(ctx) -> dict:
+    """K1f and K1b in their bfloat16 mode (``hot=torch.bfloat16``, the
+    JAX kernels' bfloat16 instantiation) at every shape ``phase_k1`` and
+    ``phase_k1b`` time, the attention history's and the RRGCN window
+    step's (``_bf16_k1_cases``), over the data's tables, on the operands
+    the paths hand the wrapper (``_bf16_k1_operands``: float32 h and w;
+    at the window step's shapes a bfloat16 h), so that a time is the main
+    path's call: one launch a call, no sort, no host sync, no copy; two runs
+    bit-equal; within K1_TOL of the largest entry of the plain bfloat16
+    version (both round at the same points, so only the order of the
+    float32 sums differs), BF16_RULE's ratio against the plain float32
+    version beside it; times, bounds (h and w read in their dtypes) and
+    the library's: one ``index_add_`` of the same rounded messages, two of
+    the same rounded cotangents."""
+    import torch
+
+    from temp_tpu_torch.ops.spmm import (
+        _spmm_fwd, spmm_bwd, spmm_bwd_plain, spmm_fwd, spmm_fwd_plain,
+    )
+
+    BF = torch.bfloat16
+    dev = ctx["device"]
+    cases, bwd_tags = _bf16_k1_cases(ctx)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+
+    def rb(x):
+        return x.to(BF).to(torch.float32)
+
+    def rule(k, pb, pf):
+        gap, yard = _rms((k - pb).float()), _rms((pf - pb).float())
+        return gap / yard if yard else 0.0
+
+    for tag, args, tables in cases:
+        hk = _bf16_k1_operands(tag, args)
+        h, src, dst, rel, em, w = flat = _flat(hk)
+        flat32 = _flat(args)
+        k, n2, _ = _one_launch(
+            lambda: _spmm_fwd(*hk, tables=tables, hot=BF), spmm_fwd,
+            f"K1 bf16 {tag}", dev)
+        bitwise = bool(torch.equal(
+            k, _spmm_fwd(*hk, tables=tables, hot=BF)[0]))
+        ref = spmm_fwd_plain(*flat, hot=BF)
+        ref32 = spmm_fwd_plain(*flat32)
+        err = _k1_scaled_err(k, ref)
+        ratio = rule(k, ref, ref32)
+        if not (err <= K1_TOL and bitwise):
+            raise AssertionError(f"K1 bf16 {tag}: max abs err {err} of the "
+                                 f"largest entry (> {K1_TOL}?), bf16_rule "
+                                 f"ratio {ratio}, bit-equal twice: "
+                                 f"{bitwise}")
+        emf = em.to(torch.float32)[:, None]
+        msg = rb(rb(h[src.long()].float()) * rb(w[rel.long()])) * emf
+        lib = torch.zeros(h.shape, dtype=torch.float32, device=dev)
+        bound_ms, bound_by = _k1_bf16_bound(h, src, dst, rel, em,
+                                            h.shape[0], w.shape[0],
+                                            w.element_size(), False)
+        out[tag] = {
+            "shape": f"N={h.shape[0]} B={tables[1].numel()} "
+                     f"E={src.numel()} kept={int(em.sum())} "
+                     f"R={w.shape[0]} d={h.shape[1]}, bf16, h {h.dtype}",
+            "max_abs_err": max_err(k, ref), "scaled_err": err,
+            "rms_ratio": ratio, "bitwise": bitwise,
+            "ms": time_ms(lambda: spmm_fwd(*hk, tables=tables, hot=BF), dev),
+            "plain_ms": time_ms(lambda: spmm_fwd_plain(*flat, hot=BF), dev,
+                                reps=5),
+            "plain_f32_ms": time_ms(lambda: spmm_fwd_plain(*flat32), dev,
+                                    reps=5),
+            "library_ms": time_ms(
+                lambda: lib.zero_().index_add_(0, dst.long(), msg), dev),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        out[tag]["bound_share"] = out[tag]["bound_ms"] / out[tag]["ms"]
+        print(f"  K1 bf16 {tag}: {out[tag]}", flush=True)
+        if tag not in bwd_tags:
+            continue
+        g = torch.randn(hk[0].shape, generator=gen, device=dev)
+        bargs = (g, n2) + hk
+        dh, dw = _one_launch(
+            lambda: spmm_bwd(*bargs, tables=tables, hot=BF), spmm_bwd,
+            f"K1b bf16 {tag}", dev)
+        ah, aw = spmm_bwd(*bargs, tables=tables, hot=BF)
+        bitwise = bool(torch.equal(dh, ah) and torch.equal(dw, aw))
+        rh, rw = spmm_bwd_plain(g, n2, *flat, hot=BF)
+        fh, fw_ = spmm_bwd_plain(g, n2, *flat32)
+        err = max(_k1_scaled_err(dh, rh), _k1_scaled_err(dw, rw))
+        ratio = max(rule(dh, rh, fh), rule(dw, rw, fw_))
+        if not (err <= K1_TOL and bitwise):
+            raise AssertionError(f"K1b bf16 {tag}: max abs err {err} of the "
+                                 f"largest entry (> {K1_TOL}?), bf16_rule "
+                                 f"ratio {ratio}, bit-equal twice: "
+                                 f"{bitwise}")
+        dmsg = rb(g * n2[:, None])[dst.long()] * emf
+        mh = rb(dmsg * rb(w[rel.long()]))
+        mw = rb(dmsg * rb(h[src.long()].float()))
+        lib_h = torch.zeros(h.shape, dtype=torch.float32, device=dev)
+        lib_w = torch.zeros(w.shape, dtype=torch.float32, device=dev)
+
+        def library():
+            lib_h.zero_().index_add_(0, src.long(), mh)
+            lib_w.zero_().index_add_(0, rel.long(), mw)
+
+        bound_ms, bound_by = _k1_bf16_bound(h, src, dst, rel, em,
+                                            h.shape[0], w.shape[0],
+                                            w.element_size(), True)
+        out[f"bwd_{tag}"] = {
+            "shape": out[tag]["shape"],
+            "max_abs_err": max(max_err(dh, rh), max_err(dw, rw)),
+            "scaled_err": err, "rms_ratio": ratio, "bitwise": bitwise,
+            "ms": time_ms(lambda: spmm_bwd(*bargs, tables=tables, hot=BF),
+                          dev),
+            "plain_ms": time_ms(lambda: spmm_bwd_plain(g, n2, *flat,
+                                                       hot=BF), dev, reps=5),
+            "plain_f32_ms": time_ms(lambda: spmm_bwd_plain(g, n2, *flat32),
+                                    dev, reps=5),
+            "library_ms": time_ms(library, dev),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        out[f"bwd_{tag}"]["bound_share"] = (out[f"bwd_{tag}"]["bound_ms"]
+                                            / out[f"bwd_{tag}"]["ms"])
+        print(f"  K1b bf16 {tag}: {out[f'bwd_{tag}']}", flush=True)
+    return out
+
+
+@contextmanager
+def spmm_method(method):
+    """``rel_spmm``'s method "auto" resolving to `method` inside, as
+    ``TEMP_TPU_SPMM_METHOD`` sets it for a run."""
+    from temp_tpu_torch.ops import segment
+
+    old = segment._METHOD_OVERRIDE
+    segment._METHOD_OVERRIDE = method
+    try:
+        yield
+    finally:
+        segment._METHOD_OVERRIDE = old
+
+
+def _k1_modes_ok(dev, launches: dict, tag: str, fwd: int, bwd: int) -> None:
+    """On the card, K1f and K1b launched `fwd` and `bwd` times, every
+    launch in the bfloat16 mode (none in float32)."""
+    if dev.type != "cuda":
+        return
+    got = {k: launches[k] for k in ("spmm_fwd", "spmm_fwd_bf16", "spmm_bwd",
+                                    "spmm_bwd_bf16")}
+    if got != {"spmm_fwd": fwd, "spmm_fwd_bf16": fwd, "spmm_bwd": bwd,
+               "spmm_bwd_bf16": bwd}:
+        raise AssertionError(f"{tag}: K1 launches {got}, want {fwd} K1f and "
+                             f"{bwd} K1b, all bfloat16")
+
+
+def phase_bf16_spmm_pallas(ctx, bf16_path) -> dict:
+    """The SpMM method "pallas" in bfloat16 (K1's bfloat16 mode) at full
+    width: GRRGCN's valid sweep (``_sweep``, conv1 table and K2f as
+    bf16_path's) with the kernels and with their plain versions, MRR
+    within MRR_TOL, the same query mask, K1f bf16 launched 737 times and
+    float32 K1 never; beside it the gap to bf16_path's sweep (method
+    "segment", K1 in float32). Then SARGCN: TRAIN_STEPS steps with the
+    kernels and with their plain versions (``phase_train_unfused``:
+    losses within TRAIN_TOL, leaves within BF16_PARAM_TOL), K1f and K1b
+    bf16 each launched 4 a batch element a step (two layers over the
+    history, two over the final snapshot) and float32 K1 never; its valid
+    sweep against its plain version (``phase_k1_path``)."""
+    import numpy as np
+
+    dev = ctx["device"]
+    res = {}
+    cfg = ctx["cfg"].replace(compute_dtype="bfloat16")
+    runs = {}
+    with spmm_method("pallas"):
+        for name, kernels in (("kernels", True), ("plain", False)):
+            m, ranks, mask = _sweep(ctx, cfg.replace(kernels=kernels))
+            runs[name] = (ranks, mask)
+            res[f"eval_{name}"] = m
+            print(f"  bf16 pallas sweep {name}: {m}", flush=True)
+    k, pl = res["eval_kernels"], res["eval_plain"]
+    (rk, mk), (rp, mp) = runs["kernels"], runs["plain"]
+    if not (np.array_equal(mk, mp) and np.isfinite(k["mrr"])
+            and 0.0 < k["mrr"] <= 1.0 and abs(k["mrr"] - pl["mrr"])
+            <= MRR_TOL):
+        raise AssertionError(f"bf16 pallas sweep: kernels {k['mrr']}, plain "
+                             f"{pl['mrr']}, masks equal "
+                             f"{np.array_equal(mk, mp)}")
+    _k1_modes_ok(dev, k["launches"], "bf16 pallas sweep",
+                 _BF16_SWEEP["spmm_fwd"], 0)
+    if dev.type == "cuda" and (
+            k["launches"]["fused_window_fwd"] != _BF16_SWEEP[
+                "fused_window_fwd"] or k["k1_csr_builds"]
+            or any(k["launches"][x] for x in _NOT_BF16)):
+        raise AssertionError(f"bf16 pallas sweep launches {k['launches']}")
+    if any(pl["launches"].values()):
+        raise AssertionError(f"bf16 pallas plain sweep: {pl['launches']}")
+    res["mrr_gap_to_segment"] = k["mrr"] - bf16_path["eval_kernels"]["mrr"]
+    res["same_rank_share"] = float(np.mean(rk[mk] == rp[mp]))
+    sctx = phase_setup(dev.type, config="config_sargcn.json",
+                       data=ctx["data"], **{**ctx["setup_kw"],
+                                            "compute_dtype": "bfloat16"})
+    sctx["train_steps"] = ctx.get("train_steps", TRAIN_STEPS)
+    with spmm_method("pallas"):
+        tr = phase_train_unfused(sctx, _SA_TRAIN, _NOT_SA,
+                                 param_tol=BF16_PARAM_TOL)
+        per = 4 * sctx["cfg"].batch_size * sctx["train_steps"]
+        _k1_modes_ok(dev, tr["kernels"]["launches"], "bf16 pallas SARGCN "
+                     "train", per, per)
+        sp = phase_k1_path(sctx, "attention bf16 pallas")
+    n = sp["kernels"]["launches"]["spmm_fwd"]
+    _k1_modes_ok(dev, sp["kernels"]["launches"], "bf16 pallas SARGCN eval",
+                 n, 0)
+    res["sa_train"], res["sa_path"] = tr, sp
+    return res
+
+
+# every model, decoder, pool and option in bfloat16 under the SpMM method
+# "segment" (the default), at phase_zoo_variants' depth: the kernels each
+# must and must not launch, as their float32 phases
+_BF16_ZOO = tuple(
+    (tag, config, {**flags, "compute_dtype": "bfloat16"}, *spec)
+    for tag, config, flags, *spec in (
+        ("rrgcn_distmult_shared_lambda", "config_rrgcn.json",
+         {"score_function": "distmult", "negative_pool": "shared",
+          "learnable_lambda": True}, _K1_ONLY),
+        ("birrgcn_transe_per_query_options", "config_birrgcn.json",
+         {"score_function": "transE", "negative_pool": "per_query",
+          "rec_only_last_layer": True, "use_time_embedding": True},
+         _K1_ONLY),
+        ("grrgcn_type1", "config_grrgcn.json", {"type1": True}, _K1_ONLY),
+        ("post_sargcn", "config_sargcn.json", {"post_aggregation": True},
+         _K1_ONLY),
+        ("post_bisargcn", "config_bisargcn.json",
+         {"post_aggregation": True}, _K1_ONLY),
+        ("srgcn", "config_srgcn.json", {}, _K1_ONLY),
+        ("drgcn_temb", "config_srgcn.json",
+         {"module": "DRGCN", "use_time_embedding": True}, _K1_ONLY),
+        ("tdyn", "config_grrgcn.json", {"module": "TimeDynamicRGCN"})))
+
+
+def phase_bf16_zoo(ctx) -> dict:
+    """The ``_BF16_ZOO`` configs at full width and VARIANT_SEQ_LEN
+    (``phase_variants``: 2 steps and one valid batch each, kernels
+    against plain on the same draws, MRR within MRR_TOL, each leaf within
+    BF16_PARAM_TOL), with each training run's peak memory."""
+    out = phase_variants(ctx, _BF16_ZOO, param_tol=BF16_PARAM_TOL)
+    for tag, r in out.items():
+        r["peak_mb"] = r["train"]["kernels"]["peak_mb"]
+    return out
+
+
+def bf16_zoo_phases(ctx) -> dict:
+    """bf16_zoo (``phase_bf16_zoo``), then the baselines
+    (``phase_baseline``, 2 steps on the card replayed on the CPU, the
+    valid sweep; "bf16_baselines_<module>") and the Aggregator
+    (``agg_phases``: its two submodels and itself in bfloat16;
+    "bf16_agg_*") in bfloat16. Returns their results by phase name."""
+    res = {}
+    with phase("bf16_zoo", {}) as bz:
+        bz.update(phase_bf16_zoo(ctx))
+        for tag in list(bz):
+            if isinstance(bz[tag], dict):
+                bz[f"{tag}_ms_per_step"] = bz[tag]["train"]["ms_per_step"]
+    res["bf16_zoo"] = {t: bz[t] for t, *_ in _BF16_ZOO}
+    base = {}
+    for module in _BASELINE_MODULES:
+        with phase(f"bf16_baselines_{module}", {}) as bp:
+            r = phase_baseline(ctx, module, 2, compute_dtype="bfloat16")
+            bp.update(r)
+            bp["ms_per_step"] = r["train"]["ms_per_step"]
+            bp["mrr"] = r["eval"]["mrr"]
+        base[module] = r
+    res["bf16_baselines"] = base
+    bctx = dict(ctx, setup_kw={**ctx["setup_kw"],
+                               "compute_dtype": "bfloat16"})
+    res.update(agg_phases(bctx, prefix="bf16_agg"))
     return res
 
 
@@ -6043,6 +6460,25 @@ def main() -> int:
         br["k13_launches"] = br["ring"]["launches"]["ring_spmm_fwd"]
         br["k13_bwd_launches"] = br["ring"]["launches"]["ring_spmm_bwd"]
     res["bf16_ring"] = br
+    with phase("bf16_k1", {}) as b1:
+        b1.update(phase_bf16_k1(ctx))
+        for tag in [t for t in b1 if isinstance(b1[t], dict)]:
+            b1[f"{tag}_ms"] = b1[tag]["ms"]
+            b1[f"{tag}_scaled_err"] = b1[tag]["scaled_err"]
+    res["bf16_k1"] = b1
+    with phase("bf16_spmm_pallas", {}) as bs:
+        bs.update(phase_bf16_spmm_pallas(ctx, bp))
+        for name in ("kernels", "plain"):
+            bs[f"mrr_{name}"] = bs[f"eval_{name}"]["mrr"]
+            bs[f"wall_s_{name}"] = bs[f"eval_{name}"]["wall_s"]
+        bs["k1f_bf16_launches"] = bs["eval_kernels"]["launches"][
+            "spmm_fwd_bf16"]
+        bs["sa_ms_per_step"] = bs["sa_train"]["ms_per_step"]
+        bs["sa_k1b_bf16_launches"] = bs["sa_train"]["kernels"]["launches"][
+            "spmm_bwd_bf16"]
+        bs["sa_mrr_kernels"] = bs["sa_path"]["kernels"]["mrr"]
+    res["bf16_spmm_pallas"] = bs
+    res.update(bf16_zoo_phases(ctx))
     _state["phase"] = "report"
     print(json.dumps(kernels_line(res)), flush=True)
     print(f"total_s={time.perf_counter() - t_start:.3f}", flush=True)

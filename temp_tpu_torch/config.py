@@ -13,14 +13,11 @@ files, so one config file drives both packages. Differences:
   against end to end);
 - ``compute_dtype="auto"`` resolves to float32 on every device (the JAX
   package's resolves to bfloat16 on an accelerator): ``"bfloat16"`` runs
-  the hot contractions in bfloat16 (``hot_dtype``), and only GRRGCN and
-  BiGRRGCN (with imputation and the TeMP gates, the flagship BiGRRGCN
-  ``--impute`` among them; with the fused eval, the batched window, the
-  edge partitions and the dropouts) have a bfloat16 mode so far
-  (``_BF16_OUTSIDE``);
+  the hot contractions in bfloat16 (``hot_dtype``) in every model,
+  decoder, pool and option;
 - a field whose non-default value selects a path the port has not ported
-  (``_UNPORTED``; a ``compute_dtype`` other than float32 or bfloat16, or
-  bfloat16 outside its slice; the ``"boundary"`` edge partition, which
+  (``_UNPORTED``; a ``compute_dtype`` other than float32 or bfloat16;
+  the ``"boundary"`` edge partition, which
   ``edge_partition=True`` selects; ``mp_size > 1`` without an edge
   partition) raises ``NotImplementedError`` when the config is made,
   naming what is missing, rather than quietly running another path.
@@ -51,24 +48,6 @@ PARTITION_MODES = ("psum", "ring", "ring_pallas")
 
 _F32 = ("float32", "f32", None)
 _BF16 = ("bfloat16", "bf16")
-
-# what runs only in float32 so far, outside compute_dtype="bfloat16"'s
-# slice (GRRGCN and BiGRRGCN, with or without imputation and the TeMP
-# gates, their fused eval, batched window, edge partitions and dropouts:
-# kernels K2-K13 and K1, whose SpMM stays float32 as the JAX package's row
-# path does): (field, value test, what the value needs in bfloat16)
-_BF16_OUTSIDE = (
-    ("module", lambda v: v not in ("GRRGCN", "BiGRRGCN"),
-     "its model's bfloat16 hot path (only GRRGCN and BiGRRGCN have one)"),
-    ("score_function", lambda v: v != "complex",
-     "the DistMult and TransE decoders' bfloat16 scores"),
-    ("negative_pool", lambda v: v != "all",
-     "the shared and per_query pools' bfloat16 scores"),
-    ("type1", bool, "the type1 GRU's bfloat16 mode"),
-    ("learnable_lambda", bool, "the learnable decay's bfloat16 mode"),
-    ("use_time_embedding", bool, "the time embeddings' bfloat16 mode"),
-    ("rec_only_last_layer", bool, "rec_only_last_layer's bfloat16 mode"),
-)
 
 
 @dataclass
@@ -239,29 +218,24 @@ class TKGConfig:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r}: the port computes in "
                 f"float32 or bfloat16; see ROADMAP.md")
-        if self.compute_dtype in _BF16:
-            for name, outside, what in _BF16_OUTSIDE:
-                value = getattr(self, name)
-                if outside(value):
-                    raise NotImplementedError(
-                        f"compute_dtype={self.compute_dtype!r} with "
-                        f"{name}={value!r} needs {what}, which is not ported "
-                        f"yet; see ROADMAP.md")
 
     @property
     def hot_dtype(self):
         """The dtype of the hot contractions, or None for float32: the JAX
         package's ``TKGConfig.hot_dtype``. torch.bfloat16 for
         ``compute_dtype`` "bfloat16" (or "bf16"): the products' operands
-        rounded to bfloat16 with float32 sums (the self-loop, GRU and
-        score products, every product of kernels K2-K12), the windows'
-        history buffers stored in bfloat16; the relational SpMM outside
-        the fused kernels stays float32 (K1), as the JAX package's does,
-        but for K13's under the "ring_pallas" edge partition.
+        rounded to bfloat16 with float32 sums (the self-loop, time weight,
+        GRU and score products, every product of kernels K2-K12), the
+        windows' history buffers stored in bfloat16; the relational SpMM
+        outside the fused kernels is K1 in float32 under the SpMM method
+        "segment" (the default, as the JAX package's row path ignores the
+        dtype), K1's bfloat16 mode under "pallas"
+        (``ops.segment.rel_spmm``), K13's under the "ring_pallas" edge
+        partition.
 
         "auto" is float32 on every device for now: the JAX package's
         resolves to bfloat16 on an accelerator, which the port follows in
-        the slice that gives every path a bfloat16 mode (ROADMAP.md)."""
+        the next slice (ROADMAP.md Queue 1)."""
         return torch.bfloat16 if self.compute_dtype in _BF16 else None
 
     # -- run control --------------------------------------------------------

@@ -54,13 +54,47 @@
 // each row the same edges in the same order, so the two routes agree bit
 // for bit. K1b is one launch: warps below B * n give dh rows, the rest dw
 // rows, each relation walking the graphs in order b = 0 .. B - 1.
+//
+// Compiled a second time as spmm_bf16.cu, with TK_BF16 1: the TPU kernels'
+// bfloat16 instantiation (_fwd_kernel and _bwd_kernel with dtype_str
+// "bfloat16", reached through rel_spmm's method "pallas"), whose one-hot
+// products round what they gather. With r(x) x rounded to bfloat16 (to
+// nearest, ties to even, as XLA's convert), K1f reads w as float32 and h
+// as it is given, float32 or bfloat16 (a bfloat16 h comes from the
+// windows' bfloat16 buffers), rounds every gathered value to bfloat16 in
+// registers (the identity on a bfloat16 one), as the TPU kernel's body
+// does, and sums
+// the messages r(r(h[src_e]) * r(w[rel_e])) in float32 (a product of two
+// bfloat16 values is exact in float32, so only the outer r rounds); the
+// degrees and norm^2 stay exact and out float32. K1b is the TPU kernels'
+// transpose on those rounded values: with dmsg_e = r(g[dst_e] * n2[dst_e])
+// (the TPU kernel rounds g * norm^2 once a row, before its gather by dst:
+// the same value), dh sums r(dmsg_e * r(w[rel_e])) and dw r(dmsg_e *
+// r(h[src_e])), g, n2, dh and dw float32. The launchers' h_bf16 says
+// whether h is bfloat16; the float32 build takes a float32 h only, and its
+// arithmetic is unchanged (r is the identity there).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cassert>
 #include <tuple>
 
+#ifndef TK_BF16
+#define TK_BF16 0
+#endif
+
 namespace {
+
+constexpr bool kBf16 = TK_BF16 != 0;
+
+// x rounded to bfloat16 in the bfloat16 mode, x itself otherwise
+__device__ __forceinline__ float hot(float x) {
+  if constexpr (kBf16)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
@@ -102,6 +136,21 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ p,
   }
 }
 
+// V bfloat16 values a lane (one 8-byte load for V = 4), widened exactly
+template <int V>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ p,
+                                         float (&x)[V]) {
+  if constexpr (V == 4) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    x[0] = __uint_as_float(v.x << 16);
+    x[1] = __uint_as_float(v.x & 0xffff0000u);
+    x[2] = __uint_as_float(v.y << 16);
+    x[3] = __uint_as_float(v.y & 0xffff0000u);
+  } else {
+    x[0] = __bfloat162float(p[0]);
+  }
+}
+
 template <int V>
 __device__ __forceinline__ void store_vec(float* __restrict__ p,
                                           const float (&x)[V], float scale) {
@@ -120,15 +169,17 @@ __device__ __forceinline__ void store_vec(float* __restrict__ p,
 // Adds to acc, in edge order, the kept edges of [e0, e1) of a block: edge
 // e brings ints (x0, x1, slot) and is kept where mask[slot] != 0; its term
 // is a[col] * b[col] for kScaled false (K1f: a = A[x_ia], b = Bm[x_ib]) and
-// a[col] * s * b[col] with s = S[x_ia] for kScaled true (K1b). Returns the
-// number of kept edges (K1f's degree).
-template <int V, int C, bool kScaled>
+// a[col] * s * b[col] with s = S[x_ia] for kScaled true (K1b); in the
+// bfloat16 mode r(r(a[col]) * r(b[col])) and r(r(a[col] * s) * r(b[col])).
+// Returns
+// the number of kept edges (K1f's degree).
+template <int V, int C, bool kScaled, typename TA, typename TB>
 __device__ __forceinline__ int walk(const int* __restrict__ edge,
                                     const unsigned char* __restrict__ mask,
                                     int e0, int e1, int lane, int d,
-                                    const float* __restrict__ A, int ia,
+                                    const TA* __restrict__ A, int ia,
                                     const float* __restrict__ S,
-                                    const float* __restrict__ Bm, int ib,
+                                    const TB* __restrict__ Bm, int ib,
                                     float (&acc)[C][V]) {
   int n_kept = 0;
   for (int base = e0; base < e1; base += kWarp) {
@@ -162,8 +213,8 @@ __device__ __forceinline__ int walk(const int* __restrict__ edge,
       for (int q = 0; q < kAhead; ++q) {
         if (q < k) {
           if constexpr (kScaled) sv[q] = __ldg(S + qa[q]);
-          const float* ra = A + (long long)qa[q] * d;
-          const float* rb = Bm + (long long)qb[q] * d;
+          const TA* ra = A + (long long)qa[q] * d;
+          const TB* rb = Bm + (long long)qb[q] * d;
 #pragma unroll
           for (int c = 0; c < C; ++c) {
             const int col = (c * kWarp + lane) * V;
@@ -183,9 +234,11 @@ __device__ __forceinline__ int walk(const int* __restrict__ edge,
 #pragma unroll
               for (int i = 0; i < V; ++i) {
                 if constexpr (kScaled)
-                  acc[c][i] += av[q][c][i] * sv[q] * bv[q][c][i];
+                  acc[c][i] +=
+                      hot(hot(av[q][c][i] * sv[q]) * hot(bv[q][c][i]));
                 else
-                  acc[c][i] += __fmul_rn(av[q][c][i], bv[q][c][i]);
+                  acc[c][i] +=
+                      hot(__fmul_rn(hot(av[q][c][i]), hot(bv[q][c][i])));
               }
             }
           }
@@ -208,13 +261,13 @@ __device__ __forceinline__ void store_row(float* __restrict__ o,
 }
 
 // One warp a (graph, row): the table by destination.
-template <int V, int C>
+template <int V, int C, typename TH>
 __global__ void spmm_fwd_kernel(const int* __restrict__ ptr,
                                 const int* __restrict__ edge,
                                 const long long* __restrict__ tpos,
                                 int n_times,
                                 const unsigned char* __restrict__ mask,
-                                const float* __restrict__ h,
+                                const TH* __restrict__ h,
                                 const float* __restrict__ w,
                                 float* __restrict__ out,
                                 float* __restrict__ n2_out, int B, int n,
@@ -240,7 +293,7 @@ __global__ void spmm_fwd_kernel(const int* __restrict__ ptr,
 // Warps [0, B * n): dh of a (graph, row) over the table by source; warps
 // [B * n, B * n + n_rels): dw of a relation over the tables by relation of
 // the B graphs in order.
-template <int V, int C>
+template <int V, int C, typename TH>
 __global__ void spmm_bwd_kernel(const int* __restrict__ s_ptr,
                                 const int* __restrict__ s_edge,
                                 const int* __restrict__ r_ptr,
@@ -250,7 +303,7 @@ __global__ void spmm_bwd_kernel(const int* __restrict__ s_ptr,
                                 const unsigned char* __restrict__ mask,
                                 const float* __restrict__ g,
                                 const float* __restrict__ n2,
-                                const float* __restrict__ h,
+                                const TH* __restrict__ h,
                                 const float* __restrict__ w,
                                 float* __restrict__ dh,
                                 float* __restrict__ dw, int B, int n,
@@ -291,52 +344,70 @@ int blocks_for(long long warps) {
 
 constexpr int kThreads = kWarpsPerBlock * kWarp;
 
-template <int V, int C>
+// Calls f(TH{}) with TH the type of h: bfloat16 where h_bf16 is 1 (the
+// bfloat16 build only), float otherwise. Returns the launch's error.
+template <typename F>
+int with_h_type(int h_bf16, F&& f) {
+  if (h_bf16 == 0) {
+    f(float{});
+  } else if constexpr (kBf16) {
+    if (h_bf16 != 1) return static_cast<int>(cudaErrorInvalidValue);
+    f(__nv_bfloat16{});
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int V, int C, typename TH>
 void fwd(cudaStream_t s, long long warps, const int* p, const int* e,
          const long long* tp, int n_times, const unsigned char* m,
-         const float* h, const float* w, float* o, float* o2, int B, int n,
+         const TH* h, const float* w, float* o, float* o2, int B, int n,
          int rows, int cap, int d) {
-  spmm_fwd_kernel<V, C><<<blocks_for(warps), kThreads, 0, s>>>(
+  spmm_fwd_kernel<V, C, TH><<<blocks_for(warps), kThreads, 0, s>>>(
       p, e, tp, n_times, m, h, w, o, o2, B, n, rows, cap, d);
 }
 
-template <int V, int C>
+template <int V, int C, typename TH>
 void bwd(cudaStream_t s, long long warps, const int* sp, const int* se,
          const int* rp, const int* re, const long long* tp, int n_times,
          const unsigned char* m, const float* g, const float* n2,
-         const float* h, const float* w, float* dh, float* dw, int B, int n,
+         const TH* h, const float* w, float* dh, float* dw, int B, int n,
          int rows, int cap, int n_rels, int d) {
-  spmm_bwd_kernel<V, C><<<blocks_for(warps), kThreads, 0, s>>>(
+  spmm_bwd_kernel<V, C, TH><<<blocks_for(warps), kThreads, 0, s>>>(
       sp, se, rp, re, tp, n_times, m, g, n2, h, w, dh, dw, B, n, rows, cap,
       n_rels, d);
 }
 
 }  // namespace
 
-// vec: 4 (float4 a lane; d % 4 == 0 and 16-byte aligned rows) or 1.
+// vec: 4 (four values a lane; d % 4 == 0 and rows aligned to four
+// values) or 1. h_bf16: 1 for a bfloat16 h (the bfloat16 build only);
+// w is float32.
 extern "C" int spmm_fwd_launch(const void* ptr, const void* edge,
                                const void* tpos, int n_times,
                                const void* mask, const void* h,
                                const void* w, void* out, void* n2_out, int B,
                                int n, int rows, int cap, int d, int vec,
-                               void* stream) {
+                               int h_bf16, void* stream) {
   const long long warps = (long long)B * n;
-  if (warps > 0) {
+  return with_h_type(h_bf16, [&](auto th) {
+    using TH = decltype(th);
+    if (warps <= 0) return;
     const auto args = std::make_tuple(
         static_cast<cudaStream_t>(stream), warps,
         static_cast<const int*>(ptr), static_cast<const int*>(edge),
         static_cast<const long long*>(tpos), n_times,
-        static_cast<const unsigned char*>(mask), static_cast<const float*>(h),
+        static_cast<const unsigned char*>(mask), static_cast<const TH*>(h),
         static_cast<const float*>(w), static_cast<float*>(out),
         static_cast<float*>(n2_out), B, n, rows, cap, d);
     if (vec == 4 && d <= kWarp * 4)
-      std::apply(fwd<4, 1>, args);
+      std::apply(fwd<4, 1, TH>, args);
     else if (vec == 4)
-      std::apply(fwd<4, kMaxD / (kWarp * 4)>, args);
+      std::apply(fwd<4, kMaxD / (kWarp * 4), TH>, args);
     else
-      std::apply(fwd<1, kMaxD / kWarp>, args);
-  }
-  return static_cast<int>(cudaGetLastError());
+      std::apply(fwd<1, kMaxD / kWarp, TH>, args);
+  });
 }
 
 extern "C" int spmm_bwd_launch(const void* s_ptr, const void* s_edge,
@@ -346,24 +417,25 @@ extern "C" int spmm_bwd_launch(const void* s_ptr, const void* s_edge,
                                const void* n2, const void* h, const void* w,
                                void* dh, void* dw, int B, int n, int rows,
                                int cap, int n_rels, int d, int vec,
-                               void* stream) {
+                               int h_bf16, void* stream) {
   const long long warps = (long long)B * n + n_rels;
-  if (warps > 0) {
+  return with_h_type(h_bf16, [&](auto th) {
+    using TH = decltype(th);
+    if (warps <= 0) return;
     const auto args = std::make_tuple(
         static_cast<cudaStream_t>(stream), warps,
         static_cast<const int*>(s_ptr), static_cast<const int*>(s_edge),
         static_cast<const int*>(r_ptr), static_cast<const int*>(r_edge),
         static_cast<const long long*>(tpos), n_times,
         static_cast<const unsigned char*>(mask), static_cast<const float*>(g),
-        static_cast<const float*>(n2), static_cast<const float*>(h),
+        static_cast<const float*>(n2), static_cast<const TH*>(h),
         static_cast<const float*>(w), static_cast<float*>(dh),
         static_cast<float*>(dw), B, n, rows, cap, n_rels, d);
     if (vec == 4 && d <= kWarp * 4)
-      std::apply(bwd<4, 1>, args);
+      std::apply(bwd<4, 1, TH>, args);
     else if (vec == 4)
-      std::apply(bwd<4, kMaxD / (kWarp * 4)>, args);
+      std::apply(bwd<4, kMaxD / (kWarp * 4), TH>, args);
     else
-      std::apply(bwd<1, kMaxD / kWarp>, args);
-  }
-  return static_cast<int>(cudaGetLastError());
+      std::apply(bwd<1, kMaxD / kWarp, TH>, args);
+  });
 }

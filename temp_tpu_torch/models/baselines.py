@@ -42,8 +42,10 @@ from temp_tpu_torch.models.objectives import (
     eval_ranks_single, make_raw_scorers, train_loss_single,
 )
 from temp_tpu_torch.models.timedynamic import diachronic
+from temp_tpu_torch.ops.gru import shared_rounding
 from temp_tpu_torch.ops.sampling import subsample_positives
 from temp_tpu_torch.ops.scores import get_score_fn
+from temp_tpu_torch.train.optim import param_leaves
 
 
 class EmbeddingBaseline:
@@ -115,17 +117,22 @@ class EmbeddingBaseline:
              gen: torch.Generator = None, draws=None):
         """The summed loss of the targets t_pos whose t_valid is True (the
         others' terms are zero), one at a time (``element_loss``); `draws`
-        (``draw_train``) drawn from `gen` when None."""
+        (``draw_train``) drawn from `gen` when None. The parameters are
+        rounded once for all the elements under a hot dtype
+        (``shared_rounding``), as the JAX package's vmap rounds them."""
         t_host = [int(t) for t in np.asarray(t_pos)]
         tv = [bool(v) for v in np.asarray(t_valid)]
         if draws is None:
             draws = self.draw_train(
                 gen, data, torch.tensor(t_host, device=self.device))
         total = torch.zeros((), device=self.device)
-        for b, t in enumerate(t_host):
-            if tv[b]:
-                total = total + self.element_loss(
-                    params, data, t, draws["pos"][b], element_neg(draws, b))
+        with shared_rounding(param_leaves(params)) as next_element:
+            for b, t in enumerate(t_host):
+                if tv[b]:
+                    next_element()
+                    total = total + self.element_loss(
+                        params, data, t, draws["pos"][b],
+                        element_neg(draws, b))
         return total
 
     def element_loss(self, params, data: TKGData, t_pos: int, pos, neg):

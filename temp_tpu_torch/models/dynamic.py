@@ -591,10 +591,11 @@ class DynamicRGCNModel:
         (``shared_rounding``), as the JAX package's vmap over them
         rounds them."""
         total = torch.zeros((), device=self.device)
-        with shared_rounding(param_leaves(params)):
+        with shared_rounding(param_leaves(params)) as next_element:
             for b, t in enumerate(t_host):
                 if not tv[b]:
                     continue
+                next_element()
                 fin = (None, None) if draws["fin1"] is None else (
                     draws["fin1"][b], draws["fin2"][b])
                 total = total + self.element_loss(

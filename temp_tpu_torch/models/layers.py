@@ -162,8 +162,9 @@ def _dropout(x, rate: float, train: bool, mask=None):
 def _aggregate(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot):
     """The relational aggregation of `snap`'s edges over the rows h (K1 on
     the card; K13 under a "ring_pallas" edge partition). The hot dtype
-    goes with it, as the JAX package passes it; only the partitioned
-    modes take it (``rel_spmm``)."""
+    goes with it, as the JAX package passes it: K1 takes it under the
+    method "pallas" (its bfloat16 mode) and ignores it under "segment",
+    the default; the partitioned modes take it (``rel_spmm``)."""
     return rel_spmm(h, snap.src, snap.dst, snap.rel, snap.emask, p["weight"],
                     lc.n_bases, lc.out_feat, h.shape[0], kernels=cfg.kernels,
                     t_pos=snap.t_pos, compact=snap.compact,
@@ -172,32 +173,38 @@ def _aggregate(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot):
 
 def _matmul(x, w, dtype=None):
     """x @ w with optional low-precision inputs and float32 sums: the JAX
-    package's ``_matmul`` (``ops.gru._mm`` without the transpose)."""
-    return hot_round(x, dtype) @ hot_round(w, dtype)
+    package's ``_matmul`` (``ops.gru._mm`` without the transpose). x may
+    be bfloat16 (a history read from the windows' bfloat16 buffers)."""
+    return hot_round(x.to(torch.float32), dtype) @ hot_round(w, dtype)
 
 
 def _bias_loop_act(p, lc: LayerCfg, out, h, train: bool, mask,
-                   dtype=None):
+                   dtype=None, loop_h=None):
     """out + bias + the self-loop message of h (its product in `dtype`;
     dropout at rate ``lc.dropout`` with the keep mask `mask` in training),
-    then the activation."""
+    then the activation. `loop_h`: the rows that h's rows repeat (G graphs
+    over one table side by side): the product runs once on them and is
+    tiled, as the JAX package's vmap over the graphs leaves it unmapped."""
     if lc.bias:
         out = out + p["h_bias"]
     if lc.self_loop:
-        out = out + _dropout(_matmul(h, p["loop_weight"], dtype), lc.dropout,
-                             train, mask)
+        loop = _matmul(h if loop_h is None else loop_h, p["loop_weight"],
+                       dtype)
+        if loop_h is not None:
+            loop = loop.repeat(h.shape[0] // loop_h.shape[0], 1)
+        out = out + _dropout(loop, lc.dropout, train, mask)
     return _activation(lc.activation, out)
 
 
 def rgcn_conv(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
-              train: bool = False, mask=None):
+              train: bool = False, mask=None, loop_h=None):
     """Aggregation + bias + self-loop + activation. In training the
     self-loop message takes dropout at rate ``lc.dropout`` with the keep
-    mask `mask`. The self-loop product runs in ``cfg.hot_dtype``; the
-    aggregation stays float32 outside an edge partition (the JAX
-    package's row SpMM ignores the dtype; ``_aggregate``)."""
+    mask `mask`. The self-loop product runs in ``cfg.hot_dtype``, once on
+    `loop_h` when h's rows repeat it (``_bias_loop_act``); the
+    aggregation takes the dtype as ``_aggregate`` says."""
     return _bias_loop_act(p, lc, _aggregate(p, cfg, lc, h, snap), h, train,
-                          mask, cfg.hot_dtype)
+                          mask, cfg.hot_dtype, loop_h)
 
 
 def layer_time_embedding(p, snap: Snapshot):
@@ -267,10 +274,14 @@ def rrgcn_layer(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot, prev,
     activation; the recurrence sits inside the layer. Returns (agg, out,
     time_emb), agg the aggregation alone (the layer's "local" output).
     `train` and `mask` are the self-loop's dropout; `direction` picks the
-    time weight (``TIME_WEIGHT_KEY``)."""
+    time weight (``TIME_WEIGHT_KEY``). The time weight's and the
+    self-loop's products run in ``cfg.hot_dtype``, the decay in
+    float32."""
+    hot = cfg.hot_dtype
     agg = _aggregate(p, cfg, lc, h, snap)
-    rec = (prev @ p[TIME_WEIGHT_KEY[direction]]) * decay_factor(p, cfg, dt)
-    return (agg, _bias_loop_act(p, lc, agg + rec, h, train, mask),
+    rec = (_matmul(prev, p[TIME_WEIGHT_KEY[direction]], hot)
+           * decay_factor(p, cfg, dt))
+    return (agg, _bias_loop_act(p, lc, agg + rec, h, train, mask, hot),
             layer_time_embedding(p, snap))
 
 
@@ -281,9 +292,12 @@ def birrgcn_layer_center(p, cfg: TKGConfig, lc: LayerCfg, h, snap: Snapshot,
     models/BiRRGCN.py:115-140): both directions' decayed states through
     their time weights, added to the aggregation before bias, self-loop
     and activation. Returns (agg, out, time_emb); `train` and `mask` as in
-    ``rrgcn_layer``."""
+    ``rrgcn_layer``, the products in ``cfg.hot_dtype`` as there."""
+    hot = cfg.hot_dtype
     agg = _aggregate(p, cfg, lc, h, snap)
-    out = (agg + (prev_f * decay_factor(p, cfg, dt_f)) @ p["time_weight_fwd"]
-           + (prev_b * decay_factor(p, cfg, dt_b)) @ p["time_weight_bwd"])
-    return (agg, _bias_loop_act(p, lc, out, h, train, mask),
+    out = (agg + _matmul(prev_f * decay_factor(p, cfg, dt_f),
+                         p["time_weight_fwd"], hot)
+           + _matmul(prev_b * decay_factor(p, cfg, dt_b),
+                     p["time_weight_bwd"], hot))
+    return (agg, _bias_loop_act(p, lc, out, h, train, mask, hot),
             layer_time_embedding(p, snap))

@@ -46,7 +46,9 @@ from temp_tpu_torch.models.layers import (
     rgcn_conv, xavier_uniform,
 )
 from temp_tpu_torch.models.objectives import draw_pool
+from temp_tpu_torch.ops.gru import shared_rounding
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
+from temp_tpu_torch.train.optim import param_leaves
 
 NEG_MASK = -10e9  # reference SelfAttentionRGCN.py:109
 N_HEADS = 8       # reference SARGCN.py:20
@@ -208,16 +210,18 @@ class SelfAttentionRGCNModel(DynamicRGCNModel):
     # -- the history ----------------------------------------------------------
 
     def _static_step(self, params, h0, snap: Snapshot, n: int, train: bool,
-                     masks):
+                     masks, table=None):
         """The static 2-layer RGCN of the G graphs of `snap` (G = L-1 window
-        slots side by side, n rows each; h0 [G * n, d]): conv outputs plus
-        each slot's time embedding, layer 2 taking layer 1's conv output
-        without it (SARGCN.py:103-107). Returns (h1, h2), [G, n, d] each."""
+        slots side by side, n rows each; h0 [G * n, d], G copies of
+        `table` when given): conv outputs plus each slot's time embedding,
+        layer 2 taking layer 1's conv output without it (SARGCN.py:103-107).
+        Returns (h1, h2), [G, n, d] each."""
         cfg, enc = self.cfg, params["encoder"]
         G = snap.src.shape[0]
         m1, m2 = (None, None) if masks is None else (
             m.reshape(G * n, -1) for m in masks)
-        conv1 = rgcn_conv(enc["layer1"], cfg, self.lc1, h0, snap, train, m1)
+        conv1 = rgcn_conv(enc["layer1"], cfg, self.lc1, h0, snap, train, m1,
+                          loop_h=table)
         conv2 = rgcn_conv(enc["layer2"], cfg, self.lc2, conv1, snap, train,
                           m2)
         return tuple(
@@ -265,7 +269,7 @@ class SelfAttentionRGCNModel(DynamicRGCNModel):
         # by side, as K1 reads rows b * N + i of graph b
         emb = params["ent_embeds"]
         h0 = emb.expand(L1, N, emb.shape[1]).reshape(L1 * N, -1)
-        h1, h2 = self._static_step(params, h0, snap, N, train, masks)
+        h1, h2 = self._static_step(params, h0, snap, N, train, masks, emb)
         upd = (win.active[:L1] & win.valid[:L1, None])[..., None]
         mask = torch.where(upd[..., 0], 0.0, NEG_MASK)
         return (torch.where(upd, h1, 0.0), torch.where(upd, h2, 0.0), mask)
@@ -277,27 +281,33 @@ class SelfAttentionRGCNModel(DynamicRGCNModel):
         windows concatenated along the slot axis, forward first). Training
         (`draws` given) takes its window masks and edge subsample.
         `conv1_all` is always None here (``precompute_eval_conv1`` gives
-        these models none, as in the JAX package)."""
+        these models none, as in the JAX package). The parameters are
+        rounded once a use for all the elements under a hot dtype
+        (``shared_rounding``), as the JAX package's vmap rounds them."""
         if conv1_all is not None:
             raise ValueError("the attention models take no precomputed "
                              "convs")
         train = draws is not None
         out = ([], [], [])
-        for b in range(tp.shape[0]):
-            parts = []
-            for sfx, backward in (("", False), ("_b", True))[
-                    :2 if self.bidirectional else 1]:
-                win = gather_window(data, tp[b], length, backward=backward)
-                masks = edges = None
-                if train and draws[f"win1{sfx}"] is not None:
-                    masks = (draws[f"win1{sfx}"][b], draws[f"win2{sfx}"][b])
-                if train and draws["win_edges"] is not None:
-                    edges = draws["win_edges"][b]
-                parts.append(self._history(params, win, length, train, masks,
-                                           edges))
-            hist = parts[0] if len(parts) == 1 else self._concat(*parts)
-            for lst, x in zip(out, hist):
-                lst.append(x)
+        with shared_rounding(param_leaves(params)) as next_element:
+            for b in range(tp.shape[0]):
+                next_element()
+                parts = []
+                for sfx, backward in (("", False), ("_b", True))[
+                        :2 if self.bidirectional else 1]:
+                    win = gather_window(data, tp[b], length,
+                                        backward=backward)
+                    masks = edges = None
+                    if train and draws[f"win1{sfx}"] is not None:
+                        masks = (draws[f"win1{sfx}"][b],
+                                 draws[f"win2{sfx}"][b])
+                    if train and draws["win_edges"] is not None:
+                        edges = draws["win_edges"][b]
+                    parts.append(self._history(params, win, length, train,
+                                               masks, edges))
+                hist = parts[0] if len(parts) == 1 else self._concat(*parts)
+                for lst, x in zip(out, hist):
+                    lst.append(x)
         return out
 
     def _concat(self, fwd, bwd):

@@ -44,8 +44,9 @@ def init_gru_params(gen: torch.Generator, input_size: int, hidden_size: int,
     return params
 
 
-# id(tensor) -> (tensor, {dtype: its rounding}) of the operands that
-# ``shared_rounding`` rounds once
+# id(tensor) -> (tensor, {dtype: its roundings, one a use}, {dtype: the
+# uses so far in the element}) of the operands that ``shared_rounding``
+# rounds once a use
 _SHARED: dict = {}
 
 
@@ -53,32 +54,46 @@ def hot_round(x, dtype):
     """x rounded to `dtype` (to nearest, ties to even, as XLA's convert) and
     back to x's dtype; x itself when dtype is None. Differentiable: the
     cotangent is rounded the same way on its way back, as the JAX
-    package's convert is transposed. Inside ``shared_rounding`` an operand
-    it names gets one rounding, shared by every use."""
+    package's convert is transposed. Inside ``shared_rounding`` the k-th
+    use within an element of an operand it names gets the k-th rounding,
+    shared by the k-th use of every element."""
     if dtype is None:
         return x
     hit = _SHARED.get(id(x))
     if hit is None or hit[0] is not x:
         return x.to(dtype).to(x.dtype)
-    if dtype not in hit[1]:
-        hit[1][dtype] = x.to(dtype).to(x.dtype)
-    return hit[1][dtype]
+    tensor, rounds, uses = hit
+    k = uses.get(dtype, 0)
+    uses[dtype] = k + 1
+    mine = rounds.setdefault(dtype, [])
+    if k == len(mine):
+        mine.append(x.to(dtype).to(x.dtype))
+    return mine[k]
 
 
 @contextlib.contextmanager
 def shared_rounding(tensors):
-    """Round each of `tensors` once for all the code inside: the operands a
-    batch's elements share (the weights, the input embeddings) where the
-    elements run one at a time. Their uses' cotangents then add up in
-    float32 and are rounded once, as the JAX package's products round the
-    cotangent of an operand its vmap over the batch does not map (one
+    """Round each of `tensors` once a use for all the elements of a loop
+    inside: the operands a batch's elements share (the weights, the input
+    embeddings) where the elements run one at a time. Yields
+    ``next_element``, which the loop calls as each element starts: the
+    k-th use of an operand within an element then takes the k-th use's
+    rounding, and its cotangents from every element add up in float32 and
+    are rounded once, as each product of the JAX package's vmap over the
+    batch rounds the cotangent of an operand the vmap does not map (one
     product over the batch, its sum rounded once), where a rounding a use
     would round each element's part."""
     added = [id(t) for t in tensors if id(t) not in _SHARED]
     for t in tensors:
-        _SHARED.setdefault(id(t), (t, {}))
+        _SHARED.setdefault(id(t), (t, {}, {}))
+    entries = [_SHARED[id(t)] for t in tensors]
+
+    def next_element():
+        for entry in entries:
+            entry[2].clear()
+
     try:
-        yield
+        yield next_element
     finally:
         for key in added:
             _SHARED.pop(key, None)
@@ -127,13 +142,13 @@ def init_type1_gru_params(gen: torch.Generator, input_size: int,
             "b_ih": n(hidden_size), "b_hh": n(3 * hidden_size)}
 
 
-def type1_gru_cell(p, x, h):
+def type1_gru_cell(p, x, h, dtype=None):
     """The reference's type1 cell (GRU_cell.py:18-31), its gates from the
     hidden state only: i_n = x W_ih^T + b_ih; (h_r, h_i, h_n) = h W_hh^T +
     b_hh; new = tanh(i_n + sigmoid(h_r) h_n); h' = new + sigmoid(h_i)
-    (h - new)."""
-    i_n = x @ p["w_ih"].T + p["b_ih"]
-    gh = h @ p["w_hh"].T + p["b_hh"]
+    (h - new). Both products in `dtype` (``_mm``)."""
+    i_n = _mm(x, p["w_ih"], dtype) + p["b_ih"]
+    gh = _mm(h, p["w_hh"], dtype) + p["b_hh"]
     H = h.shape[-1]
     new = torch.tanh(i_n + torch.sigmoid(gh[..., :H]) * gh[..., 2 * H:])
     return new + torch.sigmoid(gh[..., H:2 * H]) * (h - new)
@@ -141,8 +156,8 @@ def type1_gru_cell(p, x, h):
 
 def run_gru(cfg, params, x, h0):
     """A layer's recurrence from x with initial hidden h0: its one type1
-    cell under ``cfg.type1``, else its standard stack (its products in
-    ``cfg.hot_dtype``; type1 runs in float32 only)."""
+    cell under ``cfg.type1``, else its standard stack (their products in
+    ``cfg.hot_dtype``)."""
     if cfg.type1:
-        return type1_gru_cell(params[0], x, h0)
+        return type1_gru_cell(params[0], x, h0, cfg.hot_dtype)
     return gru_stack(params, x, h0, cfg.hot_dtype)

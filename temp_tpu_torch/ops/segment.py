@@ -15,14 +15,30 @@ grouped by destination owner (``parallel/edge_partition.py``
 ``ring_regroup_data``) and rotate row shards of h around the ranks, the
 latter through kernel K13 (``parallel/ring_spmm.py``).
 
-`dtype` (the hot dtype, bfloat16) reaches only the partitioned modes, as
-in the JAX package: K13's bfloat16 mode in "ring_pallas", the block
-products of ``rel_message`` in the other modes and outside K13's envelope
-(diagonal weights take no rounding there). Outside a partition the SpMM
-stays float32 (K1), as the JAX package's row path ignores the dtype.
+Outside a partition `method` picks the formulation, as the JAX
+package's ``rel_spmm`` does (its names; "auto" takes the
+``TEMP_TPU_SPMM_METHOD`` environment variable, read once at import, or
+"segment", the JAX package's choice off a TPU). `dtype` (the hot dtype,
+bfloat16) is taken by:
+
+- "segment": none; the SpMM is K1 in float32, as the JAX package's row
+  path ignores the dtype;
+- "pallas": K1's bfloat16 mode (``ops/spmm.py``, the JAX package's Pallas
+  kernel with ``dtype=bfloat16``); it needs diagonal weights;
+- "onehot": no port yet in bfloat16 (the JAX package rounds the gathered
+  rows and the scaled messages there, another function): it raises. In
+  float32 the three are K1 in float32 (the JAX package's Pallas and
+  one-hot products run at ``HIGHEST``: the same function).
+
+Inside a partition the method is inert, as in the JAX package, and the
+dtype reaches K13's bfloat16 mode in "ring_pallas", the block products of
+``rel_message`` in the other modes and outside K13's envelope (diagonal
+weights take no rounding there).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +48,12 @@ from temp_tpu_torch.ops.spmm import flat_graph, spmm, spmm_fwd_plain
 from temp_tpu_torch.parallel.edge_partition import ring_geometry
 from temp_tpu_torch.parallel.mesh import manual_axis, rank_devices
 from temp_tpu_torch.parallel.ring_spmm import ring_spmm, ring_spmm_fwd_plain
+
+# ``rel_spmm``'s methods (the JAX package's names)
+METHODS = ("auto", "segment", "pallas", "onehot")
+# the method "auto" takes where set (the JAX package's knob, of the same
+# name and values)
+_METHOD_OVERRIDE = os.environ.get("TEMP_TPU_SPMM_METHOD") or None
 
 
 def segment_sum(data, segment_ids, num_segments: int):
@@ -64,9 +86,31 @@ def rel_message(h_src, rel, weight, n_bases: int, d_in: int, d_out: int,
     return torch.einsum("ebi,ebio->ebo", hb, w).reshape(-1, n_bases * so)
 
 
+def resolve_method(method: str, dtype, diagonal: bool) -> str:
+    """The method a call outside a partition runs ("segment", "pallas" or
+    "onehot"): "auto" resolved (``_METHOD_OVERRIDE``, else "segment"),
+    checked against the call: "pallas" needs `diagonal` weights, "onehot"
+    has no bfloat16 mode yet."""
+    if method == "auto":
+        method = _METHOD_OVERRIDE or "segment"
+    if method not in METHODS[1:]:
+        raise ValueError(f"rel_spmm: unknown method {method!r} (the "
+                         f"methods: {', '.join(METHODS)})")
+    if method == "pallas" and not diagonal:
+        raise ValueError("rel_spmm: method 'pallas' needs diagonal relation "
+                         "weights (n_bases == d_in == d_out)")
+    if method == "onehot" and dtype is not None:
+        raise NotImplementedError(
+            f"rel_spmm: method 'onehot' in {dtype} (the JAX package's "
+            f"one-hot products of rounded rows and messages) is not ported "
+            f"yet; see ROADMAP.md")
+    return method
+
+
 def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
              num_ents: int, kernels: bool = True, t_pos=None,
-             compact: bool = False, tables=None, dtype=None):
+             compact: bool = False, tables=None, dtype=None,
+             method: str = "auto"):
     """RGCN neighbourhood aggregation with double degree normalization:
 
         msg_e = (h[src_e] . W[rel_e]) * norm[dst_e] * emask_e
@@ -83,8 +127,12 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
     graphs are: the data's static tables (``data_tables``), the graphs'
     time positions and the id space, so that K1 outside a partition and
     K13 ("ring_pallas") walk those tables rather than sort the edges.
-    `dtype`: the hot dtype, taken by the partitioned modes only (see the
-    module's docstring).
+    `dtype`: the hot dtype, taken by the partitioned modes and by the
+    method "pallas" (K1's bfloat16 mode); `method`: the formulation
+    outside a partition (see the module's docstring). The models pass no
+    `method` (``TEMP_TPU_SPMM_METHOD`` is the run's switch); the argument
+    mirrors the JAX package's ``rel_spmm`` signature, for its callers and
+    tests. In float32 the methods are one function (K1 in float32).
     """
     d_in = h.shape[-1]
     named = _snapshot_tables(tables, t_pos, compact)
@@ -107,13 +155,16 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
                 f"edge partition mode {mode!r} is not ported yet; see "
                 f"ROADMAP.md")
         return out.reshape(num_ents, d_out)
-    if n_bases == d_in == d_out and kernels:
-        return spmm(h, src, dst, rel, emask, weight, tables=named)
+    diagonal = n_bases == d_in == d_out
+    hot = dtype if resolve_method(method, dtype, diagonal) == "pallas" \
+        else None
+    if diagonal and kernels:
+        return spmm(h, src, dst, rel, emask, weight, tables=named, hot=hot)
     if src.dim() == 2:
         src, dst = flat_graph(src, dst, num_ents // src.shape[0])
         rel, emask = rel.reshape(-1), emask.reshape(-1)
-    if n_bases == d_in == d_out:
-        return spmm_fwd_plain(h, src, dst, rel, emask, weight)
+    if diagonal:
+        return spmm_fwd_plain(h, src, dst, rel, emask, weight, hot)
     norm = in_degree_norm(dst, emask, num_ents)
     msg = rel_message(h[src.long()], rel, weight, n_bases, d_in, d_out)
     msg = msg * (norm[dst.long()] * emask.to(h.dtype))[:, None]

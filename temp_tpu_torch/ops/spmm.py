@@ -14,6 +14,19 @@ JAX package): with ``dmsg_e = g[dst_e] * norm[dst_e]^2 * em_e``,
 The degree and norm take no gradient. ``spmm`` is the differentiable
 function (the autograd ``SpMM``: K1f forward, K1b backward).
 
+``hot=torch.bfloat16`` is the JAX kernels' bfloat16 instantiation
+(``rel_spmm_pallas`` with ``dtype=bfloat16``, reached through
+``ops.segment.rel_spmm``'s method "pallas"): with r(x) x rounded to
+bfloat16, each message is r(r(h[src_e]) * r(w[rel_e])) and the sums stay
+float32; the backward takes dmsg_e = r(g[dst_e] * norm[dst_e]^2) * em_e
+and sums r(dmsg_e * r(w[rel_e])) into dh, r(dmsg_e * r(h[src_e])) into
+dw, the gradients those of the unrounded h and w. The output and the
+gradients are float32; an h given in bfloat16 is read as it is. The
+kernels of that mode (``csrc/spmm_bf16.cu``) read w as float32 and h as
+it is given, float32 or bfloat16, and round each gathered value in
+registers, as the TPU kernel's body does; the plain versions round at the same points
+(``ops.gru.hot_round``), so that autograd through them is that backward.
+
 Every wrapper takes B graphs side by side: h [B * n, d] and edges [B, E]
 (src, dst, rel and the bool mask emask), graph b's ids indexing its own
 rows [b * n, (b + 1) * n); edges [E] are one graph. On a CPU tensor each
@@ -37,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from temp_tpu_torch import _build
+from temp_tpu_torch.ops.gru import hot_round
 from temp_tpu_torch.parallel.edge_partition import ring_tables
 
 _MAX_D = 256  # the kernels keep d / 32 <= 8 columns per lane in registers
@@ -50,24 +64,37 @@ def _norm2_plain(dst, em, n: int):
     return norm * norm
 
 
-def spmm_fwd_plain(h, src, dst, rel, emask, weight):
+def _rows(x, idx, hot):
+    """The rows idx of x as float32, rounded to `hot` when given (x
+    widened before the gather, so that a bfloat16 x's gradient sums in
+    float32 and rounds once)."""
+    return hot_round(x.to(torch.float32)[idx.long()], hot)
+
+
+def spmm_fwd_plain(h, src, dst, rel, emask, weight, hot=None):
     """Plain PyTorch version: h [N, d], weight [R, d], src/dst/rel/emask
-    [E] -> [N, d]."""
-    em = emask.to(h.dtype)
-    msg = h[src.long()] * weight[rel.long()] * em[:, None]
-    raw = torch.zeros_like(h).index_add_(0, dst.long(), msg)
+    [E] -> [N, d] float32; `hot` the bfloat16 mode (the module's
+    docstring)."""
+    em = emask.to(torch.float32)
+    msg = hot_round(_rows(h, src, hot) * _rows(weight, rel, hot)
+                    * em[:, None], hot)
+    raw = torch.zeros(h.shape, dtype=torch.float32,
+                      device=h.device).index_add_(0, dst.long(), msg)
     return raw * _norm2_plain(dst, em, h.shape[0])[:, None]
 
 
-def spmm_bwd_plain(g, n2, h, src, dst, rel, emask, weight):
+def spmm_bwd_plain(g, n2, h, src, dst, rel, emask, weight, hot=None):
     """Plain PyTorch version of the backward: g [N, d] the cotangent of
-    out, n2 [N] norm^2. Returns (dh [N, d], dw [R, d])."""
-    em = emask.to(g.dtype)
-    dmsg = (g * n2[:, None])[dst.long()] * em[:, None]
-    dh = torch.zeros_like(h).index_add_(0, src.long(),
-                                        dmsg * weight[rel.long()])
-    dw = torch.zeros_like(weight).index_add_(0, rel.long(),
-                                             dmsg * h[src.long()])
+    out, n2 [N] norm^2. Returns (dh [N, d], dw [R, d]), float32; `hot` the
+    bfloat16 mode (g * norm^2 rounded once a row, before its gather)."""
+    em = emask.to(torch.float32)
+    dmsg = hot_round(g * n2[:, None], hot)[dst.long()] * em[:, None]
+    dh = torch.zeros(h.shape, dtype=torch.float32,
+                     device=h.device).index_add_(
+        0, src.long(), hot_round(dmsg * _rows(weight, rel, hot), hot))
+    dw = torch.zeros(weight.shape, dtype=torch.float32,
+                     device=h.device).index_add_(
+        0, rel.long(), hot_round(dmsg * _rows(h, src, hot), hot))
     return dh, dw
 
 
@@ -105,14 +132,21 @@ def _graphs(name, h, src, dst, rel, emask):
     return (src.shape[0], h.shape[0] // src.shape[0], src, dst, rel, emask)
 
 
-def _check_cuda(name, h, src, dst, rel, emask, weight):
+def _check_hot(name, hot):
+    if hot not in (None, torch.bfloat16):
+        raise TypeError(f"{name}: no kernel mode for {hot}")
+
+
+def _check_cuda(name, h, src, dst, rel, emask, weight, hot=None):
     dev = h.device
     for arg, t in (("src", src), ("dst", dst), ("rel", rel),
                    ("emask", emask), ("weight", weight)):
         if t.device != dev:
             raise ValueError(f"{name}: {arg} on {t.device}, h on {dev}")
-    if h.dtype != torch.float32 or weight.dtype != torch.float32:
-        raise TypeError(f"{name}: kernel takes float32 h and weight, got "
+    ok = (torch.float32,) if hot is None else (torch.float32, hot)
+    if h.dtype not in ok or weight.dtype != torch.float32:
+        raise TypeError(f"{name}: kernel of mode {hot or torch.float32} "
+                        f"takes h in {ok} and a float32 weight, got "
                         f"{h.dtype} and {weight.dtype}")
     if weight.dim() != 2 or weight.shape[1] != h.shape[1]:
         raise ValueError(f"{name}: h {tuple(h.shape)} and weight "
@@ -179,111 +213,138 @@ def _mask(emask):
 
 
 def _vec(*ts) -> int:
-    """Floats a lane loads at once: 4 where every row is 16-byte aligned."""
+    """Values a lane loads at once: 4 where every row is aligned to four
+    of its values (16 bytes of float32, 8 of bfloat16)."""
     d = ts[0].shape[1]
-    return 4 if d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts) else 1
+    return 4 if d % 4 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0 for t in ts) else 1
 
 
-def _spmm_fwd(h, src, dst, rel, emask, weight, tables=None):
+def _launcher(name: str, hot):
+    """The float32 launcher `name`, or its bfloat16 mode's."""
+    lib = _build.lib()
+    return getattr(lib, name if hot is None else f"{name}_bf16")
+
+
+def _h_bf16(h) -> int:
+    """The launchers' h_bf16: 1 for a bfloat16 h."""
+    return int(h.dtype == torch.bfloat16)
+
+
+def _spmm_fwd(h, src, dst, rel, emask, weight, tables=None, hot=None):
     """K1f returning (out, norm^2, the tables it walked): the kernel on
-    CUDA tensors, the plain version on CPU tensors (given `tables`)."""
+    CUDA tensors, the plain version on CPU tensors (given `tables`), in
+    the mode `hot` (None, or torch.bfloat16)."""
     kind = _device_kind("spmm_fwd", h)
+    _check_hot("spmm_fwd", hot)
     B, n, src, dst, rel, emask = _graphs("spmm_fwd", h, src, dst, rel, emask)
     if kind == "cpu":
         _check_positions(tables, "spmm_fwd")
         s, t = flat_graph(src, dst, n)
         em = emask.reshape(-1)
-        return (spmm_fwd_plain(h, s, t, rel.reshape(-1), em, weight),
-                _norm2_plain(t, em.to(h.dtype), h.shape[0]), tables)
-    _check_cuda("spmm_fwd", h, src, dst, rel, emask, weight)
+        return (spmm_fwd_plain(h, s, t, rel.reshape(-1), em, weight, hot),
+                _norm2_plain(t, em.to(torch.float32), h.shape[0]), tables)
+    _check_cuda("spmm_fwd", h, src, dst, rel, emask, weight, hot)
     mask = _mask(emask)
     tab, t_pos = _call_tables("spmm_fwd", h, weight, src, dst, rel, mask, n,
                               tables)
-    out = torch.empty_like(h)
+    out = torch.empty(h.shape, dtype=torch.float32, device=h.device)
     n2 = torch.empty(h.shape[0], dtype=torch.float32, device=h.device)
-    err = _build.lib().spmm_fwd_launch(
+    err = _launcher("spmm_fwd_launch", hot)(
         tab.fwd_ptr.data_ptr(), tab.fwd_edge.data_ptr(), t_pos.data_ptr(),
         tab.fwd_ptr.shape[0], mask.data_ptr(), h.data_ptr(),
         weight.data_ptr(), out.data_ptr(), n2.data_ptr(), B, n, tab.rows,
-        src.shape[1], h.shape[1], _vec(h, weight),
+        src.shape[1], h.shape[1], _vec(h, weight), _h_bf16(h),
         torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "spmm_fwd")
     spmm_fwd.launches += 1
+    if hot is not None:
+        spmm_fwd.launches_bf16 += 1
     return out, n2, (tab, t_pos)
 
 
-def spmm_fwd(h, src, dst, rel, emask, weight, tables=None):
+def spmm_fwd(h, src, dst, rel, emask, weight, tables=None, hot=None):
     """K1f: the kernel on CUDA tensors, the plain version on CPU tensors.
     `tables`: (the data's ``RingTables`` of the edges' id space, t_pos
     [B]) for graphs that are train snapshots; None sorts the call's
-    edges."""
-    return _spmm_fwd(h, src, dst, rel, emask, weight, tables)[0]
+    edges. `hot`: None (float32) or torch.bfloat16, the bfloat16 mode."""
+    return _spmm_fwd(h, src, dst, rel, emask, weight, tables, hot)[0]
 
 
-spmm_fwd.launches = 0
+spmm_fwd.launches = 0       # every launch, in either mode
+spmm_fwd.launches_bf16 = 0  # the bfloat16 mode's
 spmm_fwd.csr_builds = 0  # tables sorted in a call (not the data's)
 
 
-def spmm_bwd(g, n2, h, src, dst, rel, emask, weight, tables=None):
+def spmm_bwd(g, n2, h, src, dst, rel, emask, weight, tables=None, hot=None):
     """K1b: (dh, dw) for the cotangent g of ``spmm_fwd``'s output and the
     forward's norm^2 n2 [B * n]. The kernel on CUDA tensors (one launch),
-    the plain version on CPU tensors; `tables` as in ``spmm_fwd``."""
+    the plain version on CPU tensors; `tables` and `hot` as in
+    ``spmm_fwd``. dh and dw are float32."""
     kind = _device_kind("spmm_bwd", g)
+    _check_hot("spmm_bwd", hot)
     B, n, src, dst, rel, emask = _graphs("spmm_bwd", h, src, dst, rel, emask)
     if kind == "cpu":
         _check_positions(tables, "spmm_bwd")
         s, t = flat_graph(src, dst, n)
         return spmm_bwd_plain(g, n2, h, s, t, rel.reshape(-1),
-                              emask.reshape(-1), weight)
-    _check_cuda("spmm_bwd", h, src, dst, rel, emask, weight)
+                              emask.reshape(-1), weight, hot)
+    _check_cuda("spmm_bwd", h, src, dst, rel, emask, weight, hot)
     if g.shape != h.shape or g.dtype != torch.float32 or g.device != h.device:
-        raise ValueError(f"spmm_bwd: g {tuple(g.shape)} {g.dtype} must match "
-                         f"h {tuple(h.shape)} float32 on {h.device}")
+        raise ValueError(f"spmm_bwd: g {tuple(g.shape)} {g.dtype} must be "
+                         f"float32 of h's shape {tuple(h.shape)} on "
+                         f"{h.device}")
     if n2.shape != (h.shape[0],) or n2.dtype != torch.float32:
         raise ValueError("spmm_bwd: n2 must be float32 [N]")
     mask = _mask(emask)
     tab, t_pos = _call_tables("spmm_bwd", h, weight, src, dst, rel, mask, n,
                               tables)
     g, n2 = g.contiguous(), n2.contiguous()
-    dh = torch.empty_like(h)
-    dw = torch.empty_like(weight)
+    dh = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+    dw = torch.empty(weight.shape, dtype=torch.float32, device=h.device)
     p = lambda t: t.data_ptr()  # noqa: E731
-    err = _build.lib().spmm_bwd_launch(
+    err = _launcher("spmm_bwd_launch", hot)(
         p(tab.src_ptr), p(tab.src_edge), p(tab.rel_ptr), p(tab.rel_edge),
         p(t_pos), tab.fwd_ptr.shape[0], p(mask), p(g), p(n2), p(h),
         p(weight), p(dh), p(dw), B, n, tab.rows, src.shape[1],
         weight.shape[0], h.shape[1], _vec(g, h, weight),
-        torch.cuda.current_stream(h.device).cuda_stream)
+        _h_bf16(h), torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "spmm_bwd")
     spmm_bwd.launches += 1
+    if hot is not None:
+        spmm_bwd.launches_bf16 += 1
     return dh, dw
 
 
 spmm_bwd.launches = 0
+spmm_bwd.launches_bf16 = 0
 
 
 class SpMM(torch.autograd.Function):
     """Differentiable K1: ``spmm_fwd`` forward, ``spmm_bwd`` backward over
-    the tables the forward walked (sorted once where the call gave none);
-    gradients flow to h and weight only."""
+    the tables the forward walked (sorted once where the call gave none)
+    and the h and w it read (in the bfloat16 mode `hot` the backward
+    rounds them again, as the forward did); gradients flow to h and weight
+    only, float32 (autograd casts dh to a bfloat16 h's dtype)."""
 
     @staticmethod
-    def forward(ctx, h, weight, src, dst, rel, emask, tables):
-        out, n2, tables = _spmm_fwd(h, src, dst, rel, emask, weight, tables)
+    def forward(ctx, h, weight, src, dst, rel, emask, tables, hot):
+        out, n2, tables = _spmm_fwd(h, src, dst, rel, emask, weight, tables,
+                                    hot)
         ctx.save_for_backward(h, weight, src, dst, rel, emask, n2)
-        ctx.tables = tables
+        ctx.tables, ctx.hot = tables, hot
         return out
 
     @staticmethod
     def backward(ctx, g):
         h, weight, src, dst, rel, emask, n2 = ctx.saved_tensors
         dh, dw = spmm_bwd(g.contiguous(), n2, h, src, dst, rel, emask, weight,
-                          tables=ctx.tables)
-        return dh, dw, None, None, None, None, None
+                          tables=ctx.tables, hot=ctx.hot)
+        return dh, dw, None, None, None, None, None, None
 
 
-def spmm(h, src, dst, rel, emask, weight, tables=None):
-    """K1 as a differentiable function of h and weight; `tables` as in
-    ``spmm_fwd``."""
+def spmm(h, src, dst, rel, emask, weight, tables=None, hot=None):
+    """K1 as a differentiable function of h and weight; `tables` and `hot`
+    as in ``spmm_fwd``."""
     return SpMM.apply(h.contiguous(), weight.contiguous(), src, dst, rel,
-                      emask, tables)
+                      emask, tables, hot)

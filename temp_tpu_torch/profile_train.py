@@ -77,10 +77,10 @@ def parse(argv=None):
                          "visible cards in turn)")
     ap.add_argument("--compute-dtype", default="float32",
                     choices=("float32", "bfloat16"),
-                    help="the hot dtype (bfloat16: the bfloat16 path of "
-                         "GRRGCN, BiGRRGCN and their --impute and gated "
-                         "variants, with the fused eval, the batched window "
-                         "or an edge partition; default: %(default)s)")
+                    help="the hot dtype (bfloat16: the model's bfloat16 "
+                         "path; K1's bfloat16 mode with "
+                         "TEMP_TPU_SPMM_METHOD=pallas; default: "
+                         "%(default)s)")
     ap.add_argument("--out", default=None, help="directory for the trace")
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args(argv)

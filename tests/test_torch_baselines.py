@@ -43,6 +43,12 @@ from test_torch_post import _xla_unoptimized, jax_draws_scan
 from test_torch_slice import one_thread  # noqa: F401
 from test_torch_train import _close, _pairs, _torch_params, _write_dataset
 
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(embed_size=16, hidden_size=16, n_bases=16, train_seq_len=3,
           batch_size=2, seed=0, num_pos_facts=100, dropout=0.1,

@@ -58,6 +58,13 @@ from test_torch_train import (
     _COT, _pairs, _torch_params, _window_case, jax_draws,
 )
 
+from test_torch_slice import one_thread  # noqa: F401
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 BF = torch.bfloat16
 RULE = 0.1
 
@@ -559,31 +566,47 @@ def test_slice_trains_and_ranks_as_jax_bf16():
 
 # -- the config ---------------------------------------------------------------
 
+# what the port still refuses in bfloat16: the unported partition and data
+# parallelism (in float32 too), and the SpMM method "onehot" (bfloat16
+# only; its field is the TEMP_TPU_SPMM_METHOD switch, not the config)
 @pytest.mark.parametrize("field,value,what", [
-    ("module", "SARGCN", "only GRRGCN"), ("module", "BiRRGCN", "only GRRGCN"),
-    ("module", "RRGCN", "only GRRGCN"),
-    ("score_function", "distmult", "DistMult"),
-    ("score_function", "transE", "TransE"),
-    ("negative_pool", "shared", "pools"),
-    ("negative_pool", "per_query", "pools"),
-    ("module", "BiSARGCN", "only GRRGCN"), ("module", "SRGCN", "only GRRGCN"),
-    ("module", "DE", "only GRRGCN"), ("type1", True, "type1"),
-    ("learnable_lambda", True, "learnable decay"),
-    ("use_time_embedding", True, "time embeddings"),
-    ("rec_only_last_layer", True, "rec_only_last_layer")])
+    ("edge_partition", True, "boundary"),
+    ("edge_partition", "boundary", "boundary"),
+    ("dp_size", 2, "data parallelism"), ("spmm_method", "onehot", "onehot")])
 def test_bf16_outside_the_slice_raises(field, value, what):
+    if field == "spmm_method":
+        from temp_tpu_torch.ops.segment import rel_spmm
+
+        rs = np.random.RandomState(0)
+        h, w = (torch.from_numpy(rs.standard_normal(s).astype(np.float32))
+                for s in ((6, 4), (3, 4)))
+        edges = [torch.tensor(x) for x in ([0, 1, 2], [1, 2, 3], [0, 1, 2],
+                                           [True, True, False])]
+        with pytest.raises(NotImplementedError, match=what):
+            rel_spmm(h, *edges, w, 4, 4, 6, dtype=BF, method=value)
+        rel_spmm(h, *edges, w, 4, 4, 6, method=value)
+        return
     over = {field: value}
+    if field == "edge_partition":
+        over["mp_size"] = 2
     with pytest.raises(NotImplementedError, match=what):
         TKGConfig(compute_dtype="bfloat16", **over)
-    TKGConfig(compute_dtype="float32", **over)
 
 
 # the values whose bfloat16 mode is ported: the step-by-step windows, K11,
-# K12 and the partitions with K13 (tests/test_torch_bf16_k11_k12_k13.py)
+# K12 and the partitions with K13 (tests/test_torch_bf16_k11_k12_k13.py),
+# and every model, decoder, pool and option with K1's bfloat16 mode
+# (tests/test_torch_bf16_k1_models.py)
 @pytest.mark.parametrize("field,value", [
     ("random_dropout", True), ("edge_dropout", True), ("fused_eval", True),
     ("fused_eval", "auto"), ("fused_window_mb", True),
-    ("fused_window_mb", "auto"), ("edge_partition", "ring_pallas")])
+    ("fused_window_mb", "auto"), ("edge_partition", "ring_pallas"),
+    ("module", "SARGCN"), ("module", "BiRRGCN"), ("module", "RRGCN"),
+    ("score_function", "distmult"), ("score_function", "transE"),
+    ("negative_pool", "shared"), ("negative_pool", "per_query"),
+    ("module", "BiSARGCN"), ("module", "SRGCN"), ("module", "DE"),
+    ("type1", True), ("learnable_lambda", True),
+    ("use_time_embedding", True), ("rec_only_last_layer", True)])
 def test_bf16_takes_the_ported_values(field, value):
     over = {field: value}
     if field == "edge_partition":
@@ -612,7 +635,7 @@ def test_bf16_in_the_slice_and_auto_stays_f32():
     for dt in ("auto", "float32", "f32", None):
         assert TKGConfig(compute_dtype=dt).hot_dtype is None
     # "auto" resolves to bfloat16 on an accelerator in the JAX package; the
-    # port keeps float32 until every path has a bfloat16 mode
+    # port keeps float32 for now (ROADMAP.md Queue 1)
     assert JaxConfig(compute_dtype="auto").hot_dtype is None  # the CPU here
     with pytest.raises(NotImplementedError, match="float16"):
         TKGConfig(compute_dtype="float16")
@@ -719,7 +742,8 @@ def test_cli_trains_and_evaluates_in_bf16(tmp_path, capsys):
     """``python -m temp_tpu_torch.main --compute-dtype bfloat16`` (in this
     process) trains an epoch of GRRGCN with the fused final step's plain
     versions (``--fused-final on``) and evaluates it; the run's config
-    keeps the dtype."""
+    keeps the dtype. A bfloat16 run of what the port lacks (the
+    "boundary" partition) raises."""
     import json
     import os
 
@@ -739,8 +763,9 @@ def test_cli_trains_and_evaluates_in_bf16(tmp_path, capsys):
         "bfloat16"
     test = json.load(open(run / "test_metrics.json"))
     assert test["n"] > 0 and 0.0 < test["mrr"] <= 1.0
-    with pytest.raises(NotImplementedError, match="only GRRGCN"):
+    with pytest.raises(NotImplementedError, match="boundary"):
         tt.run_cli(["-c", os.path.join(tt.ROOT, "grid", "icews14",
                                        "config_sargcn.json"),
-                    "--device", "cpu", "--compute-dtype", "bfloat16"],
+                    "--device", "cpu", "--compute-dtype", "bfloat16",
+                    "--edge-partition", "boundary", "--mp-size", "2"],
                    capsys)

@@ -68,6 +68,12 @@ from test_torch_post import _xla_unoptimized
 from test_torch_slice import one_thread  # noqa: F401
 from test_torch_train import _COT, _pairs, _torch_params, _window_case
 
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 # a competitor within this of the target's score is a near-tie (as in
 # tests/test_torch_bf16.py)
 NEAR_TIE = 1e-3

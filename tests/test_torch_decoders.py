@@ -52,6 +52,13 @@ from test_torch_post import _open, _xla_unoptimized, jax_draws_scan
 from test_torch_selfattn import jax_draws_sa
 from test_torch_train import _close, _pairs, _torch_params
 
+from test_torch_slice import one_thread  # noqa: F401
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 KW = dict(embed_size=16, hidden_size=16, n_bases=16, train_seq_len=3,
           batch_size=2, seed=0, num_pos_facts=100, dropout=0.1,
           negative_rate=8, neg_oversample=8)
@@ -59,10 +66,21 @@ DATA = dict(num_ents=30, num_rels=4, num_times=10, edge_pad_multiple=16,
             edges_per_time=25)
 T_POS = [5, 2]
 DECODERS = ("complex", "distmult", "transE")
+
+
 POOLS = ("all", "shared", "per_query")
 MODELS = {"grrgcn": {"module": "GRRGCN"},
           "ted": {"module": "GRRGCN", "impute": True, "post_ensemble": True},
           "sargcn": {"module": "SARGCN"}}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_unoptimized():
+    """XLA's optimizations off while this file's JAX references compile
+    and run op by op (``_xla_unoptimized``)."""
+    with _xla_unoptimized():
+        yield
+
 
 
 def jax_loss_draws(cfg, data, t: int, r_loss):

@@ -71,6 +71,12 @@ from test_torch_train import (
     _close, _pairs, _torch_params, _window_case, _write_dataset, run_cli,
 )
 
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

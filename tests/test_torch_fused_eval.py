@@ -45,6 +45,13 @@ from test_torch_flagship import _open_impute, jax_draws_bi
 from test_torch_post import _xla_unoptimized
 from test_torch_train import _close, _pairs, _torch_params, jax_draws
 
+from test_torch_slice import one_thread  # noqa: F401
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 @pytest.fixture(scope="module", autouse=True)
 def _jax_unoptimized():
     """XLA's optimizations off while this file's JAX references compile

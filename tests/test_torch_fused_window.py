@@ -23,6 +23,13 @@ from temp_tpu_torch.config import TKGConfig
 from temp_tpu_torch.ops.fused_window import fused_window_fwd, fused_window_scan
 from test_torch_post import _xla_unoptimized
 
+from test_torch_slice import one_thread  # noqa: F401
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ATOL = 1e-5
 T_POS = [5, 7, 2, 0]
 KW = dict(embed_size=16, hidden_size=16, n_bases=16, train_seq_len=4,

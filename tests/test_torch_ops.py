@@ -29,6 +29,13 @@ from temp_tpu_torch.ops.fused_window import (
 from temp_tpu_torch.ops.segment import in_degree_norm, rel_spmm
 from temp_tpu_torch.ops.spmm import build_csr, spmm_fwd, spmm_fwd_plain
 
+from test_torch_slice import one_thread  # noqa: F401
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ATOL = 1e-5
 
 

@@ -59,6 +59,12 @@ from test_torch_train import (
     _close, _pairs, _torch_params, _window_case, _write_dataset, run_cli,
 )
 
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(embed_size=16, hidden_size=16, n_bases=16, train_seq_len=3,
           batch_size=2, seed=0, num_pos_facts=100, dropout=0.1, lr=0.01)
@@ -150,16 +156,35 @@ def _open(params, flags):
 
 
 @contextmanager
-def _xla_unoptimized():
+def _xla_unoptimized(off: bool = True):
     """XLA's optimizations off while the JAX references compile (about a
-    third less compile time; the same arithmetic up to float32 rounding)."""
+    third less compile time; the same arithmetic up to float32 rounding);
+    `off` False turns them back on inside (``xla_default``)."""
     key = "jax_disable_most_optimizations"
     old = jax.config.values[key]
-    jax.config.update(key, True)
+    jax.config.update(key, off)
     try:
         yield
     finally:
         jax.config.update(key, old)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_unoptimized():
+    """XLA's optimizations off while this file's JAX references compile
+    and run op by op (``_xla_unoptimized``), but in the tests that take
+    ``xla_default``."""
+    with _xla_unoptimized():
+        yield
+
+
+@pytest.fixture
+def xla_default():
+    """XLA's default optimizations for a test that runs optax's Adam steps
+    (ROADMAP.md's test-time rule: the switch moves such a trajectory's
+    entries by float32 roundings)."""
+    with _xla_unoptimized(False):
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -336,7 +361,7 @@ def test_eval_ranks_match_reference(jax_side, variant):
 
 # -- TED's optimizer steps, the parameter tree, checkpoints and the CLI ------
 
-def test_ted_three_optimizer_steps_match_optax(jax_side):
+def test_ted_three_optimizer_steps_match_optax(jax_side, xla_default):
     """Three of the port's train_steps of TED (BiGRRGCN --impute
     --post-ensemble) held to JAX on one trajectory, as the flagship's test
     does: at each step JAX's loss and gradients at the port's current

@@ -31,6 +31,13 @@ from temp_tpu_torch.train.optim import param_leaves
 from temp_tpu_torch.utils.tbevents import read_scalars
 from test_torch_train import _write_dataset
 
+from test_torch_slice import one_thread  # noqa: F401
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TB_TAGS = {"train/loss", "val/mrr", "val/hit_1", "val/hit_3", "val/hit_10",
            "val/loss", "time/train_s", "time/eval_s"}

@@ -62,6 +62,12 @@ from test_torch_train import run_cli
 from temp_tpu_torch.train.optim import param_leaves
 
 
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _jax_unoptimized():
     """XLA's optimizations off while this file's JAX references compile

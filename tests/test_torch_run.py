@@ -22,6 +22,13 @@ from temp_tpu_torch.train.loop import Trainer
 from temp_tpu_torch.train.optim import clip_by_global_norm, param_leaves
 from test_torch_train import ROOT, _write_dataset
 
+from test_torch_slice import one_thread  # noqa: F401
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 FLAG_SETS = [{}, {"impute": True},
              {"rec_only_last_layer": True, "ema": True},
              {"edge_dropout": True, "random_dropout": True, "type1": True},
@@ -87,7 +94,8 @@ def test_unported_config_values_raise(field, value, what):
     """Values that need an unported kernel or module raise, naming it. K11
     (fused_eval) and K12 (fused_window_mb) are ported: their values are
     accepted and resolve as the JAX package's do, "auto" on for the
-    accelerator and off for the CPU (the JAX backend here is the CPU)."""
+    accelerator and off for the CPU (the JAX backend here is the CPU);
+    so is bfloat16 for every module (SARGCN's among them)."""
     if what in ("K11", "K12"):
         cfg = TKGConfig(**{field: value})
         on = getattr(cfg, f"{field}_on")
@@ -96,8 +104,12 @@ def test_unported_config_values_raise(field, value, what):
         assert on("cuda")
         assert not getattr(TKGConfig(), f"{field}_on")("cuda")  # default off
         return
-    # bfloat16 runs GRRGCN only: a bfloat16 config outside its slice
-    more = {"module": "SARGCN"} if field == "compute_dtype" else {}
+    if field == "compute_dtype":
+        # every module has its bfloat16 mode now: the config builds
+        assert TKGConfig(**{field: value}, module=what).hot_dtype == (
+            torch.bfloat16)
+        return
+    more = {}
     with pytest.raises(NotImplementedError, match=what):
         TKGConfig(**{field: value}, **more)
     TKGConfig(**{field: getattr(TKGConfig(), field)}, **more)

@@ -16,6 +16,13 @@ from temp_tpu.ops.sampling import subsample_edges as jax_subsample_edges
 from temp_tpu.ops.sampling import subsample_positives as jax_subsample_pos
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 
+from test_torch_slice import one_thread  # noqa: F401
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 
 def _masks(seed=0):
     rs = np.random.RandomState(seed)

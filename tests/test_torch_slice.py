@@ -27,6 +27,12 @@ from temp_tpu_torch.data.snapshots import make_synthetic, to_device
 from temp_tpu_torch.models.registry import get_model
 from temp_tpu_torch.train.loop import Trainer
 
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(embed_size=16, hidden_size=16, n_bases=16, train_seq_len=4,
           batch_size=3, seed=0, dropout=0.0)
@@ -249,6 +255,10 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
     res.update(bf16_k13=chip_smoke.phase_bf16_k13(rctx),
                bf16_ring=chip_smoke.phase_bf16_ring(
                    rctx, res["ring_path"], res["ring_train"]))
+    res.update(bf16_k1=chip_smoke.phase_bf16_k1(ctx),
+               bf16_spmm_pallas=chip_smoke.phase_bf16_spmm_pallas(
+                   ctx, bf16_path))
+    res.update(chip_smoke.bf16_zoo_phases(ctx))
     line = chip_smoke.kernels_line(res)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -262,9 +272,33 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
         "fused_final_bwd_layer_bf16", "bi_layer_fwd_bf16", "bi_loss_fwd_bf16",
         "bi_layer_bwd_bf16", "fused_eval_ranks_bf16",
         "fused_window_mb_fwd_bf16", "ring_spmm_fwd_bf16",
-        "ring_spmm_bwd_bf16"]
-    assert [k["id"] for k in line["kernels"]][-4:] == [
-        "K11_bf16", "K12_bf16", "K13_bf16", "K13b_bf16"]
+        "ring_spmm_bwd_bf16", "spmm_fwd_bf16", "spmm_bwd_bf16"]
+    assert [k["id"] for k in line["kernels"]][-6:] == [
+        "K11_bf16", "K12_bf16", "K13_bf16", "K13b_bf16", "K1f_bf16",
+        "K1b_bf16"]
+    # K1's bfloat16 mode at every shape of K1's phases, the attention
+    # history's and the RRGCN window step's, forward and backward: the
+    # plain versions against themselves on the CPU, run twice
+    b1 = res["bf16_k1"]
+    assert {"final", "table", "train", "sa_history", "sa_compact",
+            "rrgcn_window", "bwd_train", "bwd_final", "bwd_sa_history",
+            "bwd_rrgcn_window_sub"} <= set(b1)
+    assert all(c["bitwise"] and c["scaled_err"] == 0.0 and c["bound_ms"] > 0
+               for c in b1.values())
+    assert set(line["kernels"][-2]["cases"]) == {
+        t for t in b1 if not t.startswith("bwd_")} - {"final"}
+    # the method "pallas" in bfloat16: GRRGCN's sweep and SARGCN's steps
+    # and sweep against their plain versions; every config lifted from
+    # float32-only in bfloat16, kernels against plain
+    bs = res["bf16_spmm_pallas"]
+    assert bs["eval_kernels"]["mrr"] == bs["eval_plain"]["mrr"]
+    assert bs["sa_train"]["max_rel_gap"] <= chip_smoke.TRAIN_TOL
+    assert set(res["bf16_zoo"]) == {t for t, *_ in chip_smoke._BF16_ZOO}
+    assert all(r["model"] for r in res["bf16_zoo"].values())
+    assert set(res["bf16_baselines"]) == set(chip_smoke._BASELINE_MODULES)
+    assert all(r["max_rel_gap"] == 0.0
+               for r in res["bf16_baselines"].values())
+    assert res["bf16_agg_train"]["gate_leaves_moved"] == 8
     assert line["kernels"][0]["id"] == "K1f"
     # the bfloat16 modes' plain versions against themselves on the CPU
     assert all(r == 0.0 for c in bf16_kernels.values()

@@ -31,6 +31,13 @@ from temp_tpu_torch.ops.spmm import (
 )
 from temp_tpu_torch.parallel.edge_partition import ring_geometry
 
+from test_torch_slice import one_thread  # noqa: F401
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ATOL = 1e-5
 DATA = dict(num_ents=40, num_rels=4, num_times=6, edges_per_time=30,
             edge_pad_multiple=16)
@@ -240,9 +247,9 @@ def _record(monkeypatch):
     calls = []
     real = segment.spmm
 
-    def record(h, src, dst, rel, emask, weight, tables=None):
+    def record(h, src, dst, rel, emask, weight, tables=None, hot=None):
         calls.append((src, dst, rel, emask, tables))
-        return real(h, src, dst, rel, emask, weight, tables=tables)
+        return real(h, src, dst, rel, emask, weight, tables=tables, hot=hot)
 
     monkeypatch.setattr(segment, "spmm", record)
     return calls

@@ -27,6 +27,13 @@ that ``chip_smoke.py`` leaves out).
 import numpy as np
 import pytest
 
+from test_torch_slice import one_thread  # noqa: F401
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 TOL = 1e-6
 
 

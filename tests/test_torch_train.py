@@ -48,6 +48,13 @@ from temp_tpu_torch.ops.spmm import spmm_bwd, spmm_fwd
 from temp_tpu_torch.train.loop import Trainer
 from temp_tpu_torch.train.optim import make_optimizer, param_leaves
 
+from test_torch_slice import one_thread  # noqa: F401
+
+# one intra-op thread for each test (``one_thread``): with the tier-1
+# run's workers on the same cores, torch's thread pools make each small op
+# wait on the others' threads
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
 KW = dict(embed_size=16, hidden_size=16, n_bases=16, train_seq_len=4,
@@ -493,7 +500,7 @@ def test_epoch_randomness_depends_on_seed_and_epoch_only():
 def test_main_cli_fast_dev_run_on_cpu(tmp_path):
     root = _write_dataset(tmp_path / "data")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["CUDA_VISIBLE_DEVICES"] = ""
+    env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "temp_tpu_torch.main", "-c",
          os.path.join(ROOT, "grid", "icews14", "config_grrgcn.json"),
