@@ -513,6 +513,8 @@ def phase_setup(device, num_ents=7128, num_rels=230, num_times=365,
     from temp_tpu_torch.train.loop import Trainer
 
     root = os.path.dirname(os.path.abspath(__file__))
+    # the phases name their dtype: "auto" is bfloat16 on the card
+    cfg_over = {"compute_dtype": "float32", **cfg_over}
     cfg = TKGConfig.from_json_file(
         os.path.join(root, "grid", "icews14", config), fused_window=True,
         **cfg_over)
@@ -786,6 +788,7 @@ def _reset_counts() -> None:
     for fn in _counters():
         fn.launches = 0
     spmm_fwd.launches_bf16 = spmm_bwd.launches_bf16 = 0
+    spmm_fwd.launches_onehot = spmm_bwd.launches_onehot = 0
     ring_spmm_fwd.csr_builds = spmm_fwd.csr_builds = 0
 
 
@@ -807,13 +810,16 @@ def _k1_csr_builds() -> int:
 
 def _counts() -> dict:
     """Every kernel's launches since the last reset, and K1's in its
-    bfloat16 mode apart ("spmm_fwd_bf16", "spmm_bwd_bf16": the wrappers
-    count both modes in ``launches``)."""
+    bfloat16 modes apart ("spmm_fwd_bf16", "spmm_bwd_bf16": the wrappers
+    count every mode in ``launches``; "spmm_fwd_onehot", "spmm_bwd_onehot"
+    the "onehot" rounding's among the bfloat16 ones)."""
     from temp_tpu_torch.ops.spmm import spmm_bwd, spmm_fwd
 
     out = {fn.__name__: fn.launches for fn in _counters()}
     out["spmm_fwd_bf16"] = spmm_fwd.launches_bf16
     out["spmm_bwd_bf16"] = spmm_bwd.launches_bf16
+    out["spmm_fwd_onehot"] = spmm_fwd.launches_onehot
+    out["spmm_bwd_onehot"] = spmm_bwd.launches_onehot
     return out
 
 
@@ -4536,6 +4542,23 @@ def _paths(res: dict) -> dict:
     out["fit_train"] = res["preempt"]["launches_a_step"]
     out["fit_eval"] = res["preempt"]["launches_a_sweep"]
     out["predictions_eval"] = res["predictions"]["kernels"]["launches"]
+    # the default dtype's steps, the "onehot" rounding's, the partitions'
+    if "auto_dtype" in res:
+        for tag in ("grrgcn", "flagship"):
+            out[f"auto_{tag}_train"] = res["auto_dtype"][tag]["launches"]
+    if "onehot_bf16" in res:
+        out["onehot_bf16_train"] = res["onehot_bf16"]["steps"]["kernels"][
+            "launches"]
+    if "boundary" in res:
+        for dt, pre in (("float32", ""), ("bfloat16", "bf16_")):
+            for part in ("train", "eval"):
+                out[f"{pre}boundary_{part}"] = res["boundary"][dt][part][
+                    "kernels"]["launches"]
+        out["dp_mesh_train"] = res["dp_mesh"]["train"]["kernels"]["launches"]
+        for mode in ("ring_pallas", "boundary"):
+            for part in ("train", "eval"):
+                out[f"flagship_{mode}_{part}"] = res["flagship_partition"][
+                    part][mode]["launches"]
     return out
 
 
@@ -4692,11 +4715,41 @@ def kernels_line(res: dict) -> dict:
                             **{k: m[k] for k in keys}})
     rec += _kernels_bf16_last(res)
     rec += _kernels_bf16_k1(res)
+    rec += _kernels_onehot(res)
     for r in rec:
+        if "id" in r:
+            continue
         base = r["name"][:-len("_bf16")] if r["name"].endswith(
             "_bf16") else r["name"]
         r["id"] = _IDS[base] + ("_bf16" if base != r["name"] else "")
     return {"kernels": rec}
+
+
+def _kernels_onehot(res: dict) -> list:
+    """The records of K1f's and K1b's "onehot" rounding (the SpMM method
+    "onehot" in bfloat16; JAX computes it with XLA ops, no Pallas kernel),
+    when phase onehot_bf16 ran: their numbers at the final step's shape
+    (K1b the training final step's; ``cases`` the other shapes) and their
+    launches on GRRGCN's unfused bfloat16 training steps under that
+    method."""
+    if "onehot_bf16" not in res:
+        return []
+    oh = res["onehot_bf16"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "bound_share", "shape", "bitwise", "scaled_err")
+    rec = []
+    for name, tag, others in (("spmm_fwd", "final", ("table", "train")),
+                              ("spmm_bwd", "bwd_train", ("bwd_final",))):
+        n = oh["steps"]["kernels"]["launches"][f"{name}_onehot"]
+        rec.append({
+            "name": f"{name}_onehot_bf16",
+            "id": _IDS[name] + "_onehot_bf16", "route": "cuda",
+            "source": "temp_tpu_torch/csrc/spmm_bf16.cu",
+            "replaces": "temp_tpu/ops/segment.py:165",
+            "launches": n, "launches_by_path": {"onehot_bf16_train": n},
+            **{k: oh[tag][k] for k in keys},
+            "cases": {t: {k: oh[t][k] for k in keys} for t in others}})
+    return rec
 
 
 def _kernels_bf16_last(res: dict) -> list:
@@ -6239,6 +6292,443 @@ def run_phases(ctx) -> dict:
     return res
 
 
+# -- "auto" on the card, "onehot" in bfloat16 ---------------------------------
+
+AUTO_STEPS = 2   # the auto_dtype phase's steps of each model
+PART_STEPS = 4   # the dp_mesh and flagship_partition phases' steps
+
+
+def phase_auto_dtype(ctx, fctx) -> dict:
+    """compute_dtype "auto" (the grid configs' and the CLI's default) on
+    the card: the training CLI's parse keeps "auto", ``get_model``
+    resolves it for the device (bfloat16 on CUDA, float32 on the CPU);
+    AUTO_STEPS default training steps of GRRGCN and of the flagship with
+    it launch their fused kernels as many times a step as bf16_path's and
+    bf16_flagship_path's (_BF16_STEP, _BF16_FLAGSHIP_STEP) and give their
+    losses bit for bit: the bfloat16 modes on the same weights and draws.
+    The explicit "float32" of the other phases stays float32."""
+    from temp_tpu_torch import main as port_main
+
+    dev = ctx["device"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    cli_cfg, cli_dev = port_main.parse_args(
+        ["-c", os.path.join(here, "grid", "icews14", "config_grrgcn.json")])
+    want_dtype = "bfloat16" if dev.type == "cuda" else "float32"
+    res = {"cli_compute_dtype": cli_cfg.compute_dtype, "cli_device": cli_dev,
+           "cli_resolved": cli_cfg.for_device(dev).compute_dtype}
+    if (cli_cfg.compute_dtype, cli_dev) != ("auto", "cuda") \
+            or res["cli_resolved"] != want_dtype:
+        raise AssertionError(f"auto dtype: the CLI's default {res}")
+    for tag, c, step, banned in (
+            ("grrgcn", ctx, _BF16_STEP, _NOT_BF16),
+            ("flagship", fctx, _BF16_FLAGSHIP_STEP, _NOT_BF16_FLAGSHIP)):
+        cfg = c["cfg"].replace(compute_dtype="auto")
+        model, run, *_ = _train_path(dict(c, train_steps=AUTO_STEPS), cfg)
+        run["resolved"] = model.cfg.compute_dtype
+        ref = c["bf16_ref"]["losses"][:AUTO_STEPS]
+        run["bitwise_to_bf16_path"] = run["losses"] == ref
+        run["gap_to_f32"] = abs(run["losses"][0] - c["train_ref"]["losses"][0])
+        res[tag] = run
+        print(f"  auto {tag}: {run}", flush=True)
+        if run["resolved"] != want_dtype:
+            raise AssertionError(f"auto {tag}: resolved to {run['resolved']}")
+        if dev.type != "cuda":
+            continue
+        n = run["launches"]
+        got = {k: n[k] for k in step}
+        if got != {k: v * AUTO_STEPS for k, v in step.items()} or any(
+                n[k] for k in banned) or n["spmm_fwd"]:
+            raise AssertionError(f"auto {tag}: launches {n}, want {step} a "
+                                 f"step")
+        if not run["bitwise_to_bf16_path"]:
+            raise AssertionError(f"auto {tag}: losses {run['losses']} are "
+                                 f"not the bfloat16 path's {ref}")
+    return res
+
+
+def _onehot_library(h, src, dst, rel, em, w, n2=None, g=None):
+    """The library's call for the "onehot" rounding's work: one
+    ``index_add_`` of the same rounded scaled messages (forward), or of
+    the same rounded dh terms (backward, with the forward's norm n2 and
+    the cotangent g; the weights' bfloat16 sum is the kernel's own)."""
+    import torch
+
+    BF = torch.bfloat16
+
+    def rb(x):
+        return x.to(BF).to(torch.float32)
+
+    emf = em.to(torch.float32)[:, None]
+    if g is None:
+        deg = torch.zeros(h.shape[0], device=h.device).index_add_(
+            0, dst.long(), emf[:, 0])
+        norm = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0), 0.0)
+        msg = rb(rb(rb(h[src.long()].float()) * rb(w[rel.long()]))
+                 * rb(norm[dst.long()][:, None] * emf))
+        out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+        return lambda: out.zero_().index_add_(0, dst.long(), msg)
+    dmsg = rb(rb(g * n2[:, None])[dst.long()]
+              * rb(n2[dst.long()][:, None] * emf))
+    terms = rb(dmsg * rb(w[rel.long()]))
+    out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    return lambda: out.zero_().index_add_(0, src.long(), terms)
+
+
+def phase_onehot_bf16(ctx) -> dict:
+    """K1's "onehot" rounding (the SpMM method "onehot" in bfloat16: the
+    launchers' onehot flag of csrc/spmm_bf16.cu) at K1's main-path shapes
+    (``_k1_cases``: the final step, the conv1 table, the training final
+    step), forward and backward, on the operands the path hands it: one
+    launch a call, no sort, no host sync; two runs bit-equal; within
+    K1_TOL of the largest entry of its plain version; times, bounds and
+    the library's ``index_add_`` of the same rounded values. Then
+    GRRGCN's unfused bfloat16 training (fused_final off: the final step
+    one element at a time through K1) for AUTO_STEPS steps under the
+    method "onehot", kernels against plain: losses within TRAIN_TOL, K1f
+    and K1b launched only in that rounding, 16 a step each."""
+    import numpy as np
+    import torch
+
+    from temp_tpu_torch.ops.spmm import (
+        _spmm_fwd, spmm_bwd, spmm_bwd_plain, spmm_fwd, spmm_fwd_plain,
+    )
+
+    BF = torch.bfloat16
+    dev = ctx["device"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for tag, args, tables in _k1_cases(ctx):
+        flat = _flat(args)
+        h, src, dst, rel, em, w = flat
+        k, nrm, _ = _one_launch(
+            lambda: _spmm_fwd(*args, tables=tables, hot=BF, onehot=True),
+            spmm_fwd, f"K1 onehot {tag}", dev)
+        again = _spmm_fwd(*args, tables=tables, hot=BF, onehot=True)[0]
+        ref = spmm_fwd_plain(*flat, hot=BF, onehot=True)
+        rec = {"shape": f"N={h.shape[0]} B={tables[1].numel()} "
+                        f"E={src.numel()} kept={int(em.sum())} "
+                        f"R={w.shape[0]} d={h.shape[1]}, bf16 onehot",
+               "max_abs_err": max_err(k, ref),
+               "scaled_err": _k1_scaled_err(k, ref),
+               "bitwise": bool(torch.equal(k, again)),
+               "ms": time_ms(lambda: spmm_fwd(*args, tables=tables, hot=BF,
+                                              onehot=True), dev),
+               "plain_ms": time_ms(lambda: spmm_fwd_plain(
+                   *flat, hot=BF, onehot=True), dev, reps=5),
+               "library_ms": time_ms(_onehot_library(*flat), dev)}
+        rec["bound_ms"], rec["bound_by"] = _k1_bf16_bound(
+            h, src, dst, rel, em, h.shape[0], w.shape[0], 4, False)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        out[tag] = rec
+        print(f"  K1 onehot {tag}: {rec}", flush=True)
+        if not (rec["scaled_err"] <= K1_TOL and rec["bitwise"]):
+            raise AssertionError(f"K1 onehot {tag}: {rec}")
+        if tag == "table":
+            continue
+        g = torch.randn(h.shape, generator=gen, device=dev)
+        dh, dw = _one_launch(
+            lambda: spmm_bwd(g, nrm, *args, tables=tables, hot=BF,
+                             onehot=True), spmm_bwd, f"K1b onehot {tag}",
+            dev)
+        ah, aw = spmm_bwd(g, nrm, *args, tables=tables, hot=BF, onehot=True)
+        rh, rw = spmm_bwd_plain(g, nrm, *flat, hot=BF, onehot=True)
+        rec = {"shape": out[tag]["shape"],
+               "max_abs_err": max(max_err(dh, rh), max_err(dw, rw)),
+               "scaled_err": max(_k1_scaled_err(dh, rh),
+                                 _k1_scaled_err(dw, rw)),
+               "bitwise": bool(torch.equal(dh, ah) and torch.equal(dw, aw)),
+               "ms": time_ms(lambda: spmm_bwd(g, nrm, *args, tables=tables,
+                                              hot=BF, onehot=True), dev),
+               "plain_ms": time_ms(lambda: spmm_bwd_plain(
+                   g, nrm, *flat, hot=BF, onehot=True), dev, reps=3),
+               "library_ms": time_ms(_onehot_library(*flat, n2=nrm, g=g),
+                                     dev)}
+        rec["bound_ms"], rec["bound_by"] = _k1_bf16_bound(
+            h, src, dst, rel, em, h.shape[0], w.shape[0], 4, True)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        out[f"bwd_{tag}"] = rec
+        print(f"  K1b onehot {tag}: {rec}", flush=True)
+        if not (rec["scaled_err"] <= K1_TOL and rec["bitwise"]):
+            raise AssertionError(f"K1b onehot {tag}: {rec}")
+    cfg = ctx["cfg"].replace(compute_dtype="bfloat16", fused_final=False)
+    tctx = dict(ctx, train_steps=AUTO_STEPS)
+    runs = {}
+    with spmm_method("onehot"):
+        for name, kernels in (("kernels", True), ("plain", False)):
+            _, runs[name], *_ = _train_path(tctx,
+                                            cfg.replace(kernels=kernels))
+            print(f"  onehot train {name}: {runs[name]}", flush=True)
+    x, y = (np.array(runs[n]["losses"]) for n in ("kernels", "plain"))
+    gap = float(np.max(np.abs(x - y) / np.maximum(1.0, np.abs(y))))
+    n = runs["kernels"]["launches"]
+    per = 2 * ctx["cfg"].batch_size * AUTO_STEPS
+    if not (np.isfinite(x).all() and gap <= TRAIN_TOL):
+        raise AssertionError(f"onehot train: losses {x} against {y}")
+    if dev.type == "cuda" and {k: n[k] for k in (
+            "spmm_fwd", "spmm_fwd_onehot", "spmm_bwd", "spmm_bwd_onehot")} \
+            != dict.fromkeys(("spmm_fwd", "spmm_fwd_onehot", "spmm_bwd",
+                              "spmm_bwd_onehot"), per):
+        raise AssertionError(f"onehot train: K1 launches {n}, want {per} "
+                             f"of K1f and K1b, all in the onehot rounding")
+    if any(runs["plain"]["launches"].values()):
+        raise AssertionError(f"onehot plain train: {runs['plain']}")
+    out["steps"] = dict(runs, max_rel_gap=gap)
+    return out
+
+
+# -- the boundary exchange, the data axis, the flagship under partitions ------
+
+def _partition_ctx(c, mode: str, dp: int = 1, **extra) -> dict:
+    """The context `c` (GRRGCN's or the flagship's) with
+    edge_partition=`mode` over RING_M ranks and a data axis of `dp`, all
+    on the smoke's device: its data in the partition's layout
+    (ring_layout), the mesh, the same seeded weights."""
+    from temp_tpu_torch.data.snapshots import ring_layout
+    from temp_tpu_torch.parallel.mesh import make_mesh
+
+    dev = c["device"]
+    cfg = c["cfg"].replace(edge_partition=mode, mp_size=RING_M, dp_size=dp)
+    data = ring_layout(cfg, c["data"])
+    return dict(c, cfg=cfg, data=data,
+                mesh=make_mesh(dp, RING_M, devices=[dev] * (dp * RING_M)),
+                **extra)
+
+
+def _boundary_calls(c, shards: int = 1) -> dict:
+    """The SpMM calls of a training step (all B elements valid) and of a
+    valid sweep of c's model under a partition: two layers a window step
+    (one call for the shard's graphs side by side; the Bi models' two
+    windows) and two an element in the final step."""
+    L1, B, T = c["L1"], c["B"], c["T"]
+    windows = 2 if c["cfg"].module.startswith("Bi") else 1
+    win = 2 * L1 * windows
+    return {"step": shards * win + 2 * B,
+            "sweep": -(-T // B) * (win + 2 * B)}
+
+
+def _k1_ranks_ok(dev, run: dict, calls: int, tag: str,
+                 train: bool) -> None:
+    """A boundary run launched K1 (float32, over the data's tables of the
+    ranks' slices: no sort in a call) RING_M times a call (K1b as many,
+    training; none in a sweep), and none of K2-K13."""
+    n = run["launches"]
+    want = RING_M * calls
+    banned = [k for k in _NOT_ON_RING + ("ring_spmm_fwd", "ring_spmm_bwd")
+              if k not in ("spmm_fwd", "spmm_bwd") and n[k]]
+    if dev.type == "cuda" and (
+            n["spmm_fwd"] != want or n["spmm_bwd"] != (want if train else 0)
+            or n["spmm_fwd_bf16"] or n["spmm_bwd_bf16"] or banned
+            or run["k1_csr_builds"]):
+        raise AssertionError(f"{tag}: launches {n}, K1 sorted "
+                             f"{run['k1_csr_builds']} calls; want {want} of "
+                             f"K1f in float32 and nothing else")
+
+
+def _loss_gap(a, b) -> float:
+    import numpy as np
+
+    x, y = np.array(a["losses"]), np.array(b["losses"])
+    if not np.isfinite(x).all():
+        raise AssertionError(f"losses not finite: {x}")
+    return float(np.max(np.abs(x - y) / np.maximum(1.0, np.abs(y))))
+
+
+def phase_boundary(ctx, ring_path, ring_train) -> dict:
+    """GRRGCN with edge_partition="boundary" over RING_M ranks on the one
+    card (K1 in float32 a rank over the data's tables of its edge slice,
+    the cut rows read from the others), in float32 and in bfloat16 (the
+    cut rows arrive rounded): TRAIN_STEPS training steps and the valid
+    sweep with the kernels and with their plain versions, and in float32
+    under "psum" too: losses within TRAIN_TOL of each other and of
+    ring_train's ring_pallas run (float32; the same regrouped data and
+    draws), leaves within PARAM_TOL (BF16_PARAM_TOL in bfloat16) of the
+    plain path's change, MRR within MRR_TOL of each other and of
+    ring_path's; K1 launched RING_M times a call (_k1_ranks_ok). Beside
+    them the cut's capacities (Cg, Cc) and the rows a call moves, the
+    cut's against the ring's rotated shards."""
+    import numpy as np
+
+    from temp_tpu_torch.parallel.edge_partition import ring_geometry
+
+    bctx = _partition_ctx(ctx, "boundary")
+    data, dev = bctx["data"], bctx["device"]
+    N, A = ctx["N"], int(data.act_idx.shape[1])
+    bnd_g, bnd_c = np.asarray(data.bnd_g), np.asarray(data.bnd_c)
+    res = {"Cg": int(bnd_g.shape[-1]), "Cc": int(bnd_c.shape[-1]),
+           "cut_rows_final": float((bnd_g < N).sum((1, 2, 3)).mean()),
+           "cut_rows_window": float((bnd_c < A).sum((1, 2, 3)).mean()),
+           "ring_rows_final": RING_M * (RING_M - 1) * ring_geometry(
+               N, RING_M),
+           "ring_rows_window": RING_M * (RING_M - 1) * ring_geometry(
+               A, RING_M)}
+    res["rows_share_final"] = res["cut_rows_final"] / res["ring_rows_final"]
+    res["rows_share_window"] = (res["cut_rows_window"]
+                                / res["ring_rows_window"])
+    calls = _boundary_calls(bctx)
+    steps = bctx.get("train_steps", TRAIN_STEPS)
+    cfg = bctx["cfg"]
+    for dt, tol in (("float32", PARAM_TOL), ("bfloat16", BF16_PARAM_TOL)):
+        c = cfg.replace(compute_dtype=dt)
+        runs = (("kernels", c), ("plain", c.replace(kernels=False)))
+        if dt == "float32":
+            runs += (("psum", c.replace(edge_partition="psum")),)
+        train, finals, init, evals = {}, {}, None, {}
+        for name, rc in runs:
+            _, train[name], leaves, finals[name], _, _ = _train_path(bctx,
+                                                                      rc)
+            init = leaves if init is None else init
+            evals[name], _, _ = _sweep(bctx, rc)
+            print(f"  boundary {dt} {name}: train {train[name]}, eval "
+                  f"{evals[name]}", flush=True)
+        k = train["kernels"]
+        gaps = {f"kernels/{o}": _loss_gap(k, train[o]) for o in train
+                if o != "kernels"}
+        mrr = {f"kernels/{o}": abs(evals["kernels"]["mrr"] - evals[o]["mrr"])
+               for o in evals if o != "kernels"}
+        if dt == "float32":
+            gaps["kernels/ring_pallas"] = _loss_gap(k, ring_train["ring"])
+            mrr["kernels/ring_pallas"] = abs(evals["kernels"]["mrr"]
+                                             - ring_path["kernels"]["mrr"])
+            mrr["kernels/unpartitioned"] = abs(
+                evals["kernels"]["mrr"] - ring_path["unpartitioned"]["mrr"])
+        if not (all(g <= TRAIN_TOL for g in gaps.values())
+                and all(g <= MRR_TOL for g in mrr.values())):
+            raise AssertionError(f"boundary {dt}: loss gaps {gaps}, MRR "
+                                 f"gaps {mrr}")
+        names = tuple(n for n, _ in runs if n != "plain") + ("plain",)
+        out = {"train": train, "eval": evals, "loss_gaps": gaps,
+               "mrr_gaps": mrr,
+               "params": param_gaps(init, finals, names=names, tol=tol)}
+        _k1_ranks_ok(dev, k, calls["step"] * steps, f"boundary {dt} train",
+                     True)
+        _k1_ranks_ok(dev, evals["kernels"], calls["sweep"],
+                     f"boundary {dt} eval", False)
+        for name in ("plain",) + (("psum",) if dt == "float32" else ()):
+            if any(train[name]["launches"].values()) or any(
+                    evals[name]["launches"].values()):
+                raise AssertionError(f"boundary {dt} {name}: kernels "
+                                     f"launched")
+        res[dt] = out
+    res["loss_gap_bf16_to_f32"] = _loss_gap(res["bfloat16"]["train"][
+        "kernels"], res["float32"]["train"]["kernels"])
+    res["mrr_gap_bf16_to_f32"] = (res["bfloat16"]["eval"]["kernels"]["mrr"]
+                                  - res["float32"]["eval"]["kernels"]["mrr"])
+    ctx["boundary_ref"] = res["float32"]["eval"]["kernels"]
+    return res
+
+
+def phase_dp_mesh(ctx) -> dict:
+    """GRRGCN under "boundary" on a (2, RING_M) mesh (dp_size 2, every rank
+    on the one card): PART_STEPS Trainer steps with the kernels and with
+    their plain versions (each step's batch of B split into two shards of
+    B / 2, each with its own draws), losses within TRAIN_TOL, leaves within
+    PARAM_TOL of the plain path's change, K1 launched RING_M times a call
+    (each shard's window calls apart); one eval batch's MRR and BCE equal
+    to the (1, RING_M) mesh's within MRR_TOL and 1e-5 relative."""
+    import numpy as np
+    import torch
+
+    from temp_tpu_torch.models.objectives import metrics_from_ranks
+    from temp_tpu_torch.models.registry import get_model
+    from temp_tpu_torch.train.loop import Trainer
+
+    # a batch that splits in two (the smoke's 8)
+    B = 2 * (ctx["B"] // 2)
+    dctx = _partition_ctx(ctx, "boundary", dp=2, train_steps=PART_STEPS,
+                          B=B)
+    dctx["cfg"] = dctx["cfg"].replace(batch_size=B)
+    dev, cfg = dctx["device"], dctx["cfg"]
+    train, finals, init = {}, {}, None
+    for name, c in (("kernels", cfg), ("plain", cfg.replace(kernels=False))):
+        _, train[name], leaves, finals[name], tr, _ = _train_path(dctx, c)
+        init = leaves if init is None else init
+        print(f"  dp mesh {name}: {train[name]}", flush=True)
+    res = {"placement": dctx["mesh"].placement(), "train": train,
+           "max_rel_gap": _loss_gap(train["kernels"], train["plain"]),
+           "params": param_gaps(init, finals, names=("kernels", "plain")),
+           "eval_batch": tr.eval_batch()}
+    if not (res["max_rel_gap"] <= TRAIN_TOL and res["eval_batch"]
+            == 2 * (dctx["cfg"].eval_batch // 2) and tr.model.dp == 2):
+        raise AssertionError(f"dp mesh: {res}")
+    _k1_ranks_ok(dev, train["kernels"],
+                 _boundary_calls(dctx, shards=2)["step"] * PART_STEPS,
+                 "dp mesh train", True)
+    if any(train["plain"]["launches"].values()):
+        raise AssertionError("dp mesh plain: kernels launched")
+    # one eval batch on both meshes
+    t_pos = np.arange(B) + ctx["T"] // 2
+    out = {}
+    for tag, c in (("2x4", dctx), ("1x4", _partition_ctx(ctx, "boundary"))):
+        tr = Trainer(c["cfg"], get_model(c["cfg"], c["data"], device=dev),
+                     c["data"], mesh=c["mesh"])
+        with torch.no_grad():
+            ranks, mask, bce = tr.model.eval_ranks(
+                ctx["params"], tr.data, t_pos, np.ones(len(t_pos), bool),
+                "valid")
+        m = metrics_from_ranks(ranks.cpu().numpy()[None],
+                               mask.cpu().numpy()[None])
+        out[tag] = {"mrr": m["mrr"], "n": m["n"], "bce": float(bce)}
+    res["eval_batch_runs"] = out
+    a, b = out["2x4"], out["1x4"]
+    if not (a["n"] == b["n"] and abs(a["mrr"] - b["mrr"]) <= MRR_TOL
+            and abs(a["bce"] - b["bce"]) <= 1e-5 * max(1.0, abs(b["bce"]))):
+        raise AssertionError(f"dp mesh eval batch: {out}")
+    return res
+
+
+def phase_flagship_partition(fctx, flagship_path) -> dict:
+    """The flagship BiGRRGCN --impute under "ring_pallas" (K13 and K13b)
+    and "boundary" (K1 a rank) over RING_M ranks on the one card, on the
+    same regrouped data and draws: PART_STEPS training steps (both
+    windows step by step, the bi-center + impute final step one element
+    at a time, as the fused paths are off inside a partition) and the
+    valid sweep. The two modes' losses within TRAIN_TOL and leaves within
+    PARAM_TOL of each other's change, their MRR within MRR_TOL of each
+    other and of flagship_path's unpartitioned sweep; K13 RING_M and K13b
+    RING_M + 2 launches a call under ring_pallas, K1 RING_M a call under
+    boundary, and nothing else."""
+    train, evals, finals, init = {}, {}, {}, None
+    dev = fctx["device"]
+    for mode in ("ring_pallas", "boundary"):
+        pctx = _partition_ctx(fctx, mode, train_steps=PART_STEPS)
+        _, train[mode], leaves, finals[mode], _, _ = _train_path(
+            pctx, pctx["cfg"])
+        init = leaves if init is None else init
+        evals[mode], _, _ = _sweep(pctx, pctx["cfg"])
+        print(f"  flagship {mode}: train {train[mode]}, eval {evals[mode]}",
+              flush=True)
+    calls = _boundary_calls(pctx)
+    res = {"train": train, "eval": evals,
+           "max_rel_gap": _loss_gap(train["ring_pallas"], train["boundary"]),
+           "params": param_gaps(init, finals,
+                                names=("ring_pallas", "boundary")),
+           "mrr_gaps": {
+               "ring_pallas/boundary": abs(evals["ring_pallas"]["mrr"]
+                                           - evals["boundary"]["mrr"]),
+               "boundary/unpartitioned": abs(
+                   evals["boundary"]["mrr"]
+                   - flagship_path["kernels"]["mrr"])}}
+    if not (res["max_rel_gap"] <= TRAIN_TOL
+            and all(g <= MRR_TOL for g in res["mrr_gaps"].values())):
+        raise AssertionError(f"flagship partitions: {res['max_rel_gap']}, "
+                             f"{res['mrr_gaps']}")
+    _k1_ranks_ok(dev, train["boundary"], calls["step"] * PART_STEPS,
+                 "flagship boundary train", True)
+    _k1_ranks_ok(dev, evals["boundary"], calls["sweep"],
+                 "flagship boundary eval", False)
+    for tag, run, is_train in (("train", train["ring_pallas"], True),
+                               ("eval", evals["ring_pallas"], False)):
+        _ring_launches_ok(dev, run, f"flagship ring_pallas {tag}", is_train)
+        n = run["launches"]
+        want = calls["step"] * PART_STEPS if is_train else calls["sweep"]
+        if dev.type == "cuda" and (
+                n["ring_spmm_fwd"] != RING_M * want or n["ring_spmm_bwd"]
+                != ((RING_M + 2) * want if is_train else 0)):
+            raise AssertionError(f"flagship ring_pallas {tag}: {n}, want "
+                                 f"{want} calls")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -6363,6 +6853,13 @@ def main() -> int:
             bfp[f"param_max_rel_gap_{k}"] = max(
                 bfp["params"][k]["max_rel_gaps"].values())
     res["bf16_flagship_path"] = bfp
+    with phase("auto_dtype", {}) as au:
+        au.update(phase_auto_dtype(ctx, fctx))
+        for tag in ("grrgcn", "flagship"):
+            au[f"{tag}_resolved"] = au[tag]["resolved"]
+            au[f"{tag}_bitwise"] = au[tag]["bitwise_to_bf16_path"]
+            au[f"{tag}_ms_per_step"] = au[tag]["ms_per_step"]
+    res["auto_dtype"] = au
     with phase("bf16_k11", {}) as b11:
         b11.update(phase_bf16_k11(ctx, bp))
         for k in ("ms", "rms_ratio", "near_ties"):
@@ -6460,12 +6957,46 @@ def main() -> int:
         br["k13_launches"] = br["ring"]["launches"]["ring_spmm_fwd"]
         br["k13_bwd_launches"] = br["ring"]["launches"]["ring_spmm_bwd"]
     res["bf16_ring"] = br
+    with phase("boundary", {}) as bd:
+        bd.update(phase_boundary(ctx, rp, rt))
+        for dt in ("float32", "bfloat16"):
+            r = bd[dt]
+            bd[f"{dt}_ms_per_step"] = r["train"]["kernels"]["ms_per_step"]
+            bd[f"{dt}_mrr"] = r["eval"]["kernels"]["mrr"]
+            bd[f"{dt}_wall_s"] = r["eval"]["kernels"]["wall_s"]
+            bd[f"{dt}_k1_launches"] = r["eval"]["kernels"]["launches"][
+                "spmm_fwd"]
+    res["boundary"] = bd
+    with phase("dp_mesh", {}) as dm:
+        dm.update(phase_dp_mesh(ctx))
+        dm["ms_per_step"] = dm["train"]["kernels"]["ms_per_step"]
+        dm["k1_launches"] = dm["train"]["kernels"]["launches"]["spmm_fwd"]
+    res["dp_mesh"] = dm
+    with phase("flagship_partition", {}) as fpp:
+        fpp.update(phase_flagship_partition(fctx, fp))
+        for mode in ("ring_pallas", "boundary"):
+            fpp[f"{mode}_ms_per_step"] = fpp["train"][mode]["ms_per_step"]
+            fpp[f"{mode}_mrr"] = fpp["eval"][mode]["mrr"]
+            fpp[f"{mode}_wall_s"] = fpp["eval"][mode]["wall_s"]
+        fpp["k13_launches"] = fpp["train"]["ring_pallas"]["launches"][
+            "ring_spmm_fwd"]
+        fpp["k13b_launches"] = fpp["train"]["ring_pallas"]["launches"][
+            "ring_spmm_bwd"]
+    res["flagship_partition"] = fpp
     with phase("bf16_k1", {}) as b1:
         b1.update(phase_bf16_k1(ctx))
         for tag in [t for t in b1 if isinstance(b1[t], dict)]:
             b1[f"{tag}_ms"] = b1[tag]["ms"]
             b1[f"{tag}_scaled_err"] = b1[tag]["scaled_err"]
     res["bf16_k1"] = b1
+    with phase("onehot_bf16", {}) as oh:
+        oh.update(phase_onehot_bf16(ctx))
+        for tag in [t for t in oh if isinstance(oh[t], dict)
+                    and "ms" in oh[t]]:
+            oh[f"{tag}_ms"] = oh[tag]["ms"]
+            oh[f"{tag}_scaled_err"] = oh[tag]["scaled_err"]
+        oh["steps_max_rel_gap"] = oh["steps"]["max_rel_gap"]
+    res["onehot_bf16"] = oh
     with phase("bf16_spmm_pallas", {}) as bs:
         bs.update(phase_bf16_spmm_pallas(ctx, bp))
         for name in ("kernels", "plain"):

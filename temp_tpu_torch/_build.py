@@ -38,8 +38,8 @@ _F = ctypes.c_float
 # never cuts a 64-bit address to 32 bits)
 SIGNATURES = {
     # spmm_fwd(ptr, edge, tpos, n_times, mask, h, w, out, n2_out, B, n,
-    #          rows, cap, d, vec, h_bf16, stream)
-    "spmm_fwd_launch": [_P, _P, _P, _I] + [_P] * 5 + [_I] * 7 + [_P],
+    #          rows, cap, d, vec, h_bf16, onehot, stream)
+    "spmm_fwd_launch": [_P, _P, _P, _I] + [_P] * 5 + [_I] * 8 + [_P],
     # ring_fwd_step(ptr, edge, tpos, tpos_stride, n_times, mask,
     #               mask_stride, rank_ids, out_ids, h_visit, w, out, n2_out,
     #               B, nc, n_out, m, rows, cap, d, s, k, first, last, stream)
@@ -58,8 +58,9 @@ SIGNATURES = {
     # ring_dw_reduce(part, out, n_part, total, stream)
     "ring_dw_reduce_launch": [_P, _P, _I, _L, _P],
     # spmm_bwd(s_ptr, s_edge, r_ptr, r_edge, tpos, n_times, mask, g, n2, h,
-    #          w, dh, dw, B, n, rows, cap, n_rels, d, vec, h_bf16, stream)
-    "spmm_bwd_launch": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 8 + [_P],
+    #          w, dh, dw, B, n, rows, cap, n_rels, d, vec, h_bf16, onehot,
+    #          stream)
+    "spmm_bwd_launch": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 9 + [_P],
     # window_layer(x, conv_given, rowptr, src, rel, em, wrel, wstride, wcol,
     #              loop, mask, relu, wih_t, whh_t, bih, bhh, gidx, live, dt,
     #              lam, buf, loc, B, L1, A, d, x_bf16, k, stream)

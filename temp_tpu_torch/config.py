@@ -11,16 +11,16 @@ files, so one config file drives both packages. Differences:
 - ``kernels`` selects between each hand-written kernel and its plain PyTorch
   version on the card (the plain run is the reference the kernels are held
   against end to end);
-- ``compute_dtype="auto"`` resolves to float32 on every device (the JAX
-  package's resolves to bfloat16 on an accelerator): ``"bfloat16"`` runs
-  the hot contractions in bfloat16 (``hot_dtype``) in every model,
-  decoder, pool and option;
+- ``compute_dtype="auto"`` resolves on the model's device as the JAX
+  package's resolves on its backend: bfloat16 on CUDA, float32 on the CPU
+  (``for_device``, which ``models.registry.get_model`` applies; the config
+  a run saves keeps "auto"). ``"bfloat16"`` runs the hot contractions in
+  bfloat16 (``hot_dtype``) in every model, decoder, pool and option;
 - a field whose non-default value selects a path the port has not ported
   (``_UNPORTED``; a ``compute_dtype`` other than float32 or bfloat16;
-  the ``"boundary"`` edge partition, which
-  ``edge_partition=True`` selects; ``mp_size > 1`` without an edge
-  partition) raises ``NotImplementedError`` when the config is made,
-  naming what is missing, rather than quietly running another path.
+  ``mp_size > 1`` without an edge partition) raises
+  ``NotImplementedError`` when the config is made, naming what is
+  missing, rather than quietly running another path.
 """
 
 from __future__ import annotations
@@ -37,14 +37,12 @@ import torch
 # fields whose non-default values select paths the port has not ported:
 # (name, default, what that value needs)
 _UNPORTED = (
-    ("dp_size", 1, "data parallelism (the data mesh axis of "
-     "temp_tpu/parallel/edge_partition.py EdgePartitionedModel)"),
     ("distributed", False, "multi-process training "
-     "(temp_tpu/parallel/multihost.py)"),
+     "(temp_tpu/parallel/multihost.py; ROADMAP.md Queue 1 item 7)"),
 )
 
 # the edge-partition modes the port runs (ops/segment.py rel_spmm)
-PARTITION_MODES = ("psum", "ring", "ring_pallas")
+PARTITION_MODES = ("psum", "ring", "ring_pallas", "boundary")
 
 _F32 = ("float32", "f32", None)
 _BF16 = ("bfloat16", "bf16")
@@ -181,7 +179,7 @@ class TKGConfig:
         if value is True:
             return "boundary"
         mode = str(value)
-        if mode not in PARTITION_MODES + ("boundary",):
+        if mode not in PARTITION_MODES:
             raise ValueError(f"edge_partition={value!r}: not a mode")
         return mode
 
@@ -192,20 +190,12 @@ class TKGConfig:
         return self.edge_partition_mode is not None and int(self.mp_size) > 1
 
     def __post_init__(self):
-        mode = self.edge_partition_mode
-        if mode == "boundary":
-            raise NotImplementedError(
-                f"edge_partition={self.edge_partition!r} selects the "
-                f"boundary-only exchange (temp_tpu/ops/segment.py "
-                f"_rel_spmm_boundary), which is not ported yet; the ported "
-                f"modes are {', '.join(PARTITION_MODES)} (ring_pallas: "
-                f"kernel K13); see ROADMAP.md")
-        if int(self.mp_size) > 1 and mode is None:
+        if int(self.mp_size) > 1 and self.edge_partition_mode is None:
             raise NotImplementedError(
                 f"mp_size={self.mp_size} without edge_partition needs the "
                 f"GSPMD entity sharding of model parallelism "
                 f"(temp_tpu/parallel/mesh.py), which is not ported yet; "
-                f"see ROADMAP.md")
+                f"see ROADMAP.md Queue 1 item 6")
         for name, default, what in _UNPORTED:
             value = getattr(self, name)
             off = (value.lower() in ("0", "false", "no", "off")
@@ -219,6 +209,18 @@ class TKGConfig:
                 f"compute_dtype={self.compute_dtype!r}: the port computes in "
                 f"float32 or bfloat16; see ROADMAP.md")
 
+    def for_device(self, device) -> "TKGConfig":
+        """This config with ``compute_dtype`` "auto" resolved for a model
+        on `device`, as the JAX package's ``hot_dtype`` resolves it on its
+        backend: "bfloat16" on CUDA, "float32" elsewhere (the CPU, where
+        the tests' float32 references run); any other value as it is.
+        ``models.registry.get_model`` resolves the model's config so."""
+        if self.compute_dtype != "auto":
+            return self
+        on_card = torch.device(device).type == "cuda"
+        return self.replace(compute_dtype="bfloat16" if on_card
+                            else "float32")
+
     @property
     def hot_dtype(self):
         """The dtype of the hot contractions, or None for float32: the JAX
@@ -229,13 +231,14 @@ class TKGConfig:
         windows' history buffers stored in bfloat16; the relational SpMM
         outside the fused kernels is K1 in float32 under the SpMM method
         "segment" (the default, as the JAX package's row path ignores the
-        dtype), K1's bfloat16 mode under "pallas"
+        dtype), K1's bfloat16 modes under "pallas" and "onehot"
         (``ops.segment.rel_spmm``), K13's under the "ring_pallas" edge
-        partition.
+        partition; the "boundary" partition rounds the cut rows it
+        exchanges, as the JAX package's does.
 
-        "auto" is float32 on every device for now: the JAX package's
-        resolves to bfloat16 on an accelerator, which the port follows in
-        the next slice (ROADMAP.md Queue 1)."""
+        "auto" is resolved for a device by ``for_device`` (bfloat16 on
+        CUDA); a config that is not yet resolved reads it as float32, the
+        CPU's choice."""
         return torch.bfloat16 if self.compute_dtype in _BF16 else None
 
     # -- run control --------------------------------------------------------

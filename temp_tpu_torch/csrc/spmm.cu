@@ -73,12 +73,37 @@
 // r(h[src_e])), g, n2, dh and dw float32. The launchers' h_bf16 says
 // whether h is bfloat16; the float32 build takes a float32 h only, and its
 // arithmetic is unchanged (r is the identity there).
+//
+// The bfloat16 build has a second rounding mode, the launchers' onehot = 1:
+// the function of rel_spmm's method "onehot" in bfloat16 (the JAX
+// package's _rel_spmm_onehot with dtype=bfloat16, XLA ops there, no Pallas
+// kernel), whose one-hot products gather rows rounded to bfloat16 and
+// scale each message before its sum. With norm = 1 / deg of the row v:
+//
+//     out[b, v] = norm * sum_e r(r(r(h[src_e]) * r(w[rel_e])) * r(norm))
+//
+// (float32 sums), and norm, not norm^2, goes to n2_out for the backward.
+// A warp counts its row's kept edges first, to know norm before the sum.
+// K1b in that mode is the transpose of those casts and products: with
+// dmsg_e = r(r(g[dst_e] * norm[dst_e]) * r(norm[dst_e])),
+//
+//     dh[b, u] = r(sum_e r(dmsg_e * r(w[rel_e])))
+//     dw[r]    = the terms r(dmsg_e * r(h[b, src_e])) of every graph b in
+//                order, each graph's edges in slot order, added one by
+//                one with each partial sum rounded
+//
+// dh's sum float32 and rounded once, as the transpose of the JAX
+// package's one-hot product of the rounded h; dw's in bfloat16 in the
+// edges' order, as the JAX package's scatter-add transposes its gather of
+// the rounded weights (XLA's scatter-add of a bfloat16 operand on the CPU,
+// update by update).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cassert>
 #include <tuple>
+#include <type_traits>
 
 #ifndef TK_BF16
 #define TK_BF16 0
@@ -166,21 +191,36 @@ __device__ __forceinline__ void store_vec(float* __restrict__ p,
 // launchers take the fewest chunks that cover d, since the registers of
 // the rows in flight bound how many warps an SM holds.
 
+// The number of kept edges of [e0, e1) of a block (a row's degree).
+__device__ __forceinline__ int count_kept(const int* __restrict__ edge,
+                                          const unsigned char* __restrict__ mask,
+                                          int e0, int e1, int lane) {
+  int n = 0;
+  for (int base = e0; base < e1; base += kWarp) {
+    const int e = base + lane;
+    const bool keep = e < e1 && mask[edge[3LL * e + 2]] != 0;
+    n += __popc(__ballot_sync(kFull, keep));
+  }
+  return n;
+}
+
 // Adds to acc, in edge order, the kept edges of [e0, e1) of a block: edge
 // e brings ints (x0, x1, slot) and is kept where mask[slot] != 0; its term
 // is a[col] * b[col] for kScaled false (K1f: a = A[x_ia], b = Bm[x_ib]) and
 // a[col] * s * b[col] with s = S[x_ia] for kScaled true (K1b); in the
-// bfloat16 mode r(r(a[col]) * r(b[col])) and r(r(a[col] * s) * r(b[col])).
-// Returns
-// the number of kept edges (K1f's degree).
-template <int V, int C, bool kScaled, typename TA, typename TB>
+// bfloat16 mode r(r(a[col]) * r(b[col])) and r(r(a[col] * s) * r(b[col])),
+// and with kOneHot (the "onehot" mode) r(r(r(a[col]) * r(b[col])) * post)
+// and r(r(r(a[col] * s) * r(s)) * r(b[col])); kSeq rounds acc after each
+// add. Returns the number of kept edges (K1f's degree).
+template <int V, int C, bool kScaled, bool kOneHot = false,
+          bool kSeq = false, typename TA, typename TB>
 __device__ __forceinline__ int walk(const int* __restrict__ edge,
                                     const unsigned char* __restrict__ mask,
                                     int e0, int e1, int lane, int d,
                                     const TA* __restrict__ A, int ia,
                                     const float* __restrict__ S,
                                     const TB* __restrict__ Bm, int ib,
-                                    float (&acc)[C][V]) {
+                                    float (&acc)[C][V], float post = 0.f) {
   int n_kept = 0;
   for (int base = e0; base < e1; base += kWarp) {
     const int e = base + lane;
@@ -233,9 +273,20 @@ __device__ __forceinline__ int walk(const int* __restrict__ edge,
             if ((c * kWarp + lane) * V < d) {
 #pragma unroll
               for (int i = 0; i < V; ++i) {
-                if constexpr (kScaled)
+                if constexpr (kScaled && kOneHot && kSeq)
+                  acc[c][i] = hot(acc[c][i] +
+                                  hot(hot(hot(av[q][c][i] * sv[q])
+                                          * hot(sv[q])) * hot(bv[q][c][i])));
+                else if constexpr (kScaled && kOneHot)
+                  acc[c][i] += hot(hot(hot(av[q][c][i] * sv[q]) * hot(sv[q]))
+                                   * hot(bv[q][c][i]));
+                else if constexpr (kScaled)
                   acc[c][i] +=
                       hot(hot(av[q][c][i] * sv[q]) * hot(bv[q][c][i]));
+                else if constexpr (kOneHot)
+                  acc[c][i] += hot(
+                      hot(__fmul_rn(hot(av[q][c][i]), hot(bv[q][c][i])))
+                      * post);
                 else
                   acc[c][i] +=
                       hot(__fmul_rn(hot(av[q][c][i]), hot(bv[q][c][i])));
@@ -260,8 +311,18 @@ __device__ __forceinline__ void store_row(float* __restrict__ o,
   }
 }
 
-// One warp a (graph, row): the table by destination.
-template <int V, int C, typename TH>
+// acc rounded, entry by entry (the "onehot" mode's dh sums)
+template <int V, int C>
+__device__ __forceinline__ void round_acc(float (&acc)[C][V]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[c][i] = hot(acc[c][i]);
+}
+
+// One warp a (graph, row): the table by destination. kOneHot: the
+// "onehot" rounding mode (bfloat16 build only).
+template <int V, int C, typename TH, bool kOneHot>
 __global__ void spmm_fwd_kernel(const int* __restrict__ ptr,
                                 const int* __restrict__ edge,
                                 const long long* __restrict__ tpos,
@@ -280,6 +341,18 @@ __global__ void spmm_fwd_kernel(const int* __restrict__ ptr,
   const int v = static_cast<int>(warp % n);
   const Block t = table_block(ptr, edge, tpos, n_times, mask, b, rows, cap);
   float acc[C][V] = {};
+  if constexpr (kOneHot) {
+    // the scale of every message of the row is r(norm): the degree first
+    const int deg = count_kept(t.edge, t.mask, t.ptr[v], t.ptr[v + 1], lane);
+    const float fdeg = static_cast<float>(deg);
+    const float norm = fdeg > 0.f ? 1.f / fdeg : 0.f;
+    walk<V, C, false, true>(t.edge, t.mask, t.ptr[v], t.ptr[v + 1], lane,
+                            d, h + (long long)b * n * d, 0, nullptr, w, 1,
+                            acc, hot(norm));
+    store_row<V, C>(out + warp * d, acc, lane, d, norm);
+    if (lane == 0) n2_out[warp] = norm;
+    return;
+  }
   const int deg = walk<V, C, false>(t.edge, t.mask, t.ptr[v], t.ptr[v + 1],
                                  lane, d, h + (long long)b * n * d, 0,
                                  nullptr, w, 1, acc);
@@ -292,8 +365,8 @@ __global__ void spmm_fwd_kernel(const int* __restrict__ ptr,
 
 // Warps [0, B * n): dh of a (graph, row) over the table by source; warps
 // [B * n, B * n + n_rels): dw of a relation over the tables by relation of
-// the B graphs in order.
-template <int V, int C, typename TH>
+// the B graphs in order. kOneHot: the "onehot" mode (n2 holds norm).
+template <int V, int C, typename TH, bool kOneHot>
 __global__ void spmm_bwd_kernel(const int* __restrict__ s_ptr,
                                 const int* __restrict__ s_edge,
                                 const int* __restrict__ r_ptr,
@@ -321,8 +394,9 @@ __global__ void spmm_bwd_kernel(const int* __restrict__ s_ptr,
         table_block(s_ptr, s_edge, tpos, n_times, mask, b, rows, cap);
     const long long off = (long long)b * n;
     // edge (dst, rel, slot): g[dst] * n2[dst] * w[rel]
-    walk<V, C, true>(t.edge, t.mask, t.ptr[u], t.ptr[u + 1], lane, d,
-                     g + off * d, 0, n2 + off, w, 1, acc);
+    walk<V, C, true, kOneHot>(t.edge, t.mask, t.ptr[u], t.ptr[u + 1], lane,
+                              d, g + off * d, 0, n2 + off, w, 1, acc);
+    if constexpr (kOneHot) round_acc<V, C>(acc);
     store_row<V, C>(dh + warp * d, acc, lane, d, 1.f);
   } else {
     const int r = static_cast<int>(warp - n_dh);
@@ -331,8 +405,9 @@ __global__ void spmm_bwd_kernel(const int* __restrict__ s_ptr,
           table_block(r_ptr, r_edge, tpos, n_times, mask, b, n_rels, cap);
       const long long off = (long long)b * n;
       // edge (src, dst, slot): g[dst] * n2[dst] * h[src]
-      walk<V, C, true>(t.edge, t.mask, t.ptr[r], t.ptr[r + 1], lane, d,
-                       g + off * d, 1, n2 + off, h + off * d, 0, acc);
+      walk<V, C, true, kOneHot, kOneHot>(t.edge, t.mask, t.ptr[r],
+                                         t.ptr[r + 1], lane, d, g + off * d,
+                                         1, n2 + off, h + off * d, 0, acc);
     }
     store_row<V, C>(dw + (long long)r * d, acc, lane, d, 1.f);
   }
@@ -344,37 +419,46 @@ int blocks_for(long long warps) {
 
 constexpr int kThreads = kWarpsPerBlock * kWarp;
 
-// Calls f(TH{}) with TH the type of h: bfloat16 where h_bf16 is 1 (the
-// bfloat16 build only), float otherwise. Returns the launch's error.
+// Calls f(TH{}, OneHot{}) with TH the type of h: bfloat16 where h_bf16 is
+// 1, float otherwise, and OneHot std::true_type where onehot is 1 (both
+// the bfloat16 build only). Returns the launch's error.
 template <typename F>
-int with_h_type(int h_bf16, F&& f) {
-  if (h_bf16 == 0) {
-    f(float{});
-  } else if constexpr (kBf16) {
-    if (h_bf16 != 1) return static_cast<int>(cudaErrorInvalidValue);
-    f(__nv_bfloat16{});
-  } else {
+int with_h_type(int h_bf16, int onehot, F&& f) {
+  if (onehot != 0 && (!kBf16 || onehot != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (h_bf16 != 0 && (!kBf16 || h_bf16 != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kBf16) {
+    if (h_bf16 == 1 && onehot == 1)
+      f(__nv_bfloat16{}, std::true_type{});
+    else if (h_bf16 == 1)
+      f(__nv_bfloat16{}, std::false_type{});
+    else if (onehot == 1)
+      f(float{}, std::true_type{});
+    else
+      f(float{}, std::false_type{});
+  } else {
+    f(float{}, std::false_type{});
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int V, int C, typename TH>
+template <int V, int C, typename TH, bool kOneHot>
 void fwd(cudaStream_t s, long long warps, const int* p, const int* e,
          const long long* tp, int n_times, const unsigned char* m,
          const TH* h, const float* w, float* o, float* o2, int B, int n,
          int rows, int cap, int d) {
-  spmm_fwd_kernel<V, C, TH><<<blocks_for(warps), kThreads, 0, s>>>(
+  spmm_fwd_kernel<V, C, TH, kOneHot><<<blocks_for(warps), kThreads, 0, s>>>(
       p, e, tp, n_times, m, h, w, o, o2, B, n, rows, cap, d);
 }
 
-template <int V, int C, typename TH>
+template <int V, int C, typename TH, bool kOneHot>
 void bwd(cudaStream_t s, long long warps, const int* sp, const int* se,
          const int* rp, const int* re, const long long* tp, int n_times,
          const unsigned char* m, const float* g, const float* n2,
          const TH* h, const float* w, float* dh, float* dw, int B, int n,
          int rows, int cap, int n_rels, int d) {
-  spmm_bwd_kernel<V, C, TH><<<blocks_for(warps), kThreads, 0, s>>>(
+  spmm_bwd_kernel<V, C, TH, kOneHot><<<blocks_for(warps), kThreads, 0, s>>>(
       sp, se, rp, re, tp, n_times, m, g, n2, h, w, dh, dw, B, n, rows, cap,
       n_rels, d);
 }
@@ -383,16 +467,18 @@ void bwd(cudaStream_t s, long long warps, const int* sp, const int* se,
 
 // vec: 4 (four values a lane; d % 4 == 0 and rows aligned to four
 // values) or 1. h_bf16: 1 for a bfloat16 h (the bfloat16 build only);
-// w is float32.
+// w is float32. onehot: 1 for the "onehot" rounding mode (the bfloat16
+// build only; n2_out then holds norm).
 extern "C" int spmm_fwd_launch(const void* ptr, const void* edge,
                                const void* tpos, int n_times,
                                const void* mask, const void* h,
                                const void* w, void* out, void* n2_out, int B,
                                int n, int rows, int cap, int d, int vec,
-                               int h_bf16, void* stream) {
+                               int h_bf16, int onehot, void* stream) {
   const long long warps = (long long)B * n;
-  return with_h_type(h_bf16, [&](auto th) {
+  return with_h_type(h_bf16, onehot, [&](auto th, auto oh) {
     using TH = decltype(th);
+    constexpr bool kOH = decltype(oh)::value;
     if (warps <= 0) return;
     const auto args = std::make_tuple(
         static_cast<cudaStream_t>(stream), warps,
@@ -402,11 +488,11 @@ extern "C" int spmm_fwd_launch(const void* ptr, const void* edge,
         static_cast<const float*>(w), static_cast<float*>(out),
         static_cast<float*>(n2_out), B, n, rows, cap, d);
     if (vec == 4 && d <= kWarp * 4)
-      std::apply(fwd<4, 1, TH>, args);
+      std::apply(fwd<4, 1, TH, kOH>, args);
     else if (vec == 4)
-      std::apply(fwd<4, kMaxD / (kWarp * 4), TH>, args);
+      std::apply(fwd<4, kMaxD / (kWarp * 4), TH, kOH>, args);
     else
-      std::apply(fwd<1, kMaxD / kWarp, TH>, args);
+      std::apply(fwd<1, kMaxD / kWarp, TH, kOH>, args);
   });
 }
 
@@ -417,10 +503,11 @@ extern "C" int spmm_bwd_launch(const void* s_ptr, const void* s_edge,
                                const void* n2, const void* h, const void* w,
                                void* dh, void* dw, int B, int n, int rows,
                                int cap, int n_rels, int d, int vec,
-                               int h_bf16, void* stream) {
+                               int h_bf16, int onehot, void* stream) {
   const long long warps = (long long)B * n + n_rels;
-  return with_h_type(h_bf16, [&](auto th) {
+  return with_h_type(h_bf16, onehot, [&](auto th, auto oh) {
     using TH = decltype(th);
+    constexpr bool kOH = decltype(oh)::value;
     if (warps <= 0) return;
     const auto args = std::make_tuple(
         static_cast<cudaStream_t>(stream), warps,
@@ -432,10 +519,10 @@ extern "C" int spmm_bwd_launch(const void* s_ptr, const void* s_edge,
         static_cast<const float*>(w), static_cast<float*>(dh),
         static_cast<float*>(dw), B, n, rows, cap, n_rels, d);
     if (vec == 4 && d <= kWarp * 4)
-      std::apply(bwd<4, 1, TH>, args);
+      std::apply(bwd<4, 1, TH, kOH>, args);
     else if (vec == 4)
-      std::apply(bwd<4, kMaxD / (kWarp * 4), TH>, args);
+      std::apply(bwd<4, kMaxD / (kWarp * 4), TH, kOH>, args);
     else
-      std::apply(bwd<1, kMaxD / kWarp, TH>, args);
+      std::apply(bwd<1, kMaxD / kWarp, TH, kOH>, args);
   });
 }

@@ -30,7 +30,7 @@ import torch
 from temp_tpu_torch.data import native
 from temp_tpu_torch.data.quadruples import load_quadruples, load_stat
 from temp_tpu_torch.parallel.edge_partition import (
-    ring_data, ring_regroup_data,
+    boundary_data, ring_data, ring_regroup_data,
 )
 
 INT_PAD = np.iinfo(np.int32).max
@@ -98,9 +98,11 @@ class TKGData:
     num_ents: int = 0
     num_rels: int = 0
     num_times: int = 0
-    # kernel K13's static CSR tables of the train snapshots
-    # (parallel/edge_partition.py RingData); built by ring_layout for
-    # "ring_pallas", else None
+    # the edge partition's tables of the train snapshots, built by
+    # ring_layout: kernel K13's static CSR tables for "ring_pallas"
+    # (parallel/edge_partition.py RingData), the exchange tables and K1's
+    # tables of the ranks' edge slices for "boundary" (BoundaryData), else
+    # None
     ring: Any = None
     # kernel K1's (RingData of one rank); built by ring_layout, else None
     spmm: Any = None
@@ -108,6 +110,18 @@ class TKGData:
     @property
     def group_stride(self) -> int:
         return 2 * self.num_rels
+
+    @property
+    def bnd_c(self):
+        """The boundary exchange's compact-space table [T, m, m, Cc] (the
+        JAX package's ``TKGData.bnd_c``), or None."""
+        return getattr(self.ring, "bnd_c", None)
+
+    @property
+    def bnd_g(self):
+        """The boundary exchange's global-space table [T, m, m, Cg], or
+        None."""
+        return getattr(self.ring, "bnd_g", None)
 
 
 @dataclass
@@ -486,19 +500,25 @@ def build_tkg_data(cfg, cache: bool = True,
 
 
 def ring_layout(cfg, data: TKGData) -> TKGData:
-    """The edges grouped by destination owner, for the ring edge-partition
-    modes with more than one rank (``ring_regroup_data``), as the JAX
-    package lays them out in ``build_tkg_data``: everything downstream (the
-    history tables, the answer lists) is built from this one layout. Then
-    the static CSR tables of the train snapshots in that layout
-    (``ring_data``), sorted here once rather than in every call: K1's (one
-    rank, ``TKGData.spmm``), which every unpartitioned SpMM walks, and for
-    "ring_pallas" K13's (``TKGData.ring``)."""
-    if cfg.partitioned and cfg.edge_partition_mode in ("ring", "ring_pallas"):
+    """The edges grouped by destination owner, for the ring and boundary
+    edge-partition modes with more than one rank (``ring_regroup_data``),
+    as the JAX package lays them out in ``build_tkg_data``: everything
+    downstream (the history tables, the answer lists) is built from this
+    one layout. Then the static tables of the train snapshots in that
+    layout, built here once rather than in every call: K1's (one rank,
+    ``TKGData.spmm``, ``ring_data``), which every unpartitioned SpMM
+    walks; for "ring_pallas" K13's (``TKGData.ring``); for "boundary" the
+    exchange tables (``bnd_c``, ``bnd_g``, the JAX package's
+    ``boundary_tables``) and K1's tables of each rank's edge slice
+    (``TKGData.ring``, ``boundary_data``)."""
+    mode = cfg.edge_partition_mode
+    if cfg.partitioned and mode in ("ring", "ring_pallas", "boundary"):
         m = int(cfg.mp_size)
         data = ring_regroup_data(data, m)
-        if cfg.edge_partition_mode == "ring_pallas":
+        if mode == "ring_pallas":
             data = dataclasses.replace(data, ring=ring_data(data, m))
+        elif mode == "boundary":
+            data = dataclasses.replace(data, ring=boundary_data(data, m))
     return dataclasses.replace(data, spmm=ring_data(data, 1))
 
 

@@ -17,10 +17,14 @@ state and trains from epoch 0 with no best yet, as the JAX package's
 main.py does. In process, ``main(argv)`` returns the test metrics, or
 {"preempted": True, "last_epoch": k} after a stop. ``--device`` defaults
 to cuda; ``--device cpu`` runs every kernel's plain version.
-``--edge-partition psum|ring|ring_pallas --mp-size M`` partitions every
-SpMM over M ranks (``parallel/``), which take the visible cards in turn,
-several ranks a card when there are fewer cards (on the CPU with
-``--device cpu``); the run prints the ranks' placement.
+``--compute-dtype`` defaults to "auto": bfloat16 on the card, float32 with
+``--device cpu``, as the JAX package's "auto" resolves on its backend.
+``--edge-partition psum|ring|ring_pallas|boundary --mp-size M`` partitions
+every SpMM over M ranks (``parallel/``; a bare ``--edge-partition`` is the
+boundary exchange), which take the visible cards in turn, several ranks a
+card when there are fewer cards (on the CPU with ``--device cpu``);
+``--dp-size D`` adds a data axis of D rows, each taking 1/D of a batch's
+target times. The run prints the ranks' placement.
 """
 
 from __future__ import annotations

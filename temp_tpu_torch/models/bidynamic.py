@@ -11,7 +11,9 @@ through their time weights, added to the aggregation). Layer 2 has a
 ReLU, so BiGRRGCN's windows run K2 with it on the card; BiRRGCN's, and
 those under the options K2 does not take, run step by step through K1.
 The final step runs one element at a time (K1), with no precomputed
-layer-1 convs, as in the JAX package. In training the forward windows
+layer-1 convs, as in the JAX package. Under an edge partition
+(BiGRRGCN) both windows run step by step and every SpMM is partitioned
+(``ops.segment.rel_spmm``). In training the forward windows
 take DropEdge's past rates and the backward ones its future rates
 (``edge_dropout``), or both an 80% subsample of each step's edges
 (``random_dropout``).
@@ -26,15 +28,16 @@ import torch
 
 from temp_tpu_torch.data.snapshots import TKGData
 from temp_tpu_torch.models.dynamic import DynamicRGCNModel, gather_window
-from temp_tpu_torch.models.encoders import encoder_forward_center
+from temp_tpu_torch.models.encoders import (
+    _base_module, encoder_forward_center,
+)
 from temp_tpu_torch.models.layers import dropout_mask
+from temp_tpu_torch.parallel.mesh import boundary_gather
 
 
 class BiWindows:
     """The Bi models' two history windows, a mixin before a
     ``DynamicRGCNModel`` subclass."""
-
-    partitionable = False
 
     def draw_train(self, gen: torch.Generator, data: TKGData, t_pos):
         """``DynamicRGCNModel.draw_train`` (its "win1"/"win2" and
@@ -80,6 +83,11 @@ class BiWindows:
 class BiDynamicRGCNModel(BiWindows, DynamicRGCNModel):
     """BiGRRGCN and BiRRGCN (reference models/BiDynamicRGCN.py)."""
 
+    @property
+    def partitionable(self) -> bool:
+        """BiGRRGCN runs under an edge partition; BiRRGCN does not yet."""
+        return _base_module(self.cfg.module) == "GRRGCN"
+
     def forward_element(self, params, data: TKGData, t_pos: int, hists=None,
                         train: bool = False, emask=None, masks=(None, None)):
         """Full forward for one target time -> dense [N, d] entity table,
@@ -95,4 +103,5 @@ class BiDynamicRGCNModel(BiWindows, DynamicRGCNModel):
             params["encoder"], self.cfg, self.lc1, self.lc2,
             params["ent_embeds"], snap, h1f, h2f, (length - 1) - lpf, h1b,
             h2b, (length - 1) - lpb, train=train, masks=masks)
-        return self.embed_non_active(params, snap.active, out2, t_pos)
+        return self.embed_non_active(params, snap.active,
+                                     boundary_gather(out2), t_pos)

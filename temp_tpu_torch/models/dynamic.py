@@ -20,7 +20,9 @@ Eval does the same with kernel K11 when ``fused_eval`` is on, and with
 Inside an edge partition (``parallel/edge_partition.py``
 ``EdgePartitionedModel``) every fused path is off, as in the JAX package:
 the windows and final steps run step by step through ``rel_spmm``, which
-partitions each SpMM over the ranks (the ring modes through K13).
+partitions each SpMM over the ranks (the ring modes through K13, the
+boundary exchange through K1 a rank), and the final step's table passes
+``boundary_gather`` where the JAX package re-replicates it.
 
 Training draws every random choice of a step up front (``draw_train``):
 the self-loop dropout masks of the window and of the final step, the
@@ -71,7 +73,7 @@ from temp_tpu_torch.ops.gru import shared_rounding
 from temp_tpu_torch.ops.sampling import subsample_edges, subsample_positives
 from temp_tpu_torch.ops.scores import get_score_fn
 from temp_tpu_torch.ops.segment import data_tables
-from temp_tpu_torch.parallel.mesh import manual_axis
+from temp_tpu_torch.parallel.mesh import boundary_gather, manual_axis
 from temp_tpu_torch.train.optim import param_leaves
 
 
@@ -127,8 +129,8 @@ class DynamicRGCNModel:
 
     # whether the windows carry the third (local) history stream
     with_loc = False
-    # whether the model runs under an edge partition (``parallel/``); the
-    # subclasses do not yet
+    # whether the model runs under an edge partition (``parallel/``): the
+    # Bi models say for themselves, the other subclasses do not yet
     partitionable = True
     # whether the model runs recurrent windows (their history tables and
     # the fused final step's answer lists); the attention models do not
@@ -327,8 +329,9 @@ class DynamicRGCNModel:
         """
         if not self.partitionable and manual_axis() is not None:
             raise NotImplementedError(
-                f"{type(self).__name__} under an edge partition is not "
-                f"ported yet; see ROADMAP.md")
+                f"{type(self).__name__} ({self.cfg.module}) under an edge "
+                f"partition is not ported yet; see ROADMAP.md Queue 1 items "
+                f"8-9")
         cfg = self.cfg
         d = cfg.embed_size
         L1 = length - 1
@@ -457,7 +460,8 @@ class DynamicRGCNModel:
         _, out2, _ = encoder_forward(params["encoder"], self.cfg, self.lc1,
                                      self.lc2, emb, snap, hist1, hist2, dt,
                                      train=train, masks=masks)
-        return self.embed_non_active(params, snap.active, out2, t_pos)
+        return self.embed_non_active(params, snap.active,
+                                     boundary_gather(out2), t_pos)
 
     def embed_non_active(self, params, active, table, t_pos):
         """`table` with the rows of the entities not `active` [N] replaced

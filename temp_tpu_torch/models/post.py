@@ -60,6 +60,7 @@ from temp_tpu_torch.ops.fused_final_bi import (
     final_graph_bi, fused_final_bi_loss, fused_final_bi_supported,
 )
 from temp_tpu_torch.ops.scores import query_for
+from temp_tpu_torch.parallel.mesh import boundary_gather, manual_axis
 
 # the gate MLPs by flag; post_aggregation's last two are never used (kept
 # for the parameter tree's parity with the reference)
@@ -274,7 +275,8 @@ class PostDynamicRGCNModel(Gated, DynamicRGCNModel):
         loc, gru_in = self.local_and_gru_input(snap, conv2, blended)
         _, rec, _ = grrgcn_layer(enc["layer2"], cfg, self.lc2, gru_in, snap,
                                  h2, dt, conv_in=True)
-        return self.with_time_embedding(params, snap, loc, rec)
+        return self.with_time_embedding(params, snap, boundary_gather(loc),
+                                        boundary_gather(rec))
 
     def forward_element(self, params, data: TKGData, t_pos: int, hists=None,
                         train: bool = False, emask=None, masks=(None, None)):
@@ -297,11 +299,18 @@ class PostBiDynamicRGCNModel(BiWindows, PostDynamicRGCNModel):
     window, whose layer-1 and layer-2 GRUs meet at the target snapshot
     (rec = GRU_f + GRU_b)."""
 
+    @property
+    def partitionable(self) -> bool:
+        """The flagship (impute without a gate) runs under an edge
+        partition; TED and ``--post-aggregation`` do not yet."""
+        return bool(self.cfg.impute) and not self.gated
+
     def fused_final_on(self) -> bool:
         """Whether training runs the final step and loss through K6-K10
         (the dispatch of the JAX package's ``PostBiDynamicRGCNModel.loss``:
-        impute without a gate)."""
+        impute without a gate); off under a partition."""
         return (self.cfg.fused_final_on(self.device)
+                and manual_axis() is None
                 and type(self) is PostBiDynamicRGCNModel
                 and fused_final_bi_supported(self.cfg,
                                              _base_module(self.cfg.module)))
@@ -334,7 +343,8 @@ class PostBiDynamicRGCNModel(BiWindows, PostDynamicRGCNModel):
         _, rec, _ = bigrrgcn_layer_center(enc["layer2"], cfg, self.lc2,
                                           gru_in, snap, h2f, dtf, h2b, dtb,
                                           conv_in=True)
-        return self.with_time_embedding(params, snap, loc, rec)
+        return self.with_time_embedding(params, snap, boundary_gather(loc),
+                                        boundary_gather(rec))
 
     def fused_final_losses(self, params, data: TKGData, tp, draws, hists):
         """The final steps and losses of the B targets tp as one call of

@@ -11,9 +11,11 @@ embedding baselines Static, DE, ATiSE (or AtiSE), Hyte and SimplE (or
 Simple) (``models/baselines.py``), TimeDynamicRGCN
 (``models/timedynamic.py``) and the Aggregator (``models/aggregator.py``);
 every decoder (complex, distmult, transE) and negative pool (all, shared,
-per_query). Under an edge partition only plain GRRGCN with ComplEx and the
-"all" pool runs; the rest raises there, as RRGCN with a flag does (the
-reference has no such model)."""
+per_query). Under an edge partition GRRGCN, BiGRRGCN and the flagship
+BiGRRGCN ``--impute``, with ComplEx and the "all" pool, run; the rest
+raises there (ROADMAP.md Queue 1 items 8-9), as RRGCN with a flag does
+(the reference has no such model). The model's config is resolved for
+its device (``TKGConfig.for_device``: "auto" is bfloat16 on CUDA)."""
 
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ def normalize_remap_flags(cfg: TKGConfig) -> TKGConfig:
 
 
 # the options a partitioned model does not take: every recurrent option
-# the unpartitioned models do (only plain GRRGCN runs under a partition)
+# the unpartitioned models do
 _OPTIONS = ("type1", "learnable_lambda", "use_time_embedding",
             "rec_only_last_layer", "random_dropout", "edge_dropout")
 # the baselines' names, the reference CLI's aliases among them
@@ -62,17 +64,28 @@ _BASELINES = {"Static": "Static", "DE": "DE", "ATiSE": "ATiSE",
               "Simple": "SimplE"}
 
 
-def get_model(cfg: TKGConfig, data: TKGData, device="cuda"):
+def partition_ported(cfg: TKGConfig) -> bool:
+    """Whether the port runs `cfg`'s model under an edge partition: plain
+    GRRGCN, plain BiGRRGCN and the flagship BiGRRGCN ``--impute`` (no
+    gate), with no recurrent option, ComplEx and the "all" pool."""
     cfg = normalize_remap_flags(cfg)
+    gated = cfg.post_ensemble or cfg.post_aggregation
+    return ((cfg.module == "BiGRRGCN" and not gated)
+            or (cfg.module == "GRRGCN" and not (gated or cfg.impute))) and (
+        not any(getattr(cfg, o) for o in _OPTIONS)
+        and cfg.score_function == "complex" and cfg.negative_pool == "all")
+
+
+def get_model(cfg: TKGConfig, data: TKGData, device="cuda"):
+    cfg = normalize_remap_flags(cfg).for_device(device)
     module = cfg.module
     variant = cfg.impute or cfg.post_ensemble or cfg.post_aggregation
-    if cfg.partitioned and (variant or module != "GRRGCN" or any(
-            getattr(cfg, o) for o in _OPTIONS)
-            or cfg.score_function != "complex"
-            or cfg.negative_pool != "all"):
-        raise NotImplementedError(f"{module} with these flags, decoder or "
-                                  f"pool under an edge partition is not "
-                                  f"ported yet; see ROADMAP.md")
+    if cfg.partitioned and not partition_ported(cfg):
+        raise NotImplementedError(
+            f"{module} with these flags, decoder or pool under an edge "
+            f"partition is not ported yet (only GRRGCN, BiGRRGCN and "
+            f"BiGRRGCN --impute with ComplEx and the 'all' pool are); see "
+            f"ROADMAP.md Queue 1 items 8-9")
     if module in ("SARGCN", "BiSARGCN"):
         bi = module == "BiSARGCN"
         if cfg.post_aggregation:

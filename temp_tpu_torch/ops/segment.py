@@ -13,7 +13,9 @@ package's dispatch): "psum" splits the edge list into chunks and adds the
 ranks' partial degrees and sums; "ring" and "ring_pallas" need edges
 grouped by destination owner (``parallel/edge_partition.py``
 ``ring_regroup_data``) and rotate row shards of h around the ranks, the
-latter through kernel K13 (``parallel/ring_spmm.py``).
+latter through kernel K13 (``parallel/ring_spmm.py``); "boundary" needs
+that layout too, and each rank reads its own rows and only the cut rows
+the others send it (``_rel_spmm_boundary``, kernel K1 a rank).
 
 Outside a partition `method` picks the formulation, as the JAX
 package's ``rel_spmm`` does (its names; "auto" takes the
@@ -25,15 +27,20 @@ bfloat16) is taken by:
   path ignores the dtype;
 - "pallas": K1's bfloat16 mode (``ops/spmm.py``, the JAX package's Pallas
   kernel with ``dtype=bfloat16``); it needs diagonal weights;
-- "onehot": no port yet in bfloat16 (the JAX package rounds the gathered
-  rows and the scaled messages there, another function): it raises. In
-  float32 the three are K1 in float32 (the JAX package's Pallas and
-  one-hot products run at ``HIGHEST``: the same function).
+- "onehot": another function in bfloat16, the JAX package's one-hot
+  products of rounded rows (``_rel_spmm_onehot``): the gathered rows and
+  the weights rounded, each message rounded, scaled by the rounded
+  norm[dst] * em and rounded again, float32 sums, then * norm; with
+  diagonal weights K1's "onehot" rounding mode (``ops/spmm.py``), with
+  blocks the same roundings in torch ops. In float32 the three are K1 in
+  float32 (the JAX package's Pallas and one-hot products run at
+  ``HIGHEST``: the same function).
 
 Inside a partition the method is inert, as in the JAX package, and the
-dtype reaches K13's bfloat16 mode in "ring_pallas", the block products of
-``rel_message`` in the other modes and outside K13's envelope (diagonal
-weights take no rounding there).
+dtype reaches K13's bfloat16 mode in "ring_pallas", the cut rows a rank
+receives in "boundary" (rounded to it, as the JAX package's exchange
+sends them), and the block products of ``rel_message`` in the other modes
+and outside K13's envelope (diagonal weights take no rounding there).
 """
 
 from __future__ import annotations
@@ -44,7 +51,9 @@ import torch
 import torch.nn.functional as F
 
 from temp_tpu_torch.ops.gru import hot_round
-from temp_tpu_torch.ops.spmm import flat_graph, spmm, spmm_fwd_plain
+from temp_tpu_torch.ops.spmm import (
+    _Bf16Gather, _onehot_gather, flat_graph, spmm, spmm_fwd_plain,
+)
 from temp_tpu_torch.parallel.edge_partition import ring_geometry
 from temp_tpu_torch.parallel.mesh import manual_axis, rank_devices
 from temp_tpu_torch.parallel.ring_spmm import ring_spmm, ring_spmm_fwd_plain
@@ -89,8 +98,7 @@ def rel_message(h_src, rel, weight, n_bases: int, d_in: int, d_out: int,
 def resolve_method(method: str, dtype, diagonal: bool) -> str:
     """The method a call outside a partition runs ("segment", "pallas" or
     "onehot"): "auto" resolved (``_METHOD_OVERRIDE``, else "segment"),
-    checked against the call: "pallas" needs `diagonal` weights, "onehot"
-    has no bfloat16 mode yet."""
+    checked against the call: "pallas" needs `diagonal` weights."""
     if method == "auto":
         method = _METHOD_OVERRIDE or "segment"
     if method not in METHODS[1:]:
@@ -99,11 +107,6 @@ def resolve_method(method: str, dtype, diagonal: bool) -> str:
     if method == "pallas" and not diagonal:
         raise ValueError("rel_spmm: method 'pallas' needs diagonal relation "
                          "weights (n_bases == d_in == d_out)")
-    if method == "onehot" and dtype is not None:
-        raise NotImplementedError(
-            f"rel_spmm: method 'onehot' in {dtype} (the JAX package's "
-            f"one-hot products of rounded rows and messages) is not ported "
-            f"yet; see ROADMAP.md")
     return method
 
 
@@ -128,11 +131,12 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
     time positions and the id space, so that K1 outside a partition and
     K13 ("ring_pallas") walk those tables rather than sort the edges.
     `dtype`: the hot dtype, taken by the partitioned modes and by the
-    method "pallas" (K1's bfloat16 mode); `method`: the formulation
-    outside a partition (see the module's docstring). The models pass no
-    `method` (``TEMP_TPU_SPMM_METHOD`` is the run's switch); the argument
-    mirrors the JAX package's ``rel_spmm`` signature, for its callers and
-    tests. In float32 the methods are one function (K1 in float32).
+    methods "pallas" and "onehot" (K1's bfloat16 modes); `method`: the
+    formulation outside a partition (see the module's docstring). The
+    models pass no `method` (``TEMP_TPU_SPMM_METHOD`` is the run's
+    switch); the argument mirrors the JAX package's ``rel_spmm``
+    signature, for its callers and tests. In float32 the methods are one
+    function (K1 in float32).
     """
     d_in = h.shape[-1]
     named = _snapshot_tables(tables, t_pos, compact)
@@ -150,21 +154,28 @@ def rel_spmm(h, src, dst, rel, emask, weight, n_bases: int, d_out: int,
                                  dtype=dtype)
         elif mode == "psum":
             out = _rel_spmm_partitioned(*args, dtype=dtype)
+        elif mode == "boundary":
+            out = _rel_spmm_boundary(*args, kernels=kernels, tables=tables,
+                                     t_pos=t_pos, compact=compact,
+                                     dtype=dtype)
         else:
-            raise NotImplementedError(
-                f"edge partition mode {mode!r} is not ported yet; see "
-                f"ROADMAP.md")
+            raise ValueError(f"edge partition mode {mode!r}: not a mode")
         return out.reshape(num_ents, d_out)
     diagonal = n_bases == d_in == d_out
-    hot = dtype if resolve_method(method, dtype, diagonal) == "pallas" \
-        else None
+    method = resolve_method(method, dtype, diagonal)
+    hot = dtype if method in ("pallas", "onehot") else None
+    onehot = method == "onehot" and dtype is not None
     if diagonal and kernels:
-        return spmm(h, src, dst, rel, emask, weight, tables=named, hot=hot)
+        return spmm(h, src, dst, rel, emask, weight, tables=named, hot=hot,
+                    onehot=onehot)
     if src.dim() == 2:
         src, dst = flat_graph(src, dst, num_ents // src.shape[0])
         rel, emask = rel.reshape(-1), emask.reshape(-1)
     if diagonal:
-        return spmm_fwd_plain(h, src, dst, rel, emask, weight, hot)
+        return spmm_fwd_plain(h, src, dst, rel, emask, weight, hot, onehot)
+    if onehot:
+        return _rel_spmm_onehot_blocks(h, src, dst, rel, emask, weight,
+                                       n_bases, d_out, num_ents)
     norm = in_degree_norm(dst, emask, num_ents)
     msg = rel_message(h[src.long()], rel, weight, n_bases, d_in, d_out)
     msg = msg * (norm[dst.long()] * emask.to(h.dtype))[:, None]
@@ -248,3 +259,99 @@ def _rel_spmm_partitioned(h, src, dst, rel, emask, weight, n_bases: int,
         part = segment_sum(msg, seg, B * n).to(h.device)
         agg = part if agg is None else agg + part
     return (agg * norm[:, None]).reshape(B, n, d_out)
+
+
+def _rel_spmm_onehot_blocks(h, src, dst, rel, emask, weight, n_bases: int,
+                            d_out: int, num_ents: int):
+    """The method "onehot" in bfloat16 for block-diagonal weights (the
+    JAX package's ``_rel_spmm_onehot`` with ``rel_message``'s einsum), on
+    one graph's edges [E]: the gathered rows and the weights rounded, each
+    block product summed in float32 and rounded, scaled by the rounded
+    norm[dst] * em and rounded again, float32 sums, then * norm. Torch
+    ops, with the JAX package's casts and its bfloat16 gather of the
+    weights, so autograd is their transpose."""
+    d_in = h.shape[-1]
+    si, so = d_in // n_bases, d_out // n_bases
+    norm = in_degree_norm(dst, emask, num_ents)
+    hb = _onehot_gather(h, src).to(torch.float32)
+    wb = _Bf16Gather.apply(weight, rel).to(torch.float32)
+    msg = torch.einsum("ebi,ebio->ebo", hb.reshape(-1, n_bases, si),
+                       wb.reshape(-1, n_bases, si, so)).reshape(
+        -1, n_bases * so).to(torch.bfloat16)
+    scale = (norm[dst.long()] * emask.to(torch.float32)).to(
+        torch.bfloat16)[:, None]
+    agg = segment_sum((msg * scale).to(torch.float32), dst, num_ents)
+    return agg * norm[:, None]
+
+
+def _rel_spmm_boundary(h, src, dst, rel, emask, weight, n_bases: int,
+                       d_out: int, m: int, devices, kernels: bool = True,
+                       tables=None, t_pos=None, compact: bool = False,
+                       dtype=None):
+    """The "boundary" mode (the JAX package's ``_rel_spmm_boundary``) for
+    B graphs, h [B, n, d_in] on the controller, edges [B, E] grouped by
+    destination owner (``ring_regroup_data``). Rank i owns rows [i * rows,
+    (i + 1) * rows) of every graph (rows = ring_geometry(n, m)) and edge
+    slice i: exactly the edges into its rows, so its degrees are exact
+    and its output rows complete. It reads its own rows of h and the cut
+    rows the other ranks send it, ``bnd[t, j, i]`` of the data's exchange
+    tables (`tables`, ``BoundaryData``, at the graphs' time positions
+    `t_pos`, in the compact or the global space): in bfloat16 (`dtype`)
+    those arrive rounded, as the JAX package's exchange sends them
+    (``send_rows.astype(dtype)``), and the cotangent of each returns
+    rounded once for each (owner, consumer) pair, the transpose of its two
+    casts; own rows are not rounded. Each rank's aggregation is K1 in
+    float32 on its device over the data's K1 tables of its slice (no call
+    sorts its edges); block-diagonal weights run ``rel_message`` in
+    `dtype`. Returns [B, n, d_out], each rank's own rows assembled on the
+    controller: the table every JAX device holds after its
+    ``boundary_gather`` (``parallel/mesh.py``)."""
+    if (tables is None or t_pos is None
+            or getattr(tables, "bnd_g", None) is None):
+        raise ValueError(
+            "the boundary exchange needs the data's exchange tables "
+            "(TKGData.ring, built by data.snapshots.ring_layout for "
+            "edge_partition 'boundary') and calls that name their snapshots")
+    B, n, d_in = h.shape
+    E = src.shape[1]
+    if E % m:
+        raise ValueError(f"the boundary exchange needs edges grouped by "
+                         f"destination owner (E = {E}, m = {m})")
+    cap = E // m
+    rows = ring_geometry(n, m)
+    tab = tables.comp if compact else tables.glob
+    tp = t_pos.reshape(-1).long()
+    bnd = (tables.bnd_c if compact else tables.bnd_g)[tp]  # [B, m, m, C]
+    diagonal = n_bases == d_in == d_out
+    parts = []
+    for i, dev in enumerate(devices):
+        lo, hi = min(i * rows, n), min((i + 1) * rows, n)
+        if lo == hi:
+            continue  # a rank past the last row owns no row and no edge
+        hx = h.to(dev).reshape(B * n, d_in)
+        if dtype is not None:
+            # the cut rows the owners send rank i, rounded; the padding id
+            # n lands on a spare row that is dropped
+            ids = bnd[:, :, i].to(dev).long().reshape(B, -1)
+            flat = torch.where(ids < n, ids + torch.arange(
+                B, device=dev)[:, None] * n, B * n).reshape(-1)
+            hp = F.pad(hx, (0, 0, 0, 1))
+            hx = hp.index_put((flat,), hot_round(hp[flat], dtype))[:B * n]
+        s, t, r, em = (x[:, i * cap:(i + 1) * cap].to(dev)
+                       for x in (src, dst, rel, emask))
+        w = weight.to(dev)
+        if diagonal and kernels:
+            out = spmm(hx, s, t, r, em, w,
+                       tables=(tab, (tp * m + i).to(dev)))
+        else:
+            s, t = flat_graph(s, t, n)
+            r, em = r.reshape(-1), em.reshape(-1)
+            if diagonal:
+                out = spmm_fwd_plain(hx, s, t, r, em, w)
+            else:
+                norm = in_degree_norm(t, em, B * n)
+                msg = rel_message(hx[s], r, w, n_bases, d_in, d_out, dtype)
+                msg = msg * (norm[t] * em.to(hx.dtype))[:, None]
+                out = segment_sum(msg, t, B * n) * norm[:, None]
+        parts.append(out.reshape(B, n, d_out)[:, lo:hi].to(h.device))
+    return torch.cat(parts, 1)

@@ -27,6 +27,24 @@ it is given, float32 or bfloat16, and round each gathered value in
 registers, as the TPU kernel's body does; the plain versions round at the same points
 (``ops.gru.hot_round``), so that autograd through them is that backward.
 
+``onehot=True`` (with ``hot=torch.bfloat16``) is the bfloat16 function
+of ``ops.segment.rel_spmm``'s method "onehot" (the JAX package's
+``_rel_spmm_onehot`` with ``dtype=bfloat16``, XLA ops there): with norm
+= 1/deg,
+
+    out[v] = norm[v] * sum_{e : dst_e = v} r(r(r(h[src_e]) * r(w[rel_e]))
+                                             * r(norm[v] * em_e))
+
+(float32 sums), and the backward the transpose of those casts and
+products: dmsg_e = r(r(g[dst_e] * norm[dst_e]) * r(norm[dst_e] * em_e)),
+dh[u] = r(sum r(dmsg_e * r(w[rel_e]))), its sum float32 and rounded once,
+and dw[r] the terms r(dmsg_e * r(h[src_e])) added one by one in the
+edges' order (graph by graph, slot by slot), each partial sum rounded: the
+JAX package's scatter-add of the rounded weights' cotangent in bfloat16
+(``spmm_fwd_plain``'s form under autograd gives the same). The kernels of that mode are the
+bfloat16 build's with its launchers' onehot flag; the forward then hands
+the backward norm, not norm^2.
+
 Every wrapper takes B graphs side by side: h [B * n, d] and edges [B, E]
 (src, dst, rel and the bool mask emask), graph b's ids indexing its own
 rows [b * n, (b + 1) * n); edges [E] are one graph. On a CPU tensor each
@@ -56,11 +74,15 @@ from temp_tpu_torch.parallel.edge_partition import ring_tables
 _MAX_D = 256  # the kernels keep d / 32 <= 8 columns per lane in registers
 
 
-def _norm2_plain(dst, em, n: int):
+def _norm_plain(dst, em, n: int):
     deg = torch.zeros(n, dtype=em.dtype, device=em.device).index_add_(
         0, dst.long(), em)
-    norm = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0),
+    return torch.where(deg > 0, 1.0 / deg.clamp(min=1.0),
                        torch.zeros_like(deg))
+
+
+def _norm2_plain(dst, em, n: int):
+    norm = _norm_plain(dst, em, n)
     return norm * norm
 
 
@@ -71,10 +93,74 @@ def _rows(x, idx, hot):
     return hot_round(x.to(torch.float32)[idx.long()], hot)
 
 
-def spmm_fwd_plain(h, src, dst, rel, emask, weight, hot=None):
+def _onehot_gather(x, idx):
+    """The rows idx of x rounded to bfloat16, as bfloat16: x rounded, then
+    gathered in float32, so that the cotangents of a row sum in float32
+    and round once (the transpose of the JAX package's one-hot product of
+    the rounded x)."""
+    bf = torch.bfloat16
+    return x.to(bf).to(torch.float32)[idx.long()].to(bf)
+
+
+def bf16_scatter_add(terms, idx, n_rows: int):
+    """[n_rows, d] float32: the rows of terms [E, d] added into rows idx
+    [E] one by one in the order of E, each partial sum rounded to
+    bfloat16, as XLA's scatter-add into a bfloat16 operand adds its
+    updates (the terms are bfloat16 values)."""
+    idx = idx.long()
+    order = torch.argsort(idx, stable=True)
+    counts = torch.bincount(idx, minlength=n_rows)
+    pos = torch.empty_like(idx)
+    pos[order] = (torch.arange(len(idx), device=idx.device)
+                  - (torch.cumsum(counts, 0) - counts)[idx[order]])
+    acc = torch.zeros((n_rows,) + tuple(terms.shape[1:]),
+                      dtype=torch.float32, device=terms.device)
+    for k in range(int(counts.max()) if len(idx) else 0):
+        sel = torch.nonzero(pos == k)[:, 0]
+        rows = idx[sel]
+        acc[rows] = hot_round(acc[rows] + terms[sel].to(torch.float32),
+                              torch.bfloat16)
+    return acc
+
+
+class _Bf16Gather(torch.autograd.Function):
+    """x [R, d] rounded to bfloat16 and gathered at idx, as bfloat16 (the
+    JAX package's gather of a bfloat16 table); the backward adds the
+    rows' cotangents one by one in bfloat16 (``bf16_scatter_add``)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows, ctx.dtype = x.shape[0], x.dtype
+        return x.to(torch.bfloat16)[idx.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return bf16_scatter_add(g, idx, ctx.n_rows).to(ctx.dtype), None
+
+
+def _spmm_onehot_plain(h, src, dst, rel, emask, weight):
+    """The "onehot" mode's plain forward (the module's docstring), written
+    with the JAX package's casts and bfloat16 products, so that autograd
+    through it is their transpose."""
+    em = emask.to(torch.float32)
+    norm = _norm_plain(dst, em, h.shape[0])
+    msg = _onehot_gather(h, src) * _Bf16Gather.apply(weight, rel)
+    scale = (norm[dst.long()] * em).to(torch.bfloat16)[:, None]
+    raw = torch.zeros(h.shape, dtype=torch.float32,
+                      device=h.device).index_add_(
+        0, dst.long(), (msg * scale).to(torch.float32))
+    return raw * norm[:, None]
+
+
+def spmm_fwd_plain(h, src, dst, rel, emask, weight, hot=None,
+                   onehot: bool = False):
     """Plain PyTorch version: h [N, d], weight [R, d], src/dst/rel/emask
-    [E] -> [N, d] float32; `hot` the bfloat16 mode (the module's
-    docstring)."""
+    [E] -> [N, d] float32; `hot` the bfloat16 mode, `onehot` its "onehot"
+    rounding (the module's docstring)."""
+    if onehot:
+        return _spmm_onehot_plain(h, src, dst, rel, emask, weight)
     em = emask.to(torch.float32)
     msg = hot_round(_rows(h, src, hot) * _rows(weight, rel, hot)
                     * em[:, None], hot)
@@ -83,11 +169,24 @@ def spmm_fwd_plain(h, src, dst, rel, emask, weight, hot=None):
     return raw * _norm2_plain(dst, em, h.shape[0])[:, None]
 
 
-def spmm_bwd_plain(g, n2, h, src, dst, rel, emask, weight, hot=None):
+def spmm_bwd_plain(g, n2, h, src, dst, rel, emask, weight, hot=None,
+                   onehot: bool = False):
     """Plain PyTorch version of the backward: g [N, d] the cotangent of
-    out, n2 [N] norm^2. Returns (dh [N, d], dw [R, d]), float32; `hot` the
-    bfloat16 mode (g * norm^2 rounded once a row, before its gather)."""
+    out, n2 [N] norm^2 (norm in the "onehot" mode). Returns (dh [N, d],
+    dw [R, d]), float32; `hot` the bfloat16 mode (g * norm^2 rounded once
+    a row, before its gather), `onehot` its "onehot" rounding."""
     em = emask.to(torch.float32)
+    if onehot:
+        bf = torch.bfloat16
+        scale = hot_round(n2[dst.long()] * em, bf)[:, None]
+        dmsg = hot_round(hot_round(g * n2[:, None], bf)[dst.long()] * scale,
+                         bf)
+        dh = torch.zeros(h.shape, dtype=torch.float32,
+                         device=h.device).index_add_(
+            0, src.long(), hot_round(dmsg * _rows(weight, rel, bf), bf))
+        dw = bf16_scatter_add(hot_round(dmsg * _rows(h, src, bf), bf)
+                              * em[:, None], rel, weight.shape[0])
+        return hot_round(dh, bf), dw
     dmsg = hot_round(g * n2[:, None], hot)[dst.long()] * em[:, None]
     dh = torch.zeros(h.shape, dtype=torch.float32,
                      device=h.device).index_add_(
@@ -132,9 +231,11 @@ def _graphs(name, h, src, dst, rel, emask):
     return (src.shape[0], h.shape[0] // src.shape[0], src, dst, rel, emask)
 
 
-def _check_hot(name, hot):
+def _check_hot(name, hot, onehot: bool = False):
     if hot not in (None, torch.bfloat16):
         raise TypeError(f"{name}: no kernel mode for {hot}")
+    if onehot and hot is None:
+        raise ValueError(f"{name}: the onehot rounding is a bfloat16 mode")
 
 
 def _check_cuda(name, h, src, dst, rel, emask, weight, hot=None):
@@ -231,19 +332,23 @@ def _h_bf16(h) -> int:
     return int(h.dtype == torch.bfloat16)
 
 
-def _spmm_fwd(h, src, dst, rel, emask, weight, tables=None, hot=None):
-    """K1f returning (out, norm^2, the tables it walked): the kernel on
-    CUDA tensors, the plain version on CPU tensors (given `tables`), in
-    the mode `hot` (None, or torch.bfloat16)."""
+def _spmm_fwd(h, src, dst, rel, emask, weight, tables=None, hot=None,
+              onehot: bool = False):
+    """K1f returning (out, norm^2 (norm for `onehot`), the tables it
+    walked): the kernel on CUDA tensors, the plain version on CPU tensors
+    (given `tables`), in the mode `hot` (None, or torch.bfloat16) and
+    `onehot`'s rounding."""
     kind = _device_kind("spmm_fwd", h)
-    _check_hot("spmm_fwd", hot)
+    _check_hot("spmm_fwd", hot, onehot)
     B, n, src, dst, rel, emask = _graphs("spmm_fwd", h, src, dst, rel, emask)
     if kind == "cpu":
         _check_positions(tables, "spmm_fwd")
         s, t = flat_graph(src, dst, n)
         em = emask.reshape(-1)
-        return (spmm_fwd_plain(h, s, t, rel.reshape(-1), em, weight, hot),
-                _norm2_plain(t, em.to(torch.float32), h.shape[0]), tables)
+        norm = (_norm_plain if onehot else _norm2_plain)(
+            t, em.to(torch.float32), h.shape[0])
+        return (spmm_fwd_plain(h, s, t, rel.reshape(-1), em, weight, hot,
+                               onehot), norm, tables)
     _check_cuda("spmm_fwd", h, src, dst, rel, emask, weight, hot)
     mask = _mask(emask)
     tab, t_pos = _call_tables("spmm_fwd", h, weight, src, dst, rel, mask, n,
@@ -254,41 +359,48 @@ def _spmm_fwd(h, src, dst, rel, emask, weight, tables=None, hot=None):
         tab.fwd_ptr.data_ptr(), tab.fwd_edge.data_ptr(), t_pos.data_ptr(),
         tab.fwd_ptr.shape[0], mask.data_ptr(), h.data_ptr(),
         weight.data_ptr(), out.data_ptr(), n2.data_ptr(), B, n, tab.rows,
-        src.shape[1], h.shape[1], _vec(h, weight), _h_bf16(h),
+        src.shape[1], h.shape[1], _vec(h, weight), _h_bf16(h), int(onehot),
         torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "spmm_fwd")
     spmm_fwd.launches += 1
     if hot is not None:
         spmm_fwd.launches_bf16 += 1
+    if onehot:
+        spmm_fwd.launches_onehot += 1
     return out, n2, (tab, t_pos)
 
 
-def spmm_fwd(h, src, dst, rel, emask, weight, tables=None, hot=None):
+def spmm_fwd(h, src, dst, rel, emask, weight, tables=None, hot=None,
+             onehot: bool = False):
     """K1f: the kernel on CUDA tensors, the plain version on CPU tensors.
     `tables`: (the data's ``RingTables`` of the edges' id space, t_pos
     [B]) for graphs that are train snapshots; None sorts the call's
-    edges. `hot`: None (float32) or torch.bfloat16, the bfloat16 mode."""
-    return _spmm_fwd(h, src, dst, rel, emask, weight, tables, hot)[0]
+    edges. `hot`: None (float32) or torch.bfloat16, the bfloat16 mode;
+    `onehot`: its "onehot" rounding (the module's docstring)."""
+    return _spmm_fwd(h, src, dst, rel, emask, weight, tables, hot,
+                     onehot)[0]
 
 
-spmm_fwd.launches = 0       # every launch, in either mode
-spmm_fwd.launches_bf16 = 0  # the bfloat16 mode's
+spmm_fwd.launches = 0       # every launch, in any mode
+spmm_fwd.launches_bf16 = 0  # the bfloat16 modes'
+spmm_fwd.launches_onehot = 0  # the "onehot" rounding's (among them)
 spmm_fwd.csr_builds = 0  # tables sorted in a call (not the data's)
 
 
-def spmm_bwd(g, n2, h, src, dst, rel, emask, weight, tables=None, hot=None):
+def spmm_bwd(g, n2, h, src, dst, rel, emask, weight, tables=None, hot=None,
+             onehot: bool = False):
     """K1b: (dh, dw) for the cotangent g of ``spmm_fwd``'s output and the
-    forward's norm^2 n2 [B * n]. The kernel on CUDA tensors (one launch),
-    the plain version on CPU tensors; `tables` and `hot` as in
-    ``spmm_fwd``. dh and dw are float32."""
+    forward's norm^2 n2 [B * n] (norm for `onehot`). The kernel on CUDA
+    tensors (one launch), the plain version on CPU tensors; `tables`,
+    `hot` and `onehot` as in ``spmm_fwd``. dh and dw are float32."""
     kind = _device_kind("spmm_bwd", g)
-    _check_hot("spmm_bwd", hot)
+    _check_hot("spmm_bwd", hot, onehot)
     B, n, src, dst, rel, emask = _graphs("spmm_bwd", h, src, dst, rel, emask)
     if kind == "cpu":
         _check_positions(tables, "spmm_bwd")
         s, t = flat_graph(src, dst, n)
         return spmm_bwd_plain(g, n2, h, s, t, rel.reshape(-1),
-                              emask.reshape(-1), weight, hot)
+                              emask.reshape(-1), weight, hot, onehot)
     _check_cuda("spmm_bwd", h, src, dst, rel, emask, weight, hot)
     if g.shape != h.shape or g.dtype != torch.float32 or g.device != h.device:
         raise ValueError(f"spmm_bwd: g {tuple(g.shape)} {g.dtype} must be "
@@ -308,16 +420,20 @@ def spmm_bwd(g, n2, h, src, dst, rel, emask, weight, tables=None, hot=None):
         p(t_pos), tab.fwd_ptr.shape[0], p(mask), p(g), p(n2), p(h),
         p(weight), p(dh), p(dw), B, n, tab.rows, src.shape[1],
         weight.shape[0], h.shape[1], _vec(g, h, weight),
-        _h_bf16(h), torch.cuda.current_stream(h.device).cuda_stream)
+        _h_bf16(h), int(onehot),
+        torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "spmm_bwd")
     spmm_bwd.launches += 1
     if hot is not None:
         spmm_bwd.launches_bf16 += 1
+    if onehot:
+        spmm_bwd.launches_onehot += 1
     return dh, dw
 
 
 spmm_bwd.launches = 0
 spmm_bwd.launches_bf16 = 0
+spmm_bwd.launches_onehot = 0
 
 
 class SpMM(torch.autograd.Function):
@@ -328,23 +444,24 @@ class SpMM(torch.autograd.Function):
     only, float32 (autograd casts dh to a bfloat16 h's dtype)."""
 
     @staticmethod
-    def forward(ctx, h, weight, src, dst, rel, emask, tables, hot):
+    def forward(ctx, h, weight, src, dst, rel, emask, tables, hot, onehot):
         out, n2, tables = _spmm_fwd(h, src, dst, rel, emask, weight, tables,
-                                    hot)
+                                    hot, onehot)
         ctx.save_for_backward(h, weight, src, dst, rel, emask, n2)
-        ctx.tables, ctx.hot = tables, hot
+        ctx.tables, ctx.hot, ctx.onehot = tables, hot, onehot
         return out
 
     @staticmethod
     def backward(ctx, g):
         h, weight, src, dst, rel, emask, n2 = ctx.saved_tensors
         dh, dw = spmm_bwd(g.contiguous(), n2, h, src, dst, rel, emask, weight,
-                          tables=ctx.tables, hot=ctx.hot)
-        return dh, dw, None, None, None, None, None, None
+                          tables=ctx.tables, hot=ctx.hot, onehot=ctx.onehot)
+        return dh, dw, None, None, None, None, None, None, None
 
 
-def spmm(h, src, dst, rel, emask, weight, tables=None, hot=None):
-    """K1 as a differentiable function of h and weight; `tables` and `hot`
-    as in ``spmm_fwd``."""
+def spmm(h, src, dst, rel, emask, weight, tables=None, hot=None,
+         onehot: bool = False):
+    """K1 as a differentiable function of h and weight; `tables`, `hot`
+    and `onehot` as in ``spmm_fwd``."""
     return SpMM.apply(h.contiguous(), weight.contiguous(), src, dst, rel,
-                      emask, tables, hot)
+                      emask, tables, hot, onehot)

@@ -1,17 +1,23 @@
 """Edge-partitioned (model-parallel) training and eval: the data layout of
-the ring modes and the wrapper that partitions a model's SpMMs.
+the ring and boundary modes and the wrapper that partitions a model's
+SpMMs.
 
-``ring_geometry``, ``ring_regroup_data`` and ``group_edges_by_dst_owner``
-are the JAX package's host-side layout helpers on numpy, giving equal
-arrays. ``ring_tables`` sorts a regrouped edge set into the CSR tables
-that kernel K13 walks (``RingTables``); ``data.snapshots.ring_layout``
-builds them once for every train snapshot (``ring_data``). ``EdgePartitionedModel`` runs a model's ``loss`` and ``eval_ranks``
-with every ``rel_spmm`` partitioned over the model axis of a mesh
+``ring_geometry``, ``ring_regroup_data``, ``boundary_tables`` and
+``group_edges_by_dst_owner`` are the JAX package's host-side layout
+helpers on numpy, giving equal arrays. ``ring_tables`` sorts a regrouped
+edge set into the CSR tables that kernel K13 walks (``RingTables``);
+``data.snapshots.ring_layout`` builds them once for every train snapshot
+(``ring_data``), and for the boundary exchange K1's tables of each rank's
+edge slice with the exchange tables (``boundary_data``).
+``EdgePartitionedModel`` runs a model's ``loss`` and ``eval_ranks`` with
+every ``rel_spmm`` partitioned over the model axis of a mesh
 (``parallel/mesh.py``): in the ring modes each rank owns a row shard of the
 entity states and the edges whose destination it owns, and the shards
 rotate around the ring (``ops/segment.py``, kernel K13 in
-``parallel/ring_spmm.py``). The rest of the model runs once, on the
-controller. Only the model axis is ported: a data axis (dp > 1) raises.
+``parallel/ring_spmm.py``); in the boundary mode each rank owns the same
+edges and reads only the cut rows other ranks send it (K1 a rank). A data
+axis splits the batch of target times into shards, each with its own
+draws. The rest of the model runs once, on the controller.
 """
 
 from __future__ import annotations
@@ -201,6 +207,96 @@ def ring_data(data, m: int, align: int = 128) -> RingData:
                     ring_geometry(A, m, align)))
 
 
+def boundary_tables(data, m: int, align: int = 4):
+    """The exchange tables of the "boundary" mode (the JAX package's
+    ``boundary_tables``, on numpy, giving equal arrays): for every train
+    snapshot t and ordered pair of ranks (owner j, consumer i), j != i,
+    the sorted distinct entity rows that consumer i's edge slice reads from
+    owner j's row shard, over the static mask: the graph's cut, the only
+    rows that move between ranks. Needs the ring layout
+    (``ring_regroup_data``). Returns (bnd_c [T, m, m, Cc] in compact slots,
+    padded with A; bnd_g [T, m, m, Cg] in global ids, padded with
+    num_ents), each capacity the longest list rounded up to `align`."""
+    rows = ring_geometry(data.num_ents, m)
+    A = np.asarray(data.act_idx).shape[1]
+    a_cap = A // m
+    T = data.num_times
+    em = np.asarray(data.train.emask)
+    E = em.shape[1]
+    if E % m:
+        raise ValueError("boundary_tables: apply ring_regroup_data first")
+    e_cap = E // m
+
+    def build(src_arr, owner_div, sentinel):
+        src_arr = np.asarray(src_arr)
+        lists = {}
+        longest = 1
+        for t in range(T):
+            for i in range(m):
+                sl = slice(i * e_cap, (i + 1) * e_cap)
+                s = src_arr[t, sl][em[t, sl]]
+                own = s // owner_div
+                for j in np.unique(own):
+                    if j == i:
+                        continue
+                    ids = np.unique(s[own == j])
+                    lists[(t, int(j), i)] = ids
+                    longest = max(longest, len(ids))
+        C = max(align, -(-longest // align) * align)
+        out = np.full((T, m, m, C), sentinel, np.int32)
+        for (t, j, i), ids in lists.items():
+            out[t, j, i, :len(ids)] = ids
+        return out
+
+    return (build(data.train_src_loc, a_cap, A),
+            build(data.train.src, rows, data.num_ents))
+
+
+@dataclass
+class BoundaryData:
+    """The data's tables of the "boundary" exchange over m ranks, in both
+    id spaces (the final step's global ids, the window's compact slots):
+    the exchange tables of ``boundary_tables`` (``bnd_g``, ``bnd_c``), and
+    the static CSR tables that kernel K1 walks for each rank's edge slice
+    (``glob``, ``comp``: ``RingTables`` of one rank over T * m blocks, the
+    block of snapshot t and rank i at t * m + i, slots relative to the
+    slice, rows = the space's size)."""
+
+    glob: RingTables
+    comp: RingTables
+    bnd_g: Any  # [T, m, m, Cg] int32, padding num_ents
+    bnd_c: Any  # [T, m, m, Cc] int32, padding A
+    m: int = 1
+
+
+def boundary_data(data, m: int) -> BoundaryData:
+    """``BoundaryData`` of `data` (numpy, in the ring layout of m ranks):
+    the exchange tables and K1's tables of every rank's slice of every
+    train snapshot, sorted here once so that no call sorts its edges."""
+    tr = data.train
+    T, E = np.asarray(tr.src).shape
+    cap = E // m
+    n_rels = 2 * data.num_rels
+    A = np.asarray(data.act_idx).shape[1]
+
+    def slices(x):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(x).reshape(T * m, cap)))
+
+    def tables(src, dst, rows):
+        t = ring_tables(*(slices(x) for x in (src, dst, tr.rel, tr.emask)),
+                        1, rows, n_rels)
+        return dataclasses.replace(t, **{
+            f.name: getattr(t, f.name).numpy()
+            for f in dataclasses.fields(t) if f.name != "rows"})
+
+    bnd_c, bnd_g = boundary_tables(data, m)
+    return BoundaryData(glob=tables(tr.src, tr.dst, data.num_ents),
+                        comp=tables(data.train_src_loc, data.train_dst_loc,
+                                    A),
+                        bnd_g=bnd_g, bnd_c=bnd_c, m=m)
+
+
 def check_ring_layout(data, m: int, align: int = 128) -> None:
     """Raise unless the train edges of `data` are in the ring layout of m
     ranks (``ring_regroup_data``): slice i of every edge row holds only
@@ -222,9 +318,9 @@ def check_ring_layout(data, m: int, align: int = 128) -> None:
                                       == slot)))
     if not ok:
         raise ValueError(
-            f"the ring edge partitions need the train edges grouped by "
-            f"destination owner for {m} ranks; regroup the data with "
-            f"ring_regroup_data (data.snapshots.ring_layout)")
+            f"the ring and boundary edge partitions need the train edges "
+            f"grouped by destination owner for {m} ranks; regroup the data "
+            f"with ring_regroup_data (data.snapshots.ring_layout)")
 
 
 def group_edges_by_dst_owner(src, dst, rel, emask, num_ents: int, m: int):
@@ -263,6 +359,17 @@ def rel_spmm_edge_partitioned(h, src, dst, rel, emask, weight, n_bases: int,
                         num_ents, kernels=kernels)
 
 
+def shard_generator(gen: torch.Generator, shard: int) -> torch.Generator:
+    """The generator of data shard `shard`'s draws in a step whose
+    generator is `gen` (freshly seeded, as ``Trainer.step_generator``
+    makes it): seeded from (gen's seed, shard), on gen's device. The port's
+    counterpart of the JAX package's ``fold_in(rng, axis_index("data"))``:
+    each shard draws from a stream of its own."""
+    seed = np.random.SeedSequence(
+        [int(gen.initial_seed()), int(shard)]).generate_state(1)[0]
+    return torch.Generator(device=gen.device).manual_seed(int(seed))
+
+
 class EdgePartitionedModel:
     """A model (the ``loss``/``eval_ranks`` signature of
     ``models/registry.py``) whose SpMMs are partitioned over the model axis
@@ -270,38 +377,78 @@ class EdgePartitionedModel:
     (as in the JAX package), so its windows and final steps run step by
     step through ``rel_spmm``, which takes the config's hot dtype (under
     compute_dtype="bfloat16": K13's bfloat16 mode in "ring_pallas", the
-    block products' in the other modes). Attributes pass through to the
-    inner model."""
+    cut rows' rounding in "boundary", the block products' in the other
+    modes). A data axis of dp > 1 splits the batch of B target times into
+    dp shards of B / dp (B must divide), shard d partitioned over row d
+    of the mesh: the loss is the sum of the shards' losses, each drawn
+    from its own stream (``shard_generator``; `draws`, when given, one
+    dict a shard), and the eval BCE the mean over the shards weighted by
+    their elements with queries, as the JAX package's ``psum`` over the
+    data axis gives them. Attributes pass through to the inner model."""
 
     def __init__(self, model, mesh: Mesh, axis: str = "model",
                  mode: str = "psum"):
-        if mesh.shape["data"] > 1:
-            raise NotImplementedError(
-                f"a mesh with data axis {mesh.shape['data']} needs data "
-                f"parallelism, which is not ported yet; see ROADMAP.md")
         self.inner = model
         self.mesh = mesh
         self.axis = axis
         self.mode = mode
         self.mp = mesh.shape[axis]
+        self.dp = mesh.shape["data"]
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
-    def _partition(self):
-        """The partition context (the snapshots it runs name the data's
-        K13 tables, ``ops.segment.data_tables``)."""
+    def _partition(self, shard: int = 0):
+        """The partition context of data shard `shard` (the snapshots it
+        runs name the data's partition tables,
+        ``ops.segment.data_tables``)."""
         return manual_partition(self.axis, self.mp, self.mode,
-                                self.mesh.devices[0])
+                                self.mesh.devices[shard])
+
+    def _shards(self, t_pos, t_valid):
+        """(t_pos, t_valid) of each data shard, host arrays."""
+        t_pos = np.asarray(t_pos)
+        t_valid = np.asarray(t_valid, bool)
+        if len(t_pos) % self.dp:
+            raise ValueError(
+                f"a batch of {len(t_pos)} target times does not split over "
+                f"the data axis of {self.dp}")
+        n = len(t_pos) // self.dp
+        return [(t_pos[d * n:(d + 1) * n], t_valid[d * n:(d + 1) * n])
+                for d in range(self.dp)]
 
     def loss(self, params, data, t_pos, t_valid, gen=None, draws=None):
-        with self._partition():
-            return self.inner.loss(params, data, t_pos, t_valid, gen=gen,
-                                   draws=draws)
+        if self.dp == 1:
+            with self._partition():
+                return self.inner.loss(params, data, t_pos, t_valid, gen=gen,
+                                       draws=draws)
+        total = None
+        for d, (tp, tv) in enumerate(self._shards(t_pos, t_valid)):
+            with self._partition(d):
+                part = self.inner.loss(
+                    params, data, tp, tv,
+                    gen=None if gen is None else shard_generator(gen, d),
+                    draws=None if draws is None else draws[d])
+            total = part if total is None else total + part
+        return total
 
     def eval_ranks(self, params, data, t_pos, t_valid, split: str,
                    conv1_all=None):
-        """The inner model's eval; `conv1_all` is not taken (the table is
-        off under a partition, as in the JAX package)."""
-        with self._partition():
-            return self.inner.eval_ranks(params, data, t_pos, t_valid, split)
+        """The inner model's eval, shard by shard; `conv1_all` is not taken
+        (the table is off under a partition, as in the JAX package)."""
+        if self.dp == 1:
+            with self._partition():
+                return self.inner.eval_ranks(params, data, t_pos, t_valid,
+                                             split)
+        parts = []
+        for d, (tp, tv) in enumerate(self._shards(t_pos, t_valid)):
+            with self._partition(d):
+                parts.append(self.inner.eval_ranks(params, data, tp, tv,
+                                                   split))
+        ranks = torch.cat([p[0] for p in parts])
+        mask = torch.cat([p[1] for p in parts])
+        n = torch.stack([p[1].any(1).sum() for p in parts]).to(
+            parts[0][2].dtype)
+        bce = (torch.stack([p[2] for p in parts]) * n).sum() / (
+            n.sum().clamp(min=1.0))
+        return ranks, mask, bce

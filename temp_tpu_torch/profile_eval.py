@@ -17,10 +17,11 @@ the attention models and ``config_rrgcn.json``, ``config_birrgcn.json`` or
 ``config_srgcn.json`` the linear-recurrence and static ones, whose every
 graph product is K1;
 seeded random weights; --fused-eval and --fused-window-mb switch on the
-fused eval, K11, and the batched window, K12; --edge-partition, psum, ring
-or ring_pallas, partitions every SpMM over --mp-size ranks, default 4, on
-the data regrouped for them, the ranks on the visible cards in turn; any of
-them in bfloat16 with --compute-dtype bfloat16), runs
+fused eval, K11, and the batched window, K12; --edge-partition, psum,
+ring, ring_pallas or boundary, partitions every SpMM over --mp-size
+ranks, default 4, on the data regrouped for them, the ranks on the
+visible cards in turn; any of them in bfloat16 with --compute-dtype
+bfloat16), runs
 one warm-up valid sweep, then traces a second one with torch.profiler. Prints
 the wall time, the device time summed over all kernels and its share of the
 wall time (kernels on the ranks' streams may overlap, so the sum can

@@ -22,12 +22,13 @@ where the model has one), ``--unfused`` the kernels with fused_final off
 (the final step one element at a time through K1, as the gated models and
 plain BiGRRGCN always run), ``--plain`` the plain versions;
 ``--fused-window-mb`` the windows through the batched window, K12;
-``--edge-partition`` (psum, ring or ring_pallas) partitions every SpMM
-over M ranks (default 4) on the data regrouped for them, the ranks on the
-visible cards in turn (several to a card when there are fewer cards); any
-of them in bfloat16 with ``--compute-dtype bfloat16``. Prints the wall time, the device time summed
-over all kernels and its share of the wall time, and the device time of
-each kernel name, largest first. With --out it also writes the Chrome trace
+``--edge-partition`` (psum, ring, ring_pallas or boundary) partitions
+every SpMM over M ranks (default 4) on the data regrouped for them, the
+ranks on the visible cards in turn (several to a card when there are
+fewer cards); any of them in bfloat16 with ``--compute-dtype bfloat16``
+(the default float32; "auto" would be bfloat16 on the card). Prints the
+wall time, the device time summed over all kernels and its share of the
+wall time, and the device time of each kernel name, largest first. With --out it also writes the Chrome trace
 there. Needs a CUDA device.
 """
 

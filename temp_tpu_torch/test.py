@@ -102,7 +102,8 @@ def predict(run_dir: str, split: str = "test", data_root=None,
         json.dump(m, f, indent=2)
     records = []
     if predictions:
-        records = prediction_records(data, split, ranks, cfg.eval_batch)
+        records = prediction_records(data, split, ranks,
+                                     trainer.eval_batch())
         path = os.path.join(run_dir, f"{split}_predictions.pkl")
         with open(path, "wb") as f:
             pickle.dump(records, f)

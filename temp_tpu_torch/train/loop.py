@@ -58,23 +58,43 @@ class Trainer:
         <experiments_dir>/<model_name or encode_run_name(cfg)>).
 
         With an edge partition in `cfg` and mp_size > 1 the model runs
-        wrapped in ``EdgePartitionedModel`` over `mesh` (default: mp_size
-        ranks on the visible cards, or on the CPU for a CPU model); the
-        model's device is the controller. The ring modes need `data` in
-        their layout (``ring_regroup_data``) and raise otherwise."""
+        wrapped in ``EdgePartitionedModel`` over `mesh` (default: a
+        dp_size x mp_size mesh of the visible cards, or of the CPU for a
+        CPU model); the model's device is the controller. The ring and
+        boundary modes need `data` in their layout (``ring_regroup_data``;
+        the boundary mode also its exchange tables, ``ring_layout``) and
+        raise otherwise. A data axis (dp_size > 1) splits each batch of
+        target times over its rows under a partition, and needs the batch
+        to divide, as the JAX package's Trainer does; without a partition
+        it computes what dp_size 1 does, as the JAX package's GSPMD split
+        of the batch does. The eval batch is rounded down to a multiple of
+        dp (at least dp)."""
         self.cfg = cfg
         self.mesh = None
-        if cfg.partitioned:
+        dp = int(cfg.dp_size)
+        if cfg.partitioned or dp > 1:
             if mesh is None:
                 mp = int(cfg.mp_size)
                 on_cpu = model.device.type == "cpu"
-                mesh = make_mesh(1, mp, devices=[model.device] * mp
+                mesh = make_mesh(dp, mp, devices=[model.device] * (dp * mp)
                                  if on_cpu else None)
             self.mesh = mesh
-            if cfg.edge_partition_mode in ("ring", "ring_pallas"):
+            dp = mesh.shape["data"]
+        if dp > 1 and cfg.edge_partition_mode is not None \
+                and cfg.batch_size % dp:
+            raise ValueError(
+                f"edge_partition={cfg.edge_partition!r} needs batch_size "
+                f"({cfg.batch_size}) divisible by the mesh data axis ({dp}); "
+                f"adjust batch_size or dp_size")
+        if cfg.partitioned:
+            mode = cfg.edge_partition_mode
+            if mode in ("ring", "ring_pallas", "boundary"):
                 check_ring_layout(data, mesh.shape["model"])
-            model = EdgePartitionedModel(model, mesh,
-                                         mode=cfg.edge_partition_mode)
+            if mode == "boundary" and data.bnd_g is None:
+                raise ValueError(
+                    "the boundary edge partition needs the data's exchange "
+                    "tables; build the data with data.snapshots.ring_layout")
+            model = EdgePartitionedModel(model, mesh, mode=mode)
         self.model = model
         self.device = model.device
         self.data = to_device(data, self.device)
@@ -274,6 +294,17 @@ class Trainer:
 
     # -- evaluation ---------------------------------------------------------
 
+    def eval_batch(self) -> int:
+        """The sweep's batch of target times: ``cfg.eval_batch``, with a
+        mesh rounded down to a multiple of its data axis (at least one
+        target a row), as the JAX package's Trainer keeps the split
+        legal."""
+        eb = self.cfg.eval_batch
+        if self.mesh is not None:
+            dp = self.mesh.shape["data"]
+            eb = max(dp, (eb // dp) * dp)
+        return eb
+
     @torch.no_grad()
     def eval_sweep(self, params, split: str = "valid"):
         """Ranks of every query of `split`, one batch of target times at a
@@ -285,7 +316,7 @@ class Trainer:
                      if self.cfg.eval_conv1 else None)
         ranks, masks, bces = [], [], []
         for t_pos, t_valid in batched_time_positions(
-                data.num_times, self.cfg.eval_batch, None):
+                data.num_times, self.eval_batch(), None):
             r, m, bce = model.eval_ranks(params, data, t_pos, t_valid, split,
                                          conv1_all=conv1_all)
             ranks.append(r)

@@ -566,9 +566,9 @@ def test_slice_trains_and_ranks_as_jax_bf16():
 
 # -- the config ---------------------------------------------------------------
 
-# what the port still refuses in bfloat16: the unported partition and data
-# parallelism (in float32 too), and the SpMM method "onehot" (bfloat16
-# only; its field is the TEMP_TPU_SPMM_METHOD switch, not the config)
+# what the port refused in bfloat16 until the boundary exchange, the data
+# axis and the SpMM method "onehot" in bfloat16 were ported: each now
+# builds (the method runs); multi-process training still raises
 @pytest.mark.parametrize("field,value,what", [
     ("edge_partition", True, "boundary"),
     ("edge_partition", "boundary", "boundary"),
@@ -582,15 +582,19 @@ def test_bf16_outside_the_slice_raises(field, value, what):
                 for s in ((6, 4), (3, 4)))
         edges = [torch.tensor(x) for x in ([0, 1, 2], [1, 2, 3], [0, 1, 2],
                                            [True, True, False])]
-        with pytest.raises(NotImplementedError, match=what):
-            rel_spmm(h, *edges, w, 4, 4, 6, dtype=BF, method=value)
-        rel_spmm(h, *edges, w, 4, 4, 6, method=value)
+        bf = rel_spmm(h, *edges, w, 4, 4, 6, dtype=BF, method=value)
+        f32 = rel_spmm(h, *edges, w, 4, 4, 6, method=value)
+        assert bf.dtype == torch.float32 and not torch.equal(bf, f32)
         return
     over = {field: value}
     if field == "edge_partition":
         over["mp_size"] = 2
-    with pytest.raises(NotImplementedError, match=what):
-        TKGConfig(compute_dtype="bfloat16", **over)
+    cfg = TKGConfig(compute_dtype="bfloat16", **over)
+    assert cfg.hot_dtype == torch.bfloat16 and getattr(cfg, field) == value
+    if field == "edge_partition":
+        assert cfg.partitioned and cfg.edge_partition_mode == what
+    with pytest.raises(NotImplementedError, match="multi-process"):
+        TKGConfig(compute_dtype="bfloat16", distributed=True, **over)
 
 
 # the values whose bfloat16 mode is ported: the step-by-step windows, K11,
@@ -634,9 +638,11 @@ def test_bf16_in_the_slice_and_auto_stays_f32():
                          **over).hot_dtype == torch.bfloat16
     for dt in ("auto", "float32", "f32", None):
         assert TKGConfig(compute_dtype=dt).hot_dtype is None
-    # "auto" resolves to bfloat16 on an accelerator in the JAX package; the
-    # port keeps float32 for now (ROADMAP.md Queue 1)
+    # "auto" resolves on the device, as the JAX package's on its backend:
+    # float32 on the CPU (the JAX backend here), bfloat16 on CUDA
     assert JaxConfig(compute_dtype="auto").hot_dtype is None  # the CPU here
+    assert TKGConfig().for_device("cpu").hot_dtype is None
+    assert TKGConfig().for_device("cuda").hot_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="float16"):
         TKGConfig(compute_dtype="float16")
     # K12 in bfloat16 on CPU tensors: its plain version, B per-element
@@ -742,8 +748,8 @@ def test_cli_trains_and_evaluates_in_bf16(tmp_path, capsys):
     """``python -m temp_tpu_torch.main --compute-dtype bfloat16`` (in this
     process) trains an epoch of GRRGCN with the fused final step's plain
     versions (``--fused-final on``) and evaluates it; the run's config
-    keeps the dtype. A bfloat16 run of what the port lacks (the
-    "boundary" partition) raises."""
+    keeps the dtype. A bfloat16 run of what the port lacks (SARGCN under
+    an edge partition) raises."""
     import json
     import os
 
@@ -763,9 +769,11 @@ def test_cli_trains_and_evaluates_in_bf16(tmp_path, capsys):
         "bfloat16"
     test = json.load(open(run / "test_metrics.json"))
     assert test["n"] > 0 and 0.0 < test["mrr"] <= 1.0
-    with pytest.raises(NotImplementedError, match="boundary"):
+    with pytest.raises(NotImplementedError, match="items 8-9"):
         tt.run_cli(["-c", os.path.join(tt.ROOT, "grid", "icews14",
                                        "config_sargcn.json"),
                     "--device", "cpu", "--compute-dtype", "bfloat16",
-                    "--edge-partition", "boundary", "--mp-size", "2"],
+                    "--data-root", root, "--dataset", "tiny",
+                    "--edge-pad-multiple", "16", "--edge-partition",
+                    "boundary", "--mp-size", "2"],
                    capsys)

@@ -10,8 +10,7 @@ against the Pallas kernel in interpret mode and its jitted vjp, within
 sums in another order). The switch: every method in float32 and bfloat16,
 by argument and by ``TEMP_TPU_SPMM_METHOD`` (the JAX side's
 ``_METHOD_OVERRIDE`` patched here), against the JAX package's
-``rel_spmm`` within 1e-5; "onehot" in bfloat16 raises, "pallas" with
-block weights raises.
+``rel_spmm`` within 1e-5; "pallas" with block weights raises.
 
 The models: each config of ``CASES`` (every module of the registry that
 the earlier bfloat16 files do not hold, every decoder, pool and option,
@@ -183,9 +182,11 @@ def test_k1_bf16_launches_match_the_library_signatures(monkeypatch):
     csrc/spmm_bf16.cu) with the arguments ``_build.SIGNATURES`` declares
     for ``name``, one forward and one backward launch, each counted in
     ``launches`` and ``launches_bf16``, on h and w as given (no copy; the
-    launchers' h_bf16 0 for a float32 h, 1 for a bfloat16 h); in float32
-    the float32 launchers, h_bf16 0, counted in ``launches`` only, and a
-    bfloat16 h refused; a bfloat16 weight is refused in both modes."""
+    launchers' h_bf16 0 for a float32 h, 1 for a bfloat16 h; onehot 1
+    in the "onehot" rounding, counted in ``launches_onehot`` too); in
+    float32 the float32 launchers, h_bf16 0, counted in ``launches`` only,
+    and a bfloat16 h refused; a bfloat16 weight is refused in both
+    modes."""
     import ctypes
     import re
 
@@ -211,7 +212,7 @@ def test_k1_bf16_launches_match_the_library_signatures(monkeypatch):
                 for a, t in zip(args, sig):
                     assert isinstance(a, kinds[t]) and not isinstance(
                         a, bool), (name, a)
-                calls.append((name, args[-2]))
+                calls.append((name, args[-3], args[-2]))
                 return 0
             return launch
 
@@ -225,21 +226,28 @@ def test_k1_bf16_launches_match_the_library_signatures(monkeypatch):
     h, w, edges, _ = _graph(3)
     e = [torch.from_numpy(x) for x in edges]
     names = ["spmm_fwd_launch", "spmm_bwd_launch"]
-    for hot, h_dtype, flag in ((BF, torch.float32, 0), (BF, BF, 1),
-                               (None, torch.float32, 0)):
+    for hot, h_dtype, flag, onehot in ((BF, torch.float32, 0, False),
+                                       (BF, BF, 1, False),
+                                       (BF, torch.float32, 0, True),
+                                       (None, torch.float32, 0, False)):
         calls.clear()
         before = (spmm_fwd.launches, spmm_fwd.launches_bf16,
-                  spmm_bwd.launches, spmm_bwd.launches_bf16)
+                  spmm_bwd.launches, spmm_bwd.launches_bf16,
+                  spmm_fwd.launches_onehot, spmm_bwd.launches_onehot)
         th = torch.from_numpy(h).to(h_dtype).requires_grad_()
         tw = torch.from_numpy(w).requires_grad_()
-        spmm(th, *e, tw, hot=hot).sum().backward()
+        spmm(th, *e, tw, hot=hot, onehot=onehot).sum().backward()
         suffix = "" if hot is None else "_bf16"
-        assert calls == [(n + suffix, flag) for n in names]
-        n = int(hot is not None)
+        assert calls == [(n + suffix, flag, int(onehot)) for n in names]
+        n, o = int(hot is not None), int(onehot)
         assert (spmm_fwd.launches, spmm_fwd.launches_bf16,
-                spmm_bwd.launches, spmm_bwd.launches_bf16) == (
-            before[0] + 1, before[1] + n, before[2] + 1, before[3] + n)
+                spmm_bwd.launches, spmm_bwd.launches_bf16,
+                spmm_fwd.launches_onehot, spmm_bwd.launches_onehot) == (
+            before[0] + 1, before[1] + n, before[2] + 1, before[3] + n,
+            before[4] + o, before[5] + o)
         assert th.grad.dtype == h_dtype and tw.grad.dtype == torch.float32
+    with pytest.raises(ValueError, match="bfloat16 mode"):
+        spmm(torch.from_numpy(h), *e, torch.from_numpy(w), onehot=True)
     with pytest.raises(TypeError, match="mode"):
         spmm(torch.from_numpy(h).to(BF), *e, torch.from_numpy(w))
     with pytest.raises(TypeError, match="float32 weight"):
@@ -274,30 +282,28 @@ def _both(h, w, edges, n_bases, method, dtype):
 def test_spmm_method_switch_follows_the_jax_package(method, dtype):
     """Each method in each dtype, by argument and through the environment
     variable (with method "auto"): the JAX package's ``rel_spmm`` of the
-    same method within 1e-5, but "onehot" in bfloat16, which raises
-    (queued). "segment" and "auto" ignore the dtype (K1 in float32); the
-    bfloat16 "pallas" is K1's bfloat16 mode, which differs from it."""
+    same method within 1e-5. "segment" and "auto" ignore the dtype (K1 in
+    float32); the bfloat16 "pallas" is K1's bfloat16 mode and the
+    bfloat16 "onehot" its "onehot" rounding, which differ from it."""
     h, w, edges = _switch_case()
     for via in ("argument", "environment"):
         arg, env = (method, None) if via == "argument" else ("auto", method)
         if method == "auto" and via == "environment":
             env = None
         with spmm_method(env):
-            if method == "onehot" and dtype is not None:
-                with pytest.raises(NotImplementedError, match="onehot"):
-                    _both(h, w, edges, 16, arg, dtype)
-                continue
             got, ref = _both(h, w, edges, 16, arg, dtype)
         assert got.dtype == torch.float32
         _near(got, ref, f"{method} {via}")
         src, dst, rel, em = (torch.from_numpy(x) for x in edges)
         th, tw = torch.from_numpy(h), torch.from_numpy(w)
-        hot = dtype if method == "pallas" else None
-        assert torch.equal(got, spmm_fwd_plain(th, src, dst, rel, em, tw,
-                                               hot))
+        rounded = method in ("pallas", "onehot")
+        hot = dtype if rounded else None
+        assert torch.equal(got, spmm_fwd_plain(
+            th, src, dst, rel, em, tw, hot,
+            onehot=method == "onehot" and dtype is not None))
         if dtype is not None:
             f32 = spmm_fwd_plain(th, src, dst, rel, em, tw)
-            assert torch.equal(got, f32) == (method != "pallas")
+            assert torch.equal(got, f32) == (not rounded)
 
 
 def test_spmm_method_switch_refusals_and_environment(monkeypatch):

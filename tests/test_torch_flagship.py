@@ -662,8 +662,15 @@ def test_registry_dispatches_the_flagship_and_refuses_the_rest():
         m = get_model(TKGConfig(**{**KW, **over}), data, device="cpu")
         assert type(m) is cls, over
         m.init_params(0)
-    # RRGCN's TeMP variants, and every model but plain GRRGCN with
-    # ComplEx and the "all" pool under an edge partition
+    # under an edge partition GRRGCN, plain BiGRRGCN and the flagship
+    # build, with ComplEx and the "all" pool
+    for over in ({}, {"impute": False}, {"module": "GRRGCN",
+                                         "impute": False}):
+        cfg = TKGConfig(**{**KW, **over, "edge_partition": "ring",
+                           "mp_size": 4})
+        get_model(cfg, data, device="cpu").init_params(0)
+    # RRGCN's TeMP variants, and every other model, option, decoder or
+    # pool under an edge partition
     for over in ({"module": "BiRRGCN"},
                  {"module": "GRRGCN", "impute": False,
                   "score_function": "distmult", "edge_partition": "psum",
@@ -677,7 +684,8 @@ def test_registry_dispatches_the_flagship_and_refuses_the_rest():
                   "mp_size": 4},
                  {"module": "GRRGCN", "post_aggregation": True,
                   "impute": False, "edge_partition": "psum", "mp_size": 4},
-                 {"impute": False, "edge_partition": "ring", "mp_size": 4}):
+                 {"impute": False, "type1": True, "edge_partition": "ring",
+                  "mp_size": 4}):
         with pytest.raises(NotImplementedError):
             m = get_model(TKGConfig(**{**KW, **over}), data, device="cpu")
             m.init_params(0)

@@ -21,6 +21,7 @@ and its backward within 1e-5 of the largest entry of their plain
 versions' outputs; bit for bit equal whether its ranks share one card or
 sit on several, and whether it walks the data's tables or sorts the
 call's edges.
+Every config names float32: "auto" is bfloat16 on the card.
 """
 
 import os
@@ -31,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from temp_tpu_torch.config import TKGConfig
+from temp_tpu_torch.config import TKGConfig as _Config
 from temp_tpu_torch.data.snapshots import (
     build_answer_lists, make_synthetic, ring_layout, to_device,
 )
@@ -72,6 +73,13 @@ from temp_tpu_torch.train.loop import Trainer
 from temp_tpu_torch.train.optim import param_leaves
 
 pytestmark = pytest.mark.gpu
+
+
+def TKGConfig(**kw):
+    """The port's config, float32 unless a test names another dtype."""
+    return _Config(**{"compute_dtype": "float32", **kw})
+
+
 TOL = 1e-4
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -785,22 +785,40 @@ def test_main_cli_ring_pallas_on_cpu(tmp_path, capsys, one_thread):
     ({"mp_size": 4}, "model parallelism"),
 ])
 def test_unported_partitions_raise(over, what):
-    with pytest.raises(NotImplementedError, match=what):
-        TKGConfig(**over)
+    """Multi-process training and mp_size > 1 without a partition still
+    raise; the boundary exchange and the data axis are ported (the
+    config builds, as the JAX package's does)."""
+    if what in ("boundary", "data parallelism"):
+        cfg = TKGConfig(**over, mp_size=M)
+        assert cfg.partitioned and cfg.edge_partition_mode == \
+            JaxConfig(**over, mp_size=M).edge_partition_mode
+        assert cfg.dp_size == over.get("dp_size", 1)
+    else:
+        with pytest.raises(NotImplementedError, match=what):
+            TKGConfig(**over)
     assert TKGConfig(edge_partition="ring_pallas",
                      mp_size=4).edge_partition_mode == "ring_pallas"
     assert TKGConfig(edge_partition="false").edge_partition_mode is None
 
 
 def test_flagship_under_a_partition_raises():
+    """The flagship (BiGRRGCN --impute) runs under a partition now; TED
+    (--post-ensemble), --post-aggregation and the unidirectional --impute
+    still raise, at get_model and in a model wrapped by hand, naming the
+    ROADMAP items."""
     data = ring_regroup_data(make_synthetic(**DATA), M)
     kw = {**KW, "module": "BiGRRGCN", "impute": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(TKGConfig(edge_partition="ring", **kw), data, device="cpu")
-    model = get_model(TKGConfig(**{**kw, "mp_size": 1}), data, device="cpu")
+    get_model(TKGConfig(edge_partition="ring", **kw), data, device="cpu")
+    for over in ({"post_ensemble": True}, {"post_aggregation": True},
+                 {"module": "GRRGCN"}):
+        with pytest.raises(NotImplementedError, match="items 8-9"):
+            get_model(TKGConfig(edge_partition="ring", **{**kw, **over}),
+                      data, device="cpu")
+    ted = {**kw, "post_ensemble": True, "mp_size": 1}
+    model = get_model(TKGConfig(**ted), data, device="cpu")
     wrapped = EdgePartitionedModel(model, make_mesh(1, M, devices=CPU4),
                                    mode="ring")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="items 8-9"):
         wrapped.eval_ranks(model.init_params(0), to_device(data, "cpu"),
                            T_POS, [True] * 4, "valid")
 
@@ -808,7 +826,7 @@ def test_flagship_under_a_partition_raises():
 def test_make_mesh_places_ranks_only_where_asked():
     """Without devices the ranks take the visible cards, round robin; with
     no card that raises rather than placing them on the CPU. A data axis
-    is not ported."""
+    splits the batch (``EdgePartitionedModel``)."""
     mesh = make_mesh(1, M, devices=CPU4)
     assert mesh.shape == {"data": 1, "model": M}
     if not torch.cuda.is_available():
@@ -816,7 +834,9 @@ def test_make_mesh_places_ranks_only_where_asked():
             make_mesh(1, M)
     with pytest.raises(ValueError):
         make_mesh(1, M, devices=CPU4[:2])
-    with pytest.raises(NotImplementedError, match="data parallelism"):
-        EdgePartitionedModel(object(), make_mesh(2, 2, devices=CPU4))
+    grid = make_mesh(2, 2, devices=CPU4)
+    wrapped = EdgePartitionedModel(object(), grid)
+    assert (wrapped.dp, wrapped.mp) == (2, 2)
+    assert grid.placement() == "2 x 2 ranks on cpu"
     two = make_mesh(1, 2, devices=["cpu", "meta"])
     assert two.placement() == "2 ranks on cpu, meta"

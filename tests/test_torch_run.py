@@ -109,6 +109,17 @@ def test_unported_config_values_raise(field, value, what):
         assert TKGConfig(**{field: value}, module=what).hot_dtype == (
             torch.bfloat16)
         return
+    if field in ("dp_size", "edge_partition"):
+        # ported: the data axis, and the boundary exchange (K1 a rank)
+        # that a bare edge_partition selects, as in the JAX package
+        cfg = TKGConfig(**{field: value})
+        assert getattr(cfg, field) == value
+        assert cfg.edge_partition_mode == JaxConfig(
+            **{field: value}).edge_partition_mode
+        if field == "dp_size":
+            cfg, _ = port_main.parse_args(["--dp-size", "2"])
+            assert cfg.dp_size == 2 and not cfg.partitioned
+        return
     more = {}
     with pytest.raises(NotImplementedError, match=what):
         TKGConfig(**{field: value}, **more)
@@ -121,13 +132,13 @@ def test_unported_config_values_raise(field, value, what):
 
 def test_cli_takes_a_bare_edge_partition():
     """A bare ``--edge-partition`` is True, the boundary exchange, as the
-    JAX package's CLI takes it (``nargs="?"``): it reaches the config's
-    NotImplementedError for that exchange, not argparse's exit 2. A mode's
-    name and a boolean word parse as before."""
-    with pytest.raises(NotImplementedError, match="boundary"):
-        port_main.parse_args(["--edge-partition", "--mp-size", "4"])
-    with pytest.raises(NotImplementedError, match="boundary"):
-        port_main.parse_args(["--edge-partition"])
+    JAX package's CLI takes it (``nargs="?"``), not argparse's exit 2. A
+    mode's name and a boolean word parse as before."""
+    cfg, _ = port_main.parse_args(["--edge-partition", "--mp-size", "4"])
+    assert cfg.edge_partition is True and cfg.partitioned
+    assert cfg.edge_partition_mode == "boundary"
+    cfg, _ = port_main.parse_args(["--edge-partition"])
+    assert cfg.edge_partition_mode == "boundary" and not cfg.partitioned
     cfg, _ = port_main.parse_args(["--edge-partition", "ring_pallas",
                                    "--mp-size", "4"])
     assert cfg.edge_partition_mode == "ring_pallas" and cfg.partitioned

@@ -259,6 +259,20 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
                bf16_spmm_pallas=chip_smoke.phase_bf16_spmm_pallas(
                    ctx, bf16_path))
     res.update(chip_smoke.bf16_zoo_phases(ctx))
+    # "auto" (bfloat16 on the card, float32 here), K1's "onehot" rounding,
+    # the boundary exchange, the data axis and the flagship's partitions
+    res.update(
+        auto_dtype=chip_smoke.phase_auto_dtype(ctx, fctx),
+        onehot_bf16=chip_smoke.phase_onehot_bf16(ctx),
+        boundary=chip_smoke.phase_boundary(ctx, res["ring_path"],
+                                           res["ring_train"]),
+        dp_mesh=chip_smoke.phase_dp_mesh(ctx),
+        flagship_partition=chip_smoke.phase_flagship_partition(
+            fctx, res["flagship_path"]))
+    assert res["auto_dtype"]["grrgcn"]["resolved"] == "float32"
+    assert res["boundary"]["float32"]["loss_gaps"]["kernels/psum"] <= (
+        chip_smoke.TRAIN_TOL)
+    assert res["dp_mesh"]["placement"] == "2 x 4 ranks on cpu"
     line = chip_smoke.kernels_line(res)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -272,10 +286,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
         "fused_final_bwd_layer_bf16", "bi_layer_fwd_bf16", "bi_loss_fwd_bf16",
         "bi_layer_bwd_bf16", "fused_eval_ranks_bf16",
         "fused_window_mb_fwd_bf16", "ring_spmm_fwd_bf16",
-        "ring_spmm_bwd_bf16", "spmm_fwd_bf16", "spmm_bwd_bf16"]
-    assert [k["id"] for k in line["kernels"]][-6:] == [
+        "ring_spmm_bwd_bf16", "spmm_fwd_bf16", "spmm_bwd_bf16",
+        "spmm_fwd_onehot_bf16", "spmm_bwd_onehot_bf16"]
+    assert [k["id"] for k in line["kernels"]][-8:] == [
         "K11_bf16", "K12_bf16", "K13_bf16", "K13b_bf16", "K1f_bf16",
-        "K1b_bf16"]
+        "K1b_bf16", "K1f_onehot_bf16", "K1b_onehot_bf16"]
+    assert {"boundary_train", "bf16_boundary_eval", "dp_mesh_train",
+            "flagship_boundary_eval", "flagship_ring_pallas_train"} <= set(
+        line["kernels"][0]["launches_by_path"])
     # K1's bfloat16 mode at every shape of K1's phases, the attention
     # history's and the RRGCN window step's, forward and backward: the
     # plain versions against themselves on the CPU, run twice
@@ -285,7 +303,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(one_thread):
             "bwd_rrgcn_window_sub"} <= set(b1)
     assert all(c["bitwise"] and c["scaled_err"] == 0.0 and c["bound_ms"] > 0
                for c in b1.values())
-    assert set(line["kernels"][-2]["cases"]) == {
+    assert set(line["kernels"][-4]["cases"]) == {
         t for t in b1 if not t.startswith("bwd_")} - {"final"}
     # the method "pallas" in bfloat16: GRRGCN's sweep and SARGCN's steps
     # and sweep against their plain versions; every config lifted from

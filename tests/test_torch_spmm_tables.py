@@ -247,9 +247,11 @@ def _record(monkeypatch):
     calls = []
     real = segment.spmm
 
-    def record(h, src, dst, rel, emask, weight, tables=None, hot=None):
+    def record(h, src, dst, rel, emask, weight, tables=None, hot=None,
+               onehot=False):
         calls.append((src, dst, rel, emask, tables))
-        return real(h, src, dst, rel, emask, weight, tables=tables, hot=hot)
+        return real(h, src, dst, rel, emask, weight, tables=tables, hot=hot,
+                    onehot=onehot)
 
     monkeypatch.setattr(segment, "spmm", record)
     return calls
