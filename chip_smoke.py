@@ -1637,6 +1637,32 @@ def _bf16_case(kernel, plain_bf, plain_f32, errs: dict, flops, nbytes,
     return out
 
 
+def window_occupancy(d: int, hot=None):
+    """The window kernels' launch shapes at width d from the library's
+    query (``window_occupancy``, or its bfloat16 mode's for hot): for K2f's
+    layer launch and K2b's GRU, input and weight launches, the shared
+    memory a block in bytes, the threads a block and the blocks an SM
+    holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor). None off the
+    card."""
+    import ctypes
+
+    import torch
+
+    from temp_tpu_torch import _build
+
+    if not torch.cuda.is_available():
+        return None
+    fn = getattr(_build.lib(),
+                 "window_occupancy" + ("" if hot is None else "_bf16"))
+    out = {}
+    for which, name in enumerate(("layer", "bwd_gru", "bwd_input", "wgrad")):
+        buf = (ctypes.c_int * 3)()
+        _build.check(fn(which, d, ctypes.addressof(buf)), "window_occupancy")
+        out[name] = {"smem_bytes": buf[0], "threads": buf[1],
+                     "blocks_per_sm": buf[2]}
+    return out
+
+
 def _errs(pairs, what):
     """The rule's ratios and the max abs errors of (name, kernel, plain
     bf16, plain f32) quadruples."""
@@ -1686,6 +1712,7 @@ def phase_bf16_kernels(ctx) -> dict:
     pf_ev = fw.fused_window_fwd_plain(**ev)
     errs = _errs(((f"buf{i + 1}", k_ev[i], pb_ev[i], pf_ev[i])
                   for i in range(2)), "K2f bf16 conv1_in")
+    bitwise = {"k2f": _bitwise(k_ev, fw.fused_window_fwd(**ev, hot=BF))}
     L1, d = ctx["L1"], ctx["d"]
     n_rel = p["encoder"]["layer1"]["weight"].shape[0]
     w_bytes = (2 * d * 3 * d * 2 + 2 * d * d + n_rel * 2 * d) * 4
@@ -1712,6 +1739,8 @@ def phase_bf16_kernels(ctx) -> dict:
     pf_tr = fw.fused_window_fwd_plain(**tr_args)
     errs = _errs(((f"buf{i + 1}", k_tr[i], pb_tr[i], pf_tr[i])
                   for i in range(2)), "K2f bf16 train")
+    bitwise["k2f_train"] = _bitwise(k_tr,
+                                    fw.fused_window_fwd(**tr_args, hot=BF))
     rows = int(win.act_mask[:, :L1].sum())
     edges = int(win.emask[:, :L1].sum())
     out["k2f_train"] = _bf16_case(
@@ -1726,6 +1755,9 @@ def phase_bf16_kernels(ctx) -> dict:
     ref_f = fw.fused_window_bwd_plain(**a, gb1=gbs[0].float(),
                                       gb2=gbs[1].float())
     errs = _errs(zip(_COTANGENTS, got, ref_bf, ref_f), "K2b bf16")
+    bitwise["k2b"] = _bitwise(got, fw.fused_window_bwd(**bwd, hot=BF))
+    if not all(bitwise.values()):
+        raise AssertionError(f"K2 bf16: two runs differ {bitwise}")
     out["k2b"] = _bf16_case(
         lambda: fw.fused_window_bwd(**bwd, hot=BF),
         lambda: fw.fused_window_bwd_plain(**a, gb1=gbs[0], gb2=gbs[1],
@@ -1735,6 +1767,10 @@ def phase_bf16_kernels(ctx) -> dict:
         rows * 84 * d * d + edges * 16 * d,
         rows * d * (4 * 4 + 4 * 2) + edges * 16 + rows * 12 + 2 * w_bytes,
         shape, dev)
+    # the launch shapes of K2f's and K2b's launches (and float32's beside)
+    occ = {"bf16": window_occupancy(d, BF), "f32": window_occupancy(d)}
+    for tag in ("k2f", "k2f_train", "k2b"):
+        out[tag].update(bitwise=bitwise[tag], occupancy=occ)
 
     # K3-K5 on the first training batch, its history rounded to bfloat16
     fb = final_batch(ctx)
@@ -4691,7 +4727,11 @@ def kernels_line(res: dict) -> dict:
                 r["train_mode"] = {k: res["bf16_kernels"]["k2f_train"][k]
                                    for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_tf32_ms", "rms_ratio",
-                                             "max_abs_err")}
+                                             "max_abs_err", "bitwise")}
+            if tag in ("k2f", "k2b"):
+                # shared memory, threads and resident blocks an SM of each
+                # window launch, bfloat16 and float32
+                r["bitwise"], r["occupancy"] = m["bitwise"], m["occupancy"]
             if fk is not None and tag in ("k2f", "k2b"):
                 # K2's flagship modes: the flagship's windows, modes (a)
                 # and (b)

@@ -8,8 +8,10 @@ with ``ctypes``. No PyTorch headers are compiled, so the build takes
 seconds. It happens at first use and again whenever a source or header is
 newer than the library. Each exported launcher takes raw device pointers,
 sizes and the CUDA stream, and returns ``cudaGetLastError()``. The
-``*_bf16.cu`` sources compile a kernel source again in its bfloat16 mode
-(``BF16_LAUNCHERS``).
+``*_bf16.cu`` sources give the kernels' bfloat16 modes, their launchers
+``name_bf16`` with ``name``'s arguments (``BF16_LAUNCHERS``): most compile
+a kernel source again in that mode, ``fused_window_bf16.cu`` the window's
+own native bfloat16 kernels (``csrc/window_bf16.cuh``).
 """
 
 from __future__ import annotations
@@ -87,6 +89,11 @@ SIGNATURES = {
     "window_wgrad_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],
     # window_rel_grad(r_ptr, r_eid, ewg1, ewg2, dwrel, n_rels, d, stream)
     "window_rel_grad_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # window_occupancy(which, d, out): kernel `which` of the window (0 K2f,
+    #                  1 K2b's GRU tile, 2 its input tile, 3 its weight
+    #                  launch) at width d -> out[3] (shared memory bytes a
+    #                  block, threads, resident blocks an SM), a host int[3]
+    "window_occupancy": [_I, _I, _P],
     # final_layer(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask,
     #             wih_t, whh_t, bih, bhh, dt, lam, prev, sel_x, active, out,
     #             B, N, d, stream)
@@ -155,13 +162,12 @@ SIGNATURES = {
     "bi_wgrad_launch": [_P] * 11 + [_I] * 4 + [_P],
 }
 
-# the launchers whose bfloat16 mode (csrc/*_bf16.cu, the same sources
-# compiled with TK_BF16 1) is exported as name + "_bf16", with the same
-# arguments
+# the launchers whose bfloat16 mode (csrc/*_bf16.cu) is exported as name +
+# "_bf16", with the same arguments
 BF16_LAUNCHERS = (
     "window_layer_launch", "window_bwd_gru_launch", "window_bwd_input_launch",
-    "window_wgrad_launch", "final_layer_launch", "final_scores_launch",
-    "final_loss_reduce_launch", "final_dq_launch", "final_dq_finish_launch",
+    "window_wgrad_launch", "window_occupancy", "final_layer_launch",
+    "final_scores_launch", "final_loss_reduce_launch", "final_dq_launch", "final_dq_finish_launch",
     "final_dtable_launch", "final_bwd_gru_launch", "final_bwd_input_launch",
     "final_wgrad_launch", "bi_layer_launch", "bi_bwd_gru_launch",
     "bi_wgrad_launch", "ring_fwd_step_launch", "ring_bwd_step_launch",

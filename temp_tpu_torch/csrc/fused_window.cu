@@ -69,13 +69,10 @@
 // only by its entity's next active step), so a plain read-add-store is
 // exact, and dead rows (live = 0) store nothing.
 //
-// Compiled a second time as fused_window_bf16.cu, with TK_BF16 1: K2f's and
-// K2b's bfloat16 mode (rgcn_gru_layer.cuh), the TPU kernels' bfloat16
-// instantiation. The buffers (and the third) are bfloat16; layer 2 of K2f
-// reads layer 1's buffer as its input (x_bf16); K2b reads the buffers as
-// previous states and takes layer 2's input as float32 (a copy of the
-// buffer the wrapper makes), its cotangent scratch float32. The same
-// launches, one product a k8 step.
+// The bfloat16 mode of both is a source of its own, fused_window_bf16.cu:
+// the same launches on the tensor cores' native bfloat16 products
+// (window_bf16.cuh), its operands staged once as bfloat16; what bounds it
+// and what its design does about that are in that header's note.
 
 #include "rgcn_gru_layer.cuh"
 
@@ -265,9 +262,7 @@ extern "C" int window_wgrad_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The sums below read and write float32 only: the float32 build's serve
-// both modes.
-#if !TK_BF16
+// The sums below read and write float32 only: they serve both modes.
 extern "C" int window_wgrad_reduce_launch(const void* part, int n_split,
                                           long long total, void* out,
                                           void* stream) {
@@ -289,4 +284,45 @@ extern "C" int window_rel_grad_launch(const void* r_ptr, const void* r_eid,
   return static_cast<int>(
       rel_sum(r_ptr, r_eid, ewg1, ewg2, dwrel, n_rels, d, stream));
 }
-#endif  // !TK_BF16
+
+// The launch shape and occupancy of window kernel `which` (0 K2f's layer,
+// 1 K2b's GRU tile, 2 its input tile, 3 its weight launch) at width d:
+// out[0] its shared memory a block in bytes, out[1] its threads, out[2] the
+// blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+template <typename K>
+static cudaError_t window_occupancy_of(K kernel, int threads, int bytes,
+                                       int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, bytes);
+  out[0] = bytes;
+  out[1] = threads;
+  out[2] = blocks;
+  return err;
+}
+
+extern "C" int window_occupancy(int which, int d, void* out) {
+  int* o = static_cast<int*>(out);
+  const int fl = static_cast<int>(sizeof(float));
+  switch (which) {
+    case 0: {
+      const int warps = fwd_warps(d, kFwdWarps);
+      return static_cast<int>(window_occupancy_of(
+          window_layer_kernel, warps * kWarp,
+          fwd_layer_smem_floats(d, warps) * fl, o));
+    }
+    case 1:
+      return static_cast<int>(window_occupancy_of(
+          window_bwd_gru_kernel, 2 * d, bwd_gru_smem_floats(d) * fl, o));
+    case 2:
+      return static_cast<int>(window_occupancy_of(
+          window_bwd_input_kernel, 2 * d, bwd_input_smem_floats(d) * fl, o));
+    case 3:
+      return static_cast<int>(window_occupancy_of(
+          window_wgrad_kernel, kWgThreads, kWgSmemBytes, o));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

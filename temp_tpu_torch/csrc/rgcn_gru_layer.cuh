@@ -31,26 +31,25 @@
 // beside it.
 //
 // The bfloat16 mode. A source that defines TK_BF16 to 1 before it includes
-// this header (fused_window_bf16.cu, fused_final_bf16.cu,
-// fused_final_bi_bf16.cu: fused_window.cu, fused_final.cu and
-// fused_final_bi.cu compiled again) gets every routine here in the mode of
-// the TPU kernels' bfloat16 instantiation (temp_tpu/ops/fused_window.py,
-// fused_final.py, fused_final_bi.py with dtype_str "bfloat16"): each product
-// operand rounded to
-// bfloat16 (to nearest even) and kept as a float whose low 16 bits are zero,
-// exact in TF32, so ONE mma.sync TF32 product a k8 step (split_tf32, mma3)
-// gives the bfloat16 product with float32 sums; the SpMM rounds each
-// gathered source row, relation weight and message (spmm_rows) and its
-// transpose each gathered cotangent and each product term
-// (bwd_input_tile), where the TPU kernels' one-hot products round them;
-// the previous states (the window's buffers, the final step's history)
-// are bfloat16 in device memory (prev_at), and a layer's input may be
-// (x_at, Layer::x_bf16: layer 2 of the window reads layer 1's buffer). Its
-// exported launchers carry the suffix _bf16 (the including source renames
-// them). What bounds the
-// mode: TF32's 495 TFLOP/s, a third of the tensor cores' bfloat16 rate,
-// on the same fragment loaders; native bfloat16 mma.sync or wgmma is later
-// work.
+// this header (fused_final_bf16.cu, fused_final_bi_bf16.cu: fused_final.cu
+// and fused_final_bi.cu compiled again; fused_window_bf16.cu, for the
+// SpMM, the layer description and the shared helpers only) gets every
+// routine here in the mode of the TPU kernels' bfloat16 instantiation
+// (temp_tpu/ops/fused_final.py, fused_final_bi.py, fused_window.py with
+// dtype_str "bfloat16"): each product operand rounded to bfloat16 (to
+// nearest even) and kept as a float whose low 16 bits are zero, exact in
+// TF32, so ONE mma.sync TF32 product a k8 step (split_tf32, mma3) gives the
+// bfloat16 product with float32 sums; the SpMM rounds each gathered source
+// row, relation weight and message (spmm_rows) and its transpose each
+// gathered cotangent and each product term (bwd_input_tile), where the TPU
+// kernels' one-hot products round them; the previous states (the final
+// step's history) are bfloat16 in device memory (prev_at), and a layer's
+// input may be (x_at, Layer::x_bf16). What bounds K3-K10's bfloat16 modes:
+// TF32's 495 TFLOP/s, half of the tensor cores' bfloat16 rate, with every
+// operand rounded again at every k8 step by every warp that loads it, and
+// float32 staging. The window's bfloat16 mode (K2f, K2b) left this design:
+// window_bf16.cuh stages its operands once as bfloat16 and multiplies them
+// by mma.sync m16n8k16 bf16 (its note); K3-K10's modes may follow it.
 
 #pragma once
 
@@ -412,7 +411,11 @@ __device__ __forceinline__ void spmm_rows(const Layer& p, int b, int a0,
 // tiles; the weight launch's sums run over thousands of rows, and its
 // rounded hi halves the error there (tests/test_torch_tf32x3.py holds a
 // model of both to float64). The rounding conversions are the costly part:
-// without them K5 took 3.28 ms where it took 3.70 on an H100 (PERF.md).
+// without them K5 took 3.28 ms where it took 3.70 on an H100 (PERF.md). In
+// the bfloat16 mode (TK_BF16, K3-K10) split_tf32 rounds each operand to
+// bfloat16 and mma3 issues one TF32 product of them, so a product loop
+// converts every fragment element at every k8 step: the cost that
+// window_bf16.cuh's native bfloat16 products remove for the window.
 
 constexpr int kBwdRows = 32;               // rows a tensor-core tile
 constexpr int kMTiles = kBwdRows / 16;     // m16 tiles a warp: all the rows

@@ -32,9 +32,11 @@ operands rounded to bfloat16 with float32 sums, the SpMM rounds the
 gathered source rows, the gathered relation weights and each message, the
 buffers come back in bfloat16, and the backward rounds the cotangents at
 the JAX kernel's cast points (``hot_mm``, ``hot_round`` and ``round_store``
-below state which). On the card it launches the same kernels compiled in
-their bfloat16 mode (``csrc/fused_window_bf16.cu``), the same number of
-launches.
+below state which). On the card it launches the kernels' bfloat16 mode
+(``csrc/fused_window_bf16.cu``, native bfloat16 products), the same
+launches: the wrapper rounds each weight once a call and layer 1's rows
+once (``kernel_operands``; JAX's ``astype(bfloat16)``, where the kernels
+read them only rounded), layer 2 reads layer 1's bfloat16 buffer as it is.
 """
 
 from __future__ import annotations
@@ -46,8 +48,9 @@ from temp_tpu_torch.ops.gru import GRU_KEY, hot_round
 from temp_tpu_torch.ops.spmm import build_csr, spmm_fwd_plain
 
 _MAX_D = 256
-# K2b's GRU tile: 2d threads (d / 16 warps of 16 columns) and 103,680
-# bytes of shared memory at d = 128, two blocks an SM
+# K2b's GRU tile: 2d threads (d / 16 warps of 16 columns), at d = 128 in
+# float32 32-row tiles of 103,680 bytes of shared memory, two blocks an SM,
+# in bfloat16 16-row tiles of 68,096 bytes, three an SM
 _MAX_D_BWD = 128
 # K2b's weight launch cuts each step's B*A rows into this many ranges, each
 # summed by its own blocks into its own copy of the weight cotangents. At the
@@ -243,6 +246,31 @@ def _check_cuda(name, tensors: dict, B, L1, A, E, d, hot=None):
                          f"16 up to {_MAX_D}")
 
 
+def kernel_operands(h0x, loop1, loop2, g1, g2, hot=None,
+                    bwd: bool = False) -> tuple:
+    """What the kernels read of the layer input and the weights: (x1, w1,
+    w2), x1 layer 1's input rows and w1/w2 each layer's weights, a dict of
+    the self-loop ("loop"), W_ih and W_hh transposed ("wih_t", "whh_t",
+    [d, 3d]) and, with `bwd`, the self-loop transposed ("loop_t") and W_ih,
+    W_hh in torch's layout ("wih", "whh", [3d, d]); all contiguous. In
+    float32 (hot None) the tensors as given (x1 is h0x). In the bfloat16
+    mode each rounded to `hot` once: the JAX kernels read h0x, the
+    self-loops and the GRU weights only as ``astype(bfloat16)``."""
+    def cast(t):
+        t = t if hot is None else t.to(hot)
+        return t.contiguous()
+
+    def layer(loop, g):
+        w = {"loop": cast(loop), "wih_t": cast(g["wih_t"]),
+             "whh_t": cast(g["whh_t"])}
+        if bwd:
+            w.update(loop_t=cast(loop.t()), wih=cast(g["wih_t"].t()),
+                     whh=cast(g["whh_t"].t()))
+        return w
+
+    return cast(h0x), layer(loop1, g1), layer(loop2, g2)
+
+
 def _lib_fn(lib, name: str, hot):
     """The launcher `name` of the float32 kernels, or of their bfloat16 mode
     (``name``_bf16) for hot=torch.bfloat16; raises for another dtype."""
@@ -336,21 +364,22 @@ def window_fwd_launches(owner, h0x, src, dst, rel, em, gidx, live, dt, wrel,
     rowptr, s_src, s_rel, s_em = _step_csr(dst, em, B, L1, A, src, rel, em)
 
     store = torch.float32 if hot is None else hot
+    x1, w1, w2 = kernel_operands(h0x, loop1, loop2, g1, g2, hot)
     buf1 = torch.zeros_like(h0x, dtype=store)
     buf2 = torch.zeros_like(h0x, dtype=store)
     buf3 = torch.zeros_like(h0x, dtype=store) if n_buf == 3 else None
     stream = torch.cuda.current_stream(h0x.device).cuda_stream
     p = _ptr
+    # x_bf16: the layer's input is bfloat16 (both layers in that mode)
+    x_bf16 = int(hot is not None)
     for k in range(L1):
-        # x_bf16: layer 2 reads layer 1's buffer, bfloat16 in that mode
-        for x, given, col, loop, m, relu, g, buf, loc, x_bf16 in (
-                (h0x, conv1_in, 0, loop1, m1, False, g1, buf1, None, 0),
-                (buf1, False, d, loop2, m2, act2, g2, buf2, buf3,
-                 int(hot is not None))):
+        for x, given, col, w, m, relu, g, buf, loc in (
+                (x1, conv1_in, 0, w1, m1, False, g1, buf1, None),
+                (buf1, False, d, w2, m2, act2, g2, buf2, buf3)):
             err = launch(
                 p(x), int(given), p(rowptr), p(s_src), p(s_rel), p(s_em),
-                p(wrel), 2 * d, col, p(loop), p(m), int(relu),
-                p(g["wih_t"]), p(g["whh_t"]), p(g["bih"]), p(g["bhh"]),
+                p(wrel), 2 * d, col, p(w["loop"]), p(m), int(relu),
+                p(w["wih_t"]), p(w["whh_t"]), p(g["bih"]), p(g["bhh"]),
                 p(gidx), p(live), p(dt), float(lam), p(buf), p(loc), B, L1,
                 A, d, x_bf16, k, stream)
             _build.check(err, name)
@@ -419,26 +448,25 @@ def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     r_ptr, r_eid = build_csr(rel.reshape(-1), R, eid,
                              keep=em.reshape(-1) > 0)
 
-    def tr(t):
-        return t.t().contiguous()
-
     # the buffers' cotangents, float32 accumulators of the steps' adds
     db1, db2 = gb1.to(torch.float32, copy=True), gb2.to(torch.float32,
                                                         copy=True)
     if gb3 is not None:
         gb3 = gb3.to(torch.float32)
-    # layer 2's input, layer 1's buffer, as the products and the SpMM read
-    # it: float32 (in the bfloat16 mode a copy of the bfloat16 values)
-    x2 = buf1.to(torch.float32)
+    # layer 1's input and the weights as the kernels read them; layer 2's
+    # input is layer 1's buffer in the store dtype
+    x1, w1, w2 = kernel_operands(h0x, loop1, loop2, g1, g2, hot, bwd=True)
     dh0x = torch.empty_like(h0x)
     n2 = torch.empty(B * L1 * A, device=dev)
     ewg1 = torch.empty(B * L1 * E * d, device=dev)
     ewg2 = torch.empty(B * L1 * E * d, device=dev)
     rows = B * A
     f32 = dict(device=dev, dtype=torch.float32)
+    # the scratch the weight launch reads only rounded: bfloat16 in that mode
+    xs = dict(device=dev, dtype=torch.float32 if hot is None else hot)
     # per-step scratch of each layer: conv, h0g, d_gi, d_gh, d_conv, d_lp
-    scr = [{"conv": torch.empty(rows * d, **f32),
-            "h0g": torch.empty(rows * d, **f32),
+    scr = [{"conv": torch.empty(rows * d, **xs),
+            "h0g": torch.empty(rows * d, **xs),
             "dgi": torch.empty(rows * 3 * d, **f32),
             "dgh": torch.empty(rows * 3 * d, **f32),
             "dconv": torch.empty(rows * d, **f32),
@@ -453,42 +481,42 @@ def fused_window_bwd(h0x, src, dst, rel, em, gidx, live, dt, wrel, loop1,
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _ptr
     lam = float(lam)
-    # per layer, layer 2 first: its input, mask, ReLU, self-loop and its
-    # transpose, GRU (and its weights in torch's [3d, d] layout), wrel
-    # column, own buffer, cotangent buffer and the cotangent of its conv
-    # output (the third buffer's), the norm^2 output, scratch, per-edge
-    # relation cotangents, and where the input cotangent goes (added into
-    # db1, or written to dh0x)
+    # per layer, layer 2 first: its input, mask, ReLU, weights (the
+    # self-loop and its transpose, W_ih and W_hh in both layouts), biases,
+    # wrel column, own buffer, cotangent buffer and the cotangent of its
+    # conv output (the third buffer's), the norm^2 output, scratch,
+    # per-edge relation cotangents, and where the input cotangent goes
+    # (added into db1, or written to dh0x)
     layers = (
-        (x2, m2, act2, loop2, tr(loop2), g2, tr(g2["wih_t"]),
-         tr(g2["whh_t"]), d, buf2, db2, gb3, n2, scr[1], ewg2, db1, 1),
-        (h0x, m1, False, loop1, tr(loop1), g1, tr(g1["wih_t"]),
-         tr(g1["whh_t"]), 0, buf1, db1, None, None, scr[0], ewg1, dh0x, 0))
+        (buf1, m2, act2, w2, g2, d, buf2, db2, gb3, n2, scr[1], ewg2, db1, 1),
+        (x1, m1, False, w1, g1, 0, buf1, db1, None, None, scr[0], ewg1, dh0x,
+         0))
 
     def launched(err, what):
         _build.check(err, f"fused_window_bwd ({what})")
         fused_window_bwd.launches += 1
 
     for k in reversed(range(L1)):
-        for (x, m, relu, loop, loop_t, g, wih, whh, col, own, dbuf, gloc,
-             n2_out, s, ewg, target, acc) in layers:
+        for (x, m, relu, w, g, col, own, dbuf, gloc, n2_out, s, ewg, target,
+             acc) in layers:
             launched(fn["window_bwd_gru_launch"](
                 p(x), p(d_ptr), p(d_src), p(d_rel), p(d_em), p(wrel), 2 * d,
-                col, p(loop), p(m), int(relu), p(g["wih_t"]), p(g["whh_t"]),
-                p(g["bih"]), p(g["bhh"]), p(wih), p(whh), p(gidx), p(live),
-                p(dt), lam, p(own), p(dbuf), p(gloc), p(n2_out),
-                p(s["conv"]), p(s["h0g"]), p(s["dgi"]), p(s["dgh"]),
-                p(s["dconv"]), p(s["dlp"]), B, L1, A, d, k, stream), "gru")
+                col, p(w["loop"]), p(m), int(relu), p(w["wih_t"]),
+                p(w["whh_t"]), p(g["bih"]), p(g["bhh"]), p(w["wih"]),
+                p(w["whh"]), p(gidx), p(live), p(dt), lam, p(own), p(dbuf),
+                p(gloc), p(n2_out), p(s["conv"]), p(s["h0g"]), p(s["dgi"]),
+                p(s["dgh"]), p(s["dconv"]), p(s["dlp"]), B, L1, A, d, k,
+                stream), "gru")
             launched(fn["window_bwd_input_launch"](
                 p(s_ptr), p(s_dst), p(s_rel), p(s_em), p(s_eid), p(n2),
-                p(s["dconv"]), p(s["dlp"]), p(wrel), 2 * d, col, p(loop_t),
-                p(x), p(ewg), p(target), acc, B, L1, A, d, k, stream),
-                "input")
+                p(s["dconv"]), p(s["dlp"]), p(wrel), 2 * d, col,
+                p(w["loop_t"]), p(x), p(ewg), p(target), acc, B, L1, A, d, k,
+                stream), "input")
         s1, s2 = scr
         launched(fn["window_wgrad_launch"](
-            p(s2["conv"]), p(s2["h0g"]), p(x2), p(s2["dgi"]),
+            p(s2["conv"]), p(s2["h0g"]), p(buf1), p(s2["dgi"]),
             p(s2["dgh"]), p(s2["dlp"]), p(s1["conv"]), p(s1["h0g"]),
-            p(h0x), p(s1["dgi"]), p(s1["dgh"]), p(s1["dlp"]), p(wpart),
+            p(x1), p(s1["dgi"]), p(s1["dgh"]), p(s1["dlp"]), p(wpart),
             _WGRAD_SPLIT, B, L1, A, d, k, stream), "wgrad")
     launched(lib.window_wgrad_reduce_launch(p(wpart), _WGRAD_SPLIT,
                                             wsum.numel(), p(wsum), stream),

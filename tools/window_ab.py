@@ -22,6 +22,23 @@ and measures:
   step of its GRU launch (``bi_bwd_gru_kernel``), weight launch and input
   launch.
 
+With --bf16 each run measures the window's bfloat16 mode instead:
+
+- K2f bfloat16 (``hot=torch.bfloat16``) on the same three windows, a call
+  and the device time a launch;
+- K2b bfloat16 on the training windows (seeded cotangents): a call, and
+  the device time a call of its GRU, input and weight launches
+  (``window_bwd_gru``, ``window_bwd_input``, ``window_wgrad_kernel``);
+- GRRGCN's and the flagship's default training step (compute_dtype
+  "auto", bfloat16 on the card): milliseconds a step over steps 3-8 of
+  epoch 0 from the smoke's seeded weights and draws, and over two more
+  traced steps the device time a step of all kernels, of the window's
+  and of the largest five;
+- a hash of the outputs of the float32 K2f (the three windows) and K2b
+  and of the bfloat16 K3, K4, K5 (GRRGCN's final step) and K6+K7, K8, K4,
+  K9+K10 (the flagship's) on the smoke's seeded inputs: equal hashes in
+  two checkouts say those kernels compute the same bits.
+
 The runs go in the order given by --order (the ROOTs' indices; default
 each once). Prints one JSON line a run, each with the card's name and
 power limit, and writes them all to --out. Needs a CUDA device.
@@ -34,6 +51,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 _K2F = "window_layer"
 _BI = ("bi_bwd_gru_kernel", "bi_wgrad_kernel", "final_bwd_input_kernel")
@@ -69,21 +87,209 @@ def _k2f(cs, fw, fwd_args, dev) -> dict:
             "launches": launches}
 
 
-def _measure(root: str) -> dict:
+def _hash(*items) -> str:
+    """sha256 (16 hex digits) of the bytes of the tensors in items (nested
+    lists and tuples; None skipped)."""
+    import hashlib
+
+    import torch
+
+    m = hashlib.sha256()
+
+    def add(x):
+        if x is None:
+            return
+        if isinstance(x, (list, tuple)):
+            for y in x:
+                add(y)
+            return
+        t = x.detach().contiguous().cpu().reshape(-1)
+        m.update(str(t.dtype).encode())
+        m.update(t.view(torch.uint8).numpy().tobytes())
+
+    add(items)
+    return m.hexdigest()[:16]
+
+
+def _hashes(cs, ctx, fctx, cases, dev) -> dict:
+    """The output hashes of --bf16 (the module docstring says which)."""
+    import torch
+
+    from temp_tpu_torch.ops import fused_final as ff
+    from temp_tpu_torch.ops import fused_final_bi as fb
+    from temp_tpu_torch.ops import fused_window as fw
+
+    BF = torch.bfloat16
+    out = {f"k2f_f32_{tag}": _hash(fw.fused_window_fwd(**a))
+           for tag, a in cases.items()}
+    a = {k: v for k, v in cases["train"].items() if k != "conv1_in"}
+    B, L1, A, d = a["h0x"].shape
+    gen = torch.Generator(device=dev).manual_seed(7)
+    gbs = [torch.randn(B, L1, A, d, generator=gen, device=dev)
+           for _ in range(2)]
+    bufs = fw.fused_window_fwd(**a, conv1_in=False)
+    out["k2b_f32"] = _hash(fw.fused_window_bwd(
+        **a, buf1=bufs[0], buf2=bufs[1], gb1=gbs[0], gb2=gbs[1]))
+
+    fbt = cs.final_batch(ctx)
+    h0, h1, h2, gr, wrel, loop1, loop2, g1, g2, rtab = fbt["fwd"]
+    h1, h2 = h1.to(BF).contiguous(), h2.to(BF).contiguous()
+    loss, saved = ff.fused_final_fwd(h0, h1, h2, gr, wrel, loop1, loop2, g1,
+                                     g2, rtab, hot=BF)
+    out["k3_bf16"] = _hash(loss, saved["table"], saved["out1"])
+    got4 = ff.fused_final_bwd_loss(saved, rtab, gr, fbt["tv"], hot=BF)
+    out["k4_bf16"] = _hash(got4)
+    d_out2, _ = ff.select_bwd(got4[0], gr.active)
+    l2 = ff.fused_final_bwd_layer(saved["out1"], h2, gr, gr.m2, wrel, d,
+                                  loop2, g2, d_out2, hot=BF)
+    l1 = ff.fused_final_bwd_layer(h0, h1, gr, gr.m1, wrel, 0, loop1, g1,
+                                  l2[0], hot=BF)
+    out["k5_bf16"] = _hash(l2, l1)
+
+    fb_ = cs.final_batch_flagship(fctx)
+    h1f, h2f, hlf, h1b, h2b, hlb = (h.to(BF).contiguous()
+                                    for h in fb_["hists"])
+    bg, h0x, wrel, rtab = fb_["bg"], fb_["h0x"], fb_["wrel"], fb_["rtab"]
+    gr, csr, g = bg.gr, fb_["csr"], fb_["grus"]
+    loop1, loop2 = fb_["loops"]
+    sel = h0x if bg.noact else None
+    a1 = (h0x, h1f, h1b, bg, gr.m1, wrel, 0, loop1, g["1f"], g["1b"])
+    kw2 = {"relu": True, "hl": (hlf, hlb), "imp": fb_["imp"]}
+    o1 = fb.bi_layer_fwd(*a1, csr=csr, hot=BF)
+    a2 = (o1, h2f, h2b, bg, gr.m2, wrel, d, loop2, g["2f"], g["2b"])
+    table = fb.bi_layer_fwd(*a2, **kw2, sel=sel, csr=csr, hot=BF)
+    out["k6k7_bf16"] = _hash(o1, table)
+    loss, saved = fb.bi_loss_fwd(table, rtab, gr, csr, hot=BF)
+    out["k8_bf16"] = _hash(loss, [saved[k] for k in ("qhat", "lse", "scpos")
+                                  if k in saved])
+    got4 = ff.fused_final_bwd_loss(saved, rtab, gr, fb_["tv"], hot=BF)
+    out["k4_bi_bf16"] = _hash(got4)
+    d_out2, _ = ff.select_bwd(got4[0], gr.active if bg.noact else None)
+    l2 = fb.bi_layer_bwd(*a2, d_out2.contiguous(), **kw2, csr=csr, hot=BF)
+    l1 = fb.bi_layer_bwd(*a1, l2[0], csr=csr, hot=BF)
+    out["k9k10_bf16"] = _hash(l2, l1)
+    return out
+
+
+_K2B = ("window_bwd_gru", "window_bwd_input", "window_wgrad_kernel")
+
+
+def _default_step(c, steps: int = 6, warm: int = 2) -> dict:
+    """Training steps of config c with compute_dtype "auto" from the
+    smoke's seeded weights and draws: ms a step over `steps` steps after
+    `warm`, then the device time a step over two more traced (``_traced``).
+    """
+    import torch
+
+    from temp_tpu_torch.models.registry import get_model
+    from temp_tpu_torch.train.loop import Trainer
+
+    cfg = c["cfg"].replace(compute_dtype="auto")
+    model = get_model(cfg, c["data"], device=c["device"])
+    tr = Trainer(cfg, model, c["data"])
+    params, opt = tr.init_state()
+    # warm, timed, and the profiler's warm-up and two steps
+    batches = tr.epoch_batches(0)[:warm + steps + 3]
+    it = iter(range(len(batches)))
+
+    def step():
+        i = next(it)
+        t_pos, t_valid = batches[i]
+        return tr.train_step(params, opt, t_pos, t_valid,
+                             gen=tr.step_generator(0, i))
+
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return {"resolved": model.cfg.compute_dtype, "ms_per_step": ms,
+            **_traced(step, 2)}
+
+
+def _traced(fn, reps: int) -> dict:
+    """Device time a call of fn over `reps` traced calls (after one more):
+    every kernel's ("busy"), the window kernels' by name, the largest five
+    names, and the traced wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    per = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "device_time_total", None)
+            us = ev.cuda_time_total if us is None else us
+            t, n = per.get(ev.name, (0.0, 0))
+            per[ev.name] = (t + us / 1e3 / reps, n + 1)
+    out = {"traced_wall_ms": wall,
+           "busy_ms": sum(t for t, _ in per.values())}
+    for want in (_K2F, *_K2B):
+        hit = [(t, n) for name, (t, n) in per.items() if want in name]
+        out[f"{want}_ms_a_step"] = sum(t for t, _ in hit)
+        out[f"{want}_launches_a_step"] = sum(n for _, n in hit) // reps
+    out["top"] = [[name[:60], t] for name, (t, _) in
+                  sorted(per.items(), key=lambda kv: -kv[1][0])[:5]]
+    return out
+
+
+def _measure_bf16(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
 
     import chip_smoke as cs
-    from temp_tpu_torch.ops import fused_final_bi as fb
     from temp_tpu_torch.ops import fused_window as fw
 
     if not torch.cuda.is_available():
         raise SystemExit("window_ab: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    res = {"root": root, "smi": cs.smi_line()}
+    BF = torch.bfloat16
+    res = {"root": root, "smi": cs.smi_line(), "mode": "bf16"}
     res.update(cs.phase_build())
     ctx = cs.phase_setup("cuda")
+    fctx = cs.phase_setup_flagship(ctx)
+    dev = ctx["device"]
+    cases = _cases(cs, fw, ctx, fctx)
+    for tag, args in cases.items():
+        res[f"k2f_bf16_{tag}"] = _k2f(cs, fw, dict(args, hot=BF), dev)
+    a = {k: v for k, v in cases["train"].items() if k != "conv1_in"}
+    B, L1, A, d = a["h0x"].shape
+    gen = torch.Generator(device=dev).manual_seed(8)
+    gbs = [torch.randn(B, L1, A, d, generator=gen, device=dev).to(BF)
+           for _ in range(2)]
+    bufs = fw.fused_window_fwd(**a, conv1_in=False, hot=BF)
+    bwd = dict(a, buf1=bufs[0], buf2=bufs[1], gb1=gbs[0], gb2=gbs[1],
+               hot=BF)
+    run = lambda: fw.fused_window_bwd(**bwd)  # noqa: E731
+    dev_ms = _device_ms(run, list(_K2B))
+    res["k2b_bf16"] = {
+        "call_ms": cs.time_ms(run, dev, reps=10),
+        **{f"{n}_ms_a_call": t for n, (t, _) in dev_ms.items()},
+        **{f"{n}_launches_a_call": k for n, (_, k) in dev_ms.items()}}
+    for tag, c in (("grrgcn", ctx), ("flagship", fctx)):
+        res[f"default_step_{tag}"] = _default_step(c)
+    res["hashes"] = _hashes(cs, ctx, fctx, cases, dev)
+    return res
+
+
+def _cases(cs, fw, ctx, fctx) -> dict:
+    """K2f's three windows: the smoke's first eval batch (conv1_in), its
+    training batch with seeded dropout masks, the flagship's
+    forward-direction window (the ReLU, three buffers)."""
+    import torch
+
     dev, p, cfg = ctx["device"], ctx["params"], ctx["cfg"]
     cases = {}
     for conv1_in in (True, False):
@@ -100,11 +306,31 @@ def _measure(root: str) -> dict:
         cases["conv1_in" if conv1_in else "train"] = dict(
             fw.window_args(p["encoder"], cfg, masks=masks, **kw),
             conv1_in=conv1_in)
-    fctx = cs.phase_setup_flagship(ctx)
     _, kw = cs.flagship_window_batch(fctx, "fwd")
     cases["flagship"] = dict(
         fw.window_args(fctx["params"]["encoder"], fctx["cfg"], **kw),
         conv1_in=False, n_buf=3)
+    return cases
+
+
+def _measure(root: str) -> dict:
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from temp_tpu_torch.ops import fused_final_bi as fb
+    from temp_tpu_torch.ops import fused_window as fw
+
+    if not torch.cuda.is_available():
+        raise SystemExit("window_ab: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"root": root, "smi": cs.smi_line()}
+    res.update(cs.phase_build())
+    ctx = cs.phase_setup("cuda")
+    dev = ctx["device"]
+    fctx = cs.phase_setup_flagship(ctx)
+    cases = _cases(cs, fw, ctx, fctx)
     for tag, args in cases.items():
         res[f"k2f_{tag}"] = _k2f(cs, fw, args, dev)
     fb_ = cs.final_batch_flagship(fctx)
@@ -130,17 +356,20 @@ def main(argv=None) -> int:
     ap.add_argument("--order", default=None,
                     help="the ROOTs' indices in the order to run them")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--bf16", action="store_true",
+                    help="measure the window's bfloat16 mode (see above)")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one:
-        print(json.dumps(_measure(os.path.abspath(args.one))), flush=True)
+        measure = _measure_bf16 if args.bf16 else _measure
+        print(json.dumps(measure(os.path.abspath(args.one))), flush=True)
         return 0
     order = args.order or "".join(str(i) for i in range(len(args.roots)))
     runs = []
     for tag in order:
         root = os.path.abspath(args.roots[int(tag)])
         cmd = [sys.executable, os.path.abspath(__file__), *args.roots,
-               "--one", root]
+               "--one", root] + (["--bf16"] if args.bf16 else [])
         proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
                               timeout=900)
         if proc.returncode != 0:
