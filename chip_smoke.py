@@ -314,11 +314,17 @@ RING_M = 4 ranks, all on the one card, each on its own CUDA streams:
                  and without it (fused_final off): losses and parameters
                  held together as in `train`; K13's forward and backward
                  launched, no sort in a call.
-63. bf16_k13   - K13 and its backward in bfloat16 (csrc/ring_spmm_bf16.cu:
-                 the shards read as bfloat16) at k13's shapes, against
+63. bf16_k13   - K13 and its backward in bfloat16 at k13's shapes on the
+                 whole-card route (csrc/ring_spmm_bf16.cu: every shard read
+                 in place from the float32 h and rounded in registers, one
+                 launch a forward call and one a backward call), bit-equal
+                 to the stepped bfloat16 route (the shards rounded and
+                 copied round the ring, 4 and 6 launches a call), against
                  their plain bfloat16 versions under BF16_RULE, two runs
-                 bit-equal, with times, bounds and the library's
-                 index_add_ of the same rounded messages;
+                 bit-equal, with times (the stepped route's beside them),
+                 bounds, the library's index_add_ of the same rounded
+                 messages, and each launch's blocks, registers and
+                 resident blocks an SM;
 64. bf16_ring  - GRRGCN under ring_pallas in bfloat16: the valid sweep and
                  8 steps with the kernels and with their plain versions
                  (MRR within 1e-4, losses within TRAIN_TOL, leaves within
@@ -346,7 +352,9 @@ launches the bf16 fused training path's: GRRGCN's K2f, K2b, K3-K5, K2's
 with the flagship's modes and K4's with the bi table beside, then the
 flagship's K6+K7, K8 and K9+K10, then K11's (the bfloat16 fused eval
 sweep's launches), K12's (the fused bfloat16 steps with the batched
-window's), K13's and K13b's (the bfloat16 ring steps'), K1f's and K1b's
+window's), K13's and K13b's (the bfloat16 ring steps', on the
+whole-card route: one launch a call, the stepped route's time and bits
+beside, each launch's blocks and registers), K1f's and K1b's
 (GRRGCN's bfloat16 sweep's and SARGCN's bfloat16 steps' under "pallas");
 each kernel's bound_share, bound / ms, and for
 K2f, K2b, K5, K9+K10 and K12, whose products run in 3xTF32 on the tensor
@@ -3606,31 +3614,30 @@ def _graph_index(src):
         src.shape)
 
 
-def _ring_bound(h, w, src, rel, emask, h_bytes: int = 4):
-    """Least time for one K13 call: what the function needs to move (the
-    referenced rows of h, `h_bytes` an entry (2 in the bfloat16 mode,
-    whose shards are bfloat16), and of w, the edge arrays, the written
-    output and norm^2) against 2 s flops a kept edge column and the norm
-    scale of each output entry. The (M - 1) shards each rank receives are
-    the ring's own cost, not the function's: returned apart as the
-    rotation's bytes."""
+def _ring_bound(h, w, src, rel, emask):
+    """Least time for one K13 call, in either mode: what the function needs
+    to move (the referenced rows of h, float32 as the caller gives them,
+    and of w, the edge arrays, the written output and norm^2) against 2 s
+    flops a kept edge column and the norm scale of each output entry. The
+    (M - 1) shards each rank receives are the stepped route's own cost,
+    not the function's: returned apart as the rotation's bytes."""
     B, n, d = h.shape
     m = emask.bool()
     s = w.shape[1] // d
     b_idx = _graph_index(src)[m]
     refs = int((b_idx * n + src[m].long()).unique().numel())
-    nbytes = (refs * d * h_bytes + int(rel[m].unique().numel()) * d * s * 4
+    nbytes = (refs * d * 4 + int(rel[m].unique().numel()) * d * s * 4
               + src.numel() * 13 + B * n * (d + 1) * 4)
     flops = 2 * s * int(m.sum()) * d + B * n * d
     t_b, t_f = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
     return (max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"),
-            (RING_M - 1) * B * n * d * h_bytes)
+            (RING_M - 1) * B * n * d * 4)
 
 
-def _ring_bwd_bound(h, w, src, dst, rel, emask, h_bytes: int = 4):
-    """Least time for one call of K13's backward: the referenced rows of g
-    (and their norm^2), h (`h_bytes` an entry: 2 in the bfloat16 mode) and
-    w, the edge arrays, dh and dw written once, against (1 + 4 s) d flops a
+def _ring_bwd_bound(h, w, src, dst, rel, emask):
+    """Least time for one call of K13's backward, in either mode: the
+    referenced rows of g (and their norm^2), h and w (float32), the edge
+    arrays, dh and dw written once, against (1 + 4 s) d flops a
     kept edge (dmsg, dh's and dw's multiply-adds). The accumulators'
     (M - 1) passes round the ring are its own cost: returned apart as the
     rotation's bytes."""
@@ -3641,7 +3648,7 @@ def _ring_bwd_bound(h, w, src, dst, rel, emask, h_bytes: int = 4):
     b_idx = _graph_index(src)[m]
     g_rows = int((b_idx * n + dst[m].long()).unique().numel())
     h_rows = int((b_idx * n + src[m].long()).unique().numel())
-    nbytes = (g_rows * (d + 1) * 4 + h_rows * d * h_bytes
+    nbytes = (g_rows * (d + 1) * 4 + h_rows * d * 4
               + int(rel[m].unique().numel()) * W * 4 + src.numel() * 13
               + B * n * d * 4 + R * W * 4)
     flops = (1 + 4 * s) * d * int(m.sum())
@@ -4236,18 +4243,42 @@ def phase_bf16_mb(ctx, fctx) -> dict:
     return out
 
 
+def _ring_card_launch(which: int, B: int, m: int, rows: int, n_rels: int,
+                      d: int, s: int, vec: int) -> dict:
+    """The whole-card bf16 ring kernel `which` (0 forward, 1 backward) as
+    its launcher launches it for these arguments: the grid's blocks,
+    registers and local bytes a thread, threads a block and resident blocks
+    an SM, all from the library (``ring_bf16_occupancy``)."""
+    import ctypes
+
+    from temp_tpu_torch import _build
+
+    occ = (ctypes.c_int * 5)()
+    _build.check(_build.lib().ring_bf16_occupancy(
+        which, B, m, rows, n_rels, d, s, vec, ctypes.addressof(occ)),
+        "ring_bf16_occupancy")
+    return dict(zip(("blocks", "registers", "threads", "blocks_per_sm",
+                     "local_bytes"), occ))
+
+
 def phase_bf16_k13(rctx) -> dict:
     """K13 and its backward in their bfloat16 mode at ``_k13_cases``'
     shapes (the final snapshot and a window step, s = 1), over the data's
-    tables: against their plain bfloat16 versions under BF16_RULE (the
+    tables, on the whole-card route (every rank on the one card): out,
+    norm^2, dh and dw bit-equal to the stepped bfloat16 route's
+    (``_ring_fwd_steps``, ``_ring_bwd_steps``, called here on the same
+    tables); against their plain bfloat16 versions under BF16_RULE (the
     plain float32 versions the yardstick), norm^2 to SCALED_TOL, rows
-    without in-edges exactly 0, RING_M launches a forward call and
-    RING_M + 2 a backward one, no sort, two runs bit-equal, RingSpMM's
-    gradients the backward's bits; times, bounds (the shards read in
-    bfloat16) and the library's: one ``index_add_`` of the same rounded
-    messages, two of the same per-edge cotangents."""
+    without in-edges exactly 0, one launch a forward call and one a
+    backward call, no sort, two runs bit-equal, RingSpMM's gradients the
+    backward's bits; times (the stepped route's beside them), bounds (h
+    read as float32), the library's: one ``index_add_`` of the same
+    rounded messages, two of the same per-edge cotangents; each launch's
+    blocks and registers. Then block-diagonal weights (s = 2) at the
+    window step's shape (``_bf16_k13_blocks``)."""
     import torch
 
+    from temp_tpu_torch.parallel import ring_spmm as rs
     from temp_tpu_torch.parallel.ring_spmm import (
         ring_spmm, ring_spmm_bwd, ring_spmm_bwd_plain, ring_spmm_fwd,
         ring_spmm_fwd_plain,
@@ -4272,7 +4303,7 @@ def phase_bf16_k13(rctx) -> dict:
             got, n2 = ring_spmm_fwd(*args, *ring, tables=tables, hot=BF)
             per_call = ring_spmm_fwd.launches - before
             if (ring_spmm_fwd.csr_builds != builds
-                    or per_call != (RING_M if on_card else 0)):
+                    or per_call != (1 if on_card else 0)):
                 raise AssertionError(f"K13 bf16 {tag}: {per_call} launches, "
                                      f"{ring_spmm_fwd.csr_builds - builds} "
                                      f"sorts with the tables")
@@ -4280,8 +4311,24 @@ def phase_bf16_k13(rctx) -> dict:
                 *args, *ring, tables=tables, hot=BF))
             pb, n2p = ring_spmm_fwd_plain(*args, *ring, hot=BF)
             pf, _ = ring_spmm_fwd_plain(*args, *ring)
+            stepped, stepped_ms, launch = None, None, None
+            if on_card:  # the stepped route on the same tables
+                em_k = rs._kernel_args(h, w, em, devices, 1, "bf16_k13", BF)
+
+                def steps():
+                    return rs._ring_fwd_steps(h, w, em_k, *ring, 1, *tables,
+                                              hot=BF)
+
+                stepped = _bitwise((got, n2), steps())
+                stepped_ms = time_ms(steps, dev)
+                launch = _ring_card_launch(
+                    0, h.shape[0], RING_M, r, w.shape[0], h.shape[2], 1,
+                    rs._vec(h.shape[2], 1, h, w, got))
         if not bitwise:
             raise AssertionError(f"K13 bf16 {tag}: two runs differ")
+        if stepped is False:
+            raise AssertionError(f"K13 bf16 {tag}: the whole-card route "
+                                 f"differs from the stepped route")
         errs = _errs([("out", got, pb, pf)], f"K13 bf16 {tag}")
         scaled = scaled_errs([(f"K13 bf16 {tag} norm^2", n2, n2p)])
         b_e = _graph_index(src)
@@ -4297,8 +4344,7 @@ def phase_bf16_k13(rctx) -> dict:
         msg = (rb(rb(h[b_e, src.long()]) * rb(w[rel.long()]))
                * emf[..., None]).reshape(-1, h.shape[2])
         lib = torch.zeros(h.shape[0] * h.shape[1], h.shape[2], device=dev)
-        bound_ms, bound_by, rot_bytes = _ring_bound(h, w, src, rel, em,
-                                                    h_bytes=2)
+        bound_ms, bound_by, _ = _ring_bound(h, w, src, rel, em)
         with torch.no_grad():
             out[tag] = {
                 "shape": f"B={h.shape[0]} rows={h.shape[1]} "
@@ -4306,18 +4352,18 @@ def phase_bf16_k13(rctx) -> dict:
                          f"R={w.shape[0]} d={h.shape[2]} m={RING_M}, bf16",
                 "max_abs_err": errs["abs"]["out"]["abs"],
                 "rms_ratio": errs["ratio"]["out"], "scaled_errs": scaled,
-                "bitwise": bitwise, "launches_per_call": per_call,
+                "bitwise": bitwise, "stepped_bitwise": stepped,
+                "launches_per_call": per_call, "launch": launch,
                 "ms": time_ms(lambda: ring_spmm_fwd(
                     *args, *ring, tables=tables, hot=BF), dev),
+                "stepped_ms": stepped_ms,
                 "plain_ms": time_ms(lambda: ring_spmm_fwd_plain(
                     *args, *ring, hot=BF), dev, reps=5),
                 "plain_f32_ms": time_ms(lambda: ring_spmm_fwd_plain(
                     *args, *ring), dev, reps=5),
                 "library_ms": time_ms(
                     lambda: lib.zero_().index_add_(0, seg, msg), dev),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "rotation_bytes": rot_bytes,
-                "rotation_ms": rot_bytes / H100_BYTES_S * 1e3}
+                "bound_ms": bound_ms, "bound_by": bound_by}
         out[tag]["bound_share"] = out[tag]["bound_ms"] / out[tag]["ms"]
         print(f"  K13 bf16 {tag}: {out[tag]}", flush=True)
 
@@ -4333,8 +4379,24 @@ def phase_bf16_k13(rctx) -> dict:
         before = ring_spmm_bwd.launches
         dh, dw = ring_spmm_bwd(*bwd_args, tables=tables, hot=BF)
         per_call = ring_spmm_bwd.launches - before
-        if per_call != (RING_M + 2 if on_card else 0):
+        if per_call != (1 if on_card else 0):
             raise AssertionError(f"K13b bf16 {tag}: {per_call} launches")
+        stepped, stepped_ms, launch = None, None, None
+        if on_card:  # the stepped route on the same tables
+            em_k = rs._kernel_args(h, w, em, devices, 1, "bf16_k13", BF)
+
+            def steps():
+                return rs._ring_bwd_steps(g, n2, h, w, em_k, *ring, 1,
+                                          *tables, hot=BF)
+
+            stepped = _bitwise((dh, dw), steps())
+            stepped_ms = time_ms(steps, dev)
+            launch = _ring_card_launch(
+                1, h.shape[0], RING_M, r, w.shape[0], h.shape[2], 1,
+                rs._vec(h.shape[2], 1, g, h, w, dh, dw))
+        if stepped is False:
+            raise AssertionError(f"K13b bf16 {tag}: the whole-card route "
+                                 f"differs from the stepped route")
         again = ring_spmm_bwd(*bwd_args, tables=tables, hot=BF)
         ph, pw = ring_spmm_bwd_plain(*bwd_args, hot=BF)
         fh, fw_ = ring_spmm_bwd_plain(*bwd_args)
@@ -4364,8 +4426,7 @@ def phase_bf16_k13(rctx) -> dict:
             lib_h.zero_().index_add_(0, src_seg, mh)
             lib_w.zero_().index_add_(0, rel.long().reshape(-1), mw)
 
-        bound_ms, bound_by, rot_bytes = _ring_bwd_bound(h, w, src, dst, rel,
-                                                        em, h_bytes=2)
+        bound_ms, bound_by, _ = _ring_bwd_bound(h, w, src, dst, rel, em)
         out[f"bwd_{tag}"] = {
             "shape": f"B={h.shape[0]} rows={h.shape[1]} E={src.shape[1]} "
                      f"kept={int(em.sum())} R={w.shape[0]} d={d_} "
@@ -4373,22 +4434,65 @@ def phase_bf16_k13(rctx) -> dict:
             "max_abs_err": max(e["abs"] for e in errs["abs"].values()),
             "rms_ratio": max(errs["ratio"].values()),
             "rms_ratios": errs["ratio"], "bitwise": bitwise,
-            "launches_per_call": per_call,
+            "stepped_bitwise": stepped, "launches_per_call": per_call,
+            "launch": launch,
             "ms": time_ms(lambda: ring_spmm_bwd(*bwd_args, tables=tables,
                                                 hot=BF), dev),
+            "stepped_ms": stepped_ms,
             "plain_ms": time_ms(lambda: ring_spmm_bwd_plain(*bwd_args,
                                                             hot=BF),
                                 dev, reps=5),
             "plain_f32_ms": time_ms(lambda: ring_spmm_bwd_plain(*bwd_args),
                                     dev, reps=5),
             "library_ms": time_ms(library, dev),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "rotation_bytes": rot_bytes,
-            "rotation_ms": rot_bytes / H100_BYTES_S * 1e3}
+            "bound_ms": bound_ms, "bound_by": bound_by}
         out[f"bwd_{tag}"]["bound_share"] = (out[f"bwd_{tag}"]["bound_ms"]
                                             / out[f"bwd_{tag}"]["ms"])
         print(f"  K13b bf16 {tag}: {out[f'bwd_{tag}']}", flush=True)
+    out["block_s2"] = _bf16_k13_blocks(rctx, gen)
     return out
+
+
+def _bf16_k13_blocks(rctx, gen) -> dict:
+    """K13 and K13b bf16 on the whole-card route with block-diagonal
+    weights (s = 2: [R, (d / 2) * 2 * 2], seeded) at the window step's
+    shape: out and dw within BF16_RULE of the plain bfloat16 versions, dh
+    (its transpose reads the unrounded block weights, so its bfloat16 and
+    float32 plain versions agree) within SCALED_TOL of the largest entry;
+    one launch a call each."""
+    import torch
+
+    from temp_tpu_torch.parallel.ring_spmm import (
+        ring_spmm_bwd, ring_spmm_bwd_plain, ring_spmm_fwd,
+        ring_spmm_fwd_plain,
+    )
+
+    BF, dev = torch.bfloat16, rctx["device"]
+    _, (h, w, *edges), r, tables = _k13_cases(rctx)[1]
+    w2 = 0.1 * torch.randn(w.shape[0], 2 * h.shape[2], generator=gen,
+                           device=dev)
+    args = (h, w2, *edges)
+    ring = (RING_M, r, rctx["mesh"].devices[0])
+    with torch.no_grad():
+        before = ring_spmm_fwd.launches
+        got, n2 = ring_spmm_fwd(*args, *ring, tables=tables, hot=BF)
+        per_fwd = ring_spmm_fwd.launches - before
+        pb, _ = ring_spmm_fwd_plain(*args, *ring, hot=BF)
+        pf, _ = ring_spmm_fwd_plain(*args, *ring)
+    g = torch.randn(h.shape, generator=gen, device=dev)
+    before = ring_spmm_bwd.launches
+    dh, dw = ring_spmm_bwd(g, n2, *args, *ring, tables=tables, hot=BF)
+    per_bwd = ring_spmm_bwd.launches - before
+    ph, pw = ring_spmm_bwd_plain(g, n2, *args, *ring, hot=BF)
+    _, fw = ring_spmm_bwd_plain(g, n2, *args, *ring)
+    res = {"rms_ratios": bf16_rule([("out", got, pb, pf), ("dw", dw, pw, fw)],
+                                   "K13 bf16 s=2 window"),
+           "dh": scaled_errs([("K13b bf16 s=2 window dh", dh, ph)]),
+           "launches_per_call": [per_fwd, per_bwd]}
+    if dev.type == "cuda" and (per_fwd, per_bwd) != (1, 1):
+        raise AssertionError(f"K13 bf16 s=2: launches {res}")
+    print(f"  K13/K13b bf16 s=2 window: {res}", flush=True)
+    return res
 
 
 def phase_bf16_ring(rctx, ring_path, ring_train) -> dict:
@@ -4397,14 +4501,26 @@ def phase_bf16_ring(rctx, ring_path, ring_train) -> dict:
     kernels and with their plain versions, from the same weights and
     draws: the same query mask, MRR within MRR_TOL, losses within
     TRAIN_TOL and each leaf within BF16_PARAM_TOL of the plain run's
-    change; K13 and its backward launched in their bfloat16 mode, none of
-    K1 (the float32 SpMM outside a partition) or K2-K12, no sort in a
-    call. Beside them the gaps to the float32 ring runs (`ring_path`,
-    `ring_train`)."""
+    change; K13 and its backward launched in their bfloat16 mode on the
+    whole-card route, one launch a SpMM call each (the sweep's calls, the
+    steps' calls and their backward), none of K1 (the float32 SpMM outside
+    a partition) or K2-K12, no sort in a call. Beside them the gaps to the
+    float32 ring runs (`ring_path`, `ring_train`)."""
     import numpy as np
 
     cfg = rctx["cfg"].replace(compute_dtype="bfloat16")
     dev = rctx["device"]
+    calls = _boundary_calls(dict(rctx, L1=cfg.train_seq_len - 1,
+                                 T=rctx["data"].num_times))
+
+    def one_a_call(run, want, train, tag):
+        n = run["launches"]
+        if dev.type == "cuda" and (n["ring_spmm_fwd"], n["ring_spmm_bwd"]) \
+                != (want, want if train else 0):
+            raise AssertionError(f"{tag}: K13 {n['ring_spmm_fwd']} and K13b "
+                                 f"{n['ring_spmm_bwd']} launches, want "
+                                 f"{want} SpMM calls one launch each")
+
     res, runs = {}, {}
     for name, c in (("kernels", cfg), ("plain", cfg.replace(kernels=False))):
         m, ranks, mask = _sweep(rctx, c)
@@ -4418,6 +4534,7 @@ def phase_bf16_ring(rctx, ring_path, ring_train) -> dict:
             <= MRR_TOL):
         raise AssertionError(f"bf16 ring path: kernels {k} vs plain {pl}")
     _ring_launches_ok(dev, k, "bf16 ring eval", train=False)
+    one_a_call(k, calls["sweep"], False, "bf16 ring eval")
     if any(pl["launches"].values()):
         raise AssertionError(f"bf16 ring path plain: kernels launched: "
                              f"{pl['launches']}")
@@ -4437,6 +4554,8 @@ def phase_bf16_ring(rctx, ring_path, ring_train) -> dict:
                                tol=BF16_PARAM_TOL)
     print(f"  bf16 ring train params: {res['params']}", flush=True)
     _ring_launches_ok(dev, res["ring"], "bf16 ring train", train=True)
+    one_a_call(res["ring"], calls["step"] * rctx["train_steps"], True,
+               "bf16 ring train")
     if any(res["plain"]["launches"].values()):
         raise AssertionError(f"bf16 ring train plain: kernels launched: "
                              f"{res['plain']['launches']}")
@@ -4830,7 +4949,11 @@ def _kernels_bf16_last(res: dict) -> list:
             r["eval_mode"] = {k: res["bf16_mb"]["eval"][k] for k in keys}
         if name in ("ring_spmm_fwd", "ring_spmm_bwd"):
             part = "window" if name == "ring_spmm_fwd" else "bwd_window"
-            r["window_step"] = {k: res["bf16_k13"][part][k] for k in keys}
+            card = ("stepped_ms", "stepped_bitwise", "launch",
+                    "launches_per_call")
+            r.update({k: m[k] for k in card})
+            r["window_step"] = {k: res["bf16_k13"][part][k]
+                                for k in keys + card}
         rec.append(r)
     return rec
 

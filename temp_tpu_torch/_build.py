@@ -11,7 +11,9 @@ sizes and the CUDA stream, and returns ``cudaGetLastError()``. The
 ``*_bf16.cu`` sources give the kernels' bfloat16 modes, their launchers
 ``name_bf16`` with ``name``'s arguments (``BF16_LAUNCHERS``): most compile
 a kernel source again in that mode, ``fused_window_bf16.cu`` the window's
-own native bfloat16 kernels (``csrc/window_bf16.cuh``).
+own native bfloat16 kernels (``csrc/window_bf16.cuh``), and
+``ring_spmm_bf16.cu`` adds the ring SpMM's whole-card route, which exists in
+bfloat16 only (``ring_bf16_*``).
 """
 
 from __future__ import annotations
@@ -59,6 +61,22 @@ SIGNATURES = {
                       + [_P],
     # ring_dw_reduce(part, out, n_part, total, stream)
     "ring_dw_reduce_launch": [_P, _P, _I, _L, _P],
+    # ring_bf16_fwd(ptr, edge, tpos, tpos_stride, n_times, mask,
+    #               mask_stride, h, w, out, n2_out, B, m, rows, cap, d, s,
+    #               vec, stream): K13 bf16's whole-card route
+    "ring_bf16_fwd_launch": [_P, _P, _P, _L, _I, _P, _L] + [_P] * 4
+                            + [_I] * 7 + [_P],
+    # ring_bf16_bwd(s_ptr, s_edge, r_ptr, r_edge, tpos, tpos_stride,
+    #               n_times, mask, mask_stride, g, n2, h, w, dh, dw, B, m,
+    #               rows, cap, n_rels, d, s, vec, stream): K13b bf16's
+    "ring_bf16_bwd_launch": [_P] * 5 + [_L, _I, _P, _L] + [_P] * 6
+                            + [_I] * 8 + [_P],
+    # ring_bf16_occupancy(which, B, m, rows, n_rels, d, s, vec, out): the
+    #               whole-card kernel `which` (0 forward, 1 backward) as its
+    #               launcher launches it -> out[5] (blocks of the grid,
+    #               registers a thread, threads a block, resident blocks an
+    #               SM, local bytes a thread), a host int[5]
+    "ring_bf16_occupancy": [_I] * 8 + [_P],
     # spmm_bwd(s_ptr, s_edge, r_ptr, r_edge, tpos, n_times, mask, g, n2, h,
     #          w, dh, dw, B, n, rows, cap, n_rels, d, vec, h_bf16, onehot,
     #          stream)

@@ -52,7 +52,12 @@
 //
 // Compiled a second time as ring_spmm_bf16.cu, with TK_BF16 1: the TPU
 // kernel's bfloat16 instantiation (_ring_kernel with dtype_str
-// "bfloat16"), whose one-hot products round what they gather. The forward
+// "bfloat16"), whose one-hot products round what they gather. These
+// stepped kernels serve the bfloat16 mode only when the ranks sit on more
+// than one card: with every rank on the controller's card (one H100) the
+// bfloat16 mode takes the whole-card route of ring_spmm_bf16.cu (one launch
+// a forward call and one a backward call over the shards where they lie,
+// in these kernels' summation order, bit-equal to them at s = 1). The forward
 // reads the visiting shards as bfloat16 (the wrapper rounds h once, before
 // the ring's copies, so the slots carry half the bytes; rounding once
 // equals rounding at each read), rounds each relation weight it reads,

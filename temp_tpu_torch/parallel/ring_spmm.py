@@ -44,9 +44,16 @@ relation weight rounded to bfloat16, the message formed in float32 and
 rounded before the float32 sum, the degrees exact; its backward, the JAX
 package's transpose on those rounded residuals (dh from the rounded
 weights for s = 1, the unrounded ones for s > 1; dw from the rounded
-rows), the cotangents unrounded. On the card the same kernels compiled in
-that mode (``csrc/ring_spmm_bf16.cu``), the shards rounded once before the
-ring's copies, which then carry bfloat16. `dtype` of the plain version is
+rows), the cotangents unrounded. On the card (``csrc/ring_spmm_bf16.cu``),
+when every rank sits on the controller's card (one H100: the whole-card
+route, ``_ring_fwd_card`` and ``_ring_bwd_card``), one launch a forward
+call and one a backward call read every shard in place from the
+controller's float32 h, rounding in registers, with no rotation copy; the
+sums run in the stepped route's order, so at s = 1 the outputs are its
+bits. Ranks on more than one card take the stepped route
+(``_ring_fwd_steps``, ``_ring_bwd_steps``): the float32 kernels compiled in
+that mode, the shards rounded once before the ring's copies, which then
+carry bfloat16. `dtype` of the plain version is
 the other bfloat16 semantics, the JAX package's XLA ring (``rel_message``
 with a dtype): block-diagonal products of rounded operands, diagonal ones
 untouched.
@@ -367,10 +374,14 @@ class _Streams:
 
 def _launch(fn, name: str, dev, stream, *args) -> None:
     """One launcher call on `stream` of card `dev`; tensors go as their
-    data pointers, None as a null pointer."""
-    with torch.cuda.device(dev):
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args), stream.cuda_stream)
+    data pointers, None as a null pointer. `dev` is made the current card
+    for the call unless it is already."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if dev.type == "cuda" and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            err = fn(*args, stream.cuda_stream)
+    else:
+        err = fn(*args, stream.cuda_stream)
     _build.check(err, name)
 
 
@@ -453,8 +464,80 @@ def _launcher(name: str, hot):
     return getattr(lib, name if hot is None else f"{name}_bf16")
 
 
+def _whole(cards) -> bool:
+    """Every rank of the ring on the controller's card."""
+    return len(cards) == 1 and cards[0].stream is None
+
+
+class _CardPlan(NamedTuple):
+    """The static arguments of the whole-card route's launches for one
+    tables: the data pointers of the forward's table (ptr, edge), of the
+    backward's (by source row, then by relation), and the tables' T."""
+
+    fwd: tuple
+    bwd: tuple
+    n_times: int
+
+
+_CARD_PLANS: dict = {}  # id of a RingTables -> its _CardPlan, while it lives
+
+
+def _card_plan(tab: RingTables) -> _CardPlan:
+    key = id(tab)
+    plan = _CARD_PLANS.get(key)
+    if plan is None:
+        plan = _CardPlan(
+            fwd=(tab.fwd_ptr.data_ptr(), tab.fwd_edge.data_ptr()),
+            bwd=tuple(t.data_ptr() for t in (tab.src_ptr, tab.src_edge,
+                                             tab.rel_ptr, tab.rel_edge)),
+            n_times=tab.fwd_ptr.shape[0])
+        _CARD_PLANS[key] = plan
+        weakref.finalize(tab, _CARD_PLANS.pop, key, None)
+    return plan
+
+
+def _vec(d: int, s: int, *tensors) -> int:
+    """The whole-card kernels' lane layout: 4 columns a lane (one 16-byte
+    load) where s = 1, d % 4 == 0 and every row is 16-byte aligned, else
+    1."""
+    ok = s == 1 and d % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                       for t in tensors)
+    return 4 if ok else 1
+
+
+def _ring_fwd_card(h, w, emask, m: int, rows: int, s: int, tab: RingTables,
+                   t_pos):
+    """K13 bf16 on the whole card: one launch over every rank's shard where
+    it lies in the controller's h (``ring_bf16_fwd_launch``,
+    csrc/ring_spmm_bf16.cu), no rotation and no bfloat16 copy of h."""
+    B, M, d = h.shape
+    plan = _card_plan(tab)
+    h, w = h.contiguous(), w.contiguous()
+    out = torch.empty(B, M, d, device=h.device)
+    n2 = torch.empty(B, M, device=h.device)
+    _launch(_build.lib().ring_bf16_fwd_launch, "ring_spmm_fwd", h.device,
+            torch.cuda.current_stream(h.device), *plan.fwd, t_pos,
+            t_pos.stride(0), plan.n_times, emask, emask.stride(0), h, w, out,
+            n2, B, m, rows, emask.shape[1] // m, d, s, _vec(d, s, h, w, out))
+    ring_spmm_fwd.launches += 1
+    return out, n2
+
+
 def _ring_fwd_cuda(h, w, emask, m: int, rows: int, devices, s: int,
                    tab: RingTables, t_pos, hot=None):
+    """K13's kernels: the bfloat16 mode with every rank on the controller's
+    card takes the whole-card route (``_ring_fwd_card``), any other the
+    stepped route (``_ring_fwd_steps``)."""
+    if hot is not None and _whole(_cards(devices, h.device)):
+        return _ring_fwd_card(h, w, emask, m, rows, s, tab, t_pos)
+    return _ring_fwd_steps(h, w, emask, m, rows, devices, s, tab, t_pos, hot)
+
+
+def _ring_fwd_steps(h, w, emask, m: int, rows: int, devices, s: int,
+                    tab: RingTables, t_pos, hot=None):
+    """K13's stepped route: one launch a ring step for all ranks of a card
+    (``ring_fwd_step_launch``, or its bfloat16 mode's), the shards copied
+    to their left neighbours' next slots between the steps."""
     B, M, d = h.shape
     cap = emask.shape[1] // m
     fn = _launcher("ring_fwd_step_launch", hot)
@@ -465,7 +548,7 @@ def _ring_fwd_cuda(h, w, emask, m: int, rows: int, devices, s: int,
     h4 = h.to(hot or h.dtype).contiguous().view(B, m, rows, d)
     out = torch.empty(B, M, d, device=h.device)
     n2 = torch.empty(B, M, device=h.device)
-    whole = len(cards) == 1 and cards[0].stream is None
+    whole = _whole(cards)
     with _Streams(cards, ctrl):
         runs, slots = [], []
         for c in cards:
@@ -497,8 +580,39 @@ def _ring_fwd_cuda(h, w, emask, m: int, rows: int, devices, s: int,
     return out, n2
 
 
+def _ring_bwd_card(g, n2, h, w, emask, m: int, rows: int, s: int,
+                   tab: RingTables, t_pos):
+    """K13b bf16 on the whole card: one launch, dw warps and dh warps, over
+    every rank's tables where they lie (``ring_bf16_bwd_launch``,
+    csrc/ring_spmm_bf16.cu), no accumulator rotation and no bfloat16 copy
+    of h."""
+    B, M, d = h.shape
+    plan = _card_plan(tab)
+    g, n2, h, w = (x.contiguous() for x in (g, n2, h, w))
+    dh = torch.empty_like(h)
+    dw = torch.empty_like(w)
+    _launch(_build.lib().ring_bf16_bwd_launch, "ring_spmm_bwd", h.device,
+            torch.cuda.current_stream(h.device), *plan.bwd, t_pos,
+            t_pos.stride(0), plan.n_times, emask, emask.stride(0), g, n2, h,
+            w, dh, dw, B, m, rows, emask.shape[1] // m, w.shape[0], d, s,
+            _vec(d, s, g, h, w, dh, dw))
+    ring_spmm_bwd.launches += 1
+    return dh, dw
+
+
 def _ring_bwd_cuda(g, n2, h, w, emask, m: int, rows: int, devices, s: int,
                    tab: RingTables, t_pos, hot=None):
+    """K13b's kernels, routed as ``_ring_fwd_cuda``."""
+    if hot is not None and _whole(_cards(devices, h.device)):
+        return _ring_bwd_card(g, n2, h, w, emask, m, rows, s, tab, t_pos)
+    return _ring_bwd_steps(g, n2, h, w, emask, m, rows, devices, s, tab,
+                           t_pos, hot)
+
+
+def _ring_bwd_steps(g, n2, h, w, emask, m: int, rows: int, devices, s: int,
+                    tab: RingTables, t_pos, hot=None):
+    """K13b's stepped route: m step launches with the accumulators passed
+    round the ring between them, the dw partials by rank and their sum."""
     B, M, d = h.shape
     R, W = w.shape
     cap = emask.shape[1] // m

@@ -531,12 +531,15 @@ def test_dropout_windows_bf16_match_jax(flag):
 def test_k13_bf16_launches_match_the_library_signatures(monkeypatch):
     """With the library replaced by a recorder and the card's stream and
     device contexts by stand-ins, K13's forward and backward on CPU
-    tensors in the bfloat16 mode call the bfloat16 launchers
-    (``name_bf16``, from csrc/ring_spmm_bf16.cu) with the arguments
-    ``_build.SIGNATURES`` declares for ``name``: the forward one launch a
-    ring step, the backward one a step, one dw launch and the float32 dw
-    reduction; the visiting shards and dw's rows go in as bfloat16, every
-    other float operand float32."""
+    tensors in the bfloat16 mode, every rank on one device, take the
+    whole-card route: one ``ring_bf16_fwd_launch`` and one
+    ``ring_bf16_bwd_launch`` (csrc/ring_spmm_bf16.cu), every float operand
+    float32 (h read in place, rounded by the kernels). The stepped route
+    (``_ring_fwd_steps``, ``_ring_bwd_steps``) calls the bfloat16 launchers
+    ``name_bf16`` with the arguments ``_build.SIGNATURES`` declares for
+    ``name``: the forward one launch a ring step, the backward one a step,
+    one dw launch and the float32 dw reduction; the visiting shards and
+    dw's rows go in as bfloat16, every other float operand float32."""
     import contextlib
     import ctypes
     import os
@@ -554,6 +557,16 @@ def test_k13_bf16_launches_match_the_library_signatures(monkeypatch):
                        "ring_dw_launch"]
     assert set(renamed) <= set(_build.BF16_LAUNCHERS)
     assert "ring_dw_reduce_launch" not in _build.BF16_LAUNCHERS
+    # the whole-card route's launchers exist in bfloat16 only, under their
+    # own names
+    card = re.findall(r'extern "C" int (ring_bf16_\w+)\(', bf16_src)
+    assert card == ["ring_bf16_fwd_launch", "ring_bf16_bwd_launch",
+                    "ring_bf16_occupancy"]
+    assert set(card) <= set(_build.SIGNATURES)
+    assert not set(card) & set(_build.BF16_LAUNCHERS)
+    decl = r'extern "C" int (ring_bf16_\w+)\(([^)]*)\)'
+    for name, params in re.findall(decl, bf16_src):
+        assert len(params.split(",")) == len(_build.SIGNATURES[name]), name
     kinds = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: int,
              ctypes.c_float: float, ctypes.c_longlong: int}
     calls = []
@@ -595,12 +608,18 @@ def test_k13_bf16_launches_match_the_library_signatures(monkeypatch):
     rows = tr.N_G // M
     emask = e[3].bool()
     tab, t_pos = rs._call_tables(th, tw, *e[:3], emask, M, rows, None)
-    rs._ring_fwd_cuda(th, tw, emask, M, rows, CPU4, 1, tab, t_pos, hot=BF)
     g = torch.ones_like(th)
     n2 = torch.ones(th.shape[:2])
+    rs._ring_fwd_cuda(th, tw, emask, M, rows, CPU4, 1, tab, t_pos, hot=BF)
     rs._ring_bwd_cuda(g, n2, th, tw, emask, M, rows, CPU4, 1, tab, t_pos,
                       hot=BF)
     f32, bf = torch.float32, torch.bfloat16
+    assert calls == [("ring_bf16_fwd_launch", [f32] * 4),
+                     ("ring_bf16_bwd_launch", [f32] * 6)]
+    calls.clear()
+    rs._ring_fwd_steps(th, tw, emask, M, rows, CPU4, 1, tab, t_pos, hot=BF)
+    rs._ring_bwd_steps(g, n2, th, tw, emask, M, rows, CPU4, 1, tab, t_pos,
+                       hot=BF)
     assert calls == (
         [("ring_fwd_step_launch_bf16", [bf, f32, f32, f32])] * M
         + [("ring_bwd_step_launch_bf16", [f32, f32, f32, f32])]
