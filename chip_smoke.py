@@ -59,7 +59,10 @@ Phases, each printing one line with its elapsed seconds as it ends:
              of the gap at most BF16_RULE of the plain float32 version's
              RMS distance from the plain bfloat16 one (K3's loss within
              LOSS_TOL), with times and bounds at the bfloat16 and TF32
-             rates;
+             rates; K5's two runs bit-equal, and each of its native
+             bfloat16 launches' shared memory, threads, blocks an SM,
+             registers and spill (the library's occupancy query and the
+             build's report);
 12b. bf16_path  - GRRGCN in bfloat16: TRAIN_STEPS steps on the fused path,
              the unfused one and the plain versions of both, each path's
              losses within TRAIN_TOL and trained leaves within PARAM_TOL of
@@ -132,7 +135,10 @@ data:
                  at full width, each against its plain bfloat16 version
                  under BF16_RULE (K8's loss within LOSS_TOL), two runs
                  bit-equal, with times and bounds at the bfloat16 and TF32
-                 rates;
+                 rates; K9+K10's launches as K5's, and the count of layer
+                 2's ReLU signs where its recompute (native bfloat16
+                 products) and K6+K7's forward (TF32 products of the
+                 rounded operands) differ;
 23b. bf16_flagship_path - the flagship in bfloat16: TRAIN_STEPS steps on
                  the fused path, the unfused one and the plain versions of
                  both, losses within TRAIN_TOL and leaves within
@@ -499,6 +505,11 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count(), "smi": smi_line()}
 
 
+# the register and spill lines of this process's build (phase_build), or
+# "" when the library was built before it
+_PTXAS = {"summary": ""}
+
+
 def phase_build() -> dict:
     from temp_tpu_torch import _build
 
@@ -506,8 +517,57 @@ def phase_build() -> dict:
     report = _build.build()
     seconds = time.perf_counter() - t0
     _build.lib()
-    print(_build.ptxas_summary(report), flush=True)
+    _PTXAS["summary"] = _build.ptxas_summary(report)
+    print(_PTXAS["summary"], flush=True)
     return {"nvcc_s": round(seconds, 3), "built": bool(report)}
+
+
+def ptxas_of(source: str, kernel: str):
+    """Kernel `kernel` of csrc/`source` as nvcc's -Xptxas -v report of this
+    process's build gives it: {"registers", "spill_stores", "spill_loads"}
+    (a thread, bytes), or None when the library was built before."""
+    import re
+
+    tag = source.replace(".", "_") + "_"
+    mangled = f"{len(kernel)}{kernel}E"
+    out = {}
+    for line in _PTXAS["summary"].splitlines():
+        name, _, info = line.partition(": ")
+        if tag not in name or mangled not in name:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, info)
+            if m:
+                out[key] = int(m.group(1))
+    return out or None
+
+
+def bf16_launch_info(query: str, which: dict, source: str, d: int):
+    """The launches of a bfloat16 kernel set (`query` the library's
+    occupancy function, ``final_bf16_occupancy`` or ``bi_bf16_occupancy``;
+    `which` launch name -> (its index there, its kernel's name)) at width
+    d: each launch's shared memory a block, threads, resident blocks an SM,
+    registers and local bytes a thread from the library, and registers and
+    spill from the build's report (``ptxas_of``). None off the card."""
+    import ctypes
+
+    import torch
+
+    from temp_tpu_torch import _build
+
+    if not torch.cuda.is_available():
+        return None
+    out = {}
+    for name, (i, kernel) in which.items():
+        buf = (ctypes.c_int * 5)()
+        _build.check(getattr(_build.lib(), query)(
+            i, d, ctypes.addressof(buf)), query)
+        out[name] = {**dict(zip(("smem_bytes", "threads", "blocks_per_sm",
+                                 "registers", "local_bytes"), buf)),
+                     "ptxas": ptxas_of(source, kernel)}
+    return out
 
 
 def phase_setup(device, num_ents=7128, num_rels=230, num_times=365,
@@ -1840,13 +1900,21 @@ def phase_bf16_kernels(ctx) -> dict:
     def both(fn, **kw):
         return lambda: (fn(*layer2, **kw), fn(*layer1, **kw))
 
+    k5 = both(ff.fused_final_bwd_layer, csr=saved.get("csr"), hot=BF)
+    if not all(_bitwise(x, y) for x, y in zip(k5(), k5())):
+        raise AssertionError("K5 bf16: two runs differ")
     out["k5"] = _bf16_case(
-        both(ff.fused_final_bwd_layer, csr=saved.get("csr"), hot=BF),
-        both(ff.fused_final_bwd_layer_plain, hot=BF),
+        k5, both(ff.fused_final_bwd_layer_plain, hot=BF),
         both(ff.fused_final_bwd_layer_plain), errs,
         2 * Bf * N * 42 * d * d, 2 * 4 * Bf * N * d * (4.5 + n_masks),
         f"B={Bf} N={N} E={gr.src.shape[1]} d={d}, both layers", dev,
         reps=10)
+    # each launch's shared memory, threads, blocks an SM, registers, spill
+    out["k5"].update(bitwise=True, launch=bf16_launch_info(
+        "final_bf16_occupancy",
+        {"gru": (0, "final_bwd_gru_kernel"),
+         "input": (1, "final_bwd_input_kernel"),
+         "weights": (2, "final_wgrad_kernel")}, "fused_final_bf16.cu", d))
     for name, r in out.items():
         print(f"  bf16 {name}: {r}", flush=True)
     return out
@@ -3092,6 +3160,11 @@ def phase_bf16_flagship_kernels(ctx, fctx) -> dict:
     if not bitwise:
         raise AssertionError("K9+K10 bf16: two runs differ")
     conv2 = fb._rows_plain(*a2[:8], True, kw2["hl"], kw2["imp"], BF)[0]
+    # the ReLU's signs where the recompute (native bf16 products) and the
+    # forward (K6+K7's TF32 products of the rounded operands) differ: the
+    # forward's from its GRU input without the blend, the ReLU's output
+    fwd2 = fb.bi_gru_input(*a2, relu=True, csr=csr, hot=BF)
+    fwd_flips = 0 if relu2 is None else int(((relu2 > 0) != (fwd2 > 0)).sum())
     out["k9k10"] = _bf16_case(
         both(fb.bi_layer_bwd, csr=csr, hot=BF),
         both(fb.bi_layer_bwd_plain, hot=BF), both(fb.bi_layer_bwd_plain),
@@ -3099,8 +3172,14 @@ def phase_bf16_flagship_kernels(ctx, fctx) -> dict:
         _bi_bytes(fb_, 1, extra_rows=4) + _bi_bytes(fb_, 2, extra_rows=6)
         - hist_bytes, f"B={B} N={N} E={gr.src.shape[1]} d={d}, both layers",
         dev, reps=10)
-    out["k9k10"].update(bitwise=bitwise, relu_flips=0 if relu2 is None else
-                        int(((relu2 > 0) != (conv2 > 0)).sum()))
+    out["k9k10"].update(
+        bitwise=bitwise, relu_flips=0 if relu2 is None else
+        int(((relu2 > 0) != (conv2 > 0)).sum()), relu_fwd_flips=fwd_flips,
+        relu_entries=int(relu2.numel()) if relu2 is not None else 0,
+        launch=bf16_launch_info(
+            "bi_bf16_occupancy", {"gru": (0, "bi_bwd_gru_kernel"),
+                                  "weights": (1, "bi_wgrad_kernel")},
+            "fused_final_bi_bf16.cu", d))
     for name, r in out.items():
         print(f"  bf16 flagship {name}: {r}", flush=True)
     return out
@@ -4862,6 +4941,8 @@ def kernels_line(res: dict) -> dict:
             if fk is not None and tag == "k4":
                 r["bi_table"] = {k: fk["k4_bi"][k] for k in keys
                                  + ("bitwise",)}
+            if tag == "k5":
+                r["bitwise"], r["launch"] = m["bitwise"], m["launch"]
             rec.append(r)
         if fk is not None:
             for name, tag, src, replaces in _KERNELS_BF16_FLAGSHIP:
@@ -4871,7 +4952,9 @@ def kernels_line(res: dict) -> dict:
                             "launches": fp["fused"]["launches"][name],
                             "launches_by_path": by_path(name),
                             "bitwise": m["bitwise"],
-                            **{k: m[k] for k in keys}})
+                            **{k: m[k] for k in keys},
+                            **{k: m[k] for k in ("launch", "relu_fwd_flips")
+                               if k in m}})
     rec += _kernels_bf16_last(res)
     rec += _kernels_bf16_k1(res)
     rec += _kernels_onehot(res)

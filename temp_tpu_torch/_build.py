@@ -10,10 +10,13 @@ newer than the library. Each exported launcher takes raw device pointers,
 sizes and the CUDA stream, and returns ``cudaGetLastError()``. The
 ``*_bf16.cu`` sources give the kernels' bfloat16 modes, their launchers
 ``name_bf16`` with ``name``'s arguments (``BF16_LAUNCHERS``): most compile
-a kernel source again in that mode, ``fused_window_bf16.cu`` the window's
-own native bfloat16 kernels (``csrc/window_bf16.cuh``), and
-``ring_spmm_bf16.cu`` adds the ring SpMM's whole-card route, which exists in
-bfloat16 only (``ring_bf16_*``).
+a kernel source again in that mode; ``fused_window_bf16.cu`` has the
+window's own native bfloat16 kernels (``csrc/window_bf16.cuh``), and
+``fused_final_bf16.cu`` and ``fused_final_bi_bf16.cu`` K5's and K9+K10's
+beside their sources' bfloat16 compile (with ``final_bf16_occupancy`` and
+``bi_bf16_occupancy``, which exist in bfloat16 only); ``ring_spmm_bf16.cu``
+adds the ring SpMM's whole-card route, which exists in bfloat16 only
+(``ring_bf16_*``).
 """
 
 from __future__ import annotations
@@ -139,17 +142,24 @@ SIGNATURES = {
     # final_bwd_gru(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask,
     #               wih_t, whh_t, bih, bhh, wih, whh, dt, lam, prev, dout,
     #               dprev, n2_out, conv_s, h0g_s, dgi_s, dgh_s, dconv_s,
-    #               dlp_s, B, N, d, stream)
+    #               dlp_s, B, N, d, stream); in the bfloat16 mode x, loop,
+    #               the four GRU weights, prev, conv_s and h0g_s bfloat16
     "final_bwd_gru_launch": [_P] * 6 + [_I, _I] + [_P] * 9 + [_F]
                             + [_P] * 10 + [_I] * 3 + [_P],
     # final_bwd_input(s_ptr, s_dst, s_rel, s_em, s_eid, n2, dconv_s, dlp_s,
     #                 wrel, wstride, wcol, loop_t, x, ewg, out, B, N, d,
-    #                 stream)
+    #                 stream); in the bfloat16 mode loop_t and x bfloat16
     "final_bwd_input_launch": [_P] * 9 + [_I, _I] + [_P] * 4
                               + [_I] * 3 + [_P],
     # final_wgrad(conv_s, dgi_s, h0g_s, dgh_s, x, dlp_s, part, n_split, B, N,
-    #             d, stream)
+    #             d, stream); in the bfloat16 mode conv_s, h0g_s, x bfloat16
     "final_wgrad_launch": [_P] * 7 + [_I] * 4 + [_P],
+    # final_bf16_occupancy(which, d, out): K5's bfloat16 kernel `which` (0
+    #             its GRU tile, 1 its input tile, 2 its weight launch) at
+    #             width d -> out[5] (shared memory bytes a block, threads,
+    #             resident blocks an SM, registers a thread, local bytes a
+    #             thread), a host int[5]
+    "final_bf16_occupancy": [_I, _I, _P],
     # final_wgrad_reduce(part, n_split, total, out, stream)
     "final_wgrad_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],
     # final_ranks(table, rtab, qsrc, qdst, qrel, qmask, t_ptr, t_ans, h_ptr,
@@ -172,12 +182,20 @@ SIGNATURES = {
     #            dprev_b, dhl_f, dhl_b, dimp_rows, n2_out, gin_s, h0f_s,
     #            h0b_s, dgi_f, dgh_f, dgi_b, dgh_b, dconv_s, dlp_s, relu_out,
     #            B, N, d, stream); relu_out (the ReLU's pattern, for holding
-    #            the kernel to its plain version) is null on the main path
+    #            the kernel to its plain version) is null on the main path;
+    #            in the bfloat16 mode x, loop, the eight GRU weight
+    #            matrices, the histories, the local tables, gin_s, h0f_s and
+    #            h0b_s bfloat16
     "bi_bwd_gru_launch": [_P] * 6 + [_I, _I, _P, _P, _I] + [_P] * 14 + [_F]
                          + [_P] * 23 + [_I] * 3 + [_P],
     # bi_wgrad(gin_s, h0f_s, h0b_s, dgi_f, dgh_f, dgi_b, dgh_b, x, dlp_s,
-    #          dimp_rows, part, n_split, B, N, d, stream)
+    #          dimp_rows, part, n_split, B, N, d, stream); in the bfloat16
+    #          mode gin_s, h0f_s, h0b_s and x bfloat16
     "bi_wgrad_launch": [_P] * 11 + [_I] * 4 + [_P],
+    # bi_bf16_occupancy(which, d, out): K9+K10's bfloat16 kernel `which` (0
+    #          its GRU tile, 1 its weight launch) at width d -> out[5], as
+    #          final_bf16_occupancy's
+    "bi_bf16_occupancy": [_I, _I, _P],
 }
 
 # the launchers whose bfloat16 mode (csrc/*_bf16.cu) is exported as name +

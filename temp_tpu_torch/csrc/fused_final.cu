@@ -65,7 +65,7 @@
 // accuracy (rgcn_gru_layer.cuh), bound by mma.sync's rate: K3's layer
 // launches (and K11's) are the window's forward tile in whole-width
 // 32-row tiles, so they form the conv output and the gates bit for bit as
-// K5's recompute does; K5's tiles are K2b's. K3's scores, both score
+// K5's float32 recompute does; K5's tiles are K2b's. K3's scores, both score
 // recomputes of K4 and K11's ranks are one routine, score_product: 64
 // queries by 64 table rows a block, the queries as A and the table rows,
 // staged by cp.async, as B, so every score K4 recomputes equals the one K3
@@ -81,10 +81,12 @@
 // turns them into a 64-bit mask per query and column tile.
 
 //
-// Compiled a second time as fused_final_bf16.cu, with TK_BF16 1: K3's, K4's
-// and K5's bfloat16 mode (rgcn_gru_layer.cuh), the TPU kernels' bfloat16
-// instantiation. The history is bfloat16; the layer launches' products and
-// SpMM are K2's bfloat16 mode; K3 builds the loss's queries from the
+// Compiled a second time as fused_final_bf16.cu, with TK_BF16 1: K3's and
+// K4's bfloat16 mode (rgcn_gru_layer.cuh), the TPU kernels' bfloat16
+// instantiation (K5's is that source's own, on window_bf16.cuh). The
+// history is bfloat16; the layer launches' products (one TF32 product of
+// bfloat16-rounded operands a k8 step) and SpMM are rgcn_gru_layer.cuh's
+// bfloat16 mode; K3 builds the loss's queries from the
 // table's subject and object rows and the relation rows split into a high
 // and a low bfloat16 part (hilo_bf16, as the TPU kernel gathers them) and
 // scores in bfloat16. The TPU kernel's loss backward recomputes the queries
@@ -94,8 +96,8 @@
 // and its reduce launch gives the loss from variant 0 and the log-sum-exps
 // K4 reads from variant 1. K4 weighs the probabilities by the loss weight
 // before they are rounded (final_dq takes the count and the cotangent),
-// and rounds the row and relation cotangents it writes. K11 has no
-// bfloat16 mode and is left out of this build.
+// and rounds the row and relation cotangents it writes. K5 and K11 are
+// left out of this build (K11 has no bfloat16 mode).
 
 #include <math.h>
 
@@ -880,6 +882,10 @@ __global__ void __launch_bounds__(kLossThreads, 2) final_dtable_kernel(
 }
 
 // -- K5 ----------------------------------------------------------------------
+//
+// In float32 only: K5's bfloat16 mode is fused_final_bf16.cu's own native
+// kernels (window_bf16.cuh).
+#if !TK_BF16
 
 __global__ void __launch_bounds__(256, 2) final_bwd_gru_kernel(
     Layer p, const float* __restrict__ wih, const float* __restrict__ whh,
@@ -918,7 +924,6 @@ __global__ void final_wgrad_reduce_kernel(const float* __restrict__ part,
 
 // -- K11 ---------------------------------------------------------------------
 
-#if !TK_BF16
 // A true answer's score in the ranks (ops/ranking.py NEG_INF).
 constexpr float kNegRank = -1.0e7f;
 
@@ -1266,7 +1271,8 @@ extern "C" int final_dtable_launch(
 }
 
 // The relation and weight sums read and write float32 only: the float32
-// build's serve both modes.
+// build's serve both modes. K5's launchers: fused_final_bf16.cu has the
+// bfloat16 mode's.
 #if !TK_BF16
 extern "C" int final_rel_grad_launch(const void* r_ptr, const void* r_eid,
                                      const void* vals, void* out, int n_rels,
@@ -1274,7 +1280,6 @@ extern "C" int final_rel_grad_launch(const void* r_ptr, const void* r_eid,
   return static_cast<int>(
       rel_sum(r_ptr, r_eid, vals, nullptr, out, n_rels, d, stream));
 }
-#endif  // !TK_BF16
 
 extern "C" int final_bwd_gru_launch(
     const void* x, const void* rowptr, const void* src, const void* rel,
@@ -1350,7 +1355,6 @@ extern "C" int final_wgrad_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-#if !TK_BF16
 extern "C" int final_wgrad_reduce_launch(const void* part, int n_split,
                                          long long total, void* out,
                                          void* stream) {

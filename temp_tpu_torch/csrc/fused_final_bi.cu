@@ -29,17 +29,18 @@
 // ranges (bi_wgrad, the window's weight tiles with six jobs), their ordered
 // sum, and the relation sum. Layer 1 runs without the ReLU and the blend.
 //
-// Compiled a second time as fused_final_bi_bf16.cu, with TK_BF16 1: the
-// three launchers' bfloat16 mode (suffix _bf16), the TPU kernels' bfloat16
-// instantiation (dtype_str "bfloat16"). The tiles round as
+// Compiled a second time as fused_final_bi_bf16.cu, with TK_BF16 1: K6+K7's
+// launcher in its bfloat16 mode (bi_layer_launch_bf16), the TPU kernels'
+// bfloat16 instantiation (dtype_str "bfloat16"); K9+K10's bfloat16 mode is
+// that source's own, on window_bf16.cuh. The tile rounds as
 // rgcn_gru_layer.cuh says (the SpMM's source rows, relation weights and
 // messages, every product operand); both directions' histories and both
 // local tables are bfloat16 in device memory (prev_at, copy_prev,
 // local_at), widened to float32 as the TPU kernels' casts do, and the blend,
-// the decay, the GRUs' elementwise parts and the impute terms' sums stay
-// float32. The input, the layer's output and every cotangent stay float32,
-// as the TPU programs' outputs are. K8 and K4 are then K3's and K4's
-// launches in their bfloat16 mode (fused_final_bf16.cu).
+// the decay, the GRUs' elementwise parts stay float32. The input and the
+// layer's output stay float32, as the TPU programs' outputs are. K8 and K4
+// are then K3's and K4's launches in their bfloat16 mode
+// (fused_final_bf16.cu).
 //
 // What bounds them on an H100: arithmetic. Per layer and element the
 // forward does the self-loop product (2 N d^2 flops) and four [N, d] x
@@ -55,7 +56,7 @@
 // regions (bi_tile_smem_floats: two blocks an SM at d = 128), and form the
 // conv output (conv_rows_tc), the GRU input (gin_at) and both directions'
 // gates (gate_products) with the same routines, so the backward's
-// recompute equals the forward bit for bit; bi_bwd_gru_kernel's ten
+// float32 recompute equals the forward bit for bit; bi_bwd_gru_kernel's ten
 // products go through tile_product, as K5's GRU tile; the input launch is
 // K5's, the weight launch wgrad_tile's. No atomics: every sum over rows
 // goes through per-range partials and an ordered reduction, so runs repeat
@@ -197,6 +198,10 @@ __global__ void __launch_bounds__(256, 2) bi_layer_kernel(
         out[row * d + c] = v;
       }
 }
+
+// K9+K10 in float32 only: their bfloat16 mode is fused_final_bi_bf16.cu's
+// own native kernels (window_bf16.cuh).
+#if !TK_BF16
 
 // One direction's GRU backward for the tile: its gates from the GRU input
 // cs and its decayed states hs (gate_products), the gate cotangents into
@@ -457,6 +462,8 @@ __global__ void __launch_bounds__(kWgThreads, 4) bi_wgrad_kernel(
   wgrad_tile(jobs, B, N, rows_per_split, part_stride);
 }
 
+#endif  // !TK_BF16
+
 BiRows make_rows(const void* active, const void* hl_f, const void* hl_b,
                  const void* imp, const void* sel_x) {
   BiRows q;
@@ -499,6 +506,7 @@ extern "C" int bi_layer_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+#if !TK_BF16
 extern "C" int bi_bwd_gru_launch(
     const void* x, const void* rowptr, const void* src, const void* rel,
     const void* em, const void* wrel, int wstride, int wcol,
@@ -591,3 +599,4 @@ extern "C" int bi_wgrad_launch(const void* gin_s, const void* h0f_s,
   }
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // !TK_BF16

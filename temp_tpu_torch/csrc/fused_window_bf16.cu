@@ -54,8 +54,8 @@ __global__ void __launch_bounds__(256, 3) window_bwd_gru_kernel(
     bf16* __restrict__ conv_s, bf16* __restrict__ h0g_s,
     float* __restrict__ dgi_s, float* __restrict__ dgh_s,
     float* __restrict__ dconv_s, float* __restrict__ dlp_s) {
-  bwd_gru_tile_bf(p, wih, whh, db, g_loc, n2_out, conv_s, h0g_s, dgi_s, dgh_s,
-                  dconv_s, dlp_s);
+  bwd_gru_tile_bf(p, wih, whh, db, g_loc, nullptr, n2_out, conv_s, h0g_s,
+                  dgi_s, dgh_s, dconv_s, dlp_s);
 }
 
 __global__ void __launch_bounds__(256) window_bwd_input_kernel(
@@ -77,47 +77,12 @@ __global__ void __launch_bounds__(kWgThreads, 4) window_wgrad_kernel(
   wgrad_tile_bf(jobs, B, A, rows_per_split, part_stride);
 }
 
-// The launch shapes: grid, threads and shared memory of each kernel at
-// width d, for A rows a step and B elements.
-struct Shape {
-  dim3 grid;
-  int threads, bytes;
-};
-
+// K2f's launch shape at width d, for A rows a step and B elements.
 Shape layer_shape(int B, int A, int d) {
   const int warps = fwd_warps(d, kFwdWarps);
   const int slabs = d / (16 * warps);
   return {dim3((A + kBwdRows - 1) / kBwdRows * slabs, B), warps * kWarp,
           fwd_layer_bf_smem_bytes(d, warps)};
-}
-
-Shape bwd_gru_shape(int B, int A, int d) {
-  return {dim3((A + kBfBwdRows - 1) / kBfBwdRows, B), 2 * d,
-          bwd_gru_bf_smem_bytes(d)};
-}
-
-Shape bwd_input_shape(int B, int A, int d) {
-  return {dim3((A + kBwdRows - 1) / kBwdRows, B), 2 * d,
-          bwd_input_bf_smem_bytes(d)};
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <typename K>
-cudaError_t occupancy(K kernel, int threads, int bytes, int* out) {
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      threads, bytes);
-  out[0] = bytes;
-  out[1] = threads;
-  out[2] = blocks;
-  return err;
 }
 
 }  // namespace

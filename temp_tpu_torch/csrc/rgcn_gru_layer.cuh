@@ -32,24 +32,27 @@
 //
 // The bfloat16 mode. A source that defines TK_BF16 to 1 before it includes
 // this header (fused_final_bf16.cu, fused_final_bi_bf16.cu: fused_final.cu
-// and fused_final_bi.cu compiled again; fused_window_bf16.cu, for the
-// SpMM, the layer description and the shared helpers only) gets every
-// routine here in the mode of the TPU kernels' bfloat16 instantiation
-// (temp_tpu/ops/fused_final.py, fused_final_bi.py, fused_window.py with
-// dtype_str "bfloat16"): each product operand rounded to bfloat16 (to
-// nearest even) and kept as a float whose low 16 bits are zero, exact in
-// TF32, so ONE mma.sync TF32 product a k8 step (split_tf32, mma3) gives the
-// bfloat16 product with float32 sums; the SpMM rounds each gathered source
-// row, relation weight and message (spmm_rows) and its transpose each
-// gathered cotangent and each product term (bwd_input_tile), where the TPU
-// kernels' one-hot products round them; the previous states (the final
+// and fused_final_bi.cu compiled again for K3, K4, K6+K7 and K8;
+// fused_window_bf16.cu and the native K5 and K9+K10 in those two sources,
+// for the SpMM, the layer description and the shared helpers only) gets
+// every routine here in the mode of the TPU kernels' bfloat16
+// instantiation (temp_tpu/ops/fused_final.py, fused_final_bi.py,
+// fused_window.py with dtype_str "bfloat16"): each product operand rounded
+// to bfloat16 (to nearest even) and kept as a float whose low 16 bits are
+// zero, exact in TF32, so ONE mma.sync TF32 product a k8 step (split_tf32,
+// mma3) gives the bfloat16 product with float32 sums; the SpMM rounds each
+// gathered source row, relation weight and message (spmm_rows), where the
+// TPU kernels' one-hot products round them; the previous states (the final
 // step's history) are bfloat16 in device memory (prev_at), and a layer's
-// input may be (x_at, Layer::x_bf16). What bounds K3-K10's bfloat16 modes:
-// TF32's 495 TFLOP/s, half of the tensor cores' bfloat16 rate, with every
-// operand rounded again at every k8 step by every warp that loads it, and
-// float32 staging. The window's bfloat16 mode (K2f, K2b) left this design:
-// window_bf16.cuh stages its operands once as bfloat16 and multiplies them
-// by mma.sync m16n8k16 bf16 (its note); K3-K10's modes may follow it.
+// input may be (x_at, Layer::x_bf16). What bounds K3's, K4's, K6+K7's and
+// K8's bfloat16 modes: TF32's 495 TFLOP/s, half of the tensor cores'
+// bfloat16 rate, with every operand rounded again at every k8 step by
+// every warp that loads it, and float32 staging. The backward tiles
+// (bwd_gru_tile, bwd_input_tile, wgrad_tile) have no bfloat16 mode: the
+// window's (K2b) and the final step's (K5, K9+K10) bfloat16 backward left
+// this design for window_bf16.cuh's, which stages its operands once as
+// bfloat16 and multiplies them by mma.sync m16n8k16 bf16 (its note); K3's,
+// K4's, K6+K7's and K8's modes may follow it.
 
 #pragma once
 
@@ -412,10 +415,11 @@ __device__ __forceinline__ void spmm_rows(const Layer& p, int b, int a0,
 // rounded hi halves the error there (tests/test_torch_tf32x3.py holds a
 // model of both to float64). The rounding conversions are the costly part:
 // without them K5 took 3.28 ms where it took 3.70 on an H100 (PERF.md). In
-// the bfloat16 mode (TK_BF16, K3-K10) split_tf32 rounds each operand to
-// bfloat16 and mma3 issues one TF32 product of them, so a product loop
-// converts every fragment element at every k8 step: the cost that
-// window_bf16.cuh's native bfloat16 products remove for the window.
+// the bfloat16 mode (TK_BF16: K3, K4, K6+K7, K8) split_tf32 rounds each
+// operand to bfloat16 and mma3 issues one TF32 product of them, so a
+// product loop converts every fragment element at every k8 step: the cost
+// that window_bf16.cuh's native bfloat16 products remove for K2, K5 and
+// K9+K10.
 
 constexpr int kBwdRows = 32;               // rows a tensor-core tile
 constexpr int kMTiles = kBwdRows / 16;     // m16 tiles a warp: all the rows
@@ -821,6 +825,10 @@ __device__ __forceinline__ void fwd_layer_tile(const Layer& p, int b, int a0,
       }
 }
 
+// The backward tiles (bwd_gru_tile, bwd_input_tile, wgrad_tile) exist in
+// float32 only: the bfloat16 mode's are window_bf16.cuh's native ones.
+#if !TK_BF16
+
 // Shared memory of bwd_gru_tile in floats: the ring of three gate windows,
 // then the tile region: xs, cs, hs ([kBwdRows, d + 4] each), later dg
 // ([kBwdRows, 4d + 4], the larger) over them. 103,680 bytes at d = 128:
@@ -983,10 +991,7 @@ __host__ __device__ constexpr int bwd_input_smem_floats(int d) {
 // or 0; the product through tile_product. Also writes each edge's
 // relation-weight cotangent (over a CSR by source, so every unmasked edge
 // of the step is written once; masked edges are in no CSR and their slots
-// are never read). In the bfloat16 mode n2 holds norm (spmm_rows), and the
-// TPU kernel's casts: the message cotangent round(d_conv[dst] * norm[dst]),
-// then each source term round(d_msg * round(w) * (norm * em)) summed and
-// each relation term round(d_msg * round(x[src]) * (norm * em)).
+// are never read).
 __device__ __forceinline__ void bwd_input_tile(
     const int* __restrict__ s_ptr,     // [B*L1*A + 1] CSR by (b, k, src)
     const int* __restrict__ s_dst,     // step-local destination rows
@@ -1037,16 +1042,9 @@ __device__ __forceinline__ void bwd_input_tile(
         for (int j = 0; j < kMaxChunks; ++j) {
           const int c = lane + j * kWarp;
           if (c < d) {
-            if constexpr (kBf16) {
-              // s = norm[dst] * em; n2 holds norm in this mode
-              const float dm = round_bf16(gt[c] * n2[step_row + t]);
-              acc[j] += round_bf16(dm * round_bf16(wr[c]) * s);
-              er[c] = round_bf16(dm * round_bf16(xr[c]) * s);
-            } else {
-              const float gv = gt[c] * s;
-              acc[j] += gv * wr[c];
-              er[c] = gv * xr[c];
-            }
+            const float gv = gt[c] * s;
+            acc[j] += gv * wr[c];
+            er[c] = gv * xr[c];
           }
         }
       }
@@ -1077,6 +1075,8 @@ __device__ __forceinline__ void bwd_input_tile(
       }
 }
 
+#endif  // !TK_BF16
+
 // Weight cotangents: out[x_col, g_col] += sum over B*A rows of
 // X[row, x_col] * G[row, g_col], and bias[g_col] += sum of G (X's column of
 // ones), as a product whose depth is the rows. The rows are cut into ranges
@@ -1099,6 +1099,7 @@ constexpr int kWgJobs = 6;
 constexpr int kNoJob = 0x7fffffff;  // `first` of an unused job slot
 constexpr int kWgSmemBytes = kWgSlots * 2 * kWgK * kWgLd * sizeof(float);
 
+#if !TK_BF16
 struct WJob {
   const float* x;      // row (b, a) at x + b * x_es + a * nx
   long long x_es;
@@ -1209,6 +1210,8 @@ __device__ __forceinline__ void wgrad_tile(const WJobs& jobs, int B, int A,
   if (bias_sum && tg0 + tid < jb.ng) jb.bias[off + tg0 + tid] += bsum;
 }
 
+#endif  // !TK_BF16
+
 // out[i] = sum over the ranges s = 0..n_split-1 of part[s][i], in order.
 __device__ __forceinline__ void wgrad_reduce_one(
     const float* __restrict__ part, int n_split, long long total,
@@ -1226,6 +1229,7 @@ inline int wgrad_rows_per_split(int M, int n_split) {
   return (per + kWgK - 1) / kWgK * kWgK;
 }
 
+#if !TK_BF16
 // A weight launch: `tiles` output tiles (make_job's count) by n_split
 // ranges of the B*A rows.
 template <typename K>
@@ -1239,6 +1243,8 @@ cudaError_t launch_wgrad(K kernel, const WJobs& jobs, int tiles, int n_split,
       jobs, B, A, wgrad_rows_per_split(B * A, n_split), total);
   return cudaGetLastError();
 }
+
+#endif  // !TK_BF16
 
 // A whole-width tile launch (the backward tiles, or the flagship's forward
 // bi_layer_kernel, in `kernel`) over (row tile, element), d / 16 warps,
@@ -1294,6 +1300,7 @@ Layer make_layer(const void* x, int conv_given, const void* rowptr,
   return p;
 }
 
+#if !TK_BF16
 WJob make_job(const void* x, long long x_es, const void* g, long long g_es,
               float* out, float* bias, int nx, int ng, int* first) {
   WJob jb;
@@ -1311,6 +1318,8 @@ WJob make_job(const void* x, long long x_es, const void* g, long long g_es,
   *first += tiles_x * jb.tiles_g;
   return jb;
 }
+
+#endif  // !TK_BF16
 
 // The relation-weight cotangent, summed per relation without atomics:
 // out[r, :d] = the rows of v1 of relation r's edges, in the order of a CSR

@@ -1,27 +1,32 @@
-// The history window's bfloat16 mode on the tensor cores' native bfloat16
-// products: the device routines of K2f and K2b in that mode
-// (fused_window_bf16.cu, the one source that includes this header, after
-// rgcn_gru_layer.cuh with TK_BF16 1).
+// The native bfloat16 products of the tensor cores: the device routines of
+// the history window's bfloat16 mode (K2f and K2b, fused_window_bf16.cu)
+// and of the final step's bfloat16 backward (K5, fused_final_bf16.cu, on
+// K2b's tiles at one step; K9+K10, fused_final_bi_bf16.cu, on K2b's
+// routines), each source including this header after rgcn_gru_layer.cuh
+// with TK_BF16 1.
 //
 // What they compute is the TPU kernels' bfloat16 instantiation
-// (temp_tpu/ops/fused_window.py _fwd_kernel, _bwd_kernel with dtype_str
-// "bfloat16"): every product _dot(x.astype(bf16), w.astype(bf16),
-// preferred_element_type=f32). A product of two bfloat16 values is exact in
+// (temp_tpu/ops/fused_window.py _fwd_kernel, _bwd_kernel, fused_final.py
+// _bwd_layer_kernel, fused_final_bi.py _gru_bwd_bi_kernel,
+// _conv_bwd_bi_kernel with dtype_str "bfloat16"): every product
+// _dot(x.astype(bf16), w.astype(bf16), preferred_element_type=f32). A product of two bfloat16 values is exact in
 // float32, so mma.sync m16n8k16 with bfloat16 operands and float32
 // accumulators computes that function itself, 16 depth terms a step: no
 // operand is rounded inside a product loop. Each operand is rounded once:
 // the weights by the wrapper (bfloat16 copies, JAX's w.astype(bf16)), the
-// layer's input by the wrapper or already bfloat16 (layer 1's rows, layer
-// 1's buffer as layer 2's input), and each row operand (the conv output,
-// the decayed previous states, the gate cotangents, d_lp) when its tile
-// stages it in shared memory. Where the TPU kernel reads a value unrounded,
+// layer's input by the wrapper or already bfloat16 (the window's layer 1
+// rows and the final step's layer inputs by the wrapper, layer 1's buffer
+// as the window's layer 2 input), and each row operand (the conv output or
+// the GRU input, the decayed previous states, the gate cotangents, d_lp)
+// when its tile stages it in shared memory. Where the TPU kernel reads a value unrounded,
 // so do these routines, at the thread's own accumulator positions: the
 // GRU blend z * h and the backward's d_z read the float32 decayed state
 // (the bfloat16 state times live * decay, recomputed), the local output and
 // the ReLU the float32 conv output (kept in registers), the bias cotangents
 // the float32 gate cotangents (the weight launch rounds its own staged copy
-// of them). The SpMM and its transpose are rgcn_gru_layer.cuh's bfloat16
-// mode (spmm_rows) and its bwd_input_tile arithmetic, unchanged.
+// of them). The SpMM is rgcn_gru_layer.cuh's bfloat16 mode (spmm_rows); its
+// transpose, bwd_input_tile_bf's, rounds where the TPU kernel's one-hot
+// products do.
 //
 // What bounds them on an H100: not the operations (the main shape's K2f
 // launch is 0.31 GFLOP, a fraction of a microsecond at the bfloat16 rate)
@@ -465,22 +470,59 @@ __host__ __device__ constexpr int bwd_gru_bf_smem_bytes(int d) {
          kBfBwdRows * 16;
 }
 
-// K2b's GRU tile in bfloat16 (rgcn_gru_layer.cuh's bwd_gru_tile, natively)
-// for kBfBwdRows rows (blockIdx.x) of element blockIdx.y, d / 16 warps:
-// recomputes the conv output and the gates with K2f's routines (the same
-// sums, so the same values), then from d_out (db) the gate cotangents:
-// float32 into dgi_s and dgh_s (the weight launch's bias sums read them
-// unrounded), rounded into dg for d_gi @ W_ih and d_gh @ W_hh (wih, whh:
-// bfloat16 [3d, d]); d_conv (+ g_loc, through the ReLU's mask) into
-// dconv_s, d_conv * mask into dlp_s, the conv output and the decayed state
-// into conv_s and h0g_s (bfloat16: the weight launch reads them rounded);
-// the previous state's cotangent added into db at the row gidx names.
+// The gate cotangents' products of a GRU tile of MT * 16 rows (K2b's and
+// K5's GRU tile, each direction of K9+K10's): the cotangents in acc (0 d_r,
+// 1 d_z, 2 d_n, 3 d_ghn; float32 at the thread's accumulator positions)
+// rounded into dg ([MT * 16, 4d] bfloat16, row stride ldg, over shared
+// memory that nothing reads after the barrier here), then dx[0] += d_gi @
+// W_ih and dx[1] += d_gh @ W_hh (wih, whh: bfloat16 [3d, d]), a gate
+// section of the depth at a time. Ends with a barrier.
+template <int MT>
+__device__ __forceinline__ void gate_cotangent_products_bf(
+    const float (&acc)[4][MT][2][4], const bf16* wih, const bf16* whh,
+    int d, bf16* dg, int ldg, bf16* ring, float (&dx)[2][MT][2][4]) {
+  const int c0 = warp_col0();
+  __syncthreads();                      // dg overwrites the tile's rows
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dg[acc_row(mt, i) * ldg + j * d + c0 + acc_col(nt, i)] =
+              __float2bfloat16_rn(acc[j][mt][nt][i]);
+  const long long dd = (long long)d * d;
+  const bf16* wr[2] = {wih, whh};
+  tile_product_bf<MT, kGruKs, 2, 0, 1>(dg, ldg, d, wr, d, d, ring, dx);
+  const bf16* wz[2] = {wih + dd, whh + dd};
+  tile_product_bf<MT, kGruKs, 2, 0, 1>(dg + d, ldg, d, wz, d, d, ring, dx);
+  const bf16* wn[1] = {wih + 2 * dd};
+  tile_product_bf<MT, kGruKs, 2, 0>(dg + 2 * d, ldg, d, wn, d, d, ring, dx);
+  const bf16* wh[1] = {whh + 2 * dd};
+  tile_product_bf<MT, kGruKs, 2, 1>(dg + 3 * d, ldg, d, wh, d, d, ring, dx);
+}
+
+// K2b's and K5's GRU tile in bfloat16 (rgcn_gru_layer.cuh's bwd_gru_tile,
+// natively) for kBfBwdRows rows (blockIdx.x) of element blockIdx.y, d / 16
+// warps: recomputes the conv output and the gates with K2f's routines (the
+// same sums, so the same values), then from d_out (db) the gate
+// cotangents: float32 into dgi_s and dgh_s (the weight launch's bias sums
+// read them unrounded), rounded into dg for d_gi @ W_ih and d_gh @ W_hh
+// (wih, whh: bfloat16 [3d, d]); d_conv (+ g_loc, through the ReLU's mask)
+// into dconv_s, d_conv * mask into dlp_s, the conv output and the decayed
+// state into conv_s and h0g_s (bfloat16: the weight launch reads them
+// rounded); the previous state's cotangent written to dprev at the row
+// itself when dprev is not null (K5: the final step's d_hist), else added
+// into db at the row gidx names (K2b; dead rows add nothing).
 __device__ __forceinline__ void bwd_gru_tile_bf(
     const Layer& p, const bf16* __restrict__ wih,
     const bf16* __restrict__ whh, float* db, const float* __restrict__ g_loc,
-    float* n2_out, bf16* __restrict__ conv_s, bf16* __restrict__ h0g_s,
-    float* __restrict__ dgi_s, float* __restrict__ dgh_s,
-    float* __restrict__ dconv_s, float* __restrict__ dlp_s) {
+    float* __restrict__ dprev, float* n2_out, bf16* __restrict__ conv_s,
+    bf16* __restrict__ h0g_s, float* __restrict__ dgi_s,
+    float* __restrict__ dgh_s, float* __restrict__ dconv_s,
+    float* __restrict__ dlp_s) {
   extern __shared__ __align__(16) unsigned char smem_b[];
   constexpr int MT = kBfBwdRows / 16, R = kBfBwdRows;
   const int d = p.d, A = p.A, d3 = 3 * d;
@@ -548,35 +590,10 @@ __device__ __forceinline__ void bwd_gru_tile_bf(
         acc[2][mt][nt][i] = pn;
         acc[3][mt][nt][i] = phn;
       }
-  __syncthreads();                      // dg overwrites xs, cs and hs
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dg[acc_row(mt, i) * ldg + j * d + c0 + acc_col(nt, i)] =
-              __float2bfloat16_rn(acc[j][mt][nt][i]);
-
-  // d_conv = d_gi @ W_ih (dx 0), d_h0g += d_gh @ W_hh (dx 1), a gate
-  // section of the depth at a time
+  // d_conv = d_gi @ W_ih (dx 0), d_h0g += d_gh @ W_hh (dx 1); dg over xs,
+  // cs and hs
   float dx[2][MT][2][4] = {};
-  {
-    const long long dd = (long long)d * d;
-    const bf16* wr[2] = {wih, whh};
-    tile_product_bf<MT, kGruKs, 2, 0, 1>(dg, ldg, d, wr, d, d, ring, dx);
-    const bf16* wz[2] = {wih + dd, whh + dd};
-    tile_product_bf<MT, kGruKs, 2, 0, 1>(dg + d, ldg, d, wz, d, d, ring,
-                                         dx);
-    const bf16* wn[1] = {wih + 2 * dd};
-    tile_product_bf<MT, kGruKs, 2, 0>(dg + 2 * d, ldg, d, wn, d, d, ring,
-                                      dx);
-    const bf16* wh[1] = {whh + 2 * dd};
-    tile_product_bf<MT, kGruKs, 2, 1>(dg + 3 * d, ldg, d, wh, d, d, ring,
-                                      dx);
-  }
+  gate_cotangent_products_bf<MT>(acc, wih, whh, d, dg, ldg, ring, dx);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -594,7 +611,10 @@ __device__ __forceinline__ void bwd_gru_tile_bf(
         dlp_s[m * d + c] = p.mask != nullptr ? dc * p.mask[row * d + c] : dc;
         const float lv = ri[r].live, dec = ri[r].dec;
         const float dh = dh_direct[mt][nt][i] + dx[1][mt][nt][i];
-        if (lv != 0.f) db[ri[r].off + c] += dh * dec * lv;
+        if (dprev != nullptr)
+          dprev[row * d + c] = dh * dec * lv;
+        else if (lv != 0.f)
+          db[ri[r].off + c] += dh * dec * lv;
       }
 }
 
@@ -605,11 +625,15 @@ __host__ __device__ constexpr int bwd_input_bf_smem_bytes(int d) {
          f32_rows_bytes(kBwdRows, d);
 }
 
-// K2b's input tile in bfloat16 (rgcn_gru_layer.cuh's bwd_input_tile, its
-// bfloat16 arithmetic, natively) for kBwdRows rows (blockIdx.x) of element
+// K2b's and K5's (so K9+K10's) input tile in bfloat16 (rgcn_gru_layer.cuh's
+// bwd_input_tile, natively) for kBwdRows rows (blockIdx.x) of element
 // blockIdx.y, d / 16 warps: out = (base + SpMM^T of d_conv) + round(d_lp)
 // @ loop^T (loop_t: bfloat16 [d, d]); x, the layer's input, bfloat16; each
-// unmasked edge's relation-weight cotangent into ewg.
+// unmasked edge's relation-weight cotangent into ewg. The SpMM^T with the
+// TPU kernel's casts (n2 holds norm, spmm_rows's bfloat16 output): the
+// message cotangent round(d_conv[dst] * norm[dst]), then each source term
+// round(d_msg * round(w) * (norm * em)) summed and each relation term
+// round(d_msg * x[src] * (norm * em)).
 __device__ __forceinline__ void bwd_input_tile_bf(
     const int* __restrict__ s_ptr, const int* __restrict__ s_dst,
     const int* __restrict__ s_rel, const float* __restrict__ s_em,
@@ -854,6 +878,56 @@ WJobBf make_job_bf(const bf16* x, long long x_es, const void* g,
   const int tiles_x = nx > 0 ? (nx + kWgM - 1) / kWgM : 1;
   *first += tiles_x * jb.tiles_g;
   return jb;
+}
+
+// A launch's grid, threads a block and shared memory a block in bytes.
+struct Shape {
+  dim3 grid;
+  int threads, bytes;
+};
+
+// A whole-width tile launch over A rows of B elements: tiles of `rows`
+// rows, d / 16 warps, `bytes` of shared memory a block.
+inline Shape tile_shape(int B, int A, int d, int rows, int bytes) {
+  return {dim3((A + rows - 1) / rows, B), 2 * d, bytes};
+}
+
+inline Shape bwd_gru_shape(int B, int A, int d) {
+  return tile_shape(B, A, d, kBfBwdRows, bwd_gru_bf_smem_bytes(d));
+}
+
+inline Shape bwd_input_shape(int B, int A, int d) {
+  return tile_shape(B, A, d, kBwdRows, bwd_input_bf_smem_bytes(d));
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// A kernel's launch shape and occupancy: out[0] its shared memory a block
+// in bytes, out[1] its threads, out[2] the blocks an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); with n = 5 also out[3]
+// its registers a thread and out[4] its local memory a thread in bytes
+// (the spills' and stack's).
+template <typename K>
+cudaError_t occupancy(K kernel, int threads, int bytes, int* out,
+                      int n = 3) {
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, bytes);
+  out[0] = bytes;
+  out[1] = threads;
+  out[2] = blocks;
+  if (err != cudaSuccess || n < 5) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return err;
 }
 
 }  // namespace

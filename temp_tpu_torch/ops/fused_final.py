@@ -42,10 +42,13 @@ plainly rounded rows trained about one MRR point low) and scores in
 bfloat16; K4 recomputes the queries from the table rounded to bfloat16 (the
 JAX kernel's residual table is stored so) and rounds the score and row
 cotangents where the JAX kernel casts them; K5 is K2b's bfloat16 layer. On
-the card the same launches of the kernels compiled in their bfloat16 mode
+the card the same launches of the kernels in their bfloat16 mode
 (``csrc/fused_final_bf16.cu``): K3's score launch then scores both query
 sets (the forward's, and the backward's from the rounded table, whose
-log-sum-exp K4 reads), so the launch counts stay those of float32.
+log-sum-exp K4 reads), so the launch counts stay those of float32; K5's
+launches are K2b's native bfloat16 kernels at one step, to which the
+wrapper hands the layer's input and the weights rounded once
+(``ops/fused_window`` ``operand``, ``layer_operands``).
 
 ``fused_eval_ranks`` (K11) computes what the JAX package's
 ``fused_eval_ranks`` returns for each of B eval targets: the final step in
@@ -71,7 +74,8 @@ import torch
 
 from temp_tpu_torch import _build
 from temp_tpu_torch.ops.fused_window import (
-    _device, _gru_t, _lib_fn, hot_mm, spmm_hot_plain,
+    _device, _gru_t, _lib_fn, hot_mm, layer_operands, operand,
+    spmm_hot_plain,
 )
 from temp_tpu_torch.ops.gru import hot_round
 from temp_tpu_torch.ops.membership import true_answer_mask
@@ -726,7 +730,10 @@ def fused_final_bwd_layer(h_in, prev, gr: FinalGraph, mask, wrel, col: int,
                          f"{r_ptr.numel() - 1} rows, wrel {R}")
     rows = B * N
     n2 = torch.empty(rows, **f32)
-    scr = {k: torch.empty(rows * (3 * d if k.startswith("dg") else d), **f32)
+    # the scratch the weight launch reads only rounded: bfloat16 in that mode
+    xs = dict(device=dev, dtype=torch.float32 if hot is None else hot)
+    scr = {k: torch.empty(rows * (3 * d if k.startswith("dg") else d),
+                          **(xs if k in ("conv", "h0g") else f32))
            for k in ("conv", "h0g", "dgi", "dgh", "dconv", "dlp")}
     d_h = torch.empty(B, N, d, **f32)
     d_prev = torch.empty(B, N, d, **f32)
@@ -737,9 +744,10 @@ def fused_final_bwd_layer(h_in, prev, gr: FinalGraph, mask, wrel, col: int,
     sizes = [torch.Size(shapes[n]).numel() for n in _WGRAD_LAYOUT]
     wpart = torch.zeros(_WGRAD_SPLIT, sum(sizes), **f32)
     wsum = torch.empty(sum(sizes), **f32)
-    wih = g["wih_t"].t().contiguous()
-    whh = g["whh_t"].t().contiguous()
-    loop_t = loop.t().contiguous()
+    # the layer's input and the weights as the kernels read them: in the
+    # bfloat16 mode each rounded once (the JAX kernel reads them only so)
+    x = operand(x, hot)
+    w = layer_operands(loop, g, hot, bwd=True)
     lib = _build.lib()
     fn = {n: _lib_fn(lib, n, hot) for n in (
         "final_bwd_gru_launch", "final_bwd_input_launch",
@@ -753,15 +761,15 @@ def fused_final_bwd_layer(h_in, prev, gr: FinalGraph, mask, wrel, col: int,
 
     launched(fn["final_bwd_gru_launch"](
         p(x), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d, col,
-        p(loop), p(mask), p(g["wih_t"]), p(g["whh_t"]), p(g["bih"]),
-        p(g["bhh"]), p(wih), p(whh), p(gr.dt), float(gr.lam), p(prev),
-        p(d_out), p(d_prev), p(n2), p(scr["conv"]), p(scr["h0g"]),
+        p(w["loop"]), p(mask), p(w["wih_t"]), p(w["whh_t"]), p(g["bih"]),
+        p(g["bhh"]), p(w["wih"]), p(w["whh"]), p(gr.dt), float(gr.lam),
+        p(prev), p(d_out), p(d_prev), p(n2), p(scr["conv"]), p(scr["h0g"]),
         p(scr["dgi"]), p(scr["dgh"]), p(scr["dconv"]), p(scr["dlp"]), B, N, d,
         stream), "gru")
     launched(fn["final_bwd_input_launch"](
         p(sp), p(sp_dst), p(sp_rel), p(sp_em), p(sp_eid), p(n2),
-        p(scr["dconv"]), p(scr["dlp"]), p(wrel), 2 * d, col, p(loop_t), p(x),
-        p(ewg), p(d_h), B, N, d, stream), "input")
+        p(scr["dconv"]), p(scr["dlp"]), p(wrel), 2 * d, col, p(w["loop_t"]),
+        p(x), p(ewg), p(d_h), B, N, d, stream), "input")
     launched(fn["final_wgrad_launch"](
         p(scr["conv"]), p(scr["dgi"]), p(scr["h0g"]), p(scr["dgh"]), p(x),
         p(scr["dlp"]), p(wpart), _WGRAD_SPLIT, B, N, d, stream), "weights")
@@ -770,10 +778,10 @@ def fused_final_bwd_layer(h_in, prev, gr: FinalGraph, mask, wrel, col: int,
              "weight sum")
     launched(lib.final_rel_grad_launch(
         p(r_ptr), p(r_eid), p(ewg), p(d_wrel), R, d, stream), "relations")
-    w = {n: t.view(shapes[n]) for n, t in
-         zip(_WGRAD_LAYOUT, torch.split(wsum, sizes))}
-    return (d_h, d_prev, d_wrel, w["dloop"], w["dwih"], w["dwhh"], w["dbih"],
-            w["dbhh"])
+    dw = {n: t.view(shapes[n]) for n, t in
+          zip(_WGRAD_LAYOUT, torch.split(wsum, sizes))}
+    return (d_h, d_prev, d_wrel, dw["dloop"], dw["dwih"], dw["dwhh"],
+            dw["dbih"], dw["dbhh"])
 
 
 fused_final_bwd_layer.launches = 0

@@ -44,9 +44,11 @@ table in float32 (the TPU programs' outputs are); K8 is K3's bfloat16 loss
 (``ops/fused_final`` ``_loss_plain``) and K4 its bfloat16 mode on the bi
 table. The backward's plain version in bfloat16 is autograd through the
 forward built of those cast points, whose backward is the JAX kernels'.
-On the card the same launches of the kernels compiled in their bfloat16
-mode (``csrc/fused_final_bi_bf16.cu``, ``csrc/fused_final_bf16.cu``), the
-same number of launches.
+On the card the same launches of the kernels in their bfloat16 mode
+(``csrc/fused_final_bi_bf16.cu``, ``csrc/fused_final_bf16.cu``), the same
+number of launches; K9+K10's are native bfloat16 kernels on K2b's
+routines, to which the wrapper hands the layer's input and the weights
+rounded once (``ops/fused_window`` ``operand``, ``gru_operands``).
 """
 
 from __future__ import annotations
@@ -61,7 +63,9 @@ from temp_tpu_torch.ops.fused_final import (
     _device, _flat, _gru_dict, _loss_plain, _p, final_csr, final_graph,
     fused_final_bwd_loss, fused_final_bwd_loss_plain, select_bwd,
 )
-from temp_tpu_torch.ops.fused_window import _gru_t, _lib_fn
+from temp_tpu_torch.ops.fused_window import (
+    _gru_t, _lib_fn, gru_operands, operand,
+)
 from temp_tpu_torch.ops.spmm import _norm2_plain, spmm_bwd_plain
 
 _MAX_D = 128   # the layer tiles run d / 16 warps, two blocks an SM
@@ -493,11 +497,20 @@ def _bi_bwd_prepare(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
                          f"{r_ptr.numel() - 1} rows, wrel {R}")
     dev = prev_f.device
     f32 = dict(device=dev, dtype=torch.float32)
+    # the scratch the weight launch reads only rounded: bfloat16 in that mode
+    xs = dict(device=dev, dtype=torch.float32 if hot is None else hot)
     rows = B * N
     impute = hl is not None
-    st = {"xx": xx, "csr": csr, "n2": torch.empty(rows, **f32),
+    # the layer's input and the weights as the kernels read them: in the
+    # bfloat16 mode each rounded once (the JAX kernels read them only so)
+    w = {"loop": operand(loop, hot), "loop_t": operand(loop.t(), hot),
+         "f": gru_operands(gf, hot, bwd=True),
+         "b": gru_operands(gb, hot, bwd=True)}
+    st = {"xx": operand(xx, hot), "w": w, "csr": csr,
+          "n2": torch.empty(rows, **f32),
           "scr": {k: torch.empty(rows * (3 * d if k.startswith("dg") else d),
-                                 **f32)
+                                 **(xs if k in ("gin", "h0f", "h0b")
+                                    else f32))
                   for k in ("gin", "h0f", "h0b", "dgi_f", "dgh_f", "dgi_b",
                             "dgh_b", "dconv", "dlp")},
           "d_prev_f": torch.empty(B, N, d, **f32),
@@ -506,14 +519,14 @@ def _bi_bwd_prepare(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
                    if impute else (None, None)),
           "dimp_rows": torch.empty(rows, 4, **f32) if impute else None,
           "relu": torch.empty(B, N, d, **f32) if pattern else None}
-    torch_layout = [g[k].t().contiguous() for g in (gf, gb)
-                    for k in ("wih_t", "whh_t")]
     hl_f, hl_b = (None, None) if hl is None else hl
     scr, p = st["scr"], _p
     args = (
-        p(xx), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d, col,
-        p(loop), p(mask), int(relu), *(p(gf[k]) for k in _GRU_PARTS),
-        *(p(gb[k]) for k in _GRU_PARTS), *(p(t) for t in torch_layout),
+        p(st["xx"]), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d,
+        col, p(w["loop"]), p(mask), int(relu),
+        p(w["f"]["wih_t"]), p(w["f"]["whh_t"]), p(gf["bih"]), p(gf["bhh"]),
+        p(w["b"]["wih_t"]), p(w["b"]["whh_t"]), p(gb["bih"]), p(gb["bhh"]),
+        *(p(w[t][k]) for t in "fb" for k in ("wih", "whh")),
         p(gr.dt), p(bg.dt_b), float(gr.lam), p(prev_f), p(prev_b),
         p(gr.active), p(hl_f), p(hl_b), p(imp), p(d_out), p(st["d_prev_f"]),
         p(st["d_prev_b"]), p(st["d_hl"][0]), p(st["d_hl"][1]),
@@ -522,10 +535,10 @@ def _bi_bwd_prepare(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
                               "dgh_b", "dconv", "dlp")),
         p(st["relu"]), B, N, d)
 
-    # the launch holds the tensors behind its pointers (st, and the weights
-    # in torch's layout), so that a caller may keep the function alone; st
-    # holds no reference back, so the scratch goes when both are gone
-    def gru(_keep=(st, torch_layout)):
+    # the launch holds the tensors behind its pointers (st, the weights' too),
+    # so that a caller may keep the function alone; st holds no reference
+    # back, so the scratch goes when both are gone
+    def gru(_keep=st):
         _build.check(_lib_fn(_build.lib(), "bi_bwd_gru_launch", hot)(
             *args, torch.cuda.current_stream(dev).cuda_stream),
             "bi_layer_bwd (gru)")
@@ -601,7 +614,6 @@ def bi_layer_bwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
     sizes = [torch.Size(shapes[n]).numel() for n in _WGRAD_LAYOUT]
     wpart = torch.zeros(_WGRAD_SPLIT, sum(sizes), **f32)
     wsum = torch.empty(sum(sizes), **f32)
-    loop_t = loop.t().contiguous()
     lib = _build.lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _p
@@ -613,8 +625,9 @@ def bi_layer_bwd(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
     gru()
     launched(_lib_fn(lib, "final_bwd_input_launch", hot)(
         p(sp), p(sp_dst), p(sp_rel), p(sp_em), p(sp_eid), p(n2),
-        p(scr["dconv"]), p(scr["dlp"]), p(wrel), 2 * d, col, p(loop_t),
-        p(xx), p(ewg), p(d_h), B, N, d, stream), "input")
+        p(scr["dconv"]), p(scr["dlp"]), p(wrel), 2 * d, col,
+        p(st["w"]["loop_t"]), p(xx), p(ewg), p(d_h), B, N, d, stream),
+        "input")
     launched(_lib_fn(lib, "bi_wgrad_launch", hot)(
         *(p(scr[k]) for k in ("gin", "h0f", "h0b", "dgi_f", "dgh_f", "dgi_b",
                               "dgh_b")),

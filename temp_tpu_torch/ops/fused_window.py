@@ -246,29 +246,45 @@ def _check_cuda(name, tensors: dict, B, L1, A, E, d, hot=None):
                          f"16 up to {_MAX_D}")
 
 
+def operand(t, hot=None):
+    """t as the kernels read it: contiguous, and in the bfloat16 mode (hot)
+    rounded to it once, JAX's ``astype(bfloat16)`` of an operand that the
+    JAX kernels read only so; in float32 (hot None) t itself when it is
+    contiguous."""
+    return (t if hot is None else t.to(hot)).contiguous()
+
+
+def gru_operands(g, hot=None, bwd: bool = False) -> dict:
+    """A GRU's weights (a dict of wih_t/whh_t [d, 3d]) as the kernels read
+    them (``operand``): W_ih and W_hh transposed ("wih_t", "whh_t") and,
+    with `bwd`, in torch's layout ("wih", "whh", [3d, d])."""
+    w = {"wih_t": operand(g["wih_t"], hot), "whh_t": operand(g["whh_t"], hot)}
+    if bwd:
+        w.update(wih=operand(g["wih_t"].t(), hot),
+                 whh=operand(g["whh_t"].t(), hot))
+    return w
+
+
+def layer_operands(loop, g, hot=None, bwd: bool = False) -> dict:
+    """One layer's weights as the kernels read them: the self-loop ("loop")
+    and its GRU's (``gru_operands``) and, with `bwd`, the self-loop
+    transposed ("loop_t")."""
+    w = {"loop": operand(loop, hot), **gru_operands(g, hot, bwd)}
+    if bwd:
+        w["loop_t"] = operand(loop.t(), hot)
+    return w
+
+
 def kernel_operands(h0x, loop1, loop2, g1, g2, hot=None,
                     bwd: bool = False) -> tuple:
-    """What the kernels read of the layer input and the weights: (x1, w1,
-    w2), x1 layer 1's input rows and w1/w2 each layer's weights, a dict of
-    the self-loop ("loop"), W_ih and W_hh transposed ("wih_t", "whh_t",
-    [d, 3d]) and, with `bwd`, the self-loop transposed ("loop_t") and W_ih,
-    W_hh in torch's layout ("wih", "whh", [3d, d]); all contiguous. In
-    float32 (hot None) the tensors as given (x1 is h0x). In the bfloat16
-    mode each rounded to `hot` once: the JAX kernels read h0x, the
-    self-loops and the GRU weights only as ``astype(bfloat16)``."""
-    def cast(t):
-        t = t if hot is None else t.to(hot)
-        return t.contiguous()
-
-    def layer(loop, g):
-        w = {"loop": cast(loop), "wih_t": cast(g["wih_t"]),
-             "whh_t": cast(g["whh_t"])}
-        if bwd:
-            w.update(loop_t=cast(loop.t()), wih=cast(g["wih_t"].t()),
-                     whh=cast(g["whh_t"].t()))
-        return w
-
-    return cast(h0x), layer(loop1, g1), layer(loop2, g2)
+    """What the window kernels read of the layer input and the weights:
+    (x1, w1, w2), x1 layer 1's input rows and w1/w2 each layer's weights
+    (``layer_operands``); all contiguous. In float32 (hot None) the tensors
+    as given (x1 is h0x). In the bfloat16 mode each rounded to `hot` once:
+    the JAX kernels read h0x, the self-loops and the GRU weights only as
+    ``astype(bfloat16)``."""
+    return (operand(h0x, hot), layer_operands(loop1, g1, hot, bwd),
+            layer_operands(loop2, g2, hot, bwd))
 
 
 def _lib_fn(lib, name: str, hot):

@@ -22,22 +22,37 @@ and measures:
   step of its GRU launch (``bi_bwd_gru_kernel``), weight launch and input
   launch.
 
-With --bf16 each run measures the window's bfloat16 mode instead:
+With --bf16 each run measures the bfloat16 modes of the window and of the
+final step's backward instead:
 
 - K2f bfloat16 (``hot=torch.bfloat16``) on the same three windows, a call
   and the device time a launch;
 - K2b bfloat16 on the training windows (seeded cotangents): a call, and
   the device time a call of its GRU, input and weight launches
   (``window_bwd_gru``, ``window_bwd_input``, ``window_wgrad_kernel``);
+- K5 bfloat16 (``fused_final_bwd_layer``, both layers, on the smoke's
+  first training batch, its history in bfloat16, seeded cotangents) and
+  K9+K10 bfloat16 (``bi_layer_bwd``, both layers, on the flagship's): a
+  call, and the device time a call of their GRU, input and weight
+  launches (``final_bwd_gru_kernel``, ``final_bwd_input_kernel``,
+  ``final_wgrad_kernel``; ``bi_bwd_gru_kernel``, ``final_bwd_input_kernel``,
+  ``bi_wgrad_kernel``);
 - GRRGCN's and the flagship's default training step (compute_dtype
   "auto", bfloat16 on the card): milliseconds a step over steps 3-8 of
   epoch 0 from the smoke's seeded weights and draws, and over two more
-  traced steps the device time a step of all kernels, of the window's
-  and of the largest five;
-- a hash of the outputs of the float32 K2f (the three windows) and K2b
-  and of the bfloat16 K3, K4, K5 (GRRGCN's final step) and K6+K7, K8, K4,
-  K9+K10 (the flagship's) on the smoke's seeded inputs: equal hashes in
-  two checkouts say those kernels compute the same bits.
+  traced steps the device time a step of all kernels, of the window's,
+  K5's and K9+K10's launches by name, and of the largest five;
+- a hash of the outputs of every kernel whose sources the window's and the
+  final step's code share, in both dtypes, on the smoke's seeded inputs:
+  K2f (the three windows), K2b, K12 (the training window), K3, K4, K5
+  (GRRGCN's final step), K6+K7, K8, K4 on the bi table, K9+K10 (the
+  flagship's), K11 (a valid batch), and K13 with K13b (the ring layout's
+  two shapes) in float32 and in bfloat16. Equal hashes in two checkouts
+  say those kernels compute the same bits. A change that sums a kernel's
+  products in another order changes its hashes by design: K5's and
+  K9+K10's bfloat16 ones ("k5_bf16", "k9k10_bf16") against a parent whose
+  K5 and K9+K10 bfloat16 took one TF32 product of the rounded operands a
+  k8 step; every other hash stays.
 
 The runs go in the order given by --order (the ROOTs' indices; default
 each once). Prints one JSON line a run, each with the card's name and
@@ -55,6 +70,7 @@ import time
 
 _K2F = "window_layer"
 _BI = ("bi_bwd_gru_kernel", "bi_wgrad_kernel", "final_bwd_input_kernel")
+_K5 = ("final_bwd_gru_kernel", "final_bwd_input_kernel", "final_wgrad_kernel")
 
 
 def _device_ms(fn, names, reps: int = 5) -> dict:
@@ -111,6 +127,34 @@ def _hash(*items) -> str:
     return m.hexdigest()[:16]
 
 
+def _final_inputs(cs, ctx, hot):
+    """K3-K5's inputs on the smoke's first training batch, the history in
+    the store dtype (float32, or `hot`)."""
+    h0, h1, h2, gr, wrel, loop1, loop2, g1, g2, rtab = cs.final_batch(
+        ctx)["fwd"]
+    if hot is not None:
+        h1, h2 = h1.to(hot).contiguous(), h2.to(hot).contiguous()
+    return h0, h1, h2, gr, wrel, loop1, loop2, g1, g2, rtab
+
+
+def _bi_inputs(cs, fctx, hot):
+    """The flagship's final-step inputs (``final_batch_flagship``) with its
+    histories and local tables in the store dtype: (fb_, a1, a2 without its
+    input, kw2)."""
+    fb_ = cs.final_batch_flagship(fctx)
+    hists = [h if hot is None else h.to(hot).contiguous()
+             for h in fb_["hists"]]
+    h1f, h2f, hlf, h1b, h2b, hlb = hists
+    bg, h0x, wrel = fb_["bg"], fb_["h0x"], fb_["wrel"]
+    g, d = fb_["grus"], h0x.shape[2]
+    loop1, loop2 = fb_["loops"]
+    a1 = (h0x, h1f, h1b, bg, bg.gr.m1, wrel, 0, loop1, g["1f"], g["1b"])
+    a2 = (h2f, h2b, bg, bg.gr.m2, wrel, d, loop2, g["2f"], g["2b"])
+    kw2 = {"relu": True, "hl": (hlf, hlb), "imp": fb_["imp"],
+           "csr": fb_["csr"]}
+    return fb_, a1, a2, kw2
+
+
 def _hashes(cs, ctx, fctx, cases, dev) -> dict:
     """The output hashes of --bf16 (the module docstring says which)."""
     import torch
@@ -118,57 +162,125 @@ def _hashes(cs, ctx, fctx, cases, dev) -> dict:
     from temp_tpu_torch.ops import fused_final as ff
     from temp_tpu_torch.ops import fused_final_bi as fb
     from temp_tpu_torch.ops import fused_window as fw
+    from temp_tpu_torch.ops.fused_window_mb import fused_window_mb_fwd
+    from temp_tpu_torch.parallel.ring_spmm import ring_spmm_bwd, ring_spmm_fwd
 
     BF = torch.bfloat16
-    out = {f"k2f_f32_{tag}": _hash(fw.fused_window_fwd(**a))
-           for tag, a in cases.items()}
+    out = {}
     a = {k: v for k, v in cases["train"].items() if k != "conv1_in"}
     B, L1, A, d = a["h0x"].shape
-    gen = torch.Generator(device=dev).manual_seed(7)
-    gbs = [torch.randn(B, L1, A, d, generator=gen, device=dev)
-           for _ in range(2)]
-    bufs = fw.fused_window_fwd(**a, conv1_in=False)
-    out["k2b_f32"] = _hash(fw.fused_window_bwd(
-        **a, buf1=bufs[0], buf2=bufs[1], gb1=gbs[0], gb2=gbs[1]))
+    eb = cs.eval_batch(ctx)
+    for tag, hot in (("f32", None), ("bf16", BF)):
+        for case, args in cases.items():
+            out[f"k2f_{tag}_{case}"] = _hash(fw.fused_window_fwd(**args,
+                                                                 hot=hot))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        gbs = [torch.randn(B, L1, A, d, generator=gen, device=dev)
+               for _ in range(2)]
+        if hot is not None:
+            gbs = [x.to(hot) for x in gbs]
+        bufs = fw.fused_window_fwd(**a, conv1_in=False, hot=hot)
+        out[f"k2b_{tag}"] = _hash(fw.fused_window_bwd(
+            **a, buf1=bufs[0], buf2=bufs[1], gb1=gbs[0], gb2=gbs[1],
+            hot=hot))
+        out[f"k12_{tag}"] = _hash(fused_window_mb_fwd(**cases["train"],
+                                                      hot=hot))
 
-    fbt = cs.final_batch(ctx)
-    h0, h1, h2, gr, wrel, loop1, loop2, g1, g2, rtab = fbt["fwd"]
-    h1, h2 = h1.to(BF).contiguous(), h2.to(BF).contiguous()
-    loss, saved = ff.fused_final_fwd(h0, h1, h2, gr, wrel, loop1, loop2, g1,
-                                     g2, rtab, hot=BF)
-    out["k3_bf16"] = _hash(loss, saved["table"], saved["out1"])
-    got4 = ff.fused_final_bwd_loss(saved, rtab, gr, fbt["tv"], hot=BF)
-    out["k4_bf16"] = _hash(got4)
-    d_out2, _ = ff.select_bwd(got4[0], gr.active)
-    l2 = ff.fused_final_bwd_layer(saved["out1"], h2, gr, gr.m2, wrel, d,
-                                  loop2, g2, d_out2, hot=BF)
-    l1 = ff.fused_final_bwd_layer(h0, h1, gr, gr.m1, wrel, 0, loop1, g1,
-                                  l2[0], hot=BF)
-    out["k5_bf16"] = _hash(l2, l1)
+        fin = _final_inputs(cs, ctx, hot)
+        h0, h1, h2, gr, wrel, loop1, loop2, g1, g2, rtab = fin
+        loss, saved = ff.fused_final_fwd(*fin, hot=hot)
+        out[f"k3_{tag}"] = _hash(loss, saved["table"], saved["out1"])
+        got4 = ff.fused_final_bwd_loss(saved, rtab, gr, cs.final_batch(
+            ctx)["tv"], hot=hot)
+        out[f"k4_{tag}"] = _hash(got4)
+        d_out2, _ = ff.select_bwd(got4[0], gr.active)
+        l2 = ff.fused_final_bwd_layer(saved["out1"], h2, gr, gr.m2, wrel,
+                                      d, loop2, g2, d_out2, hot=hot)
+        l1 = ff.fused_final_bwd_layer(h0, h1, gr, gr.m1, wrel, 0, loop1, g1,
+                                      l2[0], hot=hot)
+        out[f"k5_{tag}"] = _hash(l2, l1)
 
-    fb_ = cs.final_batch_flagship(fctx)
-    h1f, h2f, hlf, h1b, h2b, hlb = (h.to(BF).contiguous()
-                                    for h in fb_["hists"])
-    bg, h0x, wrel, rtab = fb_["bg"], fb_["h0x"], fb_["wrel"], fb_["rtab"]
-    gr, csr, g = bg.gr, fb_["csr"], fb_["grus"]
-    loop1, loop2 = fb_["loops"]
-    sel = h0x if bg.noact else None
-    a1 = (h0x, h1f, h1b, bg, gr.m1, wrel, 0, loop1, g["1f"], g["1b"])
-    kw2 = {"relu": True, "hl": (hlf, hlb), "imp": fb_["imp"]}
-    o1 = fb.bi_layer_fwd(*a1, csr=csr, hot=BF)
-    a2 = (o1, h2f, h2b, bg, gr.m2, wrel, d, loop2, g["2f"], g["2b"])
-    table = fb.bi_layer_fwd(*a2, **kw2, sel=sel, csr=csr, hot=BF)
-    out["k6k7_bf16"] = _hash(o1, table)
-    loss, saved = fb.bi_loss_fwd(table, rtab, gr, csr, hot=BF)
-    out["k8_bf16"] = _hash(loss, [saved[k] for k in ("qhat", "lse", "scpos")
-                                  if k in saved])
-    got4 = ff.fused_final_bwd_loss(saved, rtab, gr, fb_["tv"], hot=BF)
-    out["k4_bi_bf16"] = _hash(got4)
-    d_out2, _ = ff.select_bwd(got4[0], gr.active if bg.noact else None)
-    l2 = fb.bi_layer_bwd(*a2, d_out2.contiguous(), **kw2, csr=csr, hot=BF)
-    l1 = fb.bi_layer_bwd(*a1, l2[0], csr=csr, hot=BF)
-    out["k9k10_bf16"] = _hash(l2, l1)
+        fb_, a1, a2, kw2 = _bi_inputs(cs, fctx, hot)
+        bg, rtab, csr = fb_["bg"], fb_["rtab"], fb_["csr"]
+        gr = bg.gr
+        sel = fb_["h0x"] if bg.noact else None
+        o1 = fb.bi_layer_fwd(*a1, csr=csr, hot=hot)
+        table = fb.bi_layer_fwd(o1, *a2, **kw2, sel=sel, hot=hot)
+        out[f"k6k7_{tag}"] = _hash(o1, table)
+        loss, saved = fb.bi_loss_fwd(table, rtab, gr, csr, hot=hot)
+        out[f"k8_{tag}"] = _hash(loss, [saved[k] for k in (
+            "qhat", "lse", "scpos") if k in saved])
+        got4 = ff.fused_final_bwd_loss(saved, rtab, gr, fb_["tv"], hot=hot)
+        out[f"k4_bi_{tag}"] = _hash(got4)
+        d_out2, _ = ff.select_bwd(got4[0], gr.active if bg.noact else None)
+        l2 = fb.bi_layer_bwd(o1, *a2, d_out2.contiguous(), **kw2, hot=hot)
+        l1 = fb.bi_layer_bwd(*a1, l2[0], csr=csr, hot=hot)
+        out[f"k9k10_{tag}"] = _hash(l2, l1)
+
+        h0, hist1, hist2, gr, q, wrel, loop1, loop2, g1, g2, rtab = eb["args"]
+        if hot is not None:
+            hist1, hist2 = hist1.to(hot), hist2.to(hot)
+        with torch.no_grad():
+            out[f"k11_{tag}"] = _hash(ff.fused_eval_ranks(
+                h0, hist1.contiguous(), hist2.contiguous(), gr, q, wrel,
+                loop1, loop2, g1, g2, rtab, hot=hot))
+
+    rctx = cs.phase_setup_ring(ctx)
+    for case, args, rows, tables in cs._k13_cases(rctx):
+        ring = (cs.RING_M, rows, rctx["mesh"].devices[0])
+        for tag, hot in (("f32", None), ("bf16", BF)):
+            gen = torch.Generator(device=dev).manual_seed(11)
+            with torch.no_grad():
+                o, n2 = ring_spmm_fwd(*args, *ring, tables=tables, hot=hot)
+                g = torch.randn(args[0].shape, generator=gen, device=dev)
+                dh, dw = ring_spmm_bwd(g, n2, *args, *ring, tables=tables,
+                                       hot=hot)
+            out[f"k13_{tag}_{case}"] = _hash(o, n2, dh, dw)
     return out
+
+
+def _bf16_backward(cs, ctx, fctx, dev) -> dict:
+    """K5 bfloat16 (both layers, GRRGCN's final step) and K9+K10 bfloat16
+    (both layers, the flagship's) on seeded cotangents: a call's
+    milliseconds, and the device time and launches a call of each launch
+    by kernel name."""
+    import torch
+
+    from temp_tpu_torch.ops import fused_final as ff
+    from temp_tpu_torch.ops import fused_final_bi as fb
+
+    BF = torch.bfloat16
+    h0, h1, h2, gr, wrel, loop1, loop2, g1, g2, rtab = _final_inputs(
+        cs, ctx, BF)
+    d = h0.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    d_out = torch.randn(h1.shape, generator=gen, device=dev)
+    csr = ff.final_csr(gr, h1.shape[1], max(wrel.shape[0], rtab.shape[0]))
+    out1 = torch.randn(h1.shape, generator=gen, device=dev)
+
+    def k5():
+        ff.fused_final_bwd_layer(out1, h2, gr, gr.m2, wrel, d, loop2, g2,
+                                 d_out, csr=csr, hot=BF)
+        ff.fused_final_bwd_layer(h0, h1, gr, gr.m1, wrel, 0, loop1, g1,
+                                 d_out, csr=csr, hot=BF)
+
+    fb_, a1, a2, kw2 = _bi_inputs(cs, fctx, BF)
+    x2 = torch.randn(fb_["h0x"].shape, generator=gen, device=dev)
+    d_bi = torch.randn(x2.shape, generator=gen, device=dev)
+
+    def k9k10():
+        fb.bi_layer_bwd(x2, *a2, d_bi, **kw2, hot=BF)
+        fb.bi_layer_bwd(*a1, d_bi, csr=fb_["csr"], hot=BF)
+
+    res = {}
+    for tag, run, names in (("k5_bf16", k5, _K5), ("k9k10_bf16", k9k10,
+                                                    _BI)):
+        dev_ms = _device_ms(run, list(names))
+        res[tag] = {
+            "call_ms": cs.time_ms(run, dev, reps=10),
+            **{f"{n}_ms_a_call": t for n, (t, _) in dev_ms.items()},
+            **{f"{n}_launches_a_call": k for n, (_, k) in dev_ms.items()}}
+    return res
 
 
 _K2B = ("window_bwd_gru", "window_bwd_input", "window_wgrad_kernel")
@@ -235,7 +347,7 @@ def _traced(fn, reps: int) -> dict:
             per[ev.name] = (t + us / 1e3 / reps, n + 1)
     out = {"traced_wall_ms": wall,
            "busy_ms": sum(t for t, _ in per.values())}
-    for want in (_K2F, *_K2B):
+    for want in dict.fromkeys((_K2F, *_K2B, *_K5, *_BI)):
         hit = [(t, n) for name, (t, n) in per.items() if want in name]
         out[f"{want}_ms_a_step"] = sum(t for t, _ in hit)
         out[f"{want}_launches_a_step"] = sum(n for _, n in hit) // reps
@@ -278,6 +390,7 @@ def _measure_bf16(root: str) -> dict:
         "call_ms": cs.time_ms(run, dev, reps=10),
         **{f"{n}_ms_a_call": t for n, (t, _) in dev_ms.items()},
         **{f"{n}_launches_a_call": k for n, (_, k) in dev_ms.items()}}
+    res.update(_bf16_backward(cs, ctx, fctx, dev))
     for tag, c in (("grrgcn", ctx), ("flagship", fctx)):
         res[f"default_step_{tag}"] = _default_step(c)
     res["hashes"] = _hashes(cs, ctx, fctx, cases, dev)
