@@ -1266,6 +1266,24 @@ def _k3_work(ctx, fb):
             nbytes)
 
 
+def _k3_layer_bytes_bf16(fb) -> float:
+    """Bytes K3's two bfloat16 layer launches move at least: both
+    histories (bfloat16) read once, the input embeddings, the dropout
+    masks, dt, the activity, the select's rows of the inactive entities and
+    the SpMM's kept edges read once (float32 and int32), out1 and the
+    table written once (float32), and the weights (the self-loops and GRU
+    matrices bfloat16, the biases and relation weights float32)."""
+    _, _, _, gr, wrel, *_ = fb["fwd"]
+    B, N, d = fb["hist1"].shape
+    n_masks = 0 if gr.m1 is None else 2
+    sel_rows = 0 if gr.active is None else float((gr.active <= 0).sum())
+    edges = float(gr.emf.sum())
+    return (2 * (2 * B * N * d + 2 * 7 * d * d)
+            + 4 * ((n_masks + 2) * B * N * d + N * d + 2 * B * N
+                   + sel_rows * d + wrel.numel() + 2 * 6 * d + B * N
+                   + 3 * edges))
+
+
 def phase_k3(ctx) -> dict:
     """K3 against its plain version on the first training batch, run twice
     (bit-equal); its two layer launches and its score launch timed apart on
@@ -1705,6 +1723,113 @@ def _bf16_case(kernel, plain_bf, plain_f32, errs: dict, flops, nbytes,
     return out
 
 
+def _bits_differ(a, b) -> int:
+    """The entries where two tensors of one dtype and size differ bit for
+    bit (+0 and -0 differ)."""
+    import torch
+
+    it = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    a, b = a.contiguous().reshape(-1), b.contiguous().reshape(-1)
+    return int((a.view(it[a.dtype]) != b.view(it[b.dtype])).sum())
+
+
+def k3_bf16_shares(h0, h1, h2, gr, wrel, loop1, loop2, g1, g2, rtab) -> dict:
+    """K3's bfloat16 layer launches against the routines of K2f's and K5's
+    bfloat16 launches, on K3's arguments (h1, h2 bfloat16) without the
+    select: K3's layer 2 (the table) rounded to bfloat16 against K2f's
+    layer on the same rows (step k = 1 of a two-step window whose rows are
+    layer 2's input rounded and whose previous states, step 0's rows, hold
+    the history; K2f stores bfloat16), and K2f's conv output there against
+    the one K5's GRU launch recomputes (its bfloat16 step scratch). Returns
+    the entries that differ bit for bit of each pair and the entries
+    compared; both counts are 0 when the three share their sums."""
+    import torch
+
+    from temp_tpu_torch import _build
+    from temp_tpu_torch.ops import fused_final as ff
+    from temp_tpu_torch.ops.fused_window import layer_operands
+
+    BF = torch.bfloat16
+    gr = gr._replace(active=None)
+    _, saved = ff.fused_final_fwd(h0, h1, h2, gr, wrel, loop1, loop2, g1, g2,
+                                  rtab, hot=BF)
+    out1, table = saved["out1"], saved["table"]
+    B, N, d = out1.shape
+    dev = out1.device
+    lib = _build.lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    f32 = dict(device=dev, dtype=torch.float32)
+    rowptr, s_src, s_rel, s_em = saved["csr"][0]
+    counts = (rowptr[1:] - rowptr[:-1]).reshape(B, 1, N)
+    counts = torch.cat([torch.zeros_like(counts), counts], 1).reshape(-1)
+    ptr2 = torch.zeros(B * 2 * N + 1, device=dev, dtype=torch.int32)
+    ptr2[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    x = torch.zeros(B, 2, N, d, device=dev, dtype=BF)
+    x[:, 1] = out1
+    buf = torch.zeros(B, 2, N, d, device=dev, dtype=BF)
+    buf[:, 0] = h2
+    loc = torch.zeros(B, 2, N, d, device=dev, dtype=BF)
+    mask = None
+    if gr.m2 is not None:
+        mask = torch.ones(B, 2, N, d, **f32)
+        mask[:, 1] = gr.m2
+    gidx = torch.arange(N, device=dev, dtype=torch.int32).expand(
+        B, 2, N).contiguous()
+    live = torch.ones(B, 2, N, **f32)
+    dt = torch.stack([gr.dt, gr.dt], 1).contiguous()
+    w = layer_operands(loop2, g2, BF, bwd=True)
+    _build.check(lib.window_layer_launch_bf16(
+        p(x), 0, p(ptr2), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d, d,
+        p(w["loop"]), p(mask), 0, p(w["wih_t"]), p(w["whh_t"]), p(g2["bih"]),
+        p(g2["bhh"]), p(gidx), p(live), p(dt), float(gr.lam), p(buf), p(loc),
+        B, 2, N, d, 1, 1, stream), "window_layer_bf16")
+    rows = B * N
+    x2 = out1.to(BF)
+    d_out, d_prev = torch.ones(B, N, d, **f32), torch.empty(B, N, d, **f32)
+    n2 = torch.empty(rows, **f32)
+    scr = [torch.empty(rows * d, device=dev, dtype=BF) for _ in range(2)] + [
+        torch.empty(rows * n * d, **f32) for n in (3, 3, 1, 1)]
+    _build.check(lib.final_bwd_gru_launch_bf16(
+        p(x2), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d, d,
+        p(w["loop"]), p(gr.m2), p(w["wih_t"]), p(w["whh_t"]), p(g2["bih"]),
+        p(g2["bhh"]), p(w["wih"]), p(w["whh"]), p(gr.dt), float(gr.lam),
+        p(h2), p(d_out), p(d_prev), p(n2), *(p(t) for t in scr), B, N, d,
+        stream), "final_bwd_gru_bf16")
+    torch.cuda.synchronize(dev)
+    return {"table_vs_k2f": _bits_differ(buf[:, 1], table.to(BF)),
+            "conv_k2f_vs_k5": _bits_differ(loc[:, 1], scr[0]),
+            "entries": table.numel()}
+
+
+def bi_bf16_recompute(a, kw, d_out, csr=None) -> dict:
+    """K6+K7's bfloat16 GRU input against K9+K10's bfloat16 recompute on
+    one layer's arguments (``bi_layer_fwd``'s positional `a` and keywords
+    `kw`: relu, hl, imp): the float32 GRU input K6+K7 forms
+    (``bi_gru_input``) rounded to bfloat16 against the gin_s K9+K10's GRU
+    launch writes, and with the ReLU the signs of K6+K7's conv output (its
+    GRU input without the blend) against the ReLU's pattern K9+K10 take
+    (``bi_relu_pattern``). Returns the entries that differ of each; both
+    are 0 when the forward and the recompute share their sums."""
+    import torch
+
+    from temp_tpu_torch.ops import fused_final_bi as fb
+
+    BF = torch.bfloat16
+    relu, hl, imp = kw.get("relu", False), kw.get("hl"), kw.get("imp")
+    gin = fb.bi_gru_input(*a, relu=relu, hl=hl, imp=imp, csr=csr, hot=BF)
+    st, gru = fb._bi_bwd_prepare(*a, d_out, relu, hl, imp, csr,
+                                 pattern=relu, hot=BF)
+    gru()
+    flips = 0
+    if relu:
+        conv = fb.bi_gru_input(*a, relu=True, csr=csr, hot=BF)
+        flips = int(((st["relu"] > 0) != (conv > 0)).sum())
+    torch.cuda.synchronize(d_out.device)
+    return {"gin_vs_k9k10": _bits_differ(gin.to(BF), st["scr"]["gin"]),
+            "relu_fwd_flips": flips, "entries": gin.numel()}
+
+
 def window_occupancy(d: int, hot=None):
     """The window kernels' launch shapes at width d from the library's
     query (``window_occupancy``, or its bfloat16 mode's for hot): for K2f's
@@ -1759,8 +1884,10 @@ def phase_bf16_kernels(ctx) -> dict:
     K2b, K3, K4 and K5 in their bfloat16 mode at the main path's shapes,
     each against its plain bfloat16 version on the same inputs under
     BF16_RULE (the plain float32 version's distance from it the
-    yardstick), with times and bounds. Every launch here is a check's:
-    the counters are not read."""
+    yardstick), with times and bounds; K3 two runs bit-equal, its layer
+    launches bit for bit K2f's and K5's sums (``k3_bf16_shares``), its
+    layer and score launches timed apart, its layer launch's occupancy.
+    Every launch here is a check's: the counters are not read."""
     import torch
 
     from temp_tpu_torch.ops import fused_final as ff
@@ -1860,6 +1987,17 @@ def phase_bf16_kernels(ctx) -> dict:
     errs["abs"]["loss"] = {"abs": float((loss - lb).abs().max())}
     layer_flops, score_flops, nbytes = _k3_work(ctx, fb)
     Bf, N, _, q = _final_counts(ctx, fb)
+    keys3 = [k for k in ("table", "out1", "qhat", "lse") if k in saved]
+    again = ff.fused_final_fwd(*args, hot=BF)
+    if not _bitwise([loss] + [saved[k] for k in keys3],
+                    [again[0]] + [again[1][k] for k in keys3]):
+        raise AssertionError("K3 bf16: two runs differ")
+    # its layer launches share K2f's and K5's sums bit for bit
+    shares = k3_bf16_shares(*args) if dev.type == "cuda" else None
+    if shares is not None and (shares["table_vs_k2f"]
+                               or shares["conv_k2f_vs_k5"]):
+        raise AssertionError(f"K3 bf16's layers and K2f/K5 bf16 differ: "
+                             f"{shares}")
     # the history read in bfloat16; the score launch scores two query sets
     out["k3"] = _bf16_case(
         lambda: ff.fused_final_fwd(*args, hot=BF),
@@ -1868,6 +2006,27 @@ def phase_bf16_kernels(ctx) -> dict:
         layer_flops + 2 * score_flops, nbytes - 2 * 2 * Bf * N * d,
         f"B={Bf} N={N} E={gr.src.shape[1]} d={d} "
         f"positive queries={int(q)}", dev, reps=10)
+    # the layer launches (native bfloat16 products; layer 2's input
+    # rounded between them) and the score launch (TF32 products of the
+    # rounded operands) apart, each bound at the bfloat16 rate and at its
+    # design's
+    E = gr.src.shape[1]
+    parts = {"layers": _mixed_bounds(
+                 ((layer_flops, H100_BF16_FLOPS, H100_BF16_FLOPS),),
+                 _k3_layer_bytes_bf16(fb)),
+             "scores": _mixed_bounds(
+                 ((2 * score_flops, H100_BF16_FLOPS, H100_TF32_FLOPS),),
+                 4 * (Bf * N * d + Bf * 2 * E * d + rtab.numel()))}
+    launchers = (ff.fused_final_fwd_launchers(*args, hot=BF)
+                 if dev.type == "cuda" else (None, None))
+    for (name, part), fn in zip(parts.items(), launchers):
+        part["ms"] = None if fn is None else time_ms(fn, dev, reps=10)
+        part["bound_share"] = (None if fn is None
+                               else part["bound_ms"] / part["ms"])
+        out["k3"][name] = part
+    out["k3"].update(bitwise=True, shares=shares, launch=bf16_launch_info(
+        "final_bf16_occupancy", {"layer": (3, "final_layer_kernel")},
+        "fused_final_bf16.cu", d))
 
     g = fb["tv"]
     got = ff.fused_final_bwd_loss(saved, rtab, gr, g, hot=BF)
@@ -3025,8 +3184,11 @@ def phase_bf16_flagship_kernels(ctx, fctx) -> dict:
     within LOSS_TOL, as K3's: at this width bfloat16's roundings average out
     of each element's loss below float32's noise), K4 on the bi table and
     K9+K10 for both layers from K4's cotangent (layer 2's plain version
-    through the kernels' ReLU pattern, ``bi_relu_pattern``). Every launch
-    here is a check's: the counters are not read."""
+    through the kernels' ReLU pattern, ``bi_relu_pattern``). K6+K7's GRU
+    input equals bit for bit the one K9+K10 recompute and their ReLU takes
+    its branches (``bi_bf16_recompute``, both layers); its two launches are
+    timed apart too, with its occupancy. Every launch here is a check's:
+    the counters are not read."""
     import torch
 
     from temp_tpu_torch.ops import fused_final as ff
@@ -3068,18 +3230,46 @@ def phase_bf16_flagship_kernels(ctx, fctx) -> dict:
                                              hot=BF)))
     if not bitwise:
         raise AssertionError("K6+K7 bf16: two runs differ")
+    # its GRU input equals bit for bit the one K9+K10 recompute, and its
+    # ReLU takes their branch, on both layers
+    gen = torch.Generator(device=dev).manual_seed(12)
+    d_rand = torch.randn(B, N, d, generator=gen, device=dev)
+    recompute = ({f"layer{i}": bi_bf16_recompute(a, k, d_rand, csr)
+                  for i, a, k in ((1, a1, {}), (2, a2, kw2))}
+                 if dev.type == "cuda" else None)
+    if recompute is not None and any(
+            r["gin_vs_k9k10"] or r["relu_fwd_flips"]
+            for r in recompute.values()):
+        raise AssertionError(f"K6+K7 bf16 and K9+K10 bf16's recompute "
+                             f"differ: {recompute}")
     kept = float(gr.emf.sum())
     # the four histories and two local tables read in bfloat16
     hist_bytes = 6 * 2 * B * N * d
+    layer_flops = B * 26 * N * d * d + kept * 3 * d
     out["k6k7"] = _bf16_case(
         lambda: (fb.bi_layer_fwd(*a1, csr=csr, hot=BF),
                  fb.bi_layer_fwd(*a2, **kw2, sel=sel, csr=csr, hot=BF)),
         lambda: layers(fb.bi_layer_fwd_plain, hot=BF),
-        lambda: layers(fb.bi_layer_fwd_plain), errs,
-        2 * B * 26 * N * d * d + 2 * kept * 3 * d,
+        lambda: layers(fb.bi_layer_fwd_plain), errs, 2 * layer_flops,
         _bi_bytes(fb_, 1) + _bi_bytes(fb_, 2) - hist_bytes,
         f"B={B} N={N} E={gr.src.shape[1]} d={d}, both layers", dev, reps=10)
-    out["k6k7"]["bitwise"] = bitwise
+    # each layer's launch apart (layer 1 two histories, layer 2 two more
+    # local tables, in bfloat16)
+    for tag, fn, nbytes in (
+            ("layer1", lambda: fb.bi_layer_fwd(*a1, csr=csr, hot=BF),
+             _bi_bytes(fb_, 1) - 2 * 2 * B * N * d),
+            ("layer2", lambda: fb.bi_layer_fwd(*a2, **kw2, sel=sel, csr=csr,
+                                               hot=BF),
+             _bi_bytes(fb_, 2) - 4 * 2 * B * N * d)):
+        part = _mixed_bounds(((layer_flops, H100_BF16_FLOPS,
+                               H100_BF16_FLOPS),), nbytes)
+        part["ms"] = time_ms(fn, dev, reps=10)
+        part["bound_share"] = part["bound_ms"] / part["ms"]
+        out["k6k7"][tag] = part
+    out["k6k7"].update(
+        bitwise=bitwise, recompute=recompute, launch=bf16_launch_info(
+            "bi_bf16_occupancy", {"layer": (2, "bi_layer_kernel")},
+            "fused_final_bi_bf16.cu", d))
 
     table = ref_bf[1]
     loss, saved = fb.bi_loss_fwd(table, rtab, gr, csr, hot=BF)
@@ -3160,11 +3350,14 @@ def phase_bf16_flagship_kernels(ctx, fctx) -> dict:
     if not bitwise:
         raise AssertionError("K9+K10 bf16: two runs differ")
     conv2 = fb._rows_plain(*a2[:8], True, kw2["hl"], kw2["imp"], BF)[0]
-    # the ReLU's signs where the recompute (native bf16 products) and the
-    # forward (K6+K7's TF32 products of the rounded operands) differ: the
-    # forward's from its GRU input without the blend, the ReLU's output
+    # the ReLU's signs where the recompute and the forward (K6+K7, on the
+    # same routines) differ: the forward's from its GRU input without the
+    # blend, the ReLU's output; none may
     fwd2 = fb.bi_gru_input(*a2, relu=True, csr=csr, hot=BF)
     fwd_flips = 0 if relu2 is None else int(((relu2 > 0) != (fwd2 > 0)).sum())
+    if fwd_flips:
+        raise AssertionError(f"K9+K10 bf16's ReLU takes another branch than "
+                             f"K6+K7's at {fwd_flips} entries")
     out["k9k10"] = _bf16_case(
         both(fb.bi_layer_bwd, csr=csr, hot=BF),
         both(fb.bi_layer_bwd_plain, hot=BF), both(fb.bi_layer_bwd_plain),
@@ -4943,6 +5136,15 @@ def kernels_line(res: dict) -> dict:
                                  + ("bitwise",)}
             if tag == "k5":
                 r["bitwise"], r["launch"] = m["bitwise"], m["launch"]
+            if tag == "k3":
+                # its layer launches (native bfloat16) and its score launch
+                # apart, their bits against K2f's and K5's, the layer
+                # launch's occupancy
+                r.update({k: m[k] for k in ("bitwise", "shares", "launch")})
+                for part in ("layers", "scores"):
+                    r[part] = {k: m[part][k] for k in (
+                        "ms", "bound_ms", "bound_by", "bound_tf32_ms",
+                        "bound_share")}
             rec.append(r)
         if fk is not None:
             for name, tag, src, replaces in _KERNELS_BF16_FLAGSHIP:
@@ -4953,8 +5155,9 @@ def kernels_line(res: dict) -> dict:
                             "launches_by_path": by_path(name),
                             "bitwise": m["bitwise"],
                             **{k: m[k] for k in keys},
-                            **{k: m[k] for k in ("launch", "relu_fwd_flips")
-                               if k in m}})
+                            **{k: m[k] for k in (
+                                "launch", "relu_fwd_flips", "recompute",
+                                "layer1", "layer2") if k in m}})
     rec += _kernels_bf16_last(res)
     rec += _kernels_bf16_k1(res)
     rec += _kernels_onehot(res)

@@ -11,9 +11,10 @@ sizes and the CUDA stream, and returns ``cudaGetLastError()``. The
 ``*_bf16.cu`` sources give the kernels' bfloat16 modes, their launchers
 ``name_bf16`` with ``name``'s arguments (``BF16_LAUNCHERS``): most compile
 a kernel source again in that mode; ``fused_window_bf16.cu`` has the
-window's own native bfloat16 kernels (``csrc/window_bf16.cuh``), and
-``fused_final_bf16.cu`` and ``fused_final_bi_bf16.cu`` K5's and K9+K10's
-beside their sources' bfloat16 compile (with ``final_bf16_occupancy`` and
+window's own native bfloat16 kernels (``csrc/window_bf16.cuh``),
+``fused_final_bf16.cu`` K3's layer launch and K5's beside its source's
+bfloat16 compile (K3's score launch and K4), and ``fused_final_bi_bf16.cu``
+K6+K7's and K9+K10's (with ``final_bf16_occupancy`` and
 ``bi_bf16_occupancy``, which exist in bfloat16 only); ``ring_spmm_bf16.cu``
 adds the ring SpMM's whole-card route, which exists in bfloat16 only
 (``ring_bf16_*``).
@@ -117,7 +118,8 @@ SIGNATURES = {
     "window_occupancy": [_I, _I, _P],
     # final_layer(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask,
     #             wih_t, whh_t, bih, bhh, dt, lam, prev, sel_x, active, out,
-    #             B, N, d, stream)
+    #             B, N, d, stream); in the bfloat16 mode x, loop, wih_t,
+    #             whh_t and prev bfloat16
     "final_layer_launch": [_P] * 6 + [_I, _I] + [_P] * 7 + [_F]
                           + [_P] * 4 + [_I, _I, _I, _P],
     # final_scores(table, rtab, src, dst, rel, posm, t_ptr, t_ans, h_ptr,
@@ -156,9 +158,10 @@ SIGNATURES = {
     "final_wgrad_launch": [_P] * 7 + [_I] * 4 + [_P],
     # final_bf16_occupancy(which, d, out): K5's bfloat16 kernel `which` (0
     #             its GRU tile, 1 its input tile, 2 its weight launch) at
-    #             width d -> out[5] (shared memory bytes a block, threads,
-    #             resident blocks an SM, registers a thread, local bytes a
-    #             thread), a host int[5]
+    #             width d, or K3's bfloat16 layer launch (3) -> out[5]
+    #             (shared memory bytes a block, threads, resident blocks an
+    #             SM, registers a thread, local bytes a thread), a host
+    #             int[5]
     "final_bf16_occupancy": [_I, _I, _P],
     # final_wgrad_reduce(part, n_split, total, out, stream)
     "final_wgrad_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],
@@ -172,7 +175,9 @@ SIGNATURES = {
     #          wih_f, whh_f, bih_f, bhh_f, wih_b, whh_b, bih_b, bhh_b, dt_f,
     #          dt_b, lam, prev_f, prev_b, active, hl_f, hl_b, imp, sel_x, out,
     #          gin_out, B, N, d, stream); gin_out (the GRU input, for holding
-    #          it to K9+K10's recompute) is null on the main path
+    #          it to K9+K10's recompute) is null on the main path; in the
+    #          bfloat16 mode x, loop, the four GRU weight matrices, the
+    #          histories and the local tables bfloat16
     "bi_layer_launch": [_P] * 6 + [_I, _I, _P, _P, _I] + [_P] * 10 + [_F]
                        + [_P] * 9 + [_I] * 3 + [_P],
     # bi_bwd_gru(x, rowptr, src, rel, em, wrel, wstride, wcol, loop, mask,
@@ -193,8 +198,8 @@ SIGNATURES = {
     #          mode gin_s, h0f_s, h0b_s and x bfloat16
     "bi_wgrad_launch": [_P] * 11 + [_I] * 4 + [_P],
     # bi_bf16_occupancy(which, d, out): K9+K10's bfloat16 kernel `which` (0
-    #          its GRU tile, 1 its weight launch) at width d -> out[5], as
-    #          final_bf16_occupancy's
+    #          its GRU tile, 1 its weight launch) or K6+K7's (2) at width d
+    #          -> out[5], as final_bf16_occupancy's
     "bi_bf16_occupancy": [_I, _I, _P],
 }
 

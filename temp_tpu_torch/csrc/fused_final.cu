@@ -81,23 +81,24 @@
 // turns them into a 64-bit mask per query and column tile.
 
 //
-// Compiled a second time as fused_final_bf16.cu, with TK_BF16 1: K3's and
-// K4's bfloat16 mode (rgcn_gru_layer.cuh), the TPU kernels' bfloat16
-// instantiation (K5's is that source's own, on window_bf16.cuh). The
-// history is bfloat16; the layer launches' products (one TF32 product of
-// bfloat16-rounded operands a k8 step) and SpMM are rgcn_gru_layer.cuh's
-// bfloat16 mode; K3 builds the loss's queries from the
-// table's subject and object rows and the relation rows split into a high
-// and a low bfloat16 part (hilo_bf16, as the TPU kernel gathers them) and
-// scores in bfloat16. The TPU kernel's loss backward recomputes the queries
-// from its residual table, stored in bfloat16: so K3's score launch scores
-// a second query set (variant 1: the table's rows rounded to bfloat16, the
-// relation rows split) beside the loss's (variant 0) in the same launch,
-// and its reduce launch gives the loss from variant 0 and the log-sum-exps
-// K4 reads from variant 1. K4 weighs the probabilities by the loss weight
-// before they are rounded (final_dq takes the count and the cotangent),
-// and rounds the row and relation cotangents it writes. K5 and K11 are
-// left out of this build (K11 has no bfloat16 mode).
+// Compiled a second time as fused_final_bf16.cu, with TK_BF16 1: the
+// bfloat16 mode of K3's score and reduce launches and of K4
+// (rgcn_gru_layer.cuh), the TPU kernels' bfloat16 instantiation (K3's layer
+// launches and K5 are that source's own, on window_bf16.cuh). K3 builds the
+// loss's queries from the table's subject and object rows and the relation
+// rows split into a high and a low bfloat16 part (hilo_bf16, as the TPU
+// kernel gathers them) and scores in bfloat16 (one TF32 product of
+// bfloat16-rounded operands a k8 step). The TPU kernel's loss backward
+// recomputes the queries from its residual table, stored in bfloat16: so
+// K3's score launch scores a second query set (variant 1: the table's rows
+// rounded to bfloat16, the relation rows split) beside the loss's (variant
+// 0) in the same launch, and its reduce launch gives the loss from variant
+// 0 and the log-sum-exps K4 reads from variant 1. K4 weighs the
+// probabilities by the loss weight before they are rounded (final_dq takes
+// the count and the cotangent), and rounds the row and relation cotangents
+// it writes. K3's float32 layer launches, K5 and K11's rank launches are
+// left out of this build (K11's layers in bfloat16 are K3's; its ranks
+// have no bfloat16 mode).
 
 #include <math.h>
 
@@ -327,6 +328,10 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
 
 // -- K3 ----------------------------------------------------------------------
 
+// K3's layer launches in float32 (fused_final_bf16.cu has the bfloat16
+// mode's own, on window_bf16.cuh).
+#if !TK_BF16
+
 // K3's layer block: at most kFinalWarps warps of 16 columns each, so one
 // slab of all d = 128 columns a 32-row tile: 1,784 blocks of 256 threads a
 // launch at the main shape (B = 8, N = 7,128), 88,320 bytes, two an SM.
@@ -353,6 +358,8 @@ __global__ void __launch_bounds__(kFinalWarps * kWarp, 2) final_layer_kernel(
                                           ? sel_x[row * d + c] : h;
                  });
 }
+
+#endif  // !TK_BF16
 
 // Block (query tile, column range) x direction x element. For each of its
 // 64 edge slots: the query row (tail: s * r, head: conj(r) * o in ComplEx
@@ -1128,6 +1135,7 @@ int loss_chunk(int N, int n_split) {
 
 }  // namespace
 
+#if !TK_BF16
 extern "C" int final_layer_launch(
     const void* x, const void* rowptr, const void* src, const void* rel,
     const void* em, const void* wrel, int wstride, int wcol,
@@ -1152,6 +1160,7 @@ extern "C" int final_layer_launch(
   }
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // !TK_BF16
 
 extern "C" int final_scores_launch(
     const void* table, const void* rtab, const void* src, const void* dst,

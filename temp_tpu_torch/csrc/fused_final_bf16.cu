@@ -2,37 +2,49 @@
 // of temp_tpu/ops/fused_final.py:_fwd_kernel, _bwd_loss_kernel and
 // _bwd_layer_kernel.
 //
-// K3 and K4: fused_final.cu compiled with TK_BF16 1 (fused_final.cu and
-// rgcn_gru_layer.cuh say what the mode computes), their launchers exported
-// with the suffix _bf16.
+// K3's score and reduce launches and K4: fused_final.cu compiled with
+// TK_BF16 1 (fused_final.cu and rgcn_gru_layer.cuh say what the mode
+// computes), their launchers exported with the suffix _bf16.
 //
-// K5: its own kernels on the native bfloat16 routines of window_bf16.cuh
-// (mma.sync m16n8k16 bf16, fragments by ldmatrix, operands staged once as
-// bfloat16 by cp.async; its note says what they compute), with the
-// launches and arguments of fused_final.cu's K5 (its note describes them),
-// exported as final_bwd_gru_launch_bf16, final_bwd_input_launch_bf16 and
-// final_wgrad_launch_bf16. They are K2b's bfloat16 launches
-// (fused_window_bf16.cu) at one step (L1 = 1, k = 0) over all N rows
-// against the dense history, with three differences: d_out comes from dout
-// [B, N, d]; the previous state's cotangent goes to dprev at the row itself
-// (bwd_gru_tile_bf's dprev); there is no g_loc. The operands: the layer's
-// input x (layer 1's embeddings, layer 2's K3 output) bfloat16, rounded
-// once by the wrapper; loopw, wih_t, whh_t, wih, whh and loop_t the
+// K3's layer launches (also K11's in bfloat16) and K5: their own kernels
+// on the native bfloat16 routines of window_bf16.cuh (mma.sync m16n8k16
+// bf16, fragments by ldmatrix, operands staged once as bfloat16 by
+// cp.async; its note says what they compute), with the launches and
+// arguments of fused_final.cu's (its note describes them), exported as
+// final_layer_launch_bf16, final_bwd_gru_launch_bf16,
+// final_bwd_input_launch_bf16 and final_wgrad_launch_bf16. They are K2f's
+// and K2b's bfloat16 launches (fused_window_bf16.cu) at one step (L1 = 1,
+// k = 0) over all N rows against the dense history. The operands: the
+// layer's input x (layer 1's embeddings, layer 2's K3 output) bfloat16,
+// rounded once by the wrapper; loopw, wih_t, whh_t, wih, whh and loop_t the
 // wrapper's bfloat16 copies of the weights; the history bfloat16; conv_s
 // and h0g_s bfloat16 scratch (the weight launch reads them only rounded);
-// the masks, biases, relation weights and every cotangent float32. At the
-// main shape (B = 8, N = 7,128, d = 128): the GRU tile 16 rows of 8 warps,
-// 3,568 blocks of K2b's 68,096 bytes, three an SM; the input tile 32 rows,
-// 1,784 blocks; the weight launch K2b's tiles with three jobs, 28 tiles by
-// 16 ranges (448 blocks of 128 threads). Its recompute of the conv output
-// and the gates is K2b's bfloat16 one, on native products, so it no longer
-// equals K3's bfloat16 layer launch (TF32 products of the rounded
-// operands) bit for bit: the float32 sums differ in their last bits
-// (GRRGCN's layers have no ReLU whose branch that could flip). No atomics;
-// the weight sums go to per-range copies reduced in a fixed order by the
-// float32 build's reduction, so runs repeat bit for bit.
+// the masks, biases, relation weights, the layer's float32 output and every
+// cotangent float32.
+//
+// The layer launch (final_layer_kernel) is K2f's tile, fwd_layer_tile_bf,
+// with the select of layer 2 in its output, in whole-width tiles as
+// float32's (fused_final.cu): 32 rows of kFinalBfWarps = 8 warps, one slab
+// of all d = 128 columns of every gate, so each block forms the conv
+// output of its rows (the SpMM and the self-loop product) once; 1,784
+// blocks at the main shape (B = 8, N = 7,128, d = 128), 110,080 bytes, two
+// an SM. K2f's own shape (four warps, two slabs of 64 columns, the conv
+// formed in both; 3,568 blocks of 73,216 bytes, three an SM) took 0.528
+// ms of device time a step for both layers where this one took 0.374 on
+// an H100. Its products are K2f's and K5's routines (conv_tc_bf,
+// gate_products_bf), whose sums do not depend on the tile's rows or slab,
+// so the conv output and the gates of K3's layer 2 equal bit for bit
+// those K2f forms on the same rows and those K5's GRU launch recomputes.
+//
+// K5: d_out comes from dout [B, N, d]; the previous state's cotangent goes
+// to dprev at the row itself (bwd_gru_tile_bf's dprev); there is no g_loc.
+// At the main shape the GRU tile is 16 rows of 8 warps, 3,568 blocks of
+// K2b's 68,096 bytes, three an SM; the input tile 32 rows, 1,784 blocks;
+// the weight launch K2b's tiles with three jobs, 28 tiles by 16 ranges (448
+// blocks of 128 threads). No atomics; the weight sums go to per-range
+// copies reduced in a fixed order by the float32 build's reduction, so
+// runs repeat bit for bit.
 #define TK_BF16 1
-#define final_layer_launch final_layer_launch_bf16
 #define final_scores_launch final_scores_launch_bf16
 #define final_loss_reduce_launch final_loss_reduce_launch_bf16
 #define final_dq_launch final_dq_launch_bf16
@@ -42,6 +54,42 @@
 #include "window_bf16.cuh"
 
 namespace {
+
+// K3's layer block in bfloat16: kFinalBfWarps warps of 16 columns, so one
+// slab of all d = 128 columns of every gate, two blocks an SM.
+constexpr int kFinalBfWarps = 8;
+constexpr int kFinalBfBlocks = 2;
+
+// One encoder layer of the final step for the 32-row tile blockIdx.x /
+// slabs of element blockIdx.y at slab blockIdx.x % slabs of every gate
+// (fwd_layer_tile_bf: one step of all N rows against the dense history);
+// layer 2 also applies the select (active[row] <= 0 keeps the input row
+// sel_x, float32).
+__global__ void __launch_bounds__(kFinalBfWarps * kWarp, kFinalBfBlocks)
+    final_layer_kernel(Layer p, const float* __restrict__ sel_x,
+                       const float* __restrict__ active,
+                       float* __restrict__ out, int slabs) {
+  const int d = p.d;
+  const int a0 = (blockIdx.x / slabs) * kBwdRows;
+  const int s0 = (blockIdx.x % slabs) * block_cols();
+  fwd_layer_tile_bf(p, blockIdx.y, a0, s0,
+                    [&](long long row, int c, float h, float) {
+                      out[row * d + c] =
+                          active != nullptr && active[row] <= 0.f
+                              ? sel_x[row * d + c] : h;
+                    });
+}
+
+// The layer launch's slabs a tile and its shape at width d.
+int final_layer_slabs(int d) {
+  return d / (16 * fwd_warps(d, kFinalBfWarps));
+}
+
+Shape final_layer_shape(int B, int N, int d) {
+  const int warps = fwd_warps(d, kFinalBfWarps);
+  return {dim3((N + kBwdRows - 1) / kBwdRows * final_layer_slabs(d), B),
+          warps * kWarp, fwd_layer_bf_smem_bytes(d, warps)};
+}
 
 __global__ void __launch_bounds__(256, 3) final_bwd_gru_kernel(
     Layer p, const bf16* __restrict__ wih, const bf16* __restrict__ whh,
@@ -71,6 +119,31 @@ __global__ void __launch_bounds__(kWgThreads, 4) final_wgrad_kernel(
 }
 
 }  // namespace
+
+// x, loopw, wih_t, whh_t and prev bfloat16; sel_x and out float32.
+extern "C" int final_layer_launch_bf16(
+    const void* x, const void* rowptr, const void* src, const void* rel,
+    const void* em, const void* wrel, int wstride, int wcol,
+    const void* loopw, const void* mask, const void* wih_t,
+    const void* whh_t, const void* bih, const void* bhh, const void* dt,
+    float lam, const void* prev, const void* sel_x, const void* active,
+    void* out, int B, int N, int d, void* stream) {
+  if (B > 0 && N > 0) {
+    const Layer p = make_layer(x, 0, rowptr, src, rel, em, wrel, wstride,
+                               wcol, loopw, mask, 0, wih_t, whh_t, bih, bhh,
+                               nullptr, nullptr, dt, lam, prev, 1, N, d, 0,
+                               1);
+    const Shape s = final_layer_shape(B, N, d);
+    cudaError_t err = allow_smem(final_layer_kernel, s.bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    final_layer_kernel<<<s.grid, s.threads, s.bytes,
+                         static_cast<cudaStream_t>(stream)>>>(
+        p, static_cast<const float*>(sel_x),
+        static_cast<const float*>(active), static_cast<float*>(out),
+        final_layer_slabs(d));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x, loopw, wih_t, whh_t, wih, whh and prev bfloat16; conv_s and h0g_s
 // bfloat16 scratch.
@@ -162,10 +235,10 @@ extern "C" int final_wgrad_launch_bf16(
 }
 
 // The launch shape and occupancy of K5's bfloat16 kernel `which` (0 its GRU
-// tile, 1 its input tile, 2 its weight launch) at width d: out[0] its shared
-// memory a block in bytes, out[1] its threads, out[2] the blocks an SM
-// holds, out[3] its registers a thread, out[4] its local memory a thread in
-// bytes.
+// tile, 1 its input tile, 2 its weight launch) or of K3's bfloat16 layer
+// launch (3) at width d: out[0] its shared memory a block in bytes, out[1]
+// its threads, out[2] the blocks an SM holds, out[3] its registers a
+// thread, out[4] its local memory a thread in bytes.
 extern "C" int final_bf16_occupancy(int which, int d, void* out) {
   int* o = static_cast<int*>(out);
   switch (which) {
@@ -182,6 +255,11 @@ extern "C" int final_bf16_occupancy(int which, int d, void* out) {
     case 2:
       return static_cast<int>(occupancy(final_wgrad_kernel, kWgThreads,
                                         kWgSmemBytesBf, o, 5));
+    case 3: {
+      const Shape s = final_layer_shape(1, 1, d);
+      return static_cast<int>(
+          occupancy(final_layer_kernel, s.threads, s.bytes, o, 5));
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

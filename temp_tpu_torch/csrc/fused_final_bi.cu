@@ -29,17 +29,13 @@
 // ranges (bi_wgrad, the window's weight tiles with six jobs), their ordered
 // sum, and the relation sum. Layer 1 runs without the ReLU and the blend.
 //
-// Compiled a second time as fused_final_bi_bf16.cu, with TK_BF16 1: K6+K7's
-// launcher in its bfloat16 mode (bi_layer_launch_bf16), the TPU kernels'
-// bfloat16 instantiation (dtype_str "bfloat16"); K9+K10's bfloat16 mode is
-// that source's own, on window_bf16.cuh. The tile rounds as
-// rgcn_gru_layer.cuh says (the SpMM's source rows, relation weights and
-// messages, every product operand); both directions' histories and both
-// local tables are bfloat16 in device memory (prev_at, copy_prev,
-// local_at), widened to float32 as the TPU kernels' casts do, and the blend,
-// the decay, the GRUs' elementwise parts stay float32. The input and the
-// layer's output stay float32, as the TPU programs' outputs are. K8 and K4
-// are then K3's and K4's launches in their bfloat16 mode
+// Compiled a second time as fused_final_bi_bf16.cu, with TK_BF16 1, for
+// the helpers that source's own K6+K7 and K9+K10 share with this one
+// (BiRows, gin_at, local_at: both directions' histories and both local
+// tables are bfloat16 in device memory there, widened to float32 as the
+// TPU kernels' casts do); both kernels' bfloat16 modes are that source's,
+// on window_bf16.cuh, and this source's kernels and launchers are float32
+// only. K8 and K4 are then K3's and K4's launches in their bfloat16 mode
 // (fused_final_bf16.cu).
 //
 // What bounds them on an H100: arithmetic. Per layer and element the
@@ -106,6 +102,10 @@ __device__ __forceinline__ float gin_at(const Layer& pf, const Layer& pb,
   return wf * local_at(q.hl_f, e) + wb * local_at(q.hl_b, e)
          + (1.f - wf - wb) * cv;
 }
+
+// K6+K7 and K9+K10 in float32 only: their bfloat16 mode is
+// fused_final_bi_bf16.cu's own native kernels (window_bf16.cuh).
+#if !TK_BF16
 
 // Shared memory of the bidirectional tiles in floats: the ring of three
 // gate windows, then four [kBwdRows, d + 4] regions: xs (the input rows),
@@ -198,10 +198,6 @@ __global__ void __launch_bounds__(256, 2) bi_layer_kernel(
         out[row * d + c] = v;
       }
 }
-
-// K9+K10 in float32 only: their bfloat16 mode is fused_final_bi_bf16.cu's
-// own native kernels (window_bf16.cuh).
-#if !TK_BF16
 
 // One direction's GRU backward for the tile: its gates from the GRU input
 // cs and its decayed states hs (gate_products), the gate cotangents into
@@ -477,6 +473,7 @@ BiRows make_rows(const void* active, const void* hl_f, const void* hl_b,
 
 }  // namespace
 
+#if !TK_BF16
 extern "C" int bi_layer_launch(
     const void* x, const void* rowptr, const void* src, const void* rel,
     const void* em, const void* wrel, int wstride, int wcol,
@@ -506,7 +503,6 @@ extern "C" int bi_layer_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-#if !TK_BF16
 extern "C" int bi_bwd_gru_launch(
     const void* x, const void* rowptr, const void* src, const void* rel,
     const void* em, const void* wrel, int wstride, int wcol,

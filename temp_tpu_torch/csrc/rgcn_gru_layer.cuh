@@ -31,28 +31,29 @@
 // beside it.
 //
 // The bfloat16 mode. A source that defines TK_BF16 to 1 before it includes
-// this header (fused_final_bf16.cu, fused_final_bi_bf16.cu: fused_final.cu
-// and fused_final_bi.cu compiled again for K3, K4, K6+K7 and K8;
-// fused_window_bf16.cu and the native K5 and K9+K10 in those two sources,
-// for the SpMM, the layer description and the shared helpers only) gets
-// every routine here in the mode of the TPU kernels' bfloat16
-// instantiation (temp_tpu/ops/fused_final.py, fused_final_bi.py,
-// fused_window.py with dtype_str "bfloat16"): each product operand rounded
-// to bfloat16 (to nearest even) and kept as a float whose low 16 bits are
-// zero, exact in TF32, so ONE mma.sync TF32 product a k8 step (split_tf32,
-// mma3) gives the bfloat16 product with float32 sums; the SpMM rounds each
-// gathered source row, relation weight and message (spmm_rows), where the
-// TPU kernels' one-hot products round them; the previous states (the final
-// step's history) are bfloat16 in device memory (prev_at), and a layer's
-// input may be (x_at, Layer::x_bf16). What bounds K3's, K4's, K6+K7's and
-// K8's bfloat16 modes: TF32's 495 TFLOP/s, half of the tensor cores'
-// bfloat16 rate, with every operand rounded again at every k8 step by
-// every warp that loads it, and float32 staging. The backward tiles
-// (bwd_gru_tile, bwd_input_tile, wgrad_tile) have no bfloat16 mode: the
-// window's (K2b) and the final step's (K5, K9+K10) bfloat16 backward left
-// this design for window_bf16.cuh's, which stages its operands once as
-// bfloat16 and multiplies them by mma.sync m16n8k16 bf16 (its note); K3's,
-// K4's, K6+K7's and K8's modes may follow it.
+// this header (fused_final_bf16.cu: fused_final.cu compiled again for K3's
+// score launch, K4 and K8; fused_window_bf16.cu, and the native K3 layer
+// launches, K5, K6+K7 and K9+K10 in fused_final_bf16.cu and
+// fused_final_bi_bf16.cu, for the SpMM, the layer description and the
+// shared helpers only) gets the routines that mode still uses in the mode
+// of the TPU kernels' bfloat16 instantiation (temp_tpu/ops/fused_final.py,
+// fused_final_bi.py, fused_window.py with dtype_str "bfloat16"): each
+// product operand of the score and cotangent products rounded to bfloat16
+// (to nearest even) and kept as a float whose low 16 bits are zero, exact
+// in TF32, so ONE mma.sync TF32 product a k8 step (split_tf32, mma3) gives
+// the bfloat16 product with float32 sums; the SpMM rounds each gathered
+// source row, relation weight and message (spmm_rows), where the TPU
+// kernels' one-hot products round them, and reads a bfloat16 layer input
+// (x_at, Layer::x_bf16). What bounds K3's score launch, K4 and K8 in
+// bfloat16: TF32's 495 TFLOP/s, half of the tensor cores' bfloat16 rate,
+// with every operand rounded again at every k8 step by every warp that
+// loads it, and float32 staging. The layer tiles (load_tile, conv_rows_tc,
+// gate_products, fwd_layer_tile and the backward tiles bwd_gru_tile,
+// bwd_input_tile, wgrad_tile) exist in float32 only: every bfloat16 layer
+// launch (K2f, K2b, K3's layers, K5, K6+K7, K9+K10, and K11's and K12's
+// layers, which are K3's and K2f's) runs window_bf16.cuh's routines, which
+// stage their operands once as bfloat16 and multiply them by mma.sync
+// m16n8k16 bf16 (its note).
 
 #pragma once
 
@@ -143,20 +144,13 @@ struct Layer {
   int x_bf16;           // x is bfloat16 (the bfloat16 mode only)
 };
 
-// Element i of the layer's input and of its previous states, as floats.
+// Element i of the layer's input, as a float.
 __device__ __forceinline__ float x_at(const Layer& p, long long i) {
   if constexpr (kBf16) {
     if (p.x_bf16)
       return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p.x)[i]);
   }
   return p.x[i];
-}
-
-__device__ __forceinline__ float prev_at(const Layer& p, long long i) {
-  if constexpr (kBf16)
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p.prev)[i]);
-  else
-    return p.prev[i];
 }
 
 // The row of prev that holds row `row`'s previous state, and its liveness.
@@ -169,6 +163,9 @@ __device__ __forceinline__ long long prev_row(const Layer& p,
 __device__ __forceinline__ float live_of(const Layer& p, long long row) {
   return p.live != nullptr ? p.live[row] : 1.f;
 }
+
+// The float32 tiles' loads (the bfloat16 mode's are window_bf16.cuh's).
+#if !TK_BF16
 
 // A window row's (or a final-step row's) previous state: where it starts
 // in prev, and the live and decay factors it is scaled by.
@@ -204,26 +201,6 @@ __device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
       mine.dec = expf(-p.lam * p.dt[row]);
     }
   }
-  if constexpr (kBf16) {
-    // bfloat16 rows (the previous states, maybe the input) read by loads
-    // that widen them, a warp a row
-    for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
-      const bool in = a0 + r < A;
-      const long long xr = (step_row + (in ? a0 + r : 0)) * d;
-      const long long pr = __shfl_sync(kAll, mine.off, i);
-      const float lv = __shfl_sync(kAll, mine.live, i);
-      const float dec = __shfl_sync(kAll, mine.dec, i);
-      for (int c = lane; c < d; c += kWarp) {
-        const float xv = in ? x_at(p, xr + c) : 0.f;
-        xs[r * ld + c] = xv;
-        if (p.conv_given) cs[r * ld + c] = xv;
-        if (hs != nullptr)
-          hs[r * ld + c] = in ? prev_at(p, pr + c) * lv * dec : 0.f;
-      }
-    }
-    __syncwarp();
-    return;
-  }
   for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
     const bool in = a0 + r < A;
     const float* xr = p.x + (step_row + (in ? a0 + r : 0)) * d;
@@ -252,10 +229,7 @@ __device__ __forceinline__ void load_tile(const Layer& p, int b, int a0,
 // copies by cp.async and commits them; decay_prev waits for every copy of
 // the thread, then scales the rows by live * exp(-lambda * dt). Between
 // the two the block may compute on other regions, so the copies run under
-// that work. No barrier at the end of either. The bfloat16 mode reads the
-// bfloat16 states by loads that widen them (prev_at), so its copy_prev
-// returns with the rows in place and decay_prev only scales them: the
-// products (prev * live) * decay of load_tile's bfloat16 mode.
+// that work. No barrier at the end of either.
 __device__ __forceinline__ void copy_prev(const Layer& p, int b, int a0,
                                           int nrows, int ld, float* hs) {
   constexpr unsigned kAll = 0xffffffffu;
@@ -268,15 +242,6 @@ __device__ __forceinline__ void copy_prev(const Layer& p, int b, int a0,
   {
     const int r = warp + lane * nwarps, a = a0 + r;
     if (r < nrows && a < A) off = prev_row(p, elem_row, step_row + a) * d;
-  }
-  if constexpr (kBf16) {
-    for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
-      const bool in = a0 + r < A;
-      const long long pr = __shfl_sync(kAll, off, i);
-      for (int c = lane; c < d; c += kWarp)
-        hs[r * ld + c] = in ? prev_at(p, pr + c) : 0.f;
-    }
-    return;
   }
   for (int r = warp, i = 0; r < nrows; r += nwarps, ++i) {
     const bool in = a0 + r < A;
@@ -311,6 +276,8 @@ __device__ __forceinline__ void decay_prev(const Layer& p, int b, int a0,
       hs[r * ld + c] = hs[r * ld + c] * lv * dc;
   }
 }
+
+#endif  // !TK_BF16
 
 // The relational SpMM with double degree normalization of rows
 // a0..a0+nrows-1 of element b (one warp a row) into cs (row stride ld);
@@ -415,11 +382,11 @@ __device__ __forceinline__ void spmm_rows(const Layer& p, int b, int a0,
 // rounded hi halves the error there (tests/test_torch_tf32x3.py holds a
 // model of both to float64). The rounding conversions are the costly part:
 // without them K5 took 3.28 ms where it took 3.70 on an H100 (PERF.md). In
-// the bfloat16 mode (TK_BF16: K3, K4, K6+K7, K8) split_tf32 rounds each
-// operand to bfloat16 and mma3 issues one TF32 product of them, so a
+// the bfloat16 mode (TK_BF16: K3's score launch, K4, K8) split_tf32 rounds
+// each operand to bfloat16 and mma3 issues one TF32 product of them, so a
 // product loop converts every fragment element at every k8 step: the cost
-// that window_bf16.cuh's native bfloat16 products remove for K2, K5 and
-// K9+K10.
+// that window_bf16.cuh's native bfloat16 products remove for the layer
+// launches (K2, K3's layers, K5, K6+K7, K9+K10).
 
 constexpr int kBwdRows = 32;               // rows a tensor-core tile
 constexpr int kMTiles = kBwdRows / 16;     // m16 tiles a warp: all the rows
@@ -595,6 +562,9 @@ __host__ __device__ constexpr int ring_floats(int G, int d) {
   return kRingSlots * kKs * (G * d + 8);
 }
 
+// The float32 tiles' products (the bfloat16 mode's are window_bf16.cuh's).
+#if !TK_BF16
+
 // The block's product routine: acc[Slot_g] += A @ W_g for g < G, over the
 // warp's 16 columns of each W_g. A: kBwdRows rows in shared memory
 // (row-major, row stride lda, depth column 0 at a); W_g: [K, d] windows in
@@ -671,9 +641,13 @@ __device__ __forceinline__ void zero_acc(float (&acc)[NA][kMTiles][2][4]) {
         for (int i = 0; i < 4; ++i) acc[j][mt][nt][i] = 0.f;
 }
 
+#endif  // !TK_BF16
+
 // The columns of a tensor-core tile's block at a time: 16 a warp, so all d
 // with the backward tiles' d / 16 warps, a slab with fewer (K2f).
 __device__ __forceinline__ int block_cols() { return blockDim.x / 2; }
+
+#if !TK_BF16
 
 // The conv output of a tile of kBwdRows rows (a0.. of element b; its input
 // rows loaded in xs) into cs (row stride ld): the SpMM rows, then + (xs @
@@ -727,6 +701,8 @@ __device__ __forceinline__ void gate_products(
   const float* wh[3] = {whh_t + s0, whh_t + d + s0, whh_t + 2 * d + s0};
   tile_product<4, 0, 1, 3>(hs, ld, d, wh, 3 * d, w, ring, acc);
 }
+
+#endif  // !TK_BF16
 
 // The gates at an accumulator position of gate_products.
 struct GateAt {
@@ -782,6 +758,10 @@ __host__ __device__ constexpr int fwd_warps(int d, int max_warps) {
   return w;
 }
 
+// The float32 forward and backward tiles (the bfloat16 mode's are
+// window_bf16.cuh's native ones).
+#if !TK_BF16
+
 // Shared memory of fwd_layer_tile in floats: the ring of three gate windows
 // of the slab, then xs, cs and hs ([kBwdRows, d + 4] each).
 __host__ __device__ constexpr int fwd_layer_smem_floats(int d, int warps) {
@@ -824,10 +804,6 @@ __device__ __forceinline__ void fwd_layer_tile(const Layer& p, int b, int a0,
             cs[r * ld + c]);
       }
 }
-
-// The backward tiles (bwd_gru_tile, bwd_input_tile, wgrad_tile) exist in
-// float32 only: the bfloat16 mode's are window_bf16.cuh's native ones.
-#if !TK_BF16
 
 // Shared memory of bwd_gru_tile in floats: the ring of three gate windows,
 // then the tile region: xs, cs, hs ([kBwdRows, d + 4] each), later dg
@@ -1244,8 +1220,6 @@ cudaError_t launch_wgrad(K kernel, const WJobs& jobs, int tiles, int n_split,
   return cudaGetLastError();
 }
 
-#endif  // !TK_BF16
-
 // A whole-width tile launch (the backward tiles, or the flagship's forward
 // bi_layer_kernel, in `kernel`) over (row tile, element), d / 16 warps,
 // `floats` of shared memory.
@@ -1260,6 +1234,8 @@ cudaError_t launch_bwd_tile(K kernel, int floats, int B, int A, int d,
   kernel<<<grid, 2 * d, bytes, static_cast<cudaStream_t>(stream)>>>(args...);
   return cudaGetLastError();
 }
+
+#endif  // !TK_BF16
 
 Layer make_layer(const void* x, int conv_given, const void* rowptr,
                  const void* src, const void* rel, const void* em,

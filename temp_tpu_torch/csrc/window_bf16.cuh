@@ -1,13 +1,14 @@
 // The native bfloat16 products of the tensor cores: the device routines of
 // the history window's bfloat16 mode (K2f and K2b, fused_window_bf16.cu)
-// and of the final step's bfloat16 backward (K5, fused_final_bf16.cu, on
-// K2b's tiles at one step; K9+K10, fused_final_bi_bf16.cu, on K2b's
-// routines), each source including this header after rgcn_gru_layer.cuh
-// with TK_BF16 1.
+// and of the final step's bfloat16 layers (K3's layer launches and K5,
+// fused_final_bf16.cu, on K2f's and K2b's tiles at one step; K6+K7 and
+// K9+K10, fused_final_bi_bf16.cu, on K2b's routines), each source
+// including this header after rgcn_gru_layer.cuh with TK_BF16 1.
 //
 // What they compute is the TPU kernels' bfloat16 instantiation
 // (temp_tpu/ops/fused_window.py _fwd_kernel, _bwd_kernel, fused_final.py
-// _bwd_layer_kernel, fused_final_bi.py _gru_bwd_bi_kernel,
+// _fwd_kernel's encoder, _bwd_layer_kernel, fused_final_bi.py
+// _conv_fwd_bi_kernel, _gru_fwd_bi_kernel, _gru_bwd_bi_kernel,
 // _conv_bwd_bi_kernel with dtype_str "bfloat16"): every product
 // _dot(x.astype(bf16), w.astype(bf16), preferred_element_type=f32). A product of two bfloat16 values is exact in
 // float32, so mma.sync m16n8k16 with bfloat16 operands and float32

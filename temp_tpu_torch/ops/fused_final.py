@@ -45,10 +45,13 @@ cotangents where the JAX kernel casts them; K5 is K2b's bfloat16 layer. On
 the card the same launches of the kernels in their bfloat16 mode
 (``csrc/fused_final_bf16.cu``): K3's score launch then scores both query
 sets (the forward's, and the backward's from the rounded table, whose
-log-sum-exp K4 reads), so the launch counts stay those of float32; K5's
-launches are K2b's native bfloat16 kernels at one step, to which the
-wrapper hands the layer's input and the weights rounded once
-(``ops/fused_window`` ``operand``, ``layer_operands``).
+log-sum-exp K4 reads), so the launch counts stay those of float32; K3's
+layer launches are K2f's native bfloat16 kernel at one step and K5's
+K2b's, to which the wrappers hand each layer's input and the weights
+rounded once (``ops/fused_window`` ``operand``, ``layer_operands``; K3
+rounds layer 1's output into layer 2's input between its two launches),
+so K5 recomputes the conv output and the gates of K3's layers bit for
+bit.
 
 ``fused_eval_ranks`` (K11) computes what the JAX package's
 ``fused_eval_ranks`` returns for each of B eval targets: the final step in
@@ -74,8 +77,8 @@ import torch
 
 from temp_tpu_torch import _build
 from temp_tpu_torch.ops.fused_window import (
-    _device, _gru_t, _lib_fn, hot_mm, layer_operands, operand,
-    spmm_hot_plain,
+    _device, _gru_t, _lib_fn, hot_mm, kernel_operands, layer_operands,
+    operand, spmm_hot_plain,
 )
 from temp_tpu_torch.ops.gru import hot_round
 from temp_tpu_torch.ops.membership import true_answer_mask
@@ -498,28 +501,46 @@ def final_csr(gr: FinalGraph, N: int, n_rels: int):
     return by_dst, by_src, (r_ptr[:n_rels + 1], r_eid), (r_ptr[n_rels:], r_eid)
 
 
+def _layer_operands(h0x, loop1, loop2, g1, g2, out1, hot=None) -> tuple:
+    """What K3's layer launches (and K11's) read of the layers' inputs and
+    weights: (x1, x2, w1, w2), x1 and w1/w2 ``kernel_operands``' (in the
+    bfloat16 mode h0x and the weights rounded once), x2 layer 2's input:
+    out1 itself in float32, in the bfloat16 mode a buffer that
+    ``_layer_launches`` fills with out1 rounded once between the launches
+    (the JAX kernel reads layer 2's input only as ``astype(bfloat16)``)."""
+    x1, w1, w2 = kernel_operands(h0x, loop1, loop2, g1, g2, hot)
+    x2 = out1 if hot is None else torch.empty_like(out1, dtype=hot)
+    return x1, x2, w1, w2
+
+
 def _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr: FinalGraph,
-                    by_dst, wrel, loop1, loop2, g1, g2, out1, table,
-                    hot=None):
+                    by_dst, wrel, ops, g1, g2, out1, table, hot=None):
     """The final step's two encoder layers as two launches of
-    ``final_layer_kernel`` (K3's, and K11's encoder): layer 1 from h0x
-    [B, N, d] into out1, layer 2 from out1 into table, with the select where
+    ``final_layer_kernel`` (K3's, and K11's encoder): layer 1 into out1,
+    layer 2 from out1 into table, with the select (of h0x's rows) where
     gr.active is given; `by_dst` is the SpMM's CSR (``final_csr``'s first);
-    `launched(err, what)` checks and counts each launch; `hot` picks the
-    kernel's mode (bfloat16: the histories in bfloat16)."""
+    `ops` the inputs and weights as the kernels read them
+    (``_layer_operands``; g1/g2 give the biases); `launched(err, what)`
+    checks and counts each launch; `hot` picks the kernel's mode (bfloat16:
+    the histories in bfloat16)."""
     B, N, d = hist1.shape
     rowptr, s_src, s_rel, s_em = by_dst
+    x1, x2, w1, w2 = ops
     p = _p
     launch = _lib_fn(lib, "final_layer_launch", hot)
-    for x, col, loop, m, g, prev, sel, out in (
-            (h0x, 0, loop1, gr.m1, g1, hist1, None, out1),
-            (out1, d, loop2, gr.m2, g2, hist2, gr.active, table)):
+
+    def layer(x, col, w, m, g, prev, sel, out):
         launched(launch(
             p(x), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d,
-            col, p(loop), p(m), p(g["wih_t"]), p(g["whh_t"]), p(g["bih"]),
-            p(g["bhh"]), p(gr.dt), float(gr.lam), p(prev),
+            col, p(w["loop"]), p(m), p(w["wih_t"]), p(w["whh_t"]),
+            p(g["bih"]), p(g["bhh"]), p(gr.dt), float(gr.lam), p(prev),
             p(h0x if sel is not None else None), p(sel), p(out), B, N, d,
             stream), f"layer {1 + col // d}")
+
+    layer(x1, 0, w1, gr.m1, g1, hist1, None, out1)
+    if x2 is not out1:
+        x2.copy_(out1)
+    layer(x2, d, w2, gr.m2, g2, hist2, gr.active, table)
 
 
 def fused_final_fwd(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
@@ -584,6 +605,7 @@ def _fwd_prepare(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
     h0x = h0.expand(B, N, d).contiguous()
     out1 = torch.empty(B, N, d, **f32)
     table = torch.empty(B, N, d, **f32)
+    ops = _layer_operands(h0x, loop1, loop2, g1, g2, out1, hot)
     variants = () if hot is None else (2,)
     part_m = torch.empty(*variants, B, 2, _N_SPLIT, E, **f32)
     part_s = torch.empty(*variants, B, 2, _N_SPLIT, E, **f32)
@@ -605,7 +627,7 @@ def _fwd_prepare(h0, hist1, hist2, gr: FinalGraph, wrel, loop1, loop2, g1,
 
     def layers():
         _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr, csr[0],
-                        wrel, loop1, loop2, g1, g2, out1, table, hot)
+                        wrel, ops, g1, g2, out1, table, hot)
 
     answers = (p(gr.tail_ptr), p(gr.tail_ans), p(gr.head_ptr),
                p(gr.head_ans))
@@ -1172,6 +1194,7 @@ def _eval_prepare(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
     h0x = h0.expand(B, N, d).contiguous()
     out1 = torch.empty(B, N, d, device=dev, dtype=torch.float32)
     table = torch.empty(B, N, d, device=dev, dtype=torch.float32)
+    ops = _layer_operands(h0x, loop1, loop2, g1, g2, out1, hot)
     rank, reduce, out = _ranks_prepare(table, rtab, q)
     lib = _build.lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1182,7 +1205,7 @@ def _eval_prepare(h0, hist1, hist2, gr: FinalGraph, q: EvalQueries, wrel,
 
     def layers():
         _layer_launches(lib, stream, launched, h0x, hist1, hist2, gr, by_dst,
-                        wrel, loop1, loop2, g1, g2, out1, table, hot)
+                        wrel, ops, g1, g2, out1, table, hot)
 
     return layers, rank, reduce, out, table
 

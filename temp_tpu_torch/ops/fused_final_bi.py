@@ -46,9 +46,10 @@ table. The backward's plain version in bfloat16 is autograd through the
 forward built of those cast points, whose backward is the JAX kernels'.
 On the card the same launches of the kernels in their bfloat16 mode
 (``csrc/fused_final_bi_bf16.cu``, ``csrc/fused_final_bf16.cu``), the same
-number of launches; K9+K10's are native bfloat16 kernels on K2b's
-routines, to which the wrapper hands the layer's input and the weights
-rounded once (``ops/fused_window`` ``operand``, ``gru_operands``).
+number of launches; K6+K7's and K9+K10's are native bfloat16 kernels on
+K2b's routines, to which the wrappers hand the layer's input and the
+weights rounded once (``ops/fused_window`` ``operand``, ``gru_operands``),
+so K9+K10 recompute the GRU input and the gates of K6+K7 bit for bit.
 """
 
 from __future__ import annotations
@@ -389,14 +390,19 @@ def _bi_layer_launch(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int,
         final_csr(gr, N, wrel.shape[0]) if csr is None else csr)
     out = torch.empty(B, N, d, device=prev_f.device, dtype=torch.float32)
     hl_f, hl_b = (None, None) if hl is None else hl
+    # the layer's input and the weights as the kernel reads them: in the
+    # bfloat16 mode each rounded once (the JAX kernels read them only so)
+    xk, loopk = operand(xx, hot), operand(loop, hot)
+    wf, wb = gru_operands(gf, hot), gru_operands(gb, hot)
     p = _p
     err = _lib_fn(_build.lib(), "bi_layer_launch", hot)(
-        p(xx), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d, col,
-        p(loop), p(mask), int(relu), *(p(gf[k]) for k in _GRU_PARTS),
-        *(p(gb[k]) for k in _GRU_PARTS), p(gr.dt), p(bg.dt_b),
-        float(gr.lam), p(prev_f), p(prev_b), p(gr.active), p(hl_f), p(hl_b),
-        p(imp), p(sel_x), p(out), p(gin), B, N, d,
-        torch.cuda.current_stream(prev_f.device).cuda_stream)
+        p(xk), p(rowptr), p(s_src), p(s_rel), p(s_em), p(wrel), 2 * d, col,
+        p(loopk), p(mask), int(relu),
+        *(p(t) for g, w in ((gf, wf), (gb, wb))
+          for t in (w["wih_t"], w["whh_t"], g["bih"], g["bhh"])),
+        p(gr.dt), p(bg.dt_b), float(gr.lam), p(prev_f), p(prev_b),
+        p(gr.active), p(hl_f), p(hl_b), p(imp), p(sel_x), p(out), p(gin),
+        B, N, d, torch.cuda.current_stream(prev_f.device).cuda_stream)
     _build.check(err, "bi_layer_fwd")
     bi_layer_fwd.launches += 1
     return out
@@ -407,9 +413,10 @@ def bi_gru_input(x, prev_f, prev_b, bg: BiGraph, mask, wrel, col: int, loop,
                  hot=None):
     """The GRU input [B, N, d] of one layer (arguments as in
     ``bi_layer_fwd``): its conv output after the ReLU and, on the inactive
-    rows, the impute blend. On the card as K6+K7's launch forms it (one
-    launch, counted on ``bi_layer_fwd.launches``), which K9+K10's recompute
-    must equal bit for bit; on the CPU the plain version's."""
+    rows, the impute blend, float32. On the card as K6+K7's launch forms it
+    (one launch, counted on ``bi_layer_fwd.launches``), which K9+K10's
+    recompute must equal bit for bit (in the bfloat16 mode, rounded to
+    bfloat16 as K9+K10 store it); on the CPU the plain version's."""
     if _device("bi_layer_fwd", prev_f) == "cpu":
         return _rows_plain(x, prev_f, prev_b, bg, mask, wrel, col, loop,
                            relu, hl, imp, hot)[1]

@@ -255,16 +255,19 @@ def _float32_only(src: str, name: str) -> bool:
 
 @pytest.mark.parametrize("source,base,names,query", [
     ("fused_final_bf16.cu", "fused_final.cu",
-     ("final_bwd_gru_launch", "final_bwd_input_launch",
-      "final_wgrad_launch"), "final_bf16_occupancy"),
+     ("final_layer_launch", "final_bwd_gru_launch",
+      "final_bwd_input_launch", "final_wgrad_launch"),
+     "final_bf16_occupancy"),
     ("fused_final_bi_bf16.cu", "fused_final_bi.cu",
-     ("bi_bwd_gru_launch", "bi_wgrad_launch"), "bi_bf16_occupancy")])
+     ("bi_layer_launch", "bi_bwd_gru_launch", "bi_wgrad_launch"),
+     "bi_bf16_occupancy")])
 def test_native_launchers_match_the_build(source, base, names, query):
-    """K5's (K9+K10's) bfloat16 source defines its launchers ``name_bf16``
-    itself with as many parameters as ``_build.SIGNATURES[name]``, every
-    one in ``BF16_LAUNCHERS``, and the occupancy query; its float32 source
-    defines ``name`` for float32 only (its TK_BF16 compile, which the
-    bfloat16 source includes, leaves them out)."""
+    """K3's layer launch and K5's (K6+K7's and K9+K10's) bfloat16 source
+    defines its launchers ``name_bf16`` itself with as many parameters as
+    ``_build.SIGNATURES[name]``, every one in ``BF16_LAUNCHERS``, and the
+    occupancy query; its float32 source defines ``name`` for float32 only
+    (its TK_BF16 compile, which the bfloat16 source includes, leaves them
+    out)."""
     bf = _extern_c(_read(source))
     f32_src = _read(base)
     f32 = _extern_c(f32_src)

@@ -2240,3 +2240,139 @@ def test_predictions_cli_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert not (diff[bi, b] & ~tied).any()
         near += int((diff[bi, b] & tied).sum())
     assert int(diff.sum()) == near
+
+
+# -- the final step's bfloat16 forward layers (K3's layer launch, K6+K7) -----
+
+BF16_RULE = 0.1
+
+
+def _bf16_ok(got, plain_bf, plain_f32):
+    """The bfloat16 rule: RMS(kernel - plain bfloat16) at most BF16_RULE of
+    RMS(plain float32 - plain bfloat16) on the same inputs, the distance
+    between the two precisions being the yardstick (the kernel and the
+    plain version round at the same points and differ by float32 sums in
+    another order); (ok, gap, yardstick)."""
+    def rms(x):
+        return float(x.double().pow(2).mean().sqrt())
+
+    gap, yard = rms(got - plain_bf), rms(plain_f32 - plain_bf)
+    return gap <= BF16_RULE * yard, gap, yard
+
+
+def _bf16_final_args(w, gr):
+    """K3's arguments with both histories rounded to bfloat16."""
+    h1, h2 = (w[k].to(torch.bfloat16).contiguous() for k in ("hist1",
+                                                             "hist2"))
+    return (w["h0"], h1, h2, gr, w["wrel"], w["loop1"], w["loop2"], w["g1"],
+            w["g2"], w["rtab"])
+
+
+@pytest.mark.parametrize("noact", [False, True])
+@pytest.mark.parametrize("N,d,B,R,per,pad", _FINAL_SHAPES)
+def test_final_layer_bf16_matches_plain_and_repeats(cuda, noact, N, d, B, R,
+                                                    per, pad):
+    """K3 in bfloat16 (its layer launches on native bfloat16 products, its
+    score launch): out1 and the table within the bfloat16 rule of the
+    plain bfloat16 version (the plain float32 version on the same
+    histories the yardstick), with and without the select, at the main
+    shape, at d = 32 and at a ragged N with d = 16; four launches a call;
+    two runs bit-equal."""
+    BF = torch.bfloat16
+    gr, w = _final_case(N, d, cuda, B=B, noact=noact, num_rels=R,
+                        edges_per_time=per, pad=pad)
+    args = _bf16_final_args(w, gr)
+    before = fused_final_fwd.launches
+    loss, saved = fused_final_fwd(*args, hot=BF)
+    again, saved2 = fused_final_fwd(*args, hot=BF)
+    torch.cuda.synchronize()
+    assert fused_final_fwd.launches == before + 8
+    for k in ("table", "out1", "qhat", "lse"):
+        assert torch.equal(saved[k], saved2[k]), k
+    assert torch.equal(loss, again)
+    _, tb, o1b = fused_final_fwd_plain(*args, hot=BF)
+    _, tf, o1f = fused_final_fwd_plain(*args)
+    for name, got, pb, pf in (("out1", saved["out1"], o1b, o1f),
+                              ("table", saved["table"], tb, tf)):
+        ok, gap, yard = _bf16_ok(got, pb, pf)
+        assert ok, (name, gap, yard)
+
+
+@pytest.mark.parametrize("N,d,B,R,per,pad", _FINAL_SHAPES)
+def test_final_layer_bf16_shares_k2f_and_k5_products(cuda, N, d, B, R, per,
+                                                     pad):
+    """K3's bfloat16 layer launches form the conv output and the gates with
+    the routines of K2f's and K5's bfloat16 launches (fwd_layer_tile_bf:
+    conv_tc_bf, gate_products_bf): K3's layer 2 equals bit for bit K2f's
+    layer on the same rows (one window step whose previous states are the
+    dense history; K2f stores bfloat16, so the table rounded), and K2f's
+    conv output there equals bit for bit the one K5's GRU launch recomputes
+    (its bfloat16 step scratch); chip_smoke.py's ``k3_bf16_shares``."""
+    gr, w = _final_case(N, d, cuda, B=B, num_rels=R, edges_per_time=per,
+                        pad=pad)
+    got = _smoke().k3_bf16_shares(*_bf16_final_args(w, gr))
+    assert got["entries"] == B * N * d
+    assert got["table_vs_k2f"] == 0 and got["conv_k2f_vs_k5"] == 0, got
+
+
+def _bi_bf16(w):
+    """_bi_case's weights with the histories and local tables rounded to
+    bfloat16."""
+    return dict(w, hists=tuple(h.to(torch.bfloat16).contiguous()
+                               for h in w["hists"]))
+
+
+@pytest.mark.parametrize("mode", range(len(_BI_MODES)))
+@pytest.mark.parametrize("N,d,B,R,per,pad", _BI_SHAPES)
+def test_bi_layer_bf16_repeats_and_matches_plain(cuda, mode, N, d, B, R, per,
+                                                 pad):
+    """K6+K7 in bfloat16 on native bfloat16 products, with the ReLU, the
+    impute blend and the select on and off, at the main shape, at d = 32
+    and at a ragged N with d = 16: two runs equal bit for bit, one launch
+    each, and within the bfloat16 rule of the plain bfloat16 version (the
+    plain float32 version on the same histories the yardstick)."""
+    BF = torch.bfloat16
+    relu, impute, select = _BI_MODES[mode]
+    bg, w = _bi_case(N, d, cuda, B=B, noact=select, num_rels=R,
+                     edges_per_time=per, pad=pad)
+    args, kw = _bi_mode_args(bg, _bi_bf16(w), relu, impute, cuda)
+    sel = w["h0"] if select else None
+    before = fb.bi_layer_fwd.launches
+    got = fb.bi_layer_fwd(*args, **kw, sel=sel, hot=BF)
+    again = fb.bi_layer_fwd(*args, **kw, sel=sel, hot=BF)
+    torch.cuda.synchronize()
+    assert fb.bi_layer_fwd.launches == before + 2
+    assert torch.equal(got, again)
+    ok, gap, yard = _bf16_ok(got,
+                             fb.bi_layer_fwd_plain(*args, **kw, sel=sel,
+                                                   hot=BF),
+                             fb.bi_layer_fwd_plain(*args, **kw, sel=sel))
+    assert ok, (gap, yard)
+
+
+@pytest.mark.parametrize("mode", range(len(_BI_MODES)))
+@pytest.mark.parametrize("N,d,B,R,per,pad", _BI_SHAPES)
+def test_bi_layer_bf16_gru_input_equals_the_backward_recompute(
+        cuda, mode, N, d, B, R, per, pad):
+    """K6+K7 and K9+K10's GRU launch in bfloat16 form the layer's GRU input
+    with the same routines (conv_tc_bf, gin_at): the float32 one the
+    forward forms, rounded to bfloat16, equals bit for bit the one the
+    backward recomputes into its weight launch's operands (gin_s), and
+    with the ReLU the forward's conv output takes the backward's branches
+    (chip_smoke.py's ``bi_bf16_recompute``); the GRU input lies within the
+    bfloat16 rule of the plain version's."""
+    BF = torch.bfloat16
+    relu, impute, _ = _BI_MODES[mode]
+    bg, w = _bi_case(N, d, cuda, B=B, num_rels=R, edges_per_time=per,
+                     pad=pad)
+    args, kw = _bi_mode_args(bg, _bi_bf16(w), relu, impute, cuda)
+    d_out = torch.randn(args[1].shape, generator=torch.Generator(
+        device=cuda).manual_seed(7), device=cuda)
+    got = _smoke().bi_bf16_recompute(args, kw, d_out)
+    assert got["entries"] == B * N * d
+    assert got["gin_vs_k9k10"] == 0 and got["relu_fwd_flips"] == 0, got
+    gin = fb.bi_gru_input(*args, **kw, hot=BF)
+    ok, gap, yard = _bf16_ok(
+        gin, fb._rows_plain(*args[:8], relu, kw["hl"], kw["imp"], BF)[1],
+        fb._rows_plain(*args[:8], relu, kw["hl"], kw["imp"])[1])
+    assert ok, (gap, yard)

@@ -286,10 +286,11 @@ def _bf16_backward(cs, ctx, fctx, dev) -> dict:
 _K2B = ("window_bwd_gru", "window_bwd_input", "window_wgrad_kernel")
 
 
-def _default_step(c, steps: int = 6, warm: int = 2) -> dict:
+def _default_step(c, steps: int = 6, warm: int = 2, names=()) -> dict:
     """Training steps of config c with compute_dtype "auto" from the
     smoke's seeded weights and draws: ms a step over `steps` steps after
-    `warm`, then the device time a step over two more traced (``_traced``).
+    `warm`, then the device time a step over two more traced (``_traced``,
+    with the kernels `names` by name besides its own).
     """
     import torch
 
@@ -319,13 +320,13 @@ def _default_step(c, steps: int = 6, warm: int = 2) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
     return {"resolved": model.cfg.compute_dtype, "ms_per_step": ms,
-            **_traced(step, 2)}
+            **_traced(step, 2, names)}
 
 
-def _traced(fn, reps: int) -> dict:
+def _traced(fn, reps: int, names=()) -> dict:
     """Device time a call of fn over `reps` traced calls (after one more):
-    every kernel's ("busy"), the window kernels' by name, the largest five
-    names, and the traced wall."""
+    every kernel's ("busy"), the window kernels' and K5's and K9+K10's by
+    name (and `names`'), the largest five names, and the traced wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -347,7 +348,7 @@ def _traced(fn, reps: int) -> dict:
             per[ev.name] = (t + us / 1e3 / reps, n + 1)
     out = {"traced_wall_ms": wall,
            "busy_ms": sum(t for t, _ in per.values())}
-    for want in dict.fromkeys((_K2F, *_K2B, *_K5, *_BI)):
+    for want in dict.fromkeys((_K2F, *_K2B, *_K5, *_BI, *names)):
         hit = [(t, n) for name, (t, n) in per.items() if want in name]
         out[f"{want}_ms_a_step"] = sum(t for t, _ in hit)
         out[f"{want}_launches_a_step"] = sum(n for _, n in hit) // reps
